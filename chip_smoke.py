@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch port's serving path on one CUDA card.
+"""Smoke test of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,15 +8,28 @@ Phases, each printing one JSON line:
      limit (as nvidia-smi prints them);
   2. build: nvcc compiles resnet_tpu_torch/kernels/csrc into a library;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
-     ResNet-50 serving shapes, TF32 off, within 1e-4 of max|plain|, with
-     both times;
+     ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
+     max|plain|, with its time, the plain version's, a library call's where
+     one computes the same function, and the least time the card could take;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
      statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must
      show 53 conv, 16 add_relu and 1 matmul launches per forward, and the
      logits must match the plain path (cuDNN/cuBLAS, TF32 off) within 1e-3
-     of max|logits|; then the batch-8 forward is timed on both paths.
-Then a JSON line of the kernels, the nvidia-smi line, and the final line
+     of max|logits|; then the batch-8 forward is timed on both paths;
+  5. train: the reference "resnet" variant (ResNet-50, 224^2, batch 32, Adam
+     lr 1e-4) with every hand kernel on (conv, BN statistics, join, FC,
+     fused Adam): 5 steps on one synthetic batch, the counters read after
+     each step (53 conv, 52 dx, 53 dW, 53 moments, 16 add_relu, 16 masks,
+     1 + 2 matmul, 1 adam), the loss after the last update below the first;
+     then one step from the same state on the kernel path and on the plain
+     path (cuDNN/cuBLAS and torch ops, per-tensor Adam) compared leaf by
+     leaf, once with batch statistics and once with BN frozen at the initial
+     running statistics (the well-conditioned check, Adam's updates also
+     element by element); step times of both paths in turns (plain, kernel, kernel, plain),
+     peak memory, and a torch.profiler breakdown of one kernel-path step.
+Then a JSON line of the kernels (launches: the serving and the training
+main paths' counts together), the nvidia-smi line, and the final line
 {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no final
@@ -41,18 +54,50 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
+CSRC = "resnet_tpu_torch/kernels/csrc/"
+# kernel -> (source, the TPU kernel it replaces)
 KERNEL_SOURCES = {
-    "conv2d": ("resnet_tpu_torch/kernels/csrc/conv.cu",
-               "resnet_tpu/kernels/conv.py:42"),
-    "add_relu": ("resnet_tpu_torch/kernels/csrc/add_relu.cu",
-                 "resnet_tpu/kernels/fused.py:26"),
-    "matmul": ("resnet_tpu_torch/kernels/csrc/matmul.cu",
-               "resnet_tpu/kernels/matmul.py:26"),
+    "conv2d": (CSRC + "conv.cu", "resnet_tpu/kernels/conv.py:42"),
+    # dx is the same Pallas conv kernel on the dilated gradient (conv.py:150)
+    "conv2d_dx": (CSRC + "conv.cu", "resnet_tpu/kernels/conv.py:42"),
+    # dW is the Pallas matmul per tap (conv.py:172-196)
+    "conv2d_dw": (CSRC + "conv.cu", "resnet_tpu/kernels/matmul.py:26"),
+    "add_relu": (CSRC + "add_relu.cu", "resnet_tpu/kernels/fused.py:26"),
+    "add_relu_mask": (CSRC + "add_relu.cu", "resnet_tpu/kernels/fused.py:32"),
+    "matmul": (CSRC + "matmul.cu", "resnet_tpu/kernels/matmul.py:26"),
+    "matmul_bwd": (CSRC + "matmul.cu", "resnet_tpu/kernels/matmul.py:26"),
+    "moments": (CSRC + "moments.cu", "resnet_tpu/kernels/bn.py:72"),
+    "adam": (CSRC + "adam.cu", "resnet_tpu/kernels/adam.py:25"),
 }
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
 PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
+# ... and in one training step: no dx for the stem (the images need none);
+# one BN per conv; the FC's da and db; one Adam launch over all tensors
+PER_STEP = {"conv2d": 53, "conv2d_dx": 52, "conv2d_dw": 53, "moments": 53,
+            "add_relu": 16, "add_relu_mask": 16, "matmul": 1, "matmul_bwd": 2,
+            "adam": 1}
 LOGIT_TOL = 1e-3
+# kernel path against the plain path after one training step
+LOSS_TOL = 1e-4  # relative
+# A gradient leaf passes within GRAD_TOL of its max|g|, or within GRAD_SENS
+# times the plain path's own change when the images are scaled by
+# 1 +- 2^-20. The ResNet-50 gradient is that sensitive: with batch-statistics
+# BN this ~8-ulp change alone moves most leaves by 4-15% of their max, at
+# random init, after the main path's steps, and with BN frozen at the batch's
+# own statistics alike (the phase prints each). With BN frozen at the
+# initial running statistics (mean 0, var 1) it moves them by at most ~2e-3:
+# that step is the tight check, the kernel path within GRAD_SENS times that.
+GRAD_TOL = 1e-3
+GRAD_SENS = 4.0
+IMAGE_NUDGE = 2.0 ** -20
+# Adam's updates p - p0 of the frozen step: at most UPDATE_SHARE of all
+# elements may differ by more than lr / 100 + 4 ulp of p0 (a gradient within
+# its error of 0 can flip the sign of its update, 2 lr; a kernel that never
+# wrote p would miss nearly every element)
+UPDATE_SHARE = 1e-2
+STAT_TOL = 1e-4  # of max(1, |running statistic|)
+TRAIN_STEPS = 5
 
 
 def emit(obj) -> None:
@@ -89,6 +134,7 @@ def phase_env(torch, build):
           "triton": triton_version, "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
+    return smi
 
 
 def phase_build(build):
@@ -103,9 +149,23 @@ def phase_build(build):
           "ptxas": ptxas})
 
 
+class Counters:
+    """The launch counters of the kernel modules, by kernel name."""
+
+    def __init__(self, checks):
+        self.where = {name: (mod, attr) for name, (mod, attr, *_) in checks.KERNELS.items()}
+
+    def zero(self):
+        for mod, attr in self.where.values():
+            setattr(mod, attr, 0)
+
+    def read(self):
+        return {name: getattr(mod, attr) for name, (mod, attr) in self.where.items()}
+
+
 def phase_kernels(checks):
     results = {name: [] for name in checks.KERNELS}
-    for name, (_, cases) in checks.KERNELS.items():
+    for name, (*_, cases) in checks.KERNELS.items():
         for case in cases:
             r = checks.check_case(name, case, seed=SEED)
             emit({"phase": "kernel", **r})
@@ -124,14 +184,12 @@ def _post(addr, x):
         conn.close()
 
 
-def phase_serve(torch, checks):
+def phase_serve(torch, checks, counters):
     from resnet_tpu_torch.config import ExecutionConfig, model_config
     from resnet_tpu_torch.export import export_inference, save_inference
-    from resnet_tpu_torch.kernels import conv, fused, matmul
     from resnet_tpu_torch.models import init_bn_state, init_params
     from resnet_tpu_torch.serve import bucketed_call, serve
 
-    counters = {"conv2d": conv, "add_relu": fused, "matmul": matmul}
     mcfg = model_config("resnet50")
     kernel_cfg = ExecutionConfig(kernels="pallas", conv_kernels="pallas")
     gen = torch.Generator().manual_seed(SEED)
@@ -162,16 +220,16 @@ def phase_serve(torch, checks):
                     "/healthz did not answer ok")
             conn.close()
             # the main path: counters from 0, three requests, counters read
-            for mod in counters.values():
-                mod.LAUNCHES = 0
+            counters.zero()
             replies, deltas = [], []
             for x in batches:
-                before = {k: m.LAUNCHES for k, m in counters.items()}
+                before = counters.read()
                 status, out = _post(httpd.server_address, x)
                 require(status == 200, f"/predict answered {status}: {out}")
-                deltas.append({k: m.LAUNCHES - before[k] for k, m in counters.items()})
+                after = counters.read()
+                deltas.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
                 replies.append(out)
-            launches = {k: m.LAUNCHES for k, m in counters.items()}
+            launches = {k: v for k, v in counters.read().items() if v}
         finally:
             httpd.shutdown()
             httpd.server_close()
@@ -223,6 +281,283 @@ def phase_serve(torch, checks):
     return launches
 
 
+def _clone(tree):
+    """A deep copy of a state tree (NamedTuples, dicts, lists, tensors)."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_clone(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def _leaf_errors(got, want, what, rel, floor=0.0, sens=None):
+    """max|got - want| over each leaf pair, against rel * max(floor, max|want|)
+    or, where ``sens`` (path -> the plain path's own change) is given,
+    GRAD_SENS times that change if larger; raises on a leaf beyond both.
+    Returns the largest ratio to max|want|, the largest to the sensitivity,
+    and the leaf nearest its limit with the limit applied there."""
+    from resnet_tpu_torch.bridge import flatten
+
+    worst, worst_sens, nearest, nearest_ratio = 0.0, 0.0, None, -1.0
+    for (path, g), (_, w) in zip(flatten(got), flatten(want), strict=True):
+        err = (g - w).abs().max().item()
+        scale = max(floor, w.abs().max().item())
+        limit = rel * scale
+        if sens is not None:
+            limit = max(limit, GRAD_SENS * sens[path])
+            worst_sens = max(worst_sens, err / sens[path] if sens[path] else 0.0)
+        require(err <= limit,
+                f"{what} {path}: max|kernel - plain| = {err} > {limit}")
+        worst = max(worst, err / scale if scale else err)
+        ratio = err / limit if limit else 0.0
+        if ratio > nearest_ratio:
+            nearest_ratio = ratio
+            nearest = {"leaf": path, "err": err, "limit": limit, "max_abs": scale}
+    return worst, worst_sens, nearest
+
+
+def _update_share(got, want, p0, lr):
+    """The share of all elements whose update got - p0 differs from
+    want - p0 by more than lr / 100 + 4 ulp of p0."""
+    from resnet_tpu_torch.bridge import leaves
+
+    bad = total = 0
+    for a, b, z in zip(leaves(got), leaves(want), leaves(p0), strict=True):
+        limit = lr / 100 + 4 * 2.0 ** -23 * z.abs()
+        bad += int((((a - z) - (b - z)).abs() > limit).sum().item())
+        total += z.numel()
+    return bad / total
+
+
+def _as_running(bn_stats):
+    """aux["bn_stats"] ((mean, var) per layer) as a bn_state tree."""
+    def leaf(mv):
+        return {"mean": mv[0].clone(), "var": mv[1].clone()}
+
+    return {"init_bn": leaf(bn_stats["init_bn"]),
+            "blocks": [{k: leaf(v) for k, v in b.items()} for b in bn_stats["blocks"]]}
+
+
+def _profile(torch, step):
+    """Device time of one call of step() by kernel name, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        ms = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0 and getattr(e, "self_cpu_time_total", 0) == 0:
+            rows.append({"kernel": e.key[:90], "calls": e.count, "ms": ms})
+    rows.sort(key=lambda r: -r["ms"])
+    return rows
+
+
+def phase_train(torch, checks, counters, smi):
+    import dataclasses
+
+    from resnet_tpu_torch.bridge import flatten, leaves
+    from resnet_tpu_torch.config import ExecutionConfig, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.models import forward
+    from resnet_tpu_torch.ops import cross_entropy
+    from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
+
+    base = variant_config("resnet")  # ResNet-50, kernels='pallas', lr 1e-4, batch 32
+    kcfg = dataclasses.replace(
+        base, execution=dataclasses.replace(base.execution, conv_kernels="pallas"),
+        optimizer=dataclasses.replace(base.optimizer, fused=True))
+    pcfg = dataclasses.replace(
+        base, execution=ExecutionConfig(),
+        optimizer=dataclasses.replace(base.optimizer, fused=False))
+    batch_n = base.data.batch_size
+    lr = base.optimizer.learning_rate
+    state0 = init_train_state(kcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    data = next(SyntheticDataset(batch_n, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    kstep, pstep = make_train_step(kcfg), make_train_step(pcfg)
+
+    # the main path: counters from 0, TRAIN_STEPS steps on one batch
+    counters.zero()
+    state, losses, per_step = _clone(state0), [], []
+    for _ in range(TRAIN_STEPS):
+        before = counters.read()
+        state, metrics = kstep(state, batch)
+        after = counters.read()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(metrics["loss"].item())
+    launches = counters.read()
+    for i, delta in enumerate(per_step):
+        require(delta == PER_STEP, f"train step {i} moved the counters by {delta}, "
+                f"expected {PER_STEP}")
+    with torch.no_grad():
+        logits, _ = forward(state.params, batch["images"], kcfg.model, kcfg.execution,
+                            train=True, bn_state=state.bn_state)
+        final_loss = cross_entropy(logits, batch["labels"], reduction="mean").item()
+    require(all(np.isfinite(losses)) and np.isfinite(final_loss), f"losses {losses}")
+    require(final_loss < losses[0], f"loss after {TRAIN_STEPS} steps {final_loss} "
+            f"is not below the first {losses[0]}")
+
+    def grads_pair(params, bn_state, kc, pc):
+        """Kernel-path and plain-path gradients from one state, and the plain
+        path's own change per leaf when the images are scaled by 1 +- 2^-20."""
+        kl, _, _, kg = loss_and_grads(params, batch, bn_state, kc)
+        pl, _, paux, pg = loss_and_grads(params, batch, bn_state, pc)
+        sens = {}
+        for factor in (1 + IMAGE_NUDGE, 1 - IMAGE_NUDGE):
+            nudged = dict(batch, images=batch["images"] * factor)
+            qg = loss_and_grads(params, nudged, bn_state, pc)[3]
+            for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
+                sens[path] = max(sens.get(path, 0.0), (a - b).abs().max().item())
+            del qg
+        require(abs(kl.item() - pl.item()) <= LOSS_TOL * abs(pl.item()),
+                f"summed loss {kl.item()} vs plain {pl.item()}")
+        return kg, pg, sens, paux
+
+    def max_rel(errs, want):
+        return max(errs[p] / max(w.abs().max().item(), 1e-30) for p, w in flatten(want))
+
+    def survey(params, bn_state, kc, pc):
+        """How far kernel and plain gradients differ, and how far the plain
+        path moves under the nudge, as shares of each leaf's max; no limit."""
+        kg, pg, sens, _ = grads_pair(params, bn_state, kc, pc)
+        errs = {p: (a - b).abs().max().item()
+                for (p, a), b in zip(flatten(kg), leaves(pg), strict=True)}
+        return {"kernel_vs_plain_max_rel": max_rel(errs, pg),
+                "plain_nudge_max_rel": max_rel(sens, pg)}
+
+    def frozen(cfg):
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, bn_mode="frozen"))
+
+    # one step from the same state on both paths, compared leaf by leaf
+    kg, pg, sens, paux = grads_pair(state0.params, state0.bn_state, kcfg, pcfg)
+    sens_rel = max_rel(sens, pg)
+    grad_err, grad_sens, grad_nearest = _leaf_errors(kg, pg, "gradient", GRAD_TOL,
+                                                     sens=sens)
+    ks, km = kstep(_clone(state0), batch)
+    ps, pm = pstep(_clone(state0), batch)
+    loss_err = abs(km["loss"].item() - pm["loss"].item()) / abs(pm["loss"].item())
+    require(loss_err <= LOSS_TOL, f"loss {km['loss'].item()} vs plain {pm['loss'].item()}")
+    # after one step from zero moments, m = (1 - b1) g on both paths
+    b1 = base.optimizer.beta1
+    m_err, m_sens, _ = _leaf_errors(ks.opt_state.means, ps.opt_state.means, "adam m",
+                                    GRAD_TOL,
+                                    sens={k: (1 - b1) * v for k, v in sens.items()})
+    p_abs = max((a - b).abs().max().item()
+                for a, b in zip(leaves(ks.params), leaves(ps.params), strict=True))
+    require(p_abs <= 2 * lr + 1e-6, f"params differ by {p_abs} > 2 * lr + 1e-6")
+    batch_share = _update_share(ks.params, ps.params, state0.params, lr)
+    stat_err, _, _ = _leaf_errors(ks.bn_state, ps.bn_state, "running statistic",
+                                  STAT_TOL, floor=1.0)
+    del ks, ps, kg, pg
+
+    # where else the gradient is as sensitive: after the main path's steps,
+    # and with BN frozen at this batch's own statistics
+    conditioning = {
+        "batch_bn_after_steps": survey(state.params, state.bn_state, kcfg, pcfg),
+        "frozen_at_batch_stats": survey(state0.params, _as_running(paux["bn_stats"]),
+                                        frozen(kcfg), frozen(pcfg))}
+
+    # the well-conditioned check: one step with BN frozen at the initial
+    # running statistics (mean 0, var 1); conv dx and dW, the join masks, the
+    # FC backward and Adam are all on this path
+    kfcfg, pfcfg = frozen(kcfg), frozen(pcfg)
+    fkg, fpg, fsens, _ = grads_pair(state0.params, state0.bn_state, kfcfg, pfcfg)
+    frozen_sens = max_rel(fsens, fpg)
+    frozen_err, frozen_ratio, frozen_nearest = _leaf_errors(
+        fkg, fpg, "frozen-BN gradient", GRAD_TOL, sens=fsens)
+    del fkg, fpg
+    ks, _ = make_train_step(kfcfg)(_clone(state0), batch)
+    ps, _ = make_train_step(pfcfg)(_clone(state0), batch)
+    frozen_share = _update_share(ks.params, ps.params, state0.params, lr)
+    require(frozen_share <= UPDATE_SHARE,
+            f"frozen-BN step: {frozen_share} of the Adam updates differ from the "
+            f"plain path's by more than lr / 100")
+    frozen_m_err, _, _ = _leaf_errors(ks.opt_state.means, ps.opt_state.means,
+                                      "frozen-BN adam m", GRAD_TOL,
+                                      sens={k: (1 - b1) * v for k, v in fsens.items()})
+    del ks, ps
+
+    # step times in turns: plain, kernel, kernel, plain
+    pstate = _clone(state0)
+
+    def timed(step, st, n=5):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = step(st, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return st, float(np.median(times))
+
+    step_ms = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "plain":
+            pstate, ms = timed(pstep, pstate)
+        else:
+            state, ms = timed(kstep, state)
+        step_ms[which].append(ms)
+    # peak memory of one step of each path; both paths' states are resident
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    peak = {}
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = kstep(state, batch)
+    torch.cuda.synchronize()
+    peak["kernel"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    pstate, _ = pstep(pstate, batch)
+    torch.cuda.synchronize()
+    peak["plain"] = torch.cuda.max_memory_allocated() / 2**30
+
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = kstep(holder["state"], batch)
+
+    profile_rows = _profile(torch, one_step)
+    busy = sum(r["ms"] for r in profile_rows)
+    kernel_ms = float(np.median(step_ms["kernel"]))
+    plain_ms = float(np.median(step_ms["plain"]))
+    emit({"phase": "train", "model": kcfg.model.name, "batch": batch_n,
+          "device": smi, "launches": launches, "per_step": per_step[0],
+          "losses": losses, "loss_after_last_step": final_loss,
+          "compare": {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+                      "grad_max_err_over_sensitivity": grad_sens,
+                      "plain_grad_max_rel_sensitivity": sens_rel,
+                      "adam_m_max_rel_err": m_err,
+                      "adam_m_max_err_over_sensitivity": m_sens,
+                      "grad_nearest_limit": grad_nearest,
+                      "param_max_abs_err": p_abs,
+                      "update_share_beyond_lr_100": batch_share,
+                      "running_stats_max_err": stat_err,
+                      "frozen_bn": {"grad_max_rel_err": frozen_err,
+                                    "grad_max_err_over_sensitivity": frozen_ratio,
+                                    "grad_nearest_limit": frozen_nearest,
+                                    "plain_grad_max_rel_sensitivity": frozen_sens,
+                                    "adam_m_max_rel_err": frozen_m_err,
+                                    "update_share_beyond_lr_100": frozen_share},
+                      "conditioning": conditioning},
+          "step_ms": step_ms, "kernel_step_ms": kernel_ms,
+          "kernel_img_s": batch_n * 1e3 / kernel_ms, "plain_step_ms": plain_ms,
+          "plain_img_s": batch_n * 1e3 / plain_ms, "peak_gib": peak,
+          "resident_before_gib": resident,
+          "profile_device_busy_ms": busy if profile_rows else "not measured",
+          "profile": profile_rows[:30]})
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> None:
     import torch
 
@@ -238,20 +573,31 @@ def main() -> None:
     from resnet_tpu_torch.kernels import build, checks
 
     checks.fp32_strict()
-    phase_env(torch, build)
+    smi = phase_env(torch, build)
     phase_build(build)
     results = phase_kernels(checks)
-    launches = phase_serve(torch, checks)
+    counters = Counters(checks)
+    served = phase_serve(torch, checks, counters)
+    trained = phase_train(torch, checks, counters, smi)
     require("jax" not in sys.modules, "jax was imported")
+    require(set(trained) == set(KERNEL_SOURCES), f"train path launched {trained}")
 
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": ref,
-         "launches": launches[name],
-         "max_abs_err": max(r["max_abs_err"] for r in results[name]),
-         "ms": sum(r["ms"] for r in results[name]),
-         "plain_ms": sum(r["plain_ms"] for r in results[name])}
-        for name, (src, ref) in KERNEL_SOURCES.items()
-    ]})
+    rows = []
+    for name, (src, ref) in KERNEL_SOURCES.items():
+        rs = results[name]
+        by = {}
+        for r in rs:  # the bound that sets most of the summed least time
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": ref,
+            "launches": served.get(name, 0) + trained[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs),
+            "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": max(by, key=by.get),
+            "library_ms": checks.library_total(rs)})
+    emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

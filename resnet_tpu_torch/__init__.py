@@ -2,11 +2,14 @@
 
 It mirrors resnet_tpu's module names and public layouts (NHWC activations,
 HWIO conv weights, (in, out) FC weight, {"mean", "var"} BN state) and never
-imports JAX. This slice serves ResNet eval forwards: ``export.export_inference``
-freezes parameters into an ``nn.Module``, ``serve`` puts it behind HTTP, and
-with ``ExecutionConfig(kernels="pallas", conv_kernels="pallas")`` every conv,
-residual join and the FC run in the hand-written CUDA kernels of
-``resnet_tpu_torch.kernels``.
+imports JAX. It serves ResNet eval forwards (``export.export_inference``
+freezes parameters into an ``nn.Module``, ``serve`` puts it behind HTTP) and
+trains (``train.init_train_state``, ``train.make_train_step``). With
+``ExecutionConfig(kernels="pallas", conv_kernels="pallas")`` every conv and
+its two gradients, the BN statistics, the residual join and its backward,
+and the FC and its backward run in the hand-written CUDA kernels of
+``resnet_tpu_torch.kernels``; ``OptimizerConfig(fused=True)`` adds the
+one-launch Adam kernel.
 """
 
 from .config import ExecutionConfig, ModelConfig, model_config, tiny_model_config

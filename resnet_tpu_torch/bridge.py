@@ -7,7 +7,9 @@ conv weights, ``(in, out)`` FC weight, ``{"mean", "var"}`` per BN layer).
 JAX's PRNG cannot be reproduced in torch, so parity tests and serving of a
 model trained in JAX take the JAX tree through here.
 
-``load_jax_npz`` reads a checkpoint written by
+``train_state_from_numpy`` and ``to_numpy`` carry a whole training state
+(parameters, Adam or SGD state, BN running statistics, step) both ways, so
+the two packages can start from one state. ``load_jax_npz`` reads a checkpoint written by
 ``resnet_tpu.train.checkpoint.save_npz`` with numpy alone: its keys are
 ``/``-joined pytree paths such as ``params/blocks/3/proj/w``.
 """
@@ -20,9 +22,12 @@ import numpy as np
 import torch
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """Nested dicts/lists of arrays -> the same nesting of torch tensors of
-    the same dtype on ``device``."""
+    the same dtype on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -35,12 +40,59 @@ bn_state_from_numpy = params_from_numpy
 
 
 def to_numpy(tree):
-    """Inverse of ``params_from_numpy``: tensors -> numpy arrays on the host."""
+    """Inverse of ``params_from_numpy``: tensors -> numpy arrays on the host.
+    A NamedTuple (a TrainState, an optimizer state) keeps its type."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_numpy(v) for v in tree]
     return tree.detach().cpu().numpy()
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of one or more trees of the same nested dicts and
+    lists; the result has the first tree's nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaves(tree) -> List[Any]:
+    """The leaves in JAX's pytree order."""
+    return [leaf for _, leaf in flatten(tree)]
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """The port's TrainState from one whose leaves are numpy arrays: the
+    JAX package's TrainState mapped to numpy, or ``to_numpy`` of the port's.
+    The optimizer state is read by field name (``means``/``vars`` for Adam,
+    ``momentum_buf`` for SGD). The state lands on the card unless the caller
+    asks for the CPU: ``train_step`` runs wherever ``state.step`` lies."""
+    from .optim import GuardedAdamState, SGDState
+    from .train import TrainState
+
+    opt = state.opt_state
+    if hasattr(opt, "means"):
+        opt = GuardedAdamState(
+            means=params_from_numpy(opt.means, device),
+            vars=params_from_numpy(opt.vars, device),
+            mean_decay_prod=params_from_numpy(opt.mean_decay_prod, device),
+            var_decay_prod=params_from_numpy(opt.var_decay_prod, device),
+            step=params_from_numpy(opt.step, device))
+    elif hasattr(opt, "momentum_buf"):
+        opt = SGDState(momentum_buf=params_from_numpy(opt.momentum_buf, device),
+                       step=params_from_numpy(opt.step, device))
+    else:
+        raise ValueError(f"unknown optimizer state {type(opt).__name__}")
+    return TrainState(params=params_from_numpy(state.params, device), opt_state=opt,
+                      bn_state=params_from_numpy(state.bn_state, device),
+                      step=params_from_numpy(state.step, device))
 
 
 def flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:

@@ -1,7 +1,9 @@
 """Configuration for the PyTorch port, field for field with resnet_tpu.config.
 
-``ModelConfig``, ``tiny_model_config``, ``PRESETS`` and ``model_config`` are
-copies of the JAX package's. ``ExecutionConfig`` drops the TPU-only fields
+``ModelConfig``, ``tiny_model_config``, ``PRESETS``, ``model_config``,
+``OptimizerConfig``, ``DataConfig``, ``ParallelConfig``, ``TrainConfig``,
+``RESUME_LATEST``, ``VARIANT_PRESETS`` and ``variant_config`` are copies of
+the JAX package's. ``ExecutionConfig`` drops the TPU-only fields
 (``pallas_interpret``, ``scoped_vmem_limit_kib``, ``grad_accum_unroll`` and
 ``jit_compiler_options``). Values the port cannot run yet raise
 ``NotImplementedError`` naming the ROADMAP.md queue A item that brings them.
@@ -12,6 +14,7 @@ The ``'pallas'`` engine names keep their meaning: the hand-written kernels
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -39,13 +42,15 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-ROADMAP_TRAIN = "item A2: training step"
+ROADMAP_GHOST_BN = "item A2b: ghost batch norm"
 ROADMAP_FUSED = "item A3: fused engine"
 ROADMAP_BLOCKFUSED = "item A4: whole-block kernel"
 ROADMAP_BF16 = "item A5: bf16 compute"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
 ROADMAP_S2D = "item A8: space-to-depth stem"
+ROADMAP_REMAT = "item A12: remat"
+ROADMAP_PARALLEL = "item A13: parallelism"
 
 
 @dataclass(frozen=True)
@@ -224,6 +229,151 @@ PRESETS = {
         width_multiplier=4.0, groups=32,
     ),
 }
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Trainer hyperparameters; see resnet_tpu.config.OptimizerConfig."""
+
+    name: str = "adam"  # 'adam' | 'sgd'
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-7
+    momentum: float = 0.9  # for sgd
+    # 'no_bn' exempts BN gamma/beta and biases from weight decay
+    wd_mask: str = "all"  # 'all' | 'no_bn'
+    # per-element non-finite guards of the reference optimizer kernels
+    nonfinite_guard: bool = True
+    schedule: str = "constant"  # 'constant' | 'cosine' | 'step'
+    warmup_steps: int = 0
+    total_steps: int = 0  # required for cosine and step
+    # the fused Adam kernel (resnet_tpu_torch.kernels.adam)
+    fused: bool = False
+    label_smoothing: float = 0.0
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Input pipeline configuration; see resnet_tpu.config.DataConfig."""
+
+    shard_dir: str = ""
+    shard_images: int = 32768
+    batch_size: int = 32
+    layout: str = "NHWC"
+    num_shards: int = 40
+    prefetch: int = 2
+    transfer_dtype: str = "float32"  # 'float32' | 'bfloat16'
+    synthetic: bool = False
+    device_batches: int = 0
+    jpeg_dir: str = ""
+    random_flip: bool = False
+    channel_means: Tuple[float, float, float] = (123.68, 116.78, 103.94)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device mesh configuration; see resnet_tpu.config.ParallelConfig. Only
+    the default (one device) runs in the port so far."""
+
+    data_axis: str = "data"
+    num_devices: int = 0
+    mode: str = "auto"
+    spatial_devices: int = 1
+    spatial_axis: str = "spatial"
+    zero_sharding: bool = False
+    zero_min_bytes: int = 2 ** 16
+
+
+# TrainConfig.resume_from sentinel: resume from the newest complete dump
+RESUME_LATEST = -2
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """See resnet_tpu.config.TrainConfig. Raises for what the port's
+    training step does not run yet: remat, ghost BN and any parallel
+    layout."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    execution: ExecutionConfig = dataclasses.field(default_factory=ExecutionConfig)
+    optimizer: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
+
+    seed: int = 1234
+    epochs: int = 40
+    checkpoint_every: int = 1000
+    checkpoint_dir: str = "training_dumps/my_custom"
+    log_every: int = 1
+    resume_from: int = -1
+    async_checkpoint: bool = False
+    record_metrics: bool = True
+    check_errors: bool = False
+
+    def __post_init__(self):
+        if self.execution.remat != "none":
+            raise not_ported(f"ExecutionConfig.remat={self.execution.remat!r}",
+                             ROADMAP_REMAT)
+        if self.execution.bn_stats_batch > 0:
+            raise not_ported("ExecutionConfig.bn_stats_batch > 0 (ghost BN)",
+                             ROADMAP_GHOST_BN)
+        if self.parallel != ParallelConfig():
+            raise not_ported("a non-default ParallelConfig", ROADMAP_PARALLEL)
+
+
+# The reference's six binaries as config presets (resnet_tpu.config)
+VARIANT_PRESETS = {
+    "resnet": dict(
+        execution=dict(kernels="pallas", remat="none"),
+        optimizer=dict(learning_rate=1e-4),
+        data=dict(batch_size=32),
+    ),
+    "clean": dict(
+        execution=dict(kernels="pallas", remat="block"),
+        optimizer=dict(learning_rate=1e-4),
+        data=dict(batch_size=224),
+    ),
+    "cudnn": dict(
+        execution=dict(kernels="xla", layout="NHWC"),
+        optimizer=dict(learning_rate=1e-3),
+        data=dict(batch_size=64),
+    ),
+    "lowmem": dict(
+        execution=dict(kernels="xla", remat="block"),
+        optimizer=dict(learning_rate=1e-3),
+        data=dict(batch_size=192),
+    ),
+    "nchw": dict(
+        execution=dict(kernels="xla", layout="NCHW"),
+        optimizer=dict(learning_rate=1e-3),
+        data=dict(batch_size=192, layout="NCHW"),
+    ),
+    "fast": dict(
+        execution=dict(
+            kernels="xla", compute_dtype="bfloat16",
+            matmul_precision="default", relu_cap=10.0,
+        ),
+        optimizer=dict(learning_rate=1e-3),
+        data=dict(batch_size=192),
+    ),
+}
+
+
+def variant_config(variant: str, model: str = "resnet50", **overrides) -> TrainConfig:
+    """A TrainConfig reproducing one of the reference's six trainer
+    variants; overrides update top-level TrainConfig fields."""
+    if variant not in VARIANT_PRESETS:
+        raise ValueError(f"unknown variant {variant!r}; have {sorted(VARIANT_PRESETS)}")
+    p = VARIANT_PRESETS[variant]
+    cfg = TrainConfig(
+        model=model_config(model),
+        execution=ExecutionConfig(**p.get("execution", {})),
+        optimizer=OptimizerConfig(**p.get("optimizer", {})),
+        data=DataConfig(**p.get("data", {})),
+    )
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
 def model_config(name: str = "resnet50", **overrides) -> ModelConfig:

@@ -102,8 +102,9 @@ def save_inference(path: str, model: InferenceModel) -> str:
     return path
 
 
-def load_inference(path: str, device="cpu") -> InferenceModel:
-    """Restore a saved model on ``device``; run it with ``.call(images)``."""
+def load_inference(path: str, device="cuda") -> InferenceModel:
+    """Restore a saved model on ``device`` (the card unless the caller asks
+    for the CPU); run it with ``.call(images)``."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     mcfg = blob["model_config"]
     mcfg = ModelConfig(**{**mcfg, "block_sizes": tuple(mcfg["block_sizes"])})

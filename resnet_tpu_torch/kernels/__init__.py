@@ -1,5 +1,8 @@
-"""Hand-written CUDA kernels of the port, one module per Pallas kernel it
-replaces (resnet_tpu.kernels): ``conv.conv2d``, ``fused.add_relu`` and
-``matmul.matmul``. Each module holds the wrapper, its plain PyTorch version
-and a launch counter ``LAUNCHES``; ``build`` compiles ``csrc/`` with nvcc
+"""Hand-written CUDA kernels of the port, one module per Pallas kernel module
+it replaces (resnet_tpu.kernels): ``conv.conv2d`` (with its dx and dW),
+``fused.add_relu`` (with its mask backward), ``matmul.matmul`` (with its
+VJP), ``bn.moments`` and ``adam.fused_adam``. Each module holds the
+wrappers, their plain PyTorch versions and launch counters (``LAUNCHES``
+and, for backward kernels, ``DX_LAUNCHES``, ``DW_LAUNCHES``,
+``MASK_LAUNCHES``, ``BWD_LAUNCHES``); ``build`` compiles ``csrc/`` with nvcc
 and loads it with ctypes on first use."""

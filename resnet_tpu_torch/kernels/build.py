@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with nvcc in one call into a shared
-library with a plain C interface (no PyTorch headers, no ninja):
+Each ``csrc/*.cu`` source compiles in its own nvcc process, all started
+together, and one more nvcc call links the objects into a shared library
+with a plain C interface (no PyTorch headers, no ninja):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/resnet_tpu_torch/libkernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/resnet_tpu_torch/libkernels-<hash>.so *.o
 
 ``<hash>`` covers every source and header, so an edited kernel rebuilds and
 an unchanged one is reused. The library is written under a temporary name
@@ -28,20 +31,30 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "resnet_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 # entry point -> argtypes; the last argument of each is the CUDA stream
 SIGNATURES = {
-    "rt_conv2d_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rt_matmul_f32": [_P, _P, _P, _I64, _I, _I, _P],
+    # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)
+    "rt_conv2d_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dw_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_matmul_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "rt_matmul_nt_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "rt_matmul_tn_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_add_relu_f32": [_P, _P, _P, _I64, _P],
+    "rt_add_relu_mask_f32": [_P, _P, _P, _P, _I64, _P],
+    "rt_moments_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _P],
+    "rt_adam_f32": [_P, _I, _I, _P, _P],
 }
+# the GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK)
+GEMM_TILE = 64
+GEMM_BK = 16
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 # one build at a time in this process (the temporary name is per process)
 _BUILD_LOCK = threading.Lock()
 
@@ -88,17 +101,27 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp-{os.getpid()}")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    tag = f"{out.stem}.tmp-{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}-{src.stem}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.so")
+    try:
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                             for src, obj in zip(sources(), objs))]
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for *_, rc in logs):
+            done = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, done.stdout + done.stderr, done.returncode))
+        report = "\n".join(f"$ {' '.join(cmd)}\n{text}" for cmd, text, _ in logs)
+        if len(logs) <= len(objs) or any(rc != 0 for *_, rc in logs):
+            raise RuntimeError(f"nvcc failed:\n{report}")
+        out.with_suffix(".log").write_text(report)
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 
@@ -115,13 +138,38 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def split_k(m: int, n: int, k: int) -> int:
+    """K splits for an (m, n) output over depth k: enough blocks for two per
+    SM when the output alone has too few tiles, each split at least 512
+    deep, at most 256 splits. Depends on the shapes only, so a call
+    repeats exactly."""
+    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    if tiles >= _SMS or k <= 512:
+        return 1
+    splits = min(-(-2 * _SMS // tiles), -(-k // 512), 256)
+    # drop splits that the rounded chunk (tiled_gemm.cuh k_chunk_for) leaves empty
+    chunk = -(-k // splits)
+    chunk = -(-chunk // GEMM_BK) * GEMM_BK
+    return -(-k // chunk)
+
+
+def gemm_workspace(splits: int, m: int, n: int, like):
+    """(pointer, tensor) of the split-K partials; (None, None) for 1 split.
+    Keep the tensor alive until the launch is enqueued."""
+    import torch
+
+    if splits == 1:
+        return None, None
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=like.device)
+    return ws.data_ptr(), ws
+
+
 def on_card(name: str, *tensors) -> bool:
     """Validate a wrapper's inputs; True to launch the kernel, False to run
     the plain version (CPU tensors only).
 
     Raises on anything the kernels do not take: a dtype other than fp32, a
-    non-contiguous tensor, mixed devices, a device other than CPU or CUDA,
-    and a CUDA tensor that requires grad (the kernels are forward only)."""
+    non-contiguous tensor, mixed devices, a device other than CPU or CUDA."""
     import torch
 
     dev = tensors[0].device
@@ -136,11 +184,6 @@ def on_card(name: str, *tensors) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; its backward comes "
-            "with the training step (ROADMAP.md queue A, item A2)"
-        )
     return True
 
 

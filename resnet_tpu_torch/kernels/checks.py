@@ -1,33 +1,53 @@
-"""Each CUDA kernel against its plain version, at the serving slice's shapes.
+"""Each CUDA kernel against its plain version, at the serving and training
+shapes of ResNet-50.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``; runs on a CUDA
 device only. The plain side must run in true fp32, so ``fp32_strict()``
 turns TF32 off in cuDNN and cuBLAS. A case passes when
-max|kernel - plain| <= 1e-4 * max|plain|. Times are the median of
-CUDA-event timings of single calls after warm-up.
+max|kernel - plain| <= 1e-4 * max|plain| for every output (fp32 summed in
+another order gives ~1e-6; an indexing fault shows as O(1)). The batch-norm
+statistics sum up to 401,408 rows: in fp32 that order alone moves the sums
+by ~1e-6 relative, so the same 1e-4 holds for them. For Adam, the positions
+left non-finite must agree exactly as well.
+
+Times are the median of CUDA-event timings of single calls after warm-up.
+Beside the kernel (``ms``) and its plain version (``plain_ms``), a case
+times one PyTorch library call computing the same function where there is
+one (``library_ms``, a yardstick the port never calls; None otherwise), and
+gives the least time the card could take for the work (``bound_ms``): the
+larger of the bytes the function must move (inputs read once, outputs
+written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32 peak of
+an H100 SXM, with ``bound_by`` naming the one that sets it.
 """
 
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from . import conv, fused, matmul
+from . import adam, bn, conv, fused, matmul
 
 REL_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 
 # (label, batch, H=W, Cin, Cout, k, stride): one of each conv ResNet-50 runs
-CONV_CASES: List[Tuple[str, int, int, int, int, int, int]] = [
-    ("stem 7x7/s2 224->112 3->64", 8, 224, 3, 64, 7, 2),
-    ("1x1 56^2 64->64", 8, 56, 64, 64, 1, 1),
-    ("1x1 56^2 64->256", 8, 56, 64, 256, 1, 1),
-    ("3x3/s1 56^2 64->64", 8, 56, 64, 64, 3, 1),
-    ("3x3/s2 56->28 128->128", 8, 56, 128, 128, 3, 2),
-    ("proj 3x3/s2 56->28 256->512", 8, 56, 256, 512, 3, 2),
-    ("1x1 7^2 2048->512", 8, 7, 2048, 512, 1, 1),
+_CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
+    ("stem 7x7/s2 224->112 3->64", 224, 3, 64, 7, 2),
+    ("1x1 56^2 64->64", 56, 64, 64, 1, 1),
+    ("1x1 56^2 64->256", 56, 64, 256, 1, 1),
+    ("3x3/s1 56^2 64->64", 56, 64, 64, 3, 1),
+    ("3x3/s2 56->28 128->128", 56, 128, 128, 3, 2),
+    ("proj 3x3/s2 56->28 256->512", 56, 256, 512, 3, 2),
+    ("1x1 7^2 2048->512", 7, 2048, 512, 1, 1),
 ]
+CONV_CASES = [(label, 8, *shape) for label, *shape in _CONV_SHAPES]
+TRAIN_CONV_CASES = [(label, 32, *shape) for label, *shape in _CONV_SHAPES]
+# the training step never takes the images' gradient, so no stem dx
+TRAIN_DX_CASES = TRAIN_CONV_CASES[1:]
 # (label, shape, storage offset in floats): the join at stage 1, a size
 # that leaves a scalar tail, and a misaligned start that takes no float4
 ADD_RELU_CASES: List[Tuple[str, Tuple[int, ...], int]] = [
@@ -35,16 +55,38 @@ ADD_RELU_CASES: List[Tuple[str, Tuple[int, ...], int]] = [
     ("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
     ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1),
 ]
-# (label, M, K, N): the FC head at batch 8 and at a ragged M
+ADD_RELU_MASK_CASES = [
+    ("join bwd (32,56,56,256)", (32, 56, 56, 256), 0),
+    ("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
+    ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1),
+]
+# (label, M, K, N): the FC head at batch 8, at a ragged M, and at batch 32
 MATMUL_CASES: List[Tuple[str, int, int, int]] = [
     ("fc (8,2048)@(2048,1000)", 8, 2048, 1000),
     ("fc (3,2048)@(2048,1000)", 3, 2048, 1000),
 ]
+MATMUL_BWD_CASES = [("fc bwd (32,2048)@(2048,1000)", 32, 2048, 1000)]
+# (label, rows M, channels C): BN statistics at batch 32
+MOMENTS_CASES: List[Tuple[str, int, int]] = [
+    ("stem (32*112*112, 64)", 32 * 112 * 112, 64),
+    ("stage 1 (32*56*56, 256)", 32 * 56 * 56, 256),
+    ("stage 4 (32*7*7, 2048)", 32 * 7 * 7, 2048),
+    ("ragged (1000, 33)", 1000, 33),
+]
+# (label, model name): Adam over that model's parameter list
+ADAM_CASES = [("resnet50 params, non-finite injected", "resnet50")]
 
+# name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
-    "conv2d": (conv, CONV_CASES),
-    "add_relu": (fused, ADD_RELU_CASES),
-    "matmul": (matmul, MATMUL_CASES),
+    "conv2d": (conv, "LAUNCHES", 1, CONV_CASES),
+    "conv2d_dx": (conv, "DX_LAUNCHES", 1, TRAIN_DX_CASES),
+    "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_CONV_CASES),
+    "add_relu": (fused, "LAUNCHES", 1, ADD_RELU_CASES),
+    "add_relu_mask": (fused, "MASK_LAUNCHES", 1, ADD_RELU_MASK_CASES),
+    "matmul": (matmul, "LAUNCHES", 1, MATMUL_CASES),
+    "matmul_bwd": (matmul, "BWD_LAUNCHES", 2, MATMUL_BWD_CASES),
+    "moments": (bn, "LAUNCHES", 1, MOMENTS_CASES),
+    "adam": (adam, "LAUNCHES", 1, ADAM_CASES),
 }
 
 
@@ -70,7 +112,37 @@ def median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
-def _inputs(kernel: str, case, gen: torch.Generator, device):
+def bound(nbytes: float, flops: float) -> Tuple[float, str]:
+    """(least ms, 'bytes' or 'operations') on an H100 SXM at full power."""
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+class _Case:
+    """What one check runs: the kernel, its plain version, an optional
+    library call, and the work the function must do."""
+
+    def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
+                 timed=None):
+        self.run, self.plain, self.library = run, plain, library
+        self.nbytes, self.flops = nbytes, flops
+        # what is timed, where the compared call does more (Adam: the
+        # kernel's update alone, without the copies that make its state)
+        self.timed = timed or (run, plain)
+        # maps the library call's result onto the plain version's layout
+        self.as_plain = as_plain or (lambda out: out)
+
+
+def _nchw(t):
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    return t.permute(0, 2, 3, 1)
+
+
+def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
     def randn(*shape, scale=1.0, offset=0):
         n = 1
         for s in shape:
@@ -78,46 +150,166 @@ def _inputs(kernel: str, case, gen: torch.Generator, device):
         flat = torch.randn(n + offset, generator=gen, device=device) * scale
         return flat[offset:].view(shape)
 
-    if kernel == "conv2d":
+    if kernel.startswith("conv2d"):
         _, n, h, cin, cout, k, s = case
+        ho = h // s
         x = randn(n, h, h, cin)
         w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
-        return (
-            lambda: conv.conv2d(x, w, s),
-            lambda: conv.conv2d_reference(x, w, s),
-        )
+        g = randn(n, ho, ho, cout)
+        flops = 2 * n * ho * ho * k * k * cin * cout
+        w_oihw = w.permute(3, 2, 0, 1)
+        if kernel == "conv2d":
+            return _Case(lambda: conv.conv2d(x, w, s),
+                         lambda: conv.conv2d_reference(x, w, s),
+                         4 * (x.numel() + w.numel() + g.numel()), flops,
+                         lambda: F.conv2d(_nchw(x), w_oihw, stride=s, padding=k // 2),
+                         _nhwc)
+        if kernel == "conv2d_dx":
+            return _Case(lambda: conv.conv2d_dx(g, w, x.shape, s),
+                         lambda: conv.conv2d_dx_reference(g, w, x.shape, s),
+                         4 * (g.numel() + w.numel() + x.numel()), flops,
+                         lambda: torch.nn.grad.conv2d_input(
+                             (n, cin, h, h), w_oihw, _nchw(g), stride=s,
+                             padding=k // 2),
+                         _nhwc)
+        return _Case(lambda: conv.conv2d_dw(x, g, k, s),
+                     lambda: conv.conv2d_dw_reference(x, g, k, s),
+                     4 * (x.numel() + g.numel() + w.numel()), flops,
+                     lambda: torch.nn.grad.conv2d_weight(
+                         _nchw(x), (cout, cin, k, k), _nchw(g), stride=s,
+                         padding=k // 2),
+                     lambda dw: dw.permute(2, 3, 1, 0))
     if kernel == "add_relu":
         _, shape, offset = case
         a, b = randn(*shape, offset=offset), randn(*shape, offset=offset)
-        return (lambda: fused.add_relu(a, b),
-                lambda: fused.add_relu_reference(a, b))
-    _, m, k, n = case
-    a, b = randn(m, k), randn(k, n, scale=0.01)
-    return (lambda: matmul.matmul(a, b),
-            lambda: matmul.matmul_reference(a, b))
+        return _Case(lambda: fused.add_relu(a, b),
+                     lambda: fused.add_relu_reference(a, b), 12 * a.numel(),
+                     a.numel())
+    if kernel == "add_relu_mask":
+        _, shape, offset = case
+        a, b = randn(*shape, offset=offset), randn(*shape, offset=offset)
+        g = randn(*shape, offset=offset)
+        return _Case(lambda: fused.add_relu_mask(a, b, g),
+                     lambda: fused.add_relu_mask_reference(a, b, g), 16 * a.numel(),
+                     a.numel())
+    if kernel == "matmul":
+        _, m, k, n = case
+        a, b = randn(m, k), randn(k, n, scale=0.01)
+        return _Case(lambda: matmul.matmul(a, b),
+                     lambda: matmul.matmul_reference(a, b),
+                     4 * (m * k + k * n + m * n), 2 * m * n * k,
+                     lambda: torch.matmul(a, b))
+    if kernel == "matmul_bwd":
+        _, m, k, n = case
+        a, b, g = randn(m, k), randn(k, n, scale=0.01), randn(m, n)
+        return _Case(lambda: matmul.matmul_bwd(a, b, g),
+                     lambda: matmul.matmul_bwd_reference(a, b, g),
+                     4 * 2 * (m * k + k * n) + 4 * m * n, 4 * m * n * k,
+                     lambda: (torch.matmul(g, b.t()), torch.matmul(a.t(), g)))
+    if kernel == "moments":
+        _, m, c = case
+        x = randn(m, c) * 2.0 + randn(1, c)
+        return _Case(lambda: bn.moments(x), lambda: bn.moments_reference(x),
+                     4 * (m * c + 2 * c), 3 * m * c,
+                     lambda: torch.var_mean(x, dim=0, unbiased=False),
+                     lambda vm: (vm[1], vm[0]))
+    if kernel == "adam":
+        return _adam_case(case, randn, device)
+    raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _adam_case(case, randn, device) -> _Case:
+    from ..config import model_config
+    from ..models.init import init_params
+    from ..bridge import flatten
+
+    shapes = [t.shape for _, t in flatten(
+        init_params(torch.Generator().manual_seed(0), model_config(case[1]),
+                    device="meta"))]
+    p0 = [randn(*s, scale=0.05) for s in shapes]
+    g = [randn(*s, scale=1e-3) for s in shapes]
+    m0 = [randn(*s, scale=1e-4) for s in shapes]
+    v0 = [randn(*s, scale=1e-3) ** 2 for s in shapes]
+    # non-finite gradients (moments kept) and parameters (update rolled back)
+    g[0].view(-1)[:3] = torch.tensor([float("nan"), float("inf"), -float("inf")])
+    g[-1].view(-1)[-1] = float("nan")
+    p0[1].view(-1)[0] = float("inf")
+    h = adam.hyper_row(1e-4, 1e-5, 0.9, 0.999, 1e-7, 0.9 ** 10, 0.999 ** 10, True,
+                       device)
+    n = sum(t.numel() for t in p0)
+    state = {}
+
+    def fresh():
+        state["k"] = [[t.clone() for t in ts] for ts in (p0, m0, v0)]
+        state["p"] = [[t.clone() for t in ts] for ts in (p0, m0, v0)]
+
+    def run():
+        p, m, v = state["k"]
+        adam.fused_adam(p, g, m, v, h)
+
+    def plain():
+        p, m, v = state["p"]
+        with torch.no_grad():
+            for i in range(len(p)):
+                p[i], m[i], v[i] = adam.adam_leaf_reference(p[i], g[i], m[i], v[i], h)
+
+    def flat(which, step):
+        # one update from the fresh state, as three flat vectors
+        fresh()
+        step()
+        return [torch.cat([t.reshape(-1) for t in ts]) for ts in state[which]]
+
+    return _Case(lambda: flat("k", run), lambda: flat("p", plain), 4 * 7 * n, 12 * n,
+                 timed=(run, plain))
+
+
+def _outputs(out) -> List[torch.Tensor]:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
 def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
                timing: bool = True) -> Dict[str, object]:
     """Run one case; raise RuntimeError where the kernel disagrees.
 
-    Returns {kernel, case, max_abs_err, rel_err, ms, plain_ms}."""
+    Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} and,
+    with timing, ms, plain_ms and library_ms."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    run, plain = _inputs(kernel, case, gen, device)
-    got, want = run(), plain()
+    c = _make(kernel, case, gen, device)
+    got, want = _outputs(c.run()), _outputs(c.plain())
     torch.cuda.synchronize()
-    if got.shape != want.shape:
-        raise RuntimeError(f"{kernel} {case[0]}: shape {tuple(got.shape)} "
-                           f"vs plain {tuple(want.shape)}")
-    err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    rel = err / scale if scale else err
-    if not (rel <= REL_TOL):
-        raise RuntimeError(f"{kernel} {case[0]}: max|kernel - plain| = {err} "
-                           f"is {rel:.3e} of max|plain| = {scale} > {REL_TOL}")
-    out = {"kernel": kernel, "case": case[0], "max_abs_err": err,
-           "rel_err": rel}
+    err, rel = 0.0, 0.0
+    for gt, wt in zip(got, want, strict=True):
+        if gt.shape != wt.shape:
+            raise RuntimeError(f"{kernel} {case[0]}: shape {tuple(gt.shape)} "
+                               f"vs plain {tuple(wt.shape)}")
+        finite = torch.isfinite(wt)
+        if not torch.equal(finite, torch.isfinite(gt)):
+            raise RuntimeError(f"{kernel} {case[0]}: non-finite values differ")
+        d = (gt[finite] - wt[finite]).abs().max().item() if finite.any() else 0.0
+        scale = wt[finite].abs().max().item() if finite.any() else 0.0
+        r = d / scale if scale else d
+        if not (r <= REL_TOL):
+            raise RuntimeError(f"{kernel} {case[0]}: max|kernel - plain| = {d} "
+                               f"is {r:.3e} of max|plain| = {scale} > {REL_TOL}")
+        err, rel = max(err, d), max(rel, r)
+    least, by = bound(c.nbytes, c.flops)
+    out = {"kernel": kernel, "case": case[0], "max_abs_err": err, "rel_err": rel,
+           "bound_ms": least, "bound_by": by}
+    if c.library is not None:
+        # the yardstick must compute the same function
+        for lt, wt in zip(_outputs(c.as_plain(c.library())), want, strict=True):
+            scale = wt.abs().max().item()
+            if (lt - wt).abs().max().item() > 1e-3 * scale:
+                raise RuntimeError(f"{kernel} {case[0]}: the library call computes "
+                                   "another function")
     if timing:
-        out["ms"] = median_ms(run)
-        out["plain_ms"] = median_ms(plain)
+        out["ms"] = median_ms(c.timed[0])
+        out["plain_ms"] = median_ms(c.timed[1])
+        out["library_ms"] = median_ms(c.library) if c.library is not None else None
     return out
+
+
+def library_total(results) -> Optional[float]:
+    """Sum of library_ms over cases, None where any case has none."""
+    times = [r.get("library_ms") for r in results]
+    return None if any(t is None for t in times) else sum(times)

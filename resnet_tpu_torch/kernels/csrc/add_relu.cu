@@ -1,12 +1,17 @@
-// Residual join: out = max(a + b, 0), fp32.
+// Residual join: out = max(a + b, 0), fp32, and its backward
+// da = db = g * [a + b > 0].
 //
-// Replaces the Pallas kernel resnet_tpu/kernels/fused.py::_add_relu_kernel
-// (public function add_relu). The TPU version pads the (rows, C) view to
-// (512, 128)-blocks; here the tensor is one flat range.
+// Replaces the Pallas kernels resnet_tpu/kernels/fused.py::_add_relu_kernel
+// (public function add_relu) and ::_add_relu_mask_kernel (its custom VJP,
+// fused.py:80-83). The TPU versions pad the (rows, C) view to
+// (512, 128)-blocks; here the tensor is one flat range. The backward
+// recomputes the gate from a + b (nothing but the inputs is saved), with the
+// strict > of the reference, so a NaN sum passes no gradient.
 //
-// Bound on the H100: device-memory bandwidth (8 bytes read and 4 written
-// per element, no reuse). The body moves 16 bytes per thread per operand as
-// float4 when all three pointers are 16-byte aligned; the remainder (or the
+// Bound on the H100: device-memory bandwidth (forward 8 bytes read and 4
+// written per element, backward 12 read and 4 written, no reuse). The body
+// moves 16 bytes per thread per operand as float4 when all the pointers
+// are 16-byte aligned; the remainder (or the
 // whole tensor, when unaligned) goes through a scalar loop. Grid-stride
 // loops keep the block count bounded. The comparison is written so a NaN in
 // a + b propagates, as jnp.maximum and torch.relu do. wgmma has no role in
@@ -44,6 +49,29 @@ __global__ void add_relu_scalar(const float* __restrict__ a, const float* __rest
     o[i] = relu_sum(a[i], b[i]);
 }
 
+__global__ void add_relu_mask_vec4(const float4* __restrict__ a,
+                                   const float4* __restrict__ b,
+                                   const float4* __restrict__ g, float4* __restrict__ o,
+                                   int64_t n4) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const float4 x = a[i];
+    const float4 y = b[i];
+    const float4 d = g[i];
+    o[i] = make_float4(x.x + y.x > 0.f ? d.x : 0.f, x.y + y.y > 0.f ? d.y : 0.f,
+                       x.z + y.z > 0.f ? d.z : 0.f, x.w + y.w > 0.f ? d.w : 0.f);
+  }
+}
+
+__global__ void add_relu_mask_scalar(const float* __restrict__ a,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ g, float* __restrict__ o,
+                                     int64_t begin, int64_t end) {
+  for (int64_t i = begin + (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < end;
+       i += (int64_t)gridDim.x * blockDim.x)
+    o[i] = a[i] + b[i] > 0.f ? g[i] : 0.f;
+}
+
 unsigned blocks_for(int64_t n) {
   const int64_t b = (n + THREADS - 1) / THREADS;
   return (unsigned)(b < MAX_BLOCKS ? b : MAX_BLOCKS);
@@ -61,5 +89,21 @@ extern "C" int rt_add_relu_f32(const float* a, const float* b, float* o, int64_t
         (const float4*)a, (const float4*)b, (float4*)o, n4);
   if (4 * n4 < n)
     add_relu_scalar<<<blocks_for(n - 4 * n4), THREADS, 0, s>>>(a, b, o, 4 * n4, n);
+  return (int)cudaGetLastError();
+}
+
+// o = g * [a + b > 0], the backward of rt_add_relu_f32 for both inputs.
+extern "C" int rt_add_relu_mask_f32(const float* a, const float* b, const float* g,
+                                    float* o, int64_t n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool aligned =
+      (((uintptr_t)a | (uintptr_t)b | (uintptr_t)g | (uintptr_t)o) % 16) == 0;
+  const int64_t n4 = aligned ? n / 4 : 0;
+  if (n4 > 0)
+    add_relu_mask_vec4<<<blocks_for(n4), THREADS, 0, s>>>(
+        (const float4*)a, (const float4*)b, (const float4*)g, (float4*)o, n4);
+  if (4 * n4 < n)
+    add_relu_mask_scalar<<<blocks_for(n - 4 * n4), THREADS, 0, s>>>(a, b, g, o, 4 * n4,
+                                                                     n);
   return (int)cudaGetLastError();
 }

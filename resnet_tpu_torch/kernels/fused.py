@@ -1,9 +1,14 @@
-"""Residual join relu(a + b): the port of resnet_tpu.kernels.fused.add_relu.
+"""Residual join relu(a + b) and its backward: the port of
+resnet_tpu.kernels.fused.add_relu.
 
-On a CUDA tensor ``add_relu`` launches ``csrc/add_relu.cu`` (or raises); on
-a CPU tensor it runs the plain version ``add_relu_reference``. Forward only:
-the backward (the Pallas ``_add_relu_mask_kernel``) comes with the training
-step.
+``add_relu`` is a ``torch.autograd.Function``. On a CUDA tensor its forward
+launches ``rt_add_relu_f32`` and its backward ``rt_add_relu_mask_f32``
+(``csrc/add_relu.cu``), the port of ``_add_relu_mask_kernel``:
+g * [a + b > 0], strict >, the same gradient for both inputs (fused.py:80-83);
+anything the kernels do not take raises. On a CPU tensor the plain versions
+``add_relu_reference`` and ``add_relu_mask_reference`` run.
+
+``LAUNCHES`` counts forward launches, ``MASK_LAUNCHES`` backward ones.
 """
 
 from __future__ import annotations
@@ -12,8 +17,9 @@ import torch
 
 from . import build
 
-# wrapper calls that launched the CUDA kernel
+# wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
+MASK_LAUNCHES = 0
 
 
 def add_relu_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -21,11 +27,14 @@ def add_relu_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.relu(a + b)
 
 
-def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(a + b) for two fp32 contiguous tensors of one shape."""
+def add_relu_mask_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain backward: g where a + b > 0, else 0."""
+    return torch.where(a + b > 0, g, torch.zeros_like(g))
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    if a.shape != b.shape:
-        raise ValueError(f"add_relu: shapes {tuple(a.shape)} and {tuple(b.shape)}")
     if not build.on_card("add_relu", a, b):
         return add_relu_reference(a, b)
     out = torch.empty_like(a)
@@ -34,3 +43,42 @@ def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                      out.data_ptr(), a.numel(), device=a.device)
         LAUNCHES += 1
     return out
+
+
+def add_relu_mask(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g * [a + b > 0] for three fp32 contiguous tensors of one shape."""
+    global MASK_LAUNCHES
+    if a.shape != b.shape or a.shape != g.shape:
+        raise ValueError(f"add_relu_mask: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(g.shape)}")
+    if not build.on_card("add_relu_mask", a, b, g):
+        return add_relu_mask_reference(a, b, g)
+    out = torch.empty_like(g)
+    if g.numel():
+        build.launch("rt_add_relu_mask_f32", a.data_ptr(), b.data_ptr(),
+                     g.data_ptr(), out.data_ptr(), g.numel(), device=g.device)
+        MASK_LAUNCHES += 1
+    return out
+
+
+class _AddRelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _forward(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        if not any(ctx.needs_input_grad):
+            return None, None
+        d = add_relu_mask(a, b, g.contiguous())
+        return d, d
+
+
+def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """relu(a + b) for two fp32 contiguous tensors of one shape;
+    differentiable in both."""
+    if a.shape != b.shape:
+        raise ValueError(f"add_relu: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return _AddRelu.apply(a, b)

@@ -48,9 +48,10 @@ def _block_widths(cfg: ModelConfig):
         incoming = out_ch
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cpu",
+def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cuda",
                 dtype=torch.float32) -> Dict[str, Any]:
-    """The parameter tree (see resnet_tpu.models.init.init_params)."""
+    """The parameter tree (see resnet_tpu.models.init.init_params), on the
+    card unless ``device`` says otherwise."""
     params: Dict[str, Any] = {
         "init_conv": {"w": _conv_init(gen, cfg.init_kernel, cfg.init_kernel,
                                       cfg.in_channels, cfg.init_filters,
@@ -90,8 +91,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *, device="cpu",
     return params
 
 
-def init_bn_state(cfg: ModelConfig, *, device="cpu") -> Dict[str, Any]:
-    """Running statistics for eval BN: mean 0, var 1 per channel."""
+def init_bn_state(cfg: ModelConfig, *, device="cuda") -> Dict[str, Any]:
+    """Running statistics for eval BN: mean 0, var 1 per channel, on the
+    card unless ``device`` says otherwise."""
 
     def stat(depth):
         return {

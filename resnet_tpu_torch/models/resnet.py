@@ -1,16 +1,21 @@
-"""ResNet eval forward (bottleneck and basic blocks), NHWC.
+"""ResNet forward (bottleneck and basic blocks), NHWC, in training and
+eval mode.
 
-The port of resnet_tpu.models.resnet.forward with ``train=False``:
+The port of resnet_tpu.models.resnet.forward:
 
   stem conv -> BN+ReLU -> 3x3/s2 maxpool
   -> blocks [1x1 reduce -> BN+ReLU -> 3x3 (stride here) -> BN+ReLU
      -> 1x1 expand -> BN -> (+ projected residual) -> ReLU]
   -> global avg pool -> FC (no bias in the reference)
 
-BN uses the running statistics (``bn_state``); ``bn_mode='off'`` skips the
+In training mode BN normalizes with the batch statistics
+(``bn_mode='batch'``) or the running ones (``'frozen'``); in eval mode always
+with the running statistics (``bn_state``); ``bn_mode='off'`` skips the
 normalization as in the JAX package. ``ExecutionConfig.conv_kernels`` picks
-the conv engine and ``ExecutionConfig.kernels`` the join and FC engine
-(``ops.dispatch``). Training mode comes with ROADMAP.md queue A, item A2.
+the conv engine and ``ExecutionConfig.kernels`` the BN statistics, join and
+FC engine (``ops.dispatch``). Every hand kernel is differentiable, so the
+same forward serves the training step's autograd. Remat (queue A item A12)
+and ghost BN (item A2b) are not ported.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..config import (
+    ROADMAP_GHOST_BN,
     ROADMAP_GROUPED,
-    ROADMAP_TRAIN,
+    ROADMAP_REMAT,
     ExecutionConfig,
     ModelConfig,
     not_ported,
@@ -41,8 +47,9 @@ def _conv(x, w, *, stride, ecfg, groups=1):
     return _dispatch_conv(x, w, stride=stride, engine=ecfg.conv_kernels)
 
 
-def _bn_apply(x, bn_params, state, *, eps, ecfg, relu_fused=False):
-    """Eval BN with running stats (+ the following ReLU). Returns (y, stats)."""
+def _bn_apply(x, bn_params, state, *, eps, ecfg, train, relu_fused=False):
+    """BN (+ the following ReLU): batch statistics in training mode with
+    bn_mode='batch', else the running statistics. Returns (y, stats)."""
     relu_cap = ecfg.relu_cap if relu_fused else None
     if ecfg.bn_mode == "off":
         y = x
@@ -53,47 +60,53 @@ def _bn_apply(x, bn_params, state, *, eps, ecfg, relu_fused=False):
         c = x.shape[-1]
         zero = torch.zeros((c,), device=x.device, dtype=torch.float32)
         return y, (zero, zero + 1.0)
-    return bn_act(
+    mean = var = None
+    if not train or ecfg.bn_mode == "frozen":
+        if state is None:
+            raise ValueError("eval-mode/frozen BN requires running statistics")
+        mean, var = state["mean"], state["var"]
+    y, (mean, var) = bn_act(
         x, bn_params["gamma"], bn_params["beta"], eps=eps, relu=relu_fused,
-        relu_cap=relu_cap, mean=state["mean"], var=state["var"],
+        relu_cap=relu_cap, engine=ecfg.kernels, mean=mean, var=var,
     )
+    return y, (mean.detach(), var.detach())
 
 
-def _bottleneck_block(bp, x, state, *, stride, mcfg, ecfg):
-    eps = mcfg.bn_eps
+def _bottleneck_block(bp, x, state, *, stride, mcfg, ecfg, train):
+    def bn(y, name, relu_fused=False):
+        return _bn_apply(y, bp[name], state.get(name), eps=mcfg.bn_eps, ecfg=ecfg,
+                         train=train, relu_fused=relu_fused)
+
     stats: Dict[str, Any] = {}
     out = _conv(x, bp["reduce"]["w"], stride=1, ecfg=ecfg)
-    out, stats["bn_reduce"] = _bn_apply(out, bp["bn_reduce"], state.get("bn_reduce"),
-                                        eps=eps, ecfg=ecfg, relu_fused=True)
+    out, stats["bn_reduce"] = bn(out, "bn_reduce", relu_fused=True)
     out = _conv(out, bp["spatial"]["w"], stride=stride, ecfg=ecfg,
                 groups=mcfg.groups)
-    out, stats["bn_spatial"] = _bn_apply(out, bp["bn_spatial"], state.get("bn_spatial"),
-                                         eps=eps, ecfg=ecfg, relu_fused=True)
+    out, stats["bn_spatial"] = bn(out, "bn_spatial", relu_fused=True)
     out = _conv(out, bp["expand"]["w"], stride=1, ecfg=ecfg)
-    out, stats["bn_expand"] = _bn_apply(out, bp["bn_expand"], state.get("bn_expand"),
-                                        eps=eps, ecfg=ecfg)
+    out, stats["bn_expand"] = bn(out, "bn_expand")
     residual = x
     if "proj" in bp:
         residual = _conv(x, bp["proj"]["w"], stride=stride, ecfg=ecfg)
-        residual, stats["bn_proj"] = _bn_apply(residual, bp["bn_proj"],
-                                               state.get("bn_proj"), eps=eps, ecfg=ecfg)
+        residual, stats["bn_proj"] = bn(residual, "bn_proj")
     out = residual_join(out, residual, engine=ecfg.kernels, relu_cap=ecfg.relu_cap)
     return out, stats
 
 
-def _basic_block(bp, x, state, *, stride, mcfg, ecfg):
-    eps = mcfg.bn_eps
+def _basic_block(bp, x, state, *, stride, mcfg, ecfg, train):
+    def bn(y, name, relu_fused=False):
+        return _bn_apply(y, bp[name], state.get(name), eps=mcfg.bn_eps, ecfg=ecfg,
+                         train=train, relu_fused=relu_fused)
+
     stats: Dict[str, Any] = {}
     out = _conv(x, bp["conv1"]["w"], stride=stride, ecfg=ecfg)
-    out, stats["bn1"] = _bn_apply(out, bp["bn1"], state.get("bn1"), eps=eps,
-                                  ecfg=ecfg, relu_fused=True)
+    out, stats["bn1"] = bn(out, "bn1", relu_fused=True)
     out = _conv(out, bp["conv2"]["w"], stride=1, ecfg=ecfg)
-    out, stats["bn2"] = _bn_apply(out, bp["bn2"], state.get("bn2"), eps=eps, ecfg=ecfg)
+    out, stats["bn2"] = bn(out, "bn2")
     residual = x
     if "proj" in bp:
         residual = _conv(x, bp["proj"]["w"], stride=stride, ecfg=ecfg)
-        residual, stats["bn_proj"] = _bn_apply(residual, bp["bn_proj"],
-                                               state.get("bn_proj"), eps=eps, ecfg=ecfg)
+        residual, stats["bn_proj"] = bn(residual, "bn_proj")
     out = residual_join(out, residual, engine=ecfg.kernels, relu_cap=ecfg.relu_cap)
     return out, stats
 
@@ -108,12 +121,17 @@ def forward(
     bn_state=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the network on NHWC images. Returns (fp32 logits, aux) with
-    aux["bn_stats"] the per-layer (mean, var) the forward normalized with."""
+    aux["bn_stats"] the per-layer (mean, var) the forward normalized with,
+    detached (in training with bn_mode='batch', the batch statistics)."""
     ecfg = ecfg or ExecutionConfig()
-    if train:
-        raise not_ported("forward(train=True)", ROADMAP_TRAIN)
-    if bn_state is None and ecfg.bn_mode != "off":
-        raise ValueError("eval-mode BN requires running statistics (bn_state)")
+    if train and ecfg.remat != "none":
+        raise not_ported(f"ExecutionConfig.remat={ecfg.remat!r}", ROADMAP_REMAT)
+    if train and ecfg.bn_stats_batch > 0:
+        raise not_ported("ExecutionConfig.bn_stats_batch > 0 (ghost BN)",
+                         ROADMAP_GHOST_BN)
+    needs_state = ecfg.bn_mode == "frozen" or (not train and ecfg.bn_mode != "off")
+    if bn_state is None and needs_state:
+        raise ValueError("eval-mode/frozen BN requires running statistics (bn_state)")
     block_fn = _bottleneck_block if mcfg.bottleneck else _basic_block
     eps = mcfg.bn_eps
 
@@ -123,14 +141,14 @@ def forward(
     out = _conv(x.to(ecfg.cdtype), params["init_conv"]["w"],
                 stride=mcfg.init_stride, ecfg=ecfg)
     out, stats["init_bn"] = _bn_apply(out, params["init_bn"], state.get("init_bn"),
-                                      eps=eps, ecfg=ecfg, relu_fused=True)
+                                      eps=eps, ecfg=ecfg, train=train, relu_fused=True)
     out = max_pool(out, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride)
 
     block_stats = []
     for i in range(mcfg.num_blocks):
         stride = 2 if mcfg.is_reduction_block(i) else 1
         out, bstats = block_fn(params["blocks"][i], out, state["blocks"][i],
-                               stride=stride, mcfg=mcfg, ecfg=ecfg)
+                               stride=stride, mcfg=mcfg, ecfg=ecfg, train=train)
         block_stats.append(bstats)
     stats["blocks"] = block_stats
 

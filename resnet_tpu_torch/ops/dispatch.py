@@ -7,8 +7,10 @@ Same rules as resnet_tpu.ops.dispatch:
 * ``fc``: ``engine='pallas'`` -> the matmul kernel;
 * ``conv``: ``engine='pallas'`` (ExecutionConfig.conv_kernels) -> the conv
   kernel;
-* ``bn_act`` in eval mode (given mean/var) always runs the plain ops, as the
-  JAX package sends it through XLA.
+* ``bn_act`` with batch statistics and ``engine='pallas'`` -> the moments
+  kernel on the (N*H*W, C) view, then normalize and ReLU in plain ops
+  (dispatch.py:58-74); in eval mode (given mean/var) it always runs the
+  plain ops, as the JAX package sends it through XLA.
 
 Otherwise plain torch ops run, which may use cuDNN or cuBLAS on the card,
 as the JAX package runs them in XLA outside any Pallas kernel. Layout is
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels import conv as _kconv, fused as _kfused, matmul as _kmatmul
+from ..kernels import bn as _kbn, conv as _kconv, fused as _kfused, matmul as _kmatmul
 from .activation import relu as _relu
 from .batchnorm import batch_norm
 from .conv import conv2d
@@ -36,10 +38,15 @@ def bn_act(
     eps: float,
     relu: bool,
     relu_cap: Optional[float] = None,
+    engine: str = "xla",
     mean: Optional[torch.Tensor] = None,
     var: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """BN with the given statistics, then ReLU (capped if relu_cap)."""
+    """BN, with batch statistics unless mean and var are given, then ReLU
+    (capped if relu_cap). Returns (y, (mean, var))."""
+    if engine == "pallas" and mean is None and var is None:
+        # one-read statistics kernel; the normalization stays in torch ops
+        mean, var = _kbn.moments(x.reshape(-1, x.shape[-1]))
     y, stats = batch_norm(x, gamma, beta, eps=eps, mean=mean, var=var)
     if relu:
         y = _relu(y)

@@ -1,7 +1,13 @@
-"""Pooling forward, as resnet_tpu.ops.pooling: max pool over the
-reference's centered windows with -inf padding (doMaxPool,
-resnet.cu:433-471), and the global average pool (doFilterAvgPool,
-resnet.cu:500-543). NHWC."""
+"""Pooling, as resnet_tpu.ops.pooling: max pool over the reference's
+centered windows with -inf padding (doMaxPool, resnet.cu:433-471), and the
+global average pool (doFilterAvgPool, resnet.cu:500-543). NHWC.
+
+The max pool's backward is autograd's of F.max_pool2d: the gradient goes to
+the first maximum of each window in scan order (strict >), as the
+reference's maxPoolDeriv and JAX's select_scatter VJP do, and the padded
+cells, which F.pad's backward drops, never win over a real value. The
+JAX package's ``maxpool_vjp='mask'`` is a TPU negative result and is not
+ported."""
 
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 The same checks as phase 3 of chip_smoke.py (resnet_tpu_torch.kernels.checks),
 one test per kernel and shape, so each can be rerun alone on a GPU:
 
-    python -m pytest tests/test_torch_gpu.py -m gpu -q
+    python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
 Without a CUDA device every test here skips.
 """
@@ -15,7 +15,7 @@ from resnet_tpu_torch.kernels import checks
 
 pytestmark = pytest.mark.gpu
 
-CASES = [(name, case) for name, (_, cases) in checks.KERNELS.items() for case in cases]
+CASES = [(name, case) for name, (*_, cases) in checks.KERNELS.items() for case in cases]
 
 
 @pytest.fixture
@@ -27,16 +27,37 @@ def cuda():
 
 @pytest.mark.parametrize("name,case", CASES, ids=[f"{n}: {c[0]}" for n, c in CASES])
 def test_kernel_matches_plain(cuda, name, case):
-    mod = checks.KERNELS[name][0]
-    before = mod.LAUNCHES
+    mod, counter, per_call, _ = checks.KERNELS[name]
+    before = getattr(mod, counter)
     r = checks.check_case(name, case, timing=False)
     assert r["rel_err"] <= checks.REL_TOL
-    assert mod.LAUNCHES == before + 1  # the kernel ran, not the plain version
+    # the kernel ran, not the plain version
+    assert getattr(mod, counter) == before + per_call
 
 
-def test_cuda_input_requiring_grad_is_refused(cuda):
-    from resnet_tpu_torch.kernels import fused
+def test_backward_on_cuda_moves_the_backward_counters(cuda):
+    """A tiny conv -> add_relu -> matmul graph on the card: its backward runs
+    the dx, dW, mask and matmul-backward kernels, and matches the plain
+    versions' gradients on the CPU."""
+    from resnet_tpu_torch.kernels import conv, fused, matmul
 
-    a = torch.ones(8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        fused.add_relu(a, torch.ones(8, device="cuda"))
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 8, 4, generator=gen)
+    w = torch.randn(3, 3, 4, 6, generator=gen) * 0.2
+    fc = torch.randn(6 * 16, 5, generator=gen) * 0.1
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_(True) for t in (x, w, fc)]
+        y = conv.conv2d(leaves[0], leaves[1], 2)
+        y = fused.add_relu(y, y * 0.5)
+        out = matmul.matmul(y.reshape(2, -1), leaves[2])
+        return torch.autograd.grad(out.square().sum(), leaves)
+
+    before = (conv.DX_LAUNCHES, conv.DW_LAUNCHES, fused.MASK_LAUNCHES,
+              matmul.BWD_LAUNCHES)
+    got = run("cuda")
+    after = (conv.DX_LAUNCHES, conv.DW_LAUNCHES, fused.MASK_LAUNCHES,
+             matmul.BWD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 2]
+    for g, want in zip(got, run("cpu")):
+        torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-5)

@@ -58,8 +58,8 @@ def _compare(jm, tm, *, engine, batch=2, tol=TOL, seed=0):
         jecfg, tecfg = jcfg.ExecutionConfig(), tcfg.ExecutionConfig()
     want, _ = j_forward(params, x, jm, jecfg, train=False, bn_state=state)
     want = np.asarray(want)
-    got, aux = forward(bridge.params_from_numpy(params), torch.from_numpy(x), tm,
-                       tecfg, bn_state=bridge.bn_state_from_numpy(state))
+    got, aux = forward(bridge.params_from_numpy(params, device="cpu"), torch.from_numpy(x), tm,
+                       tecfg, bn_state=bridge.bn_state_from_numpy(state, device="cpu"))
     assert got.dtype == torch.float32 and got.shape == want.shape
     scale = float(np.abs(want).max())
     err = float(np.abs(got.numpy() - want).max())
@@ -96,7 +96,8 @@ def test_predict_and_bn_off():
     jm, tm = jcfg.tiny_model_config(), tcfg.tiny_model_config()
     params, state = _perturbed(jm, 5)
     x = np.random.default_rng(5).normal(0, 50, (2, 16, 16, 3)).astype(np.float32)
-    tp, ts = bridge.params_from_numpy(params), bridge.bn_state_from_numpy(state)
+    tp = bridge.params_from_numpy(params, device="cpu")
+    ts = bridge.bn_state_from_numpy(state, device="cpu")
     probs = predict(tp, torch.from_numpy(x), tm, bn_state=ts)
     torch.testing.assert_close(probs.sum(-1), torch.ones(2))
     from resnet_tpu.models import predict as j_predict
@@ -113,11 +114,21 @@ def test_predict_and_bn_off():
 def test_eval_needs_running_stats():
     tm = tcfg.tiny_model_config()
     params = bridge.params_from_numpy(
-        jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg.tiny_model_config())))
+        jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg.tiny_model_config())),
+        device="cpu")
     with pytest.raises(ValueError, match="running statistics"):
         forward(params, torch.zeros(1, 16, 16, 3), tm)
-    with pytest.raises(NotImplementedError, match="A2"):
-        forward(params, torch.zeros(1, 16, 16, 3), tm, train=True)
+    with pytest.raises(ValueError, match="running statistics"):
+        forward(params, torch.zeros(1, 16, 16, 3), tm,
+                tcfg.ExecutionConfig(bn_mode="frozen"), train=True)
+    # training mode normalizes with the batch statistics and needs none
+    x = torch.from_numpy(np.random.default_rng(0).normal(0, 50, (2, 16, 16, 3))
+                         .astype(np.float32))
+    logits, aux = forward(params, x, tm, train=True)
+    mean, var = aux["bn_stats"]["init_bn"]
+    assert logits.shape == (2, 8) and torch.isfinite(logits).all()
+    assert mean.shape == var.shape == (8,) and (var > 0).all()
+    assert not mean.requires_grad
 
 
 def test_config_fields_mirror_jax():
@@ -158,7 +169,8 @@ def test_grouped_conv_only_on_the_plain_path():
     from resnet_tpu_torch.models import init_bn_state, init_params
 
     gen = torch.Generator().manual_seed(0)
-    params, state = init_params(gen, mcfg), init_bn_state(mcfg)
+    params = init_params(gen, mcfg, device="cpu")
+    state = init_bn_state(mcfg, device="cpu")
     x = torch.zeros(1, 16, 16, 3)
     logits, _ = forward(params, x, mcfg, tcfg.ExecutionConfig(kernels="pallas"),
                         bn_state=state)
@@ -166,3 +178,67 @@ def test_grouped_conv_only_on_the_plain_path():
     with pytest.raises(NotImplementedError, match="A7"):
         forward(params, x, mcfg, tcfg.ExecutionConfig(conv_kernels="pallas"),
                 bn_state=state)
+
+
+def _jax_train_grads(params, state, x, labels, jecfg, jm):
+    """JAX's summed-CE gradients, logits and bn_stats through
+    train/step.py::_loss_fn."""
+    from resnet_tpu.train.step import _loss_fn
+
+    cfg = jcfg.TrainConfig(model=jm, execution=jecfg)
+    batch = {"images": x, "labels": labels}
+    fn = jax.jit(jax.value_and_grad(lambda p, b, s: _loss_fn(p, b, s, cfg), has_aux=True))
+    (loss, (logits, aux)), grads = fn(params, batch, state)
+    return loss, logits, aux["bn_stats"], grads
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("bn_mode", ["batch", "frozen"])
+def test_train_forward_and_grads_match_jax(engine, bn_mode):
+    """forward(train=True) on the tiny model: logits, bn_stats and the
+    gradients of the summed CE against jax.grad of _loss_fn (Pallas in
+    interpret mode for engine 'pallas'). Logits and statistics within 1e-4
+    of max|JAX|; every gradient leaf within 1e-4 of its max|JAX| (measured
+    ~2e-5 at worst, the BN beta leaves whose gradients nearly cancel)."""
+    from resnet_tpu_torch.train import loss_and_grads
+
+    jm, tm = jcfg.tiny_model_config(), tcfg.tiny_model_config()
+    params, state = _perturbed(jm, 3)
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 50, (4, 16, 16, 3)).astype(np.float32)
+    labels = rng.integers(0, 8, 4).astype(np.int32)
+    kw = dict(bn_mode=bn_mode)
+    if engine == "pallas":
+        kw.update(kernels="pallas", conv_kernels="pallas")
+    jecfg = jcfg.ExecutionConfig(pallas_interpret=True, **kw)
+    tcfg_ = tcfg.TrainConfig(model=tm, execution=tcfg.ExecutionConfig(**kw))
+    loss, logits, stats, grads = _jax_train_grads(params, state, x, labels, jecfg, jm)
+    got_loss, got_logits, aux, got_grads = loss_and_grads(
+        bridge.params_from_numpy(params, device="cpu"),
+        {"images": torch.from_numpy(x), "labels": torch.from_numpy(labels)},
+        bridge.bn_state_from_numpy(state, device="cpu"), tcfg_)
+    np.testing.assert_allclose(got_loss.item(), float(loss), rtol=1e-5)
+    for got, want, what in ((got_logits, logits, "logits"),
+                            (aux["bn_stats"], stats, "bn_stats"),
+                            (got_grads, grads, "grads")):
+        a, b = bridge.flatten(got), bridge.flatten(want)
+        assert [p for p, _ in a] == [p for p, _ in b], what
+        for (path, g), (_, w) in zip(a, b):
+            w = np.asarray(w)
+            err = float(np.abs(g.detach().numpy() - w).max())
+            assert err <= TOL * max(float(np.abs(w).max()), 1e-30), (what, path, err)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(remat="block"), "A12"),
+    (dict(bn_stats_batch=2), "A2b"),
+])
+def test_unported_training_options_name_their_roadmap_item(kw, item):
+    tm = tcfg.tiny_model_config()
+    params = bridge.params_from_numpy(jax.tree.map(
+        np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg.tiny_model_config())), device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        forward(params, torch.zeros(4, 16, 16, 3), tm, tcfg.ExecutionConfig(**kw),
+                train=True)
+    with pytest.raises(NotImplementedError, match=item):
+        tcfg.TrainConfig(model=tm, execution=tcfg.ExecutionConfig(**kw))

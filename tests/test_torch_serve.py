@@ -20,8 +20,8 @@ from resnet_tpu_torch.models import forward, init_bn_state, init_params
 def server(tmp_path_factory):
     mcfg = tiny_model_config()
     gen = torch.Generator().manual_seed(1234)
-    params = init_params(gen, mcfg)
-    bn_state = init_bn_state(mcfg)
+    params = init_params(gen, mcfg, device="cpu")
+    bn_state = init_bn_state(mcfg, device="cpu")
     for blk in [bn_state["init_bn"], *[b for bb in bn_state["blocks"] for b in bb.values()]]:
         blk["mean"] += 0.1
         blk["var"] += 0.1
@@ -142,7 +142,7 @@ def test_concurrent_load(server, rng):
 def test_load_inference_restores_configs(server, tmp_path):
     _, model, (_, _, mcfg, ecfg) = server
     path = save_inference(str(tmp_path / "again.pt"), model)
-    again = load_inference(path)
+    again = load_inference(path, device="cpu")
     assert again.mcfg == mcfg and again.ecfg == ecfg
     x = np.ones((2, 16, 16, 3), np.float32)
     torch.testing.assert_close(again.call(x), model.call(x), rtol=0, atol=0)
