@@ -27,10 +27,29 @@ Phases, each printing one JSON line:
      leaf, once with batch statistics and once with BN frozen at the initial
      running statistics (the well-conditioned check, Adam's updates also
      element by element); step times of both paths in turns (plain, kernel, kernel, plain),
-     peak memory, and a torch.profiler breakdown of one kernel-path step.
-Then a JSON line of the kernels (launches: the serving and the training
-main paths' counts together), the nvidia-smi line, and the final line
-{"ok": true, "device": {...}}.
+     peak memory, and a torch.profiler breakdown of one kernel-path step;
+  6. fused train: the same variant under the fused engine
+     (kernels='fused', fused Adam): 5 steps on the batch, the counters read
+     after each (52 fused_conv, 16 fused_join, 1 bias_act, 1 moments,
+     1 adam, and nothing else), the loss after the last update below the
+     first; one step from one state against the plain standard path
+     (kernels='xla', per-tensor Adam): summed loss, training-forward logits,
+     every layer's batch mean and var, the running statistics and every
+     gradient leaf (the rule of phase 5). The fused engine normalizes with
+     the batch's statistics only (bn_mode='batch'), so phase 5's frozen-BN
+     tight check has no counterpart here. Then one step each of 'hybrid'
+     (16 fused_join, 1 bias_act, 1 moments, 1 adam: every conv site on the
+     torch-ops chain) and 'fusedxla' (1 adam: no hand kernel but Adam), each
+     loss within 1e-4 of the plain path's; step times in turns (plain,
+     fusedxla, fused, fused, fusedxla, plain), peak memory of one step of
+     each, and a torch.profiler breakdown of one fused step;
+  7. batch_norm_act: the public BN(+ReLU) entry point of the kernels package
+     (no model path calls it), forward and backward at the stem's shape with
+     and without ReLU: 1 moments, 1 bias_act (the apply) and 1 bn_bwd launch
+     per call, its outputs and gradients within 1e-4 of the plain torch ops.
+Then a JSON line of the kernels (launches: the counts of the main paths of
+phases 4 to 7 together; every kernel is launched on at least one of them),
+the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs a CUDA device and the resnet_tpu_torch package beside it; it
@@ -68,6 +87,12 @@ KERNEL_SOURCES = {
     "matmul_bwd": (CSRC + "matmul.cu", "resnet_tpu/kernels/matmul.py:26"),
     "moments": (CSRC + "moments.cu", "resnet_tpu/kernels/bn.py:72"),
     "adam": (CSRC + "adam.cu", "resnet_tpu/kernels/adam.py:25"),
+    "fused_conv": (CSRC + "fused_conv.cu", "resnet_tpu/kernels/fused_conv.py:45"),
+    "fused_join": (CSRC + "fused_conv.cu", "resnet_tpu/kernels/fused_conv.py:505"),
+    # K5, the BN apply, reached through bias_act (kernels/fused.py:90)
+    "bias_act": (CSRC + "bn.cu", "resnet_tpu/kernels/bn.py:134"),
+    # K6, the reduce kernel and the dx kernel (bn.py:188) of _bn_bwd_impl
+    "bn_bwd": (CSRC + "bn.cu", "resnet_tpu/kernels/bn.py:166"),
 }
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
@@ -77,6 +102,16 @@ PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
 PER_STEP = {"conv2d": 53, "conv2d_dx": 52, "conv2d_dw": 53, "moments": 53,
             "add_relu": 16, "add_relu_mask": 16, "matmul": 1, "matmul_bwd": 2,
             "adam": 1}
+# ... and in one fused-engine step: every block conv (16 * 3 + 4
+# projections) and every join; the stem's statistics and its BN apply; the
+# stem conv, the FC and the gradient convs are plain
+FUSED_PER_STEP = {"fused_conv": 52, "fused_join": 16, "bias_act": 1, "moments": 1,
+                  "adam": 1}
+# 'hybrid' with the empty site table: every conv site on the torch-ops chain
+HYBRID_PER_STEP = {"fused_join": 16, "bias_act": 1, "moments": 1, "adam": 1}
+FUSEDXLA_PER_STEP = {"adam": 1}
+# one batch_norm_act forward and backward
+BN_ENTRY_PER_CALL = {"moments": 1, "bias_act": 1, "bn_bwd": 1}
 LOGIT_TOL = 1e-3
 # kernel path against the plain path after one training step
 LOSS_TOL = 1e-4  # relative
@@ -97,6 +132,8 @@ IMAGE_NUDGE = 2.0 ** -20
 # wrote p would miss nearly every element)
 UPDATE_SHARE = 1e-2
 STAT_TOL = 1e-4  # of max(1, |running statistic|)
+# batch_norm_act against plain torch ops, per output, of its max|plain|
+ENTRY_TOL = 1e-4
 TRAIN_STEPS = 5
 
 
@@ -163,6 +200,11 @@ class Counters:
         return {name: getattr(mod, attr) for name, (mod, attr) in self.where.items()}
 
 
+def _moved(before, after):
+    """The counters that moved between two readings, by how much."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
 def phase_kernels(checks):
     results = {name: [] for name in checks.KERNELS}
     for name, (*_, cases) in checks.KERNELS.items():
@@ -226,8 +268,7 @@ def phase_serve(torch, checks, counters):
                 before = counters.read()
                 status, out = _post(httpd.server_address, x)
                 require(status == 200, f"/predict answered {status}: {out}")
-                after = counters.read()
-                deltas.append({k: after[k] - before[k] for k in after if after[k] != before[k]})
+                deltas.append(_moved(before, counters.read()))
                 replies.append(out)
             launches = {k: v for k, v in counters.read().items() if v}
         finally:
@@ -342,6 +383,64 @@ def _as_running(bn_stats):
             "blocks": [{k: leaf(v) for k, v in b.items()} for b in bn_stats["blocks"]]}
 
 
+def _nudge_sensitivity(batch, params, bn_state, pc, pg):
+    """Per gradient leaf, the plain path's own largest change when the
+    images are scaled by 1 +- 2^-20 (pg: its gradient at the images)."""
+    from resnet_tpu_torch.bridge import flatten, leaves
+    from resnet_tpu_torch.train import loss_and_grads
+
+    sens = {}
+    for factor in (1 + IMAGE_NUDGE, 1 - IMAGE_NUDGE):
+        nudged = dict(batch, images=batch["images"] * factor)
+        qg = loss_and_grads(params, nudged, bn_state, pc)[3]
+        for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
+            sens[path] = max(sens.get(path, 0.0), (a - b).abs().max().item())
+        del qg
+    return sens
+
+
+def _train_main_path(torch, counters, step, cfg, state0, batch, expect, what):
+    """A training path's main run: the counters from 0, TRAIN_STEPS steps on
+    one batch, each required to move the counters by exactly ``expect``, and
+    the loss after the last update required below the first. Returns (state,
+    losses, per-step counts, the counters after the steps, that loss)."""
+    from resnet_tpu_torch.models import forward
+    from resnet_tpu_torch.ops import cross_entropy
+
+    counters.zero()
+    state, losses, per_step = _clone(state0), [], []
+    for _ in range(TRAIN_STEPS):
+        before = counters.read()
+        state, metrics = step(state, batch)
+        per_step.append(_moved(before, counters.read()))
+        losses.append(metrics["loss"].item())
+    launches = counters.read()
+    for i, delta in enumerate(per_step):
+        require(delta == expect, f"{what} step {i} moved the counters by {delta}, "
+                f"expected {expect}")
+    with torch.no_grad():
+        logits, _ = forward(state.params, batch["images"], cfg.model, cfg.execution,
+                            train=True, bn_state=state.bn_state)
+        final_loss = cross_entropy(logits, batch["labels"], reduction="mean").item()
+    require(all(np.isfinite(losses)) and np.isfinite(final_loss), f"losses {losses}")
+    require(final_loss < losses[0], f"{what}: loss after {TRAIN_STEPS} steps "
+            f"{final_loss} is not below the first {losses[0]}")
+    return state, losses, per_step, launches, final_loss
+
+
+def _timed_steps(torch, step, state, batch, n=5):
+    """(state, median ms) of n steps, each timed on the host clock around
+    work that ends in a synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return state, float(np.median(times))
+
+
 def _profile(torch, step):
     """Device time of one call of step() by kernel name, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -367,8 +466,6 @@ def phase_train(torch, checks, counters, smi):
     from resnet_tpu_torch.bridge import flatten, leaves
     from resnet_tpu_torch.config import ExecutionConfig, variant_config
     from resnet_tpu_torch.data import SyntheticDataset
-    from resnet_tpu_torch.models import forward
-    from resnet_tpu_torch.ops import cross_entropy
     from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
 
     base = variant_config("resnet")  # ResNet-50, kernels='pallas', lr 1e-4, batch 32
@@ -386,39 +483,15 @@ def phase_train(torch, checks, counters, smi):
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
     kstep, pstep = make_train_step(kcfg), make_train_step(pcfg)
 
-    # the main path: counters from 0, TRAIN_STEPS steps on one batch
-    counters.zero()
-    state, losses, per_step = _clone(state0), [], []
-    for _ in range(TRAIN_STEPS):
-        before = counters.read()
-        state, metrics = kstep(state, batch)
-        after = counters.read()
-        per_step.append({k: after[k] - before[k] for k in after})
-        losses.append(metrics["loss"].item())
-    launches = counters.read()
-    for i, delta in enumerate(per_step):
-        require(delta == PER_STEP, f"train step {i} moved the counters by {delta}, "
-                f"expected {PER_STEP}")
-    with torch.no_grad():
-        logits, _ = forward(state.params, batch["images"], kcfg.model, kcfg.execution,
-                            train=True, bn_state=state.bn_state)
-        final_loss = cross_entropy(logits, batch["labels"], reduction="mean").item()
-    require(all(np.isfinite(losses)) and np.isfinite(final_loss), f"losses {losses}")
-    require(final_loss < losses[0], f"loss after {TRAIN_STEPS} steps {final_loss} "
-            f"is not below the first {losses[0]}")
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, kstep, kcfg, state0, batch, PER_STEP, "train")
 
     def grads_pair(params, bn_state, kc, pc):
         """Kernel-path and plain-path gradients from one state, and the plain
         path's own change per leaf when the images are scaled by 1 +- 2^-20."""
         kl, _, _, kg = loss_and_grads(params, batch, bn_state, kc)
         pl, _, paux, pg = loss_and_grads(params, batch, bn_state, pc)
-        sens = {}
-        for factor in (1 + IMAGE_NUDGE, 1 - IMAGE_NUDGE):
-            nudged = dict(batch, images=batch["images"] * factor)
-            qg = loss_and_grads(params, nudged, bn_state, pc)[3]
-            for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
-                sens[path] = max(sens.get(path, 0.0), (a - b).abs().max().item())
-            del qg
+        sens = _nudge_sensitivity(batch, params, bn_state, pc, pg)
         require(abs(kl.item() - pl.item()) <= LOSS_TOL * abs(pl.item()),
                 f"summed loss {kl.item()} vs plain {pl.item()}")
         return kg, pg, sens, paux
@@ -490,23 +563,12 @@ def phase_train(torch, checks, counters, smi):
 
     # step times in turns: plain, kernel, kernel, plain
     pstate = _clone(state0)
-
-    def timed(step, st, n=5):
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, _ = step(st, batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return st, float(np.median(times))
-
     step_ms = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         if which == "plain":
-            pstate, ms = timed(pstep, pstate)
+            pstate, ms = _timed_steps(torch, pstep, pstate, batch)
         else:
-            state, ms = timed(kstep, state)
+            state, ms = _timed_steps(torch, kstep, state, batch)
         step_ms[which].append(ms)
     # peak memory of one step of each path; both paths' states are resident
     torch.cuda.synchronize()
@@ -558,6 +620,165 @@ def phase_train(torch, checks, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
+def phase_fused(torch, checks, counters, smi):
+    """The fused engine's training step: main path, one step against the
+    plain standard path, the other two engines, times, memory, profile.
+
+    The fused engine runs only with batch-statistics BN (bn_mode='batch'),
+    so the frozen-BN tight check of phase 5 has no counterpart here: the
+    gradients are held to the rule of phase 5's batch-statistics step."""
+    import dataclasses
+
+    from resnet_tpu_torch.config import ExecutionConfig, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
+
+    base = variant_config("resnet")  # ResNet-50, lr 1e-4, batch 32
+
+    def engine(kernels):
+        return dataclasses.replace(
+            base, execution=dataclasses.replace(base.execution, kernels=kernels),
+            optimizer=dataclasses.replace(base.optimizer, fused=True))
+
+    fcfg, hcfg, xcfg = engine("fused"), engine("hybrid"), engine("fusedxla")
+    pcfg = dataclasses.replace(base, execution=ExecutionConfig(),
+                               optimizer=dataclasses.replace(base.optimizer, fused=False))
+    batch_n = base.data.batch_size
+    state0 = init_train_state(fcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    data = next(SyntheticDataset(batch_n, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    fstep, pstep = make_train_step(fcfg), make_train_step(pcfg)
+
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, fstep, fcfg, state0, batch, FUSED_PER_STEP, "fused train")
+
+    # one step from one state, fused engine against the plain standard path
+    fl, flogits, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, fcfg)
+    pl, plogits, paux, pg = loss_and_grads(state0.params, batch, state0.bn_state, pcfg)
+    sum_loss_err = abs(fl.item() - pl.item()) / abs(pl.item())
+    require(sum_loss_err <= LOSS_TOL, f"summed loss {fl.item()} vs plain {pl.item()}")
+    logit_scale = plogits.abs().max().item()
+    logit_err = (flogits - plogits).abs().max().item()
+    require(logit_err <= LOGIT_TOL * logit_scale,
+            f"training logits differ by {logit_err} > {LOGIT_TOL} * {logit_scale}")
+    stat_batch_err, _, _ = _leaf_errors(faux["bn_stats"], paux["bn_stats"],
+                                        "batch statistic", STAT_TOL, floor=1.0)
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, pcfg, pg)
+    grad_err, grad_sens, grad_nearest = _leaf_errors(fg, pg, "fused gradient", GRAD_TOL,
+                                                     sens=sens)
+    del fg, pg, faux, paux
+    fs, fm = fstep(_clone(state0), batch)
+    ps, pm = pstep(_clone(state0), batch)
+    plain_loss = pm["loss"].item()
+    loss_err = abs(fm["loss"].item() - plain_loss) / abs(plain_loss)
+    require(loss_err <= LOSS_TOL, f"loss {fm['loss'].item()} vs plain {plain_loss}")
+    stat_err, _, _ = _leaf_errors(fs.bn_state, ps.bn_state, "running statistic",
+                                  STAT_TOL, floor=1.0)
+    del fs, ps
+
+    # one step of each other engine: its counts, its loss against the plain path
+    others = {}
+    for name, cfg, expect in (("hybrid", hcfg, HYBRID_PER_STEP),
+                              ("fusedxla", xcfg, FUSEDXLA_PER_STEP)):
+        before = counters.read()
+        _, m = make_train_step(cfg)(_clone(state0), batch)
+        delta = _moved(before, counters.read())
+        require(delta == expect, f"{name} step moved the counters by {delta}, "
+                f"expected {expect}")
+        err = abs(m["loss"].item() - plain_loss) / abs(plain_loss)
+        require(err <= LOSS_TOL, f"{name} loss {m['loss'].item()} vs plain {plain_loss}")
+        others[name] = {"per_step": delta, "loss": m["loss"].item(), "loss_rel_err": err}
+
+    # step times in turns: plain, fusedxla, fused, fused, fusedxla, plain
+    steps = {"plain": pstep, "fusedxla": make_train_step(xcfg), "fused": fstep}
+    states = {"plain": _clone(state0), "fusedxla": _clone(state0), "fused": state}
+    step_ms = {k: [] for k in steps}
+    for which in ("plain", "fusedxla", "fused", "fused", "fusedxla", "plain"):
+        states[which], ms = _timed_steps(torch, steps[which], states[which], batch)
+        step_ms[which].append(ms)
+    # peak memory of one step of each path; the three states are resident
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2**30
+    peak = {}
+    for which in steps:
+        torch.cuda.reset_peak_memory_stats()
+        states[which], _ = steps[which](states[which], batch)
+        torch.cuda.synchronize()
+        peak[which] = torch.cuda.max_memory_allocated() / 2**30
+
+    def one_step():
+        states["fused"], _ = fstep(states["fused"], batch)
+
+    profile_rows = _profile(torch, one_step)
+    median = {k: float(np.median(v)) for k, v in step_ms.items()}
+    emit({"phase": "fused_train", "model": fcfg.model.name, "batch": batch_n,
+          "device": smi, "launches": launches, "per_step": per_step[0],
+          "losses": losses, "loss_after_last_step": final_loss,
+          "compare": {"summed_loss_rel_err": sum_loss_err, "loss_rel_err": loss_err,
+                      "logits_max_err": logit_err, "logits_max_abs": logit_scale,
+                      "batch_stats_max_rel_err": stat_batch_err,
+                      "running_stats_max_err": stat_err,
+                      "grad_max_rel_err": grad_err,
+                      "grad_max_err_over_sensitivity": grad_sens,
+                      "grad_nearest_limit": grad_nearest},
+          "engines": others, "step_ms": step_ms,
+          "fused_step_ms": median["fused"], "fused_img_s": batch_n * 1e3 / median["fused"],
+          "fusedxla_step_ms": median["fusedxla"],
+          "fusedxla_img_s": batch_n * 1e3 / median["fusedxla"],
+          "plain_step_ms": median["plain"], "plain_img_s": batch_n * 1e3 / median["plain"],
+          "peak_gib": peak, "resident_before_gib": resident,
+          "profile_device_busy_ms": (sum(r["ms"] for r in profile_rows)
+                                     if profile_rows else "not measured"),
+          "profile": profile_rows[:30]})
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_bn_entry(torch, counters):
+    """batch_norm_act, the public BN(+ReLU) entry point, forward and backward
+    at the stem's shape with and without ReLU: (y, mean, var) against
+    bn_act_reference (plain torch ops), the gradients against the plain
+    backward (bn_bwd_reference) at the statistics the entry point returned.
+    Autograd through bn_act_reference would normalize with its own
+    statistics, and an element whose x_hat * gamma + beta lies within
+    rounding of 0 would pass its gradient through one ReLU gate and not the
+    other."""
+    from resnet_tpu_torch.kernels import bn
+
+    m, c, eps = 32 * 112 * 112, 64, 1e-7
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5
+    gamma = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    dy = torch.randn(m, c, generator=gen, device="cuda")
+
+    launches, errs = {}, {}
+    names = ("y", "mean", "var", "dx", "dgamma", "dbeta")
+    for relu in (True, False):
+        counters.zero()  # the main path: counters from 0, one call, counters read
+        xs, g, b = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
+        y, mean, var = bn.batch_norm_act(xs, g, b, eps, relu)
+        got = (y.detach(), mean, var, *torch.autograd.grad(y, (xs, g, b), dy))
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in counters.read().items() if v}
+        require(moved == BN_ENTRY_PER_CALL, f"batch_norm_act (relu={relu}) moved the "
+                f"counters by {moved}, expected {BN_ENTRY_PER_CALL}")
+        for k, v in moved.items():
+            launches[k] = launches.get(k, 0) + v
+        want = (*bn.bn_act_reference(x, gamma, beta, eps, relu),
+                *bn.bn_bwd_reference(x, dy, mean, torch.rsqrt(var + eps), gamma, beta,
+                                     relu=relu))
+        for name, a, b in zip(names, got, want, strict=True):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            require(err <= ENTRY_TOL * scale, f"batch_norm_act (relu={relu}) {name}: "
+                    f"max|kernel - plain| = {err} > {ENTRY_TOL} * {scale}")
+            errs[f"{name}{' relu' if relu else ''}"] = err / scale if scale else err
+    emit({"phase": "batch_norm_act", "rows": m, "channels": c, "launches": launches,
+          "max_rel_err": errs})
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -577,10 +798,14 @@ def main() -> None:
     phase_build(build)
     results = phase_kernels(checks)
     counters = Counters(checks)
-    served = phase_serve(torch, checks, counters)
-    trained = phase_train(torch, checks, counters, smi)
+    paths = {"serve": phase_serve(torch, checks, counters),
+             "train": phase_train(torch, checks, counters, smi),
+             "fused_train": phase_fused(torch, checks, counters, smi),
+             "batch_norm_act": phase_bn_entry(torch, counters)}
     require("jax" not in sys.modules, "jax was imported")
-    require(set(trained) == set(KERNEL_SOURCES), f"train path launched {trained}")
+    launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
+    require(all(launched.values()), f"kernels no main path launched: "
+            f"{[k for k, v in launched.items() if not v]}")
 
     rows = []
     for name, (src, ref) in KERNEL_SOURCES.items():
@@ -590,7 +815,7 @@ def main() -> None:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
-            "launches": served.get(name, 0) + trained[name],
+            "launches": launched[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),

@@ -43,7 +43,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 ROADMAP_GHOST_BN = "item A2b: ghost batch norm"
-ROADMAP_FUSED = "item A3: fused engine"
 ROADMAP_BLOCKFUSED = "item A4: whole-block kernel"
 ROADMAP_BF16 = "item A5: bf16 compute"
 ROADMAP_NCHW = "item A6: NCHW layout"
@@ -118,7 +117,10 @@ class ModelConfig:
 class ExecutionConfig:
     """How the model executes; see resnet_tpu.config.ExecutionConfig."""
 
-    kernels: str = "xla"  # 'xla' (plain torch ops) | 'pallas' (hand kernels)
+    # 'xla' (plain torch ops) | 'pallas' (hand kernels) | the fused engines
+    # 'fused' (hand kernels), 'hybrid', 'fusedxla' (torch ops), which run
+    # the training forward only (models/fused_resnet.py)
+    kernels: str = "xla"
     conv_kernels: str = "xla"  # 'xla' | 'pallas'
     layout: str = "NHWC"
     compute_dtype: str = "float32"
@@ -169,9 +171,6 @@ class ExecutionConfig:
         if self.kernels == "blockfused":
             raise not_ported("ExecutionConfig.kernels='blockfused'",
                              ROADMAP_BLOCKFUSED)
-        if self.kernels not in ("xla", "pallas"):
-            raise not_ported(f"ExecutionConfig.kernels={self.kernels!r}",
-                             ROADMAP_FUSED)
         if self.layout == "NCHW":
             raise not_ported("ExecutionConfig.layout='NCHW'", ROADMAP_NCHW)
         if self.compute_dtype != "float32" or self.param_dtype != "float32":

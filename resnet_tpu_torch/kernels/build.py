@@ -13,7 +13,8 @@ with a plain C interface (no PyTorch headers, no ninja):
 an unchanged one is reused. The library is written under a temporary name
 and moved into place, so concurrent builds are safe. It is loaded with
 ctypes; every pointer and the stream are passed as ``c_void_p``, and each
-entry point returns ``cudaGetLastError()`` after its launch.
+entry point returns ``cudaGetLastError()`` after its launch. A float
+argument is a ``c_float``.
 
 There is no fallback: without nvcc, ``load()`` raises ``RuntimeError``.
 """
@@ -37,8 +38,16 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # entry point -> argtypes; the last argument of each is the CUDA stream
 SIGNATURES = {
+    # x, w, scale, shift, y, part, sums, N, H, W, Cin, Cout, k, stride,
+    # pad_top, pad_left, Ho, Wo, prologue, relu, has_cap, cap, ws, splits
+    "rt_fused_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
+    "rt_fused_join_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _P],
+    "rt_bn_apply_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
+    "rt_bn_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
     # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)
     "rt_conv2d_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],

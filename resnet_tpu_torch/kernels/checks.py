@@ -10,10 +10,18 @@ statistics sum up to 401,408 rows: in fp32 that order alone moves the sums
 by ~1e-6 relative, so the same 1e-4 holds for them. For Adam, the positions
 left non-finite must agree exactly as well.
 
-Times are the median of CUDA-event timings of single calls after warm-up.
-Beside the kernel (``ms``) and its plain version (``plain_ms``), a case
-times one PyTorch library call computing the same function where there is
-one (``library_ms``, a yardstick the port never calls; None otherwise), and
+The fused conv (K8) is held on y, Σy and Σy² each against its own max, and
+the BN backward (K6) on y, dx, dγ and dβ through ``batch_norm_act``'s forward
+and backward (the kernel path: K4, K5, K6) against ``bn_act_reference``'s
+forward and the plain backward at the statistics the kernel path saved, so
+that both see the same ReLU gate.
+
+Times are the median of CUDA-event timings of single calls after warm-up
+(for K6, the backward kernel alone against the plain backward). Beside the
+kernel (``ms``) and its plain version (``plain_ms``), a case times one
+PyTorch library call computing the same function where there is one
+(``library_ms``, a yardstick the port never calls; None otherwise; for K8
+``F.conv2d`` of the same shape, which is the conv alone and less work), and
 gives the least time the card could take for the work (``bound_ms``): the
 larger of the bytes the function must move (inputs read once, outputs
 written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32 peak of
@@ -28,7 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import adam, bn, conv, fused, matmul
+from . import adam, bn, conv, fused, fused_conv, matmul
 
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
@@ -75,6 +83,43 @@ MOMENTS_CASES: List[Tuple[str, int, int]] = [
 ]
 # (label, model name): Adam over that model's parameter list
 ADAM_CASES = [("resnet50 params, non-finite injected", "resnet50")]
+# (label, batch, H=W, Cin, Cout, k, stride, prologue, cap): the fused
+# engine's conv sites at batch 32, a capped one, and two ragged ones at
+# batch 2, the second deep enough (K = 9 * 129) that the GEMM splits K and
+# the statistics come from the summed y
+FUSED_CONV_CASES = [
+    ("reduce 1x1 56^2 256->64", 32, 56, 256, 64, 1, 1, False, None),
+    ("spatial 3x3/s1 56^2 64->64, prologue", 32, 56, 64, 64, 3, 1, True, None),
+    ("spatial 3x3/s2 56->28 128->128, prologue", 32, 56, 128, 128, 3, 2, True, None),
+    ("expand 1x1 7^2 512->2048, prologue", 32, 7, 512, 2048, 1, 1, True, None),
+    ("proj 3x3/s2 56->28 256->512", 32, 56, 256, 512, 3, 2, False, None),
+    ("spatial 3x3/s1 14^2 256->256, prologue, cap 10", 32, 14, 256, 256, 3, 1, True, 10.0),
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1, True, None),
+    ("ragged 3x3 7^2 129->33, batch 2, split K", 2, 7, 129, 33, 3, 1, True, None),
+]
+# (label, shape, storage offset in floats, cap): residual joins
+FUSED_JOIN_CASES = [
+    ("join (32,56,56,256)", (32, 56, 56, 256), 0, None),
+    ("join (32,7,7,2048)", (32, 7, 7, 2048), 0, None),
+    ("odd size (3,7,7,9)", (3, 7, 7, 9), 0, None),
+    ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1, None),
+    ("cap 10 (32,14,14,1024)", (32, 14, 14, 1024), 0, 10.0),
+]
+# (label, shape, relu, cap, storage offset in floats): K5 through bias_act
+BIAS_ACT_CASES = [
+    ("stem (32,112,112,64), relu", (32, 112, 112, 64), True, None, 0),
+    ("(32,56,56,256), no relu", (32, 56, 56, 256), False, None, 0),
+    ("stem (32,112,112,64), relu, cap 10", (32, 112, 112, 64), True, 10.0, 0),
+    ("odd size (3,7,7,9), relu", (3, 7, 7, 9), True, None, 0),
+    ("misaligned (8,7,7,2048), relu", (8, 7, 7, 2048), True, None, 1),
+]
+# (label, M, C, relu): batch_norm_act forward and backward
+BN_BWD_CASES = [(f"({label}){' relu' if relu else ''}", m, c, relu)
+                for label, m, c in [("32*112*112, 64", 32 * 112 * 112, 64),
+                                    ("32*28*28, 512", 32 * 28 * 28, 512),
+                                    ("32*7*7, 2048", 32 * 7 * 7, 2048),
+                                    ("1000, 33", 1000, 33)]
+                for relu in (True, False)]
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -87,6 +132,10 @@ KERNELS = {
     "matmul_bwd": (matmul, "BWD_LAUNCHES", 2, MATMUL_BWD_CASES),
     "moments": (bn, "LAUNCHES", 1, MOMENTS_CASES),
     "adam": (adam, "LAUNCHES", 1, ADAM_CASES),
+    "fused_conv": (fused_conv, "LAUNCHES", 1, FUSED_CONV_CASES),
+    "fused_join": (fused_conv, "JOIN_LAUNCHES", 1, FUSED_JOIN_CASES),
+    "bias_act": (bn, "APPLY_LAUNCHES", 1, BIAS_ACT_CASES),
+    "bn_bwd": (bn, "BWD_LAUNCHES", 1, BN_BWD_CASES),
 }
 
 
@@ -124,8 +173,11 @@ class _Case:
     library call, and the work the function must do."""
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
-                 timed=None):
+                 timed=None, library_covers=slice(None), library_same=True):
         self.run, self.plain, self.library = run, plain, library
+        # the plain outputs the library call computes too; library_same
+        # False: a yardstick of the same shape that does less work (K8)
+        self.library_covers, self.library_same = library_covers, library_same
         self.nbytes, self.flops = nbytes, flops
         # what is timed, where the compared call does more (Adam: the
         # kernel's update alone, without the copies that make its state)
@@ -215,7 +267,88 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                      lambda vm: (vm[1], vm[0]))
     if kernel == "adam":
         return _adam_case(case, randn, device)
+    if kernel == "fused_conv":
+        return _fused_conv_case(case, randn)
+    if kernel == "fused_join":
+        _, shape, offset, cap = case
+        c = shape[-1]
+        e, r = randn(*shape, offset=offset), randn(*shape, offset=offset)
+        se, sr = 1 + randn(c, scale=0.2), 1 + randn(c, scale=0.2)
+        te, tr = randn(c, scale=0.2), randn(c, scale=0.2)
+        return _Case(lambda: fused_conv.fused_join(e, se, te, r, sr, tr, cap),
+                     lambda: fused_conv.fused_join_reference(e, se, te, r, sr, tr, cap),
+                     12 * e.numel() + 16 * c, 6 * e.numel())
+    if kernel == "bias_act":
+        _, shape, relu, cap, offset = case
+        c = shape[-1]
+        x = randn(*shape, offset=offset)
+        scale, shift = 1 + randn(c, scale=0.2), randn(c, scale=0.5)
+        return _Case(lambda: fused.bias_act(x, scale, shift, relu, cap),
+                     lambda: bn.bn_apply_reference(x, scale, shift, relu=relu, cap=cap),
+                     8 * x.numel() + 8 * c, 4 * x.numel())
+    if kernel == "bn_bwd":
+        return _bn_bwd_case(case, randn)
     raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _fused_conv_case(case, randn) -> _Case:
+    _, n, h, cin, cout, k, s, prologue, cap = case
+    ho = h // s
+    x = randn(n, h, h, cin)
+    w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
+    # shift > 0 on about half the channels: relu(shift) must not reach the halo
+    scale, shift = 1 + randn(cin, scale=0.2), randn(cin, scale=0.5)
+    args = (x, w, scale, shift, s, None, prologue, True, cap)
+
+    def split(out):
+        y, sums = out
+        return y, sums[0], sums[1]
+
+    return _Case(lambda: split(fused_conv.fused_conv(*args)),
+                 lambda: split(fused_conv.fused_conv_reference(*args)),
+                 4 * (x.numel() + w.numel() + n * ho * ho * cout + 2 * cin + 2 * cout),
+                 2 * n * ho * ho * k * k * cin * cout,
+                 lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s,
+                                  padding=k // 2),
+                 library_same=False)
+
+
+def _bn_bwd_case(case, randn) -> _Case:
+    _, m, c, relu = case
+    x = randn(m, c) * 2.0 + randn(1, c)
+    gamma, beta = 1 + randn(c, scale=0.2), randn(c, scale=0.5)
+    dy = randn(m, c)
+    eps = 1e-7
+    mean, var = bn.moments_reference(x)
+    inv = torch.rsqrt(var + eps)
+
+    saved = {}
+
+    def run():  # forward K4 and K5, backward K6 through autograd
+        xs, g, b = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
+        y, saved["mean"], saved["var"] = bn.batch_norm_act(xs, g, b, eps, relu)
+        return (y.detach(), *torch.autograd.grad(y, (xs, g, b), dy))
+
+    def plain():
+        # the backward's plain version at the statistics K6 was given (its
+        # own inputs): a ReLU gate on an element whose x_hat * gamma + beta
+        # lies within rounding of 0 would flip between the two paths'
+        # statistics and move dx there by gamma * inv_std * dy
+        y, _, _ = bn.bn_act_reference(x, gamma, beta, eps, relu)
+        return (y, *bn.bn_bwd_reference(x, dy, saved["mean"],
+                                        torch.rsqrt(saved["var"] + eps), gamma, beta,
+                                        relu=relu))
+
+    library = None
+    if not relu:  # the plain BN backward, no ReLU gate
+        def library():
+            return torch.ops.aten.native_batch_norm_backward(
+                dy, x, gamma, None, None, mean, inv, True, eps, [True, True, True])
+    return _Case(run, plain, 12 * m * c + 4 * 6 * c, 10 * m * c, library,
+                 timed=(lambda: bn.bn_bwd(x, dy, mean, inv, gamma, beta, relu=relu),
+                        lambda: bn.bn_bwd_reference(x, dy, mean, inv, gamma, beta,
+                                                    relu=relu)),
+                 library_covers=slice(1, None))
 
 
 def _adam_case(case, randn, device) -> _Case:
@@ -295,9 +428,10 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
     least, by = bound(c.nbytes, c.flops)
     out = {"kernel": kernel, "case": case[0], "max_abs_err": err, "rel_err": rel,
            "bound_ms": least, "bound_by": by}
-    if c.library is not None:
+    if c.library is not None and c.library_same:
         # the yardstick must compute the same function
-        for lt, wt in zip(_outputs(c.as_plain(c.library())), want, strict=True):
+        for lt, wt in zip(_outputs(c.as_plain(c.library())), want[c.library_covers],
+                          strict=True):
             scale = wt.abs().max().item()
             if (lt - wt).abs().max().item() > 1e-3 * scale:
                 raise RuntimeError(f"{kernel} {case[0]}: the library call computes "

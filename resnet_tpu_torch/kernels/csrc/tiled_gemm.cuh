@@ -37,6 +37,15 @@
 // exactly. The dW GEMMs need it: the stem at batch 32 has M = 147, N = 64
 // and K = 401,408, which is 3 output tiles for 132 SMs.
 //
+// Column statistics (kStats, the fused conv's epilogue): after storing its
+// tile, a block of a single-split GEMM also writes the per-column sum and
+// sum of squares of the values it stored, over its own rows, to
+// tile_sums[(blockIdx.x * 2 + {0, 1}) * N + col]. Each thread adds its TM
+// rows, then one thread per column adds the BM / TM thread rows in order
+// (through the A and B tiles' shared memory, free after the K loop), so a
+// run repeats exactly. A null tile_sums skips it (the split-K launches,
+// whose tiles hold partials).
+//
 // Plain FMA units, fp32 throughout: wgmma/TMA tiling and tensor-core paths
 // are work for later PRs.
 #pragma once
@@ -63,14 +72,16 @@ static_assert(A_PER_THREAD * A_ROW_STEP == BM, "A slice tiling");
 static_assert(A_PER_THREAD * A_K_STEP == BK, "A slice tiling (m-fast)");
 static_assert(B_PER_THREAD * B_ROW_STEP == BK, "B slice tiling");
 static_assert(B_PER_THREAD * B_COL_STEP == BN, "B slice tiling (transposed)");
+static_assert(BK >= BM / TM, "column statistics stage one row per thread row");
 
 // blockIdx.x walks M (up to 2^31 - 1 tiles), blockIdx.y walks N, blockIdx.z
 // the K splits.
-template <bool B_T, class ALoader>
+template <bool B_T, bool kStats = false, class ALoader>
 __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__ B,
                                            int64_t ldb, float* __restrict__ C,
                                            int64_t M, int N, int64_t K,
-                                           int64_t k_chunk) {
+                                           int64_t k_chunk,
+                                           float* __restrict__ tile_sums = nullptr) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
 
@@ -158,6 +169,33 @@ __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__
     for (int j = 0; j < TN; ++j) {
       const int gc = col0 + tx * TN + j;
       if (gc < N) C[a.out_row(gm) * N + gc] = acc[i][j];
+    }
+  }
+
+  if constexpr (kStats) {
+    if (tile_sums == nullptr) return;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      float s = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        if (row0 + ty * TM + i < M) {
+          s += acc[i][j];
+          s2 += acc[i][j] * acc[i][j];
+        }
+      }
+      As[ty][tx * TN + j] = s;
+      Bs[ty][tx * TN + j] = s2;
+    }
+    __syncthreads();
+    if (tid < 2 * BN) {
+      const int col = tid % BN;
+      const int which = tid / BN;
+      float t = 0.f;
+#pragma unroll
+      for (int r = 0; r < BM / TM; ++r) t += which ? Bs[r][col] : As[r][col];
+      if (col0 + col < N)
+        tile_sums[((int64_t)blockIdx.x * 2 + which) * N + col0 + col] = t;
     }
   }
 }

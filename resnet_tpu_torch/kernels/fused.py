@@ -9,13 +9,20 @@ anything the kernels do not take raises. On a CPU tensor the plain versions
 ``add_relu_reference`` and ``add_relu_mask_reference`` run.
 
 ``LAUNCHES`` counts forward launches, ``MASK_LAUNCHES`` backward ones.
+
+``bias_act(x, scale, shift, relu=True, cap=None)`` is the port of
+resnet_tpu.kernels.fused.bias_act: clip(relu(x · scale + shift)) with (C,)
+rows over the last dimension. Its forward is K5 (``bn.bn_apply``, counted by
+``bn.APPLY_LAUNCHES``) on the (rows, C) view; its backward is torch ops, the
+formula of fused.py:104-117 (``bn.bn_apply_bwd``), as the JAX package has
+no kernel there either.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import bn, build
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
@@ -82,3 +89,25 @@ def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape:
         raise ValueError(f"add_relu: shapes {tuple(a.shape)} and {tuple(b.shape)}")
     return _AddRelu.apply(a, b)
+
+
+class _BiasAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, shift, relu, cap):
+        ctx.relu, ctx.cap = relu, cap
+        ctx.save_for_backward(x, scale, shift)
+        c = x.shape[-1]
+        return bn.bn_apply(x.reshape(-1, c), scale, shift, relu=relu, cap=cap).view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, shift = ctx.saved_tensors
+        return (*bn.bn_apply_bwd(x, dy, scale, shift, relu=ctx.relu, cap=ctx.cap),
+                None, None)
+
+
+def bias_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+             relu: bool = True, cap=None) -> torch.Tensor:
+    """clip(relu(x · scale + shift)), scale and shift (C,) over the last
+    dimension of a contiguous fp32 x; differentiable in all three."""
+    return _BiasAct.apply(x, scale, shift, relu, cap)

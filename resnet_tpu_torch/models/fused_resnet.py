@@ -1,0 +1,125 @@
+"""The fused engines' training forward (``ExecutionConfig.kernels`` in
+'fused', 'hybrid', 'fusedxla'): the port of resnet_tpu.models.fused_resnet.
+
+Every activation is written once by the conv that produces it and read once
+by the op that consumes it: each block conv is a ``fused_conv`` site whose
+prologue applies the previous layer's BN affine and ReLU to its input and
+whose epilogue gives this layer's BN statistics [Σy, Σy²]; each residual
+join applies both pending BN affines (``fused_join``). The stem is a plain
+conv, the K4 statistics and one K5 pass (``bias_act``, the max pool cannot
+host a prologue: gamma may be negative), then the max pool; the head is the
+plain global pool and ``ops.linear``. The same batch-statistics BN, centred
+windows and zero padding as ``models.resnet.forward(train=True)``.
+
+Engines, per conv site (``_conv_site``):
+  * 'fused': K8 at every site;
+  * 'fusedxla': ``conv_chain`` (the contract in torch ops) at every site,
+    and the stem statistics, the stem affine and the joins in torch ops:
+    the fused dataflow with no hand kernel;
+  * 'hybrid': K8 at the sites of ``FUSED_SITES``, ``conv_chain`` elsewhere;
+    joins and stem as 'fused'. The table is empty, as the JAX package's is
+    by default (fused_resnet.py:53): a site enters it only on an in-step
+    measurement on the card that shows a gain.
+
+``models.resnet.forward`` routes here in training with NHWC, bn_mode
+'batch' and no ghost BN; every other case runs the standard path.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..config import ExecutionConfig, ModelConfig
+from ..kernels import bn as _kbn
+from ..kernels.fused import bias_act
+from ..kernels.fused_conv import (
+    bn_affine_from_sums,
+    conv_chain,
+    fused_conv,
+    fused_join,
+    fused_join_reference,
+)
+from ..ops import batch_moments, conv2d, global_avg_pool, linear, max_pool
+
+# (input H, Cin, Cout, k, stride) of the sites where 'hybrid' takes K8
+FUSED_SITES: frozenset = frozenset()
+
+
+def _stats(sums, m: int):
+    """Detached (mean, biased var) from [Σy, Σy²] over m rows."""
+    sums = sums.detach()
+    return _kbn.mean_var_from_sums(sums[0], sums[1], m)
+
+
+def _conv_site(x, w, scale, shift, stride, prologue, relu, cap, ecfg: ExecutionConfig):
+    if ecfg.kernels == "fusedxla" or (
+            ecfg.kernels == "hybrid"
+            and (x.shape[1], x.shape[3], w.shape[3], w.shape[0], stride) not in FUSED_SITES):
+        return conv_chain(x, w, scale, shift, stride, prologue, relu, cap)
+    return fused_conv(x, w, scale, shift, stride, None, prologue, relu, cap)
+
+
+def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
+                  ecfg: ExecutionConfig) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Training forward of the fused engines on NHWC images: (fp32 logits,
+    {"bn_stats": ...}) with the batch statistics of every BN layer, detached,
+    in the tree of ``models.resnet.forward``."""
+    eps = mcfg.bn_eps
+    cap = ecfg.relu_cap
+    all_plain = ecfg.kernels == "fusedxla"
+    x = x.to(ecfg.cdtype)
+    ones = torch.ones((1,), dtype=torch.float32, device=x.device)
+    zeros = torch.zeros((1,), dtype=torch.float32, device=x.device)
+    join = fused_join_reference if all_plain else fused_join
+
+    def site(bp, conv, bn, inp, affine, stride, bstats):
+        """Conv site ``conv`` of block bp: the prologue from ``affine``
+        ((scale, shift) or None for none), then BN layer ``bn``'s statistics
+        and its pending (scale, shift)."""
+        scale, shift = affine if affine is not None else (ones, zeros)
+        on = affine is not None
+        y, sums = _conv_site(inp, bp[conv]["w"], scale, shift, stride, on, on,
+                             cap if on else None, ecfg)
+        m = y.shape[0] * y.shape[1] * y.shape[2]
+        bstats[bn] = _stats(sums, m)
+        return y, bn_affine_from_sums(sums, bp[bn]["gamma"], bp[bn]["beta"], m, eps)
+
+    y0 = conv2d(x, params["init_conv"]["w"], stride=mcfg.init_stride)
+    if all_plain:
+        mean0, var0 = batch_moments(y0)
+    else:
+        mean0, var0 = _kbn.moments(y0.reshape(-1, y0.shape[-1]))
+    stats: Dict[str, Any] = {"init_bn": (mean0.detach(), var0.detach())}
+    sc0 = params["init_bn"]["gamma"] * torch.rsqrt(var0 + eps)
+    sh0 = params["init_bn"]["beta"] - sc0 * mean0
+    if all_plain:
+        act0 = _kbn.bn_apply_reference(y0, sc0, sh0, relu=True, cap=cap)
+    else:
+        act0 = bias_act(y0, sc0, sh0, True, cap)
+    out = max_pool(act0, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride)
+
+    block_stats = []
+    for i, bp in enumerate(params["blocks"]):
+        stride = 2 if mcfg.is_reduction_block(i) else 1
+        bstats: Dict[str, Any] = {}
+        if mcfg.bottleneck:
+            r, aff_r = site(bp, "reduce", "bn_reduce", out, None, 1, bstats)
+            s_, aff_s = site(bp, "spatial", "bn_spatial", r, aff_r, stride, bstats)
+            e, aff_e = site(bp, "expand", "bn_expand", s_, aff_s, 1, bstats)
+        else:  # basic block (resnet18/34)
+            c1, aff_1 = site(bp, "conv1", "bn1", out, None, stride, bstats)
+            e, aff_e = site(bp, "conv2", "bn2", c1, aff_1, 1, bstats)
+        if "proj" in bp:
+            p, aff_p = site(bp, "proj", "bn_proj", out, None, stride, bstats)
+            out = join(e, *aff_e, p, *aff_p, cap)
+        else:
+            c = out.shape[-1]
+            out = join(e, *aff_e, out, torch.ones((c,), device=x.device),
+                       torch.zeros((c,), device=x.device), cap)
+        block_stats.append(bstats)
+    stats["blocks"] = block_stats
+
+    logits = linear(global_avg_pool(out), params["fc"]["w"], params["fc"].get("b"))
+    return logits.to(torch.float32), {"bn_stats": stats}

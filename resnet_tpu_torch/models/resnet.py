@@ -13,7 +13,10 @@ In training mode BN normalizes with the batch statistics
 with the running statistics (``bn_state``); ``bn_mode='off'`` skips the
 normalization as in the JAX package. ``ExecutionConfig.conv_kernels`` picks
 the conv engine and ``ExecutionConfig.kernels`` the BN statistics, join and
-FC engine (``ops.dispatch``). Every hand kernel is differentiable, so the
+FC engine (``ops.dispatch``). The fused engines (``kernels`` 'fused',
+'hybrid', 'fusedxla') take the training forward with batch statistics to
+``models.fused_resnet`` (models/resnet.py:275-288); in every other mode
+they run this path with plain ops, as in the JAX package. Every hand kernel is differentiable, so the
 same forward serves the training step's autograd. Remat (queue A item A12)
 and ghost BN (item A2b) are not ported.
 """
@@ -129,6 +132,11 @@ def forward(
     if train and ecfg.bn_stats_batch > 0:
         raise not_ported("ExecutionConfig.bn_stats_batch > 0 (ghost BN)",
                          ROADMAP_GHOST_BN)
+    if (train and ecfg.kernels in ("fused", "hybrid", "fusedxla")
+            and ecfg.layout == "NHWC" and ecfg.bn_mode == "batch"):
+        from .fused_resnet import fused_forward
+
+        return fused_forward(params, x, mcfg, ecfg)
     needs_state = ecfg.bn_mode == "frozen" or (not train and ecfg.bn_mode != "off")
     if bn_state is None and needs_state:
         raise ValueError("eval-mode/frozen BN requires running statistics (bn_state)")

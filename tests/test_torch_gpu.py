@@ -61,3 +61,24 @@ def test_backward_on_cuda_moves_the_backward_counters(cuda):
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 2]
     for g, want in zip(got, run("cpu")):
         torch.testing.assert_close(g.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+def test_fused_conv_keeps_the_halo_at_zero_on_cuda(cuda):
+    """K8 with scale 0 and shift 1: every in-image element of u is 1, so an
+    all-ones 3x3 filter counts each window's in-image taps (4 in a corner,
+    6 on an edge, 9 inside, times Cin); relu(shift) in the halo would make
+    them all 9. Stride 1 and 2, and the sums of those counts."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    cin = 3
+    x = torch.randn(1, 6, 6, cin, device="cuda")
+    w = torch.ones(3, 3, cin, 1, device="cuda")
+    scale, shift = torch.zeros(cin, device="cuda"), torch.ones(cin, device="cuda")
+    taps = torch.tensor([2.0, 3, 3, 3, 3, 2])
+    for stride in (1, 2):
+        before = fused_conv.LAUNCHES
+        y, sums = fused_conv.fused_conv(x, w, scale, shift, stride)
+        assert fused_conv.LAUNCHES == before + 1
+        want = torch.outer(taps, taps)[::stride, ::stride] * cin
+        assert torch.equal(y[0, :, :, 0].cpu(), want)
+        assert torch.equal(sums[:, 0].cpu(), torch.stack([want.sum(), (want ** 2).sum()]))

@@ -121,7 +121,8 @@ def test_sources_and_signatures_agree():
         assert f'extern "C" int {name}(' in text, name
         assert argtypes[-1] is build.ctypes.c_void_p  # the stream
     assert {p.name for p in build.sources()} == {
-        "conv.cu", "matmul.cu", "add_relu.cu", "moments.cu", "adam.cu"}
+        "conv.cu", "matmul.cu", "add_relu.cu", "moments.cu", "adam.cu", "bn.cu",
+        "fused_conv.cu"}
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
 
 

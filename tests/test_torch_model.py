@@ -146,9 +146,6 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kernels="fused"), "A3"),
-    (dict(kernels="fusedxla"), "A3"),
-    (dict(kernels="hybrid"), "A3"),
     (dict(kernels="blockfused"), "A4"),
     (dict(compute_dtype="bfloat16"), "A5"),
     (dict(layout="NCHW"), "A6"),
@@ -157,6 +154,25 @@ def test_config_fields_mirror_jax():
 def test_unported_configs_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tcfg.ExecutionConfig(**kw)
+
+
+@pytest.mark.parametrize("kernels", ["fused", "fusedxla", "hybrid"])
+def test_fused_engines_run_the_standard_path_outside_training(kernels):
+    """The fused engines are accepted; outside a batch-statistics training
+    forward (eval, bn_mode 'frozen') they run the standard path with plain
+    ops, as in the JAX package, so they equal kernels='xla' exactly."""
+    jm, tm = jcfg.tiny_model_config(), tcfg.tiny_model_config()
+    params, state = _perturbed(jm, 4)
+    tp = bridge.params_from_numpy(params, device="cpu")
+    ts = bridge.bn_state_from_numpy(state, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(4).normal(0, 50, (2, 16, 16, 3))
+                         .astype(np.float32))
+    for train, mode in ((False, "batch"), (True, "frozen")):
+        got, _ = forward(tp, x, tm, tcfg.ExecutionConfig(kernels=kernels, bn_mode=mode),
+                         train=train, bn_state=ts)
+        want, _ = forward(tp, x, tm, tcfg.ExecutionConfig(bn_mode=mode), train=train,
+                          bn_state=ts)
+        assert torch.equal(got, want)
 
 
 def test_typos_still_fail_as_value_errors():
@@ -200,16 +216,21 @@ def test_train_forward_and_grads_match_jax(engine, bn_mode):
     interpret mode for engine 'pallas'). Logits and statistics within 1e-4
     of max|JAX|; every gradient leaf within 1e-4 of its max|JAX| (measured
     ~2e-5 at worst, the BN beta leaves whose gradients nearly cancel)."""
+    kw = dict(bn_mode=bn_mode)
+    if engine == "pallas":
+        kw.update(kernels="pallas", conv_kernels="pallas")
+    _train_parity(jcfg.tiny_model_config(), tcfg.tiny_model_config(), kw)
+
+
+def _train_parity(jm, tm, kw):
+    """Summed loss, logits, bn_stats and every gradient leaf of one training
+    forward and backward, the port against JAX (Pallas in interpret mode)."""
     from resnet_tpu_torch.train import loss_and_grads
 
-    jm, tm = jcfg.tiny_model_config(), tcfg.tiny_model_config()
     params, state = _perturbed(jm, 3)
     rng = np.random.default_rng(3)
     x = rng.normal(0, 50, (4, 16, 16, 3)).astype(np.float32)
     labels = rng.integers(0, 8, 4).astype(np.int32)
-    kw = dict(bn_mode=bn_mode)
-    if engine == "pallas":
-        kw.update(kernels="pallas", conv_kernels="pallas")
     jecfg = jcfg.ExecutionConfig(pallas_interpret=True, **kw)
     tcfg_ = tcfg.TrainConfig(model=tm, execution=tcfg.ExecutionConfig(**kw))
     loss, logits, stats, grads = _jax_train_grads(params, state, x, labels, jecfg, jm)
@@ -227,6 +248,23 @@ def test_train_forward_and_grads_match_jax(engine, bn_mode):
             w = np.asarray(w)
             err = float(np.abs(g.detach().numpy() - w).max())
             assert err <= TOL * max(float(np.abs(w).max()), 1e-30), (what, path, err)
+
+
+# (engine, tiny variant, relu_cap)
+FUSED_CASES = [(e, v, None) for e in ("fused", "hybrid", "fusedxla") for v in sorted(TINY)]
+FUSED_CASES.append(("fused", "bottleneck-reference", 2.0))
+
+
+@pytest.mark.parametrize("engine,variant,cap", FUSED_CASES)
+def test_fused_engines_match_jax(engine, variant, cap):
+    """The fused engines' training forward (models.fused_resnet) on the
+    tiny bottleneck and basic-block models, and 'fused' with a cap of 2.0
+    that clips the prologues and joins: logits, bn_stats and every gradient
+    leaf within 1e-4 of max|JAX| against the JAX package's engine of the
+    same name."""
+    kw = TINY[variant]
+    _train_parity(jcfg.tiny_model_config(**kw), tcfg.tiny_model_config(**kw),
+                  dict(kernels=engine, relu_cap=cap))
 
 
 @pytest.mark.parametrize("kw,item", [

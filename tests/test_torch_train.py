@@ -48,6 +48,13 @@ CASES = {
         name="sgd", learning_rate=0.05, weight_decay=1e-3, schedule="step",
         total_steps=4)),
     "grad_accum-2": (dict(grad_accum=2), dict(KERNELS, grad_accum=2), dict()),
+    # the fused engine, with fused Adam as chip_smoke.py runs it, and with
+    # grad_accum: its bn_stats merge into the running statistics per
+    # microbatch
+    "fused-engine": (dict(kernels="fused", pallas_interpret=True), dict(kernels="fused"),
+                     dict(fused=True)),
+    "fused-engine-grad_accum-2": (dict(kernels="fused", pallas_interpret=True, grad_accum=2),
+                                  dict(kernels="fused", grad_accum=2), dict()),
 }
 
 
