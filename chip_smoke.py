@@ -43,12 +43,23 @@ Phases, each printing one JSON line:
      loss within 1e-4 of the plain path's; step times in turns (plain,
      fusedxla, fused, fused, fusedxla, plain), peak memory of one step of
      each, and a torch.profiler breakdown of one fused step;
-  7. batch_norm_act: the public BN(+ReLU) entry point of the kernels package
+  7. blockfused train: the same variant under the whole-block engine
+     (kernels='blockfused', fused Adam): 5 steps on the batch, the counters
+     read after each (12 block_fused, one per stride-1 identity block, and
+     1 adam, nothing else: the stem, the 4 projection blocks and the FC are
+     plain), the loss after the last update below the first; one step
+     against the plain standard path by the rules of phase 6; one step with
+     conv_kernels='pallas' (12 block_fused, 17 conv2d, 16 conv2d_dx, 17
+     conv2d_dw, 1 adam), its loss within 1e-4 of the plain path's; step
+     times in turns (plain, blockfused, fused, fused, blockfused, plain),
+     peak memory of one step of each, a torch.profiler breakdown of one
+     blockfused step;
+  8. batch_norm_act: the public BN(+ReLU) entry point of the kernels package
      (no model path calls it), forward and backward at the stem's shape with
      and without ReLU: 1 moments, 1 bias_act (the apply) and 1 bn_bwd launch
      per call, its outputs and gradients within 1e-4 of the plain torch ops.
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 7 together; every kernel is launched on at least one of them),
+phases 4 to 8 together; every kernel is launched on at least one of them),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no final
@@ -93,6 +104,7 @@ KERNEL_SOURCES = {
     "bias_act": (CSRC + "bn.cu", "resnet_tpu/kernels/bn.py:134"),
     # K6, the reduce kernel and the dx kernel (bn.py:188) of _bn_bwd_impl
     "bn_bwd": (CSRC + "bn.cu", "resnet_tpu/kernels/bn.py:166"),
+    "block_fused": (CSRC + "block_fused.cu", "resnet_tpu/kernels/block_fused.py:60"),
 }
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
@@ -110,6 +122,13 @@ FUSED_PER_STEP = {"fused_conv": 52, "fused_join": 16, "bias_act": 1, "moments": 
 # 'hybrid' with the empty site table: every conv site on the torch-ops chain
 HYBRID_PER_STEP = {"fused_join": 16, "bias_act": 1, "moments": 1, "adam": 1}
 FUSEDXLA_PER_STEP = {"adam": 1}
+# ... and in one whole-block-engine step: the 12 stride-1 identity blocks;
+# the stem, the 4 projection blocks and the FC are plain
+BLOCKFUSED_PER_STEP = {"block_fused": 12, "adam": 1}
+# ... and with conv_kernels='pallas': K1 for the stem and the projection
+# blocks' 16 convs (the stem takes no dx)
+BLOCKFUSED_PALLAS_PER_STEP = {"block_fused": 12, "conv2d": 17, "conv2d_dx": 16,
+                              "conv2d_dw": 17, "adam": 1}
 # one batch_norm_act forward and backward
 BN_ENTRY_PER_CALL = {"moments": 1, "bias_act": 1, "bn_bwd": 1}
 LOGIT_TOL = 1e-3
@@ -620,41 +639,14 @@ def phase_train(torch, checks, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
-def phase_fused(torch, checks, counters, smi):
-    """The fused engine's training step: main path, one step against the
-    plain standard path, the other two engines, times, memory, profile.
+def _engine_vs_plain(torch, cfg, pcfg, state0, batch):
+    """One step of an engine from state0 against the plain standard path:
+    summed loss, training logits, every layer's batch statistics, every
+    gradient leaf (the rule of phase 5's batch-statistics step), then the
+    step's loss and running statistics. Returns (compare, the plain loss)."""
+    from resnet_tpu_torch.train import loss_and_grads, make_train_step
 
-    The fused engine runs only with batch-statistics BN (bn_mode='batch'),
-    so the frozen-BN tight check of phase 5 has no counterpart here: the
-    gradients are held to the rule of phase 5's batch-statistics step."""
-    import dataclasses
-
-    from resnet_tpu_torch.config import ExecutionConfig, variant_config
-    from resnet_tpu_torch.data import SyntheticDataset
-    from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
-
-    base = variant_config("resnet")  # ResNet-50, lr 1e-4, batch 32
-
-    def engine(kernels):
-        return dataclasses.replace(
-            base, execution=dataclasses.replace(base.execution, kernels=kernels),
-            optimizer=dataclasses.replace(base.optimizer, fused=True))
-
-    fcfg, hcfg, xcfg = engine("fused"), engine("hybrid"), engine("fusedxla")
-    pcfg = dataclasses.replace(base, execution=ExecutionConfig(),
-                               optimizer=dataclasses.replace(base.optimizer, fused=False))
-    batch_n = base.data.batch_size
-    state0 = init_train_state(fcfg, torch.Generator().manual_seed(SEED), device="cuda")
-    data = next(SyntheticDataset(batch_n, image_dim=base.model.input_dim,
-                                 num_classes=base.model.num_classes, seed=SEED))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
-    fstep, pstep = make_train_step(fcfg), make_train_step(pcfg)
-
-    state, losses, per_step, launches, final_loss = _train_main_path(
-        torch, counters, fstep, fcfg, state0, batch, FUSED_PER_STEP, "fused train")
-
-    # one step from one state, fused engine against the plain standard path
-    fl, flogits, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, fcfg)
+    fl, flogits, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
     pl, plogits, paux, pg = loss_and_grads(state0.params, batch, state0.bn_state, pcfg)
     sum_loss_err = abs(fl.item() - pl.item()) / abs(pl.item())
     require(sum_loss_err <= LOSS_TOL, f"summed loss {fl.item()} vs plain {pl.item()}")
@@ -665,39 +657,45 @@ def phase_fused(torch, checks, counters, smi):
     stat_batch_err, _, _ = _leaf_errors(faux["bn_stats"], paux["bn_stats"],
                                         "batch statistic", STAT_TOL, floor=1.0)
     sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, pcfg, pg)
-    grad_err, grad_sens, grad_nearest = _leaf_errors(fg, pg, "fused gradient", GRAD_TOL,
-                                                     sens=sens)
+    grad_err, grad_sens, grad_nearest = _leaf_errors(fg, pg, f"{cfg.execution.kernels} "
+                                                     "gradient", GRAD_TOL, sens=sens)
     del fg, pg, faux, paux
-    fs, fm = fstep(_clone(state0), batch)
-    ps, pm = pstep(_clone(state0), batch)
+    fs, fm = make_train_step(cfg)(_clone(state0), batch)
+    ps, pm = make_train_step(pcfg)(_clone(state0), batch)
     plain_loss = pm["loss"].item()
     loss_err = abs(fm["loss"].item() - plain_loss) / abs(plain_loss)
     require(loss_err <= LOSS_TOL, f"loss {fm['loss'].item()} vs plain {plain_loss}")
     stat_err, _, _ = _leaf_errors(fs.bn_state, ps.bn_state, "running statistic",
                                   STAT_TOL, floor=1.0)
-    del fs, ps
+    return {"summed_loss_rel_err": sum_loss_err, "loss_rel_err": loss_err,
+            "logits_max_err": logit_err, "logits_max_abs": logit_scale,
+            "batch_stats_max_rel_err": stat_batch_err, "running_stats_max_err": stat_err,
+            "grad_max_rel_err": grad_err, "grad_max_err_over_sensitivity": grad_sens,
+            "grad_nearest_limit": grad_nearest}, plain_loss
 
-    # one step of each other engine: its counts, its loss against the plain path
-    others = {}
-    for name, cfg, expect in (("hybrid", hcfg, HYBRID_PER_STEP),
-                              ("fusedxla", xcfg, FUSEDXLA_PER_STEP)):
-        before = counters.read()
-        _, m = make_train_step(cfg)(_clone(state0), batch)
-        delta = _moved(before, counters.read())
-        require(delta == expect, f"{name} step moved the counters by {delta}, "
-                f"expected {expect}")
-        err = abs(m["loss"].item() - plain_loss) / abs(plain_loss)
-        require(err <= LOSS_TOL, f"{name} loss {m['loss'].item()} vs plain {plain_loss}")
-        others[name] = {"per_step": delta, "loss": m["loss"].item(), "loss_rel_err": err}
 
-    # step times in turns: plain, fusedxla, fused, fused, fusedxla, plain
-    steps = {"plain": pstep, "fusedxla": make_train_step(xcfg), "fused": fstep}
-    states = {"plain": _clone(state0), "fusedxla": _clone(state0), "fused": state}
+def _other_step(counters, cfg, state0, batch, expect, plain_loss, name):
+    """One step of another configuration: its counts, its loss against the
+    plain path's."""
+    from resnet_tpu_torch.train import make_train_step
+
+    before = counters.read()
+    _, m = make_train_step(cfg)(_clone(state0), batch)
+    delta = _moved(before, counters.read())
+    require(delta == expect, f"{name} step moved the counters by {delta}, expected {expect}")
+    err = abs(m["loss"].item() - plain_loss) / abs(plain_loss)
+    require(err <= LOSS_TOL, f"{name} loss {m['loss'].item()} vs plain {plain_loss}")
+    return {"per_step": delta, "loss": m["loss"].item(), "loss_rel_err": err}
+
+
+def _times_and_peaks(torch, steps, states, batch, order):
+    """Step times in turns (median of 5 steps per turn, in ``order``), then
+    the peak memory of one step of each path with all their states
+    resident. Updates ``states``."""
     step_ms = {k: [] for k in steps}
-    for which in ("plain", "fusedxla", "fused", "fused", "fusedxla", "plain"):
+    for which in order:
         states[which], ms = _timed_steps(torch, steps[which], states[which], batch)
         step_ms[which].append(ms)
-    # peak memory of one step of each path; the three states are resident
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
     peak = {}
@@ -706,6 +704,62 @@ def phase_fused(torch, checks, counters, smi):
         states[which], _ = steps[which](states[which], batch)
         torch.cuda.synchronize()
         peak[which] = torch.cuda.max_memory_allocated() / 2**30
+    return step_ms, peak, resident
+
+
+def _engine_setup(torch, *kernels):
+    """The "resnet" variant (ResNet-50, lr 1e-4, batch 32) under each engine
+    with fused Adam, the plain standard path (per-tensor Adam), one state
+    and one synthetic batch."""
+    import dataclasses
+
+    from resnet_tpu_torch.config import ExecutionConfig, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state
+
+    base = variant_config("resnet")
+    cfgs = [dataclasses.replace(
+        base, execution=dataclasses.replace(base.execution, kernels=k),
+        optimizer=dataclasses.replace(base.optimizer, fused=True)) for k in kernels]
+    pcfg = dataclasses.replace(base, execution=ExecutionConfig(),
+                               optimizer=dataclasses.replace(base.optimizer, fused=False))
+    state0 = init_train_state(cfgs[0], torch.Generator().manual_seed(SEED), device="cuda")
+    data = next(SyntheticDataset(base.data.batch_size, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    return cfgs, pcfg, state0, batch
+
+
+def _busy(profile_rows):
+    return sum(r["ms"] for r in profile_rows) if profile_rows else "not measured"
+
+
+def phase_fused(torch, checks, counters, smi):
+    """The fused engine's training step: main path, one step against the
+    plain standard path, the other two engines, times, memory, profile.
+
+    The fused engine runs only with batch-statistics BN (bn_mode='batch'),
+    so the frozen-BN tight check of phase 5 has no counterpart here: the
+    gradients are held to the rule of phase 5's batch-statistics step."""
+    from resnet_tpu_torch.train import make_train_step
+
+    (fcfg, hcfg, xcfg), pcfg, state0, batch = _engine_setup(
+        torch, "fused", "hybrid", "fusedxla")
+    batch_n = fcfg.data.batch_size
+    fstep = make_train_step(fcfg)
+
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, fstep, fcfg, state0, batch, FUSED_PER_STEP, "fused train")
+    compare, plain_loss = _engine_vs_plain(torch, fcfg, pcfg, state0, batch)
+    others = {name: _other_step(counters, cfg, state0, batch, expect, plain_loss, name)
+              for name, cfg, expect in (("hybrid", hcfg, HYBRID_PER_STEP),
+                                        ("fusedxla", xcfg, FUSEDXLA_PER_STEP))}
+
+    steps = {"plain": make_train_step(pcfg), "fusedxla": make_train_step(xcfg),
+             "fused": fstep}
+    states = {"plain": _clone(state0), "fusedxla": _clone(state0), "fused": state}
+    step_ms, peak, resident = _times_and_peaks(
+        torch, steps, states, batch, ("plain", "fusedxla", "fused", "fused", "fusedxla", "plain"))
 
     def one_step():
         states["fused"], _ = fstep(states["fused"], batch)
@@ -714,23 +768,58 @@ def phase_fused(torch, checks, counters, smi):
     median = {k: float(np.median(v)) for k, v in step_ms.items()}
     emit({"phase": "fused_train", "model": fcfg.model.name, "batch": batch_n,
           "device": smi, "launches": launches, "per_step": per_step[0],
-          "losses": losses, "loss_after_last_step": final_loss,
-          "compare": {"summed_loss_rel_err": sum_loss_err, "loss_rel_err": loss_err,
-                      "logits_max_err": logit_err, "logits_max_abs": logit_scale,
-                      "batch_stats_max_rel_err": stat_batch_err,
-                      "running_stats_max_err": stat_err,
-                      "grad_max_rel_err": grad_err,
-                      "grad_max_err_over_sensitivity": grad_sens,
-                      "grad_nearest_limit": grad_nearest},
+          "losses": losses, "loss_after_last_step": final_loss, "compare": compare,
           "engines": others, "step_ms": step_ms,
           "fused_step_ms": median["fused"], "fused_img_s": batch_n * 1e3 / median["fused"],
           "fusedxla_step_ms": median["fusedxla"],
           "fusedxla_img_s": batch_n * 1e3 / median["fusedxla"],
           "plain_step_ms": median["plain"], "plain_img_s": batch_n * 1e3 / median["plain"],
           "peak_gib": peak, "resident_before_gib": resident,
-          "profile_device_busy_ms": (sum(r["ms"] for r in profile_rows)
-                                     if profile_rows else "not measured"),
-          "profile": profile_rows[:30]})
+          "profile_device_busy_ms": _busy(profile_rows), "profile": profile_rows[:30]})
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_blockfused(torch, checks, counters, smi):
+    """The whole-block engine's training step (kernels='blockfused', fused
+    Adam): main path, one step against the plain standard path by the rules
+    of phase 6, one step with conv_kernels='pallas', times in turns beside
+    the fused engine's and the plain path's, memory, profile."""
+    import dataclasses
+
+    from resnet_tpu_torch.train import make_train_step
+
+    (bcfg, fcfg), pcfg, state0, batch = _engine_setup(torch, "blockfused", "fused")
+    batch_n = bcfg.data.batch_size
+    bstep = make_train_step(bcfg)
+
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, bstep, bcfg, state0, batch, BLOCKFUSED_PER_STEP, "blockfused train")
+    compare, plain_loss = _engine_vs_plain(torch, bcfg, pcfg, state0, batch)
+    pallas_cfg = dataclasses.replace(
+        bcfg, execution=dataclasses.replace(bcfg.execution, conv_kernels="pallas"))
+    with_pallas = _other_step(counters, pallas_cfg, state0, batch, BLOCKFUSED_PALLAS_PER_STEP,
+                              plain_loss, "blockfused with conv_kernels='pallas'")
+
+    steps = {"plain": make_train_step(pcfg), "blockfused": bstep,
+             "fused": make_train_step(fcfg)}
+    states = {"plain": _clone(state0), "blockfused": state, "fused": _clone(state0)}
+    step_ms, peak, resident = _times_and_peaks(
+        torch, steps, states, batch,
+        ("plain", "blockfused", "fused", "fused", "blockfused", "plain"))
+
+    def one_step():
+        states["blockfused"], _ = bstep(states["blockfused"], batch)
+
+    profile_rows = _profile(torch, one_step)
+    median = {k: float(np.median(v)) for k, v in step_ms.items()}
+    emit({"phase": "blockfused_train", "model": bcfg.model.name, "batch": batch_n,
+          "device": smi, "launches": launches, "per_step": per_step[0],
+          "losses": losses, "loss_after_last_step": final_loss, "compare": compare,
+          "conv_kernels_pallas": with_pallas, "step_ms": step_ms,
+          **{f"{k}_step_ms": v for k, v in median.items()},
+          **{f"{k}_img_s": batch_n * 1e3 / v for k, v in median.items()},
+          "peak_gib": peak, "resident_before_gib": resident,
+          "profile_device_busy_ms": _busy(profile_rows), "profile": profile_rows[:30]})
     return {k: v for k, v in launches.items() if v}
 
 
@@ -801,6 +890,7 @@ def main() -> None:
     paths = {"serve": phase_serve(torch, checks, counters),
              "train": phase_train(torch, checks, counters, smi),
              "fused_train": phase_fused(torch, checks, counters, smi),
+             "blockfused_train": phase_blockfused(torch, checks, counters, smi),
              "batch_norm_act": phase_bn_entry(torch, counters)}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}

@@ -43,7 +43,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 ROADMAP_GHOST_BN = "item A2b: ghost batch norm"
-ROADMAP_BLOCKFUSED = "item A4: whole-block kernel"
 ROADMAP_BF16 = "item A5: bf16 compute"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
@@ -119,7 +118,9 @@ class ExecutionConfig:
 
     # 'xla' (plain torch ops) | 'pallas' (hand kernels) | the fused engines
     # 'fused' (hand kernels), 'hybrid', 'fusedxla' (torch ops), which run
-    # the training forward only (models/fused_resnet.py)
+    # the training forward only (models/fused_resnet.py) | 'blockfused' (the
+    # whole-block kernel for the stride-1 identity blocks of a training
+    # forward, plain ops elsewhere; models/resnet.py)
     kernels: str = "xla"
     conv_kernels: str = "xla"  # 'xla' | 'pallas'
     layout: str = "NHWC"
@@ -168,9 +169,6 @@ class ExecutionConfig:
                 f"ExecutionConfig.grad_accum={self.grad_accum}; expected"
                 " a positive microbatch count"
             )
-        if self.kernels == "blockfused":
-            raise not_ported("ExecutionConfig.kernels='blockfused'",
-                             ROADMAP_BLOCKFUSED)
         if self.layout == "NCHW":
             raise not_ported("ExecutionConfig.layout='NCHW'", ROADMAP_NCHW)
         if self.compute_dtype != "float32" or self.param_dtype != "float32":

@@ -46,6 +46,9 @@ SIGNATURES = {
     "rt_fused_conv_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
     "rt_fused_join_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _P],
+    # x, w1, w2, w3, g1, b1, g2, b2, g3, b3, out, r, s, e, sums_r, sums_s,
+    # sums_e, rows, part, ws, N, H, W, C4, C, eps, has_cap, cap, splits x 3
+    "rt_block_fused_f32": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "rt_bn_apply_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
     "rt_bn_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
     # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)

@@ -10,7 +10,9 @@ statistics sum up to 401,408 rows: in fp32 that order alone moves the sums
 by ~1e-6 relative, so the same 1e-4 holds for them. For Adam, the positions
 left non-finite must agree exactly as well.
 
-The fused conv (K8) is held on y, Σy and Σy² each against its own max, and
+The fused conv (K8) is held on y, Σy and Σy² each against its own max, the
+whole-block kernel (K10) likewise on out, r, s, e, each block's Σ and Σ²
+rows and the six (scale, shift) rows it applied, and
 the BN backward (K6) on y, dx, dγ and dβ through ``batch_norm_act``'s forward
 and backward (the kernel path: K4, K5, K6) against ``bn_act_reference``'s
 forward and the plain backward at the statistics the kernel path saved, so
@@ -36,7 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import adam, bn, conv, fused, fused_conv, matmul
+from . import adam, block_fused, bn, conv, fused, fused_conv, matmul
 
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
@@ -120,6 +122,21 @@ BN_BWD_CASES = [(f"({label}){' relu' if relu else ''}", m, c, relu)
                                     ("32*7*7, 2048", 32 * 7 * 7, 2048),
                                     ("1000, 33", 1000, 33)]
                 for relu in (True, False)]
+# (label, x shape (N, H, W, 4C), C, cap): K10 at the four identity-block
+# shapes of ResNet-50 at batch 32; a cap of 2 that clips in both prologues
+# and in the join; widths not a multiple of 4 with M = 75 rows, not a
+# multiple of 64; and a batch-2 block whose reduce splits K in 2 and whose
+# 3x3 splits it in 3 (build.split_k), so that the statistics come from the
+# summed y
+BLOCK_FUSED_CASES = [
+    ("stage 1 (32,56,56,256) C=64", (32, 56, 56, 256), 64, None),
+    ("stage 2 (32,28,28,512) C=128", (32, 28, 28, 512), 128, None),
+    ("stage 3 (32,14,14,1024) C=256", (32, 14, 14, 1024), 256, None),
+    ("stage 4 (32,7,7,2048) C=512", (32, 7, 7, 2048), 512, None),
+    ("cap 2 (32,14,14,1024) C=256", (32, 14, 14, 1024), 256, 2.0),
+    ("ragged (3,5,5,36) C=9", (3, 5, 5, 36), 9, None),
+    ("split K (2,4,4,516) C=129", (2, 4, 4, 516), 129, None),
+]
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -136,6 +153,7 @@ KERNELS = {
     "fused_join": (fused_conv, "JOIN_LAUNCHES", 1, FUSED_JOIN_CASES),
     "bias_act": (bn, "APPLY_LAUNCHES", 1, BIAS_ACT_CASES),
     "bn_bwd": (bn, "BWD_LAUNCHES", 1, BN_BWD_CASES),
+    "block_fused": (block_fused, "LAUNCHES", 1, BLOCK_FUSED_CASES),
 }
 
 
@@ -288,6 +306,8 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                      8 * x.numel() + 8 * c, 4 * x.numel())
     if kernel == "bn_bwd":
         return _bn_bwd_case(case, randn)
+    if kernel == "block_fused":
+        return _block_fused_case(case, randn)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
@@ -311,6 +331,30 @@ def _fused_conv_case(case, randn) -> _Case:
                  lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s,
                                   padding=k // 2),
                  library_same=False)
+
+
+def _block_fused_case(case, randn) -> _Case:
+    _, (n, h, w, c4), c, cap = case
+    x = torch.clamp_min(randn(n, h, w, c4), 0.0)  # a block's input is a ReLU's output
+    ws = (randn(c4, c, scale=(2.0 / c4) ** 0.5), randn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5),
+          randn(c, c4, scale=(2.0 / c) ** 0.5))
+    # shift > 0 on about half the channels: relu(shift) must not reach the halo
+    rows = [t for width in (c, c, c4) for t in (1 + randn(width, scale=0.2),
+                                                randn(width, scale=0.5))]
+    args = (x, *ws, *rows, 1e-7, cap)
+
+    def split(out):
+        # out, r, s, e; each sum row on its own; the six affine rows
+        *acts, sums_r, sums_s, sums_e, aff = out
+        return (*acts, *sums_r, *sums_s, *sums_e, *aff)
+
+    m = n * h * w
+    row_floats = 2 * (4 * c + 2 * c4)  # gamma, beta in; the six rows out
+    return _Case(lambda: split(block_fused.block_fused_forward(*args)),
+                 lambda: split(block_fused.block_fused_reference(*args)),
+                 4 * (2 * m * c4 + 2 * m * c + m * c4 + sum(t.numel() for t in ws)
+                      + row_floats + 2 * (2 * c + c4)),
+                 2 * m * (2 * c4 * c + 9 * c * c))
 
 
 def _bn_bwd_case(case, randn) -> _Case:

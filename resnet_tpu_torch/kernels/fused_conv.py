@@ -78,6 +78,11 @@ def bn_affine_from_sums(sums, gamma, beta, m: int, eps: float):
     return scale, shift
 
 
+def channel_sums(y):
+    """[Σy, Σy²] per channel of an NHWC tensor, (2, C)."""
+    return torch.stack([y.sum(_NHWC_AXES), (y * y).sum(_NHWC_AXES)])
+
+
 def _prologue(x, scale, shift, relu: bool, cap):
     """u = clip(relu(x · scale + shift)), the BN apply's plain version."""
     return bn.bn_apply_reference(x, scale, shift, relu=relu, cap=cap)
@@ -123,8 +128,7 @@ def _chain_value(x, w, scale, shift, stride, padding, prologue, relu, cap):
     """(y, sums, u) of the contract in torch ops (fused_conv.py:431-458)."""
     u = _prologue(x, scale, shift, relu, cap) if prologue else x
     y = _plain_conv2d(u, w, stride=stride, padding=padding)
-    sums = torch.stack([y.sum(_NHWC_AXES), (y * y).sum(_NHWC_AXES)])
-    return y, sums, u
+    return y, channel_sums(y), u
 
 
 def fused_conv_reference(x, w, scale, shift, stride: int = 1,

@@ -11,14 +11,19 @@ The port of resnet_tpu.models.resnet.forward:
 In training mode BN normalizes with the batch statistics
 (``bn_mode='batch'``) or the running ones (``'frozen'``); in eval mode always
 with the running statistics (``bn_state``); ``bn_mode='off'`` skips the
-normalization as in the JAX package. ``ExecutionConfig.conv_kernels`` picks
-the conv engine and ``ExecutionConfig.kernels`` the BN statistics, join and
-FC engine (``ops.dispatch``). The fused engines (``kernels`` 'fused',
-'hybrid', 'fusedxla') take the training forward with batch statistics to
-``models.fused_resnet`` (models/resnet.py:275-288); in every other mode
-they run this path with plain ops, as in the JAX package. Every hand kernel is differentiable, so the
-same forward serves the training step's autograd. Remat (queue A item A12)
-and ghost BN (item A2b) are not ported.
+normalization as in the JAX package. ``forward`` trains by default
+(``train=True``), as the JAX package's does. ``ExecutionConfig.conv_kernels``
+picks the conv engine and ``ExecutionConfig.kernels`` the BN statistics,
+join and FC engine (``ops.dispatch``). The fused engines (``kernels``
+'fused', 'hybrid', 'fusedxla') take the training forward with batch
+statistics to ``models.fused_resnet`` (models/resnet.py:275-288); in every
+other mode they run this path with plain ops, as in the JAX package.
+``kernels='blockfused'`` sends each stride-1 identity bottleneck of that
+forward to the whole-block kernel (``kernels.block_fused``,
+models/resnet.py:122-168) and runs every other block, the stem and the FC
+here with plain ops. Every hand kernel is differentiable, so the same
+forward serves the training step's autograd. Remat (queue A item A12) and
+ghost BN (item A2b) are not ported.
 """
 
 from __future__ import annotations
@@ -75,7 +80,38 @@ def _bn_apply(x, bn_params, state, *, eps, ecfg, train, relu_fused=False):
     return y, (mean.detach(), var.detach())
 
 
+def _block_fused_eligible(bp, stride, mcfg, ecfg, train) -> bool:
+    """The JAX package's test for the whole-block kernel
+    (models/resnet.py:122-131). Its two further conditions, a block width
+    4C that is a multiple of 128 and a batch tiling of 8-sublane row blocks
+    (:132-141), exist only for Mosaic's tiles; the CUDA kernel masks any
+    width and row count, so they are dropped."""
+    return (ecfg.kernels == "blockfused" and stride == 1 and "proj" not in bp
+            and ecfg.layout == "NHWC" and train and ecfg.bn_mode == "batch"
+            and not ecfg.bn_stats_batch and mcfg.groups == 1)
+
+
+def _whole_block(bp, x, *, mcfg, ecfg):
+    """One stride-1 identity bottleneck through ``block_fused``; its batch
+    statistics from the kernel's sums, detached (models/resnet.py:143-168)."""
+    from ..kernels.block_fused import block_fused, bn_stats_from_sums
+
+    w1, w3 = bp["reduce"]["w"], bp["expand"]["w"]
+    out, *sums = block_fused(
+        x.to(ecfg.cdtype), w1.reshape(w1.shape[-2], w1.shape[-1]), bp["spatial"]["w"],
+        w3.reshape(w3.shape[-2], w3.shape[-1]),
+        bp["bn_reduce"]["gamma"], bp["bn_reduce"]["beta"],
+        bp["bn_spatial"]["gamma"], bp["bn_spatial"]["beta"],
+        bp["bn_expand"]["gamma"], bp["bn_expand"]["beta"], mcfg.bn_eps, ecfg.relu_cap)
+    m = x.shape[0] * x.shape[1] * x.shape[2]
+    return out, {name: bn_stats_from_sums(s.detach(), m)
+                 for name, s in zip(("bn_reduce", "bn_spatial", "bn_expand"), sums)}
+
+
 def _bottleneck_block(bp, x, state, *, stride, mcfg, ecfg, train):
+    if _block_fused_eligible(bp, stride, mcfg, ecfg, train):
+        return _whole_block(bp, x, mcfg=mcfg, ecfg=ecfg)
+
     def bn(y, name, relu_fused=False):
         return _bn_apply(y, bp[name], state.get(name), eps=mcfg.bn_eps, ecfg=ecfg,
                          train=train, relu_fused=relu_fused)
@@ -120,7 +156,7 @@ def forward(
     mcfg: ModelConfig,
     ecfg: Optional[ExecutionConfig] = None,
     *,
-    train: bool = False,
+    train: bool = True,
     bn_state=None,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the network on NHWC images. Returns (fp32 logits, aux) with

@@ -103,7 +103,7 @@ def test_load_jax_npz_checkpoint(tmp_path):
 
     x = torch.zeros(1, 16, 16, 3)
     logits, _ = forward(bridge.params_from_numpy(params, device="cpu"), x, tiny_model_config(),
-                        bn_state=bridge.bn_state_from_numpy(bn_state, device="cpu"))
+                        train=False, bn_state=bridge.bn_state_from_numpy(bn_state, device="cpu"))
     assert logits.shape == (1, 8)
 
 

@@ -82,3 +82,32 @@ def test_fused_conv_keeps_the_halo_at_zero_on_cuda(cuda):
         want = torch.outer(taps, taps)[::stride, ::stride] * cin
         assert torch.equal(y[0, :, :, 0].cpu(), want)
         assert torch.equal(sums[:, 0].cpu(), torch.stack([want.sum(), (want ** 2).sum()]))
+
+
+def test_block_fused_on_cuda_matches_the_cpu(cuda):
+    """K10 through block_fused on the card: one launch per call, and its
+    outputs and the closed-form gradients of all ten inputs match the plain
+    version's on the CPU, with a cap that clips and the sums in the loss."""
+    from resnet_tpu_torch.kernels import block_fused
+
+    gen = torch.Generator().manual_seed(0)
+    c4, c = 36, 9
+    t = [torch.randn(*s, generator=gen) * 0.3
+         for s in ((c4, c), (3, 3, c, c), (c, c4), (c,), (c,), (c,), (c,), (c4,), (c4,))]
+    args = [torch.randn(2, 5, 5, c4, generator=gen).clamp_min(0.0), *t]
+    for i in (4, 6, 8):
+        args[i] = args[i] + 1.0  # the gammas near 1
+    cts = [torch.randn(2, 5, 5, c4, generator=gen), torch.randn(2, c, generator=gen),
+           torch.randn(2, c, generator=gen), torch.randn(2, c4, generator=gen)]
+
+    def run(device):
+        leaves = [a.to(device).requires_grad_(True) for a in args]
+        outs = block_fused.block_fused(*leaves, 1e-7, 1.5)
+        grads = torch.autograd.grad(outs, leaves, [ct.to(device) for ct in cts])
+        return [o.detach().cpu() for o in outs] + [g.cpu() for g in grads]
+
+    before = block_fused.LAUNCHES
+    got = run("cuda")
+    assert block_fused.LAUNCHES == before + 1
+    for g, want in zip(got, run("cpu"), strict=True):
+        torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

@@ -59,7 +59,8 @@ def _compare(jm, tm, *, engine, batch=2, tol=TOL, seed=0):
     want, _ = j_forward(params, x, jm, jecfg, train=False, bn_state=state)
     want = np.asarray(want)
     got, aux = forward(bridge.params_from_numpy(params, device="cpu"), torch.from_numpy(x), tm,
-                       tecfg, bn_state=bridge.bn_state_from_numpy(state, device="cpu"))
+                       tecfg, train=False,
+                       bn_state=bridge.bn_state_from_numpy(state, device="cpu"))
     assert got.dtype == torch.float32 and got.shape == want.shape
     scale = float(np.abs(want).max())
     err = float(np.abs(got.numpy() - want).max())
@@ -105,7 +106,8 @@ def test_predict_and_bn_off():
     want = np.asarray(j_predict(params, x, jm, bn_state=state))
     assert np.abs(probs.numpy() - want).max() <= TOL * np.abs(want).max()
     # bn_mode='off' needs no statistics and matches JAX's diagnostic path
-    got, _ = forward(tp, torch.from_numpy(x), tm, tcfg.ExecutionConfig(bn_mode="off"))
+    got, _ = forward(tp, torch.from_numpy(x), tm, tcfg.ExecutionConfig(bn_mode="off"),
+                     train=False)
     want, _ = j_forward(params, x, jm, jcfg.ExecutionConfig(bn_mode="off"), train=False)
     want = np.asarray(want)
     assert np.abs(got.numpy() - want).max() <= TOL * np.abs(want).max()
@@ -117,7 +119,7 @@ def test_eval_needs_running_stats():
         jax.tree.map(np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg.tiny_model_config())),
         device="cpu")
     with pytest.raises(ValueError, match="running statistics"):
-        forward(params, torch.zeros(1, 16, 16, 3), tm)
+        forward(params, torch.zeros(1, 16, 16, 3), tm, train=False)
     with pytest.raises(ValueError, match="running statistics"):
         forward(params, torch.zeros(1, 16, 16, 3), tm,
                 tcfg.ExecutionConfig(bn_mode="frozen"), train=True)
@@ -146,7 +148,6 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kernels="blockfused"), "A4"),
     (dict(compute_dtype="bfloat16"), "A5"),
     (dict(layout="NCHW"), "A6"),
     (dict(space_to_depth=True), "A8"),
@@ -175,6 +176,34 @@ def test_fused_engines_run_the_standard_path_outside_training(kernels):
         assert torch.equal(got, want)
 
 
+def test_forward_trains_by_default_as_jax_does():
+    """Both packages' forward called with no ``train`` argument: JAX's
+    defaults to train=True (resnet_tpu/models/resnet.py:262), so both
+    normalize with the batch statistics and need no running statistics;
+    logits and every batch statistic within 1e-4 of max|JAX|."""
+    import inspect
+
+    assert inspect.signature(forward).parameters["train"].default is True
+    assert inspect.signature(j_forward).parameters["train"].default is True
+    jm, tm = jcfg.tiny_model_config(), tcfg.tiny_model_config()
+    params, _ = _perturbed(jm, 6)
+    x = np.random.default_rng(6).normal(0, 50, (3, 16, 16, 3)).astype(np.float32)
+    want, jaux = j_forward(params, x, jm, jcfg.ExecutionConfig())
+    got, aux = forward(bridge.params_from_numpy(params, device="cpu"), torch.from_numpy(x), tm,
+                       tcfg.ExecutionConfig())
+    for what, a, b in (("logits", got, want), ("bn_stats", aux["bn_stats"], jaux["bn_stats"])):
+        pa, pb = bridge.flatten(a), bridge.flatten(b)
+        assert [p for p, _ in pa] == [p for p, _ in pb], what
+        for (path, g), (_, w) in zip(pa, pb):
+            w = np.asarray(w)
+            err = float(np.abs(g.numpy() - w).max())
+            assert err <= TOL * float(np.abs(w).max()), (what, path, err)
+
+
+def test_blockfused_is_accepted():
+    assert tcfg.ExecutionConfig(kernels="blockfused").kernels == "blockfused"
+
+
 def test_typos_still_fail_as_value_errors():
     with pytest.raises(ValueError):
         tcfg.ExecutionConfig(kernels="palas")
@@ -189,11 +218,11 @@ def test_grouped_conv_only_on_the_plain_path():
     state = init_bn_state(mcfg, device="cpu")
     x = torch.zeros(1, 16, 16, 3)
     logits, _ = forward(params, x, mcfg, tcfg.ExecutionConfig(kernels="pallas"),
-                        bn_state=state)
+                        train=False, bn_state=state)
     assert logits.shape == (1, 8)
     with pytest.raises(NotImplementedError, match="A7"):
         forward(params, x, mcfg, tcfg.ExecutionConfig(conv_kernels="pallas"),
-                bn_state=state)
+                train=False, bn_state=state)
 
 
 def _jax_train_grads(params, state, x, labels, jecfg, jm):
@@ -265,6 +294,72 @@ def test_fused_engines_match_jax(engine, variant, cap):
     kw = TINY[variant]
     _train_parity(jcfg.tiny_model_config(**kw), tcfg.tiny_model_config(**kw),
                   dict(kernels=engine, relu_cap=cap))
+
+
+def _count_block_fused(monkeypatch, module):
+    """Count the calls of ``module.block_fused`` (which the model imports
+    when it routes a block there)."""
+    calls = []
+    real = module.block_fused
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(module, "block_fused", counted)
+    return calls
+
+
+# name -> (tiny-model overrides, blocks the JAX package routes to block_fused)
+BLOCKFUSED_MODELS = {
+    # 4C = 128 and 256: JAX routes blocks 1 and 3 to its kernel too
+    "width-32": (dict(init_filters=32, block_sizes=(2, 2)), 2),
+    # 4C = 32 and 64: JAX falls back to its per-op path (its Mosaic-only
+    # lane test), the port still takes K10's plain version
+    "width-8": (dict(block_sizes=(2, 2)), 0),
+}
+
+
+@pytest.mark.parametrize("cap", [None, 2.0])
+@pytest.mark.parametrize("model", sorted(BLOCKFUSED_MODELS))
+def test_blockfused_engine_matches_jax(monkeypatch, model, cap):
+    """kernels='blockfused' on a tiny model with two identity blocks (1 and
+    3): the port sends exactly those to block_fused, and its summed loss,
+    logits, bn_stats and every gradient leaf agree with the JAX package's
+    engine of the same name within 1e-4 of max|JAX|."""
+    import resnet_tpu.kernels.block_fused as jbf
+
+    import resnet_tpu_torch.kernels.block_fused as tbf
+
+    kw, jax_routed = BLOCKFUSED_MODELS[model]
+    ours, theirs = _count_block_fused(monkeypatch, tbf), _count_block_fused(monkeypatch, jbf)
+    _train_parity(jcfg.tiny_model_config(**kw), tcfg.tiny_model_config(**kw),
+                  dict(kernels="blockfused", relu_cap=cap))
+    c4 = 4 * kw.get("init_filters", 8)
+    assert [s[-1] for s in ours] == [c4, 2 * c4]
+    assert len(theirs) == jax_routed
+
+
+def test_blockfused_runs_the_standard_path_outside_batch_training(monkeypatch):
+    """Eval, bn_mode 'frozen' and 'off' take the standard path with plain
+    ops, never block_fused, so they equal kernels='xla' exactly."""
+    import resnet_tpu_torch.kernels.block_fused as tbf
+
+    kw = dict(block_sizes=(2, 2))
+    jm, tm = jcfg.tiny_model_config(**kw), tcfg.tiny_model_config(**kw)
+    params, state = _perturbed(jm, 7)
+    tp = bridge.params_from_numpy(params, device="cpu")
+    ts = bridge.bn_state_from_numpy(state, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(7).normal(0, 50, (2, 16, 16, 3))
+                         .astype(np.float32))
+    calls = _count_block_fused(monkeypatch, tbf)
+    for train, mode in ((False, "batch"), (True, "frozen"), (True, "off")):
+        got, _ = forward(tp, x, tm, tcfg.ExecutionConfig(kernels="blockfused", bn_mode=mode),
+                         train=train, bn_state=ts)
+        want, _ = forward(tp, x, tm, tcfg.ExecutionConfig(bn_mode=mode), train=train,
+                          bn_state=ts)
+        assert torch.equal(got, want)
+    assert calls == []
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -48,7 +48,7 @@ def _post(addr, x, shape=None):
 def test_export_round_trip_and_forward(server, rng):
     _, model, (params, bn_state, mcfg, ecfg) = server
     x = rng.normal(0, 50, (3, 16, 16, 3)).astype(np.float32)
-    want, _ = forward(params, torch.from_numpy(x), mcfg, ecfg, bn_state=bn_state)
+    want, _ = forward(params, torch.from_numpy(x), mcfg, ecfg, train=False, bn_state=bn_state)
     torch.testing.assert_close(model.call(x), want, rtol=0, atol=0)
     assert model.mcfg == mcfg and model.ecfg == ecfg
     with pytest.raises(ValueError, match="shape"):

@@ -38,7 +38,7 @@ METRIC_TOL = 1e-5
 UPDATE_SHARE = 1e-3  # measured at most 2.0e-4: 5 of 24,648 elements
 KERNELS = dict(kernels="pallas", conv_kernels="pallas")
 
-# name -> (JAX execution, port execution, optimizer fields)
+# name -> (JAX execution, port execution, optimizer fields[, tiny-model fields])
 CASES = {
     "adam-no_bn-cosine": (dict(), KERNELS, dict(
         weight_decay=1e-3, wd_mask="no_bn", schedule="cosine", total_steps=10)),
@@ -55,15 +55,22 @@ CASES = {
                      dict(fused=True)),
     "fused-engine-grad_accum-2": (dict(kernels="fused", pallas_interpret=True, grad_accum=2),
                                   dict(kernels="fused", grad_accum=2), dict()),
+    # the whole-block engine with fused Adam, as chip_smoke.py runs it, on a
+    # model whose blocks 1 and 3 are identity blocks 128 and 256 wide, so
+    # that the JAX package routes them to its kernel too
+    "blockfused-engine": (dict(kernels="blockfused", pallas_interpret=True),
+                          dict(kernels="blockfused"), dict(fused=True),
+                          dict(init_filters=32, block_sizes=(2, 2))),
 }
 
 
 def _configs(name):
-    jex, tex, opt = CASES[name]
-    jc = jcfg.TrainConfig(model=jcfg.tiny_model_config(),
+    jex, tex, opt, *model = CASES[name]
+    model = model[0] if model else {}
+    jc = jcfg.TrainConfig(model=jcfg.tiny_model_config(**model),
                           execution=jcfg.ExecutionConfig(**jex),
                           optimizer=jcfg.OptimizerConfig(**opt))
-    tc = tcfg.TrainConfig(model=tcfg.tiny_model_config(),
+    tc = tcfg.TrainConfig(model=tcfg.tiny_model_config(**model),
                           execution=tcfg.ExecutionConfig(**tex),
                           optimizer=tcfg.OptimizerConfig(**opt))
     return jc, tc
