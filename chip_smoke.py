@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
      max|plain|, with its time, the plain version's, a library call's where
-     one computes the same function, and the least time the card could take;
+     one computes the same function, the device time of the kernel and of
+     the library call (torch.profiler), and the least time the card could
+     take;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
      statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must
@@ -911,7 +913,9 @@ def main() -> None:
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": max(by, key=by.get),
-            "library_ms": checks.library_total(rs)})
+            "library_ms": checks.total(rs),
+            "device_ms": checks.total(rs, "device_ms"),
+            "library_device_ms": checks.total(rs, "library_device_ms")})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

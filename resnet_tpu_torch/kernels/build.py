@@ -56,6 +56,7 @@ SIGNATURES = {
     "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dw_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_matmul_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "rt_matmul_skinny_f32": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     "rt_matmul_nt_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_matmul_tn_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_add_relu_f32": [_P, _P, _P, _I64, _P],
@@ -66,6 +67,19 @@ SIGNATURES = {
 # the GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK)
 GEMM_TILE = 64
 GEMM_BK = 16
+# the tensor-core core's (tc_gemm.cuh BM, BK, STAGES; BN is tc_tile_n),
+# and the dW kernel's blocks resident per SM by tile width: 256 threads
+# capped at 128 registers (BN = 64) fit twice, at 176-183 (BN = 128) once
+# (conv.cu conv2d_dw_tc64_kernel, conv2d_dw_tc128_kernel; ptxas, PERF.md)
+TC_BM = 128
+TC_BK = 32
+TC_STAGES = 3
+TC_BLOCKS_PER_SM = {64: 2, 128: 1}
+# the skinny FC kernel's (matmul.cu skinny::COLS, KG, KC_MAX, MAX_M)
+SKINNY_COLS = 32
+SKINNY_STAGE = 16
+SKINNY_MAX_CHUNK = 256
+SKINNY_MAX_M = 32
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 # one build at a time in this process (the temporary name is per process)
 _BUILD_LOCK = threading.Lock()
@@ -159,10 +173,60 @@ def split_k(m: int, n: int, k: int) -> int:
     if tiles >= _SMS or k <= 512:
         return 1
     splits = min(-(-2 * _SMS // tiles), -(-k // 512), 256)
-    # drop splits that the rounded chunk (tiled_gemm.cuh k_chunk_for) leaves empty
-    chunk = -(-k // splits)
-    chunk = -(-chunk // GEMM_BK) * GEMM_BK
-    return -(-k // chunk)
+    return _drop_empty(k, splits, GEMM_BK)
+
+
+def k_chunk(k: int, splits: int, step: int) -> int:
+    """K rows per split as the C launchers compute them: ceil(k / splits)
+    rounded up to a whole K-step (tiled_gemm.cuh and tc_gemm.cuh
+    k_chunk_for, matmul.cu rt_matmul_skinny_f32)."""
+    return -(-(-(-k // splits)) // step) * step
+
+
+def _drop_empty(k: int, splits: int, step: int) -> int:
+    """The split count whose rounded chunks leave none empty."""
+    return -(-k // k_chunk(k, splits, step))
+
+
+def tc_tile_n(n: int) -> int:
+    """tc_gemm.cuh's tile width for an N-wide output: 64 up to 64, else 128
+    (conv.cu rt_conv2d_dw_nhwc_f32 picks the same)."""
+    return 64 if n <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def dw_split(m: int, n: int, k: int) -> int:
+    """K splits for conv dW on tc_gemm.cuh's tiles (m = k*k*Cin rows,
+    n = Cout, k = the pixels): of the counts that keep each split at least
+    16 K-steps (512 pixels) deep, at most 256, the one whose blocks finish
+    soonest, counted in K-steps: waves of resident blocks times (chunk
+    steps + the ring's fill), fewer splits on a tie. A function of the
+    shapes only (cached), so a call repeats exactly."""
+    bn = tc_tile_n(n)
+    tiles = -(-m // TC_BM) * -(-n // bn)
+    resident = _SMS * TC_BLOCKS_PER_SM[bn]
+    best = None
+    for splits in range(1, min(256, max(1, -(-k // (16 * TC_BK)))) + 1):
+        splits = _drop_empty(k, splits, TC_BK)
+        cost = (-(-tiles * splits // resident)
+                * (k_chunk(k, splits, TC_BK) // TC_BK + TC_STAGES - 1))
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
+def skinny_split(m: int, n: int, k: int) -> int:
+    """K splits of the skinny FC kernel (1 <= m <= 32) over depth k for an
+    n-wide output:
+    enough (slabs of 32 columns) x (splits) blocks for two per SM, each
+    chunk at most 256 rows (A's chunk fits in shared memory) and at least
+    one 16-row stage. Depends on the shapes only."""
+    if k <= 0:
+        return 1
+    slabs = -(-n // SKINNY_COLS)
+    splits = max(-(-2 * _SMS // slabs), -(-k // SKINNY_MAX_CHUNK))
+    splits = min(splits, -(-k // SKINNY_STAGE))
+    return _drop_empty(k, splits, SKINNY_STAGE)
 
 
 def gemm_workspace(splits: int, m: int, n: int, like):
@@ -201,11 +265,19 @@ def on_card(name: str, *tensors) -> bool:
 
 def launch(entry: str, *args, device) -> None:
     """Call a C entry point on ``device``'s current stream; raise if it
-    reports a CUDA error."""
+    reports a CUDA error. The device is switched only when it is not the
+    current one, and the stream is read as a raw handle: a Python stream
+    object and a device guard on every launch add host time that a small
+    kernel (the FC) waits behind."""
     import torch
 
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        status = getattr(load(), entry)(*args, stream)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    fn = getattr(load(), entry)
+    if index == torch.cuda.current_device():
+        status = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            status = fn(*args, stream)
     if status != 0:
         raise RuntimeError(f"{entry}: CUDA error {status} at launch")

@@ -19,15 +19,23 @@ forward and the plain backward at the statistics the kernel path saved, so
 that both see the same ReLU gate.
 
 Times are the median of CUDA-event timings of single calls after warm-up
-(for K6, the backward kernel alone against the plain backward). Beside the
+(for K6, the backward kernel alone against the plain backward): ``ms``
+includes the host's time to enqueue the call wherever that is longer than
+the device's work (a small kernel behind a Python wrapper). Each is
+repeated as ``device_ms``, the device time of the kernels one call launches
+(torch.profiler), so that a small kernel can be held against a library
+call without the two host paths in the way. Beside the
 kernel (``ms``) and its plain version (``plain_ms``), a case times one
 PyTorch library call computing the same function where there is one
 (``library_ms``, a yardstick the port never calls; None otherwise; for K8
 ``F.conv2d`` of the same shape, which is the conv alone and less work), and
 gives the least time the card could take for the work (``bound_ms``): the
 larger of the bytes the function must move (inputs read once, outputs
-written once) over 3.35 TB/s and its FLOPs over the 67 TFLOP/s fp32 peak of
-an H100 SXM, with ``bound_by`` naming the one that sets it.
+written once) over 3.35 TB/s and the operations it does over the H100
+SXM's peak for their type, with ``bound_by`` naming the one that sets it:
+the FLOPs over the 67 TFLOP/s fp32 peak, and for conv dW, whose kernel
+does each fp32 product as three TF32 products on the tensor cores
+(``csrc/tc_gemm.cuh``), three times its FLOPs over 495 TFLOP/s.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from . import adam, block_fused, bn, conv, fused, fused_conv, matmul
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense, tensor cores
 
 # (label, batch, H=W, Cin, Cout, k, stride): one of each conv ResNet-50 runs
 _CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
@@ -58,6 +67,13 @@ CONV_CASES = [(label, 8, *shape) for label, *shape in _CONV_SHAPES]
 TRAIN_CONV_CASES = [(label, 32, *shape) for label, *shape in _CONV_SHAPES]
 # the training step never takes the images' gradient, so no stem dx
 TRAIN_DX_CASES = TRAIN_CONV_CASES[1:]
+# dW: the training shapes, then widths not a multiple of 4 (4-byte copies
+# of x and g) and a depth whose last split chunk is not a whole K-step
+# (build.dw_split: 3 chunks of 512, 512 and 434 pixels)
+TRAIN_DW_CASES = TRAIN_CONV_CASES + [
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
+    ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1),
+]
 # (label, shape, storage offset in floats): the join at stage 1, a size
 # that leaves a scalar tail, and a misaligned start that takes no float4
 ADD_RELU_CASES: List[Tuple[str, Tuple[int, ...], int]] = [
@@ -70,10 +86,17 @@ ADD_RELU_MASK_CASES = [
     ("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
     ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1),
 ]
-# (label, M, K, N): the FC head at batch 8, at a ragged M, and at batch 32
-MATMUL_CASES: List[Tuple[str, int, int, int]] = [
-    ("fc (8,2048)@(2048,1000)", 8, 2048, 1000),
-    ("fc (3,2048)@(2048,1000)", 3, 2048, 1000),
+# (label, M, K, N, storage offset of B in floats), the label ending in the
+# route (matmul.matmul_route): the FC head when serving at batch 8 and 3,
+# at batch 1 and at the training batch 32, one M above the skinny limit,
+# and a ragged N (N % 4 != 0) and a misaligned B, which take 4-byte copies
+MATMUL_CASES: List[Tuple[str, int, int, int, int]] = [
+    (f"{label} ({m},{k})@({k},{n}) {matmul.matmul_route(m, n, k)}", m, k, n, offset)
+    for label, m, k, n, offset in [("fc", 8, 2048, 1000, 0), ("fc", 3, 2048, 1000, 0),
+                                   ("fc", 1, 2048, 1000, 0), ("fc", 32, 2048, 1000, 0),
+                                   ("fc", 64, 2048, 1000, 0),
+                                   ("ragged N", 5, 300, 33, 0),
+                                   ("misaligned B", 8, 2048, 1000, 1)]
 ]
 MATMUL_BWD_CASES = [("fc bwd (32,2048)@(2048,1000)", 32, 2048, 1000)]
 # (label, rows M, channels C): BN statistics at batch 32
@@ -142,7 +165,7 @@ BLOCK_FUSED_CASES = [
 KERNELS = {
     "conv2d": (conv, "LAUNCHES", 1, CONV_CASES),
     "conv2d_dx": (conv, "DX_LAUNCHES", 1, TRAIN_DX_CASES),
-    "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_CONV_CASES),
+    "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_DW_CASES),
     "add_relu": (fused, "LAUNCHES", 1, ADD_RELU_CASES),
     "add_relu_mask": (fused, "MASK_LAUNCHES", 1, ADD_RELU_MASK_CASES),
     "matmul": (matmul, "LAUNCHES", 1, MATMUL_CASES),
@@ -179,10 +202,38 @@ def median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> Tuple[float, str]:
-    """(least ms, 'bytes' or 'operations') on an H100 SXM at full power."""
+def device_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
+              tries: int = 2) -> Optional[float]:
+    """Device time of one call: the summed device time of every kernel and
+    copy it launches (torch.profiler over ``reps`` calls, after warm-up),
+    divided by ``reps``. A profile that records no device time (seen once
+    on the H100) is taken again; None if every try records none."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # "Profiler clears events ..."
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / reps / 1e3
+    return None
+
+
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
+          ) -> Tuple[float, str]:
+    """(least ms, 'bytes' or 'operations') on an H100 SXM at full power,
+    for ``flops`` operations at ``peak`` per second."""
     t_mem = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -191,12 +242,13 @@ class _Case:
     library call, and the work the function must do."""
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
-                 timed=None, library_covers=slice(None), library_same=True):
+                 timed=None, library_covers=slice(None), library_same=True,
+                 peak=FP32_FLOPS_PER_S):
         self.run, self.plain, self.library = run, plain, library
         # the plain outputs the library call computes too; library_same
         # False: a yardstick of the same shape that does less work (K8)
         self.library_covers, self.library_same = library_covers, library_same
-        self.nbytes, self.flops = nbytes, flops
+        self.nbytes, self.flops, self.peak = nbytes, flops, peak
         # what is timed, where the compared call does more (Adam: the
         # kernel's update alone, without the copies that make its state)
         self.timed = timed or (run, plain)
@@ -244,11 +296,11 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                          _nhwc)
         return _Case(lambda: conv.conv2d_dw(x, g, k, s),
                      lambda: conv.conv2d_dw_reference(x, g, k, s),
-                     4 * (x.numel() + g.numel() + w.numel()), flops,
+                     4 * (x.numel() + g.numel() + w.numel()), 3 * flops,
                      lambda: torch.nn.grad.conv2d_weight(
                          _nchw(x), (cout, cin, k, k), _nchw(g), stride=s,
                          padding=k // 2),
-                     lambda dw: dw.permute(2, 3, 1, 0))
+                     lambda dw: dw.permute(2, 3, 1, 0), peak=TF32_FLOPS_PER_S)
     if kernel == "add_relu":
         _, shape, offset = case
         a, b = randn(*shape, offset=offset), randn(*shape, offset=offset)
@@ -263,8 +315,8 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                      lambda: fused.add_relu_mask_reference(a, b, g), 16 * a.numel(),
                      a.numel())
     if kernel == "matmul":
-        _, m, k, n = case
-        a, b = randn(m, k), randn(k, n, scale=0.01)
+        _, m, k, n, offset = case
+        a, b = randn(m, k), randn(k, n, scale=0.01, offset=offset)
         return _Case(lambda: matmul.matmul(a, b),
                      lambda: matmul.matmul_reference(a, b),
                      4 * (m * k + k * n + m * n), 2 * m * n * k,
@@ -449,7 +501,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
     """Run one case; raise RuntimeError where the kernel disagrees.
 
     Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} and,
-    with timing, ms, plain_ms and library_ms."""
+    with timing, ms, plain_ms, library_ms, device_ms and library_device_ms."""
     gen = torch.Generator(device=device).manual_seed(seed)
     c = _make(kernel, case, gen, device)
     got, want = _outputs(c.run()), _outputs(c.plain())
@@ -469,7 +521,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
             raise RuntimeError(f"{kernel} {case[0]}: max|kernel - plain| = {d} "
                                f"is {r:.3e} of max|plain| = {scale} > {REL_TOL}")
         err, rel = max(err, d), max(rel, r)
-    least, by = bound(c.nbytes, c.flops)
+    least, by = bound(c.nbytes, c.flops, c.peak)
     out = {"kernel": kernel, "case": case[0], "max_abs_err": err, "rel_err": rel,
            "bound_ms": least, "bound_by": by}
     if c.library is not None and c.library_same:
@@ -484,10 +536,13 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         out["ms"] = median_ms(c.timed[0])
         out["plain_ms"] = median_ms(c.timed[1])
         out["library_ms"] = median_ms(c.library) if c.library is not None else None
+        out["device_ms"] = device_ms(c.timed[0])
+        out["library_device_ms"] = (device_ms(c.library) if c.library is not None
+                                    else None)
     return out
 
 
-def library_total(results) -> Optional[float]:
-    """Sum of library_ms over cases, None where any case has none."""
-    times = [r.get("library_ms") for r in results]
+def total(results, key: str = "library_ms") -> Optional[float]:
+    """Sum of ``key`` over cases, None where any case has none."""
+    times = [r.get(key) for r in results]
     return None if any(t is None for t in times) else sum(times)

@@ -6,7 +6,9 @@ stride, taps outside the image skipped. ``conv2d`` is a
 ``torch.autograd.Function``. On CUDA tensors its forward launches the conv
 kernel of ``csrc/conv.cu``, and its backward the two gradient kernels of the
 same file (dx only when the input needs a gradient, dW only when the weight
-does); anything the kernels do not take raises. On CPU tensors each of the
+does); anything the kernels do not take raises. dW runs on the split-TF32
+tensor-core GEMM of ``csrc/tc_gemm.cuh`` (fp32 accurate), the forward and
+dx on the fp32 core of ``csrc/tiled_gemm.cuh``. On CPU tensors each of the
 three runs its plain version:
 
 * ``conv2d_reference``: F.pad with the explicit, possibly negative padding,
@@ -189,7 +191,7 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torc
     if dw.numel():
         if pixels == 0:
             return dw.zero_()
-        splits = build.split_k(k * k * cin, cout, pixels)
+        splits = build.dw_split(k * k * cin, cout, pixels)
         ws_ptr, _ws = build.gemm_workspace(splits, k * k * cin, cout, x)
         build.launch("rt_conv2d_dw_nhwc_f32", x.data_ptr(), g.data_ptr(),
                      dw.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,

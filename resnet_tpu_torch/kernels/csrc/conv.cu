@@ -6,9 +6,9 @@
 // (Ho*Wo, Cin) @ (Cin, Cout) with the reference's centered windows, and
 // its custom VJP (conv.py:150-196), which computes dx with the same kernel
 // on the stride-dilated gradient and the flipped, transposed filter, and dW
-// per tap on the Pallas matmul (matmul.py::_matmul_kernel). Here each of
-// the three is one implicit GEMM on the shared core (tiled_gemm.cuh); the
-// results equal the VJP's, the blocking does not follow it.
+// per tap on the Pallas matmul (conv.py:172-196, matmul.py::_matmul_kernel).
+// Here each of the three is one implicit GEMM; the results equal the
+// VJP's, the blocking does not follow it.
 //
 // Geometry (resnet_tpu/ops/padding.py::reference_padding): Ho = H / s,
 // iy = s*oy - k/2 + i, ix = s*ox - k/2 + j, and taps that fall outside the
@@ -27,14 +27,22 @@
 //            dilated gradient (3 of 4 at k = 3) are never visited;
 //   dW       rows (i, j, ci), K = the pixels (n, oy, ox), B = g as its
 //            (N*Ho*Wo, Cout) view; the output is HWIO. K is huge and M*N
-//            small, so the wrapper splits K (split-K in tiled_gemm.cuh).
+//            small, so the wrapper splits K.
 //
-// Bound on the H100: compute. ResNet-50's convs do 2*K FLOPs per output
+// Bound on the H100: operations. ResNet-50's convs do 2*K FLOPs per output
 // element with K from 147 to 4608 (the gradients the same FLOPs as the
-// forward); the kernels run them on the fp32 FMA units from shared-memory
-// tiles. wgmma/TMA tiling and bf16/TF32 tensor cores are left for later
-// PRs.
+// forward). The forward and dx run them on the fp32 FMA units from the
+// shared-memory tiles of tiled_gemm.cuh (14-23% of the 67 TFLOP/s peak).
+// dW runs on the split-TF32 tensor-core core of tc_gemm.cuh (fp32
+// accurate, 3 TF32 products per fp32 product): its loader, ConvDwTcA,
+// takes a 16-byte copy of four input channels of one tap and pixel where
+// Cin % 4 == 0 (4-byte copies for the stem's Cin = 3 and other ragged
+// widths), one table entry per pixel and K-step for the block, and a tap
+// offset and channel per copying thread for the whole K loop.
 
+#include <climits>
+
+#include "tc_gemm.cuh"
 #include "tiled_gemm.cuh"
 
 namespace {
@@ -140,39 +148,80 @@ struct PhaseTaps {
   }
 };
 
-// dW A: rows (i, j, ci), columns the output pixels; neighbouring threads on
-// neighbouring ci of one pixel
-struct ConvDwA {
-  static constexpr bool kMFast = true;
+// dW A for tc_gemm.cuh: A((i, j, ci), p) = x[n, s*oy + i - k/2,
+// s*ox + j - k/2, ci] for the pixel p = (n, oy, ox); neighbouring rows are
+// neighbouring channels of one tap
+struct ConvDwTcA {
   const float* __restrict__ x;
-  int H, W, Cin, k, stride, HoWo, Wo;
+  int H, W, Cin, k, stride, Ho, Wo;
   int64_t M;
-  bool row_ok;
-  int di, dj, ci;
+  int step_y, step_x;  // BK pixels = step_y output rows + step_x columns
 
-  __device__ void set_row(int64_t m) {
-    row_ok = m < M;
-    const int mm = row_ok ? (int)m : 0;
-    const int tap = mm / Cin;
-    ci = mm - tap * Cin;
-    di = tap / k - k / 2;
-    dj = tap % k - k / 2;
-  }
+  struct Cursor {
+    int n, oy, ox;
+  };
+  // the pixel's offset in x at its window's center, and that center
+  struct Col {
+    long long off;
+    int iy, ix;
+  };
+  // the thread's rows: tap offset (di, dj) from the center, and offset in x
+  struct Row {
+    long long off;
+    int di, dj;
+    bool ok;
+  };
 
-  // the wrapper keeps N*Ho*Wo < 2^31, so the pixel decodes in 32 bits
-  __device__ float load(int64_t p) const {
+  // the wrapper keeps N*Ho*Wo < 2^31, so a pixel decodes in 32 bits
+  __device__ Cursor cursor(int64_t p) const {
     const int pi = (int)p;
-    const int n = pi / HoWo;
-    const int rem = pi - n * HoWo;
-    const int oy = rem / Wo;
-    const int ox = rem - oy * Wo;
-    const int iy = stride * oy + di;
-    const int ix = stride * ox + dj;
-    if (!row_ok || iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.f;
-    return x[(((int64_t)n * H + iy) * W + ix) * Cin + ci];
+    Cursor c;
+    c.n = pi / (Ho * Wo);
+    const int rem = pi - c.n * Ho * Wo;
+    c.oy = rem / Wo;
+    c.ox = rem - c.oy * Wo;
+    return c;
   }
 
-  __device__ int64_t out_row(int64_t m) const { return m; }
+  __device__ void advance(Cursor& c) const {
+    c.ox += step_x;
+    c.oy += step_y;
+    if (c.ox >= Wo) {
+      c.ox -= Wo;
+      ++c.oy;
+    }
+    while (c.oy >= Ho) {
+      c.oy -= Ho;
+      ++c.n;
+    }
+  }
+
+  __device__ Col col(const Cursor& c, bool in_range) const {
+    Col e;
+    e.iy = in_range ? stride * c.oy : INT_MIN / 2;  // fails every bounds test
+    e.ix = stride * c.ox;
+    e.off = (((long long)c.n * H + stride * c.oy) * W + stride * c.ox) * Cin;
+    return e;
+  }
+
+  __device__ Row row(int64_t m) const {
+    Row r;
+    r.ok = m < M;
+    const int mm = r.ok ? (int)m : 0;
+    const int tap = mm / Cin;
+    const int ci = mm - tap * Cin;
+    r.di = tap / k - k / 2;
+    r.dj = tap % k - k / 2;
+    r.off = ((long long)r.di * W + r.dj) * Cin + ci;
+    return r;
+  }
+
+  __device__ const float* src(const Row& r, const Col& c, bool& ok) const {
+    const int iy = c.iy + r.di;
+    const int ix = c.ix + r.dj;
+    ok = r.ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
+    return ok ? x + c.off + r.off : x;
+  }
 };
 
 __global__ void __launch_bounds__(rt::THREADS)
@@ -218,21 +267,76 @@ conv2d_dx_nhwc_f32_kernel(const float* __restrict__ g, const float* __restrict__
                         k_chunk);
 }
 
-__global__ void __launch_bounds__(rt::THREADS)
-conv2d_dw_nhwc_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                          float* __restrict__ dw, int N, int H, int W, int Cin,
-                          int Cout, int k, int stride, int64_t k_chunk) {
-  ConvDwA a;
+template <int BN, int AVEC, int BVEC>
+__device__ __forceinline__ void conv2d_dw_tc(const float* __restrict__ x,
+                                             const float* __restrict__ g,
+                                             float* __restrict__ dw, int N, int H, int W,
+                                             int Cin, int Cout, int k, int stride,
+                                             int64_t k_chunk) {
+  ConvDwTcA a;
   a.x = x;
   a.H = H;
   a.W = W;
   a.Cin = Cin;
   a.k = k;
   a.stride = stride;
+  a.Ho = H / stride;
   a.Wo = W / stride;
-  a.HoWo = (H / stride) * a.Wo;
   a.M = (int64_t)k * k * Cin;
-  rt::tiled_gemm<false>(a, g, Cout, dw, a.M, Cout, (int64_t)N * a.HoWo, k_chunk);
+  a.step_y = rt::tc::BK / a.Wo;
+  a.step_x = rt::tc::BK % a.Wo;
+  rt::tc::gemm<BN, AVEC, BVEC>(a, g, Cout, dw, a.M, Cout, (int64_t)N * a.Ho * a.Wo,
+                               k_chunk);
+}
+
+// Registers decide the blocks resident per SM (build.py TC_BLOCKS_PER_SM
+// plans the splits by it): a 128 x 64 tile is capped at 128 registers a
+// thread so that two blocks fit (140-143 uncapped, a few dozen bytes of
+// spills capped, and 0.41 against 0.50 ms on the stem's dW on the H100); a
+// 128 x 128 tile takes what it needs (176-183, one block; a minimum of one
+// block in __launch_bounds__ made ptxas take 255 and spill).
+template <int AVEC, int BVEC>
+__global__ void __launch_bounds__(rt::tc::THREADS, 2)
+conv2d_dw_tc64_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                      float* __restrict__ dw, int N, int H, int W, int Cin, int Cout,
+                      int k, int stride, int64_t k_chunk) {
+  conv2d_dw_tc<64, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, k_chunk);
+}
+
+template <int AVEC, int BVEC>
+__global__ void __launch_bounds__(rt::tc::THREADS)
+conv2d_dw_tc128_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                       float* __restrict__ dw, int N, int H, int W, int Cin, int Cout,
+                       int k, int stride, int64_t k_chunk) {
+  conv2d_dw_tc<128, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, k_chunk);
+}
+
+template <int BN, int AVEC, int BVEC>
+int launch_dw(const float* x, const float* g, float* dw, int N, int H, int W, int Cin,
+              int Cout, int k, int stride, float* ws, int splits, cudaStream_t s) {
+  auto* kernel = conv2d_dw_tc128_kernel<AVEC, BVEC>;
+  if constexpr (BN == 64) kernel = conv2d_dw_tc64_kernel<AVEC, BVEC>;
+  return rt::tc::launch<BN, ConvDwTcA>(
+      kernel,
+      [&](dim3 grid, int smem, float* out, int64_t kc) {
+        kernel<<<grid, rt::tc::THREADS, smem, s>>>(x, g, out, N, H, W, Cin, Cout, k,
+                                                   stride, kc);
+      },
+      dw, ws, (int64_t)k * k * Cin, Cout, (int64_t)N * (H / stride) * (W / stride),
+      splits, s);
+}
+
+template <int BN>
+int launch_dw_vec(bool avec, bool bvec, const float* x, const float* g, float* dw,
+                  int N, int H, int W, int Cin, int Cout, int k, int stride, float* ws,
+                  int splits, cudaStream_t s) {
+  if (avec && bvec)
+    return launch_dw<BN, 4, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+  if (avec)
+    return launch_dw<BN, 4, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+  if (bvec)
+    return launch_dw<BN, 1, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+  return launch_dw<BN, 1, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
 }
 
 }  // namespace
@@ -282,16 +386,19 @@ extern "C" int rt_conv2d_dx_nhwc_f32(const float* g, const float* wp, float* dx,
   return 0;
 }
 
-// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout).
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout):
+// 128 x 64 tiles where Cout <= 64, else 128 x 128 (build.py tc_tile_n
+// plans the splits from the same rule); 16-byte copies of x where
+// Cin % 4 == 0 and x is 16-byte aligned, of g likewise.
 extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
                                      int N, int H, int W, int Cin, int Cout, int k,
                                      int stride, float* ws, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return rt::launch_gemm(
-      [&](dim3 grid, float* out, int64_t kc) {
-        conv2d_dw_nhwc_f32_kernel<<<grid, rt::THREADS, 0, s>>>(x, g, out, N, H, W, Cin,
-                                                               Cout, k, stride, kc);
-      },
-      dw, ws, (int64_t)k * k * Cin, Cout, (int64_t)N * (H / stride) * (W / stride),
-      splits, s);
+  const bool avec = Cin % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool bvec = Cout % 4 == 0 && (uintptr_t)g % 16 == 0;
+  if (Cout <= 64)
+    return launch_dw_vec<64>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, ws,
+                             splits, s);
+  return launch_dw_vec<128>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, ws,
+                            splits, s);
 }

@@ -18,7 +18,7 @@
 //       set_k(k)       the column loaded in this K-step (always < K);
 //       load(r)        A(row r, k), or 0 outside the matrix.
 //   kMFast = true: neighbouring threads take neighbouring m (a transposed
-//     A, the dW gather along input channels). Each thread owns one row and
+//     A, as the FC's db reads it). Each thread owns one row and
 //     loads A_PER_THREAD k of it:
 //       set_row(m)     the thread's global row (m may be >= M);
 //       load(k)        A(row, k) for k < K, or 0 outside the matrix.
@@ -34,8 +34,8 @@
 // With one split the block writes C; with several, split z writes its fp32
 // partial tile to C + z*M*N (a workspace the wrapper allocates) and
 // splitk_sum adds the partials in split order. No atomics, so a run repeats
-// exactly. The dW GEMMs need it: the stem at batch 32 has M = 147, N = 64
-// and K = 401,408, which is 3 output tiles for 132 SMs.
+// exactly. The FC's backward and the deep dx and fused-conv GEMMs need it
+// where M*N makes fewer tiles than the card has SMs.
 //
 // Column statistics (kStats, the fused conv's epilogue): after storing its
 // tile, a block of a single-split GEMM also writes the per-column sum and
@@ -46,8 +46,9 @@
 // run repeats exactly. A null tile_sums skips it (the split-K launches,
 // whose tiles hold partials).
 //
-// Plain FMA units, fp32 throughout: wgmma/TMA tiling and tensor-core paths
-// are work for later PRs.
+// Plain FMA units, fp32 throughout. Conv dW runs on the split-TF32
+// tensor-core core, tc_gemm.cuh, whose loaders are meant to carry these
+// GEMMs too.
 #pragma once
 
 #include <cuda_runtime.h>

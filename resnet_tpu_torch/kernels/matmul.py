@@ -1,16 +1,19 @@
-"""Tiled fp32 GEMM and its VJP: the port of resnet_tpu.kernels.matmul.matmul
+"""fp32 GEMM and its VJP: the port of resnet_tpu.kernels.matmul.matmul
 (the FC).
 
 ``matmul`` is a ``torch.autograd.Function``. On CUDA tensors its forward
-launches ``rt_matmul_f32`` of ``csrc/matmul.cu`` and its backward the two
+launches one kernel of ``csrc/matmul.cu``, chosen by shape in
+``matmul_route``: the skinny streaming kernel ``rt_matmul_skinny_f32`` for
+M <= 32 (the FC at batch 1-32), the tiled ``rt_matmul_f32`` above. Its
+backward launches the two
 transposed forms on the same core, as matmul.py:94-98 does: da = g @ b^T
 (``rt_matmul_nt_f32``, b read transposed in place) and db = a^T @ g
 (``rt_matmul_tn_f32``), each only where a gradient is needed. Anything the
 kernels do not take raises. On CPU tensors the plain versions run:
 ``matmul_reference`` and ``matmul_bwd_reference``.
 
-``LAUNCHES`` counts forward launches, ``BWD_LAUNCHES`` backward ones (one
-per product).
+``LAUNCHES`` counts forward launches (either route), ``BWD_LAUNCHES``
+backward ones (one per product).
 """
 
 from __future__ import annotations
@@ -25,6 +28,16 @@ from . import build
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 _MAX_N_TILES = 65535  # gridDim.y of the launch walks the 64-wide N tiles
+_MAX_SLABS = 65535  # ... and of the skinny launch the 32-wide N slabs
+
+
+def matmul_route(m: int, n: int, k: int) -> str:
+    """The forward's kernel for an (m, k) @ (k, n) product: 'skinny' for
+    1 <= m <= 32 (its accumulators are m rows x 4 columns per thread), else
+    'tiled'. A function of the shapes only."""
+    if 1 <= m <= build.SKINNY_MAX_M and -(-n // build.SKINNY_COLS) <= _MAX_SLABS:
+        return "skinny"
+    return "tiled"
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -39,16 +52,17 @@ def matmul_bwd_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
     return g @ b.t(), a.t() @ g
 
 
-def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int
-          ) -> torch.Tensor:
-    """Launch one GEMM entry point into a new (m, n) output."""
+def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
+          plan=build.split_k) -> torch.Tensor:
+    """Launch one GEMM entry point into a new (m, n) output, K split by
+    ``plan(m, n, k)``."""
     if -(-n // 64) > _MAX_N_TILES or k >= 2**31:
         raise ValueError(f"matmul: N={n}, K={k} beyond the kernel's grid")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if m and n:
         if k == 0:
             return out.zero_()
-        splits = build.split_k(m, n, k)
+        splits = plan(m, n, k)
         ws_ptr, _ws = build.gemm_workspace(splits, m, n, a)
         build.launch(entry, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
                      ws_ptr, splits, device=a.device)
@@ -60,8 +74,12 @@ def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not build.on_card("matmul", a, b):
         return matmul_reference(a, b)
     m, k = a.shape
-    out = _gemm("rt_matmul_f32", a, b, m, b.shape[1], k)
-    if m and b.shape[1] and k:
+    n = b.shape[1]
+    if matmul_route(m, n, k) == "skinny":
+        out = _gemm("rt_matmul_skinny_f32", a, b, m, n, k, build.skinny_split)
+    else:
+        out = _gemm("rt_matmul_f32", a, b, m, n, k)
+    if m and n and k:
         LAUNCHES += 1
     return out
 
@@ -107,4 +125,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Differentiable in a and b."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    return _Matmul.apply(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _Matmul.apply(a, b)
+    return _forward(a, b)  # no graph to record: skip the Function's host cost

@@ -5,6 +5,8 @@ one test per kernel and shape, so each can be rerun alone on a GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
+and the redesigned dW and FC kernels alone with ``-k "dw or matmul"``.
+
 Without a CUDA device every test here skips.
 """
 
@@ -33,6 +35,25 @@ def test_kernel_matches_plain(cuda, name, case):
     assert r["rel_err"] <= checks.REL_TOL
     # the kernel ran, not the plain version
     assert getattr(mod, counter) == before + per_call
+
+
+DW_REPEAT = [c for c in checks.TRAIN_DW_CASES
+             if c[0].startswith(("stem", "proj", "split K"))]
+
+
+@pytest.mark.parametrize("case", DW_REPEAT, ids=[c[0] for c in DW_REPEAT])
+def test_conv2d_dw_repeats_bit_for_bit(cuda, case):
+    """dW splits K (131, 4 and 3 splits here) through a workspace added in
+    split order, with no atomics: two runs on the same inputs give the same
+    bits."""
+    from resnet_tpu_torch.kernels import conv
+
+    _, n, h, cin, cout, k, s = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda")
+    g = torch.randn(n, h // s, h // s, cout, generator=gen, device="cuda")
+    first = conv.conv2d_dw(x, g, k, s)
+    assert torch.equal(first, conv.conv2d_dw(x, g, k, s))
 
 
 def test_backward_on_cuda_moves_the_backward_counters(cuda):

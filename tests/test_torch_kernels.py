@@ -123,6 +123,11 @@ def test_sources_and_signatures_agree():
     assert {p.name for p in build.sources()} == {
         "conv.cu", "matmul.cu", "add_relu.cu", "moments.cu", "adam.cu", "bn.cu",
         "fused_conv.cu", "block_fused.cu"}
+    # the headers are in the hash too: the GEMM cores and the shared device code
+    assert {p.name for p in build.CSRC.glob("*.cuh")} == {
+        "tiled_gemm.cuh", "tc_gemm.cuh", "fused_conv.cuh", "rowwise.cuh"}
+    text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
+    assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
 
 
@@ -297,3 +302,127 @@ def test_dx_phases_cover_every_tap_once(k, stride):
                 for tj in range(nx):
                     rows.append(w[fy + stride * ti, fx + stride * tj].t())
     assert torch.equal(wp, torch.cat(rows))
+
+
+# --- the redesigned dW and FC kernels: plans, routes and their arithmetic ---
+
+def _chunks(k, splits, step):
+    """The [lo, hi) K ranges the C launchers give each split."""
+    chunk = build.k_chunk(k, splits, step)
+    return chunk, [(z * chunk, min(k, (z + 1) * chunk)) for z in range(splits)]
+
+
+def _assert_covers(k, ranges):
+    """Every K element in exactly one non-empty range, in order."""
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (lo, hi), (nlo, _) in zip(ranges, ranges[1:] + [(k, k)]):
+        assert lo < hi == nlo
+
+
+# (m = k*k*Cin, n = Cout, k = pixels, splits): ResNet-50's dW at batch 32
+# (the check cases of kernels/checks.py), the two ragged check cases, and
+# edges
+DW_PLANS = [
+    (147, 64, 401408, 131), (64, 64, 100352, 196), (64, 256, 100352, 66),
+    (576, 64, 100352, 52), (1152, 128, 25088, 14), (2304, 512, 25088, 11),
+    (2048, 512, 1568, 2), (81, 33, 98, 1), (180, 24, 1458, 3),
+    (4608, 512, 1568, 4), (9, 1, 1, 1), (27, 8, 10**6, 255)]
+
+
+def _waves_times_steps(m, n, k, splits):
+    """The plan's cost: waves of resident blocks x (chunk steps + fill)."""
+    bn = build.tc_tile_n(n)
+    tiles = -(-m // build.TC_BM) * -(-n // bn)
+    resident = 132 * build.TC_BLOCKS_PER_SM[bn]
+    return (-(-tiles * splits // resident)
+            * (build.k_chunk(k, splits, build.TC_BK) // build.TC_BK + build.TC_STAGES - 1))
+
+
+@pytest.mark.parametrize("m,n,k,want", DW_PLANS)
+def test_dw_split_covers_every_pixel_once(m, n, k, want):
+    """tc_gemm.cuh's split-K plan for dW: the pinned count, every pixel in
+    exactly one split, chunks of whole 32-pixel K-steps, grid within its
+    limits, each split 512 pixels deep or more (as far as the shapes
+    allow), no count in range that finishes in fewer waves x steps, and
+    nothing but the shapes decides it."""
+    splits = build.dw_split(m, n, k)
+    assert splits == want == build.dw_split(m, n, k)
+    chunk, ranges = _chunks(k, splits, build.TC_BK)
+    assert chunk % build.TC_BK == 0
+    _assert_covers(k, ranges)
+    assert -(-n // build.tc_tile_n(n)) <= 65535 and 1 <= splits <= 256
+    most = min(256, max(1, -(-k // (16 * build.TC_BK))))
+    assert splits <= most
+    cost = _waves_times_steps(m, n, k, splits)
+    assert all(_waves_times_steps(m, n, k, build._drop_empty(k, s, build.TC_BK)) >= cost
+               for s in range(1, most + 1))
+
+
+@pytest.mark.parametrize("n,k,want", [
+    (1000, 2048, 9), (33, 300, 19), (1000, 4096, 16), (5, 17, 2), (1000, 1, 1),
+    (70000, 64, 1), (1000, 16, 1)])
+def test_skinny_split_covers_every_row_once(n, k, want):
+    """The skinny FC kernel's plan: the FC's 9 splits of 240 rows over 32
+    slabs (288 blocks), every K row in exactly one chunk, chunks of whole
+    16-row stages and at most 256 rows (A's chunk in shared memory), two
+    blocks per SM unless the depth runs out, and a function of the shapes
+    only."""
+    splits = build.skinny_split(8, n, k)
+    assert splits == want == build.skinny_split(8, n, k) == build.skinny_split(32, n, k)
+    chunk, ranges = _chunks(k, splits, build.SKINNY_STAGE)
+    assert chunk % build.SKINNY_STAGE == 0 and chunk <= build.SKINNY_MAX_CHUNK
+    _assert_covers(k, ranges)
+    slabs = -(-n // build.SKINNY_COLS)
+    assert slabs <= 65535 and splits < 2**31
+    assert slabs * (splits + 1) >= 2 * 132 or splits + 1 >= -(-k // build.SKINNY_STAGE)
+
+
+@pytest.mark.parametrize("m,route", [(1, "skinny"), (3, "skinny"), (8, "skinny"),
+                                     (32, "skinny"), (33, "tiled"), (64, "tiled"),
+                                     (256, "tiled")])
+def test_matmul_route_by_batch(m, route):
+    """The FC at batch 1-32 takes the skinny kernel, larger batches the
+    tiled one; the check cases name their route."""
+    assert matmul.matmul_route(m, 1000, 2048) == route
+    from resnet_tpu_torch.kernels import checks
+
+    labels = [c[0] for c in checks.MATMUL_CASES]
+    if m in (1, 3, 8, 32, 64):
+        assert f"fc ({m},2048)@(2048,1000) {route}" in labels
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to nearest onto 10 mantissa bits, ties away from zero, as
+    cvt.rna.tf32.f32 does: add half of the 13 dropped bits to the
+    magnitude's bit pattern and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1 + 2.0**-10, 1 + 2.0**-11, 1 + 3 * 2.0**-11, -(1 + 2.0**-11),
+                      1 + 2.0**-12], dtype=torch.float32)
+    want = [1.0, 1 + 2.0**-10, 1 + 2.0**-10, 1 + 2 * 2.0**-10, -(1 + 2.0**-10), 1.0]
+    assert _tf32(x).tolist() == want
+
+
+def test_split_tf32_meets_the_fp32_contract_at_dw_depth(rng):
+    """The numerical ground of tc_gemm.cuh: at the projection dW's depth
+    (K = 25,088 pixels, a 32 x 32 output), the split a_lo*b_hi + a_hi*b_lo +
+    a_hi*b_hi of tf32 values, summed in fp32 (a product of two tf32 values
+    is exact in fp32), stays within 1e-5 of max|fp64|, as plain fp32 does;
+    one TF32 pass misses the port's 1e-4 contract."""
+    a = torch.from_numpy(rng.normal(size=(32, 25088)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(25088, 32)).astype(np.float32))
+    exact = a.double() @ b.double()
+    scale = exact.abs().max().item()
+
+    def rel(out):
+        return (out.double() - exact).abs().max().item() / scale
+
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    split = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    assert rel(split) <= 1e-5
+    assert rel(a @ b) <= 1e-5
+    assert rel(a_hi @ b_hi) > 1e-4
