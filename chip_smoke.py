@@ -9,10 +9,12 @@ Phases, each printing one JSON line:
   2. build: nvcc compiles resnet_tpu_torch/kernels/csrc into a library;
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
-     max|plain|, with its time, the plain version's, a library call's where
-     one computes the same function, the device time of the kernel and of
-     the library call (torch.profiler), and the least time the card could
-     take;
+     max|plain| (the fused conv's halo case bit for bit; the split-K GEMMs
+     of conv dx and dW, the fused conv and the whole-block kernel run twice
+     and held to the same bits), with its time, the plain version's, a
+     library call's where one computes the same function, the device time
+     of the kernel and of the library call (torch.profiler), and the least
+     time the card could take;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
      statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must

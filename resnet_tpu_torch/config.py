@@ -128,8 +128,10 @@ class ExecutionConfig:
     param_dtype: str = "float32"
     remat: str = "none"
     stable_softmax: bool = True
-    # fp32 convs and matmuls on the card follow torch.backends'
-    # allow_tf32 flags; 'highest' means both are off.
+    # the plain convs and matmuls on the card: 'highest' turns the cuDNN
+    # and cuBLAS TF32 flags off for the length of each entry point, 'high'
+    # and 'default' allow TF32 (ops/precision.py; the hand kernels are fp32
+    # accurate either way)
     matmul_precision: str = "highest"
     space_to_depth: bool = False
     relu_cap: Optional[float] = None

@@ -25,6 +25,7 @@ from torch import nn
 from .bridge import flatten, unflatten
 from .config import ExecutionConfig, ModelConfig
 from .models import forward
+from .ops.precision import precision_scope
 
 
 def _buffer_name(path: str) -> str:
@@ -61,7 +62,8 @@ class InferenceModel(nn.Module):
 
     def call(self, images) -> torch.Tensor:
         """Logits for a numpy array or tensor of images, on the model's
-        device. Raises ValueError on a shape the model does not take."""
+        device, at the config's ``matmul_precision``. Raises ValueError on
+        a shape the model does not take."""
         d, c = self.mcfg.input_dim, self.mcfg.in_channels
         if tuple(images.shape[1:]) != (d, d, c) or len(images.shape) != 4:
             raise ValueError(
@@ -71,7 +73,7 @@ class InferenceModel(nn.Module):
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(np.array(images, dtype=np.float32))
         x = images.to(device=self.device, dtype=torch.float32).contiguous()
-        with torch.inference_mode():
+        with torch.inference_mode(), precision_scope(self.ecfg):
             return self(x)
 
 

@@ -28,9 +28,9 @@ it: ``_bn_bwd`` for each BN layer (K6's plain closed form), the two 1x1
 products as ``torch.matmul``, the 3x3's du and dW from the plain conv's
 VJP (``fused_conv._conv_vjp``, cuDNN on the card, no forward recompute),
 and the identity shortcut's ``dx_res = g``. The sums' cotangents fold into the BN backward (a ``None``
-cotangent counts as zero). Products and convs follow the TF32 flags like
-every plain op of the port; the JAX package's precision drop in its fused
-backward is not copied.
+cotangent counts as zero). Products and convs run at the config's
+``matmul_precision`` like every plain op of the port (``ops.precision``);
+the JAX package's precision drop in its fused backward is not copied.
 
 ``_pad_interior`` (block_fused.py:368-389) is not carried over: it pads C to
 the TPU's 128 lanes, and the CUDA kernel masks any width.
@@ -47,7 +47,7 @@ from .fused_conv import _conv_vjp, bn_affine_from_sums, channel_sums
 
 # wrapper calls that launched the CUDA kernel
 LAUNCHES = 0
-_MAX_N_TILES = 65535  # gridDim.y of the GEMM walks the 64-wide column tiles
+_MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 _PAD1 = ((1, 1), (1, 1))
 
 
@@ -117,7 +117,7 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     m = n * h * wd
     if m == 0 or c == 0:
         raise ValueError(f"block_fused: empty block x {tuple(x.shape)}, C={c}")
-    if -(-c4 // build.GEMM_TILE) > _MAX_N_TILES or 9 * c >= 2**31:
+    if -(-c4 // build.tc_tile_n(c4)) > _MAX_N_TILES or 9 * c >= 2**31:
         raise ValueError(f"block_fused: 4C={c4}, C={c} beyond the kernel's grid")
     dev = x.device
 
@@ -128,10 +128,10 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     r, s = empty(n, h, wd, c), empty(n, h, wd, c)
     sums_r, sums_s, sums_e = empty(2, c), empty(2, c), empty(2, c4)
     rows = empty(4 * c + 2 * c4)
-    part = empty(-(-m // build.GEMM_TILE), 2, max(c, c4))
+    part = empty(-(-m // build.TC_BM), 2, max(c, c4))  # per TC_BM-row tile
     # (Cout, K) of the three GEMMs; one split-K workspace serves them in turn
     gemms = ((c, c4), (c, 9 * c), (c4, c))
-    splits = [build.split_k(m, cout, k) for cout, k in gemms]
+    splits = [build.tc_split(m, cout, k) for cout, k in gemms]
     ws_floats = max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1),
                     default=0)
     ws = empty(ws_floats) if ws_floats else None

@@ -68,9 +68,9 @@ SIGNATURES = {
 GEMM_TILE = 64
 GEMM_BK = 16
 # the tensor-core core's (tc_gemm.cuh BM, BK, STAGES; BN is tc_tile_n),
-# and the dW kernel's blocks resident per SM by tile width: 256 threads
-# capped at 128 registers (BN = 64) fit twice, at 176-183 (BN = 128) once
-# (conv.cu conv2d_dw_tc64_kernel, conv2d_dw_tc128_kernel; ptxas, PERF.md)
+# and its kernels' blocks resident per SM by tile width (dW, dx, K8 alike):
+# 256 threads capped at 128 registers (BN = 64) fit twice, uncapped
+# (BN = 128) once (conv.cu, fused_conv.cuh; ptxas, PERF.md)
 TC_BM = 128
 TC_BK = 32
 TC_STAGES = 3
@@ -190,18 +190,20 @@ def _drop_empty(k: int, splits: int, step: int) -> int:
 
 def tc_tile_n(n: int) -> int:
     """tc_gemm.cuh's tile width for an N-wide output: 64 up to 64, else 128
-    (conv.cu rt_conv2d_dw_nhwc_f32 picks the same)."""
+    (conv.cu's dW and dx entry points and fused_conv.cuh pick the same)."""
     return 64 if n <= 64 else 128
 
 
 @functools.lru_cache(maxsize=None)
-def dw_split(m: int, n: int, k: int) -> int:
-    """K splits for conv dW on tc_gemm.cuh's tiles (m = k*k*Cin rows,
-    n = Cout, k = the pixels): of the counts that keep each split at least
-    16 K-steps (512 pixels) deep, at most 256, the one whose blocks finish
-    soonest, counted in K-steps: waves of resident blocks times (chunk
-    steps + the ring's fill), fewer splits on a tie. A function of the
-    shapes only (cached), so a call repeats exactly."""
+def tc_split(m: int, n: int, k: int) -> int:
+    """K splits of an (m, n) output over depth k on tc_gemm.cuh's tiles:
+    conv dW (m = k*k*Cin, n = Cout, k = the pixels), conv dx at stride 1
+    (m = the pixels, n = Cin, k = k*k*Cout) and the fused conv (m = the
+    output pixels, n = Cout, k = k*k*Cin). Of the counts that keep each
+    split at least 16 K-steps (512 columns) deep, at most 256, the one whose
+    blocks finish soonest, counted in K-steps: waves of resident blocks
+    times (chunk steps + the ring's fill), fewer splits on a tie. A function
+    of the shapes only (cached), so a call repeats exactly."""
     bn = tc_tile_n(n)
     tiles = -(-m // TC_BM) * -(-n // bn)
     resident = _SMS * TC_BLOCKS_PER_SM[bn]

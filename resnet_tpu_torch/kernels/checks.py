@@ -33,9 +33,17 @@ gives the least time the card could take for the work (``bound_ms``): the
 larger of the bytes the function must move (inputs read once, outputs
 written once) over 3.35 TB/s and the operations it does over the H100
 SXM's peak for their type, with ``bound_by`` naming the one that sets it:
-the FLOPs over the 67 TFLOP/s fp32 peak, and for conv dW, whose kernel
-does each fp32 product as three TF32 products on the tensor cores
-(``csrc/tc_gemm.cuh``), three times its FLOPs over 495 TFLOP/s.
+the FLOPs over the 67 TFLOP/s fp32 peak, and for conv dW and dx, the fused
+conv (K8) and the whole-block kernel (K10), whose kernels do each fp32
+product as three TF32 products on the tensor cores (``csrc/tc_gemm.cuh``),
+three times their FLOPs over 495 TFLOP/s; for those ``fp32_fma_bound_ms``
+gives the bound at the fp32 FMA peak beside it.
+
+The split-K GEMMs (``REPEAT_KERNELS``) are also run a second time on the same
+inputs and must give the same bits: their partials are added in split
+order, with no atomics. A case marked exact (the fused conv's halo case,
+integer-valued so that every order of summation is exact) must match its
+plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -65,11 +73,18 @@ _CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
 ]
 CONV_CASES = [(label, 8, *shape) for label, *shape in _CONV_SHAPES]
 TRAIN_CONV_CASES = [(label, 32, *shape) for label, *shape in _CONV_SHAPES]
-# the training step never takes the images' gradient, so no stem dx
-TRAIN_DX_CASES = TRAIN_CONV_CASES[1:]
+# the training step never takes the images' gradient, so no stem dx; then
+# stage 4's 3x3, whose GEMM splits K in 5 (build.tc_split), and widths not
+# a multiple of 4 (4-byte copies of g and w) at stride 1 on 128-wide tiles
+# and at stride 2 on 64-wide ones
+TRAIN_DX_CASES = TRAIN_CONV_CASES[1:] + [
+    ("split K 3x3/s1 7^2 512->512", 32, 7, 512, 512, 3, 1),
+    ("ragged 3x3 7^2 130->33, batch 2", 2, 7, 130, 33, 3, 1),
+    ("ragged 3x3/s2 14->7 9->33, batch 2", 2, 14, 9, 33, 3, 2),
+]
 # dW: the training shapes, then widths not a multiple of 4 (4-byte copies
 # of x and g) and a depth whose last split chunk is not a whole K-step
-# (build.dw_split: 3 chunks of 512, 512 and 434 pixels)
+# (build.tc_split: 3 chunks of 512, 512 and 434 pixels)
 TRAIN_DW_CASES = TRAIN_CONV_CASES + [
     ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
     ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1),
@@ -109,9 +124,12 @@ MOMENTS_CASES: List[Tuple[str, int, int]] = [
 # (label, model name): Adam over that model's parameter list
 ADAM_CASES = [("resnet50 params, non-finite injected", "resnet50")]
 # (label, batch, H=W, Cin, Cout, k, stride, prologue, cap): the fused
-# engine's conv sites at batch 32, a capped one, and two ragged ones at
-# batch 2, the second deep enough (K = 9 * 129) that the GEMM splits K and
-# the statistics come from the summed y
+# engine's conv sites at batch 32, a capped one, three ragged ones at
+# batch 2 (4-byte copies), the second deep enough (K = 9 * 129) that the
+# GEMM splits K and the statistics come from the summed y, the third on
+# 128-wide tiles; and the halo case (_fused_conv_case): shift > 0 on every
+# channel, so act(shift) != 0, on integer values that every order of
+# summation keeps exact, held to the plain version bit for bit
 FUSED_CONV_CASES = [
     ("reduce 1x1 56^2 256->64", 32, 56, 256, 64, 1, 1, False, None),
     ("spatial 3x3/s1 56^2 64->64, prologue", 32, 56, 64, 64, 3, 1, True, None),
@@ -121,6 +139,8 @@ FUSED_CONV_CASES = [
     ("spatial 3x3/s1 14^2 256->256, prologue, cap 10", 32, 14, 256, 256, 3, 1, True, 10.0),
     ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1, True, None),
     ("ragged 3x3 7^2 129->33, batch 2, split K", 2, 7, 129, 33, 3, 1, True, None),
+    ("ragged 3x3 7^2 9->130, batch 2", 2, 7, 9, 130, 3, 1, True, None),
+    ("halo 3x3 7^2 16->64, batch 2, act(shift) > 0, exact", 2, 7, 16, 64, 3, 1, True, None),
 ]
 # (label, shape, storage offset in floats, cap): residual joins
 FUSED_JOIN_CASES = [
@@ -148,8 +168,8 @@ BN_BWD_CASES = [(f"({label}){' relu' if relu else ''}", m, c, relu)
 # (label, x shape (N, H, W, 4C), C, cap): K10 at the four identity-block
 # shapes of ResNet-50 at batch 32; a cap of 2 that clips in both prologues
 # and in the join; widths not a multiple of 4 with M = 75 rows, not a
-# multiple of 64; and a batch-2 block whose reduce splits K in 2 and whose
-# 3x3 splits it in 3 (build.split_k), so that the statistics come from the
+# multiple of 128; and a batch-2 block whose reduce splits K in 2 and whose
+# 3x3 splits it in 3 (build.tc_split), so that the statistics come from the
 # summed y
 BLOCK_FUSED_CASES = [
     ("stage 1 (32,56,56,256) C=64", (32, 56, 56, 256), 64, None),
@@ -160,6 +180,9 @@ BLOCK_FUSED_CASES = [
     ("ragged (3,5,5,36) C=9", (3, 5, 5, 36), 9, None),
     ("split K (2,4,4,516) C=129", (2, 4, 4, 516), 129, None),
 ]
+
+# the split-K GEMMs, run twice per case and held to the same bits
+REPEAT_KERNELS = ("conv2d_dx", "conv2d_dw", "fused_conv", "block_fused")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -243,8 +266,9 @@ class _Case:
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
                  timed=None, library_covers=slice(None), library_same=True,
-                 peak=FP32_FLOPS_PER_S):
+                 peak=FP32_FLOPS_PER_S, exact=False):
         self.run, self.plain, self.library = run, plain, library
+        self.exact = exact  # the kernel must equal the plain version bit for bit
         # the plain outputs the library call computes too; library_same
         # False: a yardstick of the same shape that does less work (K8)
         self.library_covers, self.library_same = library_covers, library_same
@@ -289,11 +313,11 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
         if kernel == "conv2d_dx":
             return _Case(lambda: conv.conv2d_dx(g, w, x.shape, s),
                          lambda: conv.conv2d_dx_reference(g, w, x.shape, s),
-                         4 * (g.numel() + w.numel() + x.numel()), flops,
+                         4 * (g.numel() + w.numel() + x.numel()), 3 * flops,
                          lambda: torch.nn.grad.conv2d_input(
                              (n, cin, h, h), w_oihw, _nchw(g), stride=s,
                              padding=k // 2),
-                         _nhwc)
+                         _nhwc, peak=TF32_FLOPS_PER_S)
         return _Case(lambda: conv.conv2d_dw(x, g, k, s),
                      lambda: conv.conv2d_dw_reference(x, g, k, s),
                      4 * (x.numel() + g.numel() + w.numel()), 3 * flops,
@@ -364,12 +388,23 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
 
 
 def _fused_conv_case(case, randn) -> _Case:
-    _, n, h, cin, cout, k, s, prologue, cap = case
+    label, n, h, cin, cout, k, s, prologue, cap = case
     ho = h // s
-    x = randn(n, h, h, cin)
-    w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
-    # shift > 0 on about half the channels: relu(shift) must not reach the halo
-    scale, shift = 1 + randn(cin, scale=0.2), randn(cin, scale=0.5)
+    exact = label.startswith("halo")
+    if exact:
+        # u = relu(x * 0 + shift) = shift, an integer 1..3 on every channel,
+        # times weights in {-1, 0, 1}: every y, y^2 and sum is an integer
+        # below 2^24, exact in fp32 in any order and in TF32's split (lo =
+        # 0). A halo tap that became act(shift) moves an edge output by >= 1.
+        x = randn(n, h, h, cin)
+        w = torch.round(randn(k, k, cin, cout)).clamp(-1.0, 1.0)
+        scale = torch.zeros_like(randn(cin))
+        shift = 1.0 + torch.round(randn(cin).abs()).clamp(0.0, 2.0)
+    else:
+        x = randn(n, h, h, cin)
+        w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
+        # shift > 0 on about half the channels: relu(shift) must not reach the halo
+        scale, shift = 1 + randn(cin, scale=0.2), randn(cin, scale=0.5)
     args = (x, w, scale, shift, s, None, prologue, True, cap)
 
     def split(out):
@@ -379,10 +414,10 @@ def _fused_conv_case(case, randn) -> _Case:
     return _Case(lambda: split(fused_conv.fused_conv(*args)),
                  lambda: split(fused_conv.fused_conv_reference(*args)),
                  4 * (x.numel() + w.numel() + n * ho * ho * cout + 2 * cin + 2 * cout),
-                 2 * n * ho * ho * k * k * cin * cout,
+                 3 * 2 * n * ho * ho * k * k * cin * cout,
                  lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s,
                                   padding=k // 2),
-                 library_same=False)
+                 library_same=False, peak=TF32_FLOPS_PER_S, exact=exact)
 
 
 def _block_fused_case(case, randn) -> _Case:
@@ -406,7 +441,7 @@ def _block_fused_case(case, randn) -> _Case:
                  lambda: split(block_fused.block_fused_reference(*args)),
                  4 * (2 * m * c4 + 2 * m * c + m * c4 + sum(t.numel() for t in ws)
                       + row_floats + 2 * (2 * c + c4)),
-                 2 * m * (2 * c4 * c + 9 * c * c))
+                 3 * 2 * m * (2 * c4 * c + 9 * c * c), peak=TF32_FLOPS_PER_S)
 
 
 def _bn_bwd_case(case, randn) -> _Case:
@@ -500,8 +535,9 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
                timing: bool = True) -> Dict[str, object]:
     """Run one case; raise RuntimeError where the kernel disagrees.
 
-    Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} and,
-    with timing, ms, plain_ms, library_ms, device_ms and library_device_ms."""
+    Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} (and
+    fp32_fma_bound_ms for the tensor-core kernels) and, with timing, ms,
+    plain_ms, library_ms, device_ms and library_device_ms."""
     gen = torch.Generator(device=device).manual_seed(seed)
     c = _make(kernel, case, gen, device)
     got, want = _outputs(c.run()), _outputs(c.plain())
@@ -520,10 +556,19 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         if not (r <= REL_TOL):
             raise RuntimeError(f"{kernel} {case[0]}: max|kernel - plain| = {d} "
                                f"is {r:.3e} of max|plain| = {scale} > {REL_TOL}")
+        if c.exact and not torch.equal(gt, wt):
+            raise RuntimeError(f"{kernel} {case[0]}: not equal to the plain version "
+                               f"bit for bit (max|kernel - plain| = {d})")
         err, rel = max(err, d), max(rel, r)
+    if kernel in REPEAT_KERNELS:
+        again = _outputs(c.run())
+        if not all(torch.equal(a, b) for a, b in zip(again, got, strict=True)):
+            raise RuntimeError(f"{kernel} {case[0]}: a second run gave other bits")
     least, by = bound(c.nbytes, c.flops, c.peak)
     out = {"kernel": kernel, "case": case[0], "max_abs_err": err, "rel_err": rel,
            "bound_ms": least, "bound_by": by}
+    if c.peak == TF32_FLOPS_PER_S:  # 3 TF32 products per FLOP: also at the FMA peak
+        out["fp32_fma_bound_ms"] = bound(c.nbytes, c.flops / 3)[0]
     if c.library is not None and c.library_same:
         # the yardstick must compute the same function
         for lt, wt in zip(_outputs(c.as_plain(c.library())), want[c.library_covers],

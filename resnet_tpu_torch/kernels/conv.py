@@ -6,10 +6,10 @@ stride, taps outside the image skipped. ``conv2d`` is a
 ``torch.autograd.Function``. On CUDA tensors its forward launches the conv
 kernel of ``csrc/conv.cu``, and its backward the two gradient kernels of the
 same file (dx only when the input needs a gradient, dW only when the weight
-does); anything the kernels do not take raises. dW runs on the split-TF32
-tensor-core GEMM of ``csrc/tc_gemm.cuh`` (fp32 accurate), the forward and
-dx on the fp32 core of ``csrc/tiled_gemm.cuh``. On CPU tensors each of the
-three runs its plain version:
+does); anything the kernels do not take raises. dW and dx run on the
+split-TF32 tensor-core GEMM of ``csrc/tc_gemm.cuh`` (fp32 accurate), the
+forward on the fp32 core of ``csrc/tiled_gemm.cuh``. On CPU tensors each of
+the three runs its plain version:
 
 * ``conv2d_reference``: F.pad with the explicit, possibly negative padding,
   then F.conv2d (``ops.conv.conv2d``);
@@ -165,7 +165,7 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> tor
         m = n * h * wd
         # a K split only at stride 1: the phases of a strided dx write rows
         # that are not contiguous
-        splits = build.split_k(m, cin, k * k * cout) if stride == 1 else 1
+        splits = build.tc_split(m, cin, k * k * cout) if stride == 1 else 1
         ws_ptr, _ws = build.gemm_workspace(splits, m, cin, g)
         build.launch("rt_conv2d_dx_nhwc_f32", g.data_ptr(), wp.data_ptr(),
                      dx.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
@@ -191,7 +191,7 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torc
     if dw.numel():
         if pixels == 0:
             return dw.zero_()
-        splits = build.dw_split(k * k * cin, cout, pixels)
+        splits = build.tc_split(k * k * cin, cout, pixels)
         ws_ptr, _ws = build.gemm_workspace(splits, k * k * cin, cout, x)
         build.launch("rt_conv2d_dw_nhwc_f32", x.data_ptr(), g.data_ptr(),
                      dw.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,

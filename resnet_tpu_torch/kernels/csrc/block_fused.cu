@@ -21,11 +21,11 @@
 // launch, all enqueued by ONE host call (rt_block_fused_f32) on the caller's
 // stream, with no host synchronisation and no PyTorch op between them:
 // stages 0-2 are the fused conv of K8 (fused_conv.cuh: the implicit GEMM with
-// the prologue in the A gather and the per-tile statistics), stage 3 the join
-// of K9 with an identity residual, and between the stages a small kernel,
-// one thread per channel, turns the sums, gamma and beta into the next
-// prologue's (sc, sh) rows on the device. Those six rows are an output: the backward
-// recomputes each ReLU gate from r * sc_r + sh_r and s * sc_s + sh_s, and a
+// the prologue applied to the gathered slice and the per-tile statistics),
+// stage 3 the join of K9 with an identity residual, and between the stages a
+// small kernel, one thread per channel, turns the sums, gamma and beta into
+// the next prologue's (sc, sh) rows on the device. Those six rows are an
+// output: the backward recomputes each ReLU gate from r * sc_r + sh_r and s * sc_s + sh_s, and a
 // gate rebuilt from other rows would flip for an element within rounding of
 // 0. Every product and sum of the prologues, the rows and the join is rounded
 // on its own, as the plain PyTorch version rounds it.
@@ -35,13 +35,15 @@
 // and the zero padding of C to 128 lanes (_pad_interior): the GEMM core masks
 // any ragged width, so C = 64 runs as it is.
 //
-// Bound on the H100: 2 * M * (2 * 4C * C + 9 * C^2) FLOPs on the fp32 FMA
-// units against 96 * C * M bytes (x read twice, r, s, e written and read
-// once, out written once), so the FLOPs set it at every ResNet-50 stage
-// (14 GFLOP per block at batch 32, about 0.21 ms at 67 TFLOP/s). The GEMMs
-// are K8's shared-memory tiles. One persistent cooperative launch with a
-// grid-wide barrier between the stages, wgmma/TMA tiles and the join folded
-// into stage 2's epilogue are later work.
+// Bound on the H100: 2 * M * (2 * 4C * C + 9 * C^2) FLOPs, done as three
+// TF32 products each on the tensor cores, against 96 * C * M bytes (x read
+// twice, r, s, e written and read once, out written once); at batch 32 each
+// ResNet-50 block is 14 GFLOP, 0.085 ms at 495 TFLOP/s for the three
+// products, and 0.11 ms for the bytes. The GEMMs are K8's (fused_conv.cuh:
+// the split-TF32 core of tc_gemm.cuh with the prologue in shared memory and
+// the statistics in the epilogue). One persistent cooperative launch with a
+// grid-wide barrier between the stages and the join folded into stage 2's
+// epilogue are later work.
 
 #include "fused_conv.cuh"
 
@@ -73,7 +75,7 @@ inline void affine_rows(const float* sums, const float* gamma, const float* beta
 // HWIO, w3 (C, C4); g1, b1, g2, b2 hold C floats, g3, b3 C4. Writes out and e
 // (N, H, W, C4), r and s (N, H, W, C), sums_r and sums_s (2, C), sums_e (2,
 // C4), and rows = [sc_r, sh_r, sc_s, sh_s] (C each) then [sc_e, sh_e] (C4
-// each). part holds ceil(M / 64) * 2 * max(C, C4) floats (M = N * H * W); ws
+// each). part holds ceil(M / 128) * 2 * max(C, C4) floats (M = N * H * W); ws
 // holds the largest splits_i * M * Cout_i floats over the stages whose
 // splits_i > 1 (stage Cout: C, C, C4), else it is not read. The caller
 // checks shapes, dtype and contiguity.

@@ -31,14 +31,25 @@
 //
 // Bound on the H100: operations. ResNet-50's convs do 2*K FLOPs per output
 // element with K from 147 to 4608 (the gradients the same FLOPs as the
-// forward). The forward and dx run them on the fp32 FMA units from the
+// forward). The forward runs them on the fp32 FMA units from the
 // shared-memory tiles of tiled_gemm.cuh (14-23% of the 67 TFLOP/s peak).
-// dW runs on the split-TF32 tensor-core core of tc_gemm.cuh (fp32
-// accurate, 3 TF32 products per fp32 product): its loader, ConvDwTcA,
-// takes a 16-byte copy of four input channels of one tap and pixel where
-// Cin % 4 == 0 (4-byte copies for the stem's Cin = 3 and other ragged
-// widths), one table entry per pixel and K-step for the block, and a tap
-// offset and channel per copying thread for the whole K loop.
+// dW and dx run on the split-TF32 tensor-core core of tc_gemm.cuh (fp32
+// accurate, 3 TF32 products per fp32 product):
+// * dW's loader, ConvDwTcA (M-fast A), takes a 16-byte copy of four input
+//   channels of one tap and pixel where Cin % 4 == 0 (4-byte copies for the
+//   stem's Cin = 3 and other ragged widths), one table entry per pixel and
+//   K-step for the block, and a tap offset and channel per copying thread
+//   for the whole K loop.
+// * dx's loader, ConvDxTcA (K-major A: a row is the gradient's channels at
+//   the taps of one input pixel), decodes each copying row (n, qy, qx) once
+//   and walks a (ti, tj, co) cursor by 32 columns with carries; at every
+//   ResNet-50 dx (Cout % 32 == 0) a K-step is one tap. 16-byte copies of
+//   four channels where Cout and Cin are multiples of 4 and g and w are
+//   16-byte aligned, 4-byte copies otherwise. A phase's rows land in dx
+//   through out_row.
+//
+// Measured (-Xptxas -v, nvcc 12.9, sm_90a): see tc_gemm.cuh for dW;
+// conv2d_dx_tc128_kernel and conv2d_dx_tc64_kernel in PERF.md.
 
 #include <climits>
 
@@ -86,56 +97,6 @@ struct ConvA {
     if (!row_ok[r] || iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.f;
     return x[img[r] + ((int64_t)iy * W + ix) * Cin + ci];
   }
-
-  __device__ int64_t out_row(int64_t m) const { return m; }
-};
-
-// dx A for one phase (py, px): the output gradient g gathered back onto
-// the input rows of that phase, neighbouring threads on neighbouring co
-struct ConvDxA {
-  static constexpr bool kMFast = false;
-  const float* __restrict__ g;
-  int H, W, Ho, Wo, Cout, stride;
-  int py, px, cy, cx;  // phase, and oy = qy + cy - ti, ox = qx + cx - tj
-  int ntj;             // taps of this phase along j
-  int QhQw, Qw;        // rows of this phase per image, per image row
-  int64_t M;
-  int64_t img[rt::A_PER_THREAD];
-  int qy[rt::A_PER_THREAD], qx[rt::A_PER_THREAD];
-  bool row_ok[rt::A_PER_THREAD];
-  int ti, tj, co;
-
-  __device__ void set_row(int r, int64_t m) {
-    row_ok[r] = m < M;
-    const int64_t mm = row_ok[r] ? m : 0;
-    const int64_t n = mm / QhQw;
-    const int rem = (int)(mm - n * QhQw);
-    qy[r] = rem / Qw + cy;
-    qx[r] = rem - (rem / Qw) * Qw + cx;
-    img[r] = n * Ho * Wo * Cout;
-  }
-
-  __device__ void set_k(int64_t kk) {
-    const int tap = (int)(kk / Cout);
-    co = (int)(kk - (int64_t)tap * Cout);
-    ti = tap / ntj;
-    tj = tap - ti * ntj;
-  }
-
-  __device__ float load(int r) const {
-    const int oy = qy[r] - ti;
-    const int ox = qx[r] - tj;
-    if (!row_ok[r] || oy < 0 || oy >= Ho || ox < 0 || ox >= Wo) return 0.f;
-    return g[img[r] + ((int64_t)oy * Wo + ox) * Cout + co];
-  }
-
-  __device__ int64_t out_row(int64_t m) const {
-    const int64_t n = m / QhQw;
-    const int rem = (int)(m - n * QhQw);
-    const int y = rem / Qw;
-    const int x = rem - y * Qw;
-    return (n * H + py + (int64_t)stride * y) * W + px + (int64_t)stride * x;
-  }
 };
 
 // taps i in [0, k) that reach input rows of phase p: i = first + s*t
@@ -148,10 +109,86 @@ struct PhaseTaps {
   }
 };
 
+// dx A for tc_gemm.cuh, one phase (py, px): row (n, qy, qx) is the input
+// pixel (py + s*qy, px + s*qx), column (ti, tj, co) the gradient at
+// g[n, qy + cy - ti, qx + cx - tj, co], 0 out of range; K-major
+struct ConvDxTcA {
+  static constexpr bool kKMajor = true;
+  static constexpr bool kPrologue = false;
+  const float* __restrict__ g;
+  int H, W, Ho, Wo, Cout, stride;
+  int py, px, cy, cx;  // phase, and oy = qy + cy - ti, ox = qx + cx - tj
+  int ntj;             // taps of this phase along j
+  int QhQw, Qw;        // rows of this phase per image, per image row
+  int64_t M;
+
+  // the row's (qy + cy, qx + cx) and g's offset there
+  struct Row {
+    long long off;
+    int qy, qx;
+    bool ok;
+  };
+  struct Cursor {
+    int ti, tj, co;
+  };
+
+  __device__ Row row(int64_t m) const {
+    Row r;
+    r.ok = m < M;
+    const int64_t mm = r.ok ? m : 0;
+    const int64_t n = mm / QhQw;
+    const int rem = (int)(mm - n * QhQw);
+    const int y = rem / Qw;
+    r.qy = y + cy;
+    r.qx = rem - y * Qw + cx;
+    r.off = ((n * Ho + r.qy) * Wo + r.qx) * Cout;
+    return r;
+  }
+
+  __device__ Cursor cursor(int64_t k) const {
+    Cursor c;
+    const int tap = (int)(k / Cout);
+    c.co = (int)(k - (int64_t)tap * Cout);
+    c.ti = tap / ntj;
+    c.tj = tap - c.ti * ntj;
+    return c;
+  }
+
+  __device__ void advance(Cursor& c) const {
+    c.co += rt::tc::BK;
+    while (c.co >= Cout) {
+      c.co -= Cout;
+      if (++c.tj == ntj) {
+        c.tj = 0;
+        ++c.ti;
+      }
+    }
+  }
+
+  __device__ bool in(const Row& r, const Cursor& c) const {
+    const int oy = r.qy - c.ti;
+    const int ox = r.qx - c.tj;
+    return r.ok && oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+  }
+
+  __device__ const float* at(const Row& r, const Cursor& c) const {
+    return g + r.off - ((long long)c.ti * Wo + c.tj) * Cout + c.co;
+  }
+
+  __device__ int64_t out_row(int64_t m) const {
+    const int64_t n = m / QhQw;
+    const int rem = (int)(m - n * QhQw);
+    const int y = rem / Qw;
+    const int x = rem - y * Qw;
+    return (n * H + py + (int64_t)stride * y) * W + px + (int64_t)stride * x;
+  }
+};
+
 // dW A for tc_gemm.cuh: A((i, j, ci), p) = x[n, s*oy + i - k/2,
 // s*ox + j - k/2, ci] for the pixel p = (n, oy, ox); neighbouring rows are
 // neighbouring channels of one tap
 struct ConvDwTcA {
+  static constexpr bool kKMajor = false;
   const float* __restrict__ x;
   int H, W, Cin, k, stride, Ho, Wo;
   int64_t M;
@@ -222,6 +259,8 @@ struct ConvDwTcA {
     ok = r.ok && iy >= 0 && iy < H && ix >= 0 && ix < W;
     return ok ? x + c.off + r.off : x;
   }
+
+  __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
 __global__ void __launch_bounds__(rt::THREADS)
@@ -239,32 +278,6 @@ conv2d_nhwc_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   a.stride = stride;
   a.M = (int64_t)N * a.HoWo;
   rt::tiled_gemm<false>(a, w, Cout, y, a.M, Cout, (int64_t)k * k * Cin, k_chunk);
-}
-
-__global__ void __launch_bounds__(rt::THREADS)
-conv2d_dx_nhwc_f32_kernel(const float* __restrict__ g, const float* __restrict__ wp,
-                          float* __restrict__ dx, int N, int H, int W, int Cin,
-                          int Cout, int k, int stride, int py, int px,
-                          int64_t k_chunk) {
-  const PhaseTaps ty(py, k, stride), tx(px, k, stride);
-  ConvDxA a;
-  a.g = g;
-  a.H = H;
-  a.W = W;
-  a.Ho = H / stride;
-  a.Wo = W / stride;
-  a.Cout = Cout;
-  a.stride = stride;
-  a.py = py;
-  a.px = px;
-  a.cy = ty.shift;
-  a.cx = tx.shift;
-  a.ntj = tx.count;
-  a.Qw = W / stride;
-  a.QhQw = (H / stride) * a.Qw;
-  a.M = (int64_t)N * a.QhQw;
-  rt::tiled_gemm<false>(a, wp, Cin, dx, a.M, Cin, (int64_t)ty.count * tx.count * Cout,
-                        k_chunk);
 }
 
 template <int BN, int AVEC, int BVEC>
@@ -309,6 +322,67 @@ conv2d_dw_tc128_kernel(const float* __restrict__ x, const float* __restrict__ g,
                        float* __restrict__ dw, int N, int H, int W, int Cin, int Cout,
                        int k, int stride, int64_t k_chunk) {
   conv2d_dw_tc<128, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, k_chunk);
+}
+
+template <int BN, int VEC>
+__device__ __forceinline__ void conv2d_dx_tc(const float* __restrict__ g,
+                                             const float* __restrict__ wp,
+                                             float* __restrict__ dx, int N, int H, int W,
+                                             int Cin, int Cout, int k, int stride, int py,
+                                             int px, int64_t k_chunk) {
+  const PhaseTaps ty(py, k, stride), tx(px, k, stride);
+  ConvDxTcA a;
+  a.g = g;
+  a.H = H;
+  a.W = W;
+  a.Ho = H / stride;
+  a.Wo = W / stride;
+  a.Cout = Cout;
+  a.stride = stride;
+  a.py = py;
+  a.px = px;
+  a.cy = ty.shift;
+  a.cx = tx.shift;
+  a.ntj = tx.count;
+  a.Qw = W / stride;
+  a.QhQw = (H / stride) * a.Qw;
+  a.M = (int64_t)N * a.QhQw;
+  rt::tc::gemm_k<BN, VEC, false>(a, wp, Cin, dx, a.M, Cin,
+                                 (int64_t)ty.count * tx.count * Cout, k_chunk, nullptr);
+}
+
+// as the dW kernels: the 128 x 64 tile capped at 128 registers, two blocks
+// per SM; the 128 x 128 tile one block
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS, 2)
+conv2d_dx_tc64_kernel(const float* __restrict__ g, const float* __restrict__ wp,
+                      float* __restrict__ dx, int N, int H, int W, int Cin, int Cout, int k,
+                      int stride, int py, int px, int64_t k_chunk) {
+  conv2d_dx_tc<64, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, k_chunk);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS)
+conv2d_dx_tc128_kernel(const float* __restrict__ g, const float* __restrict__ wp,
+                       float* __restrict__ dx, int N, int H, int W, int Cin, int Cout, int k,
+                       int stride, int py, int px, int64_t k_chunk) {
+  conv2d_dx_tc<128, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, k_chunk);
+}
+
+// one phase's GEMM, rows (N, H/s, W/s) of that phase, K = its taps * Cout
+template <int BN, int VEC>
+int launch_dx(const float* g, const float* b, float* dx, int N, int H, int W, int Cin,
+              int Cout, int k, int stride, int py, int px, int64_t K, float* ws, int splits,
+              cudaStream_t s) {
+  auto* kernel = conv2d_dx_tc128_kernel<VEC>;
+  if constexpr (BN == 64) kernel = conv2d_dx_tc64_kernel<VEC>;
+  return rt::tc::launch<BN, ConvDxTcA>(
+      kernel,
+      [&](dim3 grid, int smem, float* out, int64_t kc) {
+        kernel<<<grid, rt::tc::THREADS, smem, s>>>(g, b, out, N, H, W, Cin, Cout, k, stride,
+                                                   py, px, kc);
+      },
+      dx, ws, (int64_t)N * (H / stride) * (W / stride), Cin, K, splits, s);
 }
 
 template <int BN, int AVEC, int BVEC>
@@ -361,24 +435,25 @@ extern "C" int rt_conv2d_nhwc_f32(const float* x, const float* w, float* y, int 
 // dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices of
 // w^T = w.permute(0, 1, 3, 2) one after the other, phase (py, px) in
 // row-major order, each (taps_y * taps_x * Cout, Cin) (PhaseTaps). With
-// splits > 1 (stride 1 only: one phase) the K split goes through ws.
+// splits > 1 (stride 1 only: one phase) the K split goes through ws. Tiles
+// 128 x 64 where Cin <= 64, else 128 x 128 (build.py tc_tile_n); 16-byte
+// copies where Cout and Cin are multiples of 4 and g and wp 16-byte aligned.
 extern "C" int rt_conv2d_dx_nhwc_f32(const float* g, const float* wp, float* dx,
                                      int N, int H, int W, int Cin, int Cout, int k,
                                      int stride, float* ws, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t rows = (int64_t)N * (H / stride) * (W / stride);
   if (stride > 1 && splits != 1) return (int)cudaErrorInvalidValue;
+  const bool vec = Cout % 4 == 0 && Cin % 4 == 0 && (uintptr_t)g % 16 == 0 &&
+                   (uintptr_t)wp % 16 == 0;
+  auto* phase = Cin <= 64 ? (vec ? launch_dx<64, 4> : launch_dx<64, 1>)
+                          : (vec ? launch_dx<128, 4> : launch_dx<128, 1>);
   const float* b = wp;
   for (int py = 0; py < stride; ++py) {
     for (int px = 0; px < stride; ++px) {
       const int64_t K = (int64_t)PhaseTaps(py, k, stride).count *
                         PhaseTaps(px, k, stride).count * Cout;
-      const int status = rt::launch_gemm(
-          [&](dim3 grid, float* out, int64_t kc) {
-            conv2d_dx_nhwc_f32_kernel<<<grid, rt::THREADS, 0, s>>>(
-                g, b, out, N, H, W, Cin, Cout, k, stride, py, px, kc);
-          },
-          dx, ws, rows, Cin, K, splits, s);
+      const int status = phase(g, b, dx, N, H, W, Cin, Cout, k, stride, py, px, K, ws,
+                               splits, s);
       if (status != 0) return status;
       b += K * Cin;
     }

@@ -8,10 +8,11 @@
 //
 // The previous layer's BN affine and ReLU ride the conv's input read and
 // this layer's BN statistics its output write, so neither makes a pass of
-// its own over device memory. Here the conv is the implicit GEMM of
-// csrc/conv.cu on the shared core (tiled_gemm.cuh) with a new A loader:
-// ConvA plus the prologue, applied to each in-image element as it is
-// gathered. Taps outside the image stay exactly 0 -- the halo mask of
+// its own over device memory. Here the conv is the implicit GEMM of the
+// conv on the split-TF32 tensor-core core (tc_gemm.cuh, K-major A) with the
+// loader FusedConvTcA, whose prologue each thread applies in shared memory
+// to the elements it copied once they land (cp.async cannot transform them
+// on the way). Taps outside the image stay exactly 0 -- the halo mask of
 // fused_conv.py:68-75: relu(shift) must never enter the padding. The window
 // origin is the explicit padding (pad_top, pad_left), so the reference's
 // centred windows (ops/padding.py) and any explicit padding take one path,
@@ -20,13 +21,13 @@
 // window, and is not carried over.
 //
 // Statistics without a sequential grid: the TPU kernel carries [sum y,
-// sum y^2] in VMEM across its image-batch grid axis. Here each 64-row M
+// sum y^2] in VMEM across its image-batch grid axis. Here each 128-row M
 // tile writes its per-channel partials to a workspace (m_tiles, 2, Cout) in
-// the GEMM epilogue (tiled_gemm.cuh kStats), and a second kernel adds them
+// the GEMM epilogue (tc_gemm.cuh kStats), and a second kernel adds them
 // per channel in double, in a fixed order. When the GEMM splits K (small M,
-// build.split_k), its tiles hold partials, so the statistics are taken from
-// the summed y instead: a column pass over y writes the same workspace. No
-// atomics, so a run repeats exactly.
+// build.tc_split), its tiles hold partials, so the statistics are taken
+// from the summed y instead: a column pass over y writes the same
+// workspace. No atomics, so a run repeats exactly.
 //
 // K9 replaces ::_join_kernel (public function fused_join):
 //   out = clip(relu(e * se[c] + te[c] + r * sr[c] + tr[c])),
@@ -35,12 +36,12 @@
 // by step as the plain PyTorch version is.
 //
 // Bound on the H100: K8 is compute-bound like the plain conv (2 * k*k*Cin
-// FLOPs per output element, 147 to 4608 deep in ResNet-50) and runs on the
-// fp32 FMA units from shared-memory tiles; the prologue adds 2 FLOPs per
-// gathered element and the statistics 2 per output, both under 2% of the
-// GEMM. K9 is bound by device memory (8 bytes read, 4 written per element).
-// wgmma/TMA tiling, tensor cores and folding K9 into the expand conv's
-// epilogue are later work.
+// FLOPs per output element, 576 to 9,216 deep in ResNet-50's fused convs),
+// done as three TF32 products per fp32 product on the tensor cores
+// (tc_gemm.cuh); the prologue adds 2 FLOPs per gathered element and the
+// statistics 2 per output, both under 2% of the GEMM. K9 is bound by device
+// memory (8 bytes read, 4 written per element). wgmma/TMA tiling and
+// folding K9 into the expand conv's epilogue are later work.
 //
 // The device code of both lives in fused_conv.cuh, shared with K10
 // (csrc/block_fused.cu); this file holds their entry points.
@@ -51,7 +52,7 @@
 // Cin) with w (k, k, Cin, Cout): window (oy, ox) starts at input row
 // stride * oy - pad_top, column stride * ox - pad_left. With prologue, scale
 // and shift hold Cin floats; without, they are not read. part holds
-// m_tiles * 2 * Cout floats (m_tiles = ceil(N * Ho * Wo / 64)); ws holds
+// m_tiles * 2 * Cout floats (m_tiles = ceil(N * Ho * Wo / 128)); ws holds
 // splits * N * Ho * Wo * Cout floats when splits > 1. The caller checks
 // shapes, dtype and contiguity.
 extern "C" int rt_fused_conv_f32(const float* x, const float* w, const float* scale,
@@ -60,7 +61,7 @@ extern "C" int rt_fused_conv_f32(const float* x, const float* w, const float* sc
                                  int pad_top, int pad_left, int Ho, int Wo, int prologue,
                                  int relu, int has_cap, float cap, float* ws, int splits,
                                  void* stream) {
-  const FusedConvA a = conv_loader(x, scale, shift, N, H, W, Cin, k, stride, pad_top, pad_left,
+  const FusedConvTcA a = conv_loader(x, scale, shift, N, H, W, Cin, k, stride, pad_top, pad_left,
                                    Ho, Wo, prologue != 0, Act{relu != 0, has_cap != 0, cap});
   return fused_conv_stats(a, w, y, part, sums, Cout, ws, splits, (cudaStream_t)stream);
 }

@@ -2,24 +2,36 @@
 // csrc/fused_conv.cu (their entry points) and csrc/block_fused.cu (K10, whose
 // stages 0-2 are K8 and stage 3 is K9 with an identity residual).
 //
-// The fused conv is the implicit GEMM of csrc/conv.cu on the shared core
-// (tiled_gemm.cuh) with the A loader FusedConvA: the previous layer's BN
-// affine and ReLU (the prologue) applied to each in-image element as it is
-// gathered, taps outside the image exactly 0 (relu(shift) must never enter
-// the padding). Its statistics [sum y, sum y^2] per output channel come from
-// the GEMM epilogue's per-tile partials (tiled_gemm.cuh kStats) or, when the
-// GEMM splits K and its tiles hold partials, from a column pass over the
-// summed y into the same workspace; a second kernel adds the tiles per
-// channel in double, in a fixed order. No atomics, so a run repeats exactly.
+// The fused conv is the implicit GEMM of the conv on the split-TF32
+// tensor-core core (tc_gemm.cuh, K-major A) with the loader FusedConvTcA:
+// row (n, oy, ox) decoded once per copying thread, a (di, dj, ci) cursor
+// walked by 32 columns with carries (one tap per K-step where Cin % 32 ==
+// 0), 16-byte copies of four channels where Cin and Cout are multiples of 4
+// and x and w 16-byte aligned, 4-byte copies otherwise. The prologue (the
+// previous layer's BN affine and ReLU) cannot ride cp.async, so each thread
+// rewrites the elements it copied once the slice has landed, before the
+// fragment reads: act(__fadd_rn(__fmul_rn(v, scale[ci]), shift[ci])),
+// rounded step by step as the plain version is, then the TF32 split. It
+// rewrites only the elements the copy read: a tap outside the image is
+// zero-filled and stays exactly 0 (relu(shift) must never enter the
+// padding). Its statistics [sum y, sum y^2] per output channel come from the
+// GEMM epilogue's per-tile partials (tc_gemm.cuh kStats, one BM = 128-row
+// tile each) or, when the GEMM splits K and its tiles hold partials, from a
+// column pass over the summed y into the same workspace, one 128-row tile
+// per entry too; a second kernel adds the tiles per channel in double, in a
+// fixed order. No atomics, so a run repeats exactly.
 //
 // The join is one elementwise pass (float4 where every pointer is 16-byte
 // aligned, a scalar loop for the remainder or the whole range otherwise),
 // each product and sum rounded on its own as the plain PyTorch version
 // rounds it.
+//
+// Measured (-Xptxas -v, nvcc 12.9, sm_90a): fused_conv_tc128_kernel and
+// fused_conv_tc64_kernel in PERF.md.
 #pragma once
 
 #include "rowwise.cuh"
-#include "tiled_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -29,54 +41,81 @@ using rt::ChannelWalk;
 constexpr int CT = 32;  // channels per block of the statistics passes
 constexpr int RT = 8;   // row lanes per block of the column pass
 constexpr int FL = 32;  // tile lanes per block of the final sum
+constexpr int TILE_M = rt::tc::BM;  // rows of one statistics tile
 
-// A of the forward conv through im2col, the prologue applied in the gather;
-// neighbouring threads on neighbouring ci
-struct FusedConvA {
-  static constexpr bool kMFast = false;
+// A of the forward conv through im2col for tc_gemm.cuh (K-major): row
+// (n, oy, ox), column (di, dj, ci) = x[n, s*oy - pad_top + di,
+// s*ox - pad_left + dj, ci], 0 outside the image; with the prologue
+// applied to each element read
+struct FusedConvTcA {
+  static constexpr bool kKMajor = true;
+  static constexpr bool kPrologue = true;
   const float* __restrict__ x;
   const float* __restrict__ scale;
   const float* __restrict__ shift;
-  int H, W, Cin, k;
+  int H, W, Cin, ksize;
   int HoWo, Wo, stride, pad_top, pad_left;
   bool prologue;
   Act act;
   int64_t M;
-  int64_t img[rt::A_PER_THREAD];
-  int iy0[rt::A_PER_THREAD], ix0[rt::A_PER_THREAD];
-  bool row_ok[rt::A_PER_THREAD];
-  int di, dj, ci;
-  float sc, sh;  // the prologue's affine for channel ci
 
-  __device__ void set_row(int r, int64_t m) {
-    row_ok[r] = m < M;
-    const int64_t mm = row_ok[r] ? m : 0;
+  // the window's top-left input pixel and x's offset there
+  struct Row {
+    long long off;
+    int iy, ix;
+    bool ok;
+  };
+  struct Cursor {
+    int di, dj, ci;
+  };
+
+  __device__ Row row(int64_t m) const {
+    Row r;
+    r.ok = m < M;
+    const int64_t mm = r.ok ? m : 0;
     const int64_t n = mm / HoWo;
     const int rem = (int)(mm - n * HoWo);
     const int oy = rem / Wo;
-    const int ox = rem - oy * Wo;
-    img[r] = n * H * W * Cin;
-    iy0[r] = stride * oy - pad_top;
-    ix0[r] = stride * ox - pad_left;
+    r.iy = stride * oy - pad_top;
+    r.ix = stride * (rem - oy * Wo) - pad_left;
+    r.off = ((n * H + r.iy) * W + r.ix) * Cin;
+    return r;
   }
 
-  __device__ void set_k(int64_t kk) {
-    const int tap = (int)(kk / Cin);
-    ci = (int)(kk - (int64_t)tap * Cin);
-    di = tap / k;
-    dj = tap - di * k;
-    if (prologue) {
-      sc = scale[ci];
-      sh = shift[ci];
+  __device__ Cursor cursor(int64_t k) const {
+    Cursor c;
+    const int tap = (int)(k / Cin);
+    c.ci = (int)(k - (int64_t)tap * Cin);
+    c.di = tap / ksize;
+    c.dj = tap - c.di * ksize;
+    return c;
+  }
+
+  __device__ void advance(Cursor& c) const {
+    c.ci += rt::tc::BK;
+    while (c.ci >= Cin) {
+      c.ci -= Cin;
+      if (++c.dj == ksize) {
+        c.dj = 0;
+        ++c.di;
+      }
     }
   }
 
-  __device__ float load(int r) const {
-    const int iy = iy0[r] + di;
-    const int ix = ix0[r] + dj;
-    if (!row_ok[r] || iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.f;  // the halo
-    const float v = x[img[r] + ((int64_t)iy * W + ix) * Cin + ci];
-    return prologue ? act(__fadd_rn(__fmul_rn(v, sc), sh)) : v;
+  __device__ bool in(const Row& r, const Cursor& c) const {
+    const int iy = r.iy + c.di;
+    const int ix = r.ix + c.dj;
+    return r.ok && iy >= 0 && iy < H && ix >= 0 && ix < W;  // else the halo
+  }
+
+  __device__ const float* at(const Row& r, const Cursor& c) const {
+    return x + r.off + ((long long)c.di * W + c.dj) * Cin + c.ci;
+  }
+
+  // the prologue of the element read at channel c.ci + j
+  __device__ float apply(float v, const Cursor& c, int j) const {
+    const int ch = c.ci + j;
+    return act(__fadd_rn(__fmul_rn(v, __ldg(scale + ch)), __ldg(shift + ch)));
   }
 
   __device__ int64_t out_row(int64_t m) const { return m; }
@@ -86,17 +125,17 @@ struct FusedConvA {
 // origin is (pad_top, pad_left) above and left of the input, output (Ho, Wo);
 // with prologue, scale and shift hold Cin floats (the device may still be
 // writing them: they are read only by the kernel)
-inline FusedConvA conv_loader(const float* x, const float* scale, const float* shift, int N,
-                              int H, int W, int Cin, int k, int stride, int pad_top,
-                              int pad_left, int Ho, int Wo, bool prologue, Act act) {
-  FusedConvA a;
+inline FusedConvTcA conv_loader(const float* x, const float* scale, const float* shift, int N,
+                                int H, int W, int Cin, int k, int stride, int pad_top,
+                                int pad_left, int Ho, int Wo, bool prologue, Act act) {
+  FusedConvTcA a;
   a.x = x;
   a.scale = scale;
   a.shift = shift;
   a.H = H;
   a.W = W;
   a.Cin = Cin;
-  a.k = k;
+  a.ksize = k;
   a.Wo = Wo;
   a.HoWo = Ho * Wo;
   a.stride = stride;
@@ -108,22 +147,33 @@ inline FusedConvA conv_loader(const float* x, const float* scale, const float* s
   return a;
 }
 
-__global__ void __launch_bounds__(rt::THREADS)
-fused_conv_nhwc_f32_kernel(const FusedConvA geometry, const float* __restrict__ w,
-                           float* __restrict__ y, int Cout, int64_t k_chunk,
-                           float* __restrict__ tile_sums) {
-  FusedConvA a = geometry;  // the loader's per-thread state lives in registers
-  rt::tiled_gemm<false, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.k * a.k * a.Cin, k_chunk,
-                              tile_sums);
+// as conv.cu's tc kernels: the 128 x 64 tile capped at 128 registers, two
+// blocks per SM; the 128 x 128 tile one block
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS, 2)
+fused_conv_tc64_kernel(const FusedConvTcA a, const float* __restrict__ w,
+                       float* __restrict__ y, int Cout, int64_t k_chunk,
+                       float* __restrict__ tile_sums) {
+  rt::tc::gemm_k<64, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                k_chunk, tile_sums);
 }
 
-// Split-K case: per 64-row tile of y (M, C), the column sums and sums of
-// squares, into the same workspace layout as the GEMM epilogue's
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS)
+fused_conv_tc128_kernel(const FusedConvTcA a, const float* __restrict__ w,
+                        float* __restrict__ y, int Cout, int64_t k_chunk,
+                        float* __restrict__ tile_sums) {
+  rt::tc::gemm_k<128, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                 k_chunk, tile_sums);
+}
+
+// Split-K case: per TILE_M-row tile of y (M, C), the column sums and sums
+// of squares, into the same workspace layout as the GEMM epilogue's
 __global__ void __launch_bounds__(CT * RT)
 column_partials(const float* __restrict__ y, float* __restrict__ part, int64_t M, int C) {
   const int c = blockIdx.x * CT + threadIdx.x;
-  const int64_t r0 = (int64_t)blockIdx.y * rt::BM;
-  const int64_t r1 = M < r0 + rt::BM ? M : r0 + rt::BM;
+  const int64_t r0 = (int64_t)blockIdx.y * TILE_M;
+  const int64_t r1 = M < r0 + TILE_M ? M : r0 + TILE_M;
   float s = 0.f, s2 = 0.f;
   if (c < C) {
     for (int64_t r = r0 + threadIdx.y; r < r1; r += RT) {
@@ -175,19 +225,33 @@ tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
   }
 }
 
+template <int BN, int VEC>
+inline int launch_fused_gemm(const FusedConvTcA& a, const float* w, float* y, float* part,
+                             int Cout, float* ws, int splits, cudaStream_t s) {
+  auto* kernel = fused_conv_tc128_kernel<VEC>;
+  if constexpr (BN == 64) kernel = fused_conv_tc64_kernel<VEC>;
+  return rt::tc::launch<BN, FusedConvTcA>(
+      kernel,
+      [&](dim3 grid, int smem, float* out, int64_t kc) {
+        kernel<<<grid, rt::tc::THREADS, smem, s>>>(a, w, out, Cout, kc,
+                                                   splits == 1 ? part : nullptr);
+      },
+      y, ws, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin, splits, s);
+}
+
 // y (M, Cout) and its sums (2, Cout) of the conv gathered by `a` with w
 // (k * k * Cin, Cout): the GEMM, then the statistics. part holds m_tiles * 2
-// * Cout floats (m_tiles = ceil(M / 64)); ws holds splits * M * Cout floats
-// when splits > 1. Enqueued on s; returns the launch status.
-inline int fused_conv_stats(const FusedConvA& a, const float* w, float* y, float* part,
+// * Cout floats (m_tiles = ceil(M / TILE_M)); ws holds splits * M * Cout
+// floats when splits > 1. Tiles 128 x 64 where Cout <= 64, else 128 x 128
+// (build.py tc_tile_n). Enqueued on s; returns the launch status.
+inline int fused_conv_stats(const FusedConvTcA& a, const float* w, float* y, float* part,
                             float* sums, int Cout, float* ws, int splits, cudaStream_t s) {
-  const int64_t m_tiles = (a.M + rt::BM - 1) / rt::BM;
-  const int status = rt::launch_gemm(
-      [&](dim3 grid, float* out, int64_t kc) {
-        fused_conv_nhwc_f32_kernel<<<grid, rt::THREADS, 0, s>>>(a, w, out, Cout, kc,
-                                                                splits == 1 ? part : nullptr);
-      },
-      y, ws, a.M, Cout, (int64_t)a.k * a.k * a.Cin, splits, s);
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  const bool vec = a.Cin % 4 == 0 && Cout % 4 == 0 && (uintptr_t)a.x % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
+  auto* gemm = Cout <= 64 ? (vec ? launch_fused_gemm<64, 4> : launch_fused_gemm<64, 1>)
+                          : (vec ? launch_fused_gemm<128, 4> : launch_fused_gemm<128, 1>);
+  const int status = gemm(a, w, y, part, Cout, ws, splits, s);
   if (status != 0) return status;
   const unsigned ct = (unsigned)((Cout + CT - 1) / CT);
   if (splits > 1)

@@ -58,7 +58,6 @@ struct RowMajorA {
   }
   __device__ void set_k(int64_t kk) { col = kk; }
   __device__ float load(int r) const { return row_ok[r] ? a[row[r] + col] : 0.f; }
-  __device__ int64_t out_row(int64_t gm) const { return gm; }
 };
 
 // A(m, k) = a[k, m] for a row-major (K, M) matrix
@@ -74,7 +73,6 @@ struct TransposedA {
     m = mm;
   }
   __device__ float load(int64_t kk) const { return row_ok ? a[kk * M + m] : 0.f; }
-  __device__ int64_t out_row(int64_t gm) const { return gm; }
 };
 
 template <bool B_T>

@@ -8,8 +8,8 @@
 // padded in device memory.
 //
 // A is read through a loader, so one tile loop serves a plain row-major
-// matrix, its transpose, and the implicit im2col views of the conv and its
-// two gradients. A loader says which thread mapping suits its memory order:
+// matrix, its transpose, and the implicit im2col view of the conv forward.
+// A loader says which thread mapping suits its memory order:
 //
 //   kMFast = false: neighbouring threads take neighbouring k (a row-major A,
 //     an NHWC activation along its channels). Each thread loads A_PER_THREAD
@@ -23,9 +23,6 @@
 //       set_row(m)     the thread's global row (m may be >= M);
 //       load(k)        A(row, k) for k < K, or 0 outside the matrix.
 //
-// Every loader also maps a GEMM row to the row of C it is stored in,
-// out_row(m); the identity for all but the phase-split conv dx.
-//
 // B is row-major (K, N) with leading dimension ldb, or with B_T its
 // transpose stored row-major as (N, K); the B_T load puts neighbouring
 // threads on neighbouring k, so both read coalesced.
@@ -34,21 +31,13 @@
 // With one split the block writes C; with several, split z writes its fp32
 // partial tile to C + z*M*N (a workspace the wrapper allocates) and
 // splitk_sum adds the partials in split order. No atomics, so a run repeats
-// exactly. The FC's backward and the deep dx and fused-conv GEMMs need it
-// where M*N makes fewer tiles than the card has SMs.
+// exactly. The FC's backward and the deep conv forwards need it where M*N
+// makes fewer tiles than the card has SMs.
 //
-// Column statistics (kStats, the fused conv's epilogue): after storing its
-// tile, a block of a single-split GEMM also writes the per-column sum and
-// sum of squares of the values it stored, over its own rows, to
-// tile_sums[(blockIdx.x * 2 + {0, 1}) * N + col]. Each thread adds its TM
-// rows, then one thread per column adds the BM / TM thread rows in order
-// (through the A and B tiles' shared memory, free after the K loop), so a
-// run repeats exactly. A null tile_sums skips it (the split-K launches,
-// whose tiles hold partials).
-//
-// Plain FMA units, fp32 throughout. Conv dW runs on the split-TF32
-// tensor-core core, tc_gemm.cuh, whose loaders are meant to carry these
-// GEMMs too.
+// Plain FMA units, fp32 throughout: the conv forward and the FC (its
+// backward, and its forward above 32 rows). Conv dW and dx and the fused
+// conv run on the split-TF32 tensor-core core, tc_gemm.cuh, whose K-major
+// loaders are meant to carry the conv forward too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,16 +62,14 @@ static_assert(A_PER_THREAD * A_ROW_STEP == BM, "A slice tiling");
 static_assert(A_PER_THREAD * A_K_STEP == BK, "A slice tiling (m-fast)");
 static_assert(B_PER_THREAD * B_ROW_STEP == BK, "B slice tiling");
 static_assert(B_PER_THREAD * B_COL_STEP == BN, "B slice tiling (transposed)");
-static_assert(BK >= BM / TM, "column statistics stage one row per thread row");
 
 // blockIdx.x walks M (up to 2^31 - 1 tiles), blockIdx.y walks N, blockIdx.z
 // the K splits.
-template <bool B_T, bool kStats = false, class ALoader>
+template <bool B_T, class ALoader>
 __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__ B,
                                            int64_t ldb, float* __restrict__ C,
                                            int64_t M, int N, int64_t K,
-                                           int64_t k_chunk,
-                                           float* __restrict__ tile_sums = nullptr) {
+                                           int64_t k_chunk) {
   __shared__ float As[BK][BM + 4];
   __shared__ float Bs[BK][BN + 4];
 
@@ -169,34 +156,7 @@ __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gc = col0 + tx * TN + j;
-      if (gc < N) C[a.out_row(gm) * N + gc] = acc[i][j];
-    }
-  }
-
-  if constexpr (kStats) {
-    if (tile_sums == nullptr) return;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      float s = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        if (row0 + ty * TM + i < M) {
-          s += acc[i][j];
-          s2 += acc[i][j] * acc[i][j];
-        }
-      }
-      As[ty][tx * TN + j] = s;
-      Bs[ty][tx * TN + j] = s2;
-    }
-    __syncthreads();
-    if (tid < 2 * BN) {
-      const int col = tid % BN;
-      const int which = tid / BN;
-      float t = 0.f;
-#pragma unroll
-      for (int r = 0; r < BM / TM; ++r) t += which ? Bs[r][col] : As[r][col];
-      if (col0 + col < N)
-        tile_sums[((int64_t)blockIdx.x * 2 + which) * N + col0 + col] = t;
+      if (gc < N) C[gm * N + gc] = acc[i][j];
     }
   }
 }

@@ -7,7 +7,8 @@ previous layer's BN affine, the prologue; the zero padding stays 0 after
 it) and sums = [Σy, Σy²] per output channel (this layer's BN statistics,
 the epilogue). With ``prologue=False`` u is x and scale/shift are ignored
 ((1,) placeholders do). It is a ``torch.autograd.Function``. On CUDA
-tensors its forward launches K8, ``rt_fused_conv_f32`` (``csrc/fused_conv.cu``);
+tensors its forward launches K8, ``rt_fused_conv_f32`` (``csrc/fused_conv.cu``,
+the split-TF32 tensor-core GEMM of ``csrc/tc_gemm.cuh``);
 on CPU tensors the plain version ``fused_conv_reference`` runs. Its
 backward follows ``_fused_conv_bwd`` (fused_conv.py:402-422): recompute u
 from x (not stored: the engine's memory trade), fold the sums' cotangents
@@ -15,11 +16,11 @@ into dy, take du and dW from the plain conv's VJP, then the prologue's
 backward in torch ops. The JAX package takes those gradient convs from
 ``lax.conv`` outside any Pallas kernel; here they are
 ``aten.convolution_backward``, the VJP autograd runs for ``F.conv2d``
-(cuDNN on the card), called without recomputing the forward conv. They
-follow ``torch.backends.cudnn.allow_tf32`` like every plain conv of the
-port, so with TF32 off (``matmul_precision='highest'``) they run in fp32;
-the JAX package's Pallas backward drops its precision there
-(fused_conv.py:419-422), which the port does not copy.
+(cuDNN on the card), called without recomputing the forward conv. Like
+every plain conv of the port they run at the config's ``matmul_precision``
+(the training step's backward is inside ``ops.precision.precision_scope``),
+so under 'highest' in fp32; the JAX package's Pallas backward drops its
+precision there (fused_conv.py:419-422), which the port does not copy.
 
 ``conv_chain`` is the same contract in torch ops with the closed-form
 backward over the saved u (``conv_chain_xla``, fused_conv.py:431-499): the
@@ -49,7 +50,7 @@ from . import bn, build
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
 JOIN_LAUNCHES = 0
-_MAX_N_TILES = 65535  # gridDim.y of the GEMM walks the 64-wide column tiles
+_MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 _NHWC_AXES = (0, 1, 2)
@@ -160,14 +161,15 @@ def _forward(x, w, scale, shift, stride, padding, prologue, relu, cap):
     ho, wo = _out_dim(h, ph, k, stride), _out_dim(wd, pw, k, stride)
     if ho <= 0 or wo <= 0 or n == 0 or cin == 0 or cout == 0:
         raise ValueError(f"fused_conv: empty conv x {tuple(x.shape)}, w {tuple(w.shape)}")
-    if -(-cout // build.GEMM_TILE) > _MAX_N_TILES or k * k * cin >= 2**31:
+    if -(-cout // build.tc_tile_n(cout)) > _MAX_N_TILES or k * k * cin >= 2**31:
         raise ValueError(f"fused_conv: Cout={cout}, k*k*Cin beyond the kernel's grid")
     m = n * ho * wo
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    part = torch.empty((-(-m // build.GEMM_TILE), 2, cout), dtype=torch.float32,
+    # the statistics' partials, one row pair per TC_BM-row tile of y
+    part = torch.empty((-(-m // build.TC_BM), 2, cout), dtype=torch.float32,
                        device=x.device)
-    splits = build.split_k(m, cout, k * k * cin)
+    splits = build.tc_split(m, cout, k * k * cin)
     ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
     build.launch("rt_fused_conv_f32", x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                  shift.data_ptr(), y.data_ptr(), part.data_ptr(), sums.data_ptr(), n, h,

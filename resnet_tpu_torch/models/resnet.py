@@ -43,6 +43,7 @@ from ..config import (
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.conv import conv2d
 from ..ops.dispatch import bn_act, conv as _dispatch_conv, fc, residual_join
+from ..ops.precision import precision_scope
 
 
 def _conv(x, w, *, stride, ecfg, groups=1):
@@ -161,8 +162,15 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the network on NHWC images. Returns (fp32 logits, aux) with
     aux["bn_stats"] the per-layer (mean, var) the forward normalized with,
-    detached (in training with bn_mode='batch', the batch statistics)."""
+    detached (in training with bn_mode='batch', the batch statistics).
+    The plain convs and the FC run at ``ecfg.matmul_precision``
+    (``ops.precision.precision_scope``)."""
     ecfg = ecfg or ExecutionConfig()
+    with precision_scope(ecfg):
+        return _forward(params, x, mcfg, ecfg, train, bn_state)
+
+
+def _forward(params, x, mcfg, ecfg, train, bn_state):
     if train and ecfg.remat != "none":
         raise not_ported(f"ExecutionConfig.remat={ecfg.remat!r}", ROADMAP_REMAT)
     if train and ecfg.bn_stats_batch > 0:

@@ -3,9 +3,11 @@
 The counterpart of resnet_tpu.ops.conv.conv2d: explicit, possibly negative
 (lo, hi) padding from ``reference_padding``, then ``F.conv2d`` with
 ``padding=0`` on a permuted view (an NHWC tensor viewed as NCHW is
-channels_last, so no copy is made). On the card this is cuDNN; fp32 there
-follows ``torch.backends.cudnn.allow_tf32``, which must be off to compare
-with the hand kernel or the JAX package.
+channels_last, so no copy is made). On the card this is cuDNN, whose fp32
+follows ``torch.backends.cudnn.allow_tf32``: the model's entry points set it
+from ``ExecutionConfig.matmul_precision`` (``ops.precision``; off under the
+default 'highest'), and a check that calls this function directly turns it
+off itself (``kernels.checks.fp32_strict``).
 """
 
 from __future__ import annotations

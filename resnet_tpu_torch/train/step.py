@@ -27,6 +27,7 @@ from ..bridge import flatten, leaves, tree_map, unflatten
 from ..config import TrainConfig
 from ..models import forward
 from ..ops import cross_entropy, top1_accuracy, topk_accuracy, update_running_stats
+from ..ops.precision import precision_scope
 from ..optim import adam_update, adam_update_fused, make_schedule, sgd_update
 from .state import TrainState
 
@@ -43,10 +44,12 @@ def _on(batch, device) -> Dict[str, torch.Tensor]:
 
 def loss_and_grads(params, batch, bn_state, cfg: TrainConfig):
     """(summed CE, logits, aux, gradient tree) of one forward and backward
-    in training mode. The returned tensors hold no graph."""
+    in training mode. The returned tensors hold no graph. The backward runs
+    inside the config's precision scope too: JAX's precision covers the
+    VJP's convs."""
     pairs = flatten(params)
     leaves_ = [p.detach().requires_grad_(True) for _, p in pairs]
-    with torch.enable_grad():
+    with torch.enable_grad(), precision_scope(cfg.execution):
         logits, aux = forward(unflatten((path, t) for (path, _), t in zip(pairs, leaves_)),
                               batch["images"], cfg.model, cfg.execution, train=True,
                               bn_state=bn_state)
@@ -138,6 +141,11 @@ def _accum_grads(state: TrainState, batch, cfg: TrainConfig):
 def train_step(state: TrainState, batch, cfg: TrainConfig):
     """(state, batch) -> (new_state, metrics); batch holds NHWC "images" and
     integer "labels" as tensors or numpy arrays."""
+    with precision_scope(cfg.execution):
+        return _train_step(state, batch, cfg)
+
+
+def _train_step(state: TrainState, batch, cfg: TrainConfig):
     batch = _on(batch, state.step.device)
     if cfg.execution.grad_accum > 1:
         loss_sum, n_correct, grads, new_bn = _accum_grads(state, batch, cfg)
@@ -171,7 +179,7 @@ def train_step(state: TrainState, batch, cfg: TrainConfig):
 def eval_step(state: TrainState, batch, cfg: TrainConfig) -> Dict[str, Any]:
     """Eval-mode forward (running statistics): mean loss, top-1 and top-5."""
     batch = _on(batch, state.step.device)
-    with torch.no_grad():
+    with torch.no_grad(), precision_scope(cfg.execution):
         logits, _ = forward(state.params, batch["images"], cfg.model, cfg.execution,
                             train=False, bn_state=state.bn_state)
         return {

@@ -5,7 +5,8 @@ one test per kernel and shape, so each can be rerun alone on a GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
-and the redesigned dW and FC kernels alone with ``-k "dw or matmul"``.
+and the kernels on the tensor-core GEMM core alone with
+``-k "dw or dx or fused_conv or block_fused"``.
 
 Without a CUDA device every test here skips.
 """
@@ -33,8 +34,9 @@ def test_kernel_matches_plain(cuda, name, case):
     before = getattr(mod, counter)
     r = checks.check_case(name, case, timing=False)
     assert r["rel_err"] <= checks.REL_TOL
-    # the kernel ran, not the plain version
-    assert getattr(mod, counter) == before + per_call
+    # the kernel ran, not the plain version (twice for a repeated GEMM)
+    runs = 2 if name in checks.REPEAT_KERNELS else 1
+    assert getattr(mod, counter) == before + runs * per_call
 
 
 DW_REPEAT = [c for c in checks.TRAIN_DW_CASES
@@ -54,6 +56,88 @@ def test_conv2d_dw_repeats_bit_for_bit(cuda, case):
     g = torch.randn(n, h // s, h // s, cout, generator=gen, device="cuda")
     first = conv.conv2d_dw(x, g, k, s)
     assert torch.equal(first, conv.conv2d_dw(x, g, k, s))
+
+
+DX_REPEAT = [c for c in checks.TRAIN_DX_CASES
+             if c[0].startswith(("proj", "split K", "ragged"))]
+
+
+@pytest.mark.parametrize("case", DX_REPEAT, ids=[c[0] for c in DX_REPEAT])
+def test_conv2d_dx_repeats_bit_for_bit(cuda, case):
+    """dx on tc_gemm.cuh: the strided phases, a K split (5 splits) through
+    the workspace in split order, and the 4-byte copies give the same bits
+    on a second run."""
+    from resnet_tpu_torch.kernels import conv
+
+    _, n, h, cin, cout, k, s = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(n, h // s, h // s, cout, generator=gen, device="cuda")
+    w = torch.randn(k, k, cin, cout, generator=gen, device="cuda")
+    first = conv.conv2d_dx(g, w, (n, h, h, cin), s)
+    assert torch.equal(first, conv.conv2d_dx(g, w, (n, h, h, cin), s))
+
+
+FUSED_REPEAT = [c for c in checks.FUSED_CONV_CASES
+                if c[0].startswith(("reduce", "proj", "ragged"))]
+
+
+@pytest.mark.parametrize("case", FUSED_REPEAT, ids=[c[0] for c in FUSED_REPEAT])
+def test_fused_conv_repeats_bit_for_bit(cuda, case):
+    """K8 on tc_gemm.cuh: y and its sums (the epilogue's per-tile partials,
+    or the column pass over a split-K y, added in double in a fixed order)
+    give the same bits on a second run."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    _, n, h, cin, cout, k, s, prologue, cap = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda")
+    w = torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.1
+    scale = 1 + 0.2 * torch.randn(cin, generator=gen, device="cuda")
+    shift = 0.5 * torch.randn(cin, generator=gen, device="cuda")
+    y, sums = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
+    y2, sums2 = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
+    assert torch.equal(y, y2) and torch.equal(sums, sums2)
+
+
+def test_fused_conv_halo_is_exact_against_plain(cuda):
+    """K8's halo case: a 3x3 prologue whose shift makes act(shift) = shift
+    > 0 on every channel, on integer values that any order of summation
+    keeps exact: y and both sums equal the plain version's bit for bit, so
+    no tap outside the image became act(shift)."""
+    case = next(c for c in checks.FUSED_CONV_CASES if c[0].startswith("halo"))
+    r = checks.check_case("fused_conv", case, timing=False)
+    assert r["max_abs_err"] == 0.0
+
+
+def test_default_config_runs_plain_convs_in_fp32(monkeypatch):
+    """matmul_precision on the card: under the default config ('highest'),
+    with the flags as torch ships them (cuDNN's TF32 on) and no
+    fp32_strict(), every plain conv inside ``forward`` sees both TF32 flags
+    off, and the caller's flags are back after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.nn.functional as F
+
+    from resnet_tpu_torch.config import ExecutionConfig, tiny_model_config
+    from resnet_tpu_torch.models import forward, init_params
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    seen, conv2d = [], F.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", recording_conv2d)
+    mcfg = tiny_model_config()
+    params = init_params(torch.Generator().manual_seed(0), mcfg, device="cuda")
+    x = torch.randn(2, mcfg.input_dim, mcfg.input_dim, 3, device="cuda")
+    logits, _ = forward(params, x, mcfg, ExecutionConfig(), train=True)
+    torch.cuda.synchronize()
+    assert logits.is_cuda and seen and all(flags == (False, False) for flags in seen)
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (
+        True, True)
 
 
 def test_backward_on_cuda_moves_the_backward_counters(cuda):

@@ -129,6 +129,10 @@ def test_sources_and_signatures_agree():
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
     assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
+    # the planners' and the statistics workspaces' view of the tc core
+    tc = (build.CSRC / "tc_gemm.cuh").read_text()
+    for name, value in (("BM", build.TC_BM), ("BK", build.TC_BK), ("STAGES", build.TC_STAGES)):
+        assert f"constexpr int {name} = {value};" in tc, name
 
 
 # --- backward passes and the training kernels, against the JAX VJPs ---
@@ -345,8 +349,8 @@ def test_dw_split_covers_every_pixel_once(m, n, k, want):
     limits, each split 512 pixels deep or more (as far as the shapes
     allow), no count in range that finishes in fewer waves x steps, and
     nothing but the shapes decides it."""
-    splits = build.dw_split(m, n, k)
-    assert splits == want == build.dw_split(m, n, k)
+    splits = build.tc_split(m, n, k)
+    assert splits == want == build.tc_split(m, n, k)
     chunk, ranges = _chunks(k, splits, build.TC_BK)
     assert chunk % build.TC_BK == 0
     _assert_covers(k, ranges)
@@ -406,14 +410,23 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     assert _tf32(x).tolist() == want
 
 
-def test_split_tf32_meets_the_fp32_contract_at_dw_depth(rng):
-    """The numerical ground of tc_gemm.cuh: at the projection dW's depth
-    (K = 25,088 pixels, a 32 x 32 output), the split a_lo*b_hi + a_hi*b_lo +
+# the deepest GEMM of each tc_gemm.cuh user in ResNet-50's reference
+# topology: dW's projection (25,088 pixels at batch 32), dx's stage-4 3x3
+# (9 * 512) and its 3x3/s2 projection's deepest phase (2 x 2 taps * 2048),
+# and K8's stage-4 3x3/s2 projection (9 * 1024)
+SPLIT_DEPTHS = {"dw proj": 25088, "dx 3x3 512": 4608, "dx proj phase": 8192,
+                "fused conv proj": 9216}
+
+
+@pytest.mark.parametrize("depth", SPLIT_DEPTHS.values(), ids=SPLIT_DEPTHS.keys())
+def test_split_tf32_meets_the_fp32_contract_at_dw_depth(rng, depth):
+    """The numerical ground of tc_gemm.cuh: at the depth of each of its
+    users' deepest GEMM (a 32 x 32 output), the split a_lo*b_hi + a_hi*b_lo +
     a_hi*b_hi of tf32 values, summed in fp32 (a product of two tf32 values
     is exact in fp32), stays within 1e-5 of max|fp64|, as plain fp32 does;
     one TF32 pass misses the port's 1e-4 contract."""
-    a = torch.from_numpy(rng.normal(size=(32, 25088)).astype(np.float32))
-    b = torch.from_numpy(rng.normal(size=(25088, 32)).astype(np.float32))
+    a = torch.from_numpy(rng.normal(size=(32, depth)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(depth, 32)).astype(np.float32))
     exact = a.double() @ b.double()
     scale = exact.abs().max().item()
 
@@ -426,3 +439,125 @@ def test_split_tf32_meets_the_fp32_contract_at_dw_depth(rng):
     assert rel(split) <= 1e-5
     assert rel(a @ b) <= 1e-5
     assert rel(a_hi @ b_hi) > 1e-4
+
+
+# --- the K-major A tile of tc_gemm.cuh and the planner of its three users ---
+
+def _tc_source():
+    return (build.CSRC / "tc_gemm.cuh").read_text()
+
+
+def _constant(src, name):
+    import re
+
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _fragment_reads(src, kmajor):
+    """The A fragment's base expression and its four reads in mma_slice's
+    branch for one layout, as the source writes them."""
+    import re
+
+    body = src[src.index("void mma_slice("):]
+    body = body[:body.index("const float* br")]
+    kbranch, mbranch = body.split("} else {")
+    branch = kbranch if kmajor else mbranch
+    base = re.search(r"const float\* ar = as \+ (.+);", branch).group(1)
+    reads = re.findall(r"split_tf32\(ar\[(.+?)\], ah", branch)
+    assert len(reads) == 4
+    return base, reads
+
+
+@pytest.mark.parametrize("kmajor", [True, False], ids=["K-major", "M-fast"])
+def test_a_fragment_reads_hit_32_banks(kmajor):
+    """tc_gemm.cuh's A fragment reads, evaluated as its source writes them:
+    lane (gid, tig) of every m16 tile reads A(gid, tig), A(gid + 8, tig),
+    A(gid, tig + 4) and A(gid + 8, tig + 4) of the warp's rows and the
+    8-deep step (the m16n8k8 tf32 layout), and the 32 lanes of each of the
+    four loads hit 32 distinct banks. K-major slices are [BM][BK + KPAD],
+    M-fast ones [BK][BM + PAD]; the K-major row stride keeps 16-byte copies
+    of four columns aligned."""
+    src = _tc_source()
+    bm, bk = _constant(src, "BM"), _constant(src, "BK")
+    ld = bk + _constant(src, "KPAD") if kmajor else bm + _constant(src, "PAD")
+    if kmajor:
+        assert ld % 4 == 0 and (bm * ld) % 4 == 0
+    base, reads = _fragment_reads(src, kmajor)
+    want = [(0, 0), (8, 0), (0, 4), (8, 4)]  # (row, column) past (gid, tig)
+    for wm0 in (0, 32, 64):
+        for ks in range(0, bk, 8):
+            for i in range(2):
+                for read, (dm, dk) in zip(reads, want):
+                    banks = set()
+                    for lane in range(32):
+                        gid, tig = lane >> 2, lane & 3
+                        env = dict(wm0=wm0, ks=ks, gid=gid, tig=tig, i=i, LDK=ld, LDA=ld)
+                        addr = eval(base, env) + eval(read, env)
+                        m, k = divmod(addr, ld) if kmajor else divmod(addr, ld)[::-1]
+                        assert (m, k) == (wm0 + i * 16 + gid + dm, ks + tig + dk)
+                        banks.add(addr % 32)
+                    assert len(banks) == 32
+
+
+def _resnet50_convs():
+    """(k, Cin, Cout, stride, input H=W) of each block conv of ResNet-50 in
+    the reference topology at 224^2 (the fused engine's 52 convs)."""
+    from resnet_tpu_torch.config import model_config
+    from resnet_tpu_torch.models import init_params
+
+    mcfg = model_config("resnet50")
+    params = init_params(torch.Generator().manual_seed(0), mcfg, device="meta")
+    h = mcfg.input_dim // mcfg.init_stride // mcfg.maxpool_stride
+    convs = []
+    for i, bp in enumerate(params["blocks"]):
+        s = 2 if mcfg.is_reduction_block(i) else 1
+        for name, stride, size in (("reduce", 1, h), ("spatial", s, h),
+                                   ("expand", 1, h // s), ("proj", s, h)):
+            if name in bp:
+                k, _, cin, cout = bp[name]["w"].shape
+                convs.append((k, cin, cout, stride, size))
+        h //= s
+    assert len(convs) == 52
+    return convs
+
+
+def _tc_gemms(batch=32):
+    """(m, n, k) of the K-split GEMMs dx (stride 1; a strided dx does not
+    split) and K8 run for ResNet-50's block convs, without repeats."""
+    out = []
+    for k, cin, cout, s, h in _resnet50_convs():
+        if s == 1:
+            out.append(("dx", batch * h * h, cin, k * k * cout))
+        out.append(("fused conv", batch * (h // s) ** 2, cout, k * k * cin))
+    return sorted(set(out))
+
+
+TC_GEMMS = _tc_gemms()
+
+
+@pytest.mark.parametrize("what,m,n,k", TC_GEMMS, ids=[f"{w} {m}x{n}x{k}" for w, m, n, k in TC_GEMMS])
+def test_tc_split_covers_every_k_step_once(what, m, n, k):
+    """The planner of tc_gemm.cuh's users at ResNet-50's dx and fused-conv
+    GEMMs (batch 32): every K column in exactly one split, chunks of whole
+    32-deep K-steps, at most 256 splits, each at least 16 K-steps deep
+    unless the depth has fewer, no count in range finishing in fewer
+    waves x steps, and a function of the shapes only."""
+    splits = build.tc_split(m, n, k)
+    assert splits == build.tc_split(m, n, k)
+    chunk, ranges = _chunks(k, splits, build.TC_BK)
+    assert chunk % build.TC_BK == 0 and 1 <= splits <= 256
+    _assert_covers(k, ranges)
+    assert splits == 1 or chunk >= 16 * build.TC_BK
+    most = min(256, max(1, -(-k // (16 * build.TC_BK))))
+    cost = _waves_times_steps(m, n, k, splits)
+    assert all(_waves_times_steps(m, n, k, build._drop_empty(k, s, build.TC_BK)) >= cost
+               for s in range(1, most + 1))
+
+
+def test_tc_split_splits_the_stage_4_gemms():
+    """At 7^2 a batch-32 GEMM has 13 row tiles: the deep ones split K (the
+    dx of the 3x3 over 4,608 columns, K8's 3x3/s2 projection over 9,216),
+    the 56^2 ones (784 row tiles) do not."""
+    assert build.tc_split(32 * 49, 512, 4608) > 1
+    assert build.tc_split(32 * 49, 2048, 9216) > 1
+    assert build.tc_split(32 * 56 * 56, 64, 576) == 1
