@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels conv2d,matmul_bwd   (phases 1-3 only)
 
 Phases, each printing one JSON line:
   1. environment: torch, CUDA and nvcc versions, the card's name and power
@@ -10,11 +11,13 @@ Phases, each printing one JSON line:
   3. kernels: each CUDA kernel against its plain PyTorch version at the
      ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
      max|plain| (the fused conv's halo case bit for bit; the split-K GEMMs
-     of conv dx and dW, the fused conv and the whole-block kernel run twice
-     and held to the same bits), with its time, the plain version's, a
-     library call's where one computes the same function, the device time
-     of the kernel and of the library call (torch.profiler), and the least
-     time the card could take;
+     of the conv forward, dx and dW, the fused conv and the whole-block
+     kernel, and the FC backward run twice and held to the same bits), with
+     its time, the plain version's, a library call's where one computes the
+     same function, the device time of the kernel and of the library call
+     (torch.profiler), the least time the card could take, and for the conv
+     forward and the FC backward the launch plan (tiles and K splits; da and
+     db blocks);
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
      statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must
@@ -25,7 +28,7 @@ Phases, each printing one JSON line:
      lr 1e-4) with every hand kernel on (conv, BN statistics, join, FC,
      fused Adam): 5 steps on one synthetic batch, the counters read after
      each step (53 conv, 52 dx, 53 dW, 53 moments, 16 add_relu, 16 masks,
-     1 + 2 matmul, 1 adam), the loss after the last update below the first;
+     1 + 1 matmul, 1 adam), the loss after the last update below the first;
      then one step from the same state on the kernel path and on the plain
      path (cuDNN/cuBLAS and torch ops, per-tensor Adam) compared leaf by
      leaf, once with batch statistics and once with BN frozen at the initial
@@ -69,10 +72,16 @@ the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
 Any failed check raises, so the script exits non-zero and prints no final
 line. It needs a CUDA device and the resnet_tpu_torch package beside it; it
 never falls back to the CPU and imports nothing of JAX.
+
+With --kernels NAMES (comma-separated names of kernels.checks.KERNELS) it
+runs phases 1-3 for those kernels only, without the launch plans, and
+prints no final line: copied with kernels/checks.py into another tree of
+the package, it times that tree's kernels on this tree's cases.
 """
 
 from __future__ import annotations
 
+import argparse
 import http.client
 import json
 import os
@@ -114,9 +123,10 @@ KERNEL_SOURCES = {
 # convs + 4 projections; one join per block; the FC
 PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
 # ... and in one training step: no dx for the stem (the images need none);
-# one BN per conv; the FC's da and db; one Adam launch over all tensors
+# one BN per conv; the FC's da and db in one launch; one Adam launch over
+# all tensors
 PER_STEP = {"conv2d": 53, "conv2d_dx": 52, "conv2d_dw": 53, "moments": 53,
-            "add_relu": 16, "add_relu_mask": 16, "matmul": 1, "matmul_bwd": 2,
+            "add_relu": 16, "add_relu_mask": 16, "matmul": 1, "matmul_bwd": 1,
             "adam": 1}
 # ... and in one fused-engine step: every block conv (16 * 3 + 4
 # projections) and every join; the stem's statistics and its BN apply; the
@@ -228,12 +238,31 @@ def _moved(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def phase_kernels(checks):
-    results = {name: [] for name in checks.KERNELS}
-    for name, (*_, cases) in checks.KERNELS.items():
-        for case in cases:
+def _plan(build, name, case):
+    """The launch plan of a conv forward or FC backward case (None for the
+    other kernels): tile, tiles and K splits (build.tc_split); da and db
+    blocks (build.matmul_bwd_plan)."""
+    if name == "conv2d":
+        _, n, h, cin, cout, k, s = case
+        m, bn = n * (h // s) ** 2, build.tc_tile_n(cout)
+        return {"tile": [build.TC_BM, bn], "tiles": -(-m // build.TC_BM) * -(-cout // bn),
+                "splits": build.tc_split(m, cout, k * k * cin)}
+    if name == "matmul_bwd":
+        _, m, k, n, _, need_a, need_b = case
+        return dict(zip(("da_blocks", "db_blocks"),
+                        build.matmul_bwd_plan(m, k, n, need_a, need_b)))
+    return None
+
+
+def phase_kernels(checks, names, build=None):
+    """Each case of the named kernels against its plain version; with
+    ``build``, each line also carries the case's launch plan."""
+    results = {name: [] for name in names}
+    for name in names:
+        for case in checks.KERNELS[name][-1]:
             r = checks.check_case(name, case, seed=SEED)
-            emit({"phase": "kernel", **r})
+            plan = _plan(build, name, case) if build is not None else None
+            emit({"phase": "kernel", **r, **({"plan": plan} if plan else {})})
             results[name].append(r)
     return results
 
@@ -873,6 +902,10 @@ def phase_bn_entry(torch, counters):
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
+                        "for those only, no plans, no final line")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -889,7 +922,14 @@ def main() -> None:
     checks.fp32_strict()
     smi = phase_env(torch, build)
     phase_build(build)
-    results = phase_kernels(checks)
+    if args.kernels:
+        names = args.kernels.split(",")
+        require(set(names) <= set(checks.KERNELS), f"unknown kernels in {names}")
+        phase_kernels(checks, names)
+        require("jax" not in sys.modules, "jax was imported")
+        print(nvidia_smi(), flush=True)
+        return
+    results = phase_kernels(checks, list(checks.KERNELS), build)
     counters = Counters(checks)
     paths = {"serve": phase_serve(torch, checks, counters),
              "train": phase_train(torch, checks, counters, smi),

@@ -29,6 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "resnet_tpu_torch"
@@ -57,18 +58,20 @@ SIGNATURES = {
     "rt_conv2d_dw_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_matmul_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_matmul_skinny_f32": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    "rt_matmul_nt_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
-    "rt_matmul_tn_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
+    "rt_matmul_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_add_relu_f32": [_P, _P, _P, _I64, _P],
     "rt_add_relu_mask_f32": [_P, _P, _P, _P, _I64, _P],
     "rt_moments_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _P],
     "rt_adam_f32": [_P, _I, _I, _P, _P],
 }
-# the GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK)
+# the FMA GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK;
+# the FC forward above 32 rows)
 GEMM_TILE = 64
 GEMM_BK = 16
 # the tensor-core core's (tc_gemm.cuh BM, BK, STAGES; BN is tc_tile_n),
-# and its kernels' blocks resident per SM by tile width (dW, dx, K8 alike):
+# and its kernels' blocks resident per SM by tile width (the conv forward,
+# dW, dx, K8 alike):
 # 256 threads capped at 128 registers (BN = 64) fit twice, uncapped
 # (BN = 128) once (conv.cu, fused_conv.cuh; ptxas, PERF.md)
 TC_BM = 128
@@ -80,6 +83,16 @@ SKINNY_COLS = 32
 SKINNY_STAGE = 16
 SKINNY_MAX_CHUNK = 256
 SKINNY_MAX_M = 32
+# the FC backward kernel's (matmul.cu bwd::R, MT, NC; TK, TN, MC): a da block
+# owns BWD_R rows of b and BWD_MT rows of g over the whole contraction N, in
+# slices of BWD_NC columns; a db block a BWD_TK x BWD_TN tile of db over the
+# whole contraction M, BWD_MC rows at a time
+BWD_R = 16
+BWD_MT = 32
+BWD_NC = 32
+BWD_TK = 64
+BWD_TN = 128
+BWD_MC = 32
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 # one build at a time in this process (the temporary name is per process)
 _BUILD_LOCK = threading.Lock()
@@ -165,7 +178,8 @@ def load() -> ctypes.CDLL:
 
 
 def split_k(m: int, n: int, k: int) -> int:
-    """K splits for an (m, n) output over depth k: enough blocks for two per
+    """K splits of tiled_gemm.cuh (the FC forward above 32 rows) for an
+    (m, n) output over depth k: enough blocks for two per
     SM when the output alone has too few tiles, each split at least 512
     deep, at most 256 splits. Depends on the shapes only, so a call
     repeats exactly."""
@@ -190,7 +204,8 @@ def _drop_empty(k: int, splits: int, step: int) -> int:
 
 def tc_tile_n(n: int) -> int:
     """tc_gemm.cuh's tile width for an N-wide output: 64 up to 64, else 128
-    (conv.cu's dW and dx entry points and fused_conv.cuh pick the same)."""
+    (conv.cu's forward, dW and dx entry points and fused_conv.cuh pick the
+    same)."""
     return 64 if n <= 64 else 128
 
 
@@ -198,10 +213,11 @@ def tc_tile_n(n: int) -> int:
 def tc_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on tc_gemm.cuh's tiles:
     conv dW (m = k*k*Cin, n = Cout, k = the pixels), conv dx at stride 1
-    (m = the pixels, n = Cin, k = k*k*Cout) and the fused conv (m = the
-    output pixels, n = Cout, k = k*k*Cin). Of the counts that keep each
-    split at least 16 K-steps (512 columns) deep, at most 256, the one whose
-    blocks finish soonest, counted in K-steps: waves of resident blocks
+    (m = the pixels, n = Cin, k = k*k*Cout), and the conv forward and the
+    fused conv (m = the output pixels, n = Cout, k = k*k*Cin). Of the counts
+    whose chunks, rounded to whole K-steps, keep each split at least 16
+    K-steps (512 columns) deep, at most 256, the one whose blocks finish
+    soonest, counted in K-steps: waves of resident blocks
     times (chunk steps + the ring's fill), fewer splits on a tie. A function
     of the shapes only (cached), so a call repeats exactly."""
     bn = tc_tile_n(n)
@@ -210,6 +226,8 @@ def tc_split(m: int, n: int, k: int) -> int:
     best = None
     for splits in range(1, min(256, max(1, -(-k // (16 * TC_BK)))) + 1):
         splits = _drop_empty(k, splits, TC_BK)
+        if splits > 1 and k_chunk(k, splits, TC_BK) < 16 * TC_BK:
+            continue  # rounding to whole K-steps left the chunks too shallow
         cost = (-(-tiles * splits // resident)
                 * (k_chunk(k, splits, TC_BK) // TC_BK + TC_STAGES - 1))
         if best is None or cost < best[0]:
@@ -229,6 +247,20 @@ def skinny_split(m: int, n: int, k: int) -> int:
     splits = max(-(-2 * _SMS // slabs), -(-k // SKINNY_MAX_CHUNK))
     splits = min(splits, -(-k // SKINNY_STAGE))
     return _drop_empty(k, splits, SKINNY_STAGE)
+
+
+def matmul_bwd_plan(m: int, k: int, n: int, need_a: bool = True, need_b: bool = True
+                    ) -> Tuple[int, int]:
+    """(da blocks, db blocks) of rt_matmul_bwd_f32 for a (m, k), b (k, n),
+    g (m, n): ceil(k / BWD_R) slabs of b's rows times ceil(m / BWD_MT) row
+    tiles of g for da = g @ b^T, ceil(k / BWD_TK) x ceil(n / BWD_TN) tiles
+    for db = a^T @ g; 0 for a product that is not needed. Each block runs its
+    whole contraction in one fixed order, so nothing is split and a call
+    repeats exactly. Block i < da blocks is slab i % slabs, row tile
+    i // slabs; block da blocks + t is db tile (t // n tiles, t % n tiles)."""
+    da = -(-k // BWD_R) * -(-m // BWD_MT) if need_a else 0
+    db = -(-k // BWD_TK) * -(-n // BWD_TN) if need_b else 0
+    return da, db
 
 
 def gemm_workspace(splits: int, m: int, n: int, like):

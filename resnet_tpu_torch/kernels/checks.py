@@ -33,15 +33,16 @@ gives the least time the card could take for the work (``bound_ms``): the
 larger of the bytes the function must move (inputs read once, outputs
 written once) over 3.35 TB/s and the operations it does over the H100
 SXM's peak for their type, with ``bound_by`` naming the one that sets it:
-the FLOPs over the 67 TFLOP/s fp32 peak, and for conv dW and dx, the fused
-conv (K8) and the whole-block kernel (K10), whose kernels do each fp32
-product as three TF32 products on the tensor cores (``csrc/tc_gemm.cuh``),
-three times their FLOPs over 495 TFLOP/s; for those ``fp32_fma_bound_ms``
-gives the bound at the fp32 FMA peak beside it.
+the FLOPs over the 67 TFLOP/s fp32 peak, and for the conv forward, dW and
+dx, the fused conv (K8) and the whole-block kernel (K10), whose kernels do
+each fp32 product as three TF32 products on the tensor cores
+(``csrc/tc_gemm.cuh``), three times their FLOPs over 495 TFLOP/s; for those
+``fp32_fma_bound_ms`` gives the bound at the fp32 FMA peak beside it.
 
-The split-K GEMMs (``REPEAT_KERNELS``) are also run a second time on the same
-inputs and must give the same bits: their partials are added in split
-order, with no atomics. A case marked exact (the fused conv's halo case,
+The split-K GEMMs and the FC backward (``REPEAT_KERNELS``) are also run a
+second time on the same inputs and must give the same bits: their partials
+are added in split order, or in one fixed order inside a block, with no
+atomics. A case marked exact (the fused conv's halo case,
 integer-valued so that every order of summation is exact) must match its
 plain version bit for bit.
 """
@@ -73,6 +74,14 @@ _CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
 ]
 CONV_CASES = [(label, 8, *shape) for label, *shape in _CONV_SHAPES]
 TRAIN_CONV_CASES = [(label, 32, *shape) for label, *shape in _CONV_SHAPES]
+# the forward: serving (batch 8) and training (batch 32) shapes, then widths
+# not a multiple of 4 (4-byte copies of x and w) at stride 1 on 64-wide
+# tiles and at stride 2 on 128-wide ones
+FWD_CONV_CASES = [(f"{label}, batch {n}", n, *shape)
+                  for label, n, *shape in CONV_CASES + TRAIN_CONV_CASES] + [
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
+    ("ragged 3x3/s2 14->7 130->66, batch 2", 2, 14, 130, 66, 3, 2),
+]
 # the training step never takes the images' gradient, so no stem dx; then
 # stage 4's 3x3, whose GEMM splits K in 5 (build.tc_split), and widths not
 # a multiple of 4 (4-byte copies of g and w) at stride 1 on 128-wide tiles
@@ -113,7 +122,15 @@ MATMUL_CASES: List[Tuple[str, int, int, int, int]] = [
                                    ("ragged N", 5, 300, 33, 0),
                                    ("misaligned B", 8, 2048, 1000, 1)]
 ]
-MATMUL_BWD_CASES = [("fc bwd (32,2048)@(2048,1000)", 32, 2048, 1000)]
+# (label, M, K, N, storage offset of b in floats, need da, need db): the FC
+# backward at the training batch, a ragged N with a misaligned b (4-byte
+# copies), the FC on frozen features (db alone), and two row tiles of da
+MATMUL_BWD_CASES: List[Tuple[str, int, int, int, int, bool, bool]] = [
+    ("fc bwd (32,2048)@(2048,1000)", 32, 2048, 1000, 0, True, True),
+    ("ragged N (5,300)@(300,33), b misaligned", 5, 300, 33, 1, True, True),
+    ("db only (32,2048)@(2048,1000), frozen features", 32, 2048, 1000, 0, False, True),
+    ("(64,2048)@(2048,1000), two da row tiles", 64, 2048, 1000, 0, True, True),
+]
 # (label, rows M, channels C): BN statistics at batch 32
 MOMENTS_CASES: List[Tuple[str, int, int]] = [
     ("stem (32*112*112, 64)", 32 * 112 * 112, 64),
@@ -181,18 +198,20 @@ BLOCK_FUSED_CASES = [
     ("split K (2,4,4,516) C=129", (2, 4, 4, 516), 129, None),
 ]
 
-# the split-K GEMMs, run twice per case and held to the same bits
-REPEAT_KERNELS = ("conv2d_dx", "conv2d_dw", "fused_conv", "block_fused")
+# the split-K GEMMs and the FC backward, run twice per case and held to the
+# same bits
+REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "fused_conv",
+                  "block_fused")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
-    "conv2d": (conv, "LAUNCHES", 1, CONV_CASES),
+    "conv2d": (conv, "LAUNCHES", 1, FWD_CONV_CASES),
     "conv2d_dx": (conv, "DX_LAUNCHES", 1, TRAIN_DX_CASES),
     "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_DW_CASES),
     "add_relu": (fused, "LAUNCHES", 1, ADD_RELU_CASES),
     "add_relu_mask": (fused, "MASK_LAUNCHES", 1, ADD_RELU_MASK_CASES),
     "matmul": (matmul, "LAUNCHES", 1, MATMUL_CASES),
-    "matmul_bwd": (matmul, "BWD_LAUNCHES", 2, MATMUL_BWD_CASES),
+    "matmul_bwd": (matmul, "BWD_LAUNCHES", 1, MATMUL_BWD_CASES),
     "moments": (bn, "LAUNCHES", 1, MOMENTS_CASES),
     "adam": (adam, "LAUNCHES", 1, ADAM_CASES),
     "fused_conv": (fused_conv, "LAUNCHES", 1, FUSED_CONV_CASES),
@@ -307,9 +326,9 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
         if kernel == "conv2d":
             return _Case(lambda: conv.conv2d(x, w, s),
                          lambda: conv.conv2d_reference(x, w, s),
-                         4 * (x.numel() + w.numel() + g.numel()), flops,
+                         4 * (x.numel() + w.numel() + g.numel()), 3 * flops,
                          lambda: F.conv2d(_nchw(x), w_oihw, stride=s, padding=k // 2),
-                         _nhwc)
+                         _nhwc, peak=TF32_FLOPS_PER_S)
         if kernel == "conv2d_dx":
             return _Case(lambda: conv.conv2d_dx(g, w, x.shape, s),
                          lambda: conv.conv2d_dx_reference(g, w, x.shape, s),
@@ -346,12 +365,20 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                      4 * (m * k + k * n + m * n), 2 * m * n * k,
                      lambda: torch.matmul(a, b))
     if kernel == "matmul_bwd":
-        _, m, k, n = case
-        a, b, g = randn(m, k), randn(k, n, scale=0.01), randn(m, n)
-        return _Case(lambda: matmul.matmul_bwd(a, b, g),
-                     lambda: matmul.matmul_bwd_reference(a, b, g),
-                     4 * 2 * (m * k + k * n) + 4 * m * n, 4 * m * n * k,
-                     lambda: (torch.matmul(g, b.t()), torch.matmul(a.t(), g)))
+        _, m, k, n, offset, need_a, need_b = case
+        a, b, g = randn(m, k), randn(k, n, scale=0.01, offset=offset), randn(m, n)
+        want = (need_a, need_b)
+
+        def needed(pair):
+            return tuple(t for t, keep in zip(pair, want) if keep)
+
+        # inputs read once (b only for da, a only for db), outputs written once
+        nbytes = 4 * (m * n + need_a * (k * n + m * k) + need_b * (m * k + k * n))
+        return _Case(lambda: needed(matmul.matmul_bwd(a, b, g, need_a, need_b)),
+                     lambda: needed(matmul.matmul_bwd_reference(a, b, g)),
+                     nbytes, 2 * m * n * k * (need_a + need_b),
+                     lambda: needed((torch.matmul(g, b.t()) if need_a else None,
+                                     torch.matmul(a.t(), g) if need_b else None)))
     if kernel == "moments":
         _, m, c = case
         x = randn(m, c) * 2.0 + randn(1, c)

@@ -6,10 +6,11 @@ stride, taps outside the image skipped. ``conv2d`` is a
 ``torch.autograd.Function``. On CUDA tensors its forward launches the conv
 kernel of ``csrc/conv.cu``, and its backward the two gradient kernels of the
 same file (dx only when the input needs a gradient, dW only when the weight
-does); anything the kernels do not take raises. dW and dx run on the
-split-TF32 tensor-core GEMM of ``csrc/tc_gemm.cuh`` (fp32 accurate), the
-forward on the fp32 core of ``csrc/tiled_gemm.cuh``. On CPU tensors each of
-the three runs its plain version:
+does); anything the kernels do not take raises. All three run on the
+split-TF32 tensor-core GEMM of ``csrc/tc_gemm.cuh`` (fp32 accurate), each
+splitting K by ``build.tc_split`` (dx at stride 1 only); the forward gathers its input through
+the fused conv's im2col (``csrc/im2col.cuh``) without the prologue. On CPU
+tensors each of the three runs its plain version:
 
 * ``conv2d_reference``: F.pad with the explicit, possibly negative padding,
   then F.conv2d (``ops.conv.conv2d``);
@@ -38,7 +39,7 @@ from . import build
 LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
-_MAX_N_TILES = 65535  # gridDim.y of a launch walks the 64-wide column tiles
+_MAX_N_TILES = 65535  # gridDim.y of a launch walks the 64- or 128-wide column tiles
 
 
 def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -116,7 +117,7 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
                       device=x.device)
     if out.numel():
         m = n * (h // stride) * (wd // stride)
-        splits = build.split_k(m, cout, k * k * cin)
+        splits = build.tc_split(m, cout, k * k * cin)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
         build.launch("rt_conv2d_nhwc_f32", x.data_ptr(), w.data_ptr(),
                      out.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,

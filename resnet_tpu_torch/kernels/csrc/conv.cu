@@ -31,10 +31,18 @@
 //
 // Bound on the H100: operations. ResNet-50's convs do 2*K FLOPs per output
 // element with K from 147 to 4608 (the gradients the same FLOPs as the
-// forward). The forward runs them on the fp32 FMA units from the
-// shared-memory tiles of tiled_gemm.cuh (14-23% of the 67 TFLOP/s peak).
-// dW and dx run on the split-TF32 tensor-core core of tc_gemm.cuh (fp32
-// accurate, 3 TF32 products per fp32 product):
+// forward); the fp32 FMA units (67 TFLOP/s) reached 14-23% of their peak
+// through shared-memory tiles. All three run on the split-TF32 tensor-core
+// core of tc_gemm.cuh instead (fp32 accurate, 3 TF32 products per fp32
+// product, each 8-deep step in a fresh fragment added in fp32):
+// * the forward's loader is im2col.cuh's K-major gather (the fused conv's,
+//   K8, without its prologue, which `if constexpr` compiles out), with the
+//   window origin at (k/2, k/2): rows decoded once per copying thread, a
+//   (di, dj, ci) cursor walked by 32 columns with carries; 16-byte copies
+//   of four channels where Cin and Cout are multiples of 4 and x and w are
+//   16-byte aligned, 4-byte copies otherwise (the stem's Cin = 3, whose
+//   K = 147 makes 4 full K-steps and a ragged fifth). The K split comes from
+//   build.tc_split, as dx's and K8's;
 // * dW's loader, ConvDwTcA (M-fast A), takes a 16-byte copy of four input
 //   channels of one tap and pixel where Cin % 4 == 0 (4-byte copies for the
 //   stem's Cin = 3 and other ragged widths), one table entry per pixel and
@@ -49,55 +57,14 @@
 //   through out_row.
 //
 // Measured (-Xptxas -v, nvcc 12.9, sm_90a): see tc_gemm.cuh for dW;
-// conv2d_dx_tc128_kernel and conv2d_dx_tc64_kernel in PERF.md.
+// conv2d_tc*_kernel and conv2d_dx_tc*_kernel in PERF.md.
 
 #include <climits>
 
+#include "im2col.cuh"
 #include "tc_gemm.cuh"
-#include "tiled_gemm.cuh"
 
 namespace {
-
-// forward A: x through im2col, neighbouring threads on neighbouring ci
-struct ConvA {
-  static constexpr bool kMFast = false;
-  const float* __restrict__ x;
-  int H, W, Cin, k;
-  int HoWo, Wo, stride;
-  int64_t M;
-  // per row of this thread: offset of its image, top-left tap, validity
-  int64_t img[rt::A_PER_THREAD];
-  int iy0[rt::A_PER_THREAD], ix0[rt::A_PER_THREAD];
-  bool row_ok[rt::A_PER_THREAD];
-  // current column: tap (di, dj), channel ci
-  int di, dj, ci;
-
-  __device__ void set_row(int r, int64_t m) {
-    row_ok[r] = m < M;
-    const int64_t mm = row_ok[r] ? m : 0;
-    const int64_t n = mm / HoWo;
-    const int rem = (int)(mm - n * HoWo);
-    const int oy = rem / Wo;
-    const int ox = rem - oy * Wo;
-    img[r] = n * H * W * Cin;
-    iy0[r] = stride * oy - k / 2;
-    ix0[r] = stride * ox - k / 2;
-  }
-
-  __device__ void set_k(int64_t kk) {
-    const int tap = (int)(kk / Cin);
-    ci = (int)(kk - (int64_t)tap * Cin);
-    di = tap / k;
-    dj = tap - di * k;
-  }
-
-  __device__ float load(int r) const {
-    const int iy = iy0[r] + di;
-    const int ix = ix0[r] + dj;
-    if (!row_ok[r] || iy < 0 || iy >= H || ix < 0 || ix >= W) return 0.f;
-    return x[img[r] + ((int64_t)iy * W + ix) * Cin + ci];
-  }
-};
 
 // taps i in [0, k) that reach input rows of phase p: i = first + s*t
 struct PhaseTaps {
@@ -263,21 +230,25 @@ struct ConvDwTcA {
   __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
-__global__ void __launch_bounds__(rt::THREADS)
-conv2d_nhwc_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                       float* __restrict__ y, int N, int H, int W, int Cin,
-                       int Cout, int k, int stride, int64_t k_chunk) {
-  ConvA a;
-  a.x = x;
-  a.H = H;
-  a.W = W;
-  a.Cin = Cin;
-  a.k = k;
-  a.Wo = W / stride;
-  a.HoWo = (H / stride) * a.Wo;
-  a.stride = stride;
-  a.M = (int64_t)N * a.HoWo;
-  rt::tiled_gemm<false>(a, w, Cout, y, a.M, Cout, (int64_t)k * k * Cin, k_chunk);
+// the forward: im2col.cuh's gather, no prologue, windows centred (k/2, k/2)
+using ConvFwdTcA = Im2colTcA<false>;
+
+// as the dW kernels below: the 128 x 64 tile capped at 128 registers, two
+// blocks per SM; the 128 x 128 tile one block
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS, 2)
+conv2d_tc64_kernel(const ConvFwdTcA a, const float* __restrict__ w, float* __restrict__ y,
+                   int Cout, int64_t k_chunk) {
+  rt::tc::gemm_k<64, VEC, false>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                 k_chunk, nullptr);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS)
+conv2d_tc128_kernel(const ConvFwdTcA a, const float* __restrict__ w, float* __restrict__ y,
+                    int Cout, int64_t k_chunk) {
+  rt::tc::gemm_k<128, VEC, false>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                  k_chunk, nullptr);
 }
 
 template <int BN, int AVEC, int BVEC>
@@ -369,6 +340,19 @@ conv2d_dx_tc128_kernel(const float* __restrict__ g, const float* __restrict__ wp
   conv2d_dx_tc<128, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, k_chunk);
 }
 
+template <int BN, int VEC>
+int launch_fwd(const ConvFwdTcA& a, const float* w, float* y, int Cout, float* ws, int splits,
+               cudaStream_t s) {
+  auto* kernel = conv2d_tc128_kernel<VEC>;
+  if constexpr (BN == 64) kernel = conv2d_tc64_kernel<VEC>;
+  return rt::tc::launch<BN, ConvFwdTcA>(
+      kernel,
+      [&](dim3 grid, int smem, float* out, int64_t kc) {
+        kernel<<<grid, rt::tc::THREADS, smem, s>>>(a, w, out, Cout, kc);
+      },
+      y, ws, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin, splits, s);
+}
+
 // one phase's GEMM, rows (N, H/s, W/s) of that phase, K = its taps * Cout
 template <int BN, int VEC>
 int launch_dx(const float* g, const float* b, float* dx, int N, int H, int W, int Cin,
@@ -418,18 +402,20 @@ int launch_dw_vec(bool avec, bool bvec, const float* x, const float* g, float* d
 // The callers check stride | H, stride | W, shapes, dtype and contiguity,
 // and allocate ws (splits * rows * cols floats) when splits > 1.
 
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)).
+// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)), K
+// split `splits` ways through ws: tiles 128 x 64 where Cout <= 64, else
+// 128 x 128 (build.py tc_tile_n); 16-byte copies where Cin and Cout are
+// multiples of 4 and x and w 16-byte aligned.
 extern "C" int rt_conv2d_nhwc_f32(const float* x, const float* w, float* y, int N,
                                   int H, int W, int Cin, int Cout, int k, int stride,
                                   float* ws, int splits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int64_t M = (int64_t)N * (H / stride) * (W / stride);
-  return rt::launch_gemm(
-      [&](dim3 grid, float* out, int64_t kc) {
-        conv2d_nhwc_f32_kernel<<<grid, rt::THREADS, 0, s>>>(x, w, out, N, H, W, Cin,
-                                                            Cout, k, stride, kc);
-      },
-      y, ws, M, Cout, (int64_t)k * k * Cin, splits, s);
+  const ConvFwdTcA a =
+      im2col<false>(x, N, H, W, Cin, k, stride, k / 2, k / 2, H / stride, W / stride);
+  const bool vec =
+      Cin % 4 == 0 && Cout % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
+  auto* launch = Cout <= 64 ? (vec ? launch_fwd<64, 4> : launch_fwd<64, 1>)
+                            : (vec ? launch_fwd<128, 4> : launch_fwd<128, 1>);
+  return launch(a, w, y, Cout, ws, splits, (cudaStream_t)stream);
 }
 
 // dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices of

@@ -3,15 +3,17 @@
 // stages 0-2 are K8 and stage 3 is K9 with an identity residual).
 //
 // The fused conv is the implicit GEMM of the conv on the split-TF32
-// tensor-core core (tc_gemm.cuh, K-major A) with the loader FusedConvTcA:
-// row (n, oy, ox) decoded once per copying thread, a (di, dj, ci) cursor
-// walked by 32 columns with carries (one tap per K-step where Cin % 32 ==
-// 0), 16-byte copies of four channels where Cin and Cout are multiples of 4
-// and x and w 16-byte aligned, 4-byte copies otherwise. The prologue (the
-// previous layer's BN affine and ReLU) cannot ride cp.async, so each thread
-// rewrites the elements it copied once the slice has landed, before the
-// fragment reads: act(__fadd_rn(__fmul_rn(v, scale[ci]), shift[ci])),
-// rounded step by step as the plain version is, then the TF32 split. It
+// tensor-core core (tc_gemm.cuh, K-major A) with the loader FusedConvTcA,
+// im2col.cuh's gather with the prologue (the conv forward, K1, runs the same
+// gather without it): row (n, oy, ox) decoded once per copying thread, a
+// (di, dj, ci) cursor walked by 32 columns with carries (one tap per K-step
+// where Cin % 32 == 0), 16-byte copies of four channels where Cin and Cout
+// are multiples of 4 and x and w 16-byte aligned, 4-byte copies otherwise.
+// The prologue (the previous layer's BN affine and ReLU) cannot ride
+// cp.async, so each thread rewrites the elements it copied once the slice
+// has landed, before the fragment reads:
+// act(__fadd_rn(__fmul_rn(v, scale[ci]), shift[ci])), rounded step by step
+// as the plain version is, then the TF32 split. It
 // rewrites only the elements the copy read: a tap outside the image is
 // zero-filled and stays exactly 0 (relu(shift) must never enter the
 // padding). Its statistics [sum y, sum y^2] per output channel come from the
@@ -30,6 +32,7 @@
 // fused_conv_tc64_kernel in PERF.md.
 #pragma once
 
+#include "im2col.cuh"
 #include "rowwise.cuh"
 #include "tc_gemm.cuh"
 
@@ -43,83 +46,8 @@ constexpr int RT = 8;   // row lanes per block of the column pass
 constexpr int FL = 32;  // tile lanes per block of the final sum
 constexpr int TILE_M = rt::tc::BM;  // rows of one statistics tile
 
-// A of the forward conv through im2col for tc_gemm.cuh (K-major): row
-// (n, oy, ox), column (di, dj, ci) = x[n, s*oy - pad_top + di,
-// s*ox - pad_left + dj, ci], 0 outside the image; with the prologue
-// applied to each element read
-struct FusedConvTcA {
-  static constexpr bool kKMajor = true;
-  static constexpr bool kPrologue = true;
-  const float* __restrict__ x;
-  const float* __restrict__ scale;
-  const float* __restrict__ shift;
-  int H, W, Cin, ksize;
-  int HoWo, Wo, stride, pad_top, pad_left;
-  bool prologue;
-  Act act;
-  int64_t M;
-
-  // the window's top-left input pixel and x's offset there
-  struct Row {
-    long long off;
-    int iy, ix;
-    bool ok;
-  };
-  struct Cursor {
-    int di, dj, ci;
-  };
-
-  __device__ Row row(int64_t m) const {
-    Row r;
-    r.ok = m < M;
-    const int64_t mm = r.ok ? m : 0;
-    const int64_t n = mm / HoWo;
-    const int rem = (int)(mm - n * HoWo);
-    const int oy = rem / Wo;
-    r.iy = stride * oy - pad_top;
-    r.ix = stride * (rem - oy * Wo) - pad_left;
-    r.off = ((n * H + r.iy) * W + r.ix) * Cin;
-    return r;
-  }
-
-  __device__ Cursor cursor(int64_t k) const {
-    Cursor c;
-    const int tap = (int)(k / Cin);
-    c.ci = (int)(k - (int64_t)tap * Cin);
-    c.di = tap / ksize;
-    c.dj = tap - c.di * ksize;
-    return c;
-  }
-
-  __device__ void advance(Cursor& c) const {
-    c.ci += rt::tc::BK;
-    while (c.ci >= Cin) {
-      c.ci -= Cin;
-      if (++c.dj == ksize) {
-        c.dj = 0;
-        ++c.di;
-      }
-    }
-  }
-
-  __device__ bool in(const Row& r, const Cursor& c) const {
-    const int iy = r.iy + c.di;
-    const int ix = r.ix + c.dj;
-    return r.ok && iy >= 0 && iy < H && ix >= 0 && ix < W;  // else the halo
-  }
-
-  __device__ const float* at(const Row& r, const Cursor& c) const {
-    return x + r.off + ((long long)c.di * W + c.dj) * Cin + c.ci;
-  }
-
-  // the prologue of the element read at channel c.ci + j
-  __device__ float apply(float v, const Cursor& c, int j) const {
-    const int ch = c.ci + j;
-    return act(__fadd_rn(__fmul_rn(v, __ldg(scale + ch)), __ldg(shift + ch)));
-  }
-
-  __device__ int64_t out_row(int64_t m) const { return m; }
-};
+// A of the fused conv: the im2col gather of im2col.cuh with the prologue
+using FusedConvTcA = Im2colTcA<true>;
 
 // The loader of x (N, H, W, Cin) for a k x k window at stride `stride` whose
 // origin is (pad_top, pad_left) above and left of the input, output (Ho, Wo);
@@ -128,22 +56,11 @@ struct FusedConvTcA {
 inline FusedConvTcA conv_loader(const float* x, const float* scale, const float* shift, int N,
                                 int H, int W, int Cin, int k, int stride, int pad_top,
                                 int pad_left, int Ho, int Wo, bool prologue, Act act) {
-  FusedConvTcA a;
-  a.x = x;
+  FusedConvTcA a = im2col<true>(x, N, H, W, Cin, k, stride, pad_top, pad_left, Ho, Wo);
   a.scale = scale;
   a.shift = shift;
-  a.H = H;
-  a.W = W;
-  a.Cin = Cin;
-  a.ksize = k;
-  a.Wo = Wo;
-  a.HoWo = Ho * Wo;
-  a.stride = stride;
-  a.pad_top = pad_top;
-  a.pad_left = pad_left;
   a.prologue = prologue;
   a.act = act;
-  a.M = (int64_t)N * Ho * Wo;
   return a;
 }
 

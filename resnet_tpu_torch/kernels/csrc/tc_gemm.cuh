@@ -1,18 +1,19 @@
 // Split-TF32 ("3xTF32") tensor-core GEMM core with a cp.async ring, fp32
-// accurate. Carries conv dW and conv dx (conv.cu) and the fused conv, K8,
-// with K10's three GEMMs (fused_conv.cuh); the conv forward and the FC's
-// backward are on tiled_gemm.cuh.
+// accurate. Carries every conv GEMM of the port: the conv forward, dW and dx
+// (conv.cu) and the fused conv, K8, with K10's three GEMMs (fused_conv.cuh).
+// The forward and K8 share one gather, im2col.cuh.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major (M, N). One 256-thread
 // block computes a BM x BN tile of C (128 x 128, or 128 x 64 where N <= 64)
 // with eight warps, each a WM x 32 sub-tile of m16n8k8 products.
 //
-// Replaces, for dW, the per-tap Pallas matmul of the conv VJP
-// (resnet_tpu/kernels/conv.py:172-196, _matmul_raw of
-// resnet_tpu/kernels/matmul.py:26); for dx, the Pallas conv kernel on the
-// dilated gradient (conv.py:42, :150-170); for K8, the fused conv kernel
-// (fused_conv.py:45). There each tap's window GEMM runs on the MXU with an
-// fp32 VMEM accumulator over a sequential K grid axis.
+// Replaces, for the forward, the Pallas conv kernel
+// (resnet_tpu/kernels/conv.py:42); for dW, the per-tap Pallas matmul of the
+// conv VJP (conv.py:172-196, _matmul_raw of resnet_tpu/kernels/matmul.py:26);
+// for dx, the Pallas conv kernel on the dilated gradient (conv.py:42,
+// :150-170); for K8, the fused conv kernel (fused_conv.py:45). There each
+// tap's window GEMM runs on the MXU with an fp32 VMEM accumulator over a
+// sequential K grid axis.
 //
 // Bound on the H100: operations. ResNet-50's conv GEMMs at batch 32 do 2.7
 // to 59 GFLOP each over depths of 64 to 9,216 (dW: 1,568 to 401,408 pixels);
@@ -40,8 +41,8 @@
 // * Two A layouts, chosen by the loader at compile time (kKMajor):
 //   - M-fast (dW: neighbouring rows of one K column are neighbouring
 //     channels): the slice is stored [BK][BM + 8];
-//   - K-major (dx, K8: an im2col whose K is the gathered channels): the
-//     slice is stored [BM][BK + 4].
+//   - K-major (the forward, dx, K8: an im2col whose K is the gathered
+//     channels): the slice is stored [BM][BK + 4].
 //   Both strides (8 and 36 floats, 8 and 4 mod 32) put the 32 lanes of one
 //   fragment load on 32 banks: lane (gid, tig) reads A(gid, tig) at bank
 //   8 tig + gid, or 4 gid + tig. B's slice is [BK][BN + 8].

@@ -1,4 +1,6 @@
-// Shared-memory tiled fp32 GEMM core for the conv and matmul kernels.
+// Shared-memory tiled fp32 GEMM core of the FC forward above 32 rows
+// (matmul.cu rt_matmul_f32), and the split-K sum that every GEMM of the
+// port uses.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major (M, N). One 256-thread
 // block computes a BM x BN tile of C; each thread holds a TM x TN tile of
@@ -7,37 +9,22 @@
 // Ragged edges of M, N and K are masked in the loads and stores; nothing is
 // padded in device memory.
 //
-// A is read through a loader, so one tile loop serves a plain row-major
-// matrix, its transpose, and the implicit im2col view of the conv forward.
-// A loader says which thread mapping suits its memory order:
-//
-//   kMFast = false: neighbouring threads take neighbouring k (a row-major A,
-//     an NHWC activation along its channels). Each thread loads A_PER_THREAD
-//     rows of one k column:
-//       set_row(r, m)  row r of this thread is global row m (m may be >= M);
-//       set_k(k)       the column loaded in this K-step (always < K);
-//       load(r)        A(row r, k), or 0 outside the matrix.
-//   kMFast = true: neighbouring threads take neighbouring m (a transposed
-//     A, as the FC's db reads it). Each thread owns one row and
-//     loads A_PER_THREAD k of it:
-//       set_row(m)     the thread's global row (m may be >= M);
-//       load(k)        A(row, k) for k < K, or 0 outside the matrix.
-//
-// B is row-major (K, N) with leading dimension ldb, or with B_T its
-// transpose stored row-major as (N, K); the B_T load puts neighbouring
-// threads on neighbouring k, so both read coalesced.
+// A is read through a loader whose neighbouring threads take neighbouring
+// k (a row-major A). Each thread loads A_PER_THREAD rows of one k column:
+//   set_row(r, m)  row r of this thread is global row m (m may be >= M);
+//   set_k(k)       the column loaded in this K-step (always < K);
+//   load(r)        A(row r, k), or 0 outside the matrix.
+// B is row-major (K, N) with leading dimension ldb.
 //
 // Split-K: gridDim.z splits K into chunks of k_chunk (a multiple of BK).
 // With one split the block writes C; with several, split z writes its fp32
 // partial tile to C + z*M*N (a workspace the wrapper allocates) and
 // splitk_sum adds the partials in split order. No atomics, so a run repeats
-// exactly. The FC's backward and the deep conv forwards need it where M*N
-// makes fewer tiles than the card has SMs.
+// exactly.
 //
-// Plain FMA units, fp32 throughout: the conv forward and the FC (its
-// backward, and its forward above 32 rows). Conv dW and dx and the fused
-// conv run on the split-TF32 tensor-core core, tc_gemm.cuh, whose K-major
-// loaders are meant to carry the conv forward too.
+// Plain FMA units, fp32 throughout. Every conv GEMM runs on the split-TF32
+// tensor-core core, tc_gemm.cuh, the FC forward at M <= 32 and the FC
+// backward on matmul.cu's streaming kernels.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,20 +39,16 @@ constexpr int TM = 4;
 constexpr int TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 constexpr int A_PER_THREAD = BM * BK / THREADS;   // A values a thread loads per K-step
-constexpr int A_ROW_STEP = THREADS / BK;          // kMFast = false: rows apart
-constexpr int A_K_STEP = THREADS / BM;            // kMFast = true: k apart
+constexpr int A_ROW_STEP = THREADS / BK;          // rows apart
 constexpr int B_PER_THREAD = BK * BN / THREADS;
-constexpr int B_ROW_STEP = THREADS / BN;          // row-major B: k apart
-constexpr int B_COL_STEP = THREADS / BK;          // B_T: n apart
+constexpr int B_ROW_STEP = THREADS / BN;          // k apart
 
 static_assert(A_PER_THREAD * A_ROW_STEP == BM, "A slice tiling");
-static_assert(A_PER_THREAD * A_K_STEP == BK, "A slice tiling (m-fast)");
 static_assert(B_PER_THREAD * B_ROW_STEP == BK, "B slice tiling");
-static_assert(B_PER_THREAD * B_COL_STEP == BN, "B slice tiling (transposed)");
 
 // blockIdx.x walks M (up to 2^31 - 1 tiles), blockIdx.y walks N, blockIdx.z
 // the K splits.
-template <bool B_T, class ALoader>
+template <class ALoader>
 __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__ B,
                                            int64_t ldb, float* __restrict__ C,
                                            int64_t M, int N, int64_t K,
@@ -82,17 +65,10 @@ __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__
   const int64_t k_hi = K < k_lo + k_chunk ? K : k_lo + k_chunk;
   C += (int64_t)blockIdx.z * M * N;
 
-  int a_k, a_m;
-  if constexpr (ALoader::kMFast) {
-    a_m = tid % BM;
-    a_k = tid / BM;
-    a.set_row(row0 + a_m);
-  } else {
-    a_k = tid % BK;
-    a_m = tid / BK;
+  const int a_k = tid % BK;
+  const int a_m = tid / BK;
 #pragma unroll
-    for (int r = 0; r < A_PER_THREAD; ++r) a.set_row(r, row0 + a_m + r * A_ROW_STEP);
-  }
+  for (int r = 0; r < A_PER_THREAD; ++r) a.set_row(r, row0 + a_m + r * A_ROW_STEP);
 
   float acc[TM][TN];
 #pragma unroll
@@ -101,37 +77,18 @@ __device__ __forceinline__ void tiled_gemm(ALoader& a, const float* __restrict__
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int64_t k0 = k_lo; k0 < k_hi; k0 += BK) {
-    if constexpr (ALoader::kMFast) {
+    const bool k_in = k0 + a_k < k_hi;
+    a.set_k(k_in ? k0 + a_k : k_lo);
 #pragma unroll
-      for (int r = 0; r < A_PER_THREAD; ++r) {
-        const int kk = a_k + r * A_K_STEP;
-        As[kk][a_m] = (k0 + kk < k_hi) ? a.load(k0 + kk) : 0.f;
-      }
-    } else {
-      const bool k_in = k0 + a_k < k_hi;
-      a.set_k(k_in ? k0 + a_k : k_lo);
+    for (int r = 0; r < A_PER_THREAD; ++r)
+      As[a_k][a_m + r * A_ROW_STEP] = k_in ? a.load(r) : 0.f;
+    const int b_n = tid % BN;
+    const int gn = col0 + b_n;
 #pragma unroll
-      for (int r = 0; r < A_PER_THREAD; ++r)
-        As[a_k][a_m + r * A_ROW_STEP] = k_in ? a.load(r) : 0.f;
-    }
-    if constexpr (B_T) {
-      const int b_k = tid % BK;
-      const int64_t gk = k0 + b_k;
-#pragma unroll
-      for (int r = 0; r < B_PER_THREAD; ++r) {
-        const int nn = tid / BK + r * B_COL_STEP;
-        const int gn = col0 + nn;
-        Bs[b_k][nn] = (gk < k_hi && gn < N) ? B[(int64_t)gn * ldb + gk] : 0.f;
-      }
-    } else {
-      const int b_n = tid % BN;
-      const int gn = col0 + b_n;
-#pragma unroll
-      for (int r = 0; r < B_PER_THREAD; ++r) {
-        const int kk = tid / BN + r * B_ROW_STEP;
-        const int64_t gk = k0 + kk;
-        Bs[kk][b_n] = (gk < k_hi && gn < N) ? B[gk * ldb + gn] : 0.f;
-      }
+    for (int r = 0; r < B_PER_THREAD; ++r) {
+      const int kk = tid / BN + r * B_ROW_STEP;
+      const int64_t gk = k0 + kk;
+      Bs[kk][b_n] = (gk < k_hi && gn < N) ? B[gk * ldb + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll

@@ -5,15 +5,14 @@
 launches one kernel of ``csrc/matmul.cu``, chosen by shape in
 ``matmul_route``: the skinny streaming kernel ``rt_matmul_skinny_f32`` for
 M <= 32 (the FC at batch 1-32), the tiled ``rt_matmul_f32`` above. Its
-backward launches the two
-transposed forms on the same core, as matmul.py:94-98 does: da = g @ b^T
-(``rt_matmul_nt_f32``, b read transposed in place) and db = a^T @ g
-(``rt_matmul_tn_f32``), each only where a gradient is needed. Anything the
-kernels do not take raises. On CPU tensors the plain versions run:
-``matmul_reference`` and ``matmul_bwd_reference``.
+backward, the VJP of matmul.py:94-98 (da = g @ b^T, db = a^T @ g), is one
+launch of ``rt_matmul_bwd_f32`` for both products, or for the one a
+gradient is needed of (``build.matmul_bwd_plan``; b^T is never copied).
+Anything the kernels do not take raises. On CPU tensors the plain versions
+run: ``matmul_reference`` and ``matmul_bwd_reference``.
 
 ``LAUNCHES`` counts forward launches (either route), ``BWD_LAUNCHES``
-backward ones (one per product).
+backward ones (one per call, whichever products it computes).
 """
 
 from __future__ import annotations
@@ -98,13 +97,19 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     if not build.on_card("matmul_bwd", a, b, g):
         da, db = matmul_bwd_reference(a, b, g)
         return (da if need_a else None), (db if need_b else None)
-    da = db = None
-    if need_a:
-        da = _gemm("rt_matmul_nt_f32", g, b, m, k, n)
-        BWD_LAUNCHES += bool(m and k and n)
-    if need_b:
-        db = _gemm("rt_matmul_tn_f32", a, g, k, n, m)
-        BWD_LAUNCHES += bool(m and k and n)
+    if max(m, k, n) >= 2**30:  # the kernel's tile counts are 32-bit
+        raise ValueError(f"matmul_bwd: M={m}, K={k}, N={n} beyond the kernel's int sizes")
+    da = torch.empty((m, k), dtype=a.dtype, device=a.device) if need_a else None
+    db = torch.empty((k, n), dtype=a.dtype, device=a.device) if need_b else None
+    da_blocks, db_blocks = build.matmul_bwd_plan(m, k, n, need_a, need_b)
+    if da_blocks + db_blocks >= 2**31:
+        raise ValueError(f"matmul_bwd: {da_blocks + db_blocks} blocks beyond the grid")
+    if da_blocks + db_blocks:
+        build.launch("rt_matmul_bwd_f32", a.data_ptr(), b.data_ptr(), g.data_ptr(),
+                     da.data_ptr() if da_blocks else None,
+                     db.data_ptr() if db_blocks else None, m, k, n, da_blocks, db_blocks,
+                     device=a.device)
+        BWD_LAUNCHES += 1
     return da, db
 
 

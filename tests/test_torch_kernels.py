@@ -125,7 +125,7 @@ def test_sources_and_signatures_agree():
         "fused_conv.cu", "block_fused.cu"}
     # the headers are in the hash too: the GEMM cores and the shared device code
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
-        "tiled_gemm.cuh", "tc_gemm.cuh", "fused_conv.cuh", "rowwise.cuh"}
+        "tiled_gemm.cuh", "tc_gemm.cuh", "fused_conv.cuh", "rowwise.cuh", "im2col.cuh"}
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
     assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
@@ -182,9 +182,11 @@ def test_conv2d_skips_dx_for_an_input_without_grad(rng, no_launch):
     assert x.grad is None and w.grad.shape == w.shape
 
 
-@pytest.mark.parametrize("m,k,n", [(3, 2048, 1000), (8, 40, 24), (1, 7, 5)])
+@pytest.mark.parametrize("m,k,n", [(3, 2048, 1000), (8, 40, 24), (1, 7, 5),
+                                   (32, 2048, 1000)])
 def test_matmul_vjp_matches_pallas(rng, no_launch, m, k, n):
-    """g @ b^T and a^T @ g, ragged shapes included, within 1e-4."""
+    """g @ b^T and a^T @ g, ragged shapes and the training FC's own shape
+    included, within 1e-4."""
     from resnet_tpu.kernels import matmul as pallas_matmul
 
     a = rng.normal(size=(m, k)).astype(np.float32)
@@ -330,7 +332,7 @@ DW_PLANS = [
     (147, 64, 401408, 131), (64, 64, 100352, 196), (64, 256, 100352, 66),
     (576, 64, 100352, 52), (1152, 128, 25088, 14), (2304, 512, 25088, 11),
     (2048, 512, 1568, 2), (81, 33, 98, 1), (180, 24, 1458, 3),
-    (4608, 512, 1568, 4), (9, 1, 1, 1), (27, 8, 10**6, 255)]
+    (4608, 512, 1568, 3), (9, 1, 1, 1), (27, 8, 10**6, 255)]
 
 
 def _waves_times_steps(m, n, k, splits):
@@ -340,6 +342,16 @@ def _waves_times_steps(m, n, k, splits):
     resident = 132 * build.TC_BLOCKS_PER_SM[bn]
     return (-(-tiles * splits // resident)
             * (build.k_chunk(k, splits, build.TC_BK) // build.TC_BK + build.TC_STAGES - 1))
+
+
+def _candidates(k):
+    """The split counts tc_split may take for depth k: up to ceil(k / 512),
+    and, past one split, only those whose chunks, rounded to whole K-steps,
+    are 16 K-steps deep or more."""
+    most = min(256, max(1, -(-k // (16 * build.TC_BK))))
+    counts = {build._drop_empty(k, s, build.TC_BK) for s in range(1, most + 1)}
+    return sorted(s for s in counts
+                  if s == 1 or build.k_chunk(k, s, build.TC_BK) >= 16 * build.TC_BK)
 
 
 @pytest.mark.parametrize("m,n,k,want", DW_PLANS)
@@ -357,9 +369,9 @@ def test_dw_split_covers_every_pixel_once(m, n, k, want):
     assert -(-n // build.tc_tile_n(n)) <= 65535 and 1 <= splits <= 256
     most = min(256, max(1, -(-k // (16 * build.TC_BK))))
     assert splits <= most
+    assert splits == 1 or chunk >= 16 * build.TC_BK
     cost = _waves_times_steps(m, n, k, splits)
-    assert all(_waves_times_steps(m, n, k, build._drop_empty(k, s, build.TC_BK)) >= cost
-               for s in range(1, most + 1))
+    assert all(_waves_times_steps(m, n, k, s) >= cost for s in _candidates(k))
 
 
 @pytest.mark.parametrize("n,k,want", [
@@ -532,26 +544,38 @@ def _tc_gemms(batch=32):
     return sorted(set(out))
 
 
-TC_GEMMS = _tc_gemms()
+def _conv_forward_gemms(batch):
+    """(m, n, k) of K1's forward GEMMs for ResNet-50 at a batch: the 7x7/s2
+    stem (K = 147) and the 52 block convs, without repeats."""
+    from resnet_tpu_torch.config import model_config
+
+    mcfg = model_config("resnet50")
+    ho = mcfg.input_dim // mcfg.init_stride
+    out = [("conv", batch * ho * ho, mcfg.init_filters, mcfg.init_kernel ** 2 * 3)]
+    out += [("conv", batch * (h // s) ** 2, cout, k * k * cin)
+            for k, cin, cout, s, h in _resnet50_convs()]
+    return sorted(set(out))
+
+
+TC_GEMMS = _tc_gemms() + _conv_forward_gemms(8) + _conv_forward_gemms(32)
 
 
 @pytest.mark.parametrize("what,m,n,k", TC_GEMMS, ids=[f"{w} {m}x{n}x{k}" for w, m, n, k in TC_GEMMS])
 def test_tc_split_covers_every_k_step_once(what, m, n, k):
     """The planner of tc_gemm.cuh's users at ResNet-50's dx and fused-conv
-    GEMMs (batch 32): every K column in exactly one split, chunks of whole
-    32-deep K-steps, at most 256 splits, each at least 16 K-steps deep
-    unless the depth has fewer, no count in range finishing in fewer
-    waves x steps, and a function of the shapes only."""
+    GEMMs (batch 32) and the conv forward's (batch 8 and 32, the stem's
+    K = 147 with a ragged last K-step): every K column in exactly one
+    split, chunks of whole 32-deep K-steps, at most 256 splits, each at
+    least 16 K-steps deep unless the depth has fewer, no count in range
+    finishing in fewer waves x steps, and a function of the shapes only."""
     splits = build.tc_split(m, n, k)
     assert splits == build.tc_split(m, n, k)
     chunk, ranges = _chunks(k, splits, build.TC_BK)
     assert chunk % build.TC_BK == 0 and 1 <= splits <= 256
     _assert_covers(k, ranges)
     assert splits == 1 or chunk >= 16 * build.TC_BK
-    most = min(256, max(1, -(-k // (16 * build.TC_BK))))
     cost = _waves_times_steps(m, n, k, splits)
-    assert all(_waves_times_steps(m, n, k, build._drop_empty(k, s, build.TC_BK)) >= cost
-               for s in range(1, most + 1))
+    assert all(_waves_times_steps(m, n, k, s) >= cost for s in _candidates(k))
 
 
 def test_tc_split_splits_the_stage_4_gemms():
@@ -561,3 +585,114 @@ def test_tc_split_splits_the_stage_4_gemms():
     assert build.tc_split(32 * 49, 512, 4608) > 1
     assert build.tc_split(32 * 49, 2048, 9216) > 1
     assert build.tc_split(32 * 56 * 56, 64, 576) == 1
+
+
+# --- the FC backward: one launch for da = g @ b^T and db = a^T @ g ---
+
+def _bwd_source():
+    return (build.CSRC / "matmul.cu").read_text()
+
+
+def test_matmul_bwd_constants_match_the_kernel():
+    """build.py's view of matmul.cu's backward tiles is the kernel's."""
+    src = _bwd_source()
+    src = src[src.index("namespace bwd {"):src.index("}  // namespace bwd")]
+    for name, value in (("R", build.BWD_R), ("MT", build.BWD_MT), ("NC", build.BWD_NC),
+                        ("TK", build.BWD_TK), ("TN", build.BWD_TN), ("MC", build.BWD_MC)):
+        assert _constant(src, name) == value, name
+
+
+def _chunk_ranges(total, step):
+    """The [lo, hi) contraction ranges a block walks: step columns (or rows)
+    at a time, the last one ragged, in order."""
+    return [(lo, min(total, lo + step)) for lo in range(0, total, step)]
+
+
+# (m, k, n): the training FC, the check cases' ragged N and two row tiles,
+# a batch-1 FC, and small ragged edges
+BWD_SHAPES = [(32, 2048, 1000), (5, 300, 33), (64, 2048, 1000), (1, 2048, 1000),
+              (33, 17, 129), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("need_a,need_b", [(True, True), (True, False), (False, True)],
+                         ids=["both", "da", "db"])
+@pytest.mark.parametrize("m,k,n", BWD_SHAPES)
+def test_matmul_bwd_plan_gives_each_output_one_owner(m, k, n, need_a, need_b):
+    """rt_matmul_bwd_f32's plan, decoded as the kernel decodes blockIdx: da's
+    blocks come first, every element of da and of db (where needed) has
+    exactly one owning block, every contraction row of a block lies in
+    exactly one chunk (its slices of N for da, its steps of M for db), and
+    the plan is a function of the shapes only (so a run repeats)."""
+    da_blocks, db_blocks = build.matmul_bwd_plan(m, k, n, need_a, need_b)
+    assert (da_blocks, db_blocks) == build.matmul_bwd_plan(m, k, n, need_a, need_b)
+    assert (da_blocks > 0) == need_a and (db_blocks > 0) == need_b
+    da_owner = np.zeros((m, k), dtype=int)
+    db_owner = np.zeros((k, n), dtype=int)
+    slabs = -(-k // build.BWD_R)
+    ntiles = -(-n // build.BWD_TN)
+    for block in range(da_blocks + db_blocks):
+        if block < da_blocks:
+            slab, mtile = block % slabs, block // slabs
+            rows = slice(mtile * build.BWD_MT, (mtile + 1) * build.BWD_MT)
+            cols = slice(slab * build.BWD_R, (slab + 1) * build.BWD_R)
+            da_owner[rows, cols] += 1
+            ranges, total = _chunk_ranges(n, build.BWD_NC), n
+        else:
+            t = block - da_blocks
+            rows = slice((t // ntiles) * build.BWD_TK, (t // ntiles + 1) * build.BWD_TK)
+            cols = slice((t % ntiles) * build.BWD_TN, (t % ntiles + 1) * build.BWD_TN)
+            db_owner[rows, cols] += 1
+            ranges, total = _chunk_ranges(m, build.BWD_MC), m
+        _assert_covers(total, ranges)
+    assert (da_owner == int(need_a)).all()
+    assert (db_owner == int(need_b)).all()
+
+
+def test_matmul_bwd_plan_at_the_training_fc():
+    """The FC at batch 32: 128 da blocks (16 rows of b each) and 256 db
+    tiles, one launch of 384 blocks; frozen features (db alone) 256."""
+    assert build.matmul_bwd_plan(32, 2048, 1000) == (128, 256)
+    assert build.matmul_bwd_plan(32, 2048, 1000, False, True) == (0, 256)
+    assert build.matmul_bwd_plan(64, 2048, 1000, True, False) == (256, 0)
+
+
+def _bwd_float4_reads():
+    """The da slice's two float4 reads as matmul.cu writes them: the base
+    expression of g's and of b's, and the row offset of each."""
+    import re
+
+    src = _bwd_source()
+    body = src[src.index("void da_block("):src.index("float* red = sm;")]
+    bases = dict(re.findall(r"const float\* (gs|bs) = (.+);", body))
+    reads = dict(re.findall(
+        r"(gv|bv)\[\w\] = \*reinterpret_cast<const float4\*>\((?:gs|bs) \+ (.+?)\);", body))
+    return bases, reads
+
+
+def test_matmul_bwd_float4_reads_hit_distinct_banks():
+    """The da slice's float4 reads, evaluated as matmul.cu writes them: each
+    quarter-warp (8 lanes; a 16-byte read is served 8 lanes at a time)
+    reads g's rows mg + 8i and b's rows rg + 4j at the warp's 4 contraction
+    columns, and its distinct float4s fall on distinct groups of 4 banks
+    (same-address lanes are a broadcast)."""
+    src = _bwd_source()
+    ldn = _constant(src, "NC") + 4
+    assert "constexpr int LDN = NC + 4;" in src and ldn % 4 == 0
+    bases, reads = _bwd_float4_reads()
+    assert set(reads) == {"gv", "bv"}
+    mt = _constant(src, "MT")
+    for ng in range(8):
+        for idx in range(4):
+            for quarter in range(4):
+                for which in ("gv", "bv"):
+                    starts = set()
+                    for lane in range(8 * quarter, 8 * quarter + 8):
+                        env = dict(sm=0, t=0, STAGES=5, DA_STAGE=0, ng=ng, mg=lane >> 2,
+                                   rg=lane & 3, LDN=ldn, MT=mt, i=idx, j=idx)
+                        env["gs"] = eval(bases["gs"], env)  # slot 0 of the ring
+                        env["bs"] = eval(bases["bs"], env)
+                        addr = env["gs" if which == "gv" else "bs"] + eval(reads[which], env)
+                        assert addr % 4 == 0
+                        starts.add(addr)
+                    groups = {(a % 32) // 4 for a in starts}
+                    assert len(groups) == len(starts), (which, ng, idx, quarter)
