@@ -15,9 +15,12 @@ Phases, each printing one JSON line:
      kernel, and the FC backward run twice and held to the same bits), with
      its time, the plain version's, a library call's where one computes the
      same function, the device time of the kernel and of the library call
-     (torch.profiler), the least time the card could take, and for the conv
-     forward and the FC backward the launch plan (tiles and K splits; da and
-     db blocks);
+     (torch.profiler, with its split by kernel name), the least time the
+     card could take, and for the conv forward, the whole-block kernel and
+     the FC backward the launch plan (tiles and K splits; da and db
+     blocks); then the whole-block kernel's weight split (split_tf32) at
+     the shapes of K10's twelve weights, bit for bit against its plain
+     version;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
      statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must
@@ -74,8 +77,8 @@ line. It needs a CUDA device and the resnet_tpu_torch package beside it; it
 never falls back to the CPU and imports nothing of JAX.
 
 With --kernels NAMES (comma-separated names of kernels.checks.KERNELS) it
-runs phases 1-3 for those kernels only, without the launch plans, and
-prints no final line: copied with kernels/checks.py into another tree of
+runs phases 1-3 for those kernels only, without the launch plans and the
+weight split, and prints no final line: copied with kernels/checks.py into another tree of
 the package, it times that tree's kernels on this tree's cases.
 """
 
@@ -251,6 +254,15 @@ def _plan(build, name, case):
         _, m, k, n, _, need_a, need_b = case
         return dict(zip(("da_blocks", "db_blocks"),
                         build.matmul_bwd_plan(m, k, n, need_a, need_b)))
+    if name == "block_fused":
+        _, (n, h, w, c4), c, _ = case
+        m = n * h * w
+        gemms = ((c, c4), (c, 9 * c), (c4, c))  # (Cout, K): reduce, 3x3, expand
+        tiles = [build.wg_tile_n(cout) for cout, _ in gemms]
+        return {"tile_n": tiles,
+                "tiles": [-(-m // build.WG_BM) * -(-cout // bn)
+                          for (cout, _), bn in zip(gemms, tiles)],
+                "splits": [build.wg_split(m, cout, k) for cout, k in gemms]}
     return None
 
 
@@ -264,6 +276,9 @@ def phase_kernels(checks, names, build=None):
             plan = _plan(build, name, case) if build is not None else None
             emit({"phase": "kernel", **r, **({"plan": plan} if plan else {})})
             results[name].append(r)
+    if build is not None and "block_fused" in names:
+        for case in checks.SPLIT_CASES:  # K10's weight split, bit for bit
+            emit({"phase": "kernel", **checks.check_split(case, seed=SEED)})
     return results
 
 

@@ -14,9 +14,11 @@ sums = [Σy, Σy²] per channel of each raw conv output r, s, e:
 with each (sc, sh) from its completed sums (``bn_affine_from_sums``). It is
 a ``torch.autograd.Function``. On CUDA tensors its forward launches K10,
 ``rt_block_fused_f32`` (``csrc/block_fused.cu``): one host call that enqueues
-the four stages and the on-device (sc, sh) rows on the current stream. On CPU
-tensors the plain version ``block_fused_reference`` runs, torch ops in the
-order of ``_block_fused_fwd_jnp`` (block_fused.py:202-254).
+the weights' K-major tf32 split, the three GEMMs on the wgmma core
+(``csrc/wg_gemm.cuh``, K splits from ``build.wg_split``), the on-device (sc,
+sh) rows and the join on the current stream. On CPU tensors the plain
+version ``block_fused_reference`` runs, torch ops in the order of
+``_block_fused_fwd_jnp`` (block_fused.py:202-254).
 ``block_fused_forward`` returns everything the kernel (or the plain
 version) writes: out, r, s, e, the three sums and the six (sc, sh) rows it
 applied. The backward recomputes the ReLU gates from those rows, so a gate
@@ -35,7 +37,14 @@ the JAX package's precision drop in its fused backward is not copied.
 ``_pad_interior`` (block_fused.py:368-389) is not carried over: it pads C to
 the TPU's 128 lanes, and the CUDA kernel masks any width.
 
-``LAUNCHES`` counts K10 launches.
+``split_tf32(b)`` is that split alone, the B operand of the wgmma core:
+(2, N, kp) with [0] = tf32(bᵀ) rounded to nearest, ties away (PTX
+``cvt.rna``), [1] = tf32(bᵀ - [0]), kp = K rounded up to a multiple of 4,
+zeros past K. Its plain version ``split_tf32_reference`` is bit for bit the
+kernel's.
+
+``LAUNCHES`` counts K10 launches, ``SPLIT_LAUNCHES`` those of the split
+kernel through ``split_tf32`` (K10 runs it inside its own host call).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from .fused_conv import _conv_vjp, bn_affine_from_sums, channel_sums
 
 # wrapper calls that launched the CUDA kernel
 LAUNCHES = 0
+SPLIT_LAUNCHES = 0
 _MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 _PAD1 = ((1, 1), (1, 1))
 
@@ -91,6 +101,41 @@ def block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap
     return out, r, s, e, sums_r, sums_s, sums_e, (sc_r, sh_r, sc_s, sh_s, sc_e, sh_e)
 
 
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 (10 mantissa bits) to nearest, ties away from
+    zero, as PTX ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude and clear them (a carry into the exponent is the right
+    rounding, up to inf); NaN stays NaN."""
+    bits = t.view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(t), t, rounded)
+
+
+def split_tf32_reference(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split kernel: b (K, N) -> (2, N, kp)."""
+    k, n = b.shape
+    bt = torch.zeros((n, build.kmajor_ld(k)), dtype=torch.float32, device=b.device)
+    bt[:, :k] = b.t()
+    hi = _tf32_rna(bt)
+    return torch.stack((hi, _tf32_rna(bt - hi)))
+
+
+def split_tf32(b: torch.Tensor) -> torch.Tensor:
+    """The K-major tf32 split of b (K, N) fp32 (see the module docstring):
+    the kernel on a CUDA tensor, the plain version on a CPU one."""
+    global SPLIT_LAUNCHES
+    if b.dim() != 2 or 0 in b.shape:
+        raise ValueError(f"split_tf32: expected a non-empty (K, N) matrix, got "
+                         f"{tuple(b.shape)}")
+    if not build.on_card("split_tf32", b):
+        return split_tf32_reference(b)
+    k, n = b.shape
+    out = torch.empty((2, n, build.kmajor_ld(k)), dtype=torch.float32, device=b.device)
+    build.launch("rt_split_tf32_f32", b.data_ptr(), out.data_ptr(), k, n, device=b.device)
+    SPLIT_LAUNCHES += 1
+    return out
+
+
 def _check(x, w1, w2, w3, g1, b1, g2, b2, g3, b3):
     if x.dim() != 4 or w1.dim() != 2 or w1.shape[0] != x.shape[3]:
         raise ValueError(f"block_fused: x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
@@ -117,34 +162,37 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     m = n * h * wd
     if m == 0 or c == 0:
         raise ValueError(f"block_fused: empty block x {tuple(x.shape)}, C={c}")
-    if -(-c4 // build.tc_tile_n(c4)) > _MAX_N_TILES or 9 * c >= 2**31:
+    if -(-c4 // build.wg_tile_n(c4)) > _MAX_N_TILES or 9 * c >= 2**31:
         raise ValueError(f"block_fused: 4C={c4}, C={c} beyond the kernel's grid")
     dev = x.device
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    out, e = torch.empty_like(x), torch.empty_like(x)
-    r, s = empty(n, h, wd, c), empty(n, h, wd, c)
-    sums_r, sums_s, sums_e = empty(2, c), empty(2, c), empty(2, c4)
-    rows = empty(4 * c + 2 * c4)
-    part = empty(-(-m // build.TC_BM), 2, max(c, c4))  # per TC_BM-row tile
     # (Cout, K) of the three GEMMs; one split-K workspace serves them in turn
     gemms = ((c, c4), (c, 9 * c), (c4, c))
-    splits = [build.tc_split(m, cout, k) for cout, k in gemms]
-    ws_floats = max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1),
-                    default=0)
-    ws = empty(ws_floats) if ws_floats else None
+    splits = [build.wg_split(m, cout, k) for cout, k in gemms]
+    out, e = torch.empty_like(x), torch.empty_like(x)
+    rs = torch.empty((2, n, h, wd, c), dtype=torch.float32, device=dev)
+    r, s = rs[0], rs[1]
+    small = torch.empty(8 * c + 4 * c4, dtype=torch.float32, device=dev)
+    sums_r, sums_s, sums_e, rows = small.split((2 * c, 2 * c, 2 * c4, 4 * c + 2 * c4))
+    # scratch: the per-WG_BM-row-tile statistics, the split-K partials and
+    # the split weights, each from a 256-byte boundary (TMA reads the last)
+    sizes = (-(-m // build.WG_BM) * 2 * max(c, c4),
+             max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1), default=0),
+             sum(2 * cout * build.kmajor_ld(k) for cout, k in gemms))
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + -(-size // 64) * 64)
+    work = torch.empty(starts[-1], dtype=torch.float32, device=dev)
+    part, ws, wsplit = (work.data_ptr() + 4 * start for start in starts[:3])
     build.launch("rt_block_fused_f32", x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                  w3.data_ptr(), g1.data_ptr(), b1.data_ptr(), g2.data_ptr(), b2.data_ptr(),
                  g3.data_ptr(), b3.data_ptr(), out.data_ptr(), r.data_ptr(), s.data_ptr(),
                  e.data_ptr(), sums_r.data_ptr(), sums_s.data_ptr(), sums_e.data_ptr(),
-                 rows.data_ptr(), part.data_ptr(), None if ws is None else ws.data_ptr(), n,
-                 h, wd, c4, c, float(eps), int(cap is not None),
-                 0.0 if cap is None else float(cap), *splits, device=dev)
+                 rows.data_ptr(), part, ws if sizes[1] else None, wsplit, n, h, wd, c4, c,
+                 float(eps), int(cap is not None), 0.0 if cap is None else float(cap),
+                 *splits, device=dev)
     LAUNCHES += 1
     aff = rows.split((c, c, c, c, c4, c4))
-    return out, r, s, e, sums_r, sums_s, sums_e, aff
+    return (out, r, s, e, sums_r.view(2, c), sums_s.view(2, c), sums_e.view(2, c4), aff)
 
 
 def _bn_bwd(da, y, gamma, sums, m: int, eps: float, dsums):

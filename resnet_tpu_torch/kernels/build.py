@@ -48,8 +48,11 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
     "rt_fused_join_f32": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _P],
     # x, w1, w2, w3, g1, b1, g2, b2, g3, b3, out, r, s, e, sums_r, sums_s,
-    # sums_e, rows, part, ws, N, H, W, C4, C, eps, has_cap, cap, splits x 3
-    "rt_block_fused_f32": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    # sums_e, rows, part, ws, wsplit, N, H, W, C4, C, eps, has_cap, cap,
+    # splits x 3
+    "rt_block_fused_f32": [*[_P] * 21, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    # b, bs, K, N: K10's K-major tf32 split of one weight
+    "rt_split_tf32_f32": [_P, _P, _I, _I, _P],
     "rt_bn_apply_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
     "rt_bn_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
     # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)
@@ -78,6 +81,12 @@ TC_BM = 128
 TC_BK = 32
 TC_STAGES = 3
 TC_BLOCKS_PER_SM = {64: 2, 128: 1}
+# the wgmma core's (wg_gemm.cuh BM, BK; Tile<BN>::STAGES and MIN_BLOCKS by
+# tile width, BN = wg_tile_n): K10's three GEMMs
+WG_BM = 128
+WG_BK = 32
+WG_STAGES = {64: 3, 128: 4}
+WG_BLOCKS_PER_SM = {64: 2, 128: 1}
 # the skinny FC kernel's (matmul.cu skinny::COLS, KG, KC_MAX, MAX_M)
 SKINNY_COLS = 32
 SKINNY_STAGE = 16
@@ -209,30 +218,58 @@ def tc_tile_n(n: int) -> int:
     return 64 if n <= 64 else 128
 
 
+def _waves_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int, resident: int,
+                fill: int) -> int:
+    """K splits of an (m, n) output over depth k on bm x bn tiles: of the
+    counts whose chunks, rounded to whole bk-deep K-steps, keep each split
+    at least 16 K-steps deep, at most 256, the one whose blocks finish
+    soonest, counted in K-steps: waves of ``resident`` blocks times (chunk
+    steps + ``fill``, the ring's fill), fewer splits on a tie."""
+    tiles = -(-m // bm) * -(-n // bn)
+    best = None
+    for splits in range(1, min(256, max(1, -(-k // (16 * bk)))) + 1):
+        splits = _drop_empty(k, splits, bk)
+        if splits > 1 and k_chunk(k, splits, bk) < 16 * bk:
+            continue  # rounding to whole K-steps left the chunks too shallow
+        cost = -(-tiles * splits // resident) * (k_chunk(k, splits, bk) // bk + fill)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def tc_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on tc_gemm.cuh's tiles:
     conv dW (m = k*k*Cin, n = Cout, k = the pixels), conv dx at stride 1
     (m = the pixels, n = Cin, k = k*k*Cout), and the conv forward and the
-    fused conv (m = the output pixels, n = Cout, k = k*k*Cin). Of the counts
-    whose chunks, rounded to whole K-steps, keep each split at least 16
-    K-steps (512 columns) deep, at most 256, the one whose blocks finish
-    soonest, counted in K-steps: waves of resident blocks
-    times (chunk steps + the ring's fill), fewer splits on a tie. A function
-    of the shapes only (cached), so a call repeats exactly."""
+    fused conv (m = the output pixels, n = Cout, k = k*k*Cin), planned in
+    waves of resident blocks (``_waves_plan``). A function of the shapes
+    only (cached), so a call repeats exactly."""
     bn = tc_tile_n(n)
-    tiles = -(-m // TC_BM) * -(-n // bn)
-    resident = _SMS * TC_BLOCKS_PER_SM[bn]
-    best = None
-    for splits in range(1, min(256, max(1, -(-k // (16 * TC_BK)))) + 1):
-        splits = _drop_empty(k, splits, TC_BK)
-        if splits > 1 and k_chunk(k, splits, TC_BK) < 16 * TC_BK:
-            continue  # rounding to whole K-steps left the chunks too shallow
-        cost = (-(-tiles * splits // resident)
-                * (k_chunk(k, splits, TC_BK) // TC_BK + TC_STAGES - 1))
-        if best is None or cost < best[0]:
-            best = (cost, splits)
-    return best[1]
+    return _waves_plan(m, n, k, TC_BM, bn, TC_BK, _SMS * TC_BLOCKS_PER_SM[bn], TC_STAGES - 1)
+
+
+def wg_tile_n(n: int) -> int:
+    """wg_gemm.cuh's tile width for an N-wide output: 64 up to 64, else 128
+    (block_fused.cu's stage picks the same)."""
+    return 64 if n <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def wg_split(m: int, n: int, k: int) -> int:
+    """K splits of one of K10's GEMMs (m = the block's pixels, n = Cout,
+    k = k*k*Cin) on wg_gemm.cuh's tiles, planned in waves of its resident
+    blocks (``_waves_plan``; the ring holds WG_STAGES slices). A function
+    of the shapes only (cached), so a call repeats exactly."""
+    bn = wg_tile_n(n)
+    return _waves_plan(m, n, k, WG_BM, bn, WG_BK, _SMS * WG_BLOCKS_PER_SM[bn],
+                       WG_STAGES[bn] - 1)
+
+
+def kmajor_ld(k: int) -> int:
+    """The row stride of a K-major split weight (block_fused.cu kmajor_ld):
+    k rounded up to a multiple of 4 floats, as TMA takes 16-byte strides."""
+    return -(-k // 4) * 4
 
 
 def skinny_split(m: int, n: int, k: int) -> int:

@@ -36,8 +36,12 @@ SXM's peak for their type, with ``bound_by`` naming the one that sets it:
 the FLOPs over the 67 TFLOP/s fp32 peak, and for the conv forward, dW and
 dx, the fused conv (K8) and the whole-block kernel (K10), whose kernels do
 each fp32 product as three TF32 products on the tensor cores
-(``csrc/tc_gemm.cuh``), three times their FLOPs over 495 TFLOP/s; for those
+(``csrc/tc_gemm.cuh``; K10's ``csrc/wg_gemm.cuh``), three times their FLOPs
+over 495 TFLOP/s; for those
 ``fp32_fma_bound_ms`` gives the bound at the fp32 FMA peak beside it.
+
+K10's weight split (``check_split``, ``SPLIT_CASES``) must equal its plain
+version bit for bit, on weights with exact ties at the dropped bits.
 
 The split-K GEMMs and the FC backward (``REPEAT_KERNELS``) are also run a
 second time on the same inputs and must give the same bits: their partials
@@ -185,9 +189,8 @@ BN_BWD_CASES = [(f"({label}){' relu' if relu else ''}", m, c, relu)
 # (label, x shape (N, H, W, 4C), C, cap): K10 at the four identity-block
 # shapes of ResNet-50 at batch 32; a cap of 2 that clips in both prologues
 # and in the join; widths not a multiple of 4 with M = 75 rows, not a
-# multiple of 128; and a batch-2 block whose reduce splits K in 2 and whose
-# 3x3 splits it in 3 (build.tc_split), so that the statistics come from the
-# summed y
+# multiple of 128; and a batch-2 block whose 3x3 splits K in 2
+# (build.wg_split), so that its statistics come from the summed y
 BLOCK_FUSED_CASES = [
     ("stage 1 (32,56,56,256) C=64", (32, 56, 56, 256), 64, None),
     ("stage 2 (32,28,28,512) C=128", (32, 28, 28, 512), 128, None),
@@ -197,6 +200,14 @@ BLOCK_FUSED_CASES = [
     ("ragged (3,5,5,36) C=9", (3, 5, 5, 36), 9, None),
     ("split K (2,4,4,516) C=129", (2, 4, 4, 516), 129, None),
 ]
+# (label, K, N): K10's weights as its split kernel takes them (block_fused
+# split_tf32), the reduce (4C, C), the 3x3 (9C, C) and the expand (C, 4C)
+# of the four identity-block stages, then widths that are not multiples of 4
+SPLIT_CASES = [(f"stage {i} {what} ({k},{n})", k, n)
+               for i, c in enumerate((64, 128, 256, 512), 1)
+               for what, k, n in (("reduce", 4 * c, c), ("3x3", 9 * c, c),
+                                  ("expand", c, 4 * c))] + [
+    ("ragged 3x3 (81,9)", 81, 9), ("ragged expand (9,36)", 9, 36)]
 
 # the split-K GEMMs and the FC backward, run twice per case and held to the
 # same bits
@@ -244,12 +255,13 @@ def median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> floa
     return statistics.median(times)
 
 
-def device_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
-              tries: int = 2) -> Optional[float]:
-    """Device time of one call: the summed device time of every kernel and
-    copy it launches (torch.profiler over ``reps`` calls, after warm-up),
-    divided by ``reps``. A profile that records no device time (seen once
-    on the H100) is taken again; None if every try records none."""
+def device_profile(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
+                   tries: int = 2) -> Optional[Dict[str, float]]:
+    """Device time of one call by kernel: each kernel and copy that the call
+    launches, by name (cut to 80 characters), with its summed device time
+    over ``reps`` calls (torch.profiler, after warm-up) divided by ``reps``.
+    A profile that records no device time (seen once on the H100) is taken
+    again; None if every try records none."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -264,10 +276,22 @@ def device_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
-            total_us = sum(e.self_device_time_total for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / reps / 1e3
+            rows: Dict[str, float] = {}
+            for e in prof.key_averages():
+                if e.self_device_time_total > 0:
+                    key = e.key[:80]
+                    rows[key] = rows.get(key, 0.0) + e.self_device_time_total / reps / 1e3
+        if rows:
+            return rows
     return None
+
+
+def device_ms(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
+              tries: int = 2) -> Optional[float]:
+    """Device time of one call: the summed device time of every kernel and
+    copy it launches (``device_profile``)."""
+    rows = device_profile(fn, reps, warmup, tries)
+    return None if rows is None else sum(rows.values())
 
 
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS_PER_S
@@ -554,6 +578,40 @@ def _adam_case(case, randn, device) -> _Case:
                  timed=(run, plain))
 
 
+def split_input(k: int, n: int, gen: torch.Generator, device) -> torch.Tensor:
+    """A (k, n) weight whose every eighth element sits exactly halfway
+    between two tf32 values (the 13 dropped bits 0x1000), where rounding
+    to nearest with ties away differs from ties to even."""
+    b = torch.randn(k, n, generator=gen, device=device) * (2.0 / k) ** 0.5
+    bits = b.view(torch.int32).reshape(-1)
+    tie = (bits[::8] & ~0x1FFF) | 0x1000
+    bits[::8] = tie
+    return b
+
+
+def check_split(case, *, device="cuda", seed: int = 0,
+                timing: bool = True) -> Dict[str, object]:
+    """K10's weight split (``block_fused.split_tf32``) against its plain
+    version, bit for bit; raises RuntimeError where they differ. Returns
+    {kernel, case, max_abs_err, bound_ms, bound_by} and, with timing, ms,
+    plain_ms and device_ms."""
+    label, k, n = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = split_input(k, n, gen, device)
+    got, want = block_fused.split_tf32(b), block_fused.split_tf32_reference(b)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise RuntimeError(f"split_tf32 {label}: not equal to the plain version bit for bit")
+    least, by = bound(4 * (k * n + got.numel()), 2 * k * n)
+    out = {"kernel": "split_tf32", "case": label, "max_abs_err": 0.0, "bound_ms": least,
+           "bound_by": by}
+    if timing:
+        out["ms"] = median_ms(lambda: block_fused.split_tf32(b))
+        out["plain_ms"] = median_ms(lambda: block_fused.split_tf32_reference(b))
+        out["device_ms"] = device_ms(lambda: block_fused.split_tf32(b))
+    return out
+
+
 def _outputs(out) -> List[torch.Tensor]:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
@@ -564,7 +622,8 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
 
     Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} (and
     fp32_fma_bound_ms for the tensor-core kernels) and, with timing, ms,
-    plain_ms, library_ms, device_ms and library_device_ms."""
+    plain_ms, library_ms, device_ms (with device_kernels, its split by
+    kernel name) and library_device_ms."""
     gen = torch.Generator(device=device).manual_seed(seed)
     c = _make(kernel, case, gen, device)
     got, want = _outputs(c.run()), _outputs(c.plain())
@@ -608,7 +667,9 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         out["ms"] = median_ms(c.timed[0])
         out["plain_ms"] = median_ms(c.timed[1])
         out["library_ms"] = median_ms(c.library) if c.library is not None else None
-        out["device_ms"] = device_ms(c.timed[0])
+        kernels = device_profile(c.timed[0])
+        out["device_ms"] = None if kernels is None else sum(kernels.values())
+        out["device_kernels"] = kernels
         out["library_device_ms"] = (device_ms(c.library) if c.library is not None
                                     else None)
     return out

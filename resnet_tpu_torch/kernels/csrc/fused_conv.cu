@@ -43,10 +43,83 @@
 // memory (8 bytes read, 4 written per element). wgmma/TMA tiling and
 // folding K9 into the expand conv's epilogue are later work.
 //
-// The device code of both lives in fused_conv.cuh, shared with K10
-// (csrc/block_fused.cu); this file holds their entry points.
+// K8's GEMM kernels are here; the gather, the statistics passes and the
+// join live in fused_conv.cuh, shared with K10 (csrc/block_fused.cu).
+// Measured (-Xptxas -v, nvcc 12.9, sm_90a): fused_conv_tc128_kernel and
+// fused_conv_tc64_kernel in PERF.md.
 
 #include "fused_conv.cuh"
+
+namespace {
+
+// as conv.cu's tc kernels: the 128 x 64 tile capped at 128 registers, two
+// blocks per SM; the 128 x 128 tile one block
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS, 2)
+fused_conv_tc64_kernel(const FusedConvTcA a, const float* __restrict__ w,
+                       float* __restrict__ y, int Cout, int64_t k_chunk,
+                       float* __restrict__ tile_sums) {
+  rt::tc::gemm_k<64, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                k_chunk, tile_sums);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(rt::tc::THREADS)
+fused_conv_tc128_kernel(const FusedConvTcA a, const float* __restrict__ w,
+                        float* __restrict__ y, int Cout, int64_t k_chunk,
+                        float* __restrict__ tile_sums) {
+  rt::tc::gemm_k<128, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
+                                 k_chunk, tile_sums);
+}
+
+// sums (2, C) = the tile partials added per channel (tile_sums)
+__global__ void __launch_bounds__(CT * FL)
+tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
+                int64_t m_tiles) {
+  float s0, s1;
+  if (tile_sums(part, C, m_tiles, s0, s1)) {
+    const int c = blockIdx.x * CT + threadIdx.x;
+    sums[c] = s0;
+    sums[C + c] = s1;
+  }
+}
+
+template <int BN, int VEC>
+inline int launch_fused_gemm(const FusedConvTcA& a, const float* w, float* y, float* part,
+                             int Cout, float* ws, int splits, cudaStream_t s) {
+  auto* kernel = fused_conv_tc128_kernel<VEC>;
+  if constexpr (BN == 64) kernel = fused_conv_tc64_kernel<VEC>;
+  return rt::tc::launch<BN, FusedConvTcA>(
+      kernel,
+      [&](dim3 grid, int smem, float* out, int64_t kc) {
+        kernel<<<grid, rt::tc::THREADS, smem, s>>>(a, w, out, Cout, kc,
+                                                   splits == 1 ? part : nullptr);
+      },
+      y, ws, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin, splits, s);
+}
+
+// y (M, Cout) and its sums (2, Cout) of the conv gathered by `a` with w
+// (k * k * Cin, Cout): the GEMM, then the statistics. part holds m_tiles * 2
+// * Cout floats (m_tiles = ceil(M / TILE_M)); ws holds splits * M * Cout
+// floats when splits > 1. Tiles 128 x 64 where Cout <= 64, else 128 x 128
+// (build.py tc_tile_n). Enqueued on s; returns the launch status.
+inline int fused_conv_stats(const FusedConvTcA& a, const float* w, float* y, float* part,
+                            float* sums, int Cout, float* ws, int splits, cudaStream_t s) {
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  const bool vec = a.Cin % 4 == 0 && Cout % 4 == 0 && (uintptr_t)a.x % 16 == 0 &&
+                   (uintptr_t)w % 16 == 0;
+  auto* gemm = Cout <= 64 ? (vec ? launch_fused_gemm<64, 4> : launch_fused_gemm<64, 1>)
+                          : (vec ? launch_fused_gemm<128, 4> : launch_fused_gemm<128, 1>);
+  const int status = gemm(a, w, y, part, Cout, ws, splits, s);
+  if (status != 0) return status;
+  const unsigned ct = (unsigned)((Cout + CT - 1) / CT);
+  if (splits > 1)
+    column_partials<<<dim3(ct, (unsigned)m_tiles), dim3(CT, RT), 0, s>>>(y, part, a.M, Cout);
+  tile_sums_final<<<ct, dim3(CT, FL), 0, s>>>(part, sums, Cout, m_tiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // y (N, Ho, Wo, Cout) and sums (2, Cout) of the fused conv of x (N, H, W,
 // Cin) with w (k, k, Cin, Cout): window (oy, ox) starts at input row

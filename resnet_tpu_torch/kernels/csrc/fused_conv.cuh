@@ -1,6 +1,9 @@
-// Device code of the fused conv (K8) and the residual join (K9), shared by
-// csrc/fused_conv.cu (their entry points) and csrc/block_fused.cu (K10, whose
-// stages 0-2 are K8 and stage 3 is K9 with an identity residual).
+// Device code shared by the fused conv (K8) and the residual join (K9),
+// whose kernels and entry points are in csrc/fused_conv.cu, and K10
+// (csrc/block_fused.cu): the gather with the prologue, the statistics
+// passes and the join. K10's stages 0-2 gather as K8 does, but run their
+// GEMMs on wg_gemm.cuh's wgmma core; its stage 3 is K9 with an identity
+// residual.
 //
 // The fused conv is the implicit GEMM of the conv on the split-TF32
 // tensor-core core (tc_gemm.cuh, K-major A) with the loader FusedConvTcA,
@@ -21,15 +24,13 @@
 // tile each) or, when the GEMM splits K and its tiles hold partials, from a
 // column pass over the summed y into the same workspace, one 128-row tile
 // per entry too; a second kernel adds the tiles per channel in double, in a
-// fixed order. No atomics, so a run repeats exactly.
+// fixed order (tile_sums). No atomics, so a run repeats exactly.
 //
 // The join is one elementwise pass (float4 where every pointer is 16-byte
 // aligned, a scalar loop for the remainder or the whole range otherwise),
 // each product and sum rounded on its own as the plain PyTorch version
 // rounds it.
 //
-// Measured (-Xptxas -v, nvcc 12.9, sm_90a): fused_conv_tc128_kernel and
-// fused_conv_tc64_kernel in PERF.md.
 #pragma once
 
 #include "im2col.cuh"
@@ -64,26 +65,6 @@ inline FusedConvTcA conv_loader(const float* x, const float* scale, const float*
   return a;
 }
 
-// as conv.cu's tc kernels: the 128 x 64 tile capped at 128 registers, two
-// blocks per SM; the 128 x 128 tile one block
-template <int VEC>
-__global__ void __launch_bounds__(rt::tc::THREADS, 2)
-fused_conv_tc64_kernel(const FusedConvTcA a, const float* __restrict__ w,
-                       float* __restrict__ y, int Cout, int64_t k_chunk,
-                       float* __restrict__ tile_sums) {
-  rt::tc::gemm_k<64, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
-                                k_chunk, tile_sums);
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(rt::tc::THREADS)
-fused_conv_tc128_kernel(const FusedConvTcA a, const float* __restrict__ w,
-                        float* __restrict__ y, int Cout, int64_t k_chunk,
-                        float* __restrict__ tile_sums) {
-  rt::tc::gemm_k<128, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
-                                 k_chunk, tile_sums);
-}
-
 // Split-K case: per TILE_M-row tile of y (M, C), the column sums and sums
 // of squares, into the same workspace layout as the GEMM epilogue's
 __global__ void __launch_bounds__(CT * RT)
@@ -115,10 +96,12 @@ column_partials(const float* __restrict__ y, float* __restrict__ part, int64_t M
   }
 }
 
-// sums (2, C) = the tile partials added per channel in double, fixed order
-__global__ void __launch_bounds__(CT * FL)
-tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
-                int64_t m_tiles) {
+// Channel blockIdx.x * CT + threadIdx.x of the tile partials (m_tiles, 2,
+// C) added in double in a fixed order, rounded to (s0, s1); true in the
+// thread that holds it (threadIdx.y == 0, c < C). Called by every thread
+// of a (CT, FL) block.
+__device__ __forceinline__ bool tile_sums(const float* __restrict__ part, int C,
+                                          int64_t m_tiles, float& s0, float& s1) {
   const int c = blockIdx.x * CT + threadIdx.x;
   double a = 0.0, b = 0.0;
   if (c < C) {
@@ -131,50 +114,15 @@ tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
   sh[0][threadIdx.y][threadIdx.x] = a;
   sh[1][threadIdx.y][threadIdx.x] = b;
   __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    double sa = 0.0, sb = 0.0;
-    for (int t = 0; t < FL; ++t) {
-      sa += sh[0][t][threadIdx.x];
-      sb += sh[1][t][threadIdx.x];
-    }
-    sums[c] = (float)sa;
-    sums[C + c] = (float)sb;
+  if (threadIdx.y != 0 || c >= C) return false;
+  double sa = 0.0, sb = 0.0;
+  for (int t = 0; t < FL; ++t) {
+    sa += sh[0][t][threadIdx.x];
+    sb += sh[1][t][threadIdx.x];
   }
-}
-
-template <int BN, int VEC>
-inline int launch_fused_gemm(const FusedConvTcA& a, const float* w, float* y, float* part,
-                             int Cout, float* ws, int splits, cudaStream_t s) {
-  auto* kernel = fused_conv_tc128_kernel<VEC>;
-  if constexpr (BN == 64) kernel = fused_conv_tc64_kernel<VEC>;
-  return rt::tc::launch<BN, FusedConvTcA>(
-      kernel,
-      [&](dim3 grid, int smem, float* out, int64_t kc) {
-        kernel<<<grid, rt::tc::THREADS, smem, s>>>(a, w, out, Cout, kc,
-                                                   splits == 1 ? part : nullptr);
-      },
-      y, ws, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin, splits, s);
-}
-
-// y (M, Cout) and its sums (2, Cout) of the conv gathered by `a` with w
-// (k * k * Cin, Cout): the GEMM, then the statistics. part holds m_tiles * 2
-// * Cout floats (m_tiles = ceil(M / TILE_M)); ws holds splits * M * Cout
-// floats when splits > 1. Tiles 128 x 64 where Cout <= 64, else 128 x 128
-// (build.py tc_tile_n). Enqueued on s; returns the launch status.
-inline int fused_conv_stats(const FusedConvTcA& a, const float* w, float* y, float* part,
-                            float* sums, int Cout, float* ws, int splits, cudaStream_t s) {
-  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
-  const bool vec = a.Cin % 4 == 0 && Cout % 4 == 0 && (uintptr_t)a.x % 16 == 0 &&
-                   (uintptr_t)w % 16 == 0;
-  auto* gemm = Cout <= 64 ? (vec ? launch_fused_gemm<64, 4> : launch_fused_gemm<64, 1>)
-                          : (vec ? launch_fused_gemm<128, 4> : launch_fused_gemm<128, 1>);
-  const int status = gemm(a, w, y, part, Cout, ws, splits, s);
-  if (status != 0) return status;
-  const unsigned ct = (unsigned)((Cout + CT - 1) / CT);
-  if (splits > 1)
-    column_partials<<<dim3(ct, (unsigned)m_tiles), dim3(CT, RT), 0, s>>>(y, part, a.M, Cout);
-  tile_sums_final<<<ct, dim3(CT, FL), 0, s>>>(part, sums, Cout, m_tiles);
-  return (int)cudaGetLastError();
+  s0 = (float)sa;
+  s1 = (float)sb;
+  return true;
 }
 
 // e * se + te + r * sr + tr, left to right, each step rounded (K9)

@@ -1,6 +1,7 @@
-// The K-major im2col gather of a conv's input for tc_gemm.cuh's gemm_k,
-// shared by the conv forward (K1, conv.cu, without a prologue) and the
-// fused conv (K8 and K10's three GEMMs, fused_conv.cuh, with one).
+// The K-major im2col gather of a conv's input for tc_gemm.cuh's gemm_k and
+// wg_gemm.cuh's gemm, shared by the conv forward (K1, conv.cu, without a
+// prologue), the fused conv (K8, fused_conv.cuh, with one) and K10's three
+// GEMMs (block_fused.cu, with one).
 //
 // Row (n, oy, ox) of the GEMM is one output pixel, column (di, dj, ci) one
 // tap and input channel: A(m, k) = x[n, s*oy - pad_top + di,
@@ -12,7 +13,7 @@
 // carries; where Cin % 32 == 0 a K-step is one tap, at the stem (Cin = 3)
 // one step crosses about 11 taps.
 //
-// kPrologue (K8): each element read is rewritten in shared memory, once its
+// kPrologue (K8, K10): each element read is rewritten in shared memory, once its
 // slice has landed, to act(__fadd_rn(__fmul_rn(v, scale[ci]), shift[ci]))
 // (rounded step by step as the plain version is); elements outside the
 // image were zero-filled and stay exactly 0. Without it (K1) gemm_k's
@@ -91,10 +92,22 @@ struct Im2colTcA {
     return x + r.off + ((long long)c.di * W + c.dj) * Cin + c.ci;
   }
 
+  // the prologue of v given its channel's (scale, shift)
+  __device__ float affine(float v, float sc, float sh) const {
+    return act(__fadd_rn(__fmul_rn(v, sc), sh));
+  }
+
   // the prologue of the element read at channel c.ci + j
   __device__ float apply(float v, const Cursor& c, int j) const {
     const int ch = c.ci + j;
-    return act(__fadd_rn(__fmul_rn(v, __ldg(scale + ch)), __ldg(shift + ch)));
+    return affine(v, __ldg(scale + ch), __ldg(shift + ch));
+  }
+
+  // the (scale, shift) of channels c.ci .. c.ci + 3 in two 16-byte loads
+  // (Cin a multiple of 4, scale and shift 16-byte aligned)
+  __device__ void affine4(const Cursor& c, float4& sc, float4& sh) const {
+    sc = __ldg(reinterpret_cast<const float4*>(scale + c.ci));
+    sh = __ldg(reinterpret_cast<const float4*>(shift + c.ci));
   }
 
   __device__ int64_t out_row(int64_t m) const { return m; }

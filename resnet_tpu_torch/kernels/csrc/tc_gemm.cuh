@@ -1,7 +1,8 @@
 // Split-TF32 ("3xTF32") tensor-core GEMM core with a cp.async ring, fp32
-// accurate. Carries every conv GEMM of the port: the conv forward, dW and dx
-// (conv.cu) and the fused conv, K8, with K10's three GEMMs (fused_conv.cuh).
-// The forward and K8 share one gather, im2col.cuh.
+// accurate. Carries the conv GEMMs of the port: the conv forward, dW and dx
+// (conv.cu) and the fused conv, K8 (fused_conv.cu); K10's three GEMMs run
+// on the wgmma core, wg_gemm.cuh. The forward and K8 share one gather,
+// im2col.cuh.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major (M, N). One 256-thread
 // block computes a BM x BN tile of C (128 x 128, or 128 x 64 where N <= 64)
@@ -36,8 +37,9 @@
 // * mma.sync, not wgmma: wgmma takes tf32 operands only K-major in shared
 //   memory. B here is N-major for every user (dW's gradient, dx's and K8's
 //   weights, (K, N) row-major), and dW's A is M-major too. The fragments
-//   read the staged tiles directly. A wgmma design would need K-major,
-//   pre-split w_hi and w_lo in device memory, and dW a staging transpose.
+//   read the staged tiles directly. wg_gemm.cuh is the wgmma design, on
+//   K-major, pre-split w_hi and w_lo in device memory (K10 only so far);
+//   dW would need a staging transpose.
 // * Two A layouts, chosen by the loader at compile time (kKMajor):
 //   - M-fast (dW: neighbouring rows of one K column are neighbouring
 //     channels): the slice is stored [BK][BM + 8];

@@ -174,3 +174,77 @@ def test_block_fused_rejects_what_the_kernel_does_not_take(no_launch, call):
     the plain version."""
     with pytest.raises((TypeError, ValueError)):
         call()
+
+
+# --- K10's weight split: the K-major tf32 hi and lo of the wgmma core ---
+
+def _rna_numpy(v):
+    """tf32 of fp32 values, round to nearest with ties away from zero (PTX
+    cvt.rna.tf32.f32), on the bits: keep the top 19, and add one unit of
+    the kept last place to the magnitude where the 13 dropped bits are at
+    least half of it."""
+    bits = np.asarray(v, dtype=np.float32).view(np.uint32)
+    kept = bits & np.uint32(0xFFFFE000)
+    up = (bits & np.uint32(0x1FFF)) >= np.uint32(0x1000)
+    return np.where(up, kept + np.uint32(0x2000), kept).astype(np.uint32).view(np.float32)
+
+
+def test_tf32_rna_rounds_ties_away_from_zero():
+    """The dropped 13 bits at exactly half (0x1000) round away from zero,
+    where ties-to-even would keep an even last place; below half rounds
+    down, above half up, a carry reaches the exponent (up to inf), and the
+    plain version agrees with the numpy bit-level reference bit for bit."""
+    one = 0x3F800000
+    cases = {  # input bits -> tf32 bits
+        one | 0x1000: one | 0x2000,            # 1 + 2^-11, a tie on an even place: away
+        one | 0x3000: one | 0x4000,            # a tie on an odd place: away (and even)
+        one | 0x0FFF: one,                     # just below half: down
+        one | 0x1001: one | 0x2000,            # just above half: up
+        0x80000000 | one | 0x1000: 0x80000000 | one | 0x2000,  # negative: away from 0
+        0x3FFFF000: 0x40000000,                # 2 - 2^-11: the carry reaches the exponent
+        0x7F7FFFFF: 0x7F800000,                # the largest float rounds to inf
+        0x00001000: 0x00002000,                # a subnormal tie
+        0: 0,
+    }
+    v = np.array(list(cases), dtype=np.uint32).view(np.float32)
+    want = np.array(list(cases.values()), dtype=np.uint32)
+    assert np.array_equal(_rna_numpy(v).view(np.uint32), want)
+    got = tbf._tf32_rna(torch.from_numpy(v.copy())).numpy().view(np.uint32)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("k,n", [(256, 64), (576, 64), (64, 256), (81, 9), (9, 36), (37, 5)])
+def test_split_tf32_reference_matches_numpy_bits(no_launch, k, n):
+    """split_tf32 on the CPU (its plain version): (2, N, kp) with kp = K
+    rounded up to a multiple of 4, [0] = rna(bᵀ), [1] = rna(bᵀ - [0]), zeros
+    past K, bit for bit against the numpy reference on seeded weights with
+    every eighth element an exact tie; and hi + lo recovers b within 2^-22
+    of |b|."""
+    rng = np.random.default_rng(k * 1000 + n)
+    b = rng.normal(0, (2.0 / k) ** 0.5, (k, n)).astype(np.float32)
+    flat = b.reshape(-1).view(np.uint32)
+    flat[::8] = (flat[::8] & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+    got = tbf.split_tf32(torch.from_numpy(b.copy())).numpy()
+    kp = -(-k // 4) * 4
+    assert got.shape == (2, n, kp)
+    hi = _rna_numpy(b.T)
+    lo = _rna_numpy(b.T - hi)
+    assert np.array_equal(got[0, :, :k].view(np.uint32), hi.view(np.uint32))
+    assert np.array_equal(got[1, :, :k].view(np.uint32), lo.view(np.uint32))
+    assert not got[:, :, k:].any()
+    # each a tf32 value, and the pair recovers b
+    assert not (got.view(np.uint32) & np.uint32(0x1FFF)).any()
+    err = np.abs(got[0, :, :k].astype(np.float64) + got[1, :, :k] - b.T)
+    assert (err <= 2.0 ** -22 * np.abs(b.T)).all()
+    # the ties really rounded away from zero
+    ties = b.reshape(-1)[::8]
+    assert (np.abs(_rna_numpy(ties)) > np.abs(ties)).all()
+
+
+def test_split_tf32_rejects_what_the_kernel_does_not_take(no_launch):
+    tbf.SPLIT_LAUNCHES = 0
+    for bad in (torch.zeros(3, 4, 5), torch.zeros(0, 4), torch.zeros(3, 4, dtype=torch.float64),
+                torch.zeros(4, 3).t()):
+        with pytest.raises((TypeError, ValueError)):
+            tbf.split_tf32(bad)
+    assert tbf.SPLIT_LAUNCHES == 0

@@ -5,8 +5,9 @@ one test per kernel and shape, so each can be rerun alone on a GPU:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -m gpu -q
 
-and the kernels on the tensor-core GEMM core alone with
-``-k "conv2d or fused_conv or block_fused"``.
+the kernels on tc_gemm.cuh's tensor-core core alone with
+``-k "conv2d or fused_conv"``, and K10 on the wgmma core (wg_gemm.cuh) with
+its weight split alone with ``-k "block_fused or split_tf32"``.
 
 Without a CUDA device every test here skips.
 """
@@ -257,3 +258,34 @@ def test_block_fused_on_cuda_matches_the_cpu(cuda):
     assert block_fused.LAUNCHES == before + 1
     for g, want in zip(got, run("cpu"), strict=True):
         torch.testing.assert_close(g, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("case", checks.SPLIT_CASES, ids=[c[0] for c in checks.SPLIT_CASES])
+def test_split_tf32_is_its_plain_version_bit_for_bit(cuda, case):
+    """K10's weight split (the wgmma core's K-major tf32 hi and lo, cvt.rna)
+    at the shapes of the twelve weights of ResNet-50's identity blocks and
+    two ragged ones, every eighth element an exact tie: the kernel equals
+    split_tf32_reference bit for bit, one launch per call."""
+    from resnet_tpu_torch.kernels import block_fused
+
+    before = block_fused.SPLIT_LAUNCHES
+    checks.check_split(case, timing=False)
+    assert block_fused.SPLIT_LAUNCHES == before + 1
+
+
+# (x shape, C): 64 channels on 128 x 64 tiles with M = 162 rows, not a
+# multiple of the 128-row tile, and the same rows at C = 128 (128 x 128 tiles)
+BLOCK_RAGGED_ROWS = [((2, 9, 9, 256), 64), ((2, 9, 9, 512), 128)]
+
+
+@pytest.mark.parametrize("shape,c", BLOCK_RAGGED_ROWS, ids=["C64", "C128"])
+def test_block_fused_ragged_rows(cuda, shape, c):
+    """K10 where M = 162 leaves the last 128-row tile a third full: within
+    1e-4 of max|plain| on every output, the same bits on a second run, one
+    launch per call."""
+    from resnet_tpu_torch.kernels import block_fused
+
+    before = block_fused.LAUNCHES
+    r = checks.check_case("block_fused", (f"rows 162 C={c}", shape, c, None), timing=False)
+    assert r["rel_err"] <= checks.REL_TOL
+    assert block_fused.LAUNCHES == before + 2

@@ -125,7 +125,8 @@ def test_sources_and_signatures_agree():
         "fused_conv.cu", "block_fused.cu"}
     # the headers are in the hash too: the GEMM cores and the shared device code
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
-        "tiled_gemm.cuh", "tc_gemm.cuh", "fused_conv.cuh", "rowwise.cuh", "im2col.cuh"}
+        "tiled_gemm.cuh", "tc_gemm.cuh", "wg_gemm.cuh", "fused_conv.cuh", "rowwise.cuh",
+        "im2col.cuh"}
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
     assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
@@ -133,6 +134,13 @@ def test_sources_and_signatures_agree():
     tc = (build.CSRC / "tc_gemm.cuh").read_text()
     for name, value in (("BM", build.TC_BM), ("BK", build.TC_BK), ("STAGES", build.TC_STAGES)):
         assert f"constexpr int {name} = {value};" in tc, name
+    # ... and of the wgmma core (K10): its tile, ring depths and residency
+    wg = (build.CSRC / "wg_gemm.cuh").read_text()
+    assert f"constexpr int BM = {build.WG_BM};" in wg
+    assert build.WG_BK == build.TC_BK and "constexpr int BK = tc::BK;" in wg
+    assert (f"STAGES = BN == 64 ? {build.WG_STAGES[64]} : {build.WG_STAGES[128]};" in wg)
+    assert (f"MIN_BLOCKS = BN == 64 ? {build.WG_BLOCKS_PER_SM[64]} : "
+            f"{build.WG_BLOCKS_PER_SM[128]};" in wg)
 
 
 # --- backward passes and the training kernels, against the JAX VJPs ---
@@ -585,6 +593,70 @@ def test_tc_split_splits_the_stage_4_gemms():
     assert build.tc_split(32 * 49, 512, 4608) > 1
     assert build.tc_split(32 * 49, 2048, 9216) > 1
     assert build.tc_split(32 * 56 * 56, 64, 576) == 1
+
+
+# (C, M) of ResNet-50's identity blocks at batch 32, stages 1-4, and the
+# (Cout, K) of each block's three GEMMs (reduce, 3x3, expand)
+BLOCK_STAGES = [(64, 32 * 56 * 56), (128, 32 * 28 * 28), (256, 32 * 14 * 14), (512, 32 * 7 * 7)]
+
+
+def _block_gemms(c):
+    return ((c, 4 * c), (c, 9 * c), (4 * c, c))
+
+
+def _wg_cost(m, n, k, splits):
+    """wg_split's cost: waves of resident blocks x (chunk steps + fill)."""
+    bn = build.wg_tile_n(n)
+    tiles = -(-m // build.WG_BM) * -(-n // bn)
+    resident = 132 * build.WG_BLOCKS_PER_SM[bn]
+    return (-(-tiles * splits // resident)
+            * (build.k_chunk(k, splits, build.WG_BK) // build.WG_BK + build.WG_STAGES[bn] - 1))
+
+
+WG_GEMMS = [(m, cout, k) for c, m in BLOCK_STAGES for cout, k in _block_gemms(c)] + [
+    (75, 9, 36), (75, 9, 81), (75, 36, 9), (32, 129, 516), (32, 129, 1161), (32, 516, 129)]
+
+
+@pytest.mark.parametrize("m,n,k", WG_GEMMS, ids=[f"{m}x{n}x{k}" for m, n, k in WG_GEMMS])
+def test_wg_split_covers_every_k_step_once(m, n, k):
+    """The planner of K10's GEMMs on the wgmma core (the four batch-32
+    identity-block stages, then the ragged and split-K check cases):
+    deterministic, every K column in exactly one split, chunks of whole
+    32-deep K-steps, every split at least 16 K-steps deep unless the depth
+    has fewer, and no count in range finishing in fewer waves x steps."""
+    splits = build.wg_split(m, n, k)
+    assert splits == build.wg_split(m, n, k)
+    build.wg_split.cache_clear()
+    assert splits == build.wg_split(m, n, k)
+    chunk, ranges = _chunks(k, splits, build.WG_BK)
+    assert chunk % build.WG_BK == 0 and 1 <= splits <= 256
+    _assert_covers(k, ranges)
+    assert splits == 1 or chunk >= 16 * build.WG_BK
+    assert all(hi - lo >= min(k, 16 * build.WG_BK) for lo, hi in ranges[:-1])
+    cost = _wg_cost(m, n, k, splits)
+    assert all(_wg_cost(m, n, k, s) >= cost for s in _candidates(k))
+
+
+def test_wg_split_fills_the_card_at_stage_4():
+    """Stage 4 at batch 32 has 13 row tiles (M = 1,568): its reduce and 3x3
+    (4 column tiles of 128, 52 tiles) split K, so they run on more blocks
+    than they have tiles, and the deepest, the 3x3 over 4,608 columns, on
+    more blocks than one wave of resident blocks (132); stage 1's GEMMs
+    (784 row tiles) do not split."""
+    c, m = BLOCK_STAGES[3]
+    blocks = []
+    for cout, k in _block_gemms(c):
+        bn = build.wg_tile_n(cout)
+        tiles = -(-m // build.WG_BM) * -(-cout // bn)
+        blocks.append((tiles, tiles * build.wg_split(m, cout, k), 132 * build.WG_BLOCKS_PER_SM[bn]))
+    (reduce_tiles, reduce_blocks, _), (tiles3, blocks3, wave3), _ = blocks
+    assert reduce_blocks > reduce_tiles and blocks3 > tiles3
+    assert blocks3 > wave3
+    c, m = BLOCK_STAGES[0]
+    assert all(build.wg_split(m, cout, k) == 1 for cout, k in _block_gemms(c))
+    # the card check's split-K block (2, 4, 4, 516), C = 129: its 3x3 splits,
+    # so its statistics come from the column pass over the summed y
+    assert build.wg_split(2 * 4 * 4, 129, 9 * 129) > 1
 
 
 # --- the FC backward: one launch for da = g @ b^T and db = a^T @ g ---
