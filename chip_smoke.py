@@ -12,11 +12,13 @@ Phases, each printing one JSON line:
      ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
      max|plain| (the fused conv's halo case bit for bit; the split-K GEMMs
      of the conv forward, dx and dW, the fused conv and the whole-block
-     kernel, and the FC backward run twice and held to the same bits), with
-     its time, the plain version's, a library call's where one computes the
-     same function, the device time of the kernel and of the library call
-     (torch.profiler, with its split by kernel name), the least time the
-     card could take, and for the conv forward, the whole-block kernel and
+     kernel, the FC backward and the BN statistics run twice and held to
+     the same bits), with its time, the plain version's, a library call's
+     where one computes the same function, the device time of the kernel
+     and of the library call (torch.profiler, with its split by kernel
+     name), the host time per call (host_us: 200 calls enqueued back to
+     back, checks.host_us), the least time the card could take, and for the
+     conv forward, the whole-block kernel and
      the FC backward the launch plan (tiles and K splits; da and db
      blocks); then the whole-block kernel's weight split (split_tf32) at
      the shapes of K10's twelve weights, bit for bit against its plain
@@ -36,8 +38,11 @@ Phases, each printing one JSON line:
      path (cuDNN/cuBLAS and torch ops, per-tensor Adam) compared leaf by
      leaf, once with batch statistics and once with BN frozen at the initial
      running statistics (the well-conditioned check, Adam's updates also
-     element by element); step times of both paths in turns (plain, kernel, kernel, plain),
-     peak memory, and a torch.profiler breakdown of one kernel-path step;
+     element by element); step times of both paths in turns (plain, kernel,
+     kernel, plain) with host_step_ms (the host clock from a step's start
+     to train_step's return, before the synchronize, the median per path
+     over the timed steps; likewise in phases 6 and 7), peak memory, and a
+     torch.profiler breakdown of one kernel-path step;
   6. fused train: the same variant under the fused engine
      (kernels='fused', fused Adam): 5 steps on the batch, the counters read
      after each (52 fused_conv, 16 fused_join, 1 bias_act, 1 moments,
@@ -69,7 +74,9 @@ Phases, each printing one JSON line:
      and without ReLU: 1 moments, 1 bias_act (the apply) and 1 bn_bwd launch
      per call, its outputs and gradients within 1e-4 of the plain torch ops.
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 8 together; every kernel is launched on at least one of them),
+phases 4 to 8 together, every kernel launched on at least one of them; ms,
+host_us, plain_ms, bound_ms, library_ms and the device times summed over
+each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no final
@@ -496,16 +503,18 @@ def _train_main_path(torch, counters, step, cfg, state0, batch, expect, what):
 
 
 def _timed_steps(torch, step, state, batch, n=5):
-    """(state, median ms) of n steps, each timed on the host clock around
-    work that ends in a synchronize."""
-    times = []
+    """(state, median ms, host ms of each step) of n steps, each timed on the
+    host clock around work that ends in a synchronize; the host ms run from
+    the step's start to its return, before that synchronize."""
+    times, host = [], []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = step(state, batch)
+        host.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    return state, float(np.median(times))
+    return state, float(np.median(times)), host
 
 
 def _profile(torch, step):
@@ -631,12 +640,14 @@ def phase_train(torch, checks, counters, smi):
     # step times in turns: plain, kernel, kernel, plain
     pstate = _clone(state0)
     step_ms = {"plain": [], "kernel": []}
+    host = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         if which == "plain":
-            pstate, ms = _timed_steps(torch, pstep, pstate, batch)
+            pstate, ms, h = _timed_steps(torch, pstep, pstate, batch)
         else:
-            state, ms = _timed_steps(torch, kstep, state, batch)
+            state, ms, h = _timed_steps(torch, kstep, state, batch)
         step_ms[which].append(ms)
+        host[which] += h
     # peak memory of one step of each path; both paths' states are resident
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
@@ -678,7 +689,8 @@ def phase_train(torch, checks, counters, smi):
                                     "adam_m_max_rel_err": frozen_m_err,
                                     "update_share_beyond_lr_100": frozen_share},
                       "conditioning": conditioning},
-          "step_ms": step_ms, "kernel_step_ms": kernel_ms,
+          "step_ms": step_ms, "host_step_ms": _host_medians(host),
+          "kernel_step_ms": kernel_ms,
           "kernel_img_s": batch_n * 1e3 / kernel_ms, "plain_step_ms": plain_ms,
           "plain_img_s": batch_n * 1e3 / plain_ms, "peak_gib": peak,
           "resident_before_gib": resident,
@@ -736,14 +748,21 @@ def _other_step(counters, cfg, state0, batch, expect, plain_loss, name):
     return {"per_step": delta, "loss": m["loss"].item(), "loss_rel_err": err}
 
 
+def _host_medians(host):
+    """The median host ms per path over all its timed steps."""
+    return {k: float(np.median(v)) for k, v in host.items()}
+
+
 def _times_and_peaks(torch, steps, states, batch, order):
-    """Step times in turns (median of 5 steps per turn, in ``order``), then
-    the peak memory of one step of each path with all their states
-    resident. Updates ``states``."""
+    """Step times in turns (median of 5 steps per turn, in ``order``) and the
+    host ms per path (``_host_medians``), then the peak memory of one step
+    of each path with all their states resident. Updates ``states``."""
     step_ms = {k: [] for k in steps}
+    host = {k: [] for k in steps}
     for which in order:
-        states[which], ms = _timed_steps(torch, steps[which], states[which], batch)
+        states[which], ms, h = _timed_steps(torch, steps[which], states[which], batch)
         step_ms[which].append(ms)
+        host[which] += h
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated() / 2**30
     peak = {}
@@ -752,7 +771,7 @@ def _times_and_peaks(torch, steps, states, batch, order):
         states[which], _ = steps[which](states[which], batch)
         torch.cuda.synchronize()
         peak[which] = torch.cuda.max_memory_allocated() / 2**30
-    return step_ms, peak, resident
+    return step_ms, _host_medians(host), peak, resident
 
 
 def _engine_setup(torch, *kernels):
@@ -806,7 +825,7 @@ def phase_fused(torch, checks, counters, smi):
     steps = {"plain": make_train_step(pcfg), "fusedxla": make_train_step(xcfg),
              "fused": fstep}
     states = {"plain": _clone(state0), "fusedxla": _clone(state0), "fused": state}
-    step_ms, peak, resident = _times_and_peaks(
+    step_ms, host_ms, peak, resident = _times_and_peaks(
         torch, steps, states, batch, ("plain", "fusedxla", "fused", "fused", "fusedxla", "plain"))
 
     def one_step():
@@ -817,7 +836,7 @@ def phase_fused(torch, checks, counters, smi):
     emit({"phase": "fused_train", "model": fcfg.model.name, "batch": batch_n,
           "device": smi, "launches": launches, "per_step": per_step[0],
           "losses": losses, "loss_after_last_step": final_loss, "compare": compare,
-          "engines": others, "step_ms": step_ms,
+          "engines": others, "step_ms": step_ms, "host_step_ms": host_ms,
           "fused_step_ms": median["fused"], "fused_img_s": batch_n * 1e3 / median["fused"],
           "fusedxla_step_ms": median["fusedxla"],
           "fusedxla_img_s": batch_n * 1e3 / median["fusedxla"],
@@ -851,7 +870,7 @@ def phase_blockfused(torch, checks, counters, smi):
     steps = {"plain": make_train_step(pcfg), "blockfused": bstep,
              "fused": make_train_step(fcfg)}
     states = {"plain": _clone(state0), "blockfused": state, "fused": _clone(state0)}
-    step_ms, peak, resident = _times_and_peaks(
+    step_ms, host_ms, peak, resident = _times_and_peaks(
         torch, steps, states, batch,
         ("plain", "blockfused", "fused", "fused", "blockfused", "plain"))
 
@@ -863,7 +882,7 @@ def phase_blockfused(torch, checks, counters, smi):
     emit({"phase": "blockfused_train", "model": bcfg.model.name, "batch": batch_n,
           "device": smi, "launches": launches, "per_step": per_step[0],
           "losses": losses, "loss_after_last_step": final_loss, "compare": compare,
-          "conv_kernels_pallas": with_pallas, "step_ms": step_ms,
+          "conv_kernels_pallas": with_pallas, "step_ms": step_ms, "host_step_ms": host_ms,
           **{f"{k}_step_ms": v for k, v in median.items()},
           **{f"{k}_img_s": batch_n * 1e3 / v for k, v in median.items()},
           "peak_gib": peak, "resident_before_gib": resident,
@@ -967,6 +986,7 @@ def main() -> None:
             "launches": launched[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
+            "host_us": sum(r["host_us"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": max(by, key=by.get),

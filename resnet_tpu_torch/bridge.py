@@ -64,8 +64,53 @@ def tree_map(fn, tree, *rest):
 
 
 def leaves(tree) -> List[Any]:
-    """The leaves in JAX's pytree order."""
-    return [leaf for _, leaf in flatten(tree)]
+    """The leaves in JAX's pytree order: ``flatten``'s without building the
+    paths, which cost the fused Adam step about 1 ms of host time per
+    call over ResNet-50's four trees (``kernels/host_parts.py``)."""
+    out: List[Any] = []
+    _collect(tree, out.append)
+    return out
+
+
+def leaves_of(*trees) -> List[List[Any]]:
+    """The leaves of trees of one nesting, each list in JAX's pytree order,
+    from one walk over all of them (the keys of each dict sorted once);
+    raises where a dict or list of the first tree is not matched in the
+    others. Where the first tree holds a leaf, the others' values there are
+    taken as leaves."""
+    outs: List[List[Any]] = [[] for _ in trees]
+    _collect_all(trees, outs)
+    return outs
+
+
+def _collect_all(nodes, outs) -> None:
+    first = nodes[0]
+    if isinstance(first, dict):
+        for n in nodes:
+            if not isinstance(n, dict) or len(n) != len(first):
+                raise ValueError("leaves_of: trees of different nesting")
+        for k in sorted(first):
+            _collect_all([n[k] for n in nodes], outs)
+    elif isinstance(first, (list, tuple)):
+        for n in nodes:
+            if not isinstance(n, (list, tuple)) or len(n) != len(first):
+                raise ValueError("leaves_of: trees of different nesting")
+        for children in zip(*nodes):
+            _collect_all(children, outs)
+    else:
+        for out, n in zip(outs, nodes):
+            out.append(n)
+
+
+def _collect(tree, put) -> None:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _collect(tree[k], put)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _collect(v, put)
+    else:
+        put(tree)
 
 
 def train_state_from_numpy(state, device="cuda"):

@@ -6,11 +6,17 @@ K4, one-read statistics.
 
 ``moments(x2d)`` gives the per-channel (mean, biased var) of an (M, C) view,
 with the epilogue of bn.py:83-86: mean = Σx / M, var = max(Σx² / M − mean², 0).
-It is a ``torch.autograd.Function``. On a CUDA tensor its forward launches
-``rt_moments_f32`` (``csrc/moments.cu``, two passes: chunk partials, then
-their sum per channel); anything the kernel does not take raises. On a CPU
-tensor the plain version ``moments_reference`` runs: the same two sums in
-torch. The backward is the closed form of bn.py:120-125 in torch ops,
+Where x2d requires a gradient it goes through a ``torch.autograd.Function``;
+otherwise the forward runs alone. On a CUDA tensor the forward launches
+``rt_moments_f32`` once (``csrc/moments.cu``: chunk partials, summed by the
+last block of each channel tile) with a plan cached per (M, C, load width)
+(``moments_plan``), one allocation per call (mean and var, two views of one
+(2, C) tensor) and the chunk partials and tile tickets in a workspace kept
+per (device, stream) (``_workspace``): the kernel leaves the tickets at 0,
+so calls on one stream may follow each other, and another stream gets its
+own. Anything the kernel does not take raises. On a CPU tensor the plain
+version ``moments_reference`` runs: the same two sums in torch. The backward
+is the closed form of bn.py:120-125 in torch ops,
 dx = dmean / M + dvar · 2(x − mean) / M; the JAX package has no kernel for it
 either. ``moments_plain`` is the same Function over the plain sums on any
 device: the plain path's batch statistics (``ops.batchnorm.batch_moments``).
@@ -43,7 +49,8 @@ K6 (one per backward, its three kernels together).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -53,9 +60,23 @@ from . import build
 LAUNCHES = 0
 APPLY_LAUNCHES = 0
 BWD_LAUNCHES = 0
-_CHANNEL_TILE = 32  # csrc/moments.cu CT
-_TARGET_BLOCKS = 132 * 8  # about eight first-pass blocks per SM
-_MAX_CHUNKS = 65535  # gridDim.y of the first pass
+_CHANNEL_TILE = 32  # channels of a K6 reduce block (csrc/bn.cu CT)
+_TARGET_BLOCKS = 132 * 8  # K6: about eight first-pass blocks per SM
+_MAX_CHUNKS = 65535  # gridDim.y
+# K4's block sizes (csrc/moments.cu LARGE, SMALL)
+_MOMENTS_THREADS = (1024, 256)
+
+
+class MomentsPlan(NamedTuple):
+    """A K4 launch: ``ctv`` lanes of ``vec`` channels per tile, ``tiles``
+    channel tiles, ``chunk`` rows per block, ``n_chunks`` blocks per tile,
+    ``part`` floats of chunk partials, ``threads`` per block."""
+    ctv: int
+    tiles: int
+    chunk: int
+    n_chunks: int
+    part: int
+    threads: int
 
 
 def mean_var_from_sums(s: torch.Tensor, s2: torch.Tensor, m: int):
@@ -72,34 +93,102 @@ def moments_reference(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return mean_var_from_sums(x.sum(0), (x * x).sum(0), x2d.shape[0])
 
 
-def chunk_rows(m: int, c: int) -> int:
-    """Rows per first-pass block: about _TARGET_BLOCKS blocks in all, a
-    multiple of 8, at least 64."""
-    tiles = -(-c // _CHANNEL_TILE)
-    chunks = max(1, -(-_TARGET_BLOCKS // tiles))
+def _chunk_rows(m: int, tiles: int, target: int) -> int:
+    """Rows per block for about ``target`` blocks over ``tiles`` channel
+    tiles: a multiple of 8, at least 64, at most 65535 chunks."""
+    chunks = max(1, -(-target // tiles))
     rows = -(-m // chunks)
-    rows = max(64, -(-rows // 8) * 8, -(-m // _MAX_CHUNKS))
-    return rows
+    return max(64, -(-rows // 8) * 8, -(-m // _MAX_CHUNKS))
+
+
+def chunk_rows(m: int, c: int) -> int:
+    """Rows per first-pass block of K6's reduction (``csrc/bn.cu``)."""
+    return _chunk_rows(m, -(-c // _CHANNEL_TILE), _TARGET_BLOCKS)
+
+
+@functools.lru_cache(maxsize=1024)
+def moments_plan(m: int, c: int, vec: int) -> MomentsPlan:
+    """K4's launch for an (m, c) view read ``vec`` channels at a time: ctv,
+    the lanes of a tile, is the power of two that covers c / vec, at most
+    32 / vec, so a tile is vec * ctv <= 32 channels (128 bytes of a row)
+    and a block's threads are ctv lanes times threads / ctv row lanes.
+    Blocks of 1024 threads, two per SM, where there are at most 4 tiles
+    and each thread gets at least 4 rows (the stem and the 56x56 layers up
+    to 128 channels); else 256 threads at eight blocks per SM from 2^23
+    elements, four from 2^21, two below (as ``k4_plans`` measured best at
+    ResNet-50's shapes). A function of the shapes only, so a call repeats
+    exactly."""
+    lanes = -(-c // vec)
+    ctv = min(32 // vec, 1 << (lanes - 1).bit_length())
+    tiles = -(-c // (vec * ctv))
+    threads = 1024
+    chunk = _chunk_rows(m, tiles, build._SMS * 2)
+    if tiles > 4 or chunk < 4 * (threads // ctv):
+        threads = 256
+        per_sm = 8 if m * c >= 1 << 23 else 4 if m * c >= 1 << 21 else 2
+        chunk = _chunk_rows(m, tiles, build._SMS * per_sm)
+    n_chunks = -(-m // chunk)
+    return MomentsPlan(ctv, tiles, chunk, n_chunks, 2 * n_chunks * c, threads)
+
+
+def vector_width(x2d: torch.Tensor) -> int:
+    """4 where K4 reads x2d in 16-byte loads (C % 4 == 0, 16-byte aligned
+    base), else 1."""
+    return 4 if x2d.shape[1] % 4 == 0 and x2d.data_ptr() % 16 == 0 else 1
+
+
+# (device index, stream) -> [chunk partials, tile tickets]
+_WORKSPACES: Dict[Tuple[int, int], list] = {}
+
+
+def _workspace(index: int, plan: MomentsPlan, stream: int = 0) -> list:
+    """The chunk partials and the zeroed tile tickets of one stream, grown
+    to fit the plan. The kernel leaves its tickets at 0, so the calls on one
+    stream share them; a workspace replaced by a larger one is freed in
+    stream order, after the calls that use it."""
+    ws = _WORKSPACES.get((index, stream))
+    if ws is None:
+        ws = _WORKSPACES[(index, stream)] = [None, None]
+    if ws[0] is None or ws[0].numel() < plan.part:
+        ws[0] = torch.empty(max(plan.part, 1 << 16), dtype=torch.float32,
+                            device=torch.device("cuda", index))
+    if ws[1] is None or ws[1].numel() < plan.tiles:
+        ws[1] = torch.zeros(max(plan.tiles, 256), dtype=torch.int32,
+                            device=torch.device("cuda", index))
+    return ws
+
+
+def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -> None:
+    """Enqueue K4 on x2d's device and current stream, mean and var into out."""
+    index = x2d.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    part, tickets = _workspace(index, plan, stream)
+    build.launch_on(index, stream, build.entry("rt_moments_f32"), x2d.data_ptr(),
+                    part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2d.shape[0],
+                    x2d.shape[1], plan.chunk, plan.n_chunks, vec, plan.ctv, plan.threads)
 
 
 def _forward(x2d: torch.Tensor):
+    """(mean, var) of x2d: the kernel on a CUDA tensor, the plain version on
+    a CPU tensor."""
     global LAUNCHES
-    if x2d.dim() != 2:
-        raise ValueError(f"moments: expected (M, C), got {tuple(x2d.shape)}")
-    m, c = x2d.shape
-    if not build.on_card("moments", x2d):
+    if not x2d.is_cuda:
+        if x2d.dim() != 2:
+            raise ValueError(f"moments: expected (M, C), got {tuple(x2d.shape)}")
+        build.on_card("moments", x2d)  # raises on what the kernel would not take
         return moments_reference(x2d)
+    if x2d.dim() != 2 or x2d.dtype is not torch.float32 or not x2d.is_contiguous():
+        raise ValueError(f"moments: expected a contiguous float32 (M, C) tensor, got "
+                         f"{x2d.dtype} {tuple(x2d.shape)}")
+    m, c = x2d.shape
     if m == 0 or c == 0:
         raise ValueError(f"moments: empty input {tuple(x2d.shape)}")
-    chunk = chunk_rows(m, c)
-    n_chunks = -(-m // chunk)
-    part = torch.empty((n_chunks, 2, c), dtype=torch.float32, device=x2d.device)
-    mean = torch.empty((c,), dtype=torch.float32, device=x2d.device)
-    var = torch.empty_like(mean)
-    build.launch("rt_moments_f32", x2d.data_ptr(), part.data_ptr(), mean.data_ptr(),
-                 var.data_ptr(), m, c, chunk, n_chunks, device=x2d.device)
+    vec = vector_width(x2d)
+    plan = moments_plan(m, c, vec)
+    out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
+    _launch(x2d, out, plan, vec)
     LAUNCHES += 1
-    return mean, var
+    return out.unbind(0)
 
 
 class _Moments(torch.autograd.Function):
@@ -118,8 +207,11 @@ class _Moments(torch.autograd.Function):
 
 
 def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable one-read (mean, var) over the rows of x2d (M, C)."""
-    return _Moments.apply(x2d, _forward)
+    """One-read (mean, var) over the rows of x2d (M, C); differentiable
+    where x2d requires a gradient."""
+    if x2d.requires_grad and torch.is_grad_enabled():
+        return _Moments.apply(x2d, _forward)
+    return _forward(x2d)
 
 
 def moments_plain(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

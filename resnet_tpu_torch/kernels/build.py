@@ -65,8 +65,11 @@ SIGNATURES = {
     "rt_matmul_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_add_relu_f32": [_P, _P, _P, _I64, _P],
     "rt_add_relu_mask_f32": [_P, _P, _P, _P, _I64, _P],
-    "rt_moments_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _P],
-    "rt_adam_f32": [_P, _I, _I, _P, _P],
+    # x, part, tickets, stats, M, C, chunk, n_chunks, vec, ctv, threads
+    "rt_moments_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
+    # the host table of (p, m, v, numel, first block, flags, tensor) rows, its
+    # row count, the host array of gradient pointers, h
+    "rt_adam_f32": [_P, _I, _P, _P, _P],
 }
 # the FMA GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK;
 # the FC forward above 32 rows)
@@ -334,21 +337,33 @@ def on_card(name: str, *tensors) -> bool:
     return True
 
 
-def launch(entry: str, *args, device) -> None:
-    """Call a C entry point on ``device``'s current stream; raise if it
-    reports a CUDA error. The device is switched only when it is not the
-    current one, and the stream is read as a raw handle: a Python stream
-    object and a device guard on every launch add host time that a small
-    kernel (the FC) waits behind."""
+@functools.cache
+def entry(name: str):
+    """The library's C entry point ``name``, argtypes set."""
+    return getattr(load(), name)
+
+
+def launch_on(index: int, stream: int, fn, *args) -> None:
+    """Call the C entry point ``fn`` (``entry``) with ``args`` and the raw
+    ``stream`` handle of CUDA device ``index``; raise if it reports a CUDA
+    error. The device is switched only when it is not the current one."""
     import torch
 
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    fn = getattr(load(), entry)
-    if index == torch.cuda.current_device():
+    if index == torch._C._cuda_getDevice():
         status = fn(*args, stream)
     else:
         with torch.cuda.device(index):
             status = fn(*args, stream)
     if status != 0:
-        raise RuntimeError(f"{entry}: CUDA error {status} at launch")
+        raise RuntimeError(f"{fn.__name__}: CUDA error {status} at launch")
+
+
+def launch(name: str, *args, device) -> None:
+    """Call a C entry point on ``device``'s current stream; raise if it
+    reports a CUDA error. The stream is read as a raw handle: a Python
+    stream object and a device guard on every launch add host time that a
+    small kernel (the FC) waits behind."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    launch_on(index, torch._C._cuda_getCurrentRawStream(index), entry(name), *args)

@@ -24,7 +24,9 @@ includes the host's time to enqueue the call wherever that is longer than
 the device's work (a small kernel behind a Python wrapper). Each is
 repeated as ``device_ms``, the device time of the kernels one call launches
 (torch.profiler), so that a small kernel can be held against a library
-call without the two host paths in the way. Beside the
+call without the two host paths in the way, and as ``host_us``, the host's
+time per call over 200 calls enqueued back to back: the cost a host-bound
+step pays for each call. Beside the
 kernel (``ms``) and its plain version (``plain_ms``), a case times one
 PyTorch library call computing the same function where there is one
 (``library_ms``, a yardstick the port never calls; None otherwise; for K8
@@ -43,17 +45,18 @@ over 495 TFLOP/s; for those
 K10's weight split (``check_split``, ``SPLIT_CASES``) must equal its plain
 version bit for bit, on weights with exact ties at the dropped bits.
 
-The split-K GEMMs and the FC backward (``REPEAT_KERNELS``) are also run a
-second time on the same inputs and must give the same bits: their partials
-are added in split order, or in one fixed order inside a block, with no
-atomics. A case marked exact (the fused conv's halo case,
-integer-valued so that every order of summation is exact) must match its
-plain version bit for bit.
+The split-K GEMMs, the FC backward and the BN statistics
+(``REPEAT_KERNELS``) are also run a second time on the same inputs and must
+give the same bits: their partials are added in split order, or in one
+fixed order inside a block, with no atomics in any sum. A case marked
+exact (the fused conv's halo case, integer-valued so that every order of
+summation is exact) must match its plain version bit for bit.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -63,6 +66,7 @@ from . import adam, block_fused, bn, conv, fused, fused_conv, matmul
 
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, tensor cores
 
@@ -209,10 +213,10 @@ SPLIT_CASES = [(f"stage {i} {what} ({k},{n})", k, n)
                                   ("expand", c, 4 * c))] + [
     ("ragged 3x3 (81,9)", 81, 9), ("ragged expand (9,36)", 9, 36)]
 
-# the split-K GEMMs and the FC backward, run twice per case and held to the
-# same bits
-REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "fused_conv",
-                  "block_fused")
+# the split-K GEMMs, the FC backward and the BN statistics, run twice per
+# case and held to the same bits
+REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments",
+                  "fused_conv", "block_fused")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -253,6 +257,23 @@ def median_ms(fn: Callable[[], object], reps: int = 20, warmup: int = 3) -> floa
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn: Callable[[], object], calls: int = 200, warmup: int = 3) -> float:
+    """Host time of one call in microseconds: ``calls`` calls enqueued back
+    to back on the host clock, with no synchronize among them, divided by
+    ``calls``; the device is synchronized before and after. Where the
+    device's work is shorter than the host's, this is the rate at which a
+    host-bound step can issue the call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def device_profile(fn: Callable[[], object], reps: int = 10, warmup: int = 2,
@@ -526,7 +547,11 @@ def _bn_bwd_case(case, randn) -> _Case:
         def library():
             return torch.ops.aten.native_batch_norm_backward(
                 dy, x, gamma, None, None, mean, inv, True, eps, [True, True, True])
-    return _Case(run, plain, 12 * m * c + 4 * 6 * c, 10 * m * c, library,
+    # x and dy read, dx written; dx needs s1 and s2 over all rows, so x and
+    # dy are read again after the reduction finishes, and only what the L2
+    # still holds of them (50 MB) is spared that second read
+    nbytes = 4 * (3 * m * c + max(0.0, 2 * m * c - L2_BYTES / 4)) + 4 * 6 * c
+    return _Case(run, plain, nbytes, 10 * m * c, library,
                  timed=(lambda: bn.bn_bwd(x, dy, mean, inv, gamma, beta, relu=relu),
                         lambda: bn.bn_bwd_reference(x, dy, mean, inv, gamma, beta,
                                                     relu=relu)),
@@ -594,7 +619,7 @@ def check_split(case, *, device="cuda", seed: int = 0,
     """K10's weight split (``block_fused.split_tf32``) against its plain
     version, bit for bit; raises RuntimeError where they differ. Returns
     {kernel, case, max_abs_err, bound_ms, bound_by} and, with timing, ms,
-    plain_ms and device_ms."""
+    plain_ms, device_ms and host_us."""
     label, k, n = case
     gen = torch.Generator(device=device).manual_seed(seed)
     b = split_input(k, n, gen, device)
@@ -609,6 +634,7 @@ def check_split(case, *, device="cuda", seed: int = 0,
         out["ms"] = median_ms(lambda: block_fused.split_tf32(b))
         out["plain_ms"] = median_ms(lambda: block_fused.split_tf32_reference(b))
         out["device_ms"] = device_ms(lambda: block_fused.split_tf32(b))
+        out["host_us"] = host_us(lambda: block_fused.split_tf32(b))
     return out
 
 
@@ -623,7 +649,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
     Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} (and
     fp32_fma_bound_ms for the tensor-core kernels) and, with timing, ms,
     plain_ms, library_ms, device_ms (with device_kernels, its split by
-    kernel name) and library_device_ms."""
+    kernel name), library_device_ms and host_us."""
     gen = torch.Generator(device=device).manual_seed(seed)
     c = _make(kernel, case, gen, device)
     got, want = _outputs(c.run()), _outputs(c.plain())
@@ -672,6 +698,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         out["device_kernels"] = kernels
         out["library_device_ms"] = (device_ms(c.library) if c.library is not None
                                     else None)
+        out["host_us"] = host_us(c.timed[0])
     return out
 
 

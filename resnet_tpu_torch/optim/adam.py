@@ -24,7 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..bridge import flatten, leaves, tree_map, unflatten
+from ..bridge import flatten, leaves, leaves_of, tree_map, unflatten
 from ..kernels import adam as _kadam
 
 
@@ -89,11 +89,10 @@ def adam_update_fused(grads, state: GuardedAdamState, params, *, learning_rate,
     """The same step as ``adam_update`` (without a mask) in one launch of
     the Adam kernel, in place on params, means and vars. All fp32."""
     cmd, cvd = _advance(state, beta1, beta2)
-    ps = leaves(params)
+    ps, gs, ms, vs = leaves_of(params, grads, state.means, state.vars)
     h = _kadam.hyper_row(learning_rate, weight_decay, beta1, beta2, eps, cmd, cvd,
                          nonfinite_guard, ps[0].device)
-    _kadam.fused_adam(ps, [g.contiguous() for g in leaves(grads)],
-                      leaves(state.means), leaves(state.vars), h)
+    _kadam.fused_adam(ps, [g.contiguous() for g in gs], ms, vs, h)
     return params, GuardedAdamState(
         means=state.means, vars=state.vars, mean_decay_prod=cmd,
         var_decay_prod=cvd, step=state.step + 1)

@@ -76,6 +76,25 @@ def test_bridge_defaults_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
+def test_leaves_are_flattens_leaves_in_jax_order():
+    """leaves walks the tree without building paths, in flatten's order,
+    which is JAX's (tree_leaves of the same nesting)."""
+    tree = {"b": [{"y": 1, "x": (2, 3)}, None], "a": {"k": [4, [5]], "c": 6}, "z": 7}
+    assert bridge.leaves(tree) == [leaf for _, leaf in bridge.flatten(tree)]
+    assert bridge.leaves(tree) == jax.tree_util.tree_leaves(
+        tree, is_leaf=lambda x: x is None)
+    assert bridge.leaves(5) == [5]
+    other = bridge.tree_map(lambda x: x if x is None else -x, tree)
+    assert bridge.leaves_of(tree, other, tree) == [
+        bridge.leaves(tree), bridge.leaves(other), bridge.leaves(tree)]
+    with pytest.raises(ValueError):  # a key missing
+        bridge.leaves_of(tree, {"b": tree["b"], "a": tree["a"]})
+    with pytest.raises(KeyError):  # another key
+        bridge.leaves_of(tree, {"b": tree["b"], "a": tree["a"], "y": 7})
+    with pytest.raises(ValueError):  # a list where the others hold a leaf
+        bridge.leaves_of(dict(tree, z=[7]), tree)
+
+
 def test_unflatten_rejects_gapped_lists():
     with pytest.raises(ValueError):
         bridge.unflatten([("blocks/0/w", 1), ("blocks/2/w", 2)])

@@ -289,3 +289,132 @@ def test_block_fused_ragged_rows(cuda, shape, c):
     r = checks.check_case("block_fused", (f"rows 162 C={c}", shape, c, None), timing=False)
     assert r["rel_err"] <= checks.REL_TOL
     assert block_fused.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("case", checks.MOMENTS_CASES, ids=[c[0] for c in checks.MOMENTS_CASES])
+def test_moments_repeats_bit_for_bit(cuda, case):
+    """K4 adds its chunk partials in one fixed order with no atomics in any
+    sum: two calls give the same bits, one launch each, and the last block
+    of every tile leaves its ticket at 0."""
+    from resnet_tpu_torch.kernels import bn
+
+    _, m, c = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5
+    before = bn.LAUNCHES
+    first, again = bn.moments(x), bn.moments(x)
+    assert bn.LAUNCHES == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    _, tickets = bn._WORKSPACES[(x.device.index, stream)]
+    torch.cuda.synchronize()
+    assert not tickets.any()
+
+
+def test_moments_back_to_back_at_two_shapes(cuda):
+    """Calls at other shapes enqueued one after another on one stream with
+    no synchronize among them share the workspace: each finds its tickets
+    at 0 and gives the bits of the same call made alone."""
+    from resnet_tpu_torch.kernels import bn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = [torch.randn(m, c, generator=gen, device="cuda") + 1.0
+          for m, c in ((32 * 56 * 56, 256), (1000, 33), (32 * 7 * 7, 2048))]
+    alone = []
+    for x in xs:
+        alone.append(bn.moments(x))
+        torch.cuda.synchronize()
+    queued = [bn.moments(x) for x in (*xs, *xs)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(queued):
+        assert all(torch.equal(a, b) for a, b in zip(got, alone[i % 3], strict=True))
+
+
+def _adam_step_against_plain(p, g, m, v, h):
+    """fused_adam in place on (p, m, v) against adam_leaf_reference from the
+    same state: one launch count, the same non-finite positions, the finite
+    values within 1e-4 of max|plain| per list."""
+    from resnet_tpu_torch.kernels import adam
+
+    want = [adam.adam_leaf_reference(*t, h) for t in zip(p, g, m, v)]
+    before = adam.LAUNCHES
+    adam.fused_adam(p, g, m, v, h)
+    assert adam.LAUNCHES == before + 1
+    for k, got in enumerate((p, m, v)):
+        a = torch.cat([t.reshape(-1) for t in got])
+        b = torch.cat([w[k].reshape(-1) for w in want])
+        fin = torch.isfinite(b)
+        assert torch.equal(fin, torch.isfinite(a))
+        assert (a[fin] - b[fin]).abs().max() <= checks.REL_TOL * b[fin].abs().max()
+
+
+def _adam_tensors(sizes, gen, offset=0):
+    """(p, g, m, v) lists of the given sizes on the card, each tensor cut
+    ``offset`` floats into its own storage."""
+    def make(n, scale, square=False):
+        t = torch.randn(n + offset, generator=gen, device="cuda") * scale
+        return (t * t if square else t)[offset:]
+
+    return ([make(n, 0.1) for n in sizes], [make(n, 1e-2) for n in sizes],
+            [make(n, 1e-3) for n in sizes], [make(n, 1e-2, True) for n in sizes])
+
+
+def _hyper():
+    from resnet_tpu_torch.kernels import adam
+
+    return adam.hyper_row(1e-3, 1e-2, 0.9, 0.999, 1e-7, 0.9 ** 3, 0.999 ** 3, True, "cuda")
+
+
+def test_fused_adam_beyond_one_parameter_bank(cuda):
+    """More tensors than one launch's parameters hold (MAX_ROWS rows): the
+    call launches once per group, counts one launch, and every tensor of
+    every group matches the plain version, with non-finite gradients and a
+    non-finite parameter kept by the guard and a tensor without elements."""
+    from resnet_tpu_torch.kernels import adam
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sizes = [(i * 37) % 5000 + 1 for i in range(2 * adam.MAX_ROWS + 37)]
+    sizes[5] = 0
+    p, g, m, v = _adam_tensors(sizes, gen)
+    g[3][:2] = torch.tensor([float("nan"), float("inf")])
+    g[-1][-1] = float("nan")
+    p[adam.MAX_ROWS + 1][0] = float("inf")
+    _adam_step_against_plain(p, g, m, v, _hyper())
+
+
+@pytest.mark.parametrize("where", ["all misaligned", "gradients misaligned"])
+def test_fused_adam_misaligned_and_ragged(cuda, where):
+    """Tensors whose base is not 16-byte aligned and sizes not a multiple of
+    4 take the one-element loop, aligned ones with 4 | numel the 16-byte
+    one; a misaligned gradient alone takes its tensor off the 16-byte loop
+    (the C entry point's check)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sizes = [4096 * 3 + 1, 4096 * 2, 7, 4, 12345, 8192 + 4]
+    if where == "all misaligned":
+        p, g, m, v = _adam_tensors(sizes, gen, offset=1)
+        assert all(t.data_ptr() % 16 for t in (*p, *g, *m, *v))
+    else:
+        p, _, m, v = _adam_tensors(sizes, gen)
+        _, g, _, _ = _adam_tensors(sizes, gen, offset=1)
+        assert all(t.data_ptr() % 16 for t in g)
+        assert not any(t.data_ptr() % 16 for t in (*p, *m, *v))
+    _adam_step_against_plain(p, g, m, v, _hyper())
+
+
+def test_fused_adam_rebuilds_its_rows_for_a_new_tensor(cuda):
+    """A parameter replaced by a new tensor, and a moment moved to another
+    storage, between two steps: the second step updates the new tensors and
+    leaves the old ones alone."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    sizes = [300, 4096, 10]
+    p, g, m, v = _adam_tensors(sizes, gen)
+    h = _hyper()
+    _adam_step_against_plain(p, g, m, v, h)
+    old_p, old_m = p[1], m[2].clone()
+    p[1] = p[1].clone()
+    m[2].data = m[2].clone()
+    kept = old_p.clone()
+    _adam_step_against_plain(p, g, m, v, h)
+    torch.cuda.synchronize()
+    assert torch.equal(old_p, kept)
+    assert not torch.equal(m[2], old_m)

@@ -224,20 +224,225 @@ def test_add_relu_vjp_matches_pallas(rng, no_launch, shape):
     assert (ga.numpy().reshape(-1)[:5] == 0).all()
 
 
-@pytest.mark.parametrize("m,c", [(2 * 8 * 8, 16), (1000, 33), (3, 2048)])
-def test_moments_matches_pallas(rng, no_launch, m, c):
+@pytest.mark.parametrize("m,c,grad", [
+    pytest.param(m, c, grad, id=f"{m}-{c}" + ("" if grad else "-no-grad"))
+    for grad in (True, False) for m, c in [(2 * 8 * 8, 16), (1000, 33), (3, 2048)]])
+def test_moments_matches_pallas(rng, no_launch, m, c, grad):
     """mean, biased var and their closed-form VJP against the Pallas stats
-    kernel in interpret mode, within 1e-4 of max|JAX|."""
+    kernel in interpret mode, within 1e-4 of max|JAX|; an input without a
+    gradient skips the autograd Function and gives the same values."""
     from resnet_tpu.kernels.bn import moments as pallas_moments
 
     x = (rng.normal(size=(m, c)) * 3 + rng.normal(size=(1, c))).astype(np.float32)
     (mean, var), ct, (dx,) = _vjp(lambda a: pallas_moments(a, True), jnp.asarray(x))
-    (gm, gv), (gx,) = _torch_vjp(bn.moments, ct, x)
+    if grad:
+        (gm, gv), (gx,) = _torch_vjp(bn.moments, ct, x)
+        assert gm.grad_fn is not None
+        close(gx, dx)
+    else:
+        gm, gv = bn.moments(torch.from_numpy(x))
+        assert gm.grad_fn is None and gv.grad_fn is None
     close(gm.detach(), mean)
     close(gv.detach(), var)
-    close(gx, dx)
     pm, pv = bn.moments_reference(torch.from_numpy(x))
     np.testing.assert_array_equal(pm.numpy(), gm.detach().numpy())
+
+
+# (M, C, load width): the 16-byte loads where C % 4 == 0
+PLAN_CASES = [(m, c, vec) for m, c in [(1, 4), (1000, 33), (1000, 36), (401408, 64),
+                                       (100352, 256), (1568, 2048), (7, 3), (2000, 132)]
+              for vec in (1, 4) if vec == 1 or c % 4 == 0]
+
+
+@pytest.mark.parametrize("m,c,vec", PLAN_CASES)
+def test_moments_plan_covers_every_row_and_tile_once(m, c, vec):
+    """K4's one-launch grid, walked as csrc/moments.cu walks it: block
+    (tile, chunk), thread (lane, row lane), each lane vec channels. Every
+    (row, channel) is read by exactly one thread, each tile's chunk
+    partials come from n_chunks blocks (its ticket's count), the
+    partials fit the workspace, and the plan is cached."""
+    plan = bn.moments_plan(m, c, vec)
+    assert bn.moments_plan(m, c, vec) is plan
+    ctv, tiles, chunk, n_chunks, part, threads = plan
+    tc = vec * ctv
+    assert threads in bn._MOMENTS_THREADS
+    assert ctv & (ctv - 1) == 0 and vec * ctv <= 32 and threads % ctv == 0
+    assert 2 * tc <= threads  # one thread per (sum, channel) of a tile
+    # 1024 threads for a few tiles where two blocks per SM give each
+    # thread at least 4 rows
+    two_per_sm = bn._chunk_rows(m, tiles, 2 * 132)
+    assert (threads == 1024) == (tiles <= 4 and two_per_sm >= 4 * (1024 // ctv))
+    assert (tiles - 1) * tc < c <= tiles * tc
+    assert chunk % 8 == 0 and chunk >= 64 and n_chunks <= 65535
+    assert (n_chunks - 1) * chunk < m <= n_chunks * chunk
+    assert part == 2 * n_chunks * c
+    if m * c > 2_000_000:
+        return  # the walk below at the small shapes
+    row_lanes = threads // ctv
+    reads = np.zeros((m, c), dtype=np.int64)
+    for tile in range(tiles):
+        for k in range(n_chunks):
+            r0, r1 = k * chunk, min(m, (k + 1) * chunk)
+            for lane in range(ctv):
+                c0 = tile * tc + lane * vec
+                if c0 >= c:
+                    continue
+                for row_lane in range(row_lanes):
+                    reads[r0 + row_lane:r1:row_lanes, c0:c0 + vec] += 1
+    assert (reads == 1).all()
+
+
+def test_moments_constants_match_the_kernel():
+    src = (build.CSRC / "moments.cu").read_text()
+    large, small = bn._MOMENTS_THREADS
+    assert f"constexpr int LARGE = {large};" in src and f"constexpr int SMALL = {small};" in src
+    src = (build.CSRC / "adam.cu").read_text()
+    assert f"constexpr int64_t CHUNK = {adam._CHUNK};" in src
+    assert f"constexpr int MAX_ROWS = {adam.MAX_ROWS};" in src
+    assert f"constexpr int COLS = {adam._COLS};" in src
+    # a row of (p, g, m, v, numel, first, flag) is 48 bytes; the table stays
+    # inside the 32,764 bytes a kernel's parameters may hold
+    assert 8 + 48 * adam.MAX_ROWS <= 32764
+
+
+@pytest.mark.parametrize("c,offset,want", [(64, 0, 4), (33, 0, 1), (64, 1, 1), (64, 4, 4)])
+def test_moments_loads_16_bytes_where_aligned(c, offset, want):
+    base = torch.zeros(10 * c + offset)
+    assert base.data_ptr() % 16 == 0
+    assert bn.vector_width(base[offset:].view(10, c)) == want
+
+
+def test_adam_rows_group_at_the_parameter_bank_capacity():
+    """Rows in order, one per tensor with elements; the first block counts
+    from 0 again at each group of MAX_ROWS rows (one launch each); the flag
+    where p, m, v are aligned and numel % 4 == 0."""
+    cap = adam.MAX_ROWS
+    numels = [(i % 7) * 1000 + (i % 3) for i in range(2 * cap + 50)]
+    aligned = [i % 5 != 0 for i in range(len(numels))]
+    rows = adam.pack_rows(numels, aligned)
+    assert [r[0] for r in rows] == [i for i, n in enumerate(numels) if n]
+    assert len(rows) > 2 * cap
+    for g in range(0, len(rows), cap):
+        group = rows[g:g + cap]
+        first = 0
+        for i, n, start, flag in group:
+            assert n == numels[i] and start == first
+            assert flag == int(aligned[i] and n % 4 == 0)
+            first += -(-n // adam._CHUNK)
+    assert adam.pack_rows([0, 0], [True, True]) == []
+    assert adam.pack_rows([4096, 1, 0, 8], [True] * 4) == [
+        (0, 4096, 0, 1), (1, 1, 1, 0), (3, 8, 2, 1)]
+
+
+def _adam_state(shapes, offset=0):
+    def make(s):
+        n = int(np.prod(s))
+        return torch.zeros(n + offset)[offset:].view(s)
+
+    return ([make(s) for s in shapes], [make(s) for s in shapes],
+            [make(s) for s in shapes])
+
+
+def test_adam_state_plan_is_cached_until_a_tensor_or_its_storage_changes():
+    """The (p, m, v) rows are made once: the same tensors give the same plan;
+    a replaced tensor or a moved storage makes a new one. Run on CPU
+    tensors (device index -1), as the plan's checks and pointers are the
+    same there."""
+    adam._PLANS.clear()
+    shapes = [(3, 3, 4, 8), (0,), (5, 7), (8,)]
+    p, m, v = _adam_state(shapes)
+    plan = adam._state_plan(p, m, v, -1)
+    assert adam._state_plan(list(p), list(m), list(v), -1) is plan
+    assert plan.n_rows == 3  # the empty tensor gets no row
+    table = np.ctypeslib.as_array(plan.table).reshape(plan.n_rows, adam._COLS)
+    assert table[:, 6].tolist() == [0, 2, 3]
+    assert table[:, 0].tolist() == [p[i].data_ptr() for i in (0, 2, 3)]
+    assert table[:, 3].tolist() == [288, 35, 8]
+    assert table[:, 5].tolist() == [int(p[i].data_ptr() % 16 == 0 and i != 2)
+                                    for i in (0, 2, 3)]
+    m[2] = m[2].clone()  # a new tensor
+    replaced = adam._state_plan(p, m, v, -1)
+    assert replaced is not plan
+    assert np.ctypeslib.as_array(replaced.table)[1 * adam._COLS + 1] == m[2].data_ptr()
+    assert adam._state_plan(p, m, v, -1) is replaced
+    v[0].data = torch.ones_like(v[0])  # the same tensor on another storage
+    moved = adam._state_plan(p, m, v, -1)
+    assert moved is not replaced
+    assert np.ctypeslib.as_array(moved.table)[2] == v[0].data_ptr()
+
+
+def test_adam_gradients_are_checked_on_every_call():
+    p, m, v = _adam_state([(2, 3), (4,)])
+    plan = adam._state_plan(p, m, v, -1)
+    g = [torch.ones(2, 3), torch.ones(4)]
+    assert list(adam._grad_pointers(g, plan)) == [t.data_ptr() for t in g]
+    with pytest.raises(ValueError, match="shape"):
+        adam._grad_pointers([torch.ones(3, 2), g[1]], plan)
+    with pytest.raises(TypeError):
+        adam._grad_pointers([g[0].double(), g[1]], plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam._grad_pointers([torch.ones(3, 2).t(), g[1]], plan)
+    with pytest.raises(ValueError, match="shapes"):
+        adam._state_plan(p, [torch.zeros(3, 2), m[1]], v, -1)
+    with pytest.raises(TypeError):
+        adam._state_plan(p, m, [v[0].double(), v[1]], -1)
+
+
+def test_launches_hand_their_arguments_to_the_entry_points(monkeypatch):
+    """K4's and K7's launch helpers, run on CPU tensors with the C entry
+    point recorded instead of called: the argument order of
+    build.SIGNATURES, the workspace and the tables they pass."""
+    calls = []
+    monkeypatch.setattr(build, "entry", lambda name: name)
+    monkeypatch.setattr(build, "launch_on", lambda index, stream, fn, *args:
+                        calls.append((fn, args)))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7,
+                        raising=False)
+    x = torch.zeros(1000, 64)
+    plan = bn.moments_plan(1000, 64, 4)
+    out = torch.empty(2, 64)
+    monkeypatch.setitem(bn._WORKSPACES, (None, 7), [torch.empty(plan.part),
+                                                    torch.zeros(plan.tiles, dtype=torch.int32)])
+    bn._launch(x, out, plan, 4)
+    part, tickets = bn._WORKSPACES[(None, 7)]
+    assert calls[-1] == ("rt_moments_f32", (
+        x.data_ptr(), part.data_ptr(), tickets.data_ptr(), out.data_ptr(), 1000, 64,
+        plan.chunk, plan.n_chunks, 4, plan.ctv, plan.threads))
+    assert len(calls[-1][1]) + 1 == len(build.SIGNATURES["rt_moments_f32"])
+    p, m, v = _adam_state([(2, 3), (4,)])
+    state = adam._state_plan(p, m, v, -1)
+    g = [torch.ones(2, 3), torch.ones(4)]
+    h = torch.zeros(8)
+    adam._launch(state, adam._grad_pointers(g, state), h)
+    fn, args = calls[-1]
+    assert fn == "rt_adam_f32" and len(args) + 1 == len(build.SIGNATURES[fn])
+    assert args[0] == build.ctypes.addressof(state.table) and args[1] == 2
+    assert args[2] == build.ctypes.addressof(state.grads) and args[3] == h.data_ptr()
+    assert list(state.grads) == [t.data_ptr() for t in g]
+
+
+@pytest.mark.parametrize("lr_kind", ["float", "device scalar", "mixed"])
+def test_hyper_row_values(lr_kind):
+    """The same 8 fp32 values whether lr and the decay products come as
+    Python numbers or as scalars on the device, the constant hypers copied
+    to the device once."""
+    lr, cmd, cvd = 3e-4, np.float32(0.9) ** 3, np.float32(0.999) ** 3
+    want = torch.tensor([lr, 1e-2, 0.9, 0.999, 1e-7, cmd, cvd, 1.0], dtype=torch.float32)
+    if lr_kind == "float":
+        h = adam.hyper_row(lr, 1e-2, 0.9, 0.999, 1e-7, cmd, cvd, True, "cpu")
+    elif lr_kind == "mixed":
+        h = adam.hyper_row(torch.tensor(lr), 1e-2, 0.9, 0.999, 1e-7, cmd, cvd, True, "cpu")
+    else:
+        adam._device_row.cache_clear()
+        for _ in range(2):
+            adam.hyper_row(torch.tensor(lr), 1e-2, 0.9, 0.999, 1e-7, torch.tensor(cmd),
+                           torch.tensor(cvd), True, "cpu")
+        assert adam._device_row.cache_info().misses == 1
+        h = adam.hyper_row(torch.tensor(lr), 1e-2, 0.9, 0.999, 1e-7, torch.tensor(cmd),
+                           torch.tensor(cvd), True, "cpu")
+    assert h.dtype == torch.float32 and torch.equal(h, want)
+    off = adam.hyper_row(lr, 1e-2, 0.9, 0.999, 1e-7, cmd, cvd, False, "cpu")
+    assert off[7].item() == 0.0 and torch.equal(off[:7], want[:7])
 
 
 @pytest.mark.parametrize("m", [1, 1000, 401408])
@@ -249,8 +454,10 @@ def test_moments_chunking_covers_every_row(m, c):
     assert (chunks - 1) * rows < m <= chunks * rows
 
 
-@pytest.mark.parametrize("guard", [True, False])
-def test_fused_adam_matches_pallas(rng, no_launch, guard):
+@pytest.mark.parametrize("guard,lr_kind", [
+    pytest.param(guard, lr_kind, id=str(guard) + ("" if lr_kind == "float" else "-device-lr"))
+    for lr_kind in ("float", "device scalar") for guard in (True, False)])
+def test_fused_adam_matches_pallas(rng, no_launch, guard, lr_kind):
     """The in-place list update against fused_adam_flat in interpret mode,
     with NaN and inf in the gradients and an inf parameter, the guard on and
     off: every finite value within 1e-6 of max|JAX| (fp32 elementwise, one
@@ -271,7 +478,9 @@ def test_fused_adam_matches_pallas(rng, no_launch, guard):
             for t in (ps, gs, ms, vs)]
     want = fused_adam_flat(*flat, nonfinite_guard=guard, interpret=True, **hyper)
     tp, tm, tv = ([torch.from_numpy(a.copy()) for a in t] for t in (ps, ms, vs))
-    h = adam.hyper_row(hyper["learning_rate"], hyper["weight_decay"], hyper["beta1"],
+    lr = hyper["learning_rate"]
+    lr = torch.tensor(lr, dtype=torch.float32) if lr_kind == "device scalar" else lr
+    h = adam.hyper_row(lr, hyper["weight_decay"], hyper["beta1"],
                        hyper["beta2"], hyper["eps"], hyper["cur_mean_decay"],
                        hyper["cur_var_decay"], guard, "cpu")
     adam.fused_adam(tp, [torch.from_numpy(g) for g in gs], tm, tv, h)
