@@ -72,9 +72,33 @@ Phases, each printing one JSON line:
   8. batch_norm_act: the public BN(+ReLU) entry point of the kernels package
      (no model path calls it), forward and backward at the stem's shape with
      and without ReLU: 1 moments, 1 bias_act (the apply) and 1 bn_bwd launch
-     per call, its outputs and gradients within 1e-4 of the plain torch ops.
+     per call, its outputs and gradients within 1e-4 of the plain torch ops;
+  9. remat train: the reference "clean" variant (ResNet-50, 224^2, batch
+     224, Adam lr 1e-4, kernels='pallas', remat='block') with
+     conv_kernels='pallas' and fused Adam: 5 steps on one synthetic batch,
+     the counters read after each (105 conv: 53 and the 52 the backward
+     reruns, 52 dx, 53 dW, 105 moments, 32 add_relu, 16 masks, 1 + 1
+     matmul, 1 adam), the loss after the last update below the first; then
+     from one state one step each of remat 'block', 'stage' (the same
+     counts) and 'elementwise' (the standard step's counts but 32 add_relu:
+     the joins rerun, the convs and statistics are kept) against the
+     'none' step: counters, summed loss and batch and running statistics
+     within 1e-6 of max|.|, every gradient leaf within 1e-5 of its max
+     (the count of leaves equal bit for bit printed), parameters within
+     2 lr + 1e-6, the step's peak memory below the 'none' step's; the same
+     for kernels='blockfused' under block remat (24 block_fused, 1 adam)
+     and for the "lowmem" variant (plain path, block remat) at its batch of
+     192, whose cuDNN backward adds in no fixed order: there a gradient
+     leaf passes within 1e-5 of its max or within 4 times the no-remat
+     path's own change between two runs; one ghost-BN step at batch 32 (bn_stats_batch=16: no K4 launch)
+     and ghost BN's closed-form VJP against autograd of the sliced moments
+     within 1e-5 of max at the stem's and stage 1's shapes; step times of
+     'none' and 'block' in turns (none, block, block, none) with
+     host_step_ms, peak memory and device busy time of one step each.
+Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
+forward, dx and dW), K2, K2b and K4 (the stem and stage 1).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 8 together, every kernel launched on at least one of them; ms,
+phases 4 to 9 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
@@ -155,6 +179,28 @@ BLOCKFUSED_PALLAS_PER_STEP = {"block_fused": 12, "conv2d": 17, "conv2d_dx": 16,
                               "conv2d_dw": 17, "adam": 1}
 # one batch_norm_act forward and backward
 BN_ENTRY_PER_CALL = {"moments": 1, "bias_act": 1, "bn_bwd": 1}
+# ... and in one step of the clean variant (batch 224) with every hand
+# kernel under remat='block' or 'stage': the backward reruns the 16 blocks'
+# 52 convs, their 52 BN statistics and 16 joins; the stem and the FC run once
+REMAT_PER_STEP = {"conv2d": 53 + 52, "conv2d_dx": 52, "conv2d_dw": 53, "moments": 53 + 52,
+                  "add_relu": 16 + 16, "add_relu_mask": 16, "matmul": 1, "matmul_bwd": 1,
+                  "adam": 1}
+# ... under remat='elementwise': the conv outputs and the statistics are
+# kept, the BN applies and the joins rerun (models/resnet.py), so only the
+# 16 joins launch again
+ELEMENTWISE_PER_STEP = dict(PER_STEP, add_relu=16 + 16)
+# ... the whole-block engine under remat='block': its 12 blocks rerun
+BLOCKFUSED_REMAT_PER_STEP = {"block_fused": 12 + 12, "adam": 1}
+# ... ghost BN: its statistics are plain torch ops, K4 is never reached
+GHOST_PER_STEP = {k: v for k, v in PER_STEP.items() if k != "moments"}
+# a remat step against the no-remat step from one state: loss, batch and
+# running statistics within REMAT_STAT_TOL of max|.|, each gradient leaf
+# within REMAT_GRAD_TOL of its max, the parameters within 2 lr + 1e-6
+REMAT_STAT_TOL = 1e-6
+REMAT_GRAD_TOL = 1e-5
+# ghost BN's closed-form VJP against autograd of the sliced moments
+GHOST_TOL = 1e-5
+GHOST_BATCH, GHOST_STATS = 32, 16
 LOGIT_TOL = 1e-3
 # kernel path against the plain path after one training step
 LOSS_TOL = 1e-4  # relative
@@ -935,6 +981,247 @@ def phase_bn_entry(torch, counters):
     return launches
 
 
+def _step_record(torch, cfg, state0, batch):
+    """One step of cfg from state0: its summed loss, batch statistics and
+    gradients (loss_and_grads), then train_step's state and metrics with the
+    peak memory of that step (GiB, all earlier allocations included) and
+    the memory allocated before it."""
+    from resnet_tpu_torch.train import loss_and_grads, make_train_step
+
+    loss_sum, _, aux, grads = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
+    state = _clone(state0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    return {"loss_sum": loss_sum, "bn_stats": aux["bn_stats"], "grads": grads,
+            "state": state, "metrics": metrics,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "before_gib": before}
+
+
+def _hold_to(torch, got, want, lr, what, spread=None):
+    """A step record against another from the same state (``_step_record``):
+    summed loss, batch and running statistics within REMAT_STAT_TOL of
+    max|.|, every gradient leaf within REMAT_GRAD_TOL of its max or, where
+    ``spread`` (path -> the no-remat path's own change between two runs) is
+    given, GRAD_SENS times that change if larger; the parameters within
+    2 lr + 1e-6. Returns the errors and how many gradient leaves are equal
+    bit for bit."""
+    from resnet_tpu_torch.bridge import flatten, leaves
+
+    la, lb = got["loss_sum"].item(), want["loss_sum"].item()
+    require(abs(la - lb) <= REMAT_STAT_TOL * abs(lb), f"{what}: summed loss {la} vs {lb}")
+    stat_err, _, _ = _leaf_errors(got["bn_stats"], want["bn_stats"],
+                                  f"{what} batch statistic", REMAT_STAT_TOL)
+    run_err, _, _ = _leaf_errors(got["state"].bn_state, want["state"].bn_state,
+                                 f"{what} running statistic", REMAT_STAT_TOL)
+    grad_err, grad_spread, nearest = _leaf_errors(got["grads"], want["grads"],
+                                                  f"{what} gradient", REMAT_GRAD_TOL,
+                                                  sens=spread)
+    pairs = list(zip(leaves(got["grads"]), leaves(want["grads"]), strict=True))
+    equal = sum(bool(torch.equal(a, b)) for a, b in pairs)
+    p_err = max((a - b).abs().max().item() for a, b in zip(
+        leaves(got["state"].params), leaves(want["state"].params), strict=True))
+    require(p_err <= 2 * lr + 1e-6, f"{what}: parameters differ by {p_err} > 2 lr + 1e-6")
+    return {"loss_rel_err": abs(la - lb) / abs(lb), "batch_stats_max_rel_err": stat_err,
+            "running_stats_max_rel_err": run_err, "grad_max_rel_err": grad_err,
+            "grad_nearest_limit": nearest, "grad_leaves_bit_equal": equal,
+            **({"grad_max_err_over_spread": grad_spread} if spread else {}),
+            "grad_leaves": len(pairs), "param_max_abs_err": p_err,
+            "loss": got["metrics"]["loss"].item(), "peak_gib": got["peak_gib"]}
+
+
+def _run_spread(torch, cfg, state0, batch, grads):
+    """Per gradient leaf, how far a second run of cfg's forward and backward
+    from state0 moves it from ``grads``, and how many leaves it leaves
+    equal bit for bit: the run-to-run change of a path whose cuDNN
+    backward adds in no fixed order."""
+    from resnet_tpu_torch.bridge import flatten, leaves
+    from resnet_tpu_torch.train import loss_and_grads
+
+    again = loss_and_grads(state0.params, batch, state0.bn_state, cfg)[3]
+    spread = {path: (a - b).abs().max().item()
+              for (path, a), b in zip(flatten(again), leaves(grads), strict=True)}
+    return spread, sum(v == 0.0 for v in spread.values())
+
+
+def _counted_record(torch, counters, cfg, state0, batch, expect, what):
+    """``_step_record`` of cfg, its counter moves required to be ``expect``
+    per step (twice over loss_and_grads and train_step, Adam once)."""
+    before = counters.read()
+    rec = _step_record(torch, cfg, state0, batch)
+    delta = _moved(before, counters.read())
+    want = {k: 2 * v if k != "adam" else v for k, v in expect.items()}
+    require(delta == want, f"{what} moved the counters by {delta} over loss_and_grads "
+            f"and train_step, expected {want}")
+    return rec
+
+
+def _remat_case(torch, counters, cfg, remat, expect, none_rec, state0, batch, what,
+                spread=None):
+    """One step of cfg under ``remat`` (counted, ``_counted_record``) held to
+    the no-remat step ``none_rec`` (with ``spread``, the run-to-run change
+    of a path on cuDNN and its count of equal leaves, ``_hold_to``), its
+    peak memory required below that step's. Emits the result as a line too."""
+    import dataclasses
+
+    rcfg = dataclasses.replace(cfg, execution=dataclasses.replace(cfg.execution,
+                                                                  remat=remat))
+    rec = _counted_record(torch, counters, rcfg, state0, batch, expect, what)
+    out = _hold_to(torch, rec, none_rec, cfg.optimizer.learning_rate, what,
+                   spread and spread[0])
+    out.update(none_peak_gib=none_rec["peak_gib"],
+               step_gib=rec["peak_gib"] - rec["before_gib"],
+               none_step_gib=none_rec["peak_gib"] - none_rec["before_gib"])
+    if spread:
+        out["none_twice_grad_leaves_bit_equal"] = spread[1]
+    emit({"phase": "remat_case", "case": what, **out})
+    require(rec["peak_gib"] < none_rec["peak_gib"], f"{what}: peak {rec['peak_gib']} GiB "
+            f"is not below the no-remat step's {none_rec['peak_gib']}")
+    return out
+
+
+def _cudnn_remat_case(torch, counters, cfg, expect, state0, batch, what):
+    """``_remat_case`` of block remat for a path on cuDNN convs, whose
+    backward adds in no fixed order: the no-remat step, its run-to-run
+    change (``_run_spread``), then the remat step held to both."""
+    none_rec = _step_record(torch, cfg, state0, batch)
+    spread = _run_spread(torch, cfg, state0, batch, none_rec["grads"])
+    return _remat_case(torch, counters, cfg, "block", expect, none_rec, state0, batch, what,
+                       spread=spread)
+
+
+def _ghost_vjp(torch):
+    """batch_norm_ghost's closed-form VJP against autograd of the sliced
+    moments (batch_norm_ghost_reference) at the stem's and stage 1's shapes
+    at batch GHOST_BATCH, k = GHOST_STATS: y, the statistics, dx, dgamma
+    and dbeta, each within GHOST_TOL of its max."""
+    from resnet_tpu_torch.ops.batchnorm import batch_norm_ghost, batch_norm_ghost_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    errs = {}
+    for h, c in ((112, 64), (56, 256)):
+        x = torch.randn(GHOST_BATCH, h, h, c, generator=gen, device="cuda") * 2 + 0.5
+        gamma = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+        beta = 0.3 * torch.randn(c, generator=gen, device="cuda")
+        dy = torch.randn(x.shape, generator=gen, device="cuda")
+        outs = []
+        for fn in (batch_norm_ghost, batch_norm_ghost_reference):
+            xs, g, b = (t.detach().requires_grad_(True) for t in (x, gamma, beta))
+            y, (mean, var) = fn(xs, g, b, GHOST_STATS)
+            outs.append((y.detach(), mean.detach(), var.detach(),
+                         *torch.autograd.grad(y, (xs, g, b), dy)))
+        for name, a, b in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"), *outs):
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            require(err <= GHOST_TOL * scale, f"ghost BN ({h}^2, {c}) {name}: closed form "
+                    f"vs plain {err} > {GHOST_TOL} * {scale}")
+            errs[f"{name} ({h}^2, {c})"] = err / scale if scale else err
+    return errs
+
+
+def phase_remat(torch, counters, smi):
+    """The clean variant (ResNet-50, batch 224, Adam lr 1e-4, kernels='pallas',
+    remat='block') with conv_kernels='pallas' and fused Adam: main path (5
+    steps, counters per step, loss falls); one step each of remat 'block',
+    'stage' and 'elementwise' against the 'none' step from one state (counts,
+    statistics, gradients, parameters, peak memory); the whole-block engine
+    under block remat against its no-remat step; lowmem at batch 192; a
+    ghost-BN step at batch 32 and the ghost VJP against its plain version;
+    step times of 'none' and 'block' in turns, with host time and device
+    busy time."""
+    import dataclasses
+
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.config import variant_config
+    from resnet_tpu_torch.train import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    base = variant_config("clean")  # ResNet-50, kernels='pallas', remat='block', batch 224
+
+    def with_(cfg, **execution):
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, **execution),
+            optimizer=dataclasses.replace(cfg.optimizer, fused=True))
+
+    def batch_of(n):
+        data = next(SyntheticDataset(n, image_dim=base.model.input_dim,
+                                     num_classes=base.model.num_classes, seed=SEED,
+                                     distinct_batches=1))
+        return {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+    cfg = with_(base, conv_kernels="pallas")
+    batch_n = cfg.data.batch_size
+    state0 = init_train_state(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    batch = batch_of(batch_n)
+    rstep = make_train_step(cfg)
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, rstep, cfg, state0, batch, REMAT_PER_STEP, "remat train")
+    del state
+
+    none_cfg = with_(cfg, remat="none")
+    none_rec = _step_record(torch, none_cfg, state0, batch)
+    cases = {remat: _remat_case(torch, counters, none_cfg, remat, expect, none_rec, state0,
+                                batch, f"remat={remat!r}")
+             for remat, expect in (("block", REMAT_PER_STEP), ("stage", REMAT_PER_STEP),
+                                   ("elementwise", ELEMENTWISE_PER_STEP))}
+    del none_rec
+
+    # the whole-block engine, with the preset's cuDNN convs elsewhere
+    cases["blockfused block"] = _cudnn_remat_case(
+        torch, counters, with_(base, kernels="blockfused", remat="none"),
+        BLOCKFUSED_REMAT_PER_STEP, state0, batch, "blockfused, remat='block'")
+    del state0, batch
+
+    # lowmem: the plain path with block remat at its batch (no hand kernel)
+    low = variant_config("lowmem")
+    low_state0 = init_train_state(low, torch.Generator().manual_seed(SEED), device="cuda")
+    cases["lowmem"] = _cudnn_remat_case(
+        torch, counters, dataclasses.replace(low, execution=dataclasses.replace(
+            low.execution, remat="none")), {}, low_state0, batch_of(low.data.batch_size),
+        "lowmem")
+    cases["lowmem"]["batch"] = low.data.batch_size
+    del low_state0
+
+    # ghost BN at batch 32: one step, then the VJP against its plain version
+    gcfg = with_(dataclasses.replace(base, data=dataclasses.replace(
+        base.data, batch_size=GHOST_BATCH)), conv_kernels="pallas", remat="none",
+        bn_stats_batch=GHOST_STATS)
+    gstate0 = init_train_state(gcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    gbatch = batch_of(GHOST_BATCH)
+    grec = _counted_record(torch, counters, gcfg, gstate0, gbatch, GHOST_PER_STEP,
+                           "ghost BN")
+    require(np.isfinite(grec["metrics"]["loss"].item()), "ghost BN: non-finite loss")
+    ghost = {"batch": GHOST_BATCH, "bn_stats_batch": GHOST_STATS, "per_step": GHOST_PER_STEP,
+             "loss": grec["metrics"]["loss"].item(), "vjp_max_rel_err": _ghost_vjp(torch)}
+    del grec, gstate0, gbatch
+
+    # step times in turns: none, block, block, none
+    state0 = init_train_state(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+    batch = batch_of(batch_n)
+    steps = {"none": make_train_step(none_cfg), "block": rstep}
+    states = {"none": _clone(state0), "block": state0}
+    step_ms, host_ms, peak, resident = _times_and_peaks(
+        torch, steps, states, batch, ("none", "block", "block", "none"))
+    busy = {}
+    for which in steps:
+        def one_step(which=which):
+            states[which], _ = steps[which](states[which], batch)
+
+        busy[which] = _busy(_profile(torch, one_step))
+    median = {k: float(np.median(v)) for k, v in step_ms.items()}
+    emit({"phase": "remat_train", "model": cfg.model.name, "batch": batch_n, "device": smi,
+          "launches": launches, "per_step": per_step[0], "losses": losses,
+          "loss_after_last_step": final_loss, "compare": cases, "ghost_bn": ghost,
+          "step_ms": step_ms, "host_step_ms": host_ms,
+          **{f"{k}_step_ms": v for k, v in median.items()},
+          **{f"{k}_img_s": batch_n * 1e3 / v for k, v in median.items()},
+          "profile_device_busy_ms": busy, "timed_peak_gib": peak,
+          "resident_before_gib": resident})
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
@@ -969,7 +1256,8 @@ def main() -> None:
              "train": phase_train(torch, checks, counters, smi),
              "fused_train": phase_fused(torch, checks, counters, smi),
              "blockfused_train": phase_blockfused(torch, checks, counters, smi),
-             "batch_norm_act": phase_bn_entry(torch, counters)}
+             "batch_norm_act": phase_bn_entry(torch, counters),
+             "remat_train": phase_remat(torch, counters, smi)}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

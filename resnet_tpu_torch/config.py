@@ -42,12 +42,11 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-ROADMAP_GHOST_BN = "item A2b: ghost batch norm"
 ROADMAP_BF16 = "item A5: bf16 compute"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
 ROADMAP_S2D = "item A8: space-to-depth stem"
-ROADMAP_REMAT = "item A12: remat"
+ROADMAP_DATA = "item A11: data"
 ROADMAP_PARALLEL = "item A13: parallelism"
 
 
@@ -292,8 +291,7 @@ RESUME_LATEST = -2
 @dataclass(frozen=True)
 class TrainConfig:
     """See resnet_tpu.config.TrainConfig. Raises for what the port's
-    training step does not run yet: remat, ghost BN and any parallel
-    layout."""
+    training step does not run yet: any parallel layout."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     execution: ExecutionConfig = dataclasses.field(default_factory=ExecutionConfig)
@@ -312,12 +310,6 @@ class TrainConfig:
     check_errors: bool = False
 
     def __post_init__(self):
-        if self.execution.remat != "none":
-            raise not_ported(f"ExecutionConfig.remat={self.execution.remat!r}",
-                             ROADMAP_REMAT)
-        if self.execution.bn_stats_batch > 0:
-            raise not_ported("ExecutionConfig.bn_stats_batch > 0 (ghost BN)",
-                             ROADMAP_GHOST_BN)
         if self.parallel != ParallelConfig():
             raise not_ported("a non-default ParallelConfig", ROADMAP_PARALLEL)
 

@@ -6,8 +6,9 @@ device only. The plain side must run in true fp32, so ``fp32_strict()``
 turns TF32 off in cuDNN and cuBLAS. A case passes when
 max|kernel - plain| <= 1e-4 * max|plain| for every output (fp32 summed in
 another order gives ~1e-6; an indexing fault shows as O(1)). The batch-norm
-statistics sum up to 401,408 rows: in fp32 that order alone moves the sums
-by ~1e-6 relative, so the same 1e-4 holds for them. For Adam, the positions
+statistics sum up to 2,809,856 rows (the stem at batch 224): in fp32 that
+order alone moves the sums by ~1e-6 relative, so the same 1e-4 holds for
+them. For Adam, the positions
 left non-finite must agree exactly as well.
 
 The fused conv (K8) is held on y, Σy and Σy² each against its own max, the
@@ -82,29 +83,38 @@ _CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
 ]
 CONV_CASES = [(label, 8, *shape) for label, *shape in _CONV_SHAPES]
 TRAIN_CONV_CASES = [(label, 32, *shape) for label, *shape in _CONV_SHAPES]
+# the stem at the clean variant's batch 224: M = 224 * 112 * 112 = 2,809,856
+# output rows, 7x the largest view of batch 32 (build.tc_split's waves,
+# the kernels' row indexing)
+STEM_224 = ("stem 7x7/s2 224->112 3->64, batch 224", 224, 224, 3, 64, 7, 2)
 # the forward: serving (batch 8) and training (batch 32) shapes, then widths
 # not a multiple of 4 (4-byte copies of x and w) at stride 1 on 64-wide
-# tiles and at stride 2 on 128-wide ones
+# tiles and at stride 2 on 128-wide ones, then the stem at batch 224
 FWD_CONV_CASES = [(f"{label}, batch {n}", n, *shape)
                   for label, n, *shape in CONV_CASES + TRAIN_CONV_CASES] + [
     ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
     ("ragged 3x3/s2 14->7 130->66, batch 2", 2, 14, 130, 66, 3, 2),
+    STEM_224,
 ]
-# the training step never takes the images' gradient, so no stem dx; then
-# stage 4's 3x3, whose GEMM splits K in 5 (build.tc_split), and widths not
-# a multiple of 4 (4-byte copies of g and w) at stride 1 on 128-wide tiles
-# and at stride 2 on 64-wide ones
+# the training step never takes the images' gradient, so no stem dx at
+# batch 32; then stage 4's 3x3, whose GEMM splits K in 5 (build.tc_split),
+# and widths not a multiple of 4 (4-byte copies of g and w) at stride 1 on
+# 128-wide tiles and at stride 2 on 64-wide ones; then the stem's shape at
+# batch 224 (Cin = 3: 4-byte copies over the largest M)
 TRAIN_DX_CASES = TRAIN_CONV_CASES[1:] + [
     ("split K 3x3/s1 7^2 512->512", 32, 7, 512, 512, 3, 1),
     ("ragged 3x3 7^2 130->33, batch 2", 2, 7, 130, 33, 3, 1),
     ("ragged 3x3/s2 14->7 9->33, batch 2", 2, 14, 9, 33, 3, 2),
+    STEM_224,
 ]
 # dW: the training shapes, then widths not a multiple of 4 (4-byte copies
 # of x and g) and a depth whose last split chunk is not a whole K-step
-# (build.tc_split: 3 chunks of 512, 512 and 434 pixels)
+# (build.tc_split: 3 chunks of 512, 512 and 434 pixels), then the stem at
+# batch 224 (2.8 M pixels of depth)
 TRAIN_DW_CASES = TRAIN_CONV_CASES + [
     ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
     ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1),
+    STEM_224,
 ]
 # (label, shape, storage offset in floats): the join at stage 1, a size
 # that leaves a scalar tail, and a misaligned start that takes no float4
@@ -112,11 +122,13 @@ ADD_RELU_CASES: List[Tuple[str, Tuple[int, ...], int]] = [
     ("join (8,56,56,256)", (8, 56, 56, 256), 0),
     ("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
     ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1),
+    ("join (224,56,56,256), batch 224", (224, 56, 56, 256), 0),
 ]
 ADD_RELU_MASK_CASES = [
     ("join bwd (32,56,56,256)", (32, 56, 56, 256), 0),
     ("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
     ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1),
+    ("join bwd (224,56,56,256), batch 224", (224, 56, 56, 256), 0),
 ]
 # (label, M, K, N, storage offset of B in floats), the label ending in the
 # route (matmul.matmul_route): the FC head when serving at batch 8 and 3,
@@ -139,12 +151,15 @@ MATMUL_BWD_CASES: List[Tuple[str, int, int, int, int, bool, bool]] = [
     ("db only (32,2048)@(2048,1000), frozen features", 32, 2048, 1000, 0, False, True),
     ("(64,2048)@(2048,1000), two da row tiles", 64, 2048, 1000, 0, True, True),
 ]
-# (label, rows M, channels C): BN statistics at batch 32
+# (label, rows M, channels C): BN statistics at batch 32, then the stem and
+# stage 1 at batch 224 (180 M elements each, 7x batch 32's rows)
 MOMENTS_CASES: List[Tuple[str, int, int]] = [
     ("stem (32*112*112, 64)", 32 * 112 * 112, 64),
     ("stage 1 (32*56*56, 256)", 32 * 56 * 56, 256),
     ("stage 4 (32*7*7, 2048)", 32 * 7 * 7, 2048),
     ("ragged (1000, 33)", 1000, 33),
+    ("stem (224*112*112, 64), batch 224", 224 * 112 * 112, 64),
+    ("stage 1 (224*56*56, 256), batch 224", 224 * 56 * 56, 256),
 ]
 # (label, model name): Adam over that model's parameter list
 ADAM_CASES = [("resnet50 params, non-finite injected", "resnet50")]

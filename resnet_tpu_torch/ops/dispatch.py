@@ -8,9 +8,9 @@ Same rules as resnet_tpu.ops.dispatch:
 * ``conv``: ``engine='pallas'`` (ExecutionConfig.conv_kernels) -> the conv
   kernel;
 * ``bn_act`` with batch statistics and ``engine='pallas'`` -> the moments
-  kernel on the (N*H*W, C) view, then normalize and ReLU in plain ops
-  (dispatch.py:58-74); in eval mode (given mean/var) it always runs the
-  plain ops, as the JAX package sends it through XLA.
+  kernel on the (N*H*W, C) view (``bn_stats``), then normalize and ReLU in
+  plain ops (dispatch.py:58-74); in eval mode (given mean/var) it always
+  runs the plain ops, as the JAX package sends it through XLA.
 
 Otherwise plain torch ops run, which may use cuDNN or cuBLAS on the card,
 as the JAX package runs them in XLA outside any Pallas kernel. Layout is
@@ -25,9 +25,18 @@ import torch
 
 from ..kernels import bn as _kbn, conv as _kconv, fused as _kfused, matmul as _kmatmul
 from .activation import relu as _relu
-from .batchnorm import batch_norm
+from .batchnorm import batch_moments, batch_norm
 from .conv import conv2d
 from .linear import linear
+
+
+def bn_stats(x: torch.Tensor, *, engine: str = "xla"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch (mean, var) of an NHWC tensor, differentiable: the moments
+    kernel under ``engine='pallas'``, else the plain sums."""
+    if engine == "pallas":
+        return _kbn.moments(x.reshape(-1, x.shape[-1]))
+    return batch_moments(x)
 
 
 def bn_act(
@@ -44,9 +53,10 @@ def bn_act(
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """BN, with batch statistics unless mean and var are given, then ReLU
     (capped if relu_cap). Returns (y, (mean, var))."""
-    if engine == "pallas" and mean is None and var is None:
-        # one-read statistics kernel; the normalization stays in torch ops
-        mean, var = _kbn.moments(x.reshape(-1, x.shape[-1]))
+    if mean is None or var is None:
+        # the one-read statistics kernel under 'pallas'; the normalization
+        # stays in torch ops
+        mean, var = bn_stats(x, engine=engine)
     y, stats = batch_norm(x, gamma, beta, eps=eps, mean=mean, var=var)
     if relu:
         y = _relu(y)

@@ -7,7 +7,9 @@ one test per kernel and shape, so each can be rerun alone on a GPU:
 
 the kernels on tc_gemm.cuh's tensor-core core alone with
 ``-k "conv2d or fused_conv"``, and K10 on the wgmma core (wg_gemm.cuh) with
-its weight split alone with ``-k "block_fused or split_tf32"``.
+its weight split alone with ``-k "block_fused or split_tf32"``, and the
+clean variant's batch-224 shapes (K1's stem, K2, K2b, K4) with
+``-k "batch 224"``.
 
 Without a CUDA device every test here skips.
 """

@@ -362,16 +362,16 @@ def test_blockfused_runs_the_standard_path_outside_batch_training(monkeypatch):
     assert calls == []
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(remat="block"), "A12"),
-    (dict(bn_stats_batch=2), "A2b"),
-])
-def test_unported_training_options_name_their_roadmap_item(kw, item):
-    tm = tcfg.tiny_model_config()
-    params = bridge.params_from_numpy(jax.tree.map(
-        np.asarray, j_init_params(jax.random.PRNGKey(0), jcfg.tiny_model_config())), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        forward(params, torch.zeros(4, 16, 16, 3), tm, tcfg.ExecutionConfig(**kw),
-                train=True)
-    with pytest.raises(NotImplementedError, match=item):
-        tcfg.TrainConfig(model=tm, execution=tcfg.ExecutionConfig(**kw))
+@pytest.mark.parametrize("kw", [dict(remat="block"), dict(bn_stats_batch=2)],
+                         ids=["remat", "ghost_bn"])
+def test_remat_and_ghost_bn_train_like_jax(kw):
+    """Remat and ghost BN, which the port once refused, in a training
+    forward and backward on the tiny model with every hand kernel's plain
+    version: logits, bn_stats and every gradient leaf within 1e-4 of
+    max|JAX| (tests/test_torch_remat.py and tests/test_torch_ghost_bn.py
+    hold each further); TrainConfig takes both."""
+    kw = dict(kw, kernels="pallas", conv_kernels="pallas")
+    _train_parity(jcfg.tiny_model_config(), tcfg.tiny_model_config(), kw)
+    assert tcfg.TrainConfig(model=tcfg.tiny_model_config(),
+                            execution=tcfg.ExecutionConfig(**kw)).execution == \
+        tcfg.ExecutionConfig(**kw)
