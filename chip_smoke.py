@@ -94,11 +94,34 @@ Phases, each printing one JSON line:
      and ghost BN's closed-form VJP against autograd of the sliced moments
      within 1e-5 of max at the stem's and stage 1's shapes; step times of
      'none' and 'block' in turns (none, block, block, none) with
-     host_step_ms, peak memory and device busy time of one step each.
+     host_step_ms, peak memory and device busy time of one step each;
+ 10. trainer: the port's trainer from disk. 3 shards of 64 procedural 224^2
+     images (ProceduralDataset, 100 classes, seed 1234) written NCHW with
+     write_shard; the in-process Trainer on the "resnet" variant with
+     conv_kernels='pallas', fused Adam, async dumps every 2 steps and the
+     finite check: 6 steps through the prefetcher, the counters read after
+     each (the standard step's counts), the prefetch queue's depth, the step
+     times (host clock ending in a synchronize), its async dump at step 4
+     against a sync run's within 1e-5 of max per leaf, a dump's snapshot
+     timed alone, and a Trainer with no dumps and no finite check: run(8)
+     against 8 bare train_steps on a staged batch, in turns; then the CLI
+     (python -m resnet_tpu_torch.train.cli, batch 32, every hand kernel,
+     dumps every 4 steps), each run a subprocess that fails if JAX was
+     imported: an uninterrupted run U of 24 steps (4 epochs; dumps 0-20 and
+     77777777, 24 metrics lines, the final cursor as its loader reports it,
+     the loss on step 0's batch after the last update below the first), a
+     run K with async dumps killed by SIGKILL once a dump >= 4 is
+     published, K resumed from its latest dump to step 24 (R: its final
+     dump against U's, each leaf within 1e-5 of max, the bit-equal leaves
+     counted, the checkpoint fields equal, its losses within 1e-5 relative),
+     --evaluate on U's latest dump (a finite eval line) and --export (the
+     artifact's logits on one shard batch within 1e-3 of max|logits| of the
+     eval forward on the restored state); U beside K, then R beside eval
+     and export, with the wall time of each.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 9 together, every kernel launched on at least one of them; ms,
+phases 4 to 10 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
@@ -224,6 +247,22 @@ STAT_TOL = 1e-4  # of max(1, |running statistic|)
 # batch_norm_act against plain torch ops, per output, of its max|plain|
 ENTRY_TOL = 1e-4
 TRAIN_STEPS = 5
+# phase 10, the trainer: 3 shards of 64 procedural images, batch 32 (6 steps
+# an epoch), a CLI run of 24 steps dumping every 4, the in-process Trainer
+# 6 steps dumping every 2
+SHARDS, SHARD_IMAGES, CLI_STEPS, CLI_EVERY, TRAINER_STEPS = 3, 64, 24, 4, 6
+# a resumed run's final dump against the uninterrupted run's, and an async
+# dump against a sync one: each leaf within RESUME_TOL of its max|.|; the
+# per-step losses within RESUME_TOL relative
+RESUME_TOL = 1e-5
+# the cursor after 24 batches, as each loader reports it (data/native.py)
+FINAL_CURSOR = {"native": (0, 0, 4), "python": (2, 2, 3)}
+# the port's CLI as `python -m resnet_tpu_torch.train.cli ARGS` runs it,
+# failing if anything imported JAX
+CLI_MAIN = ("import runpy, sys\n"
+            "runpy.run_module('resnet_tpu_torch.train.cli', run_name='__main__', "
+            "alter_sys=True)\n"
+            "sys.exit('jax was imported' if 'jax' in sys.modules else 0)\n")
 
 
 def emit(obj) -> None:
@@ -1222,6 +1261,350 @@ def phase_remat(torch, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
+class _Cli:
+    """One run of the port's CLI in a subprocess (CLI_MAIN), its output in
+    files under ``log_dir``; a run that fails prints its stderr and fails
+    the phase."""
+
+    def __init__(self, name, args, log_dir):
+        self.name = name
+        self.out_path = os.path.join(log_dir, f"{name}.out")
+        self.err_path = os.path.join(log_dir, f"{name}.err")
+        self.t0 = time.perf_counter()
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen([sys.executable, "-c", CLI_MAIN, *args], cwd=ROOT,
+                                         stdout=out, stderr=err, stdin=subprocess.DEVNULL)
+        self.seconds = None
+
+    def _fail(self, what):
+        with open(self.err_path) as f:
+            print(f.read()[-8000:], file=sys.stderr, flush=True)
+        raise RuntimeError(f"CLI run {self.name}: {what}")
+
+    def wait(self, timeout=900) -> str:
+        """The run's stdout, once it exited with 0."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            self._fail(f"still running after {timeout} s")
+        if self.seconds is None:
+            self.seconds = time.perf_counter() - self.t0
+        if rc != 0:
+            self._fail(f"exited with {rc}")
+        with open(self.out_path) as f:
+            return f.read()
+
+    def kill_after_dump(self, dump_dir, at_least, timeout=900):
+        """SIGKILL the run once a dump with id >= at_least is published."""
+        from resnet_tpu_torch.train import discover_latest_dump
+
+        deadline = time.perf_counter() + timeout
+        while True:
+            latest = discover_latest_dump(dump_dir)
+            if latest is not None and latest >= at_least:
+                break
+            if self.proc.poll() is not None:
+                self._fail(f"ended with {self.proc.returncode} before dump {at_least}")
+            if time.perf_counter() > deadline:
+                self.stop()
+                self._fail(f"no dump {at_least} after {timeout} s")
+            time.sleep(0.02)
+        self.stop()
+        self.seconds = time.perf_counter() - self.t0
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def _wait_all(runs, timeout=900):
+    """Wait for runs started side by side, each one's wall time taken when
+    it ends; returns their stdout."""
+    deadline = time.perf_counter() + timeout
+    while any(r.seconds is None and r.proc.poll() is None for r in runs):
+        if time.perf_counter() > deadline:
+            break  # wait() below fails the late ones
+        time.sleep(0.02)
+    for r in runs:
+        if r.seconds is None and r.proc.poll() is not None:
+            r.seconds = time.perf_counter() - r.t0
+    return [r.wait(timeout=1) for r in runs]
+
+
+def _cli_args(shards, dump_dir):
+    """The trainer command of phase 10 (the reference "resnet" variant's
+    settings, every hand kernel but fused Adam, which the CLI has no flag for)."""
+    return ["--model", "resnet50", "--kernels", "pallas", "--conv-kernels", "pallas",
+            "--batch-size", "32", "--lr", "1e-4", "--shard-dir", shards,
+            "--num-shards", str(SHARDS), "--shard-images", str(SHARD_IMAGES),
+            "--checkpoint-every", str(CLI_EVERY), "--checkpoint-dir", dump_dir,
+            "--log-every", "1", "--device", "cuda"]
+
+
+def _dump_diff(a, b, what):
+    """Dump a against dump b: each leaf of the parameters, moments and
+    running statistics within RESUME_TOL of b's max|.|, and the checkpoint
+    fields (cursor, step, optimizer step, decay products) equal. Returns the
+    largest error as a share of max|.| and the leaves equal bit for bit."""
+    from resnet_tpu_torch.train.checkpoint import parse_trainer_checkpoint
+
+    worst, equal = 0.0, {}
+    for sub in ("model_params", "means", "vars", "bn_state"):
+        names = sorted(os.listdir(os.path.join(b, sub)))
+        require(sorted(os.listdir(os.path.join(a, sub))) == names, f"{what}: {sub} differs")
+        n_equal = 0
+        for name in names:
+            x = np.fromfile(os.path.join(a, sub, name), np.float32)
+            y = np.fromfile(os.path.join(b, sub, name), np.float32)
+            require(x.shape == y.shape, f"{what} {sub}/{name}: {x.shape} vs {y.shape}")
+            scale, err = float(np.abs(y).max()), float(np.abs(x - y).max())
+            require(err <= RESUME_TOL * scale, f"{what} {sub}/{name}: max|a - b| = {err} > "
+                    f"{RESUME_TOL} * {scale}")
+            worst = max(worst, err / scale if scale else 0.0)
+            n_equal += x.tobytes() == y.tobytes()
+        equal[sub] = [n_equal, len(names)]
+    ca, cb = (parse_trainer_checkpoint(os.path.join(d, "trainer_checkpoint.txt"))
+              for d in (a, b))
+    require(ca == cb, f"{what}: trainer_checkpoint.txt {ca} vs {cb}")
+    return worst, equal
+
+
+def _jsonl_losses(dump_dir):
+    """step -> loss of metrics.jsonl, the last record of each step."""
+    with open(os.path.join(dump_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return {r["step"]: r["loss"] for r in recs}, len(recs)
+
+
+def phase_trainer(torch, counters, smi):
+    """The trainer from disk: shards written, the in-process Trainer (launch
+    counts per step, the queue depth, an async dump under fused Adam against
+    a sync one, the snapshot alone, step times), then the CLI: an
+    uninterrupted run U, a run K killed by SIGKILL after a dump, K resumed
+    from its latest dump (R) against U, evaluation and export of U's final
+    dump."""
+    import dataclasses
+
+    from resnet_tpu_torch.config import variant_config
+    from resnet_tpu_torch.data import ShardDataset, write_shard
+    from resnet_tpu_torch.data.procedural import ProceduralDataset, ProceduralIterator
+    from resnet_tpu_torch.export import load_inference
+    from resnet_tpu_torch.models import forward
+    from resnet_tpu_torch.ops import cross_entropy
+    from resnet_tpu_torch.ops.precision import precision_scope
+    from resnet_tpu_torch.train import FINAL_DUMP_ID, Trainer, init_train_state
+    from resnet_tpu_torch.train import discover_latest_dump, restore_checkpoint
+    from resnet_tpu_torch.train.checkpoint import _host, dump_id_dir
+    from resnet_tpu_torch.train.cli import build_config
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = variant_config("resnet")  # ResNet-50, kernels='pallas', lr 1e-4, batch 32
+    mcfg, batch_n = base.model, base.data.batch_size
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # 1. the shards: NCHW on disk, as build_training_shards.c writes them
+            shards = os.path.join(tmp, "shards")
+            t0 = time.perf_counter()
+            stream = ProceduralIterator(ProceduralDataset(
+                num_classes=100, image_dim=mcfg.input_dim, seed=SEED), SHARD_IMAGES, seed=SEED)
+            for s in range(SHARDS):
+                b = next(stream)
+                write_shard(shards, s, b["images"].transpose(0, 3, 1, 2), b["labels"])
+            shard_s = time.perf_counter() - t0
+
+            # 6-7. the in-process Trainer first, alone on the card: every hand
+            # kernel and fused Adam, async dumps every 2 steps, the finite check
+            cfg = dataclasses.replace(
+                base, execution=dataclasses.replace(base.execution, conv_kernels="pallas"),
+                optimizer=dataclasses.replace(base.optimizer, fused=True),
+                data=dataclasses.replace(base.data, shard_dir=shards, num_shards=SHARDS,
+                                         shard_images=SHARD_IMAGES, layout="NCHW"),
+                async_checkpoint=True, checkpoint_every=2, check_errors=True,
+                checkpoint_dir=os.path.join(tmp, "async"), log_every=0)
+
+            def timed_steps(t, n):
+                """n steps of Trainer t, one run(1) each, on the host clock
+                ending in a synchronize; the counters' moves and the prefetch
+                queue's depth after each."""
+                ms, moved, depth = [], [], []
+                for _ in range(n):
+                    before = counters.read()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    t.run(1)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    moved.append(_moved(before, counters.read()))
+                    depth.append(t._dev_iter.qsize())
+                return ms, moved, depth
+
+            trainer = Trainer(cfg, device="cuda")
+            counters.zero()
+            step_ms, per_step, qsize = timed_steps(trainer, TRAINER_STEPS)
+            launches = counters.read()
+            for i, delta in enumerate(per_step):
+                require(delta == PER_STEP, f"trainer step {i} moved the counters by {delta}, "
+                        f"expected {PER_STEP}")
+            loader = trainer.loader
+            trainer.finalize()
+            # a dump's snapshot alone (the state to owned host memory), no
+            # write in flight
+            snapshot_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _host(trainer.state)
+                snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+            # a sync run from the same seed: its dump at step 4 against the
+            # async one, which the in-place Adam of step 4 could have torn
+            synced = Trainer(dataclasses.replace(cfg, async_checkpoint=False,
+                                                 checkpoint_dir=os.path.join(tmp, "sync")),
+                             device="cuda")
+            sync_ms, _, _ = timed_steps(synced, 5)
+            synced.finalize()
+            async_err, async_equal = _dump_diff(
+                dump_id_dir(cfg.checkpoint_dir, 4), dump_id_dir(synced.cfg.checkpoint_dir, 4),
+                "async vs sync dump 4")
+            # the input pipeline alone (no dumps, no finite check): run(8),
+            # metrics read one step behind, against 8 of the same Trainer's
+            # bare train_step on a batch staged on the card, in turns
+            plain_loop = Trainer(dataclasses.replace(
+                cfg, async_checkpoint=False, checkpoint_every=0, check_errors=False,
+                checkpoint_dir=""), device="cuda")
+            plain_loop.run(2)  # the new state's first calls
+            staged = dict(next(plain_loop._device_iter()))
+            staged.pop("cursor")
+            loops = {"bare": [], "trainer": []}
+            for which in ("bare", "trainer", "trainer", "bare"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if which == "bare":
+                    for _ in range(8):
+                        plain_loop.state, _ = plain_loop.train_step(plain_loop.state, staged)
+                else:
+                    plain_loop.run(8)
+                torch.cuda.synchronize()
+                loops[which].append((time.perf_counter() - t0) * 1e3 / 8)
+            plain_loop.finalize()
+            del trainer, synced, plain_loop
+            for d in ("async", "sync"):
+                shutil.rmtree(os.path.join(tmp, d))
+            torch.cuda.empty_cache()
+            in_process_s = time.perf_counter() - phase_t0
+
+            # 2-3. U, and K killed once a dump >= 4 is published, side by side
+            cu, ck = os.path.join(tmp, "U"), os.path.join(tmp, "K")
+            u = _Cli("U", _cli_args(shards, cu) + ["--steps", str(CLI_STEPS)],
+                     tmp)
+            runs.append(u)
+            k = _Cli("K", _cli_args(shards, ck)
+                     + ["--async-checkpoint", "--steps", "40"], tmp)
+            runs.append(k)
+            k.kill_after_dump(ck, CLI_EVERY)
+            latest = discover_latest_dump(ck)
+            require(latest is not None and latest % CLI_EVERY == 0 and latest < CLI_STEPS,
+                    f"latest dump of the killed run: {latest}")
+            left_tmp = sorted(n for n in os.listdir(ck) if ".tmp-" in n)
+
+            # 4. R, K resumed, beside U; 5. eval and export of U's final dump
+            # once U ends, beside R
+            r = _Cli("R", _cli_args(shards, ck)
+                     + ["--resume-from", "latest", "--steps", str(CLI_STEPS - latest)], tmp)
+            runs.append(r)
+            u_out, = _wait_all([u])
+            ev = _Cli("eval", _cli_args(shards, cu)
+                      + ["--evaluate", "--resume-from", "latest", "--eval-batches", "2"], tmp)
+            runs.append(ev)
+            art = os.path.join(tmp, "resnet50.pt")
+            ex = _Cli("export", _cli_args(shards, cu)
+                      + ["--resume-from", "latest", "--export", art], tmp)
+            runs.append(ex)
+            r_out, ev_out, ex_out = _wait_all([r, ev, ex])
+        finally:
+            for run in runs:
+                run.stop()
+
+        # U: its dumps, its 24 steps, the final cursor, the loss
+        u_loader = "native" if "input: native loader" in u_out else "python"
+        dumps = sorted(int(n) for n in os.listdir(cu) if n.isdigit())
+        want = [*range(0, CLI_STEPS, CLI_EVERY), FINAL_DUMP_ID]
+        require(dumps == want, f"U's dumps {dumps}, expected {want}")
+        u_losses, n_lines = _jsonl_losses(cu)
+        require(n_lines == CLI_STEPS and sorted(u_losses) == list(range(CLI_STEPS)),
+                f"U's metrics.jsonl holds {n_lines} lines, steps {sorted(u_losses)}")
+        ucfg, _ = build_config(_cli_args(shards, cu))
+        state, cursor = restore_checkpoint(cu, FINAL_DUMP_ID,
+                                           init_train_state(ucfg, device="cuda"))
+        final_cursor = (cursor.shard, cursor.batch_in_shard, cursor.epoch)
+        require(final_cursor == FINAL_CURSOR[u_loader],
+                f"U's final cursor {final_cursor} ({u_loader} loader), expected "
+                f"{FINAL_CURSOR[u_loader]}")
+        images, labels = ShardDataset(shards, num_shards=SHARDS, shard_images=SHARD_IMAGES,
+                                      image_dim=mcfg.input_dim).open_shard(0)
+        x = torch.from_numpy(np.ascontiguousarray(images[:batch_n].transpose(0, 2, 3, 1)))
+        x, y = x.to("cuda"), torch.from_numpy(np.array(labels[:batch_n])).to("cuda")
+        with torch.no_grad(), precision_scope(ucfg.execution):
+            # step 0's batch again, after the last update
+            logits, _ = forward(state.params, x, ucfg.model, ucfg.execution, train=True,
+                                bn_state=state.bn_state)
+            final_loss = cross_entropy(logits, y, reduction="mean").item()
+            want_logits, _ = forward(state.params, x, ucfg.model, ucfg.execution,
+                                     train=False, bn_state=state.bn_state)
+        require(np.isfinite(final_loss) and final_loss < u_losses[0],
+                f"U: loss on step 0's batch after {CLI_STEPS} steps {final_loss} is not "
+                f"below the first {u_losses[0]}")
+
+        # K and R against U
+        require(f"resumed from dump {latest} at step {latest}" in r_out,
+                "R did not report its resume")
+        resume_err, resume_equal = _dump_diff(dump_id_dir(ck, FINAL_DUMP_ID),
+                                              dump_id_dir(cu, FINAL_DUMP_ID), "R vs U")
+        r_losses, _ = _jsonl_losses(ck)
+        for s in range(latest, CLI_STEPS):
+            require(abs(r_losses[s] - u_losses[s]) <= RESUME_TOL * abs(u_losses[s]),
+                    f"step {s}: R's loss {r_losses[s]} vs U's {u_losses[s]}")
+        n_equal_losses = sum(r_losses[s] == u_losses[s] for s in range(latest, CLI_STEPS))
+
+        # eval and export
+        line = next((ln for ln in ev_out.splitlines() if ln.startswith("eval over 2 batches")),
+                    None)
+        require(line is not None, f"no eval line in: {ev_out[-2000:]}")
+        eval_metrics = {k: float(v) for k, v in (f.split("=") for f in line.split()[4:])}
+        require(all(np.isfinite(v) for v in eval_metrics.values()), f"eval: {line}")
+        require("exported serving artifact" in ex_out, "export printed no artifact")
+        got = load_inference(art, device="cuda").call(x)
+        scale = want_logits.abs().max().item()
+        export_err = (got - want_logits).abs().max().item()
+        require(export_err <= LOGIT_TOL * scale, f"exported logits differ by {export_err} > "
+                f"{LOGIT_TOL} * {scale}")
+
+    loop_median = {k: float(np.median(v)) for k, v in loops.items()}
+    emit({"phase": "trainer", "model": mcfg.name, "batch": batch_n, "device": smi,
+          "phase_s": time.perf_counter() - phase_t0, "in_process_s": in_process_s,
+          "shards": [SHARDS, SHARD_IMAGES], "shard_write_s": shard_s,
+          "launches": launches, "per_step": per_step[0], "loader": loader,
+          "qsize": qsize, "async_vs_sync_dump4": {"max_rel_err": async_err,
+                                                  "bit_equal": async_equal},
+          "step_ms": step_ms, "step_ms_median_2_5": float(np.median(step_ms[2:6])),
+          "sync_dump_run_step_ms": sync_ms, "snapshot_ms": snapshot_ms,
+          "loop_ms_per_step": loops,
+          "loop_over_bare_in_turns": loop_median["trainer"] / loop_median["bare"] - 1,
+          "cli": {"loader": u_loader, "dumps": dumps, "final_cursor": final_cursor,
+                  "first_loss": u_losses[0], "loss_after_last_step": final_loss,
+                  "killed_after_dump": latest, "tmp_dirs_left": left_tmp,
+                  "resume_max_rel_err": resume_err, "resume_bit_equal": resume_equal,
+                  "param_leaves_bit_equal": resume_equal["model_params"],
+                  "resumed_losses_equal": [n_equal_losses, CLI_STEPS - latest],
+                  "eval": eval_metrics, "export_max_err": export_err,
+                  "export_max_abs_logit": scale,
+                  "seconds": {run.name: run.seconds for run in runs}}})
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
@@ -1257,7 +1640,8 @@ def main() -> None:
              "fused_train": phase_fused(torch, checks, counters, smi),
              "blockfused_train": phase_blockfused(torch, checks, counters, smi),
              "batch_norm_act": phase_bn_entry(torch, counters),
-             "remat_train": phase_remat(torch, counters, smi)}
+             "remat_train": phase_remat(torch, counters, smi),
+             "trainer": phase_trainer(torch, counters, smi)}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

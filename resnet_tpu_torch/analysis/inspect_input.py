@@ -7,7 +7,7 @@ ImageNet means that build_training_shards.c subtracted (:115-131)
 and renders the images with their labels (cells 4-8). Same here, as a CLI
 that writes a PNG grid.
 
-Usage (once the shard reader is ported, ROADMAP.md queue A item A11):
+Usage:
   python -m resnet_tpu_torch.analysis.inspect_input --shard-dir D --out batch.png
 """
 
@@ -17,8 +17,6 @@ import argparse
 from typing import Optional, Sequence
 
 import numpy as np
-
-from ..config import ROADMAP_DATA, not_ported
 
 IMAGENET_MEANS = (123.68, 116.78, 103.94)  # RGB, build_training_shards.c:115
 
@@ -72,10 +70,20 @@ def main(argv=None):
     ap.add_argument("--layout", default="NCHW")
     ap.add_argument("--metadata-dir", default="")
     ap.add_argument("--out", default="batch.png")
-    ap.parse_args(argv)
-    # the shards are read by resnet_tpu.data.ShardDataset, which the port
-    # does not have yet
-    raise not_ported("reading training shards", ROADMAP_DATA)
+    args = ap.parse_args(argv)
+
+    from ..data import ShardDataset, load_class_metadata
+
+    ds = ShardDataset(args.shard_dir, disk_layout=args.layout)
+    images, labels = ds.open_shard(args.shard)
+    names = None
+    if args.metadata_dir:
+        names = load_class_metadata(args.metadata_dir).labels
+    out = save_batch_grid(
+        np.asarray(images[: args.n]), labels[: args.n],
+        layout=args.layout, label_names=names, out_path=args.out,
+    )
+    print(f"wrote {out}")
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ ROADMAP_BF16 = "item A5: bf16 compute"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
 ROADMAP_S2D = "item A8: space-to-depth stem"
-ROADMAP_DATA = "item A11: data"
+ROADMAP_QUANT = "item A9: serving artifact and quantize.py"
 ROADMAP_PARALLEL = "item A13: parallelism"
 
 

@@ -1,0 +1,317 @@
+"""Training loop: the port of resnet_tpu.train.trainer for one device —
+the analogue of main()'s epoch/iter loop (resnet.cu:3222-3429).
+
+Per iteration the reference does: load_new_batch -> sync -> forward_pass ->
+host loss/accuracy -> backwards_pass -> update_parameters(+dump). Here the
+input pipeline stages batches on the device ahead of the step
+(``data.prefetch``), the step is enqueued, and its metrics are read one
+step behind: a ``.item()`` on a CUDA tensor waits for the device, so each
+step's metrics are read only after the next step has been enqueued, and
+only when ``record_metrics`` is on.
+
+Failure handling mirrors the reference: optional per-step finite scan of the
+parameters (check_errors, resnet.cu:2879-2907); on a non-finite hit, the
+state dumps to sentinel id 99999999 and training aborts with a forensic
+report. Periodic checkpoints every cfg.checkpoint_every steps, before the
+update (resnet.cu:2947), final dump at sentinel 77777777
+(resnet.cu:3424-3425), resume from cfg.resume_from (LOAD_FROM_DUMP_ID,
+resnet.cu:3299-3304).
+
+Images/sec counts the global batch, which on one device is
+``cfg.data.batch_size``. Any other ``ParallelConfig`` raises in
+``TrainConfig`` (ROADMAP.md queue A, item A13).
+"""
+
+from __future__ import annotations
+
+import itertools
+from dataclasses import replace
+from typing import Any, Dict, Iterator, Optional
+
+import torch
+
+from ..config import RESUME_LATEST, ROADMAP_QUANT, TrainConfig, not_ported
+from ..data import (
+    ShardCursor,
+    ShardDataset,
+    ShardIterator,
+    SyntheticDataset,
+    prefetch_to_device,
+)
+from ..utils import MetricsLogger, check_state_finite, nonfinite_report
+from .checkpoint import (
+    FINAL_DUMP_ID,
+    NAN_DUMP_ID,
+    AsyncCheckpointer,
+    discover_latest_dump,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from .state import init_train_state
+from .step import make_eval_step, make_train_step
+
+
+class NonFiniteError(RuntimeError):
+    pass
+
+
+class Trainer:
+    """Train ``cfg`` on one device (the card unless ``device`` says
+    otherwise), from ``data_source`` or the data ``cfg.data`` names."""
+
+    def __init__(
+        self,
+        cfg: TrainConfig,
+        *,
+        data_source: Optional[Iterator] = None,
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.state = init_train_state(cfg, device=self.device)
+        self.cursor = ShardCursor()
+        self.checkpointer = AsyncCheckpointer() if cfg.async_checkpoint else None
+        resume_from = cfg.resume_from
+        if resume_from == RESUME_LATEST:
+            resume_from = discover_latest_dump(cfg.checkpoint_dir)
+            if resume_from is None:
+                raise FileNotFoundError(
+                    f"resume_from=RESUME_LATEST but no complete dump exists "
+                    f"under {cfg.checkpoint_dir!r}"
+                )
+        if resume_from is not None and resume_from >= 0:
+            self.state, self.cursor = restore_checkpoint(
+                cfg.checkpoint_dir, resume_from, self.state
+            )
+            print(f"resumed from dump {resume_from} at step {int(self.state.step)}")
+        self.train_step = make_train_step(cfg)
+        self.eval_step = make_eval_step(cfg)
+        self.loader = "source" if data_source is not None else None
+        self._host_iter = data_source or self._build_data()
+        self._dev_iter = None  # built lazily, shared across run() calls
+        self.logger = MetricsLogger(
+            cfg.checkpoint_dir or None,
+            print_every=cfg.log_every,
+            batch_size=cfg.data.batch_size,
+        )
+
+    def _build_data(self):
+        """The host iterator ``cfg.data`` names; sets ``self.loader`` to the
+        one chosen (jpeg, synthetic, native or python) and logs it."""
+        dcfg = self.cfg.data
+        if dcfg.jpeg_dir:
+            from ..data import JpegDataset
+
+            self._chose("jpeg", dcfg.jpeg_dir)
+            return JpegDataset(
+                dcfg.jpeg_dir,
+                dcfg.batch_size,
+                out_dim=self.cfg.model.input_dim,
+                train=True,
+                layout=self.cfg.execution.layout,
+                seed=self.cfg.seed,
+            )
+        if dcfg.synthetic or not dcfg.shard_dir:
+            self._chose("synthetic", "SyntheticDataset")
+            return SyntheticDataset(
+                dcfg.batch_size,
+                image_dim=self.cfg.model.input_dim,
+                channels=self.cfg.model.in_channels,
+                num_classes=self.cfg.model.num_classes,
+                layout=self.cfg.execution.layout,
+            )
+        dataset = ShardDataset(
+            dcfg.shard_dir,
+            num_shards=dcfg.num_shards,
+            shard_images=dcfg.shard_images,
+            image_dim=self.cfg.model.input_dim,
+            channels=self.cfg.model.in_channels,
+            disk_layout=dcfg.layout,
+        )
+        # prefer the native C++ read-ahead loader (csrc/shard_loader.cc);
+        # the Python mmap iterator runs when it is not built or when
+        # train-time flip augmentation is on (the flip runs host-side)
+        from ..data.native import NativeShardIterator, native_available, native_status
+
+        # the iterator gets a *copy* of the cursor: its worker thread runs
+        # ahead of training by the prefetch depth, so the live cursor must
+        # never be the one checkpoints record. self.cursor tracks the last
+        # trained batch via the per-batch snapshots (run() below); dumping
+        # it matches the reference's synchronous cursor-at-update semantics
+        # (dump_trainer inside update_parameters, resnet.cu:2947-2950).
+        if not dcfg.random_flip and native_available():
+            self._chose("native", native_status())
+            return NativeShardIterator(
+                dataset,
+                dcfg.batch_size,
+                layout=self.cfg.execution.layout,
+                cursor=replace(self.cursor),
+                prefetch_depth=max(2, dcfg.prefetch),
+            )
+        self._chose("python", "random_flip" if dcfg.random_flip else native_status())
+        return ShardIterator(
+            dataset,
+            dcfg.batch_size,
+            layout=self.cfg.execution.layout,
+            cursor=replace(self.cursor),
+            random_flip=dcfg.random_flip,
+            seed=self.cfg.seed,
+        )
+
+    def _chose(self, loader: str, why: str):
+        if self.loader is None:  # the training stream's loader, not eval's
+            self.loader = loader
+        print(f"input: {loader} loader ({why})", flush=True)
+
+    def _device_iter(self):
+        # one persistent prefetcher: building a new one per run() would
+        # leak worker threads that keep consuming the host iterator
+        if self._dev_iter is not None:
+            return self._dev_iter
+        dcfg = self.cfg.data
+        if dcfg.synthetic and dcfg.device_batches > 0:
+            # device-resident rotation: K distinct synthetic batches staged
+            # once, zero per-step host-to-device copies (the soak mode)
+            staged = []
+            it = iter(self._host_iter)
+            for _ in range(dcfg.device_batches):
+                b = dict(next(it))
+                b.pop("cursor", None)  # meaningless for a cycled staging set
+                staged.append({k: torch.tensor(v, device=self.device)
+                               for k, v in b.items()})
+            self._dev_iter = itertools.cycle(staged)
+            return self._dev_iter
+        transfer = dcfg.transfer_dtype if dcfg.transfer_dtype != "float32" else None
+        self._dev_iter = prefetch_to_device(
+            self._host_iter, depth=dcfg.prefetch, device=self.device,
+            transfer_dtype=transfer,
+        )
+        return self._dev_iter
+
+    def _maybe_check_errors(self):
+        if not self.cfg.check_errors:
+            return
+        if not bool(check_state_finite(self.state.params)):
+            # order after any in-flight periodic write, then dump
+            # synchronously — the forensic dump must be on disk before the
+            # process dies (check_errors, resnet.cu:2879-2907)
+            if self.checkpointer is not None:
+                self.checkpointer.wait()
+            save_checkpoint(
+                self.cfg.checkpoint_dir, NAN_DUMP_ID, self.state, self.cursor
+            )
+            report = nonfinite_report(self.state.params)
+            raise NonFiniteError(
+                "non-finite trainer state; dumped to sentinel "
+                f"{NAN_DUMP_ID}:\n" + "\n".join(report)
+            )
+
+    def run(self, num_steps: int) -> Dict[str, Any]:
+        """Train for num_steps. Returns the last metrics."""
+        cfg = self.cfg
+        it = self._device_iter()
+        pending = None  # (step, metrics) logged one step behind
+        last: Dict[str, Any] = {}
+        # host-side step mirror: one read of the device step, then counted
+        step_before = int(self.state.step)
+        for _ in range(num_steps):
+            batch = dict(next(it))
+            # post-batch stream position of THIS batch; applied to
+            # self.cursor only after the step trains on it
+            batch_cursor = batch.pop("cursor", None)
+            if (
+                cfg.checkpoint_every
+                and step_before % cfg.checkpoint_every == 0
+                and cfg.checkpoint_dir
+            ):
+                # dump before the update, like update_parameters
+                # (resnet.cu:2947-2950); async mode snapshots here and
+                # overlaps the file write with the coming steps
+                save = (
+                    self.checkpointer.save
+                    if self.checkpointer is not None
+                    else save_checkpoint
+                )
+                save(
+                    cfg.checkpoint_dir, step_before, self.state, self.cursor,
+                    metadata={"loss_history": self.logger.loss_history[-100:]},
+                )
+            self.state, metrics = self.train_step(self.state, batch)
+            if batch_cursor is not None:
+                self.cursor = batch_cursor
+            if pending is not None and cfg.record_metrics:
+                s, m = pending
+                self.logger.log_step(s, {k: float(v) for k, v in m.items()},
+                                     epoch=self.cursor.epoch)
+            pending = (step_before, metrics)
+            step_before += 1
+            self._maybe_check_errors()
+        if pending is not None:
+            s, m = pending
+            last = {k: float(v) for k, v in m.items()}
+            self.logger.log_step(s, last, epoch=self.cursor.epoch)
+        return last
+
+    def run_epochs(self, epochs: Optional[int] = None):
+        epochs = epochs or self.cfg.epochs
+        if hasattr(self._host_iter, "batches_per_epoch"):
+            # ShardIterator and NativeShardIterator both expose this
+            steps_per_epoch = self._host_iter.batches_per_epoch
+        else:
+            steps_per_epoch = max(
+                1,
+                (self.cfg.data.shard_images * self.cfg.data.num_shards)
+                // self.cfg.data.batch_size,
+            )
+        for e in range(epochs):
+            self.run(steps_per_epoch)
+            self.logger.epoch_summary(e, steps_per_epoch)
+        self.finalize()
+
+    def evaluate(self, data: Iterator, num_batches: int) -> Dict[str, float]:
+        """Mean loss, top-1 and top-5 of the eval forward over num_batches."""
+        sums: Dict[str, float] = {}
+        it = prefetch_to_device(data, depth=self.cfg.data.prefetch, device=self.device)
+        try:
+            for _ in range(num_batches):
+                batch = next(it)
+                batch.pop("cursor", None)
+                for k, v in self.eval_step(self.state, batch).items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+        finally:
+            # without this the prefetcher's thread keeps draining the eval
+            # iterator and holding device batches after return
+            it.stop()
+        return {k: v / num_batches for k, v in sums.items()}
+
+    def evaluate_quantized(self, data: Iterator, num_batches: int, calib_images=None):
+        """The W8A8 post-training-quantized eval of the JAX package."""
+        raise not_ported("Trainer.evaluate_quantized (W8A8 inference)", ROADMAP_QUANT)
+
+    def finalize(self):
+        if self._dev_iter is not None:
+            if hasattr(self._dev_iter, "stop"):  # cycle() has no worker
+                self._dev_iter.stop()
+            self._dev_iter = None
+        if self.checkpointer is not None:
+            self.checkpointer.close()  # drain pending writes (re-raises errors)
+        if self.cfg.checkpoint_dir:
+            save_checkpoint(
+                self.cfg.checkpoint_dir, FINAL_DUMP_ID, self.state, self.cursor
+            )
+        self.logger.close()
+
+    def __del__(self):
+        try:
+            if getattr(self, "_dev_iter", None) is not None and hasattr(
+                    self._dev_iter, "stop"):
+                self._dev_iter.stop()
+        except Exception:
+            pass
+        try:
+            # best-effort drain; ThreadPoolExecutor threads are also joined
+            # at interpreter exit, so in-flight dumps land either way
+            if getattr(self, "checkpointer", None) is not None:
+                self.checkpointer.close()
+        except Exception:
+            pass

@@ -262,12 +262,18 @@ def test_profiling_helpers_run_on_the_cpu(tmp_path):
         assert prof is None
 
 
-def test_inspect_input_matches_jax_and_names_the_shard_item():
+def test_inspect_input_matches_jax_and_names_the_shard_item(tmp_path, capsys):
     from resnet_tpu_torch.analysis import inspect_input
+    from resnet_tpu_torch.data import write_shard
 
     images = np.random.default_rng(0).normal(0, 80, (2, 3, 4, 4)).astype(np.float32)
     for layout, x in (("NCHW", images), ("NHWC", images.transpose(0, 2, 3, 1))):
         np.testing.assert_array_equal(inspect_input.unnormalize(x, layout),
                                       j_unnormalize(x, layout))
-    with pytest.raises(NotImplementedError, match="A11"):
-        inspect_input.main(["--shard-dir", "nowhere"])
+    # the shard reader is ported: main reads a write_shard shard (224^2, NCHW)
+    shards = np.random.default_rng(1).normal(0, 60, (2, 3, 224, 224)).astype(np.float32)
+    write_shard(str(tmp_path), 0, shards, np.array([3, 5], np.int32))
+    out = str(tmp_path / "batch.png")
+    inspect_input.main(["--shard-dir", str(tmp_path), "--n", "2", "--out", out])
+    assert os.path.getsize(out) > 0
+    assert f"wrote {out}" in capsys.readouterr().out

@@ -420,3 +420,40 @@ def test_fused_adam_rebuilds_its_rows_for_a_new_tensor(cuda):
     torch.cuda.synchronize()
     assert torch.equal(old_p, kept)
     assert not torch.equal(m[2], old_m)
+
+
+@pytest.mark.parametrize("transfer", [None, "bfloat16"])
+def test_prefetcher_stages_batches_on_the_card(cuda, transfer):
+    """data.prefetch on the card: batches through 3 pinned slots and a side
+    stream arrive in order and intact. The consumer reads each batch only
+    after long work on its own stream and drops it at once, so a slot
+    refilled before its copy ended, or memory handed out again to the side
+    stream without record_stream, shows as a wrong copy. The bf16 cast
+    rounds on the host as torch's CPU cast does."""
+    import numpy as np
+
+    from resnet_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [{"images": rng.normal(0, 50, (32, 224, 224, 3)).astype(np.float32),
+                "labels": np.arange(32, dtype=np.int32) + i, "cursor": i} for i in range(10)]
+    pre = prefetch_to_device(iter(batches), depth=2, transfer_dtype=transfer)
+    copies = []
+    try:
+        for i in range(len(batches)):
+            got = next(pre)
+            assert got["cursor"] == i and got["images"].is_cuda
+            churn = torch.randn(4096, 4096, device="cuda")
+            for _ in range(8):
+                churn = churn @ churn / 64
+            copies.append((got["images"].clone(), got["labels"].clone()))
+            del got
+        with pytest.raises(StopIteration):
+            next(pre)
+    finally:
+        pre.stop()
+    for i, (want, (images, labels)) in enumerate(zip(batches, copies)):
+        expect = torch.from_numpy(want["images"])
+        expect = expect.to(torch.bfloat16) if transfer else expect
+        assert torch.equal(images.cpu(), expect), f"batch {i}"
+        assert torch.equal(labels.cpu(), torch.from_numpy(want["labels"])), f"batch {i}"
