@@ -118,10 +118,53 @@ Phases, each printing one JSON line:
      artifact's logits on one shard batch within 1e-3 of max|logits| of the
      eval forward on the restored state); U beside K, then R beside eval
      and export, with the wall time of each.
+ 11. presets: at full width (ResNet-50, 224^2, one SyntheticDataset batch at
+     seed 1234): the "resnet" variant in bf16 with every standard-path hand
+     kernel (conv_kernels='pallas', fused Adam) at batch 32: 5 steps, the
+     counters read after each (53 conv, 52 dx, 53 dW, 53 moments, 16 + 16
+     join, 1 + 1 matmul, all on the bf16 entry points, and 1 adam; no fp32
+     counter moves), the loss after the last update below the first, the
+     parameters fp32; one step from one state held to the plain bf16 step
+     (cuDNN bf16): the loss and the running statistics within 2x that step's
+     own gap to the plain fp32 step (max|bf16 - fp32| over max|bf16|, the
+     largest over the leaves of each), each gradient leaf within 2x its own
+     gap, that gap at least 2^-8 (bf16's unit roundoff), or GRAD_SENS x the
+     plain bf16 step's change under a 1 +- 2^-8 image scaling; the three
+     steps' gradients again with BN frozen at the initial running statistics,
+     by the same rule (with batch statistics bf16's rounding alone moves half
+     the leaves by more than their max, so that step checks little; the
+     frozen step is the tight one). Then "fast" at 192 (the plain path in
+     bf16, cap 10, TF32 allowed: no hand kernel moves) and "nchw" at 192
+     (NCHW cuDNN): 5 steps each, the loss falling, step ms (median of 5),
+     host ms and peak GiB; one nchw step held to the NHWC plain step on the
+     transposed images: loss and statistics within 1e-4, gradients within
+     1e-5 of max or GRAD_SENS x the larger of the NHWC step's own run-to-run
+     change (cuDNN's backward adds in no fixed order) and its change under
+     the 1 +- 2^-20 image scaling (cuDNN takes other algorithms for NCHW: 4x
+     the run-to-run change alone holds none of the 160 leaves on the H100);
+     then the witness that this gap is the order of sums and not the layout:
+     both steps again with cuDNN off, both layouts convolving by PyTorch's
+     own im2col and GEMM on the same NCHW values, each gradient leaf within
+     phase 5's rule, and with BN frozen at the initial running statistics,
+     within 1e-5 of its max. Then NCHW on the hand kernels at 32: 5 steps
+     with the standard counts but 0 moments (K4 is NHWC-only, as in JAX),
+     held to the NHWC kernel step (loss and statistics within 1e-4, gradients
+     by phase 5's rule: the statistics differ, K4's sums against the plain
+     ones; parameters within 2 lr + 1e-6). Last, the served forward at batch
+     8 from bf16 weights (export_inference(..., weights_dtype='bfloat16')) on
+     the bf16 hand kernels, NHWC and NCHW (53 conv, 16 join, 1 matmul on the
+     bf16 entries each): fp32 logits within 2x the plain bf16 path's own gap
+     to the plain fp32 logits.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
-forward, dx and dW), K2, K2b and K4 (the stem and stage 1).
+forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
+entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
+batch-8 serving and batch-32 training shapes, the stem, a 3x3/s2
+projection, a 1x1 expand, the four joins and the FC among them), each
+element within one bf16 ulp of the plain value plus 1e-5 of max|plain|,
+K4's fp32 statistics within 1e-5 of max, the GEMMs and K4 twice to the
+same bits.
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 10 together, every kernel launched on at least one of them; ms,
+phases 4 to 11 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
@@ -176,6 +219,10 @@ KERNEL_SOURCES = {
     "bn_bwd": (CSRC + "bn.cu", "resnet_tpu/kernels/bn.py:166"),
     "block_fused": (CSRC + "block_fused.cu", "resnet_tpu/kernels/block_fused.py:60"),
 }
+# the bf16 entry points replace the same Pallas kernels for bf16 inputs
+KERNEL_SOURCES.update({f"{name}_bf16": KERNEL_SOURCES[name] for name in (
+    "conv2d", "conv2d_dx", "conv2d_dw", "add_relu", "add_relu_mask", "matmul", "matmul_bwd",
+    "moments")})
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
 PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
@@ -216,6 +263,24 @@ ELEMENTWISE_PER_STEP = dict(PER_STEP, add_relu=16 + 16)
 BLOCKFUSED_REMAT_PER_STEP = {"block_fused": 12 + 12, "adam": 1}
 # ... ghost BN: its statistics are plain torch ops, K4 is never reached
 GHOST_PER_STEP = {k: v for k, v in PER_STEP.items() if k != "moments"}
+# ... the standard step in bf16: the same counts on the bf16 entry points,
+# Adam fp32 (bf16 parameters, if any, are cast around it)
+BF16_PER_STEP = {f"{k}_bf16" if k != "adam" else k: v for k, v in PER_STEP.items()}
+# ... under NCHW on the hand kernels: the convs through a transpose, no K4
+# (NHWC-only, resnet_tpu/ops/dispatch.py:58)
+NCHW_PER_STEP = GHOST_PER_STEP
+# ... one served bf16 forward
+BF16_PER_FORWARD = {f"{k}_bf16": v for k, v in PER_FORWARD.items()}
+# phase 11: a bf16 step's gradient leaf is held to the plain bf16 step within
+# 2x its own gap to the plain fp32 step, that gap at least bf16's unit
+# roundoff (one rounding moves a value by up to 2^-8 of itself), or within
+# GRAD_SENS x the plain bf16 step's change under a 1 +- 2^-8 image scaling
+# (2^-20 vanishes in the cast to bf16 at the stem)
+BF16_UNIT = 2.0 ** -8
+# phase 11: the fast and nchw presets at their batch
+PRESET_BATCH = 192
+# the NCHW steps against the NHWC ones: summed loss and statistics
+LAYOUT_TOL = 1e-4
 # a remat step against the no-remat step from one state: loss, batch and
 # running statistics within REMAT_STAT_TOL of max|.|, each gradient leaf
 # within REMAT_GRAD_TOL of its max, the parameters within 2 lr + 1e-6
@@ -542,14 +607,14 @@ def _as_running(bn_stats):
             "blocks": [{k: leaf(v) for k, v in b.items()} for b in bn_stats["blocks"]]}
 
 
-def _nudge_sensitivity(batch, params, bn_state, pc, pg):
+def _nudge_sensitivity(batch, params, bn_state, pc, pg, nudge=IMAGE_NUDGE):
     """Per gradient leaf, the plain path's own largest change when the
-    images are scaled by 1 +- 2^-20 (pg: its gradient at the images)."""
+    images are scaled by 1 +- ``nudge`` (pg: its gradient at the images)."""
     from resnet_tpu_torch.bridge import flatten, leaves
     from resnet_tpu_torch.train import loss_and_grads
 
     sens = {}
-    for factor in (1 + IMAGE_NUDGE, 1 - IMAGE_NUDGE):
+    for factor in (1 + nudge, 1 - nudge):
         nudged = dict(batch, images=batch["images"] * factor)
         qg = loss_and_grads(params, nudged, bn_state, pc)[3]
         for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
@@ -1039,24 +1104,25 @@ def _step_record(torch, cfg, state0, batch):
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "before_gib": before}
 
 
-def _hold_to(torch, got, want, lr, what, spread=None):
+def _hold_to(torch, got, want, lr, what, spread=None, stat_tol=REMAT_STAT_TOL,
+             grad_tol=REMAT_GRAD_TOL):
     """A step record against another from the same state (``_step_record``):
-    summed loss, batch and running statistics within REMAT_STAT_TOL of
-    max|.|, every gradient leaf within REMAT_GRAD_TOL of its max or, where
-    ``spread`` (path -> the no-remat path's own change between two runs) is
-    given, GRAD_SENS times that change if larger; the parameters within
-    2 lr + 1e-6. Returns the errors and how many gradient leaves are equal
-    bit for bit."""
+    summed loss, batch and running statistics within ``stat_tol`` of
+    max|.|, every gradient leaf within ``grad_tol`` of its max or, where
+    ``spread`` (path -> the path's own change between two runs, or under
+    the image nudge) is given, GRAD_SENS times that change if larger; the
+    parameters within 2 lr + 1e-6. Returns the errors and how many gradient
+    leaves are equal bit for bit."""
     from resnet_tpu_torch.bridge import flatten, leaves
 
     la, lb = got["loss_sum"].item(), want["loss_sum"].item()
-    require(abs(la - lb) <= REMAT_STAT_TOL * abs(lb), f"{what}: summed loss {la} vs {lb}")
+    require(abs(la - lb) <= stat_tol * abs(lb), f"{what}: summed loss {la} vs {lb}")
     stat_err, _, _ = _leaf_errors(got["bn_stats"], want["bn_stats"],
-                                  f"{what} batch statistic", REMAT_STAT_TOL)
+                                  f"{what} batch statistic", stat_tol)
     run_err, _, _ = _leaf_errors(got["state"].bn_state, want["state"].bn_state,
-                                 f"{what} running statistic", REMAT_STAT_TOL)
+                                 f"{what} running statistic", stat_tol)
     grad_err, grad_spread, nearest = _leaf_errors(got["grads"], want["grads"],
-                                                  f"{what} gradient", REMAT_GRAD_TOL,
+                                                  f"{what} gradient", grad_tol,
                                                   sens=spread)
     pairs = list(zip(leaves(got["grads"]), leaves(want["grads"]), strict=True))
     equal = sum(bool(torch.equal(a, b)) for a, b in pairs)
@@ -1605,6 +1671,323 @@ def phase_trainer(torch, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
+def _to_nchw(batch):
+    return dict(batch, images=batch["images"].permute(0, 3, 1, 2).contiguous())
+
+
+def _gap_held(got, want, ref, what, floor=None, sens=None):
+    """Arrays (loss, statistics, gradients: trees of tensors) of a bf16 step
+    ``got`` against the plain bf16 step ``want`` from the same state, within
+    2x the gap between ``want`` and the plain fp32 step ``ref`` (bf16 rounds
+    at other places on the two paths), as shares of max|want|. With
+    ``floor`` None the gap is pooled, its largest over all arrays; else each
+    array has its own gap, at least ``floor``, or where ``sens`` (path ->
+    want's own change under the bf16 image nudge) is given, GRAD_SENS times
+    that change if larger. Returns the largest gap, the largest
+    max|got - want| / max|want|, the least and median limit and the array
+    nearest its limit."""
+    from resnet_tpu_torch.bridge import flatten, leaves
+
+    trios = list(zip(flatten(got), leaves(want), leaves(ref), strict=True))
+
+    def amax(t):
+        return max(t.float().abs().max().item(), 1e-30)
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() / amax(b)
+
+    gaps = [rel(w, r) for _, w, r in trios]
+    if floor is None:
+        limits = [2 * max(gaps)] * len(gaps)
+    else:
+        limits = [max(2 * max(gap, floor),
+                      GRAD_SENS * sens[path] / amax(w) if sens is not None else 0.0)
+                  for ((path, _), w, _), gap in zip(trios, gaps)]
+    worst, nearest = 0.0, None
+    for ((path, g), w, _), limit in zip(trios, limits):
+        err = rel(g, w)
+        require(err <= limit, f"{what} {path}: max|kernel - plain| is {err:.3e} of "
+                f"max|plain|, beyond its limit {limit:.3e}")
+        worst = max(worst, err)
+        if nearest is None or err / limit > nearest["err"] / nearest["limit"]:
+            nearest = {"leaf": path, "err": err, "limit": limit}
+    return {"gap_plain_bf16_vs_fp32": max(gaps),
+            "median_gap_plain_bf16_vs_fp32": float(np.median(gaps)),
+            "max_rel_err_vs_plain_bf16": worst, "least_limit": min(limits),
+            "median_limit": float(np.median(limits)), "nearest_limit": nearest}
+
+
+def _bf16_frozen_held(kcfg, p16, p32, state0, batch):
+    """The well-conditioned check of a bf16 kernel step: the gradients of
+    the kernel, plain bf16 and plain fp32 configs from state0 with BN
+    frozen at its running statistics, the kernel's held to the plain bf16
+    one per leaf by ``_gap_held``'s rule (2x its own gap to fp32, at least
+    BF16_UNIT, or GRAD_SENS x the plain bf16 step's change under the bf16
+    image nudge). With batch statistics bf16's rounding alone moves half
+    the leaves by more than their max; here it moves them by a few percent,
+    so a bf16 dW 10% off fails."""
+    import dataclasses
+
+    from resnet_tpu_torch.train import loss_and_grads
+
+    def frozen(cfg):
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, bn_mode="frozen"))
+
+    grads = {k: loss_and_grads(state0.params, batch, state0.bn_state, frozen(c))[3]
+             for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, frozen(p16),
+                              grads["plain"], BF16_UNIT)
+    return _gap_held(grads["kernel"], grads["plain"], grads["fp32"],
+                     "bf16 kernel step, BN frozen, grads", BF16_UNIT, sens)
+
+
+def _cudnn_off_witness(torch, want_run, got_run, state0, want_on, got_on, nudge):
+    """The witness that the NCHW-vs-NHWC gradient gap with cuDNN on comes
+    from the order of sums, not from the layout: the same two steps
+    (cfg, batch) from state0 with cuDNN off, where both layouts convolve by
+    PyTorch's own im2col and cuBLAS GEMM on the same NCHW values, so that
+    only the BN, pooling and FC sums run in other orders. With batch
+    statistics each gradient leaf must then come within GRAD_TOL of its max
+    or GRAD_SENS x ``nudge`` (the phase-5 rule); with BN frozen at the
+    initial running statistics, where nothing amplifies the order of a sum,
+    within REMAT_GRAD_TOL of its max. Returns those errors, the frozen-BN
+    gap with cuDNN on beside them, and the leaf farthest apart with batch
+    statistics and cuDNN on with its gap on and off (shares of its max)."""
+    import dataclasses
+
+    from resnet_tpu_torch.bridge import flatten, leaves
+    from resnet_tpu_torch.train import loss_and_grads
+
+    def pair(frozen):
+        return [loss_and_grads(state0.params, batch, state0.bn_state, dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, bn_mode="frozen"))
+            if frozen else cfg)[3] for cfg, batch in (want_run, got_run)]
+
+    def rel(got, want):
+        return {path: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for (path, a), b in zip(flatten(got), leaves(want), strict=True)}
+
+    frozen_want, frozen_got = pair(True)
+    frozen_on = max(rel(frozen_got, frozen_want).values())
+    torch.backends.cudnn.enabled = False
+    try:
+        want_off, got_off = pair(False)
+        frozen_want, frozen_got = pair(True)
+    finally:
+        torch.backends.cudnn.enabled = True
+    on, off = rel(got_on, want_on), rel(got_off, want_off)
+    err, over_sens, nearest = _leaf_errors(got_off, want_off, "nchw vs nhwc with cuDNN off "
+                                           "gradient", GRAD_TOL, sens=nudge)
+    frozen_err, _, frozen_nearest = _leaf_errors(
+        frozen_got, frozen_want, "nchw vs nhwc with cuDNN off, BN frozen, gradient",
+        REMAT_GRAD_TOL)
+    worst = max(on, key=on.get)
+    return {"grad_max_rel_err": err, "grad_max_err_over_sensitivity": over_sens,
+            "grad_nearest_limit": nearest, "leaves_closer_than_cudnn_on":
+            sum(off[p] < on[p] for p in on), "grad_leaves": len(on),
+            "farthest_leaf_cudnn_on": {"leaf": worst, "on": on[worst], "off": off[worst]},
+            "frozen_bn": {"grad_max_rel_err": frozen_err, "grad_nearest_limit": frozen_nearest,
+                          "cudnn_on_grad_max_rel_err": frozen_on}}
+
+
+def _preset_run(torch, counters, cfg, state0, batch, expect, what):
+    """A preset's main run (``_train_main_path``: counters per step, loss
+    falls), then 5 timed steps and the peak memory of one more."""
+    from resnet_tpu_torch.train import make_train_step
+
+    step = make_train_step(cfg)
+    state, losses, per_step, launches, final_loss = _train_main_path(
+        torch, counters, step, cfg, state0, batch, expect, what)
+    state, ms, host = _timed_steps(torch, step, state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return state, {"batch": int(batch["labels"].shape[0]), "per_step": per_step[0],
+                   "losses": losses, "loss_after_last_step": final_loss, "step_ms": ms,
+                   "host_step_ms": float(np.median(host)), "peak_gib": peak}, launches
+
+
+def phase_presets(torch, counters, smi):
+    """The last two presets and bf16 on the hand kernels, at full width
+    (ResNet-50, 224^2, one SyntheticDataset batch at seed 1234): bf16 on
+    every standard-path kernel at batch 32 (the standard step's counts on
+    the bf16 entries, one step held to the plain bf16 step within 2x that
+    step's gap to the plain fp32 step, pooled for the loss and the running
+    statistics, per gradient leaf at least BF16_UNIT; parameters fp32);
+    'fast' at 192 (no hand kernel); 'nchw' at 192, one step held to the
+    NHWC plain step on the transposed images (loss and statistics within
+    1e-4, gradients within GRAD_SENS x the larger of cuDNN's run-to-run
+    change and the image-nudge sensitivity), then both steps again with
+    cuDNN off (``_cudnn_off_witness``); NCHW on the hand kernels at 32
+    (no K4), held to the NHWC kernel step; the served bf16 forward at batch
+    8, NHWC and NCHW, against the plain fp32 logits."""
+    import dataclasses
+
+    from resnet_tpu_torch.bridge import flatten, leaves
+    from resnet_tpu_torch.config import ExecutionConfig, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.export import export_inference
+    from resnet_tpu_torch.models import init_bn_state, init_params
+    from resnet_tpu_torch.train import init_train_state
+
+    torch.cuda.empty_cache()
+
+    def with_(cfg, fused=None, **execution):
+        opt = cfg.optimizer if fused is None else dataclasses.replace(cfg.optimizer,
+                                                                      fused=fused)
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, **execution), optimizer=opt)
+
+    def setup(cfg):
+        state0 = init_train_state(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+        data = next(SyntheticDataset(cfg.data.batch_size, image_dim=cfg.model.input_dim,
+                                     num_classes=cfg.model.num_classes, seed=SEED))
+        return state0, {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+    out, launched = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if v:
+                launched[k] = launched.get(k, 0) + v
+
+    # 1. bf16 on every standard-path hand kernel, batch 32
+    base = variant_config("resnet")
+    kcfg = with_(base, fused=True, conv_kernels="pallas", compute_dtype="bfloat16")
+    state0, batch = setup(kcfg)
+    state, run, launches = _preset_run(torch, counters, kcfg, state0, batch, BF16_PER_STEP,
+                                       "bf16 kernels")
+    add(launches)
+    require(all(p.dtype is torch.float32 for p in leaves(state.params)),
+            "bf16 compute changed the parameters' dtype")
+    del state
+    p16 = with_(base, fused=False, kernels="xla", compute_dtype="bfloat16")
+    p32 = with_(base, fused=False, kernels="xla")
+    recs = {k: _step_record(torch, c, state0, batch)
+            for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
+    # the loss and the running statistics against their pooled gap; each
+    # gradient leaf against its own, at least bf16's unit roundoff, or
+    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
+                              recs["plain"]["grads"], BF16_UNIT)
+    held = {}
+    for what, pick, floor in (("loss", lambda r: {"loss": r["loss_sum"]}, None),
+                              ("running_stats", lambda r: r["state"].bn_state, None),
+                              ("grads", lambda r: r["grads"], BF16_UNIT)):
+        held[what] = _gap_held(pick(recs["kernel"]), pick(recs["plain"]),
+                               pick(recs["fp32"]), f"bf16 kernel step {what}", floor,
+                               sens if floor else None)
+    # the well-conditioned check: the same three steps with BN frozen
+    held["frozen_bn_grads"] = _bf16_frozen_held(kcfg, p16, p32, state0, batch)
+    del sens
+    run.update(vs_plain_bf16=held, loss={k: r["metrics"]["loss"].item()
+                                         for k, r in recs.items()})
+    out["bf16_kernels"] = run
+    del recs, state0, batch
+
+    # 2. fast at 192: the plain path in bf16 (cuDNN), cap 10, TF32 allowed
+    fast = variant_config("fast")
+    require(fast.data.batch_size == PRESET_BATCH, f"fast batch {fast.data.batch_size}")
+    state0, batch = setup(fast)
+    state, out["fast"], launches = _preset_run(torch, counters, fast, state0, batch, {},
+                                               "fast")
+    add(launches)
+    del state, state0, batch
+    torch.cuda.empty_cache()
+
+    # 3. nchw at 192: NCHW cuDNN, held to the NHWC plain step
+    nchw = variant_config("nchw")
+    require(nchw.data.batch_size == PRESET_BATCH, f"nchw batch {nchw.data.batch_size}")
+    state0, batch = setup(nchw)
+    state, out["nchw"], launches = _preset_run(torch, counters, nchw, state0,
+                                               _to_nchw(batch), {}, "nchw")
+    add(launches)
+    del state
+    nhwc = with_(nchw, layout="NHWC")
+    want = _step_record(torch, nhwc, state0, batch)
+    spread, equal = _run_spread(torch, nhwc, state0, batch, want["grads"])
+    nudge = _nudge_sensitivity(batch, state0.params, state0.bn_state, nhwc, want["grads"])
+    got = _step_record(torch, nchw, state0, _to_nchw(batch))
+    # cuDNN takes other algorithms for NCHW, which sum in other orders than
+    # NHWC's: a gradient passes within GRAD_SENS x the larger of the NHWC
+    # step's run-to-run change and its change under the image nudge
+    sens = {path: max(spread[path], nudge[path]) for path in spread}
+    out["nchw"]["vs_nhwc"] = _hold_to(torch, got, want, nchw.optimizer.learning_rate,
+                                      "nchw vs nhwc", sens, stat_tol=LAYOUT_TOL)
+    out["nchw"]["vs_nhwc"].update(
+        nhwc_twice_grad_leaves_bit_equal=equal,
+        grad_leaves_within_4x_run_to_run=sum(
+            (a - b).abs().max().item() <= GRAD_SENS * spread[path]
+            for (path, a), b in zip(flatten(got["grads"]), leaves(want["grads"]))))
+    out["nchw"]["vs_nhwc_cudnn_off"] = _cudnn_off_witness(
+        torch, (nhwc, batch), (nchw, _to_nchw(batch)), state0, want["grads"], got["grads"],
+        nudge)
+    del want, got, spread, nudge, state0, batch
+    torch.cuda.empty_cache()
+
+    # 4. NCHW on the hand kernels at 32: no K4; held to the NHWC kernel step
+    # (its statistics are K4's, NCHW's the plain sums: gradients by the
+    # phase-5 rule, GRAD_TOL or GRAD_SENS x the image-nudge sensitivity)
+    kn = with_(base, fused=True, conv_kernels="pallas", layout="NCHW")
+    kh = with_(kn, layout="NHWC")
+    state0, batch = setup(kn)
+    state, run, launches = _preset_run(torch, counters, kn, state0, _to_nchw(batch),
+                                       NCHW_PER_STEP, "nchw kernels")
+    add(launches)
+    del state
+    want, got = (_step_record(torch, kh, state0, batch),
+                 _step_record(torch, kn, state0, _to_nchw(batch)))
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, kh, want["grads"])
+    run["vs_nhwc_kernels"] = _hold_to(torch, got, want, kn.optimizer.learning_rate,
+                                      "nchw kernels vs nhwc kernels", sens,
+                                      stat_tol=LAYOUT_TOL, grad_tol=GRAD_TOL)
+    out["nchw_kernels"] = run
+    del want, got, state0, batch
+
+    # 5. the served bf16 forward at batch 8, NHWC and NCHW, from bf16 weights
+    mcfg = base.model
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_params(gen, mcfg, device="cuda")
+    bn_state = init_bn_state(mcfg, device="cuda")
+    for layer in [bn_state["init_bn"], *[b for blk in bn_state["blocks"]
+                                          for b in blk.values()]]:
+        c = layer["mean"].numel()
+        layer["mean"] = (torch.randn(c, generator=gen) * 0.1).to("cuda")
+        layer["var"] = (0.5 + 1.5 * torch.rand(c, generator=gen)).to("cuda")
+    x = np.random.default_rng(SEED).normal(0, 50, (8, mcfg.input_dim, mcfg.input_dim, 3)
+                                           ).astype(np.float32)
+    xc = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+
+    def served(images, weights_dtype=None, **ecfg):
+        model = export_inference(params, mcfg, bn_state=bn_state,
+                                 ecfg=ExecutionConfig(**ecfg), weights_dtype=weights_dtype)
+        logits = model.call(images)
+        require(logits.dtype is torch.float32, f"served logits of {logits.dtype}")
+        return logits.cpu().numpy()
+
+    want = served(x)
+    gap = float(np.abs(served(x, "bfloat16", compute_dtype="bfloat16") - want).max())
+    serving = {"plain_bf16_vs_fp32_max_abs": gap, "max_abs_logit": float(np.abs(want).max())}
+    for layout, images in (("NHWC", x), ("NCHW", xc)):
+        counters.zero()
+        got = served(images, "bfloat16", compute_dtype="bfloat16", layout=layout,
+                     kernels="pallas", conv_kernels="pallas")
+        delta = {k: v for k, v in counters.read().items() if v}
+        add(delta)
+        require(delta == BF16_PER_FORWARD, f"served bf16 {layout} forward moved the "
+                f"counters by {delta}, expected {BF16_PER_FORWARD}")
+        err = float(np.abs(got - want).max())
+        require(np.isfinite(got).all() and err <= 2 * gap,
+                f"served bf16 {layout}: max|kernel - fp32| logits {err} > 2 x {gap}")
+        serving[layout] = {"max_abs_err_vs_fp32": err, "per_forward": delta}
+    out["serve_bf16"] = serving
+    emit({"phase": "presets", "model": mcfg.name, "device": smi, **out})
+    return launched
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
@@ -1641,7 +2024,8 @@ def main() -> None:
              "blockfused_train": phase_blockfused(torch, checks, counters, smi),
              "batch_norm_act": phase_bn_entry(torch, counters),
              "remat_train": phase_remat(torch, counters, smi),
-             "trainer": phase_trainer(torch, counters, smi)}
+             "trainer": phase_trainer(torch, counters, smi),
+             "presets": phase_presets(torch, counters, smi)}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

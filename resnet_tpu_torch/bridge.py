@@ -25,14 +25,18 @@ import torch
 def params_from_numpy(tree, device="cuda"):
     """Nested dicts/lists of arrays -> the same nesting of torch tensors of
     the same dtype on ``device`` (the card unless the caller asks for the
-    CPU)."""
+    CPU). A bfloat16 array (JAX's, an ml_dtypes type numpy knows by name
+    only) becomes a bfloat16 tensor of the same bits."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 # BN state has the same nested-dict/list shape as the parameters.
@@ -40,8 +44,9 @@ bn_state_from_numpy = params_from_numpy
 
 
 def to_numpy(tree):
-    """Inverse of ``params_from_numpy``: tensors -> numpy arrays on the host.
-    A NamedTuple (a TrainState, an optimizer state) keeps its type."""
+    """Inverse of ``params_from_numpy``: tensors -> numpy arrays on the host
+    (a bfloat16 tensor as float32, which holds it exactly). A NamedTuple (a
+    TrainState, an optimizer state) keeps its type."""
     if tree is None:
         return None
     if hasattr(tree, "_fields"):
@@ -50,6 +55,8 @@ def to_numpy(tree):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [to_numpy(v) for v in tree]
+    if tree.dtype is torch.bfloat16:
+        tree = tree.float()
     return tree.detach().cpu().numpy()
 
 

@@ -43,6 +43,7 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 
 ROADMAP_BF16 = "item A5: bf16 compute"
+ROADMAP_BF16_ENGINES = "item A5b: bf16 fused and whole-block engines"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
 ROADMAP_S2D = "item A8: space-to-depth stem"
@@ -127,10 +128,10 @@ class ExecutionConfig:
     param_dtype: str = "float32"
     remat: str = "none"
     stable_softmax: bool = True
-    # the plain convs and matmuls on the card: 'highest' turns the cuDNN
-    # and cuBLAS TF32 flags off for the length of each entry point, 'high'
-    # and 'default' allow TF32 (ops/precision.py; the hand kernels are fp32
-    # accurate either way)
+    # the plain fp32 convs and matmuls on the card: 'highest' turns the
+    # cuDNN and cuBLAS TF32 flags off for the length of each entry point,
+    # 'high' and 'default' allow TF32 (ops/precision.py; the hand kernels
+    # are fp32 accurate either way)
     matmul_precision: str = "highest"
     space_to_depth: bool = False
     relu_cap: Optional[float] = None
@@ -170,10 +171,6 @@ class ExecutionConfig:
                 f"ExecutionConfig.grad_accum={self.grad_accum}; expected"
                 " a positive microbatch count"
             )
-        if self.layout == "NCHW":
-            raise not_ported("ExecutionConfig.layout='NCHW'", ROADMAP_NCHW)
-        if self.compute_dtype != "float32" or self.param_dtype != "float32":
-            raise not_ported("bfloat16 compute or parameters", ROADMAP_BF16)
         if self.space_to_depth:
             raise not_ported("ExecutionConfig.space_to_depth", ROADMAP_S2D)
 

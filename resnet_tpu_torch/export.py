@@ -3,7 +3,10 @@
 The counterpart of resnet_tpu.export: ``export_inference`` closes the eval
 forward (running-stats BN) over (params, bn_state) and returns an
 ``nn.Module`` whose weights are buffers on one device and whose ``.call``
-maps NHWC fp32 images (any batch size) to fp32 logits.
+maps fp32 images (any batch size; NHWC, or NCHW under the execution
+config's ``layout``, as JAX's export.py:69-70) to fp32 logits.
+``weights_dtype`` casts the parameters and the BN running statistics
+(export.py:57-61 there), e.g. to bfloat16.
 ``save_inference`` / ``load_inference`` write and read one file holding the
 model and execution configs and the tensors.
 
@@ -22,8 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .bridge import flatten, unflatten
-from .config import ExecutionConfig, ModelConfig
+from .bridge import flatten, tree_map, unflatten
+from .config import ExecutionConfig, ModelConfig, resolve_dtype
 from .models import forward
 from .ops.precision import precision_scope
 
@@ -33,7 +36,8 @@ def _buffer_name(path: str) -> str:
 
 
 class InferenceModel(nn.Module):
-    """Frozen eval forward: images (N, d, d, C) -> fp32 logits (N, classes)."""
+    """Frozen eval forward: images (N, d, d, C), or (N, C, d, d) under an
+    NCHW layout, -> fp32 logits (N, classes)."""
 
     def __init__(self, params, bn_state, mcfg: ModelConfig, ecfg: ExecutionConfig):
         super().__init__()
@@ -52,6 +56,12 @@ class InferenceModel(nn.Module):
         return unflatten((path, getattr(self, name)) for path, name in pairs)
 
     @property
+    def image_dims(self):
+        """The shape of one image: (d, d, C), or (C, d, d) under NCHW."""
+        d, c = self.mcfg.input_dim, self.mcfg.in_channels
+        return (d, d, c) if self.ecfg.layout == "NHWC" else (c, d, d)
+
+    @property
     def device(self) -> torch.device:
         return next(self.buffers()).device
 
@@ -64,10 +74,10 @@ class InferenceModel(nn.Module):
         """Logits for a numpy array or tensor of images, on the model's
         device, at the config's ``matmul_precision``. Raises ValueError on
         a shape the model does not take."""
-        d, c = self.mcfg.input_dim, self.mcfg.in_channels
-        if tuple(images.shape[1:]) != (d, d, c) or len(images.shape) != 4:
+        dims = self.image_dims
+        if tuple(images.shape[1:]) != dims or len(images.shape) != 4:
             raise ValueError(
-                f"expected images of shape (N, {d}, {d}, {c}), got "
+                f"expected images of shape (N, {', '.join(map(str, dims))}), got "
                 f"{tuple(images.shape)}"
             )
         if isinstance(images, np.ndarray):
@@ -84,9 +94,16 @@ def export_inference(
     bn_state=None,
     ecfg: Optional[ExecutionConfig] = None,
     device=None,
+    weights_dtype=None,
 ) -> InferenceModel:
     """Freeze (params, bn_state) into an ``InferenceModel`` on ``device``
-    (default: the device the parameters are on)."""
+    (default: the device the parameters are on); ``weights_dtype`` (a name
+    or a torch dtype) casts the parameters and the running statistics."""
+    if weights_dtype is not None:
+        wd = resolve_dtype(weights_dtype)
+        params = tree_map(lambda t: t.to(wd), params)
+        if bn_state is not None:
+            bn_state = tree_map(lambda t: t.to(wd), bn_state)
     model = InferenceModel(params, bn_state, mcfg, ecfg or ExecutionConfig())
     return model.to(device) if device is not None else model
 

@@ -221,7 +221,7 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
             if not (p.shape == g.shape == m.shape == v.shape):
                 raise ValueError(f"fused_adam: shapes {tuple(p.shape)}, {tuple(g.shape)}, "
                                  f"{tuple(m.shape)}, {tuple(v.shape)}")
-        build.on_card("adam", *params, *grads, *means, *vars_, h)  # raises on a CUDA tensor
+        build.on_card("adam", *params, *grads, *means, *vars_, h, bf16=False)  # raises on a CUDA tensor
         with torch.no_grad():
             for p, g, m, v in zip(params, grads, means, vars_):
                 new_p, new_m, new_v = adam_leaf_reference(p, g, m, v, h)

@@ -127,6 +127,7 @@ def split_tf32(b: torch.Tensor) -> torch.Tensor:
     if b.dim() != 2 or 0 in b.shape:
         raise ValueError(f"split_tf32: expected a non-empty (K, N) matrix, got "
                          f"{tuple(b.shape)}")
+    build.refuse_bf16("split_tf32", b)
     if not build.on_card("split_tf32", b):
         return split_tf32_reference(b)
     k, n = b.shape
@@ -155,6 +156,7 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     differentiable; ``block_fused`` is."""
     global LAUNCHES
     _check(x, w1, w2, w3, g1, b1, g2, b2, g3, b3)
+    build.refuse_bf16("block_fused", x, w1, w2, w3, g1, b1, g2, b2, g3, b3)
     if not build.on_card("block_fused", x, w1, w2, w3, g1, b1, g2, b2, g3, b3):
         return block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
     n, h, wd, c4 = x.shape

@@ -43,8 +43,14 @@ apply's backward in torch ops) are shared with the fused engine's
 No model path of the JAX package calls ``batch_norm_act``; it is a public
 entry point of its kernels package, and so of this one.
 
-``LAUNCHES`` counts K4 launches, ``APPLY_LAUNCHES`` K5 and ``BWD_LAUNCHES``
-K6 (one per backward, its three kernels together).
+K4 takes bf16 rows too (``rt_moments_bf16``: the same fp32 sums and fp32
+statistics, bn.py:77, :101; its VJP's dx in fp32 cast to bf16, bn.py:120-125).
+K5 and K6, and so ``batch_norm_act``, take fp32 only: a bf16 tensor raises
+NotImplementedError naming ROADMAP.md item A5b.
+
+``LAUNCHES`` counts fp32 K4 launches, ``LAUNCHES_BF16`` bf16 ones,
+``APPLY_LAUNCHES`` K5 and ``BWD_LAUNCHES`` K6 (one per backward, its three
+kernels together).
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from . import build
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 APPLY_LAUNCHES = 0
 BWD_LAUNCHES = 0
 _CHANNEL_TILE = 32  # channels of a K6 reduce block (csrc/bn.cu CT)
@@ -87,10 +94,15 @@ def mean_var_from_sums(s: torch.Tensor, s2: torch.Tensor, m: int):
     return mean, var
 
 
-def moments_reference(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: Σx and Σx² over rows in torch, then the epilogue."""
-    x = x2d.to(torch.float32)
-    return mean_var_from_sums(x.sum(0), (x * x).sum(0), x2d.shape[0])
+def moments_reference(x: torch.Tensor, channel_dim: int = -1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: Σx and Σx² in fp32 over every dimension but
+    ``channel_dim`` (the rows of an (M, C) view by default), then the
+    epilogue."""
+    xf = x.to(torch.float32)
+    dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
+    return mean_var_from_sums(xf.sum(dims), (xf * xf).sum(dims),
+                              x.numel() // max(x.shape[channel_dim], 1))
 
 
 def _chunk_rows(m: int, tiles: int, target: int) -> int:
@@ -132,9 +144,10 @@ def moments_plan(m: int, c: int, vec: int) -> MomentsPlan:
 
 
 def vector_width(x2d: torch.Tensor) -> int:
-    """4 where K4 reads x2d in 16-byte loads (C % 4 == 0, 16-byte aligned
-    base), else 1."""
-    return 4 if x2d.shape[1] % 4 == 0 and x2d.data_ptr() % 16 == 0 else 1
+    """4 where K4 reads x2d four channels at a time (C % 4 == 0 and a base
+    aligned to four elements: 16-byte loads of fp32, 8-byte ones of bf16),
+    else 1."""
+    return 4 if x2d.shape[1] % 4 == 0 and x2d.data_ptr() % (4 * x2d.element_size()) == 0 else 1
 
 
 # (device index, stream) -> [chunk partials, tile tickets]
@@ -163,7 +176,7 @@ def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -
     index = x2d.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     part, tickets = _workspace(index, plan, stream)
-    build.launch_on(index, stream, build.entry("rt_moments_f32"), x2d.data_ptr(),
+    build.launch_on(index, stream, build.entry(build.entry_name("moments", x2d)), x2d.data_ptr(),
                     part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2d.shape[0],
                     x2d.shape[1], plan.chunk, plan.n_chunks, vec, plan.ctv, plan.threads)
 
@@ -171,15 +184,15 @@ def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -
 def _forward(x2d: torch.Tensor):
     """(mean, var) of x2d: the kernel on a CUDA tensor, the plain version on
     a CPU tensor."""
-    global LAUNCHES
     if not x2d.is_cuda:
         if x2d.dim() != 2:
             raise ValueError(f"moments: expected (M, C), got {tuple(x2d.shape)}")
         build.on_card("moments", x2d)  # raises on what the kernel would not take
         return moments_reference(x2d)
-    if x2d.dim() != 2 or x2d.dtype is not torch.float32 or not x2d.is_contiguous():
-        raise ValueError(f"moments: expected a contiguous float32 (M, C) tensor, got "
-                         f"{x2d.dtype} {tuple(x2d.shape)}")
+    if (x2d.dim() != 2 or x2d.dtype not in (torch.float32, torch.bfloat16)
+            or not x2d.is_contiguous()):
+        raise ValueError(f"moments: expected a contiguous float32 or bfloat16 (M, C) "
+                         f"tensor, got {x2d.dtype} {tuple(x2d.shape)}")
     m, c = x2d.shape
     if m == 0 or c == 0:
         raise ValueError(f"moments: empty input {tuple(x2d.shape)}")
@@ -187,23 +200,27 @@ def _forward(x2d: torch.Tensor):
     plan = moments_plan(m, c, vec)
     out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
     _launch(x2d, out, plan, vec)
-    LAUNCHES += 1
+    build.count(__name__, "LAUNCHES", x2d)
     return out.unbind(0)
 
 
 class _Moments(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2d, value):
-        mean, var = value(x2d)
-        ctx.save_for_backward(x2d, mean)
+    def forward(ctx, x, value, channel_dim=-1):
+        mean, var = value(x)
+        ctx.channel_dim = channel_dim
+        ctx.save_for_backward(x, mean)
         return mean, var
 
     @staticmethod
     def backward(ctx, dmean, dvar):
-        x2d, mean = ctx.saved_tensors
-        m = x2d.shape[0]
-        dx = dmean / m + dvar * 2.0 * (x2d.to(torch.float32) - mean) / m
-        return dx.to(x2d.dtype), None
+        x, mean = ctx.saved_tensors
+        shape = [1] * x.dim()
+        shape[ctx.channel_dim] = -1
+        m = x.numel() // mean.numel()
+        dx = (dmean.view(shape) / m
+              + dvar.view(shape) * 2.0 * (x.to(torch.float32) - mean.view(shape)) / m)
+        return dx.to(x.dtype), None, None
 
 
 def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,9 +231,13 @@ def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _forward(x2d)
 
 
-def moments_plain(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``moments`` with the plain sums on every device; never launches."""
-    return _Moments.apply(x2d, moments_reference)
+def moments_plain(x: torch.Tensor, channel_dim: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moments`` with the plain sums on every device, over every dimension
+    of x but ``channel_dim`` (the rows of an (M, C) view by default); never
+    launches."""
+    return _Moments.apply(x, functools.partial(moments_reference, channel_dim=channel_dim),
+                          channel_dim)
 
 
 # --------------------------------------------------------------- K5 apply
@@ -259,6 +280,7 @@ def bn_apply(x2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
     if x2d.dim() != 2:
         raise ValueError(f"bn_apply: expected (M, C), got {tuple(x2d.shape)}")
     _check_rows("bn_apply", x2d.shape[1], scale, shift)
+    build.refuse_bf16("bn_apply", x2d, scale, shift)
     if not build.on_card("bn_apply", x2d, scale, shift):
         return bn_apply_reference(x2d, scale, shift, relu=relu, cap=cap)
     y = torch.empty_like(x2d)
@@ -295,6 +317,7 @@ def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
         raise ValueError(f"bn_bwd: x {tuple(x2d.shape)}, dy {tuple(dy.shape)}")
     m, c = x2d.shape
     _check_rows("bn_bwd", c, mean, inv_std, gamma, beta)
+    build.refuse_bf16("bn_bwd", x2d, dy, mean, inv_std, gamma, beta)
     if not build.on_card("bn_bwd", x2d, dy, mean, inv_std, gamma, beta):
         return bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, relu=relu)
     if m == 0 or c == 0:
@@ -337,7 +360,8 @@ def batch_norm_act(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-7, relu: bool = True):
     """Training-mode BN(+ReLU) of x2d (M, C): (y, mean, var), the batch
     statistics in fp32 and not differentiated. Differentiable in x2d,
-    gamma and beta."""
+    gamma and beta. fp32 only: bf16 raises NotImplementedError (A5b)."""
+    build.refuse_bf16("batch_norm_act", x2d, gamma, beta)
     return _BatchNormAct.apply(x2d, gamma, beta, eps, relu)
 
 

@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Tuple
@@ -70,7 +71,22 @@ SIGNATURES = {
     # the host table of (p, m, v, numel, first block, flags, tensor) rows, its
     # row count, the host array of gradient pointers, h
     "rt_adam_f32": [_P, _I, _P, _P, _P],
+    # the bf16 entry points (bf16_gemm.cuh and the bf16 sections of conv.cu,
+    # matmul.cu, add_relu.cu and moments.cu) take the fp32 ones' arguments,
+    # but the FC backward, which takes no block counts
+    "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "rt_matmul_skinny_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # a, b, g, da (or null), db (or null), M, K, N
+    "rt_matmul_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],
+    "rt_add_relu_mask_bf16": [_P, _P, _P, _P, _I64, _P],
+    "rt_moments_bf16": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
 }
+# the entry-point suffix of each tensor dtype the kernels take
+SUFFIX = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
 # the FMA GEMM core's output tile and K-step (tiled_gemm.cuh BM, BN, BK;
 # the FC forward above 32 rows)
 GEMM_TILE = 64
@@ -314,18 +330,22 @@ def gemm_workspace(splits: int, m: int, n: int, like):
     return ws.data_ptr(), ws
 
 
-def on_card(name: str, *tensors) -> bool:
+def on_card(name: str, *tensors, bf16: bool = True) -> bool:
     """Validate a wrapper's inputs; True to launch the kernel, False to run
     the plain version (CPU tensors only).
 
-    Raises on anything the kernels do not take: a dtype other than fp32, a
-    non-contiguous tensor, mixed devices, a device other than CPU or CUDA."""
+    Raises on anything the kernels do not take: a dtype other than fp32 or
+    (with ``bf16``) bfloat16, tensors of two dtypes, a non-contiguous
+    tensor, mixed devices, a device other than CPU or CUDA."""
     import torch
 
-    dev = tensors[0].device
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    allowed = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    if dtype not in allowed:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, allowed))}, got {dtype}")
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: tensors of {dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
         if t.device != dev:
@@ -335,6 +355,33 @@ def on_card(name: str, *tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     return True
+
+
+def refuse_bf16(name: str, *tensors) -> None:
+    """Raise NotImplementedError naming ROADMAP.md item A5b where a bf16
+    tensor reaches a kernel that has no bf16 version yet (K5, K6, K8, K9,
+    K10): it is never upcast onto the fp32 kernel."""
+    import torch
+
+    from ..config import ROADMAP_BF16_ENGINES, not_ported
+
+    if any(t.dtype is torch.bfloat16 for t in tensors):
+        raise not_ported(f"{name} on bfloat16 tensors", ROADMAP_BF16_ENGINES)
+
+
+def entry_name(base: str, t) -> str:
+    """The C entry point ``base`` for tensors of t's dtype: rt_<base>_f32 or
+    rt_<base>_bf16."""
+    return f"rt_{base}_{SUFFIX[str(t.dtype)]}"
+
+
+def count(module: str, counter: str, t) -> None:
+    """Add one to the launch counter ``counter`` of the kernel module named
+    ``module`` for a launch on tensors of t's dtype: ``counter`` itself for
+    fp32, ``counter + "_BF16"`` for bfloat16 (``entry_name``'s choice)."""
+    mod = sys.modules[module]
+    name = counter + ("_BF16" if SUFFIX[str(t.dtype)] == "bf16" else "")
+    setattr(mod, name, getattr(mod, name) + 1)
 
 
 @functools.cache

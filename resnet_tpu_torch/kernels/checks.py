@@ -46,6 +46,20 @@ over 495 TFLOP/s; for those
 K10's weight split (``check_split``, ``SPLIT_CASES``) must equal its plain
 version bit for bit, on weights with exact ties at the dropped bits.
 
+The bf16 kernels (``<name>_bf16``: the conv forward, dx and dW, the join
+and its mask, the FC forward and backward, the BN statistics) run the same
+wrappers on bf16 inputs at ResNet-50's batch-8 serving and batch-32
+training shapes, the stem (Cin = 3, 7x7/s2), a 3x3/s2 projection, a 1x1
+expand, the four joins and the FC among them, and are held to their plain
+versions (fp32 arithmetic on the upcast inputs, one rounding): every bf16
+element within one bf16 ulp of the plain
+value plus 1e-5 of max|plain| (``BF16_REL_TOL``), the fp32 statistics
+within 1e-5 of max. Their bound counts 2 bytes a value and the GEMMs'
+operations at 989 TFLOP/s dense bf16; their library calls are the same
+PyTorch calls in bf16, whose results are held to the plain version within
+1e-2 of max (a bf16 result of another summation order), where the fp32
+ones are held within 1e-3.
+
 The split-K GEMMs, the FC backward and the BN statistics
 (``REPEAT_KERNELS``) are also run a second time on the same inputs and must
 give the same bits: their partials are added in split order, or in one
@@ -70,6 +84,8 @@ HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, tensor cores
+BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
+BF16_REL_TOL = 1e-5  # beside one bf16 ulp per element
 
 # (label, batch, H=W, Cin, Cout, k, stride): one of each conv ResNet-50 runs
 _CONV_SHAPES: List[Tuple[str, int, int, int, int, int]] = [
@@ -228,10 +244,37 @@ SPLIT_CASES = [(f"stage {i} {what} ({k},{n})", k, n)
                                   ("expand", c, 4 * c))] + [
     ("ragged 3x3 (81,9)", 81, 9), ("ragged expand (9,36)", 9, 36)]
 
+# the bf16 kernels' cases: ResNet-50's serving (batch 8, the forward and
+# the join) and training (batch 32) shapes, the stem, the 1x1 expand and
+# the 3x3/s2 projection among them, then widths that are not a multiple of
+# 8 (2-byte copies), a K split, a misaligned operand
+BF16_CONV_CASES = [(f"{label}, batch {n}", n, *shape)
+                   for label, n, *shape in CONV_CASES + TRAIN_CONV_CASES] + [
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1)]
+BF16_DX_CASES = TRAIN_CONV_CASES[1:] + [
+    ("split K 3x3/s1 7^2 512->512", 32, 7, 512, 512, 3, 1),
+    ("ragged 3x3/s2 14->7 9->33, batch 2", 2, 14, 9, 33, 3, 2),
+]
+BF16_DW_CASES = TRAIN_CONV_CASES + [
+    ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1)]
+# the four stages' joins: served at batch 8 (forward), trained at 32 (mask)
+_JOINS = [(56, 256), (28, 512), (14, 1024), (7, 2048)]
+_BF16_ODD = [("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
+             ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1)]
+BF16_ADD_RELU_CASES = [(f"join (8,{h},{h},{c})", (8, h, h, c), 0)
+                       for h, c in _JOINS] + _BF16_ODD
+BF16_ADD_RELU_MASK_CASES = [(f"join bwd (32,{h},{h},{c})", (32, h, h, c), 0)
+                            for h, c in _JOINS] + _BF16_ODD
+BF16_MATMUL_CASES = [c for c in MATMUL_CASES if c[1] in (8, 32, 64) or c[0].startswith(
+    ("ragged", "misaligned"))]
+BF16_MATMUL_BWD_CASES = MATMUL_BWD_CASES
+BF16_MOMENTS_CASES = MOMENTS_CASES[:4]
+
 # the split-K GEMMs, the FC backward and the BN statistics, run twice per
 # case and held to the same bits
 REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments",
-                  "fused_conv", "block_fused")
+                  "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
+                  "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -249,6 +292,14 @@ KERNELS = {
     "bias_act": (bn, "APPLY_LAUNCHES", 1, BIAS_ACT_CASES),
     "bn_bwd": (bn, "BWD_LAUNCHES", 1, BN_BWD_CASES),
     "block_fused": (block_fused, "LAUNCHES", 1, BLOCK_FUSED_CASES),
+    "conv2d_bf16": (conv, "LAUNCHES_BF16", 1, BF16_CONV_CASES),
+    "conv2d_dx_bf16": (conv, "DX_LAUNCHES_BF16", 1, BF16_DX_CASES),
+    "conv2d_dw_bf16": (conv, "DW_LAUNCHES_BF16", 1, BF16_DW_CASES),
+    "add_relu_bf16": (fused, "LAUNCHES_BF16", 1, BF16_ADD_RELU_CASES),
+    "add_relu_mask_bf16": (fused, "MASK_LAUNCHES_BF16", 1, BF16_ADD_RELU_MASK_CASES),
+    "matmul_bf16": (matmul, "LAUNCHES_BF16", 1, BF16_MATMUL_CASES),
+    "matmul_bwd_bf16": (matmul, "BWD_LAUNCHES_BF16", 1, BF16_MATMUL_BWD_CASES),
+    "moments_bf16": (bn, "LAUNCHES_BF16", 1, BF16_MOMENTS_CASES),
 }
 
 
@@ -345,9 +396,10 @@ class _Case:
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
                  timed=None, library_covers=slice(None), library_same=True,
-                 peak=FP32_FLOPS_PER_S, exact=False):
+                 peak=FP32_FLOPS_PER_S, exact=False, bf16=False):
         self.run, self.plain, self.library = run, plain, library
         self.exact = exact  # the kernel must equal the plain version bit for bit
+        self.bf16 = bf16  # held by the bf16 rule (bf16_slack), not REL_TOL
         # the plain outputs the library call computes too; library_same
         # False: a yardstick of the same shape that does less work (K8)
         self.library_covers, self.library_same = library_covers, library_same
@@ -368,12 +420,15 @@ def _nhwc(t):
 
 
 def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
-    def randn(*shape, scale=1.0, offset=0):
+    def randn(*shape, scale=1.0, offset=0, dtype=torch.float32):
         n = 1
         for s in shape:
             n *= s
-        flat = torch.randn(n + offset, generator=gen, device=device) * scale
+        flat = (torch.randn(n + offset, generator=gen, device=device) * scale).to(dtype)
         return flat[offset:].view(shape)
+
+    if kernel.endswith("_bf16"):
+        return _bf16_case(kernel[:-len("_bf16")], case, randn)
 
     if kernel.startswith("conv2d"):
         _, n, h, cin, cout, k, s = case
@@ -472,6 +527,90 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
     if kernel == "block_fused":
         return _block_fused_case(case, randn)
     raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _bf16_case(kernel: str, case, randn) -> _Case:
+    """The bf16 case of ``kernel``: the same wrapper on bf16 inputs, its
+    plain version the wrapper's own (fp32 on the upcast inputs, one
+    rounding), the library call the same PyTorch call in bf16."""
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0, offset=0):
+        return randn(*shape, scale=scale, offset=offset, dtype=bf)
+
+    if kernel.startswith("conv2d"):
+        _, n, h, cin, cout, k, s = case
+        ho = h // s
+        x = r(n, h, h, cin)
+        w = r(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
+        g = r(n, ho, ho, cout)
+        nbytes = 2 * (x.numel() + w.numel() + g.numel())
+        flops = 2 * n * ho * ho * k * k * cin * cout
+        w_oihw = w.permute(3, 2, 0, 1)
+        if kernel == "conv2d":
+            run, plain = (lambda: conv.conv2d(x, w, s)), (lambda: conv.conv2d_reference(x, w, s))
+            library, as_plain = (lambda: F.conv2d(_nchw(x), w_oihw, stride=s, padding=k // 2)), _nhwc
+        elif kernel == "conv2d_dx":
+            run = lambda: conv.conv2d_dx(g, w, x.shape, s)  # noqa: E731
+            plain = lambda: conv.conv2d_dx_reference(g, w, x.shape, s)  # noqa: E731
+            library = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
+                (n, cin, h, h), w_oihw, _nchw(g), stride=s, padding=k // 2)
+            as_plain = _nhwc
+        else:
+            run, plain = (lambda: conv.conv2d_dw(x, g, k, s)), (lambda: conv.conv2d_dw_reference(x, g, k, s))
+            library = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+                _nchw(x), (cout, cin, k, k), _nchw(g), stride=s, padding=k // 2)
+            as_plain = lambda dw: dw.permute(2, 3, 1, 0)  # noqa: E731
+        return _Case(run, plain, nbytes, flops, library, as_plain, peak=BF16_FLOPS_PER_S,
+                     bf16=True)
+    if kernel in ("add_relu", "add_relu_mask"):
+        _, shape, offset = case
+        a, b, g = (r(*shape, offset=offset) for _ in range(3))
+        if kernel == "add_relu":
+            return _Case(lambda: fused.add_relu(a, b), lambda: fused.add_relu_reference(a, b),
+                         6 * a.numel(), a.numel(), bf16=True)
+        return _Case(lambda: fused.add_relu_mask(a, b, g),
+                     lambda: fused.add_relu_mask_reference(a, b, g), 8 * a.numel(),
+                     a.numel(), bf16=True)
+    if kernel == "matmul":
+        _, m, k, n, offset = case
+        a, b = r(m, k), r(k, n, scale=0.01, offset=offset)
+        return _Case(lambda: matmul.matmul(a, b), lambda: matmul.matmul_reference(a, b),
+                     2 * (m * k + k * n + m * n), 2 * m * n * k, lambda: torch.matmul(a, b),
+                     peak=BF16_FLOPS_PER_S, bf16=True)
+    if kernel == "matmul_bwd":
+        _, m, k, n, offset, need_a, need_b = case
+        a, b, g = r(m, k), r(k, n, scale=0.01, offset=offset), r(m, n)
+        want = (need_a, need_b)
+
+        def needed(pair):
+            return tuple(t for t, keep in zip(pair, want) if keep)
+
+        nbytes = 2 * (m * n + need_a * (k * n + m * k) + need_b * (m * k + k * n))
+        return _Case(lambda: needed(matmul.matmul_bwd(a, b, g, need_a, need_b)),
+                     lambda: needed(matmul.matmul_bwd_reference(a, b, g)),
+                     nbytes, 2 * m * n * k * (need_a + need_b),
+                     lambda: needed((torch.matmul(g, b.t()) if need_a else None,
+                                     torch.matmul(a.t(), g) if need_b else None)),
+                     peak=BF16_FLOPS_PER_S, bf16=True)
+    if kernel == "moments":
+        _, m, c = case
+        x = (randn(m, c) * 2.0 + randn(1, c)).to(bf)
+        return _Case(lambda: bn.moments(x), lambda: bn.moments_reference(x),
+                     2 * m * c + 8 * c, 3 * m * c,
+                     lambda: torch.var_mean(x, dim=0, unbiased=False),
+                     lambda vm: (vm[1], vm[0]), bf16=True)
+    raise ValueError(f"unknown bf16 kernel {kernel!r}")
+
+
+def bf16_slack(want: torch.Tensor) -> torch.Tensor:
+    """Per element, one bf16 ulp of the plain value (0 where it is 0) for a
+    bf16 output; 0 for an fp32 one."""
+    w = want.float().abs()
+    if want.dtype is not torch.bfloat16:
+        return torch.zeros_like(w)
+    _, e = torch.frexp(w)  # w = f * 2^e, 0.5 <= f < 1: the ulp is 2^(e - 8)
+    return torch.where(w > 0, torch.ldexp(torch.ones_like(w), e - 8), torch.zeros_like(w))
 
 
 def _fused_conv_case(case, randn) -> _Case:
@@ -677,6 +816,18 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         finite = torch.isfinite(wt)
         if not torch.equal(finite, torch.isfinite(gt)):
             raise RuntimeError(f"{kernel} {case[0]}: non-finite values differ")
+        if c.bf16:  # one bf16 ulp of each plain value plus 1e-5 of max|plain|
+            diff = (gt[finite].float() - wt[finite].float()).abs()
+            scale = wt[finite].float().abs().max().item() if finite.any() else 0.0
+            over = diff - bf16_slack(wt[finite]) - BF16_REL_TOL * scale
+            if finite.any() and over.max().item() > 0:
+                raise RuntimeError(
+                    f"{kernel} {case[0]}: {int((over > 0).sum())} elements beyond one bf16 "
+                    f"ulp + {BF16_REL_TOL} of max|plain| = {scale} (worst by "
+                    f"{over.max().item()})")
+            d = diff.max().item() if finite.any() else 0.0
+            err, rel = max(err, d), max(rel, d / scale if scale else d)
+            continue
         d = (gt[finite] - wt[finite]).abs().max().item() if finite.any() else 0.0
         scale = wt[finite].abs().max().item() if finite.any() else 0.0
         r = d / scale if scale else d
@@ -698,10 +849,11 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         out["fp32_fma_bound_ms"] = bound(c.nbytes, c.flops / 3)[0]
     if c.library is not None and c.library_same:
         # the yardstick must compute the same function
+        same = 1e-2 if c.bf16 else 1e-3
         for lt, wt in zip(_outputs(c.as_plain(c.library())), want[c.library_covers],
                           strict=True):
-            scale = wt.abs().max().item()
-            if (lt - wt).abs().max().item() > 1e-3 * scale:
+            scale = wt.float().abs().max().item()
+            if (lt.float() - wt.float()).abs().max().item() > same * scale:
                 raise RuntimeError(f"{kernel} {case[0]}: the library call computes "
                                    "another function")
     if timing:

@@ -20,8 +20,18 @@ tensors each of the three runs its plain version:
 * ``conv2d_dw_reference``: per tap, the strided window of the padded input
   contracted with the gradient over (N, Ho, Wo) (conv.py:172-196).
 
+bf16 tensors take the bf16 entry points of the same file
+(``rt_conv2d_nhwc_bf16``, ``rt_conv2d_dx_nhwc_bf16``,
+``rt_conv2d_dw_nhwc_bf16``, on ``csrc/bf16_gemm.cuh``): bf16 in, an fp32
+accumulator, bf16 out rounded once, as the JAX kernel does for bf16 inputs
+(conv.py:55-57, :105; dW in fp32 from the upcast inputs, cast to w.dtype,
+:180-195). Every tensor of one call shares its dtype. The plain versions
+compute in fp32 (the inputs upcast, TF32 off on the card) and cast the
+result once to the inputs' dtype.
+
 The counters ``LAUNCHES``, ``DX_LAUNCHES`` and ``DW_LAUNCHES`` count the
-launches of the forward, dx and dW kernels.
+launches of the fp32 forward, dx and dW kernels, ``LAUNCHES_BF16``,
+``DX_LAUNCHES_BF16`` and ``DW_LAUNCHES_BF16`` those of the bf16 ones.
 """
 
 from __future__ import annotations
@@ -39,12 +49,16 @@ from . import build
 LAUNCHES = 0
 DX_LAUNCHES = 0
 DW_LAUNCHES = 0
+LAUNCHES_BF16 = 0
+DX_LAUNCHES_BF16 = 0
+DW_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of a launch walks the 64- or 128-wide column tiles
 
 
 def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Plain forward (cuDNN on the card: TF32 must be off to compare)."""
-    return _plain_conv2d(x, w, stride=stride)
+    """Plain forward in fp32, cast to x's dtype (cuDNN on the card: TF32
+    must be off to compare)."""
+    return _plain_conv2d(x.float(), w.float(), stride=stride).to(x.dtype)
 
 
 def _dilate(g: torch.Tensor, s: int) -> torch.Tensor:
@@ -60,7 +74,8 @@ def _dilate(g: torch.Tensor, s: int) -> torch.Tensor:
 def conv2d_dx_reference(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1
                         ) -> torch.Tensor:
     """Plain dx: conv of the dilated gradient with the flipped, transposed
-    filter, cropped to the input grid."""
+    filter, cropped to the input grid; fp32, cast to g's dtype."""
+    dtype, g, w = g.dtype, g.float(), w.float()
     n, h, wd, cin = x_shape
     k = w.shape[0]
     (ph_lo, ph_hi), (pw_lo, pw_hi) = (reference_padding(h, k, stride),
@@ -69,12 +84,14 @@ def conv2d_dx_reference(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int =
     pad = ((k - 1 - ph_lo, k - 1 - ph_hi + (h + ph_lo + ph_hi - k) % stride),
            (k - 1 - pw_lo, k - 1 - pw_hi + (wd + pw_lo + pw_hi - k) % stride))
     dx = _plain_conv2d(_dilate(g, stride), w_flip, stride=1, padding=pad)
-    return dx[:, :h, :wd, :].contiguous()
+    return dx[:, :h, :wd, :].to(dtype).contiguous()
 
 
 def conv2d_dw_reference(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1
                         ) -> torch.Tensor:
-    """Plain dW (k, k, Cin, Cout): per-tap windows of x times g."""
+    """Plain dW (k, k, Cin, Cout): per-tap windows of x times g, in fp32,
+    cast to x's dtype."""
+    dtype, x, g = x.dtype, x.float(), g.float()
     n, h, wd, cin = x.shape
     ho, wo, cout = g.shape[1], g.shape[2], g.shape[3]
     (ph_lo, ph_hi), (pw_lo, pw_hi) = (reference_padding(h, k, stride),
@@ -89,7 +106,7 @@ def conv2d_dw_reference(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 
     taps = [[xp[:, i:i + (ho - 1) * stride + 1:stride,
                 j:j + (wo - 1) * stride + 1:stride, :].reshape(-1, cin).t() @ g2
              for j in range(k)] for i in range(k)]
-    return torch.stack([torch.stack(row) for row in taps])
+    return torch.stack([torch.stack(row) for row in taps]).to(dtype)
 
 
 def _shapes(x: torch.Tensor, w: torch.Tensor, stride: int) -> Tuple[int, ...]:
@@ -107,7 +124,6 @@ def _shapes(x: torch.Tensor, w: torch.Tensor, stride: int) -> Tuple[int, ...]:
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    global LAUNCHES
     n, h, wd, cin, cout, k = _shapes(x, w, stride)
     if not build.on_card("conv2d", x, w):
         return conv2d_reference(x, w, stride)
@@ -119,10 +135,10 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
         m = n * (h // stride) * (wd // stride)
         splits = build.tc_split(m, cout, k * k * cin)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
-        build.launch("rt_conv2d_nhwc_f32", x.data_ptr(), w.data_ptr(),
+        build.launch(build.entry_name("conv2d_nhwc", x), x.data_ptr(), w.data_ptr(),
                      out.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
                      device=x.device)
-        LAUNCHES += 1
+        build.count(__name__, "LAUNCHES", x)
     return out
 
 
@@ -149,7 +165,6 @@ def dx_phase_weights(w: torch.Tensor, stride: int) -> torch.Tensor:
 def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> torch.Tensor:
     """dx (N, H, W, Cin) of ``conv2d`` from its output gradient
     g (N, H/s, W/s, Cout) and the weight w (k, k, Cin, Cout)."""
-    global DX_LAUNCHES
     n, h, wd, cin = x_shape
     k, cout = w.shape[0], w.shape[3]
     if tuple(g.shape) != (n, h // stride, wd // stride, cout):
@@ -168,17 +183,16 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> tor
         # that are not contiguous
         splits = build.tc_split(m, cin, k * k * cout) if stride == 1 else 1
         ws_ptr, _ws = build.gemm_workspace(splits, m, cin, g)
-        build.launch("rt_conv2d_dx_nhwc_f32", g.data_ptr(), wp.data_ptr(),
+        build.launch(build.entry_name("conv2d_dx_nhwc", g), g.data_ptr(), wp.data_ptr(),
                      dx.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
                      device=g.device)
-        DX_LAUNCHES += 1
+        build.count(__name__, "DX_LAUNCHES", g)
     return dx
 
 
 def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
     """dW (k, k, Cin, Cout) of ``conv2d`` from its input x (N, H, W, Cin) and
     output gradient g (N, H/s, W/s, Cout)."""
-    global DW_LAUNCHES
     n, h, wd, cin = x.shape
     cout = g.shape[3]
     if tuple(g.shape) != (n, h // stride, wd // stride, cout):
@@ -194,10 +208,10 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torc
             return dw.zero_()
         splits = build.tc_split(k * k * cin, cout, pixels)
         ws_ptr, _ws = build.gemm_workspace(splits, k * k * cin, cout, x)
-        build.launch("rt_conv2d_dw_nhwc_f32", x.data_ptr(), g.data_ptr(),
+        build.launch(build.entry_name("conv2d_dw_nhwc", x), x.data_ptr(), g.data_ptr(),
                      dw.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
                      device=x.device)
-        DW_LAUNCHES += 1
+        build.count(__name__, "DW_LAUNCHES", x)
     return dw
 
 

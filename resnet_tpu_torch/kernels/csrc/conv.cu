@@ -61,6 +61,7 @@
 
 #include <climits>
 
+#include "bf16_gemm.cuh"
 #include "im2col.cuh"
 #include "tc_gemm.cuh"
 
@@ -462,4 +463,197 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
                              splits, s);
   return launch_dw_vec<128>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, ws,
                             splits, s);
+}
+
+// ---------------------------------------------------------------- bf16
+//
+// The same three GEMMs on bf16 tensors (bf16_gemm.cuh): bf16 x, w and g,
+// an fp32 accumulator, bf16 out, rounded once. What JAX computes for bf16
+// inputs: the forward and dx are its conv kernel with `x.dtype` out
+// (conv.py:55-57, :105, :163-170); dW is an fp32 matmul of the upcast
+// inputs per tap, cast to w.dtype = bf16 (conv.py:180-195). The loaders
+// index as the fp32 ones do. A 16-byte copy is 8 channels, so vec needs
+// the channel count a multiple of 8 and a 16-byte aligned base; the stem
+// (Cin = 3, K = 147) takes 2-byte copies, each element decoded on its own,
+// and K beyond 147 reads as zeros.
+
+namespace {
+
+// forward A: A((n, oy, ox), (di, dj, ci)) = x[n, s*oy - k/2 + di,
+// s*ox - k/2 + dj, ci]; K contiguous
+struct ConvFwdBfA {
+  static constexpr bool kKContig = true;
+  const uint16_t* __restrict__ x;
+  int H, W, Cin, ksize, stride, Ho, Wo;
+  int64_t M;
+  bool vec;  // Cin % 8 == 0 and x 16-byte aligned
+
+  __device__ uint4 load8(int64_t m, int64_t k, int64_t kend) const {
+    if (m >= M) return bfg::zero4();
+    const int64_t n = m / ((int64_t)Ho * Wo);
+    const int rem = (int)(m - n * Ho * Wo);
+    const int oy = rem / Wo;
+    const int iy0 = stride * oy - ksize / 2, ix0 = stride * (rem - oy * Wo) - ksize / 2;
+    const uint16_t* base = x + n * H * W * Cin;
+    if (vec) {
+      if (k >= kend) return bfg::zero4();
+      const int tap = (int)(k / Cin), ci = (int)(k - (int64_t)tap * Cin);
+      const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) return bfg::zero4();
+      return bfg::ld128(base + ((int64_t)iy * W + ix) * Cin + ci);
+    }
+    uint16_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = 0;
+      if (k + j < kend) {
+        const int tap = (int)((k + j) / Cin), ci = (int)(k + j - (int64_t)tap * Cin);
+        const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
+        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+          v[j] = bfg::ld16(base + ((int64_t)iy * W + ix) * Cin + ci);
+      }
+    }
+    return bfg::pack8(v);
+  }
+  __device__ int64_t out_row(int64_t m) const { return m; }
+};
+
+// dx A of one phase (py, px), as ConvDxTcA: row (n, qy, qx) is the input
+// pixel (py + s*qy, px + s*qx), column (ti, tj, co) the gradient at
+// g[n, qy + cy - ti, qx + cx - tj, co]; K contiguous
+struct ConvDxBfA {
+  static constexpr bool kKContig = true;
+  const uint16_t* __restrict__ g;
+  int H, W, Ho, Wo, Cout, stride, py, px, cy, cx, ntj, Qh, Qw;
+  int64_t M;
+  bool vec;  // Cout % 8 == 0 and g 16-byte aligned
+
+  __device__ uint4 load8(int64_t m, int64_t k, int64_t kend) const {
+    if (m >= M) return bfg::zero4();
+    const int64_t n = m / ((int64_t)Qh * Qw);
+    const int rem = (int)(m - n * Qh * Qw);
+    const int qy = rem / Qw + cy, qx = rem % Qw + cx;
+    const uint16_t* base = g + n * Ho * Wo * Cout;
+    if (vec) {
+      if (k >= kend) return bfg::zero4();
+      const int tap = (int)(k / Cout), co = (int)(k - (int64_t)tap * Cout);
+      const int oy = qy - tap / ntj, ox = qx - tap % ntj;
+      if (oy < 0 || oy >= Ho || ox < 0 || ox >= Wo) return bfg::zero4();
+      return bfg::ld128(base + ((int64_t)oy * Wo + ox) * Cout + co);
+    }
+    uint16_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = 0;
+      if (k + j < kend) {
+        const int tap = (int)((k + j) / Cout), co = (int)(k + j - (int64_t)tap * Cout);
+        const int oy = qy - tap / ntj, ox = qx - tap % ntj;
+        if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo)
+          v[j] = bfg::ld16(base + ((int64_t)oy * Wo + ox) * Cout + co);
+      }
+    }
+    return bfg::pack8(v);
+  }
+  __device__ int64_t out_row(int64_t m) const {
+    const int64_t n = m / ((int64_t)Qh * Qw);
+    const int rem = (int)(m - n * Qh * Qw);
+    return (n * H + py + (int64_t)stride * (rem / Qw)) * W + px + (int64_t)stride * (rem % Qw);
+  }
+};
+
+// dW A: A((i, j, ci), p) = x[n, s*oy + i - k/2, s*ox + j - k/2, ci] for
+// the pixel p = (n, oy, ox); M contiguous (neighbouring rows are
+// neighbouring channels of one tap)
+struct ConvDwBfA {
+  static constexpr bool kKContig = false;
+  const uint16_t* __restrict__ x;
+  int H, W, Cin, ksize, stride, Ho, Wo;
+  int64_t M;  // k * k * Cin
+  bool vec;   // Cin % 8 == 0 and x 16-byte aligned
+
+  __device__ uint4 load8(int64_t m, int64_t p, int64_t kend) const {
+    if (p >= kend) return bfg::zero4();
+    const int pi = (int)p;  // the wrapper keeps N*Ho*Wo < 2^31
+    const int n = pi / (Ho * Wo);
+    const int rem = pi - n * Ho * Wo;
+    const int oy = rem / Wo;
+    const int cy = stride * oy - ksize / 2, cx = stride * (rem - oy * Wo) - ksize / 2;
+    const uint16_t* base = x + (int64_t)n * H * W * Cin;
+    if (vec) {
+      if (m >= M) return bfg::zero4();
+      const int tap = (int)(m / Cin), ci = (int)(m - (int64_t)tap * Cin);
+      const int iy = cy + tap / ksize, ix = cx + tap % ksize;
+      if (iy < 0 || iy >= H || ix < 0 || ix >= W) return bfg::zero4();
+      return bfg::ld128(base + ((int64_t)iy * W + ix) * Cin + ci);
+    }
+    uint16_t v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      v[j] = 0;
+      if (m + j < M) {
+        const int tap = (int)((m + j) / Cin), ci = (int)(m + j - (int64_t)tap * Cin);
+        const int iy = cy + tap / ksize, ix = cx + tap % ksize;
+        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+          v[j] = bfg::ld16(base + ((int64_t)iy * W + ix) * Cin + ci);
+      }
+    }
+    return bfg::pack8(v);
+  }
+  __device__ int64_t out_row(int64_t m) const { return m; }
+};
+
+}  // namespace
+
+// The callers check stride | H, stride | W, shapes, dtype and contiguity,
+// and allocate ws (splits * rows * cols floats) when splits > 1. Tensors
+// are bf16, passed as their 16-bit patterns.
+
+// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout))
+extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
+                                   int H, int W, int Cin, int Cout, int k, int stride,
+                                   float* ws, int splits, void* stream) {
+  const int Ho = H / stride, Wo = W / stride;
+  const int64_t M = (int64_t)N * Ho * Wo;
+  const ConvFwdBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
+  return bfg::launch<128>(a, bfg::row_mn(w, Cout), y, ws, M, Cout, (int64_t)k * k * Cin,
+                          splits, Cout, (cudaStream_t)stream);
+}
+
+// dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices
+// of w^T one after the other (as rt_conv2d_dx_nhwc_f32); splits > 1 at
+// stride 1 only
+extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* wp, uint16_t* dx,
+                                      int N, int H, int W, int Cin, int Cout, int k,
+                                      int stride, float* ws, int splits, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stride > 1 && splits != 1) return (int)cudaErrorInvalidValue;
+  const int Ho = H / stride, Wo = W / stride;
+  const bool vec = Cout % 8 == 0 && bfg::aligned16(g);
+  const uint16_t* b = wp;
+  for (int py = 0; py < stride; ++py) {
+    for (int px = 0; px < stride; ++px) {
+      const PhaseTaps ty(py, k, stride), tx(px, k, stride);
+      const int64_t K = (int64_t)ty.count * tx.count * Cout;
+      const int64_t M = (int64_t)N * Ho * Wo;  // rows of this phase: (N, H/s, W/s)
+      const ConvDxBfA a{g, H, W, Ho, Wo, Cout, stride, py, px, ty.shift, tx.shift, tx.count,
+                        Ho, Wo, M, vec};
+      if (K == 0) return (int)cudaErrorInvalidValue;  // every phase has a tap for odd k
+      const int status = bfg::launch<128>(a, bfg::row_mn(b, Cin), dx, ws, M, Cin, K, splits,
+                                          Cin, s);
+      if (status != 0) return status;
+      b += K * Cin;
+    }
+  }
+  return 0;
+}
+
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout)
+extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint16_t* dw,
+                                      int N, int H, int W, int Cin, int Cout, int k,
+                                      int stride, float* ws, int splits, void* stream) {
+  const int Ho = H / stride, Wo = W / stride;
+  const int64_t M = (int64_t)k * k * Cin;
+  const ConvDwBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
+  return bfg::launch<128>(a, bfg::row_mn(g, Cout), dw, ws, M, Cout, (int64_t)N * Ho * Wo,
+                          splits, Cout, (cudaStream_t)stream);
 }

@@ -63,6 +63,7 @@
 #include <climits>
 #include <stdint.h>
 
+#include "bf16_gemm.cuh"
 #include "tc_gemm.cuh"  // cp_async
 #include "tiled_gemm.cuh"
 
@@ -471,5 +472,48 @@ extern "C" int rt_matmul_bwd_f32(const float* a, const float* b, const float* g,
   auto* kernel = vec ? matmul_bwd_kernel<4> : matmul_bwd_kernel<1>;
   kernel<<<(unsigned)(da_blocks + db_blocks), THREADS, 0, (cudaStream_t)stream>>>(
       a, b, g, da, db, M, K, N, da_blocks);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bf16
+//
+// The FC in bf16 on bf16_gemm.cuh: fp32 accumulator, bf16 out =
+// result_type(a, b) (matmul.py:53), da and db in bf16 (matmul.py:96-97),
+// each rounded once. The skinny entry (M <= 32) takes 32-row tiles, the
+// other 128-row ones; the backward is two launches of one call, da with
+// b read K-contiguous as b^T, db with a read M-contiguous as a^T (neither
+// is copied). Tensors are bf16, passed as their 16-bit patterns.
+
+// c (M, N) = a (M, K) @ b (K, N), 128-row tiles
+extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int64_t M,
+                              int N, int K, float* ws, int splits, void* stream) {
+  return bfg::launch<128>(bfg::row_k(a, M, K), bfg::row_mn(b, N), c, ws, M, N, K, splits, N,
+                          (cudaStream_t)stream);
+}
+
+// the same for 1 <= M <= 32 on 32-row tiles
+extern "C" int rt_matmul_skinny_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int M,
+                                     int N, int K, float* ws, int splits, void* stream) {
+  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
+  return bfg::launch<32>(bfg::row_k(a, M, K), bfg::row_mn(b, N), c, ws, M, N, K, splits, N,
+                         (cudaStream_t)stream);
+}
+
+// da (M, K) = g (M, N) @ b^T where da is not null, db (K, N) = a^T @ g
+// where db is not null; a (M, K), b (K, N), g (M, N)
+extern "C" int rt_matmul_bwd_bf16(const uint16_t* a, const uint16_t* b, const uint16_t* g,
+                                  uint16_t* da, uint16_t* db, int M, int K, int N,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M < 0 || K < 0 || N < 0) return (int)cudaErrorInvalidValue;
+  if (da) {
+    const int status =
+        M <= 32 ? bfg::launch<32>(bfg::row_k(g, M, N), bfg::row_k(b, K, N), da, nullptr, M, K, N, 1, K, s)
+                : bfg::launch<128>(bfg::row_k(g, M, N), bfg::row_k(b, K, N), da, nullptr, M, K, N, 1, K,
+                                   s);
+    if (status != 0) return status;
+  }
+  if (db)
+    return bfg::launch<128>(bfg::row_mn(a, K), bfg::row_mn(g, N), db, nullptr, K, N, M, 1, N, s);
   return (int)cudaGetLastError();
 }

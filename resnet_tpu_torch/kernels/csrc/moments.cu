@@ -46,6 +46,7 @@
 // activation once (4 bytes per element, 2 FLOPs each); the partials are
 // C * 2 * n_chunks floats, under 1% of the read at ResNet-50's shapes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,9 +73,32 @@ __device__ __forceinline__ void load_cg(float (&v)[VEC], const float* p) {
   }
 }
 
-template <int VEC, int THREADS>
+// VEC values of x's row at p, as fp32: one 16-byte load of 4 floats, or an
+// 8-byte load of 4 bf16 (each exact in fp32), or one value
+template <class T, int VEC>
+__device__ __forceinline__ void load_row(float (&v)[VEC], const T* p) {
+  if constexpr (sizeof(T) == 4 && VEC == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else if constexpr (sizeof(T) == 2 && VEC == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else if constexpr (sizeof(T) == 2) {
+    v[0] = __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <class T, int VEC, int THREADS>
 __global__ void __launch_bounds__(THREADS, 2048 / THREADS)
-moments_kernel(const float* __restrict__ x, float* __restrict__ part,
+moments_kernel(const T* __restrict__ x, float* __restrict__ part,
                unsigned* __restrict__ tickets, float* __restrict__ stats, int64_t M, int C,
                int64_t chunk, int n_chunks, int ctv) {
   // the row lanes' sums, then (as shd) the last block's chunk-lane sums
@@ -96,20 +120,12 @@ moments_kernel(const float* __restrict__ x, float* __restrict__ part,
   if (c0 < C) {  // with VEC 4, C % 4 == 0: all four channels exist
 #pragma unroll 4
     for (int64_t r = r0 + row_lane; r < r1; r += row_lanes) {
-      if constexpr (VEC == 4) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(x + r * C + c0));
-        s[0] += v.x;
-        s2[0] += v.x * v.x;
-        s[1] += v.y;
-        s2[1] += v.y * v.y;
-        s[2] += v.z;
-        s2[2] += v.z * v.z;
-        s[3] += v.w;
-        s2[3] += v.w * v.w;
-      } else {
-        const float v = __ldg(x + r * C + c0);
-        s[0] += v;
-        s2[0] += v * v;
+      float v[VEC];
+      load_row<T, VEC>(v, x + r * C + c0);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s[j] += v[j];
+        s2[j] += v[j] * v[j];
       }
     }
   }
@@ -202,6 +218,31 @@ moments_kernel(const float* __restrict__ x, float* __restrict__ part,
 
 }  // namespace
 
+namespace {
+
+template <class T>
+int launch_moments(const T* x, float* part, unsigned* tickets, float* stats, int64_t M, int C,
+                   int64_t chunk, int n_chunks, int vec, int ctv, int threads,
+                   cudaStream_t s) {
+  const int tc = vec * ctv;
+  const dim3 grid((unsigned)((C + tc - 1) / tc), (unsigned)n_chunks);
+  if (threads == LARGE && vec == 4)
+    moments_kernel<T, 4, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
+                                                       n_chunks, ctv);
+  else if (threads == LARGE)
+    moments_kernel<T, 1, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
+                                                       n_chunks, ctv);
+  else if (vec == 4)
+    moments_kernel<T, 4, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
+                                                       n_chunks, ctv);
+  else
+    moments_kernel<T, 1, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
+                                                       n_chunks, ctv);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // stats (2, C): mean, then var, of x (M, C). part holds 2 * n_chunks * C
 // floats, n_chunks = ceil(M / chunk) <= 65535; tickets one counter per
 // channel tile, all 0, left at 0. vec is 4 (C % 4 == 0 and x 16-byte
@@ -211,20 +252,16 @@ moments_kernel(const float* __restrict__ x, float* __restrict__ part,
 extern "C" int rt_moments_f32(const float* x, float* part, unsigned* tickets, float* stats,
                               int64_t M, int C, int64_t chunk, int n_chunks, int vec,
                               int ctv, int threads, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int tc = vec * ctv;
-  const dim3 grid((unsigned)((C + tc - 1) / tc), (unsigned)n_chunks);
-  if (threads == LARGE && vec == 4)
-    moments_kernel<4, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                    n_chunks, ctv);
-  else if (threads == LARGE)
-    moments_kernel<1, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                    n_chunks, ctv);
-  else if (vec == 4)
-    moments_kernel<4, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                    n_chunks, ctv);
-  else
-    moments_kernel<1, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                    n_chunks, ctv);
-  return (int)cudaGetLastError();
+  return launch_moments(x, part, tickets, stats, M, C, chunk, n_chunks, vec, ctv, threads,
+                        (cudaStream_t)stream);
+}
+
+// The same for bf16 x (its 16-bit patterns), read as fp32 into the same
+// fp32 sums (bn.py:77, :101): vec 4 is an 8-byte load of 4 values
+// (C % 4 == 0 and x 8-byte aligned). The statistics are fp32.
+extern "C" int rt_moments_bf16(const uint16_t* x, float* part, unsigned* tickets,
+                               float* stats, int64_t M, int C, int64_t chunk, int n_chunks,
+                               int vec, int ctv, int threads, void* stream) {
+  return launch_moments(reinterpret_cast<const __nv_bfloat16*>(x), part, tickets, stats, M, C,
+                        chunk, n_chunks, vec, ctv, threads, (cudaStream_t)stream);
 }

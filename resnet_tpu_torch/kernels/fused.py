@@ -8,7 +8,12 @@ g * [a + b > 0], strict >, the same gradient for both inputs (fused.py:80-83);
 anything the kernels do not take raises. On a CPU tensor the plain versions
 ``add_relu_reference`` and ``add_relu_mask_reference`` run.
 
-``LAUNCHES`` counts forward launches, ``MASK_LAUNCHES`` backward ones.
+bf16 tensors take ``rt_add_relu_bf16`` and ``rt_add_relu_mask_bf16``:
+a + b in fp32, one rounding to bf16 (fused.py:28-34); their plain versions
+add in fp32 and cast once.
+
+``LAUNCHES`` counts fp32 forward launches, ``MASK_LAUNCHES`` fp32 backward
+ones, ``LAUNCHES_BF16`` and ``MASK_LAUNCHES_BF16`` the bf16 ones.
 
 ``bias_act(x, scale, shift, relu=True, cap=None)`` is the port of
 resnet_tpu.kernels.fused.bias_act: clip(relu(x · scale + shift)) with (C,)
@@ -27,34 +32,35 @@ from . import bn, build
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
 MASK_LAUNCHES = 0
+LAUNCHES_BF16 = 0
+MASK_LAUNCHES_BF16 = 0
 
 
 def add_relu_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version: max(a + b, 0) in fp32, NaN propagating."""
-    return torch.relu(a + b)
+    """Plain version: max(a + b, 0) in fp32, NaN propagating, cast to a's
+    dtype."""
+    return torch.relu(a.float() + b.float()).to(a.dtype)
 
 
 def add_relu_mask_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
                             ) -> torch.Tensor:
-    """Plain backward: g where a + b > 0, else 0."""
-    return torch.where(a + b > 0, g, torch.zeros_like(g))
+    """Plain backward: g where a + b > 0 (in fp32), else 0."""
+    return torch.where(a.float() + b.float() > 0, g, torch.zeros_like(g))
 
 
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     if not build.on_card("add_relu", a, b):
         return add_relu_reference(a, b)
     out = torch.empty_like(a)
     if a.numel():
-        build.launch("rt_add_relu_f32", a.data_ptr(), b.data_ptr(),
+        build.launch(build.entry_name("add_relu", a), a.data_ptr(), b.data_ptr(),
                      out.data_ptr(), a.numel(), device=a.device)
-        LAUNCHES += 1
+        build.count(__name__, "LAUNCHES", a)
     return out
 
 
 def add_relu_mask(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """g * [a + b > 0] for three fp32 contiguous tensors of one shape."""
-    global MASK_LAUNCHES
+    """g * [a + b > 0] for three contiguous tensors of one shape and dtype."""
     if a.shape != b.shape or a.shape != g.shape:
         raise ValueError(f"add_relu_mask: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(g.shape)}")
@@ -62,9 +68,9 @@ def add_relu_mask(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Te
         return add_relu_mask_reference(a, b, g)
     out = torch.empty_like(g)
     if g.numel():
-        build.launch("rt_add_relu_mask_f32", a.data_ptr(), b.data_ptr(),
+        build.launch(build.entry_name("add_relu_mask", g), a.data_ptr(), b.data_ptr(),
                      g.data_ptr(), out.data_ptr(), g.numel(), device=g.device)
-        MASK_LAUNCHES += 1
+        build.count(__name__, "MASK_LAUNCHES", g)
     return out
 
 
@@ -84,8 +90,8 @@ class _AddRelu(torch.autograd.Function):
 
 
 def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """relu(a + b) for two fp32 contiguous tensors of one shape;
-    differentiable in both."""
+    """relu(a + b) for two contiguous tensors of one shape and dtype (fp32
+    or bf16); differentiable in both."""
     if a.shape != b.shape:
         raise ValueError(f"add_relu: shapes {tuple(a.shape)} and {tuple(b.shape)}")
     return _AddRelu.apply(a, b)
@@ -94,6 +100,7 @@ def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _BiasAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, shift, relu, cap):
+        build.refuse_bf16("bias_act", x, scale, shift)
         ctx.relu, ctx.cap = relu, cap
         ctx.save_for_backward(x, scale, shift)
         c = x.shape[-1]

@@ -153,6 +153,7 @@ def _check(x, w, scale, shift, stride, prologue):
 
 def _forward(x, w, scale, shift, stride, padding, prologue, relu, cap):
     global LAUNCHES
+    build.refuse_bf16("fused_conv", x, w, scale, shift)
     if not build.on_card("fused_conv", x, w, scale, shift):
         return fused_conv_reference(x, w, scale, shift, stride, padding, prologue, relu, cap)
     n, h, wd, cin = x.shape
@@ -249,6 +250,7 @@ def fused_join_reference(e, se, te, r, sr, tr, cap=None):
 
 def _join_forward(e, se, te, r, sr, tr, cap):
     global JOIN_LAUNCHES
+    build.refuse_bf16("fused_join", e, r, se, te, sr, tr)
     if not build.on_card("fused_join", e, r, se, te, sr, tr):
         return fused_join_reference(e, se, te, r, sr, tr, cap)
     out = torch.empty_like(e)

@@ -11,8 +11,15 @@ gradient is needed of (``build.matmul_bwd_plan``; b^T is never copied).
 Anything the kernels do not take raises. On CPU tensors the plain versions
 run: ``matmul_reference`` and ``matmul_bwd_reference``.
 
-``LAUNCHES`` counts forward launches (either route), ``BWD_LAUNCHES``
-backward ones (one per call, whichever products it computes).
+bf16 tensors take the bf16 entry points of the same file
+(``rt_matmul_skinny_bf16``, ``rt_matmul_bf16``, ``rt_matmul_bwd_bf16``, on
+``csrc/bf16_gemm.cuh``), routed alike: an fp32 accumulator and a bf16
+result rounded once, result_type(a, b) as in matmul.py:53; da and db in
+bf16 (matmul.py:96-97). The plain versions compute in fp32 and cast once.
+
+``LAUNCHES`` counts fp32 forward launches (either route), ``BWD_LAUNCHES``
+fp32 backward ones (one per call, whichever products it computes);
+``LAUNCHES_BF16`` and ``BWD_LAUNCHES_BF16`` the bf16 ones.
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from . import build
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+LAUNCHES_BF16 = 0
+BWD_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of the launch walks the 64-wide N tiles
 _MAX_SLABS = 65535  # ... and of the skinny launch the 32-wide N slabs
 
@@ -40,15 +49,17 @@ def matmul_route(m: int, n: int, k: int) -> str:
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Plain version: a @ b (on the card, only with TF32 off in
-    torch.backends.cuda.matmul is it the fp32 product)."""
-    return a @ b
+    """Plain version: a @ b in fp32, cast to a's dtype (on the card, only
+    with TF32 off in torch.backends.cuda.matmul is it the fp32 product)."""
+    return (a.float() @ b.float()).to(a.dtype)
 
 
 def matmul_bwd_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain VJP of a @ b: (g @ b^T, a^T @ g)."""
-    return g @ b.t(), a.t() @ g
+    """Plain VJP of a @ b: (g @ b^T, a^T @ g), each in fp32, cast to the
+    inputs' dtype."""
+    af, bf, gf = a.float(), b.float(), g.float()
+    return (gf @ bf.t()).to(a.dtype), (af.t() @ gf).to(b.dtype)
 
 
 def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
@@ -69,17 +80,16 @@ def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
 
 
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     if not build.on_card("matmul", a, b):
         return matmul_reference(a, b)
     m, k = a.shape
     n = b.shape[1]
     if matmul_route(m, n, k) == "skinny":
-        out = _gemm("rt_matmul_skinny_f32", a, b, m, n, k, build.skinny_split)
+        out = _gemm(build.entry_name("matmul_skinny", a), a, b, m, n, k, build.skinny_split)
     else:
-        out = _gemm("rt_matmul_f32", a, b, m, n, k)
+        out = _gemm(build.entry_name("matmul", a), a, b, m, n, k)
     if m and n and k:
-        LAUNCHES += 1
+        build.count(__name__, "LAUNCHES", a)
     return out
 
 
@@ -88,7 +98,6 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """(da, db) = (g @ b^T, a^T @ g) for a (M, K), b (K, N), g (M, N); a
     gradient that is not needed comes back as None."""
-    global BWD_LAUNCHES
     m, k = a.shape
     n = b.shape[1]
     if tuple(g.shape) != (m, n):
@@ -101,6 +110,13 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"matmul_bwd: M={m}, K={k}, N={n} beyond the kernel's int sizes")
     da = torch.empty((m, k), dtype=a.dtype, device=a.device) if need_a else None
     db = torch.empty((k, n), dtype=a.dtype, device=a.device) if need_b else None
+    if a.dtype is torch.bfloat16:
+        if (need_a and m * k) or (need_b and k * n):
+            build.launch("rt_matmul_bwd_bf16", a.data_ptr(), b.data_ptr(), g.data_ptr(),
+                         da.data_ptr() if need_a else None,
+                         db.data_ptr() if need_b else None, m, k, n, device=a.device)
+            build.count(__name__, "BWD_LAUNCHES", a)
+        return da, db
     da_blocks, db_blocks = build.matmul_bwd_plan(m, k, n, need_a, need_b)
     if da_blocks + db_blocks >= 2**31:
         raise ValueError(f"matmul_bwd: {da_blocks + db_blocks} blocks beyond the grid")
@@ -109,7 +125,7 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                      da.data_ptr() if da_blocks else None,
                      db.data_ptr() if db_blocks else None, m, k, n, da_blocks, db_blocks,
                      device=a.device)
-        BWD_LAUNCHES += 1
+        build.count(__name__, "BWD_LAUNCHES", a)
     return da, db
 
 
@@ -126,8 +142,8 @@ class _Matmul(torch.autograd.Function):
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N), fp32, row-major contiguous operands.
-    Differentiable in a and b."""
+    """(M, K) @ (K, N) -> (M, N), fp32 or bf16 (both operands alike),
+    row-major contiguous operands. Differentiable in a and b."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):

@@ -22,7 +22,10 @@ Engines, per conv site (``_conv_site``):
     measurement on the card that shows a gain.
 
 ``models.resnet.forward`` routes here in training with NHWC, bn_mode
-'batch' and no ghost BN; every other case runs the standard path.
+'batch' and no ghost BN; every other case runs the standard path. K5, K8
+and K9 have no bf16 version yet, so bf16 compute or parameters raise
+NotImplementedError naming ROADMAP.md item A5b here, under all three
+engines.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..config import ExecutionConfig, ModelConfig
+from ..config import ROADMAP_BF16_ENGINES, ExecutionConfig, ModelConfig, not_ported
 from ..kernels import bn as _kbn
 from ..kernels.fused import bias_act
 from ..kernels.fused_conv import (
@@ -66,6 +69,8 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
     """Training forward of the fused engines on NHWC images: (fp32 logits,
     {"bn_stats": ...}) with the batch statistics of every BN layer, detached,
     in the tree of ``models.resnet.forward``."""
+    if "bfloat16" in (ecfg.compute_dtype, ecfg.param_dtype):
+        raise not_ported(f"kernels={ecfg.kernels!r} in bfloat16", ROADMAP_BF16_ENGINES)
     eps = mcfg.bn_eps
     cap = ecfg.relu_cap
     all_plain = ecfg.kernels == "fusedxla"

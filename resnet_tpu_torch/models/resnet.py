@@ -1,5 +1,6 @@
-"""ResNet forward (bottleneck and basic blocks), NHWC, in training and
-eval mode.
+"""ResNet forward (bottleneck and basic blocks), NHWC or NCHW
+(``ExecutionConfig.layout``), fp32 or bf16 (``compute_dtype``), in training
+and eval mode.
 
 The port of resnet_tpu.models.resnet.forward:
 
@@ -61,6 +62,17 @@ backward runs outside ``forward``'s scope. The BN statistics of a
 checkpointed block are its outputs, so the rerun's are dropped and the
 running-statistics merge sees each once.
 
+Layout and dtype follow the JAX package: the images are cast to the compute
+dtype at the stem (models/resnet.py:294), the BN statistics are fp32 and
+the normalization runs in fp32 before its cast, ReLU and the cap run in the
+compute dtype, and the logits go to fp32 after the FC's bias. NCHW runs
+the plain ops on the NCHW tensors; the hand conv kernel takes them through
+a transpose to NHWC and back, and K4 is NHWC-only (``ops.dispatch``). The
+fused and whole-block routes need NHWC. In bf16 they raise
+NotImplementedError naming ROADMAP.md item A5b: K5, K6, K8, K9 and K10
+have no bf16 version yet. Runs that JAX sends down the standard path
+(NCHW, eval, ghost BN, frozen BN) do so here too, in bf16 as well.
+
 ``capture=True`` returns the reference's activation tape in
 ``aux["activations"]``, keyed as JAX keys it (models/resnet.py:174-216,
 :318-391): it turns off the fused route, the whole-block kernel and remat,
@@ -75,10 +87,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import ROADMAP_GROUPED, ExecutionConfig, ModelConfig, not_ported
+from ..config import (ROADMAP_BF16_ENGINES, ROADMAP_GROUPED, ExecutionConfig, ModelConfig,
+                      not_ported)
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.batchnorm import batch_norm_ghost
-from ..ops.conv import conv2d
+from ..ops.conv import channel_dim, conv2d
 from ..ops.dispatch import bn_act, bn_stats, conv as _dispatch_conv, fc, residual_join
 from ..ops.precision import precision_scope
 
@@ -91,8 +104,8 @@ def _conv(x, w, *, stride, ecfg, groups=1):
         if ecfg.conv_kernels == "pallas":
             raise not_ported("groups > 1 with conv_kernels='pallas'",
                              ROADMAP_GROUPED)
-        return conv2d(x, w, stride=stride, groups=groups)
-    return _dispatch_conv(x, w, stride=stride, engine=ecfg.conv_kernels)
+        return conv2d(x, w, stride=stride, groups=groups, layout=ecfg.layout)
+    return _dispatch_conv(x, w, stride=stride, engine=ecfg.conv_kernels, layout=ecfg.layout)
 
 
 def _checkpoint(fn, *args, ecfg):
@@ -126,7 +139,7 @@ def _bn_stats(x, state, *, ecfg, train):
         return state["mean"], state["var"]
     if 0 < ecfg.bn_stats_batch < x.shape[0]:
         return None  # ghost BN
-    return bn_stats(x, engine=ecfg.kernels)
+    return bn_stats(x, engine=ecfg.kernels, layout=ecfg.layout)
 
 
 def _bn_apply(x, stats, bn_params, *, eps, ecfg, relu_fused=False):
@@ -136,12 +149,14 @@ def _bn_apply(x, stats, bn_params, *, eps, ecfg, relu_fused=False):
     if stats is None:
         if ecfg.bn_mode == "off":
             y = x
-            zero = torch.zeros((x.shape[-1],), device=x.device, dtype=torch.float32)
+            zero = torch.zeros((x.shape[channel_dim(ecfg.layout)],), device=x.device,
+                               dtype=torch.float32)
             mean, var = zero, zero + 1.0
         else:
             # ghost BN: its own closed-form VJP, whatever the engine
             y, (mean, var) = batch_norm_ghost(x, bn_params["gamma"], bn_params["beta"],
-                                              ecfg.bn_stats_batch, eps=eps)
+                                              ecfg.bn_stats_batch, eps=eps,
+                                              layout=ecfg.layout)
         if relu_fused:
             y = relu(y)
             if relu_cap is not None:
@@ -149,7 +164,8 @@ def _bn_apply(x, stats, bn_params, *, eps, ecfg, relu_fused=False):
         return y, (mean.detach(), var.detach())
     y, (mean, var) = bn_act(
         x, bn_params["gamma"], bn_params["beta"], eps=eps, relu=relu_fused,
-        relu_cap=relu_cap, engine=ecfg.kernels, mean=stats[0], var=stats[1],
+        relu_cap=relu_cap, engine=ecfg.kernels, layout=ecfg.layout, mean=stats[0],
+        var=stats[1],
     )
     return y, (mean.detach(), var.detach())
 
@@ -167,8 +183,12 @@ def _block_fused_eligible(bp, stride, mcfg, ecfg, train) -> bool:
 
 def _whole_block(bp, x, *, mcfg, ecfg):
     """One stride-1 identity bottleneck through ``block_fused``; its batch
-    statistics from the kernel's sums, detached (models/resnet.py:143-168)."""
+    statistics from the kernel's sums, detached (models/resnet.py:143-168).
+    K10 has no bf16 version yet: bf16 raises (A5b)."""
     from ..kernels.block_fused import block_fused, bn_stats_from_sums
+
+    if "bfloat16" in (ecfg.compute_dtype, ecfg.param_dtype):
+        raise not_ported("kernels='blockfused' in bfloat16", ROADMAP_BF16_ENGINES)
 
     w1, w3 = bp["reduce"]["w"], bp["expand"]["w"]
     out, *sums = block_fused(
@@ -276,7 +296,8 @@ def forward(
     bn_state=None,
     capture: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the network on NHWC images. Returns (fp32 logits, aux) with
+    """Run the network on NHWC (or, under ``ecfg.layout='NCHW'``, NCHW)
+    images. Returns (fp32 logits, aux) with
     aux["bn_stats"] the per-layer (mean, var) the forward normalized with,
     detached (in training with bn_mode='batch', the batch statistics), and
     with ``capture`` aux["activations"], the reference's activation tape
@@ -311,7 +332,8 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
         params["init_bn"], eps=mcfg.bn_eps, ecfg=ecfg, relu_fused=True)
     _taped(tape, "init_conv_activated", out)
     out = _taped(tape, "init_convblock_input",
-                 max_pool(out, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride))
+                 max_pool(out, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride,
+                          layout=ecfg.layout))
 
     block_tapes = [{} if capture else None for _ in range(mcfg.num_blocks)]
 
@@ -340,7 +362,7 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
     else:
         out, stats["blocks"] = run_blocks(out, 0, mcfg.num_blocks)
 
-    pooled = global_avg_pool(out)
+    pooled = global_avg_pool(out, layout=ecfg.layout)
     logits = fc(pooled, params["fc"]["w"], params["fc"].get("b"),
                 engine=ecfg.kernels).to(torch.float32)
     aux: Dict[str, Any] = {"bn_stats": stats}

@@ -1,11 +1,15 @@
-"""Batch normalization with the reference's training semantics, NHWC.
+"""Batch normalization with the reference's training semantics, NHWC or
+NCHW: the statistics reduce every dimension but the channel one, and the
+per-channel rows broadcast along it (resnet_tpu/ops/batchnorm.py:28-39).
 
 The port of resnet_tpu.ops.batchnorm: per-channel statistics over
 (N, H, W) of the current batch, biased variance, fp32 statistics, and the
 same formula in the same order: inv_std = rsqrt(var + eps),
 scale = gamma * inv_std, shift = beta - gamma * mean * inv_std,
-y = x * scale + shift. ``batch_moments`` is the plain one-pass Σx, Σx² over
-the (N·H·W, C) rows with the closed-form VJP of ops/batchnorm.py:65-98
+y = x * scale + shift, in fp32 and cast to x's dtype (so a bf16 activation
+is normalized in fp32 and rounded once). ``batch_moments`` is the plain
+one-pass Σx, Σx² in fp32 over the (N·H·W, C) rows, or over (N, H, W) of an
+NCHW tensor, with the closed-form VJP of ops/batchnorm.py:65-98
 (d mean/dx = 1/n, d var/dx = 2(x - mean)/n): the autograd Function of the
 K4 kernel module run over its plain sums, so the formula lives in one
 place and this path never launches the kernel.
@@ -30,12 +34,23 @@ from typing import Optional, Tuple
 import torch
 
 from ..kernels.bn import moments_plain, moments_reference
+from .conv import channel_dim
 
 
-def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel (mean, biased var) of an NHWC tensor, fp32; differentiable
-    through the closed-form VJP."""
-    return moments_plain(x.reshape(-1, x.shape[-1]))
+def _param_shape(x_ndim: int, layout: str) -> Tuple[int, ...]:
+    """The shape that broadcasts a (C,) row along x's channel dimension."""
+    if layout == "NHWC":
+        return (1,) * (x_ndim - 1) + (-1,)
+    return (1, -1) + (1,) * (x_ndim - 2)
+
+
+def batch_moments(x: torch.Tensor, layout: str = "NHWC"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, biased var) of an NHWC or NCHW tensor, fp32;
+    differentiable through the closed-form VJP."""
+    if layout == "NHWC":
+        return moments_plain(x.reshape(-1, x.shape[-1]))
+    return moments_plain(x, channel_dim=1)
 
 
 def batch_norm(
@@ -44,19 +59,21 @@ def batch_norm(
     beta: torch.Tensor,
     *,
     eps: float = 1e-7,
+    layout: str = "NHWC",
     mean: Optional[torch.Tensor] = None,
     var: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Training-mode BN (batch statistics) unless mean and var are given
     (eval or frozen mode). Returns (y, (mean, var)) with fp32 statistics."""
     if mean is None or var is None:
-        mean, var = batch_moments(x)
+        mean, var = batch_moments(x, layout)
     f32 = torch.float32
+    shape = _param_shape(x.dim(), layout)
     mean, var = mean.to(f32), var.to(f32)
     inv_std = torch.rsqrt(var + eps)
     scale = gamma.to(f32) * inv_std
     shift = beta.to(f32) - gamma.to(f32) * mean * inv_std
-    y = x.to(f32) * scale + shift
+    y = x.to(f32) * scale.view(shape) + shift.view(shape)
     return y.to(x.dtype), (mean, var)
 
 
@@ -66,15 +83,19 @@ class _GhostBatchNorm(torch.autograd.Function):
     ops/batchnorm.py:146-190, the statistics' own cotangents included."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, k):
+    def forward(ctx, x, gamma, beta, eps, k, layout):
         f32 = torch.float32
+        shape = _param_shape(x.dim(), layout)
         # the one-pass sums of ops/batchnorm.py:52-58 over the first k images
-        mean, var = moments_reference(x[:k].reshape(-1, x.shape[-1]))
+        if layout == "NHWC":
+            mean, var = moments_reference(x[:k].reshape(-1, x.shape[-1]))
+        else:
+            mean, var = moments_reference(x[:k], channel_dim(layout))
         inv_std = torch.rsqrt(var + eps)
         scale = gamma.to(f32) * inv_std
         shift = beta.to(f32) - gamma.to(f32) * mean * inv_std
-        y = (x.to(f32) * scale + shift).to(x.dtype)
-        ctx.k = k
+        y = (x.to(f32) * scale.view(shape) + shift.view(shape)).to(x.dtype)
+        ctx.k, ctx.layout = k, layout
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, gamma, mean, inv_std)
         return y, mean, var
@@ -84,10 +105,11 @@ class _GhostBatchNorm(torch.autograd.Function):
         x, gamma, mean, inv_std = ctx.saved_tensors
         k = ctx.k
         f32 = torch.float32
-        axes = tuple(range(x.dim() - 1))
-        m_k = k
-        for d in x.shape[1:-1]:
-            m_k *= d
+        shape = _param_shape(x.dim(), ctx.layout)
+        cdim = channel_dim(ctx.layout)
+        axes = tuple(d for d in range(x.dim()) if d != cdim)
+        m_k = k * (x[:1].numel() // x.shape[cdim])
+        gamma, mean, inv_std = gamma.view(shape), mean.view(shape), inv_std.view(shape)
         xf = x.to(f32)
         dyf = torch.zeros_like(xf) if dy is None else dy.to(f32)
         xhat = (xf - mean) * inv_std
@@ -98,14 +120,15 @@ class _GhostBatchNorm(torch.autograd.Function):
         in_sample = (torch.arange(x.shape[0], device=x.device) < k).view(
             (-1,) + (1,) * (x.dim() - 1))
         zero = torch.zeros((), dtype=f32, device=x.device)
-        corr = (dbeta + xhat * dgamma) / m_k
+        corr = (dbeta.view(shape) + xhat * dgamma.view(shape)) / m_k
         dx = gamma.to(f32) * inv_std * (dyf - torch.where(in_sample, corr, zero))
         if dmean is not None:
-            dx = dx + torch.where(in_sample, dmean.to(f32) / m_k, zero)
+            dx = dx + torch.where(in_sample, dmean.to(f32).view(shape) / m_k, zero)
         if dvar is not None:
-            dx = dx + torch.where(in_sample, dvar.to(f32) * 2.0 * (xf - mean) / m_k, zero)
+            dx = dx + torch.where(in_sample,
+                                  dvar.to(f32).view(shape) * 2.0 * (xf - mean) / m_k, zero)
         return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
-                None, None)
+                None, None, None)
 
 
 def batch_norm_ghost(
@@ -115,6 +138,7 @@ def batch_norm_ghost(
     stats_batch: int,
     *,
     eps: float = 1e-7,
+    layout: str = "NHWC",
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Ghost BN (Hoffer et al. 2017): statistics from the first
     ``stats_batch`` images, normalization over the whole batch. Returns
@@ -122,22 +146,23 @@ def batch_norm_ghost(
     ``batch_norm``."""
     k = int(stats_batch)
     if k <= 0 or k >= x.shape[0]:
-        return batch_norm(x, gamma, beta, eps=eps)
-    y, mean, var = _GhostBatchNorm.apply(x, gamma, beta, eps, k)
+        return batch_norm(x, gamma, beta, eps=eps, layout=layout)
+    y, mean, var = _GhostBatchNorm.apply(x, gamma, beta, eps, k, layout)
     return y, (mean, var)
 
 
-def batch_norm_ghost_reference(x, gamma, beta, stats_batch: int, *, eps: float = 1e-7):
+def batch_norm_ghost_reference(x, gamma, beta, stats_batch: int, *, eps: float = 1e-7,
+                               layout: str = "NHWC"):
     """The plain counterpart of ``batch_norm_ghost``: ``batch_norm`` with
     the moments of the sliced batch, differentiated by autograd (the slice
     included)."""
-    mean, var = batch_moments(x[:stats_batch])
-    return batch_norm(x, gamma, beta, eps=eps, mean=mean, var=var)
+    mean, var = batch_moments(x[:stats_batch], layout)
+    return batch_norm(x, gamma, beta, eps=eps, layout=layout, mean=mean, var=var)
 
 
 def batch_norm_inference(x, gamma, beta, running_mean, running_var, *,
-                         eps: float = 1e-7) -> torch.Tensor:
-    y, _ = batch_norm(x, gamma, beta, eps=eps, mean=running_mean,
+                         eps: float = 1e-7, layout: str = "NHWC") -> torch.Tensor:
+    y, _ = batch_norm(x, gamma, beta, eps=eps, layout=layout, mean=running_mean,
                       var=running_var)
     return y
 

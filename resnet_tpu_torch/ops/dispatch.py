@@ -7,14 +7,16 @@ Same rules as resnet_tpu.ops.dispatch:
 * ``fc``: ``engine='pallas'`` -> the matmul kernel;
 * ``conv``: ``engine='pallas'`` (ExecutionConfig.conv_kernels) -> the conv
   kernel;
-* ``bn_act`` with batch statistics and ``engine='pallas'`` -> the moments
-  kernel on the (N*H*W, C) view (``bn_stats``), then normalize and ReLU in
-  plain ops (dispatch.py:58-74); in eval mode (given mean/var) it always
-  runs the plain ops, as the JAX package sends it through XLA.
+* ``bn_act`` with batch statistics, ``engine='pallas'`` and NHWC -> the
+  moments kernel on the (N*H*W, C) view (``bn_stats``), then normalize and
+  ReLU in plain ops (dispatch.py:58-74); NCHW takes the plain statistics,
+  as in the JAX package; in eval mode (given mean/var) it always runs the
+  plain ops, as the JAX package sends it through XLA.
 
 Otherwise plain torch ops run, which may use cuDNN or cuBLAS on the card,
-as the JAX package runs them in XLA outside any Pallas kernel. Layout is
-NHWC throughout.
+as the JAX package runs them in XLA outside any Pallas kernel. The hand
+conv kernel is NHWC: an NCHW activation is transposed to NHWC around it and
+back (dispatch.py:102-106). The join and the FC do not depend on layout.
 """
 
 from __future__ import annotations
@@ -30,13 +32,13 @@ from .conv import conv2d
 from .linear import linear
 
 
-def bn_stats(x: torch.Tensor, *, engine: str = "xla"
+def bn_stats(x: torch.Tensor, *, engine: str = "xla", layout: str = "NHWC"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The batch (mean, var) of an NHWC tensor, differentiable: the moments
-    kernel under ``engine='pallas'``, else the plain sums."""
-    if engine == "pallas":
+    """The batch (mean, var) of an NHWC or NCHW tensor, differentiable: the
+    moments kernel under ``engine='pallas'`` for NHWC, else the plain sums."""
+    if engine == "pallas" and layout == "NHWC":
         return _kbn.moments(x.reshape(-1, x.shape[-1]))
-    return batch_moments(x)
+    return batch_moments(x, layout)
 
 
 def bn_act(
@@ -48,6 +50,7 @@ def bn_act(
     relu: bool,
     relu_cap: Optional[float] = None,
     engine: str = "xla",
+    layout: str = "NHWC",
     mean: Optional[torch.Tensor] = None,
     var: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
@@ -56,8 +59,8 @@ def bn_act(
     if mean is None or var is None:
         # the one-read statistics kernel under 'pallas'; the normalization
         # stays in torch ops
-        mean, var = bn_stats(x, engine=engine)
-    y, stats = batch_norm(x, gamma, beta, eps=eps, mean=mean, var=var)
+        mean, var = bn_stats(x, engine=engine, layout=layout)
+    y, stats = batch_norm(x, gamma, beta, eps=eps, layout=layout, mean=mean, var=var)
     if relu:
         y = _relu(y)
         if relu_cap is not None:
@@ -77,11 +80,15 @@ def residual_join(a: torch.Tensor, b: torch.Tensor, *, engine: str = "xla",
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-         engine: str = "xla") -> torch.Tensor:
-    """NHWC convolution with reference-centered windows."""
+         engine: str = "xla", layout: str = "NHWC") -> torch.Tensor:
+    """NHWC or NCHW convolution with reference-centered windows."""
     if engine == "pallas":
+        if layout == "NCHW":
+            xh = x.permute(0, 2, 3, 1).contiguous()
+            y = _kconv.conv2d(xh, w.to(x.dtype), stride)
+            return y.permute(0, 3, 1, 2).contiguous()
         return _kconv.conv2d(x, w.to(x.dtype), stride)
-    return conv2d(x, w, stride=stride)
+    return conv2d(x, w, stride=stride, layout=layout)
 
 
 def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,

@@ -87,12 +87,20 @@ def adam_update_fused(grads, state: GuardedAdamState, params, *, learning_rate,
                       beta2: float = 0.999, eps: float = 1e-7,
                       nonfinite_guard: bool = True):
     """The same step as ``adam_update`` (without a mask) in one launch of
-    the Adam kernel, in place on params, means and vars. All fp32."""
+    the Adam kernel, in place on params, means and vars. The kernel is fp32:
+    bf16 parameters and gradients go to it as fp32 copies and the updated
+    parameters are cast back into the bf16 tensors, as JAX casts around
+    its flat fp32 buffer (optim/adam.py:145-166)."""
     cmd, cvd = _advance(state, beta1, beta2)
     ps, gs, ms, vs = leaves_of(params, grads, state.means, state.vars)
     h = _kadam.hyper_row(learning_rate, weight_decay, beta1, beta2, eps, cmd, cvd,
                          nonfinite_guard, ps[0].device)
-    _kadam.fused_adam(ps, [g.contiguous() for g in gs], ms, vs, h)
+    masters = [p if p.dtype is torch.float32 else p.float() for p in ps]
+    _kadam.fused_adam(masters, [g.to(torch.float32).contiguous() for g in gs], ms, vs, h)
+    with torch.no_grad():
+        for p, master in zip(ps, masters):
+            if master is not p:
+                p.copy_(master)
     return params, GuardedAdamState(
         means=state.means, vars=state.vars, mean_decay_prod=cmd,
         var_decay_prod=cvd, step=state.step + 1)

@@ -4,8 +4,11 @@ The counterpart of tools/serve.py, with the same contract:
 
     python -m resnet_tpu_torch.serve /path/model.pt --port 8000 --device cuda
 
-    POST /predict   body: raw float32 NHWC tensor bytes,
-                    headers: X-Shape: "4,224,224,3"
+    POST /predict   body: raw float32 tensor bytes in the saved model's
+                    layout (ExecutionConfig.layout): NHWC,
+                    headers: X-Shape: "4,224,224,3", or NCHW,
+                    X-Shape: "4,3,224,224"; without X-Shape the
+                    body is read as whole images of that layout
                     -> JSON {"top1": [...], "logits_shape": [...],
                              "latency_ms": ...}
     GET  /healthz   -> {"ok": true}
@@ -16,6 +19,7 @@ of batch shapes; requests above the cap are split into cap-size chunks
 (--no-bucketing runs every request at its own size). The handler is
 threaded (ThreadingHTTPServer); concurrent requests queue on the device.
 The device is named, never guessed: ``--device cuda`` is the default.
+A body whose shape is not (N, *served.image_dims) gets a 400.
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ def make_handler(served):
                 self._reply(404, {"error": "unknown path"})
                 return
             try:
-                shape = tuple(int(s) for s in self.headers["X-Shape"].split(","))
+                header = self.headers.get("X-Shape")
+                shape = (tuple(int(s) for s in header.split(",")) if header
+                         else (-1, *served.image_dims))
                 n = int(self.headers["Content-Length"])
                 x = np.frombuffer(self.rfile.read(n), dtype=np.float32).reshape(shape)
             except (TypeError, ValueError, AttributeError) as e:

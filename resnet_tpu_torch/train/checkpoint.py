@@ -72,8 +72,12 @@ def _map_paths(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
 
 def _host_leaf(_, leaf):
     if isinstance(leaf, torch.Tensor):
-        # an owned copy; from the card it is also synchronized
-        return leaf.detach().to("cpu", copy=True).numpy()
+        # an owned copy; from the card it is also synchronized. numpy has no
+        # bf16: such a leaf goes to the host as fp32 (exact), the dtype
+        # every leaf is written in; a restore casts it back to the leaf's
+        # dtype, as JAX's checkpoint.py:71-83 does
+        dtype = torch.float32 if leaf.dtype is torch.bfloat16 else leaf.dtype
+        return leaf.detach().to("cpu", dtype=dtype, copy=True).numpy()
     return np.asarray(leaf)
 
 

@@ -7,10 +7,11 @@ main() (resnet.cu:3245-3296) and the six binaries ARE the config system
 ``build_config`` takes the JAX package's arguments with the same defaults
 and choices, and one more: ``--device {cuda,cpu}`` (default cuda) in place
 of JAX_PLATFORMS. Values the port does not run yet raise
-NotImplementedError naming their ROADMAP.md queue A item: ``--dtype
-bfloat16`` and ``--export-dtype bfloat16`` (A5), ``--layout NCHW`` (A6),
+NotImplementedError naming their ROADMAP.md queue A item:
 ``--space-to-depth`` (A8), ``--int8`` (A9), and more than one device
-(A13). ``--no-mesh`` is accepted and changes nothing: the port runs one
+(A13); ``--kernels fused`` with ``--dtype bfloat16`` raises A5b at the
+first step. ``--export-dtype bfloat16`` casts the exported weights and
+running statistics, as JAX's does. ``--no-mesh`` is accepted and changes nothing: the port runs one
 device. Two quirks of the JAX CLI are kept: ``--kernels`` offers
 xla|pallas|fused only, and under ``--variant`` only --shard-dir, --jpeg-dir
 and --synthetic reach the data config (--num-shards and --shard-images do
@@ -29,7 +30,6 @@ import os
 
 from ..config import (
     RESUME_LATEST,
-    ROADMAP_BF16,
     ROADMAP_QUANT,
     DataConfig,
     ExecutionConfig,
@@ -157,8 +157,8 @@ def build_config(argv=None) -> tuple:
                          "quantized inference (not ported yet)")
     ap.add_argument("--export-dtype", default="",
                     choices=["", "float32", "bfloat16"],
-                    help="with --export: cast baked-in weights (bfloat16"
-                         " is not ported yet)")
+                    help="with --export: cast baked-in weights and BN"
+                         " running statistics")
     args = ap.parse_args(argv)
 
     if args.int8 and args.export_dtype:
@@ -166,8 +166,6 @@ def build_config(argv=None) -> tuple:
                  " artifact's weights are already int8 (drop one flag)")
     if args.int8:
         raise not_ported("--int8 (W8A8 quantized inference)", ROADMAP_QUANT)
-    if args.export_dtype == "bfloat16":
-        raise not_ported("--export-dtype bfloat16", ROADMAP_BF16)
 
     if args.resume_from == "latest":
         resume_from = RESUME_LATEST
@@ -285,7 +283,8 @@ def main(argv=None):
         from ..export import export_inference, save_inference
 
         model = export_inference(trainer.state.params, cfg.model,
-                                 bn_state=trainer.state.bn_state, ecfg=cfg.execution)
+                                 bn_state=trainer.state.bn_state, ecfg=cfg.execution,
+                                 weights_dtype=args.export_dtype or None)
         path = save_inference(args.export, model)
         print(f"exported serving artifact: {path}"
               f" ({os.path.getsize(path)} bytes)")

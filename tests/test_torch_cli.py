@@ -3,8 +3,10 @@
 ``build_config`` gives the JAX CLI's configs field for field (the port's
 ``ExecutionConfig`` drops the TPU-only fields) and the same parsed
 arguments, plus ``--device``, for a list of command lines, ``--variant``
-included; each flag the port does not run yet raises NotImplementedError
-naming its ROADMAP.md queue A item. Then ``main`` with ``--device cpu``
+included (all six presets, bf16 and NCHW among them); each flag the port
+does not run yet raises NotImplementedError naming its ROADMAP.md queue A
+item, and bf16 on the fused engine does so at its first step (A5b). Then
+``main`` with ``--device cpu``
 trains, evaluates, resumes the latest dump with async checkpoints and
 exports, as tests/test_cli.py drives the JAX CLI.
 """
@@ -52,6 +54,12 @@ ARGVS = [
     ["--variant", "clean", "--synthetic", "--checkpoint-every", "4"],
     ["--variant", "lowmem", "--model", "resnet101", "--steps", "5"],
     ["--variant", "cudnn", "--model", "tiny", "--jpeg-dir", "imgs"],
+    ["--variant", "fast", "--synthetic"],
+    ["--variant", "nchw", "--model", "tiny", "--shard-dir", "{shards}"],
+    ["--dtype", "bfloat16", "--layout", "NCHW", "--kernels", "pallas", "--conv-kernels",
+     "pallas", "--shard-layout", "NHWC"],
+    ["--dtype", "bfloat16", "--kernels", "fused"],
+    ["--export", "m.pt", "--export-dtype", "bfloat16", "--resume-from", "latest"],
 ]
 
 
@@ -75,11 +83,6 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dtype", "bfloat16"], "A5"),
-    (["--export-dtype", "bfloat16"], "A5"),
-    (["--variant", "fast"], "A5"),
-    (["--layout", "NCHW"], "A6"),
-    (["--variant", "nchw"], "A6"),
     (["--space-to-depth"], "A8"),
     (["--int8"], "A9"),
     (["--num-devices", "2"], "A13"),
@@ -90,6 +93,13 @@ def test_build_config_matches_jax(argv, shard_dir):
 def test_unported_flags_name_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         build_config(argv)
+
+
+def test_bf16_fused_engine_raises_a5b_at_its_first_step(tmp_path):
+    with pytest.raises(NotImplementedError, match="A5b"):
+        main(["--model", "tiny", "--synthetic", "--batch-size", "8", "--steps", "1",
+              "--kernels", "fused", "--dtype", "bfloat16", "--checkpoint-dir",
+              str(tmp_path / "dumps"), "--log-every", "0", "--device", "cpu"])
 
 
 def test_bad_flag_values_exit():

@@ -9,7 +9,8 @@ the kernels on tc_gemm.cuh's tensor-core core alone with
 ``-k "conv2d or fused_conv"``, and K10 on the wgmma core (wg_gemm.cuh) with
 its weight split alone with ``-k "block_fused or split_tf32"``, and the
 clean variant's batch-224 shapes (K1's stem, K2, K2b, K4) with
-``-k "batch 224"``.
+``-k "batch 224"``, and the bf16 entry points (each element within one
+bf16 ulp of the plain value plus 1e-5 of max) with ``-k bf16``.
 
 Without a CUDA device every test here skips.
 """
@@ -36,7 +37,8 @@ def test_kernel_matches_plain(cuda, name, case):
     mod, counter, per_call, _ = checks.KERNELS[name]
     before = getattr(mod, counter)
     r = checks.check_case(name, case, timing=False)
-    assert r["rel_err"] <= checks.REL_TOL
+    if not name.endswith("_bf16"):  # a bf16 case is held per element by check_case
+        assert r["rel_err"] <= checks.REL_TOL
     # the kernel ran, not the plain version (twice for a repeated GEMM)
     runs = 2 if name in checks.REPEAT_KERNELS else 1
     assert getattr(mod, counter) == before + runs * per_call
@@ -457,3 +459,61 @@ def test_prefetcher_stages_batches_on_the_card(cuda, transfer):
         expect = expect.to(torch.bfloat16) if transfer else expect
         assert torch.equal(images.cpu(), expect), f"batch {i}"
         assert torch.equal(labels.cpu(), torch.from_numpy(want["labels"])), f"batch {i}"
+
+
+def test_bf16_step_launches_the_bf16_entry_points_only(cuda):
+    """A bf16 training step of the tiny model on every standard-path hand
+    kernel moves the bf16 counters and, of the fp32 ones, Adam's alone."""
+    from resnet_tpu_torch import config as tcfg
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state, make_train_step
+
+    cfg = tcfg.TrainConfig(
+        model=tcfg.tiny_model_config(),
+        execution=tcfg.ExecutionConfig(kernels="pallas", conv_kernels="pallas",
+                                       compute_dtype="bfloat16"),
+        optimizer=tcfg.OptimizerConfig(fused=True))
+    state = init_train_state(cfg, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in next(SyntheticDataset(4, image_dim=16, num_classes=8)).items()}
+    before = {n: getattr(m, c) for n, (m, c, *_) in checks.KERNELS.items()}
+    state, metrics = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    moved = {n: getattr(m, c) - before[n] for n, (m, c, *_) in checks.KERNELS.items()
+             if getattr(m, c) != before[n]}
+    assert moved == {"conv2d_bf16": 9, "conv2d_dx_bf16": 8, "conv2d_dw_bf16": 9,
+                     "moments_bf16": 9, "add_relu_bf16": 2, "add_relu_mask_bf16": 2,
+                     "matmul_bf16": 1, "matmul_bwd_bf16": 1, "adam": 1}
+    assert torch.isfinite(metrics["loss"]).item()
+
+
+def test_bf16_frozen_bn_check_catches_a_wrong_dw(cuda, monkeypatch):
+    """chip_smoke.py's well-conditioned check of the bf16 kernel step
+    (phase 11, ``_bf16_frozen_held``) passes ResNet-50's bf16 step at batch
+    32 on every standard-path hand kernel, and fails it once the bf16 dW
+    kernel's results are scaled by 1.1."""
+    import dataclasses
+
+    import chip_smoke
+    from resnet_tpu_torch.config import variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.kernels import conv
+    from resnet_tpu_torch.train import init_train_state
+
+    base = variant_config("resnet")
+
+    def with_(**execution):
+        return dataclasses.replace(base, execution=dataclasses.replace(base.execution,
+                                                                       **execution))
+
+    kcfg = with_(conv_kernels="pallas", compute_dtype="bfloat16")
+    p16, p32 = with_(kernels="xla", compute_dtype="bfloat16"), with_(kernels="xla")
+    state0 = init_train_state(kcfg, torch.Generator().manual_seed(1234), device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(SyntheticDataset(
+        32, image_dim=224, num_classes=base.model.num_classes, seed=1234)).items()}
+    chip_smoke._bf16_frozen_held(kcfg, p16, p32, state0, batch)
+    dw = conv.conv2d_dw
+    monkeypatch.setattr(conv, "conv2d_dw", lambda x, g, k, stride=1: dw(x, g, k, stride) * (
+        1.1 if x.dtype is torch.bfloat16 else 1.0))
+    with pytest.raises(RuntimeError, match="BN frozen"):
+        chip_smoke._bf16_frozen_held(kcfg, p16, p32, state0, batch)

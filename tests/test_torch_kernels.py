@@ -83,8 +83,8 @@ def test_add_relu_matches_pallas(rng, no_launch, shape):
     lambda: fused.add_relu(torch.zeros(4), torch.zeros(5)),
     lambda: fused.add_relu(torch.zeros(4, device="meta"), torch.zeros(4, device="meta")),
     lambda: matmul.matmul(torch.zeros(2, 3), torch.zeros(4, 5)),
-    lambda: matmul.matmul(torch.zeros(2, 3, dtype=torch.bfloat16),
-                          torch.zeros(3, 5, dtype=torch.bfloat16)),
+    # bf16 operands are taken since the bf16 entry points; one beside fp32 is not
+    lambda: matmul.matmul(torch.zeros(2, 3, dtype=torch.bfloat16), torch.zeros(3, 5)),
     lambda: conv.conv2d(torch.zeros(1, 8, 8, 3), torch.zeros(2, 2, 3, 4)),
     lambda: conv.conv2d(torch.zeros(1, 8, 8, 3), torch.zeros(3, 3, 4, 4)),
     lambda: conv.conv2d(torch.zeros(1, 7, 7, 3), torch.zeros(3, 3, 3, 4), 2),
@@ -126,7 +126,7 @@ def test_sources_and_signatures_agree():
     # the headers are in the hash too: the GEMM cores and the shared device code
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
         "tiled_gemm.cuh", "tc_gemm.cuh", "wg_gemm.cuh", "fused_conv.cuh", "rowwise.cuh",
-        "im2col.cuh"}
+        "im2col.cuh", "bf16_gemm.cuh"}
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
     assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
@@ -419,6 +419,23 @@ def test_launches_hand_their_arguments_to_the_entry_points(monkeypatch):
     assert args[0] == build.ctypes.addressof(state.table) and args[1] == 2
     assert args[2] == build.ctypes.addressof(state.grads) and args[3] == h.data_ptr()
     assert list(state.grads) == [t.data_ptr() for t in g]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_count_moves_the_counter_of_the_tensors_dtype(monkeypatch, dtype):
+    """build.count adds one to a wrapper's counter for fp32 and to its
+    _BF16 twin for bfloat16, and to nothing else."""
+    pairs = [(mod, name) for mod, name in COUNTERS if mod is not adam]
+    for mod, name in pairs:
+        for key in (name, name + "_BF16"):
+            monkeypatch.setattr(mod, key, 0)
+    t = torch.zeros(2, dtype=dtype)
+    for mod, name in pairs:
+        build.count(mod.__name__, name, t)
+        build.count(mod.__name__, name, t)
+    for mod, name in pairs:
+        key, other = (name + "_BF16", name) if dtype is torch.bfloat16 else (name, name + "_BF16")
+        assert (getattr(mod, key), getattr(mod, other)) == (2, 0), (mod.__name__, name)
 
 
 @pytest.mark.parametrize("lr_kind", ["float", "device scalar", "mixed"])

@@ -148,13 +148,23 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(compute_dtype="bfloat16"), "A5"),
-    (dict(layout="NCHW"), "A6"),
+    (dict(kernels="fused", compute_dtype="bfloat16"), "A5b"),
+    (dict(kernels="blockfused", param_dtype="bfloat16"), "A5b"),
     (dict(space_to_depth=True), "A8"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
+    """NotImplementedError naming the item: from the config where nothing of
+    the value runs yet (A8), from the training forward where a bf16 tensor
+    would reach K5, K8, K9 or K10 (A5b; the model has identity blocks, so
+    'blockfused' routes some to K10)."""
+    from resnet_tpu_torch.models import init_params
+
     with pytest.raises(NotImplementedError, match=item):
-        tcfg.ExecutionConfig(**kw)
+        ecfg = tcfg.ExecutionConfig(**kw)
+        mcfg = tcfg.tiny_model_config(block_sizes=(2, 2))
+        params = init_params(torch.Generator().manual_seed(0), mcfg, device="cpu",
+                             dtype=ecfg.pdtype)
+        forward(params, torch.zeros(2, 16, 16, 3), mcfg, ecfg, train=True)
 
 
 @pytest.mark.parametrize("kernels", ["fused", "fusedxla", "hybrid"])

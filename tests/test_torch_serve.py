@@ -146,3 +146,35 @@ def test_load_inference_restores_configs(server, tmp_path):
     assert again.mcfg == mcfg and again.ecfg == ecfg
     x = np.ones((2, 16, 16, 3), np.float32)
     torch.testing.assert_close(again.call(x), model.call(x), rtol=0, atol=0)
+
+
+def test_nchw_model_takes_nchw_bodies(tmp_path, rng):
+    """A model saved with layout 'NCHW' (and bf16 compute) serves (N, 3, d, d)
+    bodies: with X-Shape, and without it (whole images of the saved
+    layout); an NHWC-shaped body is a 400."""
+    mcfg = tiny_model_config()
+    params = init_params(torch.Generator().manual_seed(3), mcfg, device="cpu")
+    ecfg = ExecutionConfig(layout="NCHW", compute_dtype="bfloat16", kernels="pallas",
+                           conv_kernels="pallas")
+    model = export_inference(params, mcfg, bn_state=init_bn_state(mcfg, device="cpu"),
+                             ecfg=ecfg)
+    httpd = serve_mod.serve(save_inference(str(tmp_path / "nchw.pt"), model), port=0,
+                            device="cpu")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        assert httpd.served.image_dims == (3, 16, 16)
+        x = rng.normal(0, 50, (3, 3, 16, 16)).astype(np.float32)
+        want = model.call(x).argmax(-1).tolist()
+        status, out = _post(httpd.server_address, x)
+        assert status == 200 and out["top1"] == want and out["logits_shape"] == [3, 8]
+        conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+        conn.request("POST", "/predict", body=x.tobytes())
+        r = conn.getresponse()
+        assert r.status == 200 and json.loads(r.read())["top1"] == want
+        status, _ = _post(httpd.server_address, np.ascontiguousarray(x.transpose(0, 2, 3, 1)))
+        assert status == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
