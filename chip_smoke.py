@@ -155,16 +155,44 @@ Phases, each printing one JSON line:
      the bf16 hand kernels, NHWC and NCHW (53 conv, 16 join, 1 matmul on the
      bf16 entries each): fp32 logits within 2x the plain bf16 path's own gap
      to the plain fp32 logits.
+ 12. bf16 engines: the fused and whole-block engines in bf16 at full width
+     (ResNet-50, 224^2, batch 32, lr 1e-4, fused Adam): 'fused', 'hybrid',
+     'fusedxla' and 'blockfused' with bf16 compute and fp32 parameters,
+     'fused' and 'blockfused' with bf16 parameters too, and 'blockfused'
+     with conv_kernels='pallas': 5 steps each, the counters read after
+     each (fused 52 fused_conv, 16 fused_join, 1 bias_act, 1 moments;
+     hybrid 16 / 1 / 1; blockfused 12 block_fused, with conv_kernels='pallas'
+     also 17 conv2d, 16 conv2d_dx, 17 conv2d_dw; all on the bf16 entries;
+     fusedxla none; 1 adam each), the loss after the last update below the
+     first, the parameters' dtype kept; one step from the same state held
+     to the plain bf16 standard step (kernels='xla', per-tensor Adam, the
+     same parameter dtype): the loss and the running statistics within 2x
+     their pooled gap to the plain fp32-compute step, each gradient leaf by
+     phase 11's batch-statistics rule (2x its own gap, at least 2^-8, or 4x
+     its change under a 1 +- 2^-8 image scaling); batch_norm_act on bf16
+     (1 moments, 1 bias_act, 1 bn_bwd on the bf16 entries; y and dx within
+     one bf16 ulp + 1e-5 of max of the plain versions, the fp32 statistics,
+     dgamma and dbeta within 1e-5); step times in turns of the bf16
+     standard step on its hand kernels and each engine's bf16 and fp32
+     steps, their peak memory, and a torch.profiler table of one fused and
+     one blockfused bf16 step. Each run also prints a ``bf16_engine_run``
+     line, so a failing run still shows the runs before it.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
 batch-8 serving and batch-32 training shapes, the stem, a 3x3/s2
-projection, a 1x1 expand, the four joins and the FC among them), each
-element within one bf16 ulp of the plain value plus 1e-5 of max|plain|,
-K4's fp32 statistics within 1e-5 of max, the GEMMs and K4 twice to the
-same bits.
+projection, a 1x1 expand, the four joins and the FC among them; for K5,
+K6, K8, K9 and K10 the engines' batch-32 shapes: the 23 distinct shapes of
+the 52 fused-conv sites, the four joins, the stem's BN apply and the four
+shapes of the 12 identity blocks), each bf16 element within one bf16 ulp
+of the plain value plus 1e-5 of max|plain|, the fp32 results (K4's
+statistics, K8's and K10's sums, K10's rows, K6's dgamma and dbeta)
+within 1e-5 of max, the GEMMs, K4, K6, K8 and K10 twice to the same bits,
+K8's halo case bit for bit; K10 in bf16 stage by stage, each stage's plain
+version on the kernel's own inputs to it (an intermediate one bf16 ulp
+apart moves the next stage by that ulp times the following BN's scale).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 11 together, every kernel launched on at least one of them; ms,
+phases 4 to 12 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
@@ -222,7 +250,7 @@ KERNEL_SOURCES = {
 # the bf16 entry points replace the same Pallas kernels for bf16 inputs
 KERNEL_SOURCES.update({f"{name}_bf16": KERNEL_SOURCES[name] for name in (
     "conv2d", "conv2d_dx", "conv2d_dw", "add_relu", "add_relu_mask", "matmul", "matmul_bwd",
-    "moments")})
+    "moments", "fused_conv", "fused_join", "bias_act", "bn_bwd", "block_fused")})
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
 PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
@@ -263,14 +291,27 @@ ELEMENTWISE_PER_STEP = dict(PER_STEP, add_relu=16 + 16)
 BLOCKFUSED_REMAT_PER_STEP = {"block_fused": 12 + 12, "adam": 1}
 # ... ghost BN: its statistics are plain torch ops, K4 is never reached
 GHOST_PER_STEP = {k: v for k, v in PER_STEP.items() if k != "moments"}
-# ... the standard step in bf16: the same counts on the bf16 entry points,
-# Adam fp32 (bf16 parameters, if any, are cast around it)
-BF16_PER_STEP = {f"{k}_bf16" if k != "adam" else k: v for k, v in PER_STEP.items()}
+
+
+def _on_bf16(counts):
+    """The same counts on the bf16 entry points; Adam stays fp32 (bf16
+    parameters, if any, are cast around it)."""
+    return {k if k == "adam" else f"{k}_bf16": v for k, v in counts.items()}
+
+
+# ... the standard step in bf16
+BF16_PER_STEP = _on_bf16(PER_STEP)
 # ... under NCHW on the hand kernels: the convs through a transpose, no K4
 # (NHWC-only, resnet_tpu/ops/dispatch.py:58)
 NCHW_PER_STEP = GHOST_PER_STEP
 # ... one served bf16 forward
-BF16_PER_FORWARD = {f"{k}_bf16": v for k, v in PER_FORWARD.items()}
+BF16_PER_FORWARD = _on_bf16(PER_FORWARD)
+# phase 12: the engines' steps in bf16, the same counts on the bf16 entries
+# (fusedxla: Adam only); batch_norm_act on bf16 tensors
+FUSED_BF16_PER_STEP = _on_bf16(FUSED_PER_STEP)
+HYBRID_BF16_PER_STEP = _on_bf16(HYBRID_PER_STEP)
+BLOCKFUSED_BF16_PER_STEP = _on_bf16(BLOCKFUSED_PER_STEP)
+BLOCKFUSED_PALLAS_BF16_PER_STEP = _on_bf16(BLOCKFUSED_PALLAS_PER_STEP)
 # phase 11: a bf16 step's gradient leaf is held to the plain bf16 step within
 # 2x its own gap to the plain fp32 step, that gap at least bf16's unit
 # roundoff (one rounding moves a value by up to 2^-8 of itself), or within
@@ -1040,23 +1081,30 @@ def phase_blockfused(torch, checks, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
-def phase_bn_entry(torch, counters):
+def _bn_entry(torch, counters, bf16=False):
     """batch_norm_act, the public BN(+ReLU) entry point, forward and backward
-    at the stem's shape with and without ReLU: (y, mean, var) against
-    bn_act_reference (plain torch ops), the gradients against the plain
-    backward (bn_bwd_reference) at the statistics the entry point returned.
-    Autograd through bn_act_reference would normalize with its own
-    statistics, and an element whose x_hat * gamma + beta lies within
-    rounding of 0 would pass its gradient through one ReLU gate and not the
-    other."""
-    from resnet_tpu_torch.kernels import bn
+    at the stem's shape with and without ReLU, on fp32 rows or (``bf16``)
+    bf16 ones with fp32 γ and β: the counts of one call (1 moments, 1
+    bias_act, 1 bn_bwd, on the bf16 entries for bf16), (y, mean, var)
+    against bn_act_reference (plain torch ops), the gradients against the
+    plain backward (bn_bwd_reference) at the statistics the entry point
+    returned. fp32 outputs within ENTRY_TOL of max|plain|; in bf16, y and dx
+    within one bf16 ulp + 1e-5 of max (``checks.bf16_slack``), the fp32
+    statistics, dγ and dβ within 1e-5. Autograd through bn_act_reference
+    would normalize with its own statistics, and an element whose
+    x_hat * gamma + beta lies within rounding of 0 would pass its gradient
+    through one ReLU gate and not the other. Returns (the result, the
+    launches)."""
+    from resnet_tpu_torch.kernels import bn, checks
 
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    expect = _on_bf16(BN_ENTRY_PER_CALL) if bf16 else BN_ENTRY_PER_CALL
     m, c, eps = 32 * 112 * 112, 64, 1e-7
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5
+    x = (torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
     gamma = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
     beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
-    dy = torch.randn(m, c, generator=gen, device="cuda")
+    dy = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
 
     launches, errs = {}, {}
     names = ("y", "mean", "var", "dx", "dgamma", "dbeta")
@@ -1067,21 +1115,30 @@ def phase_bn_entry(torch, counters):
         got = (y.detach(), mean, var, *torch.autograd.grad(y, (xs, g, b), dy))
         torch.cuda.synchronize()
         moved = {k: v for k, v in counters.read().items() if v}
-        require(moved == BN_ENTRY_PER_CALL, f"batch_norm_act (relu={relu}) moved the "
-                f"counters by {moved}, expected {BN_ENTRY_PER_CALL}")
+        require(moved == expect, f"{dtype} batch_norm_act (relu={relu}) moved the "
+                f"counters by {moved}, expected {expect}")
         for k, v in moved.items():
             launches[k] = launches.get(k, 0) + v
         want = (*bn.bn_act_reference(x, gamma, beta, eps, relu),
                 *bn.bn_bwd_reference(x, dy, mean, torch.rsqrt(var + eps), gamma, beta,
                                      relu=relu))
         for name, a, b in zip(names, got, want, strict=True):
-            scale = b.abs().max().item()
-            err = (a - b).abs().max().item()
-            require(err <= ENTRY_TOL * scale, f"batch_norm_act (relu={relu}) {name}: "
-                    f"max|kernel - plain| = {err} > {ENTRY_TOL} * {scale}")
-            errs[f"{name}{' relu' if relu else ''}"] = err / scale if scale else err
-    emit({"phase": "batch_norm_act", "rows": m, "channels": c, "launches": launches,
-          "max_rel_err": errs})
+            require(a.dtype == b.dtype, f"batch_norm_act {name}: {a.dtype} vs {b.dtype}")
+            scale = b.float().abs().max().item()
+            diff = (a.float() - b.float()).abs()
+            limit = (checks.bf16_slack(b) + checks.BF16_REL_TOL * scale if bf16
+                     else ENTRY_TOL * scale)
+            require(bool((diff <= limit).all()), f"{dtype} batch_norm_act (relu={relu}) "
+                    f"{name}: max|kernel - plain| = {diff.max().item()} beyond its limit")
+            errs[f"{name}{' relu' if relu else ''}"] = (diff.max().item() / scale if scale
+                                                        else diff.max().item())
+    return {"rows": m, "channels": c, "launches": launches, "max_rel_err": errs}, launches
+
+
+def phase_bn_entry(torch, counters):
+    """batch_norm_act in fp32 (``_bn_entry``)."""
+    out, launches = _bn_entry(torch, counters)
+    emit({"phase": "batch_norm_act", **out})
     return launches
 
 
@@ -1988,6 +2045,131 @@ def phase_presets(torch, counters, smi):
     return launched
 
 
+def phase_bf16_engines(torch, counters, smi):
+    """The fused and whole-block engines in bf16 at full width (ResNet-50,
+    224^2, batch 32, lr 1e-4, fused Adam, one SyntheticDataset batch at seed
+    1234): 'fused', 'hybrid', 'fusedxla' and 'blockfused' with bf16 compute
+    and fp32 parameters, 'fused' and 'blockfused' with bf16 parameters too,
+    and 'blockfused' with conv_kernels='pallas'. Each run: TRAIN_STEPS steps
+    with the counters read after each (exact counts on the ``_bf16``
+    entries), the loss after the last update below the first, the
+    parameters' dtype kept; one step from the same state held to the plain
+    bf16 standard step (kernels='xla', per-tensor Adam, the same parameter
+    dtype): the loss and the running statistics within 2x their pooled gap
+    to the plain fp32-compute step, each gradient leaf within 2x its own
+    gap (at least 2^-8) or GRAD_SENS x the plain bf16 step's change under a
+    1 +- 2^-8 image scaling (phase 11's rule with batch statistics: these
+    engines take batch statistics only, so phase 3's per-kernel checks
+    carry the precision). Then batch_norm_act on bf16 (``_bn_entry``);
+    step times in turns of the bf16 standard step on its hand kernels and
+    each engine's bf16 and fp32 steps, their peak memory, and a
+    torch.profiler table of one fused and one blockfused bf16 step."""
+    import dataclasses
+
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.config import variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    base = variant_config("resnet")
+
+    def config(kernels, param="float32", compute="bfloat16", fused=True, **execution):
+        return dataclasses.replace(
+            base, execution=dataclasses.replace(base.execution, kernels=kernels,
+                                                compute_dtype=compute, param_dtype=param,
+                                                **execution),
+            optimizer=dataclasses.replace(base.optimizer, fused=fused))
+
+    data = next(SyntheticDataset(base.data.batch_size, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    out, launched = {"model": base.model.name, "batch": base.data.batch_size,
+                     "device": smi, "runs": {}}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if v:
+                launched[k] = launched.get(k, 0) + v
+
+    runs = [("fused", config("fused"), FUSED_BF16_PER_STEP),
+            ("fused, bf16 params", config("fused", "bfloat16"), FUSED_BF16_PER_STEP),
+            ("hybrid", config("hybrid"), HYBRID_BF16_PER_STEP),
+            ("fusedxla", config("fusedxla"), {"adam": 1}),
+            ("blockfused", config("blockfused"), BLOCKFUSED_BF16_PER_STEP),
+            ("blockfused, bf16 params", config("blockfused", "bfloat16"),
+             BLOCKFUSED_BF16_PER_STEP),
+            ("blockfused, conv_kernels='pallas'", config("blockfused", conv_kernels="pallas"),
+             BLOCKFUSED_PALLAS_BF16_PER_STEP)]
+    for param in ("float32", "bfloat16"):
+        state0 = init_train_state(config("xla", param), torch.Generator().manual_seed(SEED),
+                                  device="cuda")
+        # the plain references from state0: bf16 and fp32 compute
+        p16 = config("xla", param, fused=False)
+        ref = {k: _step_record(torch, c, state0, batch)
+               for k, c in (("plain", p16), ("fp32", config("xla", param, "float32",
+                                                              fused=False)))}
+        sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
+                                  ref["plain"]["grads"], BF16_UNIT)
+
+        def pooled(r):
+            return {"loss": r["loss_sum"], "bn_state": r["state"].bn_state}
+
+        for name, cfg, expect in runs:
+            if cfg.execution.param_dtype != param:
+                continue
+            state, losses, per_step, launches, final_loss = _train_main_path(
+                torch, counters, make_train_step(cfg), cfg, state0, batch, expect,
+                f"bf16 {name}")
+            add(launches)
+            require(all(p.dtype == q.dtype for p, q in zip(leaves(state.params),
+                                                           leaves(state0.params))),
+                    f"bf16 {name} changed the parameters' dtype")
+            del state
+            rec = _step_record(torch, cfg, state0, batch)
+            held = {"loss_and_running_stats": _gap_held(
+                        pooled(rec), pooled(ref["plain"]), pooled(ref["fp32"]),
+                        f"bf16 {name} loss and running statistics"),
+                    "grads": _gap_held(rec["grads"], ref["plain"]["grads"],
+                                       ref["fp32"]["grads"], f"bf16 {name} grads",
+                                       BF16_UNIT, sens)}
+            out["runs"][name] = {"per_step": per_step[0], "losses": losses,
+                                 "loss_after_last_step": final_loss, "vs_plain_bf16": held,
+                                 "loss": rec["metrics"]["loss"].item()}
+            emit({"phase": "bf16_engine_run", "run": name, **out["runs"][name]})
+            del rec
+        del ref, sens, state0
+        torch.cuda.empty_cache()
+
+    out["batch_norm_act"], launches = _bn_entry(torch, counters, bf16=True)
+    add(launches)
+
+    # step times in turns, peak memory, profiles
+    state0 = init_train_state(base, torch.Generator().manual_seed(SEED), device="cuda")
+    paths = {"standard bf16": config("pallas", conv_kernels="pallas")}
+    for kernels in ("fused", "hybrid", "fusedxla", "blockfused"):
+        paths[f"{kernels} bf16"] = config(kernels)
+        paths[f"{kernels} fp32"] = config(kernels, compute="float32")
+    steps = {k: make_train_step(c) for k, c in paths.items()}
+    states = {k: _clone(state0) for k in paths}
+    order = tuple(paths) + tuple(reversed(paths))
+    step_ms, host_ms, peak, resident = _times_and_peaks(torch, steps, states, batch, order)
+    out.update(step_ms=step_ms, host_step_ms=host_ms, peak_gib=peak,
+               resident_before_gib=resident,
+               median_step_ms={k: float(np.median(v)) for k, v in step_ms.items()})
+    for kernels in ("fused", "blockfused"):
+        key = f"{kernels} bf16"
+
+        def one_step():
+            states[key], _ = steps[key](states[key], batch)
+
+        rows = _profile(torch, one_step)
+        out[f"profile_{kernels}_bf16"] = rows[:30]
+        out[f"profile_{kernels}_bf16_device_busy_ms"] = _busy(rows)
+    emit({"phase": "bf16_engines", **out})
+    return launched
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
@@ -2025,7 +2207,8 @@ def main() -> None:
              "batch_norm_act": phase_bn_entry(torch, counters),
              "remat_train": phase_remat(torch, counters, smi),
              "trainer": phase_trainer(torch, counters, smi),
-             "presets": phase_presets(torch, counters, smi)}
+             "presets": phase_presets(torch, counters, smi),
+             "bf16_engines": phase_bf16_engines(torch, counters, smi)}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

@@ -41,10 +41,29 @@ the TPU's 128 lanes, and the CUDA kernel masks any width.
 (2, N, kp) with [0] = tf32(bᵀ) rounded to nearest, ties away (PTX
 ``cvt.rna``), [1] = tf32(bᵀ - [0]), kp = K rounded up to a multiple of 4,
 zeros past K. Its plain version ``split_tf32_reference`` is bit for bit the
-kernel's.
+kernel's. It takes fp32 weights only: bf16 K10 needs no split.
 
-``LAUNCHES`` counts K10 launches, ``SPLIT_LAUNCHES`` those of the split
-kernel through ``split_tf32`` (K10 runs it inside its own host call).
+bf16: x (and so out, r, s, e) may be bf16, with the weights cast to x's
+dtype (block_fused.py:316) and γ, β taken to fp32 (``build.rows_f32``, as
+``row`` does at :281). ``rt_block_fused_bf16`` follows the rounding points
+of ``_block_fused_fwd_jnp`` (:202-254), and so does the plain version:
+each GEMM's bf16 products go into an fp32 accumulator, its sums come from
+that fp32 result, and r, s and e are rounded to bf16 once; the prologues
+run in fp32 on the rounded values and round u and v before the next
+product; the six (sc, sh) rows are fp32; the join rounds out once. Its
+three GEMMs run on the bf16 ``mma.sync`` core (``csrc/bf16_gemm.cuh``,
+the bf16 K8's, K splits from ``build.tc_split``), not on the tf32
+``wgmma`` core. The backward follows ``_block_fused_vjp_bwd``'s casts
+(:430-516): the products in fp32 on the upcast values, each activation
+gradient rounded to x's dtype, dW to w's dtype, dγ₃ and dβ₃ to γ₃'s and
+β₃'s, while dγ₁, dβ₁, dγ₂ and dβ₂ leave JAX's function in fp32 whatever
+their parameters' dtype (:511-516). The autograd engine casts a
+Function's gradient to its input's dtype, so with bf16 parameters those
+four leaves are JAX's value rounded to bf16.
+
+``LAUNCHES`` counts K10 launches, ``LAUNCHES_BF16`` bf16 ones,
+``SPLIT_LAUNCHES`` those of the split kernel through ``split_tf32`` (K10
+runs it inside its own host call).
 """
 
 from __future__ import annotations
@@ -56,6 +75,7 @@ from .fused_conv import _conv_vjp, bn_affine_from_sums, channel_sums
 
 # wrapper calls that launched the CUDA kernel
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 SPLIT_LAUNCHES = 0
 _MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 _PAD1 = ((1, 1), (1, 1))
@@ -77,27 +97,31 @@ def _gate(v, cap):
 
 
 def block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None):
-    """Plain version of K10, step for step as ``_block_fused_fwd_jnp``:
-    (out, r, s, e, sums_r, sums_s, sums_e, (sc_r, sh_r, sc_s, sh_s, sc_e,
-    sh_e)). On the card the products and the 3x3 are cuBLAS and cuDNN, so
-    TF32 must be off to compare."""
+    """Plain version of K10, step for step as ``_block_fused_fwd_jnp``, its
+    rounding points included: (out, r, s, e, sums_r, sums_s, sums_e, (sc_r,
+    sh_r, sc_s, sh_s, sc_e, sh_e)). On the card the products and the 3x3 are
+    cuBLAS and cuDNN in fp32, so TF32 must be off to compare."""
     from ..ops.conv import conv2d
 
     n, h, wd, c4 = x.shape
     c = w1.shape[1]
     m = n * h * wd
-    r = (x.reshape(m, c4) @ w1).reshape(n, h, wd, c)
-    sums_r = channel_sums(r)
+    dt = x.dtype
+    r_f = (x.reshape(m, c4).float() @ w1.to(dt).float()).reshape(n, h, wd, c)
+    sums_r = channel_sums(r_f)
+    r = r_f.to(dt)
     sc_r, sh_r = bn_affine_from_sums(sums_r, g1, b1, m, eps)
-    u = _clip_relu(r * sc_r + sh_r, cap)
-    s = conv2d(u, w2, padding=_PAD1)
-    sums_s = channel_sums(s)
+    u = _clip_relu(r.float() * sc_r + sh_r, cap).to(dt)
+    s_f = conv2d(u.float(), w2.to(dt).float(), padding=_PAD1)
+    sums_s = channel_sums(s_f)
+    s = s_f.to(dt)
     sc_s, sh_s = bn_affine_from_sums(sums_s, g2, b2, m, eps)
-    v = _clip_relu(s * sc_s + sh_s, cap)
-    e = (v.reshape(m, c) @ w3).reshape(n, h, wd, c4)
-    sums_e = channel_sums(e)
+    v = _clip_relu(s.float() * sc_s + sh_s, cap).to(dt)
+    e_f = (v.reshape(m, c).float() @ w3.to(dt).float()).reshape(n, h, wd, c4)
+    sums_e = channel_sums(e_f)
+    e = e_f.to(dt)
     sc_e, sh_e = bn_affine_from_sums(sums_e, g3, b3, m, eps)
-    out = _clip_relu(e * sc_e + sh_e + x, cap)
+    out = _clip_relu(e.float() * sc_e + sh_e + x.float(), cap).to(dt)
     return out, r, s, e, sums_r, sums_s, sums_e, (sc_r, sh_r, sc_s, sh_s, sc_e, sh_e)
 
 
@@ -127,8 +151,10 @@ def split_tf32(b: torch.Tensor) -> torch.Tensor:
     if b.dim() != 2 or 0 in b.shape:
         raise ValueError(f"split_tf32: expected a non-empty (K, N) matrix, got "
                          f"{tuple(b.shape)}")
-    build.refuse_bf16("split_tf32", b)
-    if not build.on_card("split_tf32", b):
+    if b.dtype is torch.bfloat16:
+        raise ValueError("split_tf32: the tf32 split takes fp32 weights; bf16 K10 "
+                         "multiplies its bf16 weights as they are")
+    if not build.on_card("split_tf32", b, bf16=False):
         return split_tf32_reference(b)
     k, n = b.shape
     out = torch.empty((2, n, build.kmajor_ld(k)), dtype=torch.float32, device=b.device)
@@ -154,11 +180,11 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     """K10 on CUDA tensors, the plain version on CPU ones: everything the
     kernel writes, in the order of ``block_fused_reference``'s result. Not
     differentiable; ``block_fused`` is."""
-    global LAUNCHES
     _check(x, w1, w2, w3, g1, b1, g2, b2, g3, b3)
-    build.refuse_bf16("block_fused", x, w1, w2, w3, g1, b1, g2, b2, g3, b3)
-    if not build.on_card("block_fused", x, w1, w2, w3, g1, b1, g2, b2, g3, b3):
-        return block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
+    w1, w2, w3 = (w.to(x.dtype) for w in (w1, w2, w3))  # block_fused.py:316
+    rows = build.rows_f32(g1, b1, g2, b2, g3, b3)
+    if not build.on_card("block_fused", x, w1, w2, w3, rows=rows):
+        return block_fused_reference(x, w1, w2, w3, *rows, eps, cap)
     n, h, wd, c4 = x.shape
     c = w1.shape[1]
     m = n * h * wd
@@ -167,49 +193,58 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     if -(-c4 // build.wg_tile_n(c4)) > _MAX_N_TILES or 9 * c >= 2**31:
         raise ValueError(f"block_fused: 4C={c4}, C={c} beyond the kernel's grid")
     dev = x.device
+    bf16 = x.dtype is torch.bfloat16
     # (Cout, K) of the three GEMMs; one split-K workspace serves them in turn
     gemms = ((c, c4), (c, 9 * c), (c4, c))
-    splits = [build.wg_split(m, cout, k) for cout, k in gemms]
+    plan = build.tc_split if bf16 else build.wg_split
+    splits = [plan(m, cout, k) for cout, k in gemms]
     out, e = torch.empty_like(x), torch.empty_like(x)
-    rs = torch.empty((2, n, h, wd, c), dtype=torch.float32, device=dev)
+    rs = torch.empty((2, n, h, wd, c), dtype=x.dtype, device=dev)
     r, s = rs[0], rs[1]
     small = torch.empty(8 * c + 4 * c4, dtype=torch.float32, device=dev)
-    sums_r, sums_s, sums_e, rows = small.split((2 * c, 2 * c, 2 * c4, 4 * c + 2 * c4))
-    # scratch: the per-WG_BM-row-tile statistics, the split-K partials and
+    sums_r, sums_s, sums_e, aff_rows = small.split((2 * c, 2 * c, 2 * c4, 4 * c + 2 * c4))
+    # scratch: the per-128-row-tile statistics, the split-K partials and (fp32)
     # the split weights, each from a 256-byte boundary (TMA reads the last)
     sizes = (-(-m // build.WG_BM) * 2 * max(c, c4),
              max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1), default=0),
-             sum(2 * cout * build.kmajor_ld(k) for cout, k in gemms))
+             0 if bf16 else sum(2 * cout * build.kmajor_ld(k) for cout, k in gemms))
     starts = [0]
     for size in sizes:
         starts.append(starts[-1] + -(-size // 64) * 64)
     work = torch.empty(starts[-1], dtype=torch.float32, device=dev)
     part, ws, wsplit = (work.data_ptr() + 4 * start for start in starts[:3])
-    build.launch("rt_block_fused_f32", x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-                 w3.data_ptr(), g1.data_ptr(), b1.data_ptr(), g2.data_ptr(), b2.data_ptr(),
-                 g3.data_ptr(), b3.data_ptr(), out.data_ptr(), r.data_ptr(), s.data_ptr(),
-                 e.data_ptr(), sums_r.data_ptr(), sums_s.data_ptr(), sums_e.data_ptr(),
-                 rows.data_ptr(), part, ws if sizes[1] else None, wsplit, n, h, wd, c4, c,
-                 float(eps), int(cap is not None), 0.0 if cap is None else float(cap),
-                 *splits, device=dev)
-    LAUNCHES += 1
-    aff = rows.split((c, c, c, c, c4, c4))
+    tensors = (x, w1, w2, w3, *rows, out, r, s, e, sums_r, sums_s, sums_e, aff_rows)
+    tail = (n, h, wd, c4, c, float(eps), int(cap is not None),
+            0.0 if cap is None else float(cap), *splits)
+    scratch = (part, ws if sizes[1] else None) + (() if bf16 else (wsplit,))
+    build.launch(build.entry_name("block_fused", x), *(t.data_ptr() for t in tensors),
+                 *scratch, *tail, device=dev)
+    build.count(__name__, "LAUNCHES", x)
+    aff = aff_rows.split((c, c, c, c, c4, c4))
     return (out, r, s, e, sums_r.view(2, c), sums_s.view(2, c), sums_e.view(2, c4), aff)
 
 
 def _bn_bwd(da, y, gamma, sums, m: int, eps: float, dsums):
     """(dy, dgamma, dbeta) of a = bn(y) with the batch statistics of sums,
     at da (block_fused.py:333-357): K6's plain closed form with no ReLU
-    (``bn.bn_bwd_reference``) on the (M, C) view, plus the sums'
-    cotangents dsums[0] + 2y·dsums[1] when given."""
+    (``bn.bn_bwd_reference``) on the (M, C) view in fp32, plus the sums'
+    cotangents dsums[0] + 2y·dsums[1] when given; dy rounded once to y's
+    dtype, dgamma and dbeta fp32."""
     mean, var = bn_stats_from_sums(sums, m)
     c = y.shape[-1]
-    dy, dgamma, dbeta = bn.bn_bwd_reference(y.reshape(m, c), da.reshape(m, c), mean,
-                                            torch.rsqrt(var + eps), gamma, None, relu=False)
+    yf = y.float()
+    dy, dgamma, dbeta = bn.bn_bwd_reference(yf.reshape(m, c), da.float().reshape(m, c), mean,
+                                            torch.rsqrt(var + eps), gamma.float(), None,
+                                            relu=False)
     dy = dy.reshape(y.shape)
     if dsums is not None:
-        dy = dy + dsums[0] + 2.0 * y * dsums[1]
-    return dy, dgamma, dbeta
+        dy = dy + dsums[0] + 2.0 * yf * dsums[1]
+    return dy.to(y.dtype), dgamma, dbeta
+
+
+def _mm(a, b):
+    """a @ b in fp32 on the upcast values (a bf16 product is exact in fp32)."""
+    return a.float() @ b.float()
 
 
 class _BlockFused(torch.autograd.Function):
@@ -217,7 +252,7 @@ class _BlockFused(torch.autograd.Function):
     def forward(ctx, x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap):
         out, r, s, e, sums_r, sums_s, sums_e, aff = block_fused_forward(
             x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
-        ctx.eps, ctx.cap = eps, cap
+        ctx.eps, ctx.cap, ctx.b3_dtype = eps, cap, b3.dtype
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w1, w2, w3, g1, g2, g3, r, s, e, out, sums_r, sums_s,
                               sums_e, *aff[:4])
@@ -231,34 +266,39 @@ class _BlockFused(torch.autograd.Function):
         n, h, wd, c4 = x.shape
         c = w1.shape[1]
         m = n * h * wd
+        dt = x.dtype
         # the join: out = clip(relu(bn_e(e) + x))
         g = torch.zeros_like(out) if dout is None else torch.where(
-            _gate(out, cap), dout, torch.zeros_like(dout))
+            _gate(out.float(), cap), dout.to(dt), torch.zeros_like(out))
         de, dg3, db3 = _bn_bwd(g, e, g3, sums_e, m, eps, dsums_e)
         # the expand 1x1: e = v @ W3, v = clip(relu(bn_s(s)))
-        v_pre = s * sc_s + sh_s
-        v = _clip_relu(v_pre, cap)
+        v_pre = s.float() * sc_s + sh_s
+        v = _clip_relu(v_pre, cap).to(dt)
         de2 = de.reshape(m, c4)
-        dw3 = v.reshape(m, c).t() @ de2
-        dv = (de2 @ w3.t()).reshape(n, h, wd, c)
-        da2 = torch.where(_gate(v_pre, cap), dv, torch.zeros_like(dv))
+        dw3 = _mm(v.reshape(m, c).t(), de2).to(w3.dtype)
+        dv = _mm(de2, w3.to(dt).t()).reshape(n, h, wd, c)
+        da2 = torch.where(_gate(v_pre, cap), dv, torch.zeros_like(dv)).to(dt)
         ds, dg2, db2 = _bn_bwd(da2, s, g2, sums_s, m, eps, dsums_s)
         # the spatial 3x3: s = conv(u, W2), u = clip(relu(bn_r(r)))
-        u_pre = r * sc_r + sh_r
-        u = _clip_relu(u_pre, cap)
-        du, dw2 = _conv_vjp(u, w2, ds, 1, _PAD1, True)
-        da1 = torch.where(_gate(u_pre, cap), du, torch.zeros_like(du))
+        u_pre = r.float() * sc_r + sh_r
+        u = _clip_relu(u_pre, cap).to(dt)
+        du, dw2 = _conv_vjp(u, w2.to(dt), ds, 1, _PAD1, True)
+        dw2 = dw2.to(w2.dtype)
+        da1 = torch.where(_gate(u_pre, cap), du.float(), torch.zeros_like(u_pre)).to(dt)
         dr, dg1, db1 = _bn_bwd(da1, r, g1, sums_r, m, eps, dsums_r)
         # the reduce 1x1: r = x @ W1, and the identity shortcut's g
         dr2 = dr.reshape(m, c)
-        dw1 = x.reshape(m, c4).t() @ dr2
-        dx = g + (dr2 @ w1.t()).reshape(n, h, wd, c4)
-        return dx, dw1, dw2, dw3, dg1, db1, dg2, db2, dg3, db3, None, None
+        dw1 = _mm(x.reshape(m, c4).t(), dr2).to(w1.dtype)
+        dx = (g.float() + _mm(dr2, w1.to(dt).t()).reshape(n, h, wd, c4)).to(dt)
+        # dγ₁, dβ₁, dγ₂, dβ₂ in fp32, dγ₃, dβ₃ in their dtypes (block_fused.py:511-516)
+        return (dx, dw1, dw2, dw3, dg1, db1, dg2, db2, dg3.to(g3.dtype),
+                db3.to(ctx.b3_dtype), None, None)
 
 
 def block_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
                 g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
                 g3: torch.Tensor, b3: torch.Tensor, eps: float, cap=None):
     """(out, sums_r, sums_s, sums_e) of one stride-1 identity bottleneck in
-    training mode; differentiable in all ten tensors, through the sums too."""
+    training mode, x fp32 or bf16 (out in its dtype, the sums fp32);
+    differentiable in all ten tensors, through the sums too."""
     return _BlockFused.apply(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)

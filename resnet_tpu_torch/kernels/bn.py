@@ -43,14 +43,20 @@ apply's backward in torch ops) are shared with the fused engine's
 No model path of the JAX package calls ``batch_norm_act``; it is a public
 entry point of its kernels package, and so of this one.
 
-K4 takes bf16 rows too (``rt_moments_bf16``: the same fp32 sums and fp32
-statistics, bn.py:77, :101; its VJP's dx in fp32 cast to bf16, bn.py:120-125).
-K5 and K6, and so ``batch_norm_act``, take fp32 only: a bf16 tensor raises
-NotImplementedError naming ROADMAP.md item A5b.
+Every kernel here takes bf16 data as it takes fp32, as the Pallas kernels
+do: K4 (``rt_moments_bf16``) the same fp32 sums and fp32 statistics
+(bn.py:77, :101; its VJP's dx in fp32 cast to bf16, bn.py:120-125); K5
+(``rt_bn_apply_bf16``) x read into fp32, fp32 arithmetic, y rounded once
+(bn.py:134-140); K6 (``rt_bn_bwd_bf16``) x and dy read into fp32, s1 and
+s2 fp32, dx rounded to x's dtype once, dγ and dβ cast to γ's dtype
+(bn.py:192-201, :244). Their per-channel rows are fp32 whatever the data's
+dtype (``build.rows_f32``: a bf16 γ or β is cast, as bn.py:210 casts
+them). The plain versions compute in fp32 on the upcast values and round
+where the kernels round.
 
-``LAUNCHES`` counts fp32 K4 launches, ``LAUNCHES_BF16`` bf16 ones,
-``APPLY_LAUNCHES`` K5 and ``BWD_LAUNCHES`` K6 (one per backward, its three
-kernels together).
+``LAUNCHES`` counts fp32 K4 launches, ``APPLY_LAUNCHES`` K5 and
+``BWD_LAUNCHES`` K6 (one per backward, its three kernels together); the
+``*_BF16`` counters the bf16 ones.
 """
 
 from __future__ import annotations
@@ -66,7 +72,9 @@ from . import build
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
 APPLY_LAUNCHES = 0
+APPLY_LAUNCHES_BF16 = 0
 BWD_LAUNCHES = 0
+BWD_LAUNCHES_BF16 = 0
 _CHANNEL_TILE = 32  # channels of a K6 reduce block (csrc/bn.cu CT)
 _TARGET_BLOCKS = 132 * 8  # K6: about eight first-pass blocks per SM
 _MAX_CHUNKS = 65535  # gridDim.y
@@ -245,25 +253,30 @@ def moments_plain(x: torch.Tensor, channel_dim: int = -1
 
 def bn_apply_reference(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
                        relu: bool, cap=None) -> torch.Tensor:
-    """Plain version: x · scale + shift, then ReLU and the cap, in torch,
-    with scale and shift over the last dimension of x."""
-    y = x * scale + shift
+    """Plain version: x · scale + shift, then ReLU and the cap, in fp32 on
+    the upcast x with scale and shift over its last dimension, rounded once
+    to x's dtype."""
+    y = x.float() * scale.float() + shift.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
         if cap is not None:
             y = torch.clamp_max(y, cap)
-    return y
+    return y.to(x.dtype)
 
 
 def bn_apply_bwd(x, dy, scale, shift, *, relu: bool, cap=None):
     """(dx, dscale, dshift) of ``bn_apply`` at dy, in torch ops: the gate
-    recomputed from x (fused.py:104-117, fused_conv.py:219-236)."""
+    recomputed from x (fused.py:104-117, fused_conv.py:219-236), in fp32 on
+    the upcast x and dy; dx rounded to x's dtype, dscale and dshift to the
+    rows' dtypes."""
+    xf, dv, sf = x.float(), dy.float(), scale.float()
     if relu:
-        v = x * scale + shift
+        v = xf * sf + shift.float()
         gate = v > 0 if cap is None else (v > 0) & (v < cap)
-        dy = torch.where(gate, dy, torch.zeros_like(dy))
+        dv = torch.where(gate, dv, torch.zeros_like(dv))
     axes = tuple(range(x.dim() - 1))
-    return dy * scale, (dy * x).sum(axes), dy.sum(axes)
+    return ((dv * sf).to(x.dtype), (dv * xf).sum(axes).to(scale.dtype),
+            dv.sum(axes).to(shift.dtype))
 
 
 def _check_rows(name, c, *rows):
@@ -274,22 +287,22 @@ def _check_rows(name, c, *rows):
 
 def bn_apply(x2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
              relu: bool, cap=None) -> torch.Tensor:
-    """clip(relu(x · scale + shift)) over x2d (M, C) with (C,) rows; relu
-    and cap optional (cap only with relu, as in bn.py:136-139)."""
-    global APPLY_LAUNCHES
+    """clip(relu(x · scale + shift)) over x2d (M, C), fp32 or bf16, with (C,)
+    rows; relu and cap optional (cap only with relu, as in bn.py:136-139).
+    The result has x2d's dtype."""
     if x2d.dim() != 2:
         raise ValueError(f"bn_apply: expected (M, C), got {tuple(x2d.shape)}")
     _check_rows("bn_apply", x2d.shape[1], scale, shift)
-    build.refuse_bf16("bn_apply", x2d, scale, shift)
-    if not build.on_card("bn_apply", x2d, scale, shift):
+    scale, shift = build.rows_f32(scale, shift)
+    if not build.on_card("bn_apply", x2d, rows=(scale, shift)):
         return bn_apply_reference(x2d, scale, shift, relu=relu, cap=cap)
     y = torch.empty_like(x2d)
     if x2d.numel():
-        build.launch("rt_bn_apply_f32", x2d.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                     y.data_ptr(), x2d.numel(), x2d.shape[1], int(relu),
+        build.launch(build.entry_name("bn_apply", x2d), x2d.data_ptr(), scale.data_ptr(),
+                     shift.data_ptr(), y.data_ptr(), x2d.numel(), x2d.shape[1], int(relu),
                      int(cap is not None), 0.0 if cap is None else float(cap),
                      device=x2d.device)
-        APPLY_LAUNCHES += 1
+        build.count(__name__, "APPLY_LAUNCHES", x2d)
     return y
 
 
@@ -297,28 +310,32 @@ def bn_apply(x2d: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
 
 
 def bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
-    """Plain version of the backward: (dx, dgamma, dbeta) in torch, each
-    product and sum rounded as the kernel rounds it."""
+    """Plain version of the backward: (dx, dgamma, dbeta) in torch, in fp32
+    on the upcast x, dy and rows, each product and sum rounded as the kernel
+    rounds it; dx in x2d's dtype, dgamma and dbeta in gamma's (beta's).
+    ``beta`` may be None without ``relu``."""
     m = x2d.shape[0]
-    x_hat = (x2d - mean) * inv_std
+    xf, dyf, g = x2d.float(), dy.float(), gamma.float()
+    x_hat = (xf - mean) * inv_std
     if relu:
-        dy = torch.where(x_hat * gamma + beta > 0, dy, torch.zeros_like(dy))
-    s1 = dy.sum(0)
-    s2 = (dy * x_hat).sum(0)
-    dx = gamma * inv_std * (dy - s1 / m - x_hat * (s2 / m))
-    return dx, s2, s1
+        dyf = torch.where(x_hat * g + beta.float() > 0, dyf, torch.zeros_like(dyf))
+    s1 = dyf.sum(0)
+    s2 = (dyf * x_hat).sum(0)
+    dx = g * inv_std * (dyf - s1 / m - x_hat * (s2 / m))
+    return (dx.to(x2d.dtype), s2.to(gamma.dtype),
+            s1.to(gamma.dtype if beta is None else beta.dtype))
 
 
 def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
     """(dx, dgamma, dbeta) of ``batch_norm_act`` at the output gradient dy,
-    from its input x2d (M, C) and the forward's mean and inv_std."""
-    global BWD_LAUNCHES
+    from its input x2d (M, C) and the forward's mean and inv_std; dx in
+    x2d's dtype, dgamma and dbeta in gamma's and beta's."""
     if x2d.dim() != 2 or dy.shape != x2d.shape:
         raise ValueError(f"bn_bwd: x {tuple(x2d.shape)}, dy {tuple(dy.shape)}")
     m, c = x2d.shape
     _check_rows("bn_bwd", c, mean, inv_std, gamma, beta)
-    build.refuse_bf16("bn_bwd", x2d, dy, mean, inv_std, gamma, beta)
-    if not build.on_card("bn_bwd", x2d, dy, mean, inv_std, gamma, beta):
+    rows = build.rows_f32(mean, inv_std, gamma, beta)
+    if not build.on_card("bn_bwd", x2d, dy, rows=rows):
         return bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, relu=relu)
     if m == 0 or c == 0:
         raise ValueError(f"bn_bwd: empty input {tuple(x2d.shape)}")
@@ -327,12 +344,11 @@ def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
     part = torch.empty((n_chunks, 2, c), dtype=torch.float32, device=x2d.device)
     aux = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
     dx = torch.empty_like(x2d)
-    build.launch("rt_bn_bwd_f32", x2d.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                 inv_std.data_ptr(), gamma.data_ptr(), beta.data_ptr(), part.data_ptr(),
-                 aux.data_ptr(), dx.data_ptr(), m, c, chunk, n_chunks, int(relu),
-                 device=x2d.device)
-    BWD_LAUNCHES += 1
-    return dx, aux[1], aux[0]
+    build.launch(build.entry_name("bn_bwd", x2d), x2d.data_ptr(), dy.data_ptr(),
+                 *(r.data_ptr() for r in rows), part.data_ptr(), aux.data_ptr(),
+                 dx.data_ptr(), m, c, chunk, n_chunks, int(relu), device=x2d.device)
+    build.count(__name__, "BWD_LAUNCHES", x2d)
+    return dx, aux[1].to(gamma.dtype), aux[0].to(beta.dtype)
 
 
 class _BatchNormAct(torch.autograd.Function):
@@ -340,8 +356,8 @@ class _BatchNormAct(torch.autograd.Function):
     def forward(ctx, x2d, gamma, beta, eps, relu):
         mean, var = _forward(x2d)
         inv_std = torch.rsqrt(var + eps)
-        scale = gamma * inv_std
-        shift = beta - scale * mean
+        scale = gamma.float() * inv_std
+        shift = beta.float() - scale * mean
         y = bn_apply(x2d, scale, shift, relu=relu)
         ctx.relu = relu
         ctx.save_for_backward(x2d, gamma, beta, mean, inv_std)
@@ -358,20 +374,20 @@ class _BatchNormAct(torch.autograd.Function):
 
 def batch_norm_act(x2d: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    eps: float = 1e-7, relu: bool = True):
-    """Training-mode BN(+ReLU) of x2d (M, C): (y, mean, var), the batch
-    statistics in fp32 and not differentiated. Differentiable in x2d,
-    gamma and beta. fp32 only: bf16 raises NotImplementedError (A5b)."""
-    build.refuse_bf16("batch_norm_act", x2d, gamma, beta)
+    """Training-mode BN(+ReLU) of x2d (M, C), fp32 or bf16: (y, mean, var),
+    y in x2d's dtype, the batch statistics in fp32 and not differentiated.
+    Differentiable in x2d, gamma and beta."""
     return _BatchNormAct.apply(x2d, gamma, beta, eps, relu)
 
 
 def bn_act_reference(x2d, gamma, beta, eps: float = 1e-7, relu: bool = True):
-    """Plain torch ops (bn.py:288-299), differentiated by autograd through
-    the statistics too."""
-    mean = x2d.mean(0)
-    var = torch.clamp_min((x2d * x2d).mean(0) - mean * mean, 0.0)
+    """Plain torch ops (bn.py:288-299) in fp32 on the upcast x2d, y rounded
+    to its dtype, differentiated by autograd through the statistics too."""
+    xf = x2d.float()
+    mean = xf.mean(0)
+    var = torch.clamp_min((xf * xf).mean(0) - mean * mean, 0.0)
     inv = torch.rsqrt(var + eps)
-    y = (x2d - mean) * inv * gamma + beta
+    y = (xf - mean) * inv * gamma.float() + beta.float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return y, mean, var
+    return y.to(x2d.dtype), mean, var

@@ -84,6 +84,16 @@ SIGNATURES = {
     "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],
     "rt_add_relu_mask_bf16": [_P, _P, _P, _P, _I64, _P],
     "rt_moments_bf16": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
+    # K5, K6, K8 and K9 on bf16 data take the fp32 entries' arguments (their
+    # per-channel rows fp32)
+    "rt_fused_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
+    "rt_fused_join_bf16": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _P],
+    "rt_bn_apply_bf16": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
+    "rt_bn_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
+    # K10 on bf16: rt_block_fused_f32's arguments without wsplit (the bf16
+    # weights need no split)
+    "rt_block_fused_bf16": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
 }
 # the entry-point suffix of each tensor dtype the kernels take
 SUFFIX = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
@@ -330,22 +340,24 @@ def gemm_workspace(splits: int, m: int, n: int, like):
     return ws.data_ptr(), ws
 
 
-def on_card(name: str, *tensors, bf16: bool = True) -> bool:
+def on_card(name: str, *tensors, bf16: bool = True, rows=()) -> bool:
     """Validate a wrapper's inputs; True to launch the kernel, False to run
     the plain version (CPU tensors only).
 
     Raises on anything the kernels do not take: a dtype other than fp32 or
     (with ``bf16``) bfloat16, tensors of two dtypes, a non-contiguous
-    tensor, mixed devices, a device other than CPU or CUDA."""
+    tensor, mixed devices, a device other than CPU or CUDA. ``rows`` are
+    per-channel rows, which the kernels read as fp32 whatever the
+    tensors' dtype (``rows_f32``)."""
     import torch
 
     dev, dtype = tensors[0].device, tensors[0].dtype
     allowed = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
     if dtype not in allowed:
         raise TypeError(f"{name}: expected {' or '.join(map(str, allowed))}, got {dtype}")
-    for t in tensors:
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: tensors of {dtype} and {t.dtype}")
+    for t, want in (*((t, dtype) for t in tensors), *((r, torch.float32) for r in rows)):
+        if t.dtype != want:
+            raise TypeError(f"{name}: tensors of {want} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
         if t.device != dev:
@@ -357,16 +369,14 @@ def on_card(name: str, *tensors, bf16: bool = True) -> bool:
     return True
 
 
-def refuse_bf16(name: str, *tensors) -> None:
-    """Raise NotImplementedError naming ROADMAP.md item A5b where a bf16
-    tensor reaches a kernel that has no bf16 version yet (K5, K6, K8, K9,
-    K10): it is never upcast onto the fp32 kernel."""
+def rows_f32(*rows):
+    """Per-channel rows as the kernels read them: fp32, contiguous. The
+    Pallas kernels take theirs through ``jnp.asarray(v, jnp.float32)``
+    (bn.py:210, fused_conv.py:170-175, :536-538, block_fused.py:281), so a bf16 row
+    (a bf16 parameter's gamma) is cast, and an fp32 one passes as it is."""
     import torch
 
-    from ..config import ROADMAP_BF16_ENGINES, not_ported
-
-    if any(t.dtype is torch.bfloat16 for t in tensors):
-        raise not_ported(f"{name} on bfloat16 tensors", ROADMAP_BF16_ENGINES)
+    return tuple(r.to(torch.float32).contiguous() for r in rows)
 
 
 def entry_name(base: str, t) -> str:

@@ -60,12 +60,26 @@ PyTorch calls in bf16, whose results are held to the plain version within
 1e-2 of max (a bf16 result of another summation order), where the fp32
 ones are held within 1e-3.
 
-The split-K GEMMs, the FC backward and the BN statistics
+The bf16 K5, K6, K8, K9 and K10 (``bias_act_bf16``, ``bn_bwd_bf16``,
+``fused_conv_bf16``, ``fused_join_bf16``, ``block_fused_bf16``) run the
+fused and whole-block engines' shapes at batch 32: each of the 23 distinct
+shapes of ResNet-50's 52 fused-conv sites (``fused_sites``), the four
+joins, the stem's BN apply, and the four shapes of the 12 identity blocks,
+then ragged, split-K, capped and misaligned cases. Their bf16 outputs are
+held by the rule above and their fp32 outputs (K8's and K10's sums, K10's
+(scale, shift) rows, K6's dγ and dβ) within 1e-5 of max. K8's bound is its
+operations at 989 TFLOP/s dense bf16 and its library call ``F.conv2d`` in
+bf16 (the conv alone); K10's bound likewise; K5's, K6's and K9's their
+bytes at 2 a value, K6's library call ``native_batch_norm_backward`` on the
+bf16 tensors.
+
+The split-K GEMMs, the FC backward, the BN statistics, K8 and K10
 (``REPEAT_KERNELS``) are also run a second time on the same inputs and must
 give the same bits: their partials are added in split order, or in one
 fixed order inside a block, with no atomics in any sum. A case marked
 exact (the fused conv's halo case, integer-valued so that every order of
-summation is exact) must match its plain version bit for bit.
+summation is exact) must match its plain version bit for bit, in fp32 and
+in bf16.
 """
 
 from __future__ import annotations
@@ -270,11 +284,64 @@ BF16_MATMUL_CASES = [c for c in MATMUL_CASES if c[1] in (8, 32, 64) or c[0].star
 BF16_MATMUL_BWD_CASES = MATMUL_BWD_CASES
 BF16_MOMENTS_CASES = MOMENTS_CASES[:4]
 
+
+def fused_sites(batch: int) -> List[Tuple]:
+    """(label, batch, H, Cin, Cout, k, stride, prologue, cap) of each distinct
+    shape among ResNet-50's 52 fused-conv sites (models.fused_resnet: per
+    block the reduce, the spatial 3x3 with the stride, the expand, and the
+    projection), in model order, the label naming the first site and how
+    many share the shape."""
+    from ..config import model_config
+    from ..models.init import init_params
+
+    mcfg = model_config("resnet50")
+    params = init_params(torch.Generator().manual_seed(0), mcfg, device="meta")
+    h = mcfg.input_dim // mcfg.init_stride // mcfg.maxpool_stride
+    sites: Dict[Tuple, List[str]] = {}
+    for i, bp in enumerate(params["blocks"]):
+        s = 2 if mcfg.is_reduction_block(i) else 1
+        for conv, hh, stride, pro in (("reduce", h, 1, False), ("spatial", h, s, True),
+                                      ("expand", h // s, 1, True), ("proj", h, s, False)):
+            if conv in bp:
+                k, _, cin, cout = bp[conv]["w"].shape
+                sites.setdefault((hh, cin, cout, k, stride, pro), []).append(
+                    f"block {i} {conv}")
+        h //= s
+    return [(f"{names[0]} {k}x{k}/s{st} {hh}^2 {cin}->{cout} (x{len(names)})", batch, hh,
+             cin, cout, k, st, pro, None)
+            for (hh, cin, cout, k, st, pro), names in sites.items()]
+
+
+# K8 on bf16: every fused-site shape at batch 32; a capped site; ragged
+# widths at batch 2 (2-byte copies), the second deep enough that the GEMM
+# splits K (statistics from the fp32 split sum); the halo case, exact
+BF16_FUSED_CONV_CASES = fused_sites(32) + [
+    ("spatial 3x3/s1 14^2 256->256, prologue, cap 10", 32, 14, 256, 256, 3, 1, True, 10.0),
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1, True, None),
+    ("ragged 3x3 7^2 129->33, batch 2, split K", 2, 7, 129, 33, 3, 1, True, None),
+    ("halo 3x3 7^2 16->64, batch 2, act(shift) > 0, exact", 2, 7, 16, 64, 3, 1, True, None),
+]
+# K9 on bf16: the four stages' joins at batch 32, a capped one, an odd size
+# and a misaligned start
+BF16_FUSED_JOIN_CASES = [(f"join (32,{h},{h},{c})", (32, h, h, c), 0, None)
+                         for h, c in _JOINS] + [
+    ("cap 10 (32,14,14,1024)", (32, 14, 14, 1024), 0, 10.0),
+    ("odd size (3,7,7,9)", (3, 7, 7, 9), 0, None),
+    ("misaligned (8,7,7,2048)", (8, 7, 7, 2048), 1, None)]
+BF16_BIAS_ACT_CASES = [c for c in BIAS_ACT_CASES if c[2]]  # the stem's, with ReLU
+BF16_BN_BWD_CASES = BN_BWD_CASES
+# K10 on bf16: the four shapes of ResNet-50's 12 identity blocks at batch 32
+# (stage 1: 2 blocks, stage 2: 3, stage 3: 5, stage 4: 2), a cap, ragged
+# widths, and a block whose 3x3 splits K
+BF16_BLOCK_FUSED_CASES = [(label.replace(")", f") x{n}", 1), *rest) for (label, *rest), n in
+                          zip(BLOCK_FUSED_CASES[:4], (2, 3, 5, 2))] + BLOCK_FUSED_CASES[4:]
+
 # the split-K GEMMs, the FC backward and the BN statistics, run twice per
 # case and held to the same bits
 REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments",
                   "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
-                  "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16")
+                  "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16",
+                  "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -300,6 +367,11 @@ KERNELS = {
     "matmul_bf16": (matmul, "LAUNCHES_BF16", 1, BF16_MATMUL_CASES),
     "matmul_bwd_bf16": (matmul, "BWD_LAUNCHES_BF16", 1, BF16_MATMUL_BWD_CASES),
     "moments_bf16": (bn, "LAUNCHES_BF16", 1, BF16_MOMENTS_CASES),
+    "fused_conv_bf16": (fused_conv, "LAUNCHES_BF16", 1, BF16_FUSED_CONV_CASES),
+    "fused_join_bf16": (fused_conv, "JOIN_LAUNCHES_BF16", 1, BF16_FUSED_JOIN_CASES),
+    "bias_act_bf16": (bn, "APPLY_LAUNCHES_BF16", 1, BF16_BIAS_ACT_CASES),
+    "bn_bwd_bf16": (bn, "BWD_LAUNCHES_BF16", 1, BF16_BN_BWD_CASES),
+    "block_fused_bf16": (block_fused, "LAUNCHES_BF16", 1, BF16_BLOCK_FUSED_CASES),
 }
 
 
@@ -538,6 +610,9 @@ def _bf16_case(kernel: str, case, randn) -> _Case:
     def r(*shape, scale=1.0, offset=0):
         return randn(*shape, scale=scale, offset=offset, dtype=bf)
 
+    def r_(shape, offset):
+        return r(*shape, offset=offset)
+
     if kernel.startswith("conv2d"):
         _, n, h, cin, cout, k, s = case
         ho = h // s
@@ -600,6 +675,29 @@ def _bf16_case(kernel: str, case, randn) -> _Case:
                      2 * m * c + 8 * c, 3 * m * c,
                      lambda: torch.var_mean(x, dim=0, unbiased=False),
                      lambda vm: (vm[1], vm[0]), bf16=True)
+    if kernel == "fused_conv":
+        return _fused_conv_case(case, randn, bf)
+    if kernel == "fused_join":
+        _, shape, offset, cap = case
+        c = shape[-1]
+        e, r = r_(shape, offset), r_(shape, offset)
+        se, sr = 1 + randn(c, scale=0.2), 1 + randn(c, scale=0.2)
+        te, tr = randn(c, scale=0.2), randn(c, scale=0.2)
+        return _Case(lambda: fused_conv.fused_join(e, se, te, r, sr, tr, cap),
+                     lambda: fused_conv.fused_join_reference(e, se, te, r, sr, tr, cap),
+                     6 * e.numel() + 16 * c, 6 * e.numel(), bf16=True)
+    if kernel == "bias_act":
+        _, shape, relu, cap, offset = case
+        c = shape[-1]
+        x = r_(shape, offset)
+        scale, shift = 1 + randn(c, scale=0.2), randn(c, scale=0.5)
+        return _Case(lambda: fused.bias_act(x, scale, shift, relu, cap),
+                     lambda: bn.bn_apply_reference(x, scale, shift, relu=relu, cap=cap),
+                     4 * x.numel() + 8 * c, 4 * x.numel(), bf16=True)
+    if kernel == "bn_bwd":
+        return _bn_bwd_case(case, randn, bf)
+    if kernel == "block_fused":
+        return _block_fused_case(case, randn, bf)
     raise ValueError(f"unknown bf16 kernel {kernel!r}")
 
 
@@ -613,22 +711,26 @@ def bf16_slack(want: torch.Tensor) -> torch.Tensor:
     return torch.where(w > 0, torch.ldexp(torch.ones_like(w), e - 8), torch.zeros_like(w))
 
 
-def _fused_conv_case(case, randn) -> _Case:
+def _fused_conv_case(case, randn, dtype=torch.float32) -> _Case:
+    """K8 in fp32 (3 TF32 products per FLOP) or bf16 (x and w bf16, the
+    rows fp32)."""
     label, n, h, cin, cout, k, s, prologue, cap = case
     ho = h // s
     exact = label.startswith("halo")
+    bf16 = dtype is torch.bfloat16
     if exact:
         # u = relu(x * 0 + shift) = shift, an integer 1..3 on every channel,
         # times weights in {-1, 0, 1}: every y, y^2 and sum is an integer
         # below 2^24, exact in fp32 in any order and in TF32's split (lo =
-        # 0). A halo tap that became act(shift) moves an edge output by >= 1.
-        x = randn(n, h, h, cin)
-        w = torch.round(randn(k, k, cin, cout)).clamp(-1.0, 1.0)
+        # 0); in bf16 both sides round the same exact fp32 y. A halo tap
+        # that became act(shift) moves an edge output by >= 1.
+        x = randn(n, h, h, cin).to(dtype)
+        w = torch.round(randn(k, k, cin, cout)).clamp(-1.0, 1.0).to(dtype)
         scale = torch.zeros_like(randn(cin))
         shift = 1.0 + torch.round(randn(cin).abs()).clamp(0.0, 2.0)
     else:
-        x = randn(n, h, h, cin)
-        w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
+        x = randn(n, h, h, cin).to(dtype)
+        w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5).to(dtype)
         # shift > 0 on about half the channels: relu(shift) must not reach the halo
         scale, shift = 1 + randn(cin, scale=0.2), randn(cin, scale=0.5)
     args = (x, w, scale, shift, s, None, prologue, True, cap)
@@ -637,44 +739,105 @@ def _fused_conv_case(case, randn) -> _Case:
         y, sums = out
         return y, sums[0], sums[1]
 
+    flops = 2 * n * ho * ho * k * k * cin * cout
     return _Case(lambda: split(fused_conv.fused_conv(*args)),
                  lambda: split(fused_conv.fused_conv_reference(*args)),
-                 4 * (x.numel() + w.numel() + n * ho * ho * cout + 2 * cin + 2 * cout),
-                 3 * 2 * n * ho * ho * k * k * cin * cout,
+                 x.element_size() * (x.numel() + w.numel() + n * ho * ho * cout)
+                 + 4 * (2 * cin + 2 * cout),
+                 flops if bf16 else 3 * flops,
                  lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s,
                                   padding=k // 2),
-                 library_same=False, peak=TF32_FLOPS_PER_S, exact=exact)
+                 library_same=False, peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S,
+                 exact=exact, bf16=bf16)
 
 
-def _block_fused_case(case, randn) -> _Case:
+def _block_fused_staged(args, got):
+    """K10's plain version stage by stage, each stage on the kernel's own
+    results of the stage before (``got``, block_fused_forward's output):
+    stage 0 from x, stage 1 from the kernel's r and (sc_r, sh_r), stage 2
+    from its s and (sc_s, sh_s), the join from its e and (sc_e, sh_e); each
+    stage's rows from its own plain sums. In bf16 an intermediate one ulp
+    apart (two fp32 sums rounded after different orders) moves the next
+    stage by that ulp times the following BN's scale, several of that
+    stage's ulps where it cancels; held stage by stage, each output is one
+    rounding from its plain value. Returns what block_fused_reference does."""
+    from ..ops.conv import conv2d
+
+    x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap = args
+    _, r_k, s_k, e_k, _, _, _, aff = got
+    n, h, wd, c4 = x.shape
+    c, m, dt = w1.shape[1], n * h * wd, x.dtype
+
+    def stage(a, w, shape, gamma, beta):
+        y = (a.reshape(m, -1).float() @ w.to(dt).float()).reshape(shape)
+        sums = fused_conv.channel_sums(y)
+        return y.to(dt), sums, fused_conv.bn_affine_from_sums(sums, gamma, beta, m, eps)
+
+    def act(a, sc, sh):
+        v = torch.clamp_min(a.float() * sc + sh, 0.0)
+        return (v if cap is None else torch.clamp_max(v, cap)).to(dt)
+
+    r, sums_r, rows_r = stage(x, w1, (n, h, wd, c), g1, b1)
+    s_f = conv2d(act(r_k, *aff[:2]).float(), w2.to(dt).float(), padding=((1, 1), (1, 1)))
+    sums_s = fused_conv.channel_sums(s_f)
+    rows_s = fused_conv.bn_affine_from_sums(sums_s, g2, b2, m, eps)
+    e, sums_e, rows_e = stage(act(s_k, *aff[2:4]), w3, (n, h, wd, c4), g3, b3)
+    out = torch.clamp_min(e_k.float() * aff[4] + aff[5] + x.float(), 0.0)
+    out = (out if cap is None else torch.clamp_max(out, cap)).to(dt)
+    return (out, r, s_f.to(dt), e, sums_r, sums_s, sums_e, (*rows_r, *rows_s, *rows_e))
+
+
+def _block_fused_case(case, randn, dtype=torch.float32) -> _Case:
+    """K10 in fp32 (3 TF32 products per FLOP, held to the plain version of
+    the whole block) or bf16 (x and the weights bf16, γ and β fp32, held
+    stage by stage, ``_block_fused_staged``)."""
     _, (n, h, w, c4), c, cap = case
-    x = torch.clamp_min(randn(n, h, w, c4), 0.0)  # a block's input is a ReLU's output
-    ws = (randn(c4, c, scale=(2.0 / c4) ** 0.5), randn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5),
-          randn(c, c4, scale=(2.0 / c) ** 0.5))
+    bf16 = dtype is torch.bfloat16
+    # a block's input is a ReLU's output
+    x = torch.clamp_min(randn(n, h, w, c4), 0.0).to(dtype)
+    ws = (randn(c4, c, scale=(2.0 / c4) ** 0.5).to(dtype),
+          randn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5).to(dtype),
+          randn(c, c4, scale=(2.0 / c) ** 0.5).to(dtype))
     # shift > 0 on about half the channels: relu(shift) must not reach the halo
     rows = [t for width in (c, c, c4) for t in (1 + randn(width, scale=0.2),
                                                 randn(width, scale=0.5))]
     args = (x, *ws, *rows, 1e-7, cap)
+    saved = {}
 
     def split(out):
         # out, r, s, e; each sum row on its own; the six affine rows
         *acts, sums_r, sums_s, sums_e, aff = out
         return (*acts, *sums_r, *sums_s, *sums_e, *aff)
 
+    def run():
+        saved["got"] = block_fused.block_fused_forward(*args)
+        return split(saved["got"])
+
+    def plain():
+        if bf16:
+            return split(_block_fused_staged(args, saved["got"]))
+        return split(block_fused.block_fused_reference(*args))
+
     m = n * h * w
     row_floats = 2 * (4 * c + 2 * c4)  # gamma, beta in; the six rows out
-    return _Case(lambda: split(block_fused.block_fused_forward(*args)),
-                 lambda: split(block_fused.block_fused_reference(*args)),
-                 4 * (2 * m * c4 + 2 * m * c + m * c4 + sum(t.numel() for t in ws)
-                      + row_floats + 2 * (2 * c + c4)),
-                 3 * 2 * m * (2 * c4 * c + 9 * c * c), peak=TF32_FLOPS_PER_S)
+    flops = 2 * m * (2 * c4 * c + 9 * c * c)
+    return _Case(run, plain,
+                 x.element_size() * (2 * m * c4 + 2 * m * c + m * c4
+                                     + sum(t.numel() for t in ws))
+                 + 4 * (row_floats + 2 * (2 * c + c4)),
+                 flops if bf16 else 3 * flops,
+                 timed=(lambda: block_fused.block_fused_forward(*args),
+                        lambda: block_fused.block_fused_reference(*args)),
+                 peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S, bf16=bf16)
 
 
-def _bn_bwd_case(case, randn) -> _Case:
+def _bn_bwd_case(case, randn, dtype=torch.float32) -> _Case:
+    """batch_norm_act forward and backward (K4, K5, K6) on fp32 or bf16 x,
+    γ and β fp32."""
     _, m, c, relu = case
-    x = randn(m, c) * 2.0 + randn(1, c)
+    x = (randn(m, c) * 2.0 + randn(1, c)).to(dtype)
     gamma, beta = 1 + randn(c, scale=0.2), randn(c, scale=0.5)
-    dy = randn(m, c)
+    dy = randn(m, c).to(dtype)
     eps = 1e-7
     mean, var = bn.moments_reference(x)
     inv = torch.rsqrt(var + eps)
@@ -704,12 +867,13 @@ def _bn_bwd_case(case, randn) -> _Case:
     # x and dy read, dx written; dx needs s1 and s2 over all rows, so x and
     # dy are read again after the reduction finishes, and only what the L2
     # still holds of them (50 MB) is spared that second read
-    nbytes = 4 * (3 * m * c + max(0.0, 2 * m * c - L2_BYTES / 4)) + 4 * 6 * c
+    el = x.element_size()
+    nbytes = el * (3 * m * c + max(0.0, 2 * m * c - L2_BYTES / el)) + 4 * 6 * c
     return _Case(run, plain, nbytes, 10 * m * c, library,
                  timed=(lambda: bn.bn_bwd(x, dy, mean, inv, gamma, beta, relu=relu),
                         lambda: bn.bn_bwd_reference(x, dy, mean, inv, gamma, beta,
                                                     relu=relu)),
-                 library_covers=slice(1, None))
+                 library_covers=slice(1, None), bf16=dtype is torch.bfloat16)
 
 
 def _adam_case(case, randn, device) -> _Case:
@@ -809,7 +973,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
     got, want = _outputs(c.run()), _outputs(c.plain())
     torch.cuda.synchronize()
     err, rel = 0.0, 0.0
-    for gt, wt in zip(got, want, strict=True):
+    for i, (gt, wt) in enumerate(zip(got, want, strict=True)):
         if gt.shape != wt.shape:
             raise RuntimeError(f"{kernel} {case[0]}: shape {tuple(gt.shape)} "
                                f"vs plain {tuple(wt.shape)}")
@@ -822,10 +986,14 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
             over = diff - bf16_slack(wt[finite]) - BF16_REL_TOL * scale
             if finite.any() and over.max().item() > 0:
                 raise RuntimeError(
-                    f"{kernel} {case[0]}: {int((over > 0).sum())} elements beyond one bf16 "
+                    f"{kernel} {case[0]} output {i}: {int((over > 0).sum())} elements beyond "
+                    "one bf16 "
                     f"ulp + {BF16_REL_TOL} of max|plain| = {scale} (worst by "
                     f"{over.max().item()})")
             d = diff.max().item() if finite.any() else 0.0
+            if c.exact and not torch.equal(gt, wt):
+                raise RuntimeError(f"{kernel} {case[0]}: not equal to the plain version "
+                                   f"bit for bit (max|kernel - plain| = {d})")
             err, rel = max(err, d), max(rel, d / scale if scale else d)
             continue
         d = (gt[finite] - wt[finite]).abs().max().item() if finite.any() else 0.0

@@ -1,4 +1,5 @@
-// K10, the whole-block kernel, fp32 in, out and accumulator.
+// K10, the whole-block kernel: fp32 in, out and accumulator, or bf16 in
+// and out with fp32 accumulators (rt_block_fused_bf16, the bf16 section).
 //
 // Replaces resnet_tpu/kernels/block_fused.py:60 _block_kernel (its
 // pallas_call at :289, public function block_fused at :393): one stride-1
@@ -68,6 +69,26 @@
 //   tiles of stage 1 (Cout = 64) keep two blocks resident per SM;
 // * few tiles (stage 4: 13 row tiles at M = 1,568): K splits planned by
 //   build.wg_split in waves of resident blocks.
+
+// bf16 (rt_block_fused_bf16): what _block_fused_fwd_jnp, the kernel's
+// mirror, computes for bf16 inputs (block_fused.py:202-254): each stage's
+// GEMM takes bf16 operands into an fp32 accumulator, its sums come from
+// that fp32 accumulator, and r, s and e are rounded to bf16 once; the
+// prologues run on the rounded values in fp32 and round u and v to bf16
+// before the next product; the (sc, sh) rows are fp32 (gamma and beta cast
+// by the wrapper, as `row` does at :281, :317); the join rounds out once. The
+// same one host call on the caller's stream with no host sync: per stage
+// K8-bf16's GEMM (fused_conv.cuh fused_gemm_bf16: bf16_gemm.cuh's
+// mma.sync core, loader FusedConvBfA with the prologue from the
+// device-side rows, the statistics epilogue or the split sum's) and the
+// rows kernel tile_sums_affine, then K9-bf16's body with an identity
+// residual. The weights come in bf16 (the wrapper casts fp32 parameters to
+// x's dtype, block_fused.py:316), so there is no tf32 split. Bound at
+// batch 32: 14 GFLOP per block at 989 TFLOP/s dense bf16 is 0.014 ms;
+// the bytes are half the fp32 ones above: 0.092 ms at stage 1 (C = 64),
+// 0.046 at stage 2, 0.023 at stage 3, all bound by bytes, and 0.0115 at
+// stage 4, bound by operations. wgmma with TMA, which takes MN-major bf16
+// operands, is the design for a later PR.
 
 #include "fused_conv.cuh"
 #include "wg_gemm.cuh"
@@ -144,6 +165,21 @@ inline int stage(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, f
   return (int)cudaGetLastError();
 }
 
+// One bf16 stage: y (M, N) bf16 of the conv gathered by `a` with w (K, N)
+// bf16 row-major, its sums (2, N) from the fp32 accumulator and the
+// (scale, shift) rows of the BN that follows; part and ws as stage's.
+inline int stage_bf16(const FusedConvBfA& a, const uint16_t* w, uint16_t* y, float* part,
+                      float* sums, const float* gamma, const float* beta, float* scale,
+                      float* shift, int N, float* ws, int splits, float m, float eps,
+                      cudaStream_t s) {
+  const int status = fused_gemm_bf16(a, w, y, part, N, ws, splits, s);
+  if (status != 0) return status;
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  tile_sums_affine<<<(unsigned)((N + CT - 1) / CT), dim3(CT, FL), 0, s>>>(
+      part, sums, gamma, beta, scale, shift, N, m_tiles, m, eps);
+  return (int)cudaGetLastError();
+}
+
 // the split's row stride: K rounded up to a multiple of 4 floats (TMA takes
 // 16-byte row strides)
 inline int kmajor_ld(int K) { return (K + 3) / 4 * 4; }
@@ -213,4 +249,50 @@ extern "C" int rt_block_fused_f32(const float* x, const float* w1, const float* 
 
   // stage 3: bn_e's affine, the identity residual, ReLU and the cap
   return launch_join(e, x, out, (int64_t)N * H * W * C4, C4, JoinIdentity{sc_e, sh_e, act}, st);
+}
+
+// One bottleneck block on bf16 tensors: x, w1, w2, w3, out, r, s and e as
+// rt_block_fused_f32's but bf16; g1, b1, g2, b2, g3, b3, the sums and rows
+// fp32; part holds ceil(M / 128) * 2 * max(C, C4) floats, ws the largest
+// splits_i * M * Cout_i floats over the stages whose splits_i > 1.
+extern "C" int rt_block_fused_bf16(const __nv_bfloat16* x, const uint16_t* w1,
+                                   const uint16_t* w2, const uint16_t* w3, const float* g1,
+                                   const float* b1, const float* g2, const float* b2,
+                                   const float* g3, const float* b3, __nv_bfloat16* out,
+                                   uint16_t* r, uint16_t* s, __nv_bfloat16* e, float* sums_r,
+                                   float* sums_s, float* sums_e, float* rows, float* part,
+                                   float* ws, int N, int H, int W, int C4, int C, float eps,
+                                   int has_cap, float cap, int splits0, int splits1,
+                                   int splits2, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Act act{true, has_cap != 0, cap};
+  const float m = (float)((int64_t)N * H * W);
+  float* sc_r = rows;
+  float* sh_r = rows + C;
+  float* sc_s = rows + 2 * C;
+  float* sh_s = rows + 3 * C;
+  float* sc_e = rows + 4 * C;
+  float* sh_e = rows + 4 * C + C4;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  uint16_t* eb = reinterpret_cast<uint16_t*>(e);
+
+  // stage 0: the 1x1 reduce, no prologue
+  int status = stage_bf16(
+      conv_loader_bf16(xb, nullptr, nullptr, N, H, W, C4, 1, 1, 0, 0, H, W, false, act), w1,
+      r, part, sums_r, g1, b1, sc_r, sh_r, C, ws, splits0, m, eps, st);
+  if (status != 0) return status;
+
+  // stage 1: bn_r's affine and ReLU in the gather, the 3x3 with padding 1
+  status = stage_bf16(conv_loader_bf16(r, sc_r, sh_r, N, H, W, C, 3, 1, 1, 1, H, W, true, act),
+                      w2, s, part, sums_s, g2, b2, sc_s, sh_s, C, ws, splits1, m, eps, st);
+  if (status != 0) return status;
+
+  // stage 2: bn_s's affine and ReLU in the gather, the 1x1 expand
+  status = stage_bf16(conv_loader_bf16(s, sc_s, sh_s, N, H, W, C, 1, 1, 0, 0, H, W, true, act),
+                      w3, eb, part, sums_e, g3, b3, sc_e, sh_e, C4, ws, splits2, m, eps, st);
+  if (status != 0) return status;
+
+  // stage 3: bn_e's affine, the identity residual, ReLU and the cap
+  return launch_join(static_cast<const __nv_bfloat16*>(e), x, out, (int64_t)N * H * W * C4,
+                     C4, JoinIdentity{sc_e, sh_e, act}, st);
 }

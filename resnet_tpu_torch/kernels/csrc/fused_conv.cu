@@ -1,4 +1,5 @@
-// The fused engine's conv and residual join, fp32 in, out and accumulator.
+// The fused engine's conv and residual join: fp32 in, out and accumulator,
+// or bf16 in and out with an fp32 accumulator (the bf16 section below).
 //
 // K8 replaces resnet_tpu/kernels/fused_conv.py::_fused_conv_kernel (public
 // function fused_conv):
@@ -42,6 +43,19 @@
 // statistics 2 per output, both under 2% of the GEMM. K9 is bound by device
 // memory (8 bytes read, 4 written per element). wgmma/TMA tiling and
 // folding K9 into the expand conv's epilogue are later work.
+//
+// bf16 (rt_fused_conv_bf16, rt_fused_join_bf16): what the Pallas kernels
+// compute for bf16 inputs. K8: the prologue on the upcast input in fp32,
+// rounded to bf16 before the dot (fused_conv.py:61-76), the weight cast to
+// x's dtype by the wrapper (:215), bf16 products into an fp32 accumulator,
+// y rounded once (:108), [sum y, sum y^2] from the fp32 accumulator, not
+// from the rounded y (:109-110); on bf16_gemm.cuh's mma.sync core with the
+// loader FusedConvBfA and its statistics epilogue (fused_conv.cuh). When K
+// splits, the statistics come from the fp32 split sum before its rounding
+// (splitk_sum_stats_bf16): a column pass over the rounded y would give the
+// statistics of the torch-ops chain, not K8's. K9: e and r upcast, fp32
+// arithmetic, one rounding (:506-513). Bound: K8 by operations at 989
+// TFLOP/s dense bf16, K9 by bytes (4 read, 2 written per element).
 //
 // K8's GEMM kernels are here; the gather, the statistics passes and the
 // join live in fused_conv.cuh, shared with K10 (csrc/block_fused.cu).
@@ -144,6 +158,39 @@ extern "C" int rt_fused_conv_f32(const float* x, const float* w, const float* sc
 extern "C" int rt_fused_join_f32(const float* e, const float* r, const float* se,
                                  const float* te, const float* sr, const float* tr, float* o,
                                  int64_t n, int C, int has_cap, float cap, void* stream) {
+  return launch_join(e, r, o, n, C, JoinRows{se, te, sr, tr, Act{true, has_cap != 0, cap}},
+                     (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------- bf16
+
+// The bf16 fused conv: x (N, H, W, Cin) and w (k, k, Cin, Cout) bf16, scale
+// and shift Cin floats, y (N, Ho, Wo, Cout) bf16, sums (2, Cout) fp32; part,
+// ws and the window as rt_fused_conv_f32's.
+extern "C" int rt_fused_conv_bf16(const uint16_t* x, const uint16_t* w, const float* scale,
+                                  const float* shift, uint16_t* y, float* part, float* sums,
+                                  int N, int H, int W, int Cin, int Cout, int k, int stride,
+                                  int pad_top, int pad_left, int Ho, int Wo, int prologue,
+                                  int relu, int has_cap, float cap, float* ws, int splits,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const FusedConvBfA a =
+      conv_loader_bf16(x, scale, shift, N, H, W, Cin, k, stride, pad_top, pad_left, Ho, Wo,
+                       prologue != 0, Act{relu != 0, has_cap != 0, cap});
+  const int status = fused_gemm_bf16(a, w, y, part, Cout, ws, splits, s);
+  if (status != 0) return status;
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  tile_sums_final<<<(unsigned)((Cout + CT - 1) / CT), dim3(CT, FL), 0, s>>>(part, sums, Cout,
+                                                                           m_tiles);
+  return (int)cudaGetLastError();
+}
+
+// out = bf16(clip(relu(e * se + te + r * sr + tr))) over n bf16 elements of
+// (n / C, C) views, in fp32; se, te, sr and tr hold C floats.
+extern "C" int rt_fused_join_bf16(const __nv_bfloat16* e, const __nv_bfloat16* r,
+                                  const float* se, const float* te, const float* sr,
+                                  const float* tr, __nv_bfloat16* o, int64_t n, int C,
+                                  int has_cap, float cap, void* stream) {
   return launch_join(e, r, o, n, C, JoinRows{se, te, sr, tr, Act{true, has_cap != 0, cap}},
                      (cudaStream_t)stream);
 }

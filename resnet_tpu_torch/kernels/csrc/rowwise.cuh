@@ -5,8 +5,14 @@
 // The passes are grid-stride loops. Instead of a 64-bit modulo per element,
 // each thread computes its first channel once and then advances it by the
 // loop's stride mod C on every iteration.
+//
+// Each pass is one template over its storage type, float or __nv_bfloat16:
+// a value is read into a float (ld, Vec16::load), all arithmetic is fp32,
+// and a result is rounded once as it is stored (st, Vec16::store). Vec16
+// moves 16 bytes at a time: four floats or eight bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,5 +56,53 @@ struct Act {
     return v;
   }
 };
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// 16 bytes of T at a 16-byte aligned p, as N floats
+template <class T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float (&v)[N]) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+  __device__ static void store(float* p, const float (&v)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace rt

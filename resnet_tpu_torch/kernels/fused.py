@@ -17,10 +17,11 @@ ones, ``LAUNCHES_BF16`` and ``MASK_LAUNCHES_BF16`` the bf16 ones.
 
 ``bias_act(x, scale, shift, relu=True, cap=None)`` is the port of
 resnet_tpu.kernels.fused.bias_act: clip(relu(x · scale + shift)) with (C,)
-rows over the last dimension. Its forward is K5 (``bn.bn_apply``, counted by
-``bn.APPLY_LAUNCHES``) on the (rows, C) view; its backward is torch ops, the
-formula of fused.py:104-117 (``bn.bn_apply_bwd``), as the JAX package has
-no kernel there either.
+rows over the last dimension, x fp32 or bf16 (fp32 arithmetic, one
+rounding to x's dtype). Its forward is K5 (``bn.bn_apply``, counted by
+``bn.APPLY_LAUNCHES`` or ``bn.APPLY_LAUNCHES_BF16``) on the (rows, C) view;
+its backward is torch ops, the formula of fused.py:104-117
+(``bn.bn_apply_bwd``), as the JAX package has no kernel there either.
 """
 
 from __future__ import annotations
@@ -100,7 +101,6 @@ def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class _BiasAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, shift, relu, cap):
-        build.refuse_bf16("bias_act", x, scale, shift)
         ctx.relu, ctx.cap = relu, cap
         ctx.save_for_backward(x, scale, shift)
         c = x.shape[-1]
@@ -116,5 +116,6 @@ class _BiasAct(torch.autograd.Function):
 def bias_act(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
              relu: bool = True, cap=None) -> torch.Tensor:
     """clip(relu(x · scale + shift)), scale and shift (C,) over the last
-    dimension of a contiguous fp32 x; differentiable in all three."""
+    dimension of a contiguous fp32 or bf16 x, in x's dtype; differentiable
+    in all three."""
     return _BiasAct.apply(x, scale, shift, relu, cap)

@@ -24,16 +24,35 @@ precision there (fused_conv.py:419-422), which the port does not copy.
 
 ``conv_chain`` is the same contract in torch ops with the closed-form
 backward over the saved u (``conv_chain_xla``, fused_conv.py:431-499): the
-``fusedxla`` and ``hybrid`` engines' conv sites. Its value function is K8's
-plain version.
+``fusedxla`` and ``hybrid`` engines' conv sites.
 
 ``fused_join(e, se, te, r, sr, tr, cap)`` is clip(relu(e·se + te + r·sr + tr))
 with (C,) rows, K9 (``rt_fused_join_f32``) on CUDA tensors and
 ``fused_join_reference`` on CPU ones; its backward is torch ops
 (fused_conv.py:558-575). ``bn_affine_from_sums`` turns sums into the next
-prologue's (scale, shift) in torch ops, which autograd differentiates.
+prologue's (scale, shift) in torch ops, which autograd differentiates; γ
+and β are taken to fp32 first (fused_conv.py:581-589).
 
-``LAUNCHES`` counts K8 launches, ``JOIN_LAUNCHES`` K9.
+bf16 data: K8 and K9 take bf16 x, e and r as the Pallas kernels do, with
+fp32 per-channel rows (``build.rows_f32``) and the weight cast to x's
+dtype (fused_conv.py:215): ``rt_fused_conv_bf16`` runs the prologue in
+fp32 on the upcast x and rounds u to bf16 before the dot (:61-76), takes
+bf16 products into an fp32 accumulator, rounds y once (:108) and takes
+[Σy, Σy²] from the fp32 accumulator (:109-110); ``rt_fused_join_bf16``
+computes in fp32 on the upcast e and r and rounds once (:506-513). The
+plain versions round at the same points: ``fused_conv_reference``
+convolves the rounded u and the bf16 weight in fp32 (a bf16 product is
+exact in fp32), takes the sums, then rounds y. In fp32 it is the chain's
+value function; in bf16 the two differ, by design: the chain
+(``_chain_xla_value``, :431-458) convolves in bf16 and takes its sums from
+the rounded y. The backward follows JAX's rounding points (:358-399): the
+output gradient with the sums' cotangents folded in is formed in fp32 from
+the upcast dy and the rounded y and rounded to u's dtype before the conv
+VJP; dW is cast to w's dtype, the prologue's dx to x's, dscale and dshift
+to the rows' dtype; the join's to e's, r's and the rows' (:558-575).
+
+``LAUNCHES`` counts K8 launches, ``JOIN_LAUNCHES`` K9; ``LAUNCHES_BF16``
+and ``JOIN_LAUNCHES_BF16`` the bf16 ones.
 """
 
 from __future__ import annotations
@@ -50,6 +69,8 @@ from . import bn, build
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
 JOIN_LAUNCHES = 0
+LAUNCHES_BF16 = 0
+JOIN_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 
 Padding = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -70,17 +91,19 @@ def _out_dim(n: int, pad: Tuple[int, int], k: int, s: int) -> int:
 
 
 def bn_affine_from_sums(sums, gamma, beta, m: int, eps: float):
-    """(scale, shift) of BN from per-channel [Σy, Σy²] over m rows
-    (fused_conv.py:581-589)."""
+    """(scale, shift) of BN from per-channel [Σy, Σy²] over m rows, fp32
+    whatever gamma's and beta's dtype (fused_conv.py:581-589)."""
     mean, var = bn.mean_var_from_sums(sums[0], sums[1], m)
     inv = torch.rsqrt(var + eps)
-    scale = gamma * inv
-    shift = beta - scale * mean
+    scale = gamma.float() * inv
+    shift = beta.float() - scale * mean
     return scale, shift
 
 
 def channel_sums(y):
-    """[Σy, Σy²] per channel of an NHWC tensor, (2, C)."""
+    """[Σy, Σy²] per channel of an NHWC tensor, (2, C), in fp32 on the
+    upcast y."""
+    y = y.float()
     return torch.stack([y.sum(_NHWC_AXES), (y * y).sum(_NHWC_AXES)])
 
 
@@ -114,9 +137,13 @@ def _conv_vjp(u, w, g, stride: int, padding: Padding, needs_du: bool):
 def _conv_contract_bwd(u, x, w, scale, shift, y, dy, dsums, *, stride: int,
                        padding: Padding, prologue: bool, relu: bool, cap, needs_dx: bool):
     """The closed-form backward of the (prologue, conv, statistics) contract
-    shared by ``fused_conv`` and ``conv_chain`` (fused_conv.py:358-399)."""
-    dy_tot = dy + dsums[0] + 2.0 * dsums[1] * y
-    du, dw = _conv_vjp(u, w, dy_tot, stride, padding, needs_dx or prologue)
+    shared by ``fused_conv`` and ``conv_chain`` (fused_conv.py:358-399),
+    with its rounding points: dy_tot in fp32 from the upcast dy and y,
+    rounded to u's dtype; dW to w's dtype; the prologue's dx to x's, dscale
+    and dshift to the rows'."""
+    dy_tot = (dy.float() + dsums[0] + 2.0 * dsums[1] * y.float()).to(u.dtype)
+    du, dw = _conv_vjp(u, w.to(u.dtype), dy_tot, stride, padding, needs_dx or prologue)
+    dw = dw.to(w.dtype)
     if prologue:
         # the prologue's backward (fused_conv.py:219-236)
         dx, dscale, dshift = bn.bn_apply_bwd(x, du, scale, shift, relu=relu, cap=cap)
@@ -125,20 +152,24 @@ def _conv_contract_bwd(u, x, w, scale, shift, y, dy, dsums, *, stride: int,
     return dx, dw, dscale, dshift
 
 
-def _chain_value(x, w, scale, shift, stride, padding, prologue, relu, cap):
-    """(y, sums, u) of the contract in torch ops (fused_conv.py:431-458)."""
+def _chain_value(x, w, scale, shift, stride, prologue, relu, cap):
+    """(y, sums, u) of the contract in torch ops (fused_conv.py:431-458): u
+    rounded to x's dtype, the conv in that dtype, the sums of the rounded y."""
     u = _prologue(x, scale, shift, relu, cap) if prologue else x
-    y = _plain_conv2d(u, w, stride=stride, padding=padding)
+    y = _plain_conv2d(u, w, stride=stride)
     return y, channel_sums(y), u
 
 
 def fused_conv_reference(x, w, scale, shift, stride: int = 1,
                          padding: Optional[Padding] = None, prologue: bool = True,
                          relu: bool = True, cap=None):
-    """Plain version of K8: the prologue, ``ops.conv.conv2d`` (cuDNN on the
-    card: TF32 must be off to compare), and the two sums in torch."""
-    y, sums, _ = _chain_value(x, w, scale, shift, stride, padding, prologue, relu, cap)
-    return y, sums
+    """Plain version of K8: the prologue rounded to x's dtype, the conv of
+    that u and the weight in x's dtype computed in fp32 (``ops.conv.conv2d``,
+    cuDNN on the card: TF32 must be off to compare), the two sums of the
+    fp32 y, then y rounded once to x's dtype."""
+    u = _prologue(x, scale, shift, relu, cap) if prologue else x
+    y = _plain_conv2d(u.float(), w.to(x.dtype).float(), stride=stride, padding=padding)
+    return y.to(x.dtype), channel_sums(y)
 
 
 def _check(x, w, scale, shift, stride, prologue):
@@ -152,9 +183,9 @@ def _check(x, w, scale, shift, stride, prologue):
 
 
 def _forward(x, w, scale, shift, stride, padding, prologue, relu, cap):
-    global LAUNCHES
-    build.refuse_bf16("fused_conv", x, w, scale, shift)
-    if not build.on_card("fused_conv", x, w, scale, shift):
+    w = w.to(x.dtype)  # the weight in x's dtype (fused_conv.py:215)
+    scale, shift = build.rows_f32(scale, shift)
+    if not build.on_card("fused_conv", x, w, rows=(scale, shift)):
         return fused_conv_reference(x, w, scale, shift, stride, padding, prologue, relu, cap)
     n, h, wd, cin = x.shape
     k, cout = w.shape[0], w.shape[3]
@@ -172,12 +203,12 @@ def _forward(x, w, scale, shift, stride, padding, prologue, relu, cap):
                        device=x.device)
     splits = build.tc_split(m, cout, k * k * cin)
     ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
-    build.launch("rt_fused_conv_f32", x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                 shift.data_ptr(), y.data_ptr(), part.data_ptr(), sums.data_ptr(), n, h,
-                 wd, cin, cout, k, stride, ph[0], pw[0], ho, wo, int(prologue), int(relu),
-                 int(cap is not None), 0.0 if cap is None else float(cap), ws_ptr, splits,
-                 device=x.device)
-    LAUNCHES += 1
+    build.launch(build.entry_name("fused_conv", x), x.data_ptr(), w.data_ptr(),
+                 scale.data_ptr(), shift.data_ptr(), y.data_ptr(), part.data_ptr(),
+                 sums.data_ptr(), n, h, wd, cin, cout, k, stride, ph[0], pw[0], ho, wo,
+                 int(prologue), int(relu), int(cap is not None),
+                 0.0 if cap is None else float(cap), ws_ptr, splits, device=x.device)
+    build.count(__name__, "LAUNCHES", x)
     return y, sums
 
 
@@ -193,7 +224,8 @@ class _FusedConv(torch.autograd.Function):
     def backward(ctx, dy, dsums):
         x, w, scale, shift, y = ctx.saved_tensors
         stride, padding, prologue, relu, cap = ctx.args
-        # recompute u rather than keep it (fused_conv.py:407-416)
+        # recompute u rather than keep it (fused_conv.py:407-416), rounded to
+        # x's dtype
         u = _prologue(x, scale, shift, relu, cap) if prologue else x
         grads = _conv_contract_bwd(u, x, w, scale, shift, y, dy, dsums, stride=stride,
                                    padding=padding, prologue=prologue, relu=relu, cap=cap,
@@ -205,10 +237,11 @@ def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: tor
                stride: int = 1, padding: Optional[Padding] = None, prologue: bool = True,
                relu: bool = True, cap=None):
     """(y, sums): y = conv(clip(relu(x · scale + shift)), w) with the padding
-    held at 0, sums = [Σy, Σy²] (2, Cout). x (N, H, W, Cin) NHWC, w
-    (k, k, Cin, Cout) HWIO, scale and shift (Cin,) with the prologue;
-    ``padding`` ((top, bottom), (left, right)) or the reference's centred
-    windows. Differentiable in x, w, scale and shift."""
+    held at 0, sums = [Σy, Σy²] (2, Cout) fp32. x (N, H, W, Cin) NHWC fp32
+    or bf16 (y in its dtype), w (k, k, Cin, Cout) HWIO, cast to x's dtype,
+    scale and shift (Cin,) with the prologue; ``padding`` ((top, bottom),
+    (left, right)) or the reference's centred windows. Differentiable in x,
+    w, scale and shift."""
     _check(x, w, scale, shift, stride, prologue)
     return _FusedConv.apply(x, w, scale, shift, stride, padding, prologue, relu, cap)
 
@@ -216,7 +249,7 @@ def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: tor
 class _ConvChain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, shift, stride, prologue, relu, cap):
-        y, sums, u = _chain_value(x, w, scale, shift, stride, None, prologue, relu, cap)
+        y, sums, u = _chain_value(x, w, scale, shift, stride, prologue, relu, cap)
         ctx.args = (stride, _resolve_padding(x, w, stride, None), prologue, relu, cap)
         ctx.save_for_backward(x, w, scale, shift, y, u)
         return y, sums
@@ -243,23 +276,24 @@ def conv_chain(x, w, scale, shift, stride: int = 1, prologue: bool = True,
 
 
 def fused_join_reference(e, se, te, r, sr, tr, cap=None):
-    """Plain version of K9: e · se + te + r · sr + tr, ReLU, the cap."""
-    y = torch.clamp_min(e * se + te + r * sr + tr, 0.0)
-    return y if cap is None else torch.clamp_max(y, cap)
+    """Plain version of K9: e · se + te + r · sr + tr, ReLU, the cap, in fp32
+    on the upcast e and r, rounded once to e's dtype."""
+    y = torch.clamp_min(e.float() * se.float() + te.float() + r.float() * sr.float()
+                        + tr.float(), 0.0)
+    return (y if cap is None else torch.clamp_max(y, cap)).to(e.dtype)
 
 
 def _join_forward(e, se, te, r, sr, tr, cap):
-    global JOIN_LAUNCHES
-    build.refuse_bf16("fused_join", e, r, se, te, sr, tr)
-    if not build.on_card("fused_join", e, r, se, te, sr, tr):
-        return fused_join_reference(e, se, te, r, sr, tr, cap)
+    rows = build.rows_f32(se, te, sr, tr)
+    if not build.on_card("fused_join", e, r, rows=rows):
+        return fused_join_reference(e, *rows[:2], r, *rows[2:], cap)
     out = torch.empty_like(e)
     if e.numel():
-        build.launch("rt_fused_join_f32", e.data_ptr(), r.data_ptr(), se.data_ptr(),
-                     te.data_ptr(), sr.data_ptr(), tr.data_ptr(), out.data_ptr(), e.numel(),
-                     e.shape[-1], int(cap is not None), 0.0 if cap is None else float(cap),
+        build.launch(build.entry_name("fused_join", e), e.data_ptr(), r.data_ptr(),
+                     *(t.data_ptr() for t in rows), out.data_ptr(), e.numel(), e.shape[-1],
+                     int(cap is not None), 0.0 if cap is None else float(cap),
                      device=e.device)
-        JOIN_LAUNCHES += 1
+        build.count(__name__, "JOIN_LAUNCHES", e)
     return out
 
 
@@ -267,24 +301,31 @@ class _FusedJoin(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, se, te, r, sr, tr, cap):
         y = _join_forward(e, se, te, r, sr, tr, cap)
-        ctx.cap = cap
+        ctx.cap, ctx.shift_dtypes = cap, (te.dtype, tr.dtype)
         ctx.save_for_backward(e, se, r, sr, y)
         return y
 
     @staticmethod
     def backward(ctx, dy):
+        # in fp32 on the upcast values, each gradient cast to its input's
+        # dtype (fused_conv.py:558-575)
         e, se, r, sr, y = ctx.saved_tensors
-        gate = y > 0 if ctx.cap is None else (y > 0) & (y < ctx.cap)
-        dv = torch.where(gate, dy, torch.zeros_like(dy))
+        yf = y.float()
+        gate = yf > 0 if ctx.cap is None else (yf > 0) & (yf < ctx.cap)
+        dv = torch.where(gate, dy.float(), torch.zeros_like(yf))
         axes = tuple(range(e.dim() - 1))
         dt = dv.sum(axes)
-        return dv * se, (dv * e).sum(axes), dt, dv * sr, (dv * r).sum(axes), dt, None
+        te_dtype, tr_dtype = ctx.shift_dtypes
+        return ((dv * se.float()).to(e.dtype), (dv * e.float()).sum(axes).to(se.dtype),
+                dt.to(te_dtype), (dv * sr.float()).to(r.dtype),
+                (dv * r.float()).sum(axes).to(sr.dtype), dt.to(tr_dtype), None)
 
 
 def fused_join(e, se, te, r, sr, tr, cap=None):
     """clip(relu(e · se + te + r · sr + tr)): the residual join applying both
     pending BN affines, (C,) rows over the last dimension of two contiguous
-    fp32 tensors of one shape; differentiable in all six."""
+    tensors of one shape and dtype, fp32 or bf16 (the result in it);
+    differentiable in all six."""
     if e.shape != r.shape:
         raise ValueError(f"fused_join: shapes {tuple(e.shape)} and {tuple(r.shape)}")
     c = e.shape[-1]

@@ -22,10 +22,18 @@ Engines, per conv site (``_conv_site``):
     measurement on the card that shows a gain.
 
 ``models.resnet.forward`` routes here in training with NHWC, bn_mode
-'batch' and no ghost BN; every other case runs the standard path. K5, K8
-and K9 have no bf16 version yet, so bf16 compute or parameters raise
-NotImplementedError naming ROADMAP.md item A5b here, under all three
-engines.
+'batch' and no ghost BN; every other case runs the standard path.
+
+Dtypes as in resnet_tpu/models/fused_resnet.py:100-239: the images are
+cast to the compute dtype at the stem (:110); the stem's statistics are
+K4's fp32 ones and its affine rows fp32 from the upcast γ and β
+(:150-151); each site's weight is cast to the activation's dtype inside
+K8 or the chain, and its (scale, shift) rows are fp32
+(``bn_affine_from_sums``); the identity join's rows are fp32 ones and
+zeros (:193, :228); the logits are fp32 (:238). So under bf16 compute the
+stem runs K4, K5 and the max pool on bf16, every site K8 on bf16 (or the
+chain in bf16) and every join K9 on bf16; with bf16 parameters the
+weights are cast where JAX casts them.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..config import ROADMAP_BF16_ENGINES, ExecutionConfig, ModelConfig, not_ported
+from ..config import ExecutionConfig, ModelConfig
 from ..kernels import bn as _kbn
 from ..kernels.fused import bias_act
 from ..kernels.fused_conv import (
@@ -69,8 +77,6 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
     """Training forward of the fused engines on NHWC images: (fp32 logits,
     {"bn_stats": ...}) with the batch statistics of every BN layer, detached,
     in the tree of ``models.resnet.forward``."""
-    if "bfloat16" in (ecfg.compute_dtype, ecfg.param_dtype):
-        raise not_ported(f"kernels={ecfg.kernels!r} in bfloat16", ROADMAP_BF16_ENGINES)
     eps = mcfg.bn_eps
     cap = ecfg.relu_cap
     all_plain = ecfg.kernels == "fusedxla"
@@ -97,8 +103,8 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
     else:
         mean0, var0 = _kbn.moments(y0.reshape(-1, y0.shape[-1]))
     stats: Dict[str, Any] = {"init_bn": (mean0.detach(), var0.detach())}
-    sc0 = params["init_bn"]["gamma"] * torch.rsqrt(var0 + eps)
-    sh0 = params["init_bn"]["beta"] - sc0 * mean0
+    sc0 = params["init_bn"]["gamma"].float() * torch.rsqrt(var0 + eps)
+    sh0 = params["init_bn"]["beta"].float() - sc0 * mean0
     if all_plain:
         act0 = _kbn.bn_apply_reference(y0, sc0, sh0, relu=True, cap=cap)
     else:

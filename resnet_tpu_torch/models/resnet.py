@@ -68,10 +68,12 @@ the normalization runs in fp32 before its cast, ReLU and the cap run in the
 compute dtype, and the logits go to fp32 after the FC's bias. NCHW runs
 the plain ops on the NCHW tensors; the hand conv kernel takes them through
 a transpose to NHWC and back, and K4 is NHWC-only (``ops.dispatch``). The
-fused and whole-block routes need NHWC. In bf16 they raise
-NotImplementedError naming ROADMAP.md item A5b: K5, K6, K8, K9 and K10
-have no bf16 version yet. Runs that JAX sends down the standard path
-(NCHW, eval, ghost BN, frozen BN) do so here too, in bf16 as well.
+fused and whole-block routes need NHWC; they run in bf16 on the bf16
+entries of K4, K5, K8, K9 and K10, with the casts of JAX's routes
+(``models.fused_resnet``; the whole block's input cast to the compute
+dtype, its weights to it and its γ, β to fp32 inside ``block_fused``).
+Runs that JAX sends down the standard path (NCHW, eval, ghost BN, frozen
+BN) do so here too, in bf16 as well.
 
 ``capture=True`` returns the reference's activation tape in
 ``aux["activations"]``, keyed as JAX keys it (models/resnet.py:174-216,
@@ -87,8 +89,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import (ROADMAP_BF16_ENGINES, ROADMAP_GROUPED, ExecutionConfig, ModelConfig,
-                      not_ported)
+from ..config import ROADMAP_GROUPED, ExecutionConfig, ModelConfig, not_ported
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.batchnorm import batch_norm_ghost
 from ..ops.conv import channel_dim, conv2d
@@ -182,13 +183,10 @@ def _block_fused_eligible(bp, stride, mcfg, ecfg, train) -> bool:
 
 
 def _whole_block(bp, x, *, mcfg, ecfg):
-    """One stride-1 identity bottleneck through ``block_fused``; its batch
-    statistics from the kernel's sums, detached (models/resnet.py:143-168).
-    K10 has no bf16 version yet: bf16 raises (A5b)."""
+    """One stride-1 identity bottleneck through ``block_fused`` in the
+    compute dtype; its batch statistics from the kernel's sums, detached
+    (models/resnet.py:143-168)."""
     from ..kernels.block_fused import block_fused, bn_stats_from_sums
-
-    if "bfloat16" in (ecfg.compute_dtype, ecfg.param_dtype):
-        raise not_ported("kernels='blockfused' in bfloat16", ROADMAP_BF16_ENGINES)
 
     w1, w3 = bp["reduce"]["w"], bp["expand"]["w"]
     out, *sums = block_fused(

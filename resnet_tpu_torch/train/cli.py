@@ -9,8 +9,8 @@ and choices, and one more: ``--device {cuda,cpu}`` (default cuda) in place
 of JAX_PLATFORMS. Values the port does not run yet raise
 NotImplementedError naming their ROADMAP.md queue A item:
 ``--space-to-depth`` (A8), ``--int8`` (A9), and more than one device
-(A13); ``--kernels fused`` with ``--dtype bfloat16`` raises A5b at the
-first step. ``--export-dtype bfloat16`` casts the exported weights and
+(A13). ``--dtype bfloat16`` trains in bf16 under every ``--kernels``
+engine, the fused and whole-block ones included. ``--export-dtype bfloat16`` casts the exported weights and
 running statistics, as JAX's does. ``--no-mesh`` is accepted and changes nothing: the port runs one
 device. Two quirks of the JAX CLI are kept: ``--kernels`` offers
 xla|pallas|fused only, and under ``--variant`` only --shard-dir, --jpeg-dir

@@ -11,9 +11,12 @@
   parameters is byte-equal to JAX's and each package restores the other's.
 * Serving with ``weights_dtype='bfloat16'`` against JAX's export, and the
   CLI's ``--export-dtype bfloat16``.
-* A5b: a bf16 tensor that would reach K5, K6, K8, K9 or K10 raises
-  NotImplementedError naming ROADMAP.md item A5b; the same configurations
-  under NCHW or in eval run the standard path.
+* The fused and whole-block engines in bf16 (tests/test_torch_bf16_engines.py
+  holds them to JAX): with bf16 compute or bf16 parameters they train, and
+  match kernels='xla' where JAX's function is the same one (bf16
+  parameters under fp32 compute); the same configurations under NCHW or in
+  eval run the standard path. K5, K6, K8, K9 and K10's wrappers take bf16
+  data and return it.
 """
 
 import dataclasses
@@ -277,7 +280,7 @@ def test_cli_export_dtype_bfloat16(tmp_path):
     assert logits.dtype is torch.float32 and np.isfinite(logits.numpy()).all()
 
 
-# ----------------------------------------------------------------- A5b
+# ------------------------------------------- the fused and whole-block engines
 
 
 def _tiny_forward(ecfg, train=True, layout="NHWC"):
@@ -296,12 +299,55 @@ def _tiny_forward(ecfg, train=True, layout="NHWC"):
 ENGINES = ["fused", "hybrid", "fusedxla", "blockfused"]
 
 
+def _engine_step(ecfg):
+    """Two Adam steps (lr 1e-3) of the tiny model with two identity blocks
+    on one seeded batch: (the first step's summed loss and logits from
+    loss_and_grads, the two steps' losses, the parameters before and after)."""
+    from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
+
+    cfg = tcfg.TrainConfig(model=tcfg.tiny_model_config(block_sizes=(2, 2)), execution=ecfg,
+                           optimizer=tcfg.OptimizerConfig(learning_rate=1e-3))
+    state = init_train_state(cfg, torch.Generator().manual_seed(5), device="cpu")
+    rng = np.random.default_rng(5)
+    batch = {"images": torch.from_numpy(rng.normal(0, 50, (4, 16, 16, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 8, 4).astype(np.int64))}
+    loss, logits, _, _ = loss_and_grads(state.params, batch, state.bn_state, cfg)
+    p0, step, losses = bridge.leaves(state.params), make_train_step(cfg), []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"].item())
+    return loss, logits, losses, p0, bridge.leaves(state.params)
+
+
 @pytest.mark.parametrize("dtype", ["compute_dtype", "param_dtype"])
 @pytest.mark.parametrize("kernels", ENGINES)
-def test_bf16_fused_and_whole_block_engines_raise_a5b(kernels, dtype):
+def test_bf16_fused_and_whole_block_engines_train(kernels, dtype):
+    """Two steps under the engine with bf16 compute or bf16 parameters:
+    finite losses, the second below the first, the parameters kept in their
+    dtype and moved (a bf16 γ of 1 does not move by an update of 1e-3, one
+    eighth of its ulp, so not every leaf). The first step's summed loss and logits against
+    kernels='xla' from the same state: with bf16 parameters alone the
+    compute is fp32 and JAX's engine computes the same function as its
+    standard path, so within 1e-4 of max (the fp32 tests' tolerance); with
+    bf16 compute the two round at other places (tests/test_torch_bf16_engines.py
+    holds each engine to JAX's), so within 2x the standard path's own gap
+    between its bf16 and fp32 runs plus 1e-5, of max."""
     ecfg = tcfg.ExecutionConfig(kernels=kernels, **{dtype: "bfloat16"})
-    with pytest.raises(NotImplementedError, match="A5b"):
-        _tiny_forward(ecfg)
+    loss, logits, losses, p0, p1 = _engine_step(ecfg)
+    assert np.isfinite(losses).all() and losses[1] < losses[0], losses
+    assert all(a.dtype == b.dtype == ecfg.pdtype for a, b in zip(p0, p1))
+    assert sum(not torch.equal(a, b) for a, b in zip(p0, p1)) > len(p0) // 2
+    xla_loss, xla_logits, *_ = _engine_step(dataclasses.replace(ecfg, kernels="xla"))
+    if dtype == "param_dtype":
+        tol = 1e-4
+    else:
+        f32_loss, f32_logits, *_ = _engine_step(dataclasses.replace(
+            ecfg, kernels="xla", compute_dtype="float32"))
+        tol = 2 * max(abs(xla_loss.item() - f32_loss.item()) / abs(xla_loss.item()),
+                      ((xla_logits - f32_logits).abs().max()
+                       / xla_logits.abs().max()).item()) + 1e-5
+    assert abs(loss.item() - xla_loss.item()) <= tol * abs(xla_loss.item())
+    assert (logits - xla_logits).abs().max() <= tol * xla_logits.abs().max()
 
 
 @pytest.mark.parametrize("kernels", ENGINES)
@@ -316,21 +362,29 @@ def test_bf16_engines_run_the_standard_path_under_nchw_and_in_eval(kernels):
         assert torch.equal(got, _tiny_forward(plain, train, layout))
 
 
-def test_bf16_tensors_raise_a5b_at_k5_k6_k8_k9_k10():
+def test_bf16_tensors_reach_k5_k6_k8_k9_k10():
+    """K5 (bn_apply, bias_act), K6 (batch_norm_act), K8, K9 and K10 take bf16
+    data with fp32 rows and return bf16 data (the statistics fp32); K10's
+    tf32 weight split takes fp32 weights only."""
     from resnet_tpu_torch.kernels import block_fused, fused_conv
 
     b = torch.bfloat16
-    x = torch.randn(4, 8).to(b)
-    row = torch.ones(8).to(b)
-    calls = [
-        lambda: bn.batch_norm_act(x, row, row),
-        lambda: bn.bn_apply(x, row, row, relu=True),
-        lambda: fused.bias_act(x, row, row),
-        lambda: fused_conv.fused_join(x, row, row, x, row, row),
-        lambda: fused_conv.fused_conv(x.view(1, 2, 2, 8), torch.ones(1, 1, 8, 8).to(b),
-                                      row, row, 1),
-        lambda: block_fused.split_tf32(x),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A5b"):
-            call()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 8, generator=g).to(b)
+    row = torch.ones(8)
+    assert bn.bn_apply(x, row, row, relu=True).dtype is b
+    assert fused.bias_act(x, row, row).dtype is b
+    y, mean, var = bn.batch_norm_act(x, row, row)
+    assert y.dtype is b and mean.dtype is var.dtype is torch.float32
+    assert fused_conv.fused_join(x, row, row, x, row, row).dtype is b
+    y, sums = fused_conv.fused_conv(x.view(1, 2, 2, 8), torch.ones(1, 1, 8, 8).to(b),
+                                    row, row, 1)
+    assert y.dtype is b and sums.dtype is torch.float32
+    xb = torch.rand(1, 4, 4, 16, generator=g).to(b)
+    rows = [torch.ones(n) for n in (4, 4, 4, 4, 16, 16)]
+    out, *s = block_fused.block_fused(
+        xb, torch.randn(16, 4, generator=g), torch.randn(3, 3, 4, 4, generator=g),
+        torch.randn(4, 16, generator=g), *rows, 1e-7)
+    assert out.dtype is b and all(t.dtype is torch.float32 for t in s)
+    with pytest.raises(ValueError, match="fp32 weights"):
+        block_fused.split_tf32(x)

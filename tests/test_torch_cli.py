@@ -5,10 +5,10 @@
 arguments, plus ``--device``, for a list of command lines, ``--variant``
 included (all six presets, bf16 and NCHW among them); each flag the port
 does not run yet raises NotImplementedError naming its ROADMAP.md queue A
-item, and bf16 on the fused engine does so at its first step (A5b). Then
-``main`` with ``--device cpu``
-trains, evaluates, resumes the latest dump with async checkpoints and
-exports, as tests/test_cli.py drives the JAX CLI.
+item. Then ``main`` with ``--device cpu`` trains the fused engine in bf16
+for a step and dumps it, and trains, evaluates, resumes the latest dump
+with async checkpoints and exports, as tests/test_cli.py drives the JAX
+CLI.
 """
 
 import dataclasses
@@ -95,11 +95,22 @@ def test_unported_flags_name_their_item(argv, item):
         build_config(argv)
 
 
-def test_bf16_fused_engine_raises_a5b_at_its_first_step(tmp_path):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        main(["--model", "tiny", "--synthetic", "--batch-size", "8", "--steps", "1",
-              "--kernels", "fused", "--dtype", "bfloat16", "--checkpoint-dir",
-              str(tmp_path / "dumps"), "--log-every", "0", "--device", "cpu"])
+def test_bf16_fused_engine_trains_a_step_and_dumps_it(tmp_path):
+    """One step of ``--kernels fused --dtype bfloat16`` (the fused engine in
+    bf16; on the CPU its kernels' plain versions): the final dump holds every
+    parameter leaf, finite, and the run's one loss line is finite."""
+    dumps = tmp_path / "dumps"
+    main(["--model", "tiny", "--synthetic", "--batch-size", "8", "--steps", "1",
+          "--kernels", "fused", "--dtype", "bfloat16", "--checkpoint-dir", str(dumps),
+          "--log-every", "0", "--device", "cpu"])
+    params = dumps / "77777777" / "model_params"
+    files = sorted(os.listdir(params))
+    assert files
+    for name in files:
+        assert np.isfinite(np.fromfile(params / name, np.float32)).all(), name
+    with open(dumps / "avg_loss_log.txt") as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 1 and np.isfinite(float(lines[0].split()[-1])), lines
 
 
 def test_bad_flag_values_exit():

@@ -517,3 +517,71 @@ def test_bf16_frozen_bn_check_catches_a_wrong_dw(cuda, monkeypatch):
         1.1 if x.dtype is torch.bfloat16 else 1.0))
     with pytest.raises(RuntimeError, match="BN frozen"):
         chip_smoke._bf16_frozen_held(kcfg, p16, p32, state0, batch)
+
+
+# (engine, tiny-model overrides, counts of one bf16 step): the tiny model's
+# 2 blocks hold 8 fused-conv sites (3 convs and a projection each; the stem
+# conv, the FC and the gradient convs are plain) and 2 joins; with two
+# blocks per stage, 'blockfused' routes the 2 identity blocks to K10
+ENGINE_BF16_STEPS = [
+    ("fused", {}, {"fused_conv_bf16": 8, "fused_join_bf16": 2, "bias_act_bf16": 1,
+                   "moments_bf16": 1, "adam": 1}),
+    ("hybrid", {}, {"fused_join_bf16": 2, "bias_act_bf16": 1, "moments_bf16": 1,
+                    "adam": 1}),
+    ("fusedxla", {}, {"adam": 1}),
+    ("blockfused", dict(block_sizes=(2, 2)), {"block_fused_bf16": 2, "adam": 1}),
+]
+
+
+@pytest.mark.parametrize("kernels,model,expect", ENGINE_BF16_STEPS,
+                         ids=[e for e, *_ in ENGINE_BF16_STEPS])
+@pytest.mark.parametrize("param", ["float32", "bfloat16"])
+def test_bf16_engine_step_launches_the_bf16_entry_points_only(cuda, kernels, model, expect,
+                                                               param):
+    """A bf16 training step of the tiny model under a fused or whole-block
+    engine, with fp32 or bf16 parameters, moves the bf16 counters of its
+    kernels and, of the fp32 ones, Adam's alone; the parameters keep their
+    dtype."""
+    from resnet_tpu_torch import bridge
+    from resnet_tpu_torch import config as tcfg
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state, make_train_step
+
+    cfg = tcfg.TrainConfig(
+        model=tcfg.tiny_model_config(**model),
+        execution=tcfg.ExecutionConfig(kernels=kernels, compute_dtype="bfloat16",
+                                       param_dtype=param),
+        optimizer=tcfg.OptimizerConfig(fused=True))
+    state = init_train_state(cfg, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in next(SyntheticDataset(4, image_dim=16, num_classes=8)).items()}
+    before = {n: getattr(m, c) for n, (m, c, *_) in checks.KERNELS.items()}
+    state, metrics = make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    moved = {n: getattr(m, c) - before[n] for n, (m, c, *_) in checks.KERNELS.items()
+             if getattr(m, c) != before[n]}
+    assert moved == expect
+    assert torch.isfinite(metrics["loss"]).item()
+    assert all(p.dtype == tcfg.resolve_dtype(param) for p in bridge.leaves(state.params))
+
+
+def test_fused_conv_bf16_sums_are_the_accumulators_on_cuda(cuda):
+    """K8-bf16's [Σy, Σy²] come from its fp32 accumulator: within 1e-5 of
+    max of the plain version's (the fp32 conv of the rounded u and w) and
+    farther than that from the sums of the kernel's own rounded y, at one
+    split and at a K split (statistics from the fp32 split sum)."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, h, cin, cout in ((8, 14, 256, 256), (2, 7, 129, 33)):
+        x = torch.randn(n, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.05).to(
+            torch.bfloat16)
+        scale = 1 + 0.2 * torch.randn(cin, generator=gen, device="cuda")
+        shift = 0.5 * torch.randn(cin, generator=gen, device="cuda")
+        y, sums = fused_conv.fused_conv(x, w, scale, shift, 1)
+        _, want = fused_conv.fused_conv_reference(x, w, scale, shift, 1)
+        scale_ = want.abs().amax(1, keepdim=True)
+        assert ((sums - want).abs() <= 1e-5 * scale_).all()
+        rounded = fused_conv.channel_sums(y)
+        assert ((rounded - want).abs().amax(1) > 1e-5 * scale_[:, 0]).all()

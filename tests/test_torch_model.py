@@ -148,15 +148,11 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kernels="fused", compute_dtype="bfloat16"), "A5b"),
-    (dict(kernels="blockfused", param_dtype="bfloat16"), "A5b"),
     (dict(space_to_depth=True), "A8"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
-    """NotImplementedError naming the item: from the config where nothing of
-    the value runs yet (A8), from the training forward where a bf16 tensor
-    would reach K5, K8, K9 or K10 (A5b; the model has identity blocks, so
-    'blockfused' routes some to K10)."""
+    """NotImplementedError naming the item from the config where nothing of
+    the value runs yet (A8)."""
     from resnet_tpu_torch.models import init_params
 
     with pytest.raises(NotImplementedError, match=item):
