@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels conv2d,matmul_bwd   (phases 1-3 only)
+    python3 chip_smoke.py --phases presets,bf16_engines   (phases 1, 2, 11, 12)
 
 Phases, each printing one JSON line:
   1. environment: torch, CUDA and nvcc versions, the card's name and power
@@ -18,9 +19,9 @@ Phases, each printing one JSON line:
      and of the library call (torch.profiler, with its split by kernel
      name), the host time per call (host_us: 200 calls enqueued back to
      back, checks.host_us), the least time the card could take, and for the
-     conv forward, the whole-block kernel and
-     the FC backward the launch plan (tiles and K splits; da and db
-     blocks); then the whole-block kernel's weight split (split_tf32) at
+     conv forward, the whole-block kernel, the FC backward, K1's bf16 dW and
+     K8-bf16 the launch plan (tiles and K splits; da and db blocks; dW's
+     route, its 64-pixel box and slices); then the whole-block kernel's weight split (split_tf32) at
      the shapes of K10's twelve weights, bit for bit against its plain
      version;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
@@ -154,7 +155,10 @@ Phases, each printing one JSON line:
      8 from bf16 weights (export_inference(..., weights_dtype='bfloat16')) on
      the bf16 hand kernels, NHWC and NCHW (53 conv, 16 join, 1 matmul on the
      bf16 entries each): fp32 logits within 2x the plain bf16 path's own gap
-     to the plain fp32 logits.
+     to the plain fp32 logits. The bf16 kernel step is also profiled
+     (torch.profiler, one step), with the device time and busy share of
+     K1's bf16 dW, forward and dx and of the K8/K10 bf16 GEMM kernels
+     (``profile_split``).
  12. bf16 engines: the fused and whole-block engines in bf16 at full width
      (ResNet-50, 224^2, batch 32, lr 1e-4, fused Adam): 'fused', 'hybrid',
      'fusedxla' and 'blockfused' with bf16 compute and fp32 parameters,
@@ -175,7 +179,8 @@ Phases, each printing one JSON line:
      dgamma and dbeta within 1e-5); step times in turns of the bf16
      standard step on its hand kernels and each engine's bf16 and fp32
      steps, their peak memory, and a torch.profiler table of one fused and
-     one blockfused bf16 step. Each run also prints a ``bf16_engine_run``
+     one blockfused bf16 step, each with phase 11's split of its busy time
+     by bf16 GEMM kernel. Each run also prints a ``bf16_engine_run``
      line, so a failing run still shows the runs before it.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
@@ -204,7 +209,11 @@ never falls back to the CPU and imports nothing of JAX.
 With --kernels NAMES (comma-separated names of kernels.checks.KERNELS) it
 runs phases 1-3 for those kernels only, without the launch plans and the
 weight split, and prints no final line: copied with kernels/checks.py into another tree of
-the package, it times that tree's kernels on this tree's cases.
+the package, it times that tree's kernels on this tree's cases. With
+--phases NAMES (serve, train, fused_train, blockfused_train,
+batch_norm_act, remat_train, trainer, presets, bf16_engines) it runs
+phases 1-2 and those phases only, with no final line: copied into another
+tree, it times and profiles that tree's steps the way this one does.
 """
 
 from __future__ import annotations
@@ -452,15 +461,36 @@ def _plan(build, name, case):
         _, m, k, n, _, need_a, need_b = case
         return dict(zip(("da_blocks", "db_blocks"),
                         build.matmul_bwd_plan(m, k, n, need_a, need_b)))
-    if name == "block_fused":
+    if name in ("block_fused", "block_fused_bf16"):
         _, (n, h, w, c4), c, _ = case
         m = n * h * w
         gemms = ((c, c4), (c, 9 * c), (c4, c))  # (Cout, K): reduce, 3x3, expand
-        tiles = [build.wg_tile_n(cout) for cout, _ in gemms]
+        bf16 = name.endswith("_bf16")
+        tile_n, split = ((build.wgb_tile_n, build.wgb_split) if bf16
+                         else (build.wg_tile_n, build.wg_split))
+        tiles = [tile_n(cout) for cout, _ in gemms]
         return {"tile_n": tiles,
                 "tiles": [-(-m // build.WG_BM) * -(-cout // bn)
                           for (cout, _), bn in zip(gemms, tiles)],
-                "splits": [build.wg_split(m, cout, k) for cout, k in gemms]}
+                "splits": [split(m, cout, k) for cout, k in gemms]}
+    if name == "conv2d_dw_bf16":  # the route, and on the wgmma core its slices
+        from resnet_tpu_torch.kernels.conv import DW_NARROW, dw_bf16_route
+
+        _, n, h, cin, cout, k, s = case
+        route = dw_bf16_route(cin, cout, s)
+        if route == "mma":
+            return {"route": route, "splits": build.tc_split(k * k * cin, cout,
+                                                             n * (h // s) ** 2)}
+        cin = max(cin, DW_NARROW)
+        slices = build.dw_slices(n, h // s, h // s, k, s)
+        return {"route": route, "box": build.dw_box(h // s, h // s), "slices": slices,
+                "tiles": -(-k * k * cin // build.WGB_BM) * -(-cout // build.wgb_tile_n(cout)),
+                "splits": build.wgb_split(k * k * cin, cout, build.WGB_BK * slices)}
+    if name == "fused_conv_bf16":
+        _, n, h, cin, cout, k, s, *_ = case
+        m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
+        return {"tile": [build.WGB_BM, bn], "tiles": -(-m // build.WGB_BM) * -(-cout // bn),
+                "splits": build.wgb_split(m, cout, k * k * cin)}
     return None
 
 
@@ -990,6 +1020,27 @@ def _engine_setup(torch, *kernels):
 
 def _busy(profile_rows):
     return sum(r["ms"] for r in profile_rows) if profile_rows else "not measured"
+
+
+# the bf16 GEMM kernels a profiled step's device time is split by: the
+# kernel names of the wgmma core's and bf16_gemm.cuh's (whose loader's name
+# the profile's cut to 90 characters keeps)
+BF16_SPLIT = {"K1 dW bf16": ("conv2d_dw_wg_kernel", "ConvDwBfA"),
+              "K1 fwd bf16": ("ConvFwdBfA",), "K1 dx bf16": ("ConvDxBfA",),
+              "K8/K10 bf16 GEMMs": ("fused_conv_wg_kernel", "FusedConvBfA")}
+
+
+def _split(profile_rows):
+    """{name: device ms, share of the step's busy time} of each BF16_SPLIT
+    kernel in one profiled step."""
+    busy = _busy(profile_rows)
+    if not profile_rows:
+        return "not measured"
+    out = {}
+    for name, keys in BF16_SPLIT.items():
+        ms = sum(r["ms"] for r in profile_rows if any(k in r["kernel"] for k in keys))
+        out[name] = {"ms": ms, "share": ms / busy}
+    return out
 
 
 def phase_fused(torch, checks, counters, smi):
@@ -1888,7 +1939,7 @@ def phase_presets(torch, counters, smi):
     from resnet_tpu_torch.data import SyntheticDataset
     from resnet_tpu_torch.export import export_inference
     from resnet_tpu_torch.models import init_bn_state, init_params
-    from resnet_tpu_torch.train import init_train_state
+    from resnet_tpu_torch.train import init_train_state, make_train_step
 
     torch.cuda.empty_cache()
 
@@ -1920,7 +1971,16 @@ def phase_presets(torch, counters, smi):
     add(launches)
     require(all(p.dtype is torch.float32 for p in leaves(state.params)),
             "bf16 compute changed the parameters' dtype")
+    held_state, kstep = {"state": state}, make_train_step(kcfg)
     del state
+
+    def one_step():
+        held_state["state"], _ = kstep(held_state["state"], batch)
+
+    rows = _profile(torch, one_step)
+    run.update(profile=rows[:30], profile_device_busy_ms=_busy(rows),
+               profile_split=_split(rows))
+    del held_state, kstep, rows
     p16 = with_(base, fused=False, kernels="xla", compute_dtype="bfloat16")
     p32 = with_(base, fused=False, kernels="xla")
     recs = {k: _step_record(torch, c, state0, batch)
@@ -2063,7 +2123,8 @@ def phase_bf16_engines(torch, counters, smi):
     carry the precision). Then batch_norm_act on bf16 (``_bn_entry``);
     step times in turns of the bf16 standard step on its hand kernels and
     each engine's bf16 and fp32 steps, their peak memory, and a
-    torch.profiler table of one fused and one blockfused bf16 step."""
+    torch.profiler table of one fused and one blockfused bf16 step, each
+    with its split by bf16 GEMM kernel (``_split``)."""
     import dataclasses
 
     from resnet_tpu_torch.bridge import leaves
@@ -2166,6 +2227,7 @@ def phase_bf16_engines(torch, counters, smi):
         rows = _profile(torch, one_step)
         out[f"profile_{kernels}_bf16"] = rows[:30]
         out[f"profile_{kernels}_bf16_device_busy_ms"] = _busy(rows)
+        out[f"profile_{kernels}_bf16_split"] = _split(rows)
     emit({"phase": "bf16_engines", **out})
     return launched
 
@@ -2174,6 +2236,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
                         "for those only, no plans, no final line")
+    parser.add_argument("--phases", help="comma-separated names of phases 4-12 (serve, "
+                        "train, ..., presets, bf16_engines): phases 1-2 and those only, "
+                        "no final line")
     args = parser.parse_args()
     import torch
 
@@ -2198,17 +2263,26 @@ def main() -> None:
         require("jax" not in sys.modules, "jax was imported")
         print(nvidia_smi(), flush=True)
         return
-    results = phase_kernels(checks, list(checks.KERNELS), build)
     counters = Counters(checks)
-    paths = {"serve": phase_serve(torch, checks, counters),
-             "train": phase_train(torch, checks, counters, smi),
-             "fused_train": phase_fused(torch, checks, counters, smi),
-             "blockfused_train": phase_blockfused(torch, checks, counters, smi),
-             "batch_norm_act": phase_bn_entry(torch, counters),
-             "remat_train": phase_remat(torch, counters, smi),
-             "trainer": phase_trainer(torch, counters, smi),
-             "presets": phase_presets(torch, counters, smi),
-             "bf16_engines": phase_bf16_engines(torch, counters, smi)}
+    phases = {"serve": lambda: phase_serve(torch, checks, counters),
+              "train": lambda: phase_train(torch, checks, counters, smi),
+              "fused_train": lambda: phase_fused(torch, checks, counters, smi),
+              "blockfused_train": lambda: phase_blockfused(torch, checks, counters, smi),
+              "batch_norm_act": lambda: phase_bn_entry(torch, counters),
+              "remat_train": lambda: phase_remat(torch, counters, smi),
+              "trainer": lambda: phase_trainer(torch, counters, smi),
+              "presets": lambda: phase_presets(torch, counters, smi),
+              "bf16_engines": lambda: phase_bf16_engines(torch, counters, smi)}
+    if args.phases:
+        names = args.phases.split(",")
+        require(set(names) <= set(phases), f"unknown phases in {names}")
+        for name in names:
+            phases[name]()
+        require("jax" not in sys.modules, "jax was imported")
+        print(nvidia_smi(), flush=True)
+        return
+    results = phase_kernels(checks, list(checks.KERNELS), build)
+    paths = {name: run() for name, run in phases.items()}
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

@@ -51,9 +51,9 @@ each GEMM's bf16 products go into an fp32 accumulator, its sums come from
 that fp32 result, and r, s and e are rounded to bf16 once; the prologues
 run in fp32 on the rounded values and round u and v before the next
 product; the six (sc, sh) rows are fp32; the join rounds out once. Its
-three GEMMs run on the bf16 ``mma.sync`` core (``csrc/bf16_gemm.cuh``,
-the bf16 K8's, K splits from ``build.tc_split``), not on the tf32
-``wgmma`` core. The backward follows ``_block_fused_vjp_bwd``'s casts
+three GEMMs are K8-bf16's, on the bf16 ``wgmma`` + TMA core
+(``csrc/wgb_gemm.cuh``, K splits from ``build.wgb_split``), not on the
+tf32 one. The backward follows ``_block_fused_vjp_bwd``'s casts
 (:430-516): the products in fp32 on the upcast values, each activation
 gradient rounded to x's dtype, dW to w's dtype, dγ₃ and dβ₃ to γ₃'s and
 β₃'s, while dγ₁, dβ₁, dγ₂ and dβ₂ leave JAX's function in fp32 whatever
@@ -196,7 +196,7 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     bf16 = x.dtype is torch.bfloat16
     # (Cout, K) of the three GEMMs; one split-K workspace serves them in turn
     gemms = ((c, c4), (c, 9 * c), (c4, c))
-    plan = build.tc_split if bf16 else build.wg_split
+    plan = build.wgb_split if bf16 else build.wg_split
     splits = [plan(m, cout, k) for cout, k in gemms]
     out, e = torch.empty_like(x), torch.empty_like(x)
     rs = torch.empty((2, n, h, wd, c), dtype=x.dtype, device=dev)

@@ -77,6 +77,8 @@ SIGNATURES = {
     "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
+    "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_matmul_skinny_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # a, b, g, da (or null), db (or null), M, K, N
@@ -116,6 +118,17 @@ WG_BM = 128
 WG_BK = 32
 WG_STAGES = {64: 3, 128: 4}
 WG_BLOCKS_PER_SM = {64: 2, 128: 1}
+# the bf16 wgmma core's (wgb_gemm.cuh BM, BK, Tile<BN>::STAGES and
+# MIN_BLOCKS by tile width, BN = wgb_tile_n): K1's bf16 dW, K8-bf16 and
+# K10-bf16's three GEMMs
+WGB_BM = 128
+WGB_BK = 64
+WGB_STAGES = {64: 4, 128: 6}
+WGB_BLOCKS_PER_SM = {64: 2, 128: 1}
+WGB_MIN_SLICES = 8  # the shallowest split, in slices
+# dW's 64-pixel slices on the wgmma core: bw x bh rectangles of the output
+# grid, in conv.cu dw_box's order of preference
+DW_BOXES = ((64, 1), (32, 2), (16, 4), (8, 8), (4, 16), (2, 32), (1, 64))
 # the skinny FC kernel's (matmul.cu skinny::COLS, KG, KC_MAX, MAX_M)
 SKINNY_COLS = 32
 SKINNY_STAGE = 16
@@ -293,6 +306,68 @@ def wg_split(m: int, n: int, k: int) -> int:
     bn = wg_tile_n(n)
     return _waves_plan(m, n, k, WG_BM, bn, WG_BK, _SMS * WG_BLOCKS_PER_SM[bn],
                        WG_STAGES[bn] - 1)
+
+
+def wgb_tile_n(n: int) -> int:
+    """wgb_gemm.cuh's tile width for an N-wide output: 64 up to 64, else 128
+    (conv.cu's bf16 dW and fused_conv.cuh's bf16 GEMM pick the same)."""
+    return 64 if n <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def wgb_split(m: int, n: int, k: int) -> int:
+    """K splits of an (m, n) output over depth k on wgb_gemm.cuh's tiles:
+    K1's bf16 dW (m = k*k*Cin, n = Cout, k = 64 x its slices of pixels,
+    ``dw_slices``), K8-bf16 and K10-bf16's GEMMs (m = the output pixels,
+    n = Cout, k = k*k*Cin). Each split is a whole number of WGB_BK-deep
+    slices, at least WGB_MIN_SLICES deep, none empty, at most 256. Of
+    those, the count that finishes soonest in slice times: waves of the
+    resident blocks times (the chunk's slices + the ring's fill), plus, for
+    more than one split, the fp32 partials written and read back (m * n *
+    8 bytes a split) in slice times of the resident blocks' copies
+    ((WGB_BM + BN) * WGB_BK bf16 each); fewer splits on a tie. A function
+    of the shapes only (cached), so a call repeats exactly."""
+    bn = wgb_tile_n(n)
+    slices = -(-k // WGB_BK)
+    tiles = -(-m // WGB_BM) * -(-n // bn)
+    resident = _SMS * WGB_BLOCKS_PER_SM[bn]
+    slice_bytes = resident * (WGB_BM + bn) * WGB_BK * 2
+    best = None
+    for want in range(1, min(256, max(1, slices // WGB_MIN_SLICES)) + 1):
+        chunk = -(-slices // want)
+        splits = -(-slices // chunk)  # the count whose chunks leave none empty
+        cost = -(-tiles * splits // resident) * (chunk + WGB_STAGES[bn] - 1)
+        if splits > 1:
+            cost += splits * m * n * 8 / slice_bytes
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return best[1]
+
+
+def wgb_chunks(k: int, splits: int) -> Tuple[int, ...]:
+    """The K depth of each split of depth k as the wgmma core cuts it:
+    ceil(slices / splits) whole slices each, the last the rest."""
+    chunk = -(-(-(-k // WGB_BK)) // splits) * WGB_BK
+    return tuple(min(chunk, k - i * chunk) for i in range(splits))
+
+
+def dw_box(ho: int, wo: int) -> Tuple[int, int]:
+    """(bw, bh): the 64-pixel rectangle of DW_BOXES that tiles an ho x wo
+    output grid with the fewest padded pixels, the first on a tie (conv.cu
+    dw_box)."""
+    return min(DW_BOXES, key=lambda b: -(-wo // b[0]) * b[0] * (-(-ho // b[1]) * b[1]))
+
+
+@functools.lru_cache(maxsize=None)
+def dw_slices(n: int, ho: int, wo: int, k: int, stride: int) -> int:
+    """The 64-pixel slices of K1's bf16 dW on the wgmma core: a 1x1 conv at
+    stride 1 reads its n*ho*wo pixels in a row, any other conv a dw_box
+    rectangle of one image at a time (conv.cu dw_wg). Cached: a function of
+    the shapes only."""
+    if k == 1 and stride == 1:
+        return -(-n * ho * wo // 64)
+    bw, bh = dw_box(ho, wo)
+    return n * -(-wo // bw) * -(-ho // bh)
 
 
 def kmajor_ld(k: int) -> int:

@@ -20,14 +20,21 @@ tensors each of the three runs its plain version:
 * ``conv2d_dw_reference``: per tap, the strided window of the padded input
   contracted with the gradient over (N, Ho, Wo) (conv.py:172-196).
 
-bf16 tensors take the bf16 entry points of the same file
-(``rt_conv2d_nhwc_bf16``, ``rt_conv2d_dx_nhwc_bf16``,
-``rt_conv2d_dw_nhwc_bf16``, on ``csrc/bf16_gemm.cuh``): bf16 in, an fp32
-accumulator, bf16 out rounded once, as the JAX kernel does for bf16 inputs
-(conv.py:55-57, :105; dW in fp32 from the upcast inputs, cast to w.dtype,
-:180-195). Every tensor of one call shares its dtype. The plain versions
-compute in fp32 (the inputs upcast, TF32 off on the card) and cast the
-result once to the inputs' dtype.
+bf16 tensors take the bf16 entry points of the same file: bf16 in, an
+fp32 accumulator, bf16 out rounded once, as the JAX kernel does for bf16
+inputs (conv.py:55-57, :105; dW in fp32 from the upcast inputs, cast to
+w.dtype, :180-195). The forward and dx (``rt_conv2d_nhwc_bf16``,
+``rt_conv2d_dx_nhwc_bf16``) run on ``csrc/bf16_gemm.cuh``'s ``mma.sync``
+core, K split by ``build.tc_split``. dW runs where ``dw_bf16_route`` sends
+it: ``rt_conv2d_dw_nhwc_bf16`` on ``csrc/wgb_gemm.cuh``'s ``wgmma`` + TMA
+core (x and g read by TMA boxes as they lie, K split by
+``build.wgb_split``) wherever Cin % 64 == 0 or Cin <= 8, Cout % 8 == 0,
+the tensors 16-byte aligned and stride 1 or 2, which is every ResNet-50
+conv (the stem's 3 channels through a copy of x zero-padded to 8,
+``dw_narrow_x``); ``rt_conv2d_dw_nhwc_bf16_mma`` on ``bf16_gemm.cuh``
+otherwise (ragged or misaligned operands). Every tensor of one call
+shares its dtype. The plain versions compute in fp32 (the inputs upcast,
+TF32 off on the card) and cast the result once to the inputs' dtype.
 
 The counters ``LAUNCHES``, ``DX_LAUNCHES`` and ``DW_LAUNCHES`` count the
 launches of the fp32 forward, dx and dW kernels, ``LAUNCHES_BF16``,
@@ -190,6 +197,30 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> tor
     return dx
 
 
+DW_NARROW = 8  # channels a tap of the wgmma dW's narrow tiles (16 taps a tile)
+
+
+def dw_bf16_route(cin: int, cout: int, stride: int, aligned: bool = True) -> str:
+    """The core K1's bf16 dW runs on: 'wgmma' (``csrc/wgb_gemm.cuh``) where
+    x and g are plain TMA boxes: 64 channels of one tap a tile half (Cin %
+    64 == 0) or 8 (Cin <= 8, the stem's 3 padded to 8 by ``dw_narrow_x``),
+    rows a multiple of 16 bytes (Cout % 8 == 0), the operands TMA reads
+    16-byte ``aligned`` and a stride whose phases it reads (1 or 2); else
+    'mma' (``csrc/bf16_gemm.cuh``): ragged widths and misaligned tensors.
+    A function of the shapes and the alignment only: a launch on either
+    route that fails raises."""
+    ok = ((cin % 64 == 0 or cin <= DW_NARROW) and cout % 8 == 0 and stride in (1, 2)
+          and aligned)
+    return "wgmma" if ok else "mma"
+
+
+def dw_narrow_x(x: torch.Tensor) -> torch.Tensor:
+    """x (N, H, W, Cin < 8) zero-padded to 8 channels, the wgmma dW's narrow
+    operand: the padded channels' rows of dW are zeros, cut off after the
+    kernel, so the rows kept are x's own dW."""
+    return F.pad(x, (0, DW_NARROW - x.shape[3]))
+
+
 def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
     """dW (k, k, Cin, Cout) of ``conv2d`` from its input x (N, H, W, Cin) and
     output gradient g (N, H/s, W/s, Cout)."""
@@ -206,12 +237,26 @@ def conv2d_dw(x: torch.Tensor, g: torch.Tensor, k: int, stride: int = 1) -> torc
     if dw.numel():
         if pixels == 0:
             return dw.zero_()
-        splits = build.tc_split(k * k * cin, cout, pixels)
+        name = build.entry_name("conv2d_dw_nhwc", x)
+        out = dw
+        bf16 = x.dtype is torch.bfloat16
+        if bf16 and dw_bf16_route(cin, cout, stride, g.data_ptr() % 16 == 0 and (
+                cin < DW_NARROW or x.data_ptr() % 16 == 0)) == "wgmma":
+            if cin < DW_NARROW:
+                x, cin = dw_narrow_x(x), DW_NARROW
+                out = torch.empty((k, k, cin, cout), dtype=x.dtype, device=x.device)
+            ho, wo = h // stride, wd // stride
+            splits = build.wgb_split(k * k * cin, cout,
+                                     build.WGB_BK * build.dw_slices(n, ho, wo, k, stride))
+        else:
+            splits = build.tc_split(k * k * cin, cout, pixels)
+            name += "_mma" if bf16 else ""
         ws_ptr, _ws = build.gemm_workspace(splits, k * k * cin, cout, x)
-        build.launch(build.entry_name("conv2d_dw_nhwc", x), x.data_ptr(), g.data_ptr(),
-                     dw.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
-                     device=x.device)
+        build.launch(name, x.data_ptr(), g.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, k,
+                     stride, ws_ptr, splits, device=x.device)
         build.count(__name__, "DW_LAUNCHES", x)
+        if out is not dw:
+            dw.copy_(out[:, :, :dw.shape[2]])
     return dw
 
 

@@ -1,7 +1,9 @@
 // bf16 tensor-core GEMM core: bf16 operands, fp32 accumulator, one
 // rounding to bf16 at the end. Carries the bf16 entry points of the conv
-// forward, dx and dW (conv.cu) and of the FC forward and backward
-// (matmul.cu).
+// forward and dx (conv.cu), dW's route for ragged or misaligned operands
+// (rt_conv2d_dw_nhwc_bf16_mma), and the FC forward and backward
+// (matmul.cu). K1's bf16 dW and K8-bf16 (with K10-bf16's GEMMs) run on
+// wgb_gemm.cuh's wgmma + TMA core instead.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major. One 256-thread block
 // computes a BM x BN tile (BM 128, or 32 for the skinny FC; BN 64) with
@@ -29,8 +31,8 @@
 // cores work on the current one), operands are gathered by loaders that
 // compute their own indices (zero outside the image, beyond K and beyond
 // the matrix), and MN-contiguous operands are transposed as they are
-// stored. wgmma (which takes bf16 operands MN-major as well as K-major) and
-// TMA are the design for a later PR.
+// stored. wgb_gemm.cuh's wgmma (which takes bf16 operands MN-major as well
+// as K-major) and TMA take these transposes out.
 //
 // Shared slices are [rows][BK + 8] bf16 with K contiguous: a row is 80
 // bytes (20 words), so the 32 lanes of a fragment load, rows gid and words
@@ -40,16 +42,6 @@
 // With one split the tile is rounded to bf16 and written; with several,
 // each split writes fp32 partials to a workspace that splitk_sum_bf16 adds
 // in split order and rounds once. No atomics: a run repeats bit for bit.
-//
-// kStats (the bf16 fused conv K8 and K10's stages, fused_conv.cuh): with
-// one split the kernel also writes each BM-row tile's per-column [sum C,
-// sum C^2] of the fp32 accumulator, before its rounding, to
-// tile_sums[(blockIdx.x * 2 + {0, 1}) * N + col], as tc_gemm.cuh's kStats
-// does: summed over the fragment's rows in registers, over gid by
-// __shfl_xor, over the warps of a column through shared memory, always in
-// one order. With several splits the tiles hold partials and write none;
-// the caller takes the statistics from the fp32 split sum
-// (splitk_sum_stats_bf16).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -140,11 +132,10 @@ inline RowMN row_mn(const uint16_t* p, int64_t cols) {
   return RowMN{p, cols, cols, cols % 8 == 0 && aligned16(p)};
 }
 
-template <int BM, class AL, class BL, bool kStats = false>
+template <int BM, class AL, class BL>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict__ ws,
-            int64_t M, int N, int64_t K, int64_t k_chunk, int64_t ldy,
-            float* __restrict__ tile_sums) {
+            int64_t M, int N, int64_t K, int64_t k_chunk, int64_t ldy) {
   constexpr int WM = BM >= 128 ? 4 : 2;  // warps along M
   constexpr int WN = 8 / WM;
   constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
@@ -293,61 +284,6 @@ gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict_
             y[row * ldy + n] = to_bf16(v);
         }
     }
-
-  if constexpr (kStats) {
-    if (tile_sums == nullptr) return;  // the same for the whole block
-    // this thread's columns wn * WTN + j * 8 + 2 * tig + e over its rows
-    float sm[NI][2], sq[NI][2];
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) sm[j][e] = sq[j][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (m0 + wm * WTM + i * 16 + gid + 8 * h >= M) continue;
-#pragma unroll
-        for (int j = 0; j < NI; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = acc[i][j][2 * h + e];
-            sm[j][e] += v;
-            sq[j][e] += v * v;
-          }
-      }
-    // over the 8 gid of a tig: lanes tig, tig + 4, ... (lane = 4 gid + tig)
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1)
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          sm[j][e] += __shfl_xor_sync(0xffffffffu, sm[j][e], off);
-          sq[j][e] += __shfl_xor_sync(0xffffffffu, sq[j][e], off);
-        }
-    static_assert(2 * WM * BN * sizeof(float) <= sizeof(as), "reduction buffer");
-    __syncthreads();  // every warp is done with the slices
-    float* red = reinterpret_cast<float*>(as);  // [2][WM][BN]
-    if (gid == 0) {
-#pragma unroll
-      for (int j = 0; j < NI; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = wn * WTN + j * 8 + 2 * tig + e;
-          red[wm * BN + col] = sm[j][e];
-          red[(WM + wm) * BN + col] = sq[j][e];
-        }
-    }
-    __syncthreads();
-    if (t < 2 * BN) {
-      const int which = t / BN, col = t % BN;
-      float tot = 0.f;
-#pragma unroll
-      for (int w = 0; w < WM; ++w) tot += red[(which * WM + w) * BN + col];
-      if (n0 + col < N) tile_sums[((int64_t)blockIdx.x * 2 + which) * N + n0 + col] = tot;
-    }
-  }
 }
 
 // out[i] = bf16(sum over z of part[z * mn + i]), in split order
@@ -367,25 +303,6 @@ inline int64_t k_chunk_for(int64_t K, int splits) {
   return (c + KSTEP - 1) / KSTEP * KSTEP;
 }
 
-// The GEMM kernel alone: an (M, N) GEMM on BM x BN tiles into y (rows
-// out_row(m), stride ldy), or, with splits > 1, its fp32 partials into ws
-// (splits * M * N floats; out_row the identity), for the caller to add.
-// With kStats and one split, the tiles' column sums into tile_sums
-// (ceil(M / BM) * 2 * N floats). Returns cudaGetLastError().
-template <int BM, bool kStats, class AL, class BL>
-int enqueue(const AL& a, const BL& b, uint16_t* y, float* ws, int64_t M, int N, int64_t K,
-            int splits, int64_t ldy, float* tile_sums, cudaStream_t s) {
-  if (M <= 0 || N <= 0) return 0;
-  if (splits < 1 || splits > 65535 || (splits > 1 && !ws) || (N + BN - 1) / BN > 65535)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
-                  (unsigned)splits);
-  gemm_kernel<BM, AL, BL, kStats><<<grid, THREADS, 0, s>>>(
-      a, b, y, splits > 1 ? ws : nullptr, M, N, K, k_chunk_for(K, splits), ldy,
-      splits > 1 ? nullptr : tile_sums);
-  return (int)cudaGetLastError();
-}
-
 // An (M, N) GEMM on BM x BN tiles into y (rows out_row(m), stride ldy),
 // or, with splits > 1, into ws (splits * M * N floats; out_row the
 // identity) followed by splitk_sum_bf16 into y. Returns cudaGetLastError().
@@ -393,8 +310,12 @@ template <int BM, class AL, class BL>
 int launch(const AL& a, const BL& b, uint16_t* y, float* ws, int64_t M, int N, int64_t K,
            int splits, int64_t ldy, cudaStream_t s) {
   if (M <= 0 || N <= 0) return 0;
-  const int status = enqueue<BM, false>(a, b, y, ws, M, N, K, splits, ldy, nullptr, s);
-  if (status != 0) return status;
+  if (splits < 1 || splits > 65535 || (splits > 1 && !ws) || (N + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+                  (unsigned)splits);
+  gemm_kernel<BM, AL, BL><<<grid, THREADS, 0, s>>>(a, b, y, splits > 1 ? ws : nullptr, M, N, K,
+                                                   k_chunk_for(K, splits), ldy);
   if (splits > 1) {
     const int64_t mn = M * N;
     int64_t blocks = (mn + 255) / 256;

@@ -78,17 +78,16 @@
 // before the next product; the (sc, sh) rows are fp32 (gamma and beta cast
 // by the wrapper, as `row` does at :281, :317); the join rounds out once. The
 // same one host call on the caller's stream with no host sync: per stage
-// K8-bf16's GEMM (fused_conv.cuh fused_gemm_bf16: bf16_gemm.cuh's
-// mma.sync core, loader FusedConvBfA with the prologue from the
-// device-side rows, the statistics epilogue or the split sum's) and the
+// K8-bf16's GEMM (fused_conv.cuh fused_gemm_bf16: wgb_gemm.cuh's wgmma +
+// TMA core, the gather FusedConvBfA with the prologue from the device-side
+// rows, the statistics epilogue or the split sum's) and the
 // rows kernel tile_sums_affine, then K9-bf16's body with an identity
 // residual. The weights come in bf16 (the wrapper casts fp32 parameters to
 // x's dtype, block_fused.py:316), so there is no tf32 split. Bound at
 // batch 32: 14 GFLOP per block at 989 TFLOP/s dense bf16 is 0.014 ms;
 // the bytes are half the fp32 ones above: 0.092 ms at stage 1 (C = 64),
 // 0.046 at stage 2, 0.023 at stage 3, all bound by bytes, and 0.0115 at
-// stage 4, bound by operations. wgmma with TMA, which takes MN-major bf16
-// operands, is the design for a later PR.
+// stage 4, bound by operations.
 
 #include "fused_conv.cuh"
 #include "wg_gemm.cuh"

@@ -60,10 +60,12 @@
 // conv2d_tc*_kernel and conv2d_dx_tc*_kernel in PERF.md.
 
 #include <climits>
+#include <cstring>
 
 #include "bf16_gemm.cuh"
 #include "im2col.cuh"
 #include "tc_gemm.cuh"
+#include "wgb_gemm.cuh"
 
 namespace {
 
@@ -467,7 +469,8 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 // ---------------------------------------------------------------- bf16
 //
-// The same three GEMMs on bf16 tensors (bf16_gemm.cuh): bf16 x, w and g,
+// The same three GEMMs on bf16 tensors (the forward and dx on
+// bf16_gemm.cuh, dW on wgb_gemm.cuh's wgmma core below): bf16 x, w and g,
 // an fp32 accumulator, bf16 out, rounded once. What JAX computes for bf16
 // inputs: the forward and dx are its conv kernel with `x.dtype` out
 // (conv.py:55-57, :105, :163-170); dW is an fp32 matmul of the upcast
@@ -647,13 +650,279 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* wp, uin
   return 0;
 }
 
-// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout)
-extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint16_t* dw,
-                                      int N, int H, int W, int Cin, int Cout, int k,
-                                      int stride, float* ws, int splits, void* stream) {
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout) on
+// bf16_gemm.cuh's mma.sync core: the route of the widths the wgmma core
+// below does not take (ragged or misaligned operands)
+extern "C" int rt_conv2d_dw_nhwc_bf16_mma(const uint16_t* x, const uint16_t* g, uint16_t* dw,
+                                          int N, int H, int W, int Cin, int Cout, int k,
+                                          int stride, float* ws, int splits, void* stream) {
   const int Ho = H / stride, Wo = W / stride;
   const int64_t M = (int64_t)k * k * Cin;
   const ConvDwBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
   return bfg::launch<128>(a, bfg::row_mn(g, Cout), dw, ws, M, Cout, (int64_t)N * Ho * Wo,
                           splits, Cout, (cudaStream_t)stream);
+}
+
+// ------------------------------------------------ bf16 dW on wgb_gemm.cuh
+//
+// dW[(tap, ci), co] = sum over the output pixels p of x_tap[p, ci] g[p, co]:
+// both operands MN-major in memory (channels contiguous), which wgmma takes
+// as they are. A 128-row tile is two 64-row halves, one per warpgroup, each
+// 64 channels of one tap (Cin % 64 == 0), so a half's slice of 64 pixels is
+// one TMA box of x shifted by the tap; g's slice is the box of the same
+// pixels. A slice is a bw x bh rectangle of one image's output grid
+// (bw * bh = 64, the rectangle of the 64-pixel shapes that leaves the
+// fewest padded pixels, dw_box; build.dw_box mirrors it); the parts of a
+// box outside the grid, and the halo of x, arrive as zeros. At stride 2,
+// x is read through four tensor maps, one per phase (iy % 2, ix % 2): the
+// view x[n, 2a + ry, 2b + rx, c], whose (b, a) index the output grid, so
+// the tap's shift is a whole offset and a tap outside the image falls
+// outside the view. A 1x1 conv at stride 1 has no halo: x and g are then
+// read as (pixels, C) matrices, 64 pixels a slice, with no padding at all.
+// The stem (Cin = 3) comes as a copy of x zero-padded to 8 channels (the
+// wrapper's; its padded rows of dW are dropped): a tile is then 16 taps of
+// 8 channels, gathered by the threads (kNarrow below).
+//
+// Bound on the H100 (bf16 FLOPs at 989 TFLOP/s, bytes at 3.35 TB/s):
+// five of ResNet-50's seven dW shapes at batch 32 by bytes, so each output
+// tile reads its slices of x and g once, the tiles of one K range run side
+// by side and share them through the L2, and the K split (build.wgb_split)
+// keeps its fp32 partials few beside x and g.
+namespace {
+
+struct DwMaps {
+  CUtensorMap x[4];  // x per stride phase 2 * ry + rx (one at stride 1)
+  CUtensorMap g;     // g (N, Ho, Wo, Cout)
+};
+
+struct DwGeom {
+  int Cin, ksize, stride, bw, bh, nbx, nby;
+  int64_t slices, M;  // slices of the whole K; M = k * k * Cin
+  int N;
+  const uint16_t* x;  // the narrow tiles' x, gathered by the threads
+  int H, W, Ho, Wo;
+};
+
+template <int BN, bool kNarrow>
+struct DwBlock {
+  const DwMaps& maps;
+  const DwGeom& geo;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int64_t s0;  // the split's first slice
+  int col0;
+  // the wide tiles': each half's x map (stride phase), shift and channel
+  int map[2], qx[2], qy[2], c0[2];
+  bool live[2];
+  // the narrow tiles': the thread's pixel of each slice (p = tid % 64) and
+  // its four taps (tid / 64 + 4 j of the tile's 16), their shifts, and
+  // where their 16 bytes land in a slot
+  int py, px, dy[4], dx[4];
+  uint32_t dst[4];
+  bool tap_ok[4];
+
+  __device__ bool on(int wg) const { return live[wg]; }
+  __device__ void fix(int, int) const {}
+
+  // tap's x map (its stride phase) and its shift in that map's pixels
+  __device__ void shift(int tap, int& m, int& sx, int& sy) const {
+    const int k = geo.ksize, s = geo.stride;
+    const int ty = tap / k - k / 2, tx = tap % k - k / 2;
+    // at stride 2, iy = 2 oy + ty = 2 (oy + sy) + ry with ry = ty mod 2
+    const int ry = s == 2 ? ty & 1 : 0, rx = s == 2 ? tx & 1 : 0;
+    m = 2 * ry + rx;
+    sy = s == 2 ? (ty - ry) / 2 : ty;
+    sx = s == 2 ? (tx - rx) / 2 : tx;
+  }
+
+  __device__ void setup(int64_t row0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t mh = row0 + 64 * h;
+      live[h] = mh < geo.M;
+      const int tap = (int)(mh / geo.Cin);
+      c0[h] = (int)(mh - (int64_t)tap * geo.Cin);
+      shift(tap, map[h], qx[h], qy[h]);
+    }
+    if constexpr (kNarrow) {
+      const int p = threadIdx.x & 63;
+      py = p / geo.bw;
+      px = p - py * geo.bw;
+      const int kk = geo.ksize * geo.ksize;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int u = (threadIdx.x >> 6) + 4 * j;
+        const int tap = (int)(row0 / 8) + u;
+        tap_ok[j] = tap < kk;
+        dy[j] = tap / geo.ksize - geo.ksize / 2;
+        dx[j] = tap % geo.ksize - geo.ksize / 2;
+        dst[j] = (u / 8) * wgb::HALF + (u % 8) * wgb::ATOM + p * 16;
+      }
+    }
+  }
+
+  __device__ void load(int slot, int kt) const {
+    const int64_t t = s0 + kt;
+    const int per_img = geo.nby * geo.nbx;
+    const int n = (int)(t / per_img);
+    const int rem = (int)(t - (int64_t)n * per_img);
+    const int by = rem / geo.nbx;
+    const int ox = (rem - by * geo.nbx) * geo.bw, oy = by * geo.bh;
+    const uint32_t st = rt::tc::smem_u32(sm.slot(slot));
+    if constexpr (kNarrow) {  // every thread: 4 taps of its pixel, 16 bytes each
+      const int y = oy + py, x = ox + px;
+      const bool pix = y < geo.Ho && x < geo.Wo;
+      const uint16_t* img = geo.x + (int64_t)n * geo.H * geo.W * 8;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int iy = geo.stride * y + dy[j], ix = geo.stride * x + dx[j];
+        const bool ok = tap_ok[j] && pix && (unsigned)iy < (unsigned)geo.H &&
+                        (unsigned)ix < (unsigned)geo.W;
+        wgb::cp16(st + dst[j], ok ? img + ((int64_t)iy * geo.W + ix) * 8 : geo.x, ok);
+      }
+    }
+    if (threadIdx.x != 0) return;
+    const uint32_t bar = rt::tc::smem_u32(&full[slot]);
+    if constexpr (kNarrow) {
+      rt::wg::mbar_expect_tx(&full[slot], (uint32_t)wgb::Tile<BN>::B_BYTES);
+    } else {
+      rt::wg::mbar_expect_tx(&full[slot], (uint32_t)((live[0] + live[1]) * wgb::HALF +
+                                                     wgb::Tile<BN>::B_BYTES));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (live[h])
+          wgb::tma_4d(st + h * wgb::HALF, &maps.x[map[h]], bar, c0[h], ox + qx[h], oy + qy[h],
+                      n);
+    }
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      wgb::tma_4d(st + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, &maps.g, bar, col0 + 64 * j, ox,
+                  oy, n);
+  }
+};
+
+// kNarrow: Cin == 8, a tile is 16 taps of 8 channels (A_MN8), gathered by
+// the threads with cp.async (sixteen 1 KB TMA boxes a slice cost the stem
+// 3.6x its time with no A loads at all; dense pixels did not help: the
+// requests, not the sectors); else Cin % 64 == 0, a tile two halves of 64
+// channels of one tap (A_MN) by TMA
+template <int BN, bool kNarrow>
+__global__ void __launch_bounds__(wgb::THREADS, wgb::Tile<BN>::MIN_BLOCKS)
+conv2d_dw_wg_kernel(const __grid_constant__ DwMaps maps, const __grid_constant__ DwGeom geo,
+                    uint16_t* __restrict__ dw, float* __restrict__ ws, int64_t chunk) {
+  extern __shared__ __align__(1024) uint8_t dw_wg_smem[];
+  __shared__ __align__(8) uint64_t full[wgb::Tile<BN>::STAGES];
+  const wgb::Smem<BN> sm = wgb::smem_layout<BN>(dw_wg_smem);
+  const int64_t row0 = (int64_t)blockIdx.x * wgb::BM;
+  const int64_t s0 = (int64_t)blockIdx.z * chunk;
+  const int64_t s1 = geo.slices < s0 + chunk ? geo.slices : s0 + chunk;
+  DwBlock<BN, kNarrow> blk{maps, geo, sm, full, s0, (int)blockIdx.y * BN};
+  blk.setup(row0);
+  wgb::init_barriers<wgb::Tile<BN>::STAGES>(full);
+  float acc[wgb::Tile<BN>::NACC];
+  wgb::mainloop<BN, kNarrow ? wgb::A_MN8 : wgb::A_MN>(blk, sm, full,
+                                                      s1 > s0 ? (int)(s1 - s0) : 0, acc);
+  wgb::store_tile<BN>(acc, sm, row0, blk.col0, geo.M, geo.N, dw,
+                      ws ? ws + (int64_t)blockIdx.z * geo.M * geo.N : nullptr);
+}
+
+// the bw x bh = 64-pixel rectangle of an Ho x Wo output grid that leaves
+// the fewest padded pixels, the wider on a tie (build.dw_box)
+inline void dw_box(int Ho, int Wo, int& bw, int& bh) {
+  static const int boxes[7][2] = {{64, 1}, {32, 2}, {16, 4}, {8, 8}, {4, 16}, {2, 32}, {1, 64}};
+  int64_t best = -1;
+  for (const auto& b : boxes) {
+    const int64_t cost =
+        (int64_t)((Wo + b[0] - 1) / b[0] * b[0]) * ((Ho + b[1] - 1) / b[1] * b[1]);
+    if (best < 0 || cost < best) {
+      best = cost;
+      bw = b[0];
+      bh = b[1];
+    }
+  }
+}
+
+// a 4-D map of dims {C, w, h, n} (C contiguous) with the given byte
+// strides of w, h and n, for boxes {64, bw, bh, 1}
+inline int dw_map(CUtensorMap* map, const uint16_t* base, int C, int64_t w, int64_t h, int64_t n,
+                  int64_t sw, int64_t sh, int64_t sn, int bw, int bh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)sw, (cuuint64_t)sh, (cuuint64_t)sn};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bw, (cuuint32_t)bh, 1};
+  return wgb::map_bf16(map, base, 4, dims, strides, box);
+}
+
+template <int BN, bool kNarrow>
+inline int dw_wg(const uint16_t* x, const uint16_t* g, uint16_t* dw, int N, int H, int W,
+                 int Cin, int Cout, int k, int stride, float* ws, int splits, cudaStream_t s) {
+  const int Ho = H / stride, Wo = W / stride;
+  DwMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  DwGeom geo{Cin, k, stride, 0, 0, 0, 0, 0, (int64_t)k * k * Cin, Cout, x, H, W, Ho, Wo};
+  const int64_t bx = 2 * (int64_t)Cin, bg = 2 * (int64_t)Cout;  // bytes of a pixel
+  int status = 0;
+  if (k == 1 && stride == 1) {  // no halo: (pixels, C) matrices
+    const int64_t P = (int64_t)N * H * W;
+    geo.bw = 64;
+    geo.bh = 1;
+    geo.nbx = (int)((P + 63) / 64);
+    geo.nby = 1;
+    geo.slices = geo.nbx;
+    if (!kNarrow) status = dw_map(&maps.x[0], x, Cin, P, 1, 1, bx, P * bx, P * bx, 64, 1);
+    if (status == 0) status = dw_map(&maps.g, g, Cout, P, 1, 1, bg, P * bg, P * bg, 64, 1);
+    // the narrow tiles gather x as one image of P pixels
+    geo.H = geo.Ho = 1;
+    geo.W = geo.Wo = (int)P;
+  } else {
+    dw_box(Ho, Wo, geo.bw, geo.bh);
+    geo.nbx = (Wo + geo.bw - 1) / geo.bw;
+    geo.nby = (Ho + geo.bh - 1) / geo.bh;
+    geo.slices = (int64_t)N * geo.nby * geo.nbx;
+    status = dw_map(&maps.g, g, Cout, Wo, Ho, N, bg, Wo * bg, (int64_t)Ho * Wo * bg, geo.bw,
+                    geo.bh);
+    // the phases the taps reach: both parities of dy where k > 1
+    for (int ry = 0; ry < stride && status == 0 && !kNarrow; ++ry)
+      for (int rx = 0; rx < stride && status == 0; ++rx) {
+        if (stride == 2 && k == 1 && (ry | rx)) continue;
+        status = dw_map(&maps.x[2 * ry + rx], x + ((int64_t)ry * W + rx) * Cin, Cin, W / stride,
+                        H / stride, N, stride * bx, stride * (int64_t)W * bx,
+                        (int64_t)H * W * bx, geo.bw, geo.bh);
+      }
+  }
+  if (status != 0) return status;
+  auto* kernel = conv2d_dw_wg_kernel<BN, kNarrow>;
+  const int64_t chunk = (geo.slices + splits - 1) / splits;
+  float* part = splits > 1 ? ws : nullptr;
+  status = wgb::launch<BN>(
+      kernel,
+      [&](dim3 grid, int smem) {
+        kernel<<<grid, wgb::THREADS, smem, s>>>(maps, geo, dw, part, chunk);
+      },
+      geo.M, Cout, splits);
+  if (status != 0 || splits == 1) return status;
+  const int64_t mn = geo.M * Cout;
+  int64_t blocks = (mn + 255) / 256;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, dw, mn, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout) on
+// the wgmma core: Cin % 64 == 0 or Cin == 8 (the wrapper pads the stem's 3
+// channels to 8), Cout % 8 == 0, x and g 16-byte aligned, stride 1 or 2
+// (the wrapper routes every other shape to rt_conv2d_dw_nhwc_bf16_mma);
+// tiles 128 x 64 where Cout <= 64, else 128 x 128; splits K splits of whole
+// slices (ws: splits * k*k*Cin * Cout floats when splits > 1)
+extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint16_t* dw,
+                                      int N, int H, int W, int Cin, int Cout, int k,
+                                      int stride, float* ws, int splits, void* stream) {
+  const bool narrow = Cin == 8;
+  if ((Cin % 64 != 0 && !narrow) || Cout % 8 != 0 || !bfg::aligned16(x) ||
+      !bfg::aligned16(g) || (stride != 1 && stride != 2) || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto* run = Cout <= 64 ? (narrow ? dw_wg<64, true> : dw_wg<64, false>)
+                         : (narrow ? dw_wg<128, true> : dw_wg<128, false>);
+  return run(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, (cudaStream_t)stream);
 }

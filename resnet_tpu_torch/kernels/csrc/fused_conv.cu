@@ -49,9 +49,10 @@
 // rounded to bf16 before the dot (fused_conv.py:61-76), the weight cast to
 // x's dtype by the wrapper (:215), bf16 products into an fp32 accumulator,
 // y rounded once (:108), [sum y, sum y^2] from the fp32 accumulator, not
-// from the rounded y (:109-110); on bf16_gemm.cuh's mma.sync core with the
-// loader FusedConvBfA and its statistics epilogue (fused_conv.cuh). When K
-// splits, the statistics come from the fp32 split sum before its rounding
+// from the rounded y (:109-110); on wgb_gemm.cuh's wgmma + TMA core
+// (fused_conv.cuh fused_conv_wg_kernel: the weight by TMA as it lies, the
+// gather by cp.async with the prologue applied in place, the statistics
+// epilogue from the fp32 accumulators). When K splits, the statistics come from the fp32 split sum before its rounding
 // (splitk_sum_stats_bf16): a column pass over the rounded y would give the
 // statistics of the torch-ops chain, not K8's. K9: e and r upcast, fp32
 // arithmetic, one rounding (:506-513). Bound: K8 by operations at 989

@@ -33,23 +33,34 @@
 // bf16 e and r are read into fp32 and the result rounded once.
 //
 // bf16 (K8 and K10 on bf16 tensors): the implicit GEMM runs on
-// bf16_gemm.cuh's core with the loader FusedConvBfA: each thread loads 8
-// bf16 values of x through registers, so the prologue rides the load: the
-// affine, ReLU and cap in fp32 on the upcast value, rounded to bf16 before
-// the product (fused_conv.py:61-76); a halo tap and a column past K are
-// exactly 0. The statistics come from the fp32 accumulators
-// (fused_conv.py:109-110), never from the rounded y: one split, the GEMM
-// epilogue's tile partials (bf16_gemm.cuh kStats); several, the split sum
-// of splitk_sum_stats_bf16, which adds the fp32 partials in split order,
-// rounds y once and takes the column partials from the fp32 sum before
-// that rounding.
+// wgb_gemm.cuh's wgmma core (fused_conv_wg_kernel below): B, the weight
+// (k*k*Cin, Cout) row-major, by TMA as it lies (MN-major, the transpose bit
+// of wgmma's descriptor); A, the im2col gather of x, K-major, by cp.async
+// into the ring's swizzled slot, 16 bytes (8 channels of one tap) per copy,
+// each thread's four rows decoded once per tile and its (tap, channel)
+// cursor walked by 64 columns; once a thread's copies have landed it applies
+// the prologue in place to the chunks it read (the affine, ReLU and cap in
+// fp32 on the upcast value, rounded to bf16 before the product,
+// fused_conv.py:61-76), one (scale, shift) load per 8 channels; a halo tap
+// or a column past K was zero-filled and stays exactly 0. Ragged widths
+// (Cin or Cout not a multiple of 8, or x or w not 16-byte aligned) load
+// both operands through the threads instead, 2 bytes at a time, the
+// prologue applied on the way. The statistics come from the fp32
+// accumulators (fused_conv.py:109-110), never from the rounded y: one
+// split, the core's per-128-row-tile epilogue (wgb::tile_stats); several,
+// the split sum of splitk_sum_stats_bf16, which adds the fp32 partials in
+// split order, rounds y once and takes the column partials from the fp32
+// sum before that rounding.
 //
 #pragma once
+
+#include <cstring>
 
 #include "bf16_gemm.cuh"
 #include "im2col.cuh"
 #include "rowwise.cuh"
 #include "tc_gemm.cuh"
+#include "wgb_gemm.cuh"
 
 namespace {
 
@@ -205,13 +216,13 @@ inline int launch_join(const T* e, const T* r, T* o, int64_t n, int C, F f, cuda
 
 // ---------------------------------------------------------------- bf16
 
-// A of the bf16 fused conv: the im2col gather of x (N, H, W, Cin) bf16 for
-// a k x k window at stride `stride` whose origin is (pad_top, pad_left),
-// output (Ho, Wo), K contiguous, 8 values per load8; with the prologue,
-// each in-image value becomes bf16(act(v * scale[ci] + shift[ci])), each
-// step rounded in fp32 as the plain version rounds it
+// The bf16 fused conv's gather: x (N, H, W, Cin) bf16 for a k x k window
+// at stride `stride` whose origin is (pad_top, pad_left), output (Ho, Wo),
+// A((n, oy, ox), (di, dj, ci)) = x[n, stride * oy - pad_top + di, ...],
+// K-major; with the prologue each in-image value becomes
+// bf16(act(v * scale[ci] + shift[ci])), each step rounded in fp32 as the
+// plain version rounds it
 struct FusedConvBfA {
-  static constexpr bool kKContig = true;
   const uint16_t* __restrict__ x;
   const float* __restrict__ scale;
   const float* __restrict__ shift;
@@ -221,46 +232,10 @@ struct FusedConvBfA {
   bool prologue;
   Act act;
 
-  __device__ uint16_t pro(uint16_t v, int ci) const {
+  __device__ uint16_t pro(uint16_t v, float sc, float sh) const {
     const float f = __bfloat162float(__ushort_as_bfloat16(v));
-    return bfg::to_bf16(act(__fadd_rn(__fmul_rn(f, __ldg(scale + ci)), __ldg(shift + ci))));
+    return bfg::to_bf16(act(__fadd_rn(__fmul_rn(f, sc), sh)));
   }
-
-  __device__ uint4 load8(int64_t m, int64_t k, int64_t kend) const {
-    if (m >= M) return bfg::zero4();
-    const int64_t n = m / ((int64_t)Ho * Wo);
-    const int rem = (int)(m - n * Ho * Wo);
-    const int oy = rem / Wo;
-    const int iy0 = stride * oy - pad_top, ix0 = stride * (rem - oy * Wo) - pad_left;
-    const uint16_t* base = x + n * H * W * Cin;
-    if (vec) {  // k is a multiple of 8: one tap, 8 channels
-      if (k >= kend) return bfg::zero4();
-      const int tap = (int)(k / Cin), ci = (int)(k - (int64_t)tap * Cin);
-      const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
-      if (iy < 0 || iy >= H || ix < 0 || ix >= W) return bfg::zero4();  // the halo
-      const uint4 u = bfg::ld128(base + ((int64_t)iy * W + ix) * Cin + ci);
-      if (!prologue) return u;
-      uint16_t v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = pro(bfg::half_of(u, j), ci + j);
-      return bfg::pack8(v);
-    }
-    uint16_t v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = 0;
-      if (k + j < kend) {
-        const int tap = (int)((k + j) / Cin), ci = (int)(k + j - (int64_t)tap * Cin);
-        const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
-          const uint16_t u = bfg::ld16(base + ((int64_t)iy * W + ix) * Cin + ci);
-          v[j] = prologue ? pro(u, ci) : u;
-        }
-      }
-    }
-    return bfg::pack8(v);
-  }
-  __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
 inline FusedConvBfA conv_loader_bf16(const uint16_t* x, const float* scale, const float* shift,
@@ -269,6 +244,201 @@ inline FusedConvBfA conv_loader_bf16(const uint16_t* x, const float* scale, cons
                                      Act act) {
   return FusedConvBfA{x, scale, shift, H, W, Cin, k, stride, pad_top, pad_left, Ho, Wo,
                       (int64_t)N * Ho * Wo, Cin % 8 == 0 && rt::aligned16(x), prologue, act};
+}
+
+// One block's copies for fused_conv_wg_kernel (wgb::mainloop's Block). The
+// thread copies chunk column cc = tid % 8 (8 K columns) of rows tid / 8 + 32 i,
+// i < 4, of each 128 x 64 slice of A; with kVec its chunk is 8 channels of
+// one tap, copied by cp.async, and thread 0 asks TMA for B's boxes; without,
+// every thread loads its A chunks and B's 8-column chunks element by element.
+template <int BN, bool kVec>
+struct ConvWgBlock {
+  const FusedConvBfA& a;
+  const CUtensorMap* wmap;
+  const uint16_t* __restrict__ w;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int64_t K, k_lo;  // the split's first K column
+  int N, col0, cc, rlo;
+  int64_t off[4];   // x's offset of each row's image
+  int iy[4], ix[4];  // each row's window origin
+  int64_t k;         // the K column of the thread's chunk in the next slice
+  int di, dj, ci;    // its tap and channel (kVec)
+
+  __device__ ConvWgBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_, const uint16_t* w_,
+                         const wgb::Smem<BN>& sm_, uint64_t* full_, int64_t k_lo_, int N_,
+                         int col0_, int64_t row0)
+      : a(a_), wmap(wmap_), w(w_), sm(sm_), full(full_),
+        K((int64_t)a_.ksize * a_.ksize * a_.Cin), k_lo(k_lo_), N(N_), col0(col0_),
+        cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {
+    const int howo = a.Ho * a.Wo;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t m = row0 + rlo + 32 * i;
+      off[i] = 0;
+      iy[i] = -(1 << 29);  // a row past M: outside the image at every tap
+      ix[i] = 0;
+      if (m < a.M) {
+        const int64_t n = m / howo;
+        const int rem = (int)(m - n * howo);
+        const int oy = rem / a.Wo;
+        off[i] = n * a.H * a.W * a.Cin;
+        iy[i] = a.stride * oy - a.pad_top;
+        ix[i] = a.stride * (rem - oy * a.Wo) - a.pad_left;
+      }
+    }
+    k = k_lo + 8 * cc;
+    const int64_t tap = k / a.Cin;
+    ci = (int)(k - tap * a.Cin);
+    di = (int)(tap / a.ksize);
+    dj = (int)(tap - (int64_t)di * a.ksize);
+  }
+
+  __device__ bool on(int) const { return true; }
+
+  __device__ bool inside(int y, int x) const {
+    return (unsigned)y < (unsigned)a.H && (unsigned)x < (unsigned)a.W;
+  }
+
+  __device__ void load(int slot, int kt) {
+    uint8_t* st = sm.slot(slot);
+    const uint32_t sa = rt::tc::smem_u32(st);
+    if constexpr (kVec) {
+      const bool kin = k < K;
+      uint32_t mask = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = iy[i] + di, x = ix[i] + dj;
+        const bool ok = kin && inside(y, x);
+        const uint16_t* src = ok ? a.x + off[i] + ((int64_t)y * a.W + x) * a.Cin + ci : a.x;
+        wgb::cp16(sa + wgb::swz(rlo + 32 * i, cc), src, ok);
+        mask |= (uint32_t)ok << i;
+      }
+      sm.info[slot * wgb::THREADS + threadIdx.x] = mask | (uint32_t)ci << 4;
+      k += wgb::BK;
+      for (ci += wgb::BK; ci >= a.Cin; ci -= a.Cin)
+        if (++dj == a.ksize) {
+          dj = 0;
+          ++di;
+        }
+      if (threadIdx.x == 0) {
+        const uint32_t bar = rt::tc::smem_u32(&full[slot]);
+        rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::B_BYTES);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          wgb::tma_2d(sa + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap, bar, col0 + 64 * j,
+                      (int)(k_lo + (int64_t)kt * wgb::BK));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint16_t v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v[e] = 0;
+          const int64_t kk = k + e;
+          if (kk < K) {
+            const int64_t tap = kk / a.Cin;
+            const int c = (int)(kk - tap * a.Cin);
+            const int ty = (int)(tap / a.ksize);
+            const int y = iy[i] + ty, x = ix[i] + (int)(tap - (int64_t)ty * a.ksize);
+            if (inside(y, x)) {
+              const uint16_t u = bfg::ld16(a.x + off[i] + ((int64_t)y * a.W + x) * a.Cin + c);
+              v[e] = a.prologue ? a.pro(u, __ldg(a.scale + c), __ldg(a.shift + c)) : u;
+            }
+          }
+        }
+        *reinterpret_cast<uint4*>(st + wgb::swz(rlo + 32 * i, cc)) = bfg::pack8(v);
+      }
+      k += wgb::BK;
+      // B: BN / 64 halves of 64 K rows x 8 chunks of 8 columns
+      const int64_t kb = k_lo + (int64_t)kt * wgb::BK;
+#pragma unroll
+      for (int p = 0; p < BN / 32; ++p) {
+        const int q = threadIdx.x + wgb::THREADS * p;
+        const int hb = q / 512, kr = (q / 8) % 64, j = q % 8;
+        const int c = col0 + 64 * hb + 8 * j;
+        uint16_t v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = kb + kr < K && c + e < N ? bfg::ld16(w + (kb + kr) * N + c + e) : 0;
+        *reinterpret_cast<uint4*>(st + wgb::Tile<BN>::A_BYTES + hb * wgb::HALF +
+                                  wgb::swz(kr, j)) = bfg::pack8(v);
+      }
+      if (threadIdx.x == 0) rt::wg::mbar_expect_tx(&full[slot], 0);  // no TMA: arrive
+    }
+  }
+
+  // the prologue on the chunks this thread copied into slice kt's slot
+  __device__ void fix(int slot, int) const {
+    if constexpr (kVec) {
+      if (!a.prologue) return;
+      const uint32_t info = sm.info[slot * wgb::THREADS + threadIdx.x];
+      if (!(info & 15)) return;
+      const int c = (int)(info >> 4);
+      float sc[8], sh[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sc[e] = __ldg(a.scale + c + e);
+        sh[e] = __ldg(a.shift + c + e);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!(info >> i & 1)) continue;
+        uint4* p = reinterpret_cast<uint4*>(sm.slot(slot) + wgb::swz(rlo + 32 * i, cc));
+        const uint4 u = *p;
+        uint16_t v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = a.pro(bfg::half_of(u, e), sc[e], sh[e]);
+        *p = bfg::pack8(v);
+      }
+    }
+  }
+};
+
+// y (M, N) bf16 of the conv gathered by `a` with the weight (K, N) (by TMA
+// through wmap with kVec, else read from w), on 128 x BN tiles; split
+// blockIdx.z of K's slices [z * chunk, (z + 1) * chunk): with ws its fp32
+// partials into ws + z * M * N, else y and, unless tile_sums is nullptr,
+// the tile's column sums
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(wgb::THREADS, wgb::Tile<BN>::MIN_BLOCKS)
+fused_conv_wg_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ FusedConvBfA a, const uint16_t* __restrict__ w,
+                     uint16_t* __restrict__ y, float* __restrict__ ws, int N, int64_t chunk,
+                     float* __restrict__ tile_sums) {
+  extern __shared__ __align__(1024) uint8_t fc_wg_smem[];
+  __shared__ __align__(8) uint64_t full[wgb::Tile<BN>::STAGES];
+  const wgb::Smem<BN> sm = wgb::smem_layout<BN>(fc_wg_smem);
+  const int64_t row0 = (int64_t)blockIdx.x * wgb::BM;
+  const int col0 = blockIdx.y * BN;
+  const int64_t slices = wgb::slices_of((int64_t)a.ksize * a.ksize * a.Cin);
+  const int64_t s0 = (int64_t)blockIdx.z * chunk;
+  const int64_t s1 = slices < s0 + chunk ? slices : s0 + chunk;
+  ConvWgBlock<BN, kVec> blk(a, &wmap, w, sm, full, s0 * wgb::BK, N, col0, row0);
+  wgb::init_barriers<wgb::Tile<BN>::STAGES>(full);
+  float acc[wgb::Tile<BN>::NACC];
+  wgb::mainloop<BN, wgb::A_K>(blk, sm, full, s1 > s0 ? (int)(s1 - s0) : 0, acc);
+  wgb::store_tile<BN>(acc, sm, row0, col0, a.M, N, y,
+                      ws ? ws + (int64_t)blockIdx.z * a.M * N : nullptr);
+  if (ws == nullptr && tile_sums != nullptr)
+    wgb::tile_stats<BN>(acc, sm, blockIdx.x, col0, a.M, N, tile_sums);
+}
+
+template <int BN, bool kVec>
+inline int launch_fused_wg(const CUtensorMap& map, const FusedConvBfA& a, const uint16_t* w,
+                           uint16_t* y, float* part, int N, float* ws, int splits,
+                           cudaStream_t s) {
+  auto* kernel = fused_conv_wg_kernel<BN, kVec>;
+  const int64_t chunk =
+      (wgb::slices_of((int64_t)a.ksize * a.ksize * a.Cin) + splits - 1) / splits;
+  return wgb::launch<BN>(
+      kernel,
+      [&](dim3 grid, int smem) {
+        kernel<<<grid, wgb::THREADS, smem, s>>>(map, a, w, y, splits > 1 ? ws : nullptr, N,
+                                                chunk, part);
+      },
+      a.M, N, splits);
 }
 
 // Split-K case of the bf16 GEMM: y (M, C) = bf16(sum over the splits of
@@ -308,17 +478,27 @@ splitk_sum_stats_bf16(const float* __restrict__ ws, uint16_t* __restrict__ y,
   }
 }
 
-static_assert(TILE_M == 128, "the bf16 statistics tile is the bf16 GEMM's 128-row tile");
+static_assert(TILE_M == wgb::BM, "the bf16 statistics tile is the wgmma core's 128-row tile");
 
 // y (M, Cout) bf16 of the conv gathered by `a` with w (k * k * Cin, Cout)
 // bf16 row-major, and the tile partials of its fp32 accumulator in part
 // (m_tiles * 2 * Cout floats, m_tiles = ceil(M / TILE_M)); ws holds splits
-// * M * Cout floats when splits > 1. Enqueued on s; returns the status.
+// * M * Cout floats when splits > 1. Tiles 128 x 64 where Cout <= 64, else
+// 128 x 128 (build.wgb_tile_n). Enqueued on s; returns the status.
 inline int fused_gemm_bf16(const FusedConvBfA& a, const uint16_t* w, uint16_t* y, float* part,
                            int Cout, float* ws, int splits, cudaStream_t s) {
-  const int status =
-      bfg::enqueue<128, true>(a, bfg::row_mn(w, Cout), y, ws, a.M, Cout,
-                              (int64_t)a.ksize * a.ksize * a.Cin, splits, Cout, part, s);
+  if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int64_t K = (int64_t)a.ksize * a.ksize * a.Cin;
+  const bool vec = a.vec && Cout % 8 == 0 && rt::aligned16(w);
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (vec) {
+    const int status = wgb::matrix_map(&map, w, K, Cout);
+    if (status != 0) return status;
+  }
+  auto* gemm = Cout <= 64 ? (vec ? launch_fused_wg<64, true> : launch_fused_wg<64, false>)
+                          : (vec ? launch_fused_wg<128, true> : launch_fused_wg<128, false>);
+  const int status = gemm(map, a, w, y, part, Cout, ws, splits, s);
   if (status != 0) return status;
   if (splits > 1) {
     const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;

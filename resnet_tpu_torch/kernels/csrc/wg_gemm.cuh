@@ -502,6 +502,10 @@ struct SplitJobs {
   SplitJob job[3];
 };
 
+// internal to each source that includes this header (K8-bf16's and K1's
+// bf16 dW core, wgb_gemm.cuh, includes it too)
+namespace {
+
 constexpr int SPLIT_TILE = 32;
 constexpr int SPLIT_ROWS = 8;  // threadIdx.y extent
 
@@ -540,6 +544,8 @@ inline int launch_split(const SplitJobs& jobs, int count, cudaStream_t s) {
   split_tf32_kmajor<<<grid, dim3(SPLIT_TILE, SPLIT_ROWS), 0, s>>>(jobs);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 // libcuda's cuTensorMapEncodeTiled through the runtime (no -lcuda);
 // nullptr if the installed libcuda has none

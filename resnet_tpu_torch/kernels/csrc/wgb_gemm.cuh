@@ -1,0 +1,472 @@
+// bf16 GEMM core on Hopper's warpgroup MMA (wgmma) with TMA: bf16 operands
+// read by descriptor from 128-byte-swizzled shared memory, an fp32
+// accumulator, one rounding to bf16 at the end. Carries K1's bf16 dW
+// (conv.cu) and the bf16 fused conv K8 (fused_conv.cuh), and through K8's
+// GEMM the three GEMMs of the bf16 K10 (block_fused.cu).
+//
+// C[m, n] = sum_k A(m, k) * B(k, n). One 256-thread block computes a
+// 128 x BN tile (BN = 64 where N <= 64, else 128): two warpgroups of 64
+// rows, each issuing wgmma.mma_async.m64nBNk16.f32.bf16.bf16 over the whole
+// width with both operands in shared memory.
+//
+// Replaces, in bf16, the Pallas matmul the conv VJP runs per tap for dW
+// (resnet_tpu/kernels/conv.py:172-196 on matmul.py:26) and the fused conv
+// (fused_conv.py:45). Both take bf16 blocks into an fp32 accumulator and
+// cast once; dW's JAX inputs are the upcast bf16 values, whose products are
+// exact in fp32 here too.
+//
+// * Operand layouts. A slice is BK = 64 deep: one 128-byte swizzle row of
+//   bf16. An MN-major operand (dW's A = x and B = g; K8's B = the weight
+//   (K, Cout) row-major) is stored as TMA writes a box whose inner extent is
+//   64 elements of the MN dimension: BK rows of 128 bytes, 8-row atoms
+//   1024 bytes apart (SBO), a second 64-wide half 8192 bytes on (LBO), and
+//   wgmma reads it with its transpose bit set: no thread transposes
+//   anything. A k16 step moves the start address by two atoms (2048
+//   bytes). A K-major A (K8's im2col gather) is 128 rows of 128 bytes, the
+//   16-byte chunk j of row r at chunk j ^ (r % 8) (the same swizzle), a k16
+//   step 32 bytes along the row.
+// * Copies: a ring of STAGES slots in dynamic shared memory, one mbarrier
+//   per slot counting the TMA bytes of its slice (every TMA box lands
+//   whole: parts outside the tensor arrive as zeros and count). Threads
+//   that write a slot themselves (K8's A by cp.async, then the prologue in
+//   place; dW's 8-channel A by cp.async; the ragged widths' scalar loads)
+//   fence their writes into the async proxy before the block barrier that
+//   precedes the products. The block waits for every wgmma of a slice
+//   before the barrier that frees its slot. An mbarrier phase that never completes traps (wg_gemm.cuh).
+// * Accumulation: the four k16 wgmmas of a slice chain into a fresh
+//   accumulator d (scale-d 0 on the first), and an fp32 add folds d into
+//   the running sum once per 64-deep slice: the tensor core rounds its sums
+//   toward zero, so a chain over dW's hundreds of thousands of pixels is
+//   out; over one slice it is 4 steps.
+// * Split-K: K splits at slice boundaries, `chunk` slices per split (the
+//   last may be short or, where the caller's plan rounds differently, empty:
+//   an empty split writes zeros). Several splits write fp32 partials that
+//   splitk_sum_bf16 (or K8's splitk_sum_stats_bf16) add in split order and
+//   round once. No atomics: a run repeats bit for bit.
+// * Statistics (K8): per 128-row tile, [sum C, sum C^2] of each column from
+//   the fp32 accumulator before its rounding, over each thread's two rows,
+//   over gid by __shfl_xor, over the eight warps in warp order, into
+//   tile_sums[(m tile * 2 + {0, 1}) * N + col].
+//
+// Each thread's accumulator d[4j + e] sits at row 16 * warp + gid +
+// 8 * (e / 2), column 8j + 2 tig + e % 2 of the tile.
+//
+// Measured: PERF.md (registers and shared memory from -Xptxas -v,
+// chip_smoke.py's build phase).
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only: libcuda is not linked)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bf16_gemm.cuh"  // to_bf16, splitk_sum_bf16
+#include "wg_gemm.cuh"    // mbarriers, fence_operand, the tensor-map encoder
+
+namespace {
+namespace wgb {
+
+constexpr int BM = 128;
+constexpr int BK = 64;          // bf16 per slice row: one 128-byte swizzle row
+constexpr int THREADS = 256;
+constexpr int HALF = 8192;      // bytes of a 64-row K-major tile or a 64-wide MN-major half
+constexpr int ATOM = 1024;      // bytes of an 8-row swizzle atom
+
+template <int BN>
+struct Tile {
+  static_assert(BN == 64 || BN == 128, "BN");
+  static constexpr int STAGES = BN == 64 ? 4 : 6;
+  static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;  // resident per SM
+  static constexpr int NACC = BN / 2;                   // accumulator floats per thread
+  static constexpr int A_BYTES = 2 * HALF;              // 128 rows (or two 64-wide halves)
+  static constexpr int B_BYTES = BN / 64 * HALF;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // the ring, the statistics' reduction [2][warps][BN], the copies' record
+  // [STAGES][THREADS], + alignment slack
+  static constexpr int SMEM =
+      STAGES * STAGE_BYTES + 2 * (THREADS / 32) * BN * 4 + STAGES * THREADS * 4 + ATOM;
+};
+
+// A's shared layouts: K-major, 128-byte swizzle (K8's gather); MN-major,
+// 128-byte swizzle (dW's x at 64 channels a tap); MN-major without swizzle
+// in 8-element groups (dW's x at 8 channels a tap: 64 pixels x 8 channels
+// are 64 rows of 16 bytes, eight 8 x 8 core matrices 128 bytes apart along
+// K, the next tap's 1024 bytes on along M)
+constexpr int A_K = 0, A_MN = 1, A_MN8 = 2;
+
+// descriptor of a 128-byte-swizzled tile at shared address saddr: 8-row
+// atoms 1024 bytes apart along K, 64-wide MN halves `lbo` bytes apart (an
+// MN-major operand; a K-major one ignores lbo)
+__device__ __forceinline__ uint64_t desc(uint32_t saddr, uint32_t lbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(ATOM >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// descriptor of an unswizzled MN-major tile of 8 x 8 core matrices (A_MN8):
+// K neighbours 128 bytes apart (LBO), M neighbours 1024 bytes (SBO)
+__device__ __forceinline__ uint64_t desc_mn8(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(ATOM >> 4) << 32);
+}
+
+// A's descriptor for k16 step ks of the tile at a: two swizzle atoms on
+// MN-major, 32 bytes along the row K-major, two core matrices unswizzled
+template <int AL>
+__device__ __forceinline__ uint64_t desc_a(uint32_t a, int ks) {
+  if constexpr (AL == A_K) return desc(a + ks * 32, 16);
+  if constexpr (AL == A_MN) return desc(a + ks * 2 * ATOM, HALF);
+  return desc_mn8(a + ks * 256);
+}
+
+// d (+)= A * B over one k16 step; TA, TB: the operand is MN-major
+template <int BN, int TA, int TB>
+struct Mma;
+
+template <int TA, int TB>
+struct Mma<64, TA, TB> {
+  __device__ static __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<128, TA, TB> {
+  __device__ static __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+// one TMA box of a 2-D or 4-D tensor map at the given coordinates into the
+// shared address dst, its bytes reported to the mbarrier at bar
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// 16 bytes from global src to shared dst; ok false writes zeros, reads nothing
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// the shared byte offset of 16-byte chunk j of row r in a swizzled tile of
+// 128-byte rows
+__device__ __forceinline__ int swz(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
+
+// The block's shared memory: the 1024-aligned ring, then the statistics'
+// reduction and the copies' record
+template <int BN>
+struct Smem {
+  uint8_t* ring;
+  float* red;      // [2][WARPS][BN]
+  uint32_t* info;  // [STAGES][THREADS]
+  __device__ uint8_t* slot(int s) const { return ring + s * Tile<BN>::STAGE_BYTES; }
+};
+
+template <int BN>
+__device__ __forceinline__ Smem<BN> smem_layout(uint8_t* raw) {
+  using T = Tile<BN>;
+  Smem<BN> s;
+  s.ring = raw + ((ATOM - (rt::tc::smem_u32(raw) & (ATOM - 1))) & (ATOM - 1));
+  s.red = reinterpret_cast<float*>(s.ring + T::STAGES * T::STAGE_BYTES);
+  s.info = reinterpret_cast<uint32_t*>(s.red + 2 * (THREADS / 32) * BN);
+  return s;
+}
+
+// The main loop over nk slices of this block's K range. blk.load(slot, kt)
+// (every thread) starts slice kt's copies into `slot`: thread 0 arms the
+// slot's mbarrier with the TMA bytes it then requests; blk.fix(slot, kt)
+// (every thread) runs once the thread's own copies of slice kt have
+// landed; blk.on(wg) says whether warpgroup wg's 64 rows exist. AL: A's
+// layout (A_K: 128 rows; A_MN, A_MN8: two 64-wide halves, one per
+// warpgroup). acc ends as the sum over the slices.
+template <int BN, int AL, class Block>
+__device__ __forceinline__ void mainloop(Block& blk, const Smem<BN>& sm, uint64_t* full,
+                                         int nk, float (&acc)[Tile<BN>::NACC]) {
+  using T = Tile<BN>;
+  constexpr int S = T::STAGES;
+  const int wg = threadIdx.x / 128;
+  const bool on = blk.on(wg);
+  float d[T::NACC];
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) acc[i] = d[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) blk.load(s, s);
+    rt::tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % S;
+    rt::tc::cp_async_wait<S - 2>();  // this thread's copies of slice kt have landed
+    blk.fix(slot, kt);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // every thread's part of slice kt is in; slot kt - 1 is free
+    if (kt + S - 1 < nk) blk.load((kt + S - 1) % S, kt + S - 1);
+    rt::tc::cp_async_commit();
+    rt::wg::mbar_wait(&full[slot], (uint32_t)(kt / S) & 1);  // its TMA boxes have landed
+    if (on) {
+      const uint32_t base = rt::tc::smem_u32(sm.slot(slot));
+      const uint32_t a = base + wg * HALF, b = base + T::A_BYTES;
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        Mma<BN, AL != A_K, 1>::run(d, desc_a<AL>(a, ks), desc(b + ks * 2 * ATOM, HALF), ks);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) {
+        rt::wg::fence_operand(d[i]);
+        acc[i] = __fadd_rn(acc[i], d[i]);
+      }
+    }
+  }
+  rt::tc::cp_async_wait<0>();
+}
+
+// The block's tile of rows row0 + [0, 128), columns col0 + [0, BN) of an
+// (M, N) output: rounded to bf16 into y (row-major, stride N), or, with
+// part, fp32 into part (the block's split's (M, N) partials). Where N % 8
+// == 0 and the output is 16-byte aligned the tile goes through the ring
+// (free once every warpgroup is past its last slice) and leaves in 16-byte
+// stores along whole rows; otherwise each thread writes its own pairs.
+// Rows past M, which a warpgroup that is off holds, are not written.
+// Called by every thread of the block.
+template <int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[Tile<BN>::NACC], const Smem<BN>& sm,
+                                           int64_t row0, int col0, int64_t M, int N,
+                                           uint16_t* y, float* part) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool pairs = N % 2 == 0;
+  const uintptr_t out = part ? (uintptr_t)part : (uintptr_t)y;
+  if (N % 8 == 0 && out % 16 == 0) {
+    __syncthreads();  // every warpgroup is done with the ring
+    if (part) {
+      constexpr int LD = BN + 4;  // floats a staged row
+      float* t = reinterpret_cast<float*>(sm.ring);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<float2*>(t + (warp * 16 + gid + 8 * h) * LD + 8 * j + 2 * tig) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      __syncthreads();
+      for (int q = tid; q < BM * BN / 4; q += THREADS) {
+        const int r = q / (BN / 4), c = q % (BN / 4) * 4;
+        const int64_t gm = row0 + r;
+        if (gm < M && col0 + c < N)
+          *reinterpret_cast<float4*>(part + gm * N + col0 + c) =
+              *reinterpret_cast<const float4*>(t + r * LD + c);
+      }
+    } else {
+      constexpr int LD = BN + 8;  // bf16 a staged row
+      uint16_t* t = reinterpret_cast<uint16_t*>(sm.ring);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<uint32_t*>(t + (warp * 16 + gid + 8 * h) * LD + 8 * j + 2 * tig) =
+              (uint32_t)bfg::to_bf16(acc[4 * j + 2 * h]) |
+              ((uint32_t)bfg::to_bf16(acc[4 * j + 2 * h + 1]) << 16);
+      __syncthreads();
+      for (int q = tid; q < BM * BN / 8; q += THREADS) {
+        const int r = q / (BN / 8), c = q % (BN / 8) * 8;
+        const int64_t gm = row0 + r;
+        if (gm < M && col0 + c < N)
+          *reinterpret_cast<uint4*>(y + gm * N + col0 + c) =
+              *reinterpret_cast<const uint4*>(t + r * LD + c);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t gm = row0 + warp * 16 + gid + 8 * h;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int gc = col0 + 8 * j + 2 * tig;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (part) {
+        float* p = part + gm * N + gc;
+        if (pairs && gc + 1 < N) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (gc < N) p[0] = v0;
+          if (gc + 1 < N) p[1] = v1;
+        }
+      } else {
+        uint16_t* p = y + gm * N + gc;
+        if (pairs && gc + 1 < N) {
+          *reinterpret_cast<uint32_t*>(p) =
+              (uint32_t)bfg::to_bf16(v0) | ((uint32_t)bfg::to_bf16(v1) << 16);
+        } else {
+          if (gc < N) p[0] = bfg::to_bf16(v0);
+          if (gc + 1 < N) p[1] = bfg::to_bf16(v1);
+        }
+      }
+    }
+  }
+}
+
+// The tile's per-column [sum C, sum C^2] over its valid rows into
+// tile_sums[(m_tile * 2 + {0, 1}) * N + col], in one fixed order. Called by
+// every thread of the block.
+template <int BN>
+__device__ __forceinline__ void tile_stats(const float (&acc)[Tile<BN>::NACC], const Smem<BN>& sm,
+                                           int64_t m_tile, int col0, int64_t M, int N,
+                                           float* __restrict__ tile_sums) {
+  constexpr int WARPS = THREADS / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t r0 = m_tile * BM + warp * 16 + gid;
+  const bool ok0 = r0 < M, ok1 = r0 + 8 < M;
+  float s[BN / 8][2], q[BN / 8][2];
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v0 = ok0 ? acc[4 * j + e] : 0.f;
+      const float v1 = ok1 ? acc[4 * j + 2 + e] : 0.f;
+      s[j][e] = v0 + v1;
+      q[j][e] = v0 * v0 + v1 * v1;
+    }
+  // over the 8 gid of a tig: lanes tig, tig + 4, ... (lane = 4 gid + tig)
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] += __shfl_xor_sync(0xffffffffu, s[j][e], off);
+        q[j][e] += __shfl_xor_sync(0xffffffffu, q[j][e], off);
+      }
+  if (gid == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tig + e;
+        sm.red[warp * BN + col] = s[j][e];
+        sm.red[(WARPS + warp) * BN + col] = q[j][e];
+      }
+  }
+  __syncthreads();
+  if (tid < 2 * BN) {
+    const int which = tid / BN, col = tid % BN;
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t += sm.red[(which * WARPS + w) * BN + col];
+    if (col0 + col < N) tile_sums[(m_tile * 2 + which) * N + col0 + col] = t;
+  }
+}
+
+// the slot's mbarriers initialised by thread 0 before any copy
+template <int S>
+__device__ __forceinline__ void init_barriers(uint64_t* full) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) rt::wg::mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------ host side
+
+// A bf16 tensor map of `rank` dims (dims[0] contiguous; strides in bytes of
+// dims 1..rank-1) for boxes `box`, 128-byte swizzle, zeros outside the
+// tensor. 0, or rt::wg::MAP_ERROR + libcuda's status.
+inline int map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  const rt::wg::EncodeTiled encode = rt::wg::encode_tiled();
+  if (encode == nullptr) return rt::wg::MAP_ERROR;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                            const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : rt::wg::MAP_ERROR + (int)r;
+}
+
+// the map of a (rows, cols) row-major bf16 matrix (cols % 8 == 0, base
+// 16-byte aligned) for boxes of 64 columns x BK rows: an MN-major B
+inline int matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, BK};
+  return map_bf16(map, base, 2, dims, strides, box);
+}
+
+// slices of BK in K
+__host__ __device__ inline int64_t slices_of(int64_t K) { return (K + BK - 1) / BK; }
+
+// Launch `kern(grid, smem)` for an (M, N) output of tile width BN with
+// `splits` K splits, one block per (m tile, n tile, split), m fastest,
+// after raising the kernel's dynamic shared memory limit (a host-side
+// attribute, no device work). Returns the launch status.
+template <int BN, class Kernel, class Launch>
+inline int launch(Kernel* kernel, Launch&& kern, int64_t M, int N, int splits) {
+  constexpr int smem = Tile<BN>::SMEM;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (splits < 1 || splits > 65535 || (N + BN - 1) / BN > 65535 || (M + BM - 1) / BM > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  kern(dim3((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN), (unsigned)splits),
+       smem);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgb
+}  // namespace

@@ -38,7 +38,9 @@ fp32 per-channel rows (``build.rows_f32``) and the weight cast to x's
 dtype (fused_conv.py:215): ``rt_fused_conv_bf16`` runs the prologue in
 fp32 on the upcast x and rounds u to bf16 before the dot (:61-76), takes
 bf16 products into an fp32 accumulator, rounds y once (:108) and takes
-[Σy, Σy²] from the fp32 accumulator (:109-110); ``rt_fused_join_bf16``
+[Σy, Σy²] from the fp32 accumulator (:109-110), on ``csrc/wgb_gemm.cuh``'s
+``wgmma`` + TMA core (the weight by TMA as it lies, K split by
+``build.wgb_split``); ``rt_fused_join_bf16``
 computes in fp32 on the upcast e and r and rounds once (:506-513). The
 plain versions round at the same points: ``fused_conv_reference``
 convolves the rounded u and the bf16 weight in fp32 (a bf16 product is
@@ -198,10 +200,12 @@ def _forward(x, w, scale, shift, stride, padding, prologue, relu, cap):
     m = n * ho * wo
     y = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
     sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
-    # the statistics' partials, one row pair per TC_BM-row tile of y
+    # the statistics' partials, one row pair per 128-row tile of y (TC_BM and
+    # WGB_BM alike)
     part = torch.empty((-(-m // build.TC_BM), 2, cout), dtype=torch.float32,
                        device=x.device)
-    splits = build.tc_split(m, cout, k * k * cin)
+    plan = build.wgb_split if x.dtype is torch.bfloat16 else build.tc_split
+    splits = plan(m, cout, k * k * cin)
     ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
     build.launch(build.entry_name("fused_conv", x), x.data_ptr(), w.data_ptr(),
                  scale.data_ptr(), shift.data_ptr(), y.data_ptr(), part.data_ptr(),

@@ -10,7 +10,9 @@ the kernels on tc_gemm.cuh's tensor-core core alone with
 its weight split alone with ``-k "block_fused or split_tf32"``, and the
 clean variant's batch-224 shapes (K1's stem, K2, K2b, K4) with
 ``-k "batch 224"``, and the bf16 entry points (each element within one
-bf16 ulp of the plain value plus 1e-5 of max) with ``-k bf16``.
+bf16 ulp of the plain value plus 1e-5 of max) with ``-k bf16``, the
+kernels on the bf16 wgmma + TMA core (wgb_gemm.cuh: K1's bf16 dW, K8- and
+K10-bf16) with ``-k "conv2d_dw_bf16 or fused_conv_bf16 or block_fused_bf16"``.
 
 Without a CUDA device every test here skips.
 """
@@ -585,3 +587,143 @@ def test_fused_conv_bf16_sums_are_the_accumulators_on_cuda(cuda):
         assert ((sums - want).abs() <= 1e-5 * scale_).all()
         rounded = fused_conv.channel_sums(y)
         assert ((rounded - want).abs().amax(1) > 1e-5 * scale_[:, 0]).all()
+
+
+def _held_bf16(got, want):
+    """got within one bf16 ulp of each plain value plus 1e-5 of max|plain|
+    (checks.check_case's rule for a bf16 output; an fp32 one within 1e-5
+    of max)."""
+    w = want.float()
+    slack = checks.bf16_slack(want) + checks.BF16_REL_TOL * w.abs().max()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert ((got.float() - w).abs() <= slack).all()
+
+
+def _recording(monkeypatch):
+    """build.launch still launching, each entry point's name recorded."""
+    from resnet_tpu_torch.kernels import build
+
+    names, launch = [], build.launch
+
+    def record(name, *args, device):
+        names.append(name)
+        launch(name, *args, device=device)
+
+    monkeypatch.setattr(build, "launch", record)
+    return names
+
+
+def _resnet50_dw_shapes():
+    from resnet_tpu_torch.config import model_config
+
+    m = model_config("resnet50")
+    sites = {(h, cin, cout, k, s) for _, _, h, cin, cout, k, s, *_ in checks.fused_sites(2)}
+    return [(m.input_dim, m.in_channels, m.init_filters, m.init_kernel, m.init_stride)] + sorted(
+        sites)
+
+
+DW_SHAPES = _resnet50_dw_shapes()
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES, ids=[str(s) for s in DW_SHAPES])
+def test_conv2d_dw_bf16_takes_the_wgmma_route_on_cuda(cuda, monkeypatch, shape):
+    """Each ResNet-50 conv's bf16 dW at batch 2 launches the wgmma core's
+    entry point (the stem through its 8-channel padded copy) and holds to
+    the plain dW by the bf16 rule."""
+    from resnet_tpu_torch.kernels import conv
+
+    h, cin, cout, k, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(2, h // s, h // s, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    names = _recording(monkeypatch)
+    got = conv.conv2d_dw(x, g, k, s)
+    assert names == ["rt_conv2d_dw_nhwc_bf16"]
+    _held_bf16(got, conv.conv2d_dw_reference(x, g, k, s))
+
+
+def test_conv2d_dw_bf16_misaligned_takes_the_mma_route_on_cuda(cuda, monkeypatch):
+    """x and g whose data start 2 bytes past a 16-byte boundary are no TMA
+    boxes: dW takes bf16_gemm.cuh's route (2-byte loads) and holds to the
+    plain dW; the same values aligned take the wgmma core to the same
+    rule."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, cin, cout = 4, 14, 64, 128
+    xa = torch.randn(n * h * h * cin + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    ga = torch.randn(n * h * h * cout + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    x, g = xa[1:].view(n, h, h, cin), ga[1:].view(n, h, h, cout)
+    assert x.data_ptr() % 16 and g.data_ptr() % 16
+    names = _recording(monkeypatch)
+    want = conv.conv2d_dw_reference(x, g, 3, 1)
+    _held_bf16(conv.conv2d_dw(x, g, 3, 1), want)
+    _held_bf16(conv.conv2d_dw(x.clone(), g.clone(), 3, 1), want)
+    assert names == ["rt_conv2d_dw_nhwc_bf16_mma", "rt_conv2d_dw_nhwc_bf16"]
+
+
+BF16_DW_REPEAT = [c for c in checks.BF16_DW_CASES if c[0].startswith(("stem", "proj", "1x1"))]
+
+
+@pytest.mark.parametrize("case", BF16_DW_REPEAT, ids=[c[0] for c in BF16_DW_REPEAT])
+def test_conv2d_dw_bf16_repeats_bit_for_bit(cuda, case):
+    """K1's bf16 dW on the wgmma core splits K over its pixels (the stem's
+    narrow tiles, the 3x3/s2 projection's four stride phases, the 1x1s'
+    pixel rows) through fp32 partials added in split order, no atomics:
+    two runs give the same bits."""
+    from resnet_tpu_torch.kernels import build, conv
+
+    _, n, h, cin, cout, k, s = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(n, h // s, h // s, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    first = conv.conv2d_dw(x, g, k, s)
+    assert torch.equal(first, conv.conv2d_dw(x, g, k, s))
+    assert conv.dw_bf16_route(cin, cout, s) == "wgmma"
+    assert build.wgb_split(k * k * max(cin, conv.DW_NARROW), cout, build.WGB_BK *
+                           build.dw_slices(n, h // s, h // s, k, s)) > 1
+
+
+def test_fused_conv_bf16_misaligned_on_cuda(cuda):
+    """K8-bf16 on x and w that start 2 bytes past a 16-byte boundary: no
+    cp.async or TMA box takes them, so both operands go through the
+    threads' 2-byte loads (the prologue applied on the way, the halo left
+    at 0); y within the bf16 rule and the fp32 sums within 1e-5 of max of
+    the plain version's."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, cin, cout = 2, 14, 64, 128
+    xa = torch.randn(n * h * h * cin + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    wa = (torch.randn(9 * cin * cout + 1, generator=gen, device="cuda") * 0.05).to(
+        torch.bfloat16)
+    x, w = xa[1:].view(n, h, h, cin), wa[1:].view(3, 3, cin, cout)
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    scale = 1 + 0.2 * torch.randn(cin, generator=gen, device="cuda")
+    shift = 0.5 * torch.randn(cin, generator=gen, device="cuda")
+    y, sums = fused_conv.fused_conv(x, w, scale, shift, 1)
+    want_y, want_sums = fused_conv.fused_conv_reference(x, w, scale, shift, 1)
+    _held_bf16(y, want_y)
+    assert ((sums - want_sums).abs() <= 1e-5 * want_sums.abs().amax(1, keepdim=True)).all()
+
+
+BF16_FUSED_REPEAT = [c for c in checks.BF16_FUSED_CONV_CASES
+                     if " proj " in c[0] or c[0].startswith("ragged")]
+
+
+@pytest.mark.parametrize("case", BF16_FUSED_REPEAT, ids=[c[0] for c in BF16_FUSED_REPEAT])
+def test_fused_conv_bf16_repeats_bit_for_bit(cuda, case):
+    """K8-bf16 on the wgmma core: y and its sums (the per-tile epilogue, or
+    the split sum's statistics where K splits) give the same bits on a
+    second run."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    _, n, h, cin, cout, k, s, prologue, cap = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    scale = 1 + 0.2 * torch.randn(cin, generator=gen, device="cuda")
+    shift = 0.5 * torch.randn(cin, generator=gen, device="cuda")
+    y, sums = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
+    y2, sums2 = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
+    assert torch.equal(y, y2) and torch.equal(sums, sums2)

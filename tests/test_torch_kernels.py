@@ -126,7 +126,7 @@ def test_sources_and_signatures_agree():
     # the headers are in the hash too: the GEMM cores and the shared device code
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
         "tiled_gemm.cuh", "tc_gemm.cuh", "wg_gemm.cuh", "fused_conv.cuh", "rowwise.cuh",
-        "im2col.cuh", "bf16_gemm.cuh"}
+        "im2col.cuh", "bf16_gemm.cuh", "wgb_gemm.cuh"}
     text = "".join(p.read_text() for p in build.CSRC.glob("*.cu*"))
     assert '#include "tc_gemm.cuh"' in text
     assert build.library_path().name == f"libkernels-{build.source_hash()}.so"
@@ -141,6 +141,13 @@ def test_sources_and_signatures_agree():
     assert (f"STAGES = BN == 64 ? {build.WG_STAGES[64]} : {build.WG_STAGES[128]};" in wg)
     assert (f"MIN_BLOCKS = BN == 64 ? {build.WG_BLOCKS_PER_SM[64]} : "
             f"{build.WG_BLOCKS_PER_SM[128]};" in wg)
+    # ... and of the bf16 wgmma core (K1's bf16 dW, K8-bf16, K10-bf16)
+    wgb = (build.CSRC / "wgb_gemm.cuh").read_text()
+    assert f"constexpr int BM = {build.WGB_BM};" in wgb
+    assert f"constexpr int BK = {build.WGB_BK};" in wgb
+    assert (f"STAGES = BN == 64 ? {build.WGB_STAGES[64]} : {build.WGB_STAGES[128]};" in wgb)
+    assert (f"MIN_BLOCKS = BN == 64 ? {build.WGB_BLOCKS_PER_SM[64]} : "
+            f"{build.WGB_BLOCKS_PER_SM[128]};" in wgb)
 
 
 # --- backward passes and the training kernels, against the JAX VJPs ---
