@@ -19,9 +19,11 @@ Phases, each printing one JSON line:
      and of the library call (torch.profiler, with its split by kernel
      name), the host time per call (host_us: 200 calls enqueued back to
      back, checks.host_us), the least time the card could take, and for the
-     conv forward, the whole-block kernel, the FC backward, K1's bf16 dW and
-     K8-bf16 the launch plan (tiles and K splits; da and db blocks; dW's
-     route, its 64-pixel box and slices); then the whole-block kernel's weight split (split_tf32) at
+     conv forward, the whole-block kernel, the FC backward (fp32 and bf16),
+     K1's bf16 forward and dW and K8-bf16 the launch plan (tiles and K
+     splits; da and db blocks; the bf16 forward's route, A loader, units and
+     persistent blocks; dW's route, its 64-pixel box and slices); then the
+     whole-block kernel's weight split (split_tf32) at
      the shapes of K10's twelve weights, bit for bit against its plain
      version;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
@@ -155,7 +157,8 @@ Phases, each printing one JSON line:
      8 from bf16 weights (export_inference(..., weights_dtype='bfloat16')) on
      the bf16 hand kernels, NHWC and NCHW (53 conv, 16 join, 1 matmul on the
      bf16 entries each): fp32 logits within 2x the plain bf16 path's own gap
-     to the plain fp32 logits. The bf16 kernel step is also profiled
+     to the plain fp32 logits, each forward then timed as phase 4 times its
+     batch 8 (batch8_ms, batch8_device_ms). The bf16 kernel step is also profiled
      (torch.profiler, one step), with the device time and busy share of
      K1's bf16 dW, forward and dx and of the K8/K10 bf16 GEMM kernels
      (``profile_split``).
@@ -449,9 +452,10 @@ def _moved(before, after):
 
 
 def _plan(build, name, case):
-    """The launch plan of a conv forward or FC backward case (None for the
-    other kernels): tile, tiles and K splits (build.tc_split); da and db
-    blocks (build.matmul_bwd_plan)."""
+    """The launch plan of a case of a kernel that has one (None for the
+    others): tile, tiles and K splits (build.tc_split, build.wgb_split);
+    the bf16 forward's and dW's route; da and db blocks
+    (build.matmul_bwd_plan, build.matmul_bwd_plan_bf16)."""
     if name == "conv2d":
         _, n, h, cin, cout, k, s = case
         m, bn = n * (h // s) ** 2, build.tc_tile_n(cout)
@@ -491,6 +495,25 @@ def _plan(build, name, case):
         m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
         return {"tile": [build.WGB_BM, bn], "tiles": -(-m // build.WGB_BM) * -(-cout // bn),
                 "splits": build.wgb_split(m, cout, k * k * cin)}
+    if name == "conv2d_bf16":  # the route; on the wgmma core its A loader and units
+        from resnet_tpu_torch.kernels.conv import STEM_ROW, fwd_bf16_route
+
+        _, n, h, cin, cout, k, s, *offset = case
+        m = n * (h // s) ** 2
+        route = fwd_bf16_route(cin, cout, k, s, not offset or offset[0] % 8 == 0)
+        if route == "mma":
+            return {"route": route, "splits": build.tc_split(m, cout, k * k * cin)}
+        depth, bn = (k * STEM_ROW if route == "stem" else k * k * cin), build.wgb_tile_n(cout)
+        splits = build.wgb_split(m, cout, depth)
+        units = -(-m // build.WGB_BM) * -(-cout // bn) * splits
+        return {"route": route, "a": ("stem rows" if route == "stem" else
+                                      "tma" if (k, s) == (1, 1) else "gather"),
+                "tile": [build.WGB_BM, bn], "K": depth, "splits": splits, "units": units,
+                "blocks": min(units, 132)}
+    if name == "matmul_bwd_bf16":
+        _, m, k, n, _, need_a, need_b = case
+        return dict(zip(("da_blocks", "db_blocks"),
+                        build.matmul_bwd_plan_bf16(m, k, n, need_a, need_b)))
     return None
 
 
@@ -678,18 +701,22 @@ def _as_running(bn_stats):
             "blocks": [{k: leaf(v) for k, v in b.items()} for b in bn_stats["blocks"]]}
 
 
-def _nudge_sensitivity(batch, params, bn_state, pc, pg, nudge=IMAGE_NUDGE):
+def _nudge_sensitivity(batch, params, bn_state, pc, pg, nudge=IMAGE_NUDGE, loss=None):
     """Per gradient leaf, the plain path's own largest change when the
-    images are scaled by 1 +- ``nudge`` (pg: its gradient at the images)."""
+    images are scaled by 1 +- ``nudge`` (pg: its gradient at the images);
+    with ``loss`` (its summed loss at the images) also the loss's, under
+    the key 'loss'."""
     from resnet_tpu_torch.bridge import flatten, leaves
     from resnet_tpu_torch.train import loss_and_grads
 
     sens = {}
     for factor in (1 + nudge, 1 - nudge):
         nudged = dict(batch, images=batch["images"] * factor)
-        qg = loss_and_grads(params, nudged, bn_state, pc)[3]
+        ql, _, _, qg = loss_and_grads(params, nudged, bn_state, pc)
         for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
             sens[path] = max(sens.get(path, 0.0), (a - b).abs().max().item())
+        if loss is not None:
+            sens["loss"] = max(sens.get("loss", 0.0), abs(ql.item() - loss.item()))
         del qg
     return sens
 
@@ -1026,7 +1053,7 @@ def _busy(profile_rows):
 # kernel names of the wgmma core's and bf16_gemm.cuh's (whose loader's name
 # the profile's cut to 90 characters keeps)
 BF16_SPLIT = {"K1 dW bf16": ("conv2d_dw_wg_kernel", "ConvDwBfA"),
-              "K1 fwd bf16": ("ConvFwdBfA",), "K1 dx bf16": ("ConvDxBfA",),
+              "K1 fwd bf16": ("ConvFwdBfA", "conv2d_fwd_wg_kernel"), "K1 dx bf16": ("ConvDxBfA",),
               "K8/K10 bf16 GEMMs": ("fused_conv_wg_kernel", "FusedConvBfA")}
 
 
@@ -1783,12 +1810,13 @@ def _to_nchw(batch):
     return dict(batch, images=batch["images"].permute(0, 3, 1, 2).contiguous())
 
 
-def _gap_held(got, want, ref, what, floor=None, sens=None):
+def _gap_held(got, want, ref, what, floor=None, sens=None, at_least=0.0):
     """Arrays (loss, statistics, gradients: trees of tensors) of a bf16 step
     ``got`` against the plain bf16 step ``want`` from the same state, within
     2x the gap between ``want`` and the plain fp32 step ``ref`` (bf16 rounds
     at other places on the two paths), as shares of max|want|. With
-    ``floor`` None the gap is pooled, its largest over all arrays; else each
+    ``floor`` None the gap is pooled, its largest over all arrays, the
+    limit at least ``at_least``; else each
     array has its own gap, at least ``floor``, or where ``sens`` (path ->
     want's own change under the bf16 image nudge) is given, GRAD_SENS times
     that change if larger. Returns the largest gap, the largest
@@ -1806,7 +1834,7 @@ def _gap_held(got, want, ref, what, floor=None, sens=None):
 
     gaps = [rel(w, r) for _, w, r in trios]
     if floor is None:
-        limits = [2 * max(gaps)] * len(gaps)
+        limits = [max(2 * max(gaps), at_least)] * len(gaps)
     else:
         limits = [max(2 * max(gap, floor),
                       GRAD_SENS * sens[path] / amax(w) if sens is not None else 0.0)
@@ -1931,13 +1959,15 @@ def phase_presets(torch, counters, smi):
     change and the image-nudge sensitivity), then both steps again with
     cuDNN off (``_cudnn_off_witness``); NCHW on the hand kernels at 32
     (no K4), held to the NHWC kernel step; the served bf16 forward at batch
-    8, NHWC and NCHW, against the plain fp32 logits."""
+    8, NHWC and NCHW, against the plain fp32 logits, then timed as phase 4
+    times its batch 8 (CUDA events, and its device time)."""
     import dataclasses
 
     from resnet_tpu_torch.bridge import flatten, leaves
     from resnet_tpu_torch.config import ExecutionConfig, variant_config
     from resnet_tpu_torch.data import SyntheticDataset
     from resnet_tpu_torch.export import export_inference
+    from resnet_tpu_torch.kernels import checks
     from resnet_tpu_torch.models import init_bn_state, init_params
     from resnet_tpu_torch.train import init_train_state, make_train_step
 
@@ -1987,16 +2017,24 @@ def phase_presets(torch, counters, smi):
             for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
     # the loss and the running statistics against their pooled gap; each
     # gradient leaf against its own, at least bf16's unit roundoff, or
-    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge
+    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge.
+    # The loss is one value, its gap one draw: at seed 1234 the plain bf16
+    # loss moves by 7.7x its gap to the fp32 loss when the images are
+    # scaled by 1 + 2^-8 (their last bit), so its limit is at least that
+    # change of the plain bf16 step itself (PERF.md, PR 15)
+    plain_loss = recs["plain"]["loss_sum"]
     sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
-                              recs["plain"]["grads"], BF16_UNIT)
+                              recs["plain"]["grads"], BF16_UNIT, loss=plain_loss)
+    loss_nudge = sens.pop("loss") / max(abs(plain_loss.item()), 1e-30)
     held = {}
     for what, pick, floor in (("loss", lambda r: {"loss": r["loss_sum"]}, None),
                               ("running_stats", lambda r: r["state"].bn_state, None),
                               ("grads", lambda r: r["grads"], BF16_UNIT)):
         held[what] = _gap_held(pick(recs["kernel"]), pick(recs["plain"]),
                                pick(recs["fp32"]), f"bf16 kernel step {what}", floor,
-                               sens if floor else None)
+                               sens if floor else None,
+                               at_least=loss_nudge if what == "loss" else 0.0)
+    held["loss"]["plain_nudge"] = loss_nudge
     # the well-conditioned check: the same three steps with BN frozen
     held["frozen_bn_grads"] = _bf16_frozen_held(kcfg, p16, p32, state0, batch)
     del sens
@@ -2083,15 +2121,15 @@ def phase_presets(torch, counters, smi):
                                  ecfg=ExecutionConfig(**ecfg), weights_dtype=weights_dtype)
         logits = model.call(images)
         require(logits.dtype is torch.float32, f"served logits of {logits.dtype}")
-        return logits.cpu().numpy()
+        return logits.cpu().numpy(), model
 
-    want = served(x)
-    gap = float(np.abs(served(x, "bfloat16", compute_dtype="bfloat16") - want).max())
+    want, _ = served(x)
+    gap = float(np.abs(served(x, "bfloat16", compute_dtype="bfloat16")[0] - want).max())
     serving = {"plain_bf16_vs_fp32_max_abs": gap, "max_abs_logit": float(np.abs(want).max())}
     for layout, images in (("NHWC", x), ("NCHW", xc)):
         counters.zero()
-        got = served(images, "bfloat16", compute_dtype="bfloat16", layout=layout,
-                     kernels="pallas", conv_kernels="pallas")
+        got, model = served(images, "bfloat16", compute_dtype="bfloat16", layout=layout,
+                            kernels="pallas", conv_kernels="pallas")
         delta = {k: v for k, v in counters.read().items() if v}
         add(delta)
         require(delta == BF16_PER_FORWARD, f"served bf16 {layout} forward moved the "
@@ -2099,7 +2137,10 @@ def phase_presets(torch, counters, smi):
         err = float(np.abs(got - want).max())
         require(np.isfinite(got).all() and err <= 2 * gap,
                 f"served bf16 {layout}: max|kernel - fp32| logits {err} > 2 x {gap}")
-        serving[layout] = {"max_abs_err_vs_fp32": err, "per_forward": delta}
+        on_card = torch.from_numpy(images).cuda()  # timed as phase 4 times its batch 8
+        serving[layout] = {"max_abs_err_vs_fp32": err, "per_forward": delta,
+                           "batch8_ms": checks.median_ms(lambda: model.call(on_card), reps=10),
+                           "batch8_device_ms": checks.device_ms(lambda: model.call(on_card))}
     out["serve_bf16"] = serving
     emit({"phase": "presets", "model": mcfg.name, "device": smi, **out})
     return launched

@@ -71,18 +71,20 @@ SIGNATURES = {
     # the host table of (p, m, v, numel, first block, flags, tensor) rows, its
     # row count, the host array of gradient pointers, h
     "rt_adam_f32": [_P, _I, _P, _P, _P],
-    # the bf16 entry points (bf16_gemm.cuh and the bf16 sections of conv.cu,
-    # matmul.cu, add_relu.cu and moments.cu) take the fp32 ones' arguments,
-    # but the FC backward, which takes no block counts
+    # the bf16 entry points (the bf16 sections of conv.cu, matmul.cu,
+    # add_relu.cu and moments.cu) take the fp32 ones' arguments
     "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # the forward's route on bf16_gemm.cuh for the shapes the wgmma core does
+    # not take
+    "rt_conv2d_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
     "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_matmul_skinny_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    # a, b, g, da (or null), db (or null), M, K, N
-    "rt_matmul_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
+    "rt_matmul_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],
     "rt_add_relu_mask_bf16": [_P, _P, _P, _P, _I64, _P],
     "rt_moments_bf16": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
@@ -120,7 +122,8 @@ WG_STAGES = {64: 3, 128: 4}
 WG_BLOCKS_PER_SM = {64: 2, 128: 1}
 # the bf16 wgmma core's (wgb_gemm.cuh BM, BK, Tile<BN>::STAGES and
 # MIN_BLOCKS by tile width, BN = wgb_tile_n): K1's bf16 dW, K8-bf16 and
-# K10-bf16's three GEMMs
+# K10-bf16's three GEMMs; K1's bf16 forward runs the same tiles on the
+# persistent loop, one block per SM
 WGB_BM = 128
 WGB_BK = 64
 WGB_STAGES = {64: 4, 128: 6}
@@ -144,6 +147,13 @@ BWD_NC = 32
 BWD_TK = 64
 BWD_TN = 128
 BWD_MC = 32
+# the bf16 FC backward's (matmul.cu bwd16::R, MT, TK, TN): a da block owns
+# BWD16_R columns of da and BWD16_MT rows over the whole contraction N, a db
+# block a BWD16_TK x BWD16_TN tile of db over the whole contraction M
+BWD16_R = 16
+BWD16_MT = 32
+BWD16_TK = 128
+BWD16_TN = 128
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 # one build at a time in this process (the temporary name is per process)
 _BUILD_LOCK = threading.Lock()
@@ -318,8 +328,8 @@ def wgb_tile_n(n: int) -> int:
 def wgb_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on wgb_gemm.cuh's tiles:
     K1's bf16 dW (m = k*k*Cin, n = Cout, k = 64 x its slices of pixels,
-    ``dw_slices``), K8-bf16 and K10-bf16's GEMMs (m = the output pixels,
-    n = Cout, k = k*k*Cin). Each split is a whole number of WGB_BK-deep
+    ``dw_slices``), K1's bf16 forward, K8-bf16 and K10-bf16's GEMMs (m =
+    the output pixels, n = Cout, k = k*k*Cin, or the stem's 7 * 24). Each split is a whole number of WGB_BK-deep
     slices, at least WGB_MIN_SLICES deep, none empty, at most 256. Of
     those, the count that finishes soonest in slice times: waves of the
     resident blocks times (the chunk's slices + the ring's fill), plus, for
@@ -401,6 +411,21 @@ def matmul_bwd_plan(m: int, k: int, n: int, need_a: bool = True, need_b: bool = 
     i // slabs; block da blocks + t is db tile (t // n tiles, t % n tiles)."""
     da = -(-k // BWD_R) * -(-m // BWD_MT) if need_a else 0
     db = -(-k // BWD_TK) * -(-n // BWD_TN) if need_b else 0
+    return da, db
+
+
+def matmul_bwd_plan_bf16(m: int, k: int, n: int, need_a: bool = True, need_b: bool = True
+                         ) -> Tuple[int, int]:
+    """(da blocks, db blocks) of rt_matmul_bwd_bf16 for a (m, k), b (k, n),
+    g (m, n): ceil(k / BWD16_R) slabs of da's columns times ceil(m /
+    BWD16_MT) row tiles for da = g @ b^T, ceil(k / BWD16_TK) x ceil(n /
+    BWD16_TN) tiles for db = a^T @ g; 0 for a product that is not needed.
+    The FC at batch 32 is 128 + 128 blocks. Each block runs its whole
+    contraction in one fixed order: a call repeats exactly. Block i < da
+    blocks is slab i % slabs, row tile i // slabs; block da blocks + t is db
+    tile (t // n tiles, t % n tiles)."""
+    da = -(-k // BWD16_R) * -(-m // BWD16_MT) if need_a else 0
+    db = -(-k // BWD16_TK) * -(-n // BWD16_TN) if need_b else 0
     return da, db
 
 

@@ -261,10 +261,19 @@ SPLIT_CASES = [(f"stage {i} {what} ({k},{n})", k, n)
 # the bf16 kernels' cases: ResNet-50's serving (batch 8, the forward and
 # the join) and training (batch 32) shapes, the stem, the 1x1 expand and
 # the 3x3/s2 projection among them, then widths that are not a multiple of
-# 8 (2-byte copies), a K split, a misaligned operand
+# 8 (2-byte copies), a K split, a misaligned operand. The forward's last
+# cases (an 8th field: x's storage offset in elements): ragged widths at
+# stride 1 and 2 and a misaligned x (conv.fwd_bf16_route: 'mma'), a stem
+# whose rows end inside a tile and whose window meets the image's edges on
+# both sides, and a gather whose last column tile and last slice are part
+# empty ('wgmma')
 BF16_CONV_CASES = [(f"{label}, batch {n}", n, *shape)
                    for label, n, *shape in CONV_CASES + TRAIN_CONV_CASES] + [
-    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1)]
+    ("ragged 3x3 7^2 9->33, batch 2", 2, 7, 9, 33, 3, 1),
+    ("ragged 3x3/s2 14->7 130->66, batch 2", 2, 14, 130, 66, 3, 2),
+    ("misaligned x 3x3 14^2 64->64, batch 2", 2, 14, 64, 64, 3, 1, 1),
+    ("stem 7x7/s2 30->15 3->64, batch 2", 2, 30, 3, 64, 7, 2),
+    ("3x3 7^2 16->72, batch 2", 2, 7, 16, 72, 3, 1)]
 BF16_DX_CASES = TRAIN_CONV_CASES[1:] + [
     ("split K 3x3/s1 7^2 512->512", 32, 7, 512, 512, 3, 1),
     ("ragged 3x3/s2 14->7 9->33, batch 2", 2, 14, 9, 33, 3, 2),
@@ -614,9 +623,9 @@ def _bf16_case(kernel: str, case, randn) -> _Case:
         return r(*shape, offset=offset)
 
     if kernel.startswith("conv2d"):
-        _, n, h, cin, cout, k, s = case
+        _, n, h, cin, cout, k, s, *offset = case
         ho = h // s
-        x = r(n, h, h, cin)
+        x = r(n, h, h, cin, offset=offset[0] if offset else 0)
         w = r(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
         g = r(n, ho, ho, cout)
         nbytes = 2 * (x.numel() + w.numel() + g.numel())

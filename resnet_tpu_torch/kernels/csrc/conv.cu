@@ -63,6 +63,7 @@
 #include <cstring>
 
 #include "bf16_gemm.cuh"
+#include "fused_conv.cuh"  // K8-bf16's gather, which the bf16 forward runs without its prologue
 #include "im2col.cuh"
 #include "tc_gemm.cuh"
 #include "wgb_gemm.cuh"
@@ -469,8 +470,9 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 // ---------------------------------------------------------------- bf16
 //
-// The same three GEMMs on bf16 tensors (the forward and dx on
-// bf16_gemm.cuh, dW on wgb_gemm.cuh's wgmma core below): bf16 x, w and g,
+// The same three GEMMs on bf16 tensors (dx on bf16_gemm.cuh; dW and the
+// forward on wgb_gemm.cuh's wgmma core below, their ragged or misaligned
+// shapes on bf16_gemm.cuh): bf16 x, w and g,
 // an fp32 accumulator, bf16 out, rounded once. What JAX computes for bf16
 // inputs: the forward and dx are its conv kernel with `x.dtype` out
 // (conv.py:55-57, :105, :163-170); dW is an fp32 matmul of the upcast
@@ -611,10 +613,12 @@ struct ConvDwBfA {
 // and allocate ws (splits * rows * cols floats) when splits > 1. Tensors
 // are bf16, passed as their 16-bit patterns.
 
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout))
-extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
-                                   int H, int W, int Cin, int Cout, int k, int stride,
-                                   float* ws, int splits, void* stream) {
+// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
+// bf16_gemm.cuh's mma.sync core: the route of the shapes the wgmma core
+// below does not take (ragged widths, misaligned tensors)
+extern "C" int rt_conv2d_nhwc_bf16_mma(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
+                                       int H, int W, int Cin, int Cout, int k, int stride,
+                                       float* ws, int splits, void* stream) {
   const int Ho = H / stride, Wo = W / stride;
   const int64_t M = (int64_t)N * Ho * Wo;
   const ConvFwdBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
@@ -925,4 +929,253 @@ extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint
   auto* run = Cout <= 64 ? (narrow ? dw_wg<64, true> : dw_wg<64, false>)
                          : (narrow ? dw_wg<128, true> : dw_wg<128, false>);
   return run(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, (cudaStream_t)stream);
+}
+
+// --------------------------------------------- bf16 forward on wgb_gemm.cuh
+//
+// y[(n, oy, ox), co] = sum over (di, dj, ci) of x[n, s*oy - k/2 + di,
+// s*ox - k/2 + dj, ci] w[di, dj, ci, co]: the implicit GEMM of K8-bf16
+// (fused_conv.cuh's ConvWgBlock, K-major A gathered 16 bytes at a time, the
+// weight (k*k*Cin, Cout) by TMA as it lies, MN-major) without its prologue
+// and statistics, on wgb::persistent: one block per SM walks the units
+// (m tile, n tile, K split), and the ring runs across their boundaries.
+// Two other A loaders on the same loop:
+// * a 1x1 conv at stride 1 reads A as the (N*H*W, Cin) matrix it is, one
+//   TMA box of 128 rows x 64 channels a slice (MatWgBlock): thread 0 issues
+//   every copy of the block;
+// * the stem (Cin = 3, 7x7, stride 2; StemWgBlock): a kernel row's 7 taps x
+//   3 channels are 21 contiguous values of x, so K is ordered (di, t) with
+//   a 24-wide row t per kernel row di, t = 1 + 3 dj + ci, K = 7 * 24 = 168
+//   (3 slices, against 4 for channels padded to 8 and 3 for the 147 of the
+//   plain order, whose chunks would not be contiguous). The row starts one
+//   value early, at x's element 3 * (pixel of (iy, s*ox - 3)) - 1, which
+//   is even for every ox (W even), so each 8-value chunk is four 4-byte
+//   cp.async copies; t = 0, 22 and 23 are other pixels' values and taps
+//   outside the image are zeros: a copy none of whose two values is a tap
+//   inside the image is zero-filled, and the thread zeroes the single
+//   values of the others in place once they have landed (fix). The weight
+//   comes as the matching (7 * 24, Cout) matrix, zeros at t = 0, 22, 23
+//   (conv.stem_rows, one small torch op a call).
+// Split-K partials (build.wgb_split) go through ws (fp32 pairs from the
+// registers) and splitk_sum_bf16 in split order; otherwise a unit's bf16
+// tile leaves from shared memory by TMA (wgb::store_tile_tma).
+//
+// Bound on the H100: bytes at batch 32 for the stem and the 1x1s with 64
+// input channels, operations for the 3x3s and the deep 1x1s (PERF.md);
+// persistence hides each unit's ring fill, and 1x1s cost no gather.
+namespace {
+
+constexpr int STEM_CIN = 3, STEM_K = 7, STEM_ROW = 24;  // conv.py STEM_ROW
+constexpr int FWD_GATHER = 0, FWD_MATRIX = 1, FWD_STEM = 2;
+
+// A by TMA: the (M, Cin) matrix of a 1x1/s1 conv, 128-row boxes
+template <int BN>
+struct MatWgBlock {
+  const CUtensorMap* amap;
+  const CUtensorMap* wmap;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int64_t row0 = 0, k_lo = 0;
+  int col0 = 0;
+
+  __device__ void start(int64_t r, int c, int64_t k) {
+    row0 = r;
+    col0 = c;
+    k_lo = k;
+  }
+  __device__ void load(int slot, int kt) const {
+    if (threadIdx.x != 0) return;
+    const uint32_t st = rt::tc::smem_u32(sm.slot(slot)), bar = rt::tc::smem_u32(&full[slot]);
+    const int kk = (int)(k_lo + (int64_t)kt * wgb::BK);
+    rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::STAGE_BYTES);
+    wgb::tma_2d(st, amap, bar, kk, (int)row0);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      wgb::tma_2d(st + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap, bar, col0 + 64 * j, kk);
+  }
+  __device__ void fix(int) const {}
+};
+
+// A of the stem's 24-wide rows. The thread copies chunk column cc = tid % 8
+// of rows tid / 8 + 32 i, i < 4, as ConvWgBlock; chunk q = 8 * slice + cc
+// of a row is its kernel row q / 3, values 8 (q % 3) .. + 7 of that row.
+template <int BN>
+struct StemWgBlock {
+  const FusedConvBfA& a;
+  const CUtensorMap* wmap;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int64_t k_lo = 0;
+  int col0 = 0, cc, rlo;
+  int64_t off[4];     // x's element of each row's t = 0 at di = 0
+  int iy[4];          // each row's window's first image row
+  uint32_t taps[4];   // bit t: value t of each row's window rows is a tap inside the image
+
+  __device__ StemWgBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_,
+                         const wgb::Smem<BN>& sm_, uint64_t* full_)
+      : a(a_), wmap(wmap_), sm(sm_), full(full_), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
+
+  __device__ void start(int64_t row0, int c, int64_t k) {
+    col0 = c;
+    k_lo = k;
+    const int howo = a.Ho * a.Wo;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t m = row0 + rlo + 32 * i;
+      off[i] = 0;
+      iy[i] = -(1 << 29);  // a row past M: outside the image in every kernel row
+      taps[i] = 0;
+      if (m < a.M) {
+        const int64_t n = m / howo;
+        const int rem = (int)(m - n * howo);
+        const int oy = rem / a.Wo;
+        const int ix = a.stride * (rem - oy * a.Wo) - a.pad_left;
+        iy[i] = a.stride * oy - a.pad_top;
+        off[i] = (n * a.H * a.W + (int64_t)iy[i] * a.W + ix) * STEM_CIN - 1;
+#pragma unroll
+        for (int dj = 0; dj < STEM_K; ++dj)  // t = 1 + 3 dj + ci
+          if ((unsigned)(ix + dj) < (unsigned)a.W) taps[i] |= 7u << (1 + STEM_CIN * dj);
+      }
+    }
+  }
+
+  __device__ void load(int slot, int kt) {
+    const uint32_t sa = rt::tc::smem_u32(sm.slot(slot));
+    const int q = (int)(k_lo / 8) + 8 * kt + cc;
+    const int di = q / 3, t0 = 8 * (q - 3 * di);
+    uint32_t zero = 0;  // bit 8 i + e: value e of row i landed and is no tap
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool row_ok = di < STEM_K && (unsigned)(iy[i] + di) < (unsigned)a.H;
+      const uint16_t* src = a.x + off[i] + (int64_t)di * a.W * STEM_CIN + t0;
+      const uint32_t dst = sa + wgb::swz(rlo + 32 * i, cc);
+      const uint32_t in = row_ok ? taps[i] >> t0 : 0u;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const uint32_t pair = in >> (2 * p) & 3u;
+        wgb::cp4(dst + 4 * p, pair ? src + 2 * p : a.x, pair != 0);
+        if (pair) zero |= (~pair & 3u) << (8 * i + 2 * p);
+      }
+    }
+    sm.info[slot * wgb::THREADS + threadIdx.x] = zero;
+    if (threadIdx.x == 0) {
+      rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::B_BYTES);
+#pragma unroll
+      for (int j = 0; j < BN / 64; ++j)
+        wgb::tma_2d(sa + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap,
+                    rt::tc::smem_u32(&full[slot]), col0 + 64 * j,
+                    (int)(k_lo + (int64_t)kt * wgb::BK));
+    }
+  }
+
+  // the values of this thread's landed copies that are no tap, zeroed
+  __device__ void fix(int slot) const {
+    uint32_t zero = sm.info[slot * wgb::THREADS + threadIdx.x];
+    while (zero) {
+      const int b = __ffs(zero) - 1;
+      zero &= zero - 1;
+      *reinterpret_cast<uint16_t*>(sm.slot(slot) + wgb::swz(rlo + 32 * (b / 8), cc) +
+                                   2 * (b % 8)) = 0;
+    }
+  }
+};
+
+// y (M, N) bf16 (through ymap; or, with ws, split z's fp32 partials at
+// ws + z * M * N) of the conv gathered by `a`, weight by TMA through wmap
+// (and A through amap for FWD_MATRIX), over the units of un
+template <int BN, int KIND>
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+conv2d_fwd_wg_kernel(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap ymap,
+                     const __grid_constant__ FusedConvBfA a, float* __restrict__ ws, int N,
+                     const wgb::Units un) {
+  extern __shared__ __align__(1024) uint8_t fwd_wg_smem[];
+  __shared__ __align__(8) uint64_t full[wgb::PTile<BN>::STAGES];
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN>(fwd_wg_smem);
+  wgb::init_barriers<wgb::PTile<BN>::STAGES>(full);
+  auto epi = [&](const float (&acc)[wgb::Tile<BN>::NACC], int64_t row0, int col0, int z) {
+    if (ws)
+      wgb::store_pairs<BN>(acc, row0, col0, a.M, N, nullptr, ws + (int64_t)z * a.M * N);
+    else
+      wgb::store_tile_tma<BN>(acc, wgb::p_out(sm), &ymap, row0, col0);
+  };
+  if constexpr (KIND == FWD_MATRIX) {
+    MatWgBlock<BN> blk{&amap, &wmap, sm, full};
+    wgb::persistent<BN>(blk, sm, full, un, epi);
+  } else if constexpr (KIND == FWD_STEM) {
+    StemWgBlock<BN> blk(a, &wmap, sm, full);
+    wgb::persistent<BN>(blk, sm, full, un, epi);
+  } else {
+    ConvWgBlock<BN, true> blk(a, &wmap, nullptr, sm, full, 0, N, 0, 0);
+    wgb::persistent<BN>(blk, sm, full, un, epi);
+  }
+  wgb::store_tma_wait();
+}
+
+template <int BN, int KIND>
+int fwd_wg(const CUtensorMap& amap, const CUtensorMap& wmap, const CUtensorMap& ymap,
+           const FusedConvBfA& a, uint16_t* y, float* ws, int N, int64_t K, int splits,
+           cudaStream_t s) {
+  auto* kernel = conv2d_fwd_wg_kernel<BN, KIND>;
+  constexpr int smem = wgb::PTile<BN>::SMEM;
+  int status = wgb::max_smem_once((const void*)kernel, smem);
+  int sms = 0;
+  if (status == 0) status = wgb::sm_count(&sms);
+  if (status != 0) return status;
+  const int64_t slices = wgb::slices_of(K);
+  const wgb::Units un{(a.M + wgb::BM - 1) / wgb::BM, (N + BN - 1) / BN, splits, slices,
+                      (slices + splits - 1) / splits};
+  const int64_t units = un.count();
+  kernel<<<(unsigned)(units < sms ? units : sms), wgb::THREADS, smem, s>>>(
+      amap, wmap, ymap, a, splits > 1 ? ws : nullptr, N, un);
+  if (splits > 1) {
+    const int64_t mn = a.M * N;
+    int64_t blocks = (mn + 255) / 256;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, y, mn, splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w) on the wgmma core:
+// Cout % 8 == 0, w and y aligned, and either Cin % 8 == 0 with x 16-byte
+// aligned and w (k, k, Cin, Cout), or the stem (Cin 3, k 7, stride 2, W
+// even, x 4-byte aligned) with w its (7 * 24, Cout) rows (conv.stem_rows);
+// the wrapper routes every other shape to rt_conv2d_nhwc_bf16_mma
+// (conv.fwd_bf16_route). Tiles 128 x 64 where Cout <= 64, else 128 x 128;
+// splits K splits of whole slices (ws: splits * M * Cout floats when
+// splits > 1).
+extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
+                                   int H, int W, int Cin, int Cout, int k, int stride,
+                                   float* ws, int splits, void* stream) {
+  const int Ho = H / stride, Wo = W / stride;
+  const int64_t M = (int64_t)N * Ho * Wo;
+  const bool stem = Cin == STEM_CIN && k == STEM_K && stride == 2;
+  const int kind = stem ? FWD_STEM : k == 1 && stride == 1 ? FWD_MATRIX : FWD_GATHER;
+  if (Cout % 8 != 0 || !bfg::aligned16(w) || !bfg::aligned16(y) || M >= INT32_MAX ||
+      splits < 1 || (splits > 1 && ws == nullptr) ||
+      (stem ? W % 2 != 0 || (uintptr_t)x % 4 != 0 : Cin % 8 != 0 || !bfg::aligned16(x)))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const int64_t K = stem ? (int64_t)STEM_K * STEM_ROW : (int64_t)k * k * Cin;
+  CUtensorMap amap, wmap, ymap;
+  memset(&amap, 0, sizeof(amap));
+  memset(&ymap, 0, sizeof(ymap));
+  int status = wgb::cached_matrix_map(&wmap, w, K, Cout, wgb::BK);
+  if (status == 0 && kind == FWD_MATRIX)
+    status = wgb::cached_matrix_map(&amap, x, M, Cin, wgb::BM);
+  if (status == 0 && splits == 1) status = wgb::cached_matrix_map(&ymap, y, M, Cout, wgb::BM);
+  if (status != 0) return status;
+  const FusedConvBfA a = conv_loader_bf16(x, nullptr, nullptr, N, H, W, Cin, k, stride, k / 2,
+                                          k / 2, Ho, Wo, false, rt::Act{false, false, 0.f});
+  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+                         const FusedConvBfA&, uint16_t*, float*, int, int64_t, int, cudaStream_t);
+  static const Launch runs[2][3] = {
+      {fwd_wg<64, FWD_GATHER>, fwd_wg<64, FWD_MATRIX>, fwd_wg<64, FWD_STEM>},
+      {fwd_wg<128, FWD_GATHER>, fwd_wg<128, FWD_MATRIX>, fwd_wg<128, FWD_STEM>}};
+  return runs[Cout <= 64 ? 0 : 1][kind](amap, wmap, ymap, a, y, ws, Cout, K, splits,
+                                        (cudaStream_t)stream);
 }

@@ -45,7 +45,9 @@
 // or a column past K was zero-filled and stays exactly 0. Ragged widths
 // (Cin or Cout not a multiple of 8, or x or w not 16-byte aligned) load
 // both operands through the threads instead, 2 bytes at a time, the
-// prologue applied on the way. The statistics come from the fp32
+// prologue applied on the way. K1's bf16 forward (conv.cu) runs the same
+// gather with the prologue off on wgb::persistent, ConvWgBlock::start
+// moving it from unit to unit. The statistics come from the fp32
 // accumulators (fused_conv.py:109-110), never from the rounded y: one
 // split, the core's per-128-row-tile epilogue (wgb::tile_stats); several,
 // the split sum of splitk_sum_stats_bf16, which adds the fp32 partials in
@@ -269,8 +271,16 @@ struct ConvWgBlock {
                          const wgb::Smem<BN>& sm_, uint64_t* full_, int64_t k_lo_, int N_,
                          int col0_, int64_t row0)
       : a(a_), wmap(wmap_), w(w_), sm(sm_), full(full_),
-        K((int64_t)a_.ksize * a_.ksize * a_.Cin), k_lo(k_lo_), N(N_), col0(col0_),
-        cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {
+        K((int64_t)a_.ksize * a_.ksize * a_.Cin), N(N_), cc(threadIdx.x & 7),
+        rlo(threadIdx.x >> 3) {
+    start(row0, col0_, k_lo_);
+  }
+
+  // the copies pointed at the tile of rows row0 + [0, 128), columns col0 +
+  // [0, BN), K from k_lo (wgb::persistent moves a block from unit to unit)
+  __device__ void start(int64_t row0, int col0_, int64_t k_lo_) {
+    col0 = col0_;
+    k_lo = k_lo_;
     const int howo = a.Ho * a.Wo;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -370,7 +380,7 @@ struct ConvWgBlock {
   }
 
   // the prologue on the chunks this thread copied into slice kt's slot
-  __device__ void fix(int slot, int) const {
+  __device__ void fix(int slot, int = 0) const {
     if constexpr (kVec) {
       if (!a.prologue) return;
       const uint32_t info = sm.info[slot * wgb::THREADS + threadIdx.x];

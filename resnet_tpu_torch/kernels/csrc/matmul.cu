@@ -477,12 +477,12 @@ extern "C" int rt_matmul_bwd_f32(const float* a, const float* b, const float* g,
 
 // ---------------------------------------------------------------- bf16
 //
-// The FC in bf16 on bf16_gemm.cuh: fp32 accumulator, bf16 out =
-// result_type(a, b) (matmul.py:53), da and db in bf16 (matmul.py:96-97),
-// each rounded once. The skinny entry (M <= 32) takes 32-row tiles, the
-// other 128-row ones; the backward is two launches of one call, da with
-// b read K-contiguous as b^T, db with a read M-contiguous as a^T (neither
-// is copied). Tensors are bf16, passed as their 16-bit patterns.
+// The FC in bf16: fp32 accumulator, bf16 out = result_type(a, b)
+// (matmul.py:53), da and db in bf16 (matmul.py:96-97), each rounded once.
+// The forward on bf16_gemm.cuh: the skinny entry (M <= 32) takes 32-row
+// tiles, the other 128-row ones. The backward is one launch of its own
+// kernel below (neither b^T nor a^T is copied). Tensors are bf16, passed as
+// their 16-bit patterns.
 
 // c (M, N) = a (M, K) @ b (K, N), 128-row tiles
 extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int64_t M,
@@ -499,21 +499,286 @@ extern "C" int rt_matmul_skinny_bf16(const uint16_t* a, const uint16_t* b, uint1
                          (cudaStream_t)stream);
 }
 
-// da (M, K) = g (M, N) @ b^T where da is not null, db (K, N) = a^T @ g
-// where db is not null; a (M, K), b (K, N), g (M, N)
-extern "C" int rt_matmul_bwd_bf16(const uint16_t* a, const uint16_t* b, const uint16_t* g,
-                                  uint16_t* da, uint16_t* db, int M, int K, int N,
-                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (M < 0 || K < 0 || N < 0) return (int)cudaErrorInvalidValue;
-  if (da) {
-    const int status =
-        M <= 32 ? bfg::launch<32>(bfg::row_k(g, M, N), bfg::row_k(b, K, N), da, nullptr, M, K, N, 1, K, s)
-                : bfg::launch<128>(bfg::row_k(g, M, N), bfg::row_k(b, K, N), da, nullptr, M, K, N, 1, K,
-                                   s);
-    if (status != 0) return status;
+// ------------------------------------------------ the bf16 FC backward
+//
+// da = g @ b^T and db = a^T @ g in one launch of da_blocks + db_blocks
+// blocks (build.matmul_bwd_plan_bf16), da's first, on mma.sync m16n8k16
+// (bf16 in, fp32 out): every operand is read as it lies, through ldmatrix.
+// * da: a block owns R = 16 columns of da (rows of b) and MT = 32 rows (of
+//   g) over the whole contraction N, streamed through a cp.async ring of
+//   STAGES slices of NC = 128 columns; the FC at batch 32 is 128 such
+//   blocks. g's rows and b's rows are both K-major for the product (g's
+//   row = A's row, b's row = B's column), so plain ldmatrix takes them.
+//   Warp w computes the 16 x 8 tile w % 4 over the contraction's even (w <
+//   4) or odd k16 steps; the two halves are added in that order at the end.
+// * db: a block owns a TK x TN = 128 x 128 tile of db over the whole
+//   contraction M, MC = 32 rows of a and g a step; both operands are
+//   MN-major for the product (a's row holds db's rows, g's row its
+//   columns), which ldmatrix.trans turns into the fragments. The tile is
+//   rounded to bf16, staged in shared memory and written in 16-byte row
+//   stores. Bound on the H100: bytes (at the FC b's 4 MB read for da and
+//   db's 4 MB written, 2 MFLOP per 16 KB), so both products share the
+//   card in one launch and every operand is read as it lies.
+// Each k16 step's products go into a fresh fragment that an fp32 add folds
+// into the sum (bf16_gemm.cuh's rule), every sum in one fixed order, no
+// atomics: a call repeats bit for bit. 16-byte copies where K and N are
+// multiples of 8 and a, b and g 16-byte aligned; 2-byte loads through the
+// registers otherwise (the ragged case), and scalar stores where db's rows
+// are no whole 16-byte chunks.
+namespace {
+namespace bwd16 {
+constexpr int THREADS = 256;
+constexpr int R = 16;
+constexpr int MT = 32;
+constexpr int NC = 128;
+constexpr int STAGES = 3;
+constexpr int LD = NC + 8;  // bf16 a staged row: consecutive rows 16 bytes apart in bank
+constexpr int DA_ROWS = MT + R;
+constexpr int TK = 128;
+constexpr int TN = 128;
+constexpr int MC = 32;
+constexpr int SMEM = STAGES * DA_ROWS * LD * 2;  // da's ring; db's tiles and staged tile fit
+static_assert(2 * MC * LD * 2 <= SMEM && TK * LD * 2 <= SMEM, "db's tiles fit the ring");
+static_assert(TK == NC && TN == NC, "db's rows are staged at the ring's stride");
+}  // namespace bwd16
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(rt::tc::smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const uint16_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(rt::tc::smem_u32(p)));
+}
+
+// acc += A (16 x 16, a) * B (16 x 8, b0 b1) through a fresh fragment
+__device__ __forceinline__ void mma_fold(float (&acc)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], d[e]);
+}
+
+// 8 values p[0 .. 7] of a row into shared dst: one 16-byte cp.async with
+// VEC, else 2-byte loads through the registers; `n` of them exist (the rest,
+// and all where !ok, zeros; base: any valid address, read by nothing)
+template <int VEC>
+__device__ __forceinline__ void copy8(uint16_t* dst, const uint16_t* p, bool ok, int n,
+                                      const uint16_t* base) {
+  if constexpr (VEC == 8) {
+    rt::tc::cp_async<4>(reinterpret_cast<float*>(dst),
+                        reinterpret_cast<const float*>(ok ? p : base), ok);
+  } else {
+    uint16_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = ok && e < n ? bfg::ld16(p + e) : 0;
+    *reinterpret_cast<uint4*>(dst) = bfg::pack8(v);
   }
-  if (db)
-    return bfg::launch<128>(bfg::row_mn(a, K), bfg::row_mn(g, N), db, nullptr, K, N, M, 1, N, s);
+}
+
+// da[m0 .., r0 .. r0 + R] = g[m0 .., :] @ b[r0 .., :]^T
+template <int VEC>
+__device__ __forceinline__ void da_block16(const uint16_t* __restrict__ b,
+                                           const uint16_t* __restrict__ g,
+                                           uint16_t* __restrict__ da, int M, int K, int N,
+                                           int slab, int mtile, uint16_t* sm) {
+  using namespace bwd16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = mtile * MT, r0 = slab * R;
+  const int mi = (warp & 3) >> 1, ni = warp & 1, half = warp >> 2;
+  const int nslices = (N + NC - 1) / NC;
+
+  // slice t: MT rows of g, then R rows of b, NC columns each, 8 a copy
+  auto load_slice = [&](int t) {
+    uint16_t* dst = sm + (t % STAGES) * DA_ROWS * LD;
+    const int n0 = t * NC;
+    for (int i = tid; i < DA_ROWS * (NC / 8); i += THREADS) {
+      const int row = i / (NC / 8), col = i % (NC / 8) * 8;
+      const bool is_g = row < MT;
+      const int src = is_g ? m0 + row : r0 + row - MT;
+      const bool ok = src < (is_g ? M : K) && n0 + col < N;
+      const uint16_t* base = is_g ? g : b;
+      copy8<VEC>(dst + row * LD + col, base + (int64_t)src * N + n0 + col, ok, N - n0 - col,
+                 base);
+    }
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < nslices) load_slice(t);
+    rt::tc::cp_async_commit();
+  }
+  for (int t = 0; t < nslices; ++t) {
+    rt::tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice t for every thread; slot t - 1 is free
+    if (t + STAGES - 1 < nslices) load_slice(t + STAGES - 1);
+    rt::tc::cp_async_commit();
+    const uint16_t* gs = sm + (t % STAGES) * DA_ROWS * LD;
+    const uint16_t* bs = gs + MT * LD;
+    const int j = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int s = half; s < NC / 16; s += 2) {
+      uint32_t af[4], bf[2];
+      ldsm_x4(af, gs + (mi * 16 + r + 8 * (j & 1)) * LD + s * 16 + 8 * (j >> 1));
+      ldsm_x2(bf, bs + (ni * 8 + r) * LD + s * 16 + 8 * (j & 1));
+      mma_fold(acc, af, bf[0], bf[1]);
+    }
+  }
+  rt::tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the halves' sums
+
+  float* red = reinterpret_cast<float*>(sm);  // [4 tiles][32 lanes][4]
+  if (half == 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[((warp & 3) * 32 + lane) * 4 + e] = acc[e];
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + mi * 16 + gid + 8 * (e >> 1), c = r0 + ni * 8 + 2 * tig + (e & 1);
+      const float v = __fadd_rn(acc[e], red[((warp & 3) * 32 + lane) * 4 + e]);
+      if (m < M && c < K) da[(int64_t)m * K + c] = bfg::to_bf16(v);
+    }
+  }
+}
+
+// db[k0 .. k0 + TK, n0 .. n0 + TN] = a[:, k0 ..]^T @ g[:, n0 ..]. Warp w
+// holds rows k0 + 64 (w % 2) + [0, 64) and columns n0 + 32 (w / 2) + [0, 32)
+template <int VEC>
+__device__ __forceinline__ void db_block16(const uint16_t* __restrict__ a,
+                                           const uint16_t* __restrict__ g,
+                                           uint16_t* __restrict__ db, int M, int K, int N,
+                                           int ktile, int ntile, uint16_t* sm) {
+  using namespace bwd16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int k0 = ktile * TK, n0 = ntile * TN;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int j = lane >> 3, r = lane & 7;
+  uint16_t* as = sm;            // [MC][LD]: a's rows, db's rows contiguous
+  uint16_t* gs = sm + MC * LD;  // [MC][LD]: g's rows, db's columns contiguous
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+
+  for (int mc = 0; mc < M; mc += MC) {
+    for (int i = tid; i < 2 * MC * (TK / 8); i += THREADS) {
+      const bool is_a = i < MC * (TK / 8);
+      const int q = is_a ? i : i - MC * (TK / 8);
+      const int row = q / (TK / 8), col = q % (TK / 8) * 8;
+      const int c = (is_a ? k0 : n0) + col, width = is_a ? K : N;
+      const bool ok = mc + row < M && c < width;
+      copy8<VEC>((is_a ? as : gs) + row * LD + col,
+                 (is_a ? a : g) + (int64_t)(mc + row) * width + c, ok, width - c, g);
+    }
+    rt::tc::cp_async_commit();
+    rt::tc::cp_async_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < MC / 16; ++s) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // A = a^T: stored rows are the contraction
+        ldsm_x4_t(af[i], as + (s * 16 + r + 8 * (j >> 1)) * LD + wm * 64 + i * 16 + 8 * (j & 1));
+#pragma unroll
+      for (int p = 0; p < 2; ++p)  // B = g: two 8-column tiles a load
+        ldsm_x4_t(bf[p], gs + (s * 16 + r + 8 * (j & 1)) * LD + wn * 32 + p * 16 + 8 * (j >> 1));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_fold(acc[i][q], af[i], bf[q >> 1][2 * (q & 1)], bf[q >> 1][2 * (q & 1) + 1]);
+    }
+    __syncthreads();  // the tiles are free for the next rows, or the output
+  }
+
+  // rounded to bf16, staged as [TK][LD], then whole rows out
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(sm + (wm * 64 + i * 16 + gid + 8 * h) * LD + wn * 32 +
+                                     q * 8 + 2 * tig) =
+            (uint32_t)bfg::to_bf16(acc[i][q][2 * h]) |
+            ((uint32_t)bfg::to_bf16(acc[i][q][2 * h + 1]) << 16);
+  __syncthreads();
+  const bool vec = N % 8 == 0 && (uintptr_t)db % 16 == 0;
+  for (int i = tid; i < TK * (TN / 8); i += THREADS) {
+    const int row = i / (TN / 8), col = i % (TN / 8) * 8;
+    const int k = k0 + row, c = n0 + col;
+    if (k >= K || c >= N) continue;
+    const uint16_t* src = sm + row * LD + col;
+    uint16_t* dst = db + (int64_t)k * N + c;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && c + e < N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
+// blocks [0, da_blocks) compute da, the rest db (matmul_bwd_plan_bf16's order)
+template <int VEC>
+__global__ void __launch_bounds__(bwd16::THREADS)
+matmul_bwd_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
+                       const uint16_t* __restrict__ g, uint16_t* __restrict__ da,
+                       uint16_t* __restrict__ db, int M, int K, int N, int da_blocks) {
+  __shared__ __align__(16) uint16_t sm[bwd16::SMEM / 2];
+  const int id = blockIdx.x;
+  if (id < da_blocks) {
+    const int slabs = (K + bwd16::R - 1) / bwd16::R;
+    da_block16<VEC>(b, g, da, M, K, N, id % slabs, id / slabs, sm);
+  } else {
+    const int ntiles = (N + bwd16::TN - 1) / bwd16::TN;
+    const int t = id - da_blocks;
+    db_block16<VEC>(a, g, db, M, K, N, t / ntiles, t % ntiles, sm);
+  }
+}
+
+}  // namespace
+
+// da (M, K) = g (M, N) @ b^T and db (K, N) = a^T @ g for a (M, K), b (K, N)
+// and g (M, N), in one launch of da_blocks + db_blocks blocks: da_blocks =
+// ceil(K / 16) * ceil(M / 32), or 0 with da null; db_blocks = ceil(K / 128)
+// * ceil(N / 128), or 0 with db null (build.py matmul_bwd_plan_bf16); any
+// other count is refused
+extern "C" int rt_matmul_bwd_bf16(const uint16_t* a, const uint16_t* b, const uint16_t* g,
+                                  uint16_t* da, uint16_t* db, int M, int K, int N, int da_blocks,
+                                  int db_blocks, void* stream) {
+  using namespace bwd16;
+  const int64_t want_da = da ? (int64_t)((K + R - 1) / R) * ((M + MT - 1) / MT) : 0;
+  const int64_t want_db = db ? (int64_t)((K + TK - 1) / TK) * ((N + TN - 1) / TN) : 0;
+  if (M < 0 || K < 0 || N < 0 || da_blocks != want_da || db_blocks != want_db ||
+      want_da + want_db == 0 || want_da + want_db > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = K % 8 == 0 && N % 8 == 0 && bfg::aligned16(a) && bfg::aligned16(b) &&
+                   bfg::aligned16(g);
+  auto* kernel = vec ? matmul_bwd_bf16_kernel<8> : matmul_bwd_bf16_kernel<1>;
+  kernel<<<(unsigned)(da_blocks + db_blocks), THREADS, 0, (cudaStream_t)stream>>>(
+      a, b, g, da, db, M, K, N, da_blocks);
   return (int)cudaGetLastError();
 }

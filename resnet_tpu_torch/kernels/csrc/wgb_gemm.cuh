@@ -51,6 +51,14 @@
 // Each thread's accumulator d[4j + e] sits at row 16 * warp + gid +
 // 8 * (e / 2), column 8j + 2 tig + e % 2 of the tile.
 //
+// K1's bf16 forward (conv.cu) runs a second main loop, `persistent`: a
+// grid of one block per SM walks the work units (m tile, n tile, K split)
+// in a fixed order, and the ring runs across unit boundaries, so the next
+// unit's first slices load while the current unit's last products and its
+// epilogue run, and a unit's tile leaves from shared memory by TMA while
+// the next unit runs. The folds are mainloop's (one fp32 add per slice, in
+// slice order).
+//
 // Measured: PERF.md (registers and shared memory from -Xptxas -v,
 // chip_smoke.py's build phase).
 #pragma once
@@ -59,6 +67,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "bf16_gemm.cuh"  // to_bf16, splitk_sum_bf16
 #include "wg_gemm.cuh"    // mbarriers, fence_operand, the tensor-map encoder
@@ -196,6 +206,13 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
                : "memory");
 }
 
+// the same for 4 bytes (both addresses 4-byte aligned)
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
 // the shared byte offset of 16-byte chunk j of row r in a swizzled tile of
 // 128-byte rows
 __device__ __forceinline__ int swz(int r, int j) { return r * 128 + ((j ^ (r & 7)) << 4); }
@@ -272,6 +289,226 @@ __device__ __forceinline__ void mainloop(Block& blk, const Smem<BN>& sm, uint64_
   rt::tc::cp_async_wait<0>();
 }
 
+// ------------------------------------------------ the persistent main loop
+
+// One persistent block per SM, so a deeper ring than Tile's (LOOK slices
+// load ahead of the one in the tensor cores, a slot reloaded in the slice
+// after its products were retired), and a staged output tile that TMA
+// stores while the next unit runs
+template <int BN>
+struct PTile {
+  static constexpr int STAGES = BN == 64 ? 8 : 5;
+  static constexpr int LOOK = STAGES - 1;
+  static constexpr int OUT_BYTES = BN / 64 * BM * 128;  // 128-byte rows of 64 bf16
+  // the ring, the output tile, the copies' record [STAGES][THREADS], +
+  // alignment slack
+  static constexpr int SMEM =
+      STAGES * Tile<BN>::STAGE_BYTES + OUT_BYTES + STAGES * THREADS * 4 + ATOM;
+};
+
+template <int BN>
+__device__ __forceinline__ Smem<BN> psmem_layout(uint8_t* raw) {
+  Smem<BN> s;
+  s.ring = raw + ((ATOM - (rt::tc::smem_u32(raw) & (ATOM - 1))) & (ATOM - 1));
+  s.red = nullptr;
+  s.info = reinterpret_cast<uint32_t*>(s.ring + PTile<BN>::STAGES * Tile<BN>::STAGE_BYTES +
+                                       PTile<BN>::OUT_BYTES);
+  return s;
+}
+
+// the persistent block's output tile, 1024-byte aligned after the ring
+template <int BN>
+__device__ __forceinline__ uint8_t* p_out(const Smem<BN>& sm) {
+  return sm.ring + PTile<BN>::STAGES * Tile<BN>::STAGE_BYTES;
+}
+
+// The work units of an (M, N) output on BM x BN tiles with `splits` K
+// splits of `chunk` slices each (of `slices`): unit u is n tile u % n_tiles,
+// then m tile, then split, so the units in flight at once share their rows
+// of A through the L2
+struct Units {
+  int64_t m_tiles;
+  int n_tiles, splits;
+  int64_t slices, chunk;
+  __host__ __device__ int64_t count() const { return m_tiles * n_tiles * splits; }
+  template <int BN>
+  __device__ void at(int64_t u, int64_t& row0, int& col0, int& z, int64_t& s0, int& nk) const {
+    col0 = (int)(u % n_tiles) * BN;
+    const int64_t r = u / n_tiles;
+    row0 = r % m_tiles * BM;
+    z = (int)(r / m_tiles);
+    s0 = z * chunk;
+    const int64_t s1 = slices < s0 + chunk ? slices : s0 + chunk;
+    nk = s1 > s0 ? (int)(s1 - s0) : 0;
+  }
+};
+
+// The persistent main loop over the units of `un`, unit u on block
+// u % gridDim.x: blk.start(row0, col0, k_lo) (every thread) points the
+// copies at a unit, blk.load(slot, kt) starts slice kt of that unit (thread
+// 0 arms the slot's mbarrier with its TMA bytes), blk.fix(slot) runs once
+// the thread's own copies of the slot have landed; A is K-major. A slice's
+// four wgmmas chain into a fresh accumulator, retired and folded before
+// the next slice (mainloop's order and bits): a group left in flight
+// across the copies' thread-dependent branches made ptxas serialize every
+// wgmma (C7518, "WG.DP in divergent path"; this loop's first build on the
+// H100, with two accumulators in turn). epi(acc, row0, col0, z) (every
+// thread) takes each unit's sum.
+template <int BN, class Block, class Epi>
+__device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint64_t* full,
+                                           const Units& un, Epi&& epi) {
+  using T = Tile<BN>;
+  constexpr int S = PTile<BN>::STAGES;
+  const int64_t total = un.count();
+  // the copying side runs LOOK slices ahead: unit lu, its slice lk of lnk
+  int64_t lu = blockIdx.x, gl = 0;
+  int lk = 0, lnk = 0;
+  auto start = [&]() {
+    int64_t row0, s0;
+    int col0, z;
+    un.at<BN>(lu, row0, col0, z, s0, lnk);
+    blk.start(row0, col0, s0 * BK);
+  };
+  if (lu < total) start();
+  auto next_load = [&]() {
+    while (lu < total && lk == lnk) {  // this unit is issued: the block's next
+      lu += gridDim.x;
+      lk = 0;
+      if (lu < total) start();
+    }
+    if (lu < total) {
+      blk.load((int)(gl % S), lk);
+      ++lk;
+      ++gl;
+    }
+  };
+#pragma unroll 1
+  for (int s = 0; s < PTile<BN>::LOOK; ++s) {
+    next_load();
+    rt::tc::cp_async_commit();
+  }
+  const uint32_t wg_a = (threadIdx.x / 128) * HALF;
+  float acc[T::NACC], d[T::NACC];
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) d[i] = 0.f;
+  int64_t g = 0;  // slices consumed
+  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+    int64_t row0, s0;
+    int col0, z, nk;
+    un.at<BN>(u, row0, col0, z, s0, nk);
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++g) {
+      const int slot = (int)(g % S);
+      rt::tc::cp_async_wait<PTile<BN>::LOOK - 1>();  // this thread's copies of slice g landed
+      blk.fix(slot);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();  // every thread's part of slice g is in; slot g - 1 is free
+      next_load();
+      rt::tc::cp_async_commit();
+      rt::wg::mbar_wait(&full[slot], (uint32_t)(g / S) & 1);  // its TMA boxes have landed
+      const uint32_t base = rt::tc::smem_u32(sm.slot(slot));
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        Mma<BN, 0, 1>::run(d, desc_a<A_K>(base + wg_a, ks),
+                           desc(base + T::A_BYTES + ks * 2 * ATOM, HALF), ks);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) {
+        rt::wg::fence_operand(d[i]);
+        acc[i] = __fadd_rn(acc[i], d[i]);
+      }
+    }
+    epi(acc, row0, col0, z);
+  }
+  rt::tc::cp_async_wait<0>();
+}
+
+// The tile of rows row0 + [0, 128), columns col0 + [0, BN) of the (M, N)
+// bf16 output under ymap (boxes of 64 columns x BM rows, 128-byte swizzle)
+// by TMA from the staged tile `out`: the thread's pairs rounded into the
+// swizzled 128-byte rows (a warp's 32 stores on 32 banks), then thread 0
+// stores it; the previous unit's store has read the stage before it is
+// written again. TMA clips rows past M. Called by every thread.
+template <int BN>
+__device__ __forceinline__ void store_tile_tma(const float (&acc)[Tile<BN>::NACC], uint8_t* out,
+                                               const CUtensorMap* ymap, int64_t row0, int col0) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + (j / 8) * BM * 128 + swz(r, j % 8) + 4 * tig) =
+          (uint32_t)bfg::to_bf16(acc[4 * j + 2 * h]) |
+          ((uint32_t)bfg::to_bf16(acc[4 * j + 2 * h + 1]) << 16);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+#pragma unroll
+    for (int hb = 0; hb < BN / 64; ++hb)
+      asm volatile(
+          "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+              (uint64_t)ymap),
+          "r"(rt::tc::smem_u32(out + hb * BM * 128)), "r"(col0 + 64 * hb), "r"((int)row0)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+// the output tiles' TMA stores complete (thread 0 issued them)
+__device__ __forceinline__ void store_tma_wait() {
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The tile of rows row0 + [0, 128), columns col0 + [0, BN) of an (M, N)
+// output, each thread its own pairs straight from its registers: rounded to
+// bf16 into y (row-major, stride N), or, with part, fp32 into part. Rows
+// past M are not written.
+template <int BN>
+__device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], int64_t row0,
+                                            int col0, int64_t M, int N, uint16_t* y, float* part) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t gm = row0 + warp * 16 + gid + 8 * h;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int gc = col0 + 8 * j + 2 * tig;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (part) {
+        float* p = part + gm * N + gc;
+        if (pairs && gc + 1 < N) {
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        } else {
+          if (gc < N) p[0] = v0;
+          if (gc + 1 < N) p[1] = v1;
+        }
+      } else {
+        uint16_t* p = y + gm * N + gc;
+        if (pairs && gc + 1 < N) {
+          *reinterpret_cast<uint32_t*>(p) =
+              (uint32_t)bfg::to_bf16(v0) | ((uint32_t)bfg::to_bf16(v1) << 16);
+        } else {
+          if (gc < N) p[0] = bfg::to_bf16(v0);
+          if (gc + 1 < N) p[1] = bfg::to_bf16(v1);
+        }
+      }
+    }
+  }
+}
+
 // The block's tile of rows row0 + [0, 128), columns col0 + [0, BN) of an
 // (M, N) output: rounded to bf16 into y (row-major, stride N), or, with
 // part, fp32 into part (the block's split's (M, N) partials). Where N % 8
@@ -286,7 +523,6 @@ __device__ __forceinline__ void store_tile(const float (&acc)[Tile<BN>::NACC], c
                                            uint16_t* y, float* part) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  const bool pairs = N % 2 == 0;
   const uintptr_t out = part ? (uintptr_t)part : (uintptr_t)y;
   if (N % 8 == 0 && out % 16 == 0) {
     __syncthreads();  // every warpgroup is done with the ring
@@ -328,34 +564,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[Tile<BN>::NACC], c
     }
     return;
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int64_t gm = row0 + warp * 16 + gid + 8 * h;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int gc = col0 + 8 * j + 2 * tig;
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (part) {
-        float* p = part + gm * N + gc;
-        if (pairs && gc + 1 < N) {
-          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-        } else {
-          if (gc < N) p[0] = v0;
-          if (gc + 1 < N) p[1] = v1;
-        }
-      } else {
-        uint16_t* p = y + gm * N + gc;
-        if (pairs && gc + 1 < N) {
-          *reinterpret_cast<uint32_t*>(p) =
-              (uint32_t)bfg::to_bf16(v0) | ((uint32_t)bfg::to_bf16(v1) << 16);
-        } else {
-          if (gc < N) p[0] = bfg::to_bf16(v0);
-          if (gc + 1 < N) p[1] = bfg::to_bf16(v1);
-        }
-      }
-    }
-  }
+  store_pairs<BN>(acc, row0, col0, M, N, y, part);
 }
 
 // The tile's per-column [sum C, sum C^2] over its valid rows into
@@ -440,12 +649,87 @@ inline int map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64
 }
 
 // the map of a (rows, cols) row-major bf16 matrix (cols % 8 == 0, base
-// 16-byte aligned) for boxes of 64 columns x BK rows: an MN-major B
-inline int matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols) {
+// 16-byte aligned) for boxes of 64 columns x box_rows rows: an MN-major B
+// (box_rows = BK), or a K-major A of 128-row tiles (box_rows = BM)
+inline int matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols,
+                      int box_rows = BK) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, BK};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   return map_bf16(map, base, 2, dims, strides, box);
+}
+
+// matrix_map through a cache of recent maps keyed by everything a map
+// encodes (address, shape, box; not the contents), so a weight or an
+// activation seen again is not encoded again: 512 entries, 4-way sets,
+// round-robin replacement (a ResNet-50 step holds ~130 maps)
+inline int cached_matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols,
+                             int box_rows) {
+  struct Entry {
+    const uint16_t* base;
+    int64_t rows;
+    int cols, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int SETS = 128, WAYS = 4;
+  static Entry cache[SETS][WAYS];
+  static uint8_t next[SETS];
+  static std::mutex mu;
+  uint64_t h = (uint64_t)(uintptr_t)base ^ (uint64_t)rows << 20 ^ (uint64_t)cols << 40 ^
+               (uint64_t)box_rows << 58;
+  h *= 0x9E3779B97F4A7C15ull;
+  const int set = (int)(h >> 57);  // the top 7 bits
+  std::lock_guard<std::mutex> lock(mu);
+  for (Entry& e : cache[set])
+    if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  const int status = matrix_map(map, base, rows, cols, box_rows);
+  if (status == 0) {
+    cache[set][next[set]] = Entry{base, rows, cols, box_rows, *map};
+    next[set] = (uint8_t)((next[set] + 1) % WAYS);
+  }
+  return status;
+}
+
+// Raise a kernel's dynamic shared memory limit to `bytes` once per kernel
+// and device (a host-side attribute, no device work)
+inline int max_smem_once(const void* kernel, int bytes) {
+  static const void* kernels[64];
+  static uint32_t devices[64];  // bit d: set on device d
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  std::lock_guard<std::mutex> lock(mu);
+  int i = 0;
+  while (i < 64 && kernels[i] != nullptr && kernels[i] != kernel) ++i;
+  if (i < 64 && kernels[i] == kernel && bit && (devices[i] & bit)) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (i < 64) {
+    kernels[i] = kernel;
+    devices[i] |= bit;
+  }
+  return 0;
+}
+
+// the current device's SM count, asked once per device
+inline int sm_count(int* sms) {
+  static int counts[32];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 32 && counts[dev] > 0) {
+    *sms = counts[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 32) counts[dev] = *sms;
+  return 0;
 }
 
 // slices of BK in K
@@ -453,14 +737,13 @@ __host__ __device__ inline int64_t slices_of(int64_t K) { return (K + BK - 1) / 
 
 // Launch `kern(grid, smem)` for an (M, N) output of tile width BN with
 // `splits` K splits, one block per (m tile, n tile, split), m fastest,
-// after raising the kernel's dynamic shared memory limit (a host-side
-// attribute, no device work). Returns the launch status.
+// after raising the kernel's dynamic shared memory limit (max_smem_once).
+// Returns the launch status.
 template <int BN, class Kernel, class Launch>
 inline int launch(Kernel* kernel, Launch&& kern, int64_t M, int N, int splits) {
   constexpr int smem = Tile<BN>::SMEM;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
+  const int e = max_smem_once((const void*)kernel, smem);
+  if (e != 0) return e;
   if (splits < 1 || splits > 65535 || (N + BN - 1) / BN > 65535 || (M + BM - 1) / BM > INT32_MAX)
     return (int)cudaErrorInvalidValue;
   kern(dim3((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN), (unsigned)splits),

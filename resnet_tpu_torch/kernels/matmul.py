@@ -11,11 +11,13 @@ gradient is needed of (``build.matmul_bwd_plan``; b^T is never copied).
 Anything the kernels do not take raises. On CPU tensors the plain versions
 run: ``matmul_reference`` and ``matmul_bwd_reference``.
 
-bf16 tensors take the bf16 entry points of the same file
-(``rt_matmul_skinny_bf16``, ``rt_matmul_bf16``, ``rt_matmul_bwd_bf16``, on
-``csrc/bf16_gemm.cuh``), routed alike: an fp32 accumulator and a bf16
-result rounded once, result_type(a, b) as in matmul.py:53; da and db in
-bf16 (matmul.py:96-97). The plain versions compute in fp32 and cast once.
+bf16 tensors take the bf16 entry points of the same file, routed alike:
+the forward ``rt_matmul_skinny_bf16`` or ``rt_matmul_bf16`` on
+``csrc/bf16_gemm.cuh``, the backward one launch of ``rt_matmul_bwd_bf16``
+(``mma.sync`` with ``ldmatrix``, planned by ``build.matmul_bwd_plan_bf16``).
+An fp32 accumulator and a bf16 result rounded once, result_type(a, b) as
+in matmul.py:53; da and db in bf16 (matmul.py:96-97). The plain versions
+compute in fp32 and cast once.
 
 ``LAUNCHES`` counts fp32 forward launches (either route), ``BWD_LAUNCHES``
 fp32 backward ones (one per call, whichever products it computes);
@@ -110,19 +112,14 @@ def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
         raise ValueError(f"matmul_bwd: M={m}, K={k}, N={n} beyond the kernel's int sizes")
     da = torch.empty((m, k), dtype=a.dtype, device=a.device) if need_a else None
     db = torch.empty((k, n), dtype=a.dtype, device=a.device) if need_b else None
-    if a.dtype is torch.bfloat16:
-        if (need_a and m * k) or (need_b and k * n):
-            build.launch("rt_matmul_bwd_bf16", a.data_ptr(), b.data_ptr(), g.data_ptr(),
-                         da.data_ptr() if need_a else None,
-                         db.data_ptr() if need_b else None, m, k, n, device=a.device)
-            build.count(__name__, "BWD_LAUNCHES", a)
-        return da, db
-    da_blocks, db_blocks = build.matmul_bwd_plan(m, k, n, need_a, need_b)
+    bf16 = a.dtype is torch.bfloat16
+    plan = build.matmul_bwd_plan_bf16 if bf16 else build.matmul_bwd_plan
+    da_blocks, db_blocks = plan(m, k, n, need_a, need_b)
     if da_blocks + db_blocks >= 2**31:
         raise ValueError(f"matmul_bwd: {da_blocks + db_blocks} blocks beyond the grid")
-    if da_blocks + db_blocks:
-        build.launch("rt_matmul_bwd_f32", a.data_ptr(), b.data_ptr(), g.data_ptr(),
-                     da.data_ptr() if da_blocks else None,
+    if (need_a and m * k) or (need_b and k * n):
+        build.launch(build.entry_name("matmul_bwd", a), a.data_ptr(), b.data_ptr(),
+                     g.data_ptr(), da.data_ptr() if da_blocks else None,
                      db.data_ptr() if db_blocks else None, m, k, n, da_blocks, db_blocks,
                      device=a.device)
         build.count(__name__, "BWD_LAUNCHES", a)

@@ -12,7 +12,9 @@ clean variant's batch-224 shapes (K1's stem, K2, K2b, K4) with
 ``-k "batch 224"``, and the bf16 entry points (each element within one
 bf16 ulp of the plain value plus 1e-5 of max) with ``-k bf16``, the
 kernels on the bf16 wgmma + TMA core (wgb_gemm.cuh: K1's bf16 dW, K8- and
-K10-bf16) with ``-k "conv2d_dw_bf16 or fused_conv_bf16 or block_fused_bf16"``.
+K10-bf16) with ``-k "conv2d_dw_bf16 or fused_conv_bf16 or block_fused_bf16"``,
+K1's bf16 forward on that core's persistent kernel and K3's one-launch bf16
+backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``.
 
 Without a CUDA device every test here skips.
 """
@@ -727,3 +729,114 @@ def test_fused_conv_bf16_repeats_bit_for_bit(cuda, case):
     y, sums = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
     y2, sums2 = fused_conv.fused_conv(x, w, scale, shift, s, None, prologue, True, cap)
     assert torch.equal(y, y2) and torch.equal(sums, sums2)
+
+
+def _resnet50_fwd_shapes():
+    from resnet_tpu_torch.config import model_config
+
+    m = model_config("resnet50")
+    sites = {(h, cin, cout, k, s) for _, _, h, cin, cout, k, s, *_ in checks.fused_sites(2)}
+    return [(m.input_dim, m.in_channels, m.init_filters, m.init_kernel, m.init_stride)] + sorted(
+        sites)
+
+
+FWD_SHAPES = _resnet50_fwd_shapes()
+
+
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=[str(s) for s in FWD_SHAPES])
+def test_conv2d_bf16_takes_the_wgmma_route_on_cuda(cuda, monkeypatch, shape):
+    """Each ResNet-50 conv's bf16 forward at batch 2 launches the wgmma
+    core's persistent kernel (the stem on its 24-wide rows, a 1x1/s1 by TMA
+    boxes) and holds to the plain conv by the bf16 rule."""
+    from resnet_tpu_torch.kernels import conv
+
+    h, cin, cout, k, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    names = _recording(monkeypatch)
+    got = conv.conv2d(x, w, s)
+    assert names == ["rt_conv2d_nhwc_bf16"]
+    _held_bf16(got, conv.conv2d_reference(x, w, s))
+
+
+def test_conv2d_bf16_misaligned_takes_the_mma_route_on_cuda(cuda, monkeypatch):
+    """x whose data start 2 bytes past a 16-byte boundary is no 16-byte
+    chunk: the forward takes bf16_gemm.cuh's route and holds to the plain
+    conv; the same values aligned take the wgmma core to the same rule."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, cin, cout = 4, 14, 64, 128
+    xa = torch.randn(n * h * h * cin + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    x = xa[1:].view(n, h, h, cin)
+    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    assert x.data_ptr() % 16
+    names = _recording(monkeypatch)
+    want = conv.conv2d_reference(x, w, 1)
+    _held_bf16(conv.conv2d(x, w, 1), want)
+    _held_bf16(conv.conv2d(x.clone(), w, 1), want)
+    assert names == ["rt_conv2d_nhwc_bf16_mma", "rt_conv2d_nhwc_bf16"]
+
+
+@pytest.mark.parametrize("n,h", [(2, 30), (3, 16), (1, 224)])
+def test_conv2d_bf16_stem_on_cuda(cuda, n, h):
+    """The stem's 24-wide rows at sizes whose rows end inside a tile and
+    whose windows meet both image edges: within the bf16 rule of the plain
+    conv, and exact on integer values, whose sums every order keeps."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, 3, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(7, 7, 3, 64, generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    _held_bf16(conv.conv2d(x, w, 2), conv.conv2d_reference(x, w, 2))
+    xi, wi = (torch.randint(-4, 5, t.shape, generator=gen, device="cuda").to(torch.bfloat16)
+              for t in (x, w))
+    assert torch.equal(conv.conv2d(xi, wi, 2), conv.conv2d_reference(xi, wi, 2))
+
+
+BF16_FWD_REPEAT = [c for c in checks.BF16_CONV_CASES
+                   if c[0].startswith(("stem", "1x1 7^2", "proj", "3x3 7^2 16"))]
+
+
+@pytest.mark.parametrize("case", BF16_FWD_REPEAT, ids=[c[0] for c in BF16_FWD_REPEAT])
+def test_conv2d_bf16_repeats_bit_for_bit(cuda, case):
+    """K1's bf16 forward on the persistent kernel: the stem's rows, the
+    1x1's TMA boxes split over K, the projection's gather: each unit's sum
+    in one fixed order, splits added in split order, no atomics, so two
+    runs give the same bits."""
+    from resnet_tpu_torch.kernels import conv
+
+    _, n, h, cin, cout, k, s, *_ = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    first = conv.conv2d(x, w, s)
+    assert torch.equal(first, conv.conv2d(x, w, s))
+
+
+@pytest.mark.parametrize("case", checks.BF16_MATMUL_BWD_CASES,
+                         ids=[c[0] for c in checks.BF16_MATMUL_BWD_CASES])
+@pytest.mark.parametrize("need", [(True, True), (False, True), (True, False)],
+                         ids=["da+db", "db", "da"])
+def test_matmul_bwd_bf16_one_launch_on_cuda(cuda, monkeypatch, case, need):
+    """K3's bf16 backward: one launch for whichever products are asked for,
+    each within the bf16 rule of the plain product, twice to the same
+    bits."""
+    from resnet_tpu_torch.kernels import matmul
+
+    _, m, k, n, offset, *_ = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(k * n + offset, generator=gen, device="cuda") * 0.01).to(
+        torch.bfloat16)[offset:].view(k, n)
+    g = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    names = _recording(monkeypatch)
+    got = matmul.matmul_bwd(a, b, g, *need)
+    assert names == ["rt_matmul_bwd_bf16"]
+    for t, want, needed in zip(got, matmul.matmul_bwd_reference(a, b, g), need):
+        assert (t is None) == (not needed)
+        if needed:
+            _held_bf16(t, want)
+    again = matmul.matmul_bwd(a, b, g, *need)
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
