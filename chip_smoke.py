@@ -21,8 +21,8 @@ Phases, each printing one JSON line:
      back, checks.host_us), the least time the card could take, and for the
      conv forward, the whole-block kernel, the FC backward (fp32 and bf16),
      K1's bf16 forward and dW and K8-bf16 the launch plan (tiles and K
-     splits; da and db blocks; the bf16 forward's route, A loader, units and
-     persistent blocks; dW's route, its 64-pixel box and slices); then the
+     splits; da and db blocks; the bf16 forward's A loader, K chunk, units
+     and persistent blocks; dW's route, its 64-pixel box and slices); then the
      whole-block kernel's weight split (split_tf32) at
      the shapes of K10's twelve weights, bit for bit against its plain
      version;
@@ -454,7 +454,7 @@ def _moved(before, after):
 def _plan(build, name, case):
     """The launch plan of a case of a kernel that has one (None for the
     others): tile, tiles and K splits (build.tc_split, build.wgb_split);
-    the bf16 forward's and dW's route; da and db blocks
+    the bf16 forward's A loader and dW's route; da and db blocks
     (build.matmul_bwd_plan, build.matmul_bwd_plan_bf16)."""
     if name == "conv2d":
         _, n, h, cin, cout, k, s = case
@@ -495,20 +495,16 @@ def _plan(build, name, case):
         m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
         return {"tile": [build.WGB_BM, bn], "tiles": -(-m // build.WGB_BM) * -(-cout // bn),
                 "splits": build.wgb_split(m, cout, k * k * cin)}
-    if name == "conv2d_bf16":  # the route; on the wgmma core its A loader and units
-        from resnet_tpu_torch.kernels.conv import STEM_ROW, fwd_bf16_route
+    if name == "conv2d_bf16":  # the A loader, K splits and units of the persistent kernel
+        from resnet_tpu_torch.kernels.conv import fwd_bf16_route
 
         _, n, h, cin, cout, k, s, *offset = case
-        m = n * (h // s) ** 2
-        route = fwd_bf16_route(cin, cout, k, s, not offset or offset[0] % 8 == 0)
-        if route == "mma":
-            return {"route": route, "splits": build.tc_split(m, cout, k * k * cin)}
-        depth, bn = (k * STEM_ROW if route == "stem" else k * k * cin), build.wgb_tile_n(cout)
-        splits = build.wgb_split(m, cout, depth)
+        m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
+        splits = build.tc_split(m, cout, k * k * cin)
         units = -(-m // build.WGB_BM) * -(-cout // bn) * splits
-        return {"route": route, "a": ("stem rows" if route == "stem" else
-                                      "tma" if (k, s) == (1, 1) else "gather"),
-                "tile": [build.WGB_BM, bn], "K": depth, "splits": splits, "units": units,
+        return {"a": fwd_bf16_route(m, cin, cout, k, s, not offset or offset[0] % 8 == 0),
+                "tile": [build.WGB_BM, bn], "splits": splits,
+                "chunk": build.k_chunk(k * k * cin, splits, 16), "units": units,
                 "blocks": min(units, 132)}
     if name == "matmul_bwd_bf16":
         _, m, k, n, _, need_a, need_b = case
@@ -701,22 +697,18 @@ def _as_running(bn_stats):
             "blocks": [{k: leaf(v) for k, v in b.items()} for b in bn_stats["blocks"]]}
 
 
-def _nudge_sensitivity(batch, params, bn_state, pc, pg, nudge=IMAGE_NUDGE, loss=None):
+def _nudge_sensitivity(batch, params, bn_state, pc, pg, nudge=IMAGE_NUDGE):
     """Per gradient leaf, the plain path's own largest change when the
-    images are scaled by 1 +- ``nudge`` (pg: its gradient at the images);
-    with ``loss`` (its summed loss at the images) also the loss's, under
-    the key 'loss'."""
+    images are scaled by 1 +- ``nudge`` (pg: its gradient at the images)."""
     from resnet_tpu_torch.bridge import flatten, leaves
     from resnet_tpu_torch.train import loss_and_grads
 
     sens = {}
     for factor in (1 + nudge, 1 - nudge):
         nudged = dict(batch, images=batch["images"] * factor)
-        ql, _, _, qg = loss_and_grads(params, nudged, bn_state, pc)
+        qg = loss_and_grads(params, nudged, bn_state, pc)[3]
         for (path, a), b in zip(flatten(qg), leaves(pg), strict=True):
             sens[path] = max(sens.get(path, 0.0), (a - b).abs().max().item())
-        if loss is not None:
-            sens["loss"] = max(sens.get("loss", 0.0), abs(ql.item() - loss.item()))
         del qg
     return sens
 
@@ -1053,7 +1045,7 @@ def _busy(profile_rows):
 # kernel names of the wgmma core's and bf16_gemm.cuh's (whose loader's name
 # the profile's cut to 90 characters keeps)
 BF16_SPLIT = {"K1 dW bf16": ("conv2d_dw_wg_kernel", "ConvDwBfA"),
-              "K1 fwd bf16": ("ConvFwdBfA", "conv2d_fwd_wg_kernel"), "K1 dx bf16": ("ConvDxBfA",),
+              "K1 fwd bf16": ("conv2d_fwd_wg_kernel",), "K1 dx bf16": ("ConvDxBfA",),
               "K8/K10 bf16 GEMMs": ("fused_conv_wg_kernel", "FusedConvBfA")}
 
 
@@ -1810,13 +1802,12 @@ def _to_nchw(batch):
     return dict(batch, images=batch["images"].permute(0, 3, 1, 2).contiguous())
 
 
-def _gap_held(got, want, ref, what, floor=None, sens=None, at_least=0.0):
+def _gap_held(got, want, ref, what, floor=None, sens=None):
     """Arrays (loss, statistics, gradients: trees of tensors) of a bf16 step
     ``got`` against the plain bf16 step ``want`` from the same state, within
     2x the gap between ``want`` and the plain fp32 step ``ref`` (bf16 rounds
     at other places on the two paths), as shares of max|want|. With
-    ``floor`` None the gap is pooled, its largest over all arrays, the
-    limit at least ``at_least``; else each
+    ``floor`` None the gap is pooled, its largest over all arrays; else each
     array has its own gap, at least ``floor``, or where ``sens`` (path ->
     want's own change under the bf16 image nudge) is given, GRAD_SENS times
     that change if larger. Returns the largest gap, the largest
@@ -1834,7 +1825,7 @@ def _gap_held(got, want, ref, what, floor=None, sens=None, at_least=0.0):
 
     gaps = [rel(w, r) for _, w, r in trios]
     if floor is None:
-        limits = [max(2 * max(gaps), at_least)] * len(gaps)
+        limits = [2 * max(gaps)] * len(gaps)
     else:
         limits = [max(2 * max(gap, floor),
                       GRAD_SENS * sens[path] / amax(w) if sens is not None else 0.0)
@@ -2017,24 +2008,16 @@ def phase_presets(torch, counters, smi):
             for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
     # the loss and the running statistics against their pooled gap; each
     # gradient leaf against its own, at least bf16's unit roundoff, or
-    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge.
-    # The loss is one value, its gap one draw: at seed 1234 the plain bf16
-    # loss moves by 7.7x its gap to the fp32 loss when the images are
-    # scaled by 1 + 2^-8 (their last bit), so its limit is at least that
-    # change of the plain bf16 step itself (PERF.md, PR 15)
-    plain_loss = recs["plain"]["loss_sum"]
+    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge
     sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
-                              recs["plain"]["grads"], BF16_UNIT, loss=plain_loss)
-    loss_nudge = sens.pop("loss") / max(abs(plain_loss.item()), 1e-30)
+                              recs["plain"]["grads"], BF16_UNIT)
     held = {}
     for what, pick, floor in (("loss", lambda r: {"loss": r["loss_sum"]}, None),
                               ("running_stats", lambda r: r["state"].bn_state, None),
                               ("grads", lambda r: r["grads"], BF16_UNIT)):
         held[what] = _gap_held(pick(recs["kernel"]), pick(recs["plain"]),
                                pick(recs["fp32"]), f"bf16 kernel step {what}", floor,
-                               sens if floor else None,
-                               at_least=loss_nudge if what == "loss" else 0.0)
-    held["loss"]["plain_nudge"] = loss_nudge
+                               sens if floor else None)
     # the well-conditioned check: the same three steps with BN frozen
     held["frozen_bn_grads"] = _bf16_frozen_held(kcfg, p16, p32, state0, batch)
     del sens

@@ -74,9 +74,6 @@ SIGNATURES = {
     # the bf16 entry points (the bf16 sections of conv.cu, matmul.cu,
     # add_relu.cu and moments.cu) take the fp32 ones' arguments
     "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    # the forward's route on bf16_gemm.cuh for the shapes the wgmma core does
-    # not take
-    "rt_conv2d_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
@@ -123,7 +120,7 @@ WG_BLOCKS_PER_SM = {64: 2, 128: 1}
 # the bf16 wgmma core's (wgb_gemm.cuh BM, BK, Tile<BN>::STAGES and
 # MIN_BLOCKS by tile width, BN = wgb_tile_n): K1's bf16 dW, K8-bf16 and
 # K10-bf16's three GEMMs; K1's bf16 forward runs the same tiles on the
-# persistent loop, one block per SM
+# persistent loop, one block per SM, K split by tc_split
 WGB_BM = 128
 WGB_BK = 64
 WGB_STAGES = {64: 4, 128: 6}
@@ -293,8 +290,9 @@ def _waves_plan(m: int, n: int, k: int, bm: int, bn: int, bk: int, resident: int
 def tc_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on tc_gemm.cuh's tiles:
     conv dW (m = k*k*Cin, n = Cout, k = the pixels), conv dx at stride 1
-    (m = the pixels, n = Cin, k = k*k*Cout), and the conv forward and the
-    fused conv (m = the output pixels, n = Cout, k = k*k*Cin), planned in
+    (m = the pixels, n = Cin, k = k*k*Cout), and the conv forward (fp32;
+    bf16 on wgb_gemm.cuh's persistent kernel, which keeps these chunks) and
+    the fused conv (m = the output pixels, n = Cout, k = k*k*Cin), planned in
     waves of resident blocks (``_waves_plan``). A function of the shapes
     only (cached), so a call repeats exactly."""
     bn = tc_tile_n(n)
@@ -328,8 +326,8 @@ def wgb_tile_n(n: int) -> int:
 def wgb_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on wgb_gemm.cuh's tiles:
     K1's bf16 dW (m = k*k*Cin, n = Cout, k = 64 x its slices of pixels,
-    ``dw_slices``), K1's bf16 forward, K8-bf16 and K10-bf16's GEMMs (m =
-    the output pixels, n = Cout, k = k*k*Cin, or the stem's 7 * 24). Each split is a whole number of WGB_BK-deep
+    ``dw_slices``), K8-bf16 and K10-bf16's GEMMs (m = the output pixels,
+    n = Cout, k = k*k*Cin). Each split is a whole number of WGB_BK-deep
     slices, at least WGB_MIN_SLICES deep, none empty, at most 256. Of
     those, the count that finishes soonest in slice times: waves of the
     resident blocks times (the chunk's slices + the ring's fill), plus, for

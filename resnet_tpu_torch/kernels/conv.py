@@ -23,14 +23,14 @@ tensors each of the three runs its plain version:
 bf16 tensors take the bf16 entry points of the same file: bf16 in, an
 fp32 accumulator, bf16 out rounded once, as the JAX kernel does for bf16
 inputs (conv.py:55-57, :105; dW in fp32 from the upcast inputs, cast to
-w.dtype, :180-195). The forward runs where ``fwd_bf16_route`` sends it:
-``rt_conv2d_nhwc_bf16``, the persistent kernel on ``csrc/wgb_gemm.cuh``'s
-``wgmma`` + TMA core (K8-bf16's gather without its prologue; a 1x1/s1
-conv's input by TMA boxes; the stem on 24-wide window rows, ``stem_rows``),
-K split by ``build.wgb_split``, for every ResNet-50 conv;
-``rt_conv2d_nhwc_bf16_mma`` on ``csrc/bf16_gemm.cuh``'s ``mma.sync`` core
-(K split by ``build.tc_split``) for ragged widths and misaligned tensors.
-dx (``rt_conv2d_dx_nhwc_bf16``) runs on ``bf16_gemm.cuh``, K split by
+w.dtype, :180-195). The forward (``rt_conv2d_nhwc_bf16``) runs every
+shape on the persistent kernel of ``csrc/wgb_gemm.cuh``'s ``wgmma`` + TMA
+core, with the A loader ``fwd_bf16_route`` names (K8-bf16's gather without
+its prologue; a 1x1/s1 conv's input by TMA boxes; the stem's kernel rows
+staged by 4-byte copies; the threads' 2-byte loads for ragged widths and
+misaligned tensors), K split by ``build.tc_split`` into the chunks
+``csrc/bf16_gemm.cuh``'s kernel took, one fp32 add per k16 step: the bits
+of that kernel, which ran it before. dx (``rt_conv2d_dx_nhwc_bf16``) runs on ``bf16_gemm.cuh``, K split by
 ``build.tc_split``. dW runs where ``dw_bf16_route`` sends
 it: ``rt_conv2d_dw_nhwc_bf16`` on ``csrc/wgb_gemm.cuh``'s ``wgmma`` + TMA
 core (x and g read by TMA boxes as they lie, K split by
@@ -136,34 +136,26 @@ def _shapes(x: torch.Tensor, w: torch.Tensor, stride: int) -> Tuple[int, ...]:
     return n, h, wd, cin, cout, kh
 
 
-STEM_ROW = 24  # a stem kernel row's 7 taps x 3 channels, one value before, padded (conv.cu)
-
-
-def fwd_bf16_route(cin: int, cout: int, k: int, stride: int, aligned: bool = True) -> str:
-    """The core K1's bf16 forward runs on: 'wgmma' (``csrc/wgb_gemm.cuh``'s
-    persistent kernel) where A's 16-byte chunks are 8 channels of one tap
-    (Cin % 8 == 0), w's rows whole TMA boxes (Cout % 8 == 0) and x and w
-    16-byte ``aligned``; 'stem', the same kernel on 24-wide window rows
-    (``stem_rows``), for the stem's Cin = 3, 7x7, stride 2; else 'mma'
-    (``csrc/bf16_gemm.cuh``): ragged widths and misaligned tensors, where
-    bf16_gemm.cuh measured faster than the core's element-wise loader
-    (PERF.md). A function of the shapes and the alignment only: a launch on
-    any route that fails raises."""
+def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
+                   aligned: bool = True) -> str:
+    """The A loader of K1's bf16 forward (``csrc/conv.cu``, all on the
+    persistent ``wgmma`` kernel) for m output pixels: 'stem' (x's kernel
+    rows staged by 4-byte copies, A set from them) for Cin = 3, 7x7,
+    stride 2, Cout <= 64; 'matrix' (TMA boxes of the (m, Cin) input) for a
+    1x1/s1 conv whose K splits are whole 64-deep slices; 'gather' (16-byte
+    copies of 8 channels of one tap) elsewhere where Cin % 8 == 0; each of
+    these where Cout % 8 == 0 and x, w and y are 16-byte ``aligned``; else
+    'scalar' (2-byte loads of both operands: ragged widths, misaligned
+    tensors). A function of the shapes and the alignment only."""
+    splits = build.tc_split(m, cout, k * k * cin)
     if cout % 8 or not aligned:
-        return "mma"
-    if (cin, k, stride) == (3, 7, 2):
+        return "scalar"
+    if (cin, k, stride) == (3, 7, 2) and cout <= 64 and splits == 1:
         return "stem"
-    return "wgmma" if cin % 8 == 0 else "mma"
-
-
-def stem_rows(w: torch.Tensor) -> torch.Tensor:
-    """The stem's weight (7, 7, 3, Cout) as the stem route's B (7 * STEM_ROW,
-    Cout): kernel row di's 21 (tap, channel) values at 1 + 3 dj + ci of a
-    24-wide row, zeros at 0, 22 and 23, where the kernel's A rows hold other
-    pixels' values (one small torch op on the 9,408 values, each call)."""
-    k, _, cin, cout = w.shape
-    return F.pad(w.reshape(k, k * cin, cout), (0, 0, 1, STEM_ROW - 1 - k * cin)).view(
-        k * STEM_ROW, cout)
+    if cin % 8:
+        return "scalar"
+    whole = splits == 1 or build.k_chunk(k * k * cin, splits, 16) % build.WGB_BK == 0
+    return "matrix" if (k, stride) == (1, 1) and whole else "gather"
 
 
 def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -176,16 +168,8 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
                       device=x.device)
     if out.numel():
         m = n * (h // stride) * (wd // stride)
-        name = build.entry_name("conv2d_nhwc", x)
-        route = fwd_bf16_route(cin, cout, k, stride, x.data_ptr() % 16 == 0 and (
-            w.data_ptr() % 16 == 0)) if x.dtype is torch.bfloat16 else None
-        if route == "stem":
-            w = stem_rows(w)
-        if route in ("wgmma", "stem"):
-            splits = build.wgb_split(m, cout, w.numel() // cout)  # K: k*k*Cin or 7 * 24
-        else:  # fp32 on tc_gemm.cuh, or bf16's 'mma' route on bf16_gemm.cuh
-            splits = build.tc_split(m, cout, k * k * cin)
-            name += "_mma" if route == "mma" else ""
+        # fp32 on tc_gemm.cuh, bf16 on wgb_gemm.cuh: the same K split
+        name, splits = build.entry_name("conv2d_nhwc", x), build.tc_split(m, cout, k * k * cin)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
         build.launch(name, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, k,
                      stride, ws_ptr, splits, device=x.device)

@@ -1,10 +1,11 @@
 // bf16 tensor-core GEMM core: bf16 operands, fp32 accumulator, one
 // rounding to bf16 at the end. Carries the bf16 entry point of the conv's
-// dx (conv.cu), the forward's and dW's routes for ragged or misaligned
-// operands (rt_conv2d_nhwc_bf16_mma, rt_conv2d_dw_nhwc_bf16_mma), and the
-// FC forward (matmul.cu). K1's bf16 forward and dW and K8-bf16 (with
-// K10-bf16's GEMMs) run on wgb_gemm.cuh's wgmma + TMA core instead; the
-// FC backward is its own kernel in matmul.cu.
+// dx (conv.cu), dW's route for ragged or misaligned operands
+// (rt_conv2d_dw_nhwc_bf16_mma), and the FC forward (matmul.cu). K1's bf16
+// forward and dW and K8-bf16 (with K10-bf16's GEMMs) run on wgb_gemm.cuh's
+// wgmma + TMA core instead (the forward's persistent kernel with this
+// core's K chunks and 16-deep folds, so with the bits this core gave it);
+// the FC backward is its own kernel in matmul.cu.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major. One 256-thread block
 // computes a BM x BN tile (BM 128, or 32 for the skinny FC; BN 64) with

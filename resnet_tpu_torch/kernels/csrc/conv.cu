@@ -470,58 +470,17 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 // ---------------------------------------------------------------- bf16
 //
-// The same three GEMMs on bf16 tensors (dx on bf16_gemm.cuh; dW and the
-// forward on wgb_gemm.cuh's wgmma core below, their ragged or misaligned
-// shapes on bf16_gemm.cuh): bf16 x, w and g,
-// an fp32 accumulator, bf16 out, rounded once. What JAX computes for bf16
-// inputs: the forward and dx are its conv kernel with `x.dtype` out
-// (conv.py:55-57, :105, :163-170); dW is an fp32 matmul of the upcast
-// inputs per tap, cast to w.dtype = bf16 (conv.py:180-195). The loaders
-// index as the fp32 ones do. A 16-byte copy is 8 channels, so vec needs
-// the channel count a multiple of 8 and a 16-byte aligned base; the stem
-// (Cin = 3, K = 147) takes 2-byte copies, each element decoded on its own,
-// and K beyond 147 reads as zeros.
+// The same three GEMMs on bf16 tensors (dx on bf16_gemm.cuh; the forward
+// on wgb_gemm.cuh's wgmma core below, every shape; dW on that core, its
+// ragged or misaligned shapes on bf16_gemm.cuh): bf16 x, w and g, an fp32
+// accumulator, bf16 out, rounded once. What JAX computes for bf16 inputs:
+// the forward and dx are its conv kernel with `x.dtype` out (conv.py:55-57,
+// :105, :163-170); dW is an fp32 matmul of the upcast inputs per tap, cast
+// to w.dtype = bf16 (conv.py:180-195). The loaders index as the fp32 ones
+// do. A 16-byte copy is 8 channels, so vec needs the channel count a
+// multiple of 8 and a 16-byte aligned base.
 
 namespace {
-
-// forward A: A((n, oy, ox), (di, dj, ci)) = x[n, s*oy - k/2 + di,
-// s*ox - k/2 + dj, ci]; K contiguous
-struct ConvFwdBfA {
-  static constexpr bool kKContig = true;
-  const uint16_t* __restrict__ x;
-  int H, W, Cin, ksize, stride, Ho, Wo;
-  int64_t M;
-  bool vec;  // Cin % 8 == 0 and x 16-byte aligned
-
-  __device__ uint4 load8(int64_t m, int64_t k, int64_t kend) const {
-    if (m >= M) return bfg::zero4();
-    const int64_t n = m / ((int64_t)Ho * Wo);
-    const int rem = (int)(m - n * Ho * Wo);
-    const int oy = rem / Wo;
-    const int iy0 = stride * oy - ksize / 2, ix0 = stride * (rem - oy * Wo) - ksize / 2;
-    const uint16_t* base = x + n * H * W * Cin;
-    if (vec) {
-      if (k >= kend) return bfg::zero4();
-      const int tap = (int)(k / Cin), ci = (int)(k - (int64_t)tap * Cin);
-      const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
-      if (iy < 0 || iy >= H || ix < 0 || ix >= W) return bfg::zero4();
-      return bfg::ld128(base + ((int64_t)iy * W + ix) * Cin + ci);
-    }
-    uint16_t v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = 0;
-      if (k + j < kend) {
-        const int tap = (int)((k + j) / Cin), ci = (int)(k + j - (int64_t)tap * Cin);
-        const int iy = iy0 + tap / ksize, ix = ix0 + tap % ksize;
-        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-          v[j] = bfg::ld16(base + ((int64_t)iy * W + ix) * Cin + ci);
-      }
-    }
-    return bfg::pack8(v);
-  }
-  __device__ int64_t out_row(int64_t m) const { return m; }
-};
 
 // dx A of one phase (py, px), as ConvDxTcA: row (n, qy, qx) is the input
 // pixel (py + s*qy, px + s*qx), column (ti, tj, co) the gradient at
@@ -612,19 +571,6 @@ struct ConvDwBfA {
 // The callers check stride | H, stride | W, shapes, dtype and contiguity,
 // and allocate ws (splits * rows * cols floats) when splits > 1. Tensors
 // are bf16, passed as their 16-bit patterns.
-
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
-// bf16_gemm.cuh's mma.sync core: the route of the shapes the wgmma core
-// below does not take (ragged widths, misaligned tensors)
-extern "C" int rt_conv2d_nhwc_bf16_mma(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
-                                       int H, int W, int Cin, int Cout, int k, int stride,
-                                       float* ws, int splits, void* stream) {
-  const int Ho = H / stride, Wo = W / stride;
-  const int64_t M = (int64_t)N * Ho * Wo;
-  const ConvFwdBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
-  return bfg::launch<128>(a, bfg::row_mn(w, Cout), y, ws, M, Cout, (int64_t)k * k * Cin,
-                          splits, Cout, (cudaStream_t)stream);
-}
 
 // dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices
 // of w^T one after the other (as rt_conv2d_dx_nhwc_f32); splits > 1 at
@@ -935,38 +881,47 @@ extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint
 //
 // y[(n, oy, ox), co] = sum over (di, dj, ci) of x[n, s*oy - k/2 + di,
 // s*ox - k/2 + dj, ci] w[di, dj, ci, co]: the implicit GEMM of K8-bf16
-// (fused_conv.cuh's ConvWgBlock, K-major A gathered 16 bytes at a time, the
-// weight (k*k*Cin, Cout) by TMA as it lies, MN-major) without its prologue
-// and statistics, on wgb::persistent: one block per SM walks the units
-// (m tile, n tile, K split), and the ring runs across their boundaries.
-// Two other A loaders on the same loop:
-// * a 1x1 conv at stride 1 reads A as the (N*H*W, Cin) matrix it is, one
-//   TMA box of 128 rows x 64 channels a slice (MatWgBlock): thread 0 issues
-//   every copy of the block;
-// * the stem (Cin = 3, 7x7, stride 2; StemWgBlock): a kernel row's 7 taps x
-//   3 channels are 21 contiguous values of x, so K is ordered (di, t) with
-//   a 24-wide row t per kernel row di, t = 1 + 3 dj + ci, K = 7 * 24 = 168
-//   (3 slices, against 4 for channels padded to 8 and 3 for the 147 of the
-//   plain order, whose chunks would not be contiguous). The row starts one
-//   value early, at x's element 3 * (pixel of (iy, s*ox - 3)) - 1, which
-//   is even for every ox (W even), so each 8-value chunk is four 4-byte
-//   cp.async copies; t = 0, 22 and 23 are other pixels' values and taps
-//   outside the image are zeros: a copy none of whose two values is a tap
-//   inside the image is zero-filled, and the thread zeroes the single
-//   values of the others in place once they have landed (fix). The weight
-//   comes as the matching (7 * 24, Cout) matrix, zeros at t = 0, 22, 23
-//   (conv.stem_rows, one small torch op a call).
-// Split-K partials (build.wgb_split) go through ws (fp32 pairs from the
-// registers) and splitk_sum_bf16 in split order; otherwise a unit's bf16
-// tile leaves from shared memory by TMA (wgb::store_tile_tma).
+// (fused_conv.cuh's ConvWgBlock, K-major A) without its prologue and
+// statistics, on wgb::persistent: one block per SM walks the units (m tile,
+// n tile, K split), and the ring runs across their boundaries. Three A
+// loaders, chosen from the shapes and the alignment (conv.fwd_bf16_route):
+// * FWD_GATHER: Cin % 8 == 0, Cout % 8 == 0, x and w 16-byte aligned:
+//   ConvWgBlock<BN, true>, A gathered 16 bytes (8 channels of one tap) at a
+//   time by cp.async, the weight (k*k*Cin, Cout) by TMA as it lies;
+// * FWD_MATRIX: the same widths at 1x1, stride 1, where each split is whole
+//   slices: A is the (N*H*W, Cin) matrix it is, one TMA box of 128 rows x
+//   64 channels a slice (MatWgBlock), thread 0 issuing every copy;
+// * FWD_STEM: the stem (Cin = 3, 7x7, stride 2, Cout <= 64, aligned): a
+//   kernel row's 7 taps x 3 channels are 21 contiguous values of x, so the
+//   threads stage, for each output pixel and kernel row a slice touches
+//   (at most 4), the 24 values from the one before the row by 4-byte
+//   cp.async (an even element, as W is even), and once every thread's
+//   copies of the slice have landed they set A's rows out of that staging
+//   in the plain K order, zeros where a tap falls outside the image
+//   (StemStageBlock); the weight (147, Cout) by TMA;
+// * FWD_SCALAR: every other shape (ragged widths, misaligned tensors):
+//   ConvWgBlock<BN, false>, both operands loaded by the threads 2 bytes at
+//   a time.
+// A's K order is the plain (di, dj, ci) on every loader.
+// K splits by build.tc_split at bf16_gemm.cuh's chunk (bfg::k_chunk_for,
+// a multiple of 16 columns), and one fp32 add per k16 step in K order, so
+// the result has the bits of bf16_gemm.cuh's kernel, which ran this entry
+// before. Split partials go through ws (fp32 pairs from the registers) and
+// splitk_sum_bf16 in split order; otherwise a unit's bf16 tile leaves from
+// shared memory by TMA (wgb::store_tile_tma), or from the registers
+// (FWD_SCALAR).
 //
 // Bound on the H100: bytes at batch 32 for the stem and the 1x1s with 64
 // input channels, operations for the 3x3s and the deep 1x1s (PERF.md);
 // persistence hides each unit's ring fill, and 1x1s cost no gather.
 namespace {
 
-constexpr int STEM_CIN = 3, STEM_K = 7, STEM_ROW = 24;  // conv.py STEM_ROW
-constexpr int FWD_GATHER = 0, FWD_MATRIX = 1, FWD_STEM = 2;
+constexpr int FWD_GATHER = 0, FWD_MATRIX = 1, FWD_SCALAR = 2, FWD_STEM = 3;
+constexpr int STEM_CIN = 3, STEM_K = 7, STEM_ROW = STEM_K * STEM_CIN;  // 21 values a kernel row
+constexpr int STEM_WIN = 24;   // a staged window: one value before a kernel row's 21, two after
+constexpr int STEM_ROWS = 4;   // kernel rows a 64-deep slice touches (63 = 3 * 21)
+constexpr int STEM_STAGES = 4;  // ring slots, each with its staging
+constexpr int STEM_STG = wgb::BM * STEM_ROWS * STEM_WIN * 2;  // staging bytes a slot
 
 // A by TMA: the (M, Cin) matrix of a 1x1/s1 conv, 128-row boxes
 template <int BN>
@@ -978,7 +933,8 @@ struct MatWgBlock {
   int64_t row0 = 0, k_lo = 0;
   int col0 = 0;
 
-  __device__ void start(int64_t r, int c, int64_t k) {
+  // a unit's split [k, k_end) is whole slices, or the last one of K
+  __device__ void start(int64_t r, int c, int64_t k, int64_t) {
     row0 = r;
     col0 = c;
     k_lo = k;
@@ -993,121 +949,158 @@ struct MatWgBlock {
     for (int j = 0; j < BN / 64; ++j)
       wgb::tma_2d(st + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap, bar, col0 + 64 * j, kk);
   }
-  __device__ void fix(int) const {}
+  __device__ void fix(int, int) const {}
 };
 
-// A of the stem's 24-wide rows. The thread copies chunk column cc = tid % 8
-// of rows tid / 8 + 32 i, i < 4, as ConvWgBlock; chunk q = 8 * slice + cc
-// of a row is its kernel row q / 3, values 8 (q % 3) .. + 7 of that row.
+// A of the stem in the plain K order k = 21 di + 3 dj + ci, out of a staging
+// of x's windows. The copying side: thread t stages kernel-row slots
+// 2 (t % 2) + {0, 1} of row t / 2, 12 4-byte copies each; a copy with no
+// tap inside the image (or outside the image's rows, or the tensor) reads
+// nothing and lands zeros, and once its copies have landed the thread
+// zeroes the single values of the others that are no tap (fix). The
+// setting side (fix, after a block barrier): rows t / 8 + 32 i, i < 4,
+// chunk column t % 8, as ConvWgBlock. What fix needs of a slot is recorded
+// with it: the copier runs LOOK slices ahead, into the next unit. K is one
+// split (147 columns, fewer than 16 k16 steps), so slice kt starts at 64 kt.
 template <int BN>
-struct StemWgBlock {
+struct StemStageBlock {
   const FusedConvBfA& a;
   const CUtensorMap* wmap;
   const wgb::Smem<BN>& sm;
   uint64_t* full;
-  int64_t k_lo = 0;
-  int col0 = 0, cc, rlo;
-  int64_t off[4];     // x's element of each row's t = 0 at di = 0
-  int iy[4];          // each row's window's first image row
-  uint32_t taps[4];   // bit t: value t of each row's window rows is a tap inside the image
+  uint8_t* stage;  // STEM_STAGES x [BM rows][STEM_ROWS][STEM_WIN] bf16
+  int64_t total;   // x's elements
+  int col0 = 0, cr, ch, cc, rlo;
+  int64_t ce = 0;      // x's element before the copy row's window at kernel row 0
+  int cy = 0;          // that window's first image row
+  uint32_t pairs = 0;  // bit p: copy p of a window holds a tap inside the image
+  uint32_t zero = 0;   // bit v: value v of a window is copied but no such tap
 
-  __device__ StemWgBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_,
-                         const wgb::Smem<BN>& sm_, uint64_t* full_)
-      : a(a_), wmap(wmap_), sm(sm_), full(full_), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
+  __device__ StemStageBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_,
+                            const wgb::Smem<BN>& sm_, uint64_t* full_, uint8_t* stage_)
+      : a(a_), wmap(wmap_), sm(sm_), full(full_), stage(stage_),
+        total(a_.M * a_.stride * a_.stride * STEM_CIN), cr(threadIdx.x >> 1),
+        ch(threadIdx.x & 1), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
 
-  __device__ void start(int64_t row0, int c, int64_t k) {
+  __device__ void start(int64_t row0, int c, int64_t, int64_t) {
     col0 = c;
-    k_lo = k;
+    cy = -(1 << 29);  // a row past M: outside the image in every kernel row
+    pairs = zero = 0;
+    const int64_t m = row0 + cr;
+    if (m >= a.M) return;
     const int howo = a.Ho * a.Wo;
+    const int64_t n = m / howo;
+    const int rem = (int)(m - n * howo);
+    const int oy = rem / a.Wo;
+    const int x = a.stride * (rem - oy * a.Wo) - a.pad_left;
+    cy = a.stride * oy - a.pad_top;
+    ce = (n * a.H * a.W + (int64_t)cy * a.W + x) * STEM_CIN - 1;
+    uint32_t taps = 0;  // bit v: value v = 1 + 3 dj + ci is a tap inside the image
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t m = row0 + rlo + 32 * i;
-      off[i] = 0;
-      iy[i] = -(1 << 29);  // a row past M: outside the image in every kernel row
-      taps[i] = 0;
-      if (m < a.M) {
-        const int64_t n = m / howo;
-        const int rem = (int)(m - n * howo);
-        const int oy = rem / a.Wo;
-        const int ix = a.stride * (rem - oy * a.Wo) - a.pad_left;
-        iy[i] = a.stride * oy - a.pad_top;
-        off[i] = (n * a.H * a.W + (int64_t)iy[i] * a.W + ix) * STEM_CIN - 1;
+    for (int dj = 0; dj < STEM_K; ++dj)
+      if ((unsigned)(x + dj) < (unsigned)a.W) taps |= 7u << (1 + STEM_CIN * dj);
 #pragma unroll
-        for (int dj = 0; dj < STEM_K; ++dj)  // t = 1 + 3 dj + ci
-          if ((unsigned)(ix + dj) < (unsigned)a.W) taps[i] |= 7u << (1 + STEM_CIN * dj);
+    for (int p = 0; p < STEM_WIN / 2; ++p) {
+      const uint32_t two = taps >> (2 * p) & 3u;
+      if (two) {
+        pairs |= 1u << p;
+        zero |= (~two & 3u) << (2 * p);
       }
     }
   }
 
   __device__ void load(int slot, int kt) {
-    const uint32_t sa = rt::tc::smem_u32(sm.slot(slot));
-    const int q = (int)(k_lo / 8) + 8 * kt + cc;
-    const int di = q / 3, t0 = 8 * (q - 3 * di);
-    uint32_t zero = 0;  // bit 8 i + e: value e of row i landed and is no tap
+    const int kk = kt * wgb::BK, d0 = kk / STEM_ROW;
+    const uint32_t dst = rt::tc::smem_u32(stage + slot * STEM_STG) +
+                         cr * (STEM_ROWS * STEM_WIN * 2);
+    uint32_t rows = 0;  // bit r: window 2 ch + r lies in the image's rows
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const bool row_ok = di < STEM_K && (unsigned)(iy[i] + di) < (unsigned)a.H;
-      const uint16_t* src = a.x + off[i] + (int64_t)di * a.W * STEM_CIN + t0;
-      const uint32_t dst = sa + wgb::swz(rlo + 32 * i, cc);
-      const uint32_t in = row_ok ? taps[i] >> t0 : 0u;
+    for (int r = 0; r < 2; ++r) {
+      const int ds = 2 * ch + r, di = d0 + ds;
+      const bool row_ok = di < STEM_K && (unsigned)(cy + di) < (unsigned)a.H;
+      rows |= (uint32_t)row_ok << r;
+      const int64_t e0 = ce + (int64_t)di * a.W * STEM_CIN;
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const uint32_t pair = in >> (2 * p) & 3u;
-        wgb::cp4(dst + 4 * p, pair ? src + 2 * p : a.x, pair != 0);
-        if (pair) zero |= (~pair & 3u) << (8 * i + 2 * p);
+      for (int p = 0; p < STEM_WIN / 2; ++p) {
+        const int64_t e = e0 + 2 * p;
+        const bool ok = row_ok && (pairs >> p & 1u) && e >= 0 && e + 2 <= total;
+        wgb::cp4(dst + (ds * STEM_WIN + 2 * p) * 2, ok ? a.x + e : a.x, ok);
       }
     }
-    sm.info[slot * wgb::THREADS + threadIdx.x] = zero;
+    sm.info[slot * wgb::THREADS + threadIdx.x] = zero | rows << STEM_WIN;
     if (threadIdx.x == 0) {
+      const uint32_t sa = rt::tc::smem_u32(sm.slot(slot)), bar = rt::tc::smem_u32(&full[slot]);
       rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::B_BYTES);
 #pragma unroll
       for (int j = 0; j < BN / 64; ++j)
-        wgb::tma_2d(sa + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap,
-                    rt::tc::smem_u32(&full[slot]), col0 + 64 * j,
-                    (int)(k_lo + (int64_t)kt * wgb::BK));
+        wgb::tma_2d(sa + wgb::Tile<BN>::A_BYTES + j * wgb::HALF, wmap, bar, col0 + 64 * j, kk);
     }
   }
 
-  // the values of this thread's landed copies that are no tap, zeroed
-  __device__ void fix(int slot) const {
-    uint32_t zero = sm.info[slot * wgb::THREADS + threadIdx.x];
-    while (zero) {
-      const int b = __ffs(zero) - 1;
-      zero &= zero - 1;
-      *reinterpret_cast<uint16_t*>(sm.slot(slot) + wgb::swz(rlo + 32 * (b / 8), cc) +
-                                   2 * (b % 8)) = 0;
+  // the thread's landed values that are no tap zeroed; then, once every
+  // thread's are, A's rows of slice kt set from the staging
+  __device__ void fix(int slot, int kt) const {
+    uint16_t* stg = reinterpret_cast<uint16_t*>(stage + slot * STEM_STG);
+    const uint32_t info = sm.info[slot * wgb::THREADS + threadIdx.x];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!(info >> (STEM_WIN + r) & 1u)) continue;
+      uint16_t* win = stg + cr * STEM_ROWS * STEM_WIN + (2 * ch + r) * STEM_WIN;
+      for (uint32_t z = info & ((1u << STEM_WIN) - 1); z; z &= z - 1) win[__ffs(z) - 1] = 0;
+    }
+    __syncthreads();
+    const int kk = kt * wgb::BK, d0 = kk / STEM_ROW;
+    int at[8];  // index in a row's staging (-1: past K)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = kk + 8 * cc + e, di = k / STEM_ROW;
+      at[e] = k < STEM_K * STEM_ROW ? (di - d0) * STEM_WIN + 1 + (k - STEM_ROW * di) : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rlo + 32 * i;
+      uint16_t v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = at[e] >= 0 ? stg[r * STEM_ROWS * STEM_WIN + at[e]] : (uint16_t)0;
+      *reinterpret_cast<uint4*>(sm.slot(slot) + wgb::swz(r, cc)) = bfg::pack8(v);
     }
   }
 };
 
-// y (M, N) bf16 (through ymap; or, with ws, split z's fp32 partials at
-// ws + z * M * N) of the conv gathered by `a`, weight by TMA through wmap
-// (and A through amap for FWD_MATRIX), over the units of un
+// y (M, N) bf16 (through ymap, or straight from the registers for
+// FWD_SCALAR; or, with ws, split z's fp32 partials at ws + z * M * N) of
+// the conv gathered by `a`, weight w (by TMA through wmap, and A through
+// amap for FWD_MATRIX), over the units of un
 template <int BN, int KIND>
 __global__ void __launch_bounds__(wgb::THREADS, 1)
 conv2d_fwd_wg_kernel(const __grid_constant__ CUtensorMap amap,
                      const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap ymap,
-                     const __grid_constant__ FusedConvBfA a, float* __restrict__ ws, int N,
+                     const __grid_constant__ FusedConvBfA a, const uint16_t* __restrict__ w,
+                     uint16_t* __restrict__ y, float* __restrict__ ws, int N,
                      const wgb::Units un) {
+  constexpr int S = KIND == FWD_STEM ? STEM_STAGES : wgb::PTile<BN>::STAGES;
   extern __shared__ __align__(1024) uint8_t fwd_wg_smem[];
-  __shared__ __align__(8) uint64_t full[wgb::PTile<BN>::STAGES];
-  const wgb::Smem<BN> sm = wgb::psmem_layout<BN>(fwd_wg_smem);
-  wgb::init_barriers<wgb::PTile<BN>::STAGES>(full);
+  __shared__ __align__(8) uint64_t full[S];
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN, S>(fwd_wg_smem);
+  wgb::init_barriers<S>(full);
   auto epi = [&](const float (&acc)[wgb::Tile<BN>::NACC], int64_t row0, int col0, int z) {
     if (ws)
       wgb::store_pairs<BN>(acc, row0, col0, a.M, N, nullptr, ws + (int64_t)z * a.M * N);
+    else if constexpr (KIND == FWD_SCALAR)
+      wgb::store_pairs<BN>(acc, row0, col0, a.M, N, y, nullptr);
     else
-      wgb::store_tile_tma<BN>(acc, wgb::p_out(sm), &ymap, row0, col0);
+      wgb::store_tile_tma<BN>(acc, wgb::p_out<BN, S>(sm), &ymap, row0, col0);
   };
   if constexpr (KIND == FWD_MATRIX) {
     MatWgBlock<BN> blk{&amap, &wmap, sm, full};
     wgb::persistent<BN>(blk, sm, full, un, epi);
   } else if constexpr (KIND == FWD_STEM) {
-    StemWgBlock<BN> blk(a, &wmap, sm, full);
-    wgb::persistent<BN>(blk, sm, full, un, epi);
+    StemStageBlock<BN> blk(a, &wmap, sm, full, reinterpret_cast<uint8_t*>(sm.info + S * wgb::THREADS));
+    wgb::persistent<BN, S>(blk, sm, full, un, epi);
   } else {
-    ConvWgBlock<BN, true> blk(a, &wmap, nullptr, sm, full, 0, N, 0, 0);
+    ConvWgBlock<BN, KIND == FWD_GATHER> blk(a, &wmap, w, sm, full, 0, N, 0, 0);
     wgb::persistent<BN>(blk, sm, full, un, epi);
   }
   wgb::store_tma_wait();
@@ -1115,67 +1108,77 @@ conv2d_fwd_wg_kernel(const __grid_constant__ CUtensorMap amap,
 
 template <int BN, int KIND>
 int fwd_wg(const CUtensorMap& amap, const CUtensorMap& wmap, const CUtensorMap& ymap,
-           const FusedConvBfA& a, uint16_t* y, float* ws, int N, int64_t K, int splits,
-           cudaStream_t s) {
+           const FusedConvBfA& a, const uint16_t* w, uint16_t* y, float* ws, int N,
+           const wgb::Units& un, cudaStream_t s) {
   auto* kernel = conv2d_fwd_wg_kernel<BN, KIND>;
-  constexpr int smem = wgb::PTile<BN>::SMEM;
+  constexpr int smem = KIND == FWD_STEM
+                           ? wgb::PTile<BN, STEM_STAGES>::SMEM + STEM_STAGES * STEM_STG
+                           : wgb::PTile<BN>::SMEM;
   int status = wgb::max_smem_once((const void*)kernel, smem);
   int sms = 0;
   if (status == 0) status = wgb::sm_count(&sms);
   if (status != 0) return status;
-  const int64_t slices = wgb::slices_of(K);
-  const wgb::Units un{(a.M + wgb::BM - 1) / wgb::BM, (N + BN - 1) / BN, splits, slices,
-                      (slices + splits - 1) / splits};
   const int64_t units = un.count();
   kernel<<<(unsigned)(units < sms ? units : sms), wgb::THREADS, smem, s>>>(
-      amap, wmap, ymap, a, splits > 1 ? ws : nullptr, N, un);
-  if (splits > 1) {
+      amap, wmap, ymap, a, w, y, un.splits > 1 ? ws : nullptr, N, un);
+  if (un.splits > 1) {
     const int64_t mn = a.M * N;
     int64_t blocks = (mn + 255) / 256;
     if (blocks > 132 * 16) blocks = 132 * 16;
-    bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, y, mn, splits);
+    bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, y, mn, un.splits);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w) on the wgmma core:
-// Cout % 8 == 0, w and y aligned, and either Cin % 8 == 0 with x 16-byte
-// aligned and w (k, k, Cin, Cout), or the stem (Cin 3, k 7, stride 2, W
-// even, x 4-byte aligned) with w its (7 * 24, Cout) rows (conv.stem_rows);
-// the wrapper routes every other shape to rt_conv2d_nhwc_bf16_mma
-// (conv.fwd_bf16_route). Tiles 128 x 64 where Cout <= 64, else 128 x 128;
-// splits K splits of whole slices (ws: splits * M * Cout floats when
-// splits > 1).
+// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
+// the wgmma core, every shape: tiles 128 x 64 where Cout <= 64, else 128 x
+// 128; splits K splits (build.tc_split; ws: splits * M * Cout floats when
+// splits > 1); y 4-byte aligned.
 extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
                                    int H, int W, int Cin, int Cout, int k, int stride,
                                    float* ws, int splits, void* stream) {
   const int Ho = H / stride, Wo = W / stride;
   const int64_t M = (int64_t)N * Ho * Wo;
-  const bool stem = Cin == STEM_CIN && k == STEM_K && stride == 2;
-  const int kind = stem ? FWD_STEM : k == 1 && stride == 1 ? FWD_MATRIX : FWD_GATHER;
-  if (Cout % 8 != 0 || !bfg::aligned16(w) || !bfg::aligned16(y) || M >= INT32_MAX ||
-      splits < 1 || (splits > 1 && ws == nullptr) ||
-      (stem ? W % 2 != 0 || (uintptr_t)x % 4 != 0 : Cin % 8 != 0 || !bfg::aligned16(x)))
+  const int64_t K = (int64_t)k * k * Cin;
+  if (M >= INT32_MAX || K >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr) ||
+      (uintptr_t)y % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const int64_t K = stem ? (int64_t)STEM_K * STEM_ROW : (int64_t)k * k * Cin;
+  const int64_t chunk = bfg::k_chunk_for(K, splits);
+  const bool aligned = bfg::aligned16(x) && bfg::aligned16(w) && bfg::aligned16(y);
+  const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned;
+  const bool stem = Cin == STEM_CIN && k == STEM_K && stride == 2 && W % 2 == 0 &&
+                    Cout % 8 == 0 && Cout <= 64 && splits == 1 && aligned;
+  const int kind = stem ? FWD_STEM
+                   : !vec ? FWD_SCALAR
+                   : k == 1 && stride == 1 && (splits == 1 || chunk % wgb::BK == 0)
+                       ? FWD_MATRIX
+                       : FWD_GATHER;
   CUtensorMap amap, wmap, ymap;
   memset(&amap, 0, sizeof(amap));
+  memset(&wmap, 0, sizeof(wmap));
   memset(&ymap, 0, sizeof(ymap));
-  int status = wgb::cached_matrix_map(&wmap, w, K, Cout, wgb::BK);
-  if (status == 0 && kind == FWD_MATRIX)
-    status = wgb::cached_matrix_map(&amap, x, M, Cin, wgb::BM);
-  if (status == 0 && splits == 1) status = wgb::cached_matrix_map(&ymap, y, M, Cout, wgb::BM);
+  int status = 0;
+  if (kind != FWD_SCALAR) {
+    status = wgb::cached_matrix_map(&wmap, w, K, Cout, wgb::BK);
+    if (status == 0 && kind == FWD_MATRIX)
+      status = wgb::cached_matrix_map(&amap, x, M, Cin, wgb::BM);
+    if (status == 0 && splits == 1) status = wgb::cached_matrix_map(&ymap, y, M, Cout, wgb::BM);
+  }
   if (status != 0) return status;
   const FusedConvBfA a = conv_loader_bf16(x, nullptr, nullptr, N, H, W, Cin, k, stride, k / 2,
                                           k / 2, Ho, Wo, false, rt::Act{false, false, 0.f});
+  const int wide = Cout <= 64 ? 0 : 1;
+  const wgb::Units un{(M + wgb::BM - 1) / wgb::BM, (Cout + (wide ? 128 : 64) - 1) / (wide ? 128 : 64),
+                      splits, K, chunk};
   using Launch = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
-                         const FusedConvBfA&, uint16_t*, float*, int, int64_t, int, cudaStream_t);
-  static const Launch runs[2][3] = {
-      {fwd_wg<64, FWD_GATHER>, fwd_wg<64, FWD_MATRIX>, fwd_wg<64, FWD_STEM>},
-      {fwd_wg<128, FWD_GATHER>, fwd_wg<128, FWD_MATRIX>, fwd_wg<128, FWD_STEM>}};
-  return runs[Cout <= 64 ? 0 : 1][kind](amap, wmap, ymap, a, y, ws, Cout, K, splits,
-                                        (cudaStream_t)stream);
+                         const FusedConvBfA&, const uint16_t*, uint16_t*, float*, int,
+                         const wgb::Units&, cudaStream_t);
+  static const Launch runs[2][4] = {
+      {fwd_wg<64, FWD_GATHER>, fwd_wg<64, FWD_MATRIX>, fwd_wg<64, FWD_SCALAR>,
+       fwd_wg<64, FWD_STEM>},
+      {fwd_wg<128, FWD_GATHER>, fwd_wg<128, FWD_MATRIX>, fwd_wg<128, FWD_SCALAR>, nullptr}};
+  return runs[wide][kind](amap, wmap, ymap, a, w, y, ws, Cout, un, (cudaStream_t)stream);
 }

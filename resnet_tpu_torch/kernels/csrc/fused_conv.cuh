@@ -260,12 +260,12 @@ struct ConvWgBlock {
   const uint16_t* __restrict__ w;
   const wgb::Smem<BN>& sm;
   uint64_t* full;
-  int64_t K, k_lo;  // the split's first K column
+  int64_t K, k_lo, k_end;  // the split's K columns [k_lo, k_end) of K
   int N, col0, cc, rlo;
   int64_t off[4];   // x's offset of each row's image
   int iy[4], ix[4];  // each row's window origin
   int64_t k;         // the K column of the thread's chunk in the next slice
-  int di, dj, ci;    // its tap and channel (kVec)
+  int di, dj, ci;    // its tap and channel
 
   __device__ ConvWgBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_, const uint16_t* w_,
                          const wgb::Smem<BN>& sm_, uint64_t* full_, int64_t k_lo_, int N_,
@@ -273,14 +273,16 @@ struct ConvWgBlock {
       : a(a_), wmap(wmap_), w(w_), sm(sm_), full(full_),
         K((int64_t)a_.ksize * a_.ksize * a_.Cin), N(N_), cc(threadIdx.x & 7),
         rlo(threadIdx.x >> 3) {
-    start(row0, col0_, k_lo_);
+    start(row0, col0_, k_lo_, K);
   }
 
   // the copies pointed at the tile of rows row0 + [0, 128), columns col0 +
-  // [0, BN), K from k_lo (wgb::persistent moves a block from unit to unit)
-  __device__ void start(int64_t row0, int col0_, int64_t k_lo_) {
+  // [0, BN), K columns [k_lo, k_end) (wgb::persistent moves a block from
+  // unit to unit; k_end a multiple of 8, A reads zeros past it)
+  __device__ void start(int64_t row0, int col0_, int64_t k_lo_, int64_t k_end_) {
     col0 = col0_;
     k_lo = k_lo_;
+    k_end = k_end_;
     const int howo = a.Ho * a.Wo;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -314,7 +316,7 @@ struct ConvWgBlock {
     uint8_t* st = sm.slot(slot);
     const uint32_t sa = rt::tc::smem_u32(st);
     if constexpr (kVec) {
-      const bool kin = k < K;
+      const bool kin = k < k_end;
       uint32_t mask = 0;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -340,27 +342,58 @@ struct ConvWgBlock {
                       (int)(k_lo + (int64_t)kt * wgb::BK));
       }
     } else {
+      // the chunk's 8 columns decoded once for the 4 rows by the thread's
+      // (tap, channel) cursor: tap (ty, tx), channel c, offset from the
+      // row's window origin (-1: past k_end)
+      int ty[8], tx[8], c[8];
+      int64_t rel[8];
+      int y0 = di, x0 = dj, c0 = ci;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        uint16_t v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          v[e] = 0;
-          const int64_t kk = k + e;
-          if (kk < K) {
-            const int64_t tap = kk / a.Cin;
-            const int c = (int)(kk - tap * a.Cin);
-            const int ty = (int)(tap / a.ksize);
-            const int y = iy[i] + ty, x = ix[i] + (int)(tap - (int64_t)ty * a.ksize);
-            if (inside(y, x)) {
-              const uint16_t u = bfg::ld16(a.x + off[i] + ((int64_t)y * a.W + x) * a.Cin + c);
-              v[e] = a.prologue ? a.pro(u, __ldg(a.scale + c), __ldg(a.shift + c)) : u;
-            }
+      for (int e = 0; e < 8; ++e) {
+        ty[e] = y0;
+        tx[e] = x0;
+        c[e] = c0;
+        rel[e] = k + e < k_end ? ((int64_t)y0 * a.W + x0) * a.Cin + c0 : -1;
+        if (++c0 == a.Cin) {
+          c0 = 0;
+          if (++x0 == a.ksize) {
+            x0 = 0;
+            ++y0;
           }
         }
-        *reinterpret_cast<uint4*>(st + wgb::swz(rlo + 32 * i, cc)) = bfg::pack8(v);
       }
+      // every load issued before any is used (no branch between them), then
+      // the prologue on the values that are taps inside the image
+      uint16_t v[4][8];
+      uint32_t in = 0;  // bit 8 i + e: value e of row i is a tap inside the image
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint16_t* base = a.x + off[i] + ((int64_t)iy[i] * a.W + ix[i]) * a.Cin;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool ok = rel[e] >= 0 && inside(iy[i] + ty[e], ix[i] + tx[e]);
+          v[i][e] = ok ? bfg::ld16(base + rel[e]) : (uint16_t)0;
+          in |= (uint32_t)ok << (8 * i + e);
+        }
+      }
+      if (a.prologue) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float sc = __ldg(a.scale + c[e]), sh = __ldg(a.shift + c[e]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (in >> (8 * i + e) & 1) v[i][e] = a.pro(v[i][e], sc, sh);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint4*>(st + wgb::swz(rlo + 32 * i, cc)) = bfg::pack8(v[i]);
       k += wgb::BK;
+      for (ci += wgb::BK; ci >= a.Cin; ci -= a.Cin)
+        if (++dj == a.ksize) {
+          dj = 0;
+          ++di;
+        }
       // B: BN / 64 halves of 64 K rows x 8 chunks of 8 columns
       const int64_t kb = k_lo + (int64_t)kt * wgb::BK;
 #pragma unroll

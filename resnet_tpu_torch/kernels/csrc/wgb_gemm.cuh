@@ -56,8 +56,9 @@
 // in a fixed order, and the ring runs across unit boundaries, so the next
 // unit's first slices load while the current unit's last products and its
 // epilogue run, and a unit's tile leaves from shared memory by TMA while
-// the next unit runs. The folds are mainloop's (one fp32 add per slice, in
-// slice order).
+// the next unit runs. Its folds are bf16_gemm.cuh's (one fp32 add per k16
+// step, in K order) and its K splits those of the kernel it replaced, so
+// it computes that kernel's bits.
 //
 // Measured: PERF.md (registers and shared memory from -Xptxas -v,
 // chip_smoke.py's build phase).
@@ -293,11 +294,12 @@ __device__ __forceinline__ void mainloop(Block& blk, const Smem<BN>& sm, uint64_
 
 // One persistent block per SM, so a deeper ring than Tile's (LOOK slices
 // load ahead of the one in the tensor cores, a slot reloaded in the slice
-// after its products were retired), and a staged output tile that TMA
-// stores while the next unit runs
-template <int BN>
+// after its products were retired; a caller that needs shared memory of
+// its own takes fewer slots, S), and a staged output tile that TMA stores
+// while the next unit runs
+template <int BN, int S = BN == 64 ? 8 : 5>
 struct PTile {
-  static constexpr int STAGES = BN == 64 ? 8 : 5;
+  static constexpr int STAGES = S;
   static constexpr int LOOK = STAGES - 1;
   static constexpr int OUT_BYTES = BN / 64 * BM * 128;  // 128-byte rows of 64 bf16
   // the ring, the output tile, the copies' record [STAGES][THREADS], +
@@ -306,68 +308,75 @@ struct PTile {
       STAGES * Tile<BN>::STAGE_BYTES + OUT_BYTES + STAGES * THREADS * 4 + ATOM;
 };
 
-template <int BN>
+template <int BN, int S = PTile<BN>::STAGES>
 __device__ __forceinline__ Smem<BN> psmem_layout(uint8_t* raw) {
   Smem<BN> s;
   s.ring = raw + ((ATOM - (rt::tc::smem_u32(raw) & (ATOM - 1))) & (ATOM - 1));
   s.red = nullptr;
-  s.info = reinterpret_cast<uint32_t*>(s.ring + PTile<BN>::STAGES * Tile<BN>::STAGE_BYTES +
-                                       PTile<BN>::OUT_BYTES);
+  s.info = reinterpret_cast<uint32_t*>(s.ring + S * Tile<BN>::STAGE_BYTES +
+                                       PTile<BN, S>::OUT_BYTES);
   return s;
 }
 
 // the persistent block's output tile, 1024-byte aligned after the ring
-template <int BN>
+template <int BN, int S = PTile<BN>::STAGES>
 __device__ __forceinline__ uint8_t* p_out(const Smem<BN>& sm) {
-  return sm.ring + PTile<BN>::STAGES * Tile<BN>::STAGE_BYTES;
+  return sm.ring + S * Tile<BN>::STAGE_BYTES;
 }
 
 // The work units of an (M, N) output on BM x BN tiles with `splits` K
-// splits of `chunk` slices each (of `slices`): unit u is n tile u % n_tiles,
-// then m tile, then split, so the units in flight at once share their rows
-// of A through the L2
+// splits of `chunk` K columns each (a multiple of 16, of K): unit u is n
+// tile u % n_tiles, then m tile, then split, so the units in flight at once
+// share their rows of A through the L2. A split's last slice may reach past
+// its end (the copies read zeros there).
 struct Units {
   int64_t m_tiles;
   int n_tiles, splits;
-  int64_t slices, chunk;
+  int64_t K, chunk;
   __host__ __device__ int64_t count() const { return m_tiles * n_tiles * splits; }
   template <int BN>
-  __device__ void at(int64_t u, int64_t& row0, int& col0, int& z, int64_t& s0, int& nk) const {
+  __device__ void at(int64_t u, int64_t& row0, int& col0, int& z, int64_t& k0, int64_t& k1,
+                     int& nk) const {
     col0 = (int)(u % n_tiles) * BN;
     const int64_t r = u / n_tiles;
     row0 = r % m_tiles * BM;
     z = (int)(r / m_tiles);
-    s0 = z * chunk;
-    const int64_t s1 = slices < s0 + chunk ? slices : s0 + chunk;
-    nk = s1 > s0 ? (int)(s1 - s0) : 0;
+    k0 = z * chunk;
+    k1 = K < k0 + chunk ? K : k0 + chunk;
+    nk = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
   }
 };
 
 // The persistent main loop over the units of `un`, unit u on block
-// u % gridDim.x: blk.start(row0, col0, k_lo) (every thread) points the
-// copies at a unit, blk.load(slot, kt) starts slice kt of that unit (thread
-// 0 arms the slot's mbarrier with its TMA bytes), blk.fix(slot) runs once
-// the thread's own copies of the slot have landed; A is K-major. A slice's
-// four wgmmas chain into a fresh accumulator, retired and folded before
-// the next slice (mainloop's order and bits): a group left in flight
-// across the copies' thread-dependent branches made ptxas serialize every
-// wgmma (C7518, "WG.DP in divergent path"; this loop's first build on the
-// H100, with two accumulators in turn). epi(acc, row0, col0, z) (every
-// thread) takes each unit's sum.
-template <int BN, class Block, class Epi>
+// u % gridDim.x: blk.start(row0, col0, k0, k1) (every thread) points the
+// copies at a unit's K columns [k0, k1), blk.load(slot, kt) starts slice kt
+// of that unit (thread 0 arms the slot's mbarrier with its TMA bytes),
+// blk.fix(slot, kt) runs once the thread's own copies of the slot (slice kt
+// of the unit being summed) have landed;
+// A is K-major. Each k16 wgmma goes into a fresh accumulator, two in turn
+// so that one group is in flight while the other is folded into the sum by
+// an fp32 add, in K order: bf16_gemm.cuh's folds over the same 16-deep
+// steps, so where the K splits agree the two cores give the same bits
+// (the tensor core rounds its own sums toward zero: it sums 16 products
+// here as there). A group left in flight across the copies'
+// thread-dependent branches made ptxas serialize every wgmma (C7518, "WG.DP
+// in divergent path"): each slice retires its groups before the next
+// slice's copies. epi(acc, row0, col0, z) (every thread) takes each unit's
+// sum.
+template <int BN, int S = PTile<BN>::STAGES, class Block, class Epi>
 __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint64_t* full,
                                            const Units& un, Epi&& epi) {
   using T = Tile<BN>;
-  constexpr int S = PTile<BN>::STAGES;
+  constexpr int LOOK = PTile<BN, S>::LOOK;
   const int64_t total = un.count();
   // the copying side runs LOOK slices ahead: unit lu, its slice lk of lnk
   int64_t lu = blockIdx.x, gl = 0;
   int lk = 0, lnk = 0;
   auto start = [&]() {
-    int64_t row0, s0;
+    int64_t row0, k0, k1;
     int col0, z;
-    un.at<BN>(lu, row0, col0, z, s0, lnk);
-    blk.start(row0, col0, s0 * BK);
+    un.at<BN>(lu, row0, col0, z, k0, k1, lnk);
+    blk.start(row0, col0, k0, k1);
   };
   if (lu < total) start();
   auto next_load = [&]() {
@@ -383,45 +392,59 @@ __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint6
     }
   };
 #pragma unroll 1
-  for (int s = 0; s < PTile<BN>::LOOK; ++s) {
+  for (int s = 0; s < LOOK; ++s) {
     next_load();
     rt::tc::cp_async_commit();
   }
   const uint32_t wg_a = (threadIdx.x / 128) * HALF;
-  float acc[T::NACC], d[T::NACC];
+  float acc[T::NACC], d[T::NACC], e[T::NACC];
 #pragma unroll
-  for (int i = 0; i < T::NACC; ++i) d[i] = 0.f;
+  for (int i = 0; i < T::NACC; ++i) d[i] = e[i] = 0.f;
   int64_t g = 0;  // slices consumed
   for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
-    int64_t row0, s0;
+    int64_t row0, k0, k1;
     int col0, z, nk;
-    un.at<BN>(u, row0, col0, z, s0, nk);
+    un.at<BN>(u, row0, col0, z, k0, k1, nk);
 #pragma unroll
     for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < nk; ++kt, ++g) {
       const int slot = (int)(g % S);
-      rt::tc::cp_async_wait<PTile<BN>::LOOK - 1>();  // this thread's copies of slice g landed
-      blk.fix(slot);
+      rt::tc::cp_async_wait<LOOK - 1>();  // this thread's copies of slice g landed
+      blk.fix(slot, kt);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();  // every thread's part of slice g is in; slot g - 1 is free
       next_load();
       rt::tc::cp_async_commit();
       rt::wg::mbar_wait(&full[slot], (uint32_t)(g / S) & 1);  // its TMA boxes have landed
       const uint32_t base = rt::tc::smem_u32(sm.slot(slot));
+      // two fresh accumulators in turn, one group in flight while the other folds
+      auto issue = [&](float (&dd)[T::NACC], int ks) {
 #pragma unroll
-      for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(dd[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        Mma<BN, 0, 1>::run(dd, desc_a<A_K>(base + wg_a, ks),
+                           desc(base + T::A_BYTES + ks * 2 * ATOM, HALF), 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      };
+      auto fold = [&](float (&dd)[T::NACC]) {
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
-        Mma<BN, 0, 1>::run(d, desc_a<A_K>(base + wg_a, ks),
-                           desc(base + T::A_BYTES + ks * 2 * ATOM, HALF), ks);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        for (int i = 0; i < T::NACC; ++i) {
+          rt::wg::fence_operand(dd[i]);
+          acc[i] = __fadd_rn(acc[i], dd[i]);
+        }
+      };
+      issue(d, 0);
+      issue(e, 1);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fold(d);
+      issue(d, 2);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fold(e);
+      issue(e, 3);
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      fold(d);
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-      for (int i = 0; i < T::NACC; ++i) {
-        rt::wg::fence_operand(d[i]);
-        acc[i] = __fadd_rn(acc[i], d[i]);
-      }
+      fold(e);
     }
     epi(acc, row0, col0, z);
   }

@@ -746,8 +746,8 @@ FWD_SHAPES = _resnet50_fwd_shapes()
 @pytest.mark.parametrize("shape", FWD_SHAPES, ids=[str(s) for s in FWD_SHAPES])
 def test_conv2d_bf16_takes_the_wgmma_route_on_cuda(cuda, monkeypatch, shape):
     """Each ResNet-50 conv's bf16 forward at batch 2 launches the wgmma
-    core's persistent kernel (the stem on its 24-wide rows, a 1x1/s1 by TMA
-    boxes) and holds to the plain conv by the bf16 rule."""
+    core's persistent kernel (the stem on the threads' loads, a 1x1/s1 by
+    TMA boxes) and holds to the plain conv by the bf16 rule."""
     from resnet_tpu_torch.kernels import conv
 
     h, cin, cout, k, s = shape
@@ -760,30 +760,54 @@ def test_conv2d_bf16_takes_the_wgmma_route_on_cuda(cuda, monkeypatch, shape):
     _held_bf16(got, conv.conv2d_reference(x, w, s))
 
 
-def test_conv2d_bf16_misaligned_takes_the_mma_route_on_cuda(cuda, monkeypatch):
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1), (3, 2)])
+def test_conv2d_bf16_misaligned_on_cuda(cuda, monkeypatch, k, stride):
     """x whose data start 2 bytes past a 16-byte boundary is no 16-byte
-    chunk: the forward takes bf16_gemm.cuh's route and holds to the plain
-    conv; the same values aligned take the wgmma core to the same rule."""
+    chunk: the forward takes the threads' 2-byte loads, holds to the plain
+    conv, and gives the bits of the same values aligned (the gather, or a
+    1x1's TMA boxes): every loader sums the same k16 steps in K order."""
     from resnet_tpu_torch.kernels import conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     n, h, cin, cout = 4, 14, 64, 128
     xa = torch.randn(n * h * h * cin + 1, generator=gen, device="cuda").to(torch.bfloat16)
     x = xa[1:].view(n, h, h, cin)
-    w = (torch.randn(3, 3, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
     assert x.data_ptr() % 16
+    m = n * (h // stride) ** 2
+    assert conv.fwd_bf16_route(m, cin, cout, k, stride, False) == "scalar"
+    assert conv.fwd_bf16_route(m, cin, cout, k, stride) != "scalar"
     names = _recording(monkeypatch)
-    want = conv.conv2d_reference(x, w, 1)
-    _held_bf16(conv.conv2d(x, w, 1), want)
-    _held_bf16(conv.conv2d(x.clone(), w, 1), want)
-    assert names == ["rt_conv2d_nhwc_bf16_mma", "rt_conv2d_nhwc_bf16"]
+    got = conv.conv2d(x, w, stride)
+    _held_bf16(got, conv.conv2d_reference(x, w, stride))
+    assert torch.equal(got, conv.conv2d(x.clone(), w, stride))
+    assert names == ["rt_conv2d_nhwc_bf16"] * 2
+
+
+@pytest.mark.parametrize("m,cin,cout", [(2 * 56 * 56, 64, 256), (8 * 14 * 14, 1024, 512),
+                                        (32 * 7 * 7, 2048, 512)])
+def test_conv2d_bf16_1x1_has_bf16_gemm_bits_on_cuda(cuda, m, cin, cout):
+    """A 1x1/s1 forward y = x @ w on the persistent kernel against the same
+    product through K1's bf16 dx (dx = g @ w^T with g = x), which runs on
+    bf16_gemm.cuh's mma.sync kernel with the same K split (tc_split of the
+    same shape): the same bits, K split or not (the forward's kernel
+    replaced that one and keeps its 16-deep folds)."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(m, 1, 1, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(cin, cout, generator=gen, device="cuda") * cin ** -0.5).to(torch.bfloat16)
+    y = conv.conv2d(x, w.view(1, 1, cin, cout), 1)
+    dx = conv.conv2d_dx(x, w.t().contiguous().view(1, 1, cout, cin), (m, 1, 1, cout), 1)
+    assert torch.equal(y, dx)
 
 
 @pytest.mark.parametrize("n,h", [(2, 30), (3, 16), (1, 224)])
 def test_conv2d_bf16_stem_on_cuda(cuda, n, h):
-    """The stem's 24-wide rows at sizes whose rows end inside a tile and
-    whose windows meet both image edges: within the bf16 rule of the plain
-    conv, and exact on integer values, whose sums every order keeps."""
+    """The stem's 3 channels on the threads' loads, at sizes whose rows end
+    inside a tile and whose windows meet both image edges: within the bf16
+    rule of the plain conv, and exact on integer values, whose sums every
+    order keeps."""
     from resnet_tpu_torch.kernels import conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -801,9 +825,9 @@ BF16_FWD_REPEAT = [c for c in checks.BF16_CONV_CASES
 
 @pytest.mark.parametrize("case", BF16_FWD_REPEAT, ids=[c[0] for c in BF16_FWD_REPEAT])
 def test_conv2d_bf16_repeats_bit_for_bit(cuda, case):
-    """K1's bf16 forward on the persistent kernel: the stem's rows, the
-    1x1's TMA boxes split over K, the projection's gather: each unit's sum
-    in one fixed order, splits added in split order, no atomics, so two
+    """K1's bf16 forward on the persistent kernel: the stem's 2-byte loads,
+    the 1x1's TMA boxes split over K, the projection's gather: each unit's
+    sum in one fixed order, splits added in split order, no atomics, so two
     runs give the same bits."""
     from resnet_tpu_torch.kernels import conv
 
