@@ -74,12 +74,13 @@ SIGNATURES = {
     # the bf16 entry points (the bf16 sections of conv.cu, matmul.cu,
     # add_relu.cu and moments.cu) take the fp32 ones' arguments
     "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # g, w (as it lies, not the fp32 entry's phase slices of w^T), dx, ...
     "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
     "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # the FC forward for every M, on wgb_gemm.cuh's persistent loop
     "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
-    "rt_matmul_skinny_bf16": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
     "rt_matmul_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],

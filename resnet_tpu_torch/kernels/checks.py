@@ -274,9 +274,14 @@ BF16_CONV_CASES = [(f"{label}, batch {n}", n, *shape)
     ("misaligned x 3x3 14^2 64->64, batch 2", 2, 14, 64, 64, 3, 1, 1),
     ("stem 7x7/s2 30->15 3->64, batch 2", 2, 30, 3, 64, 7, 2),
     ("3x3 7^2 16->72, batch 2", 2, 7, 16, 72, 3, 1)]
+# dx: the training shapes, stage 4's 3x3 (5 splits of 928, which end
+# inside 64-deep slices: w by 16-byte copies, conv.dx_bf16_route 'copy'),
+# ragged widths at stride 2 ('scalar'), and a stride-2 dx whose Cout is no
+# multiple of 64 (its slices cross taps: 'copy' over four phases)
 BF16_DX_CASES = TRAIN_CONV_CASES[1:] + [
     ("split K 3x3/s1 7^2 512->512", 32, 7, 512, 512, 3, 1),
     ("ragged 3x3/s2 14->7 9->33, batch 2", 2, 14, 9, 33, 3, 2),
+    ("3x3/s2 14->7 72->40, batch 2", 2, 14, 72, 40, 3, 2),
 ]
 BF16_DW_CASES = TRAIN_CONV_CASES + [
     ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1)]

@@ -30,8 +30,14 @@ its prologue; a 1x1/s1 conv's input by TMA boxes; the stem's kernel rows
 staged by 4-byte copies; the threads' 2-byte loads for ragged widths and
 misaligned tensors), K split by ``build.tc_split`` into the chunks
 ``csrc/bf16_gemm.cuh``'s kernel took, one fp32 add per k16 step: the bits
-of that kernel, which ran it before. dx (``rt_conv2d_dx_nhwc_bf16``) runs on ``bf16_gemm.cuh``, K split by
-``build.tc_split``. dW runs where ``dw_bf16_route`` sends
+of that kernel, which ran it before. dx (``rt_conv2d_dx_nhwc_bf16``) runs
+on the same persistent loop, the phases of a strided dx as units of one
+launch, with the loaders ``dx_bf16_route`` names (g gathered by 16-byte
+copies, or a 1x1/s1's g by TMA boxes; w read as it lies, K-major, by TMA
+boxes or 16-byte copies; the threads' 2-byte loads for ragged widths and
+misaligned tensors), K split by ``build.tc_split`` at stride 1 into the
+same chunks, no torch op on w: the bits of ``bf16_gemm.cuh``'s kernel,
+which ran it before. dW runs where ``dw_bf16_route`` sends
 it: ``rt_conv2d_dw_nhwc_bf16`` on ``csrc/wgb_gemm.cuh``'s ``wgmma`` + TMA
 core (x and g read by TMA boxes as they lie, K split by
 ``build.wgb_split``) wherever Cin % 64 == 0 or Cin <= 8, Cout % 8 == 0,
@@ -137,9 +143,11 @@ def _shapes(x: torch.Tensor, w: torch.Tensor, stride: int) -> Tuple[int, ...]:
 
 
 def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
-                   aligned: bool = True) -> str:
+                   aligned: bool = True, splits: int = None) -> str:
     """The A loader of K1's bf16 forward (``csrc/conv.cu``, all on the
-    persistent ``wgmma`` kernel) for m output pixels: 'stem' (x's kernel
+    persistent ``wgmma`` kernel) for m output pixels, K split ``splits``
+    ways (by default ``build.tc_split``'s plan; the FC passes its own):
+    'stem' (x's kernel
     rows staged by 4-byte copies, A set from them) for Cin = 3, 7x7,
     stride 2, Cout <= 64; 'matrix' (TMA boxes of the (m, Cin) input) for a
     1x1/s1 conv whose K splits are whole 64-deep slices; 'gather' (16-byte
@@ -147,7 +155,8 @@ def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
     these where Cout % 8 == 0 and x, w and y are 16-byte ``aligned``; else
     'scalar' (2-byte loads of both operands: ragged widths, misaligned
     tensors). A function of the shapes and the alignment only."""
-    splits = build.tc_split(m, cout, k * k * cin)
+    if splits is None:
+        splits = build.tc_split(m, cout, k * k * cin)
     if cout % 8 or not aligned:
         return "scalar"
     if (cin, k, stride) == (3, 7, 2) and cout <= 64 and splits == 1:
@@ -184,6 +193,16 @@ def phase_taps(p: int, k: int, s: int) -> Tuple[int, int]:
     return first, ((k - 1 - first) // s + 1 if first < k else 0)
 
 
+def dx_phase_depths(k: int, stride: int, cout: int) -> Tuple[Tuple[int, int], ...]:
+    """(phase, K) of each row phase (py, px) = divmod(phase, stride) of a
+    k x k dx, K = the phase's taps (``phase_taps`` along each axis) x Cout,
+    in the order the bf16 dx kernel takes their units (csrc/conv.cu
+    rt_conv2d_dx_nhwc_bf16): the deepest first, row-major on a tie."""
+    depths = [(p, phase_taps(p // stride, k, stride)[1] * phase_taps(p % stride, k, stride)[1]
+               * cout) for p in range(stride * stride)]
+    return tuple(sorted(depths, key=lambda pk: -pk[1]))
+
+
 def dx_phase_weights(w: torch.Tensor, stride: int) -> torch.Tensor:
     """The B operands of the dx kernel: for each phase (py, px) in row-major
     order, the taps that reach it of w^T (k, k, Cout, Cin), as one
@@ -195,6 +214,34 @@ def dx_phase_weights(w: torch.Tensor, stride: int) -> torch.Tensor:
                 phase_taps(px, k, stride)[0]::stride].reshape(-1, cin)
              for py in range(stride) for px in range(stride)]
     return torch.cat(parts).contiguous()
+
+
+def dx_splits(m: int, cin: int, cout: int, k: int, stride: int) -> int:
+    """K splits of dx for m = N*H*W input pixels: ``build.tc_split`` at
+    stride 1; one a phase at stride > 1 (the phases' rows are not
+    contiguous in dx, so no split goes through a workspace)."""
+    return build.tc_split(m, cin, k * k * cout) if stride == 1 else 1
+
+
+def dx_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
+                  aligned: bool = True) -> str:
+    """The loaders of K1's bf16 dx (``csrc/conv.cu``, all on the persistent
+    ``wgmma`` kernel) for m = N*H*W input pixels: 'matrix' (g and w by TMA
+    boxes) for a 1x1/s1 dx whose K splits are whole 64-deep slices;
+    'gather' (g by 16-byte copies of 8 channels of one tap, w by TMA boxes)
+    where every slice lies in one tap of w (k = 1, or Cout % 64 == 0 with
+    whole slices); 'copy' (both by 16-byte copies) elsewhere; each of these
+    where Cout % 8 == 0, Cin % 8 == 0 and g, w and dx are 16-byte
+    ``aligned``; else 'scalar' (2-byte loads of both operands: ragged
+    widths, misaligned tensors). A function of the shapes and the alignment
+    only."""
+    if cout % 8 or cin % 8 or not aligned:
+        return "scalar"
+    splits = dx_splits(m, cin, cout, k, stride)
+    whole = splits == 1 or build.k_chunk(k * k * cout, splits, 16) % build.WGB_BK == 0
+    if (k, stride) == (1, 1) and whole:
+        return "matrix"
+    return "gather" if (k == 1 or cout % build.WGB_BK == 0) and whole else "copy"
 
 
 def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> torch.Tensor:
@@ -212,13 +259,12 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> tor
     if dx.numel():
         if g.numel() == 0:
             return dx.zero_()
-        wp = dx_phase_weights(w, stride)
+        # fp32 takes the phases' slices of w^T; bf16 reads w as it lies
+        b = w if g.dtype is torch.bfloat16 else dx_phase_weights(w, stride)
         m = n * h * wd
-        # a K split only at stride 1: the phases of a strided dx write rows
-        # that are not contiguous
-        splits = build.tc_split(m, cin, k * k * cout) if stride == 1 else 1
+        splits = dx_splits(m, cin, cout, k, stride)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cin, g)
-        build.launch(build.entry_name("conv2d_dx_nhwc", g), g.data_ptr(), wp.data_ptr(),
+        build.launch(build.entry_name("conv2d_dx_nhwc", g), g.data_ptr(), b.data_ptr(),
                      dx.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
                      device=g.device)
         build.count(__name__, "DX_LAUNCHES", g)

@@ -1,24 +1,24 @@
 // bf16 tensor-core GEMM core: bf16 operands, fp32 accumulator, one
-// rounding to bf16 at the end. Carries the bf16 entry point of the conv's
-// dx (conv.cu), dW's route for ragged or misaligned operands
-// (rt_conv2d_dw_nhwc_bf16_mma), and the FC forward (matmul.cu). K1's bf16
-// forward and dW and K8-bf16 (with K10-bf16's GEMMs) run on wgb_gemm.cuh's
-// wgmma + TMA core instead (the forward's persistent kernel with this
-// core's K chunks and 16-deep folds, so with the bits this core gave it);
+// rounding to bf16 at the end. Carries K1's bf16 dW for ragged or
+// misaligned operands (rt_conv2d_dw_nhwc_bf16_mma), the last entry point
+// on its kernel. K1's bf16 forward, dx and dW, K3's bf16 forward and
+// K8-bf16 (with K10-bf16's GEMMs) run on wgb_gemm.cuh's wgmma + TMA core
+// instead (the forward's and dx's persistent kernels with this core's K
+// chunks and 16-deep folds, so with the bits this core gave them: its
+// k_chunk_for, splitk_sum_bf16 and loaders' helpers stay in use there);
 // the FC backward is its own kernel in matmul.cu.
 //
 // C[m, n] = sum_k A(m, k) * B(k, n), C row-major. One 256-thread block
-// computes a BM x BN tile (BM 128, or 32 for the skinny FC; BN 64) with
+// computes a BM x BN tile (BM 128, BN 64) with
 // eight warps, each a (BM / WM) x (BN / WN) sub-tile of
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 products.
 //
-// Replaces, in bf16, the same Pallas kernels as the fp32 cores: the conv
-// kernel (resnet_tpu/kernels/conv.py:42; dx on the dilated gradient,
-// :150-170) and the matmul kernel (resnet_tpu/kernels/matmul.py:26; the
-// conv's dW per tap, conv.py:172-196). On the TPU each takes bf16 blocks
+// Replaces, in bf16, the Pallas matmul kernel (resnet_tpu/kernels/
+// matmul.py:26) as the conv's VJP runs it for dW per tap (conv.py:172-196).
+// On the TPU it takes bf16 blocks
 // into `jnp.dot(..., preferred_element_type=float32)`, adds into an fp32
-// VMEM accumulator and casts once to the output dtype (conv.py:57,
-// matmul.py:39). Here the same: a bf16 x bf16 product is exact in fp32,
+// VMEM accumulator and casts once to the output dtype (matmul.py:39).
+// Here the same: a bf16 x bf16 product is exact in fp32,
 // the tensor core adds 16 of them, and each 16-deep step goes into a fresh
 // fragment that an fp32 add folds into the accumulator (the tensor core
 // rounds its fp32 sums toward zero; tc_gemm.cuh measured what a chained
@@ -26,13 +26,13 @@
 // fp32 matmul (conv.py:180, :191), are bf16 values, so their products are
 // exact here too and the result differs from JAX's only by summation order.
 //
-// Bound on the H100: operations, at 989 TFLOP/s dense bf16, for the convs;
-// the FC's bytes. This first bf16 core is simple and not near that bound:
+// Bound on the H100: operations, at 989 TFLOP/s dense bf16. This first
+// bf16 core is simple and not near that bound:
 // each thread copies 16 bytes of a tile at a time through registers into
 // one shared slice (the next slice's loads are in flight while the tensor
 // cores work on the current one), operands are gathered by loaders that
 // compute their own indices (zero outside the image, beyond K and beyond
-// the matrix), and MN-contiguous operands are transposed as they are
+// the matrix), and its MN-contiguous operands are transposed as they are
 // stored. wgb_gemm.cuh's wgmma (which takes bf16 operands MN-major as well
 // as K-major) and TMA take these transposes out.
 //
@@ -84,29 +84,9 @@ __device__ __forceinline__ uint16_t to_bf16(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// A row-major matrix whose element (mn, k) is p[mn * ld + k]: K contiguous.
-// vec: p 16-byte aligned and ld % 8 == 0.
-struct RowK {
-  static constexpr bool kKContig = true;
-  const uint16_t* __restrict__ p;
-  int64_t rows, ld;
-  bool vec;
-  __device__ uint4 load8(int64_t mn, int64_t k, int64_t kend) const {
-    if (mn >= rows) return zero4();
-    const uint16_t* q = p + mn * ld + k;
-    if (vec && k + 8 <= kend) return ld128(q);
-    uint16_t v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = k + j < kend ? ld16(q + j) : 0;
-    return pack8(v);
-  }
-  __device__ int64_t out_row(int64_t m) const { return m; }
-};
-
 // A matrix whose element (mn, k) is p[k * ld + mn]: MN contiguous (a
 // row-major (K, N) B, or a^T). vec: p 16-byte aligned and ld % 8 == 0.
 struct RowMN {
-  static constexpr bool kKContig = false;
   const uint16_t* __restrict__ p;
   int64_t cols, ld;
   bool vec;
@@ -119,15 +99,9 @@ struct RowMN {
     for (int j = 0; j < 8; ++j) v[j] = mn + j < cols ? ld16(q + j) : 0;
     return pack8(v);
   }
-  __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
 inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
-
-// (rows, ld) row-major, element (mn, k) = p[mn * ld + k]
-inline RowK row_k(const uint16_t* p, int64_t rows, int64_t ld) {
-  return RowK{p, rows, ld, ld % 8 == 0 && aligned16(p)};
-}
 
 // (K, cols) row-major, element (mn, k) = p[k * cols + mn]
 inline RowMN row_mn(const uint16_t* p, int64_t cols) {
@@ -137,7 +111,7 @@ inline RowMN row_mn(const uint16_t* p, int64_t cols) {
 template <int BM, class AL, class BL>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict__ ws,
-            int64_t M, int N, int64_t K, int64_t k_chunk, int64_t ldy) {
+            int64_t M, int N, int64_t K, int64_t k_chunk) {
   constexpr int WM = BM >= 128 ? 4 : 2;  // warps along M
   constexpr int WN = 8 / WM;
   constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
@@ -165,23 +139,13 @@ gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict_
     for (int i = 0; i < A_PER; ++i) {
       const int c = t + i * THREADS;
       ra[i] = zero4();
-      if (c < A_CHUNKS) {
-        if constexpr (AL::kKContig)
-          ra[i] = a.load8(m0 + c / (BK / 8), kb + (c % (BK / 8)) * 8, kend);
-        else
-          ra[i] = a.load8(m0 + (c % (BM / 8)) * 8, kb + c / (BM / 8), kend);
-      }
+      if (c < A_CHUNKS) ra[i] = a.load8(m0 + (c % (BM / 8)) * 8, kb + c / (BM / 8), kend);
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int c = t + i * THREADS;
       rb[i] = zero4();
-      if (c < B_CHUNKS) {
-        if constexpr (BL::kKContig)
-          rb[i] = b.load8(n0 + c / (BK / 8), kb + (c % (BK / 8)) * 8, kend);
-        else
-          rb[i] = b.load8(n0 + (c % (BN / 8)) * 8, kb + c / (BN / 8), kend);
-      }
+      if (c < B_CHUNKS) rb[i] = b.load8(n0 + (c % (BN / 8)) * 8, kb + c / (BN / 8), kend);
     }
   };
   auto store = [&]() {
@@ -189,25 +153,17 @@ gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict_
     for (int i = 0; i < A_PER; ++i) {
       const int c = t + i * THREADS;
       if (c >= A_CHUNKS) continue;
-      if constexpr (AL::kKContig) {
-        *reinterpret_cast<uint4*>(&as[(c / (BK / 8)) * LDS + (c % (BK / 8)) * 8]) = ra[i];
-      } else {
-        const int r = (c % (BM / 8)) * 8, kk = c / (BM / 8);
+      const int r = (c % (BM / 8)) * 8, kk = c / (BM / 8);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) as[(r + j) * LDS + kk] = half_of(ra[i], j);
-      }
+      for (int j = 0; j < 8; ++j) as[(r + j) * LDS + kk] = half_of(ra[i], j);
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int c = t + i * THREADS;
       if (c >= B_CHUNKS) continue;
-      if constexpr (BL::kKContig) {
-        *reinterpret_cast<uint4*>(&bs[(c / (BK / 8)) * LDS + (c % (BK / 8)) * 8]) = rb[i];
-      } else {
-        const int r = (c % (BN / 8)) * 8, kk = c / (BN / 8);
+      const int r = (c % (BN / 8)) * 8, kk = c / (BN / 8);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) bs[(r + j) * LDS + kk] = half_of(rb[i], j);
-      }
+      for (int j = 0; j < 8; ++j) bs[(r + j) * LDS + kk] = half_of(rb[i], j);
     }
   };
 
@@ -272,7 +228,6 @@ gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict_
     for (int h = 0; h < 2; ++h) {
       const int64_t m = m0 + wm * WTM + i * 16 + gid + 8 * h;
       if (m >= M) continue;
-      const int64_t row = ws ? m : a.out_row(m);
 #pragma unroll
       for (int j = 0; j < NI; ++j)
 #pragma unroll
@@ -283,7 +238,7 @@ gemm_kernel(const AL a, const BL b, uint16_t* __restrict__ y, float* __restrict_
           if (ws)
             ws[(int64_t)blockIdx.z * M * N + m * N + n] = v;
           else
-            y[row * ldy + n] = to_bf16(v);
+            y[m * N + n] = to_bf16(v);
         }
     }
 }
@@ -305,19 +260,19 @@ inline int64_t k_chunk_for(int64_t K, int splits) {
   return (c + KSTEP - 1) / KSTEP * KSTEP;
 }
 
-// An (M, N) GEMM on BM x BN tiles into y (rows out_row(m), stride ldy),
-// or, with splits > 1, into ws (splits * M * N floats; out_row the
-// identity) followed by splitk_sum_bf16 into y. Returns cudaGetLastError().
+// An (M, N) GEMM on BM x BN tiles into y (row-major), or, with splits >
+// 1, into ws (splits * M * N floats) followed by splitk_sum_bf16 into y.
+// Returns cudaGetLastError().
 template <int BM, class AL, class BL>
 int launch(const AL& a, const BL& b, uint16_t* y, float* ws, int64_t M, int N, int64_t K,
-           int splits, int64_t ldy, cudaStream_t s) {
+           int splits, cudaStream_t s) {
   if (M <= 0 || N <= 0) return 0;
   if (splits < 1 || splits > 65535 || (splits > 1 && !ws) || (N + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
                   (unsigned)splits);
   gemm_kernel<BM, AL, BL><<<grid, THREADS, 0, s>>>(a, b, y, splits > 1 ? ws : nullptr, M, N, K,
-                                                   k_chunk_for(K, splits), ldy);
+                                                   k_chunk_for(K, splits));
   if (splits > 1) {
     const int64_t mn = M * N;
     int64_t blocks = (mn + 255) / 256;

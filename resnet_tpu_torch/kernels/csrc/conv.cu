@@ -470,10 +470,10 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 // ---------------------------------------------------------------- bf16
 //
-// The same three GEMMs on bf16 tensors (dx on bf16_gemm.cuh; the forward
-// on wgb_gemm.cuh's wgmma core below, every shape; dW on that core, its
-// ragged or misaligned shapes on bf16_gemm.cuh): bf16 x, w and g, an fp32
-// accumulator, bf16 out, rounded once. What JAX computes for bf16 inputs:
+// The same three GEMMs on bf16 tensors (the forward and dx on
+// wgb_gemm.cuh's persistent wgmma loop below, every shape; dW on that
+// core's main loop, its ragged or misaligned shapes on bf16_gemm.cuh): bf16
+// x, w and g, an fp32 accumulator, bf16 out, rounded once. What JAX computes for bf16 inputs:
 // the forward and dx are its conv kernel with `x.dtype` out (conv.py:55-57,
 // :105, :163-170); dW is an fp32 matmul of the upcast inputs per tap, cast
 // to w.dtype = bf16 (conv.py:180-195). The loaders index as the fp32 ones
@@ -482,54 +482,10 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 namespace {
 
-// dx A of one phase (py, px), as ConvDxTcA: row (n, qy, qx) is the input
-// pixel (py + s*qy, px + s*qx), column (ti, tj, co) the gradient at
-// g[n, qy + cy - ti, qx + cx - tj, co]; K contiguous
-struct ConvDxBfA {
-  static constexpr bool kKContig = true;
-  const uint16_t* __restrict__ g;
-  int H, W, Ho, Wo, Cout, stride, py, px, cy, cx, ntj, Qh, Qw;
-  int64_t M;
-  bool vec;  // Cout % 8 == 0 and g 16-byte aligned
-
-  __device__ uint4 load8(int64_t m, int64_t k, int64_t kend) const {
-    if (m >= M) return bfg::zero4();
-    const int64_t n = m / ((int64_t)Qh * Qw);
-    const int rem = (int)(m - n * Qh * Qw);
-    const int qy = rem / Qw + cy, qx = rem % Qw + cx;
-    const uint16_t* base = g + n * Ho * Wo * Cout;
-    if (vec) {
-      if (k >= kend) return bfg::zero4();
-      const int tap = (int)(k / Cout), co = (int)(k - (int64_t)tap * Cout);
-      const int oy = qy - tap / ntj, ox = qx - tap % ntj;
-      if (oy < 0 || oy >= Ho || ox < 0 || ox >= Wo) return bfg::zero4();
-      return bfg::ld128(base + ((int64_t)oy * Wo + ox) * Cout + co);
-    }
-    uint16_t v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      v[j] = 0;
-      if (k + j < kend) {
-        const int tap = (int)((k + j) / Cout), co = (int)(k + j - (int64_t)tap * Cout);
-        const int oy = qy - tap / ntj, ox = qx - tap % ntj;
-        if (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo)
-          v[j] = bfg::ld16(base + ((int64_t)oy * Wo + ox) * Cout + co);
-      }
-    }
-    return bfg::pack8(v);
-  }
-  __device__ int64_t out_row(int64_t m) const {
-    const int64_t n = m / ((int64_t)Qh * Qw);
-    const int rem = (int)(m - n * Qh * Qw);
-    return (n * H + py + (int64_t)stride * (rem / Qw)) * W + px + (int64_t)stride * (rem % Qw);
-  }
-};
-
 // dW A: A((i, j, ci), p) = x[n, s*oy + i - k/2, s*ox + j - k/2, ci] for
 // the pixel p = (n, oy, ox); M contiguous (neighbouring rows are
 // neighbouring channels of one tap)
 struct ConvDwBfA {
-  static constexpr bool kKContig = false;
   const uint16_t* __restrict__ x;
   int H, W, Cin, ksize, stride, Ho, Wo;
   int64_t M;  // k * k * Cin
@@ -563,7 +519,6 @@ struct ConvDwBfA {
     }
     return bfg::pack8(v);
   }
-  __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
 }  // namespace
@@ -571,34 +526,6 @@ struct ConvDwBfA {
 // The callers check stride | H, stride | W, shapes, dtype and contiguity,
 // and allocate ws (splits * rows * cols floats) when splits > 1. Tensors
 // are bf16, passed as their 16-bit patterns.
-
-// dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices
-// of w^T one after the other (as rt_conv2d_dx_nhwc_f32); splits > 1 at
-// stride 1 only
-extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* wp, uint16_t* dx,
-                                      int N, int H, int W, int Cin, int Cout, int k,
-                                      int stride, float* ws, int splits, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (stride > 1 && splits != 1) return (int)cudaErrorInvalidValue;
-  const int Ho = H / stride, Wo = W / stride;
-  const bool vec = Cout % 8 == 0 && bfg::aligned16(g);
-  const uint16_t* b = wp;
-  for (int py = 0; py < stride; ++py) {
-    for (int px = 0; px < stride; ++px) {
-      const PhaseTaps ty(py, k, stride), tx(px, k, stride);
-      const int64_t K = (int64_t)ty.count * tx.count * Cout;
-      const int64_t M = (int64_t)N * Ho * Wo;  // rows of this phase: (N, H/s, W/s)
-      const ConvDxBfA a{g, H, W, Ho, Wo, Cout, stride, py, px, ty.shift, tx.shift, tx.count,
-                        Ho, Wo, M, vec};
-      if (K == 0) return (int)cudaErrorInvalidValue;  // every phase has a tap for odd k
-      const int status = bfg::launch<128>(a, bfg::row_mn(b, Cin), dx, ws, M, Cin, K, splits,
-                                          Cin, s);
-      if (status != 0) return status;
-      b += K * Cin;
-    }
-  }
-  return 0;
-}
 
 // dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout) on
 // bf16_gemm.cuh's mma.sync core: the route of the widths the wgmma core
@@ -610,7 +537,7 @@ extern "C" int rt_conv2d_dw_nhwc_bf16_mma(const uint16_t* x, const uint16_t* g, 
   const int64_t M = (int64_t)k * k * Cin;
   const ConvDwBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
   return bfg::launch<128>(a, bfg::row_mn(g, Cout), dw, ws, M, Cout, (int64_t)N * Ho * Wo,
-                          splits, Cout, (cudaStream_t)stream);
+                          splits, (cudaStream_t)stream);
 }
 
 // ------------------------------------------------ bf16 dW on wgb_gemm.cuh
@@ -909,7 +836,8 @@ extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint
 // before. Split partials go through ws (fp32 pairs from the registers) and
 // splitk_sum_bf16 in split order; otherwise a unit's bf16 tile leaves from
 // shared memory by TMA (wgb::store_tile_tma), or from the registers
-// (FWD_SCALAR).
+// (FWD_SCALAR). The bf16 FC forward (matmul.cu rt_matmul_bf16) calls this
+// entry as a 1x1/s1 conv of (M, 1, 1, K) with its own K split.
 //
 // Bound on the H100: bytes at batch 32 for the stem and the 1x1s with 64
 // input channels, operations for the 3x3s and the deep 1x1s (PERF.md);
@@ -934,7 +862,7 @@ struct MatWgBlock {
   int col0 = 0;
 
   // a unit's split [k, k_end) is whole slices, or the last one of K
-  __device__ void start(int64_t r, int c, int64_t k, int64_t) {
+  __device__ void start(int64_t r, int c, int64_t k, int64_t, int) {
     row0 = r;
     col0 = c;
     k_lo = k;
@@ -982,19 +910,19 @@ struct StemStageBlock {
         total(a_.M * a_.stride * a_.stride * STEM_CIN), cr(threadIdx.x >> 1),
         ch(threadIdx.x & 1), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
 
-  __device__ void start(int64_t row0, int c, int64_t, int64_t) {
+  __device__ void start(int64_t row0, int c, int64_t, int64_t, int) {
     col0 = c;
     cy = -(1 << 29);  // a row past M: outside the image in every kernel row
     pairs = zero = 0;
     const int64_t m = row0 + cr;
     if (m >= a.M) return;
     const int howo = a.Ho * a.Wo;
-    const int64_t n = m / howo;
-    const int rem = (int)(m - n * howo);
+    const int n = (int)m / howo;  // M < 2^31 (rt_conv2d_nhwc_bf16)
+    const int rem = (int)m - n * howo;
     const int oy = rem / a.Wo;
     const int x = a.stride * (rem - oy * a.Wo) - a.pad_left;
     cy = a.stride * oy - a.pad_top;
-    ce = (n * a.H * a.W + (int64_t)cy * a.W + x) * STEM_CIN - 1;
+    ce = ((int64_t)n * a.H * a.W + (int64_t)cy * a.W + x) * STEM_CIN - 1;
     uint32_t taps = 0;  // bit v: value v = 1 + 3 dj + ci is a tap inside the image
 #pragma unroll
     for (int dj = 0; dj < STEM_K; ++dj)
@@ -1114,20 +1042,13 @@ int fwd_wg(const CUtensorMap& amap, const CUtensorMap& wmap, const CUtensorMap& 
   constexpr int smem = KIND == FWD_STEM
                            ? wgb::PTile<BN, STEM_STAGES>::SMEM + STEM_STAGES * STEM_STG
                            : wgb::PTile<BN>::SMEM;
-  int status = wgb::max_smem_once((const void*)kernel, smem);
-  int sms = 0;
-  if (status == 0) status = wgb::sm_count(&sms);
-  if (status != 0) return status;
-  const int64_t units = un.count();
-  kernel<<<(unsigned)(units < sms ? units : sms), wgb::THREADS, smem, s>>>(
-      amap, wmap, ymap, a, w, y, un.splits > 1 ? ws : nullptr, N, un);
-  if (un.splits > 1) {
-    const int64_t mn = a.M * N;
-    int64_t blocks = (mn + 255) / 256;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, y, mn, un.splits);
-  }
-  return (int)cudaGetLastError();
+  float* part = un.splits > 1 ? ws : nullptr;
+  return wgb::launch_persistent(
+      kernel, smem, un.count(),
+      [&](unsigned blocks, int bytes) {
+        kernel<<<blocks, wgb::THREADS, bytes, s>>>(amap, wmap, ymap, a, w, y, part, N, un);
+      },
+      un.splits, ws, y, a.M * N, s);
 }
 
 }  // namespace
@@ -1143,7 +1064,8 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
   const int64_t M = (int64_t)N * Ho * Wo;
   const int64_t K = (int64_t)k * k * Cin;
   if (M >= INT32_MAX || K >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr) ||
-      (uintptr_t)y % 4 != 0)
+      (uintptr_t)y % 4 != 0 ||
+      (M + wgb::BM - 1) / wgb::BM * ((Cout + 63) / 64) * splits >= INT32_MAX)  // wgb::Units
     return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   const int64_t chunk = bfg::k_chunk_for(K, splits);
@@ -1181,4 +1103,338 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
        fwd_wg<64, FWD_STEM>},
       {fwd_wg<128, FWD_GATHER>, fwd_wg<128, FWD_MATRIX>, fwd_wg<128, FWD_SCALAR>, nullptr}};
   return runs[wide][kind](amap, wmap, ymap, a, w, y, ws, Cout, un, (cudaStream_t)stream);
+}
+
+// ------------------------------------------------- bf16 dx on wgb_gemm.cuh
+//
+// dx[(n, py + s*qy, px + s*qx), ci] = sum over the phase's taps (ti, tj) and
+// co of g[n, qy + cy - ti, qx + cx - tj, co] w[fy + s*ti, fx + s*tj, ci, co]
+// ((fy, cy) the first tap and shift of row phase py, PhaseTaps; (fx, cx) of
+// px): per phase (py, px) one GEMM of the phase's N*Ho*Wo rows over K = its
+// taps x Cout in (ti, tj, co) order, on wgb::persistent. B is w as it lies:
+// B's column ci at a tap is w[tap, ci, :], Cout contiguous, so B is K-major
+// and wgmma reads it without the transpose bit; nothing is cut from w or
+// cached. The phases of a strided dx are units of one launch, the deepest
+// phase's first (wgb::Units). Four loaders, chosen from the shapes and the
+// alignment (conv.dx_bf16_route):
+// * DX_MATRIX: a 1x1/s1 dx whose splits are whole slices: A the (M, Cout)
+//   matrix g by TMA boxes of 128 rows x 64 channels, B a box of 64 co x BN
+//   ci of w, thread 0 issuing every copy;
+// * DX_GATHER: A gathered 16 bytes (8 channels of g at one tap) at a time by
+//   cp.async, B by TMA where every slice lies in one tap (k = 1, or Cout %
+//   64 == 0 with whole slices);
+// * DX_COPY: A as DX_GATHER, B's rows by 16-byte cp.async of 8 co of one tap;
+// * DX_SCALAR: every other shape (ragged widths, misaligned tensors): both
+//   operands by the threads' 2-byte loads.
+// The first three need Cout % 8 == 0, Cin % 8 == 0 (dx's rows in 16-byte
+// stores) and g, w and dx 16-byte aligned. A box of B reads BN rows of w
+// from the tap's row of ci = col0 on: rows past Cin are the next tap's (or
+// zeros past w), and they feed only columns past Cin, which are not stored.
+// K splits at stride 1 by build.tc_split at bf16_gemm.cuh's chunk
+// (bfg::k_chunk_for), one split a phase at stride > 1, one fp32 add per k16
+// step in K order: the bits of bf16_gemm.cuh's kernel, which ran this entry
+// before. At stride 1 a tile leaves by TMA (wgb::store_tile_tma), or as
+// fp32 partials through ws summed by splitk_sum_bf16 in split order; at
+// stride > 1 a phase's rows are not contiguous in dx, and a tile leaves
+// through the staged row-mapped store (wgb::store_rows).
+//
+// Replaces, in bf16, the Pallas conv kernel as the VJP runs it for dx
+// (resnet_tpu/kernels/conv.py:150-170, on the dilated gradient with the
+// flipped, transposed filter), which this computes without the dilation's
+// zeros or a flipped copy. Bound on the H100: bytes for the 1x1s and 3x3s
+// with 64 to 128 channels at batch 32, operations for the projection and
+// the deep 1x1s (PERF.md); the phases in one launch keep every SM busy
+// where one phase alone has too few tiles.
+namespace {
+
+constexpr int DX_GATHER = 0, DX_MATRIX = 1, DX_SCALAR = 2, DX_COPY = 3;
+
+struct DxGeom {
+  const uint16_t* __restrict__ g;
+  const uint16_t* __restrict__ w;
+  int H, W, Ho, Wo, Cin, Cout, ksize, stride;
+  int M;  // rows of a phase: N * Ho * Wo (< 2^31)
+};
+
+// dx's row of row m of phase (py, px)
+struct PhaseRow {
+  int H, W, Ho, Wo, stride, py, px;
+  __device__ int64_t operator()(int64_t m) const {
+    const int mm = (int)m, howo = Ho * Wo;
+    const int n = mm / howo, rem = mm - n * howo, qy = rem / Wo;
+    return ((int64_t)n * H + py + stride * qy) * W + px + stride * (rem - qy * Wo);
+  }
+};
+
+// One block's copies for conv2d_dx_wg_kernel (wgb::persistent's Block): the
+// thread copies chunk column cc = tid % 8 (8 K columns) of A's rows tid / 8
+// + 32 i, i < 4, and of B's rows tid / 8 + 32 i, i < BN / 32, of each slice,
+// its (ti, tj, co) cursor walked by 64 columns a slice; thread 0, whose
+// chunk starts the slice, names the slice's tap for the TMA boxes.
+template <int BN, int KIND>
+struct DxWgBlock {
+  const DxGeom& d;
+  const CUtensorMap* amap;
+  const CUtensorMap* bmap;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int row0 = 0, col0 = 0, cc, rlo;
+  int k = 0, k_end = 0;        // the thread's chunk's K column in the next slice; the split's end
+  int ti = 0, tj = 0, co = 0;  // its tap of the phase and channel
+  int fy = 0, fx = 0, ntj = 0;  // the phase's first tap along i and j, its taps along j
+  int64_t off[4];              // g's offset of each A row's image
+  int oy[4], ox[4];            // each A row's (qy + cy, qx + cx)
+
+  __device__ DxWgBlock(const DxGeom& d_, const CUtensorMap* amap_, const CUtensorMap* bmap_,
+                       const wgb::Smem<BN>& sm_, uint64_t* full_)
+      : d(d_), amap(amap_), bmap(bmap_), sm(sm_), full(full_), cc(threadIdx.x & 7),
+        rlo(threadIdx.x >> 3) {}
+
+  // the copies pointed at the unit of phase z (stride > 1: one split a
+  // phase) and rows row0 + [0, 128), columns col0 + [0, BN), K columns
+  // [k0, k1) of that phase
+  __device__ void start(int64_t r0, int c0, int64_t k0, int64_t k1, int z) {
+    row0 = (int)r0;
+    col0 = c0;
+    k_end = (int)k1;
+    const int p = d.stride > 1 ? z : 0;
+    const PhaseTaps ty(p / d.stride, d.ksize, d.stride), tx(p % d.stride, d.ksize, d.stride);
+    fy = ty.first;
+    fx = tx.first;
+    ntj = tx.count;
+    const int howo = d.Ho * d.Wo;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = row0 + rlo + 32 * i;
+      off[i] = 0;
+      oy[i] = -(1 << 29);  // a row past M: outside the gradient at every tap
+      ox[i] = 0;
+      if (m < d.M) {
+        const int n = m / howo, rem = m - n * howo, qy = rem / d.Wo;
+        off[i] = (int64_t)n * howo * d.Cout;
+        oy[i] = qy + ty.shift;
+        ox[i] = rem - qy * d.Wo + tx.shift;
+      }
+    }
+    k = (int)k0 + 8 * cc;
+    const int tap = ntj ? k / d.Cout : 0;  // a phase with no taps has no slices
+    co = k - tap * d.Cout;
+    ti = ntj ? tap / ntj : 0;
+    tj = tap - ti * ntj;
+  }
+
+  __device__ void fix(int, int) const {}
+
+  // w's tap (fy + s*a, fx + s*b)
+  __device__ int wtap(int a, int b) const {
+    return (fy + d.stride * a) * d.ksize + fx + d.stride * b;
+  }
+
+  __device__ void advance() {
+    k += wgb::BK;
+    for (co += wgb::BK; co >= d.Cout; co -= d.Cout)
+      if (++tj == ntj) {
+        tj = 0;
+        ++ti;
+      }
+  }
+
+  __device__ void load(int slot, int) {
+    uint8_t* st = sm.slot(slot);
+    const uint32_t sa = rt::tc::smem_u32(st), sb = sa + wgb::Tile<BN>::A_BYTES;
+    const uint32_t bar = rt::tc::smem_u32(&full[slot]);
+    if constexpr (KIND == DX_MATRIX) {
+      if (threadIdx.x == 0) {  // the slice's columns k .. k + 63 of g and of w's one tap
+        rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::STAGE_BYTES);
+        wgb::tma_2d(sa, amap, bar, k, row0);
+        wgb::tma_2d(sb, bmap, bar, k, col0);
+      }
+    } else if constexpr (KIND != DX_SCALAR) {
+      const bool kin = k < k_end;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = oy[i] - ti, x = ox[i] - tj;
+        const bool ok = kin && (unsigned)y < (unsigned)d.Ho && (unsigned)x < (unsigned)d.Wo;
+        const uint16_t* src = ok ? d.g + off[i] + ((int64_t)y * d.Wo + x) * d.Cout + co : d.g;
+        wgb::cp16(sa + wgb::swz(rlo + 32 * i, cc), src, ok);
+      }
+      if constexpr (KIND == DX_GATHER) {
+        if (threadIdx.x == 0) {
+          rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::B_BYTES);
+          wgb::tma_2d(sb, bmap, bar, co, wtap(ti, tj) * d.Cin + col0);
+        }
+      } else {
+        const uint16_t* wt = d.w + ((int64_t)wtap(ti, tj) * d.Cin + col0) * d.Cout + co;
+#pragma unroll
+        for (int i = 0; i < BN / 32; ++i) {
+          const int r = rlo + 32 * i;
+          const bool ok = kin && col0 + r < d.Cin;
+          wgb::cp16(sb + wgb::swz(r, cc), ok ? wt + (int64_t)r * d.Cout : d.w, ok);
+        }
+        if (threadIdx.x == 0) rt::wg::mbar_expect_tx(&full[slot], 0);  // no TMA: arrive
+      }
+    } else {
+      // the chunk's 8 columns decoded once for every row: tap (te, je),
+      // channel ce, or past the split's end
+      int te[8], je[8], ce[8];
+      bool in[8];
+      int a = ti, b = tj, c = co;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        te[e] = a;
+        je[e] = b;
+        ce[e] = c;
+        in[e] = k + e < k_end;
+        if (++c == d.Cout) {
+          c = 0;
+          if (++b == ntj) {
+            b = 0;
+            ++a;
+          }
+        }
+      }
+      // every load issued before any store
+      uint16_t va[4][8], vb[BN / 32][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int y = oy[i] - te[e], x = ox[i] - je[e];
+          const bool ok = in[e] && (unsigned)y < (unsigned)d.Ho && (unsigned)x < (unsigned)d.Wo;
+          va[i][e] = ok ? bfg::ld16(d.g + off[i] + ((int64_t)y * d.Wo + x) * d.Cout + ce[e]) : 0;
+        }
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i) {
+        const int ci = col0 + rlo + 32 * i;
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          vb[i][e] = in[e] && ci < d.Cin ? bfg::ld16(d.w + ((int64_t)wtap(te[e], je[e]) * d.Cin +
+                                                          ci) * d.Cout + ce[e])
+                                         : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<uint4*>(st + wgb::swz(rlo + 32 * i, cc)) = bfg::pack8(va[i]);
+#pragma unroll
+      for (int i = 0; i < BN / 32; ++i)
+        *reinterpret_cast<uint4*>(st + wgb::Tile<BN>::A_BYTES + wgb::swz(rlo + 32 * i, cc)) =
+            bfg::pack8(vb[i]);
+      if (threadIdx.x == 0) rt::wg::mbar_expect_tx(&full[slot], 0);  // no TMA: arrive
+    }
+    advance();
+  }
+};
+
+// dx (through ymap at stride 1, from the registers for DX_SCALAR, by the
+// row-mapped store at stride > 1; or, with ws, split z's fp32 partials at ws
+// + z * M * Cin) of the phases' GEMMs over the units of un
+template <int BN, int KIND>
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+conv2d_dx_wg_kernel(const __grid_constant__ CUtensorMap amap,
+                    const __grid_constant__ CUtensorMap bmap,
+                    const __grid_constant__ CUtensorMap ymap, const __grid_constant__ DxGeom d,
+                    uint16_t* __restrict__ dx, float* __restrict__ ws, const wgb::Units un) {
+  constexpr int S = wgb::PTile<BN>::STAGES;
+  extern __shared__ __align__(1024) uint8_t dx_wg_smem[];
+  __shared__ __align__(8) uint64_t full[S];
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN>(dx_wg_smem);
+  wgb::init_barriers<S>(full);
+  auto epi = [&](const float (&acc)[wgb::Tile<BN>::NACC], int64_t row0, int col0, int z) {
+    if (ws) {
+      wgb::store_pairs<BN>(acc, row0, col0, d.M, d.Cin, nullptr, ws + (int64_t)z * d.M * d.Cin);
+    } else if (KIND != DX_SCALAR && d.stride == 1) {
+      wgb::store_tile_tma<BN>(acc, wgb::p_out<BN>(sm), &ymap, row0, col0);
+    } else {
+      const PhaseRow rows{d.H, d.W, d.Ho, d.Wo, d.stride, z / d.stride, z % d.stride};
+      if constexpr (KIND == DX_SCALAR)
+        wgb::store_pairs<BN>(acc, row0, col0, d.M, d.Cin, dx, nullptr, rows);
+      else
+        wgb::store_rows<BN>(acc, wgb::p_out<BN>(sm), row0, col0, d.M, d.Cin, dx, rows);
+    }
+  };
+  DxWgBlock<BN, KIND> blk(d, &amap, &bmap, sm, full);
+  wgb::persistent<BN, S, 0>(blk, sm, full, un, epi);
+  wgb::store_tma_wait();
+}
+
+template <int BN, int KIND>
+int dx_wg(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& ymap,
+          const DxGeom& d, uint16_t* dx, float* ws, const wgb::Units& un, cudaStream_t s) {
+  auto* kernel = conv2d_dx_wg_kernel<BN, KIND>;
+  float* part = un.splits > 1 ? ws : nullptr;
+  return wgb::launch_persistent(
+      kernel, wgb::PTile<BN>::SMEM, un.count(),
+      [&](unsigned blocks, int bytes) {
+        kernel<<<blocks, wgb::THREADS, bytes, s>>>(amap, bmap, ymap, d, dx, part, un);
+      },
+      un.splits, ws, dx, (int64_t)d.M * d.Cin, s);
+}
+
+}  // namespace
+
+// dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and w (k, k, Cin, Cout) on
+// the wgmma core's persistent loop, every shape: tiles 128 x 64 where Cin <=
+// 64, else 128 x 128; splits K splits at stride 1 (build.tc_split; ws:
+// splits * N*H*W * Cin floats when splits > 1), one at stride > 1 (the
+// phases' units, stride <= 4); dx 4-byte aligned.
+extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint16_t* dx,
+                                      int N, int H, int W, int Cin, int Cout, int k,
+                                      int stride, float* ws, int splits, void* stream) {
+  const int Ho = H / stride, Wo = W / stride;
+  const int64_t M = (int64_t)N * Ho * Wo;
+  const int phases = stride * stride;
+  if (M >= INT32_MAX || (int64_t)k * k * Cout >= INT32_MAX ||
+      (int64_t)k * k * Cin >= INT32_MAX || stride < 1 || phases > wgb::MAX_PHASES ||
+      splits < 1 || (stride > 1 && splits != 1) || (splits > 1 && ws == nullptr) ||
+      (uintptr_t)dx % 4 != 0 ||
+      (M + wgb::BM - 1) / wgb::BM * ((Cin + 63) / 64) * splits * phases >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  const int bn = Cin <= 64 ? 64 : 128;
+  wgb::Units un{(M + wgb::BM - 1) / wgb::BM, (Cin + bn - 1) / bn, splits, (int64_t)k * k * Cout,
+                0};
+  if (stride == 1) {
+    un.chunk = bfg::k_chunk_for(un.K, splits);
+  } else {  // the phases by depth, the deepest first, then in row-major order
+    un.phases = phases;
+    for (int p = 0; p < phases; ++p) {
+      const int64_t depth = (int64_t)PhaseTaps(p / stride, k, stride).count *
+                            PhaseTaps(p % stride, k, stride).count * Cout;
+      int r = p;
+      for (; r > 0 && un.pK[r - 1] < depth; --r) {
+        un.pK[r] = un.pK[r - 1];
+        un.phase[r] = un.phase[r - 1];
+      }
+      un.pK[r] = depth;
+      un.phase[r] = (int8_t)p;
+    }
+    un.chunk = un.pK[0];
+  }
+  const bool aligned = bfg::aligned16(g) && bfg::aligned16(w) && bfg::aligned16(dx);
+  const bool vec = Cout % 8 == 0 && Cin % 8 == 0 && aligned;
+  const bool whole = splits == 1 || un.chunk % wgb::BK == 0;
+  const int kind = !vec                                   ? DX_SCALAR
+                   : k == 1 && stride == 1 && whole        ? DX_MATRIX
+                   : (k == 1 || Cout % wgb::BK == 0) && whole ? DX_GATHER
+                                                           : DX_COPY;
+  CUtensorMap amap, bmap, ymap;
+  memset(&amap, 0, sizeof(amap));
+  memset(&bmap, 0, sizeof(bmap));
+  memset(&ymap, 0, sizeof(ymap));
+  int status = 0;
+  if (kind == DX_GATHER || kind == DX_MATRIX)
+    status = wgb::cached_matrix_map(&bmap, w, (int64_t)k * k * Cin, Cout, bn);
+  if (status == 0 && kind == DX_MATRIX)
+    status = wgb::cached_matrix_map(&amap, g, M, Cout, wgb::BM);
+  if (status == 0 && kind != DX_SCALAR && stride == 1 && splits == 1)
+    status = wgb::cached_matrix_map(&ymap, dx, M, Cin, wgb::BM);
+  if (status != 0) return status;
+  const DxGeom d{g, w, H, W, Ho, Wo, Cin, Cout, k, stride, (int)M};
+  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+                         const DxGeom&, uint16_t*, float*, const wgb::Units&, cudaStream_t);
+  static const Launch runs[2][4] = {
+      {dx_wg<64, DX_GATHER>, dx_wg<64, DX_MATRIX>, dx_wg<64, DX_SCALAR>, dx_wg<64, DX_COPY>},
+      {dx_wg<128, DX_GATHER>, dx_wg<128, DX_MATRIX>, dx_wg<128, DX_SCALAR>,
+       dx_wg<128, DX_COPY>}};
+  return runs[bn == 128][kind](amap, bmap, ymap, d, dx, ws, un, (cudaStream_t)stream);
 }

@@ -279,7 +279,7 @@ struct ConvWgBlock {
   // the copies pointed at the tile of rows row0 + [0, 128), columns col0 +
   // [0, BN), K columns [k_lo, k_end) (wgb::persistent moves a block from
   // unit to unit; k_end a multiple of 8, A reads zeros past it)
-  __device__ void start(int64_t row0, int col0_, int64_t k_lo_, int64_t k_end_) {
+  __device__ void start(int64_t row0, int col0_, int64_t k_lo_, int64_t k_end_, int = 0) {
     col0 = col0_;
     k_lo = k_lo_;
     k_end = k_end_;

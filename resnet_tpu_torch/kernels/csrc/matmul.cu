@@ -61,11 +61,13 @@
 // repeats bit for bit. build.py matmul_bwd_plan plans the blocks.
 
 #include <climits>
+#include <cstring>
 #include <stdint.h>
 
 #include "bf16_gemm.cuh"
 #include "tc_gemm.cuh"  // cp_async
 #include "tiled_gemm.cuh"
+#include "wgb_gemm.cuh"  // the bf16 forward's persistent loop
 
 namespace {
 
@@ -479,24 +481,144 @@ extern "C" int rt_matmul_bwd_f32(const float* a, const float* b, const float* g,
 //
 // The FC in bf16: fp32 accumulator, bf16 out = result_type(a, b)
 // (matmul.py:53), da and db in bf16 (matmul.py:96-97), each rounded once.
-// The forward on bf16_gemm.cuh: the skinny entry (M <= 32) takes 32-row
-// tiles, the other 128-row ones. The backward is one launch of its own
-// kernel below (neither b^T nor a^T is copied). Tensors are bf16, passed as
-// their 16-bit patterns.
+// The forward runs on wgb_gemm.cuh's persistent wgmma loop for every M,
+// with the K split the caller plans (build.skinny_split for M <= 32,
+// build.split_k above) in bf16_gemm.cuh's chunks, one fp32 add per k16 step
+// in K order: the bits of that core's kernel, which ran it before.
+// * M <= 32, K and N multiples of 8, every operand 16-byte aligned (the FC
+//   at batch 1-32): the operands swapped, c^T (N, M) = b^T (N, K) a^T (K,
+//   M), so N fills wgmma's 64-row side and M is its n (8, 16 or 32): a
+//   128-row tile is 128 of the N columns, read from b by two TMA boxes of
+//   64 columns x 64 K rows a slice, MN-major with the transpose bit, as it
+//   lies; a^T is K-major as a lies, its M rows x 64 K columns copied 16 bytes
+//   at a time with zeros past the split's end. The units are (128 columns of
+//   N, split): the FC's 8 x 9 at 240 K columns a split.
+// * otherwise: K1's bf16 forward (conv.cu) on a as an (M, 1, 1, K) image and
+//   b as a 1x1 weight (1, 1, K, N), called through its C entry point so its
+//   kernels compile once: b by TMA, a by 16-byte copies or TMA boxes, or,
+//   for a ragged N or K or a misaligned operand, the threads' 2-byte loads.
+// Split partials go through ws and splitk_sum_bf16 in split order. Bound
+// on the H100: bytes (b's 4.1 MB, 1.2 us at 3.35 TB/s); a persistent-loop
+// call costs ~4-8 us however small (PERF.md), which the swap keeps near 4
+// for the FC. The backward is one launch of its own kernel below (neither
+// b^T nor a^T is copied). Tensors are bf16, passed as their 16-bit
+// patterns.
 
-// c (M, N) = a (M, K) @ b (K, N), 128-row tiles
-extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int64_t M,
-                              int N, int K, float* ws, int splits, void* stream) {
-  return bfg::launch<128>(bfg::row_k(a, M, K), bfg::row_mn(b, N), c, ws, M, N, K, splits, N,
-                          (cudaStream_t)stream);
+extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
+                                   int H, int W, int Cin, int Cout, int k, int stride,
+                                   float* ws, int splits, void* stream);
+
+namespace {
+
+// One block's copies for matmul_fwd_wg_kernel (wgb::persistent's Block):
+// thread 0 asks TMA for b's two 64-column boxes of the slice; thread t <
+// 8 BN copies row t / 8 of a, its 8 K columns 8 (t % 8) on, into the
+// K-major B slot
+template <int BN>
+struct FcWgBlock {
+  const CUtensorMap* bmap;
+  const uint16_t* __restrict__ a;
+  int M, K;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int n0 = 0, k_lo = 0, k_end = 0;
+
+  __device__ void start(int64_t r0, int, int64_t k0, int64_t k1, int) {
+    n0 = (int)r0;
+    k_lo = (int)k0;
+    k_end = (int)k1;
+  }
+  __device__ void fix(int, int) const {}
+  __device__ void load(int slot, int kt) const {
+    const uint32_t sa = rt::tc::smem_u32(sm.slot(slot)), bar = rt::tc::smem_u32(&full[slot]);
+    const int kk = k_lo + kt * wgb::BK, t = threadIdx.x;
+    if (t < 8 * BN) {
+      const int m = t / 8, k = kk + 8 * (t % 8);
+      const bool ok = m < M && k < k_end;
+      wgb::cp16(sa + wgb::Tile<BN>::A_BYTES + wgb::swz(m, t % 8), ok ? a + (int64_t)m * K + k : a,
+                ok);
+    }
+    if (t == 0) {
+      rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::A_BYTES);
+      wgb::tma_2d(sa, bmap, bar, n0, kk);
+      wgb::tma_2d(sa + wgb::HALF, bmap, bar, n0 + 64, kk);
+    }
+  }
+};
+
+// c (M, N) bf16, or with ws split z's fp32 partials at ws + z * M * N, of
+// c^T = b^T a^T over the units of un (128 columns of N each, the splits of
+// K): the thread's sums of columns n and rows m of c, d[4j + e] at n = n0 +
+// 16 warp + gid + 8 (e / 2), m = 8j + 2 tig + e % 2
+template <int BN>
+__global__ void __launch_bounds__(wgb::THREADS, 1)
+matmul_fwd_wg_kernel(const __grid_constant__ CUtensorMap bmap, const uint16_t* __restrict__ a,
+                     uint16_t* __restrict__ c, float* __restrict__ ws, int M, int N, int K,
+                     const wgb::Units un) {
+  constexpr int S = wgb::PTile<BN>::STAGES;
+  extern __shared__ __align__(1024) uint8_t fc_wg_smem[];
+  __shared__ __align__(8) uint64_t full[S];
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN>(fc_wg_smem);
+  wgb::init_barriers<S>(full);
+  const int warp = threadIdx.x >> 5, gid = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  auto epi = [&](const float (&acc)[wgb::Tile<BN>::NACC], int64_t n0, int, int z) {
+    float* part = ws ? ws + (int64_t)z * M * N : nullptr;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = (int)n0 + warp * 16 + gid + 8 * h;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = 8 * j + 2 * tig + e;
+          if (m >= M) continue;
+          const float v = acc[4 * j + 2 * h + e];
+          if (part)
+            part[(int64_t)m * N + n] = v;
+          else
+            c[(int64_t)m * N + n] = bfg::to_bf16(v);
+        }
+    }
+  };
+  FcWgBlock<BN> blk{&bmap, a, M, K, sm, full};
+  wgb::persistent<BN, S, 0, wgb::A_MN>(blk, sm, full, un, epi);
 }
 
-// the same for 1 <= M <= 32 on 32-row tiles
-extern "C" int rt_matmul_skinny_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int M,
-                                     int N, int K, float* ws, int splits, void* stream) {
-  if (M < 1 || M > 32) return (int)cudaErrorInvalidValue;
-  return bfg::launch<32>(bfg::row_k(a, M, K), bfg::row_mn(b, N), c, ws, M, N, K, splits, N,
-                         (cudaStream_t)stream);
+template <int BN>
+int fc_wg(const CUtensorMap& bmap, const uint16_t* a, uint16_t* c, float* ws, int M, int N, int K,
+          const wgb::Units& un, cudaStream_t s) {
+  auto* kernel = matmul_fwd_wg_kernel<BN>;
+  float* part = un.splits > 1 ? ws : nullptr;
+  return wgb::launch_persistent(
+      kernel, wgb::PTile<BN>::SMEM, un.count(),
+      [&](unsigned blocks, int bytes) {
+        kernel<<<blocks, wgb::THREADS, bytes, s>>>(bmap, a, c, part, M, N, K, un);
+      },
+      un.splits, ws, c, (int64_t)M * N, s);
+}
+
+}  // namespace
+
+// c (M, N) = a (M, K) @ b (K, N), every M; ws: splits * M * N floats when
+// splits > 1
+extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int64_t M,
+                              int N, int K, float* ws, int splits, void* stream) {
+  if (M < 0 || M >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const bool swap = M <= 32 && K % 8 == 0 && N % 8 == 0 && bfg::aligned16(a) &&
+                    bfg::aligned16(b);
+  if (!swap) return rt_conv2d_nhwc_bf16(a, b, c, (int)M, 1, 1, K, N, 1, 1, ws, splits, stream);
+  if (M == 0 || N == 0) return 0;
+  CUtensorMap bmap;
+  memset(&bmap, 0, sizeof(bmap));
+  const int status = wgb::cached_matrix_map(&bmap, b, K, N, wgb::BK);
+  if (status != 0) return status;
+  const wgb::Units un{(N + wgb::BM - 1) / wgb::BM, 1, splits, K, bfg::k_chunk_for(K, splits)};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (M <= 8) return fc_wg<8>(bmap, a, c, ws, (int)M, N, K, un, s);
+  if (M <= 16) return fc_wg<16>(bmap, a, c, ws, (int)M, N, K, un, s);
+  return fc_wg<32>(bmap, a, c, ws, (int)M, N, K, un, s);
 }
 
 // ------------------------------------------------ the bf16 FC backward

@@ -1,8 +1,10 @@
 // bf16 GEMM core on Hopper's warpgroup MMA (wgmma) with TMA: bf16 operands
 // read by descriptor from 128-byte-swizzled shared memory, an fp32
-// accumulator, one rounding to bf16 at the end. Carries K1's bf16 dW
-// (conv.cu) and the bf16 fused conv K8 (fused_conv.cuh), and through K8's
-// GEMM the three GEMMs of the bf16 K10 (block_fused.cu).
+// accumulator, one rounding to bf16 at the end. Its first main loop,
+// `mainloop`, carries K1's bf16 dW (conv.cu) and the bf16 fused conv K8
+// (fused_conv.cuh), and through K8's GEMM the three GEMMs of the bf16 K10
+// (block_fused.cu); its second, `persistent`, K1's bf16 forward and dx and
+// K3's bf16 forward (below).
 //
 // C[m, n] = sum_k A(m, k) * B(k, n). One 256-thread block computes a
 // 128 x BN tile (BN = 64 where N <= 64, else 128): two warpgroups of 64
@@ -51,14 +53,16 @@
 // Each thread's accumulator d[4j + e] sits at row 16 * warp + gid +
 // 8 * (e / 2), column 8j + 2 tig + e % 2 of the tile.
 //
-// K1's bf16 forward (conv.cu) runs a second main loop, `persistent`: a
-// grid of one block per SM walks the work units (m tile, n tile, K split)
+// K1's bf16 forward and dx (conv.cu), and through the forward K3's bf16
+// forward (matmul.cu), run a second main loop, `persistent`: a grid of one
+// block per SM walks the work units (row phase, m tile, n tile, K split)
 // in a fixed order, and the ring runs across unit boundaries, so the next
 // unit's first slices load while the current unit's last products and its
-// epilogue run, and a unit's tile leaves from shared memory by TMA while
-// the next unit runs. Its folds are bf16_gemm.cuh's (one fp32 add per k16
-// step, in K order) and its K splits those of the kernel it replaced, so
-// it computes that kernel's bits.
+// epilogue run, and a unit's tile leaves from shared memory while the next
+// unit runs. B is MN-major (the forward's weight) or K-major (dx's w as it
+// lies). Its folds are bf16_gemm.cuh's (one fp32 add per k16 step, in K
+// order) and its K splits those of the kernels it replaced, so it computes
+// those kernels' bits.
 //
 // Measured: PERF.md (registers and shared memory from -Xptxas -v,
 // chip_smoke.py's build phase).
@@ -85,12 +89,13 @@ constexpr int ATOM = 1024;      // bytes of an 8-row swizzle atom
 
 template <int BN>
 struct Tile {
-  static_assert(BN == 64 || BN == 128, "BN");
+  // 64 or 128 wide; 8, 16 or 32 (a K-major B of so many rows) on `persistent`
+  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64 || BN == 128, "BN");
   static constexpr int STAGES = BN == 64 ? 4 : 6;
   static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;  // resident per SM
   static constexpr int NACC = BN / 2;                   // accumulator floats per thread
   static constexpr int A_BYTES = 2 * HALF;              // 128 rows (or two 64-wide halves)
-  static constexpr int B_BYTES = BN / 64 * HALF;
+  static constexpr int B_BYTES = BN * 128;               // BN / 64 halves, or BN K-major rows
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
   // the ring, the statistics' reduction [2][warps][BN], the copies' record
   // [STAGES][THREADS], + alignment slack
@@ -149,6 +154,49 @@ struct Mma<64, TA, TB> {
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<8, TA, TB> {
+  __device__ static __forceinline__ void run(float (&d)[4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, "
+        "%7, %8;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<16, TA, TB> {
+  __device__ static __forceinline__ void run(float (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Mma<32, TA, TB> {
+  __device__ static __forceinline__ void run(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
 };
@@ -297,7 +345,7 @@ __device__ __forceinline__ void mainloop(Block& blk, const Smem<BN>& sm, uint64_
 // after its products were retired; a caller that needs shared memory of
 // its own takes fewer slots, S), and a staged output tile that TMA stores
 // while the next unit runs
-template <int BN, int S = BN == 64 ? 8 : 5>
+template <int BN, int S = BN == 128 ? 5 : 8>
 struct PTile {
   static constexpr int STAGES = S;
   static constexpr int LOOK = STAGES - 1;
@@ -328,32 +376,50 @@ __device__ __forceinline__ uint8_t* p_out(const Smem<BN>& sm) {
 // splits of `chunk` K columns each (a multiple of 16, of K): unit u is n
 // tile u % n_tiles, then m tile, then split, so the units in flight at once
 // share their rows of A through the L2. A split's last slice may reach past
-// its end (the copies read zeros there).
+// its end (the copies read zeros there). An output in several row phases
+// (a strided dx: `phases` row sets of m_tiles tiles each, one split each,
+// of depths pK) takes them in the order `phase` lists, the deepest first,
+// each phase's units after the previous one's; a unit's z is its phase *
+// splits + its split.
+constexpr int MAX_PHASES = 16;  // a dx at stride 4
+
 struct Units {
   int64_t m_tiles;
   int n_tiles, splits;
   int64_t K, chunk;
-  __host__ __device__ int64_t count() const { return m_tiles * n_tiles * splits; }
+  int phases = 1;
+  int8_t phase[MAX_PHASES] = {};  // the phases in unit order
+  int64_t pK[MAX_PHASES] = {};    // ... and their depths (phases > 1)
+  __host__ __device__ int64_t count() const { return m_tiles * n_tiles * splits * phases; }
+  // unit u's tile, split and K columns; 32-bit divisions (the launchers keep
+  // count() below 2^31; a 64-bit division is a long software sequence, and
+  // a block decodes each unit twice, as copier and as consumer)
   template <int BN>
-  __device__ void at(int64_t u, int64_t& row0, int& col0, int& z, int64_t& k0, int64_t& k1,
+  __device__ void at(int u, int64_t& row0, int& col0, int& z, int64_t& k0, int64_t& k1,
                      int& nk) const {
-    col0 = (int)(u % n_tiles) * BN;
-    const int64_t r = u / n_tiles;
-    row0 = r % m_tiles * BM;
-    z = (int)(r / m_tiles);
-    k0 = z * chunk;
-    k1 = K < k0 + chunk ? K : k0 + chunk;
+    col0 = u % n_tiles * BN;
+    const int r = u / n_tiles, mt = (int)m_tiles;
+    row0 = (int64_t)(r % mt) * BM;
+    const int q = r / mt, split = q % splits, rank = q / splits;
+    const int64_t depth = phases > 1 ? pK[rank] : K;
+    z = (phases > 1 ? phase[rank] : 0) * splits + split;
+    k0 = split * chunk;
+    k1 = depth < k0 + chunk ? depth : k0 + chunk;
     nk = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
   }
 };
 
 // The persistent main loop over the units of `un`, unit u on block
-// u % gridDim.x: blk.start(row0, col0, k0, k1) (every thread) points the
+// u % gridDim.x: blk.start(row0, col0, k0, k1, z) (every thread) points the
 // copies at a unit's K columns [k0, k1), blk.load(slot, kt) starts slice kt
 // of that unit (thread 0 arms the slot's mbarrier with its TMA bytes),
 // blk.fix(slot, kt) runs once the thread's own copies of the slot (slice kt
 // of the unit being summed) have landed;
-// A is K-major. Each k16 wgmma goes into a fresh accumulator, two in turn
+// A is K-major (AL = A_K: 128 rows of 128 bytes) or MN-major (A_MN: a
+// 64-wide half a warpgroup, read with the transpose bit), B MN-major (TB =
+// 1: read with the transpose bit, 64-wide halves HALF bytes apart) or
+// K-major (TB = 0: BN rows of 128 bytes, as a K-major A).
+// Each k16 wgmma goes into a fresh accumulator, two in turn
 // so that one group is in flight while the other is folded into the sum by
 // an fp32 add, in K order: bf16_gemm.cuh's folds over the same 16-deep
 // steps, so where the K splits agree the two cores give the same bits
@@ -363,20 +429,21 @@ struct Units {
 // in divergent path"): each slice retires its groups before the next
 // slice's copies. epi(acc, row0, col0, z) (every thread) takes each unit's
 // sum.
-template <int BN, int S = PTile<BN>::STAGES, class Block, class Epi>
+template <int BN, int S = PTile<BN>::STAGES, int TB = 1, int AL = A_K, class Block, class Epi>
 __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint64_t* full,
                                            const Units& un, Epi&& epi) {
   using T = Tile<BN>;
   constexpr int LOOK = PTile<BN, S>::LOOK;
-  const int64_t total = un.count();
+  const int total = (int)un.count();
   // the copying side runs LOOK slices ahead: unit lu, its slice lk of lnk
-  int64_t lu = blockIdx.x, gl = 0;
+  int lu = blockIdx.x;
+  int64_t gl = 0;
   int lk = 0, lnk = 0;
   auto start = [&]() {
     int64_t row0, k0, k1;
     int col0, z;
     un.at<BN>(lu, row0, col0, z, k0, k1, lnk);
-    blk.start(row0, col0, k0, k1);
+    blk.start(row0, col0, k0, k1, z);
   };
   if (lu < total) start();
   auto next_load = [&]() {
@@ -401,7 +468,7 @@ __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint6
 #pragma unroll
   for (int i = 0; i < T::NACC; ++i) d[i] = e[i] = 0.f;
   int64_t g = 0;  // slices consumed
-  for (int64_t u = blockIdx.x; u < total; u += gridDim.x) {
+  for (int u = blockIdx.x; u < total; u += gridDim.x) {
     int64_t row0, k0, k1;
     int col0, z, nk;
     un.at<BN>(u, row0, col0, z, k0, k1, nk);
@@ -422,8 +489,9 @@ __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint6
 #pragma unroll
         for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(dd[i]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        Mma<BN, 0, 1>::run(dd, desc_a<A_K>(base + wg_a, ks),
-                           desc(base + T::A_BYTES + ks * 2 * ATOM, HALF), 0);
+        const uint32_t b = base + T::A_BYTES;
+        Mma<BN, AL != A_K, TB>::run(dd, desc_a<AL>(base + wg_a, ks),
+                            TB ? desc(b + ks * 2 * ATOM, HALF) : desc(b + ks * 32, 16), 0);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       };
       auto fold = [&](float (&dd)[T::NACC]) {
@@ -493,12 +561,54 @@ __device__ __forceinline__ void store_tma_wait() {
 }
 
 // The tile of rows row0 + [0, 128), columns col0 + [0, BN) of an (M, N)
+// bf16 output whose tile row m lies at y's row row_of(m) (stride N, N % 8
+// == 0, y 16-byte aligned): rounded into the staged tile `out` as
+// store_tile_tma stages it, then each row leaves in 16-byte stores, a
+// thread's rows decoded once. Rows past M are not written. Called by every
+// thread; the previous unit's tile has been read out of the stage before it
+// is written again.
+template <int BN, class RowOf>
+__device__ __forceinline__ void store_rows(const float (&acc)[Tile<BN>::NACC], uint8_t* out,
+                                           int64_t row0, int col0, int64_t M, int N, uint16_t* y,
+                                           RowOf row_of) {
+  constexpr int CH = BN / 8;  // 16-byte chunks a row
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gid + 8 * h;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      *reinterpret_cast<uint32_t*>(out + (j / 8) * BM * 128 + swz(r, j % 8) + 4 * tig) =
+          (uint32_t)bfg::to_bf16(acc[4 * j + 2 * h]) |
+          ((uint32_t)bfg::to_bf16(acc[4 * j + 2 * h + 1]) << 16);
+  }
+  __syncthreads();
+  const int j = tid % CH, c = col0 + 8 * j;
+#pragma unroll
+  for (int i = 0; i < BM * CH / THREADS; ++i) {
+    const int r = tid / CH + THREADS / CH * i;
+    const int64_t gm = row0 + r;
+    if (gm < M && c < N)
+      *reinterpret_cast<uint4*>(y + row_of(gm) * N + c) =
+          *reinterpret_cast<const uint4*>(out + (j / 8) * BM * 128 + swz(r, j % 8));
+  }
+}
+
+// the identity row map: tile row m is row m of the output
+struct SameRow {
+  __device__ int64_t operator()(int64_t m) const { return m; }
+};
+
+// The tile of rows row0 + [0, 128), columns col0 + [0, BN) of an (M, N)
 // output, each thread its own pairs straight from its registers: rounded to
-// bf16 into y (row-major, stride N), or, with part, fp32 into part. Rows
-// past M are not written.
-template <int BN>
+// bf16 into y (row-major, stride N; tile row m at y's row row_of(m)), or,
+// with part, fp32 into part. Rows past M are not written.
+template <int BN, class RowOf = SameRow>
 __device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], int64_t row0,
-                                            int col0, int64_t M, int N, uint16_t* y, float* part) {
+                                            int col0, int64_t M, int N, uint16_t* y, float* part,
+                                            RowOf row_of = {}) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const bool pairs = N % 2 == 0;
@@ -519,7 +629,7 @@ __device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], 
           if (gc + 1 < N) p[1] = v1;
         }
       } else {
-        uint16_t* p = y + gm * N + gc;
+        uint16_t* p = y + row_of(gm) * N + gc;
         if (pairs && gc + 1 < N) {
           *reinterpret_cast<uint32_t*>(p) =
               (uint32_t)bfg::to_bf16(v0) | ((uint32_t)bfg::to_bf16(v1) << 16);
@@ -757,6 +867,28 @@ inline int sm_count(int* sms) {
 
 // slices of BK in K
 __host__ __device__ inline int64_t slices_of(int64_t K) { return (K + BK - 1) / BK; }
+
+// Launch a kernel on wgb::persistent over `units` work units:
+// kern(blocks, smem), one block per SM (fewer where there are fewer
+// units), after raising its dynamic shared memory limit to `smem`
+// (max_smem_once); then, for splits > 1, splitk_sum_bf16 of the partials ws
+// (splits * mn floats) into y. Returns the launch status.
+template <class Kernel, class Launch>
+inline int launch_persistent(Kernel* kernel, int smem, int64_t units, Launch&& kern,
+                             int splits, const float* ws, uint16_t* y, int64_t mn,
+                             cudaStream_t s) {
+  int status = max_smem_once((const void*)kernel, smem);
+  int sms = 0;
+  if (status == 0) status = sm_count(&sms);
+  if (status != 0) return status;
+  kern((unsigned)(units < sms ? units : sms), smem);
+  if (splits > 1) {
+    int64_t blocks = (mn + 255) / 256;
+    if (blocks > 132 * 16) blocks = 132 * 16;
+    bfg::splitk_sum_bf16<<<(unsigned)blocks, 256, 0, s>>>(ws, y, mn, splits);
+  }
+  return (int)cudaGetLastError();
+}
 
 // Launch `kern(grid, smem)` for an (M, N) output of tile width BN with
 // `splits` K splits, one block per (m tile, n tile, split), m fastest,

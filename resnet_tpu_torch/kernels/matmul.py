@@ -11,9 +11,15 @@ gradient is needed of (``build.matmul_bwd_plan``; b^T is never copied).
 Anything the kernels do not take raises. On CPU tensors the plain versions
 run: ``matmul_reference`` and ``matmul_bwd_reference``.
 
-bf16 tensors take the bf16 entry points of the same file, routed alike:
-the forward ``rt_matmul_skinny_bf16`` or ``rt_matmul_bf16`` on
-``csrc/bf16_gemm.cuh``, the backward one launch of ``rt_matmul_bwd_bf16``
+bf16 tensors take the bf16 entry points of the same file: the forward
+``rt_matmul_bf16`` for every M, on ``csrc/wgb_gemm.cuh``'s persistent
+``wgmma`` loop with the loaders ``fwd_bf16_route`` names: at M <= 32 the
+operands swapped (c^T = b^T a^T, so the FC's 1000 columns fill the
+``wgmma`` rows), else K1's bf16 forward (``conv.cu``) on a as an (M, 1, 1,
+K) image and b as a 1x1 weight; the K split of the fp32 route of the same
+M (``build.skinny_split`` for M <= 32, ``build.split_k`` above), in
+``csrc/bf16_gemm.cuh``'s chunks, so the bits of that core's kernel, which
+ran it before. The backward is one launch of ``rt_matmul_bwd_bf16``
 (``mma.sync`` with ``ldmatrix``, planned by ``build.matmul_bwd_plan_bf16``).
 An fp32 accumulator and a bf16 result rounded once, result_type(a, b) as
 in matmul.py:53; da and db in bf16 (matmul.py:96-97). The plain versions
@@ -48,6 +54,30 @@ def matmul_route(m: int, n: int, k: int) -> str:
     if 1 <= m <= build.SKINNY_MAX_M and -(-n // build.SKINNY_COLS) <= _MAX_SLABS:
         return "skinny"
     return "tiled"
+
+
+def fwd_splits(m: int, n: int, k: int) -> int:
+    """K splits of the forward: ``build.skinny_split`` on the 'skinny'
+    route, ``build.split_k`` on the 'tiled' one (``matmul_route``); the
+    bf16 forward takes the same count."""
+    return (build.skinny_split if matmul_route(m, n, k) == "skinny" else build.split_k)(m, n, k)
+
+
+def fwd_bf16_route(m: int, n: int, k: int, aligned: bool = True) -> str:
+    """The loaders of the bf16 forward (``csrc/matmul.cu``
+    ``rt_matmul_bf16``, all on the persistent ``wgmma`` loop), K split
+    ``fwd_splits`` ways: 'swap' (c^T = b^T a^T: b by TMA boxes as it lies,
+    a by 16-byte copies) for m <= 32 where k and n are multiples of 8 and a
+    and b are 16-byte ``aligned`` (the FC at batch 1-32); else K1's bf16
+    forward on a 1x1/s1 conv of m pixels, k input and n output channels
+    (``conv.fwd_bf16_route``): 'matrix' (a by TMA boxes where the splits
+    are whole 64-deep slices), 'gather' (a by 16-byte copies) or 'scalar'
+    (2-byte loads: n % 8 or k % 8 != 0, or a misaligned operand)."""
+    from .conv import fwd_bf16_route as conv_route
+
+    if m <= build.SKINNY_MAX_M and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "swap"
+    return conv_route(m, k, n, 1, 1, aligned, fwd_splits(m, n, k))
 
 
 def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -86,10 +116,12 @@ def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return matmul_reference(a, b)
     m, k = a.shape
     n = b.shape[1]
-    if matmul_route(m, n, k) == "skinny":
-        out = _gemm(build.entry_name("matmul_skinny", a), a, b, m, n, k, build.skinny_split)
+    if a.dtype is torch.bfloat16:  # one entry point, the route's split
+        out = _gemm("rt_matmul_bf16", a, b, m, n, k, fwd_splits)
+    elif matmul_route(m, n, k) == "skinny":
+        out = _gemm("rt_matmul_skinny_f32", a, b, m, n, k, build.skinny_split)
     else:
-        out = _gemm(build.entry_name("matmul", a), a, b, m, n, k)
+        out = _gemm("rt_matmul_f32", a, b, m, n, k)
     if m and n and k:
         build.count(__name__, "LAUNCHES", a)
     return out

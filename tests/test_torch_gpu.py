@@ -14,7 +14,9 @@ bf16 ulp of the plain value plus 1e-5 of max) with ``-k bf16``, the
 kernels on the bf16 wgmma + TMA core (wgb_gemm.cuh: K1's bf16 dW, K8- and
 K10-bf16) with ``-k "conv2d_dw_bf16 or fused_conv_bf16 or block_fused_bf16"``,
 K1's bf16 forward on that core's persistent kernel and K3's one-launch bf16
-backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``.
+backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``, K1's bf16 dx and K3's
+bf16 forward on the same persistent kernel, with the witnesses of their bits
+through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``.
 
 Without a CUDA device every test here skips.
 """
@@ -788,10 +790,11 @@ def test_conv2d_bf16_misaligned_on_cuda(cuda, monkeypatch, k, stride):
                                         (32 * 7 * 7, 2048, 512)])
 def test_conv2d_bf16_1x1_has_bf16_gemm_bits_on_cuda(cuda, m, cin, cout):
     """A 1x1/s1 forward y = x @ w on the persistent kernel against the same
-    product through K1's bf16 dx (dx = g @ w^T with g = x), which runs on
-    bf16_gemm.cuh's mma.sync kernel with the same K split (tc_split of the
-    same shape): the same bits, K split or not (the forward's kernel
-    replaced that one and keeps its 16-deep folds)."""
+    product through K1's bf16 dx (dx = g @ w^T with g = x), with the same
+    K split (tc_split of the same shape): the same bits, K split or not.
+    Both run on the persistent kernel, the forward with w MN-major, dx with
+    it K-major, each keeping bf16_gemm.cuh's 16-deep folds (the witness
+    against that core is test_conv2d_dx_bf16_1x1_has_bf16_gemm_bits_on_cuda)."""
     from resnet_tpu_torch.kernels import conv
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -864,3 +867,152 @@ def test_matmul_bwd_bf16_one_launch_on_cuda(cuda, monkeypatch, case, need):
             _held_bf16(t, want)
     again = matmul.matmul_bwd(a, b, g, *need)
     assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+
+
+def _dw_mma(x, g, splits):
+    """dW = x^T @ g of x (P, M) and g (P, N) through
+    rt_conv2d_dw_nhwc_bf16_mma, the one entry point left on bf16_gemm.cuh's
+    mma.sync kernel: a 1x1/s1 conv's dW over P pixels, K = the pixels split
+    ``splits`` ways in that core's chunks; (M, N)."""
+    from resnet_tpu_torch.kernels import build
+
+    (p, m), n = x.shape, g.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+    ws_ptr, _ws = build.gemm_workspace(splits, m, n, x)
+    build.launch("rt_conv2d_dw_nhwc_bf16_mma", x.data_ptr(), g.data_ptr(), out.data_ptr(), 1,
+                 1, p, m, n, 1, 1, ws_ptr, splits, device=x.device)
+    return out
+
+
+@pytest.mark.parametrize("m,cin,cout", [(2 * 56 * 56, 64, 256), (32 * 7 * 7, 2048, 512),
+                                        (8 * 7 * 7, 512, 2048), (2 * 14 * 14, 256, 1024)])
+def test_conv2d_dx_bf16_1x1_has_bf16_gemm_bits_on_cuda(cuda, m, cin, cout):
+    """A 1x1/s1 dx = g @ w^T on the persistent kernel (w read K-major as it
+    lies) against the same product through bf16_gemm.cuh's mma.sync kernel:
+    dW of x = g^T and g = w^T, with dx's K split (1, 1, 4 and 2 splits
+    here), so both sum the same products in the same 16-deep chunks and
+    order: the same bits."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(m, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(cin, cout, generator=gen, device="cuda") * cout ** -0.5).to(torch.bfloat16)
+    dx = conv.conv2d_dx(g.view(m, 1, 1, cout), w.view(1, 1, cin, cout), (m, 1, 1, cin), 1)
+    witness = _dw_mma(g.t().contiguous(), w.t().contiguous(),
+                      conv.dx_splits(m, cin, cout, 1, 1))
+    assert torch.equal(dx.view(m, cin), witness)
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 24, 32, 64])
+def test_matmul_bf16_has_bf16_gemm_bits_on_cuda(cuda, m):
+    """The FC c = a @ b on the persistent kernel (9 splits of 240 at batch
+    1-32 with the operands swapped, c^T = b^T a^T; 4 of 512 at 64 on K1's
+    bf16 forward by TMA boxes) against the same product through
+    bf16_gemm.cuh's mma.sync kernel: dW of x = a^T and g = b with the FC's
+    split: the same bits."""
+    from resnet_tpu_torch.kernels import matmul
+
+    k, n = 2048, 1000
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    assert torch.equal(matmul.matmul(a, b), _dw_mma(a.t().contiguous(), b,
+                                                    matmul.fwd_splits(m, n, k)))
+
+
+DX_SHAPES = [s for s in FWD_SHAPES if s[1] != 3]
+
+
+@pytest.mark.parametrize("shape", DX_SHAPES, ids=[str(s) for s in DX_SHAPES])
+def test_conv2d_dx_bf16_takes_the_persistent_kernel_on_cuda(cuda, monkeypatch, shape):
+    """Each ResNet-50 block conv's bf16 dx at batch 2: one launch of the
+    persistent kernel (the phases of a strided dx its units), held to the
+    plain dx by the bf16 rule, twice to the same bits."""
+    from resnet_tpu_torch.kernels import conv
+
+    h, cin, cout, k, s = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(2, h // s, h // s, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    names = _recording(monkeypatch)
+    got = conv.conv2d_dx(g, w, (2, h, h, cin), s)
+    assert names == ["rt_conv2d_dx_nhwc_bf16"]
+    _held_bf16(got, conv.conv2d_dx_reference(g, w, (2, h, h, cin), s))
+    assert torch.equal(got, conv.conv2d_dx(g, w, (2, h, h, cin), s))
+
+
+# (n, h, cin, cout, k, stride, route): each loader of the bf16 dx at stride
+# 1 and 2; 1x1/s2, whose odd phases have no tap (zeros); a K split that
+# ends inside a slice (stage 4's 3x3, 5 splits of 928)
+DX_ROUTES = [
+    (4, 14, 64, 256, 1, 1, "matrix"), (8, 7, 512, 2048, 1, 1, "matrix"),
+    (4, 14, 64, 128, 3, 1, "gather"), (4, 14, 128, 128, 3, 2, "gather"),
+    (4, 14, 96, 64, 1, 2, "gather"), (32, 7, 512, 512, 3, 1, "copy"),
+    (2, 14, 72, 40, 3, 2, "copy"), (2, 14, 16, 24, 3, 1, "copy"),
+    (2, 14, 9, 33, 3, 2, "scalar"), (2, 7, 130, 33, 3, 1, "scalar"),
+]
+
+
+@pytest.mark.parametrize("n,h,cin,cout,k,s,route", DX_ROUTES,
+                         ids=[f"{r[-1]} {r[4]}x{r[4]}/s{r[5]} {r[2]}<-{r[3]}" for r in DX_ROUTES])
+def test_conv2d_dx_bf16_routes_on_cuda(cuda, n, h, cin, cout, k, s, route):
+    """Each of the bf16 dx's loaders against the plain dx by the bf16 rule,
+    twice to the same bits."""
+    from resnet_tpu_torch.kernels import conv
+
+    assert conv.dx_bf16_route(n * h * h, cin, cout, k, s) == route
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.randn(n, h // s, h // s, cout, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    got = conv.conv2d_dx(g, w, (n, h, h, cin), s)
+    _held_bf16(got, conv.conv2d_dx_reference(g, w, (n, h, h, cin), s))
+    assert torch.equal(got, conv.conv2d_dx(g, w, (n, h, h, cin), s))
+
+
+@pytest.mark.parametrize("k,stride", [(3, 1), (1, 1), (3, 2)])
+def test_conv2d_dx_bf16_misaligned_on_cuda(cuda, k, stride):
+    """g whose data start 2 bytes past a 16-byte boundary: dx takes the
+    threads' 2-byte loads, holds to the plain dx, and gives the bits of the
+    same values aligned (the gather, or a 1x1's TMA boxes): every loader
+    sums the same k16 steps in K order."""
+    from resnet_tpu_torch.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, h, cin, cout = 4, 14, 128, 64
+    ho = h // stride
+    ga = torch.randn(n * ho * ho * cout + 1, generator=gen, device="cuda").to(torch.bfloat16)
+    g = ga[1:].view(n, ho, ho, cout)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    assert g.data_ptr() % 16
+    assert conv.dx_bf16_route(n * h * h, cin, cout, k, stride, False) == "scalar"
+    assert conv.dx_bf16_route(n * h * h, cin, cout, k, stride) != "scalar"
+    got = conv.conv2d_dx(g, w, (n, h, h, cin), stride)
+    _held_bf16(got, conv.conv2d_dx_reference(g, w, (n, h, h, cin), stride))
+    assert torch.equal(got, conv.conv2d_dx(g.clone(), w, (n, h, h, cin), stride))
+
+
+@pytest.mark.parametrize("m,k,n,offset,route", [
+    (1, 2048, 1000, 0, "swap"), (8, 2048, 1000, 0, "swap"), (24, 2048, 1000, 0, "swap"),
+    (32, 2048, 1000, 0, "swap"), (16, 256, 72, 0, "swap"), (64, 2048, 1000, 0, "matrix"),
+    (40, 512, 1000, 0, "matrix"), (5, 300, 33, 0, "scalar"), (8, 2048, 1000, 1, "scalar"),
+    (64, 2048, 1000, 1, "scalar")])
+def test_matmul_bf16_routes_on_cuda(cuda, monkeypatch, m, k, n, offset, route):
+    """K3's bf16 forward: one launch of rt_matmul_bf16 for every M (the
+    operands swapped at M <= 32, else K1's bf16 forward), the loaders
+    matmul.fwd_bf16_route names, within the bf16 rule of the plain product,
+    twice to the same bits; a misaligned b (2-byte loads) gives the bits
+    of the same values aligned."""
+    from resnet_tpu_torch.kernels import matmul
+
+    assert matmul.fwd_bf16_route(m, n, k, offset == 0) == route
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(k * n + offset, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)[offset:].view(k, n)
+    names = _recording(monkeypatch)
+    got = matmul.matmul(a, b)
+    assert names == ["rt_matmul_bf16"]
+    _held_bf16(got, matmul.matmul_reference(a, b))
+    assert torch.equal(got, matmul.matmul(a, b))
+    if offset:
+        assert torch.equal(got, matmul.matmul(a, b.clone()))
