@@ -512,20 +512,19 @@ def _plan(build, name, case):
         _, n, h, cin, cout, k, s = case
         m, bn = n * h * h, build.wgb_tile_n(cin)
         splits = conv.dx_splits(m, cin, cout, k, s)
-        depths = conv.dx_phase_depths(k, s, cout)
-        units = -(-m // s // s // build.WGB_BM) * -(-cin // bn) * splits * len(depths)
+        units = -(-m // s // s // build.WGB_BM) * -(-cin // bn) * splits * s * s
         return {"route": conv.dx_bf16_route(m, cin, cout, k, s), "tile": [build.WGB_BM, bn],
                 "splits": splits, "chunk": build.k_chunk(k * k * cout, splits, 16) if s == 1
-                else None, "phases": [list(p) for p in depths], "units": units,
-                "blocks": min(units, 132)}
+                else None, "phases": s * s, "units": units, "blocks": min(units, 132)}
     if name == "matmul_bf16":  # the loaders, tile, K splits and units of the persistent kernel
         from resnet_tpu_torch.kernels.matmul import fwd_bf16_route, fwd_splits
 
         _, m, k, n, offset = case
         route, splits = fwd_bf16_route(m, n, k, offset % 8 == 0), fwd_splits(m, n, k)
-        tile = ([build.WGB_BM, 8 if m <= 8 else 16 if m <= 16 else 32] if route == "swap"
+        swap = route.startswith("swap")
+        tile = ([build.WGB_BM, 8 if m <= 8 else 16 if m <= 16 else 32] if swap
                 else [build.WGB_BM, build.wgb_tile_n(n)])  # (columns of N, M) when swapped
-        units = (-(-n // tile[0]) if route == "swap" else -(-m // tile[0]) * -(-n // tile[1]))
+        units = -(-n // tile[0]) if swap else -(-m // tile[0]) * -(-n // tile[1])
         units *= splits
         return {"route": route, "tile": tile, "splits": splits,
                 "chunk": build.k_chunk(k, splits, 16), "units": units, "blocks": min(units, 132)}
@@ -1066,7 +1065,8 @@ def _busy(profile_rows):
 
 # the bf16 GEMM kernels a profiled step's device time is split by: the
 # kernel names of the wgmma core's and bf16_gemm.cuh's (whose loader's name
-# the profile's cut to 90 characters keeps)
+# the profile's cut to 90 characters keeps); the FC above 32 rows runs K1's
+# forward kernel, and is counted under "K1 fwd bf16"
 BF16_SPLIT = {"K1 dW bf16": ("conv2d_dw_wg_kernel", "ConvDwBfA"),
               "K1 fwd bf16": ("conv2d_fwd_wg_kernel",), "K1 dx bf16": ("conv2d_dx_wg_kernel",),
               "K3 fwd bf16": ("matmul_fwd_wg_kernel",),

@@ -72,15 +72,17 @@ SIGNATURES = {
     # row count, the host array of gradient pointers, h
     "rt_adam_f32": [_P, _I, _P, _P, _P],
     # the bf16 entry points (the bf16 sections of conv.cu, matmul.cu,
-    # add_relu.cu and moments.cu) take the fp32 ones' arguments
-    "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # add_relu.cu and moments.cu) take the fp32 ones' arguments; the
+    # persistent kernels' entries also the loaders the wrapper names
+    # (conv.FWD_ROUTES, conv.DX_ROUTES, matmul.FWD_BF16_ROUTES)
+    "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # g, w (as it lies, not the fp32 entry's phase slices of w^T), dx, ...
-    "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
     "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     # the FC forward for every M, on wgb_gemm.cuh's persistent loop
-    "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _I, _P],
     # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
     "rt_matmul_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],
@@ -437,6 +439,12 @@ def gemm_workspace(splits: int, m: int, n: int, like):
         return None, None
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=like.device)
     return ws.data_ptr(), ws
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data start on a 16-byte boundary, as the
+    kernels' 16-byte copies and TMA boxes need (a new output always does)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def on_card(name: str, *tensors, bf16: bool = True, rows=()) -> bool:

@@ -293,8 +293,13 @@ BF16_ADD_RELU_CASES = [(f"join (8,{h},{h},{c})", (8, h, h, c), 0)
                        for h, c in _JOINS] + _BF16_ODD
 BF16_ADD_RELU_MASK_CASES = [(f"join bwd (32,{h},{h},{c})", (32, h, h, c), 0)
                             for h, c in _JOINS] + _BF16_ODD
-BF16_MATMUL_CASES = [c for c in MATMUL_CASES if c[1] in (8, 32, 64) or c[0].startswith(
-    ("ragged", "misaligned"))]
+# ... the label ending in the bf16 route (matmul.fwd_bf16_route; b's
+# offset in bf16 elements, so 1 is 2 bytes off a 16-byte boundary)
+BF16_MATMUL_CASES = [
+    (f"{label.rsplit(' ', 1)[0]} {matmul.fwd_bf16_route(m, n, k, offset % 8 == 0)}", m, k, n,
+     offset)
+    for label, m, k, n, offset in MATMUL_CASES
+    if m in (8, 32, 64) or label.startswith(("ragged", "misaligned"))]
 BF16_MATMUL_BWD_CASES = MATMUL_BWD_CASES
 BF16_MOMENTS_CASES = MOMENTS_CASES[:4]
 

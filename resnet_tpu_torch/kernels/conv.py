@@ -55,6 +55,7 @@ launches of the fp32 forward, dx and dW kernels, ``LAUNCHES_BF16``,
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -72,6 +73,11 @@ LAUNCHES_BF16 = 0
 DX_LAUNCHES_BF16 = 0
 DW_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of a launch walks the 64- or 128-wide column tiles
+# the bf16 loaders as csrc/conv.cu numbers them (FWD_*, DX_*): the wrapper
+# names one, and the entry point refuses a loader the shapes or the
+# pointers do not allow
+FWD_ROUTES = ("gather", "matrix", "scalar", "stem")
+DX_ROUTES = ("gather", "matrix", "scalar", "copy")
 
 
 def conv2d_reference(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -142,6 +148,7 @@ def _shapes(x: torch.Tensor, w: torch.Tensor, stride: int) -> Tuple[int, ...]:
     return n, h, wd, cin, cout, kh
 
 
+@functools.lru_cache(maxsize=None)
 def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
                    aligned: bool = True, splits: int = None) -> str:
     """The A loader of K1's bf16 forward (``csrc/conv.cu``, all on the
@@ -154,7 +161,8 @@ def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
     copies of 8 channels of one tap) elsewhere where Cin % 8 == 0; each of
     these where Cout % 8 == 0 and x, w and y are 16-byte ``aligned``; else
     'scalar' (2-byte loads of both operands: ragged widths, misaligned
-    tensors). A function of the shapes and the alignment only."""
+    tensors). A function of the shapes, the split and the alignment only;
+    the wrapper hands it to the kernel (``FWD_ROUTES``)."""
     if splits is None:
         splits = build.tc_split(m, cout, k * k * cin)
     if cout % 8 or not aligned:
@@ -180,8 +188,10 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
         # fp32 on tc_gemm.cuh, bf16 on wgb_gemm.cuh: the same K split
         name, splits = build.entry_name("conv2d_nhwc", x), build.tc_split(m, cout, k * k * cin)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cout, x)
+        route = () if x.dtype is not torch.bfloat16 else (FWD_ROUTES.index(fwd_bf16_route(
+            m, cin, cout, k, stride, build.aligned16(x, w), splits)),)
         build.launch(name, x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, cin, cout, k,
-                     stride, ws_ptr, splits, device=x.device)
+                     stride, ws_ptr, splits, *route, device=x.device)
         build.count(__name__, "LAUNCHES", x)
     return out
 
@@ -191,16 +201,6 @@ def phase_taps(p: int, k: int, s: int) -> Tuple[int, int]:
     input rows of phase p (iy mod s = p); csrc/conv.cu PhaseTaps."""
     first = (p + k // 2) % s
     return first, ((k - 1 - first) // s + 1 if first < k else 0)
-
-
-def dx_phase_depths(k: int, stride: int, cout: int) -> Tuple[Tuple[int, int], ...]:
-    """(phase, K) of each row phase (py, px) = divmod(phase, stride) of a
-    k x k dx, K = the phase's taps (``phase_taps`` along each axis) x Cout,
-    in the order the bf16 dx kernel takes their units (csrc/conv.cu
-    rt_conv2d_dx_nhwc_bf16): the deepest first, row-major on a tie."""
-    depths = [(p, phase_taps(p // stride, k, stride)[1] * phase_taps(p % stride, k, stride)[1]
-               * cout) for p in range(stride * stride)]
-    return tuple(sorted(depths, key=lambda pk: -pk[1]))
 
 
 def dx_phase_weights(w: torch.Tensor, stride: int) -> torch.Tensor:
@@ -223,6 +223,7 @@ def dx_splits(m: int, cin: int, cout: int, k: int, stride: int) -> int:
     return build.tc_split(m, cin, k * k * cout) if stride == 1 else 1
 
 
+@functools.lru_cache(maxsize=None)
 def dx_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
                   aligned: bool = True) -> str:
     """The loaders of K1's bf16 dx (``csrc/conv.cu``, all on the persistent
@@ -234,7 +235,7 @@ def dx_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
     where Cout % 8 == 0, Cin % 8 == 0 and g, w and dx are 16-byte
     ``aligned``; else 'scalar' (2-byte loads of both operands: ragged
     widths, misaligned tensors). A function of the shapes and the alignment
-    only."""
+    only; the wrapper hands it to the kernel (``DX_ROUTES``)."""
     if cout % 8 or cin % 8 or not aligned:
         return "scalar"
     splits = dx_splits(m, cin, cout, k, stride)
@@ -259,13 +260,16 @@ def conv2d_dx(g: torch.Tensor, w: torch.Tensor, x_shape, stride: int = 1) -> tor
     if dx.numel():
         if g.numel() == 0:
             return dx.zero_()
-        # fp32 takes the phases' slices of w^T; bf16 reads w as it lies
-        b = w if g.dtype is torch.bfloat16 else dx_phase_weights(w, stride)
         m = n * h * wd
+        # fp32 takes the phases' slices of w^T; bf16 reads w as it lies
+        bf16 = g.dtype is torch.bfloat16
+        b = w if bf16 else dx_phase_weights(w, stride)
+        route = (DX_ROUTES.index(dx_bf16_route(m, cin, cout, k, stride, build.aligned16(g, w))),
+                 ) if bf16 else ()
         splits = dx_splits(m, cin, cout, k, stride)
         ws_ptr, _ws = build.gemm_workspace(splits, m, cin, g)
         build.launch(build.entry_name("conv2d_dx_nhwc", g), g.data_ptr(), b.data_ptr(),
-                     dx.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits,
+                     dx.data_ptr(), n, h, wd, cin, cout, k, stride, ws_ptr, splits, *route,
                      device=g.device)
         build.count(__name__, "DX_LAUNCHES", g)
     return dx

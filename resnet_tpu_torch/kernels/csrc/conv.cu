@@ -810,8 +810,10 @@ extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint
 // s*ox - k/2 + dj, ci] w[di, dj, ci, co]: the implicit GEMM of K8-bf16
 // (fused_conv.cuh's ConvWgBlock, K-major A) without its prologue and
 // statistics, on wgb::persistent: one block per SM walks the units (m tile,
-// n tile, K split), and the ring runs across their boundaries. Three A
-// loaders, chosen from the shapes and the alignment (conv.fwd_bf16_route):
+// n tile, K split), and the ring runs across their boundaries. Four A
+// loaders; the caller names one (conv.fwd_bf16_route, a function of the
+// shapes, the split and the alignment), and the entry refuses a loader the
+// shapes or pointers do not allow:
 // * FWD_GATHER: Cin % 8 == 0, Cout % 8 == 0, x and w 16-byte aligned:
 //   ConvWgBlock<BN, true>, A gathered 16 bytes (8 channels of one tap) at a
 //   time by cp.async, the weight (k*k*Cin, Cout) by TMA as it lies;
@@ -1056,10 +1058,10 @@ int fwd_wg(const CUtensorMap& amap, const CUtensorMap& wmap, const CUtensorMap& 
 // y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
 // the wgmma core, every shape: tiles 128 x 64 where Cout <= 64, else 128 x
 // 128; splits K splits (build.tc_split; ws: splits * M * Cout floats when
-// splits > 1); y 4-byte aligned.
+// splits > 1); y 4-byte aligned; the A loader `route` (FWD_*).
 extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
                                    int H, int W, int Cin, int Cout, int k, int stride,
-                                   float* ws, int splits, void* stream) {
+                                   float* ws, int splits, int route, void* stream) {
   const int Ho = H / stride, Wo = W / stride;
   const int64_t M = (int64_t)N * Ho * Wo;
   const int64_t K = (int64_t)k * k * Cin;
@@ -1071,21 +1073,21 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
   const int64_t chunk = bfg::k_chunk_for(K, splits);
   const bool aligned = bfg::aligned16(x) && bfg::aligned16(w) && bfg::aligned16(y);
   const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned;
-  const bool stem = Cin == STEM_CIN && k == STEM_K && stride == 2 && W % 2 == 0 &&
-                    Cout % 8 == 0 && Cout <= 64 && splits == 1 && aligned;
-  const int kind = stem ? FWD_STEM
-                   : !vec ? FWD_SCALAR
-                   : k == 1 && stride == 1 && (splits == 1 || chunk % wgb::BK == 0)
-                       ? FWD_MATRIX
-                       : FWD_GATHER;
+  const bool ok = route == FWD_SCALAR ||
+                  (route == FWD_GATHER && vec) ||
+                  (route == FWD_MATRIX && vec && k == 1 && stride == 1 &&
+                   (splits == 1 || chunk % wgb::BK == 0)) ||
+                  (route == FWD_STEM && Cin == STEM_CIN && k == STEM_K && stride == 2 &&
+                   W % 2 == 0 && Cout % 8 == 0 && Cout <= 64 && splits == 1 && aligned);
+  if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, wmap, ymap;
   memset(&amap, 0, sizeof(amap));
   memset(&wmap, 0, sizeof(wmap));
   memset(&ymap, 0, sizeof(ymap));
   int status = 0;
-  if (kind != FWD_SCALAR) {
+  if (route != FWD_SCALAR) {
     status = wgb::cached_matrix_map(&wmap, w, K, Cout, wgb::BK);
-    if (status == 0 && kind == FWD_MATRIX)
+    if (status == 0 && route == FWD_MATRIX)
       status = wgb::cached_matrix_map(&amap, x, M, Cin, wgb::BM);
     if (status == 0 && splits == 1) status = wgb::cached_matrix_map(&ymap, y, M, Cout, wgb::BM);
   }
@@ -1102,7 +1104,7 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
       {fwd_wg<64, FWD_GATHER>, fwd_wg<64, FWD_MATRIX>, fwd_wg<64, FWD_SCALAR>,
        fwd_wg<64, FWD_STEM>},
       {fwd_wg<128, FWD_GATHER>, fwd_wg<128, FWD_MATRIX>, fwd_wg<128, FWD_SCALAR>, nullptr}};
-  return runs[wide][kind](amap, wmap, ymap, a, w, y, ws, Cout, un, (cudaStream_t)stream);
+  return runs[wide][route](amap, wmap, ymap, a, w, y, ws, Cout, un, (cudaStream_t)stream);
 }
 
 // ------------------------------------------------- bf16 dx on wgb_gemm.cuh
@@ -1115,8 +1117,9 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
 // B's column ci at a tap is w[tap, ci, :], Cout contiguous, so B is K-major
 // and wgmma reads it without the transpose bit; nothing is cut from w or
 // cached. The phases of a strided dx are units of one launch, the deepest
-// phase's first (wgb::Units). Four loaders, chosen from the shapes and the
-// alignment (conv.dx_bf16_route):
+// phase's first (wgb::Units). Four loaders; the caller names one
+// (conv.dx_bf16_route, a function of the shapes and the alignment), and the
+// entry refuses a loader the shapes or pointers do not allow:
 // * DX_MATRIX: a 1x1/s1 dx whose splits are whole slices: A the (M, Cout)
 //   matrix g by TMA boxes of 128 rows x 64 channels, B a box of 64 co x BN
 //   ci of w, thread 0 issuing every copy;
@@ -1376,10 +1379,12 @@ int dx_wg(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& y
 // the wgmma core's persistent loop, every shape: tiles 128 x 64 where Cin <=
 // 64, else 128 x 128; splits K splits at stride 1 (build.tc_split; ws:
 // splits * N*H*W * Cin floats when splits > 1), one at stride > 1 (the
-// phases' units, stride <= 4); dx 4-byte aligned.
+// phases' units, stride <= 4); dx 4-byte aligned; the loaders `route`
+// (DX_*).
 extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint16_t* dx,
                                       int N, int H, int W, int Cin, int Cout, int k,
-                                      int stride, float* ws, int splits, void* stream) {
+                                      int stride, float* ws, int splits, int route,
+                                      void* stream) {
   const int Ho = H / stride, Wo = W / stride;
   const int64_t M = (int64_t)N * Ho * Wo;
   const int phases = stride * stride;
@@ -1413,20 +1418,20 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint
   const bool aligned = bfg::aligned16(g) && bfg::aligned16(w) && bfg::aligned16(dx);
   const bool vec = Cout % 8 == 0 && Cin % 8 == 0 && aligned;
   const bool whole = splits == 1 || un.chunk % wgb::BK == 0;
-  const int kind = !vec                                   ? DX_SCALAR
-                   : k == 1 && stride == 1 && whole        ? DX_MATRIX
-                   : (k == 1 || Cout % wgb::BK == 0) && whole ? DX_GATHER
-                                                           : DX_COPY;
+  const bool ok = route == DX_SCALAR || (route == DX_COPY && vec) ||
+                  (route == DX_MATRIX && vec && k == 1 && stride == 1 && whole) ||
+                  (route == DX_GATHER && vec && (k == 1 || Cout % wgb::BK == 0) && whole);
+  if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, bmap, ymap;
   memset(&amap, 0, sizeof(amap));
   memset(&bmap, 0, sizeof(bmap));
   memset(&ymap, 0, sizeof(ymap));
   int status = 0;
-  if (kind == DX_GATHER || kind == DX_MATRIX)
+  if (route == DX_GATHER || route == DX_MATRIX)
     status = wgb::cached_matrix_map(&bmap, w, (int64_t)k * k * Cin, Cout, bn);
-  if (status == 0 && kind == DX_MATRIX)
+  if (status == 0 && route == DX_MATRIX)
     status = wgb::cached_matrix_map(&amap, g, M, Cout, wgb::BM);
-  if (status == 0 && kind != DX_SCALAR && stride == 1 && splits == 1)
+  if (status == 0 && route != DX_SCALAR && stride == 1 && splits == 1)
     status = wgb::cached_matrix_map(&ymap, dx, M, Cin, wgb::BM);
   if (status != 0) return status;
   const DxGeom d{g, w, H, W, Ho, Wo, Cin, Cout, k, stride, (int)M};
@@ -1436,5 +1441,5 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint
       {dx_wg<64, DX_GATHER>, dx_wg<64, DX_MATRIX>, dx_wg<64, DX_SCALAR>, dx_wg<64, DX_COPY>},
       {dx_wg<128, DX_GATHER>, dx_wg<128, DX_MATRIX>, dx_wg<128, DX_SCALAR>,
        dx_wg<128, DX_COPY>}};
-  return runs[bn == 128][kind](amap, bmap, ymap, d, dx, ws, un, (cudaStream_t)stream);
+  return runs[bn == 128][route](amap, bmap, ymap, d, dx, ws, un, (cudaStream_t)stream);
 }

@@ -485,28 +485,34 @@ extern "C" int rt_matmul_bwd_f32(const float* a, const float* b, const float* g,
 // with the K split the caller plans (build.skinny_split for M <= 32,
 // build.split_k above) in bf16_gemm.cuh's chunks, one fp32 add per k16 step
 // in K order: the bits of that core's kernel, which ran it before.
-// * M <= 32, K and N multiples of 8, every operand 16-byte aligned (the FC
-//   at batch 1-32): the operands swapped, c^T (N, M) = b^T (N, K) a^T (K,
-//   M), so N fills wgmma's 64-row side and M is its n (8, 16 or 32): a
-//   128-row tile is 128 of the N columns, read from b by two TMA boxes of
-//   64 columns x 64 K rows a slice, MN-major with the transpose bit, as it
-//   lies; a^T is K-major as a lies, its M rows x 64 K columns copied 16 bytes
-//   at a time with zeros past the split's end. The units are (128 columns of
-//   N, split): the FC's 8 x 9 at 240 K columns a split.
+// The caller names the loaders (matmul.fwd_bf16_route); the entry refuses
+// one the shapes or pointers do not allow.
+// * M <= 32 (the FC at batch 1-32): the operands swapped, c^T (N, M) = b^T
+//   (N, K) a^T (K, M), so N fills wgmma's 64-row side and M is its n (8, 16
+//   or 32): a 128-row tile is 128 of the N columns. FC_SWAP (K and N
+//   multiples of 8, a and b 16-byte aligned): b read by two TMA boxes of 64
+//   columns x 64 K rows a slice, MN-major with the transpose bit, as it
+//   lies; a^T K-major as a lies, its M rows x 64 K columns copied 16 bytes
+//   at a time with zeros past the split's end. FC_SWAP_SCALAR (a ragged N or
+//   K, a misaligned operand): both by the threads' 2-byte loads into the
+//   same layout. The units are (128 columns of N, split): the FC's 8 x 9 at
+//   240 K columns a split.
 // * otherwise: K1's bf16 forward (conv.cu) on a as an (M, 1, 1, K) image and
 //   b as a 1x1 weight (1, 1, K, N), called through its C entry point so its
 //   kernels compile once: b by TMA, a by 16-byte copies or TMA boxes, or,
 //   for a ragged N or K or a misaligned operand, the threads' 2-byte loads.
-// Split partials go through ws and splitk_sum_bf16 in split order. Bound
-// on the H100: bytes (b's 4.1 MB, 1.2 us at 3.35 TB/s); a persistent-loop
-// call costs ~4-8 us however small (PERF.md), which the swap keeps near 4
-// for the FC. The backward is one launch of its own kernel below (neither
-// b^T nor a^T is copied). Tensors are bf16, passed as their 16-bit
-// patterns.
+// Split partials go through ws and splitk_sum_bf16 in split order (a
+// ticket and the tile's last block adding them in the same launch was
+// slower: its sum is a serial tail; PERF.md).
+// Bound on the H100: bytes (b's 4.1 MB, 1.2 us at 3.35 TB/s); a
+// persistent-loop call costs ~4-8 us however small (PERF.md), which the
+// swap keeps near 4 for the FC. The backward is one launch of its own
+// kernel below (neither b^T nor a^T is copied). Tensors are bf16, passed as
+// their 16-bit patterns.
 
 extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
                                    int H, int W, int Cin, int Cout, int k, int stride,
-                                   float* ws, int splits, void* stream);
+                                   float* ws, int splits, int route, void* stream);
 
 namespace {
 
@@ -546,15 +552,67 @@ struct FcWgBlock {
   }
 };
 
+// One block's loads for matmul_fwd_wg_kernel where an operand is ragged
+// or misaligned (FC_SWAP_SCALAR): the threads' 2-byte loads of both. The
+// thread loads 8 columns 8 (t % 16) on of b's K rows t / 16 + 16 i, i < 4,
+// of the slice (zeros past N or the split's end) into A's MN-major halves,
+// and, t < 8 BN, row t / 8 of a, its 8 K columns 8 (t % 8) on, into the
+// K-major B slot; each slice's loads land before it returns (keeping a
+// slice's values in registers until the next slice's loads were issued
+// was slower: PERF.md)
+template <int BN>
+struct FcScalarBlock {
+  const uint16_t* __restrict__ a;
+  const uint16_t* __restrict__ b;
+  int M, N, K;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  int n0 = 0, k_lo = 0, k_end = 0;
+
+  __device__ void start(int64_t r0, int, int64_t k0, int64_t k1, int) {
+    n0 = (int)r0;
+    k_lo = (int)k0;
+    k_end = (int)k1;
+  }
+  __device__ void fix(int, int) const {}
+  __device__ void load(int slot, int kt) const {
+    uint8_t* st = sm.slot(slot);
+    const int kk = k_lo + kt * wgb::BK, t = threadIdx.x, c = t % 16, n = n0 + 8 * c;
+    uint16_t va[4][8], vb[8];  // every load issued before any store
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = kk + t / 16 + 16 * i;
+      const uint16_t* q = b + (int64_t)k * N + n;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) va[i][e] = k < k_end && n + e < N ? bfg::ld16(q + e) : 0;
+    }
+    if (t < 8 * BN) {
+      const int m = t / 8, k = kk + 8 * (t % 8);
+      const uint16_t* q = a + (int64_t)m * K + k;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vb[e] = m < M && k + e < k_end ? bfg::ld16(q + e) : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint4*>(st + (c / 8) * wgb::HALF + wgb::swz(t / 16 + 16 * i, c % 8)) =
+          bfg::pack8(va[i]);
+    if (t < 8 * BN)
+      *reinterpret_cast<uint4*>(st + wgb::Tile<BN>::A_BYTES + wgb::swz(t / 8, t % 8)) =
+          bfg::pack8(vb);
+    if (t == 0) rt::wg::mbar_expect_tx(&full[slot], 0);  // no TMA: arrive
+  }
+};
+
 // c (M, N) bf16, or with ws split z's fp32 partials at ws + z * M * N, of
 // c^T = b^T a^T over the units of un (128 columns of N each, the splits of
-// K): the thread's sums of columns n and rows m of c, d[4j + e] at n = n0 +
-// 16 warp + gid + 8 (e / 2), m = 8j + 2 tig + e % 2
-template <int BN>
+// K), b by TMA through bmap (TMA) or both operands by the threads' 2-byte
+// loads: the thread's sums of columns n and rows m of c, d[4j + e] at n =
+// n0 + 16 warp + gid + 8 (e / 2), m = 8j + 2 tig + e % 2
+template <int BN, bool TMA>
 __global__ void __launch_bounds__(wgb::THREADS, 1)
 matmul_fwd_wg_kernel(const __grid_constant__ CUtensorMap bmap, const uint16_t* __restrict__ a,
-                     uint16_t* __restrict__ c, float* __restrict__ ws, int M, int N, int K,
-                     const wgb::Units un) {
+                     const uint16_t* __restrict__ b, uint16_t* __restrict__ c,
+                     float* __restrict__ ws, int M, int N, int K, const wgb::Units un) {
   constexpr int S = wgb::PTile<BN>::STAGES;
   extern __shared__ __align__(1024) uint8_t fc_wg_smem[];
   __shared__ __align__(8) uint64_t full[S];
@@ -581,44 +639,62 @@ matmul_fwd_wg_kernel(const __grid_constant__ CUtensorMap bmap, const uint16_t* _
         }
     }
   };
-  FcWgBlock<BN> blk{&bmap, a, M, K, sm, full};
-  wgb::persistent<BN, S, 0, wgb::A_MN>(blk, sm, full, un, epi);
+  if constexpr (TMA) {
+    FcWgBlock<BN> blk{&bmap, a, M, K, sm, full};
+    wgb::persistent<BN, S, 0, wgb::A_MN>(blk, sm, full, un, epi);
+  } else {
+    FcScalarBlock<BN> blk{a, b, M, N, K, sm, full};
+    wgb::persistent<BN, S, 0, wgb::A_MN>(blk, sm, full, un, epi);
+  }
 }
 
-template <int BN>
-int fc_wg(const CUtensorMap& bmap, const uint16_t* a, uint16_t* c, float* ws, int M, int N, int K,
-          const wgb::Units& un, cudaStream_t s) {
-  auto* kernel = matmul_fwd_wg_kernel<BN>;
+template <int BN, bool TMA>
+int fc_wg(const CUtensorMap& bmap, const uint16_t* a, const uint16_t* b, uint16_t* c, float* ws,
+          int M, int N, int K, const wgb::Units& un, cudaStream_t s) {
+  auto* kernel = matmul_fwd_wg_kernel<BN, TMA>;
   float* part = un.splits > 1 ? ws : nullptr;
   return wgb::launch_persistent(
       kernel, wgb::PTile<BN>::SMEM, un.count(),
       [&](unsigned blocks, int bytes) {
-        kernel<<<blocks, wgb::THREADS, bytes, s>>>(bmap, a, c, part, M, N, K, un);
+        kernel<<<blocks, wgb::THREADS, bytes, s>>>(bmap, a, b, c, part, M, N, K, un);
       },
       un.splits, ws, c, (int64_t)M * N, s);
 }
 
+// rt_matmul_bf16's routes past conv.cu's FWD_* (an (M, 1, 1, K) conv)
+constexpr int FC_SWAP = 4, FC_SWAP_SCALAR = 5;
+
 }  // namespace
 
 // c (M, N) = a (M, K) @ b (K, N), every M; ws: splits * M * N floats when
-// splits > 1
+// splits > 1; the loaders `route`: FC_SWAP (M <= 32, K and N multiples of
+// 8, a and b 16-byte aligned), FC_SWAP_SCALAR (M <= 32), or conv.cu's
+// FWD_* for an (M, 1, 1, K) conv, which that entry checks
 extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c, int64_t M,
-                              int N, int K, float* ws, int splits, void* stream) {
+                              int N, int K, float* ws, int splits, int route, void* stream) {
   if (M < 0 || M >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool swap = M <= 32 && K % 8 == 0 && N % 8 == 0 && bfg::aligned16(a) &&
-                    bfg::aligned16(b);
-  if (!swap) return rt_conv2d_nhwc_bf16(a, b, c, (int)M, 1, 1, K, N, 1, 1, ws, splits, stream);
+  if (route < FC_SWAP)
+    return rt_conv2d_nhwc_bf16(a, b, c, (int)M, 1, 1, K, N, 1, 1, ws, splits, route, stream);
+  const bool ok = M <= 32 && (route == FC_SWAP_SCALAR ||
+                   (route == FC_SWAP && K % 8 == 0 && N % 8 == 0 && bfg::aligned16(a) &&
+                    bfg::aligned16(b)));
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return 0;
   CUtensorMap bmap;
   memset(&bmap, 0, sizeof(bmap));
-  const int status = wgb::cached_matrix_map(&bmap, b, K, N, wgb::BK);
-  if (status != 0) return status;
+  if (route == FC_SWAP) {
+    const int status = wgb::cached_matrix_map(&bmap, b, K, N, wgb::BK);
+    if (status != 0) return status;
+  }
   const wgb::Units un{(N + wgb::BM - 1) / wgb::BM, 1, splits, K, bfg::k_chunk_for(K, splits)};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 8) return fc_wg<8>(bmap, a, c, ws, (int)M, N, K, un, s);
-  if (M <= 16) return fc_wg<16>(bmap, a, c, ws, (int)M, N, K, un, s);
-  return fc_wg<32>(bmap, a, c, ws, (int)M, N, K, un, s);
+  using Launch = int (*)(const CUtensorMap&, const uint16_t*, const uint16_t*, uint16_t*, float*,
+                         int, int, int, const wgb::Units&, cudaStream_t);
+  static const Launch runs[3][2] = {{fc_wg<8, true>, fc_wg<8, false>},
+                                    {fc_wg<16, true>, fc_wg<16, false>},
+                                    {fc_wg<32, true>, fc_wg<32, false>}};
+  return runs[M <= 8 ? 0 : M <= 16 ? 1 : 2][route == FC_SWAP_SCALAR](
+      bmap, a, b, c, ws, (int)M, N, K, un, (cudaStream_t)stream);
 }
 
 // ------------------------------------------------ the bf16 FC backward

@@ -32,6 +32,7 @@ fp32 backward ones (one per call, whichever products it computes);
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +46,9 @@ LAUNCHES_BF16 = 0
 BWD_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of the launch walks the 64-wide N tiles
 _MAX_SLABS = 65535  # ... and of the skinny launch the 32-wide N slabs
+# rt_matmul_bf16's loaders as csrc/matmul.cu numbers them: conv.cu's FWD_*
+# (an (M, 1, 1, K) conv), then FC_SWAP and FC_SWAP_SCALAR
+FWD_BF16_ROUTES = ("gather", "matrix", "scalar", "stem", "swap", "swap_scalar")
 
 
 def matmul_route(m: int, n: int, k: int) -> str:
@@ -63,20 +67,23 @@ def fwd_splits(m: int, n: int, k: int) -> int:
     return (build.skinny_split if matmul_route(m, n, k) == "skinny" else build.split_k)(m, n, k)
 
 
+@functools.lru_cache(maxsize=None)
 def fwd_bf16_route(m: int, n: int, k: int, aligned: bool = True) -> str:
     """The loaders of the bf16 forward (``csrc/matmul.cu``
     ``rt_matmul_bf16``, all on the persistent ``wgmma`` loop), K split
-    ``fwd_splits`` ways: 'swap' (c^T = b^T a^T: b by TMA boxes as it lies,
-    a by 16-byte copies) for m <= 32 where k and n are multiples of 8 and a
-    and b are 16-byte ``aligned`` (the FC at batch 1-32); else K1's bf16
-    forward on a 1x1/s1 conv of m pixels, k input and n output channels
-    (``conv.fwd_bf16_route``): 'matrix' (a by TMA boxes where the splits
-    are whole 64-deep slices), 'gather' (a by 16-byte copies) or 'scalar'
-    (2-byte loads: n % 8 or k % 8 != 0, or a misaligned operand)."""
+    ``fwd_splits`` ways. For m <= 32 (the FC at batch 1-32) the operands
+    swapped, c^T = b^T a^T: 'swap' (b by TMA boxes as it lies, a by 16-byte
+    copies) where k and n are multiples of 8 and a and b are 16-byte
+    ``aligned``, else 'swap_scalar' (2-byte loads of both). Above, K1's
+    bf16 forward on a 1x1/s1 conv of m pixels, k input and n output
+    channels (``conv.fwd_bf16_route``): 'matrix' (a by TMA boxes where the
+    splits are whole 64-deep slices), 'gather' (a by 16-byte copies) or
+    'scalar' (2-byte loads: n % 8 or k % 8 != 0, or a misaligned operand).
+    The wrapper hands it to the kernel (``FWD_BF16_ROUTES``)."""
     from .conv import fwd_bf16_route as conv_route
 
-    if m <= build.SKINNY_MAX_M and k % 8 == 0 and n % 8 == 0 and aligned:
-        return "swap"
+    if m <= build.SKINNY_MAX_M:
+        return "swap" if k % 8 == 0 and n % 8 == 0 and aligned else "swap_scalar"
     return conv_route(m, k, n, 1, 1, aligned, fwd_splits(m, n, k))
 
 
@@ -95,9 +102,9 @@ def matmul_bwd_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
 
 
 def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
-          plan=build.split_k) -> torch.Tensor:
+          plan=build.split_k, route: Optional[str] = None) -> torch.Tensor:
     """Launch one GEMM entry point into a new (m, n) output, K split by
-    ``plan(m, n, k)``."""
+    ``plan(m, n, k)``; the bf16 entry also takes its loaders ``route``."""
     if -(-n // 64) > _MAX_N_TILES or k >= 2**31:
         raise ValueError(f"matmul: N={n}, K={k} beyond the kernel's grid")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -106,8 +113,9 @@ def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
             return out.zero_()
         splits = plan(m, n, k)
         ws_ptr, _ws = build.gemm_workspace(splits, m, n, a)
+        extra = () if route is None else (FWD_BF16_ROUTES.index(route),)
         build.launch(entry, a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                     ws_ptr, splits, device=a.device)
+                     ws_ptr, splits, *extra, device=a.device)
     return out
 
 
@@ -117,7 +125,8 @@ def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m, k = a.shape
     n = b.shape[1]
     if a.dtype is torch.bfloat16:  # one entry point, the route's split
-        out = _gemm("rt_matmul_bf16", a, b, m, n, k, fwd_splits)
+        out = _gemm("rt_matmul_bf16", a, b, m, n, k, fwd_splits,
+                    fwd_bf16_route(m, n, k, build.aligned16(a, b)))
     elif matmul_route(m, n, k) == "skinny":
         out = _gemm("rt_matmul_skinny_f32", a, b, m, n, k, build.skinny_split)
     else:

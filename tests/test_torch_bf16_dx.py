@@ -97,19 +97,13 @@ def test_b_by_ws_index_is_the_phase_weights(rng, k, stride):
     assert torch.equal(_b_from_w(w, stride), conv.dx_phase_weights(w, stride))
 
 
-@pytest.mark.parametrize("k,stride,cout", [(3, 2, 128), (1, 2, 64), (3, 1, 64), (7, 2, 8),
-                                           (3, 3, 16)])
-def test_phase_depths_are_the_taps_deepest_first(k, stride, cout):
-    """conv.dx_phase_depths lists every phase once with its taps x Cout,
-    the deepest first, row-major on a tie (conv.cu's unit order)."""
-    depths = conv.dx_phase_depths(k, stride, cout)
-    assert sorted(p for p, _ in depths) == list(range(stride * stride))
-    for p, depth in depths:
-        assert depth == (conv.phase_taps(p // stride, k, stride)[1]
-                         * conv.phase_taps(p % stride, k, stride)[1] * cout)
-    assert [d for _, d in depths] == sorted((d for _, d in depths), reverse=True)
-    ties = [[p for p, d in depths if d == v] for v in {d for _, d in depths}]
-    assert all(t == sorted(t) for t in ties)
+def _depths(k, s, cout):
+    """(phase, K) of each row phase of a k x k dx at stride s, K = its taps x
+    Cout, in the order conv.cu's rt_conv2d_dx_nhwc_bf16 takes their units
+    (the deepest first, row-major on a tie; the order moves no sum)."""
+    depths = [(p, conv.phase_taps(p // s, k, s)[1] * conv.phase_taps(p % s, k, s)[1] * cout)
+              for p in range(s * s)]
+    return sorted(depths, key=lambda pk: -pk[1])
 
 
 def _units(n, h, cin, cout, k, s, splits):
@@ -120,7 +114,7 @@ def _units(n, h, cin, cout, k, s, splits):
     rows = n * ho * ho
     bn = build.wgb_tile_n(cin)
     m_tiles, n_tiles = -(-rows // build.WGB_BM), -(-cin // bn)
-    depths = conv.dx_phase_depths(k, s, cout)
+    depths = _depths(k, s, cout)
     chunk = build.k_chunk(k * k * cout, splits, 16) if s == 1 else depths[0][1]
     for u in range(m_tiles * n_tiles * splits * len(depths)):
         col0 = u % n_tiles * bn
@@ -159,7 +153,7 @@ def test_phase_units_write_every_dx_row_once(n, h, cin, cout, k, s):
         depth_cols.setdefault((phase, col0, rows.start), []).append((k0, k1))
     assert (seen == 1).all()
     for (phase, *_), spans in depth_cols.items():
-        depth = dict(conv.dx_phase_depths(k, s, cout))[phase]
+        depth = dict(_depths(k, s, cout))[phase]
         cols = [c for k0, k1 in sorted(spans) for c in range(k0, max(k0, k1))]
         assert cols == list(range(depth))
 
@@ -254,8 +248,8 @@ def launches(monkeypatch):
 @pytest.mark.parametrize("case", checks.BF16_DX_CASES, ids=[c[0] for c in checks.BF16_DX_CASES])
 def test_dx_wrapper_hands_the_library_w_as_it_lies(launches, case):
     """conv2d_dx on bf16 is one launch of rt_conv2d_dx_nhwc_bf16 with w
-    itself (no torch op cuts phase weights from it) and dx's split
-    (tc_split at stride 1, one at stride > 1)."""
+    itself (no torch op cuts phase weights from it), dx's split (tc_split
+    at stride 1, one at stride > 1) and the loaders dx_bf16_route names."""
     _, n, h, cin, cout, k, s = case
     n = min(n, 2)
     g = torch.zeros((n, h // s, h // s, cout), dtype=torch.bfloat16)
@@ -266,10 +260,47 @@ def test_dx_wrapper_hands_the_library_w_as_it_lies(launches, case):
     assert name == "rt_conv2d_dx_nhwc_bf16"
     assert args[:3] == (g.data_ptr(), w.data_ptr(), dx.data_ptr())
     assert args[3:10] == (n, h, h, cin, cout, k, s)
-    splits = args[-1]
+    splits, route = args[-2:]
     assert splits == conv.dx_splits(n * h * h, cin, cout, k, s)
     assert splits == (build.tc_split(n * h * h, cin, k * k * cout) if s == 1 else 1)
-    assert (args[-2] is None) == (splits == 1)
+    assert (args[-3] is None) == (splits == 1)
+    assert conv.DX_ROUTES[route] == conv.dx_bf16_route(n * h * h, cin, cout, k, s)
+
+
+def _view(shape, offset):
+    """A zero bf16 tensor of ``shape`` whose data start ``offset`` elements
+    past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=torch.bfloat16)[offset:][:n].view(shape)
+
+
+# (entry, offset of the input in elements, the loader the wrapper must name)
+HANDED = [("conv2d_dx", 0, "gather"), ("conv2d_dx", 1, "scalar"), ("conv2d", 0, "gather"),
+          ("conv2d", 1, "scalar"), ("matmul", 0, "swap"), ("matmul", 1, "swap_scalar")]
+
+
+@pytest.mark.parametrize("entry,offset,route", HANDED, ids=[f"{e} +{o}" for e, o, _ in HANDED])
+def test_wrappers_name_the_loader_their_pointers_allow(launches, entry, offset, route):
+    """The route is decided once, in the wrapper, from the shapes and the
+    pointers it hands over, and passed as the entry's last argument: an
+    input 2 bytes off a 16-byte boundary names the 2-byte loader, the
+    same shape aligned the 16-byte one (the entry refuses any loader its
+    operands do not allow: tests/test_torch_gpu.py)."""
+    if entry == "conv2d_dx":
+        g, w = _view((2, 14, 14, 64), offset), torch.zeros((3, 3, 128, 64), dtype=torch.bfloat16)
+        conv.conv2d_dx(g, w, (2, 14, 14, 128), 1)
+        names, table = "rt_conv2d_dx_nhwc_bf16", conv.DX_ROUTES
+    elif entry == "conv2d":
+        x, w = _view((2, 14, 14, 64), offset), torch.zeros((3, 3, 64, 128), dtype=torch.bfloat16)
+        conv.conv2d(x, w, 1)
+        names, table = "rt_conv2d_nhwc_bf16", conv.FWD_ROUTES
+    else:
+        a, b = torch.zeros((8, 2048), dtype=torch.bfloat16), _view((2048, 1000), offset)
+        matmul.matmul(a, b)
+        names, table = "rt_matmul_bf16", matmul.FWD_BF16_ROUTES
+    (name, args), = launches
+    assert name == names and (args[0] % 16 != 0 or args[1] % 16 != 0) == bool(offset)
+    assert table[args[-1]] == route
 
 
 def test_fp32_dx_keeps_the_phase_weights(launches):
@@ -283,14 +314,17 @@ def test_fp32_dx_keeps_the_phase_weights(launches):
                                    (33, 2048, 1000), (64, 2048, 1000), (5, 300, 33)])
 def test_matmul_bf16_wrapper_is_one_entry_with_the_routes_split(launches, m, k, n):
     """matmul on bf16 launches rt_matmul_bf16 for every M, with the fp32
-    route's K split: skinny_split for M <= 32 (the FC's 9), split_k above."""
+    route's K split (skinny_split for M <= 32, the FC's 9; split_k above)
+    and the loaders fwd_bf16_route names."""
     a, b = torch.zeros((m, k), dtype=torch.bfloat16), torch.zeros((k, n), dtype=torch.bfloat16)
     c = matmul.matmul(a, b)
     assert c.shape == (m, n) and c.dtype is torch.bfloat16
     (name, args), = launches
     assert name == "rt_matmul_bf16" and args[3:6] == (m, n, k)
     want = build.skinny_split(m, n, k) if m <= 32 else build.split_k(m, n, k)
-    assert args[-1] == want == matmul.fwd_splits(m, n, k)
+    assert args[-2] == want == matmul.fwd_splits(m, n, k)
+    assert (args[-3] is None) == (want == 1)
+    assert matmul.FWD_BF16_ROUTES[args[-1]] == matmul.fwd_bf16_route(m, n, k)
     if (m, n, k) == (8, 1000, 2048):
         assert want == 9 and build.k_chunk(k, want, 16) == 240
 
@@ -305,30 +339,19 @@ def test_fp32_matmul_keeps_its_entry_points(launches, m, route):
 @pytest.mark.parametrize("m,k,n,aligned,want", [
     (8, 2048, 1000, True, "swap"), (32, 2048, 1000, True, "swap"),
     (1, 2048, 1000, True, "swap"), (33, 2048, 1000, True, "matrix"),
-    (64, 2048, 1000, True, "matrix"), (5, 300, 33, True, "scalar"),
-    (5, 300, 40, True, "scalar"), (8, 2048, 1000, False, "scalar"),
+    (64, 2048, 1000, True, "matrix"), (5, 300, 33, True, "swap_scalar"),
+    (5, 300, 40, True, "swap_scalar"), (8, 2048, 1000, False, "swap_scalar"),
     (64, 2048, 1000, False, "scalar")])
 def test_matmul_bf16_routes(m, k, n, aligned, want):
     """The FC's loaders: at batch 1-32 the operands swapped (b by TMA
-    boxes, a by 16-byte copies); above, K1's bf16 forward, a by TMA boxes
+    boxes, a by 16-byte copies, or both by 2-byte loads for a ragged N or
+    K or a misaligned operand); above, K1's bf16 forward, a by TMA boxes
     where the splits are whole slices (split_k's 4 of 512 at 33 and 64
-    rows); 2-byte loads for a ragged N or K or a misaligned operand."""
+    rows), 2-byte loads for a ragged or misaligned operand."""
     assert matmul.fwd_bf16_route(m, n, k, aligned) == want
 
 
 def test_bf16_matmul_cases_cover_each_route():
     routes = {matmul.fwd_bf16_route(m, n, k, offset % 8 == 0)
               for _, m, k, n, offset in checks.BF16_MATMUL_CASES}
-    assert routes == {"swap", "matrix", "scalar"}
-
-
-def test_dx_plan_mirrors_the_source():
-    """The planners' view of the dx kernel: phases by depth, stride 4 at
-    most (wgb::MAX_PHASES), stride-1 chunks bf16_gemm.cuh's."""
-    wgb = (build.CSRC / "wgb_gemm.cuh").read_text()
-    assert "constexpr int MAX_PHASES = 16;" in wgb
-    dx = (build.CSRC / "conv.cu").read_text().split("bf16 dx on wgb_gemm.cuh")[1]
-    assert "un.chunk = bfg::k_chunk_for(un.K, splits);" in dx
-    assert "un.pK[r - 1] < depth" in dx  # deepest first, stable
-    assert 'extern "C" int rt_matmul_skinny_bf16' not in (build.CSRC / "matmul.cu").read_text()
-    assert "rt_matmul_skinny_bf16" not in build.SIGNATURES
+    assert routes == {"swap", "matrix", "swap_scalar"}

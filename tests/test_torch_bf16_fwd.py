@@ -183,7 +183,8 @@ WRAPPER_CASES = [c for c in checks.BF16_CONV_CASES if c[1] == 8] + checks.BF16_C
 @pytest.mark.parametrize("case", WRAPPER_CASES, ids=[c[0] for c in WRAPPER_CASES])
 def test_forward_wrapper_hands_the_library_its_route(launches, case):
     """conv2d on bf16 names the persistent kernel's entry point for every
-    shape, with bf16_gemm.cuh's K split (tc_split), as the fp32 forward."""
+    shape, with bf16_gemm.cuh's K split (tc_split), as the fp32 forward,
+    and the A loader fwd_bf16_route names for x's alignment."""
     _, n, h, cin, cout, k, s, *offset = case
     x = torch.zeros(n * h * h * cin + 8, dtype=torch.bfloat16)[
         (offset[0] if offset else 0):][:n * h * h * cin].view(n, h, h, cin)
@@ -192,7 +193,10 @@ def test_forward_wrapper_hands_the_library_its_route(launches, case):
     (name, args), = launches
     assert name == "rt_conv2d_nhwc_bf16"
     assert args[3:10] == (n, h, h, cin, cout, k, s)
-    assert args[-1] == build.tc_split(n * (h // s) ** 2, cout, k * k * cin)
+    m = n * (h // s) ** 2
+    assert args[-2] == build.tc_split(m, cout, k * k * cin)
+    assert conv.FWD_ROUTES[args[-1]] == conv.fwd_bf16_route(m, cin, cout, k, s,
+                                                           x.data_ptr() % 16 == 0)
 
 
 def test_fp32_forward_keeps_its_entry_point(launches):

@@ -920,6 +920,64 @@ def test_matmul_bf16_has_bf16_gemm_bits_on_cuda(cuda, m):
                                                     matmul.fwd_splits(m, n, k)))
 
 
+@pytest.mark.parametrize("m,k,n,offset", [(5, 300, 33, 0), (3, 2048, 1000, 1),
+                                           (32, 2048, 1000, 1)])
+def test_matmul_bf16_swap_scalar_has_bf16_gemm_bits_on_cuda(cuda, m, k, n, offset):
+    """The FC's 2-byte swap loader (a ragged N and K, a misaligned b)
+    against the same product through bf16_gemm.cuh's mma.sync kernel, dW of
+    x = a^T and g = b with the FC's split (19 of 16 columns for the ragged
+    case, 9 of 240 at K = 2048): the same bits."""
+    from resnet_tpu_torch.kernels import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    b = (torch.randn(k * n + offset, generator=gen, device="cuda") * 0.02).to(
+        torch.bfloat16)[offset:].view(k, n)
+    assert matmul.fwd_bf16_route(m, n, k, b.data_ptr() % 16 == 0) == "swap_scalar"
+    assert torch.equal(matmul.matmul(a, b), _dw_mma(a.t().contiguous(), b.contiguous(),
+                                                    matmul.fwd_splits(m, n, k)))
+
+
+# (entry, the loader named, why the entry must refuse it): a loader of
+# 16-byte copies or TMA boxes on an operand 2 bytes off a 16-byte boundary
+# or on a ragged width, a 1x1's matrix loader on a 3x3, the stem's on a
+# 3x3, the swap beyond 32 rows
+REFUSED = [("conv2d_dx", "gather", "misaligned g"), ("conv2d_dx", "copy", "ragged Cout"),
+           ("conv2d_dx", "matrix", "3x3"), ("conv2d", "gather", "misaligned x"),
+           ("conv2d", "stem", "3x3"), ("conv2d", "matrix", "3x3"),
+           ("matmul", "swap", "misaligned b"), ("matmul", "swap_scalar", "64 rows")]
+
+
+@pytest.mark.parametrize("entry,route,why", REFUSED, ids=[f"{e} {r}: {w}" for e, r, w in REFUSED])
+def test_bf16_entries_refuse_a_loader_their_operands_do_not_allow(cuda, entry, route, why):
+    """The wrapper names the loader; the C entry checks it against the
+    shapes and the pointers and reports an error (raised by build.launch)
+    rather than run a loader that would read wrong data."""
+    from resnet_tpu_torch.kernels import build, conv, matmul
+
+    bf = dict(dtype=torch.bfloat16, device="cuda")
+    off = 1 if why.startswith("misaligned") else 0
+    cout = 33 if why == "ragged Cout" else 64
+    if entry == "matmul":
+        m, k, n = (64 if why == "64 rows" else 8), 256, 128
+        a, b = torch.zeros(m, k, **bf), torch.zeros(k * n + 1, **bf)[off:][:k * n]
+        c = torch.empty(m, n, **bf)
+        args = (a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, None, 1,
+                matmul.FWD_BF16_ROUTES.index(route))
+        name = "rt_matmul_bf16"
+    else:
+        n, h, cin, k = 2, 14, 64, 3
+        t = torch.zeros(n * h * h * max(cin, cout) + 1, **bf)[off:]
+        w = torch.zeros(k, k, cin, cout, **bf)
+        out = torch.empty(n * h * h * max(cin, cout), **bf)
+        routes = conv.DX_ROUTES if entry == "conv2d_dx" else conv.FWD_ROUTES
+        args = (t.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, h, cin, cout, k, 1, None, 1,
+                routes.index(route))
+        name = f"rt_{entry}_nhwc_bf16"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.launch(name, *args, device=torch.device("cuda"))
+
+
 DX_SHAPES = [s for s in FWD_SHAPES if s[1] != 3]
 
 
@@ -994,8 +1052,9 @@ def test_conv2d_dx_bf16_misaligned_on_cuda(cuda, k, stride):
 @pytest.mark.parametrize("m,k,n,offset,route", [
     (1, 2048, 1000, 0, "swap"), (8, 2048, 1000, 0, "swap"), (24, 2048, 1000, 0, "swap"),
     (32, 2048, 1000, 0, "swap"), (16, 256, 72, 0, "swap"), (64, 2048, 1000, 0, "matrix"),
-    (40, 512, 1000, 0, "matrix"), (5, 300, 33, 0, "scalar"), (8, 2048, 1000, 1, "scalar"),
-    (64, 2048, 1000, 1, "scalar")])
+    (40, 512, 1000, 0, "matrix"), (5, 300, 33, 0, "swap_scalar"),
+    (8, 2048, 1000, 1, "swap_scalar"), (32, 2048, 1000, 1, "swap_scalar"),
+    (3, 2048, 1000, 1, "swap_scalar"), (64, 2048, 1000, 1, "scalar")])
 def test_matmul_bf16_routes_on_cuda(cuda, monkeypatch, m, k, n, offset, route):
     """K3's bf16 forward: one launch of rt_matmul_bf16 for every M (the
     operands swapped at M <= 32, else K1's bf16 forward), the loaders
