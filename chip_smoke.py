@@ -183,8 +183,13 @@ Phases, each printing one JSON line:
      standard step on its hand kernels and each engine's bf16 and fp32
      steps, their peak memory, and a torch.profiler table of one fused and
      one blockfused bf16 step, each with phase 11's split of its busy time
-     by bf16 GEMM kernel. Each run also prints a ``bf16_engine_run``
-     line, so a failing run still shows the runs before it.
+     by bf16 GEMM kernel, and the blockfused step's K10-bf16 by part (its
+     GEMMs with their split sums, its rows kernels, its join; K10_PARTS),
+     the fused step's K9-bf16 join; last, from one state, the output hashes
+     of the 12 K10 calls of one blockfused bf16 step and of the 16 K9 calls
+     of one fused bf16 step, so that two trees run in turns are held to the
+     same bits there too. Each run also prints a ``bf16_engine_run`` line,
+     so a failing run still shows the runs before it.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
@@ -196,7 +201,10 @@ shapes of the 12 identity blocks), each bf16 element within one bf16 ulp
 of the plain value plus 1e-5 of max|plain|, the fp32 results (K4's
 statistics, K8's and K10's sums, K10's rows, K6's dgamma and dbeta)
 within 1e-5 of max, the GEMMs, K4, K6, K8 and K10 twice to the same bits,
-K8's halo case bit for bit; K10 in bf16 stage by stage, each stage's plain
+K8's halo case bit for bit; every bf16 case line and each case of the
+fp32 join and K10 with ``out_hash``, a digest of the kernel's outputs'
+bits, so that two trees run in turns are held to the same bits by their
+lines; K10 in bf16 stage by stage, each stage's plain
 version on the kernel's own inputs to it (an intermediate one bf16 ulp
 apart moves the next stage by that ulp times the following BN's scale).
 Then a JSON line of the kernels (launches: the counts of the main paths of
@@ -473,10 +481,14 @@ def _plan(build, name, case):
         tile_n, split = ((build.wgb_tile_n, build.wgb_split) if bf16
                          else (build.wg_tile_n, build.wg_split))
         tiles = [tile_n(cout) for cout, _ in gemms]
-        return {"tile_n": tiles,
+        plan = {"tile_n": tiles,
                 "tiles": [-(-m // build.WG_BM) * -(-cout // bn)
                           for (cout, _), bn in zip(gemms, tiles)],
                 "splits": [split(m, cout, k) for cout, k in gemms]}
+        if bf16:  # the persistent loop's units and blocks per stage
+            plan["units"] = [t * sp for t, sp in zip(plan["tiles"], plan["splits"])]
+            plan["blocks"] = [min(u, 132) for u in plan["units"]]
+        return plan
     if name == "conv2d_dw_bf16":  # the route, and on the wgmma core its slices
         from resnet_tpu_torch.kernels.conv import DW_NARROW, dw_bf16_route
 
@@ -1065,25 +1077,39 @@ def _busy(profile_rows):
 
 # the bf16 GEMM kernels a profiled step's device time is split by: the
 # kernel names of the wgmma core's and bf16_gemm.cuh's (whose loader's name
-# the profile's cut to 90 characters keeps); the FC above 32 rows runs K1's
-# forward kernel, and is counted under "K1 fwd bf16"
+# the profile's cut to 90 characters keeps), each row under the first entry
+# one of whose keys it holds (a kernel's name may list FusedConvBfA among
+# its arguments); the FC above 32 rows runs K1's forward kernel, and is
+# counted under "K1 fwd bf16"
 BF16_SPLIT = {"K1 dW bf16": ("conv2d_dw_wg_kernel", "ConvDwBfA"),
               "K1 fwd bf16": ("conv2d_fwd_wg_kernel",), "K1 dx bf16": ("conv2d_dx_wg_kernel",),
               "K3 fwd bf16": ("matmul_fwd_wg_kernel",),
-              "K8/K10 bf16 GEMMs": ("fused_conv_wg_kernel", "FusedConvBfA")}
+              "K10 bf16 GEMMs": ("block_stage_wg_kernel",),
+              "K8 bf16 GEMM": ("fused_conv_wg_kernel", "FusedConvBfA")}
+# K10's kernels in a profiled blockfused step, by part (the split sum, the
+# rows kernel and the join body are K10's alone there), under their names
+# in this tree and in older ones (fused_conv_wg_kernel, join_vec), so a
+# tree timed beside this one splits the same way; K9's in a fused step
+K10_PARTS = {"gemms": ("block_stage_wg_kernel", "fused_conv_wg_kernel", "splitk_sum_stats_bf16"),
+             "rows": ("tile_sums_affine",), "join": ("join_group", "join_vec", "join_scalar")}
+K9_PARTS = {"join": ("join_group", "join_vec", "join_scalar")}
 
 
-def _split(profile_rows):
-    """{name: device ms, share of the step's busy time} of each BF16_SPLIT
-    kernel in one profiled step."""
+def _split(profile_rows, table=None):
+    """{name: device ms, share of the step's busy time} of each entry of
+    ``table`` (BF16_SPLIT by default) in one profiled step, a kernel under
+    the first entry that names it."""
     busy = _busy(profile_rows)
     if not profile_rows:
         return "not measured"
-    out = {}
-    for name, keys in BF16_SPLIT.items():
-        ms = sum(r["ms"] for r in profile_rows if any(k in r["kernel"] for k in keys))
-        out[name] = {"ms": ms, "share": ms / busy}
-    return out
+    table = BF16_SPLIT if table is None else table
+    ms = dict.fromkeys(table, 0.0)
+    for r in profile_rows:
+        name = next((n for n, keys in table.items() if any(k in r["kernel"] for k in keys)),
+                    None)
+        if name is not None:
+            ms[name] += r["ms"]
+    return {name: {"ms": t, "share": t / busy} for name, t in ms.items()}
 
 
 def phase_fused(torch, checks, counters, smi):
@@ -2153,6 +2179,31 @@ def phase_presets(torch, counters, smi):
     return launched
 
 
+def _call_hashes(torch, step, state, batch, module, name):
+    """One step(state, batch) with module.name (a kernel wrapper's forward)
+    wrapped to record checks.output_hash of every call's outputs: the
+    digests in call order, which two trees' steps from one state and batch
+    give alike where their kernels give the same bits."""
+    from resnet_tpu_torch.kernels import checks
+
+    inner, hashes = getattr(module, name), []
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        flat = [t for o in (out if isinstance(out, tuple) else (out,))
+                for t in (o if isinstance(o, tuple) else (o,))]
+        hashes.append(checks.output_hash(flat))
+        return out
+
+    setattr(module, name, recorded)
+    try:
+        step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, inner)
+    return hashes
+
+
 def phase_bf16_engines(torch, counters, smi):
     """The fused and whole-block engines in bf16 at full width (ResNet-50,
     224^2, batch 32, lr 1e-4, fused Adam, one SyntheticDataset batch at seed
@@ -2172,7 +2223,9 @@ def phase_bf16_engines(torch, counters, smi):
     step times in turns of the bf16 standard step on its hand kernels and
     each engine's bf16 and fp32 steps, their peak memory, and a
     torch.profiler table of one fused and one blockfused bf16 step, each
-    with its split by bf16 GEMM kernel (``_split``)."""
+    with its split by bf16 GEMM kernel (``_split``); last, the output
+    hashes of the 12 K10 calls of one blockfused bf16 step and of the 16 K9
+    calls of one fused bf16 step from the same state (``_call_hashes``)."""
     import dataclasses
 
     from resnet_tpu_torch.bridge import leaves
@@ -2276,6 +2329,18 @@ def phase_bf16_engines(torch, counters, smi):
         out[f"profile_{kernels}_bf16"] = rows[:30]
         out[f"profile_{kernels}_bf16_device_busy_ms"] = _busy(rows)
         out[f"profile_{kernels}_bf16_split"] = _split(rows)
+        # K10-bf16 by part (GEMMs, rows, join) in the blockfused step, K9 in the fused
+        out[f"profile_{kernels}_bf16_parts"] = _split(
+            rows, K10_PARTS if kernels == "blockfused" else K9_PARTS)
+    from resnet_tpu_torch.kernels import block_fused, fused_conv
+
+    out["call_hashes"] = {
+        "blockfused bf16, K10": _call_hashes(torch, steps["blockfused bf16"], _clone(state0),
+                                             batch, block_fused, "block_fused_forward"),
+        "fused bf16, K9": _call_hashes(torch, steps["fused bf16"], _clone(state0), batch,
+                                       fused_conv, "_join_forward")}
+    require([len(v) for v in out["call_hashes"].values()] == [12, 16],
+            f"bf16 call hashes: {[len(v) for v in out['call_hashes'].values()]} calls")
     emit({"phase": "bf16_engines", **out})
     return launched
 

@@ -15,9 +15,9 @@ with each (sc, sh) from its completed sums (``bn_affine_from_sums``). It is
 a ``torch.autograd.Function``. On CUDA tensors its forward launches K10,
 ``rt_block_fused_f32`` (``csrc/block_fused.cu``): one host call that enqueues
 the weights' K-major tf32 split, the three GEMMs on the wgmma core
-(``csrc/wg_gemm.cuh``, K splits from ``build.wg_split``), the on-device (sc,
-sh) rows and the join on the current stream. On CPU tensors the plain
-version ``block_fused_reference`` runs, torch ops in the order of
+(``csrc/wg_gemm.cuh``, K splits from ``build.wg_split``; ``plan``), the
+on-device (sc, sh) rows and the join on the current stream. On CPU tensors
+the plain version ``block_fused_reference`` runs, torch ops in the order of
 ``_block_fused_fwd_jnp`` (block_fused.py:202-254).
 ``block_fused_forward`` returns everything the kernel (or the plain
 version) writes: out, r, s, e, the three sums and the six (sc, sh) rows it
@@ -51,10 +51,15 @@ each GEMM's bf16 products go into an fp32 accumulator, its sums come from
 that fp32 result, and r, s and e are rounded to bf16 once; the prologues
 run in fp32 on the rounded values and round u and v before the next
 product; the six (sc, sh) rows are fp32; the join rounds out once. Its
-three GEMMs are K8-bf16's, on the bf16 ``wgmma`` + TMA core
-(``csrc/wgb_gemm.cuh``, K splits from ``build.wgb_split``), not on the
-tf32 one. The backward follows ``_block_fused_vjp_bwd``'s casts
-(:430-516): the products in fp32 on the upcast values, each activation
+three GEMMs run K8-bf16's gather, tiles and K splits (``build.wgb_split``)
+on the bf16 ``wgmma`` + TMA core's warp-specialized persistent loop
+(``csrc/wgb_gemm.cuh`` ``wgb::specialized``: one block per SM over each
+stage's (m tile, n tile, split) units, two warpgroups copying and applying
+the prologue, two multiplying), folded as K8 folds, so each stage has
+K8-bf16's bits; a stage of 2^31 units or more raises (``_UNITS``), it never
+falls back. The
+backward follows ``_block_fused_vjp_bwd``'s casts (:430-516): the
+products in fp32 on the upcast values, each activation
 gradient rounded to x's dtype, dW to w's dtype, dγ₃ and dβ₃ to γ₃'s and
 β₃'s, while dγ₁, dβ₁, dγ₂ and dβ₂ leave JAX's function in fp32 whatever
 their parameters' dtype (:511-516). The autograd engine casts a
@@ -78,6 +83,7 @@ LAUNCHES = 0
 LAUNCHES_BF16 = 0
 SPLIT_LAUNCHES = 0
 _MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
+_UNITS = 2**31  # the bf16 loop indexes its units in 32 bits
 _PAD1 = ((1, 1), (1, 1))
 
 
@@ -176,6 +182,26 @@ def _check(x, w1, w2, w3, g1, b1, g2, b2, g3, b3):
                              f"{tuple(row.shape)}")
 
 
+def plan(m: int, c4: int, c: int, bf16: bool):
+    """(splits, sizes, units) of K10 on m pixels of width 4C = c4: the K
+    splits of its three GEMMs ((Cout, K) = (C, 4C), (C, 9C), (4C, C);
+    ``build.wgb_split`` in bf16, ``build.wg_split`` in fp32), the floats of
+    its three scratch regions (the per-128-row-tile statistics, the split-K
+    partials, which the stages take in turn, and in fp32 the split weights),
+    and each GEMM's work units (m tiles x n tiles x splits: the bf16
+    persistent loop's)."""
+    gemms = ((c, c4), (c, 9 * c), (c4, c))
+    split, tile_n = ((build.wgb_split, build.wgb_tile_n) if bf16
+                     else (build.wg_split, build.wg_tile_n))
+    splits = [split(m, cout, k) for cout, k in gemms]
+    sizes = (-(-m // build.WG_BM) * 2 * max(c, c4),
+             max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1), default=0),
+             0 if bf16 else sum(2 * cout * build.kmajor_ld(k) for cout, k in gemms))
+    units = [-(-m // build.WGB_BM) * -(-cout // tile_n(cout)) * sp
+             for sp, (cout, _) in zip(splits, gemms)]
+    return splits, sizes, units
+
+
 def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None):
     """K10 on CUDA tensors, the plain version on CPU ones: everything the
     kernel writes, in the order of ``block_fused_reference``'s result. Not
@@ -194,20 +220,16 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
         raise ValueError(f"block_fused: 4C={c4}, C={c} beyond the kernel's grid")
     dev = x.device
     bf16 = x.dtype is torch.bfloat16
-    # (Cout, K) of the three GEMMs; one split-K workspace serves them in turn
-    gemms = ((c, c4), (c, 9 * c), (c4, c))
-    plan = build.wgb_split if bf16 else build.wg_split
-    splits = [plan(m, cout, k) for cout, k in gemms]
+    splits, sizes, units = plan(m, c4, c, bf16)
+    if bf16 and max(units) >= _UNITS:
+        raise ValueError(f"block_fused: {max(units)} units of a stage GEMM at M={m}, "
+                         f"4C={c4}, C={c}; the persistent loop indexes fewer than 2^31")
     out, e = torch.empty_like(x), torch.empty_like(x)
     rs = torch.empty((2, n, h, wd, c), dtype=x.dtype, device=dev)
     r, s = rs[0], rs[1]
     small = torch.empty(8 * c + 4 * c4, dtype=torch.float32, device=dev)
     sums_r, sums_s, sums_e, aff_rows = small.split((2 * c, 2 * c, 2 * c4, 4 * c + 2 * c4))
-    # scratch: the per-128-row-tile statistics, the split-K partials and (fp32)
-    # the split weights, each from a 256-byte boundary (TMA reads the last)
-    sizes = (-(-m // build.WG_BM) * 2 * max(c, c4),
-             max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1), default=0),
-             0 if bf16 else sum(2 * cout * build.kmajor_ld(k) for cout, k in gemms))
+    # the scratch regions, each from a 256-byte boundary (TMA reads the last)
     starts = [0]
     for size in sizes:
         starts.append(starts[-1] + -(-size // 64) * 64)

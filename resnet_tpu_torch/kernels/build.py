@@ -98,6 +98,10 @@ SIGNATURES = {
     # K10 on bf16: rt_block_fused_f32's arguments without wsplit (the bf16
     # weights need no split)
     "rt_block_fused_bf16": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    # K10-bf16's stage GEMM alone, with rt_fused_conv_bf16's arguments: K8's
+    # bits witness on the card (tests/test_torch_gpu.py)
+    "rt_block_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
 }
 # the entry-point suffix of each tensor dtype the kernels take
 SUFFIX = {"torch.float32": "f32", "torch.bfloat16": "bf16"}
@@ -121,9 +125,10 @@ WG_BK = 32
 WG_STAGES = {64: 3, 128: 4}
 WG_BLOCKS_PER_SM = {64: 2, 128: 1}
 # the bf16 wgmma core's (wgb_gemm.cuh BM, BK, Tile<BN>::STAGES and
-# MIN_BLOCKS by tile width, BN = wgb_tile_n): K1's bf16 dW, K8-bf16 and
-# K10-bf16's three GEMMs; K1's bf16 forward runs the same tiles on the
-# persistent loop, one block per SM, K split by tc_split
+# MIN_BLOCKS by tile width, BN = wgb_tile_n): K1's bf16 dW and K8-bf16;
+# K10-bf16's three GEMMs run K8's tiles and K splits (wgb_split) on its
+# warp-specialized persistent loop (wgb::specialized), one block per SM,
+# and K1's bf16 forward the same tiles on `persistent`, K split by tc_split
 WGB_BM = 128
 WGB_BK = 64
 WGB_STAGES = {64: 4, 128: 6}
@@ -329,8 +334,9 @@ def wgb_tile_n(n: int) -> int:
 def wgb_split(m: int, n: int, k: int) -> int:
     """K splits of an (m, n) output over depth k on wgb_gemm.cuh's tiles:
     K1's bf16 dW (m = k*k*Cin, n = Cout, k = 64 x its slices of pixels,
-    ``dw_slices``), K8-bf16 and K10-bf16's GEMMs (m = the output pixels,
-    n = Cout, k = k*k*Cin). Each split is a whole number of WGB_BK-deep
+    ``dw_slices``), K8-bf16's GEMM and K10-bf16's three, which keep K8's
+    splits on the persistent loop so as to keep its bits (m = the output
+    pixels, n = Cout, k = k*k*Cin). Each split is a whole number of WGB_BK-deep
     slices, at least WGB_MIN_SLICES deep, none empty, at most 256. Of
     those, the count that finishes soonest in slice times: waves of the
     resident blocks times (the chunk's slices + the ring's fill), plus, for

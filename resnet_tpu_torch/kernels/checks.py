@@ -80,10 +80,17 @@ fixed order inside a block, with no atomics in any sum. A case marked
 exact (the fused conv's halo case, integer-valued so that every order of
 summation is exact) must match its plain version bit for bit, in fp32 and
 in bf16.
+
+Every bf16 case, and each case of the fp32 join and whole-block kernel
+(``HASHED``), also reports ``out_hash``, a digest of its kernel's outputs'
+bits (``output_hash``): this file copied into another tree of the package
+makes the same inputs there, so two trees' kernels are held to the same
+bits by comparing their lines.
 """
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import time
 from typing import Callable, Dict, List, Optional, Tuple
@@ -361,6 +368,10 @@ REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments",
                   "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
                   "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16",
                   "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16")
+
+# the fp32 kernels whose cases carry an output hash beside the bf16 ones':
+# those that run K9's join body
+HASHED = ("fused_join", "block_fused")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -979,12 +990,24 @@ def _outputs(out) -> List[torch.Tensor]:
     return list(out) if isinstance(out, (tuple, list)) else [out]
 
 
+def output_hash(tensors) -> str:
+    """A digest of the tensors' bits: each one's dtype, shape and bytes,
+    in order (16 hex digits)."""
+    h = hashlib.blake2b(digest_size=8)
+    for t in tensors:
+        t = t.detach().contiguous()
+        h.update(f"{t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
                timing: bool = True) -> Dict[str, object]:
     """Run one case; raise RuntimeError where the kernel disagrees.
 
     Returns {kernel, case, max_abs_err, rel_err, bound_ms, bound_by} (and
-    fp32_fma_bound_ms for the tensor-core kernels) and, with timing, ms,
+    fp32_fma_bound_ms for the tensor-core kernels, out_hash for the bf16
+    and ``HASHED`` kernels) and, with timing, ms,
     plain_ms, library_ms, device_ms (with device_kernels, its split by
     kernel name), library_device_ms and host_us."""
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1034,6 +1057,8 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
            "bound_ms": least, "bound_by": by}
     if c.peak == TF32_FLOPS_PER_S:  # 3 TF32 products per FLOP: also at the FMA peak
         out["fp32_fma_bound_ms"] = bound(c.nbytes, c.flops / 3)[0]
+    if c.bf16 or kernel in HASHED:
+        out["out_hash"] = output_hash(got)
     if c.library is not None and c.library_same:
         # the yardstick must compute the same function
         same = 1e-2 if c.bf16 else 1e-3

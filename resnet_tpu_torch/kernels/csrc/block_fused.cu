@@ -78,16 +78,33 @@
 // before the next product; the (sc, sh) rows are fp32 (gamma and beta cast
 // by the wrapper, as `row` does at :281, :317); the join rounds out once. The
 // same one host call on the caller's stream with no host sync: per stage
-// K8-bf16's GEMM (fused_conv.cuh fused_gemm_bf16: wgb_gemm.cuh's wgmma +
-// TMA core, the gather FusedConvBfA with the prologue from the device-side
-// rows, the statistics epilogue or the split sum's) and the
-// rows kernel tile_sums_affine, then K9-bf16's body with an identity
-// residual. The weights come in bf16 (the wrapper casts fp32 parameters to
-// x's dtype, block_fused.py:316), so there is no tf32 split. Bound at
-// batch 32: 14 GFLOP per block at 989 TFLOP/s dense bf16 is 0.014 ms;
-// the bytes are half the fp32 ones above: 0.092 ms at stage 1 (C = 64),
-// 0.046 at stage 2, 0.023 at stage 3, all bound by bytes, and 0.0115 at
-// stage 4, bound by operations.
+// one persistent GEMM (block_stage_wg_kernel below) and the rows kernel
+// tile_sums_affine, then K9-bf16's body with an identity residual. The
+// weights come in bf16 (the wrapper casts fp32 parameters to x's dtype,
+// block_fused.py:316), so there is no tf32 split. Bound at batch 32: 14
+// GFLOP per block at 989 TFLOP/s dense bf16 is 0.014 ms; the bytes are
+// half the fp32 ones above: 0.092 ms at stage 1 (C = 64), 0.046 at stage 2,
+// 0.023 at stage 3, all bound by bytes, and 0.0115 at stage 4, bound by
+// operations.
+//
+// The bf16 stage GEMM is K8-bf16's gather (fused_conv.cuh ConvWgBlock: the
+// prologue applied in place to the chunks each thread copied, a halo tap
+// left at 0; or, for ragged widths and misaligned tensors, both operands
+// by 2-byte loads) on wgb_gemm.cuh's specialized loop: one block per SM
+// walks the units (m tile, n tile, K split) of the stage, the ring running
+// across units, two warpgroups copying and applying the prologue, two
+// multiplying and running the epilogues. So the copies and the prologue of
+// the slices ahead and a unit's epilogue run beside the products (K8 on
+// `mainloop` does them in turn with its products, on one block a tile:
+// stage 1's expand has one slice a unit, every slice loaded exposed; the
+// same gather on `persistent`, whose one thread stream also does them in
+// turn, was slower still). What keeps K8's bits: the units are K8's tiles
+// and the K splits build.wgb_split plans for it, a slice's four k16 steps
+// chain into one accumulator folded once, y is rounded once from the same
+// fp32 sum, and each single-split unit runs K8's statistics epilogue
+// (wgb::tile_stats, the same order) on that sum; split units write fp32
+// partials that splitk_sum_stats_bf16 adds in split order, as K8's.
+// rt_block_gemm_bf16 runs one stage GEMM alone, K8's witness on the card.
 
 #include "fused_conv.cuh"
 #include "wg_gemm.cuh"
@@ -164,6 +181,120 @@ inline int stage(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, f
   return (int)cudaGetLastError();
 }
 
+static_assert(wgb::COPIERS == wgb::THREADS, "ConvWgBlock lays its copies out for THREADS threads");
+
+// K8-bf16's copies (ConvWgBlock, its fix the prologue in place) as
+// wgb::specialized's Block; publish hands the thread's part of a slot over
+// at once: an arrival on bar once its cp.async copies land, or, for the
+// 2-byte loader, which stores them itself (the prologue applied on the
+// way), after a proxy fence
+template <int BN, bool kVec>
+struct StageCopies : ConvWgBlock<BN, kVec> {
+  using ConvWgBlock<BN, kVec>::ConvWgBlock;
+
+  __device__ void publish(uint64_t* bar) const {
+    if constexpr (kVec) {
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                       rt::tc::smem_u32(bar))
+                   : "memory");
+    } else {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgb::mbar_arrive(bar);
+    }
+  }
+};
+
+// y (M, N) bf16 of the conv gathered by `a` with the weight w (K, N), over
+// the units of un on wgb::specialized (one split: y through ymap, or with
+// !kVec from the registers, and the unit's tile partials into tile_sums;
+// several: split z's fp32 partials at ws + z * M * N); the copiers apply
+// the prologue to their cp.async copies (kVec) or as they load (!kVec)
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(wgb::WS_THREADS, 1)
+block_stage_wg_kernel(const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap ymap,
+                      const __grid_constant__ FusedConvBfA a, const uint16_t* __restrict__ w,
+                      uint16_t* __restrict__ y, float* __restrict__ ws, int N,
+                      float* __restrict__ tile_sums, const wgb::Units un) {
+  constexpr int S = wgb::PTile<BN>::STAGES;
+  using C = wgb::Crew<wgb::COPIERS>;
+  extern __shared__ __align__(1024) uint8_t stage_wg_smem[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN, S>(stage_wg_smem);
+  wgb::init_ws_barriers<S>(full, empty);
+  auto epi = [&](const float (&acc)[wgb::Tile<BN>::NACC], int64_t row0, int col0, int z) {
+    if (ws) {
+      wgb::store_pairs<BN, wgb::SameRow, C>(acc, row0, col0, a.M, N, nullptr,
+                                            ws + (int64_t)z * a.M * N);
+      return;
+    }
+    if constexpr (kVec)
+      wgb::store_tile_tma<BN, C>(acc, wgb::p_out<BN, S>(sm), &ymap, row0, col0);
+    else
+      wgb::store_pairs<BN, wgb::SameRow, C>(acc, row0, col0, a.M, N, y, nullptr);
+    wgb::tile_stats<BN, C>(acc, sm, row0 / wgb::BM, col0, a.M, N, tile_sums);
+  };
+  StageCopies<BN, kVec> blk(a, &wmap, w, sm, full, 0, N, 0, 0);
+  bool fix = false;
+  if constexpr (kVec) fix = a.prologue;
+  if (fix) {
+    if constexpr (kVec) wgb::specialized<BN, S, true>(blk, sm, full, empty, un, epi);
+  } else {
+    wgb::specialized<BN, S, false>(blk, sm, full, empty, un, epi);
+  }
+  wgb::store_tma_wait<C>();
+}
+
+template <int BN, bool kVec>
+inline int stage_gemm_wg(const FusedConvBfA& a, const uint16_t* w, uint16_t* y, float* part,
+                         int N, float* ws, const wgb::Units& un, cudaStream_t s) {
+  CUtensorMap wmap, ymap;
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&ymap, 0, sizeof(ymap));
+  int status = 0;
+  if constexpr (kVec) {
+    status = wgb::cached_matrix_map(&wmap, w, un.K, N, wgb::BK);
+    if (status == 0 && un.splits == 1)
+      status = wgb::cached_matrix_map(&ymap, y, a.M, N, wgb::BM);
+  }
+  auto* kernel = block_stage_wg_kernel<BN, kVec>;
+  constexpr int smem = wgb::PTile<BN>::STATS_SMEM;
+  int sms = 0;
+  if (status == 0) status = wgb::max_smem_once((const void*)kernel, smem);
+  if (status == 0) status = wgb::sm_count(&sms);
+  if (status != 0) return status;
+  const int64_t units = un.count();
+  kernel<<<(unsigned)(units < sms ? units : sms), wgb::WS_THREADS, smem, s>>>(
+      wmap, ymap, a, w, y, un.splits > 1 ? ws : nullptr, N, part, un);
+  return (int)cudaGetLastError();
+}
+
+// y (M, N) bf16 of the conv gathered by `a` with w (K, N) bf16 row-major and
+// the tile partials of its fp32 sum in part (m_tiles * 2 * N floats), on
+// wgb::specialized: 128 x 64 tiles where N <= 64, else 128 x 128
+// (build.wgb_tile_n), `splits` K splits of whole slices as K8 cuts them
+// (ws: splits * M * N floats when splits > 1). cudaErrorInvalidValue for
+// 2^31 units or more, or several splits and no ws; the loop never falls
+// back to another. Enqueued on s; returns the status.
+inline int stage_gemm_bf16(const FusedConvBfA& a, const uint16_t* w, uint16_t* y, float* part,
+                           int N, float* ws, int splits, cudaStream_t s) {
+  const int64_t K = (int64_t)a.ksize * a.ksize * a.Cin;
+  const int bn = N <= 64 ? 64 : 128;
+  const wgb::Units un{(a.M + wgb::BM - 1) / wgb::BM, (N + bn - 1) / bn, splits, K,
+                      (wgb::slices_of(K) + splits - 1) / splits * wgb::BK};
+  if (splits < 1 || (splits > 1 && ws == nullptr) || a.M == 0 || un.count() >= INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = a.vec && N % 8 == 0 && rt::aligned16(w) && rt::aligned16(y);
+  auto* gemm = N <= 64 ? (vec ? stage_gemm_wg<64, true> : stage_gemm_wg<64, false>)
+                       : (vec ? stage_gemm_wg<128, true> : stage_gemm_wg<128, false>);
+  const int status = gemm(a, w, y, part, N, ws, un, s);
+  if (status != 0) return status;
+  if (splits > 1)
+    splitk_sum_stats_bf16<<<dim3((unsigned)((N + CT - 1) / CT), (unsigned)un.m_tiles),
+                            dim3(CT, RT), 0, s>>>(ws, y, part, a.M, N, splits);
+  return (int)cudaGetLastError();
+}
+
 // One bf16 stage: y (M, N) bf16 of the conv gathered by `a` with w (K, N)
 // bf16 row-major, its sums (2, N) from the fp32 accumulator and the
 // (scale, shift) rows of the BN that follows; part and ws as stage's.
@@ -171,7 +302,7 @@ inline int stage_bf16(const FusedConvBfA& a, const uint16_t* w, uint16_t* y, flo
                       float* sums, const float* gamma, const float* beta, float* scale,
                       float* shift, int N, float* ws, int splits, float m, float eps,
                       cudaStream_t s) {
-  const int status = fused_gemm_bf16(a, w, y, part, N, ws, splits, s);
+  const int status = stage_gemm_bf16(a, w, y, part, N, ws, splits, s);
   if (status != 0) return status;
   const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
   tile_sums_affine<<<(unsigned)((N + CT - 1) / CT), dim3(CT, FL), 0, s>>>(
@@ -247,7 +378,7 @@ extern "C" int rt_block_fused_f32(const float* x, const float* w1, const float* 
   if (status != 0) return status;
 
   // stage 3: bn_e's affine, the identity residual, ReLU and the cap
-  return launch_join(e, x, out, (int64_t)N * H * W * C4, C4, JoinIdentity{sc_e, sh_e, act}, st);
+  return launch_join(e, x, out, (int64_t)N * H * W * C4, C4, JoinIdentity{{sc_e, sh_e}, act}, st);
 }
 
 // One bottleneck block on bf16 tensors: x, w1, w2, w3, out, r, s and e as
@@ -293,5 +424,28 @@ extern "C" int rt_block_fused_bf16(const __nv_bfloat16* x, const uint16_t* w1,
 
   // stage 3: bn_e's affine, the identity residual, ReLU and the cap
   return launch_join(static_cast<const __nv_bfloat16*>(e), x, out, (int64_t)N * H * W * C4,
-                     C4, JoinIdentity{sc_e, sh_e, act}, st);
+                     C4, JoinIdentity{{sc_e, sh_e}, act}, st);
+}
+
+// K10-bf16's stage GEMM alone, with rt_fused_conv_bf16's arguments: y and
+// the tile partials part of the conv of x (N, H, W, Cin) with w (k, k, Cin,
+// Cout), the prologue and the window as K8's, on block_stage_wg_kernel, then
+// sums (2, Cout) from part. K8's witness: the same inputs through both give
+// the same bits (tests/test_torch_gpu.py).
+extern "C" int rt_block_gemm_bf16(const uint16_t* x, const uint16_t* w, const float* scale,
+                                  const float* shift, uint16_t* y, float* part, float* sums,
+                                  int N, int H, int W, int Cin, int Cout, int k, int stride,
+                                  int pad_top, int pad_left, int Ho, int Wo, int prologue,
+                                  int relu, int has_cap, float cap, float* ws, int splits,
+                                  void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const FusedConvBfA a =
+      conv_loader_bf16(x, scale, shift, N, H, W, Cin, k, stride, pad_top, pad_left, Ho, Wo,
+                       prologue != 0, Act{relu != 0, has_cap != 0, cap});
+  const int status = stage_gemm_bf16(a, w, y, part, Cout, ws, splits, s);
+  if (status != 0) return status;
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  tile_sums_final<<<(unsigned)((Cout + CT - 1) / CT), dim3(CT, FL), 0, s>>>(part, sums, Cout,
+                                                                           m_tiles);
+  return (int)cudaGetLastError();
 }

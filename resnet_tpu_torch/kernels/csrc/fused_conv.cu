@@ -32,9 +32,11 @@
 //
 // K9 replaces ::_join_kernel (public function fused_join):
 //   out = clip(relu(e * se[c] + te[c] + r * sr[c] + tr[c])),
-// one elementwise pass (float4 where every pointer is 16-byte aligned, a
-// scalar loop for the remainder or the whole range otherwise), rounded step
-// by step as the plain PyTorch version is.
+// one elementwise pass, rounded step by step as the plain PyTorch version
+// is: where C is a multiple of a 16-byte vector's elements and every
+// pointer is 16-byte aligned, each thread keeps one channel group's four
+// rows in registers and streams 16-byte vectors of e and r, four of each in
+// flight (fused_conv.cuh join_group); element by element otherwise.
 //
 // Bound on the H100: K8 is compute-bound like the plain conv (2 * k*k*Cin
 // FLOPs per output element, 576 to 9,216 deep in ResNet-50's fused convs),
@@ -85,18 +87,6 @@ fused_conv_tc128_kernel(const FusedConvTcA a, const float* __restrict__ w,
                         float* __restrict__ tile_sums) {
   rt::tc::gemm_k<128, VEC, true>(a, w, Cout, y, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin,
                                  k_chunk, tile_sums);
-}
-
-// sums (2, C) = the tile partials added per channel (tile_sums)
-__global__ void __launch_bounds__(CT * FL)
-tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
-                int64_t m_tiles) {
-  float s0, s1;
-  if (tile_sums(part, C, m_tiles, s0, s1)) {
-    const int c = blockIdx.x * CT + threadIdx.x;
-    sums[c] = s0;
-    sums[C + c] = s1;
-  }
 }
 
 template <int BN, int VEC>
@@ -159,7 +149,7 @@ extern "C" int rt_fused_conv_f32(const float* x, const float* w, const float* sc
 extern "C" int rt_fused_join_f32(const float* e, const float* r, const float* se,
                                  const float* te, const float* sr, const float* tr, float* o,
                                  int64_t n, int C, int has_cap, float cap, void* stream) {
-  return launch_join(e, r, o, n, C, JoinRows{se, te, sr, tr, Act{true, has_cap != 0, cap}},
+  return launch_join(e, r, o, n, C, JoinRows{{se, te, sr, tr}, Act{true, has_cap != 0, cap}},
                      (cudaStream_t)stream);
 }
 
@@ -192,6 +182,6 @@ extern "C" int rt_fused_join_bf16(const __nv_bfloat16* e, const __nv_bfloat16* r
                                   const float* se, const float* te, const float* sr,
                                   const float* tr, __nv_bfloat16* o, int64_t n, int C,
                                   int has_cap, float cap, void* stream) {
-  return launch_join(e, r, o, n, C, JoinRows{se, te, sr, tr, Act{true, has_cap != 0, cap}},
+  return launch_join(e, r, o, n, C, JoinRows{{se, te, sr, tr}, Act{true, has_cap != 0, cap}},
                      (cudaStream_t)stream);
 }

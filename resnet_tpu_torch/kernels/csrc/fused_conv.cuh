@@ -2,8 +2,8 @@
 // whose kernels and entry points are in csrc/fused_conv.cu, and K10
 // (csrc/block_fused.cu): the gather with the prologue, the statistics
 // passes and the join. K10's stages 0-2 gather as K8 does, but run their
-// GEMMs on wg_gemm.cuh's wgmma core; its stage 3 is K9 with an identity
-// residual.
+// GEMMs on wg_gemm.cuh's wgmma core (fp32) or wgb_gemm.cuh's specialized
+// loop (bf16); its stage 3 is K9's body with an identity residual.
 //
 // The fused conv is the implicit GEMM of the conv on the split-TF32
 // tensor-core core (tc_gemm.cuh, K-major A) with the loader FusedConvTcA,
@@ -26,11 +26,13 @@
 // per entry too; a second kernel adds the tiles per channel in double, in a
 // fixed order (tile_sums). No atomics, so a run repeats exactly.
 //
-// The join is one elementwise pass (16-byte accesses where every pointer is
-// 16-byte aligned, a scalar loop for the remainder or the whole range
-// otherwise), each product and sum rounded on its own as the plain PyTorch
-// version rounds it; one template over the storage type (rowwise.cuh), so
-// bf16 e and r are read into fp32 and the result rounded once.
+// The join is one elementwise pass, each product and sum rounded on its own
+// as the plain PyTorch version rounds it; one template over the storage type
+// (rowwise.cuh), so bf16 e and r are read into fp32 and the result rounded
+// once. Where C is a multiple of a 16-byte vector's elements and every
+// pointer is 16-byte aligned, each thread keeps one channel group and its
+// rows in registers and streams 16-byte vectors of e and r (join_group);
+// otherwise, and for a remainder, element by element (join_scalar).
 //
 // bf16 (K8 and K10 on bf16 tensors): the implicit GEMM runs on
 // wgb_gemm.cuh's wgmma core (fused_conv_wg_kernel below): B, the weight
@@ -47,7 +49,10 @@
 // both operands through the threads instead, 2 bytes at a time, the
 // prologue applied on the way. K1's bf16 forward (conv.cu) runs the same
 // gather with the prologue off on wgb::persistent, ConvWgBlock::start
-// moving it from unit to unit. The statistics come from the fp32
+// moving it from unit to unit, and K10-bf16's three stage GEMMs
+// (block_fused.cu) with the prologue on, by the copying warpgroups of
+// wgb::specialized: fix reads what a slot needs from the slot's own record
+// (sm.info), so the copier may have moved on to later slices and units. The statistics come from the fp32
 // accumulators (fused_conv.py:109-110), never from the rounded y: one
 // split, the core's per-128-row-tile epilogue (wgb::tile_stats); several,
 // the split sum of splitk_sum_stats_bf16, which adds the fp32 partials in
@@ -152,68 +157,174 @@ __device__ __forceinline__ bool tile_sums(const float* __restrict__ part, int C,
   return true;
 }
 
-// e * se + te + r * sr + tr, left to right, each step rounded (K9)
+// e * se + te + r * sr + tr, left to right, each step rounded (K9); q
+// holds the channel's (se, te, sr, tr)
 struct JoinRows {
-  const float* __restrict__ se;
-  const float* __restrict__ te;
-  const float* __restrict__ sr;
-  const float* __restrict__ tr;
+  static constexpr int ROWS = 4;
+  const float* row[ROWS];  // se, te, sr, tr
   Act act;
-  __device__ float operator()(float e, float r, int c) const {
-    return act(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(e, se[c]), te[c]), __fmul_rn(r, sr[c])),
-                         tr[c]));
+  __device__ float operator()(float e, float r, const float (&q)[ROWS]) const {
+    return act(__fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(e, q[0]), q[1]), __fmul_rn(r, q[2])),
+                         q[3]));
   }
 };
 
 // e * se + te + r, left to right, each step rounded: the join of an identity
-// residual (K10's stage 3)
+// residual (K10's stage 3); q holds the channel's (se, te)
 struct JoinIdentity {
-  const float* __restrict__ se;
-  const float* __restrict__ te;
+  static constexpr int ROWS = 2;
+  const float* row[ROWS];  // se, te
   Act act;
-  __device__ float operator()(float e, float r, int c) const {
-    return act(__fadd_rn(__fadd_rn(__fmul_rn(e, se[c]), te[c]), r));
+  __device__ float operator()(float e, float r, const float (&q)[ROWS]) const {
+    return act(__fadd_rn(__fadd_rn(__fmul_rn(e, q[0]), q[1]), r));
   }
 };
 
+// The join's body where C % V == 0 (V = Vec16<T>::N: 8 bf16 or 4 floats a
+// 16-byte vector) and e, r, o are 16-byte aligned: vector i holds channels
+// V * (i % G) + [0, V), G = C / V. The grid's stride in vectors is a
+// multiple of G (launch_join), so each thread keeps one channel group for
+// its whole walk: it reads that group's rows once (16-byte loads where a row
+// is aligned) and then only e and r, U vectors of each in flight, read and
+// written once with streaming cache hints. The arithmetic per element is
+// f's, as the scalar path's, so the two give the same bits.
+constexpr int JOIN_THREADS = 256;
+constexpr int JOIN_U = 4;  // vectors of e and of r in flight a thread
+
 template <class T, class F>
-__global__ void join_vec(const T* __restrict__ e, const T* __restrict__ r, T* __restrict__ o,
-                         int64_t nv, int C, F f) {
+__global__ void __launch_bounds__(JOIN_THREADS)
+join_group(const T* __restrict__ e, const T* __restrict__ r, T* __restrict__ o, int64_t nv,
+           int G, F f) {
   using V = rt::Vec16<T>;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  ChannelWalk ch(V::N * i, V::N * stride, C);
-  for (; i < nv; i += stride, ch.advance()) {
-    float a[V::N], b[V::N];
-    V::load(e + V::N * i, a);
-    V::load(r + V::N * i, b);
+  const int64_t stride = (int64_t)gridDim.x * JOIN_THREADS;
+  int64_t i = (int64_t)blockIdx.x * JOIN_THREADS + threadIdx.x;
+  const int c0 = (int)(i % G) * V::N;
+  float q[V::N][F::ROWS];
 #pragma unroll
-    for (int j = 0; j < V::N; ++j) a[j] = f(a[j], b[j], ch.at(j));
-    V::store(o + V::N * i, a);
+  for (int k = 0; k < F::ROWS; ++k) {
+    const float* row = f.row[k] + c0;
+    if (rt::aligned16(row)) {
+#pragma unroll
+      for (int j = 0; j < V::N; j += 4) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(row + j));
+        q[j][k] = v.x;
+        q[j + 1][k] = v.y;
+        q[j + 2][k] = v.z;
+        q[j + 3][k] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V::N; ++j) q[j][k] = __ldg(row + j);
+    }
   }
+  const uint4* ev = reinterpret_cast<const uint4*>(e);
+  const uint4* rv = reinterpret_cast<const uint4*>(r);
+  uint4* ov = reinterpret_cast<uint4*>(o);
+  auto join = [&](const uint4& ue, const uint4& ur) {
+    float a[V::N], b[V::N];
+    V::unpack(ue, a);
+    V::unpack(ur, b);
+#pragma unroll
+    for (int j = 0; j < V::N; ++j) a[j] = f(a[j], b[j], q[j]);
+    return V::pack(a);
+  };
+  for (; i + (JOIN_U - 1) * stride < nv; i += JOIN_U * stride) {
+    uint4 ue[JOIN_U], ur[JOIN_U];
+#pragma unroll
+    for (int u = 0; u < JOIN_U; ++u) {
+      ue[u] = __ldcs(ev + i + u * stride);
+      ur[u] = __ldcs(rv + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < JOIN_U; ++u) __stcs(ov + i + u * stride, join(ue[u], ur[u]));
+  }
+  for (; i < nv; i += stride) __stcs(ov + i, join(__ldcs(ev + i), __ldcs(rv + i)));
 }
 
+// The join element by element (C % V != 0, or a pointer off a 16-byte
+// boundary, or the last n % V elements): each channel's rows read per
+// element
 template <class T, class F>
 __global__ void join_scalar(const T* __restrict__ e, const T* __restrict__ r,
                             T* __restrict__ o, int64_t begin, int64_t end, int C, F f) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t i = begin + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   ChannelWalk ch(i, stride, C);
-  for (; i < end; i += stride, ch.advance()) rt::st(o + i, f(rt::ld(e + i), rt::ld(r + i), ch.c));
+  for (; i < end; i += stride, ch.advance()) {
+    float q[F::ROWS];
+#pragma unroll
+    for (int k = 0; k < F::ROWS; ++k) q[k] = f.row[k][ch.c];
+    rt::st(o + i, f(rt::ld(e + i), rt::ld(r + i), q));
+  }
 }
 
-// o = f(e, r) over n elements of (n / C, C) views, enqueued on s
+// join_group's blocks resident on one SM, asked once per device
+template <class T, class F>
+inline int join_resident(int* blocks) {
+  static int counts[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 32 && counts[dev] > 0) {
+    *blocks = counts[dev];
+    return 0;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, join_group<T, F>, JOIN_THREADS, 0);
+  if (err != cudaSuccess) return (int)err;
+  if (*blocks < 1) *blocks = 1;
+  if (dev < 32) counts[dev] = *blocks;
+  return 0;
+}
+
+inline int64_t gcd64(int64_t a, int64_t b) {
+  while (b) {
+    const int64_t t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// o = f(e, r) over n elements of (n / C, C) views, enqueued on s: join_group
+// where C % V == 0 and every pointer is 16-byte aligned, on at most one wave
+// of resident blocks whose count is a multiple of G / gcd(G, JOIN_THREADS)
+// (so the grid's stride is a multiple of G), each thread walking U
+// vectors a step; join_scalar for the rest
 template <class T, class F>
 inline int launch_join(const T* e, const T* r, T* o, int64_t n, int C, F f, cudaStream_t s) {
   constexpr int N = rt::Vec16<T>::N;
-  const bool aligned = rt::aligned16(e) && rt::aligned16(r) && rt::aligned16(o);
-  const int64_t nv = aligned ? n / N : 0;
-  if (nv > 0)
-    join_vec<T><<<rt::ew_blocks(nv), rt::EW_THREADS, 0, s>>>(e, r, o, nv, C, f);
+  const bool vec = C % N == 0 && rt::aligned16(e) && rt::aligned16(r) && rt::aligned16(o);
+  const int64_t nv = vec ? n / N : 0;
+  if (nv > 0) {
+    const int G = C / N;
+    int sms = 0, per_sm = 0;
+    int status = wgb::sm_count(&sms);
+    if (status == 0) status = join_resident<T, F>(&per_sm);
+    if (status != 0) return status;
+    const int64_t step = G / gcd64(G, JOIN_THREADS);  // so that G divides the grid's stride
+    const int64_t per_block = (int64_t)JOIN_THREADS * JOIN_U;
+    const int64_t want = (nv + per_block - 1) / per_block, wave = (int64_t)sms * per_sm;
+    int64_t blocks = want < wave ? want : wave;
+    blocks = (blocks + step - 1) / step * step;
+    if (blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+    join_group<T><<<(unsigned)blocks, JOIN_THREADS, 0, s>>>(e, r, o, nv, G, f);
+  }
   if (N * nv < n)
     join_scalar<T><<<rt::ew_blocks(n - N * nv), rt::EW_THREADS, 0, s>>>(e, r, o, N * nv, n, C,
                                                                        f);
   return (int)cudaGetLastError();
+}
+
+// sums (2, C) = the tile partials added per channel (tile_sums)
+__global__ void __launch_bounds__(CT * FL)
+tile_sums_final(const float* __restrict__ part, float* __restrict__ sums, int C,
+                int64_t m_tiles) {
+  float s0, s1;
+  if (tile_sums(part, C, m_tiles, s0, s1)) {
+    const int c = blockIdx.x * CT + threadIdx.x;
+    sums[c] = s0;
+    sums[C + c] = s1;
+  }
 }
 
 // ---------------------------------------------------------------- bf16

@@ -9,7 +9,8 @@
 // Each pass is one template over its storage type, float or __nv_bfloat16:
 // a value is read into a float (ld, Vec16::load), all arithmetic is fp32,
 // and a result is rounded once as it is stored (st, Vec16::store). Vec16
-// moves 16 bytes at a time: four floats or eight bf16.
+// moves 16 bytes at a time: four floats or eight bf16 (unpack and pack
+// convert a 16-byte register value, for loads and stores with cache hints).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,23 +70,28 @@ struct Vec16;
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
+  __device__ static void unpack(const uint4& u, float (&v)[N]) {
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
+  }
+  __device__ static uint4 pack(const float (&v)[N]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
   __device__ static void load(const float* p, float (&v)[N]) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-    v[2] = u.z;
-    v[3] = u.w;
+    unpack(*reinterpret_cast<const uint4*>(p), v);
   }
   __device__ static void store(float* p, const float (&v)[N]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
 };
 
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
+  __device__ static void unpack(const uint4& u, float (&v)[N]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -94,15 +100,21 @@ struct Vec16<__nv_bfloat16> {
       v[2 * i + 1] = f.y;
     }
   }
-  __device__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
+  __device__ static uint4 pack(const float (&v)[N]) {
     uint4 u;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = u;
+    return u;
+  }
+  __device__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
+    unpack(*reinterpret_cast<const uint4*>(p), v);
+  }
+  __device__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
+    *reinterpret_cast<uint4*>(p) = pack(v);
   }
 };
 
-inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+__host__ __device__ inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace rt

@@ -2,9 +2,9 @@
 // read by descriptor from 128-byte-swizzled shared memory, an fp32
 // accumulator, one rounding to bf16 at the end. Its first main loop,
 // `mainloop`, carries K1's bf16 dW (conv.cu) and the bf16 fused conv K8
-// (fused_conv.cuh), and through K8's GEMM the three GEMMs of the bf16 K10
-// (block_fused.cu); its second, `persistent`, K1's bf16 forward and dx and
-// K3's bf16 forward (below).
+// (fused_conv.cuh); its second, `persistent`, K1's bf16 forward and dx and
+// K3's bf16 forward; its third, `specialized`, the three GEMMs of the bf16
+// K10 (block_fused.cu) (both below).
 //
 // C[m, n] = sum_k A(m, k) * B(k, n). One 256-thread block computes a
 // 128 x BN tile (BN = 64 where N <= 64, else 128): two warpgroups of 64
@@ -63,6 +63,19 @@
 // lies). Its folds are bf16_gemm.cuh's (one fp32 add per k16 step, in K
 // order) and its K splits those of the kernels it replaced, so it computes
 // those kernels' bits.
+//
+// K10-bf16's three GEMMs (block_fused.cu) walk the same units on a third
+// loop, `specialized`: the block's threads split by role. Two warpgroups
+// copy (K8's gather: cp.async, then, with a prologue, the prologue in place
+// once the thread's copies land; B by TMA) and hand each slot over on its
+// `full` mbarrier; two multiply (four chained k16 wgmmas a slice, one fold
+// a slice as `mainloop` folds, an arrival on the slot's `empty` mbarrier)
+// and run each unit's epilogue (the staged TMA store, tile_stats) among
+// themselves. So the copies, the prologue and a unit's epilogue run while
+// the tensor cores work on other slices; on `persistent`, whose one thread
+// stream does them all in turn between its products, K10's units came out
+// slower than K8's on `mainloop` (PERF.md). With K8's units and K splits it
+// computes K8's bits.
 //
 // Measured: PERF.md (registers and shared memory from -Xptxas -v,
 // chip_smoke.py's build phase).
@@ -354,15 +367,26 @@ struct PTile {
   // alignment slack
   static constexpr int SMEM =
       STAGES * Tile<BN>::STAGE_BYTES + OUT_BYTES + STAGES * THREADS * 4 + ATOM;
+  // ... and after the record tile_stats' reduction [2][WARPS][BN] (K10):
+  // 210,944 bytes at BN = 128, 226,304 at 64, both within the 232,448 a
+  // block may take
+  static constexpr int STATS_SMEM = SMEM + 2 * (THREADS / 32) * BN * 4;
 };
+static_assert(PTile<64>::STATS_SMEM <= 232448 - 128 && PTile<128>::STATS_SMEM <= 232448 - 128,
+              "the ring, the output tile, the record, the statistics' reduction and two "
+              "mbarriers a slot fit a block's shared memory");
 
+// The persistent block's shared memory: the ring, the output tile, the
+// copies' record of every slot (a copier that has run ahead leaves the fix
+// of the slots before intact), then the statistics' reduction, which only
+// a kernel given PTile::STATS_SMEM bytes may use
 template <int BN, int S = PTile<BN>::STAGES>
 __device__ __forceinline__ Smem<BN> psmem_layout(uint8_t* raw) {
   Smem<BN> s;
   s.ring = raw + ((ATOM - (rt::tc::smem_u32(raw) & (ATOM - 1))) & (ATOM - 1));
-  s.red = nullptr;
   s.info = reinterpret_cast<uint32_t*>(s.ring + S * Tile<BN>::STAGE_BYTES +
                                        PTile<BN, S>::OUT_BYTES);
+  s.red = reinterpret_cast<float*>(s.info + S * THREADS);
   return s;
 }
 
@@ -519,19 +543,34 @@ __device__ __forceinline__ void persistent(Block& blk, const Smem<BN>& sm, uint6
   rt::tc::cp_async_wait<0>();
 }
 
+// The threads that hold a tile's accumulators, THREADS of them: every
+// thread of the block (FIRST = 0: threadIdx.x, __syncthreads) or, in
+// `specialized`, the two multiplying warpgroups from thread FIRST = 256 on
+// (their own named barrier, so the copying warpgroup runs on)
+template <int FIRST>
+struct Crew {
+  __device__ static int tid() { return (int)threadIdx.x - FIRST; }
+  __device__ static void sync() {
+    if constexpr (FIRST == 0)
+      __syncthreads();
+    else
+      asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+  }
+};
+
 // The tile of rows row0 + [0, 128), columns col0 + [0, BN) of the (M, N)
 // bf16 output under ymap (boxes of 64 columns x BM rows, 128-byte swizzle)
 // by TMA from the staged tile `out`: the thread's pairs rounded into the
 // swizzled 128-byte rows (a warp's 32 stores on 32 banks), then thread 0
 // stores it; the previous unit's store has read the stage before it is
-// written again. TMA clips rows past M. Called by every thread.
-template <int BN>
+// written again. TMA clips rows past M. Called by every thread of the crew.
+template <int BN, class C = Crew<0>>
 __device__ __forceinline__ void store_tile_tma(const float (&acc)[Tile<BN>::NACC], uint8_t* out,
                                                const CUtensorMap* ymap, int64_t row0, int col0) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = C::tid(), warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  __syncthreads();
+  C::sync();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + gid + 8 * h;
@@ -542,7 +581,7 @@ __device__ __forceinline__ void store_tile_tma(const float (&acc)[Tile<BN>::NACC
           ((uint32_t)bfg::to_bf16(acc[4 * j + 2 * h + 1]) << 16);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
+  C::sync();
   if (tid == 0) {
 #pragma unroll
     for (int hb = 0; hb < BN / 64; ++hb)
@@ -555,9 +594,10 @@ __device__ __forceinline__ void store_tile_tma(const float (&acc)[Tile<BN>::NACC
   }
 }
 
-// the output tiles' TMA stores complete (thread 0 issued them)
+// the output tiles' TMA stores complete (the crew's thread 0 issued them)
+template <class C = Crew<0>>
 __device__ __forceinline__ void store_tma_wait() {
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  if (C::tid() == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The tile of rows row0 + [0, 128), columns col0 + [0, BN) of an (M, N)
@@ -605,11 +645,11 @@ struct SameRow {
 // output, each thread its own pairs straight from its registers: rounded to
 // bf16 into y (row-major, stride N; tile row m at y's row row_of(m)), or,
 // with part, fp32 into part. Rows past M are not written.
-template <int BN, class RowOf = SameRow>
+template <int BN, class RowOf = SameRow, class C = Crew<0>>
 __device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], int64_t row0,
                                             int col0, int64_t M, int N, uint16_t* y, float* part,
                                             RowOf row_of = {}) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = C::tid() >> 5, lane = C::tid() & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const bool pairs = N % 2 == 0;
 #pragma unroll
@@ -702,13 +742,13 @@ __device__ __forceinline__ void store_tile(const float (&acc)[Tile<BN>::NACC], c
 
 // The tile's per-column [sum C, sum C^2] over its valid rows into
 // tile_sums[(m_tile * 2 + {0, 1}) * N + col], in one fixed order. Called by
-// every thread of the block.
-template <int BN>
+// every thread of the crew.
+template <int BN, class C = Crew<0>>
 __device__ __forceinline__ void tile_stats(const float (&acc)[Tile<BN>::NACC], const Smem<BN>& sm,
                                            int64_t m_tile, int col0, int64_t M, int N,
                                            float* __restrict__ tile_sums) {
   constexpr int WARPS = THREADS / 32;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = C::tid(), warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int64_t r0 = m_tile * BM + warp * 16 + gid;
   const bool ok0 = r0 < M, ok1 = r0 + 8 < M;
@@ -742,7 +782,7 @@ __device__ __forceinline__ void tile_stats(const float (&acc)[Tile<BN>::NACC], c
         sm.red[(WARPS + warp) * BN + col] = q[j][e];
       }
   }
-  __syncthreads();
+  C::sync();
   if (tid < 2 * BN) {
     const int which = tid / BN, col = tid % BN;
     float t = 0.f;
@@ -761,6 +801,135 @@ __device__ __forceinline__ void init_barriers(uint64_t* full) {
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// ------------------------------------------------ the specialized main loop
+
+constexpr int COPIERS = 256;                   // two copying warpgroups, threads 0-255
+constexpr int WS_THREADS = COPIERS + THREADS;  // ... and two multiplying ones
+// registers a thread after the split (setmaxnreg): the copiers give up what
+// the multipliers' accumulators take, 65,536 in all
+constexpr int COPY_REGS = 88;
+constexpr int MUL_REGS = (65536 / 32 - COPIERS / 32 * COPY_REGS) / (THREADS / 32) / 8 * 8;
+static_assert(MUL_REGS == 168 && COPIERS * COPY_REGS + THREADS * MUL_REGS <= 65536, "registers");
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(rt::tc::smem_u32(bar))
+               : "memory");
+}
+
+// full[s] completes when the slot's TMA bytes have landed, every copier has
+// handed its part over and thread 0 has armed it; empty[s] when every
+// multiplying thread is done reading the slot
+template <int S>
+__device__ __forceinline__ void init_ws_barriers(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      rt::wg::mbar_init(&full[s], COPIERS + 1);
+      rt::wg::mbar_init(&empty[s], THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The specialized main loop over the units of `un` (unit u on block u %
+// gridDim.x, WS_THREADS threads), a ring of S slots. The copiers (threads
+// 0-255, COPY_REGS registers each): blk.start(row0, col0, k0, k1, z) points
+// them at a unit, blk.load(slot, kt) starts slice kt of it once the
+// multipliers have released the slot (empty), and the thread hands its part
+// of the slot over to full: with kFix, D = S - 2 slices later, once its own
+// copies have landed, after blk.fix(slot) (K10's prologue, in place) and a
+// proxy fence; without, at once by blk.publish(&full[slot]), an arrival
+// once its copies land. full counts COPIERS + 1 arrivals (thread 0 adds one
+// as it arms the slot's TMA bytes). The multipliers (threads 256-511,
+// MUL_REGS registers, warpgroup w - 2 taking A's rows 64 (w - 2) on,
+// K-major; B MN-major), per slice: the four k16 wgmmas chained into a fresh
+// accumulator (scale-d 0 on the first), retired and folded into the unit's
+// sum by one fp32 add, as `mainloop` folds, and an arrival on empty; then
+// epi(acc, row0, col0, z) among themselves (Crew<COPIERS>'s index and
+// barrier). So the copies, the prologue and a unit's epilogue run beside
+// the products. No wgmma group is in flight across a branch (ptxas C7518).
+// D < S, so the copiers never wait for a slot whose last slice they have
+// not handed over; D = S - 2 leaves a slice between a hand-over and the
+// slot's next filling (at S - 1 the two sides ran in lock step, slower).
+template <int BN, int S, bool kFix, class Block, class Epi>
+__device__ __forceinline__ void specialized(Block& blk, const Smem<BN>& sm, uint64_t* full,
+                                            uint64_t* empty, const Units& un, Epi&& epi) {
+  using T = Tile<BN>;
+  constexpr int D = S - 2;
+  const int total = (int)un.count();
+  if (threadIdx.x < COPIERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(COPY_REGS));
+    int64_t g = 0, f = 0;  // slices issued, slices handed over (kFix)
+    auto hand_over = [&]() {
+      const int slot = (int)(f % S);
+      blk.fix(slot);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full[slot]);
+      ++f;
+    };
+    for (int u = blockIdx.x; u < total; u += gridDim.x) {
+      int64_t row0, k0, k1;
+      int col0, z, nk;
+      un.at<BN>(u, row0, col0, z, k0, k1, nk);
+      blk.start(row0, col0, k0, k1, z);
+      for (int kt = 0; kt < nk; ++kt, ++g) {
+        const int slot = (int)(g % S);
+        if (g >= S) rt::wg::mbar_wait(&empty[slot], (uint32_t)(g / S + 1) & 1);
+        blk.load(slot, kt);
+        if constexpr (kFix) {
+          rt::tc::cp_async_commit();
+          if (g - f >= D) {
+            rt::tc::cp_async_wait<D>();  // slice f's copies (D groups newer) have landed
+            hand_over();
+          }
+        } else {
+          blk.publish(&full[slot]);
+        }
+      }
+    }
+    if constexpr (kFix) {
+      rt::tc::cp_async_wait<0>();
+      while (f < g) hand_over();
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MUL_REGS));
+  const uint32_t wg_a = ((int)threadIdx.x / 128 - COPIERS / 128) * HALF;
+  float acc[T::NACC], d[T::NACC];
+#pragma unroll
+  for (int i = 0; i < T::NACC; ++i) d[i] = 0.f;
+  int64_t g = 0;  // slices consumed
+  for (int u = blockIdx.x; u < total; u += gridDim.x) {
+    int64_t row0, k0, k1;
+    int col0, z, nk;
+    un.at<BN>(u, row0, col0, z, k0, k1, nk);
+#pragma unroll
+    for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt, ++g) {
+      const int slot = (int)(g % S);
+      rt::wg::mbar_wait(&full[slot], (uint32_t)(g / S) & 1);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t base = rt::tc::smem_u32(sm.slot(slot)), b = base + T::A_BYTES;
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int ks = 0; ks < BK / 16; ++ks)
+        Mma<BN, 0, 1>::run(d, desc_a<A_K>(base + wg_a, ks), desc(b + ks * 2 * ATOM, HALF), ks);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) {
+        rt::wg::fence_operand(d[i]);
+        acc[i] = __fadd_rn(acc[i], d[i]);
+      }
+      mbar_arrive(&empty[slot]);
+    }
+    epi(acc, row0, col0, z);
+  }
 }
 
 // ------------------------------------------------------------ host side

@@ -226,3 +226,60 @@ def test_block_fused_bf16_plans_its_gemms_on_the_wgmma_core(launches):
     assert name == "rt_block_fused_bf16"
     assert list(args[-3:]) == [build.wgb_split(m, cout, kk)
                                for cout, kk in ((c, 4 * c), (c, 9 * c), (4 * c, c))]
+
+
+# ResNet-50's identity blocks: (H, C) of stages 1-4, x (N, H, H, 4C)
+IDENTITY_BLOCKS = [(56, 64), (28, 128), (14, 256), (7, 512)]
+
+
+@pytest.mark.parametrize("n", [2, 32])
+@pytest.mark.parametrize("h,c", IDENTITY_BLOCKS, ids=[f"{h}^2 C={c}" for h, c in IDENTITY_BLOCKS])
+def test_block_fused_bf16_hands_the_library_its_persistent_plan(launches, n, h, c):
+    """K10-bf16's wrapper at each ResNet-50 identity-block shape: the bf16
+    entry point; K8's K splits (wgb_split) of the three stage GEMMs, which
+    the persistent loop keeps unit for unit; the tile partials at the
+    scratch's start, one [Σ, Σ²] row pair per 128-row tile of the widest
+    stage; the split-K partials from the next 256-byte boundary, as many as
+    the largest split stage needs (None where no stage splits); and each
+    stage's units (m tiles x n tiles x splits) below 2^31."""
+    c4, m = 4 * c, n * h * h
+    x = torch.zeros((n, h, h, c4), dtype=torch.bfloat16)
+    ws = (torch.zeros((c4, c)), torch.zeros((3, 3, c, c)), torch.zeros((c, c4)))
+    rows = [torch.ones(c), torch.zeros(c)] * 2 + [torch.ones(c4), torch.zeros(c4)]
+    block_fused.block_fused_forward(x, *ws, *rows, 1e-5, None)
+    (name, args), = launches
+    gemms = ((c, c4), (c, 9 * c), (c4, c))
+    splits = [build.wgb_split(m, cout, k) for cout, k in gemms]
+    assert name == "rt_block_fused_bf16" and len(args) == 31
+    assert list(args[-3:]) == splits
+    part_floats = -(-m // 128) * 2 * c4
+    ws_floats = max((sp * m * cout for sp, (cout, _) in zip(splits, gemms) if sp > 1),
+                    default=0)
+    units = [-(-m // 128) * -(-cout // build.wgb_tile_n(cout)) * sp
+             for sp, (cout, _) in zip(splits, gemms)]
+    assert block_fused.plan(m, c4, c, True) == (splits, (part_floats, ws_floats, 0), units)
+    part, ws_ptr = args[18], args[19]
+    if ws_floats:
+        assert ws_ptr - part == 4 * -(-part_floats // 64) * 64
+    else:
+        assert ws_ptr is None
+    assert max(units) < 2**31
+
+
+def test_block_fused_bf16_refuses_a_stage_beyond_the_unit_index(launches, monkeypatch):
+    """A stage of 2^31 units or more cannot run on the persistent loop: the
+    wrapper raises with the count and launches nothing (no fallback)."""
+    c = 8
+    plan = block_fused.plan
+
+    def huge(m, c4, c_, bf16):
+        splits, sizes, units = plan(m, c4, c_, bf16)
+        return splits, sizes, [2**31] + units[1:]
+
+    monkeypatch.setattr(block_fused, "plan", huge)
+    x = torch.zeros((1, 4, 4, 4 * c), dtype=torch.bfloat16)
+    ws = (torch.zeros((4 * c, c)), torch.zeros((3, 3, c, c)), torch.zeros((c, 4 * c)))
+    rows = [torch.ones(c), torch.zeros(c)] * 2 + [torch.ones(4 * c), torch.zeros(4 * c)]
+    with pytest.raises(ValueError, match="2\\^31"):
+        block_fused.block_fused_forward(x, *ws, *rows, 1e-5, None)
+    assert launches == []

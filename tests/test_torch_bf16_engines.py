@@ -280,6 +280,40 @@ def test_fused_join_bf16_matches_pallas(rng, no_launch, shape, cap):
         close(g, want, name)
 
 
+# (label, shape, storage offset in elements, cap): the widths where K9's
+# kernel parts its paths (C a multiple of 8 with C / 8 dividing its block or
+# not, C not a multiple of 8, an odd element count, a start off a 16-byte
+# boundary), the plain version's on the CPU
+JOIN_WIDTHS = [("C=8", (2, 3, 3, 8), 0, None), ("C=9", (2, 3, 3, 9), 0, None),
+               ("C=72", (2, 3, 3, 72), 0, 0.5), ("C=2048", (2, 2, 2, 2048), 0, None),
+               ("odd count (1,3,5,9)", (1, 3, 5, 9), 0, None),
+               ("storage offset 1", (2, 3, 3, 72), 1, None)]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("label,shape,offset,cap", JOIN_WIDTHS, ids=[w[0] for w in JOIN_WIDTHS])
+def test_fused_join_widths_match_pallas(rng, no_launch, dtype, label, shape, offset, cap):
+    """K9's plain version (the wrapper on CPU tensors) against the Pallas
+    join in interpret mode at each width, e and r bf16 or fp32 (bf16: one
+    ulp + 1e-5 of max; fp32: 1e-5 of max), the rows fp32."""
+    from resnet_tpu.kernels.fused_conv import fused_join as j_fused_join
+
+    c, numel = shape[-1], int(np.prod(shape))
+    e, r = (rng.normal(size=numel + offset).astype(np.float32) for _ in range(2))
+    if dtype == "bf16":
+        e, r = _bf(e), _bf(r)
+    se, te = _rows(rng, c)
+    sr, tr = _rows(rng, c)
+    td, jd = (BF, jnp.bfloat16) if dtype == "bf16" else (torch.float32, jnp.float32)
+    te_, tr_ = (torch.from_numpy(a).to(td)[offset:].view(shape) for a in (e, r))
+    assert te_.storage_offset() == offset and te_.is_contiguous()
+    got = fused_conv.fused_join(te_, *map(torch.from_numpy, (se, te)), tr_,
+                                *map(torch.from_numpy, (sr, tr)), cap)
+    want = j_fused_join(jnp.asarray(e[offset:].reshape(shape), jd), se, te,
+                        jnp.asarray(r[offset:].reshape(shape), jd), sr, tr, True, cap)
+    close(got, want, label)
+
+
 # --------------------------------------------------------------------- K10
 
 

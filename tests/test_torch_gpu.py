@@ -1075,3 +1075,121 @@ def test_matmul_bf16_routes_on_cuda(cuda, monkeypatch, m, k, n, offset, route):
     assert torch.equal(got, matmul.matmul(a, b))
     if offset:
         assert torch.equal(got, matmul.matmul(a, b.clone()))
+
+
+def _stage_gemms():
+    """(label, batch, H, Cin, Cout, k) of the three GEMMs of each
+    BF16_BLOCK_FUSED_CASES block without a cap: the four identity-block
+    shapes at batch 32 (the tap loader), the ragged C = 9 block and the
+    split-K C = 129 block (2-byte loads); and a C = 72 block, whose widths
+    are multiples of 8 but not of 64 (K8's cp.async gather)."""
+    blocks = checks.BF16_BLOCK_FUSED_CASES + [("C=72 (2,6,6,288)", (2, 6, 6, 288), 72, None)]
+    for label, (n, h, _, c4), c, cap in blocks:
+        if cap is None:
+            for what, cin, cout, k in (("reduce", c4, c, 1), ("3x3", c, c, 3),
+                                       ("expand", c, c4, 1)):
+                yield f"{label} {what}", n, h, cin, cout, k
+
+
+STAGE_GEMMS = list(_stage_gemms())
+
+
+@pytest.mark.parametrize("case", STAGE_GEMMS, ids=[c[0] for c in STAGE_GEMMS])
+def test_block_fused_bf16_stage_gemm_has_k8_bits_on_cuda(cuda, case):
+    """K10-bf16's stage GEMM on the persistent loop (rt_block_gemm_bf16)
+    gives y, the tile partials and the sums bit-equal to K8-bf16's GEMM on
+    `mainloop` (rt_fused_conv_bf16) on the same inputs at the same K
+    splits (build.wgb_split), the prologue on with a scale and a shift that
+    move every value (shift > 0 on about half the channels: a halo tap given
+    act(shift), or a slot fixed with another slot's channels, shows). The
+    partials start from different fills in the two, so an entry neither
+    writes shows too; and y holds to the plain version."""
+    from resnet_tpu_torch.kernels import build, fused_conv
+
+    _, n, h, cin, cout, k = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(n, h, h, cin, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(k, k, cin, cout, generator=gen, device="cuda")
+         * (2.0 / (k * k * cin)) ** 0.5).to(torch.bfloat16)
+    scale = 1 + 0.2 * torch.randn(cin, generator=gen, device="cuda")
+    shift = 0.5 * torch.randn(cin, generator=gen, device="cuda")
+    m = n * h * h
+    splits = build.wgb_split(m, cout, k * k * cin)
+    outs = []
+    for entry, fill in (("rt_fused_conv_bf16", 0.0), ("rt_block_gemm_bf16", -1.0)):
+        y = torch.empty(n, h, h, cout, dtype=torch.bfloat16, device="cuda")
+        part = torch.full((-(-m // build.WGB_BM) * 2 * cout,), fill, device="cuda")
+        sums = torch.empty(2, cout, device="cuda")
+        ws = torch.empty(splits * m * cout, device="cuda") if splits > 1 else None
+        build.launch(entry, x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                     y.data_ptr(), part.data_ptr(), sums.data_ptr(), n, h, h, cin, cout, k, 1,
+                     k // 2, k // 2, h, h, 1, 1, 0, 0.0, None if ws is None else ws.data_ptr(),
+                     splits, device=x.device)
+        outs.append((y, part, sums))
+    torch.cuda.synchronize()
+    for got, want in zip(outs[1], outs[0]):
+        assert torch.equal(got, want)
+    _held_bf16(outs[1][0], fused_conv.fused_conv_reference(x, w, scale, shift, 1)[0])
+
+
+@pytest.mark.parametrize("case", checks.BF16_BLOCK_FUSED_CASES,
+                         ids=[c[0] for c in checks.BF16_BLOCK_FUSED_CASES])
+def test_block_fused_bf16_repeats_bit_for_bit(cuda, case):
+    """K10-bf16 twice on the same inputs: out, r, s, e, the three sums and
+    the six rows give the same bits (the persistent loop's units run on
+    whichever block, each unit's sum in one fixed order; no atomics)."""
+    from resnet_tpu_torch.kernels import block_fused
+
+    _, (n, h, wd, c4), c, cap = case
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device="cuda")
+
+    x = torch.clamp_min(randn(n, h, wd, c4), 0.0).to(torch.bfloat16)
+    ws = (randn(c4, c, scale=(2.0 / c4) ** 0.5), randn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5),
+          randn(c, c4, scale=(2.0 / c) ** 0.5))
+    rows = [t for width in (c, c, c4) for t in (1 + randn(width, scale=0.2),
+                                                randn(width, scale=0.5))]
+    first = block_fused.block_fused_forward(x, *ws, *rows, 1e-7, cap)
+    again = block_fused.block_fused_forward(x, *ws, *rows, 1e-7, cap)
+    flat = [t for out in (first, again) for t in (*out[:7], *out[7])]
+    half = len(flat) // 2
+    assert all(torch.equal(a, b) for a, b in zip(flat[:half], flat[half:]))
+
+
+# (label, shape, storage offset in elements, cap): K9's join body at the
+# widths where its paths part: C a multiple of the vector (8 bf16, 4 fp32)
+# with G = C / 8 dividing the block (8, 256, 2048) or not (72: G = 9), C
+# not (9: element by element), a misaligned start, a cap
+JOIN_BITS = [("C=8", (4, 7, 7, 8), 0, None), ("C=9", (3, 7, 7, 9), 0, None),
+             ("C=72", (4, 7, 7, 72), 0, None), ("C=256", (32, 56, 56, 256), 0, None),
+             ("C=2048", (32, 7, 7, 2048), 0, None),
+             ("misaligned C=2048", (8, 7, 7, 2048), 1, None),
+             ("cap 10 C=1024", (32, 14, 14, 1024), 0, 10.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("label,shape,offset,cap", JOIN_BITS, ids=[c[0] for c in JOIN_BITS])
+def test_fused_join_is_its_plain_version_bit_for_bit_on_cuda(cuda, dtype, label, shape,
+                                                              offset, cap):
+    """K9 (rt_fused_join_{f32,bf16}) rounds every product and sum as the
+    plain torch ops do, on the vector body and the element-by-element one
+    alike: the same bits as fused_join_reference."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    numel, c = torch.Size(shape).numel(), shape[-1]
+
+    def tensor():
+        flat = (4 * torch.randn(numel + offset, generator=gen, device="cuda")).to(dtype)
+        return flat[offset:].view(shape)
+
+    e, r = tensor(), tensor()
+    assert (e.data_ptr() % 16 != 0) == (offset != 0)
+    rows = [1 + 0.2 * torch.randn(c, generator=gen, device="cuda") if i % 2 == 0
+            else 0.5 * torch.randn(c, generator=gen, device="cuda") for i in range(4)]
+    before = fused_conv.JOIN_LAUNCHES_BF16 + fused_conv.JOIN_LAUNCHES
+    got = fused_conv.fused_join(e, rows[0], rows[1], r, rows[2], rows[3], cap)
+    assert fused_conv.JOIN_LAUNCHES_BF16 + fused_conv.JOIN_LAUNCHES == before + 1
+    assert torch.equal(got, fused_conv.fused_join_reference(e, *rows[:2], r, *rows[2:], cap))
