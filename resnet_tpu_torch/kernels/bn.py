@@ -30,11 +30,17 @@ launches ``rt_bn_apply_f32`` (``csrc/bn.cu``); on a CPU tensor the plain
 K6, the backward. ``batch_norm_act(x2d, gamma, beta, eps, relu)`` is the
 training-mode BN(+ReLU) of bn.py:250-285: forward K4 then K5, returning
 (y, mean, var) with the statistics not differentiated; backward
-``bn_bwd``, the two-pass reduction s1 = Σdy_g, s2 = Σdy_g·x̂ (dy gated by the
-recomputed ReLU) then dx = γ·inv_std·(dy_g − s1/M − x̂·s2/M), dγ = s2,
-dβ = s1, launched as ``rt_bn_bwd_f32`` on a CUDA tensor, ``bn_bwd_reference``
-on a CPU one. ``bn_act_reference`` (bn.py:288-299) is plain torch ops that
-autograd differentiates, the yardstick of the whole.
+``bn_bwd``: the reduction s1 = Σdy_g, s2 = Σdy_g·x̂ (dy gated by the
+recomputed ReLU), then dx = γ·inv_std·(dy_g − s1/M − x̂·s2/M), dγ = s2,
+dβ = s1, launched as ``rt_bn_bwd_f32`` on a CUDA tensor (``csrc/bn.cu``:
+K4's layout and ticketed finish, then the dx pass over each thread's rows
+in reverse, so that what the L2 still holds is read first; one cooperative
+launch where the grid fits one block a SM), ``bn_bwd_reference`` on a CPU
+one. Its plan (``bn_bwd_plan``) is cached per (M, C, element size, load
+width, SMs); it shares K4's workspace per (device, stream), and each call
+allocates dx and one (2, C) tensor whose rows are dβ and dγ.
+``bn_act_reference`` (bn.py:288-299) is plain torch ops that autograd
+differentiates, the yardstick of the whole.
 
 ``mean_var_from_sums`` (the statistics' epilogue) and ``bn_apply_bwd`` (the
 apply's backward in torch ops) are shared with the fused engine's
@@ -55,7 +61,7 @@ them). The plain versions compute in fp32 on the upcast values and round
 where the kernels round.
 
 ``LAUNCHES`` counts fp32 K4 launches, ``APPLY_LAUNCHES`` K5 and
-``BWD_LAUNCHES`` K6 (one per backward, its three kernels together); the
+``BWD_LAUNCHES`` K6 (one per backward, its one or two launches together); the
 ``*_BF16`` counters the bf16 ones.
 """
 
@@ -75,11 +81,13 @@ APPLY_LAUNCHES = 0
 APPLY_LAUNCHES_BF16 = 0
 BWD_LAUNCHES = 0
 BWD_LAUNCHES_BF16 = 0
-_CHANNEL_TILE = 32  # channels of a K6 reduce block (csrc/bn.cu CT)
-_TARGET_BLOCKS = 132 * 8  # K6: about eight first-pass blocks per SM
 _MAX_CHUNKS = 65535  # gridDim.y
 # K4's block sizes (csrc/moments.cu LARGE, SMALL)
 _MOMENTS_THREADS = (1024, 256)
+# K6's block size and rows in flight a thread (csrc/bn.cu BWD_THREADS,
+# BWD_ROWS): one block a SM
+_BWD_THREADS = 512
+_BWD_ROWS = 4
 
 
 class MomentsPlan(NamedTuple):
@@ -121,11 +129,6 @@ def _chunk_rows(m: int, tiles: int, target: int) -> int:
     return max(64, -(-rows // 8) * 8, -(-m // _MAX_CHUNKS))
 
 
-def chunk_rows(m: int, c: int) -> int:
-    """Rows per first-pass block of K6's reduction (``csrc/bn.cu``)."""
-    return _chunk_rows(m, -(-c // _CHANNEL_TILE), _TARGET_BLOCKS)
-
-
 @functools.lru_cache(maxsize=1024)
 def moments_plan(m: int, c: int, vec: int) -> MomentsPlan:
     """K4's launch for an (m, c) view read ``vec`` channels at a time: ctv,
@@ -158,23 +161,25 @@ def vector_width(x2d: torch.Tensor) -> int:
     return 4 if x2d.shape[1] % 4 == 0 and x2d.data_ptr() % (4 * x2d.element_size()) == 0 else 1
 
 
-# (device index, stream) -> [chunk partials, tile tickets]
+# (device index, stream) -> [chunk partials, tile tickets], shared by K4
+# and K6
 _WORKSPACES: Dict[Tuple[int, int], list] = {}
 
 
-def _workspace(index: int, plan: MomentsPlan, stream: int = 0) -> list:
-    """The chunk partials and the zeroed tile tickets of one stream, grown
-    to fit the plan. The kernel leaves its tickets at 0, so the calls on one
-    stream share them; a workspace replaced by a larger one is freed in
-    stream order, after the calls that use it."""
+def _workspace(index: int, part: int, tickets: int, stream: int = 0) -> list:
+    """The chunk partials (``part`` floats at least) and the zeroed tile
+    tickets (``tickets`` at least) of one stream. The kernels leave their
+    tickets at 0, so the calls on one stream share them; a workspace
+    replaced by a larger one is freed in stream order, after the calls that
+    use it."""
     ws = _WORKSPACES.get((index, stream))
     if ws is None:
         ws = _WORKSPACES[(index, stream)] = [None, None]
-    if ws[0] is None or ws[0].numel() < plan.part:
-        ws[0] = torch.empty(max(plan.part, 1 << 16), dtype=torch.float32,
+    if ws[0] is None or ws[0].numel() < part:
+        ws[0] = torch.empty(max(part, 1 << 16), dtype=torch.float32,
                             device=torch.device("cuda", index))
-    if ws[1] is None or ws[1].numel() < plan.tiles:
-        ws[1] = torch.zeros(max(plan.tiles, 256), dtype=torch.int32,
+    if ws[1] is None or ws[1].numel() < tickets:
+        ws[1] = torch.zeros(max(tickets, 256), dtype=torch.int32,
                             device=torch.device("cuda", index))
     return ws
 
@@ -183,7 +188,7 @@ def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -
     """Enqueue K4 on x2d's device and current stream, mean and var into out."""
     index = x2d.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
-    part, tickets = _workspace(index, plan, stream)
+    part, tickets = _workspace(index, plan.part, plan.tiles, stream)
     build.launch_on(index, stream, build.entry(build.entry_name("moments", x2d)), x2d.data_ptr(),
                     part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2d.shape[0],
                     x2d.shape[1], plan.chunk, plan.n_chunks, vec, plan.ctv, plan.threads)
@@ -326,6 +331,85 @@ def bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
             s1.to(gamma.dtype if beta is None else beta.dtype))
 
 
+class BwdPlan(NamedTuple):
+    """A K6 launch: ``vec`` values a lane (a 16-byte access, or 1), ``ctv``
+    lanes a channel tile, ``tiles`` channel tiles, ``chunk`` rows a block,
+    ``n_chunks`` blocks a tile, ``part`` floats of chunk partials,
+    ``tickets`` counters (two a tile), and ``fused``: one cooperative
+    launch, or two."""
+    vec: int
+    ctv: int
+    tiles: int
+    chunk: int
+    n_chunks: int
+    part: int
+    tickets: int
+    fused: bool
+
+
+def bwd_vector_width(x2d: torch.Tensor, dy: torch.Tensor) -> int:
+    """The values a K6 lane reads at once: 16 bytes (4 fp32 or 8 bf16) where
+    C is a multiple of that and x and dy start on 16-byte boundaries (dx, a
+    new tensor, always does), else 1."""
+    n = 16 // x2d.element_size()
+    aligned = x2d.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    return n if aligned and x2d.shape[1] % n == 0 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def bn_bwd_plan(m: int, c: int, vec: int, sms: int) -> BwdPlan:
+    """K6's launch for an (m, c) view read ``vec`` values a lane on a card
+    of ``sms`` SMs. ctv is the power of two that covers c / vec, at most 8
+    lanes of 16 bytes or 32 of one value, so that a tile is 128 bytes of a
+    row (32 fp32 or 64 bf16 channels, 32 channels a value at a time). Where
+    the tiles fit one block a SM, each tile gets as many row chunks as fill
+    the SMs in that one wave (``fused``: the reduction and the dx pass in
+    one cooperative launch); else about four blocks a SM in two launches.
+    A chunk is a multiple of 8 rows and gives each row lane at least
+    BWD_ROWS rows. A function of the shapes and the card only, so a call
+    repeats exactly."""
+    lanes = -(-c // vec)
+    ctv = min(8 if vec > 1 else 32, 1 << (lanes - 1).bit_length())
+    tiles = -(-c // (vec * ctv))
+    fused = tiles <= sms
+    want = sms // tiles if fused else -(-4 * sms // tiles)
+    rows = max(-(-m // want), _BWD_ROWS * (_BWD_THREADS // ctv), -(-m // _MAX_CHUNKS))
+    chunk = -(-rows // 8) * 8
+    n_chunks = -(-m // chunk)
+    return BwdPlan(vec, ctv, tiles, chunk, n_chunks, 2 * n_chunks * c, 2 * tiles, fused)
+
+
+def bwd_rows(m: int, plan: BwdPlan, chunk: int, row_lane: int) -> Tuple[range, range]:
+    """The rows one K6 thread (row lane ``row_lane`` of a block of chunk
+    ``chunk``) sums, in its order, and the rows it writes dx of, in its
+    order: the same rows backwards (``csrc/bn.cu``'s loops, for the tests)."""
+    row_lanes = _BWD_THREADS // plan.ctv
+    first = chunk * plan.chunk + row_lane
+    r1 = min(m, (chunk + 1) * plan.chunk)
+    if first >= r1:
+        return range(0), range(0)
+    last = first + (r1 - 1 - first) // row_lanes * row_lanes
+    return range(first, r1, row_lanes), range(last, first - 1, -row_lanes)
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_launch(x2d, dy, rows, sums, dx, plan: BwdPlan, relu: bool) -> None:
+    """Enqueue K6 on x2d's device and current stream: dx, and s1 and s2 into
+    the rows of sums."""
+    index = x2d.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    part, tickets = _workspace(index, plan.part, plan.tickets, stream)
+    build.launch_on(index, stream, build.entry(build.entry_name("bn_bwd", x2d)),
+                    x2d.data_ptr(), dy.data_ptr(), *(r.data_ptr() for r in rows),
+                    part.data_ptr(), tickets.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+                    x2d.shape[0], x2d.shape[1], plan.chunk, plan.n_chunks, int(plan.vec > 1),
+                    plan.ctv, int(plan.fused), int(relu))
+
+
 def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
     """(dx, dgamma, dbeta) of ``batch_norm_act`` at the output gradient dy,
     from its input x2d (M, C) and the forward's mean and inv_std; dx in
@@ -339,16 +423,13 @@ def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
         return bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, relu=relu)
     if m == 0 or c == 0:
         raise ValueError(f"bn_bwd: empty input {tuple(x2d.shape)}")
-    chunk = chunk_rows(m, c)
-    n_chunks = -(-m // chunk)
-    part = torch.empty((n_chunks, 2, c), dtype=torch.float32, device=x2d.device)
-    aux = torch.empty((5, c), dtype=torch.float32, device=x2d.device)
+    plan = bn_bwd_plan(m, c, bwd_vector_width(x2d, dy), _sms(x2d.device.index))
     dx = torch.empty_like(x2d)
-    build.launch(build.entry_name("bn_bwd", x2d), x2d.data_ptr(), dy.data_ptr(),
-                 *(r.data_ptr() for r in rows), part.data_ptr(), aux.data_ptr(),
-                 dx.data_ptr(), m, c, chunk, n_chunks, int(relu), device=x2d.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
+    _bwd_launch(x2d, dy, rows, sums, dx, plan, relu)
     build.count(__name__, "BWD_LAUNCHES", x2d)
-    return dx, aux[1].to(gamma.dtype), aux[0].to(beta.dtype)
+    dbeta, dgamma = sums.unbind(0)
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
 
 
 class _BatchNormAct(torch.autograd.Function):

@@ -55,7 +55,9 @@ SIGNATURES = {
     # b, bs, K, N: K10's K-major tf32 split of one weight
     "rt_split_tf32_f32": [_P, _P, _I, _I, _P],
     "rt_bn_apply_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
-    "rt_bn_bwd_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
+    # x, dy, mean, inv, gamma, beta, part, tickets, sums, dx, M, C, chunk,
+    # n_chunks, vec, ctv, fused, relu
+    "rt_bn_bwd_f32": [*[_P] * 10, _I64, _I, _I64, _I, _I, _I, _I, _I, _P],
     # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)
     "rt_conv2d_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
@@ -94,7 +96,7 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
     "rt_fused_join_bf16": [_P, _P, _P, _P, _P, _P, _P, _I64, _I, _I, _F, _P],
     "rt_bn_apply_bf16": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
-    "rt_bn_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I, _I64, _I, _I, _P],
+    "rt_bn_bwd_bf16": [*[_P] * 10, _I64, _I, _I64, _I, _I, _I, _I, _I, _P],
     # K10 on bf16: rt_block_fused_f32's arguments without wsplit (the bf16
     # weights need no split)
     "rt_block_fused_bf16": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],

@@ -73,16 +73,16 @@ bf16 (the conv alone); K10's bound likewise; K5's, K6's and K9's their
 bytes at 2 a value, K6's library call ``native_batch_norm_backward`` on the
 bf16 tensors.
 
-The split-K GEMMs, the FC backward, the BN statistics, K8 and K10
-(``REPEAT_KERNELS``) are also run a second time on the same inputs and must
-give the same bits: their partials are added in split order, or in one
-fixed order inside a block, with no atomics in any sum. A case marked
+The split-K GEMMs, the FC backward, the BN statistics, the BN backward
+(K6), K8 and K10 (``REPEAT_KERNELS``) are also run a second time on the
+same inputs and must give the same bits: their partials are added in split
+order, or in one fixed order inside a block, with no atomics in any sum. A case marked
 exact (the fused conv's halo case, integer-valued so that every order of
 summation is exact) must match its plain version bit for bit, in fp32 and
 in bf16.
 
-Every bf16 case, and each case of the fp32 join and whole-block kernel
-(``HASHED``), also reports ``out_hash``, a digest of its kernel's outputs'
+Every bf16 case, and each case of the fp32 join, whole-block kernel, BN
+statistics, apply and backward (``HASHED``), also reports ``out_hash``, a digest of its kernel's outputs'
 bits (``output_hash``): this file copied into another tree of the package
 makes the same inputs there, so two trees' kernels are held to the same
 bits by comparing their lines.
@@ -362,16 +362,16 @@ BF16_BN_BWD_CASES = BN_BWD_CASES
 BF16_BLOCK_FUSED_CASES = [(label.replace(")", f") x{n}", 1), *rest) for (label, *rest), n in
                           zip(BLOCK_FUSED_CASES[:4], (2, 3, 5, 2))] + BLOCK_FUSED_CASES[4:]
 
-# the split-K GEMMs, the FC backward and the BN statistics, run twice per
-# case and held to the same bits
-REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments",
+# the split-K GEMMs, the FC backward and the BN statistics and backward,
+# run twice per case and held to the same bits
+REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments", "bn_bwd",
                   "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
                   "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16",
                   "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16")
 
 # the fp32 kernels whose cases carry an output hash beside the bf16 ones':
-# those that run K9's join body
-HASHED = ("fused_join", "block_fused")
+# those that run K9's join body, and K4, K5 and K6
+HASHED = ("fused_join", "block_fused", "moments", "bias_act", "bn_bwd")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {

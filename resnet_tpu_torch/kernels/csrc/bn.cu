@@ -19,15 +19,35 @@
 //        dx = gamma * inv_std * (dy_g - s1 / M - x_hat * s2 / M),
 //        dgamma = s2, dbeta = s1.
 //      rt_bn_bwd_f32: the TPU reduction carries (s1, s2) in VMEM along a
-//      sequential grid; blocks on a GPU run in no order, so it is two
-//      passes shaped like csrc/moments.cu (per row chunk partials, then a
-//      per-channel sum in double in a fixed order, which also forms the
-//      three per-channel coefficients of dx), then an elementwise dx pass.
-//      No atomics: a run repeats exactly.
+//      sequential grid; blocks on a GPU run in no order. Here one kernel,
+//      bn_bwd_kernel, on K4's layout (csrc/moments.cu): block (tile, chunk)
+//      owns a channel tile of 128 bytes of a row (ctv lanes of one 16-byte
+//      access: 4 fp32 or 8 bf16 channels; one value a lane where C or the
+//      pointers' alignment forbid it) over a chunk of rows, BWD_THREADS / ctv
+//      row lanes, BWD_ROWS rows of x and dy in flight a thread.
+//        1. Each block sums its chunk's (s1, s2) in fp32, adds its row
+//           lanes in shared memory in a fixed order and writes the chunk's
+//           partials; then it takes a ticket from its tile's counter, and
+//           the block that draws the last one sums the tile's chunk
+//           partials in double in a fixed order (K4's finish) into s1 and
+//           s2. The ticket is the only atomic: a run repeats bit for bit.
+//        2. The dx pass reads x and dy again, each thread walking its own
+//           rows in the reverse of the order in which it summed them, so
+//           that the rows read last, which the 50 MB L2 still holds, are
+//           read first; these second reads and the dx stores are streaming
+//           (evict-first), so they do not push out the rows still to come.
+//      With at most one block a SM (the wrapper's plan: tiles * n_chunks <=
+//      the SMs), 1 and 2 run in one cooperative launch (mode BOTH: every
+//      block of a tile waits for the tile's flag, which the finishing
+//      block sets; the last block to leave resets the counter and the
+//      flag). A wider view takes two launches (REDUCE, then DX), where the
+//      kernel boundary is the wait. Either way the counters are left at 0,
+//      so that calls on one stream may follow each other.
 //
 // Each product and sum the plain PyTorch versions round on their own is
 // rounded on its own here too (__fmul_rn, __fadd_rn: no contraction into an
-// FMA), so the elementwise results match them bit for bit.
+// FMA), so the elementwise results match them bit for bit: K5's y, and
+// K6's gate and dx given the same s1 and s2.
 //
 // bf16 (rt_bn_apply_bf16, rt_bn_bwd_bf16): the same bodies, one template
 // over the storage type (rowwise.cuh), as the Pallas kernels take bf16:
@@ -38,11 +58,12 @@
 // move eight values where x, dy, y and dx are 16-byte aligned.
 //
 // Bound on the H100: device-memory bandwidth. K5 reads 4 and writes 4 bytes
-// per element for 2 FLOPs (bf16: 2 and 2); K6 reads x and dy twice
-// (reduction, then dx) and writes dx, against the 12 bytes per element
-// its function must move (bf16: 6).
-// wgmma has no role here; fusing the dx pass into the reduction's second
-// read (a grid-wide sync) is later work.
+// per element for 2 FLOPs (bf16: 2 and 2); K6 must read x and dy, write
+// dx, and read again what of x and dy the L2 no longer holds when s1 and s2
+// are known (12 bytes per element plus that second read; bf16: 6). wgmma
+// has no role here.
+
+#include <atomic>
 
 #include "rowwise.cuh"
 
@@ -50,10 +71,6 @@ namespace {
 
 using rt::Act;
 using rt::ChannelWalk;
-
-constexpr int CT = 32;  // channels per block of the reduction
-constexpr int RT = 8;   // row lanes per block in the first pass
-constexpr int FL = 32;  // chunk lanes per block in the second pass
 
 __device__ __forceinline__ float affine(float x, float s, float t) {
   return __fadd_rn(__fmul_rn(x, s), t);
@@ -98,119 +115,389 @@ __device__ __forceinline__ float gated(float x, float dy, float mu, float iv, fl
   return (relu && !(affine(xh, g, b) > 0.f)) ? 0.f : dy;
 }
 
+// ---------------------------------------------------------------------- K6
+
+constexpr int BWD_THREADS = 512;  // one block a SM (bn.py _BWD_THREADS)
+// rows of x and dy in flight a thread (16-byte rows: a ring of cp.async
+// slots in shared memory, 8 * 2 * 512 * 16 bytes = 128 KB a block)
+constexpr int BWD_RING = 8;
+constexpr int RING_BYTES = BWD_RING * 2 * BWD_THREADS * 16;
+// bn_bwd_kernel's modes: the sums, the dx pass, or both in one launch
+constexpr int REDUCE = 1, DX = 2, BOTH = 3;
+
+// N values of a row at p: one 16-byte access (VEC) or one value. ld reads
+// through the read-only path, ld_last and st_last stream (evict-first: the
+// value is not read again)
+template <class T, bool VEC>
+struct RowIo;
+
 template <class T>
-__global__ void __launch_bounds__(CT * RT)
-bn_bwd_partial(const T* __restrict__ x, const T* __restrict__ dy,
-               const float* __restrict__ mean, const float* __restrict__ inv,
-               const float* __restrict__ gamma, const float* __restrict__ beta,
-               float* __restrict__ part, int64_t M, int C, int64_t chunk, bool relu) {
-  const int c = blockIdx.x * CT + threadIdx.x;
-  const int64_t r0 = (int64_t)blockIdx.y * chunk;
-  const int64_t r1 = M < r0 + chunk ? M : r0 + chunk;
-  float s1 = 0.f, s2 = 0.f;
-  if (c < C) {
-    const float mu = mean[c], iv = inv[c], g = gamma[c], b = beta[c];
-#pragma unroll 4
-    for (int64_t r = r0 + threadIdx.y; r < r1; r += RT) {
-      float xh;
-      const float d =
-          gated(rt::ld(x + r * C + c), rt::ld(dy + r * C + c), mu, iv, g, b, relu, xh);
-      s1 += d;
-      s2 += d * xh;
-    }
+struct RowIo<T, true> {
+  using V = rt::Vec16<T>;
+  static constexpr int N = V::N;
+  using Raw = uint4;
+  __device__ static Raw ld(const T* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
+  __device__ static Raw ld_last(const T* p) {
+    return __ldcs(reinterpret_cast<const uint4*>(p));
   }
-  __shared__ float sh[2][RT][CT];
-  sh[0][threadIdx.y][threadIdx.x] = s1;
-  sh[1][threadIdx.y][threadIdx.x] = s2;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float a = 0.f, b = 0.f;
+  __device__ static void unpack(const Raw& u, float (&v)[N]) { V::unpack(u, v); }
+  __device__ static void st_last(T* p, const float (&v)[N]) {
+    __stcs(reinterpret_cast<uint4*>(p), V::pack(v));
+  }
+};
+
+template <>
+struct RowIo<float, false> {
+  static constexpr int N = 1;
+  using Raw = float;
+  __device__ static Raw ld(const float* p) { return __ldg(p); }
+  __device__ static Raw ld_last(const float* p) { return __ldcs(p); }
+  __device__ static void unpack(Raw u, float (&v)[1]) { v[0] = u; }
+  __device__ static void st_last(float* p, const float (&v)[1]) { __stcs(p, v[0]); }
+};
+
+template <>
+struct RowIo<__nv_bfloat16, false> {
+  static constexpr int N = 1;
+  using Raw = unsigned short;  // the bf16's bits
+  __device__ static Raw ld(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static Raw ld_last(const __nv_bfloat16* p) {
+    return __ldcs(reinterpret_cast<const unsigned short*>(p));
+  }
+  __device__ static void unpack(Raw u, float (&v)[1]) { v[0] = __uint_as_float((uint32_t)u << 16); }
+  __device__ static void st_last(__nv_bfloat16* p, const float (&v)[1]) {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v[0])));
+  }
+};
+
+// G floats at p, through the L2 (another block wrote them)
+template <int G>
+__device__ __forceinline__ void load_cg(float (&v)[G], const float* p) {
+  if constexpr (G == 4) {
+    const float4 f = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// the thread's cp.async groups but the newest N have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The rows of x and dy one thread reads, its j-th row being row order(j) of
+// its own (index i < rows: row first + i * row_lanes of the view). 16-byte
+// rows come through a ring of BWD_RING slots in shared memory, filled by
+// cp.async BWD_RING rows ahead: start issues the first ones, get(j) waits
+// for the j-th, and refill(j), once its values are used, reuses its slot
+// for the one BWD_RING further. One-value rows are read when asked for.
+template <class T, bool VEC>
+struct RowSource;
+
+template <class T>
+struct RowSource<T, true> {
+  uint4* ring;  // slot s of x at ring[2 * s * BWD_THREADS + t], of dy BWD_THREADS on
+  const T* x;
+  const T* dy;
+  int64_t first, rows, row_lanes, C;
+  int c0, t;
+  // row i (if it is one of the thread's) into slot s, as one cp.async group
+  __device__ void fetch(int64_t i, int s) const {
+    if (i >= 0 && i < rows) {
+      const int64_t at = (first + i * row_lanes) * C + c0;
+      uint4* slot = ring + 2 * s * BWD_THREADS + t;
+      cp_async16(slot, x + at);
+      cp_async16(slot + BWD_THREADS, dy + at);
+    }
+    cp_async_commit();
+  }
+  template <class Order>
+  __device__ void start(Order order) const {
 #pragma unroll
-    for (int t = 0; t < RT; ++t) {
-      a += sh[0][t][threadIdx.x];
-      b += sh[1][t][threadIdx.x];
-    }
-    part[(2 * (int64_t)blockIdx.y) * C + c] = a;
-    part[(2 * (int64_t)blockIdx.y + 1) * C + c] = b;
+    for (int s = 0; s < BWD_RING; ++s) fetch(order(s), s);
   }
-}
-
-// aux rows: 0 s1 (dbeta), 1 s2 (dgamma), then the coefficients of dx:
-// 2 gamma * inv_std, 3 s1 / M, 4 s2 / M
-__global__ void __launch_bounds__(CT * FL)
-bn_bwd_final(const float* __restrict__ part, const float* __restrict__ inv,
-             const float* __restrict__ gamma, float* __restrict__ aux, int64_t M, int C,
-             int n_chunks) {
-  const int c = blockIdx.x * CT + threadIdx.x;
-  double a = 0.0, b = 0.0;
-  if (c < C) {
-    for (int k = threadIdx.y; k < n_chunks; k += FL) {
-      a += part[(2 * (int64_t)k) * C + c];
-      b += part[(2 * (int64_t)k + 1) * C + c];
-    }
+  template <class Order>
+  __device__ void get(int64_t j, Order, bool, uint4& xu, uint4& du) const {
+    cp_async_wait<BWD_RING - 1>();  // rows up to the j-th have landed
+    const uint4* slot = ring + 2 * (int)(j & (BWD_RING - 1)) * BWD_THREADS + t;
+    xu = slot[0];
+    du = slot[BWD_THREADS];
   }
-  __shared__ double sh[2][FL][CT];
-  sh[0][threadIdx.y][threadIdx.x] = a;
-  sh[1][threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    double sa = 0.0, sb = 0.0;
-    for (int t = 0; t < FL; ++t) {
-      sa += sh[0][t][threadIdx.x];
-      sb += sh[1][t][threadIdx.x];
-    }
-    const float s1 = (float)sa, s2 = (float)sb, m = (float)M;
-    aux[c] = s1;
-    aux[C + c] = s2;
-    aux[2 * C + c] = __fmul_rn(gamma[c], inv[c]);
-    aux[3 * C + c] = __fdiv_rn(s1, m);
-    aux[4 * C + c] = __fdiv_rn(s2, m);
-  }
-}
-
-// dx of one element from its x, dy and channel c
-struct BwdDx {
-  const float* __restrict__ mean;
-  const float* __restrict__ inv;
-  const float* __restrict__ gamma;
-  const float* __restrict__ beta;
-  const float* __restrict__ aux;
-  int C;
-  bool relu;
-  __device__ float operator()(float x, float dy, int c) const {
-    float xh;
-    const float d = gated(x, dy, mean[c], inv[c], gamma[c], beta[c], relu, xh);
-    return __fmul_rn(aux[2 * C + c],
-                     __fsub_rn(__fsub_rn(d, aux[3 * C + c]), __fmul_rn(xh, aux[4 * C + c])));
+  template <class Order>
+  __device__ void refill(int64_t j, Order order) const {
+    fetch(order(j + BWD_RING), (int)(j & (BWD_RING - 1)));
   }
 };
 
 template <class T>
-__global__ void bn_bwd_dx_vec(const T* __restrict__ x, const T* __restrict__ dy,
-                              T* __restrict__ dx, int64_t nv, int C, BwdDx f) {
-  using V = rt::Vec16<T>;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  ChannelWalk ch(V::N * i, V::N * stride, C);
-  for (; i < nv; i += stride, ch.advance()) {
-    float a[V::N], g[V::N];
-    V::load(x + V::N * i, a);
-    V::load(dy + V::N * i, g);
-#pragma unroll
-    for (int j = 0; j < V::N; ++j) a[j] = f(a[j], g[j], ch.at(j));
-    V::store(dx + V::N * i, a);
+struct RowSource<T, false> {
+  const T* x;
+  const T* dy;
+  int64_t first, rows, row_lanes, C;
+  int c0;
+  template <class Order>
+  __device__ void start(Order) const {}
+  template <class Raw, class Order>
+  __device__ void get(int64_t j, Order order, bool last, Raw& xu, Raw& du) const {
+    using IO = RowIo<T, false>;
+    const int64_t at = (first + order(j) * row_lanes) * C + c0;
+    xu = last ? IO::ld_last(x + at) : IO::ld(x + at);
+    du = last ? IO::ld_last(dy + at) : IO::ld(dy + at);
   }
+  template <class Order>
+  __device__ void refill(int64_t, Order) const {}
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 template <class T>
-__global__ void bn_bwd_dx_scalar(const T* __restrict__ x, const T* __restrict__ dy,
-                                 T* __restrict__ dx, int64_t begin, int64_t end, int C,
-                                 BwdDx f) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = begin + (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  ChannelWalk ch(i, stride, C);
-  for (; i < end; i += stride, ch.advance())
-    rt::st(dx + i, f(rt::ld(x + i), rt::ld(dy + i), ch.c));
+struct BwdArgs {
+  const T* x;
+  const T* dy;
+  const float* mean;
+  const float* inv;
+  const float* gamma;
+  const float* beta;
+  float* part;        // 2 * n_chunks * C: chunk k's s1 row at 2k, its s2 row at 2k + 1
+  unsigned* tickets;  // 2 a channel tile: its counter, then its flag; all 0, left at 0
+  float* sums;        // (2, C): s1 (dbeta), then s2 (dgamma)
+  T* dx;
+  int64_t M, chunk;
+  int C, n_chunks, ctv, mode;
+  bool relu;
+};
+
+template <class T, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T> a) {
+  using IO = RowIo<T, VEC>;
+  using Raw = typename IO::Raw;
+  constexpr int N = IO::N;
+  constexpr int G = VEC ? 4 : 1;  // partials a load in the finish
+  // the row lanes' sums, then (as doubles) the finish's chunk-lane sums
+  __shared__ __align__(16) float sh[2][BWD_THREADS * N];
+  __shared__ float red[BWD_THREADS];  // the row-lane segments' sums
+  __shared__ unsigned draw;
+  const int t = threadIdx.x;
+  const int lane = t % a.ctv, row_lane = t / a.ctv, row_lanes = BWD_THREADS / a.ctv;
+  const int tc = N * a.ctv;  // channels of the tile
+  const int c0 = blockIdx.x * tc + lane * N;
+  const bool live = c0 < a.C;  // with VEC, C % N == 0: all N channels exist
+  const int64_t C = a.C;
+  // the thread's rows: first + i * row_lanes for i < rows
+  const int64_t first = (int64_t)blockIdx.y * a.chunk + row_lane;
+  const int64_t end = (int64_t)blockIdx.y * a.chunk + a.chunk;
+  const int64_t r1 = a.M < end ? a.M : end;
+  const int64_t rows = live && first < r1 ? (r1 - 1 - first) / row_lanes + 1 : 0;
+  unsigned* count = a.tickets + 2 * blockIdx.x;
+  unsigned* flag = count + 1;
+  extern __shared__ __align__(16) uint4 ring[];  // 16-byte rows: the RowSource ring
+  RowSource<T, VEC> src;
+  if constexpr (VEC)
+    src = {ring, a.x, a.dy, first, rows, row_lanes, C, c0, t};
+  else
+    src = {a.x, a.dy, first, rows, row_lanes, C, c0};
+  // the reduction's j-th row, and the dx pass's: the thread's rows
+  // backwards, so that those read last in the reduction, which the L2 is
+  // likeliest to hold, come first
+  auto sum_row = [](int64_t j) { return j; };
+  auto dx_row = [rows](int64_t j) { return rows - 1 - j; };
+
+  float mu[N], iv[N], g[N], b[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = live ? c0 + j : 0;
+    mu[j] = a.mean[c];
+    iv[j] = a.inv[c];
+    g[j] = a.gamma[c];
+    b[j] = a.beta[c];
+  }
+
+  if (a.mode & REDUCE) {
+    float s1[N], s2[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) s1[j] = s2[j] = 0.f;
+    src.start(sum_row);
+#pragma unroll 2
+    for (int64_t k = 0; k < rows; ++k) {
+      Raw xu, du;
+      src.get(k, sum_row, false, xu, du);
+      float xv[N], dv[N];
+      IO::unpack(xu, xv);
+      IO::unpack(du, dv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float xh;
+        const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
+        s1[j] += d;
+        s2[j] += d * xh;
+      }
+      src.refill(k, sum_row);
+    }
+    if (a.mode == BOTH) src.start(dx_row);  // in flight through the finish
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      sh[0][row_lane * tc + lane * N + j] = s1[j];
+      sh[1][row_lane * tc + lane * N + j] = s2[j];
+    }
+    __syncthreads();
+    // the chunk's partials in two fixed-order steps: thread t adds 2 * N row
+    // lanes of one (which, channel), segment t / outs; then one thread per
+    // (which, channel) adds the segments in order
+    const int outs = 2 * tc;
+    {
+      const int o = t % outs, seg = t / outs, which = o / tc, ch = o % tc;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 2 * N; ++k) acc += sh[which][(seg * 2 * N + k) * tc + ch];
+      red[t] = acc;
+    }
+    __syncthreads();
+    if (t < outs) {
+      float acc = 0.f;
+      for (int seg = 0; seg < BWD_THREADS / outs; ++seg) acc += red[seg * outs + t];
+      const int c = blockIdx.x * tc + t % tc;
+      if (c < a.C) a.part[((int64_t)blockIdx.y * 2 + t / tc) * C + c] = acc;
+    }
+    __threadfence();  // the partials are visible to every block before the ticket
+    __syncthreads();
+    if (t == 0) draw = atomicAdd(count, 1u);
+    __syncthreads();
+    if (draw == (unsigned)(a.n_chunks - 1)) {
+      // the tile's last block: its 2 * tc sums as `groups` loads of G
+      // partials a chunk over fl chunk lanes (chunk k into lane k mod fl),
+      // each lane's chunks added in order in double, B loads in flight;
+      // then the lanes in order
+      __threadfence();
+      double* shd = reinterpret_cast<double*>(&sh[0][0]);  // BWD_THREADS * G doubles
+      const int groups = outs / G, fl = BWD_THREADS / groups, per = tc / G;
+      const int o = t % groups;
+      const int c = blockIdx.x * tc + (o % per) * G;
+      double acc[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) acc[j] = 0.0;
+      if (c < a.C) {
+        const float* base = a.part + (o / per) * C + c;
+        constexpr int B = 4;
+        for (int k = t / groups; k < a.n_chunks; k += B * fl) {
+          float v[B][G];
+#pragma unroll
+          for (int i = 0; i < B; ++i)
+            if (k + i * fl < a.n_chunks) load_cg<G>(v[i], base + (int64_t)(k + i * fl) * 2 * C);
+#pragma unroll
+          for (int i = 0; i < B; ++i)
+            if (k + i * fl < a.n_chunks)
+#pragma unroll
+              for (int j = 0; j < G; ++j) acc[j] += (double)v[i][j];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) shd[t * G + j] = acc[j];
+      __syncthreads();
+      if (t < tc && blockIdx.x * tc + t < a.C) {
+        const int gi = t / G, j = t % G;
+        double sa = 0.0, sb = 0.0;
+        for (int k = 0; k < fl; ++k) {
+          sa += shd[(k * groups + gi) * G + j];
+          sb += shd[(k * groups + per + gi) * G + j];
+        }
+        a.sums[blockIdx.x * tc + t] = (float)sa;
+        a.sums[C + blockIdx.x * tc + t] = (float)sb;
+      }
+      __threadfence();
+      __syncthreads();
+      if (t == 0) {
+        if (a.mode == REDUCE)
+          *count = 0u;
+        else
+          st_release(flag, 1u);
+      }
+    }
+    if (a.mode == REDUCE) return;
+    if (t == 0) {  // BOTH: the tile's sums are written once its flag is set
+      for (unsigned n = 0; ld_acquire(flag) == 0u; ++n) {
+        if (n == (1u << 22)) __trap();  // a block that never arrives: fail, not hang
+        __nanosleep(64);
+      }
+    }
+    __syncthreads();
+  }
+
+  // dx: the coefficients of the thread's channels, gamma * inv_std, s1 / M
+  // and s2 / M, each rounded on its own as the plain version rounds them
+  float ca[N], cb[N], cc[N];
+  const float m = (float)a.M;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = live ? c0 + j : 0;
+    ca[j] = __fmul_rn(g[j], iv[j]);
+    cb[j] = __fdiv_rn(__ldcg(a.sums + c), m);
+    cc[j] = __fdiv_rn(__ldcg(a.sums + C + c), m);
+  }
+  if (a.mode == BOTH) {
+    __syncthreads();  // every thread holds its sums: the last block to leave resets
+    if (t == 0 && atomicAdd(count, 1u) == 2u * (unsigned)a.n_chunks - 1u) {
+      *count = 0u;
+      *flag = 0u;
+    }
+  }
+  if (a.mode == DX) src.start(dx_row);
+#pragma unroll 2
+  for (int64_t k = 0; k < rows; ++k) {
+    Raw xu, du;
+    src.get(k, dx_row, true, xu, du);
+    float xv[N], dv[N];
+    IO::unpack(xu, xv);
+    IO::unpack(du, dv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float xh;
+      const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
+      xv[j] = __fmul_rn(ca[j], __fsub_rn(__fsub_rn(d, cb[j]), __fmul_rn(xh, cc[j])));
+    }
+    IO::st_last(a.dx + (first + dx_row(k) * row_lanes) * C + c0, xv);
+    src.refill(k, dx_row);
+  }
+}
+
+// lets bn_bwd_kernel<T, true> take its ring on the current device (once a
+// device)
+template <class T>
+int allow_ring() {
+  static std::atomic<uint32_t> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
+  if (bit && (done.load() & bit)) return 0;
+  e = cudaFuncSetAttribute(bn_bwd_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           RING_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  done.fetch_or(bit);
+  return 0;
 }
 
 template <class T>
@@ -227,24 +514,38 @@ int bn_apply(const T* x, const float* scale, const float* shift, T* y, int64_t n
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int bn_bwd(const T* x, const T* dy, const float* mean, const float* inv, const float* gamma,
-           const float* beta, float* part, float* aux, T* dx, int64_t M, int C, int64_t chunk,
-           int n_chunks, bool relu, cudaStream_t s) {
-  const unsigned ct = (unsigned)((C + CT - 1) / CT);
-  bn_bwd_partial<T><<<dim3(ct, (unsigned)n_chunks), dim3(CT, RT), 0, s>>>(
-      x, dy, mean, inv, gamma, beta, part, M, C, chunk, relu);
-  bn_bwd_final<<<ct, dim3(CT, FL), 0, s>>>(part, inv, gamma, aux, M, C, n_chunks);
-  constexpr int N = rt::Vec16<T>::N;
-  const int64_t n = M * C;
-  const BwdDx f{mean, inv, gamma, beta, aux, C, relu};
-  const int64_t nv = rt::aligned16(x) && rt::aligned16(dy) && rt::aligned16(dx) ? n / N : 0;
-  if (nv > 0)
-    bn_bwd_dx_vec<T><<<rt::ew_blocks(nv), rt::EW_THREADS, 0, s>>>(x, dy, dx, nv, C, f);
-  if (N * nv < n)
-    bn_bwd_dx_scalar<T><<<rt::ew_blocks(n - N * nv), rt::EW_THREADS, 0, s>>>(
-        x, dy, dx, N * nv, n, C, f);
+template <class T, bool VEC>
+int launch_bn_bwd(BwdArgs<T> a, bool fused, cudaStream_t s) {
+  const int tc = RowIo<T, VEC>::N * a.ctv;
+  const dim3 grid((unsigned)((a.C + tc - 1) / tc), (unsigned)a.n_chunks);
+  const int smem = VEC ? RING_BYTES : 0;
+  if (VEC) {
+    const int status = allow_ring<T>();
+    if (status != 0) return status;
+  }
+  if (fused) {  // every block resident, or the launch is refused
+    a.mode = BOTH;
+    void* args[] = {&a};
+    return (int)cudaLaunchCooperativeKernel((const void*)bn_bwd_kernel<T, VEC>, grid,
+                                            dim3(BWD_THREADS), args, smem, s);
+  }
+  a.mode = REDUCE;
+  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, smem, s>>>(a);
+  a.mode = DX;
+  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, smem, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int bn_bwd(const BwdArgs<T>& a, int vec, int fused, cudaStream_t s) {
+  const bool shape_ok = a.M > 0 && a.C > 0 && a.chunk > 0 && a.n_chunks > 0 &&
+                        a.n_chunks <= 65535 && (int64_t)(a.n_chunks - 1) * a.chunk < a.M &&
+                        (int64_t)a.n_chunks * a.chunk >= a.M && a.ctv > 0 &&
+                        (a.ctv & (a.ctv - 1)) == 0 && a.ctv <= (vec ? 8 : 32);
+  const bool vec_ok = !vec || (a.C % rt::Vec16<T>::N == 0 && rt::aligned16(a.x) &&
+                               rt::aligned16(a.dy) && rt::aligned16(a.dx));
+  if (!shape_ok || !vec_ok) return (int)cudaErrorInvalidValue;
+  return vec ? launch_bn_bwd<T, true>(a, fused != 0, s) : launch_bn_bwd<T, false>(a, fused != 0, s);
 }
 
 }  // namespace
@@ -265,23 +566,33 @@ extern "C" int rt_bn_apply_bf16(const __nv_bfloat16* x, const float* scale, cons
                   (cudaStream_t)stream);
 }
 
-// dx (M, C) and aux (5, C) (rows: dbeta, dgamma, then scratch) of
+// dx (M, C) and sums (2, C) (s1 = dbeta, then s2 = dgamma) of
 // batch_norm_act from x, dy (M, C) and the per-channel mean, inv_std, gamma
-// and beta (fp32 rows); part holds 2 * n_chunks * C floats, n_chunks =
-// ceil(M / chunk). The caller checks M > 0, shapes, dtype and contiguity.
+// and beta (fp32 rows). vec 1: 16-byte accesses (C a multiple of 4 fp32 or
+// 8 bf16 values, x, dy and dx 16-byte aligned), 0: one value a lane; ctv a
+// power of two, at most 8 (vec) or 32; n_chunks = ceil(M / chunk) row chunks
+// of each tile of vec ? 4 or 8 : 1 times ctv channels; part holds 2 *
+// n_chunks * C floats, tickets 2 counters a tile, all 0 (left at 0). fused 1:
+// one cooperative launch, which the card refuses unless every block is
+// resident (tiles * n_chunks blocks of BWD_THREADS, at most one a SM is
+// always resident); 0: two launches. The caller checks shapes, dtype and
+// contiguity; a plan the kernel cannot run returns cudaErrorInvalidValue.
 extern "C" int rt_bn_bwd_f32(const float* x, const float* dy, const float* mean,
                              const float* inv, const float* gamma, const float* beta,
-                             float* part, float* aux, float* dx, int64_t M, int C,
-                             int64_t chunk, int n_chunks, int relu, void* stream) {
-  return bn_bwd(x, dy, mean, inv, gamma, beta, part, aux, dx, M, C, chunk, n_chunks,
-                relu != 0, (cudaStream_t)stream);
+                             float* part, unsigned* tickets, float* sums, float* dx, int64_t M,
+                             int C, int64_t chunk, int n_chunks, int vec, int ctv, int fused,
+                             int relu, void* stream) {
+  return bn_bwd(BwdArgs<float>{x, dy, mean, inv, gamma, beta, part, tickets, sums, dx, M,
+                               chunk, C, n_chunks, ctv, 0, relu != 0},
+                vec, fused, (cudaStream_t)stream);
 }
 
 extern "C" int rt_bn_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy,
                               const float* mean, const float* inv, const float* gamma,
-                              const float* beta, float* part, float* aux, __nv_bfloat16* dx,
-                              int64_t M, int C, int64_t chunk, int n_chunks, int relu,
-                              void* stream) {
-  return bn_bwd(x, dy, mean, inv, gamma, beta, part, aux, dx, M, C, chunk, n_chunks,
-                relu != 0, (cudaStream_t)stream);
+                              const float* beta, float* part, unsigned* tickets, float* sums,
+                              __nv_bfloat16* dx, int64_t M, int C, int64_t chunk, int n_chunks,
+                              int vec, int ctv, int fused, int relu, void* stream) {
+  return bn_bwd(BwdArgs<__nv_bfloat16>{x, dy, mean, inv, gamma, beta, part, tickets, sums,
+                                       dx, M, chunk, C, n_chunks, ctv, 0, relu != 0},
+                vec, fused, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
-"""Where one call of K4 (``bn.moments``) and of K7 (``adam.fused_adam``,
-with its caller ``optim.adam_update_fused``) spends its host time.
+"""Where one call of K4 (``bn.moments``), of K7 (``adam.fused_adam``,
+with its caller ``optim.adam_update_fused``) and of K6 (``bn.bn_bwd``)
+spends its host time.
 
-    python -m resnet_tpu_torch.kernels.host_parts
+    python -m resnet_tpu_torch.kernels.host_parts [moments] [adam] [bn_bwd]
 
 on a CUDA card prints one JSON line per part: ``checks.host_us`` of that
 part alone (200 calls enqueued back to back, divided by 200), at the
@@ -13,7 +14,10 @@ to the whole call exactly.
 The parts are those of the wrapper the package holds: the two-launch K4
 and the device-table K7 (``rt_moments_f32`` with 9 arguments,
 ``rt_adam_f32`` with a table pointer), or the one-launch K4 and the
-parameter-bank K7 that replaced them. Run inside a ``git archive`` of an
+parameter-bank K7 that replaced them. K6's parts are those of the
+one-launch wrapper (``bn.bn_bwd_plan``), at the batch-32 stem's and the
+ragged case's shapes of ``checks.BN_BWD_CASES`` in fp32 and bf16; in an
+older tree only its whole call is timed. Run inside a ``git archive`` of an
 older tree, the script times that tree's parts.
 """
 
@@ -71,7 +75,8 @@ def _one_launch_k4(x, label):
     _emit("moments", label, "moments_plan (cached)", lambda: bn.moments_plan(m, c, vec))
     _emit("moments", label, "1 torch.empty", lambda: torch.empty(
         (2, c), dtype=torch.float32, device=x.device))
-    _emit("moments", label, "workspace lookup", lambda: bn._workspace(x.device.index, plan))
+    _emit("moments", label, "workspace lookup", lambda: bn._workspace(x.device.index, plan.part,
+                                                                        plan.tiles))
     _emit("moments", label, "launch (ctypes, 1 launch)", lambda: bn._launch(x, out, plan, vec))
     _emit("moments", label, "_forward", lambda: bn._forward(x))
 
@@ -179,12 +184,44 @@ def adam_parts():
         _device_table_k7(p, g, m, v, h)
 
 
+def bn_bwd_parts():
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, m, c, relu in (checks.BN_BWD_CASES[0], checks.BN_BWD_CASES[-2]):
+            x = torch.randn(m, c, generator=gen, device=DEVICE).to(dtype)
+            dy = torch.randn(m, c, generator=gen, device=DEVICE).to(dtype)
+            rows = [torch.rand(c, generator=gen, device=DEVICE) + 0.5 for _ in range(4)]
+            case = f"{label} {str(dtype)[6:]}"
+            _emit("bn_bwd", case, "whole call", lambda: bn.bn_bwd(x, dy, *rows, relu=relu))
+            if not hasattr(bn, "bn_bwd_plan"):
+                continue
+            f32 = build.rows_f32(*rows)
+            vec = bn.bwd_vector_width(x, dy)
+            plan = bn.bn_bwd_plan(m, c, vec, bn._sms(x.device.index))
+            dx, sums = torch.empty_like(x), torch.empty((2, c), device=DEVICE)
+            _emit("bn_bwd", case, "_check_rows", lambda: bn._check_rows("bn_bwd", c, *rows))
+            _emit("bn_bwd", case, "build.rows_f32", lambda: build.rows_f32(*rows))
+            _emit("bn_bwd", case, "build.on_card",
+                  lambda: build.on_card("bn_bwd", x, dy, rows=f32))
+            _emit("bn_bwd", case, "load width and plan (cached)", lambda: bn.bn_bwd_plan(
+                m, c, bn.bwd_vector_width(x, dy), bn._sms(x.device.index)))
+            _emit("bn_bwd", case, "2 torch.empty", lambda: (
+                torch.empty_like(x), torch.empty((2, c), dtype=torch.float32, device=DEVICE)))
+            _emit("bn_bwd", case, "_bwd_launch (ctypes, 1 launch)",
+                  lambda: bn._bwd_launch(x, dy, f32, sums, dx, plan, relu))
+            _emit("bn_bwd", case, "unbind, 2 .to", lambda: [
+                t.to(torch.float32) for t in sums.unbind(0)])
+            _emit("bn_bwd", case, "build.count",
+                  lambda: build.count(bn.__name__, "BWD_LAUNCHES", x))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("host_parts: needs a CUDA device")
     build.load()
-    moments_parts()
-    adam_parts()
+    parts = {"moments": moments_parts, "adam": adam_parts, "bn_bwd": bn_bwd_parts}
+    for name in sys.argv[1:] or parts:
+        parts[name]()
     print(build.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip(), file=sys.stdout)

@@ -169,6 +169,46 @@ def test_batch_norm_act_bf16_matches_pallas(rng, no_launch, relu, param):
         close(g, want, name)
 
 
+# (M, C, storage offset): ragged channels, M below one K6 row chunk, and a
+# view one element off a 16-byte boundary (K6's one-value path)
+ODD_BN_SHAPES = [(200, 9, 0), (50, 64, 0), (64, 16, 1)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,c,offset", ODD_BN_SHAPES, ids=["C9", "below-a-chunk", "offset"])
+def test_batch_norm_act_bf16_odd_shapes_match_pallas(rng, no_launch, m, c, offset, relu):
+    """batch_norm_act on bf16 rows with fp32 γ and β, and the backward's
+    plain version ``bn_bwd_reference`` called alone at the saved statistics,
+    against the Pallas kernels in interpret mode at the shapes that take
+    K6's one-value lanes and single chunk on the card."""
+    from resnet_tpu.kernels.bn import batch_norm_act as j_bna
+
+    x = rng.normal(2.0, 3.0, size=(m, c))
+    gamma, beta = _rows(rng, c)
+    dy = _bf(np.random.default_rng(9).normal(size=(m, c)))
+    jx = jnp.asarray(x, jnp.bfloat16)
+    (y, mean, var), pull = jax.vjp(lambda *a: j_bna(*a, EPS, relu, True), jx,
+                                   jnp.asarray(gamma), jnp.asarray(beta))
+    jgrads = pull((jnp.asarray(dy, jnp.bfloat16), jnp.zeros(c), jnp.zeros(c)))
+    xb = torch.from_numpy(np.asarray(jx.astype(jnp.float32))).to(BF).reshape(-1)
+    flat = torch.cat([torch.zeros(offset, dtype=BF), xb]).requires_grad_(True)
+    xs = [flat, torch.from_numpy(gamma).requires_grad_(True),
+          torch.from_numpy(beta).requires_grad_(True)]
+    x2d = flat[offset:].view(m, c)
+    assert x2d.is_contiguous() and x2d.storage_offset() == offset
+    ty, tmean, tvar = bn.batch_norm_act(x2d, xs[1], xs[2], EPS, relu)
+    dflat, dgamma, dbeta = torch.autograd.grad(ty, xs, torch.from_numpy(dy).to(BF))
+    for name, g, want in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"),
+                             (ty, tmean, tvar, dflat[offset:].view(m, c), dgamma, dbeta),
+                             (y, mean, var, *jgrads)):
+        close(g, want, name)
+    plain = bn.bn_bwd_reference(x2d.detach(), torch.from_numpy(dy).to(BF), tmean,
+                                torch.rsqrt(tvar + EPS), *map(torch.from_numpy, (gamma, beta)),
+                                relu=relu)
+    for name, g, want in zip(("dx", "dgamma", "dbeta"), plain, jgrads):
+        close(g, want, f"bn_bwd_reference {name}")
+
+
 # ---------------------------------------------------------------------- K8
 
 

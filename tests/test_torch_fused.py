@@ -228,6 +228,44 @@ def test_batch_norm_act_matches_pallas(rng, no_launch, relu):
         close(g, want)
 
 
+# (M, C, storage offset): ragged channels, M below one K6 row chunk, and a
+# view one element off a 16-byte boundary (K6's one-value path)
+ODD_BN_SHAPES = [(200, 9, 0), (50, 64, 0), (64, 16, 1)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("m,c,offset", ODD_BN_SHAPES, ids=["C9", "below-a-chunk", "offset"])
+def test_batch_norm_act_odd_shapes_match_pallas(rng, no_launch, m, c, offset, relu):
+    """batch_norm_act's forward and K6 backward, and the backward's plain
+    version ``bn_bwd_reference`` called alone at the saved statistics,
+    against the Pallas kernels in interpret mode at the shapes that take
+    K6's one-value lanes and single chunk on the card."""
+    from resnet_tpu.kernels.bn import batch_norm_act as j_bna
+
+    x = (rng.normal(2.0, 3.0, size=(m, c))).astype(np.float32)
+    gamma, beta = _rows(rng, c)
+    dy = np.random.default_rng(9).normal(size=(m, c)).astype(np.float32)
+    (y, mean, var), pull = jax.vjp(lambda *a: j_bna(*a, 1e-7, relu, True),
+                                   *map(jnp.asarray, (x, gamma, beta)))
+    jgrads = pull((jnp.asarray(dy), jnp.zeros(c), jnp.zeros(c)))
+    flat = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), x.ravel()]))
+    xs = [flat.requires_grad_(True), *(torch.from_numpy(a.copy()).requires_grad_(True)
+                                       for a in (gamma, beta))]
+    x2d = flat[offset:].view(m, c)
+    assert x2d.is_contiguous() and x2d.storage_offset() == offset
+    ty, tmean, tvar = bn.batch_norm_act(x2d, xs[1], xs[2], 1e-7, relu)
+    dflat, dgamma, dbeta = torch.autograd.grad(ty, xs, torch.from_numpy(dy))
+    for name, g, want in zip(("y", "mean", "var", "dx", "dgamma", "dbeta"),
+                             (ty, tmean, tvar, dflat[offset:].view(m, c), dgamma, dbeta),
+                             (y, mean, var, *jgrads)):
+        close(g, want, what=name)
+    plain = bn.bn_bwd_reference(x2d.detach(), torch.from_numpy(dy), tmean,
+                                torch.rsqrt(tvar + 1e-7), *map(torch.from_numpy, (gamma, beta)),
+                                relu=relu)
+    for name, g, want in zip(("dx", "dgamma", "dbeta"), plain, jgrads):
+        close(g, want, what=f"bn_bwd_reference {name}")
+
+
 def test_bn_affine_from_sums_matches_jax(rng):
     """scale and shift from [Σy, Σy²] and their autograd VJP against jnp's."""
     from resnet_tpu.kernels.fused_conv import bn_affine_from_sums as j_affine

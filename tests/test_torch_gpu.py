@@ -340,6 +340,115 @@ def test_moments_back_to_back_at_two_shapes(cuda):
         assert all(torch.equal(a, b) for a, b in zip(got, alone[i % 3], strict=True))
 
 
+# (label, M, C, relu, storage offset in elements): K6 at phase 3's eight
+# cases, then ragged channels, M below one row chunk, and views off a
+# 16-byte boundary (its one-value lanes)
+BN_BWD_GPU = [(label, m, c, relu, 0) for label, m, c, relu in checks.BN_BWD_CASES] + [
+    ("(200, 9) relu", 200, 9, True, 0), ("(50, 64) below a chunk", 50, 64, False, 0),
+    ("(1568, 2048) relu, offset 1", 1568, 2048, True, 1),
+    ("(1000, 64), offset 4", 1000, 64, False, 4)]
+
+
+def _bn_bwd_inputs(m, c, offset, dtype, seed=0):
+    """x (an (m, c) view ``offset`` elements into its storage), dy and the
+    fp32 rows mean, inv_std, gamma, beta of a K6 call."""
+    from resnet_tpu_torch.kernels import bn
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.empty(m * c + offset, dtype=dtype, device="cuda")[offset:].view(m, c)
+    x.copy_(torch.randn(m, c, generator=gen, device="cuda") * 2.0
+            + torch.randn(1, c, generator=gen, device="cuda"))
+    dy = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
+    mean, var = bn.moments_reference(x)
+    gamma = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    beta = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    return x, dy, mean, torch.rsqrt(var + 1e-7), gamma, beta
+
+
+def _held_to(got, want):
+    """K6's outputs against the plain version's: fp32 within 1e-4 of
+    max|plain|, a bf16 dx by ``_held_bf16`` (its fp32 dγ, dβ within 1e-5)."""
+    for g, w in zip(got, want, strict=True):
+        if got[0].dtype is torch.bfloat16:
+            _held_bf16(g, w)
+        else:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert (g - w).abs().max() <= checks.REL_TOL * w.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("label,m,c,relu,offset", BN_BWD_GPU, ids=[c[0] for c in BN_BWD_GPU])
+def test_bn_bwd_matches_plain_and_repeats_bit_for_bit(cuda, dtype, label, m, c, relu, offset):
+    """K6 (``bn.bn_bwd``) against ``bn_bwd_reference`` on the same inputs,
+    one launch counted a call; a second call gives the same bits (one fixed
+    order in every sum, the ticket the only atomic) and the kernel leaves
+    every ticket at 0."""
+    from resnet_tpu_torch.kernels import bn
+
+    args = _bn_bwd_inputs(m, c, offset, dtype)
+    counter = "BWD_LAUNCHES_BF16" if dtype is torch.bfloat16 else "BWD_LAUNCHES"
+    before = getattr(bn, counter)
+    first = bn.bn_bwd(*args, relu=relu)
+    again = bn.bn_bwd(*args, relu=relu)
+    assert getattr(bn, counter) == before + 2
+    _held_to(first, bn.bn_bwd_reference(*args, relu=relu))
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+    stream = torch._C._cuda_getCurrentRawStream(args[0].device.index)
+    _, tickets = bn._WORKSPACES[(args[0].device.index, stream)]
+    torch.cuda.synchronize()
+    assert not tickets.any()
+
+
+def test_bn_bwd_back_to_back_finds_its_tickets_at_zero(cuda):
+    """K6 calls at other shapes and dtypes enqueued one after another on one
+    stream, with no synchronize among them and K4 between them (the two
+    share the workspace): each finds its tickets and flags at 0 and gives
+    the bits of the same call made alone."""
+    from resnet_tpu_torch.kernels import bn
+
+    cases = [(32 * 28 * 28, 512, True, torch.bfloat16), (1000, 33, False, torch.float32),
+             (32 * 7 * 7, 2048, True, torch.float32), (50, 64, True, torch.bfloat16)]
+    inputs = [(_bn_bwd_inputs(m, c, 0, dtype, seed=i), relu)
+              for i, (m, c, relu, dtype) in enumerate(cases)]
+    alone = []
+    for args, relu in inputs:
+        alone.append(bn.bn_bwd(*args, relu=relu))
+        torch.cuda.synchronize()
+    queued = []
+    for _ in range(2):
+        for args, relu in inputs:
+            queued.append(bn.bn_bwd(*args, relu=relu))
+            bn.moments(args[0])
+    torch.cuda.synchronize()
+    for i, got in enumerate(queued):
+        assert all(torch.equal(a, b) for a, b in zip(got, alone[i % len(cases)], strict=True))
+
+
+def test_bn_bwd_streams_do_not_share_a_workspace(cuda):
+    """Two K6 calls in flight at once on two streams, each with its own
+    partials and tickets: both give the bits of the call made alone."""
+    from resnet_tpu_torch.kernels import bn
+
+    shapes = [(32 * 112 * 112, 64, torch.bfloat16), (32 * 28 * 28, 512, torch.float32)]
+    inputs = [_bn_bwd_inputs(m, c, 0, dtype, seed=i) for i, (m, c, dtype) in enumerate(shapes)]
+    alone = [bn.bn_bwd(*args, relu=True) for args in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = []
+    for _ in range(3):
+        for stream, args in zip(streams, inputs):
+            with torch.cuda.stream(stream):
+                got.append(bn.bn_bwd(*args, relu=True))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        assert all(torch.equal(a, b) for a, b in zip(out, alone[i % 2], strict=True))
+    index = inputs[0][0].device.index
+    spaces = [bn._WORKSPACES[(index, s.cuda_stream)] for s in streams]
+    assert spaces[0][0].data_ptr() != spaces[1][0].data_ptr()
+    assert spaces[0][1].data_ptr() != spaces[1][1].data_ptr()
+    assert not any(ws[1].any() for ws in spaces)
+
+
 def _adam_step_against_plain(p, g, m, v, h):
     """fused_adam in place on (p, m, v) against adam_leaf_reference from the
     same state: one launch count, the same non-finite positions, the finite

@@ -472,10 +472,13 @@ def test_hyper_row_values(lr_kind):
 @pytest.mark.parametrize("m", [1, 1000, 401408])
 @pytest.mark.parametrize("c", [3, 64, 2048])
 def test_moments_chunking_covers_every_row(m, c):
-    rows = bn.chunk_rows(m, c)
-    chunks = -(-m // rows)
-    assert rows % 8 == 0 and rows >= 64 and chunks <= 65535
-    assert (chunks - 1) * rows < m <= chunks * rows
+    """K6's row chunks (``bn.bn_bwd_plan``) cover every row once, in both
+    load widths its C allows."""
+    for vec in {1, 4 if c % 4 == 0 else 1, 8 if c % 8 == 0 else 1}:
+        plan = bn.bn_bwd_plan(m, c, vec, 132)
+        rows, chunks = plan.chunk, plan.n_chunks
+        assert rows % 8 == 0 and rows >= 8 and chunks <= 65535
+        assert (chunks - 1) * rows < m <= chunks * rows
 
 
 @pytest.mark.parametrize("guard,lr_kind", [
