@@ -13,8 +13,8 @@ Phases, each printing one JSON line:
      ResNet-50 serving and training shapes, TF32 off, within 1e-4 of
      max|plain| (the fused conv's halo case bit for bit; the split-K GEMMs
      of the conv forward, dx and dW, the fused conv and the whole-block
-     kernel, the FC backward and the BN statistics run twice and held to
-     the same bits), with its time, the plain version's, a library call's
+     kernel, the FC backward and the BN statistics and backward run twice
+     and held to the same bits), with its time, the plain version's, a library call's
      where one computes the same function, the device time of the kernel
      and of the library call (torch.profiler, with its split by kernel
      name), the host time per call (host_us: 200 calls enqueued back to
@@ -202,9 +202,9 @@ of the plain value plus 1e-5 of max|plain|, the fp32 results (K4's
 statistics, K8's and K10's sums, K10's rows, K6's dgamma and dbeta)
 within 1e-5 of max, the GEMMs, K4, K6, K8 and K10 twice to the same bits,
 K8's halo case bit for bit; every bf16 case line and each case of the
-fp32 join and K10 with ``out_hash``, a digest of the kernel's outputs'
-bits, so that two trees run in turns are held to the same bits by their
-lines; K10 in bf16 stage by stage, each stage's plain
+fp32 join, K10, K4, K5 and K6 with ``out_hash``, a digest of the kernel's
+outputs' bits, so that two trees run in turns are held to the same bits by
+their lines; K10 in bf16 stage by stage, each stage's plain
 version on the kernel's own inputs to it (an intermediate one bf16 ulp
 apart moves the next stage by that ulp times the following BN's scale).
 Then a JSON line of the kernels (launches: the counts of the main paths of

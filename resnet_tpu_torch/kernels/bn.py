@@ -33,12 +33,13 @@ training-mode BN(+ReLU) of bn.py:250-285: forward K4 then K5, returning
 ``bn_bwd``: the reduction s1 = Σdy_g, s2 = Σdy_g·x̂ (dy gated by the
 recomputed ReLU), then dx = γ·inv_std·(dy_g − s1/M − x̂·s2/M), dγ = s2,
 dβ = s1, launched as ``rt_bn_bwd_f32`` on a CUDA tensor (``csrc/bn.cu``:
-K4's layout and ticketed finish, then the dx pass over each thread's rows
-in reverse, so that what the L2 still holds is read first; one cooperative
-launch where the grid fits one block a SM), ``bn_bwd_reference`` on a CPU
-one. Its plan (``bn_bwd_plan``) is cached per (M, C, element size, load
-width, SMs); it shares K4's workspace per (device, stream), and each call
-allocates dx and one (2, C) tensor whose rows are dβ and dγ.
+K4's layout, chunk partials that every block of a channel tile sums in one
+fixed order once its tile's counter says all are written, then the dx pass
+over each thread's rows in reverse, so that what the L2 still holds is
+read first; one cooperative launch where the grid fits one block a SM),
+``bn_bwd_reference`` on a CPU one. Its plan (``bn_bwd_plan``) is cached per
+(M, C, load width, SMs); it shares K4's workspace per (device, stream), and
+each call allocates dx and one (2, C) tensor whose rows are dβ and dγ.
 ``bn_act_reference`` (bn.py:288-299) is plain torch ops that autograd
 differentiates, the yardstick of the whole.
 
@@ -333,17 +334,15 @@ def bn_bwd_reference(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
 
 class BwdPlan(NamedTuple):
     """A K6 launch: ``vec`` values a lane (a 16-byte access, or 1), ``ctv``
-    lanes a channel tile, ``tiles`` channel tiles, ``chunk`` rows a block,
-    ``n_chunks`` blocks a tile, ``part`` floats of chunk partials,
-    ``tickets`` counters (two a tile), and ``fused``: one cooperative
-    launch, or two."""
+    lanes a channel tile, ``tiles`` channel tiles (a counter each),
+    ``chunk`` rows a block, ``n_chunks`` blocks a tile, ``part`` floats of
+    chunk partials, and ``fused``: one cooperative launch, or two."""
     vec: int
     ctv: int
     tiles: int
     chunk: int
     n_chunks: int
     part: int
-    tickets: int
     fused: bool
 
 
@@ -376,20 +375,7 @@ def bn_bwd_plan(m: int, c: int, vec: int, sms: int) -> BwdPlan:
     rows = max(-(-m // want), _BWD_ROWS * (_BWD_THREADS // ctv), -(-m // _MAX_CHUNKS))
     chunk = -(-rows // 8) * 8
     n_chunks = -(-m // chunk)
-    return BwdPlan(vec, ctv, tiles, chunk, n_chunks, 2 * n_chunks * c, 2 * tiles, fused)
-
-
-def bwd_rows(m: int, plan: BwdPlan, chunk: int, row_lane: int) -> Tuple[range, range]:
-    """The rows one K6 thread (row lane ``row_lane`` of a block of chunk
-    ``chunk``) sums, in its order, and the rows it writes dx of, in its
-    order: the same rows backwards (``csrc/bn.cu``'s loops, for the tests)."""
-    row_lanes = _BWD_THREADS // plan.ctv
-    first = chunk * plan.chunk + row_lane
-    r1 = min(m, (chunk + 1) * plan.chunk)
-    if first >= r1:
-        return range(0), range(0)
-    last = first + (r1 - 1 - first) // row_lanes * row_lanes
-    return range(first, r1, row_lanes), range(last, first - 1, -row_lanes)
+    return BwdPlan(vec, ctv, tiles, chunk, n_chunks, 2 * n_chunks * c, fused)
 
 
 @functools.cache
@@ -402,7 +388,7 @@ def _bwd_launch(x2d, dy, rows, sums, dx, plan: BwdPlan, relu: bool) -> None:
     the rows of sums."""
     index = x2d.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
-    part, tickets = _workspace(index, plan.part, plan.tickets, stream)
+    part, tickets = _workspace(index, plan.part, plan.tiles, stream)
     build.launch_on(index, stream, build.entry(build.entry_name("bn_bwd", x2d)),
                     x2d.data_ptr(), dy.data_ptr(), *(r.data_ptr() for r in rows),
                     part.data_ptr(), tickets.data_ptr(), sums.data_ptr(), dx.data_ptr(),
@@ -429,7 +415,11 @@ def bn_bwd(x2d, dy, mean, inv_std, gamma, beta, *, relu: bool):
     _bwd_launch(x2d, dy, rows, sums, dx, plan, relu)
     build.count(__name__, "BWD_LAUNCHES", x2d)
     dbeta, dgamma = sums.unbind(0)
-    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+    if gamma.dtype != torch.float32:  # a bf16 parameter's
+        dgamma = dgamma.to(gamma.dtype)
+    if beta.dtype != torch.float32:
+        dbeta = dbeta.to(beta.dtype)
+    return dx, dgamma, dbeta
 
 
 class _BatchNormAct(torch.autograd.Function):

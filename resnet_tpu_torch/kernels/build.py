@@ -488,10 +488,12 @@ def rows_f32(*rows):
     """Per-channel rows as the kernels read them: fp32, contiguous. The
     Pallas kernels take theirs through ``jnp.asarray(v, jnp.float32)``
     (bn.py:210, fused_conv.py:170-175, :536-538, block_fused.py:281), so a bf16 row
-    (a bf16 parameter's gamma) is cast, and an fp32 one passes as it is."""
+    (a bf16 parameter's gamma) is cast, and an fp32 one passes as it is
+    (without a dispatch: the check alone is cheaper)."""
     import torch
 
-    return tuple(r.to(torch.float32).contiguous() for r in rows)
+    return tuple(r if r.dtype == torch.float32 and r.is_contiguous()
+                 else r.to(torch.float32).contiguous() for r in rows)
 
 
 def entry_name(base: str, t) -> str:

@@ -24,25 +24,28 @@
 //      owns a channel tile of 128 bytes of a row (ctv lanes of one 16-byte
 //      access: 4 fp32 or 8 bf16 channels; one value a lane where C or the
 //      pointers' alignment forbid it) over a chunk of rows, BWD_THREADS / ctv
-//      row lanes, BWD_ROWS rows of x and dy in flight a thread.
+//      row lanes, each loading BWD_ROWS rows of x and dy at once. One block
+//      of 512 threads a SM: a bf16 lane keeps its 8 channels' mean,
+//      inv_std, gamma and beta, and in the dx pass their three
+//      coefficients, in registers (up to 128 a thread).
 //        1. Each block sums its chunk's (s1, s2) in fp32, adds its row
 //           lanes in shared memory in a fixed order and writes the chunk's
-//           partials; then it takes a ticket from its tile's counter, and
-//           the block that draws the last one sums the tile's chunk
-//           partials in double in a fixed order (K4's finish) into s1 and
-//           s2. The ticket is the only atomic: a run repeats bit for bit.
+//           partials; then every block of the tile sums the tile's chunk
+//           partials in double in one fixed order (K4's finish, run by each
+//           block, so all agree bit for bit) into s1 and s2. No sum takes
+//           an atomic: a run repeats bit for bit.
 //        2. The dx pass reads x and dy again, each thread walking its own
 //           rows in the reverse of the order in which it summed them, so
-//           that the rows read last, which the 50 MB L2 still holds, are
-//           read first; these second reads and the dx stores are streaming
-//           (evict-first), so they do not push out the rows still to come.
+//           that the rows it read last, those the L2 is likeliest to still
+//           hold, come first; these second reads and the dx stores stream
+//           (evict-first).
 //      With at most one block a SM (the wrapper's plan: tiles * n_chunks <=
-//      the SMs), 1 and 2 run in one cooperative launch (mode BOTH: every
-//      block of a tile waits for the tile's flag, which the finishing
-//      block sets; the last block to leave resets the counter and the
-//      flag). A wider view takes two launches (REDUCE, then DX), where the
-//      kernel boundary is the wait. Either way the counters are left at 0,
-//      so that calls on one stream may follow each other.
+//      the SMs), 1 and 2 run in one cooperative launch (mode BOTH): a block
+//      that has written its partials arrives on its tile's counter and
+//      waits until every block of the tile has; the last to leave resets
+//      the counter, so calls on one stream may follow each other. A wider
+//      view takes two launches (REDUCE, then DX), where the kernel boundary
+//      is the wait.
 //
 // Each product and sum the plain PyTorch versions round on their own is
 // rounded on its own here too (__fmul_rn, __fadd_rn: no contraction into an
@@ -62,8 +65,6 @@
 // dx, and read again what of x and dy the L2 no longer holds when s1 and s2
 // are known (12 bytes per element plus that second read; bf16: 6). wgmma
 // has no role here.
-
-#include <atomic>
 
 #include "rowwise.cuh"
 
@@ -118,10 +119,7 @@ __device__ __forceinline__ float gated(float x, float dy, float mu, float iv, fl
 // ---------------------------------------------------------------------- K6
 
 constexpr int BWD_THREADS = 512;  // one block a SM (bn.py _BWD_THREADS)
-// rows of x and dy in flight a thread (16-byte rows: a ring of cp.async
-// slots in shared memory, 8 * 2 * 512 * 16 bytes = 128 KB a block)
-constexpr int BWD_RING = 8;
-constexpr int RING_BYTES = BWD_RING * 2 * BWD_THREADS * 16;
+constexpr int BWD_ROWS = 4;       // rows of x and dy a thread loads at once
 // bn_bwd_kernel's modes: the sums, the dx pass, or both in one launch
 constexpr int REDUCE = 1, DX = 2, BOTH = 3;
 
@@ -186,92 +184,10 @@ __device__ __forceinline__ void load_cg(float (&v)[G], const float* p) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// the thread's cp.async groups but the newest N have landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// The rows of x and dy one thread reads, its j-th row being row order(j) of
-// its own (index i < rows: row first + i * row_lanes of the view). 16-byte
-// rows come through a ring of BWD_RING slots in shared memory, filled by
-// cp.async BWD_RING rows ahead: start issues the first ones, get(j) waits
-// for the j-th, and refill(j), once its values are used, reuses its slot
-// for the one BWD_RING further. One-value rows are read when asked for.
-template <class T, bool VEC>
-struct RowSource;
-
-template <class T>
-struct RowSource<T, true> {
-  uint4* ring;  // slot s of x at ring[2 * s * BWD_THREADS + t], of dy BWD_THREADS on
-  const T* x;
-  const T* dy;
-  int64_t first, rows, row_lanes, C;
-  int c0, t;
-  // row i (if it is one of the thread's) into slot s, as one cp.async group
-  __device__ void fetch(int64_t i, int s) const {
-    if (i >= 0 && i < rows) {
-      const int64_t at = (first + i * row_lanes) * C + c0;
-      uint4* slot = ring + 2 * s * BWD_THREADS + t;
-      cp_async16(slot, x + at);
-      cp_async16(slot + BWD_THREADS, dy + at);
-    }
-    cp_async_commit();
-  }
-  template <class Order>
-  __device__ void start(Order order) const {
-#pragma unroll
-    for (int s = 0; s < BWD_RING; ++s) fetch(order(s), s);
-  }
-  template <class Order>
-  __device__ void get(int64_t j, Order, bool, uint4& xu, uint4& du) const {
-    cp_async_wait<BWD_RING - 1>();  // rows up to the j-th have landed
-    const uint4* slot = ring + 2 * (int)(j & (BWD_RING - 1)) * BWD_THREADS + t;
-    xu = slot[0];
-    du = slot[BWD_THREADS];
-  }
-  template <class Order>
-  __device__ void refill(int64_t j, Order order) const {
-    fetch(order(j + BWD_RING), (int)(j & (BWD_RING - 1)));
-  }
-};
-
-template <class T>
-struct RowSource<T, false> {
-  const T* x;
-  const T* dy;
-  int64_t first, rows, row_lanes, C;
-  int c0;
-  template <class Order>
-  __device__ void start(Order) const {}
-  template <class Raw, class Order>
-  __device__ void get(int64_t j, Order order, bool last, Raw& xu, Raw& du) const {
-    using IO = RowIo<T, false>;
-    const int64_t at = (first + order(j) * row_lanes) * C + c0;
-    xu = last ? IO::ld_last(x + at) : IO::ld(x + at);
-    du = last ? IO::ld_last(dy + at) : IO::ld(dy + at);
-  }
-  template <class Order>
-  __device__ void refill(int64_t, Order) const {}
-};
-
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
   asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
 }
 
 template <class T>
@@ -283,7 +199,7 @@ struct BwdArgs {
   const float* gamma;
   const float* beta;
   float* part;        // 2 * n_chunks * C: chunk k's s1 row at 2k, its s2 row at 2k + 1
-  unsigned* tickets;  // 2 a channel tile: its counter, then its flag; all 0, left at 0
+  unsigned* tickets;  // a counter a channel tile; all 0, left at 0
   float* sums;        // (2, C): s1 (dbeta), then s2 (dgamma)
   T* dx;
   int64_t M, chunk;
@@ -296,11 +212,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T>
   using IO = RowIo<T, VEC>;
   using Raw = typename IO::Raw;
   constexpr int N = IO::N;
+  constexpr int U = BWD_ROWS;
   constexpr int G = VEC ? 4 : 1;  // partials a load in the finish
   // the row lanes' sums, then (as doubles) the finish's chunk-lane sums
   __shared__ __align__(16) float sh[2][BWD_THREADS * N];
   __shared__ float red[BWD_THREADS];  // the row-lane segments' sums
-  __shared__ unsigned draw;
+  __shared__ float s12[2][64];        // the tile's s1 and s2 (at most 64 channels)
   const int t = threadIdx.x;
   const int lane = t % a.ctv, row_lane = t / a.ctv, row_lanes = BWD_THREADS / a.ctv;
   const int tc = N * a.ctv;  // channels of the tile
@@ -312,18 +229,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T>
   const int64_t end = (int64_t)blockIdx.y * a.chunk + a.chunk;
   const int64_t r1 = a.M < end ? a.M : end;
   const int64_t rows = live && first < r1 ? (r1 - 1 - first) / row_lanes + 1 : 0;
-  unsigned* count = a.tickets + 2 * blockIdx.x;
-  unsigned* flag = count + 1;
-  extern __shared__ __align__(16) uint4 ring[];  // 16-byte rows: the RowSource ring
-  RowSource<T, VEC> src;
-  if constexpr (VEC)
-    src = {ring, a.x, a.dy, first, rows, row_lanes, C, c0, t};
-  else
-    src = {a.x, a.dy, first, rows, row_lanes, C, c0};
-  // the reduction's j-th row, and the dx pass's: the thread's rows
-  // backwards, so that those read last in the reduction, which the L2 is
-  // likeliest to hold, come first
-  auto sum_row = [](int64_t j) { return j; };
+  unsigned* count = a.tickets + blockIdx.x;
+  // the dx pass's j-th row: the thread's rows backwards, so that those read
+  // last in the reduction, which the L2 is likeliest to hold, come first
   auto dx_row = [rows](int64_t j) { return rows - 1 - j; };
 
   float mu[N], iv[N], g[N], b[N];
@@ -340,24 +248,30 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T>
     float s1[N], s2[N];
 #pragma unroll
     for (int j = 0; j < N; ++j) s1[j] = s2[j] = 0.f;
-    src.start(sum_row);
-#pragma unroll 2
-    for (int64_t k = 0; k < rows; ++k) {
-      Raw xu, du;
-      src.get(k, sum_row, false, xu, du);
-      float xv[N], dv[N];
-      IO::unpack(xu, xv);
-      IO::unpack(du, dv);
+    for (int64_t k = 0; k < rows; k += U) {
+      Raw xr[U], dr[U];
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        float xh;
-        const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
-        s1[j] += d;
-        s2[j] += d * xh;
+      for (int u = 0; u < U; ++u) {
+        if (k + u >= rows) continue;
+        const int64_t at = (first + (k + u) * row_lanes) * C + c0;
+        xr[u] = IO::ld(a.x + at);
+        dr[u] = IO::ld(a.dy + at);
       }
-      src.refill(k, sum_row);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k + u >= rows) continue;
+        float xv[N], dv[N];
+        IO::unpack(xr[u], xv);
+        IO::unpack(dr[u], dv);
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          float xh;
+          const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
+          s1[j] += d;
+          s2[j] += d * xh;
+        }
+      }
     }
-    if (a.mode == BOTH) src.start(dx_row);  // in flight through the finish
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       sh[0][row_lane * tc + lane * N + j] = s1[j];
@@ -382,65 +296,65 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T>
       const int c = blockIdx.x * tc + t % tc;
       if (c < a.C) a.part[((int64_t)blockIdx.y * 2 + t / tc) * C + c] = acc;
     }
-    __threadfence();  // the partials are visible to every block before the ticket
+    if (a.mode == REDUCE) return;  // the launch boundary is the wait
+    __threadfence();  // the partials are visible to every block before the arrival
     __syncthreads();
-    if (t == 0) draw = atomicAdd(count, 1u);
-    __syncthreads();
-    if (draw == (unsigned)(a.n_chunks - 1)) {
-      // the tile's last block: its 2 * tc sums as `groups` loads of G
-      // partials a chunk over fl chunk lanes (chunk k into lane k mod fl),
-      // each lane's chunks added in order in double, B loads in flight;
-      // then the lanes in order
-      __threadfence();
-      double* shd = reinterpret_cast<double*>(&sh[0][0]);  // BWD_THREADS * G doubles
-      const int groups = outs / G, fl = BWD_THREADS / groups, per = tc / G;
-      const int o = t % groups;
-      const int c = blockIdx.x * tc + (o % per) * G;
-      double acc[G];
-#pragma unroll
-      for (int j = 0; j < G; ++j) acc[j] = 0.0;
-      if (c < a.C) {
-        const float* base = a.part + (o / per) * C + c;
-        constexpr int B = 4;
-        for (int k = t / groups; k < a.n_chunks; k += B * fl) {
-          float v[B][G];
-#pragma unroll
-          for (int i = 0; i < B; ++i)
-            if (k + i * fl < a.n_chunks) load_cg<G>(v[i], base + (int64_t)(k + i * fl) * 2 * C);
-#pragma unroll
-          for (int i = 0; i < B; ++i)
-            if (k + i * fl < a.n_chunks)
-#pragma unroll
-              for (int j = 0; j < G; ++j) acc[j] += (double)v[i][j];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < G; ++j) shd[t * G + j] = acc[j];
-      __syncthreads();
-      if (t < tc && blockIdx.x * tc + t < a.C) {
-        const int gi = t / G, j = t % G;
-        double sa = 0.0, sb = 0.0;
-        for (int k = 0; k < fl; ++k) {
-          sa += shd[(k * groups + gi) * G + j];
-          sb += shd[(k * groups + per + gi) * G + j];
-        }
-        a.sums[blockIdx.x * tc + t] = (float)sa;
-        a.sums[C + blockIdx.x * tc + t] = (float)sb;
-      }
-      __threadfence();
-      __syncthreads();
-      if (t == 0) {
-        if (a.mode == REDUCE)
-          *count = 0u;
-        else
-          st_release(flag, 1u);
-      }
-    }
-    if (a.mode == REDUCE) return;
-    if (t == 0) {  // BOTH: the tile's sums are written once its flag is set
-      for (unsigned n = 0; ld_acquire(flag) == 0u; ++n) {
+    if (t == 0) {  // arrive, wait for the tile's other blocks, leave
+      atomicAdd(count, 1u);
+      for (unsigned n = 0; ld_acquire(count) < (unsigned)a.n_chunks; ++n) {
         if (n == (1u << 22)) __trap();  // a block that never arrives: fail, not hang
         __nanosleep(64);
+      }
+      // the last to leave resets the counter: every block is past its wait
+      if (atomicAdd(count, 1u) == 2u * (unsigned)a.n_chunks - 1u) *count = 0u;
+    }
+    __syncthreads();
+  }
+
+  // s1 and s2 of the tile's channels: every block sums the tile's chunk
+  // partials itself, in one fixed order, so all agree bit for bit: 2 * tc
+  // sums as `groups` loads of G partials a chunk over fl chunk lanes (chunk
+  // k into lane k mod fl), each lane's chunks added in order in double, B
+  // loads in flight; then the lanes in order. The tile's first block writes
+  // them out.
+  {
+    double* shd = reinterpret_cast<double*>(&sh[0][0]);  // BWD_THREADS * G doubles
+    const int outs = 2 * tc, groups = outs / G, fl = BWD_THREADS / groups, per = tc / G;
+    const int o = t % groups;
+    const int c = blockIdx.x * tc + (o % per) * G;
+    double acc[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[j] = 0.0;
+    if (c < a.C) {
+      const float* base = a.part + (o / per) * C + c;
+      constexpr int B = 4;
+      for (int k = t / groups; k < a.n_chunks; k += B * fl) {
+        float v[B][G];
+#pragma unroll
+        for (int i = 0; i < B; ++i)
+          if (k + i * fl < a.n_chunks) load_cg<G>(v[i], base + (int64_t)(k + i * fl) * 2 * C);
+#pragma unroll
+        for (int i = 0; i < B; ++i)
+          if (k + i * fl < a.n_chunks)
+#pragma unroll
+            for (int j = 0; j < G; ++j) acc[j] += (double)v[i][j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) shd[t * G + j] = acc[j];
+    __syncthreads();
+    if (t < tc && blockIdx.x * tc + t < a.C) {
+      const int gi = t / G, j = t % G;
+      double sa = 0.0, sb = 0.0;
+      for (int k = 0; k < fl; ++k) {
+        sa += shd[(k * groups + gi) * G + j];
+        sb += shd[(k * groups + per + gi) * G + j];
+      }
+      s12[0][t] = (float)sa;
+      s12[1][t] = (float)sb;
+      if (blockIdx.y == 0) {
+        a.sums[blockIdx.x * tc + t] = (float)sa;
+        a.sums[C + blockIdx.x * tc + t] = (float)sb;
       }
     }
     __syncthreads();
@@ -452,52 +366,35 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel(const BwdArgs<T>
   const float m = (float)a.M;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    const int c = live ? c0 + j : 0;
+    const int i = live ? lane * N + j : 0;  // the channel's place in the tile
     ca[j] = __fmul_rn(g[j], iv[j]);
-    cb[j] = __fdiv_rn(__ldcg(a.sums + c), m);
-    cc[j] = __fdiv_rn(__ldcg(a.sums + C + c), m);
+    cb[j] = __fdiv_rn(s12[0][i], m);
+    cc[j] = __fdiv_rn(s12[1][i], m);
   }
-  if (a.mode == BOTH) {
-    __syncthreads();  // every thread holds its sums: the last block to leave resets
-    if (t == 0 && atomicAdd(count, 1u) == 2u * (unsigned)a.n_chunks - 1u) {
-      *count = 0u;
-      *flag = 0u;
-    }
-  }
-  if (a.mode == DX) src.start(dx_row);
-#pragma unroll 2
-  for (int64_t k = 0; k < rows; ++k) {
-    Raw xu, du;
-    src.get(k, dx_row, true, xu, du);
-    float xv[N], dv[N];
-    IO::unpack(xu, xv);
-    IO::unpack(du, dv);
+  for (int64_t k = 0; k < rows; k += U) {
+    Raw xr[U], dr[U];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      float xh;
-      const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
-      xv[j] = __fmul_rn(ca[j], __fsub_rn(__fsub_rn(d, cb[j]), __fmul_rn(xh, cc[j])));
+    for (int u = 0; u < U; ++u) {
+      if (k + u >= rows) continue;
+      const int64_t at = (first + dx_row(k + u) * row_lanes) * C + c0;
+      xr[u] = IO::ld_last(a.x + at);
+      dr[u] = IO::ld_last(a.dy + at);
     }
-    IO::st_last(a.dx + (first + dx_row(k) * row_lanes) * C + c0, xv);
-    src.refill(k, dx_row);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k + u >= rows) continue;
+      float xv[N], dv[N];
+      IO::unpack(xr[u], xv);
+      IO::unpack(dr[u], dv);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        float xh;
+        const float d = gated(xv[j], dv[j], mu[j], iv[j], g[j], b[j], a.relu, xh);
+        xv[j] = __fmul_rn(ca[j], __fsub_rn(__fsub_rn(d, cb[j]), __fmul_rn(xh, cc[j])));
+      }
+      IO::st_last(a.dx + (first + dx_row(k + u) * row_lanes) * C + c0, xv);
+    }
   }
-}
-
-// lets bn_bwd_kernel<T, true> take its ring on the current device (once a
-// device)
-template <class T>
-int allow_ring() {
-  static std::atomic<uint32_t> done{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const uint32_t bit = dev < 32 ? 1u << dev : 0u;
-  if (bit && (done.load() & bit)) return 0;
-  e = cudaFuncSetAttribute(bn_bwd_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           RING_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  done.fetch_or(bit);
-  return 0;
 }
 
 template <class T>
@@ -518,21 +415,16 @@ template <class T, bool VEC>
 int launch_bn_bwd(BwdArgs<T> a, bool fused, cudaStream_t s) {
   const int tc = RowIo<T, VEC>::N * a.ctv;
   const dim3 grid((unsigned)((a.C + tc - 1) / tc), (unsigned)a.n_chunks);
-  const int smem = VEC ? RING_BYTES : 0;
-  if (VEC) {
-    const int status = allow_ring<T>();
-    if (status != 0) return status;
-  }
   if (fused) {  // every block resident, or the launch is refused
     a.mode = BOTH;
     void* args[] = {&a};
     return (int)cudaLaunchCooperativeKernel((const void*)bn_bwd_kernel<T, VEC>, grid,
-                                            dim3(BWD_THREADS), args, smem, s);
+                                            dim3(BWD_THREADS), args, 0, s);
   }
   a.mode = REDUCE;
-  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, smem, s>>>(a);
+  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, 0, s>>>(a);
   a.mode = DX;
-  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, smem, s>>>(a);
+  bn_bwd_kernel<T, VEC><<<grid, BWD_THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -572,7 +464,7 @@ extern "C" int rt_bn_apply_bf16(const __nv_bfloat16* x, const float* scale, cons
 // 8 bf16 values, x, dy and dx 16-byte aligned), 0: one value a lane; ctv a
 // power of two, at most 8 (vec) or 32; n_chunks = ceil(M / chunk) row chunks
 // of each tile of vec ? 4 or 8 : 1 times ctv channels; part holds 2 *
-// n_chunks * C floats, tickets 2 counters a tile, all 0 (left at 0). fused 1:
+// n_chunks * C floats, tickets a counter a tile, all 0 (left at 0). fused 1:
 // one cooperative launch, which the card refuses unless every block is
 // resident (tiles * n_chunks blocks of BWD_THREADS, at most one a SM is
 // always resident); 0: two launches. The caller checks shapes, dtype and

@@ -1,14 +1,16 @@
 """K6's device time under source variants of ``csrc/bn.cu``, launch by launch.
 
     python -m resnet_tpu_torch.kernels.k6_variants             (every variant)
-    python -m resnet_tpu_torch.kernels.k6_variants ring4 forward
+    python -m resnet_tpu_torch.kernels.k6_variants rows2 forward
 
-A variant is a copy of ``bn.cu`` with text patches:
+A variant is a copy of ``bn.cu`` with text patches, and the blocks a SM
+its plan counts on:
 
 - ``forward``: the dx pass walks each thread's rows in its summing order
   instead of backwards;
-- ``ring4``: 4 rows of x and dy in flight a thread (the cp.async ring of
-  16-byte rows) instead of 8.
+- ``rows2``: batches of 2 rows of x and dy a thread instead of 4;
+- ``occ2``, ``occ2_rows2``: two blocks a SM (at most 64 registers a thread)
+  instead of one, with batches of 4 or 2 rows.
 
 Each is built from ``bn.cu`` alone into ``build/k6_variants/<name>/`` (all at
 once) and run through ``bn._bwd_launch`` with its library's entry points, on
@@ -16,8 +18,9 @@ phase 3's eight cases (``checks.BN_BWD_CASES``) in fp32 and bf16, the
 unpatched ``base`` first and ``base`` again in two launches (``two``), in
 two rounds. One JSON line a case gives the device µs of each kernel one
 call launches, in launch order (torch.profiler, the mean over 10 calls),
-and whether the output equals ``base``'s bit for bit (every variant
-computes the same function in the same order). Needs nvcc and a CUDA card;
+the blocks of its grid, and whether the output equals ``base``'s bit for
+bit (a variant on base's plan sums in the same order; one of two blocks a
+SM takes other chunks, so its sums round otherwise). Needs nvcc and a CUDA card;
 no model path uses it.
 """
 
@@ -34,10 +37,16 @@ from pathlib import Path
 from . import bn, build, checks
 
 _BN = "bn.cu"
+_OCC2 = (_BN, "__launch_bounds__(BWD_THREADS, 1) bn_bwd_kernel",
+         "__launch_bounds__(BWD_THREADS, 2) bn_bwd_kernel")
+_ROWS2 = (_BN, "constexpr int BWD_ROWS = 4;", "constexpr int BWD_ROWS = 2;")
+# name -> (patches, blocks a SM)
 VARIANTS = {
-    "forward": [(_BN, "auto dx_row = [rows](int64_t j) { return rows - 1 - j; };",
-                 "auto dx_row = [rows](int64_t j) { return j + 0 * rows; };")],
-    "ring4": [(_BN, "constexpr int BWD_RING = 8;", "constexpr int BWD_RING = 4;")],
+    "forward": ([(_BN, "auto dx_row = [rows](int64_t j) { return rows - 1 - j; };",
+                  "auto dx_row = [rows](int64_t j) { return j + 0 * rows; };")], 1),
+    "rows2": ([_ROWS2], 1),
+    "occ2": ([_OCC2], 2),
+    "occ2_rows2": ([_OCC2, _ROWS2], 2),
 }
 OUT = build.BUILD_DIR.parent / "k6_variants"
 ENTRIES = ("rt_bn_bwd_f32", "rt_bn_bwd_bf16")
@@ -51,7 +60,7 @@ def _build(name: str) -> Path:
     src.mkdir(parents=True)
     for f in ("bn.cu", "rowwise.cuh"):
         shutil.copy(build.CSRC / f, src / f)
-    for fname, old, new in VARIANTS.get(name, []):
+    for fname, old, new in VARIANTS.get(name, ([], 1))[0]:
         path = src / fname
         text = path.read_text()
         if old not in text:
@@ -107,8 +116,7 @@ def _cases():
             rows = (mean, torch.rsqrt(var + 1e-7),
                     1 + 0.2 * torch.randn(c, generator=gen, device="cuda"),
                     0.5 * torch.randn(c, generator=gen, device="cuda"))
-            plan = bn.bn_bwd_plan(m, c, bn.bwd_vector_width(x, dy), bn._sms(x.device.index))
-            yield str(dtype), label, x, dy, rows, plan, relu
+            yield str(dtype), label, x, dy, rows, relu
 
 
 def main(names) -> None:
@@ -126,11 +134,14 @@ def main(names) -> None:
     entry = build.entry
     try:
         for turn in range(2):
-            for dtype, label, x, dy, rows, plan, relu in _cases():
+            for dtype, label, x, dy, rows, relu in _cases():
                 want = None
                 for name, fused in runs:
                     fns = libs["base" if name == "two" else name]
                     build.entry = fns.__getitem__
+                    per_sm = VARIANTS.get(name, ([], 1))[1]
+                    plan = bn.bn_bwd_plan(*x.shape, bn.bwd_vector_width(x, dy),
+                                          per_sm * bn._sms(x.device.index))
 
                     def call(plan=plan._replace(fused=fused)):
                         dx = torch.empty_like(x)
@@ -142,7 +153,8 @@ def main(names) -> None:
                     want = got if want is None else want
                     same = all(torch.equal(a, b) for a, b in zip(got, want))
                     print(json.dumps({"turn": turn, "variant": name, "dtype": dtype,
-                                      "case": label, "kernel_us": _kernel_us(call),
+                                      "case": label, "blocks": plan.tiles * plan.n_chunks,
+                                      "kernel_us": _kernel_us(call),
                                       "same_bits": same}), flush=True)
     finally:
         build.entry = entry

@@ -2,9 +2,9 @@
 ``wgmma`` loop can take, on the same inputs, and of the served bf16
 forward, in turns.
 
-    python -m resnet_tpu_torch.kernels.route_times [loaders] [fc] [served] [k6]
+    python -m resnet_tpu_torch.kernels.route_times [loaders] [fc] [served]
 
-on a CUDA card prints one JSON line per case (all four parts when none is
+on a CUDA card prints one JSON line per case (all three parts when none is
 named):
 
 * ``loaders``: K1's bf16 dx at each distinct ResNet-50 dx shape at batch 32
@@ -26,11 +26,6 @@ named):
   kernel): six medians of 10 calls by CUDA events, the host clock of one
   call, and its device time.
 
-* ``k6``: K6 (``bn.bn_bwd``'s launch) on phase 3's eight cases
-  (``checks.BN_BWD_CASES``) in fp32 and bf16 under its plan, as one
-  cooperative launch and as two launches (``BwdPlan.fused``): device ms,
-  four turns, host µs a call, and whether both give the same bits.
-
 ``fc`` and ``served`` go through the wrappers only, so this file copied
 into a ``git archive`` of an older tree times that tree's kernels there;
 ``loaders`` needs the entry points' route argument.
@@ -46,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from . import bn, build, checks, conv, matmul
+from . import build, checks, conv, matmul
 
 BF16 = torch.bfloat16
 SEED = 1234
@@ -193,38 +188,12 @@ def served() -> None:
                "host_call_ms": float(np.median(host)), "device_ms": checks.device_ms(call)})
 
 
-def k6() -> None:
-    for dtype in (torch.float32, BF16):
-        for label, m, c, relu in checks.BN_BWD_CASES:
-            gen = torch.Generator(device="cuda").manual_seed(SEED)
-            x = (torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
-            dy = torch.randn(m, c, generator=gen, device="cuda").to(dtype)
-            mean, var = bn.moments_reference(x)
-            rows = (mean, torch.rsqrt(var + 1e-7),
-                    1 + 0.2 * torch.randn(c, generator=gen, device="cuda"),
-                    0.5 * torch.randn(c, generator=gen, device="cuda"))
-            plan = bn.bn_bwd_plan(m, c, bn.bwd_vector_width(x, dy), bn._sms(x.device.index))
-
-            def run(fused, x=x, dy=dy, rows=rows, plan=plan, relu=relu):
-                dx, sums = torch.empty_like(x), torch.empty((2, x.shape[1]), device="cuda")
-                bn._bwd_launch(x, dy, rows, sums, dx, plan._replace(fused=fused), relu)
-                return dx, sums
-
-            runs = {"one launch": lambda run=run: run(True),
-                    "two launches": lambda run=run: run(False)}
-            one, two = runs["one launch"](), runs["two launches"]()
-            _emit({"part": "k6", "dtype": str(dtype), "case": label, "plan": plan._asdict(),
-                   "same_bits": all(torch.equal(a, b) for a, b in zip(one, two)),
-                   "device_ms": _turns(runs),
-                   "host_us": {name: checks.host_us(fn) for name, fn in runs.items()}})
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("route_times needs a CUDA device")
-    parts = sys.argv[1:] or ["loaders", "fc", "served", "k6"]
+    parts = sys.argv[1:] or ["loaders", "fc", "served"]
     for part in parts:
-        {"loaders": loaders, "fc": fc, "served": served, "k6": k6}[part]()
+        {"loaders": loaders, "fc": fc, "served": served}[part]()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """K6's launch plan and host path (``bn.bn_bwd_plan``, ``bn.bwd_vector_width``,
-``bn.bwd_rows``, ``bn.bn_bwd``) on the CPU, as pure functions of the shapes.
+``bn.bn_bwd``) on the CPU, as pure functions of the shapes.
 
 The kernel (``csrc/bn.cu`` ``bn_bwd_kernel``) runs only on the card
 (tests/test_torch_gpu.py); here its grid is walked as the kernel walks it:
@@ -22,6 +22,19 @@ SMS = 132  # an H100 SXM
 SHAPES = [(32 * 112 * 112, 64, 0), (32 * 28 * 28, 512, 0), (32 * 7 * 7, 2048, 0),
           (1000, 33, 0), (200, 9, 0), (50, 64, 0), (1568, 2048, 1), (1000, 64, 4)]
 DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _rows(m, plan, chunk, row_lane):
+    """The rows one kernel thread (row lane ``row_lane`` of a block of chunk
+    ``chunk``) sums, in its order, and the rows it writes dx of, in its
+    order, as ``csrc/bn.cu``'s loops walk them: first + i * row_lanes for
+    i < rows, then the dx pass's j-th row rows - 1 - j."""
+    row_lanes = bn._BWD_THREADS // plan.ctv
+    first = chunk * plan.chunk + row_lane
+    r1 = min(m, (chunk + 1) * plan.chunk)
+    rows = (r1 - 1 - first) // row_lanes + 1 if first < r1 else 0
+    summed = [first + i * row_lanes for i in range(rows)]
+    return summed, [first + (rows - 1 - j) * row_lanes for j in range(rows)]
 
 
 def _view(m, c, offset, dtype):
@@ -50,7 +63,7 @@ def test_bn_bwd_plan_walks_every_element_once(m, c, offset, dtype):
         assert plan.tiles * plan.n_chunks <= SMS
     assert plan.chunk % 8 == 0 and plan.n_chunks <= 65535
     assert (plan.n_chunks - 1) * plan.chunk < m <= plan.n_chunks * plan.chunk
-    assert plan.part == 2 * plan.n_chunks * c and plan.tickets == 2 * plan.tiles
+    assert plan.part == 2 * plan.n_chunks * c
     # channels: lane l of tile t reads vec channels from t * tc + l * vec
     channels = np.zeros(c, np.int64)
     for tile in range(plan.tiles):
@@ -66,10 +79,10 @@ def test_bn_bwd_plan_walks_every_element_once(m, c, offset, dtype):
     summed, written = np.zeros(m, np.int64), np.zeros(m, np.int64)
     for k in range(plan.n_chunks):
         for row_lane in range(row_lanes):
-            forward, backward = bn.bwd_rows(m, plan, k, row_lane)
+            forward, backward = _rows(m, plan, k, row_lane)
             assert backward == forward[::-1]
-            summed[np.array(forward, np.int64)] += 1
-            written[np.array(backward, np.int64)] += 1
+            summed[forward] += 1
+            written[backward] += 1
     assert (summed == 1).all() and (written == 1).all()
 
 
@@ -110,7 +123,7 @@ def test_bn_bwd_hands_its_plan_to_the_entry_point(monkeypatch, dtype, param, rel
     x, dy = torch.zeros(m, c, dtype=dtype), torch.zeros(m, c, dtype=dtype)
     rows = [torch.zeros(c), torch.ones(c), torch.ones(c, dtype=param), torch.zeros(c, dtype=param)]
     plan = bn.bn_bwd_plan(m, c, 16 // x.element_size(), SMS)
-    ws = [torch.empty(plan.part), torch.zeros(plan.tickets, dtype=torch.int32)]
+    ws = [torch.empty(plan.part), torch.zeros(plan.tiles, dtype=torch.int32)]
     monkeypatch.setitem(bn._WORKSPACES, (None, 7), ws)
     dx, dgamma, dbeta = bn.bn_bwd(x, dy, *rows, relu=relu)
     (index, stream, fn, args), = calls

@@ -402,7 +402,7 @@ def test_bn_bwd_matches_plain_and_repeats_bit_for_bit(cuda, dtype, label, m, c, 
 def test_bn_bwd_back_to_back_finds_its_tickets_at_zero(cuda):
     """K6 calls at other shapes and dtypes enqueued one after another on one
     stream, with no synchronize among them and K4 between them (the two
-    share the workspace): each finds its tickets and flags at 0 and gives
+    share the workspace): each finds its tickets at 0 and gives
     the bits of the same call made alone."""
     from resnet_tpu_torch.kernels import bn
 
