@@ -190,6 +190,18 @@ Phases, each printing one JSON line:
      of one fused bf16 step, so that two trees run in turns are held to the
      same bits there too. Each run also prints a ``bf16_engine_run`` line,
      so a failing run still shows the runs before it.
+ 13. int8 serve: the W8A8 serving path (resnet_tpu_torch.quantize,
+     export_quantized_inference) on ResNet-50 at 224 with phase 4's seeded
+     weights and running statistics, calibrated on one seeded batch of 8 at
+     pixel scale, saved, loaded by resnet_tpu_torch.serve and asked for
+     batches of 1, 3 and 8 over HTTP: each request moves the counters by
+     exactly 54 qconv (Q1) and 54 quant_act (Q2) launches and no other; the
+     served logits at each request's bucket equal the plain int8 forward on
+     the card (the kernels' plain versions on the same qparams and scales)
+     bit for bit. Printed: the Pearson correlation and top-1 agreement with
+     the fp32 folded forward, the int8 and the bf16 hand-kernel served
+     forwards at batches 8 and 128 in turns, and the device time of one
+     batch-128 int8 forward split into Q1, Q2 and the rest.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
@@ -207,8 +219,15 @@ outputs' bits, so that two trees run in turns are held to the same bits by
 their lines; K10 in bf16 stage by stage, each stage's plain
 version on the kernel's own inputs to it (an intermediate one bf16 ulp
 apart moves the next stage by that ulp times the following BN's scale).
+Phase 3 also holds the int8 kernels bit for bit to their plain versions
+(max_abs_err 0): Q1 at every distinct conv shape of ResNet-50 at batch 8
+with its site's epilogue, the FC with fp32 logits, a capped site, a 1x1/s2
+projection and a ragged one (Cin 3, Cout 33), twice to the same bits; Q2 on
+the images, bf16 activations, the pooled features, an odd misaligned size
+and exact .5 ties; their bound at 1,979 TOP/s int8, Q1's yardstick
+torch._int_mm (the integer product alone) on the 1x1 stride-1 cases.
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 12 together, every kernel launched on at least one of them; ms,
+phases 4 to 13 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
@@ -222,7 +241,7 @@ runs phases 1-3 for those kernels only, without the launch plans and the
 weight split, and prints no final line: copied with kernels/checks.py into another tree of
 the package, it times that tree's kernels on this tree's cases. With
 --phases NAMES (serve, train, fused_train, blockfused_train,
-batch_norm_act, remat_train, trainer, presets, bf16_engines) it runs
+batch_norm_act, remat_train, trainer, presets, bf16_engines, int8_serve) it runs
 phases 1-2 and those phases only, with no final line: copied into another
 tree, it times and profiles that tree's steps the way this one does.
 """
@@ -271,9 +290,22 @@ KERNEL_SOURCES = {
 KERNEL_SOURCES.update({f"{name}_bf16": KERNEL_SOURCES[name] for name in (
     "conv2d", "conv2d_dx", "conv2d_dw", "add_relu", "add_relu_mask", "matmul", "matmul_bwd",
     "moments", "fused_conv", "fused_join", "bias_act", "bn_bwd", "block_fused")})
+# the int8 serving kernels have no Pallas counterpart: they replace the XLA
+# ops of quantize.py's _qconv (with _qsite's and the FC's dequantization)
+# and _quant_act
+KERNEL_SOURCES.update({
+    "qconv": (CSRC + "qconv.cu", "resnet_tpu/quantize.py:218"),
+    "quant_act": (CSRC + "qconv.cu", "resnet_tpu/quantize.py:213"),
+})
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
 # convs + 4 projections; one join per block; the FC
 PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
+# ... and in one int8 (W8A8) forward: one Q1 and one Q2 per quantization
+# site, the 53 convs and the FC (the reduce and the projection of a block
+# each quantize its input)
+INT8_PER_FORWARD = {"qconv": 54, "quant_act": 54}
+# the int8 phase's timed batches
+INT8_TIMED_BATCHES = (8, 128)
 # ... and in one training step: no dx for the stem (the images need none);
 # one BN per conv; the FC's da and db in one launch; one Adam launch over
 # all tensors
@@ -540,6 +572,14 @@ def _plan(build, name, case):
         units *= splits
         return {"route": route, "tile": tile, "splits": splits,
                 "chunk": build.k_chunk(k, splits, 16), "units": units, "blocks": min(units, 132)}
+    if name == "qconv":  # tiles and K steps of Q1, and its A loader
+        from resnet_tpu_torch.kernels.quant import BK, padded_k
+
+        _, n, h, cin, cout, k, s, *_ = case
+        m = n * (h // s) ** 2
+        return {"tile": [128, 64], "blocks": [-(-m // 128), -(-cout // 64)],
+                "k_steps": padded_k(k * k * cin) // BK,
+                "a": "cp.async 16 bytes" if cin % 16 == 0 else "bytes"}
     if name == "matmul_bwd_bf16":
         _, m, k, n, _, need_a, need_b = case
         return dict(zip(("da_blocks", "db_blocks"),
@@ -574,14 +614,12 @@ def _post(addr, x):
         conn.close()
 
 
-def phase_serve(torch, checks, counters):
-    from resnet_tpu_torch.config import ExecutionConfig, model_config
-    from resnet_tpu_torch.export import export_inference, save_inference
+def _serving_state(torch, mcfg):
+    """Seeded parameters of ``mcfg`` on the card and non-trivial BN running
+    statistics (means ~0.1, variances in [0.5, 2]): what the serving phases
+    export."""
     from resnet_tpu_torch.models import init_bn_state, init_params
-    from resnet_tpu_torch.serve import bucketed_call, serve
 
-    mcfg = model_config("resnet50")
-    kernel_cfg = ExecutionConfig(kernels="pallas", conv_kernels="pallas")
     gen = torch.Generator().manual_seed(SEED)
     params = init_params(gen, mcfg, device="cuda")
     bn_state = init_bn_state(mcfg, device="cuda")
@@ -590,6 +628,17 @@ def phase_serve(torch, checks, counters):
         c = layer["mean"].numel()
         layer["mean"] = (torch.randn(c, generator=gen) * 0.1).to("cuda")
         layer["var"] = (0.5 + 1.5 * torch.rand(c, generator=gen)).to("cuda")
+    return params, bn_state
+
+
+def phase_serve(torch, checks, counters):
+    from resnet_tpu_torch.config import ExecutionConfig, model_config
+    from resnet_tpu_torch.export import export_inference, save_inference
+    from resnet_tpu_torch.serve import bucketed_call, serve
+
+    mcfg = model_config("resnet50")
+    kernel_cfg = ExecutionConfig(kernels="pallas", conv_kernels="pallas")
+    params, bn_state = _serving_state(torch, mcfg)
     rng = np.random.default_rng(SEED)
     d = mcfg.input_dim
     # pixel-scale inputs, as mean-subtracted images are: at unit scale the
@@ -667,6 +716,142 @@ def phase_serve(torch, checks, counters):
           "launches": launches, "per_request": deltas, "compare": compare,
           "batch8_ms": kernel_ms, "batch8_img_s": 8e3 / kernel_ms,
           "plain_batch8_ms": plain_ms, "plain_batch8_img_s": 8e3 / plain_ms})
+    return launches
+
+
+def phase_int8_serve(torch, checks, counters):
+    """The W8A8 serving path at full width: ResNet-50 at 224 (phase 4's seeded
+    weights and running statistics) calibrated on one seeded batch of 8 at
+    pixel scale (export_quantized_inference), saved, loaded by
+    resnet_tpu_torch.serve and asked for batches of 1, 3 and 8 over HTTP:
+    each request moves the counters by exactly 54 Q1 and 54 Q2 launches
+    and no other; the served logits at each request's bucket equal the
+    plain int8 forward on the card (the kernels' plain versions, the same
+    qparams and scales) bit for bit, and the HTTP top1 is their argmax.
+    Printed, held only to be finite: the int8 logits' Pearson correlation
+    and top-1 agreement with the port's fp32 folded forward at batch 8; the
+    int8 and the bf16 hand-kernel served forwards (bf16 weights, every bf16
+    kernel) timed by CUDA events (median of 10) at batches 8 and 128, in
+    turns (int8, bf16, bf16, int8); the device time of one batch-128 int8
+    forward split into Q1, Q2 and the rest (torch.profiler)."""
+    import types
+
+    from resnet_tpu_torch.config import ExecutionConfig, model_config
+    from resnet_tpu_torch.export import (export_inference, export_quantized_inference,
+                                         save_inference)
+    from resnet_tpu_torch.quantize import fold_bn_inference, folded_forward, forward_sites
+    from resnet_tpu_torch.serve import bucketed_call, serve
+
+    mcfg = model_config("resnet50")
+    params, bn_state = _serving_state(torch, mcfg)
+    rng = np.random.default_rng(SEED)
+    d = mcfg.input_dim
+    calib = rng.normal(0, 50, (8, d, d, 3)).astype(np.float32)
+    batches = [rng.normal(0, 50, (n, d, d, 3)).astype(np.float32) for n in (1, 3, 8)]
+    t0 = time.perf_counter()
+    model = export_quantized_inference(params, mcfg, calib, bn_state=bn_state)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_inference(os.path.join(tmp, "resnet50_int8.pt"), model)
+        file_bytes = os.path.getsize(path)
+        httpd = serve(path, port=0, device="cuda")
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+            conn.request("GET", "/healthz")
+            require(json.loads(conn.getresponse().read()) == {"ok": True},
+                    "/healthz did not answer ok")
+            conn.close()
+            # the main path: counters from 0, three requests, counters read
+            counters.zero()
+            replies, deltas = [], []
+            for x in batches:
+                before = counters.read()
+                status, out = _post(httpd.server_address, x)
+                require(status == 200, f"/predict answered {status}: {out}")
+                deltas.append(_moved(before, counters.read()))
+                replies.append(out)
+            launches = {k: v for k, v in counters.read().items() if v}
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=60)
+        require(not thread.is_alive(), "server thread did not stop")
+    served = httpd.served
+    require(served.scales == model.scales, "the loaded model's scales differ from the export's")
+    for x, out, delta in zip(batches, replies, deltas):
+        require(out["logits_shape"] == [x.shape[0], mcfg.num_classes],
+                f"logits_shape {out['logits_shape']} for batch {x.shape[0]}")
+        require(delta == INT8_PER_FORWARD,
+                f"int8 batch {x.shape[0]} moved the counters by {delta}, "
+                f"expected {INT8_PER_FORWARD}")
+    require(launches == {k: v * len(batches) for k, v in INT8_PER_FORWARD.items()},
+            f"int8 launch counts {launches}")
+
+    # the served logits against the plain int8 forward at the same buckets
+    def plain_call(a):
+        x = torch.from_numpy(np.asarray(a, dtype=np.float32)).cuda()
+        with torch.inference_mode():
+            return forward_sites(served.sites(), x, served.mcfg, relu_cap=served.relu_cap,
+                                 plain=True)
+
+    plain = types.SimpleNamespace(call=plain_call)
+    compare = []
+    for x, out in zip(batches, replies):
+        got, want = bucketed_call(served, x), bucketed_call(plain, x)
+        require(np.isfinite(got).all(), f"int8 batch {x.shape[0]}: non-finite logits")
+        require(got.shape == want.shape and got.tobytes() == want.tobytes(), f"int8 batch {x.shape[0]}: served logits differ from "
+                f"the plain int8 forward by {float(np.abs(got - want).max())}")
+        require(out["top1"] == got.argmax(-1).tolist(),
+                "HTTP top1 differs from the served model's logits")
+        compare.append({"batch": int(x.shape[0]), "bit_equal_to_plain": True,
+                        "max_abs_logit": float(np.abs(got).max()), "top1": out["top1"],
+                        "latency_ms": out["latency_ms"]})
+
+    # how close int8 comes to the fp32 folded model (printed, not gated)
+    x8 = torch.from_numpy(batches[2]).cuda()
+    fp = folded_forward(fold_bn_inference(params, bn_state, mcfg), x8, mcfg).cpu().numpy()
+    q8 = served.call(x8).cpu().numpy()
+    pearson = float(np.corrcoef(fp.ravel(), q8.ravel())[0, 1])
+    agree = int((fp.argmax(-1) == q8.argmax(-1)).sum())
+    require(np.isfinite(pearson), "int8 vs fp32: correlation not finite")
+
+    bf16 = export_inference(params, mcfg, bn_state=bn_state, weights_dtype="bfloat16",
+                            ecfg=ExecutionConfig(compute_dtype="bfloat16", kernels="pallas",
+                                                 conv_kernels="pallas"), device="cuda")
+    timed = {}
+    for n in INT8_TIMED_BATCHES:
+        x = x8 if n == 8 else torch.from_numpy(
+            rng.normal(0, 50, (n, d, d, 3)).astype(np.float32)).cuda()
+        turns = {"int8": [], "bf16": []}
+        for which in ("int8", "bf16", "bf16", "int8"):
+            m = served if which == "int8" else bf16
+            turns[which].append(checks.median_ms(lambda: m.call(x), reps=10))
+        timed[f"batch{n}"] = {
+            **{f"{k}_ms": v for k, v in turns.items()},
+            **{f"{k}_img_s": n * 2e3 / sum(v) for k, v in turns.items()}}
+        if n == max(INT8_TIMED_BATCHES):
+            rows = checks.device_profile(lambda: served.call(x), reps=3)
+            require(rows is not None, "the int8 forward's profile recorded no device time")
+            q1 = sum(v for k, v in rows.items() if "qconv_kernel" in k)
+            q2 = sum(v for k, v in rows.items() if "quant_act" in k)
+            timed[f"batch{n}"]["int8_device_ms"] = {
+                "qconv": q1, "quant_act": q2, "rest": sum(rows.values()) - q1 - q2,
+                "total": sum(rows.values())}
+            timed[f"batch{n}"]["bf16_device_ms"] = checks.device_ms(lambda: bf16.call(x),
+                                                                    reps=3)
+        del x
+    for n, t in timed.items():
+        require(all(np.isfinite(v) for k in ("int8_ms", "bf16_ms") for v in t[k]),
+                f"int8 phase: a non-finite time at {n}")
+    emit({"phase": "int8_serve", "model": mcfg.name, "export_s": export_s,
+          "file_bytes": file_bytes, "requests": len(replies), "launches": launches,
+          "per_request": deltas, "compare": compare,
+          "vs_fp32_folded_batch8": {"pearson": pearson, "top1_agree": agree, "of": 8},
+          "timed": timed})
     return launches
 
 
@@ -2009,7 +2194,6 @@ def phase_presets(torch, counters, smi):
     from resnet_tpu_torch.data import SyntheticDataset
     from resnet_tpu_torch.export import export_inference
     from resnet_tpu_torch.kernels import checks
-    from resnet_tpu_torch.models import init_bn_state, init_params
     from resnet_tpu_torch.train import init_train_state, make_train_step
 
     torch.cuda.empty_cache()
@@ -2137,14 +2321,7 @@ def phase_presets(torch, counters, smi):
 
     # 5. the served bf16 forward at batch 8, NHWC and NCHW, from bf16 weights
     mcfg = base.model
-    gen = torch.Generator().manual_seed(SEED)
-    params = init_params(gen, mcfg, device="cuda")
-    bn_state = init_bn_state(mcfg, device="cuda")
-    for layer in [bn_state["init_bn"], *[b for blk in bn_state["blocks"]
-                                          for b in blk.values()]]:
-        c = layer["mean"].numel()
-        layer["mean"] = (torch.randn(c, generator=gen) * 0.1).to("cuda")
-        layer["var"] = (0.5 + 1.5 * torch.rand(c, generator=gen)).to("cuda")
+    params, bn_state = _serving_state(torch, mcfg)
     x = np.random.default_rng(SEED).normal(0, 50, (8, mcfg.input_dim, mcfg.input_dim, 3)
                                            ).astype(np.float32)
     xc = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
@@ -2349,9 +2526,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
                         "for those only, no plans, no final line")
-    parser.add_argument("--phases", help="comma-separated names of phases 4-12 (serve, "
-                        "train, ..., presets, bf16_engines): phases 1-2 and those only, "
-                        "no final line")
+    parser.add_argument("--phases", help="comma-separated names of phases 4-13 (serve, "
+                        "train, ..., presets, bf16_engines, int8_serve): phases 1-2 and "
+                        "those only, no final line")
     args = parser.parse_args()
     import torch
 
@@ -2385,7 +2562,8 @@ def main() -> None:
               "remat_train": lambda: phase_remat(torch, counters, smi),
               "trainer": lambda: phase_trainer(torch, counters, smi),
               "presets": lambda: phase_presets(torch, counters, smi),
-              "bf16_engines": lambda: phase_bf16_engines(torch, counters, smi)}
+              "bf16_engines": lambda: phase_bf16_engines(torch, counters, smi),
+              "int8_serve": lambda: phase_int8_serve(torch, checks, counters)}
     if args.phases:
         names = args.phases.split(",")
         require(set(names) <= set(phases), f"unknown phases in {names}")

@@ -201,3 +201,12 @@ def load_jax_npz(path: str):
     params = unflatten(trees["params"])
     bn_state = unflatten(trees["bn_state"]) if trees["bn_state"] else None
     return params, bn_state
+
+
+def qparams_from_numpy(qparams, scales, device="cuda"):
+    """The JAX package's W8A8 model (``resnet_tpu.quantize.quantize_model``'s
+    (qparams, scales), as numpy arrays) for the port: the tree as tensors of
+    the same dtypes (``wq`` int8, ``ws`` and ``b`` fp32) on ``device``, and
+    the scales as Python floats holding their fp32 values exactly."""
+    return (params_from_numpy(qparams, device),
+            {k: float(np.float32(v)) for k, v in scales.items()})

@@ -47,7 +47,6 @@ ROADMAP_BF16_ENGINES = "item A5b: bf16 fused and whole-block engines"
 ROADMAP_NCHW = "item A6: NCHW layout"
 ROADMAP_GROUPED = "item A7: grouped conv kernel"
 ROADMAP_S2D = "item A8: space-to-depth stem"
-ROADMAP_QUANT = "item A9: serving artifact and quantize.py"
 ROADMAP_PARALLEL = "item A13: parallelism"
 
 

@@ -104,6 +104,12 @@ SIGNATURES = {
     # bits witness on the card (tests/test_torch_gpu.py)
     "rt_block_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
+    # the int8 serving kernels (qconv.cu): Q1 x, w (Cout, Kp), dq, bias (or
+    # null), out, N, H, W, Cin, Cout, kh, kw, stride, pad_top, pad_left, Ho,
+    # Wo, Kp, mode, has_cap, cap; Q2 x, q, inv, n
+    "rt_qconv_s8": [*[_P] * 5, *[_I] * 15, _F, _P],
+    "rt_quant_act_f32": [_P, _P, _F, _I64, _P],
+    "rt_quant_act_bf16": [_P, _P, _F, _I64, _P],
 }
 # the entry-point suffix of each tensor dtype the kernels take
 SUFFIX = {"torch.float32": "f32", "torch.bfloat16": "bf16"}

@@ -86,6 +86,22 @@ statistics, apply and backward (``HASHED``), also reports ``out_hash``, a digest
 bits (``output_hash``): this file copied into another tree of the package
 makes the same inputs there, so two trees' kernels are held to the same
 bits by comparing their lines.
+
+The int8 serving kernels (``kernels.quant``): Q1 (``qconv``) at each
+distinct conv shape of ResNet-50's 53 at batch 8 with its site's epilogue
+(ReLU'd bf16 for the stem, reduce and spatial sites, bf16 for the expand
+and projection sites), the FC with fp32 logits, a capped site, a 1x1/s2
+projection and a ragged case (Cin 3, Cout 33, the byte gather); Q2
+(``quant_act``) on the fp32 images, bf16 activations, the pooled features,
+an odd size and an input laid on exact .5 ties and beyond the clip. Each
+must equal its plain version bit for bit (``max_abs_err`` 0: integer sums
+are exact in any order and the epilogue rounds step by step as the plain
+version does); Q1 runs twice to the same bits. Their bound counts 1 byte an
+int8 value and Q1's operations at 1,979 TOP/s dense int8. Q1's yardstick,
+on the 1x1 stride-1 cases it accepts (M > 16, K and N multiples of 8), is
+``torch._int_mm`` of the same operands: the integer product alone, without
+the dequantizing epilogue, so less work (``library_covers`` nothing; the
+line says ``library: int_mm, product only``); Q2 has none.
 """
 
 from __future__ import annotations
@@ -98,7 +114,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import adam, block_fused, bn, conv, fused, fused_conv, matmul
+from . import adam, block_fused, bn, conv, fused, fused_conv, matmul, quant
 
 REL_TOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
@@ -106,6 +122,7 @@ L2_BYTES = 50e6
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, tensor cores
 BF16_FLOPS_PER_S = 989e12  # dense, tensor cores
+INT8_OPS_PER_S = 1979e12  # dense, tensor cores
 BF16_REL_TOL = 1e-5  # beside one bf16 ulp per element
 
 # (label, batch, H=W, Cin, Cout, k, stride): one of each conv ResNet-50 runs
@@ -362,16 +379,68 @@ BF16_BN_BWD_CASES = BN_BWD_CASES
 BF16_BLOCK_FUSED_CASES = [(label.replace(")", f") x{n}", 1), *rest) for (label, *rest), n in
                           zip(BLOCK_FUSED_CASES[:4], (2, 3, 5, 2))] + BLOCK_FUSED_CASES[4:]
 
+def qconv_sites(batch: int) -> List[Tuple]:
+    """(label, batch, H, Cin, Cout, k, stride, relu, cap, out dtype) of each
+    distinct shape among the 53 conv sites of ResNet-50's quantized forward
+    (the stem; per block the reduce, the spatial 3x3 with the stride, the
+    expand and the projection), in model order with the site's epilogue,
+    the label naming the first site and how many share the shape."""
+    from ..config import model_config
+    from ..models.init import init_params
+
+    mcfg = model_config("resnet50")
+    params = init_params(torch.Generator().manual_seed(0), mcfg, device="meta")
+    k0, _, cin0, cout0 = params["init_conv"]["w"].shape
+    sites: Dict[Tuple, List[str]] = {
+        (mcfg.input_dim, cin0, cout0, k0, mcfg.init_stride, True): ["stem"]}
+    h = mcfg.input_dim // mcfg.init_stride // mcfg.maxpool_stride
+    for i, bp in enumerate(params["blocks"]):
+        s = 2 if mcfg.is_reduction_block(i) else 1
+        for conv, hh, stride, relu in (("reduce", h, 1, True), ("spatial", h, s, True),
+                                       ("expand", h // s, 1, False), ("proj", h, s, False)):
+            if conv in bp:
+                k, _, cin, cout = bp[conv]["w"].shape
+                sites.setdefault((hh, cin, cout, k, stride, relu), []).append(
+                    f"block {i} {conv}")
+        h //= s
+    return [(f"{names[0]} {k}x{k}/s{st} {hh}^2 {cin}->{cout}{', relu' if relu else ''} "
+             f"(x{len(names)})", batch, hh, cin, cout, k, st, relu, None, "bf16")
+            for (hh, cin, cout, k, st, relu), names in sites.items()]
+
+
+# Q1: every distinct conv site of ResNet-50 at the serving batch 8, the FC
+# (fp32 logits), a capped site, a 1x1/s2 projection (the 'standard'
+# projections), and a ragged case whose Cin takes the byte gather
+QCONV_CASES = qconv_sites(8) + [
+    ("fc (8,2048)@(2048,1000), fp32", 8, 1, 2048, 1000, 1, 1, False, None, "f32"),
+    ("spatial 3x3/s1 14^2 256->256, relu, cap 10", 8, 14, 256, 256, 3, 1, True, 10.0, "bf16"),
+    ("standard proj 1x1/s2 56->28 256->512", 8, 56, 256, 512, 1, 2, False, None, "bf16"),
+    ("ragged 3x3 7^2 3->33, batch 2, relu", 2, 7, 3, 33, 3, 1, True, None, "bf16"),
+]
+# Q2: (label, shape, dtype, storage offset in elements): the images, the
+# largest and the last block's bf16 activations, the pooled features, an
+# odd size at an offset (the scalar path), and exact .5 ties (``ties``)
+QUANT_ACT_CASES = [
+    ("images (8,224,224,3) fp32", (8, 224, 224, 3), torch.float32, 0),
+    ("(8,56,56,256) bf16", (8, 56, 56, 256), torch.bfloat16, 0),
+    ("(8,7,7,2048) bf16", (8, 7, 7, 2048), torch.bfloat16, 0),
+    ("pooled (8,2048) bf16", (8, 2048), torch.bfloat16, 0),
+    ("odd size (3,7,7,9) bf16, misaligned", (3, 7, 7, 9), torch.bfloat16, 1),
+    ("ties (16,4096) fp32, inv 4: k + 0.5 and beyond the clip", (16, 4096), torch.float32, 0),
+]
+
+
 # the split-K GEMMs, the FC backward and the BN statistics and backward,
 # run twice per case and held to the same bits
 REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments", "bn_bwd",
                   "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
                   "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16",
-                  "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16")
+                  "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16", "qconv")
 
 # the fp32 kernels whose cases carry an output hash beside the bf16 ones':
 # those that run K9's join body, and K4, K5 and K6
-HASHED = ("fused_join", "block_fused", "moments", "bias_act", "bn_bwd")
+HASHED = ("fused_join", "block_fused", "moments", "bias_act", "bn_bwd", "qconv",
+          "quant_act")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -402,6 +471,8 @@ KERNELS = {
     "bias_act_bf16": (bn, "APPLY_LAUNCHES_BF16", 1, BF16_BIAS_ACT_CASES),
     "bn_bwd_bf16": (bn, "BWD_LAUNCHES_BF16", 1, BF16_BN_BWD_CASES),
     "block_fused_bf16": (block_fused, "LAUNCHES_BF16", 1, BF16_BLOCK_FUSED_CASES),
+    "qconv": (quant, "LAUNCHES", 1, QCONV_CASES),
+    "quant_act": (quant, "ACT_LAUNCHES", 1, QUANT_ACT_CASES),
 }
 
 
@@ -498,8 +569,9 @@ class _Case:
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
                  timed=None, library_covers=slice(None), library_same=True,
-                 peak=FP32_FLOPS_PER_S, exact=False, bf16=False):
+                 peak=FP32_FLOPS_PER_S, exact=False, bf16=False, library_label=None):
         self.run, self.plain, self.library = run, plain, library
+        self.library_label = library_label  # printed where the yardstick needs saying
         self.exact = exact  # the kernel must equal the plain version bit for bit
         self.bf16 = bf16  # held by the bf16 rule (bf16_slack), not REL_TOL
         # the plain outputs the library call computes too; library_same
@@ -628,7 +700,61 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
         return _bn_bwd_case(case, randn)
     if kernel == "block_fused":
         return _block_fused_case(case, randn)
+    if kernel == "qconv":
+        return _qconv_case(case, gen, device)
+    if kernel == "quant_act":
+        return _quant_act_case(case, randn, device)
     raise ValueError(f"unknown kernel {kernel!r}")
+
+
+def _qconv_case(case, gen, device) -> _Case:
+    """Q1 on int8 values over the whole range (the largest accumulators),
+    dq sized so that the epilogue's values spread around the cap and 0."""
+    _, n, h, cin, cout, k, s, relu, cap, out = case
+    ho = h // s
+    xq = torch.randint(-127, 128, (n, h, h, cin), generator=gen, device=device,
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device=device,
+                      dtype=torch.int8)
+    kk = k * k * cin
+    dq = (torch.rand(cout, generator=gen, device=device) + 0.5) * (4.0 / (127 * 127 * kk ** 0.5))
+    b = torch.randn(cout, generator=gen, device=device)
+    wk = quant.pack_weight(w)
+    out_dtype = torch.float32 if out == "f32" else torch.bfloat16
+    kw = dict(stride=s, relu=relu, cap=cap, out_dtype=out_dtype)
+    m = n * ho * ho
+    library = None
+    if k == 1 and s == 1 and m > 16 and kk % 8 == 0 and cout % 8 == 0:  # what _int_mm takes
+        a2, w2 = xq.view(m, kk), w.view(kk, cout)
+
+        def library():  # the integer product only
+            return torch._int_mm(a2, w2)
+    # a 1x1 conv reads only the pixels its stride lands on
+    x_bytes = m * cin if k == 1 else xq.numel()
+    return _Case(lambda: quant.qconv(xq, w, dq, b, wk=wk, **kw),
+                 lambda: quant.qconv_reference(xq, w, dq, b, **kw),
+                 x_bytes + w.numel() + m * cout * (4 if out == "f32" else 2) + 8 * cout,
+                 2 * m * kk * cout, library, library_same=False, peak=INT8_OPS_PER_S,
+                 exact=True, bf16=out_dtype == torch.bfloat16,
+                 library_label="torch._int_mm, the integer product alone (no epilogue)"
+                 if library is not None else None)
+
+
+def _quant_act_case(case, randn, device) -> _Case:
+    """Q2 at a scale from the input's absmax (a calibrated site's), or on
+    exact .5 ties at inv = 4, most of them beyond the clip."""
+    label, shape, dtype, offset = case
+    if label.startswith("ties"):
+        numel = shape[0] * shape[1]
+        x = (torch.arange(numel, device=device, dtype=torch.float32) - numel // 2 + 0.5) / 4
+        x = x.view(shape).to(dtype)
+        inv = 4.0
+    else:
+        x = randn(*shape, scale=3.0, offset=offset, dtype=dtype)
+        scale = float(x.float().abs().max()) / 127.0
+        inv = float(1.0 / torch.tensor(scale, dtype=torch.float32))
+    return _Case(lambda: quant.quant_act(x, inv), lambda: quant.quant_act_reference(x, inv),
+                 x.numel() * (x.element_size() + 1), x.numel(), exact=True)
 
 
 def _bf16_case(kernel: str, case, randn) -> _Case:
@@ -1016,6 +1142,8 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
     torch.cuda.synchronize()
     err, rel = 0.0, 0.0
     for i, (gt, wt) in enumerate(zip(got, want, strict=True)):
+        if not gt.is_floating_point():  # int8 (Q2): compared as values
+            gt, wt = gt.float(), wt.float()
         if gt.shape != wt.shape:
             raise RuntimeError(f"{kernel} {case[0]}: shape {tuple(gt.shape)} "
                                f"vs plain {tuple(wt.shape)}")
@@ -1059,6 +1187,8 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
         out["fp32_fma_bound_ms"] = bound(c.nbytes, c.flops / 3)[0]
     if c.bf16 or kernel in HASHED:
         out["out_hash"] = output_hash(got)
+    if c.library_label:
+        out["library"] = c.library_label
     if c.library is not None and c.library_same:
         # the yardstick must compute the same function
         same = 1e-2 if c.bf16 else 1e-3

@@ -1,0 +1,207 @@
+"""The int8 (W8A8) serving kernels: Q1, the int8 conv with its dequantizing
+epilogue, and Q2, the activation quantization (``csrc/qconv.cu``).
+
+Neither has a Pallas counterpart: resnet_tpu/quantize.py leaves ``_qconv``
+(:218), ``_qsite``'s dequantization (:243-247), the FC's product
+(:279-287) and ``_quant_act`` (:213) to XLA. PyTorch has no int8
+convolution on CUDA (``F.conv2d`` rejects int8), so the port runs them on
+these two hand kernels.
+
+``quant_act(x, inv)`` (Q2): clip(round_half_even(f32(x) * inv), -127, 127)
+as int8, x fp32 (the images) or bf16, ``inv`` the fp32 value of 1 / scale
+(a Python float that fp32 holds exactly).
+
+``qconv(xq, w, dq, bias, stride=, ...)`` (Q1): xq (N, H, W, Cin) int8, w
+(kh, kw, Cin, Cout) int8 HWIO; the int32 conv over the reference's centred
+windows (``ops.padding``), then ``f32(acc) * dq + bias`` rounded step by
+step (``dq = ws * scale`` in fp32, as JAX orders it), then either bf16
+(with ReLU and an optional cap on the bf16 value) or fp32 (the FC's
+logits, ``out_dtype=torch.float32``). The kernel reads the weight as
+``pack_weight`` lays it out: (Cout, Kp) K-major, zero beyond K up to a
+multiple of ``BK``; a caller that serves many batches packs it once
+(``quantize.prepare_sites``), passes it as ``wk`` and, as ``w``, its view
+``unpack_weight(wk, (kh, kw, Cin))``, which only the plain version reads.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises (a grouped conv raises NotImplementedError,
+ROADMAP.md queue A item A7, as K1 does). The plain versions:
+``quant_act_reference`` in torch ops (``torch.round`` rounds half to even,
+as ``jnp.round``), ``qconv_reference`` = ``qconv_acc_reference`` (the conv
+in float64 on the int8 values with cuDNN off, exact: every partial sum is
+an integer far below 2^53, where fp32 would round sums above 2^24) then
+``epilogue_reference`` in torch ops, one op a step so nothing is
+contracted. The kernels reproduce them bit for bit.
+
+``LAUNCHES`` counts Q1 launches, ``ACT_LAUNCHES`` Q2's, whatever the
+input's dtype: a ResNet-50 forward moves each by 54 (53 convs and the FC).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import ROADMAP_GROUPED, not_ported
+from ..ops.conv import conv2d
+from ..ops.padding import reference_padding
+from . import build
+
+# wrapper calls that launched each CUDA kernel
+LAUNCHES = 0
+ACT_LAUNCHES = 0
+
+BK = 64  # qconv.cu's K step: the packed weight's rows are padded to it
+QMAX = 127
+# |acc| <= 127 * 127 * K must fit int32
+MAX_K = (2 ** 31 - 1) // (QMAX * QMAX)
+
+
+def quant_act_reference(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """Plain Q2: clip(round(f32(x) * inv), -127, 127) as int8."""
+    return torch.clamp(torch.round(x.float() * inv), -QMAX, QMAX).to(torch.int8)
+
+
+def quant_act(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """Q2 on a contiguous fp32 or bf16 tensor; ``inv`` = 1 / scale in fp32."""
+    if not build.on_card("quant_act", x):
+        return quant_act_reference(x, inv)
+    global ACT_LAUNCHES
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel():
+        build.launch(build.entry_name("quant_act", x), x.data_ptr(), q.data_ptr(),
+                     inv, x.numel(), device=x.device)
+        ACT_LAUNCHES += 1
+    return q
+
+
+def relu_reference(h: torch.Tensor, cap=None) -> torch.Tensor:
+    """max(h, 0), then min(h, cap) with cap cast to h's dtype, written as
+    the kernel's comparisons (a NaN and a -0 pass through)."""
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    h = torch.where(h < zero, zero, h)
+    if cap is not None:
+        c = torch.tensor(cap, dtype=h.dtype, device=h.device)
+        h = torch.where(h > c, c, h)
+    return h
+
+
+def qconv_acc_reference(xq: torch.Tensor, w: torch.Tensor, stride: int,
+                        groups: int = 1) -> torch.Tensor:
+    """The int32 accumulator of Q1: the conv of the int8 values over the
+    reference's windows, in float64 with cuDNN off (its FFT algorithms
+    would not be exact), cast to int32."""
+    with torch.backends.cudnn.flags(enabled=False):
+        y = conv2d(xq.to(torch.float64), w.to(torch.float64), stride=stride, groups=groups)
+    return y.to(torch.int32)
+
+
+def epilogue_reference(acc: torch.Tensor, dq: torch.Tensor, bias=None, *, relu=False,
+                       cap=None, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Q1's epilogue in torch ops: f32(acc) * dq, + bias, then fp32 out, or
+    bf16 with ReLU and the cap on the bf16 value."""
+    v = acc.to(torch.float32) * dq
+    if bias is not None:
+        v = v + bias
+    if out_dtype == torch.float32:
+        return v
+    h = v.to(torch.bfloat16)
+    return relu_reference(h, cap) if relu else h
+
+
+def qconv_reference(xq, w, dq, bias=None, *, stride=1, groups=1, relu=False, cap=None,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain Q1: ``qconv_acc_reference`` then ``epilogue_reference``."""
+    return epilogue_reference(qconv_acc_reference(xq, w, stride, groups), dq, bias,
+                              relu=relu, cap=cap, out_dtype=out_dtype)
+
+
+def padded_k(k: int) -> int:
+    """K rounded up to whole K steps of the kernel."""
+    return -(-k // BK) * BK
+
+
+def pack_weight(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO int8 weight (kh, kw, Cin, Cout) as the kernel reads it:
+    (Cout, Kp) with row co = w[..., co] in (di, dj, ci) order, zero from K =
+    kh * kw * Cin up to Kp = ``padded_k(K)``."""
+    kh, kw, cin, cout = w.shape
+    k = kh * kw * cin
+    out = torch.zeros((cout, padded_k(k)), dtype=torch.int8, device=w.device)
+    out[:, :k] = w.reshape(k, cout).t()
+    return out
+
+
+def unpack_weight(wk: torch.Tensor, kshape) -> torch.Tensor:
+    """``pack_weight``'s inverse as a view of ``wk``: the HWIO weight
+    (kh, kw, Cin, Cout), ``kshape`` = (kh, kw, Cin)."""
+    kh, kw, cin = kshape
+    return wk[:, :kh * kw * cin].t().view(kh, kw, cin, wk.shape[0])
+
+
+def _check(xq, w, dq, bias, out_dtype, relu, cap):
+    if xq.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"qconv: expected x (N, H, W, C) and w (kh, kw, C, Cout), got "
+                         f"{tuple(xq.shape)} and {tuple(w.shape)}")
+    if xq.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"qconv: expected int8 x and w, got {xq.dtype} and {w.dtype}")
+    for name, t in (("dq", dq), ("bias", bias)):
+        if t is not None and (t.dtype != torch.float32 or t.shape != (w.shape[-1],)):
+            raise ValueError(f"qconv: {name} must be fp32 ({w.shape[-1]},)")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"qconv: out_dtype {out_dtype}; expected bfloat16 or float32")
+    if cap is not None and not relu:
+        raise ValueError("qconv: a cap needs relu=True")
+    if relu and out_dtype == torch.float32:
+        raise ValueError("qconv: relu applies to a bf16 output")
+
+
+def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
+          stride: int = 1, groups: int = 1, relu: bool = False, cap=None,
+          out_dtype=torch.bfloat16, wk=None) -> torch.Tensor:
+    """Q1: the int8 conv of xq by w over the reference's windows, then the
+    dequantizing epilogue (see the module's docstring). ``wk``, the packed
+    weight (``pack_weight(w)``), is packed here when not given."""
+    _check(xq, w, dq, bias, out_dtype, relu, cap)
+    if not _on_card(xq, w, dq, bias):
+        return qconv_reference(xq, w, dq, bias, stride=stride, groups=groups, relu=relu,
+                               cap=cap, out_dtype=out_dtype)
+    if groups != 1:
+        raise not_ported("groups > 1 in the int8 conv kernel (Q1)", ROADMAP_GROUPED)
+    n, h, wd, cin = xq.shape
+    kh, kw, wcin, cout = w.shape
+    if wcin != cin:
+        raise ValueError(f"qconv: x has {cin} channels, w takes {wcin}")
+    k = kh * kw * cin
+    if k > MAX_K:
+        raise ValueError(f"qconv: K = {k} exceeds {MAX_K}: 127 * 127 * K would overflow int32")
+    wk = pack_weight(w) if wk is None else wk
+    if (wk.dtype != torch.int8 or tuple(wk.shape) != (cout, padded_k(k))
+            or not wk.is_contiguous() or wk.device != xq.device or not build.aligned16(wk)):
+        raise ValueError(f"qconv: wk must be the contiguous, 16-byte aligned int8 "
+                         f"({cout}, {padded_k(k)}) of pack_weight(w)")
+    pad_top, _ = reference_padding(h, kh, stride)
+    pad_left, _ = reference_padding(wd, kw, stride)
+    ho, wo = h // stride, wd // stride
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    if out.numel():
+        global LAUNCHES
+        mode = 2 if out_dtype == torch.float32 else int(relu)
+        build.launch("rt_qconv_s8", xq.data_ptr(), wk.data_ptr(), dq.data_ptr(),
+                     None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd,
+                     cin, cout, kh, kw, stride, pad_top, pad_left, ho, wo, wk.shape[1],
+                     mode, cap is not None, 0.0 if cap is None else float(cap),
+                     device=xq.device)
+        LAUNCHES += 1
+    return out
+
+
+def _on_card(xq, w, dq, bias) -> bool:
+    """True to launch Q1, False for the plain version (CPU tensors only);
+    raises on mixed devices, a device other than CPU or CUDA, or a
+    non-contiguous xq, dq or bias (``build.on_card``'s rules; it takes no
+    int8). ``w`` may be any view: the kernel reads ``wk``."""
+    for t in (xq, w, dq, bias):
+        if t is not None and (t.device != xq.device or (t is not w and not t.is_contiguous())):
+            raise ValueError(f"qconv: expected contiguous tensors on {xq.device}")
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"qconv: no kernel for device {xq.device}")
+    return xq.device.type == "cuda"

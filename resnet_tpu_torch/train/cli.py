@@ -8,8 +8,10 @@ main() (resnet.cu:3245-3296) and the six binaries ARE the config system
 and choices, and one more: ``--device {cuda,cpu}`` (default cuda) in place
 of JAX_PLATFORMS. Values the port does not run yet raise
 NotImplementedError naming their ROADMAP.md queue A item:
-``--space-to-depth`` (A8), ``--int8`` (A9), and more than one device
-(A13). ``--dtype bfloat16`` trains in bf16 under every ``--kernels``
+``--space-to-depth`` (A8) and more than one device (A13). ``--int8`` with
+``--evaluate`` or ``--export`` runs the W8A8 post-training-quantized model
+(``quantize``, calibrated on the first data batch; on the card its int8
+kernels), printing the JAX CLI's lines. ``--dtype bfloat16`` trains in bf16 under every ``--kernels``
 engine, the fused and whole-block ones included. ``--export-dtype bfloat16`` casts the exported weights and
 running statistics, as JAX's does. ``--no-mesh`` is accepted and changes nothing: the port runs one
 device. Two quirks of the JAX CLI are kept: ``--kernels`` offers
@@ -30,14 +32,12 @@ import os
 
 from ..config import (
     RESUME_LATEST,
-    ROADMAP_QUANT,
     DataConfig,
     ExecutionConfig,
     OptimizerConfig,
     ParallelConfig,
     TrainConfig,
     model_config,
-    not_ported,
     tiny_model_config,
     variant_config,
 )
@@ -154,7 +154,8 @@ def build_config(argv=None) -> tuple:
                     help="0 = one full pass over the shards")
     ap.add_argument("--int8", action="store_true",
                     help="with --evaluate or --export: W8A8 post-training-"
-                         "quantized inference (not ported yet)")
+                         "quantized inference (quantize.py; calibrates on"
+                         " the first data batch)")
     ap.add_argument("--export-dtype", default="",
                     choices=["", "float32", "bfloat16"],
                     help="with --export: cast baked-in weights and BN"
@@ -164,8 +165,6 @@ def build_config(argv=None) -> tuple:
     if args.int8 and args.export_dtype:
         ap.error("--export-dtype applies to the fp export only; the int8"
                  " artifact's weights are already int8 (drop one flag)")
-    if args.int8:
-        raise not_ported("--int8 (W8A8 quantized inference)", ROADMAP_QUANT)
 
     if args.resume_from == "latest":
         resume_from = RESUME_LATEST
@@ -280,22 +279,33 @@ def main(argv=None):
 
     trainer = Trainer(cfg, device=args.device)
     if args.export:
-        from ..export import export_inference, save_inference
+        from ..export import export_inference, export_quantized_inference, save_inference
 
-        model = export_inference(trainer.state.params, cfg.model,
-                                 bn_state=trainer.state.bn_state, ecfg=cfg.execution,
-                                 weights_dtype=args.export_dtype or None)
+        if args.int8:
+            calib = next(iter(trainer._build_data()))["images"]
+            model = export_quantized_inference(
+                trainer.state.params, cfg.model, calib, bn_state=trainer.state.bn_state,
+                relu_cap=cfg.execution.relu_cap)
+        else:
+            model = export_inference(trainer.state.params, cfg.model,
+                                     bn_state=trainer.state.bn_state, ecfg=cfg.execution,
+                                     weights_dtype=args.export_dtype or None)
         path = save_inference(args.export, model)
-        print(f"exported serving artifact: {path}"
+        tag = "int8 " if args.int8 else ""
+        print(f"exported {tag}serving artifact: {path}"
               f" ({os.path.getsize(path)} bytes)")
     elif args.evaluate:
         data = trainer._build_data()
         n = args.eval_batches or getattr(
             data, "batches_per_epoch", 10
         )
-        metrics = trainer.evaluate(data, n)
+        if args.int8:
+            metrics = trainer.evaluate_quantized(data, n)
+        else:
+            metrics = trainer.evaluate(data, n)
+        tag = "int8 eval" if args.int8 else "eval"
         print(
-            f"eval over {n} batches: loss={metrics['loss']:.5f} "
+            f"{tag} over {n} batches: loss={metrics['loss']:.5f} "
             f"top1={metrics['accuracy']:.4f} top5={metrics.get('top5', 0):.4f}"
         )
     elif args.steps:

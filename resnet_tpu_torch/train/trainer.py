@@ -30,7 +30,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import torch
 
-from ..config import RESUME_LATEST, ROADMAP_QUANT, TrainConfig, not_ported
+from ..config import RESUME_LATEST, TrainConfig
 from ..data import (
     ShardCursor,
     ShardDataset,
@@ -284,9 +284,45 @@ class Trainer:
             it.stop()
         return {k: v / num_batches for k, v in sums.items()}
 
-    def evaluate_quantized(self, data: Iterator, num_batches: int, calib_images=None):
-        """The W8A8 post-training-quantized eval of the JAX package."""
-        raise not_ported("Trainer.evaluate_quantized (W8A8 inference)", ROADMAP_QUANT)
+    def evaluate_quantized(self, data: Iterator, num_batches: int,
+                           calib_images=None) -> Dict[str, float]:
+        """The W8A8 post-training-quantized model (``quantize``) from the
+        current state: BN folded, calibrated on ``calib_images`` (ideally
+        training batches) or else on the first eval batch, then int8
+        inference over ``num_batches`` (on the card, the int8 kernels).
+        Returns the same loss, accuracy and top5 means as ``evaluate``.
+        NHWC only: quantized inference takes (N, d, d, C) images, as the
+        JAX package's does."""
+        from ..ops import cross_entropy, top1_accuracy, topk_accuracy
+        from ..quantize import forward_sites, prepare_sites, quantize_model
+
+        if self.cfg.execution.layout != "NHWC":
+            raise ValueError("quantized inference takes NHWC images; this config's "
+                             f"layout is {self.cfg.execution.layout}")
+        mcfg, relu_cap = self.cfg.model, self.cfg.execution.relu_cap
+        it = prefetch_to_device(data, depth=self.cfg.data.prefetch, device=self.device)
+        try:
+            first = dict(next(it))
+            first.pop("cursor", None)
+            calib = calib_images if calib_images is not None else first["images"]
+            qparams, scales = quantize_model(self.state.params, self.state.bn_state, mcfg,
+                                             calib, relu_cap=relu_cap)
+            sites = prepare_sites(qparams, scales, mcfg)
+            sums: Dict[str, float] = {}
+            batches = itertools.chain([first], it)
+            for _ in range(num_batches):
+                batch = dict(next(batches))
+                images = batch["images"].to(torch.float32)
+                labels = batch["labels"]
+                logits = forward_sites(sites, images, mcfg, relu_cap=relu_cap)
+                m = {"loss": cross_entropy(logits, labels, reduction="mean"),
+                     "accuracy": top1_accuracy(logits, labels),
+                     "top5": topk_accuracy(logits, labels, 5)}
+                for k, v in m.items():
+                    sums[k] = sums.get(k, 0.0) + float(v)
+        finally:
+            it.stop()
+        return {k: v / num_batches for k, v in sums.items()}
 
     def finalize(self):
         if self._dev_iter is not None:

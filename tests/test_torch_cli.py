@@ -84,7 +84,6 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 @pytest.mark.parametrize("argv,item", [
     (["--space-to-depth"], "A8"),
-    (["--int8"], "A9"),
     (["--num-devices", "2"], "A13"),
     (["--spatial-devices", "2"], "A13"),
     (["--zero-sharding"], "A13"),

@@ -16,7 +16,10 @@ K10-bf16) with ``-k "conv2d_dw_bf16 or fused_conv_bf16 or block_fused_bf16"``,
 K1's bf16 forward on that core's persistent kernel and K3's one-launch bf16
 backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``, K1's bf16 dx and K3's
 bf16 forward on the same persistent kernel, with the witnesses of their bits
-through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``.
+through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``, the int8
+serving kernels (Q1, Q2; each bit for bit against its plain version, and a
+quantized ResNet-50 forward at batch 8 against the plain int8 forward) with
+``-k "qconv or quant_act or quantized"``.
 
 Without a CUDA device every test here skips.
 """
@@ -1302,3 +1305,47 @@ def test_fused_join_is_its_plain_version_bit_for_bit_on_cuda(cuda, dtype, label,
     got = fused_conv.fused_join(e, rows[0], rows[1], r, rows[2], rows[3], cap)
     assert fused_conv.JOIN_LAUNCHES_BF16 + fused_conv.JOIN_LAUNCHES == before + 1
     assert torch.equal(got, fused_conv.fused_join_reference(e, *rows[:2], r, *rows[2:], cap))
+
+
+def test_qconv_refuses_a_grouped_conv_on_cuda(cuda):
+    """Q1 takes groups = 1 only: a grouped conv on the card raises, naming
+    queue A's A7, as K1 does; the plain version computes it on the CPU."""
+    from resnet_tpu_torch.kernels import quant
+
+    xq = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device="cuda")
+    w = torch.zeros(3, 3, 8, 12, dtype=torch.int8, device="cuda")
+    with pytest.raises(NotImplementedError, match="A7"):
+        quant.qconv(xq, w, torch.ones(12, device="cuda"), groups=2)
+
+
+def test_quantized_resnet50_forward_is_its_plain_version_on_cuda(cuda):
+    """A quantized ResNet-50 at 224 (seeded weights, non-trivial running
+    statistics, calibrated on a batch of 8 at pixel scale) at batch 8: the
+    hand-kernel forward launches 54 Q1 and 54 Q2 and gives the plain int8
+    forward's logits bit for bit (both share every op outside Q1 and Q2)."""
+    import numpy as np
+
+    from resnet_tpu_torch import quantize
+    from resnet_tpu_torch.config import model_config
+    from resnet_tpu_torch.kernels import quant
+    from resnet_tpu_torch.models import init_bn_state, init_params
+
+    mcfg = model_config("resnet50")
+    gen = torch.Generator().manual_seed(1234)
+    params = init_params(gen, mcfg, device="cuda")
+    bn_state = init_bn_state(mcfg, device="cuda")
+    for layer in [bn_state["init_bn"], *[b for blk in bn_state["blocks"] for b in blk.values()]]:
+        c = layer["mean"].numel()
+        layer["mean"] = (torch.randn(c, generator=gen) * 0.1).to("cuda")
+        layer["var"] = (0.5 + 1.5 * torch.rand(c, generator=gen)).to("cuda")
+    rng = np.random.default_rng(1234)
+    calib, x = (torch.from_numpy(rng.normal(0, 50, (8, 224, 224, 3)).astype(np.float32)).cuda()
+                for _ in range(2))
+    qparams, scales = quantize.quantize_model(params, bn_state, mcfg, calib)
+    sites = quantize.prepare_sites(qparams, scales, mcfg)
+    before = quant.LAUNCHES, quant.ACT_LAUNCHES
+    got = quantize.forward_sites(sites, x, mcfg)
+    assert (quant.LAUNCHES - before[0], quant.ACT_LAUNCHES - before[1]) == (54, 54)
+    want = quantize.forward_sites(sites, x, mcfg, plain=True)
+    assert (quant.LAUNCHES - before[0], quant.ACT_LAUNCHES - before[1]) == (54, 54)
+    assert torch.isfinite(got).all() and torch.equal(got, want)

@@ -122,7 +122,7 @@ def test_sources_and_signatures_agree():
         assert argtypes[-1] is build.ctypes.c_void_p  # the stream
     assert {p.name for p in build.sources()} == {
         "conv.cu", "matmul.cu", "add_relu.cu", "moments.cu", "adam.cu", "bn.cu",
-        "fused_conv.cu", "block_fused.cu"}
+        "fused_conv.cu", "block_fused.cu", "qconv.cu"}
     # the headers are in the hash too: the GEMM cores and the shared device code
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
         "tiled_gemm.cuh", "tc_gemm.cuh", "wg_gemm.cuh", "fused_conv.cuh", "rowwise.cuh",

@@ -1,0 +1,439 @@
+"""The port's W8A8 quantization (resnet_tpu_torch.quantize and the plain
+versions of its two int8 kernels, kernels/quant.py) against
+resnet_tpu.quantize on the CPU, and its entry points: the export, the saved
+file, the HTTP server, ``Trainer.evaluate_quantized`` and the CLI's
+``--int8``.
+
+Both packages start from one parameter tree (JAX's init, bridged) and
+running statistics made non-trivial as tests/test_quantize.py makes them;
+inputs are numpy arrays from a seed. Tolerances, each with its reason:
+
+* fold: each leaf within 1e-6 of its max|.| (the same fp32 ops; XLA may
+  rewrite a / sqrt(b) as a * rsqrt(b), an ulp or two);
+* folded forward: within 1e-4 of max|logit| of JAX's and of the port's own
+  eval forward (fp32 convs summed in other orders);
+* calibration: the same sites, each scale within 1e-5 relative (absmax of
+  activations that carry those orders' differences);
+* weights, quantized from one folded tree: wq equal except where |w / s|
+  lies within 1e-6 of a .5 tie (at most 1 apart there), ws within 1e-6
+  relative, every channel reaching |wq| >= 126;
+* Q2's and Q1's plain versions: bit for bit (int8, int32, bf16 and fp32);
+  XLA's CPU backend does not contract the dequantization's multiply and
+  add here, so no ulp is allowed;
+* the whole forward from JAX's (qparams, scales): logits within 1e-2 of
+  max|logit| and the same argmax wherever JAX's top-2 gap exceeds that;
+* the port's own quantize_model: JAX's own criteria (correlation with its
+  folded forward above 0.98, argmax agreement at least 0.75).
+"""
+
+import http.client
+import json
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+
+from resnet_tpu import quantize as jq
+from resnet_tpu.config import tiny_model_config as j_tiny
+from resnet_tpu.models import init_bn_state as j_init_bn_state
+from resnet_tpu.models import init_params as j_init_params
+from resnet_tpu_torch import quantize as tq
+from resnet_tpu_torch import serve as serve_mod
+from resnet_tpu_torch.bridge import flatten, params_from_numpy, qparams_from_numpy
+from resnet_tpu_torch.config import ExecutionConfig, tiny_model_config
+from resnet_tpu_torch.export import (
+    QuantizedInferenceModel,
+    export_inference,
+    export_quantized_inference,
+    load_inference,
+    save_inference,
+)
+from resnet_tpu_torch.kernels import build, quant
+from resnet_tpu_torch.models import forward
+
+FOLD_TOL = 1e-6
+FOLDED_TOL = 1e-4
+SCALE_TOL = 1e-5
+WS_TOL = 1e-6
+TIE_BAND = 1e-6
+LOGIT_TOL = 1e-2
+
+
+def _np(tree):
+    return jax.tree.map(lambda a: np.array(a), tree)
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["bottleneck", "basic"])
+def model(request):
+    """(JAX config, port config, JAX params, JAX bn_state, port params, port
+    bn_state): one init, running statistics made non-trivial as
+    tests/test_quantize.py does (a fresh init folds to an identity affine)."""
+    over = {} if request.param else dict(bottleneck=False, expansion=1)
+    jm, mcfg = j_tiny(**over), tiny_model_config(**over)
+    jp = j_init_params(jax.random.PRNGKey(1234), jm)
+    js = jax.tree.map(lambda a: a + 0.15 * (1.0 + jnp.arange(a.shape[0]) % 3),
+                      j_init_bn_state(jm))
+    return (jm, mcfg, jp, js, params_from_numpy(_np(jp), "cpu"),
+            params_from_numpy(_np(js), "cpu"))
+
+
+def _images(seed, n, d=16):
+    return np.random.default_rng(seed).normal(0, 50, (n, d, d, 3)).astype(np.float32)
+
+
+def test_fold_matches_jax(model):
+    jm, mcfg, jp, js, tp, ts = model
+    want = dict(flatten(_np(jq.fold_bn_inference(jp, js, jm))))
+    got = dict(flatten(tq.fold_bn_inference(tp, ts, mcfg)))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].dtype == torch.float32
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=FOLD_TOL * np.abs(w).max(), err_msg=k)
+
+
+@pytest.mark.parametrize("relu_cap", [None, 10.0])
+def test_folded_forward_matches_jax_and_the_eval_forward(model, relu_cap):
+    jm, mcfg, jp, js, tp, ts = model
+    x = _images(1, 4)
+    want = np.asarray(jq.folded_forward(jq.fold_bn_inference(jp, js, jm), jnp.asarray(x), jm,
+                                        relu_cap=relu_cap))
+    got = tq.folded_forward(tq.fold_bn_inference(tp, ts, mcfg), torch.from_numpy(x), mcfg,
+                            relu_cap=relu_cap).numpy()
+    tol = FOLDED_TOL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    ev, _ = forward(tp, torch.from_numpy(x), mcfg, ExecutionConfig(relu_cap=relu_cap),
+                    train=False, bn_state=ts)
+    np.testing.assert_allclose(got, ev.numpy(), rtol=0, atol=tol)
+
+
+def test_calibrate_matches_jax(model):
+    jm, mcfg, jp, js, tp, ts = model
+    x = _images(2, 8)
+    want = jq.calibrate(jq.fold_bn_inference(jp, js, jm), jnp.asarray(x), jm, batch_size=4)
+    got = tq.calibrate(tq.fold_bn_inference(tp, ts, mcfg), x, mcfg, batch_size=4)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k] == float(np.float32(got[k])) and got[k] > 0
+        assert abs(got[k] - float(w)) <= SCALE_TOL * float(w), k
+
+
+def test_quantize_weights_matches_jax(model):
+    """Both quantize JAX's folded tree, so w and s are the same values and
+    the rounding alone is held."""
+    jm, mcfg, jp, js, _, _ = model
+    ji = jq.fold_bn_inference(jp, js, jm)
+    want = dict(flatten(_np(jq.quantize_weights(ji, jm))))
+    got = dict(flatten(tq.quantize_weights(params_from_numpy(_np(ji), "cpu"), mcfg)))
+    assert sorted(got) == sorted(want)
+    leaves = dict(flatten(_np(ji)))
+    for k, w in want.items():
+        g = got[k].numpy()
+        assert g.dtype == w.dtype, k
+        if k.endswith("/ws"):
+            np.testing.assert_allclose(g, w, rtol=WS_TOL, atol=0, err_msg=k)
+        elif k.endswith("/wq"):
+            ratio = leaves[k[:-2] + "w"] / want[k[:-2] + "ws"]
+            near_tie = np.abs(np.abs(ratio) % 1.0 - 0.5) < TIE_BAND
+            diff = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert (diff[~near_tie] == 0).all() and (diff <= 1).all(), k
+            reach = np.abs(g.astype(np.int32)).reshape(-1, g.shape[-1]).max(axis=0)
+            assert (reach >= 126).all(), k
+
+
+def _quant_act_cases():
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 50, (2, 16, 16, 3)).astype(np.float32)
+    ties = ((np.arange(-140, 140) + 0.5) / 4.0).astype(np.float32)  # x * 4 = k + 0.5
+    wide = rng.normal(0, 400, (1000,)).astype(np.float32)  # beyond +-127 * scale
+    return {
+        "fp32": (x, float(np.abs(x).max() / np.float32(127.0))),
+        "bf16": (x, float(np.abs(x).max() / np.float32(127.0))),
+        "ties": (ties, 0.25),
+        "clipped": (wide, 1.0),
+    }
+
+
+@pytest.mark.parametrize("case", ["fp32", "bf16", "ties", "clipped"])
+def test_quant_act_plain_is_jax_bit_for_bit(case):
+    x, scale = _quant_act_cases()[case]
+    scale = np.float32(scale)
+    tx, jx = torch.from_numpy(x.copy()), jnp.asarray(x)
+    if case == "bf16":
+        tx, jx = tx.to(torch.bfloat16), jx.astype(jnp.bfloat16)
+        assert np.array_equal(tx.float().numpy(), np.asarray(jx.astype(jnp.float32)))
+    want = np.asarray(jq._quant_act(jx, scale))
+    got = quant.quant_act(tx, tq.inverse_scale(scale))  # on the CPU: the plain version
+    assert got.dtype == torch.int8 and want.dtype == np.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+    if case in ("ties", "clipped"):
+        assert np.abs(want.astype(np.int32)).max() == 127
+    if case == "ties":  # half to even
+        for k, q in ((0.5, 0), (1.5, 2), (2.5, 2), (-0.5, 0), (-1.5, -2), (125.5, 126)):
+            assert (want[x * 4 == k] == q).all(), k
+
+
+# (label, H, Cin, Cout, k, stride, groups)
+QCONV_CASES = [
+    ("stem 7x7/s2 Cin 3", 16, 3, 8, 7, 2, 1),
+    ("3x3/s1", 8, 16, 12, 3, 1, 1),
+    ("3x3/s2", 8, 16, 12, 3, 2, 1),
+    ("1x1/s1", 8, 32, 24, 1, 1, 1),
+    ("1x1/s2", 8, 32, 24, 1, 2, 1),
+    ("grouped 3x3/s1 g2", 8, 16, 12, 3, 1, 2),
+]
+
+
+@pytest.mark.parametrize("label,h,cin,cout,k,stride,groups", QCONV_CASES,
+                         ids=[c[0] for c in QCONV_CASES])
+@pytest.mark.parametrize("act", ["none", "relu", "relu cap 3"])
+def test_qconv_plain_is_jax_bit_for_bit(label, h, cin, cout, k, stride, groups, act):
+    """Q1's plain version on JAX's int8 inputs: the int32 accumulator equals
+    _qconv's, and the site's bf16 output (quantize, conv, dequantize with
+    bias, then ReLU and the cap where the site has them) equals _qsite's,
+    followed by _relu where the site has one."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 3, (2, h, h, cin)).astype(np.float32)
+    wq = rng.integers(-127, 128, (k, k, cin // groups, cout)).astype(np.int8)
+    ws = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
+    b = rng.normal(0, 0.5, cout).astype(np.float32)
+    scale = np.float32(np.abs(x).max() / np.float32(127.0))
+    xq = np.asarray(jq._quant_act(jnp.asarray(x), scale))
+    want_acc = np.asarray(jq._qconv(jnp.asarray(xq), jnp.asarray(wq), stride, groups))
+    got_acc = quant.qconv_acc_reference(torch.from_numpy(xq.copy()), torch.from_numpy(wq.copy()),
+                                        stride, groups)
+    assert got_acc.dtype == torch.int32
+    np.testing.assert_array_equal(got_acc.numpy(), want_acc)
+
+    q = {"wq": jnp.asarray(wq), "ws": jnp.asarray(ws), "b": jnp.asarray(b)}
+    relu, relu_cap = act != "none", 3.0 if act.endswith("cap 3") else None
+    want = jq._qsite(jnp.asarray(x), q, scale, stride, groups)
+    want = np.asarray((jq._relu(want, relu_cap) if relu else want).astype(jnp.float32))
+    tw = torch.from_numpy(wq.copy())
+    dq = torch.from_numpy(ws.copy()) * float(scale)
+    xt = quant.quant_act(torch.from_numpy(x.copy()), tq.inverse_scale(scale))
+    got = quant.qconv(xt, tw, dq, torch.from_numpy(b.copy()), stride=stride, groups=groups,
+                      relu=relu, cap=relu_cap)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_fc_plain_is_jax_bit_for_bit():
+    """The FC: the pooled features quantized, (N, K) @ (K, N') in int32 as a
+    1x1 conv over an (N, 1, 1, K) view, dequantized to fp32 logits
+    (quantize.py:279-287), with and without a bias."""
+    rng = np.random.default_rng(11)
+    pooled = rng.normal(0, 1, (3, 64)).astype(np.float32)
+    wq = rng.integers(-127, 128, (64, 10)).astype(np.int8)
+    ws = rng.uniform(1e-3, 1e-2, 10).astype(np.float32)
+    b = rng.normal(0, 0.5, 10).astype(np.float32)
+    scale = np.float32(np.abs(pooled).max() / np.float32(127.0))
+    y = lax.dot_general(jq._quant_act(jnp.asarray(pooled), scale), jnp.asarray(wq),
+                        (((1,), (0,)), ((), ())), preferred_element_type=jnp.int32)
+    logits = y.astype(jnp.float32) * (jnp.asarray(ws) * scale)
+    xt = quant.quant_act(torch.from_numpy(pooled), tq.inverse_scale(scale)).view(3, 1, 1, 64)
+    dq = torch.from_numpy(ws) * float(scale)
+    w4 = torch.from_numpy(wq).view(1, 1, 64, 10)
+    for bias in (None, b):
+        want = np.asarray(logits if bias is None else logits + jnp.asarray(bias))
+        got = quant.qconv(xt, w4, dq, None if bias is None else torch.from_numpy(bias),
+                          out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.view(3, 10).numpy(), want)
+
+
+@pytest.mark.parametrize("relu_cap", [None, 10.0])
+def test_quantized_forward_from_jax_qparams(model, relu_cap):
+    """JAX's (qparams, scales) carried across by qparams_from_numpy: the
+    port's int8 forward gives JAX's logits."""
+    jm, mcfg, jp, js, _, _ = model
+    qparams, scales = jq.quantize_model(jp, js, jm, jnp.asarray(_images(4, 8)),
+                                        relu_cap=relu_cap)
+    x = _images(5, 6)
+    want = np.asarray(jq.quantized_forward(qparams, scales, jnp.asarray(x), jm,
+                                           relu_cap=relu_cap))
+    tqp, tsc = qparams_from_numpy(_np(qparams), scales, device="cpu")
+    assert tqp["init"]["wq"].dtype == torch.int8 and set(tsc) == set(scales)
+    got = tq.quantized_forward(tqp, tsc, torch.from_numpy(x), mcfg, relu_cap=relu_cap).numpy()
+    tol = LOGIT_TOL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > tol
+    assert (got.argmax(-1) == want.argmax(-1))[decided].all()
+
+
+def test_quantize_model_tracks_its_folded_forward(model):
+    """The port's quantize_model end to end, by JAX's own criteria
+    (tests/test_quantize.py:72-88)."""
+    _, mcfg, _, _, tp, ts = model
+    qparams, scales = tq.quantize_model(tp, ts, mcfg, _images(6, 8))
+    x = torch.from_numpy(_images(7, 16))
+    fp = tq.folded_forward(tq.fold_bn_inference(tp, ts, mcfg), x, mcfg).numpy()
+    q = tq.quantized_forward(qparams, scales, x, mcfg).numpy()
+    assert q.shape == fp.shape and np.isfinite(q).all()
+    assert np.corrcoef(fp.ravel(), q.ravel())[0, 1] > 0.98
+    assert np.mean(fp.argmax(-1) == q.argmax(-1)) >= 0.75
+
+
+def test_pack_weight_is_k_major_and_zero_padded():
+    w = torch.arange(7 * 7 * 3 * 5, dtype=torch.int32).remainder(255).sub(127)
+    w = w.to(torch.int8).view(7, 7, 3, 5)
+    wk = quant.pack_weight(w)
+    assert wk.shape == (5, 192) and wk.dtype == torch.int8  # K = 147 -> 3 steps of 64
+    for co in range(5):
+        assert torch.equal(wk[co, :147], w[..., co].reshape(-1))
+    assert not wk[:, 147:].any()
+    # unpack_weight is its inverse, a view of wk
+    back = quant.unpack_weight(wk, (7, 7, 3))
+    assert torch.equal(back, w) and back.untyped_storage().data_ptr() == wk.data_ptr()
+
+
+def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
+    """On a card the wrappers call their C entries with build.SIGNATURES'
+    arguments: the stem's reference padding (3, 2) as pad_top/left 3, the
+    packed weight's row length, the mode and the cap; Q2 its inverse scale.
+    Recorded here with the launch replaced."""
+    calls = []
+    monkeypatch.setattr(quant, "_on_card", lambda *a: True)
+    monkeypatch.setattr(build, "on_card", lambda *a, **k: True)
+    monkeypatch.setattr(build, "launch", lambda name, *args, device: calls.append((name, args)))
+    xq = torch.zeros(2, 224, 224, 3, dtype=torch.int8)
+    w = torch.zeros(7, 7, 3, 64, dtype=torch.int8)
+    dq, b = torch.ones(64), torch.zeros(64)
+    before = quant.LAUNCHES
+    out = quant.qconv(xq, w, dq, b, stride=2, relu=True, cap=6.0)
+    assert out.shape == (2, 112, 112, 64) and out.dtype == torch.bfloat16
+    name, args = calls[-1]
+    assert name == "rt_qconv_s8" and len(args) + 1 == len(build.SIGNATURES[name])
+    assert args[5:] == (2, 224, 224, 3, 64, 7, 7, 2, 3, 3, 112, 112, 192, 1, True, 6.0)
+    assert quant.LAUNCHES == before + 1
+    quant.qconv(xq[:, :1, :1, :].contiguous().view(2, 1, 1, 3), w[:1, :1].contiguous(), dq,
+                None, out_dtype=torch.float32)
+    assert calls[-1][1][3] is None and calls[-1][1][-3:] == (2, False, 0.0)
+    before = quant.ACT_LAUNCHES
+    quant.quant_act(torch.zeros(4, 8, dtype=torch.bfloat16), 0.5)
+    name, args = calls[-1]
+    assert name == "rt_quant_act_bf16" and args[2:] == (0.5, 32)
+    assert len(args) + 1 == len(build.SIGNATURES[name]) and quant.ACT_LAUNCHES == before + 1
+
+
+def test_qconv_rejects_what_the_kernel_does_not_take():
+    xq = torch.zeros(1, 4, 4, 8, dtype=torch.int8)
+    w = torch.zeros(3, 3, 8, 4, dtype=torch.int8)
+    dq = torch.ones(4)
+    for kw in (dict(cap=2.0), dict(relu=True, out_dtype=torch.float32),
+               dict(out_dtype=torch.float16)):
+        with pytest.raises((TypeError, ValueError)):
+            quant.qconv(xq, w, dq, **kw)
+    with pytest.raises(TypeError):
+        quant.qconv(xq.float(), w, dq)
+    with pytest.raises(ValueError):
+        quant.qconv(xq, w, dq.double())
+
+
+@pytest.fixture(scope="module")
+def int8_file(tmp_path_factory):
+    mcfg = tiny_model_config()
+    gen = torch.Generator().manual_seed(1234)
+    from resnet_tpu_torch.models import init_bn_state, init_params
+
+    params, bn_state = init_params(gen, mcfg, device="cpu"), init_bn_state(mcfg, device="cpu")
+    for layer in [bn_state["init_bn"], *[b for bb in bn_state["blocks"] for b in bb.values()]]:
+        layer["mean"] += 0.1
+        layer["var"] += 0.1
+    model = export_quantized_inference(params, mcfg, _images(8, 8), bn_state=bn_state,
+                                       relu_cap=10.0)
+    path = save_inference(str(tmp_path_factory.mktemp("int8") / "m.pt"), model)
+    return path, model, (params, bn_state, mcfg)
+
+
+def test_int8_file_round_trip(int8_file):
+    path, model, (params, bn_state, mcfg) = int8_file
+    assert torch.load(path, weights_only=True)["kind"] == "int8"
+    served = load_inference(path, device="cpu")
+    assert isinstance(served, QuantizedInferenceModel)
+    assert served.scales == model.scales and served.relu_cap == 10.0
+    assert served.image_dims == (16, 16, 3) and served.device.type == "cpu"
+    logits = served.call(np.zeros((3, 16, 16, 3), np.float32))
+    assert tuple(logits.shape) == (3, 8) and np.isfinite(logits.numpy()).all()
+    x = _images(9, 3)
+    assert torch.equal(served.call(x), model.call(x))
+    plain = tq.forward_sites(served.sites(), torch.from_numpy(x), served.mcfg,
+                             relu_cap=served.relu_cap, plain=True)
+    assert torch.equal(plain, model.call(x))
+    # each site keeps its int8 weight once, in the layout Q1 reads
+    names = [n for n, _ in served.named_buffers()]
+    assert any(n.endswith("__wk") for n in names) and not any(n.endswith("__wq") for n in names)
+    with pytest.raises(ValueError, match="shape"):
+        served.call(np.zeros((1, 3, 16, 16), np.float32))
+    # an fp file says so, and comes back as the fp model
+    fp = save_inference(path + ".fp", export_inference(params, mcfg, bn_state=bn_state))
+    assert torch.load(fp, weights_only=True)["kind"] == "fp"
+    assert not isinstance(load_inference(fp, device="cpu"), QuantizedInferenceModel)
+
+
+def test_int8_file_serves_over_http(int8_file):
+    path, model, _ = int8_file
+    httpd = serve_mod.serve(path, port=0, device="cpu")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        x = _images(10, 3)
+        conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+        conn.request("POST", "/predict", body=x.tobytes(), headers={"X-Shape": "3,16,16,3"})
+        r = conn.getresponse()
+        out = json.loads(r.read())
+        assert r.status == 200 and out["logits_shape"] == [3, 8]
+        assert out["top1"] == model.call(x).argmax(-1).tolist()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+
+
+def test_quantized_forward_takes_nhwc_only(int8_file):
+    _, model, _ = int8_file
+    with pytest.raises(ValueError, match="NHWC"):
+        tq.forward_sites(model.sites(), torch.zeros(2, 3, 16, 16), model.mcfg)
+
+
+def test_trainer_evaluate_quantized_on_nchw_raises():
+    from resnet_tpu_torch.config import DataConfig, TrainConfig
+    from resnet_tpu_torch.train import Trainer
+
+    cfg = TrainConfig(model=tiny_model_config(), execution=ExecutionConfig(layout="NCHW"),
+                      data=DataConfig(synthetic=True, batch_size=4), checkpoint_dir="",
+                      log_every=0)
+    t = Trainer(cfg, device="cpu")
+    with pytest.raises(ValueError, match="NHWC"):
+        t.evaluate_quantized(t._build_data(), 1)
+
+
+def test_cli_int8_evaluate(tmp_path, capsys):
+    """--evaluate --int8 through the port's CLI (tests/test_quantize.py's
+    JAX test): calibration on the first eval batch, metrics printed."""
+    from resnet_tpu_torch.train.cli import main
+
+    main(["--model", "tiny", "--synthetic", "--evaluate", "--int8", "--eval-batches", "2",
+          "--batch-size", "8", "--no-mesh", "--log-every", "0", "--checkpoint-dir",
+          str(tmp_path / "dumps"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "int8 eval over 2 batches" in out
+    assert "loss=" in out and "top1=" in out and "top5=" in out
+
+
+def test_cli_int8_export(tmp_path, capsys):
+    from resnet_tpu_torch.train.cli import main
+
+    art = str(tmp_path / "model_int8.pt")
+    main(["--model", "tiny", "--synthetic", "--batch-size", "8", "--no-mesh", "--log-every",
+          "0", "--checkpoint-dir", str(tmp_path / "dumps"), "--export", art, "--int8",
+          "--device", "cpu"])
+    assert "exported int8 serving artifact" in capsys.readouterr().out
+    served = load_inference(art, device="cpu")
+    logits = served.call(np.zeros((3, 16, 16, 3), np.float32))
+    assert tuple(logits.shape) == (3, 8) and np.isfinite(logits.numpy()).all()

@@ -226,8 +226,9 @@ def test_async_checkpoint_resume_latest_and_evaluate(runs, tmp_path, capsys):
     metrics = t.evaluate(t._build_data(), 2)
     assert set(metrics) == {"loss", "accuracy", "top5"}
     assert all(np.isfinite(v) for v in metrics.values())
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.evaluate_quantized(t._build_data(), 1)
+    qmetrics = t.evaluate_quantized(t._build_data(), 2)
+    assert set(qmetrics) == {"loss", "accuracy", "top5"}
+    assert all(np.isfinite(v) for v in qmetrics.values())
     with pytest.raises(FileNotFoundError):
         Trainer(dataclasses.replace(cfg, resume_from=tcfg.RESUME_LATEST,
                                     checkpoint_dir=str(tmp_path / "nowhere")), device="cpu")
