@@ -222,14 +222,20 @@ apart moves the next stage by that ulp times the following BN's scale).
 Phase 3 also holds the int8 kernels bit for bit to their plain versions
 (max_abs_err 0): Q1 at every distinct conv shape of ResNet-50 at batch 8
 with its site's epilogue, the FC with fp32 logits, a capped site, a 1x1/s2
-projection and a ragged one (Cin 3, Cout 33), twice to the same bits; Q2 on
-the images, bf16 activations, the pooled features, an odd misaligned size
-and exact .5 ties; their bound at 1,979 TOP/s int8, Q1's yardstick
-torch._int_mm (the integer product alone) on the 1x1 stride-1 cases.
+projection, a ragged one (Cin 3, Cout 33) and, reported apart, stage 4's
+3x3 at batch 1, twice to the same bits, each line with Q1's launch plan
+(tile, slices, K splits, units, persistent blocks, A loader); Q2 on the
+images, bf16 activations, the pooled features, an odd misaligned size and
+exact .5 ties; their bound at 1,979 TOP/s int8, Q1's yardstick
+torch._int_mm (the integer product alone) on every case it takes (M > 16,
+N a multiple of 8; an im2col of x made outside the timed call, K padded
+to a multiple of 8).
 Then a JSON line of the kernels (launches: the counts of the main paths of
 phases 4 to 13 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
-each kernel's phase-3 cases),
+each kernel's phase-3 cases; where the yardstick takes only some cases,
+``library_covered`` sums those; Q1's ``apart`` and ``rest`` sum its batch-1
+case and the others),
 the nvidia-smi line, and the final line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no final
@@ -572,14 +578,17 @@ def _plan(build, name, case):
         units *= splits
         return {"route": route, "tile": tile, "splits": splits,
                 "chunk": build.k_chunk(k, splits, 16), "units": units, "blocks": min(units, 132)}
-    if name == "qconv":  # tiles and K steps of Q1, and its A loader
-        from resnet_tpu_torch.kernels.quant import BK, padded_k
+    if name == "qconv":  # Q1's tile, K splits, units, persistent blocks and A loader
+        from resnet_tpu_torch.kernels import quant
 
         _, n, h, cin, cout, k, s, *_ = case
         m = n * (h // s) ** 2
-        return {"tile": [128, 64], "blocks": [-(-m // 128), -(-cout // 64)],
-                "k_steps": padded_k(k * k * cin) // BK,
-                "a": "cp.async 16 bytes" if cin % 16 == 0 else "bytes"}
+        kk = quant.packed_k((k, k, cin))
+        bn, splits = build.qconv_plan(m, cout, kk)
+        units = -(-m // build.QC_BM) * -(-cout // bn) * splits
+        return {"tile": [build.QC_BM, bn], "slices": -(-kk // build.QC_SLICE),
+                "splits": splits, "units": units, "blocks": min(units, 132),
+                "a": "cp.async 16 bytes" if cin % 16 == 0 else "kernel-row runs"}
     if name == "matmul_bwd_bf16":
         _, m, k, n, _, need_a, need_b = case
         return dict(zip(("da_blocks", "db_blocks"),
@@ -836,7 +845,7 @@ def phase_int8_serve(torch, checks, counters):
         if n == max(INT8_TIMED_BATCHES):
             rows = checks.device_profile(lambda: served.call(x), reps=3)
             require(rows is not None, "the int8 forward's profile recorded no device time")
-            q1 = sum(v for k, v in rows.items() if "qconv_kernel" in k)
+            q1 = sum(v for k, v in rows.items() if "qconv" in k)  # every kernel Q1 launches
             q2 = sum(v for k, v in rows.items() if "quant_act" in k)
             timed[f"batch{n}"]["int8_device_ms"] = {
                 "qconv": q1, "quant_act": q2, "rest": sum(rows.values()) - q1 - q2,
@@ -2585,6 +2594,21 @@ def main() -> None:
         by = {}
         for r in rs:  # the bound that sets most of the summed least time
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        extra = {}
+        covered = [r for r in rs if r.get("library_ms") is not None]
+        if 0 < len(covered) < len(rs):  # the yardstick over the cases it takes
+            extra["library_covered"] = {
+                "cases": len(covered), "library_ms": checks.total(covered),
+                "library_device_ms": checks.total(covered, "library_device_ms"),
+                "device_ms": checks.total(covered, "device_ms")}
+        prefix = checks.APART.get(name)
+        if prefix:  # cases summed apart from the rest, by label
+            for key, part in (("apart", [r for r in rs if r["case"].startswith(prefix)]),
+                              ("rest", [r for r in rs if not r["case"].startswith(prefix)])):
+                extra[key] = {"cases": len(part), "ms": checks.total(part, "ms"),
+                              "device_ms": checks.total(part, "device_ms"),
+                              "bound_ms": checks.total(part, "bound_ms"),
+                              "host_us": checks.total(part, "host_us")}
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
             "launches": launched[name],
@@ -2596,7 +2620,7 @@ def main() -> None:
             "bound_by": max(by, key=by.get),
             "library_ms": checks.total(rs),
             "device_ms": checks.total(rs, "device_ms"),
-            "library_device_ms": checks.total(rs, "library_device_ms")})
+            "library_device_ms": checks.total(rs, "library_device_ms"), **extra})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -162,27 +162,31 @@ def vector_width(x2d: torch.Tensor) -> int:
     return 4 if x2d.shape[1] % 4 == 0 and x2d.data_ptr() % (4 * x2d.element_size()) == 0 else 1
 
 
-# (device index, stream) -> [chunk partials, tile tickets], shared by K4
-# and K6
+# (device index, stream) -> [chunk partials, tile tickets], shared by K4,
+# K6 and Q1 (``quant.qconv``, whose split partials are int32 of the same
+# size)
 _WORKSPACES: Dict[Tuple[int, int], list] = {}
 
 
-def _workspace(index: int, part: int, tickets: int, stream: int = 0) -> list:
+def _workspace(index: int, part: int, tickets: int,
+               stream: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunk partials (``part`` floats at least) and the zeroed tile
     tickets (``tickets`` at least) of one stream. The kernels leave their
     tickets at 0, so the calls on one stream share them; a workspace
     replaced by a larger one is freed in stream order, after the calls that
-    use it."""
-    ws = _WORKSPACES.get((index, stream))
-    if ws is None:
-        ws = _WORKSPACES[(index, stream)] = [None, None]
-    if ws[0] is None or ws[0].numel() < part:
-        ws[0] = torch.empty(max(part, 1 << 16), dtype=torch.float32,
-                            device=torch.device("cuda", index))
-    if ws[1] is None or ws[1].numel() < tickets:
-        ws[1] = torch.zeros(max(tickets, 256), dtype=torch.int32,
-                            device=torch.device("cuda", index))
-    return ws
+    use it, as long as each caller holds the two tensors until its launch
+    is enqueued. The two returned are the ones checked here, so a thread
+    that replaces the stream's entry meanwhile cannot hand another a
+    smaller one."""
+    ws = _WORKSPACES.setdefault((index, stream), [None, None])
+    part_ws, tickets_ws = ws
+    if part_ws is None or part_ws.numel() < part:
+        part_ws = ws[0] = torch.empty(max(part, 1 << 16), dtype=torch.float32,
+                                      device=torch.device("cuda", index))
+    if tickets_ws is None or tickets_ws.numel() < tickets:
+        tickets_ws = ws[1] = torch.zeros(max(tickets, 256), dtype=torch.int32,
+                                         device=torch.device("cuda", index))
+    return part_ws, tickets_ws
 
 
 def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -> None:

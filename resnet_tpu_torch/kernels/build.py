@@ -105,9 +105,10 @@ SIGNATURES = {
     "rt_block_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _F, _P, _I, _P],
     # the int8 serving kernels (qconv.cu): Q1 x, w (Cout, Kp), dq, bias (or
-    # null), out, N, H, W, Cin, Cout, kh, kw, stride, pad_top, pad_left, Ho,
-    # Wo, Kp, mode, has_cap, cap; Q2 x, q, inv, n
-    "rt_qconv_s8": [*[_P] * 5, *[_I] * 15, _F, _P],
+    # null), out, the split partials and tile tickets (null for one split),
+    # N, H, W, Cin, Cout, kh, kw, stride, pad_top, pad_left, Ho, Wo, Kp, mode,
+    # has_cap, cap, tile width, splits; Q2 x, q, inv, n
+    "rt_qconv_s8": [*[_P] * 7, *[_I] * 15, _F, _I, _I, _P],
     "rt_quant_act_f32": [_P, _P, _F, _I64, _P],
     "rt_quant_act_bf16": [_P, _P, _F, _I64, _P],
 }
@@ -142,6 +143,15 @@ WGB_BK = 64
 WGB_STAGES = {64: 4, 128: 6}
 WGB_BLOCKS_PER_SM = {64: 2, 128: 1}
 WGB_MIN_SLICES = 8  # the shallowest split, in slices
+# Q1's (qconv.cu, int8 on wgb_gemm.cuh's specialized loop): tile height,
+# slice depth in bytes, and qconv_plan's costs in tenths of a microsecond by
+# tile width: a slice, a unit's epilogue, and an int32 value of a split's
+# partial tile
+QC_BM = 128
+QC_SLICE = 128
+QC_SLICE_COST = {64: 2, 128: 3, 256: 4.5}
+QC_UNIT_COST = {64: 2, 128: 3, 256: 6}
+QC_PARTIAL_COST = 2e-5
 # dW's 64-pixel slices on the wgmma core: bw x bh rectangles of the output
 # grid, in conv.cu dw_box's order of preference
 DW_BOXES = ((64, 1), (32, 2), (16, 4), (8, 8), (4, 16), (2, 32), (1, 64))
@@ -374,6 +384,35 @@ def wgb_chunks(k: int, splits: int) -> Tuple[int, ...]:
     ceil(slices / splits) whole slices each, the last the rest."""
     chunk = -(-(-(-k // WGB_BK)) // splits) * WGB_BK
     return tuple(min(chunk, k - i * chunk) for i in range(splits))
+
+
+@functools.lru_cache(maxsize=None)
+def qconv_plan(m: int, n: int, k: int) -> Tuple[int, int]:
+    """(tile width, K splits) of Q1 (qconv.cu) for an (m, n) output over
+    its packed depth k (``quant.packed_k``): the candidate with the least
+    cost among tile widths 64, 128 and 256 and every split count of whole
+    QC_SLICE-deep slices with none empty (splits = ceil(slices / chunk) for
+    chunk = ceil(slices / splits)). The cost, in tenths of a microsecond:
+    the waves of units (tiles x splits over the SMs) one SM takes, each the
+    chunk's slices at QC_SLICE_COST and an epilogue at QC_UNIT_COST by tile
+    width, plus, for more than one split, QC_PARTIAL_COST a value of the
+    int32 partial tiles written and read back (the constants fitted to
+    ``python -m resnet_tpu_torch.kernels.qconv_plans 1 128``'s device times
+    of every candidate at batches 8, 1 and 128, PERF.md). On a tie the
+    wider tile (fewer bytes through the L2), then fewer splits. A function
+    of the shapes only (cached), so a call repeats exactly."""
+    slices = -(-k // QC_SLICE)
+    best = None
+    for bn in (256, 128, 64):
+        tiles = -(-m // QC_BM) * -(-n // bn)
+        for splits in sorted({-(-slices // c) for c in range(1, slices + 1)}):
+            chunk = -(-slices // splits)
+            cost = -(-tiles * splits // _SMS) * (chunk * QC_SLICE_COST[bn] + QC_UNIT_COST[bn])
+            if splits > 1:
+                cost += splits * m * n * QC_PARTIAL_COST
+            if best is None or cost < best[0]:
+                best = (cost, bn, splits)
+    return best[1], best[2]
 
 
 def dw_box(ho: int, wo: int) -> Tuple[int, int]:

@@ -91,17 +91,21 @@ The int8 serving kernels (``kernels.quant``): Q1 (``qconv``) at each
 distinct conv shape of ResNet-50's 53 at batch 8 with its site's epilogue
 (ReLU'd bf16 for the stem, reduce and spatial sites, bf16 for the expand
 and projection sites), the FC with fp32 logits, a capped site, a 1x1/s2
-projection and a ragged case (Cin 3, Cout 33, the byte gather); Q2
+projection, a ragged case (Cin 3, Cout 33, the byte gather) and stage 4's
+3x3 at batch 1 (``APART``: summed apart in chip_smoke.py); Q2
 (``quant_act``) on the fp32 images, bf16 activations, the pooled features,
 an odd size and an input laid on exact .5 ties and beyond the clip. Each
 must equal its plain version bit for bit (``max_abs_err`` 0: integer sums
 are exact in any order and the epilogue rounds step by step as the plain
 version does); Q1 runs twice to the same bits. Their bound counts 1 byte an
 int8 value and Q1's operations at 1,979 TOP/s dense int8. Q1's yardstick,
-on the 1x1 stride-1 cases it accepts (M > 16, K and N multiples of 8), is
-``torch._int_mm`` of the same operands: the integer product alone, without
-the dequantizing epilogue, so less work (``library_covers`` nothing; the
-line says ``library: int_mm, product only``); Q2 has none.
+on every case it accepts (M > 16, N a multiple of 8), is ``torch._int_mm``
+of an im2col of x (``qconv_im2col``, made outside the timed call; K
+zero-padded to a multiple of 8, the stem's 147 to 152) by the HWIO weight:
+the integer product alone, without the dequantizing epilogue, so less
+work (``library_covers`` nothing; the line says ``library: int_mm,
+product only``); Q2 has none. Q1's operands come from ``qconv_operands``
+(``qconv_plans`` times the same inputs under other plans).
 """
 
 from __future__ import annotations
@@ -114,6 +118,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.padding import reference_padding
 from . import adam, block_fused, bn, conv, fused, fused_conv, matmul, quant
 
 REL_TOL = 1e-4
@@ -416,7 +421,13 @@ QCONV_CASES = qconv_sites(8) + [
     ("spatial 3x3/s1 14^2 256->256, relu, cap 10", 8, 14, 256, 256, 3, 1, True, 10.0, "bf16"),
     ("standard proj 1x1/s2 56->28 256->512", 8, 56, 256, 512, 1, 2, False, None, "bf16"),
     ("ragged 3x3 7^2 3->33, batch 2, relu", 2, 7, 3, 33, 3, 1, True, None, "bf16"),
-]
+] + [
+    # batch 1 (HTTP serves it too): stage 4's 3x3, whose few tiles need K
+    # splits to fill the card; reported apart from the cases above
+    (f"batch 1 {label}", *rest) for label, *rest in qconv_sites(1)
+    if label.startswith("block 14 spatial")]
+# cases each kernel's line in chip_smoke.py also sums apart (by label prefix)
+APART = {"qconv": "batch 1 "}
 # Q2: (label, shape, dtype, storage offset in elements): the images, the
 # largest and the last block's bf16 activations, the pooled features, an
 # odd size at an offset (the scalar path), and exact .5 ties (``ties``)
@@ -707,11 +718,11 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def _qconv_case(case, gen, device) -> _Case:
-    """Q1 on int8 values over the whole range (the largest accumulators),
-    dq sized so that the epilogue's values spread around the cap and 0."""
+def qconv_operands(case, gen, device):
+    """A Q1 case's operands: int8 values over the whole range (the largest
+    accumulators), dq sized so that the epilogue's values spread around the
+    cap and 0: (xq, w, dq, bias, packed weight, qconv's keywords)."""
     _, n, h, cin, cout, k, s, relu, cap, out = case
-    ho = h // s
     xq = torch.randint(-127, 128, (n, h, h, cin), generator=gen, device=device,
                        dtype=torch.int8)
     w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device=device,
@@ -719,13 +730,35 @@ def _qconv_case(case, gen, device) -> _Case:
     kk = k * k * cin
     dq = (torch.rand(cout, generator=gen, device=device) + 0.5) * (4.0 / (127 * 127 * kk ** 0.5))
     b = torch.randn(cout, generator=gen, device=device)
-    wk = quant.pack_weight(w)
     out_dtype = torch.float32 if out == "f32" else torch.bfloat16
-    kw = dict(stride=s, relu=relu, cap=cap, out_dtype=out_dtype)
+    return xq, w, dq, b, quant.pack_weight(w), dict(stride=s, relu=relu, cap=cap,
+                                                     out_dtype=out_dtype)
+
+
+def qconv_im2col(xq: torch.Tensor, k: int, s: int) -> torch.Tensor:
+    """The (M, k*k*Cin) int8 rows of a conv's windows over the reference's
+    padding, in the plain (di, dj, ci) order: the library yardstick's A."""
+    n, h, wd, cin = xq.shape
+    (top, bottom), (left, right) = reference_padding(h, k, s), reference_padding(wd, k, s)
+    xp = F.pad(xq, (0, 0, left, right, top, bottom))
+    win = xp.unfold(1, k, s).unfold(2, k, s)  # (N, Ho, Wo, Cin, k, k)
+    return win.permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * cin)
+
+
+def _qconv_case(case, gen, device) -> _Case:
+    """Q1 on ``qconv_operands``; the yardstick ``torch._int_mm`` wherever it
+    takes the shapes (M > 16, K and N multiples of 8; the stem's K 147
+    zero-padded to 152), on an im2col of x made outside the timed call."""
+    _, n, h, cin, cout, k, s, relu, cap, out = case
+    xq, w, dq, b, wk, kw = qconv_operands(case, gen, device)
+    ho = h // s
+    kk = k * k * cin
     m = n * ho * ho
     library = None
-    if k == 1 and s == 1 and m > 16 and kk % 8 == 0 and cout % 8 == 0:  # what _int_mm takes
-        a2, w2 = xq.view(m, kk), w.view(kk, cout)
+    kpad = -(-kk // 8) * 8  # the stem's 147 -> 152: zeros add nothing
+    if m > 16 and cout % 8 == 0:  # what _int_mm takes
+        a2 = F.pad(qconv_im2col(xq, k, s), (0, kpad - kk)).contiguous()
+        w2 = F.pad(w.reshape(kk, cout), (0, 0, 0, kpad - kk)).contiguous()
 
         def library():  # the integer product only
             return torch._int_mm(a2, w2)
@@ -735,7 +768,7 @@ def _qconv_case(case, gen, device) -> _Case:
                  lambda: quant.qconv_reference(xq, w, dq, b, **kw),
                  x_bytes + w.numel() + m * cout * (4 if out == "f32" else 2) + 8 * cout,
                  2 * m * kk * cout, library, library_same=False, peak=INT8_OPS_PER_S,
-                 exact=True, bf16=out_dtype == torch.bfloat16,
+                 exact=True, bf16=kw["out_dtype"] == torch.bfloat16,
                  library_label="torch._int_mm, the integer product alone (no epilogue)"
                  if library is not None else None)
 

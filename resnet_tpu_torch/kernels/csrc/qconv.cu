@@ -18,26 +18,59 @@
 // into an FMA, which would change the bits against the plain version. ReLU
 // and the cap act on the bf16 value (quantize.py's _relu after _qsite).
 //
-// The GEMM is an implicit im2col in the manner of im2col.cuh's Im2colTcA:
-// row m is output pixel (n, oy, ox), column k = (di, dj, ci) one tap and
-// input channel, A(m, k) = x[n, s*oy - pad_top + di, s*ox - pad_left + dj,
-// ci], 0 outside the image, so the reference's centred windows (the
-// stem's (3, 2)) and a 1x1/s2 conv (JAX's subsample-then-dot) take one
-// path. The weight is (Cout, Kp) K-major, each output channel's K values
-// contiguous and zero beyond K up to Kp, a multiple of BK (the `col`
-// operand of mma.sync; the wrapper packs it once, quant.pack_weight).
-// Integer sums are exact in any order, so the tiling never changes a bit.
+// The GEMM is an implicit im2col: row m is output pixel (n, oy, ox), and
+// the window's kernel row di is the KW * Cin bytes x[n, s*oy - pad_top + di,
+// s*ox - pad_left + [0, KW), :], which lie next to each other in NHWC, so K
+// is KH kernel rows of Rp = KW * Cin rounded up to 16 bytes (the same as
+// the plain (di, dj, ci) order wherever Cin % 16 == 0; the stem's 21-byte
+// rows take 32), 0 outside the image, past a row's KW * Cin and past K.
+// The reference's centred windows (the stem's (3, 2)) and a 1x1/s2 conv
+// (JAX's subsample-then-dot) take one path. The weight is packed in the
+// same K order, (Cout, Kp) K-major, zero in the rows' padding and from K =
+// KH * Rp up to Kp, a multiple of 64 (quant.pack_weight, once per site).
 //
-// Tiles: 128 output pixels x 64 output channels a block, K in 64-byte
-// steps through a 3-stage ring in shared memory (rows padded to 80 bytes,
-// so each ldmatrix phase reads 8 distinct 16-byte bank groups); 8 warps of
-// 32 x 32, each K step two mma.sync.m16n8k32.s8 per (16 x 8) fragment pair.
-// Where Cin % 16 == 0 and x is 16-byte aligned a 16-byte chunk of A lies in
-// one tap and comes by cp.async (zero-filled outside the image); else (the
-// stem, Cin = 3, K = 147 padded to 192) each byte is gathered and stored.
-// Bound: at ResNet-50's shapes mostly the int8 tensor-core rate (1,979
-// TOP/s dense), which mma.sync from a simple ring reaches only in part;
-// wgmma with TMA is later work.
+// On wgb_gemm.cuh's warp-specialized loop (wgb::specialized) under its s8
+// policy: copying warpgroups gather A and ask TMA for B, two multiplying
+// warpgroups take 64 rows each of a 128-row tile. Both operands lie K-major
+// in 128-byte-swizzled shared memory, a slice 128 int8 deep (one swizzle
+// row), four wgmma.mma_async.m64nBNk32.s32.s8.s8 a slice chained into the
+// int32 accumulator. Tiles 128 x BN, BN = 64, 128 or 256 (build.qconv_plan):
+// at 64 and 128 two warpgroups copy (512 threads, 128 registers each); at
+// 256 one does (384 threads), so that the multipliers may hold m64n256's
+// 128 accumulator registers (wgb::WsRegs). Ring slots: 8, 5 and 3, beside
+// the staged output tile. The copiers' A: where Cin % 16 == 0 and x is
+// 16-byte aligned, a 16-byte chunk is 16 channels of one tap, one cp.async
+// (zeros outside the image); else (the stem, ragged Cin, a misaligned x) a
+// chunk is 16 bytes of one kernel row, read as the aligned words that hold
+// its bytes inside the image (four rows' words loaded before any is used),
+// shifted into place, masked and stored: no per-byte loop. B, the packed
+// weight, comes by TMA, one 128 x BN box a slice (zeros past Kp and Cout);
+// where every unit takes the same B slices (one tile column, one split)
+// and they fit the ring, each block loads them once, in its first unit,
+// and keeps them in the ring's B regions (resident_b). On wgb::persistent,
+// whose one thread stream copies and multiplies in turn, every case
+// measured was slower (PERF.md).
+//
+// Persistent with K splits: one block per SM walks the units (m tile, n
+// tile, K split), n tile fastest, and the ring runs across unit boundaries.
+// The tile width and split count are the wrapper's (build.qconv_plan, a
+// function of the shapes fitted to the card's times: each split whole
+// slices, none empty). Integer sums are exact in any order, so neither the
+// tiling nor the splits change a bit: a split unit stores its int32 partial
+// tile into its slot of the scratch ws (coalesced 16-byte stores), then
+// takes its tile's ticket; the unit that takes it last adds the other
+// splits' partials to its own, zeroes the ticket and runs the epilogue. A
+// call is one launch, and the tickets are zero again when it ends.
+//
+// The epilogue (the multiplying warpgroups, while the copiers fill the ring
+// for the next unit) stages the unit's dq and bias columns and a bf16 tile
+// in shared memory (128-byte swizzled rows); the tile leaves by TMA where
+// Cout % 8 == 0 and the output is 16-byte aligned, else in row stores; the
+// FC's fp32 logits go straight from the registers. Bound: the int8
+// tensor-core rate (1,979 TOP/s dense) for the 3x3s and the deep 1x1s, the
+// bytes written for the 1x1s at 56^2 and the stem; in practice a 128-row
+// tile's operands through the L2, the per-slice handoffs and the epilogue
+// share the time (PERF.md, q1_variants).
 //
 // Q2, rt_quant_act_{f32,bf16}: q = clip(rint(__fmul_rn(x, inv)), -127, 127)
 // as int8, inv = 1 / scale in fp32 (the wrapper's). Replaces
@@ -46,231 +79,449 @@
 // a value): 16 values a thread through 16-byte loads and one 16-byte
 // store where the pointers allow, one value at a time for the rest.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <atomic>
 
 #include "rowwise.cuh"
+#include "wgb_gemm.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int BK = 64;
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int LDS = BK + 16;
+constexpr int BM = wgb::BM;
+constexpr int SK = 2 * wgb::BK;  // int8 a slice: one 128-byte swizzle row
+constexpr int THREADS = wgb::THREADS;
+constexpr int RUN = 16;          // a kernel row's bytes in K are padded to a multiple of it
+constexpr int KP_ALIGN = 64;     // the packed weight's row length is a multiple of it
 
 enum Mode { OUT_BF16 = 0, OUT_BF16_RELU = 1, OUT_F32 = 2 };
 
+// ring slots by tile width (the ring, the staged bf16 tile and the copies'
+// record, here the unit's dq and bias columns, fit the 232,448 bytes a
+// block may take), and the copying threads: two warpgroups, or at BN = 256
+// one (wgb::WsRegs)
+template <int BN>
+struct QTile {
+  static constexpr int S = BN == 256 ? 3 : BN == 128 ? 5 : 8;
+  static constexpr int SMEM = wgb::PTile<BN, S>::SMEM;
+  static_assert(SMEM + 1024 <= 232448, "Q1's shared memory");
+  static constexpr int NC = BN == 256 ? 128 : wgb::COPIERS;
+  static constexpr int THREADS_ALL = NC + THREADS;
+};
+
 struct QConv {
   const int8_t* x;
-  const int8_t* w;
   const float* dq;
   const float* bias;  // null: no bias (the FC without one)
   void* out;
+  int* ws;       // int32 split partials, tiles x splits x BM x BN (splits > 1)
+  int* tickets;  // one per tile, zero at rest (splits > 1)
   int64_t M;
-  int H, W, Cin, Cout, KW, stride, pad_top, pad_left, HoWo, Wo, K, Kp;
-  int mode, has_cap;
+  int H, W, Cin, Cout, KH, KW, stride, pad_top, pad_left, HoWo, Wo;
+  int Rp;  // a kernel row's bytes in K: KW * Cin rounded up to RUN
+  int K;   // KH * Rp
+  int n_tiles, splits, mode, has_cap;
   float cap;
+  // every unit of the launch takes the same B slices (one tile column, one
+  // split) and they fit the ring: each block keeps them (resident_b)
+  int resident_b;
 };
 
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float dequant(const QConv& p, int acc, int co) {
-  const float v = __fmul_rn(__int2float_rn(acc), p.dq[co]);
-  return p.bias ? __fadd_rn(v, p.bias[co]) : v;
-}
-
-// the bf16 bits of v, then ReLU and the cap on the bf16 value (mode 1)
-__device__ __forceinline__ uint16_t to_act(const QConv& p, float v, float capf) {
-  float f = __bfloat162float(__float2bfloat16_rn(v));
+// the bf16 bits of v0 (low half) and v1 (high half), each rounded to
+// nearest even, then in mode 1 ReLU and the cap on the bf16 value: a value
+// below 0 becomes +0, then one above the cap the cap's bf16 (capb); NaN and
+// -0 pass, as the plain version's comparisons let them
+__device__ __forceinline__ uint32_t to_act2(const QConv& p, float v0, float v1, float capf,
+                                            uint32_t capb) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+  uint32_t lo = __bfloat16_as_ushort(h2.x), hi = __bfloat16_as_ushort(h2.y);
   if (p.mode == OUT_BF16_RELU) {
-    if (f < 0.f) f = 0.f;
-    if (p.has_cap && f > capf) f = capf;
+    auto act = [&](uint32_t& h) {
+      float f = __uint_as_float(h << 16);
+      if (f < 0.f) {
+        f = 0.f;
+        h = 0u;
+      }
+      if (p.has_cap && f > capf) h = capb;
+    };
+    act(lo);
+    act(hi);
   }
-  return __bfloat16_as_ushort(__float2bfloat16_rn(f));  // exact: f is a bf16 value
+  return lo | hi << 16;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(THREADS) qconv_kernel(const QConv p) {
-  __shared__ __align__(16) int8_t As[STAGES][BM * LDS];
-  __shared__ __align__(16) int8_t Bs[STAGES][BN * LDS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int64_t m0 = (int64_t)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  // each thread copies 16-byte chunk `chunk` of A's rows arow and arow + 64
-  // and of B's row arow in every K step
-  const int chunk = tid & 3, arow = tid >> 2;
+// bytes [lo, hi) of a 4-byte word kept, the rest zero (lo, hi clamped to [0, 4])
+__device__ __forceinline__ uint32_t keep_bytes(uint32_t v, int lo, int hi) {
+  lo = lo < 0 ? 0 : lo > 4 ? 4 : lo;
+  hi = hi < 0 ? 0 : hi > 4 ? 4 : hi;
+  if (hi <= lo) return 0u;
+  const uint32_t m = (uint32_t)((1ull << (8 * hi)) - 1) & ~(uint32_t)((1ull << (8 * lo)) - 1);
+  return v & m;
+}
 
-  int64_t aoff[2];
-  int aiy[2], aix[2];
-  bool aok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t m = m0 + arow + 64 * i;
-    aok[i] = m < p.M;
-    const int64_t mm = aok[i] ? m : 0;
-    const int64_t n = mm / p.HoWo;
-    const int rem = (int)(mm - n * p.HoWo);
-    const int oy = rem / p.Wo;
-    aiy[i] = p.stride * oy - p.pad_top;
-    aix[i] = p.stride * (rem - oy * p.Wo) - p.pad_left;
-    aoff[i] = n * p.H * p.W * (int64_t)p.Cin;
-  }
-  const bool bok = n0 + arow < p.Cout;
-  const int8_t* brow = p.w + (int64_t)(bok ? n0 + arow : 0) * p.Kp + chunk * 16;
+// One block's copies for qconv_kernel (wgb::specialized's Block), by NC
+// copying threads. Thread t copies 16-byte chunk column cc = t % 8 of rows
+// t / 8 + (NC / 8) i, i < 1024 / NC, of each 128 x 128 slice of A into the
+// swizzled slot; thread 0 asks TMA for B's box. kVec: a chunk is 16
+// channels of one tap, a cp.async. Otherwise a chunk is 16 bytes of one
+// kernel row of the window (K's padded rows): the aligned words that hold
+// its bytes inside the image, funnel-shifted into place, the bytes outside
+// (left or right of the image, past KW * Cin) zeroed, one 16-byte shared
+// store.
+template <int BN, bool kVec, int NC>
+struct QGather {
+  static constexpr int R = BM * 8 / NC;  // the thread's rows: rlo + (NC / 8) i, i < R
+  const QConv& p;
+  const CUtensorMap* wmap;
+  const wgb::Smem<BN>& sm;
+  uint64_t* full;
+  const int cc, rlo;
+  int col0 = 0;
+  int64_t k_lo = 0;
+  int64_t off[R];  // kVec: x's offset of the row's image; else of its window's top-left byte
+  int iy[R];       // the window's first image row (-2^29: a row past M)
+  int ix[R];       // kVec: its first image column; else the row's bytes [ix >> 16, ix & 0xffff)
+                   // of a kernel row inside the image
+  int64_t k;       // the K column of the thread's chunk in the next slice
+  int di, dj, ci;  // kVec: its tap and channel; else di, and dj the chunk's byte in the row
+  int units = 0;   // units started
 
-  auto load = [&](int slot, int kt) {
-    int8_t* a = As[slot];
-    const int k = kt * BK + chunk * 16;
-    const int tap = k / p.Cin;
-    const int ci0 = k - tap * p.Cin;
-    const int di0 = tap / p.KW, dj0 = tap - di0 * p.KW;
-    if constexpr (kVec) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int iy = aiy[i] + di0, ix = aix[i] + dj0;
-        const bool ok = aok[i] && k < p.K && (unsigned)iy < (unsigned)p.H &&
-                        (unsigned)ix < (unsigned)p.W;
-        const int8_t* src = ok ? p.x + aoff[i] + ((int64_t)iy * p.W + ix) * p.Cin + ci0 : p.x;
-        cp16(a + (arow + 64 * i) * LDS + chunk * 16, src, ok);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint32_t word[4] = {0u, 0u, 0u, 0u};
-        int ci = ci0, di = di0, dj = dj0;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          if (aok[i] && k + j < p.K) {
-            const int iy = aiy[i] + di, ix = aix[i] + dj;
-            if ((unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W) {
-              const uint32_t v =
-                  (uint8_t)p.x[aoff[i] + ((int64_t)iy * p.W + ix) * p.Cin + ci];
-              word[j >> 2] |= v << (8 * (j & 3));
-            }
-            if (++ci == p.Cin) {
-              ci = 0;
-              if (++dj == p.KW) {
-                dj = 0;
-                ++di;
-              }
-            }
-          }
-        }
-        *reinterpret_cast<uint4*>(a + (arow + 64 * i) * LDS + chunk * 16) =
-            make_uint4(word[0], word[1], word[2], word[3]);
-      }
-    }
-    cp16(Bs[slot] + arow * LDS + chunk * 16, bok ? brow + kt * BK : p.w, bok);
-  };
+  __device__ QGather(const QConv& p_, const CUtensorMap* wmap_, const wgb::Smem<BN>& sm_,
+                     uint64_t* full_)
+      : p(p_), wmap(wmap_), sm(sm_), full(full_), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
 
-  int acc[2][4][4];
+  __device__ void start(int64_t row0, int c, int64_t k0, int64_t, int) {
+    col0 = c;
+    k_lo = k0;
+    ++units;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  const int KT = p.Kp / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s, s);
-    cp_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_wait<STAGES - 2>();
-    // the slot refilled below was read in the previous step by every warp
-    __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < KT) load(next % STAGES, next);
-    cp_commit();
-    const int8_t* a = As[kt % STAGES];
-    const int8_t* b = Bs[kt % STAGES];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[2][4], bq[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], a + (wm * 32 + i * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 16);
-      // bq[jj]: b0, b1 of n tile 2 jj, then of n tile 2 jj + 1
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        ldsm_x4(bq[jj], b + (wn * 32 + jj * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk +
-                            ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_s8(acc[i][j], af[i], bq[j >> 1][(j & 1) * 2], bq[j >> 1][(j & 1) * 2 + 1]);
-    }
-  }
-
-  const int gid = lane >> 2, tig = lane & 3;
-  const bool pairs = (p.Cout & 1) == 0;  // then a column pair is one aligned store
-  const float capf = __bfloat162float(__float2bfloat16_rn(p.cap));
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t m = m0 + wm * 32 + i * 16 + gid + h * 8;
-        const int co = n0 + wn * 32 + j * 8 + tig * 2;
-        if (m >= p.M || co >= p.Cout) continue;
-        const bool two = co + 1 < p.Cout;
-        const float v0 = dequant(p, acc[i][j][2 * h], co);
-        const float v1 = two ? dequant(p, acc[i][j][2 * h + 1], co + 1) : 0.f;
-        const int64_t at = m * p.Cout + co;
-        if (p.mode == OUT_F32) {
-          float* o = static_cast<float*>(p.out) + at;
-          if (pairs) {
-            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-          } else {
-            o[0] = v0;
-            if (two) o[1] = v1;
-          }
+    for (int i = 0; i < R; ++i) {
+      const int64_t m = row0 + rlo + NC / 8 * i;
+      off[i] = 0;
+      iy[i] = -(1 << 29);
+      ix[i] = 0;
+      if (m < p.M) {  // M < 2^31 (rt_qconv_s8): 32-bit divisions
+        const int n = (int)m / p.HoWo;
+        const int rem = (int)m - n * p.HoWo;
+        const int oy = rem / p.Wo;
+        const int x0 = p.stride * (rem - oy * p.Wo) - p.pad_left;
+        iy[i] = p.stride * oy - p.pad_top;
+        off[i] = (int64_t)n * p.H * p.W * p.Cin;
+        if constexpr (kVec) {
+          ix[i] = x0;
         } else {
-          uint16_t* o = static_cast<uint16_t*>(p.out) + at;
-          const uint16_t b0 = to_act(p, v0, capf);
-          if (pairs) {
-            *reinterpret_cast<uint32_t*>(o) = b0 | ((uint32_t)to_act(p, v1, capf) << 16);
-          } else {
-            o[0] = b0;
-            if (two) o[1] = to_act(p, v1, capf);
-          }
+          off[i] += ((int64_t)iy[i] * p.W + x0) * p.Cin;
+          const int lo = (x0 < 0 ? -x0 : 0) * p.Cin;
+          const int hi = (p.W - x0 < p.KW ? p.W - x0 : p.KW) * p.Cin;
+          ix[i] = lo << 16 | (hi > lo ? hi : lo);
         }
       }
+    }
+    k = k0 + RUN * cc;
+    if constexpr (kVec) {
+      const int tap = (int)(k / p.Cin);
+      ci = (int)(k - (int64_t)tap * p.Cin);
+      di = tap / p.KW;
+      dj = tap - di * p.KW;
+    } else {
+      di = (int)(k / p.Rp);
+      dj = (int)(k - (int64_t)di * p.Rp);
+    }
+  }
+
+  __device__ void load(int slot, int kt) {
+    uint8_t* st = sm.slot(slot);
+    const uint32_t sa = rt::tc::smem_u32(st);
+    if constexpr (kVec) {
+      const bool kin = k < p.K;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int y = iy[i] + di, xx = ix[i] + dj;
+        const bool ok = kin && (unsigned)y < (unsigned)p.H && (unsigned)xx < (unsigned)p.W;
+        const int8_t* src = ok ? p.x + off[i] + ((int64_t)y * p.W + xx) * p.Cin + ci : p.x;
+        wgb::cp16(sa + wgb::swz(rlo + NC / 8 * i, cc), src, ok);
+      }
+      for (ci += SK; ci >= p.Cin; ci -= p.Cin)
+        if (++dj == p.KW) {
+          dj = 0;
+          ++di;
+        }
+    } else {
+      const bool kin = k < p.K && di < p.KH;
+      const int64_t krow = (int64_t)di * p.W * p.Cin + dj;  // the chunk's offset in a window
+      // four rows at a time, their words all loaded before any is shifted or stored
+#pragma unroll
+      for (int i0 = 0; i0 < R; i0 += 4) {
+        uint32_t wd[4][5];
+        int vlo[4], vhi[4], sh[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = i0 + j;
+          const int y = iy[i] + di;
+          // the chunk's bytes inside the image: [vlo, vhi) of [0, 16)
+          vlo[j] = (ix[i] >> 16) - dj;
+          vhi[j] = (ix[i] & 0xffff) - dj;
+          if (!(kin && (unsigned)y < (unsigned)p.H)) vhi[j] = vlo[j];
+          // chunk byte b is x's byte at + b
+          const uintptr_t at = (uintptr_t)(p.x + off[i] + krow);
+          const uint32_t* w4 = reinterpret_cast<const uint32_t*>(at & ~(uintptr_t)3);
+          sh[j] = (int)(at & 3);
+#pragma unroll
+          for (int q = 0; q < 5; ++q) {
+            // word q holds the chunk's bytes [4q - sh, 4q - sh + 4)
+            const bool need = 4 * q - sh[j] < vhi[j] && 4 * q - sh[j] + 4 > vlo[j] &&
+                              vlo[j] < vhi[j];
+            wd[j][q] = need ? __ldg(w4 + q) : 0u;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t out[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            out[q] = keep_bytes(__funnelshift_r(wd[j][q], wd[j][q + 1], 8 * sh[j]),
+                                vlo[j] - 4 * q, vhi[j] - 4 * q);
+          *reinterpret_cast<uint4*>(st + wgb::swz(rlo + NC / 8 * (i0 + j), cc)) =
+              make_uint4(out[0], out[1], out[2], out[3]);
+        }
+      }
+      for (dj += SK; dj >= p.Rp; dj -= p.Rp) ++di;
+    }
+    k += SK;
+    if (threadIdx.x == 0) {
+      if (p.resident_b && units > 1) {  // B is in the ring since the first unit
+        rt::wg::mbar_expect_tx(&full[slot], 0);
+      } else {
+        const uint32_t bar = rt::tc::smem_u32(&full[slot]);
+        rt::wg::mbar_expect_tx(&full[slot], wgb::Tile<BN>::B_BYTES);
+        wgb::tma_2d(sa + wgb::Tile<BN>::A_BYTES, wmap, bar, (int)(k_lo + (int64_t)kt * SK),
+                    col0);
+      }
+    }
+  }
+
+  // the slot whose B region holds slice kt's: with resident_b, the first
+  // unit's slot kt (its slices took the ring's slots 0 .. nk - 1 in turn,
+  // and no later unit loads B)
+  __device__ int b_slot(int slot, int kt) const { return p.resident_b ? kt : slot; }
+
+  __device__ void fix(int = 0, int = 0) const {}
+
+  // wgb::specialized: the thread's part of a slot handed over once its
+  // copies have landed (the byte path's shared stores fenced into the async
+  // proxy first)
+  __device__ void publish(uint64_t* bar) const {
+    if constexpr (kVec) {
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                       rt::tc::smem_u32(bar))
+                   : "memory");
+    } else {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wgb::mbar_arrive(bar);
+    }
+  }
+};
+
+// Unit (row0, col0, split z)'s epilogue, acc its sum over the unit's K
+// range, run by the crew C (the 256 threads that hold the accumulators). A
+// split unit stores its int32 partial tile into ws (split z's slot of the
+// tile, each thread's values as int4 vectors, vector v of thread t at v *
+// 256 + t) and takes its tile's ticket; only the last goes on, adding the
+// other splits' partials to its own (exact in any order) and zeroing the
+// ticket. A thread whose rows are all past M stores and reads nothing (its
+// sums are 0). Then the dequantization with the unit's dq and bias columns
+// staged in `table` (loaded again only when the block's tile column moves:
+// table_col0), and bf16 through the staged tile `stage` (by TMA
+// through ymap where there is one, else in row stores) or fp32 from the
+// registers.
+template <int BN, class C>
+__device__ __forceinline__ void qconv_epilogue(const QConv& p, const CUtensorMap* ymap,
+                                               const int (&acc)[BN / 2], uint8_t* stage,
+                                               float* table, int* table_col0, int* last,
+                                               int64_t row0, int col0, int z) {
+  constexpr int NACC = BN / 2;
+  const int tid = C::tid(), warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t r0 = row0 + warp * 16 + gid;  // the thread's rows r0 and r0 + 8
+  int a[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) a[i] = acc[i];
+  if (p.splits > 1) {
+    const int tile = (int)(row0 / BM) * p.n_tiles + col0 / BN;
+    int4* part = reinterpret_cast<int4*>(p.ws) + (int64_t)tile * p.splits * (BM * BN / 4);
+    constexpr int V = NACC / 4;  // int4 vectors a thread
+    if (r0 < p.M)
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        __stcg(part + ((int64_t)z * V + v) * THREADS + tid,
+               make_int4(a[4 * v], a[4 * v + 1], a[4 * v + 2], a[4 * v + 3]));
+    __threadfence();
+    C::sync();
+    if (tid == 0) *last = atomicAdd(p.tickets + tile, 1) == p.splits - 1;
+    C::sync();
+    if (!*last) return;
+    __threadfence();
+    if (r0 < p.M)
+      for (int s2 = 0; s2 < p.splits; ++s2) {
+        if (s2 == z) continue;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int4 q = __ldcg(part + ((int64_t)s2 * V + v) * THREADS + tid);
+          a[4 * v] += q.x;
+          a[4 * v + 1] += q.y;
+          a[4 * v + 2] += q.z;
+          a[4 * v + 3] += q.w;
+        }
+      }
+    if (tid == 0) p.tickets[tile] = 0;
+  }
+  // the previous unit's tile has left the stage (its TMA store has read it)
+  if (ymap && tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  C::sync();
+  if (*table_col0 != col0) {  // the table holds another tile's columns
+    for (int c = tid; c < BN; c += THREADS) {
+      const bool in = col0 + c < p.Cout;
+      table[c] = in ? __ldg(p.dq + col0 + c) : 0.f;
+      table[BN + c] = in && p.bias ? __ldg(p.bias + col0 + c) : 0.f;
+    }
+    C::sync();
+    if (tid == 0) *table_col0 = col0;
+  }
+  const float2* dq2 = reinterpret_cast<const float2*>(table);
+  const float2* b2 = reinterpret_cast<const float2*>(table + BN);
+  const bool has_bias = p.bias != nullptr;
+  // f32(acc) * dq, + bias, each step rounded (no FMA)
+  auto deq = [&](int v, float d, float bb) {
+    const float f = __fmul_rn(__int2float_rn(v), d);
+    return has_bias ? __fadd_rn(f, bb) : f;
+  };
+  if (p.mode == OUT_F32) {
+    float* y = static_cast<float*>(p.out);
+    const bool pairs = p.Cout % 2 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t gm = r0 + 8 * h;
+      if (gm >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int gc = col0 + 8 * j + 2 * tig;
+        const float2 d = dq2[4 * j + tig], bb = b2[4 * j + tig];
+        const float v0 = deq(a[4 * j + 2 * h], d.x, bb.x);
+        const float v1 = deq(a[4 * j + 2 * h + 1], d.y, bb.y);
+        float* o = y + gm * p.Cout + gc;
+        if (pairs && gc + 1 < p.Cout) {
+          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        } else {
+          if (gc < p.Cout) o[0] = v0;
+          if (gc + 1 < p.Cout) o[1] = v1;
+        }
+      }
+    }
+    return;
+  }
+  const __nv_bfloat16 caph = __float2bfloat16_rn(p.cap);
+  const float capf = __bfloat162float(caph);
+  const uint32_t capb = __bfloat16_as_ushort(caph);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float2 d = dq2[4 * j + tig], bb = b2[4 * j + tig];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + gid + 8 * h;
+      *reinterpret_cast<uint32_t*>(stage + (j / 8) * BM * 128 + wgb::swz(r, j % 8) + 4 * tig) =
+          to_act2(p, deq(a[4 * j + 2 * h], d.x, bb.x), deq(a[4 * j + 2 * h + 1], d.y, bb.y),
+                  capf, capb);
+    }
+  }
+  if (ymap) {  // the staged tile out by TMA (rows past M and columns past Cout clipped)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    C::sync();
+    if (tid == 0) {
+#pragma unroll
+      for (int hb = 0; hb < BN / 64; ++hb)
+        asm volatile(
+            "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                (uint64_t)ymap),
+            "r"(rt::tc::smem_u32(stage + hb * BM * 128)), "r"(col0 + 64 * hb), "r"((int)row0)
+            : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    return;
+  }
+  C::sync();
+  constexpr int CH = BN / 8;  // 16-byte chunks a row
+  uint16_t* y = static_cast<uint16_t*>(p.out);
+  const bool vec = p.Cout % 8 == 0 && rt::aligned16(y);
+  const int j = tid % CH, c = col0 + 8 * j;
+#pragma unroll 4
+  for (int i = 0; i < BM * CH / THREADS; ++i) {
+    const int r = tid / CH + THREADS / CH * i;
+    const int64_t gm = row0 + r;
+    if (gm >= p.M || c >= p.Cout) continue;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(stage + (j / 8) * BM * 128 + wgb::swz(r, j % 8));
+    if (vec) {
+      *reinterpret_cast<uint4*>(y + gm * p.Cout + c) = v;
+    } else {
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c + e < p.Cout) y[gm * p.Cout + c + e] = (uint16_t)(w4[e / 2] >> (16 * (e % 2)));
+    }
+  }
+}
+
+// Q1 over the units of un on wgb::specialized: the (Cout, Kp) weight through
+// wmap, a bf16 output through ymap where `tma`
+template <int BN, bool kVec>
+__global__ void __launch_bounds__(QTile<BN>::THREADS_ALL, 1)
+qconv_kernel(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap ymap,
+             const __grid_constant__ QConv p, const wgb::Units un, int tma) {
+  constexpr int S = QTile<BN>::S, NC = QTile<BN>::NC;
+  using C = wgb::Crew<NC>;
+  extern __shared__ __align__(1024) uint8_t qconv_smem[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  __shared__ int last, table_col0;
+  const wgb::Smem<BN> sm = wgb::psmem_layout<BN, S>(qconv_smem);
+  if (threadIdx.x == 0) table_col0 = -1;
+  wgb::init_ws_barriers<S, NC>(full, empty);
+  QGather<BN, kVec, NC> blk(p, &wmap, sm, full);
+  uint8_t* stage = wgb::p_out<BN, S>(sm);
+  float* table = reinterpret_cast<float*>(sm.info);  // the unit's dq, bias columns
+  const CUtensorMap* y = tma ? &ymap : nullptr;
+  wgb::specialized<BN, S, false, wgb::OP_S8, NC>(
+      blk, sm, full, empty, un, [&](const int (&acc)[BN / 2], int64_t row0, int col0, int z) {
+        qconv_epilogue<BN, C>(p, y, acc, stage, table, &table_col0, &last, row0, col0, z);
+      });
+  if (tma) wgb::store_tma_wait<C>();
+}
+
+template <int BN, bool kVec>
+int qconv_launch(const CUtensorMap& wmap, const CUtensorMap& ymap, int tma, const QConv& p,
+                 const wgb::Units& un, cudaStream_t s) {
+  auto* kernel = qconv_kernel<BN, kVec>;
+  constexpr int smem = QTile<BN>::SMEM;
+  // the smem attribute and the SM count, once per device (bit d of ready)
+  static std::atomic<uint32_t> ready{0};
+  static int sms_of[32];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(ready.load(std::memory_order_acquire) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(1u << dev, std::memory_order_release);
+  }
+  const int64_t units = un.count();
+  kernel<<<(unsigned)(units < sms_of[dev] ? units : sms_of[dev]), QTile<BN>::THREADS_ALL, smem,
+           s>>>(wmap, ymap, p, un, tma);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ Q2
@@ -322,48 +573,81 @@ int quant_act(const T* x, int8_t* q, float inv, int64_t n, cudaStream_t s) {
 
 }  // namespace
 
-// Q1. x (N, H, W, Cin) int8; w (Cout, Kp) int8 K-major, Kp a multiple of 64
-// and at least K = KH * KW * Cin, zero beyond K; dq and bias (Cout,) fp32,
-// bias may be null; out (N, Ho, Wo, Cout) bf16 (mode 0, 1) or fp32 (mode 2).
+// Q1. x (N, H, W, Cin) int8; w (Cout, Kp) int8 K-major as quant.pack_weight
+// lays it out (KH kernel rows of Rp = KW * Cin rounded up to 16 bytes, zero
+// in the padding and from KH * Rp up to Kp, a multiple of 64), 16-byte
+// aligned; dq and bias (Cout,) fp32, bias may be null; out (N, Ho, Wo,
+// Cout) bf16 (mode 0, 1) or fp32 (mode 2). Tiles 128 x bn (64 or 128) and
+// `splits` K splits of whole 128-deep slices, none empty
+// (build.qconv_plan); with splits > 1, ws (tiles x splits x 128 x bn int32
+// partials, 16-byte aligned) and tickets (one per tile, zero; the launch
+// leaves them zero).
 extern "C" int rt_qconv_s8(const int8_t* x, const int8_t* w, const float* dq,
-                           const float* bias, void* out, int N, int H, int W, int Cin,
-                           int Cout, int KH, int KW, int stride, int pad_top, int pad_left,
-                           int Ho, int Wo, int Kp, int mode, int has_cap, float cap,
-                           void* stream) {
-  const int K = KH * KW * Cin;
-  if (N <= 0 || Ho <= 0 || Wo <= 0 || Cout <= 0 || K <= 0 || Kp < K || Kp % BK != 0 ||
-      mode < OUT_BF16 || mode > OUT_F32 || ((uintptr_t)w % 16) != 0 ||
-      (Cout + BN - 1) / BN > 65535)
+                           const float* bias, void* out, int* ws, int* tickets, int N, int H,
+                           int W, int Cin, int Cout, int KH, int KW, int stride, int pad_top,
+                           int pad_left, int Ho, int Wo, int Kp, int mode, int has_cap, float cap,
+                           int bn, int splits, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Ho <= 0 || Wo <= 0 || Cout <= 0 || KH <= 0 ||
+      KW <= 0 || stride <= 0 || mode < OUT_BF16 || mode > OUT_F32 || ((uintptr_t)w % 16) != 0 ||
+      (bn != 64 && bn != 128 && bn != 256) || (int64_t)KW * Cin >= (1 << 15))
     return (int)cudaErrorInvalidValue;
+  const int Rp = (KW * Cin + RUN - 1) / RUN * RUN;
+  const int64_t K = (int64_t)KH * Rp, M = (int64_t)N * Ho * Wo;
+  const int64_t slices = (K + SK - 1) / SK;
+  const int64_t m_tiles = (M + BM - 1) / BM, n_tiles = (Cout + bn - 1) / bn;
+  if (Kp < K || Kp % KP_ALIGN != 0 || K >= INT32_MAX || M >= INT32_MAX || splits < 1 ||
+      splits > slices ||
+      m_tiles * n_tiles * splits >= INT32_MAX || M * Cout >= ((int64_t)1 << 40))
+    return (int)cudaErrorInvalidValue;
+  const int64_t chunk = (slices + splits - 1) / splits;  // slices a split
+  if ((slices + chunk - 1) / chunk != splits ||
+      (splits > 1 && (ws == nullptr || tickets == nullptr || (uintptr_t)ws % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap, ymap;
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&ymap, 0, sizeof(ymap));
+  // a bf16 output whose rows TMA can address leaves by TMA stores
+  const int tma = mode != OUT_F32 && Cout % 8 == 0 && rt::aligned16(out);
+  int status = wgb::cached_matrix_map(&wmap, w, Cout, Kp, bn, 1);
+  if (status == 0 && tma) status = wgb::cached_matrix_map(&ymap, out, M, Cout, BM);
+  if (status != 0) return status;
   QConv p;
   p.x = x;
-  p.w = w;
   p.dq = dq;
   p.bias = bias;
   p.out = out;
-  p.M = (int64_t)N * Ho * Wo;
+  p.ws = ws;
+  p.tickets = tickets;
+  p.M = M;
   p.H = H;
   p.W = W;
   p.Cin = Cin;
   p.Cout = Cout;
+  p.KH = KH;
   p.KW = KW;
   p.stride = stride;
   p.pad_top = pad_top;
   p.pad_left = pad_left;
   p.HoWo = Ho * Wo;
   p.Wo = Wo;
-  p.K = K;
-  p.Kp = Kp;
+  p.Rp = Rp;
+  p.K = (int)K;
+  p.n_tiles = (int)n_tiles;
+  p.splits = splits;
   p.mode = mode;
   p.has_cap = has_cap;
   p.cap = cap;
-  const dim3 grid((unsigned)((p.M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
+  p.resident_b = n_tiles == 1 && splits == 1 &&
+                 slices <= (bn == 64 ? QTile<64>::S : bn == 128 ? QTile<128>::S : QTile<256>::S);
+  const wgb::Units un{m_tiles, (int)n_tiles, splits, K, chunk * SK};
+  const bool vec = Cin % 16 == 0 && rt::aligned16(x);
   cudaStream_t s = (cudaStream_t)stream;
-  if (Cin % 16 == 0 && ((uintptr_t)x % 16) == 0)
-    qconv_kernel<true><<<grid, THREADS, 0, s>>>(p);
-  else
-    qconv_kernel<false><<<grid, THREADS, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  using Launch = int (*)(const CUtensorMap&, const CUtensorMap&, int, const QConv&,
+                         const wgb::Units&, cudaStream_t);
+  static const Launch runs[3][2] = {{qconv_launch<64, false>, qconv_launch<64, true>},
+                                    {qconv_launch<128, false>, qconv_launch<128, true>},
+                                    {qconv_launch<256, false>, qconv_launch<256, true>}};
+  return runs[bn / 128][vec](wmap, ymap, tma, p, un, s);
 }
 
 // Q2 on fp32 (the images) and bf16 (every other site) inputs; q int8, n

@@ -154,6 +154,9 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
 __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
+__device__ __forceinline__ void fence_operand(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
 
 template <int BN>
 struct Mma;

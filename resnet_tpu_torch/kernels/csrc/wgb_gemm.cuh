@@ -77,6 +77,14 @@
 // slower than K8's on `mainloop` (PERF.md). With K8's units and K splits it
 // computes K8's bits.
 //
+// Q1, the int8 conv of the W8A8 serving path (qconv.cu), runs `specialized`
+// under its s8 policy (OP_S8): a slice is 128 int8 deep, still one 128-byte
+// swizzle row of A and of a K-major B, taken in four
+// wgmma.mma_async.m64nBNk32.s32.s8.s8 steps chained straight into an int32
+// accumulator (integer sums are exact in any order, so no fold). On
+// `persistent`, whose one thread stream copies and multiplies in turn, Q1
+// was slower in every case measured (PERF.md).
+//
 // Measured: PERF.md (registers and shared memory from -Xptxas -v,
 // chip_smoke.py's build phase).
 #pragma once
@@ -87,6 +95,7 @@
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "bf16_gemm.cuh"  // to_bf16, splitk_sum_bf16
 #include "wg_gemm.cuh"    // mbarriers, fence_operand, the tensor-map encoder
@@ -102,8 +111,9 @@ constexpr int ATOM = 1024;      // bytes of an 8-row swizzle atom
 
 template <int BN>
 struct Tile {
-  // 64 or 128 wide; 8, 16 or 32 (a K-major B of so many rows) on `persistent`
-  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64 || BN == 128, "BN");
+  // 64 or 128 wide; 8, 16 or 32 (a K-major B of so many rows) on
+  // `persistent`; 256 on `specialized` under its s8 policy
+  static_assert(BN == 8 || BN == 16 || BN == 32 || BN == 64 || BN == 128 || BN == 256, "BN");
   static constexpr int STAGES = BN == 64 ? 4 : 6;
   static constexpr int MIN_BLOCKS = BN == 64 ? 2 : 1;  // resident per SM
   static constexpr int NACC = BN / 2;                   // accumulator floats per thread
@@ -238,6 +248,98 @@ struct Mma<128, TA, TB> {
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
+
+// d += A * B over one k32 step of int8 operands, both K-major (wgmma takes
+// 8-bit operands K-major only), into an int32 accumulator; scale_d 0
+// overwrites d
+template <int BN>
+struct MmaS8;
+
+template <>
+struct MmaS8<64> {
+  __device__ static __forceinline__ void run(int (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<128> {
+  __device__ static __forceinline__ void run(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct MmaS8<256> {
+  __device__ static __forceinline__ void run(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+          "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+          "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+          "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+          "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+          "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+          "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+          "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+          "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+          "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+          "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+          "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 
@@ -418,7 +520,8 @@ struct Units {
   // unit u's tile, split and K columns; 32-bit divisions (the launchers keep
   // count() below 2^31; a 64-bit division is a long software sequence, and
   // a block decodes each unit twice, as copier and as consumer)
-  template <int BN>
+  // (SK: K columns a slice: BK bf16, or the s8 policy's 128 int8)
+  template <int BN, int SK = BK>
   __device__ void at(int u, int64_t& row0, int& col0, int& z, int64_t& k0, int64_t& k1,
                      int& nk) const {
     col0 = u % n_tiles * BN;
@@ -429,7 +532,7 @@ struct Units {
     z = (phases > 1 ? phase[rank] : 0) * splits + split;
     k0 = split * chunk;
     k1 = depth < k0 + chunk ? depth : k0 + chunk;
-    nk = k1 > k0 ? (int)((k1 - k0 + BK - 1) / BK) : 0;
+    nk = k1 > k0 ? (int)((k1 - k0 + SK - 1) / SK) : 0;
   }
 };
 
@@ -813,6 +916,18 @@ constexpr int COPY_REGS = 88;
 constexpr int MUL_REGS = (65536 / 32 - COPIERS / 32 * COPY_REGS) / (THREADS / 32) / 8 * 8;
 static_assert(MUL_REGS == 168 && COPIERS * COPY_REGS + THREADS * MUL_REGS <= 65536, "registers");
 
+// The same split with NC copying threads (COPIERS, or one warpgroup of
+// 128 for Q1's 256-wide tiles, whose 384 threads launch with 168 registers
+// each, so the multipliers may take 216): NC + THREADS threads in all
+template <int NC>
+struct WsRegs {
+  static_assert(NC == COPIERS || NC == 128, "one or two copying warpgroups");
+  static constexpr int COPY = NC == COPIERS ? COPY_REGS : 72;
+  static constexpr int MUL = NC == COPIERS ? MUL_REGS : 216;
+  static_assert(NC * COPY + THREADS * MUL <= (NC + THREADS) * (65536 / (NC + THREADS) / 8 * 8),
+                "the split fits the registers the block launches with");
+};
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(rt::tc::smem_u32(bar))
                : "memory");
@@ -821,12 +936,12 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // full[s] completes when the slot's TMA bytes have landed, every copier has
 // handed its part over and thread 0 has armed it; empty[s] when every
 // multiplying thread is done reading the slot
-template <int S>
+template <int S, int NC = COPIERS>
 __device__ __forceinline__ void init_ws_barriers(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      rt::wg::mbar_init(&full[s], COPIERS + 1);
+      rt::wg::mbar_init(&full[s], NC + 1);
       rt::wg::mbar_init(&empty[s], THREADS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -854,14 +969,34 @@ __device__ __forceinline__ void init_ws_barriers(uint64_t* full, uint64_t* empty
 // D < S, so the copiers never wait for a slot whose last slice they have
 // not handed over; D = S - 2 leaves a slice between a hand-over and the
 // slot's next filling (at S - 1 the two sides ran in lock step, slower).
-template <int BN, int S, bool kFix, class Block, class Epi>
+// Under OP_S8 (Q1) both operands are int8 and K-major, a slice 128 deep (K
+// counted in bytes), and the multipliers chain its four k32 wgmmas into the
+// unit's int32 accumulator (no fold); acc is int; B is read from the slot
+// blk.b_slot(slot, kt) names (a Block that keeps a weight resident in the
+// ring's B regions), else from the slot itself. NC: the copying threads
+// (WsRegs), the multipliers' from NC on.
+constexpr int OP_BF16 = 0, OP_S8 = 1;
+
+template <class Block>
+__device__ __forceinline__ auto b_slot_of(const Block& blk, int slot, int kt, int)
+    -> decltype(blk.b_slot(slot, kt)) {
+  return blk.b_slot(slot, kt);
+}
+template <class Block>
+__device__ __forceinline__ int b_slot_of(const Block&, int slot, int, long) {
+  return slot;
+}
+
+template <int BN, int S, bool kFix, int OP = OP_BF16, int NC = COPIERS, class Block, class Epi>
 __device__ __forceinline__ void specialized(Block& blk, const Smem<BN>& sm, uint64_t* full,
                                             uint64_t* empty, const Units& un, Epi&& epi) {
   using T = Tile<BN>;
+  using Acc = std::conditional_t<OP == OP_S8, int, float>;
+  constexpr int SK = OP == OP_S8 ? 2 * BK : BK;  // K columns a slice
   constexpr int D = S - 2;
   const int total = (int)un.count();
-  if (threadIdx.x < COPIERS) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(COPY_REGS));
+  if (threadIdx.x < NC) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WsRegs<NC>::COPY));
     int64_t g = 0, f = 0;  // slices issued, slices handed over (kFix)
     auto hand_over = [&]() {
       const int slot = (int)(f % S);
@@ -873,7 +1008,7 @@ __device__ __forceinline__ void specialized(Block& blk, const Smem<BN>& sm, uint
     for (int u = blockIdx.x; u < total; u += gridDim.x) {
       int64_t row0, k0, k1;
       int col0, z, nk;
-      un.at<BN>(u, row0, col0, z, k0, k1, nk);
+      un.at<BN, SK>(u, row0, col0, z, k0, k1, nk);
       blk.start(row0, col0, k0, k1, z);
       for (int kt = 0; kt < nk; ++kt, ++g) {
         const int slot = (int)(g % S);
@@ -896,35 +1031,50 @@ __device__ __forceinline__ void specialized(Block& blk, const Smem<BN>& sm, uint
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(MUL_REGS));
-  const uint32_t wg_a = ((int)threadIdx.x / 128 - COPIERS / 128) * HALF;
-  float acc[T::NACC], d[T::NACC];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WsRegs<NC>::MUL));
+  const uint32_t wg_a = ((int)threadIdx.x / 128 - NC / 128) * HALF;
+  Acc acc[T::NACC];
+  float d[T::NACC];
 #pragma unroll
   for (int i = 0; i < T::NACC; ++i) d[i] = 0.f;
   int64_t g = 0;  // slices consumed
   for (int u = blockIdx.x; u < total; u += gridDim.x) {
     int64_t row0, k0, k1;
     int col0, z, nk;
-    un.at<BN>(u, row0, col0, z, k0, k1, nk);
+    un.at<BN, SK>(u, row0, col0, z, k0, k1, nk);
 #pragma unroll
-    for (int i = 0; i < T::NACC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::NACC; ++i) acc[i] = 0;
     for (int kt = 0; kt < nk; ++kt, ++g) {
       const int slot = (int)(g % S);
       rt::wg::mbar_wait(&full[slot], (uint32_t)(g / S) & 1);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       const uint32_t base = rt::tc::smem_u32(sm.slot(slot)), b = base + T::A_BYTES;
+      if constexpr (OP == OP_S8) {
+        const uint32_t bb = rt::tc::smem_u32(sm.slot(b_slot_of(blk, slot, kt, 0))) + T::A_BYTES;
 #pragma unroll
-      for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(acc[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks)
-        Mma<BN, 0, 1>::run(d, desc_a<A_K>(base + wg_a, ks), desc(b + ks * 2 * ATOM, HALF), ks);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        for (int ks = 0; ks < SK / 32; ++ks)
+          MmaS8<BN>::run(acc, desc(base + wg_a + ks * 32, 16), desc(bb + ks * 32, 16), 1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
-      for (int i = 0; i < T::NACC; ++i) {
-        rt::wg::fence_operand(d[i]);
-        acc[i] = __fadd_rn(acc[i], d[i]);
+        for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(acc[i]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) rt::wg::fence_operand(d[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+          Mma<BN, 0, 1>::run(d, desc_a<A_K>(base + wg_a, ks), desc(b + ks * 2 * ATOM, HALF), ks);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < T::NACC; ++i) {
+          rt::wg::fence_operand(d[i]);
+          acc[i] = __fadd_rn(acc[i], d[i]);
+        }
       }
       mbar_arrive(&empty[slot]);
     }
@@ -934,43 +1084,53 @@ __device__ __forceinline__ void specialized(Block& blk, const Smem<BN>& sm, uint
 
 // ------------------------------------------------------------ host side
 
-// A bf16 tensor map of `rank` dims (dims[0] contiguous; strides in bytes of
-// dims 1..rank-1) for boxes `box`, 128-byte swizzle, zeros outside the
-// tensor. 0, or rt::wg::MAP_ERROR + libcuda's status.
-inline int map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map of `rank` dims of bf16 (bytes = 2) or int8 (bytes = 1)
+// elements (dims[0] contiguous; strides in bytes of dims 1..rank-1) for
+// boxes `box`, 128-byte swizzle, zeros outside the tensor. 0, or
+// rt::wg::MAP_ERROR + libcuda's status.
+inline int map_tiled(CUtensorMap* map, int bytes, const void* base, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const rt::wg::EncodeTiled encode = rt::wg::encode_tiled();
   if (encode == nullptr) return rt::wg::MAP_ERROR;
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                            const_cast<void*>(base), dims, strides, box, unit,
+  const CUresult r = encode(map, bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : rt::wg::MAP_ERROR + (int)r;
 }
 
-// the map of a (rows, cols) row-major bf16 matrix (cols % 8 == 0, base
-// 16-byte aligned) for boxes of 64 columns x box_rows rows: an MN-major B
-// (box_rows = BK), or a K-major A of 128-row tiles (box_rows = BM)
-inline int matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols,
-                      int box_rows = BK) {
+inline int map_bf16(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box) {
+  return map_tiled(map, 2, base, rank, dims, strides, box);
+}
+
+// the map of a (rows, cols) row-major matrix of bf16 (bytes = 2; cols % 8
+// == 0) or int8 (bytes = 1; cols % 16 == 0), base 16-byte aligned, for
+// boxes of one 128-byte swizzle row (64 bf16 or 128 int8 columns) x
+// box_rows rows: an MN-major B (box_rows = BK), a K-major A of 128-row
+// tiles (box_rows = BM), or Q1's K-major int8 weight (Cout, Kp) (box_rows
+// = the tile width)
+inline int matrix_map(CUtensorMap* map, const void* base, int64_t rows, int cols,
+                      int box_rows = BK, int bytes = 2) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return map_bf16(map, base, 2, dims, strides, box);
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / bytes), (cuuint32_t)box_rows};
+  return map_tiled(map, bytes, base, 2, dims, strides, box);
 }
 
 // matrix_map through a cache of recent maps keyed by everything a map
-// encodes (address, shape, box; not the contents), so a weight or an
-// activation seen again is not encoded again: 512 entries, 4-way sets,
-// round-robin replacement (a ResNet-50 step holds ~130 maps)
-inline int cached_matrix_map(CUtensorMap* map, const uint16_t* base, int64_t rows, int cols,
-                             int box_rows) {
+// encodes (address, shape, box, element size; not the contents), so a
+// weight or an activation seen again is not encoded again: 512 entries,
+// 4-way sets, round-robin replacement (a ResNet-50 step holds ~130 maps)
+inline int cached_matrix_map(CUtensorMap* map, const void* base, int64_t rows, int cols,
+                             int box_rows, int bytes = 2) {
   struct Entry {
-    const uint16_t* base;
+    const void* base;
     int64_t rows;
-    int cols, box_rows;
+    int cols, box_rows, bytes;
     CUtensorMap map;
   };
   constexpr int SETS = 128, WAYS = 4;
@@ -978,18 +1138,19 @@ inline int cached_matrix_map(CUtensorMap* map, const uint16_t* base, int64_t row
   static uint8_t next[SETS];
   static std::mutex mu;
   uint64_t h = (uint64_t)(uintptr_t)base ^ (uint64_t)rows << 20 ^ (uint64_t)cols << 40 ^
-               (uint64_t)box_rows << 58;
+               (uint64_t)box_rows << 58 ^ (uint64_t)bytes << 62;
   h *= 0x9E3779B97F4A7C15ull;
   const int set = (int)(h >> 57);  // the top 7 bits
   std::lock_guard<std::mutex> lock(mu);
   for (Entry& e : cache[set])
-    if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows) {
+    if (e.base == base && e.rows == rows && e.cols == cols && e.box_rows == box_rows &&
+        e.bytes == bytes) {
       *map = e.map;
       return 0;
     }
-  const int status = matrix_map(map, base, rows, cols, box_rows);
+  const int status = matrix_map(map, base, rows, cols, box_rows, bytes);
   if (status == 0) {
-    cache[set][next[set]] = Entry{base, rows, cols, box_rows, *map};
+    cache[set][next[set]] = Entry{base, rows, cols, box_rows, bytes, *map};
     next[set] = (uint8_t)((next[set] + 1) % WAYS);
   }
   return status;

@@ -17,10 +17,19 @@ windows (``ops.padding``), then ``f32(acc) * dq + bias`` rounded step by
 step (``dq = ws * scale`` in fp32, as JAX orders it), then either bf16
 (with ReLU and an optional cap on the bf16 value) or fp32 (the FC's
 logits, ``out_dtype=torch.float32``). The kernel reads the weight as
-``pack_weight`` lays it out: (Cout, Kp) K-major, zero beyond K up to a
-multiple of ``BK``; a caller that serves many batches packs it once
-(``quantize.prepare_sites``), passes it as ``wk`` and, as ``w``, its view
-``unpack_weight(wk, (kh, kw, Cin))``, which only the plain version reads.
+``pack_weight`` lays it out: (Cout, Kp) K-major, each output channel's kh
+kernel rows of kw * Cin bytes ((dj, ci) order) padded to a multiple of
+``RUN`` bytes (so a 16-byte chunk of the kernel's A is one contiguous run
+of x: the stem's 21-byte rows take 32), zero in the padding and from K = kh
+* Rp up to Kp, a multiple of ``BK``; it reads A in the same K order,
+``build.QC_SLICE`` bytes a step. Where Cin % 16 == 0 the rows need no
+padding and K is the plain (di, dj, ci) order. A caller that serves many batches packs
+the weight once (``quantize.prepare_sites``), passes it as ``wk`` and, as
+``w``, its view ``unpack_weight(wk, (kh, kw, Cin))``, which only the plain
+version reads. The kernel's tile width and K splits are
+``build.qconv_plan``'s, a function of the shapes; split partials and
+tile tickets come from the scratch that K4 and K6 keep per (device,
+stream) (``bn._workspace``), whose tickets the kernel leaves zero.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises (a grouped conv raises NotImplementedError,
@@ -43,13 +52,14 @@ import torch
 from ..config import ROADMAP_GROUPED, not_ported
 from ..ops.conv import conv2d
 from ..ops.padding import reference_padding
-from . import build
+from . import bn, build
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
 ACT_LAUNCHES = 0
 
-BK = 64  # qconv.cu's K step: the packed weight's rows are padded to it
+BK = 64  # the packed weight's rows are a multiple of it (qconv.cu KP_ALIGN)
+RUN = 16  # a kernel row's bytes in K are padded to a multiple of it (qconv.cu RUN)
 QMAX = 127
 # |acc| <= 127 * 127 * K must fit int32
 MAX_K = (2 ** 31 - 1) // (QMAX * QMAX)
@@ -114,19 +124,33 @@ def qconv_reference(xq, w, dq, bias=None, *, stride=1, groups=1, relu=False, cap
                               relu=relu, cap=cap, out_dtype=out_dtype)
 
 
-def padded_k(k: int) -> int:
-    """K rounded up to whole K steps of the kernel."""
-    return -(-k // BK) * BK
+def row_bytes(kw: int, cin: int) -> int:
+    """A kernel row's bytes in the packed K: kw * Cin rounded up to RUN."""
+    return -(-kw * cin // RUN) * RUN
+
+
+def packed_k(kshape) -> int:
+    """The K the kernel sums over for a (kh, kw, Cin) weight: kh kernel rows
+    of ``row_bytes``."""
+    kh, kw, cin = kshape
+    return kh * row_bytes(kw, cin)
+
+
+def padded_k(kshape) -> int:
+    """The packed weight's row length Kp: ``packed_k`` rounded up to BK."""
+    return -(-packed_k(kshape) // BK) * BK
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
     """An HWIO int8 weight (kh, kw, Cin, Cout) as the kernel reads it:
-    (Cout, Kp) with row co = w[..., co] in (di, dj, ci) order, zero from K =
-    kh * kw * Cin up to Kp = ``padded_k(K)``."""
+    (Cout, Kp) with row co = kernel row di of w[..., co] ((dj, ci) order)
+    at di * Rp (Rp = ``row_bytes``), zero in each row's padding and from kh
+    * Rp up to Kp = ``padded_k``."""
     kh, kw, cin, cout = w.shape
-    k = kh * kw * cin
-    out = torch.zeros((cout, padded_k(k)), dtype=torch.int8, device=w.device)
-    out[:, :k] = w.reshape(k, cout).t()
+    rp = row_bytes(kw, cin)
+    out = torch.zeros((cout, padded_k((kh, kw, cin))), dtype=torch.int8, device=w.device)
+    rows = out[:, :kh * rp].view(cout, kh, rp)
+    rows[:, :, :kw * cin] = w.reshape(kh, kw * cin, cout).permute(2, 0, 1)
     return out
 
 
@@ -134,7 +158,9 @@ def unpack_weight(wk: torch.Tensor, kshape) -> torch.Tensor:
     """``pack_weight``'s inverse as a view of ``wk``: the HWIO weight
     (kh, kw, Cin, Cout), ``kshape`` = (kh, kw, Cin)."""
     kh, kw, cin = kshape
-    return wk[:, :kh * kw * cin].t().view(kh, kw, cin, wk.shape[0])
+    rp, cout = row_bytes(kw, cin), wk.shape[0]
+    rows = wk[:, :kh * rp].view(cout, kh, rp)[:, :, :kw * cin]
+    return rows.view(cout, kh, kw, cin).permute(1, 2, 3, 0)
 
 
 def _check(xq, w, dq, bias, out_dtype, relu, cap):
@@ -174,22 +200,34 @@ def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
     if k > MAX_K:
         raise ValueError(f"qconv: K = {k} exceeds {MAX_K}: 127 * 127 * K would overflow int32")
     wk = pack_weight(w) if wk is None else wk
-    if (wk.dtype != torch.int8 or tuple(wk.shape) != (cout, padded_k(k))
+    kk = packed_k((kh, kw, cin))
+    kp = -(-kk // BK) * BK
+    if (wk.dtype != torch.int8 or tuple(wk.shape) != (cout, kp)
             or not wk.is_contiguous() or wk.device != xq.device or not build.aligned16(wk)):
         raise ValueError(f"qconv: wk must be the contiguous, 16-byte aligned int8 "
-                         f"({cout}, {padded_k(k)}) of pack_weight(w)")
-    pad_top, _ = reference_padding(h, kh, stride)
-    pad_left, _ = reference_padding(wd, kw, stride)
+                         f"({cout}, {kp}) of this tree's pack_weight(w), got "
+                         f"{tuple(wk.shape)}; re-pack the HWIO weight (or export the model "
+                         f"again) rather than reuse a packed weight of another layout")
     ho, wo = h // stride, wd // stride
     out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
     if out.numel():
         global LAUNCHES
-        mode = 2 if out_dtype == torch.float32 else int(relu)
+        m = n * ho * wo
+        tile_n, splits = build.qconv_plan(m, cout, kk)
+        part = tickets = None  # held until the launch is enqueued
+        if splits > 1:
+            index = xq.device.index
+            tiles = -(-m // build.QC_BM) * -(-cout // tile_n)
+            part, tickets = bn._workspace(index, tiles * splits * build.QC_BM * tile_n, tiles,
+                                          torch._C._cuda_getCurrentRawStream(index))
         build.launch("rt_qconv_s8", xq.data_ptr(), wk.data_ptr(), dq.data_ptr(),
-                     None if bias is None else bias.data_ptr(), out.data_ptr(), n, h, wd,
-                     cin, cout, kh, kw, stride, pad_top, pad_left, ho, wo, wk.shape[1],
-                     mode, cap is not None, 0.0 if cap is None else float(cap),
-                     device=xq.device)
+                     None if bias is None else bias.data_ptr(), out.data_ptr(),
+                     None if part is None else part.data_ptr(),
+                     None if tickets is None else tickets.data_ptr(),
+                     n, h, wd, cin, cout, kh, kw, stride, reference_padding(h, kh, stride)[0],
+                     reference_padding(wd, kw, stride)[0], ho, wo, kp,
+                     2 if out_dtype == torch.float32 else int(relu), cap is not None,
+                     0.0 if cap is None else float(cap), tile_n, splits, device=xq.device)
         LAUNCHES += 1
     return out
 

@@ -17,8 +17,9 @@ K1's bf16 forward on that core's persistent kernel and K3's one-launch bf16
 backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``, K1's bf16 dx and K3's
 bf16 forward on the same persistent kernel, with the witnesses of their bits
 through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``, the int8
-serving kernels (Q1, Q2; each bit for bit against its plain version, and a
-quantized ResNet-50 forward at batch 8 against the plain int8 forward) with
+serving kernels (Q1, Q2; each bit for bit against its plain version, Q1
+also on the shapes its tiles and K splits must get right, and a quantized
+ResNet-50 forward at batch 8 against the plain int8 forward) with
 ``-k "qconv or quant_act or quantized"``.
 
 Without a CUDA device every test here skips.
@@ -1349,3 +1350,151 @@ def test_quantized_resnet50_forward_is_its_plain_version_on_cuda(cuda):
     want = quantize.forward_sites(sites, x, mcfg, plain=True)
     assert (quant.LAUNCHES - before[0], quant.ACT_LAUNCHES - before[1]) == (54, 54)
     assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+# Q1 (kernels.quant.qconv) on the shapes its design must get right: label,
+# (batch, H, Cin, Cout, k, stride), a (tile width, splits) plan or None for
+# the planners', x's byte offset, the output dtype, relu, cap
+QCONV_EXACT = [
+    ("K of one slice: 1x1 128->64", (4, 9, 128, 64, 1, 1), None, 0, "bf16", True, None),
+    ("36 slices in 8 splits, the last short", (2, 7, 512, 256, 3, 1), (128, 8), 0, "bf16",
+     True, 6.0),
+    ("M below 64 (25 rows), the planners' splits", (1, 5, 256, 128, 3, 1), None, 0, "bf16",
+     True, None),
+    ("Cout 33, 3x3/s2", (2, 10, 64, 33, 3, 2), None, 0, "bf16", True, None),
+    ("Cout 1000, fp32: the FC at batch 3", (3, 1, 2048, 1000, 1, 1), None, 0, "f32", False,
+     None),
+    ("misaligned x: the byte path at Cin 64", (2, 8, 64, 128, 3, 1), None, 1, "bf16", False,
+     None),
+    ("the stem at batch 1", (1, 224, 3, 64, 7, 2), None, 0, "bf16", True, None),
+    ("128-wide tiles in 3 splits, Cout 320", (2, 14, 256, 320, 3, 1), (128, 3), 0, "bf16",
+     False, None),
+    ("64-wide tiles, every slice a split", (1, 7, 256, 128, 3, 1), (64, 18), 0, "bf16", True,
+     None),
+    ("256-wide tiles in 3 splits, Cout 320", (2, 14, 256, 320, 3, 1), (256, 3), 0, "bf16",
+     False, None),
+    ("256-wide tiles on the byte path, Cout 300", (2, 8, 64, 300, 3, 1), (256, 1), 1, "bf16",
+     True, None),
+    ("B kept in the ring: 313 tiles of one column", (4, 100, 64, 64, 3, 1), None, 0, "bf16",
+     True, None),
+    ("B kept in the ring on the byte path", (4, 100, 64, 64, 3, 1), (64, 1), 1, "bf16", False,
+     None),
+]
+
+
+@pytest.mark.parametrize("case", QCONV_EXACT, ids=[c[0] for c in QCONV_EXACT])
+def test_qconv_is_its_plain_version_bit_for_bit(cuda, monkeypatch, case):
+    """Q1 equals qconv_reference bit for bit on each shape, twice, under
+    build.qconv_plan's plan or the one named, and leaves its split tickets
+    zero."""
+    from resnet_tpu_torch.kernels import bn, build, quant
+
+    _, (n, h, cin, cout, k, s), plan, offset, out, relu, cap = case
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flat = torch.randint(-127, 128, (n * h * h * cin + offset,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    xq = flat[offset:].view(n, h, h, cin)
+    assert (xq.data_ptr() % 16 != 0) == (offset != 0)
+    w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    dq = (torch.rand(cout, generator=gen, device="cuda") + 0.5) * (4.0 / (127 * 127 * (k * k * cin) ** 0.5))
+    b = torch.randn(cout, generator=gen, device="cuda")
+    kw = dict(stride=s, relu=relu, cap=cap,
+              out_dtype=torch.float32 if out == "f32" else torch.bfloat16)
+    want = quant.qconv_reference(xq, w, dq, b, **kw)
+    wk = quant.pack_weight(w)
+    if plan is not None:
+        monkeypatch.setattr(build, "qconv_plan", lambda m, n, k: plan)
+    for _ in range(2):
+        before = quant.LAUNCHES
+        got = quant.qconv(xq, w, dq, b, wk=wk, **kw)
+        assert quant.LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    for _, tickets in bn._WORKSPACES.values():
+        assert not tickets.any()
+
+
+def _qconv_operands(gen, n, h, cin, cout):
+    xq = torch.randint(-127, 128, (n, h, h, cin), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    w = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    return xq, w, torch.rand(cout, generator=gen, device="cuda") * 1e-5 + 1e-6
+
+
+def test_qconv_split_launches_of_growing_tile_counts_share_the_scratch(cuda, monkeypatch):
+    """Split launches on one stream share one scratch: after a launch of few
+    tiles whose partials fill the scratch, one of more tiles (more tickets)
+    still counts from zero and gives the plain version's bits."""
+    from resnet_tpu_torch.kernels import bn, build, quant
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for n, h, cin, cout, plan in ((1, 7, 512, 64, (64, 4)), (8, 7, 512, 512, (64, 4)),
+                                  (1, 7, 512, 64, (64, 9)), (8, 14, 256, 512, (128, 3))):
+        xq, w, dq = _qconv_operands(gen, n, h, cin, cout)
+        monkeypatch.setattr(build, "qconv_plan", lambda m, n, k: plan)
+        got = quant.qconv(xq, w, dq, relu=True)
+        assert torch.equal(got, quant.qconv_reference(xq, w, dq, relu=True))
+    for _, tickets in bn._WORKSPACES.values():
+        assert not tickets.any()
+
+
+def test_qconv_split_calls_from_two_threads_that_grow_the_scratch(cuda, monkeypatch):
+    """Two threads on one stream, as the HTTP server's are: one makes split
+    calls of one tile while the other makes split calls of ever more tiles,
+    each of which grows the stream's scratch. Each call holds the scratch it
+    launched on, so no freed block is reused under a queued launch: every
+    output is the plain version's bits."""
+    import threading
+
+    from resnet_tpu_torch.kernels import bn, build, quant
+
+    monkeypatch.setattr(bn, "_WORKSPACES", {})
+    planner = build.qconv_plan
+    plans = {(49, 64): (64, 4), **{(49 * n, 512): (64, 9) for n in (1, 4, 8, 16, 32)}}
+    monkeypatch.setattr(build, "qconv_plan", lambda m, n, k: plans.get((m, n))
+                        or planner(m, n, k))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    small = [_qconv_operands(gen, 1, 7, 512, 64) for _ in range(2)]
+    growing = [_qconv_operands(gen, n, 7, 512, 512) for n in (1, 4, 8, 16, 32)]
+    want = [quant.qconv_reference(xq, w, dq, relu=True) for xq, w, dq in small + growing]
+    got, errors = {}, []
+
+    def run(key, operands, repeats):
+        try:
+            for r in range(repeats):
+                for i, (xq, w, dq) in enumerate(operands):
+                    got[key, r, i] = quant.qconv(xq, w, dq, relu=True)
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=("small", small, 40)),
+               threading.Thread(target=run, args=("growing", growing, 1))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for (key, _, i), out in got.items():
+        assert torch.equal(out, want[i if key == "small" else len(small) + i]), (key, i)
+    assert len(got) == 40 * len(small) + len(growing)
+    for _, tickets in bn._WORKSPACES.values():
+        assert not tickets.any()
+
+
+@pytest.mark.parametrize("cin", [240, 256])
+def test_qconv_extreme_accumulators(cuda, cin):
+    """Every product at (-128) * (-128) or (-128) * 127: the largest
+    accumulators a K of 240 and of 256 (2^22) can reach, positive and
+    negative, equal the plain version bit for bit in bf16 and fp32."""
+    from resnet_tpu_torch.kernels import quant
+
+    xq = torch.full((2, 16, 16, cin), -128, dtype=torch.int8, device="cuda")
+    xq[1] = 127
+    w = torch.full((1, 1, cin, 64), -128, dtype=torch.int8, device="cuda")
+    dq = torch.linspace(1e-7, 1e-5, 64, device="cuda")
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = quant.qconv(xq, w, dq, out_dtype=out_dtype)
+        assert torch.equal(got, quant.qconv_reference(xq, w, dq, out_dtype=out_dtype))

@@ -52,7 +52,7 @@ from resnet_tpu_torch.export import (
     load_inference,
     save_inference,
 )
-from resnet_tpu_torch.kernels import build, quant
+from resnet_tpu_torch.kernels import bn, build, quant
 from resnet_tpu_torch.models import forward
 
 FOLD_TOL = 1e-6
@@ -280,27 +280,81 @@ def test_quantize_model_tracks_its_folded_forward(model):
 
 
 def test_pack_weight_is_k_major_and_zero_padded():
+    """The stem's weight packed as Q1 reads it: each of its 7 kernel rows'
+    21 bytes ((dj, ci) order) padded to 32, so K = 224, then zero up to
+    Kp = 256; unpack_weight gives the HWIO weight back as a view."""
     w = torch.arange(7 * 7 * 3 * 5, dtype=torch.int32).remainder(255).sub(127)
     w = w.to(torch.int8).view(7, 7, 3, 5)
     wk = quant.pack_weight(w)
-    assert wk.shape == (5, 192) and wk.dtype == torch.int8  # K = 147 -> 3 steps of 64
+    assert quant.row_bytes(7, 3) == 32 and quant.packed_k((7, 7, 3)) == 224
+    assert wk.shape == (5, 256) and wk.dtype == torch.int8  # 224 -> 4 multiples of 64
     for co in range(5):
-        assert torch.equal(wk[co, :147], w[..., co].reshape(-1))
-    assert not wk[:, 147:].any()
+        for di in range(7):
+            assert torch.equal(wk[co, 32 * di:32 * di + 21], w[di, ..., co].reshape(-1))
+            assert not wk[co, 32 * di + 21:32 * di + 32].any()
+    assert not wk[:, 224:].any()
     # unpack_weight is its inverse, a view of wk
     back = quant.unpack_weight(wk, (7, 7, 3))
     assert torch.equal(back, w) and back.untyped_storage().data_ptr() == wk.data_ptr()
 
 
+@pytest.mark.parametrize("kshape", [(1, 1, 64), (3, 3, 64), (1, 1, 2048), (3, 3, 512),
+                                    (1, 1, 3), (3, 3, 3), (2, 3, 5)])
+def test_pack_weight_rows(kshape):
+    """Where Cin % 16 == 0 the packed K is the plain (di, dj, ci) order with
+    no padding (ResNet-50's every site but the stem); otherwise each kernel
+    row is padded to 16 bytes. Either way unpack_weight inverts it."""
+    kh, kw, cin = kshape
+    w = torch.randint(-127, 128, (*kshape, 24), generator=torch.Generator().manual_seed(1),
+                      dtype=torch.int8)
+    wk = quant.pack_weight(w)
+    k = kh * kw * cin
+    assert wk.shape == (24, quant.padded_k(kshape)) and wk.shape[1] % quant.BK == 0
+    assert quant.packed_k(kshape) == kh * -(-kw * cin // 16) * 16
+    if cin % 16 == 0:
+        assert quant.packed_k(kshape) == k
+        assert torch.equal(wk[:, :k], w.reshape(k, 24).t())
+    assert int(wk.ne(0).sum()) == int(w.ne(0).sum())  # the padding is zero
+    assert torch.equal(quant.unpack_weight(wk, kshape), w)
+
+
+def test_qconv_constants_mirror_the_source():
+    """The wrapper's and the planner's view of qconv.cu: a kernel row's
+    padding, the packed row's multiple, the slice depth and tile height."""
+    src = (build.CSRC / "qconv.cu").read_text()
+    assert f"constexpr int RUN = {quant.RUN};" in src
+    assert f"constexpr int KP_ALIGN = {quant.BK};" in src
+    assert "constexpr int SK = 2 * wgb::BK;" in src and build.QC_SLICE == 2 * build.WGB_BK
+    assert "constexpr int BM = wgb::BM;" in src and build.QC_BM == build.WGB_BM
+
+
+def test_qconv_refuses_a_packed_weight_of_the_old_layout(monkeypatch):
+    """A packed stem weight of the layout before kernel rows were padded
+    ((Cout, 192): K = 147 in the plain order, zero up to 192) is refused,
+    with a message saying to re-pack it or export the model again; files
+    written by save_inference hold the HWIO weight and pack it at load."""
+    monkeypatch.setattr(quant, "_on_card", lambda *a: True)
+    monkeypatch.setattr(build, "launch", lambda *a, **k: pytest.fail("launched"))
+    xq = torch.zeros(1, 32, 32, 3, dtype=torch.int8)
+    w = torch.ones(7, 7, 3, 8, dtype=torch.int8)
+    old = torch.zeros(8, 192, dtype=torch.int8)
+    old[:, :147] = w.reshape(147, 8).t()
+    with pytest.raises(ValueError, match="export the model"):
+        quant.qconv(xq, w, torch.ones(8), stride=2, wk=old)
+
+
 def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     """On a card the wrappers call their C entries with build.SIGNATURES'
     arguments: the stem's reference padding (3, 2) as pad_top/left 3, the
-    packed weight's row length, the mode and the cap; Q2 its inverse scale.
-    Recorded here with the launch replaced."""
+    packed weight's row length, the mode and the cap, build.qconv_plan's
+    tile width and K splits, and for a split launch the partials and
+    zeroed tickets of the stream's scratch (``bn._workspace``); Q2 its
+    inverse scale. Recorded here with the launch replaced."""
     calls = []
     monkeypatch.setattr(quant, "_on_card", lambda *a: True)
     monkeypatch.setattr(build, "on_card", lambda *a, **k: True)
     monkeypatch.setattr(build, "launch", lambda name, *args, device: calls.append((name, args)))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
     xq = torch.zeros(2, 224, 224, 3, dtype=torch.int8)
     w = torch.zeros(7, 7, 3, 64, dtype=torch.int8)
     dq, b = torch.ones(64), torch.zeros(64)
@@ -309,11 +363,23 @@ def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     assert out.shape == (2, 112, 112, 64) and out.dtype == torch.bfloat16
     name, args = calls[-1]
     assert name == "rt_qconv_s8" and len(args) + 1 == len(build.SIGNATURES[name])
-    assert args[5:] == (2, 224, 224, 3, 64, 7, 7, 2, 3, 3, 112, 112, 192, 1, True, 6.0)
+    # 2 x 112^2 rows on 196 tiles of 128 x 64 fill the card: no split, no scratch
+    assert args[5:7] == (None, None)
+    assert args[7:] == (2, 224, 224, 3, 64, 7, 7, 2, 3, 3, 112, 112, 256, 1, True, 6.0,
+                        *build.qconv_plan(25088, 64, 224)) and args[-2:] == (64, 1)
     assert quant.LAUNCHES == before + 1
     quant.qconv(xq[:, :1, :1, :].contiguous().view(2, 1, 1, 3), w[:1, :1].contiguous(), dq,
                 None, out_dtype=torch.float32)
-    assert calls[-1][1][3] is None and calls[-1][1][-3:] == (2, False, 0.0)
+    assert calls[-1][1][3] is None and calls[-1][1][-5:] == (2, False, 0.0, 64, 1)
+    # the FC at batch 8: 16 tiles of 128 x 64, its 16 slices in 8 splits
+    part, tickets = torch.empty(16 * 8 * 128 * 64), torch.zeros(16, dtype=torch.int32)
+    monkeypatch.setitem(bn._WORKSPACES, (None, 7), [part, tickets])
+    xf = torch.zeros(8, 1, 1, 2048, dtype=torch.int8)
+    wf = torch.zeros(1, 1, 2048, 1000, dtype=torch.int8)
+    quant.qconv(xf, wf, torch.ones(1000), torch.zeros(1000), out_dtype=torch.float32)
+    args = calls[-1][1]
+    assert args[5:7] == (part.data_ptr(), tickets.data_ptr()) and args[-2:] == (64, 8)
+    assert all(a is b for a, b in zip(bn._WORKSPACES[(None, 7)], (part, tickets)))
     before = quant.ACT_LAUNCHES
     quant.quant_act(torch.zeros(4, 8, dtype=torch.bfloat16), 0.5)
     name, args = calls[-1]
@@ -333,6 +399,48 @@ def test_qconv_rejects_what_the_kernel_does_not_take():
         quant.qconv(xq.float(), w, dq)
     with pytest.raises(ValueError):
         quant.qconv(xq, w, dq.double())
+
+
+# (label, m, n, k, split): ResNet-50 sites (m pixels, n = Cout, k =
+# quant.packed_k) whose tiles alone leave most of the card idle, where the
+# plan must split K (split True), and others
+PLAN_SHAPES = [
+    ("stage 4 3x3 batch 8", 392, 512, 4608, True), ("stage 4 3x3 batch 1", 49, 512, 4608, True),
+    ("stage 4 proj batch 8", 392, 2048, 9216, True),
+    ("stage 4 proj batch 1", 49, 2048, 9216, True),
+    ("stage 4 reduce batch 8", 392, 512, 2048, True), ("fc batch 8", 8, 1000, 2048, True),
+    ("fc batch 1", 1, 1000, 2048, True), ("stage 4 expand batch 1", 49, 2048, 512, None),
+    ("stem batch 8", 100352, 64, 224, None), ("stem batch 1", 12544, 64, 224, None),
+    ("stage 1 expand batch 128", 401408, 256, 64, False), ("one slice", 300, 64, 128, False),
+]
+
+
+@pytest.mark.parametrize("label,m,n,k,split", PLAN_SHAPES, ids=[s[0] for s in PLAN_SHAPES])
+def test_qconv_plan(label, m, n, k, split):
+    """build.qconv_plan: a tile width of 64, 128 or 256 and K splits of whole
+    128-deep slices, none empty, the least of its documented cost over
+    every such candidate (the wider tile, then fewer splits, on a tie), a
+    function of the shapes alone (cached); on the stage-4 sites and the FC
+    at batches 8 and 1 it splits K, so they run on more SMs than their
+    tiles (one slice cannot split)."""
+    tile_n, splits = build.qconv_plan(m, n, k)
+    slices = -(-k // build.QC_SLICE)
+    chunk = -(-slices // splits)
+    assert tile_n in (64, 128, 256) and 1 <= splits <= slices and -(-slices // chunk) == splits
+    assert build.qconv_plan(m, n, k) == (tile_n, splits) and build.qconv_plan.cache_info().hits
+
+    def cost(tile_n, splits):
+        tiles = -(-m // build.QC_BM) * -(-n // tile_n)
+        c = -(-tiles * splits // build._SMS) * (
+            -(-slices // splits) * build.QC_SLICE_COST[tile_n] + build.QC_UNIT_COST[tile_n])
+        return c + (splits * m * n * build.QC_PARTIAL_COST if splits > 1 else 0)
+    every = [(cost(b, s), -b, s) for b in (64, 128, 256)
+             for s in {-(-slices // c) for c in range(1, slices + 1)}]
+    assert min(every) == (cost(tile_n, splits), -tile_n, splits)
+    if split is not None:
+        assert (splits > 1) == split
+    if slices == 1:
+        assert splits == 1
 
 
 @pytest.fixture(scope="module")
