@@ -202,6 +202,25 @@ Phases, each printing one JSON line:
      the fp32 folded forward, the int8 and the bf16 hand-kernel served
      forwards at batches 8 and 128 in turns, and the device time of one
      batch-128 int8 forward split into Q1, Q2 and the rest.
+ 14. configs: what JAX runs that the phases above do not, at full width.
+     ResNeXt-50 32x4d at 224, batch 32, on the hand kernels (its 16
+     grouped 3x3s on the plain conv, as JAX sends them to XLA): 5 fp32
+     steps with the counters read after each (37 conv, 36 dx, 37 dW, 53
+     moments, 16 + 16 join, 1 + 1 matmul, 1 adam), one held to the plain
+     step by phase 6's rule and the frozen-BN gradients by phase 5's; 5
+     bf16 steps (the same counts on the bf16 entries), one held to the plain
+     bf16 step by phase 11's rule. ResNeXt-50 served in int8 over HTTP as
+     phase 13 serves ResNet-50: each request exactly 38 Q1, 16 Q3 (the
+     grouped int8 conv) and 54 Q2, the logits the plain int8 forward's bit
+     for bit, the Pearson correlation with the fp32 folded forward. ResNet-50
+     at JAX's headline configuration (BENCH_r05.json: batch 256, bf16, the
+     standard topology, grad_accum 2, space_to_depth) on the hand kernels: 5
+     steps with the counters read after each (two microbatches, the folded
+     stem on the plain conv: 104 conv, 104 dx, 104 dW, 106 moments, 32 + 32
+     join, 2 + 2 matmul on the bf16 entries, 1 adam), one held to the plain
+     s2d step by phase 11's rule; an fp32 s2d stem against the 7x7 stem at
+     that batch within JAX's tolerances for the two (outputs rtol 1e-4,
+     gradients 1e-3). Each path's steps timed (median of 5).
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
@@ -219,8 +238,11 @@ outputs' bits, so that two trees run in turns are held to the same bits by
 their lines; K10 in bf16 stage by stage, each stage's plain
 version on the kernel's own inputs to it (an intermediate one bf16 ulp
 apart moves the next stage by that ulp times the following BN's scale).
-Phase 3 also holds the int8 kernels bit for bit to their plain versions
-(max_abs_err 0): Q1 at every distinct conv shape of ResNet-50 at batch 8
+Phase 3 also holds Q3 bit for bit to its plain version at every distinct
+grouped site of both ResNeXt presets at batch 8 and ResNeXt-50's at 128, a
+capped site and a ragged one (no yardstick: no one PyTorch call computes a
+grouped int8 conv), and the other int8 kernels bit for bit to their plain
+versions (max_abs_err 0): Q1 at every distinct conv shape of ResNet-50 at batch 8
 with its site's epilogue, the FC with fp32 logits, a capped site, a 1x1/s2
 projection, a ragged one (Cin 3, Cout 33) and, reported apart, stage 4's
 3x3 at batch 1, twice to the same bits, each line with Q1's launch plan
@@ -231,7 +253,7 @@ torch._int_mm (the integer product alone) on every case it takes (M > 16,
 N a multiple of 8; an im2col of x made outside the timed call, K padded
 to a multiple of 8).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 13 together, every kernel launched on at least one of them; ms,
+phases 4 to 14 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases; where the yardstick takes only some cases,
 ``library_covered`` sums those; Q1's ``apart`` and ``rest`` sum its batch-1
@@ -247,7 +269,8 @@ runs phases 1-3 for those kernels only, without the launch plans and the
 weight split, and prints no final line: copied with kernels/checks.py into another tree of
 the package, it times that tree's kernels on this tree's cases. With
 --phases NAMES (serve, train, fused_train, blockfused_train,
-batch_norm_act, remat_train, trainer, presets, bf16_engines, int8_serve) it runs
+batch_norm_act, remat_train, trainer, presets, bf16_engines, int8_serve,
+configs) it runs
 phases 1-2 and those phases only, with no final line: copied into another
 tree, it times and profiles that tree's steps the way this one does.
 """
@@ -301,6 +324,8 @@ KERNEL_SOURCES.update({f"{name}_bf16": KERNEL_SOURCES[name] for name in (
 # and _quant_act
 KERNEL_SOURCES.update({
     "qconv": (CSRC + "qconv.cu", "resnet_tpu/quantize.py:218"),
+    # Q3: _qconv with feature_group_count (quantize.py:218-238)
+    "qconv_grouped": (CSRC + "qconv.cu", "resnet_tpu/quantize.py:218"),
     "quant_act": (CSRC + "qconv.cu", "resnet_tpu/quantize.py:213"),
 })
 # launches of each kernel in one ResNet-50 forward: 1 stem + 16*3 block
@@ -312,6 +337,13 @@ PER_FORWARD = {"conv2d": 53, "add_relu": 16, "matmul": 1}
 INT8_PER_FORWARD = {"qconv": 54, "quant_act": 54}
 # the int8 phase's timed batches
 INT8_TIMED_BATCHES = (8, 128)
+# phase 14: ResNeXt-50 32x4d, whose 16 grouped 3x3s run the plain conv
+# under conv_kernels='pallas' (as JAX sends them to XLA) and Q3 in int8
+RESNEXT = "resnext50_32x4d"
+RESNEXT_INT8_PER_FORWARD = {"qconv": 54 - 16, "qconv_grouped": 16, "quant_act": 54}
+# ... and ResNet-50 at JAX's headline configuration (BENCH_r05.json): batch
+# 256 in grad_accum 2 microbatches, bf16, the standard topology, s2d
+S2D_BATCH, S2D_ACCUM = 256, 2
 # ... and in one training step: no dx for the stem (the images need none);
 # one BN per conv; the FC's da and db in one launch; one Adam launch over
 # all tensors
@@ -349,6 +381,8 @@ ELEMENTWISE_PER_STEP = dict(PER_STEP, add_relu=16 + 16)
 BLOCKFUSED_REMAT_PER_STEP = {"block_fused": 12 + 12, "adam": 1}
 # ... ghost BN: its statistics are plain torch ops, K4 is never reached
 GHOST_PER_STEP = {k: v for k, v in PER_STEP.items() if k != "moments"}
+# ... ResNeXt-50's step: its 16 grouped 3x3s take no K1 launch
+RESNEXT_PER_STEP = dict(PER_STEP, conv2d=53 - 16, conv2d_dx=52 - 16, conv2d_dw=53 - 16)
 
 
 def _on_bf16(counts):
@@ -364,6 +398,12 @@ BF16_PER_STEP = _on_bf16(PER_STEP)
 NCHW_PER_STEP = GHOST_PER_STEP
 # ... one served bf16 forward
 BF16_PER_FORWARD = _on_bf16(PER_FORWARD)
+# ... a step at JAX's headline configuration (phase 14): each of the
+# S2D_ACCUM microbatches runs a forward and a backward; the folded stem is
+# the plain conv, so the stem takes no K1 forward and no dW
+S2D_PER_STEP = _on_bf16({k: v if k == "adam" else
+                         (v - (k in ("conv2d", "conv2d_dw"))) * S2D_ACCUM
+                         for k, v in PER_STEP.items()})
 # phase 12: the engines' steps in bf16, the same counts on the bf16 entries
 # (fusedxla: Adam only); batch_norm_act on bf16 tensors
 FUSED_BF16_PER_STEP = _on_bf16(FUSED_PER_STEP)
@@ -728,30 +768,25 @@ def phase_serve(torch, checks, counters):
     return launches
 
 
-def phase_int8_serve(torch, checks, counters):
-    """The W8A8 serving path at full width: ResNet-50 at 224 (phase 4's seeded
-    weights and running statistics) calibrated on one seeded batch of 8 at
+def _int8_http(torch, counters, mcfg, per_forward):
+    """The W8A8 serving path of ``mcfg`` at full width: phase 4's seeded
+    weights and running statistics calibrated on one seeded batch of 8 at
     pixel scale (export_quantized_inference), saved, loaded by
     resnet_tpu_torch.serve and asked for batches of 1, 3 and 8 over HTTP:
-    each request moves the counters by exactly 54 Q1 and 54 Q2 launches
-    and no other; the served logits at each request's bucket equal the
-    plain int8 forward on the card (the kernels' plain versions, the same
-    qparams and scales) bit for bit, and the HTTP top1 is their argmax.
-    Printed, held only to be finite: the int8 logits' Pearson correlation
-    and top-1 agreement with the port's fp32 folded forward at batch 8; the
-    int8 and the bf16 hand-kernel served forwards (bf16 weights, every bf16
-    kernel) timed by CUDA events (median of 10) at batches 8 and 128, in
-    turns (int8, bf16, bf16, int8); the device time of one batch-128 int8
-    forward split into Q1, Q2 and the rest (torch.profiler)."""
+    each request must move the counters by exactly ``per_forward`` and no
+    other; the served logits at each request's bucket must equal the plain
+    int8 forward on the card (the kernels' plain versions, the same qparams
+    and scales) bit for bit, and the HTTP top1 be their argmax. Also the
+    int8 logits' Pearson correlation and top-1 agreement with the port's
+    fp32 folded forward at batch 8 (printed, held only to be finite).
+    Returns (the served model, the line's fields, the launches, (params,
+    bn_state), the batch of 8 on the card, the generator)."""
     import types
 
-    from resnet_tpu_torch.config import ExecutionConfig, model_config
-    from resnet_tpu_torch.export import (export_inference, export_quantized_inference,
-                                         save_inference)
+    from resnet_tpu_torch.export import export_quantized_inference, save_inference
     from resnet_tpu_torch.quantize import fold_bn_inference, folded_forward, forward_sites
     from resnet_tpu_torch.serve import bucketed_call, serve
 
-    mcfg = model_config("resnet50")
     params, bn_state = _serving_state(torch, mcfg)
     rng = np.random.default_rng(SEED)
     d = mcfg.input_dim
@@ -763,7 +798,7 @@ def phase_int8_serve(torch, checks, counters):
     export_s = time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        path = save_inference(os.path.join(tmp, "resnet50_int8.pt"), model)
+        path = save_inference(os.path.join(tmp, f"{mcfg.name}_int8.pt"), model)
         file_bytes = os.path.getsize(path)
         httpd = serve(path, port=0, device="cuda")
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -794,11 +829,11 @@ def phase_int8_serve(torch, checks, counters):
     for x, out, delta in zip(batches, replies, deltas):
         require(out["logits_shape"] == [x.shape[0], mcfg.num_classes],
                 f"logits_shape {out['logits_shape']} for batch {x.shape[0]}")
-        require(delta == INT8_PER_FORWARD,
-                f"int8 batch {x.shape[0]} moved the counters by {delta}, "
-                f"expected {INT8_PER_FORWARD}")
-    require(launches == {k: v * len(batches) for k, v in INT8_PER_FORWARD.items()},
-            f"int8 launch counts {launches}")
+        require(delta == per_forward,
+                f"{mcfg.name} int8 batch {x.shape[0]} moved the counters by {delta}, "
+                f"expected {per_forward}")
+    require(launches == {k: v * len(batches) for k, v in per_forward.items()},
+            f"{mcfg.name} int8 launch counts {launches}")
 
     # the served logits against the plain int8 forward at the same buckets
     def plain_call(a):
@@ -827,6 +862,29 @@ def phase_int8_serve(torch, checks, counters):
     pearson = float(np.corrcoef(fp.ravel(), q8.ravel())[0, 1])
     agree = int((fp.argmax(-1) == q8.argmax(-1)).sum())
     require(np.isfinite(pearson), "int8 vs fp32: correlation not finite")
+    fields = {"model": mcfg.name, "export_s": export_s, "file_bytes": file_bytes,
+              "requests": len(replies), "launches": launches, "per_request": deltas,
+              "compare": compare,
+              "vs_fp32_folded_batch8": {"pearson": pearson, "top1_agree": agree, "of": 8}}
+    return served, fields, launches, (params, bn_state), x8, rng
+
+
+def phase_int8_serve(torch, checks, counters):
+    """The W8A8 serving path at full width on ResNet-50 at 224
+    (``_int8_http``: each request exactly 54 Q1 and 54 Q2 launches and no
+    other, the served logits the plain int8 forward's bit for bit, the
+    Pearson correlation with the fp32 folded forward); then the int8 and
+    the bf16 hand-kernel served forwards (bf16 weights, every bf16 kernel)
+    timed by CUDA events (median of 10) at batches 8 and 128, in turns
+    (int8, bf16, bf16, int8); the device time of one batch-128 int8 forward
+    split into Q1, Q2 and the rest (torch.profiler)."""
+    from resnet_tpu_torch.config import ExecutionConfig, model_config
+    from resnet_tpu_torch.export import export_inference
+
+    mcfg = model_config("resnet50")
+    served, fields, launches, (params, bn_state), x8, rng = _int8_http(
+        torch, counters, mcfg, INT8_PER_FORWARD)
+    d = mcfg.input_dim
 
     bf16 = export_inference(params, mcfg, bn_state=bn_state, weights_dtype="bfloat16",
                             ecfg=ExecutionConfig(compute_dtype="bfloat16", kernels="pallas",
@@ -856,11 +914,7 @@ def phase_int8_serve(torch, checks, counters):
     for n, t in timed.items():
         require(all(np.isfinite(v) for k in ("int8_ms", "bf16_ms") for v in t[k]),
                 f"int8 phase: a non-finite time at {n}")
-    emit({"phase": "int8_serve", "model": mcfg.name, "export_s": export_s,
-          "file_bytes": file_bytes, "requests": len(replies), "launches": launches,
-          "per_request": deltas, "compare": compare,
-          "vs_fp32_folded_batch8": {"pearson": pearson, "top1_agree": agree, "of": 8},
-          "timed": timed})
+    emit({"phase": "int8_serve", **fields, "timed": timed})
     return launches
 
 
@@ -2113,6 +2167,41 @@ def _bf16_frozen_held(kcfg, p16, p32, state0, batch):
                      "bf16 kernel step, BN frozen, grads", BF16_UNIT, sens)
 
 
+def _bf16_held(torch, kcfg, state0, batch):
+    """Phase 11's hold of a bf16 kernel step on state0: the kernel, plain
+    bf16 (kernels='xla', per-tensor Adam) and plain fp32 steps' records,
+    the loss and the running statistics within 2x their pooled gap to the
+    plain fp32 step, each gradient leaf within 2x its own gap (at least
+    BF16_UNIT) or GRAD_SENS x the plain bf16 step's change under the bf16
+    image nudge, and the same three steps' gradients with BN frozen at the
+    running statistics (``_bf16_frozen_held``), the well-conditioned check.
+    Returns those errors and the three steps' losses."""
+    import dataclasses
+
+    def plain(compute):
+        return dataclasses.replace(
+            kcfg, execution=dataclasses.replace(kcfg.execution, kernels="xla",
+                                                conv_kernels="xla", compute_dtype=compute),
+            optimizer=dataclasses.replace(kcfg.optimizer, fused=False))
+
+    p16, p32 = plain("bfloat16"), plain("float32")
+    recs = {k: _step_record(torch, c, state0, batch)
+            for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
+                              recs["plain"]["grads"], BF16_UNIT)
+    held = {}
+    for what, pick, floor in (("loss", lambda r: {"loss": r["loss_sum"]}, None),
+                              ("running_stats", lambda r: r["state"].bn_state, None),
+                              ("grads", lambda r: r["grads"], BF16_UNIT)):
+        held[what] = _gap_held(pick(recs["kernel"]), pick(recs["plain"]),
+                               pick(recs["fp32"]), f"{kcfg.model.name} bf16 kernel step {what}",
+                               floor, sens if floor else None)
+    losses = {k: r["metrics"]["loss"].item() for k, r in recs.items()}
+    del recs, sens
+    held["frozen_bn_grads"] = _bf16_frozen_held(kcfg, p16, p32, state0, batch)
+    return held, losses
+
+
 def _cudnn_off_witness(torch, want_run, got_run, state0, want_on, got_on, nudge):
     """The witness that the NCHW-vs-NHWC gradient gap with cuDNN on comes
     from the order of sums, not from the layout: the same two steps
@@ -2245,29 +2334,10 @@ def phase_presets(torch, counters, smi):
     run.update(profile=rows[:30], profile_device_busy_ms=_busy(rows),
                profile_split=_split(rows))
     del held_state, kstep, rows
-    p16 = with_(base, fused=False, kernels="xla", compute_dtype="bfloat16")
-    p32 = with_(base, fused=False, kernels="xla")
-    recs = {k: _step_record(torch, c, state0, batch)
-            for k, c in (("kernel", kcfg), ("plain", p16), ("fp32", p32))}
-    # the loss and the running statistics against their pooled gap; each
-    # gradient leaf against its own, at least bf16's unit roundoff, or
-    # GRAD_SENS x the plain bf16 step's change under the bf16 image nudge
-    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, p16,
-                              recs["plain"]["grads"], BF16_UNIT)
-    held = {}
-    for what, pick, floor in (("loss", lambda r: {"loss": r["loss_sum"]}, None),
-                              ("running_stats", lambda r: r["state"].bn_state, None),
-                              ("grads", lambda r: r["grads"], BF16_UNIT)):
-        held[what] = _gap_held(pick(recs["kernel"]), pick(recs["plain"]),
-                               pick(recs["fp32"]), f"bf16 kernel step {what}", floor,
-                               sens if floor else None)
-    # the well-conditioned check: the same three steps with BN frozen
-    held["frozen_bn_grads"] = _bf16_frozen_held(kcfg, p16, p32, state0, batch)
-    del sens
-    run.update(vs_plain_bf16=held, loss={k: r["metrics"]["loss"].item()
-                                         for k, r in recs.items()})
+    held, losses = _bf16_held(torch, kcfg, state0, batch)
+    run.update(vs_plain_bf16=held, loss=losses)
     out["bf16_kernels"] = run
-    del recs, state0, batch
+    del state0, batch
 
     # 2. fast at 192: the plain path in bf16 (cuDNN), cap 10, TF32 allowed
     fast = variant_config("fast")
@@ -2531,13 +2601,172 @@ def phase_bf16_engines(torch, counters, smi):
     return launched
 
 
+def _stem_held(torch, x, w):
+    """The s2d stem (ops.space_to_depth.s2d_stem_conv) against the 7x7/s2
+    stem (ops.conv.conv2d) on the card in fp32, TF32 off: outputs and the
+    VJP for one seeded cotangent (the weight's and the images' gradients),
+    each within JAX's tolerances for its two stems (tests/test_model.py:
+    rtol 1e-4, atol 1e-5, gradients rtol 1e-3, atol 1e-4), the atol as a
+    share of max|7x7|."""
+    from resnet_tpu_torch.ops.conv import conv2d
+    from resnet_tpu_torch.ops.space_to_depth import s2d_stem_conv
+
+    out = {}
+    grads = []
+    for name, fn in (("7x7", lambda a, b: conv2d(a, b, stride=2)), ("s2d", s2d_stem_conv)):
+        a, b = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = fn(a, b)
+        if not grads:
+            g = torch.randn(y.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                            device="cuda")
+        dx, dw = torch.autograd.grad(y, (a, b), g)
+        grads.append({"y": y.detach(), "dx": dx, "dw": dw})
+    want, got = grads
+    for key, rtol, atol in (("y", 1e-4, 1e-5), ("dx", 1e-3, 1e-4), ("dw", 1e-3, 1e-4)):
+        scale = want[key].abs().max().item()
+        err = (got[key] - want[key]).abs()
+        over = (err - rtol * want[key].abs() - atol * scale).max().item()
+        require(over <= 0, f"s2d stem {key}: beyond rtol {rtol} + {atol} of max by {over}")
+        out[key] = {"max_abs_err": err.max().item(), "max_abs": scale,
+                    "max_rel_err": err.max().item() / scale}
+    return out
+
+
+def phase_configs(torch, checks, counters, smi):
+    """The configurations JAX runs that the phases above do not, at full
+    width: ResNeXt-50 32x4d and the space-to-depth stem.
+
+    1. ResNeXt-50 32x4d at 224, batch 32, kernels='pallas',
+       conv_kernels='pallas', fused Adam: TRAIN_STEPS fp32 steps with the
+       counters read after each (RESNEXT_PER_STEP: its 16 grouped 3x3s on
+       the plain conv, as JAX sends them to XLA, every other conv on K1),
+       the loss falling; one step against the plain path by phase 6's rule
+       (``_engine_vs_plain``) and the frozen-BN gradients by phase 5's
+       tight rule; then TRAIN_STEPS bf16 steps (the same counts on the bf16
+       entries), one held to the plain bf16 step by phase 11's rule
+       (``_bf16_held``); the fp32 and bf16 steps timed (median of 5).
+    2. ResNeXt-50 served in int8 over HTTP (``_int8_http``): each request
+       exactly 38 Q1, 16 Q3 and 54 Q2 launches, the logits the plain int8
+       forward's bit for bit; the Pearson correlation with the fp32 folded
+       forward; the int8 forward at batch 8 timed (CUDA events).
+    3. ResNet-50 at JAX's headline configuration (BENCH_r05.json): batch
+       256, bf16, the standard topology (1x1/s2 projections), grad_accum 2,
+       space_to_depth, kernels='pallas', conv_kernels='pallas', fused Adam:
+       TRAIN_STEPS steps with the counters read after each (S2D_PER_STEP:
+       two microbatches, the folded stem on the plain conv), the loss
+       falling; one step held to the plain s2d step by phase 11's rule; the
+       step timed (median of 5). Then an fp32 s2d stem against the 7x7 stem
+       at that batch (``_stem_held``)."""
+    import dataclasses
+
+    from resnet_tpu_torch.config import model_config, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    out, launched = {}, {}
+
+    def add(launches):
+        for k, v in launches.items():
+            if v:
+                launched[k] = launched.get(k, 0) + v
+
+    def setup(cfg):
+        state0 = init_train_state(cfg, torch.Generator().manual_seed(SEED), device="cuda")
+        data = next(SyntheticDataset(cfg.data.batch_size, image_dim=cfg.model.input_dim,
+                                     num_classes=cfg.model.num_classes, seed=SEED))
+        return state0, {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+
+    def with_(cfg, **execution):
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, **execution))
+
+    def run(cfg, state0, batch, expect, what):
+        step = make_train_step(cfg)
+        state, losses, per_step, launches, final_loss = _train_main_path(
+            torch, counters, step, cfg, state0, batch, expect, what)
+        add(launches)
+        _, ms, host = _timed_steps(torch, step, state, batch)
+        return {"batch": int(batch["labels"].shape[0]), "per_step": per_step[0],
+                "losses": losses, "loss_after_last_step": final_loss, "step_ms": ms,
+                "host_step_ms": float(np.median(host))}
+
+    # 1. ResNeXt-50 training on the hand kernels, fp32 then bf16
+    base = variant_config("resnet", model=RESNEXT)
+    kcfg = dataclasses.replace(with_(base, conv_kernels="pallas"),
+                               optimizer=dataclasses.replace(base.optimizer, fused=True))
+    pcfg = dataclasses.replace(with_(base, kernels="xla"),
+                               optimizer=dataclasses.replace(base.optimizer, fused=False))
+    state0, batch = setup(kcfg)
+    fp32 = run(kcfg, state0, batch, RESNEXT_PER_STEP, "resnext50 fp32 kernels")
+    fp32["vs_plain"], _ = _engine_vs_plain(torch, kcfg, pcfg, state0, batch)
+    fp32["frozen_bn"] = _frozen_held(kcfg, pcfg, state0, batch)
+    out["resnext50_fp32"] = fp32
+    k16 = with_(kcfg, compute_dtype="bfloat16")
+    bf16 = run(k16, state0, batch, _on_bf16(RESNEXT_PER_STEP), "resnext50 bf16 kernels")
+    bf16["vs_plain_bf16"], bf16["loss"] = _bf16_held(torch, k16, state0, batch)
+    out["resnext50_bf16"] = bf16
+    del state0, batch
+    torch.cuda.empty_cache()
+
+    # 2. ResNeXt-50 served in int8
+    served, fields, launches, _, x8, _ = _int8_http(torch, counters, model_config(RESNEXT),
+                                                     RESNEXT_INT8_PER_FORWARD)
+    add(launches)
+    fields["batch8_ms"] = checks.median_ms(lambda: served.call(x8), reps=10)
+    out["resnext50_int8_serve"] = fields
+    del served, x8
+    torch.cuda.empty_cache()
+
+    # 3. ResNet-50 with s2d at JAX's headline configuration
+    hb = variant_config("resnet", model="resnet50")
+    hb = dataclasses.replace(
+        hb, model=model_config("resnet50", stride_projection_kernel=1),
+        data=dataclasses.replace(hb.data, batch_size=S2D_BATCH),
+        optimizer=dataclasses.replace(hb.optimizer, fused=True))
+    scfg = with_(hb, conv_kernels="pallas", compute_dtype="bfloat16", space_to_depth=True,
+                 grad_accum=S2D_ACCUM)
+    state0, batch = setup(scfg)
+    s2d = run(scfg, state0, batch, S2D_PER_STEP, "resnet50 s2d bf16 grad_accum 2")
+    s2d["vs_plain_bf16"], s2d["loss"] = _bf16_held(torch, scfg, state0, batch)
+    s2d["stem_fp32_vs_7x7"] = _stem_held(torch, batch["images"],
+                                         state0.params["init_conv"]["w"].float())
+    out["resnet50_s2d_headline"] = s2d
+    del state0, batch
+    torch.cuda.empty_cache()
+    emit({"phase": "configs", "device": smi, **out})
+    return launched
+
+
+def _frozen_held(kcfg, pcfg, state0, batch):
+    """Phase 5's tight check: the kernel and plain steps' gradients from
+    state0 with BN frozen at its running statistics (mean 0, var 1), each
+    leaf within GRAD_TOL of its max or GRAD_SENS x the plain path's change
+    under the 1 +- 2^-20 image nudge."""
+    import dataclasses
+
+    from resnet_tpu_torch.train import loss_and_grads
+
+    def frozen(cfg):
+        return dataclasses.replace(
+            cfg, execution=dataclasses.replace(cfg.execution, bn_mode="frozen"))
+
+    kg = loss_and_grads(state0.params, batch, state0.bn_state, frozen(kcfg))[3]
+    pg = loss_and_grads(state0.params, batch, state0.bn_state, frozen(pcfg))[3]
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, frozen(pcfg), pg)
+    err, over_sens, nearest = _leaf_errors(kg, pg, f"{kcfg.model.name} frozen-BN gradient",
+                                           GRAD_TOL, sens=sens)
+    return {"grad_max_rel_err": err, "grad_max_err_over_sensitivity": over_sens,
+            "grad_nearest_limit": nearest}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
                         "for those only, no plans, no final line")
-    parser.add_argument("--phases", help="comma-separated names of phases 4-13 (serve, "
-                        "train, ..., presets, bf16_engines, int8_serve): phases 1-2 and "
-                        "those only, no final line")
+    parser.add_argument("--phases", help="comma-separated names of phases 4-14 (serve, "
+                        "train, ..., presets, bf16_engines, int8_serve, configs): phases "
+                        "1-2 and those only, no final line")
     args = parser.parse_args()
     import torch
 
@@ -2572,7 +2801,8 @@ def main() -> None:
               "trainer": lambda: phase_trainer(torch, counters, smi),
               "presets": lambda: phase_presets(torch, counters, smi),
               "bf16_engines": lambda: phase_bf16_engines(torch, counters, smi),
-              "int8_serve": lambda: phase_int8_serve(torch, checks, counters)}
+              "int8_serve": lambda: phase_int8_serve(torch, checks, counters),
+              "configs": lambda: phase_configs(torch, checks, counters, smi)}
     if args.phases:
         names = args.phases.split(",")
         require(set(names) <= set(phases), f"unknown phases in {names}")

@@ -42,11 +42,6 @@ def not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-ROADMAP_BF16 = "item A5: bf16 compute"
-ROADMAP_BF16_ENGINES = "item A5b: bf16 fused and whole-block engines"
-ROADMAP_NCHW = "item A6: NCHW layout"
-ROADMAP_GROUPED = "item A7: grouped conv kernel"
-ROADMAP_S2D = "item A8: space-to-depth stem"
 ROADMAP_PARALLEL = "item A13: parallelism"
 
 
@@ -170,8 +165,6 @@ class ExecutionConfig:
                 f"ExecutionConfig.grad_accum={self.grad_accum}; expected"
                 " a positive microbatch count"
             )
-        if self.space_to_depth:
-            raise not_ported("ExecutionConfig.space_to_depth", ROADMAP_S2D)
 
     @property
     def cdtype(self):

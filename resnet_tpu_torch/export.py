@@ -12,8 +12,9 @@ there): BN folded, per-channel int8 weights, per-tensor int8 activations
 calibrated on ``calib_images`` (``quantize.quantize_model``), served by a
 ``QuantizedInferenceModel`` with the same ``call``, ``image_dims`` and
 ``device``, whose forward runs the two int8 kernels (``kernels.quant``) on
-the card. Its int8 weights, in the packed layout Q1 reads, the scales and
-the dequantization rows are buffers made once, at construction.
+the card. Its int8 weights, in the packed layout Q1 (or, at a grouped
+site, Q3) reads, the scales and the dequantization rows are buffers made
+once, at construction.
 
 ``save_inference`` / ``load_inference`` write and read one file holding the
 configs and the tensors, with a ``kind`` field ('fp' or 'int8') from which

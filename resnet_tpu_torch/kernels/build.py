@@ -109,6 +109,10 @@ SIGNATURES = {
     # N, H, W, Cin, Cout, kh, kw, stride, pad_top, pad_left, Ho, Wo, Kp, mode,
     # has_cap, cap, tile width, splits; Q2 x, q, inv, n
     "rt_qconv_s8": [*[_P] * 7, *[_I] * 15, _F, _I, _I, _P],
+    # Q3 x, w (KH * KW, Cout, Cgp), dq, bias (or null), out, N, H, W, Cin,
+    # Cout, groups, kh, kw, stride, pad_top, pad_left, Ho, Wo, mode, has_cap,
+    # cap
+    "rt_qconv_grouped_s8": [*[_P] * 5, *[_I] * 15, _F, _P],
     "rt_quant_act_f32": [_P, _P, _F, _I64, _P],
     "rt_quant_act_bf16": [_P, _P, _F, _I64, _P],
 }

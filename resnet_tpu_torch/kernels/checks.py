@@ -105,7 +105,13 @@ zero-padded to a multiple of 8, the stem's 147 to 152) by the HWIO weight:
 the integer product alone, without the dequantizing epilogue, so less
 work (``library_covers`` nothing; the line says ``library: int_mm,
 product only``); Q2 has none. Q1's operands come from ``qconv_operands``
-(``qconv_plans`` times the same inputs under other plans).
+(``qconv_plans`` times the same inputs under other plans). Q3
+(``qconv_grouped``, ``qconv`` with groups > 1) at every distinct grouped
+site of ResNeXt-50 32x4d and ResNeXt-101 32x8d at batch 8 and of
+ResNeXt-50 at 128 (``qconv_grouped_sites``), a capped site and a ragged
+one (Cin / g 3, the byte path), each bit for bit and twice to the same
+bits; its bound the same as Q1's; no yardstick (``torch._int_mm`` takes
+no groups).
 """
 
 from __future__ import annotations
@@ -384,20 +390,20 @@ BF16_BN_BWD_CASES = BN_BWD_CASES
 BF16_BLOCK_FUSED_CASES = [(label.replace(")", f") x{n}", 1), *rest) for (label, *rest), n in
                           zip(BLOCK_FUSED_CASES[:4], (2, 3, 5, 2))] + BLOCK_FUSED_CASES[4:]
 
-def qconv_sites(batch: int) -> List[Tuple]:
-    """(label, batch, H, Cin, Cout, k, stride, relu, cap, out dtype) of each
-    distinct shape among the 53 conv sites of ResNet-50's quantized forward
-    (the stem; per block the reduce, the spatial 3x3 with the stride, the
-    expand and the projection), in model order with the site's epilogue,
-    the label naming the first site and how many share the shape."""
+def _conv_sites(preset: str) -> Dict[Tuple, List[str]]:
+    """{(H, Cin, Cout, k, stride, relu, groups): the site names} of the conv
+    sites of ``preset``'s quantized forward (the stem; per block the reduce,
+    the spatial 3x3 with the stride and the model's groups, the expand and
+    the projection), in model order with the site's epilogue (ReLU'd bf16
+    for the stem, reduce and spatial sites)."""
     from ..config import model_config
     from ..models.init import init_params
 
-    mcfg = model_config("resnet50")
+    mcfg = model_config(preset)
     params = init_params(torch.Generator().manual_seed(0), mcfg, device="meta")
     k0, _, cin0, cout0 = params["init_conv"]["w"].shape
     sites: Dict[Tuple, List[str]] = {
-        (mcfg.input_dim, cin0, cout0, k0, mcfg.init_stride, True): ["stem"]}
+        (mcfg.input_dim, cin0, cout0, k0, mcfg.init_stride, True, 1): ["stem"]}
     h = mcfg.input_dim // mcfg.init_stride // mcfg.maxpool_stride
     for i, bp in enumerate(params["blocks"]):
         s = 2 if mcfg.is_reduction_block(i) else 1
@@ -405,12 +411,30 @@ def qconv_sites(batch: int) -> List[Tuple]:
                                        ("expand", h // s, 1, False), ("proj", h, s, False)):
             if conv in bp:
                 k, _, cin, cout = bp[conv]["w"].shape
-                sites.setdefault((hh, cin, cout, k, stride, relu), []).append(
+                g = mcfg.groups if conv == "spatial" else 1
+                sites.setdefault((hh, cin * g, cout, k, stride, relu, g), []).append(
                     f"block {i} {conv}")
         h //= s
+    return sites
+
+
+def qconv_sites(batch: int) -> List[Tuple]:
+    """(label, batch, H, Cin, Cout, k, stride, relu, cap, out dtype) of each
+    distinct shape among the 53 conv sites of ResNet-50's quantized forward
+    (``_conv_sites``), the label naming the first site and how many share
+    the shape."""
     return [(f"{names[0]} {k}x{k}/s{st} {hh}^2 {cin}->{cout}{', relu' if relu else ''} "
              f"(x{len(names)})", batch, hh, cin, cout, k, st, relu, None, "bf16")
-            for (hh, cin, cout, k, st, relu), names in sites.items()]
+            for (hh, cin, cout, k, st, relu, _), names in _conv_sites("resnet50").items()]
+
+
+def qconv_grouped_sites(preset: str, batch: int) -> List[Tuple]:
+    """``qconv_sites``'s tuples and the groups, for each distinct shape of
+    ``preset``'s grouped conv sites (ResNeXt's spatial 3x3s)."""
+    return [(f"{preset} {names[0]} {k}x{k}/s{st} {hh}^2 {cin}->{cout} g{g}, relu "
+             f"(x{len(names)}), batch {batch}", batch, hh, cin, cout, k, st, relu, None,
+             "bf16", g)
+            for (hh, cin, cout, k, st, relu, g), names in _conv_sites(preset).items() if g > 1]
 
 
 # Q1: every distinct conv site of ResNet-50 at the serving batch 8, the FC
@@ -426,6 +450,15 @@ QCONV_CASES = qconv_sites(8) + [
     # splits to fill the card; reported apart from the cases above
     (f"batch 1 {label}", *rest) for label, *rest in qconv_sites(1)
     if label.startswith("block 14 spatial")]
+# Q3: every distinct grouped site of both ResNeXt presets at the serving
+# batch 8 and ResNeXt-50's at 128, then a capped site and, on the byte
+# path, a ragged one (Cin / g 3)
+QCONV_GROUPED_CASES = (
+    qconv_grouped_sites("resnext50_32x4d", 8) + qconv_grouped_sites("resnext101_32x8d", 8)
+    + qconv_grouped_sites("resnext50_32x4d", 128) + [
+        ("3x3/s1 14^2 512->512 g32, relu, cap 10", 8, 14, 512, 512, 3, 1, True, 10.0, "bf16",
+         32),
+        ("ragged 3x3/s2 10^2 6->10 g2, batch 2", 2, 10, 6, 10, 3, 2, False, None, "bf16", 2)])
 # cases each kernel's line in chip_smoke.py also sums apart (by label prefix)
 APART = {"qconv": "batch 1 "}
 # Q2: (label, shape, dtype, storage offset in elements): the images, the
@@ -446,12 +479,13 @@ QUANT_ACT_CASES = [
 REPEAT_KERNELS = ("conv2d", "conv2d_dx", "conv2d_dw", "matmul_bwd", "moments", "bn_bwd",
                   "fused_conv", "block_fused", "conv2d_bf16", "conv2d_dx_bf16",
                   "conv2d_dw_bf16", "matmul_bf16", "matmul_bwd_bf16", "moments_bf16",
-                  "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16", "qconv")
+                  "fused_conv_bf16", "block_fused_bf16", "bn_bwd_bf16", "qconv",
+                  "qconv_grouped")
 
 # the fp32 kernels whose cases carry an output hash beside the bf16 ones':
 # those that run K9's join body, and K4, K5 and K6
 HASHED = ("fused_join", "block_fused", "moments", "bias_act", "bn_bwd", "qconv",
-          "quant_act")
+          "qconv_grouped", "quant_act")
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
@@ -483,6 +517,7 @@ KERNELS = {
     "bn_bwd_bf16": (bn, "BWD_LAUNCHES_BF16", 1, BF16_BN_BWD_CASES),
     "block_fused_bf16": (block_fused, "LAUNCHES_BF16", 1, BF16_BLOCK_FUSED_CASES),
     "qconv": (quant, "LAUNCHES", 1, QCONV_CASES),
+    "qconv_grouped": (quant, "GROUPED_LAUNCHES", 1, QCONV_GROUPED_CASES),
     "quant_act": (quant, "ACT_LAUNCHES", 1, QUANT_ACT_CASES),
 }
 
@@ -580,8 +615,11 @@ class _Case:
 
     def __init__(self, run, plain, nbytes, flops, library=None, as_plain=None,
                  timed=None, library_covers=slice(None), library_same=True,
-                 peak=FP32_FLOPS_PER_S, exact=False, bf16=False, library_label=None):
+                 peak=FP32_FLOPS_PER_S, exact=False, bf16=False, library_label=None,
+                 plain_reps=20):
         self.run, self.plain, self.library = run, plain, library
+        # timed calls of the plain version (fewer where one takes ~0.1 s)
+        self.plain_reps = plain_reps
         self.library_label = library_label  # printed where the yardstick needs saying
         self.exact = exact  # the kernel must equal the plain version bit for bit
         self.bf16 = bf16  # held by the bf16 rule (bf16_slack), not REL_TOL
@@ -713,26 +751,32 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
         return _block_fused_case(case, randn)
     if kernel == "qconv":
         return _qconv_case(case, gen, device)
+    if kernel == "qconv_grouped":
+        return _qconv_grouped_case(case, gen, device)
     if kernel == "quant_act":
         return _quant_act_case(case, randn, device)
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def qconv_operands(case, gen, device):
-    """A Q1 case's operands: int8 values over the whole range (the largest
-    accumulators), dq sized so that the epilogue's values spread around the
-    cap and 0: (xq, w, dq, bias, packed weight, qconv's keywords)."""
-    _, n, h, cin, cout, k, s, relu, cap, out = case
+    """A Q1 (or, with groups as the case's last entry, Q3) case's operands:
+    int8 values over the whole range (the largest accumulators), dq sized
+    so that the epilogue's values spread around the cap and 0: (xq, w, dq,
+    bias, packed weight, qconv's keywords)."""
+    _, n, h, cin, cout, k, s, relu, cap, out, *grouped = case
+    groups = grouped[0] if grouped else 1
     xq = torch.randint(-127, 128, (n, h, h, cin), generator=gen, device=device,
                        dtype=torch.int8)
-    w = torch.randint(-127, 128, (k, k, cin, cout), generator=gen, device=device,
+    w = torch.randint(-127, 128, (k, k, cin // groups, cout), generator=gen, device=device,
                       dtype=torch.int8)
-    kk = k * k * cin
+    kk = k * k * cin // groups
     dq = (torch.rand(cout, generator=gen, device=device) + 0.5) * (4.0 / (127 * 127 * kk ** 0.5))
     b = torch.randn(cout, generator=gen, device=device)
     out_dtype = torch.float32 if out == "f32" else torch.bfloat16
-    return xq, w, dq, b, quant.pack_weight(w), dict(stride=s, relu=relu, cap=cap,
-                                                     out_dtype=out_dtype)
+    kw = dict(stride=s, relu=relu, cap=cap, out_dtype=out_dtype)
+    if grouped:
+        kw["groups"] = groups
+    return xq, w, dq, b, quant.pack_weight(w, groups), kw
 
 
 def qconv_im2col(xq: torch.Tensor, k: int, s: int) -> torch.Tensor:
@@ -771,6 +815,21 @@ def _qconv_case(case, gen, device) -> _Case:
                  exact=True, bf16=kw["out_dtype"] == torch.bfloat16,
                  library_label="torch._int_mm, the integer product alone (no epilogue)"
                  if library is not None else None)
+
+
+def _qconv_grouped_case(case, gen, device) -> _Case:
+    """Q3 on ``qconv_operands``; no one PyTorch call computes a grouped
+    int8 conv (``torch._int_mm`` takes no groups), so no yardstick. The
+    plain version (float64, cuDNN off) takes ~0.1 s a call at batch 128:
+    3 timed calls there."""
+    _, n, h, cin, cout, k, s, *_ = case
+    xq, w, dq, b, wk, kw = qconv_operands(case, gen, device)
+    m = n * (h // s) ** 2
+    return _Case(lambda: quant.qconv(xq, w, dq, b, wk=wk, **kw),
+                 lambda: quant.qconv_reference(xq, w, dq, b, **kw),
+                 xq.numel() + w.numel() + m * cout * 2 + 8 * cout,
+                 2 * m * w[..., 0].numel() * cout, peak=INT8_OPS_PER_S, exact=True,
+                 bf16=True, plain_reps=3 if n >= 64 else 20)
 
 
 def _quant_act_case(case, randn, device) -> _Case:
@@ -1233,7 +1292,7 @@ def check_case(kernel: str, case, *, device="cuda", seed: int = 0,
                                    "another function")
     if timing:
         out["ms"] = median_ms(c.timed[0])
-        out["plain_ms"] = median_ms(c.timed[1])
+        out["plain_ms"] = median_ms(c.timed[1], reps=c.plain_reps)
         out["library_ms"] = median_ms(c.library) if c.library is not None else None
         kernels = device_profile(c.timed[0])
         out["device_ms"] = None if kernels is None else sum(kernels.values())

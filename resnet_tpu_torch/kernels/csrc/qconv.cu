@@ -72,6 +72,16 @@
 // tile's operands through the L2, the per-slice handoffs and the epilogue
 // share the time (PERF.md, q1_variants).
 //
+// Q3, rt_qconv_grouped_s8: Q1 for a grouped conv (ResNeXt's 3x3s, groups
+// > 1). Replaces _qconv with feature_group_count (quantize.py:218-238)
+// and _qsite's dequantization, as Q1 does for the rest. A group's problem
+// (M x Cout/g over kh * kw * Cin/g: ResNeXt-50 32x4d's K 36-288, N 4-32)
+// is far narrower than a wgmma tile, so Q3 runs on the CUDA cores: __dp4a
+// sums 4 channels a word in int32, one thread per (4 pixels, 4 outputs of
+// a group), Q1's epilogue bit for bit. Bound by bytes (x read, the bf16
+// output written) at ResNeXt's widths; this first design does not reach
+// it (PERF.md).
+//
 // Q2, rt_quant_act_{f32,bf16}: q = clip(rint(__fmul_rn(x, inv)), -127, 127)
 // as int8, inv = 1 / scale in fp32 (the wrapper's). Replaces
 // resnet_tpu/quantize.py::_quant_act (:213); rintf rounds half to even, as
@@ -524,6 +534,182 @@ int qconv_launch(const CUtensorMap& wmap, const CUtensorMap& ymap, int tma, cons
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ Q3
+
+// Q3, the grouped int8 conv (ResNeXt's 3x3s): output channel o of group
+// g = o / Ng sums, over the window, input channels [g Cg, (g + 1) Cg) of
+// x by row (tap, o) of the packed weight w (KH * KW, Cout, Cgp): Cg
+// bytes, zero up to Cgp = Cg rounded up to 4 (quant.pack_weight(w, g)).
+// Then Q1's epilogue step for step. A thread owns QP pixels in a row of M
+// and QO neighbouring output channels of one group (a group's Ng in
+// ceil(Ng / QO) chunks), so each x word it loads serves QO outputs and
+// each w word QP pixels; the lanes of a warp are 32 neighbouring chunks,
+// whose x words (one group's shared) and w rows lie side by side. A
+// block's rows are Q3_ROWS pixel quads; grid x the quads' blocks, y the
+// chunks' warps. Sums by __dp4a, 4 channels a word. Indices are 32-bit
+// (the entry checks the extents): a 64-bit division is a long software
+// sequence, and the first design, which decoded each pixel by one, spent
+// most of its time there (PERF.md).
+constexpr int QP = 4;       // pixels a thread
+constexpr int QO = 4;       // output channels a thread
+constexpr int Q3_ROWS = 8;  // pixel quads a block (warps)
+
+struct QGrouped {
+  const int8_t* x;
+  const int8_t* w;  // (KH * KW, Cout, Cgp)
+  const float* dq;
+  const float* bias;  // null: no bias
+  void* out;
+  int M, H, W, Cin, Cout, Cg, Ng, Cgp, chunks, KH, KW, stride, pad_top, pad_left, Ho, Wo,
+      mode, has_cap;
+  float cap;
+};
+
+// loads of VEC bytes (16, 8 or 4: aligned words of 4 channels each), or,
+// at VEC = 1, the bytes [0, min(4, left)) one at a time, zero past them
+template <int VEC>
+struct QWords {
+  static constexpr int N = VEC >= 4 ? VEC / 4 : 1;
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_words(const int8_t* p, int left,
+                                           int (&v)[QWords<VEC>::N]) {
+  if constexpr (VEC == 16) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (VEC == 8) {
+    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else if constexpr (VEC == 4) {
+    v[0] = __ldg(reinterpret_cast<const int*>(p));
+  } else {
+    uint32_t u = 0;
+    for (int b = 0; b < 4 && b < left; ++b) u |= (uint32_t)(uint8_t)__ldg(p + b) << (8 * b);
+    v[0] = (int)u;
+  }
+}
+
+// one bf16 value of the epilogue, as to_act2 makes each of its pair
+__device__ __forceinline__ uint16_t to_act1(const QGrouped& p, float v, float capf,
+                                            uint16_t capb) {
+  uint16_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  if (p.mode == OUT_BF16_RELU) {
+    float f = __uint_as_float((uint32_t)h << 16);
+    if (f < 0.f) {
+      f = 0.f;
+      h = 0;
+    }
+    if (p.has_cap && f > capf) h = capb;
+  }
+  return h;
+}
+
+// VEC: x's and w's loads (16, 8 or 4 bytes where Cg is a multiple of VEC
+// and x is aligned to it; 1: x by bytes, w by words of its padded rows)
+template <int VEC>
+__global__ void __launch_bounds__(32 * Q3_ROWS) qconv_grouped_kernel(const QGrouped p) {
+  constexpr int NW = QWords<VEC>::N;
+  constexpr int STEP = 4 * NW;              // channels a step
+  constexpr int WVEC = VEC == 1 ? 4 : VEC;  // w's rows are padded to words
+  const int chunk = blockIdx.y * 32 + threadIdx.x;
+  const int m0 = (blockIdx.x * Q3_ROWS + threadIdx.y) * QP;
+  if (chunk >= p.chunks || m0 >= p.M) return;
+  const int per_group = (p.Ng + QO - 1) / QO;
+  const int g = chunk / per_group;
+  const int u0 = (chunk - g * per_group) * QO;  // the chunk's first output in its group
+  const int o0 = g * p.Ng + u0;
+  const int nu = min(QO, p.Ng - u0);  // its outputs
+  // the quad's pixels: (n, oy, ox) of m0 by one division each, then stepped
+  int n = m0 / (p.Ho * p.Wo);
+  int r = m0 - n * p.Ho * p.Wo;
+  int oy = r / p.Wo, ox = r - oy * p.Wo;
+  int iy0[QP], ix0[QP];
+  const int8_t* xg[QP];  // the pixel's image at the group's first channel
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    iy0[q] = oy * p.stride - p.pad_top;
+    ix0[q] = ox * p.stride - p.pad_left;
+    xg[q] = m0 + q < p.M ? p.x + (int64_t)n * p.H * p.W * p.Cin + g * p.Cg : nullptr;
+    if (++ox == p.Wo) {
+      ox = 0;
+      if (++oy == p.Ho) {
+        oy = 0;
+        ++n;
+      }
+    }
+  }
+  int acc[QP][QO];
+#pragma unroll
+  for (int q = 0; q < QP; ++q)
+#pragma unroll
+    for (int u = 0; u < QO; ++u) acc[q][u] = 0;
+  const int tap_bytes = p.Cout * p.Cgp;
+  for (int di = 0; di < p.KH; ++di)
+    for (int dj = 0; dj < p.KW; ++dj) {
+      const int8_t* wt = p.w + (di * p.KW + dj) * tap_bytes + o0 * p.Cgp;
+      const int8_t* xp[QP];
+#pragma unroll
+      for (int q = 0; q < QP; ++q) {
+        const int iy = iy0[q] + di, ix = ix0[q] + dj;
+        xp[q] = xg[q] && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W
+                    ? xg[q] + (iy * p.W + ix) * p.Cin
+                    : nullptr;
+      }
+      for (int c = 0; c < p.Cg; c += STEP) {
+        int wv[QO][NW];
+#pragma unroll
+        for (int u = 0; u < QO; ++u) {
+          if (u < nu) {
+            load_words<WVEC>(wt + u * p.Cgp + c, 4, wv[u]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < NW; ++j) wv[u][j] = 0;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < QP; ++q) {
+          if (!xp[q]) continue;
+          int xv[NW];
+          load_words<VEC>(xp[q] + c, p.Cg - c, xv);
+#pragma unroll
+          for (int u = 0; u < QO; ++u)
+#pragma unroll
+            for (int j = 0; j < NW; ++j) acc[q][u] = __dp4a(xv[j], wv[u][j], acc[q][u]);
+        }
+      }
+    }
+  // Q1's epilogue: f32(acc) * dq, + bias, each step rounded (no FMA)
+  float d[QO], bb[QO];
+#pragma unroll
+  for (int u = 0; u < QO; ++u) {
+    d[u] = u < nu ? __ldg(p.dq + o0 + u) : 0.f;
+    bb[u] = u < nu && p.bias ? __ldg(p.bias + o0 + u) : 0.f;
+  }
+  const __nv_bfloat16 caph = __float2bfloat16_rn(p.cap);
+  const float capf = __bfloat162float(caph);
+  const uint16_t capb = __bfloat16_as_ushort(caph);
+#pragma unroll
+  for (int q = 0; q < QP; ++q) {
+    if (!xg[q]) continue;
+    const int64_t at = (int64_t)(m0 + q) * p.Cout + o0;
+#pragma unroll
+    for (int u = 0; u < QO; ++u) {
+      if (u >= nu) continue;
+      const float f = __fmul_rn(__int2float_rn(acc[q][u]), d[u]);
+      const float v = p.bias ? __fadd_rn(f, bb[u]) : f;
+      if (p.mode == OUT_F32)
+        static_cast<float*>(p.out)[at + u] = v;
+      else
+        static_cast<uint16_t*>(p.out)[at + u] = to_act1(p, v, capf, capb);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ Q2
 
 __device__ __forceinline__ uint32_t quant1(float v, float inv) {
@@ -648,6 +834,71 @@ extern "C" int rt_qconv_s8(const int8_t* x, const int8_t* w, const float* dq,
                                     {qconv_launch<128, false>, qconv_launch<128, true>},
                                     {qconv_launch<256, false>, qconv_launch<256, true>}};
   return runs[bn / 128][vec](wmap, ymap, tma, p, un, s);
+}
+
+// Q3. x (N, H, W, Cin) int8; w (KH * KW, Cout, Cgp) int8 as
+// quant.pack_weight(w, groups) lays it out (Cgp = Cin / groups rounded up
+// to 4, zero past Cin / groups), 16-byte aligned; dq and bias (Cout,)
+// fp32, bias may be null; out (N, Ho, Wo, Cout) bf16 (mode 0, 1) or fp32
+// (mode 2). One launch; 32-bit indices, so M, one image of x and w below
+// 2^31 bytes.
+extern "C" int rt_qconv_grouped_s8(const int8_t* x, const int8_t* w, const float* dq,
+                                   const float* bias, void* out, int N, int H, int W, int Cin,
+                                   int Cout, int groups, int KH, int KW, int stride,
+                                   int pad_top, int pad_left, int Ho, int Wo, int mode,
+                                   int has_cap, float cap, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Ho <= 0 || Wo <= 0 || KH <= 0 ||
+      KW <= 0 || stride <= 0 || groups < 2 || Cin % groups != 0 || Cout % groups != 0 ||
+      mode < OUT_BF16 || mode > OUT_F32 || ((uintptr_t)w % 16) != 0)
+    return (int)cudaErrorInvalidValue;
+  QGrouped p;
+  p.Cg = Cin / groups;
+  p.Ng = Cout / groups;
+  p.Cgp = (p.Cg + 3) / 4 * 4;
+  const int64_t M = (int64_t)N * Ho * Wo;
+  const int64_t chunks = (int64_t)groups * ((p.Ng + QO - 1) / QO);
+  const int64_t quad_blocks = ((M + QP - 1) / QP + Q3_ROWS - 1) / Q3_ROWS;
+  if (M + QP >= INT32_MAX || (int64_t)H * W * Cin >= INT32_MAX ||
+      (int64_t)KH * KW * Cout * p.Cgp >= INT32_MAX || quad_blocks >= INT32_MAX ||
+      (chunks + 31) / 32 > 65535)
+    return (int)cudaErrorInvalidValue;
+  p.x = x;
+  p.w = w;
+  p.dq = dq;
+  p.bias = bias;
+  p.out = out;
+  p.M = (int)M;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.chunks = (int)chunks;
+  p.KH = KH;
+  p.KW = KW;
+  p.stride = stride;
+  p.pad_top = pad_top;
+  p.pad_left = pad_left;
+  p.Ho = Ho;
+  p.Wo = Wo;
+  p.mode = mode;
+  p.has_cap = has_cap;
+  p.cap = cap;
+  const uintptr_t a = (uintptr_t)x;
+  const int vec = p.Cg % 16 == 0 && a % 16 == 0 ? 16
+                  : p.Cg % 8 == 0 && a % 8 == 0 ? 8
+                  : p.Cg % 4 == 0 && a % 4 == 0 ? 4
+                                                : 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((unsigned)quad_blocks, (unsigned)((chunks + 31) / 32)), block(32, Q3_ROWS);
+  if (vec == 16)
+    qconv_grouped_kernel<16><<<grid, block, 0, s>>>(p);
+  else if (vec == 8)
+    qconv_grouped_kernel<8><<<grid, block, 0, s>>>(p);
+  else if (vec == 4)
+    qconv_grouped_kernel<4><<<grid, block, 0, s>>>(p);
+  else
+    qconv_grouped_kernel<1><<<grid, block, 0, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // Q2 on fp32 (the images) and bf16 (every other site) inputs; q int8, n

@@ -1,11 +1,12 @@
 """The int8 (W8A8) serving kernels: Q1, the int8 conv with its dequantizing
-epilogue, and Q2, the activation quantization (``csrc/qconv.cu``).
+epilogue, Q3, its grouped counterpart, and Q2, the activation quantization
+(``csrc/qconv.cu``).
 
-Neither has a Pallas counterpart: resnet_tpu/quantize.py leaves ``_qconv``
+None has a Pallas counterpart: resnet_tpu/quantize.py leaves ``_qconv``
 (:218), ``_qsite``'s dequantization (:243-247), the FC's product
 (:279-287) and ``_quant_act`` (:213) to XLA. PyTorch has no int8
 convolution on CUDA (``F.conv2d`` rejects int8), so the port runs them on
-these two hand kernels.
+these hand kernels.
 
 ``quant_act(x, inv)`` (Q2): clip(round_half_even(f32(x) * inv), -127, 127)
 as int8, x fp32 (the images) or bf16, ``inv`` the fp32 value of 1 / scale
@@ -31,9 +32,18 @@ version reads. The kernel's tile width and K splits are
 tile tickets come from the scratch that K4 and K6 keep per (device,
 stream) (``bn._workspace``), whose tickets the kernel leaves zero.
 
+``qconv(..., groups=g)`` with g > 1 (ResNeXt's 3x3s) launches Q3 instead
+of Q1: the same sum per group (output channel o reads the input channels
+of group o // (Cout / g)) and Q1's epilogue step for step. It reads the
+weight as ``pack_weight(w, g)`` lays it out: (kh * kw, Cout, Cgp), each
+tap's and output channel's Cin / g bytes in a row of Cgp = Cin / g
+rounded up to 4, zero past Cin / g (``unpack_weight`` views it as HWIO
+again). JAX's ``_qconv`` passes ``feature_group_count`` to XLA's conv
+(quantize.py:218-238); PyTorch has no int8 conv on CUDA, so Q3 is a hand
+kernel too.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises (a grouped conv raises NotImplementedError,
-ROADMAP.md queue A item A7, as K1 does). The plain versions:
+launches its kernel or raises. The plain versions:
 ``quant_act_reference`` in torch ops (``torch.round`` rounds half to even,
 as ``jnp.round``), ``qconv_reference`` = ``qconv_acc_reference`` (the conv
 in float64 on the int8 values with cuDNN off, exact: every partial sum is
@@ -41,21 +51,23 @@ an integer far below 2^53, where fp32 would round sums above 2^24) then
 ``epilogue_reference`` in torch ops, one op a step so nothing is
 contracted. The kernels reproduce them bit for bit.
 
-``LAUNCHES`` counts Q1 launches, ``ACT_LAUNCHES`` Q2's, whatever the
-input's dtype: a ResNet-50 forward moves each by 54 (53 convs and the FC).
+``LAUNCHES`` counts Q1 launches, ``GROUPED_LAUNCHES`` Q3's, ``ACT_LAUNCHES``
+Q2's, whatever the input's dtype: a ResNet-50 forward moves Q1 and Q2 by 54
+(53 convs and the FC), a ResNeXt-50 forward Q1 by 38, Q3 by 16 (the
+grouped 3x3s) and Q2 by 54.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import ROADMAP_GROUPED, not_ported
 from ..ops.conv import conv2d
 from ..ops.padding import reference_padding
 from . import bn, build
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
+GROUPED_LAUNCHES = 0
 ACT_LAUNCHES = 0
 
 BK = 64  # the packed weight's rows are a multiple of it (qconv.cu KP_ALIGN)
@@ -141,12 +153,24 @@ def padded_k(kshape) -> int:
     return -(-packed_k(kshape) // BK) * BK
 
 
-def pack_weight(w: torch.Tensor) -> torch.Tensor:
-    """An HWIO int8 weight (kh, kw, Cin, Cout) as the kernel reads it:
-    (Cout, Kp) with row co = kernel row di of w[..., co] ((dj, ci) order)
-    at di * Rp (Rp = ``row_bytes``), zero in each row's padding and from kh
-    * Rp up to Kp = ``padded_k``."""
+def group_row_bytes(cin_g: int) -> int:
+    """Q3's bytes a tap and output channel: Cin / g rounded up to 4."""
+    return -(-cin_g // 4) * 4
+
+
+def pack_weight(w: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """An HWIO int8 weight (kh, kw, Cin / groups, Cout) as the kernel reads
+    it. groups 1 (Q1): (Cout, Kp) with row co = kernel row di of w[..., co]
+    ((dj, ci) order) at di * Rp (Rp = ``row_bytes``), zero in each row's
+    padding and from kh * Rp up to Kp = ``padded_k``. groups > 1 (Q3):
+    (kh * kw, Cout, Cgp), row (tap, co) the tap's Cin / groups bytes of
+    w[..., co], zero up to Cgp = ``group_row_bytes``."""
     kh, kw, cin, cout = w.shape
+    if groups > 1:
+        out = torch.zeros((kh * kw, cout, group_row_bytes(cin)), dtype=torch.int8,
+                          device=w.device)
+        out[:, :, :cin] = w.reshape(kh * kw, cin, cout).permute(0, 2, 1)
+        return out
     rp = row_bytes(kw, cin)
     out = torch.zeros((cout, padded_k((kh, kw, cin))), dtype=torch.int8, device=w.device)
     rows = out[:, :kh * rp].view(cout, kh, rp)
@@ -154,10 +178,12 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def unpack_weight(wk: torch.Tensor, kshape) -> torch.Tensor:
+def unpack_weight(wk: torch.Tensor, kshape, groups: int = 1) -> torch.Tensor:
     """``pack_weight``'s inverse as a view of ``wk``: the HWIO weight
-    (kh, kw, Cin, Cout), ``kshape`` = (kh, kw, Cin)."""
+    (kh, kw, Cin / groups, Cout), ``kshape`` = (kh, kw, Cin / groups)."""
     kh, kw, cin = kshape
+    if groups > 1:
+        return wk.view(kh, kw, *wk.shape[1:])[..., :cin].permute(0, 1, 3, 2)
     rp, cout = row_bytes(kw, cin), wk.shape[0]
     rows = wk[:, :kh * rp].view(cout, kh, rp)[:, :, :kw * cin]
     return rows.view(cout, kh, kw, cin).permute(1, 2, 3, 0)
@@ -183,15 +209,16 @@ def _check(xq, w, dq, bias, out_dtype, relu, cap):
 def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
           stride: int = 1, groups: int = 1, relu: bool = False, cap=None,
           out_dtype=torch.bfloat16, wk=None) -> torch.Tensor:
-    """Q1: the int8 conv of xq by w over the reference's windows, then the
-    dequantizing epilogue (see the module's docstring). ``wk``, the packed
-    weight (``pack_weight(w)``), is packed here when not given."""
+    """Q1 (Q3 for groups > 1): the int8 conv of xq by w over the reference's
+    windows, then the dequantizing epilogue (see the module's docstring).
+    ``wk``, the packed weight (``pack_weight(w, groups)``), is packed here
+    when not given."""
     _check(xq, w, dq, bias, out_dtype, relu, cap)
     if not _on_card(xq, w, dq, bias):
         return qconv_reference(xq, w, dq, bias, stride=stride, groups=groups, relu=relu,
                                cap=cap, out_dtype=out_dtype)
     if groups != 1:
-        raise not_ported("groups > 1 in the int8 conv kernel (Q1)", ROADMAP_GROUPED)
+        return _qconv_grouped(xq, w, dq, bias, stride, groups, relu, cap, out_dtype, wk)
     n, h, wd, cin = xq.shape
     kh, kw, wcin, cout = w.shape
     if wcin != cin:
@@ -226,14 +253,50 @@ def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
                      None if tickets is None else tickets.data_ptr(),
                      n, h, wd, cin, cout, kh, kw, stride, reference_padding(h, kh, stride)[0],
                      reference_padding(wd, kw, stride)[0], ho, wo, kp,
-                     2 if out_dtype == torch.float32 else int(relu), cap is not None,
+                     _mode(relu, out_dtype), cap is not None,
                      0.0 if cap is None else float(cap), tile_n, splits, device=xq.device)
         LAUNCHES += 1
     return out
 
 
+def _mode(relu: bool, out_dtype) -> int:
+    """The kernels' epilogue mode: 0 bf16, 1 bf16 with ReLU (and the cap),
+    2 fp32 (qconv.cu Mode)."""
+    return 2 if out_dtype == torch.float32 else int(relu)
+
+
+def _qconv_grouped(xq, w, dq, bias, stride, groups, relu, cap, out_dtype, wk):
+    """Q3: ``qconv`` with groups > 1 on the card."""
+    global GROUPED_LAUNCHES
+    n, h, wd, cin = xq.shape
+    kh, kw, cin_g, cout = w.shape
+    if cin_g * groups != cin or cout % groups:
+        raise ValueError(f"qconv: x has {cin} channels and w ({tuple(w.shape)}) takes "
+                         f"{cin_g} a group; {groups} groups need both counts to divide")
+    if kh * kw * cin_g > MAX_K:
+        raise ValueError(f"qconv: K = {kh * kw * cin_g} a group exceeds {MAX_K}: "
+                         "127 * 127 * K would overflow int32")
+    wk = pack_weight(w, groups) if wk is None else wk
+    want = (kh * kw, cout, group_row_bytes(cin_g))
+    if (wk.dtype != torch.int8 or tuple(wk.shape) != want or not wk.is_contiguous()
+            or wk.device != xq.device or not build.aligned16(wk)):
+        raise ValueError(f"qconv: wk must be the contiguous, 16-byte aligned int8 {want} of "
+                         f"pack_weight(w, {groups}), got {tuple(wk.shape)}")
+    ho, wo = h // stride, wd // stride
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    if out.numel():
+        build.launch("rt_qconv_grouped_s8", xq.data_ptr(), wk.data_ptr(), dq.data_ptr(),
+                     None if bias is None else bias.data_ptr(), out.data_ptr(),
+                     n, h, wd, cin, cout, groups, kh, kw, stride,
+                     reference_padding(h, kh, stride)[0], reference_padding(wd, kw, stride)[0],
+                     ho, wo, _mode(relu, out_dtype), cap is not None,
+                     0.0 if cap is None else float(cap), device=xq.device)
+        GROUPED_LAUNCHES += 1
+    return out
+
+
 def _on_card(xq, w, dq, bias) -> bool:
-    """True to launch Q1, False for the plain version (CPU tensors only);
+    """True to launch Q1 (Q3), False for the plain version (CPU tensors only);
     raises on mixed devices, a device other than CPU or CUDA, or a
     non-contiguous xq, dq or bias (``build.on_card``'s rules; it takes no
     int8). ``w`` may be any view: the kernel reads ``wk``."""

@@ -77,6 +77,9 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
     """Training forward of the fused engines on NHWC images: (fp32 logits,
     {"bn_stats": ...}) with the batch statistics of every BN layer, detached,
     in the tree of ``models.resnet.forward``."""
+    if mcfg.groups > 1:
+        raise ValueError(f"kernels={ecfg.kernels!r}: the fused engines have no grouped conv "
+                         f"(groups={mcfg.groups}); JAX's fail on it too")
     eps = mcfg.bn_eps
     cap = ecfg.relu_cap
     all_plain = ecfg.kernels == "fusedxla"

@@ -29,6 +29,15 @@ models/resnet.py:122-168) and runs every other block, the stem and the FC
 here with plain ops. Every hand kernel is differentiable, so the same
 forward serves the training step's autograd.
 
+A grouped conv (ResNeXt, ``ModelConfig.groups > 1``) is the plain conv
+under every ``conv_kernels``, as JAX's ``_conv`` sends it to XLA
+(models/resnet.py:49-58); the other convs keep their engine, and the
+whole-block kernel skips grouped blocks. With ``space_to_depth`` the stem
+is ``ops.space_to_depth.s2d_stem_conv`` (the plain conv on the folded
+image) wherever JAX takes that route (NHWC, a 7x7/s2 stem, even H and W,
+models/resnet.py:300-314), whatever ``conv_kernels`` says; elsewhere, and
+on the fused engines' route, which JAX takes first, the standard stem.
+
 Remat (``ExecutionConfig.remat``, models/resnet.py:331-373), on this path in
 a training forward without the tape:
 
@@ -89,24 +98,30 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import ROADMAP_GROUPED, ExecutionConfig, ModelConfig, not_ported
+from ..config import ExecutionConfig, ModelConfig
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.batchnorm import batch_norm_ghost
 from ..ops.conv import channel_dim, conv2d
 from ..ops.dispatch import bn_act, bn_stats, conv as _dispatch_conv, fc, residual_join
 from ..ops.precision import precision_scope
+from ..ops.space_to_depth import s2d_stem_conv
 
 _FUSED_ENGINES = ("fused", "hybrid", "fusedxla")
 
 
 def _conv(x, w, *, stride, ecfg, groups=1):
     if groups > 1:
-        # grouped conv (ResNeXt): plain path only
-        if ecfg.conv_kernels == "pallas":
-            raise not_ported("groups > 1 with conv_kernels='pallas'",
-                             ROADMAP_GROUPED)
+        # a grouped conv (ResNeXt) is the plain conv under every
+        # conv_kernels, as JAX sends it to XLA (models/resnet.py:49-58)
         return conv2d(x, w, stride=stride, groups=groups, layout=ecfg.layout)
     return _dispatch_conv(x, w, stride=stride, engine=ecfg.conv_kernels, layout=ecfg.layout)
+
+
+def _use_s2d(x, mcfg, ecfg) -> bool:
+    """JAX's test for the space-to-depth stem (models/resnet.py:300-307):
+    asked for, NHWC, a 7x7/s2 stem and even H and W."""
+    return (ecfg.space_to_depth and ecfg.layout == "NHWC" and mcfg.init_kernel == 7
+            and mcfg.init_stride == 2 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
 
 
 def _checkpoint(fn, *args, ecfg):
@@ -323,8 +338,12 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
     # bn_mode='off' reads no statistics, so bn_state may be None there
     state = bn_state or {"blocks": [{}] * mcfg.num_blocks}
     stats: Dict[str, Any] = {}
-    out = _taped(tape, "init_conv_applied", _conv(
-        x.to(ecfg.cdtype), params["init_conv"]["w"], stride=mcfg.init_stride, ecfg=ecfg))
+    x = x.to(ecfg.cdtype)
+    if _use_s2d(x, mcfg, ecfg):
+        stem = s2d_stem_conv(x, params["init_conv"]["w"])
+    else:
+        stem = _conv(x, params["init_conv"]["w"], stride=mcfg.init_stride, ecfg=ecfg)
+    out = _taped(tape, "init_conv_applied", stem)
     out, stats["init_bn"] = _bn_apply(
         out, _bn_stats(out, state.get("init_bn"), ecfg=ecfg, train=train),
         params["init_bn"], eps=mcfg.bn_eps, ecfg=ecfg, relu_fused=True)

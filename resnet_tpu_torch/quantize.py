@@ -20,14 +20,17 @@ Site names match JAX's: ``init``, ``b{i}.reduce|spatial|expand`` (bottleneck)
 or ``b{i}.conv1|conv2`` (basic), ``b{i}.proj``, ``fc``; the reduce and the
 proj site quantize the same input twice, as JAX's do.
 
-On the card ``quantized_forward`` launches 54 Q1 and 54 Q2 for ResNet-50;
-on the CPU the wrappers run their plain versions. ``forward_sites(...,
+On the card ``quantized_forward`` launches 54 Q1 and 54 Q2 for ResNet-50,
+and for ResNeXt-50 38 Q1, 16 Q3 (the grouped 3x3s) and 54 Q2; on the CPU
+the wrappers run their plain versions. ``forward_sites(...,
 plain=True)`` runs the plain versions on any device: tests and
 ``chip_smoke.py`` hold the kernels to them with it. ``folded_forward`` and
 the calibration are plain fp32 torch ops with TF32 off
 (``ops.precision``), as JAX's are XLA convs at HIGHEST.
 The geometry is the training path's: the reference's centred windows
-(``ops.padding``; the stem pads (3, 2)), grouped convs in the plain versions.
+(``ops.padding``; the stem pads (3, 2)). The stem is the 7x7 conv whatever
+``ExecutionConfig.space_to_depth`` says: JAX's folded and quantized
+forwards have no s2d route either.
 """
 
 from __future__ import annotations
@@ -197,18 +200,21 @@ def inverse_scale(scale: float) -> float:
 
 
 def prepare_sites(qparams, scales: Dict[str, float], mcfg: ModelConfig):
-    """What each site's kernels read, by site name: ``wk``, the int8 weight
-    as Q1 reads it (``quant.pack_weight`` of the HWIO ``wq``; the FC's as
-    (1, 1, K, N)), ``kshape`` = (kh, kw, Cin) to recover ``wq`` from it
-    (``quant.unpack_weight``), ``ws``, ``b`` (where the site has one),
-    ``dq`` = ws * scale in fp32 (JAX's order) and ``inv`` = 1 / scale in
-    fp32 (a float)."""
+    """What each site's kernels read, by site name: ``groups`` (the model's
+    at the bottleneck's spatial sites, else 1), ``wk``, the int8 weight as
+    Q1 or, grouped, Q3 reads it (``quant.pack_weight`` of the HWIO ``wq``;
+    the FC's as (1, 1, K, N)), ``kshape`` = (kh, kw, Cin / groups) to
+    recover ``wq`` from it (``quant.unpack_weight``), ``ws``, ``b`` (where
+    the site has one), ``dq`` = ws * scale in fp32 (JAX's order) and
+    ``inv`` = 1 / scale in fp32 (a float)."""
     sites = {}
     for name, q in site_leaves(qparams).items():
         scale = float(np.float32(scales[name]))
         wq = q["wq"] if q["wq"].dim() == 4 else q["wq"].reshape(1, 1, *q["wq"].shape)
-        site = {"wk": quant.pack_weight(wq), "kshape": tuple(wq.shape[:3]), "ws": q["ws"],
-                "dq": q["ws"].float() * scale, "inv": inverse_scale(scale)}
+        groups = mcfg.groups if name.endswith(".spatial") else 1
+        site = {"wk": quant.pack_weight(wq, groups), "kshape": tuple(wq.shape[:3]),
+                "groups": groups, "ws": q["ws"], "dq": q["ws"].float() * scale,
+                "inv": inverse_scale(scale)}
         if "b" in q:
             site["b"] = q["b"].float().contiguous()
         sites[name] = site
@@ -224,10 +230,10 @@ def forward_sites(sites, x: torch.Tensor, mcfg: ModelConfig, *, relu_cap=None,
         raise ValueError(f"quantized inference takes NHWC images (N, H, W, "
                          f"{mcfg.in_channels}); got {tuple(x.shape)}")
 
-    def site(name, h, stride, groups=1, act=False, out_dtype=torch.bfloat16):
+    def site(name, h, stride, act=False, out_dtype=torch.bfloat16):
         s = sites[name]
-        w = quant.unpack_weight(s["wk"], s["kshape"])
-        kw = dict(stride=stride, groups=groups, relu=act, cap=relu_cap if act else None,
+        w = quant.unpack_weight(s["wk"], s["kshape"], s["groups"])
+        kw = dict(stride=stride, groups=s["groups"], relu=act, cap=relu_cap if act else None,
                   out_dtype=out_dtype)
         if plain:
             return quant.qconv_reference(quant.quant_act_reference(h, s["inv"]), w, s["dq"],
@@ -242,7 +248,7 @@ def forward_sites(sites, x: torch.Tensor, mcfg: ModelConfig, *, relu_cap=None,
             stride = 2 if mcfg.is_reduction_block(i) else 1
             if mcfg.bottleneck:
                 o = site(f"b{i}.reduce", h, 1, act=True)
-                o = site(f"b{i}.spatial", o, stride, mcfg.groups, act=True)
+                o = site(f"b{i}.spatial", o, stride, act=True)
                 o = site(f"b{i}.expand", o, 1)
             else:
                 o = site(f"b{i}.conv1", h, stride, act=True)
@@ -260,7 +266,7 @@ def site_qparams(sites):
     ``prepare_sites``'s dict, ``wq`` recovered from ``wk``."""
     leaves = {}
     for name, s in sites.items():
-        wq = quant.unpack_weight(s["wk"], s["kshape"]).contiguous()
+        wq = quant.unpack_weight(s["wk"], s["kshape"], s["groups"]).contiguous()
         leaves[name] = {"wq": wq.view(wq.shape[2:]) if name == "fc" else wq, "ws": s["ws"],
                         **({"b": s["b"]} if "b" in s else {})}
     return site_tree(leaves)

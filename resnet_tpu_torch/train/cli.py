@@ -6,9 +6,9 @@ main() (resnet.cu:3245-3296) and the six binaries ARE the config system
 
 ``build_config`` takes the JAX package's arguments with the same defaults
 and choices, and one more: ``--device {cuda,cpu}`` (default cuda) in place
-of JAX_PLATFORMS. Values the port does not run yet raise
-NotImplementedError naming their ROADMAP.md queue A item:
-``--space-to-depth`` (A8) and more than one device (A13). ``--int8`` with
+of JAX_PLATFORMS. More than one device, which the port does not run yet,
+raises NotImplementedError naming its ROADMAP.md queue A item (A13).
+``--space-to-depth`` folds the 7x7 stem as JAX's does. ``--int8`` with
 ``--evaluate`` or ``--export`` runs the W8A8 post-training-quantized model
 (``quantize``, calibrated on the first data batch; on the card its int8
 kernels), printing the JAX CLI's lines. ``--dtype bfloat16`` trains in bf16 under every ``--kernels``

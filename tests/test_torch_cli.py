@@ -59,6 +59,9 @@ ARGVS = [
     ["--dtype", "bfloat16", "--layout", "NCHW", "--kernels", "pallas", "--conv-kernels",
      "pallas", "--shard-layout", "NHWC"],
     ["--dtype", "bfloat16", "--kernels", "fused"],
+    # JAX's headline configuration: s2d, bf16, grad_accum 2, standard projections
+    ["--space-to-depth", "--dtype", "bfloat16", "--grad-accum", "2", "--batch-size", "256",
+     "--projections", "standard", "--model", "resnext50_32x4d", "--conv-kernels", "pallas"],
     ["--export", "m.pt", "--export-dtype", "bfloat16", "--resume-from", "latest"],
 ]
 
@@ -83,7 +86,6 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--space-to-depth"], "A8"),
     (["--num-devices", "2"], "A13"),
     (["--spatial-devices", "2"], "A13"),
     (["--zero-sharding"], "A13"),

@@ -17,10 +17,11 @@ K1's bf16 forward on that core's persistent kernel and K3's one-launch bf16
 backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``, K1's bf16 dx and K3's
 bf16 forward on the same persistent kernel, with the witnesses of their bits
 through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``, the int8
-serving kernels (Q1, Q2; each bit for bit against its plain version, Q1
-also on the shapes its tiles and K splits must get right, and a quantized
-ResNet-50 forward at batch 8 against the plain int8 forward) with
-``-k "qconv or quant_act or quantized"``.
+serving kernels (Q1, Q3, Q2; each bit for bit against its plain version,
+Q1 also on the shapes its tiles and K splits must get right, Q3 on ragged
+and misaligned shapes, and a quantized ResNet-50 and ResNeXt-50 forward
+against the plain int8 forward) with ``-k "qconv or quant_act or
+quantized"``.
 
 Without a CUDA device every test here skips.
 """
@@ -1308,15 +1309,81 @@ def test_fused_join_is_its_plain_version_bit_for_bit_on_cuda(cuda, dtype, label,
     assert torch.equal(got, fused_conv.fused_join_reference(e, *rows[:2], r, *rows[2:], cap))
 
 
-def test_qconv_refuses_a_grouped_conv_on_cuda(cuda):
-    """Q1 takes groups = 1 only: a grouped conv on the card raises, naming
-    queue A's A7, as K1 does; the plain version computes it on the CPU."""
+# Q3 (kernels.quant.qconv with groups > 1) on the shapes its loads must get
+# right: label, (batch, H, Cin, Cout, k, stride, groups), x's byte offset,
+# the output dtype, relu, cap, bias
+QCONV_GROUPED_EXACT = [
+    ("16 a group, 16-byte loads", (2, 14, 512, 512, 3, 1, 32), 0, "bf16", True, None, True),
+    ("16 a group at offset 8: 8-byte loads", (2, 14, 512, 512, 3, 1, 32), 8, "bf16", True,
+     None, True),
+    ("16 a group at offset 4: 4-byte loads", (2, 14, 512, 512, 3, 2, 32), 4, "bf16", False,
+     None, True),
+    ("16 a group at offset 1: the byte path", (2, 14, 512, 512, 3, 1, 32), 1, "bf16", True,
+     6.0, True),
+    ("4 a group, M = 49 (not a multiple of 4)", (1, 7, 128, 128, 3, 1, 32), 0, "bf16", True,
+     None, False),
+    ("8 a group, 3x3/s2", (3, 28, 256, 256, 3, 2, 32), 0, "bf16", True, None, True),
+    ("64 a group, 7^2", (2, 7, 2048, 2048, 3, 1, 32), 0, "bf16", True, None, True),
+    ("ragged: 3 a group, 5 out", (2, 9, 6, 10, 3, 1, 2), 0, "bf16", False, None, True),
+    ("ragged at offset 3, fp32 out", (3, 6, 12, 8, 3, 2, 4), 3, "f32", False, None, True),
+    ("a 1x1/s2 grouped conv, 2 outputs a group", (2, 8, 64, 32, 1, 2, 16), 0, "bf16", True,
+     None, True),
+]
+
+
+@pytest.mark.parametrize("case", QCONV_GROUPED_EXACT, ids=[c[0] for c in QCONV_GROUPED_EXACT])
+def test_qconv_grouped_launches_q3_bit_for_bit(cuda, case):
+    """A grouped conv on the card launches Q3 (GROUPED_LAUNCHES, not Q1's
+    counter), twice, each time equal to qconv_reference bit for bit."""
     from resnet_tpu_torch.kernels import quant
 
-    xq = torch.zeros(1, 8, 8, 16, dtype=torch.int8, device="cuda")
-    w = torch.zeros(3, 3, 8, 12, dtype=torch.int8, device="cuda")
-    with pytest.raises(NotImplementedError, match="A7"):
-        quant.qconv(xq, w, torch.ones(12, device="cuda"), groups=2)
+    _, (n, h, cin, cout, k, s, g), offset, out, relu, cap, bias = case
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flat = torch.randint(-127, 128, (n * h * h * cin + offset,), generator=gen,
+                         device="cuda", dtype=torch.int8)
+    xq = flat[offset:].view(n, h, h, cin)
+    w = torch.randint(-127, 128, (k, k, cin // g, cout), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    dq = (torch.rand(cout, generator=gen, device="cuda") + 0.5) * (
+        4.0 / (127 * 127 * (k * k * cin // g) ** 0.5))
+    b = torch.randn(cout, generator=gen, device="cuda") if bias else None
+    kw = dict(stride=s, groups=g, relu=relu, cap=cap,
+              out_dtype=torch.float32 if out == "f32" else torch.bfloat16)
+    want = quant.qconv_reference(xq, w, dq, b, **kw)
+    for _ in range(2):
+        before = quant.LAUNCHES, quant.GROUPED_LAUNCHES
+        got = quant.qconv(xq, w, dq, b, **kw)
+        assert (quant.LAUNCHES, quant.GROUPED_LAUNCHES) == (before[0], before[1] + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_quantized_resnext50_forward_is_its_plain_version_on_cuda(cuda):
+    """A quantized ResNeXt-50 32x4d at 224 (seeded weights, calibrated on a
+    batch of 2) at batch 2: the hand-kernel forward launches 38 Q1, 16 Q3
+    and 54 Q2 and gives the plain int8 forward's logits bit for bit."""
+    import numpy as np
+
+    from resnet_tpu_torch import quantize
+    from resnet_tpu_torch.config import model_config
+    from resnet_tpu_torch.kernels import quant
+    from resnet_tpu_torch.models import init_bn_state, init_params
+
+    mcfg = model_config("resnext50_32x4d")
+    params = init_params(torch.Generator().manual_seed(1234), mcfg, device="cuda")
+    bn_state = init_bn_state(mcfg, device="cuda")
+    rng = np.random.default_rng(1234)
+    calib, x = (torch.from_numpy(rng.normal(0, 50, (2, 224, 224, 3)).astype(np.float32)).cuda()
+                for _ in range(2))
+    qparams, scales = quantize.quantize_model(params, bn_state, mcfg, calib)
+    sites = quantize.prepare_sites(qparams, scales, mcfg)
+    before = quant.LAUNCHES, quant.GROUPED_LAUNCHES, quant.ACT_LAUNCHES
+    got = quantize.forward_sites(sites, x, mcfg)
+    moved = (quant.LAUNCHES - before[0], quant.GROUPED_LAUNCHES - before[1],
+             quant.ACT_LAUNCHES - before[2])
+    assert moved == (38, 16, 54)
+    want = quantize.forward_sites(sites, x, mcfg, plain=True)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 def test_quantized_resnet50_forward_is_its_plain_version_on_cuda(cuda):

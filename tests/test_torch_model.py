@@ -148,19 +148,13 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(space_to_depth=True), "A8"),
+    (dict(num_devices=2), "A13"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
     """NotImplementedError naming the item from the config where nothing of
-    the value runs yet (A8)."""
-    from resnet_tpu_torch.models import init_params
-
+    the value runs yet (A13: a parallel layout)."""
     with pytest.raises(NotImplementedError, match=item):
-        ecfg = tcfg.ExecutionConfig(**kw)
-        mcfg = tcfg.tiny_model_config(block_sizes=(2, 2))
-        params = init_params(torch.Generator().manual_seed(0), mcfg, device="cpu",
-                             dtype=ecfg.pdtype)
-        forward(params, torch.zeros(2, 16, 16, 3), mcfg, ecfg, train=True)
+        tcfg.TrainConfig(model=tcfg.tiny_model_config(), parallel=tcfg.ParallelConfig(**kw))
 
 
 @pytest.mark.parametrize("kernels", ["fused", "fusedxla", "hybrid"])
@@ -215,20 +209,72 @@ def test_typos_still_fail_as_value_errors():
         tcfg.ExecutionConfig(kernels="palas")
 
 
-def test_grouped_conv_only_on_the_plain_path():
-    mcfg = tcfg.tiny_model_config(groups=2, width_multiplier=2.0)
-    from resnet_tpu_torch.models import init_bn_state, init_params
+GROUPED = dict(groups=2, width_multiplier=2.0)
 
-    gen = torch.Generator().manual_seed(0)
-    params = init_params(gen, mcfg, device="cpu")
-    state = init_bn_state(mcfg, device="cpu")
-    x = torch.zeros(1, 16, 16, 3)
-    logits, _ = forward(params, x, mcfg, tcfg.ExecutionConfig(kernels="pallas"),
-                        train=False, bn_state=state)
-    assert logits.shape == (1, 8)
-    with pytest.raises(NotImplementedError, match="A7"):
-        forward(params, x, mcfg, tcfg.ExecutionConfig(conv_kernels="pallas"),
-                train=False, bn_state=state)
+
+@pytest.mark.parametrize("what", ["forward", "train", "bf16"])
+def test_grouped_conv_only_on_the_plain_path(what):
+    """The grouped 3x3s (ResNeXt) run the plain conv under every
+    conv_kernels, as JAX sends them to XLA; every other conv keeps K1. The
+    tiny grouped model under kernels='pallas', conv_kernels='pallas'
+    against JAX's (Pallas in interpret mode): the eval forward within 1e-4
+    of max|JAX|; one training forward and backward by
+    test_train_forward_and_grads_match_jax's rule; and one bf16 Adam step by
+    tests/test_torch_nchw.py's (within 2x JAX's own bf16-vs-fp32 gap)."""
+    jm, tm = jcfg.tiny_model_config(**GROUPED), tcfg.tiny_model_config(**GROUPED)
+    kw = dict(kernels="pallas", conv_kernels="pallas")
+    if what == "forward":
+        _compare(jm, tm, engine="pallas")
+    elif what == "train":
+        _train_parity(jm, tm, kw)
+    else:
+        _bf16_step_parity(jm, tm, kw)
+
+
+def _bf16_step_parity(jm, tm, kw):
+    from resnet_tpu.train.state import init_train_state as j_init_train_state
+    from resnet_tpu.train.step import make_train_step as j_make_train_step
+    from test_torch_nchw import METRIC_TOL, _gap, _held, _held_trees
+
+    from resnet_tpu_torch.train import make_train_step
+
+    jecfg = jcfg.ExecutionConfig(compute_dtype="bfloat16", pallas_interpret=True, **kw)
+    jecfg32 = dataclasses.replace(jecfg, compute_dtype="float32")
+    opt = dict(learning_rate=1e-4)
+    jc = jcfg.TrainConfig(model=jm, execution=jecfg, optimizer=jcfg.OptimizerConfig(**opt))
+    tc = tcfg.TrainConfig(model=tm, execution=tcfg.ExecutionConfig(compute_dtype="bfloat16",
+                                                                   **kw),
+                          optimizer=tcfg.OptimizerConfig(**opt))
+    js0 = jax.device_get(j_init_train_state(jc, jax.random.PRNGKey(11)))
+    rng = np.random.default_rng(5)
+    batch = {"images": rng.normal(0, 50, (4, 16, 16, 3)).astype(np.float32),
+             "labels": rng.integers(0, 8, 4).astype(np.int32)}
+    js, jmet = j_make_train_step(jc, donate=False)(js0, batch)
+    js32, jmet32 = j_make_train_step(dataclasses.replace(jc, execution=jecfg32),
+                                     donate=False)(js0, batch)
+    ts, tmet = make_train_step(tc)(bridge.train_state_from_numpy(js0, device="cpu"), batch)
+    for k in ("loss", "grad_norm"):
+        _held(tmet[k].item(), float(jmet[k]), _gap([float(jmet[k])], [float(jmet32[k])]), k,
+              METRIC_TOL)
+    lr = opt["learning_rate"]
+    for name in ("params", "opt_state", "bn_state"):
+        _held_trees(getattr(ts, name), getattr(js, name), getattr(js32, name), name, TOL,
+                    2 * lr if name == "params" else 0.0)
+
+
+@pytest.mark.parametrize("kernels", ["fused", "hybrid", "fusedxla"])
+def test_fused_engines_refuse_a_grouped_model_as_jax_does(kernels):
+    """JAX's fused engines fail on a grouped model with a ValueError (a
+    shape mismatch in their ungrouped convs); the port's raise one that
+    names the grouped conv before any conv runs."""
+    jm, tm = jcfg.tiny_model_config(**GROUPED), tcfg.tiny_model_config(**GROUPED)
+    params, _ = _perturbed(jm, 7)
+    x = np.zeros((2, 16, 16, 3), np.float32)
+    with pytest.raises(ValueError):
+        j_forward(params, x, jm, jcfg.ExecutionConfig(kernels=kernels, pallas_interpret=True))
+    with pytest.raises(ValueError, match="grouped conv"):
+        forward(bridge.params_from_numpy(params, device="cpu"), torch.from_numpy(x), tm,
+                tcfg.ExecutionConfig(kernels=kernels))
 
 
 def _jax_train_grads(params, state, x, labels, jecfg, jm):

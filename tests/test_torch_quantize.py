@@ -67,12 +67,17 @@ def _np(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["bottleneck", "basic"])
+MODELS = {"bottleneck": {}, "basic": dict(bottleneck=False, expansion=1),
+          "grouped": dict(groups=2, width_multiplier=2.0)}
+
+
+@pytest.fixture(scope="module", params=sorted(MODELS))
 def model(request):
     """(JAX config, port config, JAX params, JAX bn_state, port params, port
     bn_state): one init, running statistics made non-trivial as
-    tests/test_quantize.py does (a fresh init folds to an identity affine)."""
-    over = {} if request.param else dict(bottleneck=False, expansion=1)
+    tests/test_quantize.py does (a fresh init folds to an identity affine).
+    'grouped' is the tiny ResNeXt: its spatial sites are grouped convs."""
+    over = MODELS[request.param]
     jm, mcfg = j_tiny(**over), tiny_model_config(**over)
     jp = j_init_params(jax.random.PRNGKey(1234), jm)
     js = jax.tree.map(lambda a: a + 0.15 * (1.0 + jnp.arange(a.shape[0]) % 3),
@@ -185,6 +190,11 @@ QCONV_CASES = [
     ("1x1/s1", 8, 32, 24, 1, 1, 1),
     ("1x1/s2", 8, 32, 24, 1, 2, 1),
     ("grouped 3x3/s1 g2", 8, 16, 12, 3, 1, 2),
+    # Q3's: ResNeXt's 4 channels a group, a stride-2 site, 8 a group, and a
+    # ragged group (Cin / g 3, Cout / g 5) on the kernel's byte path
+    ("grouped 3x3/s1 g8 Cin/g 4", 8, 32, 32, 3, 1, 8),
+    ("grouped 3x3/s2 g4 Cin/g 8", 8, 32, 16, 3, 2, 4),
+    ("grouped 3x3/s1 g2 Cin/g 3 Cout/g 5", 6, 6, 10, 3, 1, 2),
 ]
 
 
@@ -266,6 +276,41 @@ def test_quantized_forward_from_jax_qparams(model, relu_cap):
     assert (got.argmax(-1) == want.argmax(-1))[decided].all()
 
 
+def test_grouped_sites_give_jax_accumulators_and_logits():
+    """The tiny grouped model quantized by JAX and carried across: at each
+    grouped (spatial) site, on one bf16 activation, the port's int32
+    accumulator (Q3's plain version on the unpacked weight) equals
+    _qconv's; the port's logits equal JAX's quantized_forward bit for
+    bit."""
+    over = MODELS["grouped"]
+    jm, mcfg = j_tiny(**over), tiny_model_config(**over)
+    jp = j_init_params(jax.random.PRNGKey(7), jm)
+    js = jax.tree.map(lambda a: a + 0.15 * (1.0 + jnp.arange(a.shape[0]) % 3),
+                      j_init_bn_state(jm))
+    qparams, scales = jq.quantize_model(jp, js, jm, jnp.asarray(_images(8, 8)))
+    tqp, tsc = qparams_from_numpy(_np(qparams), scales, device="cpu")
+    sites = tq.prepare_sites(tqp, tsc, mcfg)
+    rng = np.random.default_rng(9)
+    grouped = [name for name, site in sites.items() if site["groups"] > 1]
+    assert grouped == [f"b{i}.spatial" for i in range(mcfg.num_blocks)]
+    for name in grouped:
+        site, q = sites[name], qparams["blocks"][int(name[1])]["spatial"]
+        cin = site["kshape"][2] * mcfg.groups
+        x = jnp.asarray(rng.normal(0, 2, (2, 8, 8, cin)), jnp.bfloat16)
+        xq = jq._quant_act(x, np.float32(scales[name]))
+        stride = 2 if mcfg.is_reduction_block(int(name[1])) else 1
+        want = np.asarray(jq._qconv(xq, q["wq"], stride, mcfg.groups))
+        w = quant.unpack_weight(site["wk"], site["kshape"], site["groups"])
+        np.testing.assert_array_equal(w.numpy(), np.asarray(q["wq"]))
+        got = quant.qconv_acc_reference(torch.from_numpy(np.array(xq)), w, stride,
+                                        site["groups"])
+        np.testing.assert_array_equal(got.numpy(), want)
+    x = _images(10, 6)
+    want = np.asarray(jq.quantized_forward(qparams, scales, jnp.asarray(x), jm))
+    got = tq.forward_sites(sites, torch.from_numpy(x), mcfg).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_quantize_model_tracks_its_folded_forward(model):
     """The port's quantize_model end to end, by JAX's own criteria
     (tests/test_quantize.py:72-88)."""
@@ -316,6 +361,50 @@ def test_pack_weight_rows(kshape):
         assert torch.equal(wk[:, :k], w.reshape(k, 24).t())
     assert int(wk.ne(0).sum()) == int(w.ne(0).sum())  # the padding is zero
     assert torch.equal(quant.unpack_weight(wk, kshape), w)
+
+
+@pytest.mark.parametrize("kshape,groups", [((3, 3, 4), 32), ((3, 3, 3), 2), ((1, 1, 8), 4)])
+def test_grouped_pack_weight(kshape, groups):
+    """Q3's packed weight: (kh * kw, Cout, Cgp), row (tap, co) the tap's
+    Cin / g bytes of w[..., co] zero-padded to a multiple of 4;
+    unpack_weight views it as HWIO again."""
+    kh, kw, cin_g = kshape
+    cout = 2 * groups
+    w = torch.randint(-127, 128, (*kshape, cout), generator=torch.Generator().manual_seed(2),
+                      dtype=torch.int8)
+    wk = quant.pack_weight(w, groups)
+    cgp = quant.group_row_bytes(cin_g)
+    assert wk.shape == (kh * kw, cout, cgp) and cgp % 4 == 0 and cgp - cin_g < 4
+    for di in range(kh):
+        for dj in range(kw):
+            assert torch.equal(wk[di * kw + dj, :, :cin_g], w[di, dj].t())
+    assert not wk[..., cin_g:].any()
+    back = quant.unpack_weight(wk, kshape, groups)
+    assert torch.equal(back, w) and back.untyped_storage().data_ptr() == wk.data_ptr()
+
+
+def test_grouped_qconv_hands_q3_its_arguments(monkeypatch):
+    """groups > 1 on a card launches Q3 (rt_qconv_grouped_s8) with
+    build.SIGNATURES' arguments and moves GROUPED_LAUNCHES, not Q1's
+    counter: ResNeXt-50's first stage-2 3x3 (256 -> 256 in 32 groups, s2)
+    at batch 2. Recorded here with the launch replaced."""
+    calls = []
+    monkeypatch.setattr(quant, "_on_card", lambda *a: True)
+    monkeypatch.setattr(build, "launch", lambda name, *args, device: calls.append((name, args)))
+    xq = torch.zeros(2, 56, 56, 256, dtype=torch.int8)
+    w = torch.zeros(3, 3, 8, 256, dtype=torch.int8)
+    dq, b = torch.ones(256), torch.zeros(256)
+    before = quant.LAUNCHES, quant.GROUPED_LAUNCHES
+    out = quant.qconv(xq, w, dq, b, stride=2, groups=32, relu=True, cap=6.0)
+    assert out.shape == (2, 28, 28, 256) and out.dtype == torch.bfloat16
+    assert (quant.LAUNCHES, quant.GROUPED_LAUNCHES) == (before[0], before[1] + 1)
+    name, args = calls[-1]
+    assert name == "rt_qconv_grouped_s8" and len(args) + 1 == len(build.SIGNATURES[name])
+    assert args[5:] == (2, 56, 56, 256, 256, 32, 3, 3, 2, 1, 1, 28, 28, 1, True, 6.0)
+    with pytest.raises(ValueError, match="pack_weight"):  # a Q1 packing is refused
+        quant.qconv(xq, w, dq, stride=2, groups=32, wk=quant.pack_weight(w))
+    with pytest.raises(ValueError):  # 256 input channels are not 32 groups of 4
+        quant.qconv(xq, w[:, :, :4], dq, stride=2, groups=32)
 
 
 def test_qconv_constants_mirror_the_source():

@@ -178,3 +178,62 @@ def test_nchw_model_takes_nchw_bodies(tmp_path, rng):
         httpd.shutdown()
         httpd.server_close()
         t.join(timeout=30)
+
+
+# (label, model overrides, execution, export kind): ResNeXt (groups 2) in
+# fp32, bf16 and int8, and the 7x7 stem with s2d in fp32 and bf16
+SAVED = [
+    ("resnext fp32", dict(groups=2, width_multiplier=2.0), dict(kernels="pallas",
+                                                               conv_kernels="pallas"), "fp"),
+    ("resnext bf16", dict(groups=2, width_multiplier=2.0),
+     dict(compute_dtype="bfloat16", kernels="pallas", conv_kernels="pallas"), "bf16"),
+    ("resnext int8", dict(groups=2, width_multiplier=2.0), {}, "int8"),
+    ("s2d fp32", dict(init_kernel=7), dict(space_to_depth=True, conv_kernels="pallas"), "fp"),
+    ("s2d bf16", dict(init_kernel=7), dict(space_to_depth=True, compute_dtype="bfloat16"),
+     "bf16"),
+]
+
+
+@pytest.mark.parametrize("label,over,execution,kind", SAVED, ids=[c[0] for c in SAVED])
+def test_resnext_and_s2d_models_save_load_and_serve(tmp_path, rng, label, over, execution,
+                                                     kind):
+    """A ResNeXt or s2d model exported (fp32, bf16 weights, or W8A8), saved
+    and loaded keeps its configs, gives the exported model's logits bit for
+    bit, and serves them over HTTP; with s2d the saved model's logits are
+    the eval forward's with s2d (not the 7x7 stem's)."""
+    from resnet_tpu_torch.export import export_quantized_inference
+
+    mcfg = tiny_model_config(**over)
+    params = init_params(torch.Generator().manual_seed(5), mcfg, device="cpu")
+    bn_state = init_bn_state(mcfg, device="cpu")
+    ecfg = ExecutionConfig(**execution)
+    x = rng.normal(0, 50, (3, 16, 16, 3)).astype(np.float32)
+    if kind == "int8":
+        model = export_quantized_inference(params, mcfg, x, bn_state=bn_state)
+    else:
+        model = export_inference(params, mcfg, bn_state=bn_state, ecfg=ecfg,
+                                 weights_dtype="bfloat16" if kind == "bf16" else None)
+    path = save_inference(str(tmp_path / f"{label.replace(' ', '_')}.pt"), model)
+    again = load_inference(path, device="cpu")
+    assert again.mcfg == mcfg and type(again) is type(model)
+    want = model.call(x)
+    assert torch.equal(again.call(x), want) and torch.isfinite(want).all()
+    if kind == "fp":
+        assert again.ecfg == ecfg
+        eval_logits, _ = forward(params, torch.from_numpy(x), mcfg, ecfg, train=False,
+                                 bn_state=bn_state)
+        assert torch.equal(want, eval_logits)
+        if ecfg.space_to_depth:
+            off, _ = forward(params, torch.from_numpy(x), mcfg, ExecutionConfig(
+                conv_kernels=ecfg.conv_kernels), train=False, bn_state=bn_state)
+            assert not torch.equal(want, off)
+    httpd = serve_mod.serve(path, port=0, device="cpu")
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        status, out = _post(httpd.server_address, x)
+        assert status == 200 and out["top1"] == want.argmax(-1).tolist()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
