@@ -201,7 +201,7 @@ Phases, each printing one JSON line:
      bit for bit. Printed: the Pearson correlation and top-1 agreement with
      the fp32 folded forward, the int8 and the bf16 hand-kernel served
      forwards at batches 8 and 128 in turns, and the device time of one
-     batch-128 int8 forward split into Q1, Q2 and the rest.
+     batch-128 int8 forward split into Q1, Q3 (none here), Q2 and the rest.
  14. configs: what JAX runs that the phases above do not, at full width.
      ResNeXt-50 32x4d at 224, batch 32, on the hand kernels (its 16
      grouped 3x3s on the plain conv, as JAX sends them to XLA): 5 fp32
@@ -212,7 +212,9 @@ Phases, each printing one JSON line:
      bf16 step by phase 11's rule. ResNeXt-50 served in int8 over HTTP as
      phase 13 serves ResNet-50: each request exactly 38 Q1, 16 Q3 (the
      grouped int8 conv) and 54 Q2, the logits the plain int8 forward's bit
-     for bit, the Pearson correlation with the fp32 folded forward. ResNet-50
+     for bit, the Pearson correlation with the fp32 folded forward; at
+     batch 128 the int8 and the bf16 hand-kernel forwards in turns and one
+     int8 forward's device time split into Q1, Q3, Q2 and the rest. ResNet-50
      at JAX's headline configuration (BENCH_r05.json: batch 256, bf16, the
      standard topology, grad_accum 2, space_to_depth) on the hand kernels: 5
      steps with the counters read after each (two microbatches, the folded
@@ -241,7 +243,8 @@ apart moves the next stage by that ulp times the following BN's scale).
 Phase 3 also holds Q3 bit for bit to its plain version at every distinct
 grouped site of both ResNeXt presets at batch 8 and ResNeXt-50's at 128, a
 capped site and a ragged one (no yardstick: no one PyTorch call computes a
-grouped int8 conv), and the other int8 kernels bit for bit to their plain
+grouped int8 conv), each line with Q3's plan and layout (build.q3_plan,
+build.q3_geometry), and the other int8 kernels bit for bit to their plain
 versions (max_abs_err 0): Q1 at every distinct conv shape of ResNet-50 at batch 8
 with its site's epilogue, the FC with fp32 logits, a capped site, a 1x1/s2
 projection, a ragged one (Cin 3, Cout 33) and, reported apart, stage 4's
@@ -629,6 +632,13 @@ def _plan(build, name, case):
         return {"tile": [build.QC_BM, bn], "slices": -(-kk // build.QC_SLICE),
                 "splits": splits, "units": units, "blocks": min(units, 132),
                 "a": "cp.async 16 bytes" if cin % 16 == 0 else "kernel-row runs"}
+    if name == "qconv_grouped":  # Q3's plan and the layout it gives
+        _, n, h, cin, cout, k, s, _, _, out, g = case
+        ho = h // s
+        plan = build.q3_plan(n, cin, cout, g, k, k, s, ho, ho, out == "f32", True)
+        geo = build.q3_geometry(n, cin, cout, g, k, k, s, ho, ho, out == "f32", True, *plan)
+        return {"plan": list(plan), **{key: geo[key] for key in (
+            "loads", "nb", "ks", "spans", "tiles", "tile_pixels", "halo_pixels", "smem")}}
     if name == "matmul_bwd_bf16":
         _, m, k, n, _, need_a, need_b = case
         return dict(zip(("da_blocks", "db_blocks"),
@@ -874,23 +884,45 @@ def phase_int8_serve(torch, checks, counters):
     (``_int8_http``: each request exactly 54 Q1 and 54 Q2 launches and no
     other, the served logits the plain int8 forward's bit for bit, the
     Pearson correlation with the fp32 folded forward); then the int8 and
-    the bf16 hand-kernel served forwards (bf16 weights, every bf16 kernel)
-    timed by CUDA events (median of 10) at batches 8 and 128, in turns
-    (int8, bf16, bf16, int8); the device time of one batch-128 int8 forward
-    split into Q1, Q2 and the rest (torch.profiler)."""
-    from resnet_tpu_torch.config import ExecutionConfig, model_config
-    from resnet_tpu_torch.export import export_inference
+    the bf16 hand-kernel served forwards (``_int8_vs_bf16``) at batches 8
+    and 128."""
+    from resnet_tpu_torch.config import model_config
 
     mcfg = model_config("resnet50")
-    served, fields, launches, (params, bn_state), x8, rng = _int8_http(
-        torch, counters, mcfg, INT8_PER_FORWARD)
-    d = mcfg.input_dim
+    served, fields, launches, state, x8, rng = _int8_http(torch, counters, mcfg,
+                                                          INT8_PER_FORWARD)
+    timed = _int8_vs_bf16(torch, checks, served, mcfg, state, x8, rng, INT8_TIMED_BATCHES)
+    emit({"phase": "int8_serve", **fields, "timed": timed})
+    return launches
 
+
+def _int8_split(rows):
+    """One int8 forward's device ms by kernel: Q1 (every qconv kernel but
+    Q3's), Q3 (qconv_grouped_kernel), Q2 (quant_act) and the rest."""
+    q3 = sum(v for k, v in rows.items() if "qconv_grouped" in k)
+    q1 = sum(v for k, v in rows.items() if "qconv" in k) - q3
+    q2 = sum(v for k, v in rows.items() if "quant_act" in k)
+    total = sum(rows.values())
+    return {"qconv": q1, "qconv_grouped": q3, "quant_act": q2, "rest": total - q1 - q2 - q3,
+            "total": total}
+
+
+def _int8_vs_bf16(torch, checks, served, mcfg, state, x8, rng, batches):
+    """The int8 served forward and the bf16 hand-kernel one (bf16 weights,
+    every bf16 kernel) timed by CUDA events (median of 10) at each batch, in
+    turns (int8, bf16, bf16, int8); at the largest, one int8 forward's
+    device time split by kernel (``_int8_split``, torch.profiler) beside the
+    bf16 forward's."""
+    from resnet_tpu_torch.config import ExecutionConfig
+    from resnet_tpu_torch.export import export_inference
+
+    params, bn_state = state
+    d = mcfg.input_dim
     bf16 = export_inference(params, mcfg, bn_state=bn_state, weights_dtype="bfloat16",
                             ecfg=ExecutionConfig(compute_dtype="bfloat16", kernels="pallas",
                                                  conv_kernels="pallas"), device="cuda")
     timed = {}
-    for n in INT8_TIMED_BATCHES:
+    for n in batches:
         x = x8 if n == 8 else torch.from_numpy(
             rng.normal(0, 50, (n, d, d, 3)).astype(np.float32)).cuda()
         turns = {"int8": [], "bf16": []}
@@ -900,22 +932,19 @@ def phase_int8_serve(torch, checks, counters):
         timed[f"batch{n}"] = {
             **{f"{k}_ms": v for k, v in turns.items()},
             **{f"{k}_img_s": n * 2e3 / sum(v) for k, v in turns.items()}}
-        if n == max(INT8_TIMED_BATCHES):
+        if n == max(batches):
             rows = checks.device_profile(lambda: served.call(x), reps=3)
             require(rows is not None, "the int8 forward's profile recorded no device time")
-            q1 = sum(v for k, v in rows.items() if "qconv" in k)  # every kernel Q1 launches
-            q2 = sum(v for k, v in rows.items() if "quant_act" in k)
-            timed[f"batch{n}"]["int8_device_ms"] = {
-                "qconv": q1, "quant_act": q2, "rest": sum(rows.values()) - q1 - q2,
-                "total": sum(rows.values())}
+            timed[f"batch{n}"]["int8_device_ms"] = _int8_split(rows)
             timed[f"batch{n}"]["bf16_device_ms"] = checks.device_ms(lambda: bf16.call(x),
                                                                     reps=3)
         del x
     for n, t in timed.items():
         require(all(np.isfinite(v) for k in ("int8_ms", "bf16_ms") for v in t[k]),
-                f"int8 phase: a non-finite time at {n}")
-    emit({"phase": "int8_serve", **fields, "timed": timed})
-    return launches
+                f"int8 timing: a non-finite time at {n}")
+    del bf16
+    torch.cuda.empty_cache()
+    return timed
 
 
 def _clone(tree):
@@ -2648,7 +2677,10 @@ def phase_configs(torch, checks, counters, smi):
     2. ResNeXt-50 served in int8 over HTTP (``_int8_http``): each request
        exactly 38 Q1, 16 Q3 and 54 Q2 launches, the logits the plain int8
        forward's bit for bit; the Pearson correlation with the fp32 folded
-       forward; the int8 forward at batch 8 timed (CUDA events).
+       forward; the int8 forward at batch 8 timed (CUDA events); at batch
+       128 the int8 and the bf16 hand-kernel forwards in turns, and the
+       int8 forward's device time split into Q1, Q3, Q2 and the rest
+       (``_int8_vs_bf16``).
     3. ResNet-50 at JAX's headline configuration (BENCH_r05.json): batch
        256, bf16, the standard topology (1x1/s2 projections), grad_accum 2,
        space_to_depth, kernels='pallas', conv_kernels='pallas', fused Adam:
@@ -2709,13 +2741,17 @@ def phase_configs(torch, checks, counters, smi):
     del state0, batch
     torch.cuda.empty_cache()
 
-    # 2. ResNeXt-50 served in int8
-    served, fields, launches, _, x8, _ = _int8_http(torch, counters, model_config(RESNEXT),
-                                                     RESNEXT_INT8_PER_FORWARD)
+    # 2. ResNeXt-50 served in int8, then timed against its bf16 hand-kernel
+    # forward at batch 128
+    rcfg = model_config(RESNEXT)
+    served, fields, launches, state, x8, rng = _int8_http(torch, counters, rcfg,
+                                                          RESNEXT_INT8_PER_FORWARD)
     add(launches)
     fields["batch8_ms"] = checks.median_ms(lambda: served.call(x8), reps=10)
+    fields["timed"] = _int8_vs_bf16(torch, checks, served, rcfg, state, x8, rng,
+                                    (max(INT8_TIMED_BATCHES),))
     out["resnext50_int8_serve"] = fields
-    del served, x8
+    del served, x8, state
     torch.cuda.empty_cache()
 
     # 3. ResNet-50 with s2d at JAX's headline configuration

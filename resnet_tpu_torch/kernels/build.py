@@ -111,8 +111,8 @@ SIGNATURES = {
     "rt_qconv_s8": [*[_P] * 7, *[_I] * 15, _F, _I, _I, _P],
     # Q3 x, w (KH * KW, Cout, Cgp), dq, bias (or null), out, N, H, W, Cin,
     # Cout, groups, kh, kw, stride, pad_top, pad_left, Ho, Wo, mode, has_cap,
-    # cap
-    "rt_qconv_grouped_s8": [*[_P] * 5, *[_I] * 15, _F, _P],
+    # cap, q3_plan's sets a span, images a tile, rows a tile
+    "rt_qconv_grouped_s8": [*[_P] * 5, *[_I] * 15, _F, _I, _I, _I, _P],
     "rt_quant_act_f32": [_P, _P, _F, _I64, _P],
     "rt_quant_act_bf16": [_P, _P, _F, _I64, _P],
 }
@@ -156,6 +156,16 @@ QC_SLICE = 128
 QC_SLICE_COST = {64: 2, 128: 3, 256: 4.5}
 QC_UNIT_COST = {64: 2, 128: 3, 256: 6}
 QC_PARTIAL_COST = 2e-5
+# Q3's (qconv.cu Q3_THREADS, Q3_CHUNKS, Q3_SMEM, Q3_BUFS: a block's
+# threads, its threads' 16-byte halo copies a tile at most, its shared
+# memory, two blocks a SM, its halo buffers) and q3_plan's fixed cost of a
+# tile, in bytes of halo or output (its resident blocks Q3_SLOTS below)
+Q3_THREADS = 256
+Q3_CHUNKS = 8
+Q3_SMEM = 115712
+Q3_BUFS = 2
+Q3_NB_MAX = 4
+Q3_TILE_COST = 16384
 # dW's 64-pixel slices on the wgmma core: bw x bh rectangles of the output
 # grid, in conv.cu dw_box's order of preference
 DW_BOXES = ((64, 1), (32, 2), (16, 4), (8, 8), (4, 16), (2, 32), (1, 64))
@@ -182,6 +192,7 @@ BWD16_MT = 32
 BWD16_TK = 128
 BWD16_TN = 128
 _SMS = 132  # streaming multiprocessors of an H100 SXM
+Q3_SLOTS = 2 * _SMS  # Q3's resident blocks, two a SM
 # one build at a time in this process (the temporary name is per process)
 _BUILD_LOCK = threading.Lock()
 
@@ -417,6 +428,119 @@ def qconv_plan(m: int, n: int, k: int) -> Tuple[int, int]:
             if best is None or cost < best[0]:
                 best = (cost, bn, splits)
     return best[1], best[2]
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _odd16(v: int) -> int:
+    """v rounded up to an odd multiple of 16 (qconv.cu q3_odd16)."""
+    v = _r16(v)
+    return v if v // 16 % 2 else v + 16
+
+
+def q3_geometry(n: int, cin: int, cout: int, groups: int, kh: int, kw: int, stride: int,
+                ho: int, wo: int, f32: bool, aligned: bool, sb: int, ti: int, tr: int):
+    """Q3's layout (qconv.cu q3_geometry, the same function) for the plan sb
+    sets of column blocks a span, ti images a tile or, at ti = 1, tr output
+    rows of one image: a dict of the kernel's derived sizes and its shared
+    memory ``smem``, or None where the kernel does not take the plan (it
+    would not fit Q3_SMEM, or the shapes leave it nothing to cover)."""
+    cg, ng = cin // groups, cout // groups
+    ncb = -(-cout // 8)
+    glo = [8 * cb // ng for cb in range(ncb)]
+    wg = max(min(8 * cb + 7, cout - 1) // ng - glo[cb] + 1 for cb in range(ncb))
+    if sb < 1 or ti < 1 or tr < 1 or tr > ho or ti > n or (ti > 1 and tr != ho):
+        return None
+    for dense in ((True, False) if aligned and cin % 16 == 0 and cg % 4 == 0 else (False,)):
+        cgs = cg if dense else _r16(cg)
+        if dense and wg * cgs <= 8 and all(g * cgs % 8 == 0 for g in glo):
+            wb = 8
+        elif not dense or all(g * cgs % 16 == 0 for g in glo):
+            wb = _r16(wg * cgs)
+        else:
+            continue
+        pair = wb == 8
+        taps, words = kh * kw, wb // 4
+        ks = kh * -(-kw // 4) if pair else -(-taps * words // 8)
+        nb = 1
+        if not pair and ng % 8 == 0:
+            nb = next(d for d in (4, 2, 1) if ng // 8 % d == 0 and d <= Q3_NB_MAX)
+        mt = 4 if nb == 1 else 2
+        sets = ncb // nb
+        if sb > sets:
+            return None
+        cbs = sb * nb
+        spans = -(-sets // sb)
+        spb = 0
+        for s in range(spans):
+            c0 = glo[s * cbs] * cgs // 16 * 16
+            spb = max([spb] + [glo[cb] * cgs + wb - c0
+                               for cb in range(s * cbs, min(s * cbs + cbs, ncb))])
+        spb = _r16(spb)
+        pitch = _odd16(spb)
+        hr, hc = (tr - 1) * stride + kh, (wo - 1) * stride + kw
+        hpx, tp = ti * hr * hc, ti * tr * wo
+        mtiles = -(-tp // 16)
+        if dense and (hpx * (spb // 16) > Q3_THREADS * Q3_CHUNKS or ti > 1023 or hr > 255
+                      or hc > 2047 or spb > 128):
+            continue
+        ncols = cbs * 8
+        opitch = _odd16(ncols * (4 if f32 else 2))
+        halo = -(-hpx * pitch // 128) * 128
+        rows = -(-mtiles // mt) * mt * 16  # the staged tile's rows: every row computed
+        smem = (Q3_BUFS * halo + cbs * ks * 256 + _r16(rows * opitch) + 8 * ncols + 16 * ks
+                + 4 * rows)
+        if smem > Q3_SMEM:
+            return None
+        rt = -(-ho // tr)
+        return {"dense": dense, "group_bytes": cgs, "window_bytes": wb,
+                "loads": "pair" if pair else "ldmatrix", "nb": nb, "ks": ks, "cbs": cbs,
+                "spans": spans, "span_bytes": spb, "halo_pixels": hpx, "tile_pixels": tp,
+                "m_tiles": mtiles, "tiles": -(-n // ti) if ti > 1 else n * rt, "row_tiles": rt,
+                "smem": smem}
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def q3_plan(n: int, cin: int, cout: int, groups: int, kh: int, kw: int, stride: int, ho: int,
+            wo: int, f32: bool, aligned: bool) -> Tuple[int, int, int]:
+    """(sb, ti, tr), Q3's plan: the span the fewest sets whose windows
+    cover 32 bytes of a pixel (a full sector of x; all sets if fewer), then
+    the tile, tr output rows of an image or ti whole images, of least cost
+    among those that fit: the tiles one of Q3_SLOTS resident blocks takes,
+    plus one (the first tile's copies overlap nothing), times a tile's halo
+    and output bytes plus Q3_TILE_COST (fitted to the card's times of
+    phase 3's plans); on a tie the larger tile. A function of the shapes
+    and of x's alignment only (cached); None where no plan fits (rows too
+    wide for shared memory)."""
+    args = (n, cin, cout, groups, kh, kw, stride, ho, wo, f32, aligned)
+    ng, sb = cout // groups, 1
+    while True:
+        g = q3_geometry(*args, sb, 1, 1)
+        if g is None or g["cbs"] * 8 >= cout:
+            break
+        # the bytes a pixel's first span reads: its column blocks' windows
+        last = 8 * (g["cbs"] - 1) // ng
+        if last * g["group_bytes"] + g["window_bytes"] >= 32:
+            break
+        sb += 1
+    if g is None:
+        sb = max(1, sb - 1)
+    best = None
+    for ti, tr in [(1, tr) for tr in range(1, ho + 1)] + [(ti, ho) for ti in range(2, n + 1)]:
+        g = q3_geometry(*args, sb, ti, tr)
+        if g is None:
+            continue
+        units = g["spans"] * g["tiles"]
+        cost = (-(-units // Q3_SLOTS) + 1) * (g["halo_pixels"] * g["span_bytes"]
+                                              + g["tile_pixels"] * g["cbs"] * 8 * (4 if f32 else 2)
+                                              + Q3_TILE_COST)
+        key = (cost, -g["tile_pixels"])
+        if best is None or key < best[0]:
+            best = (key, (sb, ti, tr))
+    return None if best is None else best[1]
 
 
 def dw_box(ho: int, wo: int) -> Tuple[int, int]:

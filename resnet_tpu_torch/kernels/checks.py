@@ -109,9 +109,9 @@ product only``); Q2 has none. Q1's operands come from ``qconv_operands``
 (``qconv_grouped``, ``qconv`` with groups > 1) at every distinct grouped
 site of ResNeXt-50 32x4d and ResNeXt-101 32x8d at batch 8 and of
 ResNeXt-50 at 128 (``qconv_grouped_sites``), a capped site and a ragged
-one (Cin / g 3, the byte path), each bit for bit and twice to the same
-bits; its bound the same as Q1's; no yardstick (``torch._int_mm`` takes
-no groups).
+one (Cin / g 3, the word-by-word halo), each bit for bit and twice to the
+same bits; its bound the same as Q1's; no yardstick (``torch._int_mm``
+takes no groups).
 """
 
 from __future__ import annotations

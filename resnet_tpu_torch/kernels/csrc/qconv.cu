@@ -73,14 +73,18 @@
 // share the time (PERF.md, q1_variants).
 //
 // Q3, rt_qconv_grouped_s8: Q1 for a grouped conv (ResNeXt's 3x3s, groups
-// > 1). Replaces _qconv with feature_group_count (quantize.py:218-238)
-// and _qsite's dequantization, as Q1 does for the rest. A group's problem
-// (M x Cout/g over kh * kw * Cin/g: ResNeXt-50 32x4d's K 36-288, N 4-32)
-// is far narrower than a wgmma tile, so Q3 runs on the CUDA cores: __dp4a
-// sums 4 channels a word in int32, one thread per (4 pixels, 4 outputs of
-// a group), Q1's epilogue bit for bit. Bound by bytes (x read, the bf16
-// output written) at ResNeXt's widths; this first design does not reach
-// it (PERF.md).
+// > 1). Replaces _qconv with feature_group_count (quantize.py:218-238) and
+// _qsite's dequantization, as Q1 does for the rest. Bound by bytes at every
+// ResNeXt site once the tensor cores do the products (3.7 G int8 ops a
+// batch-128 site, ~2 us at 1,979 TOP/s, against 6-46 us of x read and
+// bf16 written at 3.35 TB/s). So it is built to move each byte once:
+// mma.sync m16n8k32 s8 products (not the CUDA cores' dp4a, ~1/60 of the
+// rate), a group's problem packed into 8-column blocks (whole groups block
+// diagonally where Ng < 8); x staged once a tile in shared memory as a halo
+// (its 9 taps then read shared memory, not device memory 9 times), two
+// buffers so the next tile's copies fly while this one multiplies; the
+// weight staged once a persistent block, in fragment order; the output
+// staged and stored as 16-byte row chunks. Details at the kernel (Q3 below).
 //
 // Q2, rt_quant_act_{f32,bf16}: q = clip(rint(__fmul_rn(x, inv)), -127, 127)
 // as int8, inv = 1 / scale in fp32 (the wrapper's). Replaces
@@ -95,7 +99,9 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include "rowwise.cuh"
 #include "wgb_gemm.cuh"
@@ -536,23 +542,73 @@ int qconv_launch(const CUtensorMap& wmap, const CUtensorMap& ymap, int tma, cons
 
 // ------------------------------------------------------------------ Q3
 
-// Q3, the grouped int8 conv (ResNeXt's 3x3s): output channel o of group
-// g = o / Ng sums, over the window, input channels [g Cg, (g + 1) Cg) of
-// x by row (tap, o) of the packed weight w (KH * KW, Cout, Cgp): Cg
-// bytes, zero up to Cgp = Cg rounded up to 4 (quant.pack_weight(w, g)).
-// Then Q1's epilogue step for step. A thread owns QP pixels in a row of M
-// and QO neighbouring output channels of one group (a group's Ng in
-// ceil(Ng / QO) chunks), so each x word it loads serves QO outputs and
-// each w word QP pixels; the lanes of a warp are 32 neighbouring chunks,
-// whose x words (one group's shared) and w rows lie side by side. A
-// block's rows are Q3_ROWS pixel quads; grid x the quads' blocks, y the
-// chunks' warps. Sums by __dp4a, 4 channels a word. Indices are 32-bit
-// (the entry checks the extents): a 64-bit division is a long software
-// sequence, and the first design, which decoded each pixel by one, spent
-// most of its time there (PERF.md).
-constexpr int QP = 4;       // pixels a thread
-constexpr int QO = 4;       // output channels a thread
-constexpr int Q3_ROWS = 8;  // pixel quads a block (warps)
+// Q3, the grouped int8 conv on the tensor cores: mma.sync m16n8k32 s8 over
+// an implicit im2col read from a halo tile staged in shared memory.
+// mma.sync and not wgmma: its A fragment comes from registers that each
+// lane loads from any shared address, so the im2col never exists (wgmma's
+// shared A would need it laid out, or its register A the same loads), and a
+// group's columns are 8 to 64 wide; the products are ~5% of a batch-128
+// site's byte time at the int8 peak.
+//
+// Column blocks. Output channels go in blocks of 8 (an mma's N). Block cb
+// reads the window of input groups [glo, glo + WG) with glo = 8 cb / Ng and
+// WG the most groups any block touches (1 where Ng % 8 == 0; 2 at
+// ResNeXt-50's stage 1, Ng = 4). Its K is taps x the window's bytes; the
+// weight of an output channel against a channel of another group is zero
+// (block-diagonal packing: at Ng = 4 two groups share a block and half the
+// products are zeros). Where Ng % 8 == 0 the NB = 2 or 4 blocks of one group
+// that an item takes share one window, so one A fragment feeds NB mmas.
+//
+// K order. A k-step is 32 bytes, eight 4-byte words; word r of a step is
+// the mma's k = 4r .. 4r + 3 (r < 4: a0/a1 and b0; r >= 4: a2/a3 and b1).
+// Q3_PAIR (an 8-byte window, stages 1 and 2 of ResNeXt-50): a step holds 4
+// taps of one kernel row (3 and a padding slot for a 3x3), word r the
+// window's word r / 4 of the row's tap r % 4, so a thread's a0 and a2 are
+// one 8-byte load, and the 16 lanes of a half warp read 6 neighbouring
+// pixels of one halo row, in 6 distinct bank groups. Q3_LDSM (a window of
+// 16-byte multiples): word 8 ks + r is word u % WW of tap u / WW (u = 8 ks
+// + r, WW the window's words), so each half of a step is 16 bytes of one
+// tap and one ldmatrix.x4 gives a 16-row fragment. Padding words (past the
+// taps) have zero weights. Integer sums are exact in any order, so the
+// order changes no bit.
+//
+// Shared memory. The halo: for a tile of output pixels (tr whole output rows
+// of one image, or ti whole images) the input rows and columns its windows
+// reach, at the span's channels (the groups of the block's column blocks,
+// SPB bytes, at a pixel stride `pitch` that is an odd multiple of 16 so that
+// 8 pixels' 16-byte rows fall in 8 distinct bank groups), zero outside the
+// image: the padding. x is read from device memory once a tile, and its 9
+// taps from shared memory. Two halo buffers: the next tile's copies are in
+// flight while the block multiplies the current one. x comes by 16-byte
+// cp.async (each thread's chunks decoded once per block, since every tile
+// has the same geometry) where the layout is x's own (Cin % 16 == 0, Cg % 4
+// == 0, x 16-byte aligned, windows aligned); else (ragged Cg, a misaligned
+// x) word by word, each group in a slot of Cg rounded up to 16 bytes. The
+// weight: the span's column blocks in fragment order, zeros off the
+// diagonal, copied once per block from pack_weight's (KH * KW, Cout, Cgp).
+// The dq and bias columns, the taps' offsets and the pixels' halo offsets,
+// once per block. The output tile: Q1's epilogue writes it as bf16 (or
+// fp32), then the block stores it as 16-byte row chunks where Cout allows.
+//
+// Persistent: block b takes the span b % spans and the tiles b / spans,
+// + P, ... (P blocks a span, at most two blocks a SM in all), so each block
+// builds its weight once. The plan (sb sets a span, ti images or tr rows a
+// tile) is build.q3_plan's, a function of the shapes; q3_geometry here and
+// build.q3_geometry there lay out the same shared memory. Warps take (MT
+// m16 tiles, NB column blocks) items of the tile in turn.
+//
+// What holds it (PERF.md, Findings): at batch 128 the block's multiply phase
+// (A fragments from shared memory, the epilogue's per-output steps) and its
+// copy phase each take about as long as the site's bound alone, and
+// overlap only in part; at batch 8 a block's single tile leaves the launch,
+// the first copies and the store in series.
+constexpr int Q3_THREADS = 256;  // 8 warps
+constexpr int Q3_WARPS = Q3_THREADS / 32;
+constexpr int Q3_CHUNKS = 8;      // a thread's 16-byte halo copies a tile, at most
+constexpr int Q3_SMEM = 115712;   // a block's shared memory: two blocks a SM
+constexpr int Q3_BUFS = 2;        // halo buffers: the next tile in flight while one multiplies
+constexpr int Q3_NB_MAX = 4;      // column blocks an item's A fragments feed, at most
+enum Q3Loads { Q3_PAIR = 0, Q3_LDSM = 1 };
 
 struct QGrouped {
   const int8_t* x;
@@ -560,154 +616,485 @@ struct QGrouped {
   const float* dq;
   const float* bias;  // null: no bias
   void* out;
-  int M, H, W, Cin, Cout, Cg, Ng, Cgp, chunks, KH, KW, stride, pad_top, pad_left, Ho, Wo,
-      mode, has_cap;
+  int N, H, W, Cin, Cout, G, Cg, Ng, Cgp, KH, KW, T, stride, pad_top, pad_left, Ho, Wo, mode,
+      has_cap;
   float cap;
+  // q3_geometry's
+  int dense;   // x by 16-byte cp.async in x's own layout (a group's slot Cg bytes)
+  int wvec;    // the weight by 16-byte cp.async (Q3_LDSM, dense, a window one group)
+  int Cgs;     // a group's slot in the halo, in bytes
+  int WB, WW;  // a window's bytes and words
+  int loads;   // Q3Loads
+  int KS;      // 32-byte k-steps a column block
+  int NCB, NB, MT;
+  int cbs, spans;  // column blocks a span, spans
+  int SPB, pitch;  // a halo pixel's bytes, and its stride
+  int TI, TR, RT, tiles, HR, HC, HPX, TP, MTILES, NCOLS, esize, opitch, ovec;
+  int o_halo1, o_w, o_out, o_cols, o_tab, o_pb, smem;
 };
 
-// loads of VEC bytes (16, 8 or 4: aligned words of 4 channels each), or,
-// at VEC = 1, the bytes [0, min(4, left)) one at a time, zero past them
-template <int VEC>
-struct QWords {
-  static constexpr int N = VEC >= 4 ? VEC / 4 : 1;
-};
-
-template <int VEC>
-__device__ __forceinline__ void load_words(const int8_t* p, int left,
-                                           int (&v)[QWords<VEC>::N]) {
-  if constexpr (VEC == 16) {
-    const int4 q = __ldg(reinterpret_cast<const int4*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
-  } else if constexpr (VEC == 8) {
-    const int2 q = __ldg(reinterpret_cast<const int2*>(p));
-    v[0] = q.x;
-    v[1] = q.y;
-  } else if constexpr (VEC == 4) {
-    v[0] = __ldg(reinterpret_cast<const int*>(p));
-  } else {
-    uint32_t u = 0;
-    for (int b = 0; b < 4 && b < left; ++b) u |= (uint32_t)(uint8_t)__ldg(p + b) << (8 * b);
-    v[0] = (int)u;
-  }
+__host__ __device__ __forceinline__ int q3_glo(const QGrouped& p, int cb) {
+  return 8 * cb / p.Ng;
 }
 
-// one bf16 value of the epilogue, as to_act2 makes each of its pair
-__device__ __forceinline__ uint16_t to_act1(const QGrouped& p, float v, float capf,
-                                            uint16_t capb) {
-  uint16_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  if (p.mode == OUT_BF16_RELU) {
-    float f = __uint_as_float((uint32_t)h << 16);
-    if (f < 0.f) {
-      f = 0.f;
-      h = 0;
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Q3_PAIR's tap of k-step ks, slot tig: step ks holds 4 taps of one kernel
+// row (ks / ceil(KW / 4)); a slot past the row's taps is padding: -1, or
+// with `pad_first` the row's first tap of the step (for its address)
+__host__ __device__ __forceinline__ int q3_pair_tap(const QGrouped& p, int ks, int tig,
+                                                    bool pad_first) {
+  const int qw = (p.KW + 3) / 4, di = ks / qw, dj0 = (ks - di * qw) * 4, dj = dj0 + tig;
+  if (dj < p.KW) return di * p.KW + dj;
+  return pad_first ? di * p.KW + dj0 : -1;
+}
+
+// Q1's bf16 step on a pair (to_act2's bits): each value rounded to bf16,
+// then with RELU a value below 0 becomes +0 and then with CAP one above the
+// cap (cap2, the cap's bf16 twice) the cap, both halves by one packed
+// compare (NaN and -0 compare false and pass, as in the plain version); no
+// branch, so the pairs of an item interleave
+template <bool RELU, bool CAP>
+__device__ __forceinline__ uint32_t q3_act2(float v0, float v1, __nv_bfloat162 cap2) {
+  __nv_bfloat162 h2 = __floats2bfloat162_rn(v0, v1);
+  uint32_t w = *reinterpret_cast<uint32_t*>(&h2);
+  if constexpr (RELU) {
+    w &= ~__hlt2_mask(h2, __float2bfloat162_rn(0.f));
+    if constexpr (CAP) {
+      h2 = *reinterpret_cast<__nv_bfloat162*>(&w);
+      const uint32_t over = __hgt2_mask(h2, cap2);
+      w = (w & ~over) | (*reinterpret_cast<const uint32_t*>(&cap2) & over);
     }
-    if (p.has_cap && f > capf) h = capb;
   }
-  return h;
+  return w;
 }
 
-// VEC: x's and w's loads (16, 8 or 4 bytes where Cg is a multiple of VEC
-// and x is aligned to it; 1: x by bytes, w by words of its padded rows)
-template <int VEC>
-__global__ void __launch_bounds__(32 * Q3_ROWS) qconv_grouped_kernel(const QGrouped p) {
-  constexpr int NW = QWords<VEC>::N;
-  constexpr int STEP = 4 * NW;              // channels a step
-  constexpr int WVEC = VEC == 1 ? 4 : VEC;  // w's rows are padded to words
-  const int chunk = blockIdx.y * 32 + threadIdx.x;
-  const int m0 = (blockIdx.x * Q3_ROWS + threadIdx.y) * QP;
-  if (chunk >= p.chunks || m0 >= p.M) return;
-  const int per_group = (p.Ng + QO - 1) / QO;
-  const int g = chunk / per_group;
-  const int u0 = (chunk - g * per_group) * QO;  // the chunk's first output in its group
-  const int o0 = g * p.Ng + u0;
-  const int nu = min(QO, p.Ng - u0);  // its outputs
-  // the quad's pixels: (n, oy, ox) of m0 by one division each, then stepped
-  int n = m0 / (p.Ho * p.Wo);
-  int r = m0 - n * p.Ho * p.Wo;
-  int oy = r / p.Wo, ox = r - oy * p.Wo;
-  int iy0[QP], ix0[QP];
-  const int8_t* xg[QP];  // the pixel's image at the group's first channel
+template <int NB, int MT, int LOADS>
+__global__ void __launch_bounds__(Q3_THREADS, 2)
+    qconv_grouped_kernel(const __grid_constant__ QGrouped p) {
+  extern __shared__ __align__(128) uint8_t q3_smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int span = blockIdx.x % p.spans, step = gridDim.x / p.spans;
+  const int cbA = span * p.cbs, ncb = min(p.cbs, p.NCB - cbA);
+  const int c0 = q3_glo(p, cbA) * p.Cgs & ~15;  // the span's first halo byte (x's channel if dense)
+  const uint32_t* bs = reinterpret_cast<const uint32_t*>(q3_smem + p.o_w);
+  uint8_t* stage = q3_smem + p.o_out;
+  const float* cols = reinterpret_cast<const float*>(q3_smem + p.o_cols);  // dq, then bias
+  int* tab = reinterpret_cast<int*>(q3_smem + p.o_tab);        // KS x 4 tap offsets
+  int* pb = reinterpret_cast<int*>(q3_smem + p.o_pb);          // pixels' halo offsets
+  const uint32_t halo0 = rt::tc::smem_u32(q3_smem);
+
+  // a step's tap offsets: Q3_PAIR by the thread's tig (its tap; a padding
+  // slot reads its row's first tap, so the step's loads touch one halo row),
+  // Q3_LDSM by the fragment's half (its 16 bytes; padding reads pixel 0)
+  for (int i = tid; i < p.KS * 4; i += Q3_THREADS) {
+    const int ks = i >> 2, sl = i & 3;
+    int t, j = 0;
+    if constexpr (LOADS == Q3_PAIR) {
+      t = q3_pair_tap(p, ks, sl, true);
+    } else {
+      const int u = 8 * ks + 4 * (sl & 1);
+      t = u / p.WW;
+      j = u - t * p.WW;
+    }
+    tab[i] = (t < p.T ? t / p.KW * p.HC + t % p.KW : 0) * p.pitch + 4 * j;
+  }
+  // a tile pixel's window corner in the halo (past TP: pixel 0)
+  for (int i = tid; i < (p.MTILES + MT - 1) / MT * MT * 16; i += Q3_THREADS) {
+    int v = 0;
+    if (i < p.TP) {
+      const int per = p.TR * p.Wo, im = i / per, rem = i - im * per, r = rem / p.Wo;
+      v = ((im * p.HR + r * p.stride) * p.HC + (rem - r * p.Wo) * p.stride) * p.pitch;
+    }
+    pb[i] = v;
+  }
+  // the thread's 16-byte halo chunks (dense): image, halo row and column,
+  // chunk, the same in every tile
+  uint32_t desc[Q3_CHUNKS];
 #pragma unroll
-  for (int q = 0; q < QP; ++q) {
-    iy0[q] = oy * p.stride - p.pad_top;
-    ix0[q] = ox * p.stride - p.pad_left;
-    xg[q] = m0 + q < p.M ? p.x + (int64_t)n * p.H * p.W * p.Cin + g * p.Cg : nullptr;
-    if (++ox == p.Wo) {
-      ox = 0;
-      if (++oy == p.Ho) {
-        oy = 0;
-        ++n;
+  for (int k = 0; k < Q3_CHUNKS; ++k) desc[k] = ~0u;
+  if (p.dense) {
+    const int cpp = p.SPB >> 4, per = p.HR * p.HC;
+#pragma unroll
+    for (int k = 0; k < Q3_CHUNKS; ++k) {
+      const int c = tid + k * Q3_THREADS;
+      if (c < p.HPX * cpp) {
+        const int q = c / cpp, cc = c - q * cpp, im = q / per, rem = q - im * per;
+        const int hr = rem / p.HC, hc = rem - hr * p.HC;
+        desc[k] = (uint32_t)im << 22 | (uint32_t)hr << 14 | (uint32_t)hc << 3 | (uint32_t)cc;
       }
     }
   }
-  int acc[QP][QO];
+
+  // tile t's halo into the buffer at `buf` (cp.async where dense, else stores)
+  auto load = [&](int t, uint32_t buf) {
+    int n0, oyb;
+    if (p.TI > 1) {
+      n0 = t * p.TI;
+      oyb = -p.pad_top;
+    } else {
+      n0 = t / p.RT;
+      oyb = (t - n0 * p.RT) * p.TR * p.stride - p.pad_top;
+    }
+    if (p.dense) {
 #pragma unroll
-  for (int q = 0; q < QP; ++q)
-#pragma unroll
-    for (int u = 0; u < QO; ++u) acc[q][u] = 0;
-  const int tap_bytes = p.Cout * p.Cgp;
-  for (int di = 0; di < p.KH; ++di)
-    for (int dj = 0; dj < p.KW; ++dj) {
-      const int8_t* wt = p.w + (di * p.KW + dj) * tap_bytes + o0 * p.Cgp;
-      const int8_t* xp[QP];
-#pragma unroll
-      for (int q = 0; q < QP; ++q) {
-        const int iy = iy0[q] + di, ix = ix0[q] + dj;
-        xp[q] = xg[q] && iy >= 0 && iy < p.H && ix >= 0 && ix < p.W
-                    ? xg[q] + (iy * p.W + ix) * p.Cin
-                    : nullptr;
+      for (int k = 0; k < Q3_CHUNKS; ++k) {
+        const uint32_t d = desc[k];
+        if (d == ~0u) continue;
+        const int cc = d & 7, hc = d >> 3 & 2047, hr = d >> 14 & 255, im = d >> 22;
+        const int n = n0 + im, iy = oyb + hr, ix = hc - p.pad_left, ch = c0 + 16 * cc;
+        const bool ok = n < p.N && (unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W &&
+                        ch < p.Cin;
+        const int8_t* src = ok ? p.x + (((int64_t)n * p.H + iy) * p.W + ix) * p.Cin + ch : p.x;
+        wgb::cp16(buf + ((im * p.HR + hr) * p.HC + hc) * p.pitch + 16 * cc, src, ok);
       }
-      for (int c = 0; c < p.Cg; c += STEP) {
-        int wv[QO][NW];
-#pragma unroll
-        for (int u = 0; u < QO; ++u) {
-          if (u < nu) {
-            load_words<WVEC>(wt + u * p.Cgp + c, 4, wv[u]);
-          } else {
-#pragma unroll
-            for (int j = 0; j < NW; ++j) wv[u][j] = 0;
+    } else {
+      const int wpp = p.SPB >> 2, per = p.HR * p.HC;
+      for (int c = tid; c < p.HPX * wpp; c += Q3_THREADS) {
+        const int q = c / wpp, wd = c - q * wpp, im = q / per, rem = q - im * per;
+        const int hr = rem / p.HC, n = n0 + im, iy = oyb + hr, ix = rem - hr * p.HC - p.pad_left;
+        uint32_t v = 0;
+        if (n < p.N && (unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W) {
+          const int8_t* px = p.x + (((int64_t)n * p.H + iy) * p.W + ix) * p.Cin;
+          for (int e = 0; e < 4; ++e) {
+            const int b = c0 + 4 * wd + e, g = b / p.Cgs, ci = b - g * p.Cgs;
+            if (g < p.G && ci < p.Cg) v |= (uint32_t)(uint8_t)px[g * p.Cg + ci] << 8 * e;
           }
         }
-#pragma unroll
-        for (int q = 0; q < QP; ++q) {
-          if (!xp[q]) continue;
-          int xv[NW];
-          load_words<VEC>(xp[q] + c, p.Cg - c, xv);
-#pragma unroll
-          for (int u = 0; u < QO; ++u)
-#pragma unroll
-            for (int j = 0; j < NW; ++j) acc[q][u] = __dp4a(xv[j], wv[u][j], acc[q][u]);
-        }
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(buf + q * p.pitch + 4 * wd), "r"(v)
+                     : "memory");
       }
     }
-  // Q1's epilogue: f32(acc) * dq, + bias, each step rounded (no FMA)
-  float d[QO], bb[QO];
-#pragma unroll
-  for (int u = 0; u < QO; ++u) {
-    d[u] = u < nu ? __ldg(p.dq + o0 + u) : 0.f;
-    bb[u] = u < nu && p.bias ? __ldg(p.bias + o0 + u) : 0.f;
-  }
-  const __nv_bfloat16 caph = __float2bfloat16_rn(p.cap);
-  const float capf = __bfloat162float(caph);
-  const uint16_t capb = __bfloat16_as_ushort(caph);
-#pragma unroll
-  for (int q = 0; q < QP; ++q) {
-    if (!xg[q]) continue;
-    const int64_t at = (int64_t)(m0 + q) * p.Cout + o0;
-#pragma unroll
-    for (int u = 0; u < QO; ++u) {
-      if (u >= nu) continue;
-      const float f = __fmul_rn(__int2float_rn(acc[q][u]), d[u]);
-      const float v = p.bias ? __fadd_rn(f, bb[u]) : f;
-      if (p.mode == OUT_F32)
-        static_cast<float*>(p.out)[at + u] = v;
-      else
-        static_cast<uint16_t*>(p.out)[at + u] = to_act1(p, v, capf, capb);
+  };
+
+  const int kind = p.mode == OUT_F32 ? 0 : p.mode == OUT_BF16 ? 1 : p.has_cap ? 3 : 2;
+  const __nv_bfloat162 cap2 = __float2bfloat162_rn(p.cap);
+  const int sets = ncb / NB, mgs = (p.MTILES + MT - 1) / MT, items = sets * mgs;
+  const uint32_t* b2 = bs + lane;  // b0 at + 0, b1 at + 32 words
+  // the span's output columns; where they leave as 16-byte chunks (ovec),
+  // the thread stores chunk sk of rows sr, sr + rpp, ... of each tile
+  const int col0 = 8 * cbA, ncols = min(p.NCOLS, p.Cout - col0);
+  const int cpr = ncols * p.esize >> 4, rpp = Q3_THREADS / max(cpr, 1);
+  const int sr = tid / max(cpr, 1), sk = tid - sr * cpr;
+  int tile = blockIdx.x / p.spans, cur = 0;
+  if (tile < p.tiles) load(tile, halo0);
+  // once per block: the span's weight in fragment order, word i of (cb,
+  // ks, register q, gid, tig) (so lane (gid, tig) reads b0 and b1 as two
+  // conflict-free words), zero off the diagonal and past the taps (zero-
+  // filled copies): where a window is one group of 16-byte multiples, a
+  // register's four words are 16 contiguous bytes of the packed weight, one
+  // copy; else word by word. Its dq and bias columns too, all by cp.async in
+  // one group with the first tile's halo
+  const uint32_t bw = halo0 + p.o_w;
+  if (p.wvec) {
+    for (int i = tid; i < ncb * p.KS * 16; i += Q3_THREADS) {
+      const int gid_ = i & 7, q = i >> 3 & 1, rest = i >> 4;
+      const int ks = rest % p.KS, cb = cbA + rest / p.KS, o = 8 * cb + gid_;
+      const int u = 8 * ks + 4 * q, t = u / p.WW, j = u - t * p.WW;
+      const bool ok = o < p.Cout && t < p.T;
+      wgb::cp16(bw + 16 * i, ok ? p.w + ((int64_t)t * p.Cout + o) * p.Cgp + 4 * j : p.w, ok);
+    }
+  } else {
+    for (int i = tid; i < ncb * p.KS * 64; i += Q3_THREADS) {
+      const int tig_ = i & 3, gid_ = i >> 2 & 7, q = i >> 5 & 1, rest = i >> 6;
+      const int ks = rest % p.KS, cb = cbA + rest / p.KS, o = 8 * cb + gid_;
+      int t, j;
+      if constexpr (LOADS == Q3_PAIR) {
+        t = q3_pair_tap(p, ks, tig_, false);
+        j = q;
+      } else {
+        const int u = 8 * ks + 4 * q + tig_;
+        t = u / p.WW;
+        j = u - t * p.WW;
+      }
+      const int k = 4 * j / p.Cgs, ci = 4 * j - k * p.Cgs;
+      const bool ok =
+          o < p.Cout && t >= 0 && t < p.T && q3_glo(p, cb) + k == o / p.Ng && ci < p.Cgp;
+      wgb::cp4(bw + 4 * i, ok ? p.w + ((int64_t)t * p.Cout + o) * p.Cgp + ci : p.w, ok);
     }
   }
+  for (int c = tid; c < 2 * p.NCOLS; c += Q3_THREADS) {
+    const int col = 8 * cbA + c % p.NCOLS;
+    if (c >= p.NCOLS && !p.bias) {
+      reinterpret_cast<float*>(q3_smem + p.o_cols)[c] = -0.f;
+      continue;
+    }
+    const float* src = c < p.NCOLS ? p.dq : p.bias;
+    wgb::cp4(halo0 + p.o_cols + 4 * c, src + (col < p.Cout ? col : 0), col < p.Cout);
+  }
+  rt::tc::cp_async_commit();
+  // the next Q3_BUFS - 2 tiles' halos, a copy group each
+  for (int b = 1; b < Q3_BUFS - 1; ++b) {
+    if (tile + b * step < p.tiles) load(tile + b * step, halo0 + b * p.o_halo1);
+    rt::tc::cp_async_commit();
+  }
+  for (; tile < p.tiles; tile += step, cur = cur + 1 == Q3_BUFS ? 0 : cur + 1) {
+    // Q3_BUFS - 1 tiles ahead, into the buffer the last tile was read from
+    const int ahead = tile + (Q3_BUFS - 1) * step;
+    if (ahead < p.tiles) load(ahead, halo0 + (cur == 0 ? Q3_BUFS - 1 : cur - 1) * p.o_halo1);
+    rt::tc::cp_async_commit();
+    rt::tc::cp_async_wait<Q3_BUFS - 1>();  // this tile's copies have landed
+    __syncthreads();
+    const uint32_t hcur = halo0 + cur * p.o_halo1;
+    for (int it = warp; it < items; it += Q3_WARPS) {
+      const int set = it / mgs, mg = it - set * mgs, cbl = set * NB;
+      const uint32_t base = hcur + q3_glo(p, cbA + cbl) * p.Cgs - c0;
+      int acc[MT][NB][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+      // the fragment rows' window corners: Q3_PAIR rows gid and gid + 8,
+      // Q3_LDSM the row whose address this lane gives ldmatrix
+      uint32_t rb[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int r0 = (mg * MT + mt) * 16;
+        if constexpr (LOADS == Q3_PAIR) {
+          rb[mt][0] = base + pb[r0 + gid];
+          rb[mt][1] = base + pb[r0 + gid + 8];
+        } else {
+          rb[mt][0] = base + pb[r0 + (lane & 15)];
+        }
+      }
+      const uint32_t* bp = b2 + cbl * p.KS * 64;
+      for (int ks = 0; ks < p.KS; ++ks) {
+        uint32_t a[MT][4];
+        if constexpr (LOADS == Q3_PAIR) {
+          const int tb = tab[4 * ks + tig];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                           : "=r"(a[mt][h]), "=r"(a[mt][2 + h])
+                           : "r"(rb[mt][h] + tb));
+        } else {
+          const int tb = tab[4 * ks + (lane >> 4)];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(a[mt][0]), "=r"(a[mt][1]), "=r"(a[mt][2]), "=r"(a[mt][3])
+                         : "r"(rb[mt][0] + tb));
+        }
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const uint2 b = make_uint2(bp[(j * p.KS + ks) * 64], bp[(j * p.KS + ks) * 64 + 32]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_s8(acc[mt][j], a[mt], b.x, b.y);
+        }
+      }
+      // Q1's epilogue into the staged tile (every row the item computed; the
+      // store leaves out those past the tile): f32(acc) * dq, + bias (-0
+      // where there is none: v + -0 is v), each step rounded (no FMA), then
+      // bf16 (ReLU and cap on the bf16 pair) or fp32; straight-line code
+      // the output kind as template arguments: 0 fp32, 1 bf16, 2 bf16 + ReLU,
+      // 3 bf16 + ReLU + cap
+      auto epilogue = [&](auto kind) {
+        constexpr int K = decltype(kind)::value;
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          const int c = (cbl + j) * 8 + 2 * tig;
+          const float2 d = *reinterpret_cast<const float2*>(cols + c);
+          const float2 bb = *reinterpret_cast<const float2*>(cols + p.NCOLS + c);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = (mg * MT + mt) * 16 + gid + 8 * h;
+              const float v0 =
+                  __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][j][2 * h]), d.x), bb.x);
+              const float v1 =
+                  __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][j][2 * h + 1]), d.y), bb.y);
+              uint8_t* o = stage + row * p.opitch;
+              if constexpr (K == 0)
+                *reinterpret_cast<float2*>(o + 4 * c) = make_float2(v0, v1);
+              else
+                *reinterpret_cast<uint32_t*>(o + 2 * c) = q3_act2<K >= 2, K == 3>(v0, v1, cap2);
+            }
+        }
+      };
+      if (kind == 0)
+        epilogue(std::integral_constant<int, 0>{});
+      else if (kind == 1)
+        epilogue(std::integral_constant<int, 1>{});
+      else if (kind == 2)
+        epilogue(std::integral_constant<int, 2>{});
+      else
+        epilogue(std::integral_constant<int, 3>{});
+    }
+    __syncthreads();
+    // the tile's outputs (rows past M or Ho left out) from the stage, as
+    // 16-byte row chunks where Cout and out allow
+    int64_t m0;
+    int tpv;
+    if (p.TI > 1) {
+      const int n0 = tile * p.TI;
+      m0 = (int64_t)n0 * p.Ho * p.Wo;
+      tpv = min(p.TI, p.N - n0) * p.Ho * p.Wo;
+    } else {
+      const int n = tile / p.RT, oy0 = (tile - n * p.RT) * p.TR;
+      m0 = ((int64_t)n * p.Ho + oy0) * p.Wo;
+      tpv = min(p.TR, p.Ho - oy0) * p.Wo;
+    }
+    uint8_t* y = static_cast<uint8_t*>(p.out) + (m0 * p.Cout + col0) * p.esize;
+    const int64_t ystride = (int64_t)p.Cout * p.esize;
+    if (p.ovec) {
+      // chunk sk of rows sr, sr + rpp, ...: four read from the stage before
+      // any is stored
+      if (sr < rpp) {
+        const uint8_t* sp = stage + sr * p.opitch + 16 * sk;
+        uint8_t* gp = y + sr * ystride + 16 * sk;
+        const int sstep = rpp * p.opitch;
+        const int64_t gstep = rpp * ystride;
+        for (int r = sr; r < tpv; r += 4 * rpp, sp += 4 * sstep, gp += 4 * gstep) {
+          uint4 v[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (r + u * rpp < tpv) v[u] = *reinterpret_cast<const uint4*>(sp + u * sstep);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (r + u * rpp < tpv) *reinterpret_cast<uint4*>(gp + u * gstep) = v[u];
+        }
+      }
+    } else {
+      for (int c = tid; c < tpv * ncols; c += Q3_THREADS) {
+        const int r = c / ncols, k = c - r * ncols;
+        if (p.esize == 4)
+          *reinterpret_cast<uint32_t*>(y + r * ystride + 4 * k) =
+              *reinterpret_cast<const uint32_t*>(stage + r * p.opitch + 4 * k);
+        else
+          *reinterpret_cast<uint16_t*>(y + r * ystride + 2 * k) =
+              *reinterpret_cast<const uint16_t*>(stage + r * p.opitch + 2 * k);
+      }
+    }
+  }
+  rt::tc::cp_async_wait<0>();
+}
+
+inline int q3_r16(int v) { return (v + 15) / 16 * 16; }
+// v rounded up to an odd multiple of 16 bytes: 8 rows at that stride start
+// in 8 distinct 16-byte bank groups
+inline int q3_odd16(int v) { return q3_r16(v) / 16 % 2 ? q3_r16(v) : q3_r16(v) + 16; }
+
+// p's geometry under the plan (sb sets a span; ti images a tile, or at ti =
+// 1 tr output rows of one image): false if the kernel does not take the
+// plan. kernels/build.py q3_geometry is the same function in Python.
+bool q3_geometry(QGrouped& p, int sb, int ti, int tr, bool aligned) {
+  const int ncb = (p.Cout + 7) / 8;
+  int wg = 1;
+  for (int cb = 0; cb < ncb; ++cb)
+    wg = std::max(wg, std::min(8 * cb + 7, p.Cout - 1) / p.Ng - 8 * cb / p.Ng + 1);
+  auto starts = [&](int cgs, int a) {  // every window starts at a multiple of a
+    for (int cb = 0; cb < ncb; ++cb)
+      if (8 * cb / p.Ng * cgs % a) return false;
+    return true;
+  };
+  if (sb < 1 || ti < 1 || tr < 1 || tr > p.Ho || ti > p.N || (ti > 1 && tr != p.Ho)) return false;
+  for (int dense = aligned && p.Cin % 16 == 0 && p.Cg % 4 == 0; dense >= 0; --dense) {
+    const int cgs = dense ? p.Cg : q3_r16(p.Cg);
+    int wb;
+    if (dense && wg * cgs <= 8 && starts(cgs, 8))
+      wb = 8;
+    else if (!dense || starts(cgs, 16))
+      wb = q3_r16(wg * cgs);
+    else
+      continue;
+    p.dense = dense;
+    p.Cgs = cgs;
+    p.WB = wb;
+    p.WW = wb / 4;
+    p.loads = wb == 8 ? Q3_PAIR : Q3_LDSM;
+    p.KS = p.loads == Q3_PAIR ? p.KH * ((p.KW + 3) / 4) : (p.T * p.WW + 7) / 8;
+    p.NCB = ncb;
+    p.NB = 1;
+    if (p.loads == Q3_LDSM && p.Ng % 8 == 0) {
+      const int q = p.Ng / 8;
+      p.NB = q % 4 == 0 ? 4 : q % 2 == 0 ? 2 : 1;
+    }
+    p.MT = p.NB == 1 ? 4 : 2;
+    p.wvec = dense && p.loads == Q3_LDSM && p.Ng % 8 == 0;
+    const int sets = ncb / p.NB;
+    if (sb > sets) return false;
+    p.cbs = sb * p.NB;
+    p.spans = (sets + sb - 1) / sb;
+    int spb = 0;
+    for (int s = 0; s < p.spans; ++s) {
+      const int a = s * p.cbs, c0 = 8 * a / p.Ng * cgs / 16 * 16;
+      for (int cb = a; cb < std::min(a + p.cbs, ncb); ++cb)
+        spb = std::max(spb, 8 * cb / p.Ng * cgs + wb - c0);
+    }
+    p.SPB = q3_r16(spb);
+    p.pitch = q3_odd16(p.SPB);
+    p.TI = ti;
+    p.TR = tr;
+    p.RT = (p.Ho + tr - 1) / tr;
+    p.tiles = ti > 1 ? (p.N + ti - 1) / ti : p.N * p.RT;
+    p.HR = (tr - 1) * p.stride + p.KH;
+    p.HC = (p.Wo - 1) * p.stride + p.KW;
+    p.HPX = ti * p.HR * p.HC;
+    p.TP = ti * tr * p.Wo;
+    p.MTILES = (p.TP + 15) / 16;
+    // the dense loader's chunk record: 8 chunks a thread, image < 2^10,
+    // halo row < 2^8, column < 2^11, chunk < 8
+    if (dense && ((int64_t)p.HPX * (p.SPB / 16) > Q3_THREADS * Q3_CHUNKS || ti > 1023 ||
+                  p.HR > 255 || p.HC > 2047 || p.SPB > 128))
+      continue;
+    p.NCOLS = p.cbs * 8;
+    p.esize = p.mode == OUT_F32 ? 4 : 2;
+    p.opitch = q3_odd16(p.NCOLS * p.esize);
+    const int64_t hb = ((int64_t)p.HPX * p.pitch + 127) / 128 * 128;
+    const int64_t o_w = Q3_BUFS * hb, o_out = o_w + (int64_t)p.cbs * p.KS * 256;
+    // the staged tile holds every row the items compute
+    const int rows = (p.MTILES + p.MT - 1) / p.MT * p.MT * 16;
+    const int64_t o_cols = o_out + q3_r16(rows * p.opitch), o_tab = o_cols + 8 * p.NCOLS;
+    const int64_t o_pb = o_tab + 16 * p.KS;
+    const int64_t smem = o_pb + 4 * rows;
+    if (smem > Q3_SMEM) return false;
+    p.o_halo1 = (int)hb;
+    p.o_w = (int)o_w;
+    p.o_out = (int)o_out;
+    p.o_cols = (int)o_cols;
+    p.o_tab = (int)o_tab;
+    p.o_pb = (int)o_pb;
+    p.smem = (int)smem;
+    return true;
+  }
+  return false;
+}
+
+template <int NB, int MT, int LOADS>
+int q3_launch(const QGrouped& p, cudaStream_t s) {
+  auto* kernel = qconv_grouped_kernel<NB, MT, LOADS>;
+  // the smem attribute and the SM count, once per device (bit d of ready)
+  static std::atomic<uint32_t> ready{0};
+  static int sms_of[32];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(ready.load(std::memory_order_acquire) >> dev & 1u)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Q3_SMEM);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(1u << dev, std::memory_order_release);
+  }
+  // P blocks a span: at most two blocks a SM in all (one wave), none
+  // without a tile
+  const int per = std::max(1, std::min(p.tiles, 2 * sms_of[dev] / p.spans));
+  kernel<<<(unsigned)(p.spans * per), Q3_THREADS, p.smem, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ Q2
@@ -840,41 +1227,39 @@ extern "C" int rt_qconv_s8(const int8_t* x, const int8_t* w, const float* dq,
 // quant.pack_weight(w, groups) lays it out (Cgp = Cin / groups rounded up
 // to 4, zero past Cin / groups), 16-byte aligned; dq and bias (Cout,)
 // fp32, bias may be null; out (N, Ho, Wo, Cout) bf16 (mode 0, 1) or fp32
-// (mode 2). One launch; 32-bit indices, so M, one image of x and w below
-// 2^31 bytes.
+// (mode 2); the plan (sb sets a span, ti images or tr output rows a tile)
+// build.q3_plan's. One launch; M, one image of x and the weight below 2^31
+// bytes.
 extern "C" int rt_qconv_grouped_s8(const int8_t* x, const int8_t* w, const float* dq,
                                    const float* bias, void* out, int N, int H, int W, int Cin,
                                    int Cout, int groups, int KH, int KW, int stride,
                                    int pad_top, int pad_left, int Ho, int Wo, int mode,
-                                   int has_cap, float cap, void* stream) {
+                                   int has_cap, float cap, int sb, int ti, int tr,
+                                   void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Ho <= 0 || Wo <= 0 || KH <= 0 ||
       KW <= 0 || stride <= 0 || groups < 2 || Cin % groups != 0 || Cout % groups != 0 ||
-      mode < OUT_BF16 || mode > OUT_F32 || ((uintptr_t)w % 16) != 0)
+      mode < OUT_BF16 || mode > OUT_F32 || ((uintptr_t)w % 16) != 0 ||
+      (int64_t)N * Ho * Wo >= INT32_MAX || (int64_t)H * W * Cin >= INT32_MAX ||
+      (int64_t)KH * KW * Cout * ((Cin / groups + 3) / 4 * 4) >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
   QGrouped p;
-  p.Cg = Cin / groups;
-  p.Ng = Cout / groups;
-  p.Cgp = (p.Cg + 3) / 4 * 4;
-  const int64_t M = (int64_t)N * Ho * Wo;
-  const int64_t chunks = (int64_t)groups * ((p.Ng + QO - 1) / QO);
-  const int64_t quad_blocks = ((M + QP - 1) / QP + Q3_ROWS - 1) / Q3_ROWS;
-  if (M + QP >= INT32_MAX || (int64_t)H * W * Cin >= INT32_MAX ||
-      (int64_t)KH * KW * Cout * p.Cgp >= INT32_MAX || quad_blocks >= INT32_MAX ||
-      (chunks + 31) / 32 > 65535)
-    return (int)cudaErrorInvalidValue;
   p.x = x;
   p.w = w;
   p.dq = dq;
   p.bias = bias;
   p.out = out;
-  p.M = (int)M;
+  p.N = N;
   p.H = H;
   p.W = W;
   p.Cin = Cin;
   p.Cout = Cout;
-  p.chunks = (int)chunks;
+  p.G = groups;
+  p.Cg = Cin / groups;
+  p.Ng = Cout / groups;
+  p.Cgp = (p.Cg + 3) / 4 * 4;
   p.KH = KH;
   p.KW = KW;
+  p.T = KH * KW;
   p.stride = stride;
   p.pad_top = pad_top;
   p.pad_left = pad_left;
@@ -883,22 +1268,16 @@ extern "C" int rt_qconv_grouped_s8(const int8_t* x, const int8_t* w, const float
   p.mode = mode;
   p.has_cap = has_cap;
   p.cap = cap;
-  const uintptr_t a = (uintptr_t)x;
-  const int vec = p.Cg % 16 == 0 && a % 16 == 0 ? 16
-                  : p.Cg % 8 == 0 && a % 8 == 0 ? 8
-                  : p.Cg % 4 == 0 && a % 4 == 0 ? 4
-                                                : 1;
+  if (!q3_geometry(p, sb, ti, tr, rt::aligned16(x))) return (int)cudaErrorInvalidValue;
+  p.ovec = rt::aligned16(out) && (int64_t)Cout * p.esize % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((unsigned)quad_blocks, (unsigned)((chunks + 31) / 32)), block(32, Q3_ROWS);
-  if (vec == 16)
-    qconv_grouped_kernel<16><<<grid, block, 0, s>>>(p);
-  else if (vec == 8)
-    qconv_grouped_kernel<8><<<grid, block, 0, s>>>(p);
-  else if (vec == 4)
-    qconv_grouped_kernel<4><<<grid, block, 0, s>>>(p);
-  else
-    qconv_grouped_kernel<1><<<grid, block, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  if (p.loads == Q3_PAIR) return q3_launch<1, 4, Q3_PAIR>(p, s);
+  static_assert(Q3_NB_MAX == 4, "an instantiation for each NB");
+  switch (p.NB) {
+    case 1: return q3_launch<1, 4, Q3_LDSM>(p, s);
+    case 2: return q3_launch<2, 2, Q3_LDSM>(p, s);
+    default: return q3_launch<4, 2, Q3_LDSM>(p, s);
+  }
 }
 
 // Q2 on fp32 (the images) and bf16 (every other site) inputs; q int8, n

@@ -34,13 +34,21 @@ stream) (``bn._workspace``), whose tickets the kernel leaves zero.
 
 ``qconv(..., groups=g)`` with g > 1 (ResNeXt's 3x3s) launches Q3 instead
 of Q1: the same sum per group (output channel o reads the input channels
-of group o // (Cout / g)) and Q1's epilogue step for step. It reads the
+of group o // (Cout / g)) and Q1's epilogue step for step. JAX's ``_qconv``
+passes ``feature_group_count`` to XLA's conv (quantize.py:218-238);
+PyTorch has no int8 conv on CUDA, so Q3 is a hand kernel too. It reads the
 weight as ``pack_weight(w, g)`` lays it out: (kh * kw, Cout, Cgp), each
 tap's and output channel's Cin / g bytes in a row of Cgp = Cin / g
 rounded up to 4, zero past Cin / g (``unpack_weight`` views it as HWIO
-again). JAX's ``_qconv`` passes ``feature_group_count`` to XLA's conv
-(quantize.py:218-238); PyTorch has no int8 conv on CUDA, so Q3 is a hand
-kernel too.
+again); each block of the kernel rebuilds its span of it once, in
+fragment order. Bound by bytes at every ResNeXt site (x read once, the
+bf16 output written once; the int8 products take ~2 us a batch-128 site
+on the tensor cores), so Q3 runs ``mma.sync`` s8 on 8-column blocks
+(whole groups packed block-diagonally where Cout / g < 8) from a halo
+tile of x staged once in shared memory, two tiles in flight, and stores
+its output as 16-byte row chunks. Its plan, ``build.q3_plan`` (column
+blocks a span, output rows or images a tile), is a function of the
+shapes and of x's 16-byte alignment.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The plain versions:
@@ -282,15 +290,19 @@ def _qconv_grouped(xq, w, dq, bias, stride, groups, relu, cap, out_dtype, wk):
             or wk.device != xq.device or not build.aligned16(wk)):
         raise ValueError(f"qconv: wk must be the contiguous, 16-byte aligned int8 {want} of "
                          f"pack_weight(w, {groups}), got {tuple(wk.shape)}")
+    pad_top, pad_left = reference_padding(h, kh, stride)[0], reference_padding(wd, kw, stride)[0]
     ho, wo = h // stride, wd // stride
     out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
     if out.numel():
+        plan = build.q3_plan(n, cin, cout, groups, kh, kw, stride, ho, wo,
+                             out_dtype == torch.float32, build.aligned16(xq))
+        if plan is None:
+            raise ValueError(f"qconv: no Q3 tile of {wo} output columns fits shared memory")
         build.launch("rt_qconv_grouped_s8", xq.data_ptr(), wk.data_ptr(), dq.data_ptr(),
                      None if bias is None else bias.data_ptr(), out.data_ptr(),
-                     n, h, wd, cin, cout, groups, kh, kw, stride,
-                     reference_padding(h, kh, stride)[0], reference_padding(wd, kw, stride)[0],
+                     n, h, wd, cin, cout, groups, kh, kw, stride, pad_top, pad_left,
                      ho, wo, _mode(relu, out_dtype), cap is not None,
-                     0.0 if cap is None else float(cap), device=xq.device)
+                     0.0 if cap is None else float(cap), *plan, device=xq.device)
         GROUPED_LAUNCHES += 1
     return out
 

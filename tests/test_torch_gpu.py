@@ -18,8 +18,9 @@ backward with ``-k "conv2d_bf16 or matmul_bwd_bf16"``, K1's bf16 dx and K3's
 bf16 forward on the same persistent kernel, with the witnesses of their bits
 through bf16_gemm.cuh, with ``-k "conv2d_dx_bf16 or matmul_bf16"``, the int8
 serving kernels (Q1, Q3, Q2; each bit for bit against its plain version,
-Q1 also on the shapes its tiles and K splits must get right, Q3 on ragged
-and misaligned shapes, and a quantized ResNet-50 and ResNeXt-50 forward
+Q1 also on the shapes its tiles and K splits must get right, Q3 on the
+edges of its halo tiles and column blocks and on ragged and misaligned
+shapes, and a quantized ResNet-50 and ResNeXt-50 forward
 against the plain int8 forward) with ``-k "qconv or quant_act or
 quantized"``.
 
@@ -1309,35 +1310,57 @@ def test_fused_join_is_its_plain_version_bit_for_bit_on_cuda(cuda, dtype, label,
     assert torch.equal(got, fused_conv.fused_join_reference(e, *rows[:2], r, *rows[2:], cap))
 
 
-# Q3 (kernels.quant.qconv with groups > 1) on the shapes its loads must get
-# right: label, (batch, H, Cin, Cout, k, stride, groups), x's byte offset,
-# the output dtype, relu, cap, bias
+# Q3 (kernels.quant.qconv with groups > 1) on the shapes its halo tile, its
+# column blocks and its stores must get right: label, (batch, H, Cin, Cout,
+# k, stride, groups), x's byte offset, the output dtype, relu, cap, bias,
+# and a plan (sets a span, images a tile, rows a tile) forced in place of
+# build.q3_plan's, or None
 QCONV_GROUPED_EXACT = [
-    ("16 a group, 16-byte loads", (2, 14, 512, 512, 3, 1, 32), 0, "bf16", True, None, True),
-    ("16 a group at offset 8: 8-byte loads", (2, 14, 512, 512, 3, 1, 32), 8, "bf16", True,
-     None, True),
-    ("16 a group at offset 4: 4-byte loads", (2, 14, 512, 512, 3, 2, 32), 4, "bf16", False,
-     None, True),
-    ("16 a group at offset 1: the byte path", (2, 14, 512, 512, 3, 1, 32), 1, "bf16", True,
-     6.0, True),
-    ("4 a group, M = 49 (not a multiple of 4)", (1, 7, 128, 128, 3, 1, 32), 0, "bf16", True,
-     None, False),
-    ("8 a group, 3x3/s2", (3, 28, 256, 256, 3, 2, 32), 0, "bf16", True, None, True),
-    ("64 a group, 7^2", (2, 7, 2048, 2048, 3, 1, 32), 0, "bf16", True, None, True),
-    ("ragged: 3 a group, 5 out", (2, 9, 6, 10, 3, 1, 2), 0, "bf16", False, None, True),
-    ("ragged at offset 3, fp32 out", (3, 6, 12, 8, 3, 2, 4), 3, "f32", False, None, True),
+    ("16 a group, the cp.async halo", (2, 14, 512, 512, 3, 1, 32), 0, "bf16", True, None,
+     True, None),
+    ("16 a group at offset 8: the word-by-word halo", (2, 14, 512, 512, 3, 1, 32), 8, "bf16",
+     True, None, True, None),
+    ("16 a group at offset 4, 3x3/s2: the word-by-word halo", (2, 14, 512, 512, 3, 2, 32), 4,
+     "bf16", False, None, True, None),
+    ("16 a group at offset 1, cap 6", (2, 14, 512, 512, 3, 1, 32), 1, "bf16", True, 6.0, True,
+     None),
+    ("4 a group, M = 49 (not a multiple of 16)", (1, 7, 128, 128, 3, 1, 32), 0, "bf16", True,
+     None, False, None),
+    ("8 a group, 3x3/s2", (3, 28, 256, 256, 3, 2, 32), 0, "bf16", True, None, True, None),
+    ("64 a group, 7^2", (2, 7, 2048, 2048, 3, 1, 32), 0, "bf16", True, None, True, None),
+    ("ragged: 3 a group, 5 out", (2, 9, 6, 10, 3, 1, 2), 0, "bf16", False, None, True, None),
+    ("ragged at offset 3, fp32 out", (3, 6, 12, 8, 3, 2, 4), 3, "f32", False, None, True, None),
     ("a 1x1/s2 grouped conv, 2 outputs a group", (2, 8, 64, 32, 1, 2, 16), 0, "bf16", True,
-     None, True),
+     None, True, None),
+    ("M not a multiple of the tile: 10 rows in tiles of 3", (2, 10, 64, 64, 3, 1, 8), 0,
+     "bf16", True, None, True, (1, 1, 3)),
+    ("tiles of 3 whole images over 5: m16 tiles across images, the last tile short",
+     (5, 7, 256, 256, 3, 1, 32), 0, "bf16", True, None, True, (2, 3, 7)),
+    ("stride 2, odd output rows (14 -> 7)", (2, 14, 128, 128, 3, 2, 32), 0, "bf16", True, None,
+     True, None),
+    ("Ng = 4: two groups a column block", (2, 10, 64, 64, 3, 1, 16), 0, "bf16", True, None,
+     True, None),
+    ("Ng = 2: four groups a column block", (2, 10, 64, 32, 3, 1, 16), 0, "bf16", True, None,
+     True, None),
+    ("64 a group, 3x3/s2 14^2", (2, 14, 2048, 2048, 3, 2, 32), 0, "bf16", True, None, True,
+     None),
+    ("4 a group at offset 3", (2, 14, 256, 256, 3, 1, 32), 3, "bf16", True, None, True, None),
+    ("mode 2: fp32 out with a bias", (2, 14, 512, 512, 3, 1, 32), 0, "f32", False, None, True,
+     None),
+    ("mode 1 with a cap, the cp.async halo", (2, 28, 256, 256, 3, 1, 32), 0, "bf16", True,
+     6.0, True, None),
 ]
 
 
 @pytest.mark.parametrize("case", QCONV_GROUPED_EXACT, ids=[c[0] for c in QCONV_GROUPED_EXACT])
-def test_qconv_grouped_launches_q3_bit_for_bit(cuda, case):
+def test_qconv_grouped_launches_q3_bit_for_bit(cuda, case, monkeypatch):
     """A grouped conv on the card launches Q3 (GROUPED_LAUNCHES, not Q1's
     counter), twice, each time equal to qconv_reference bit for bit."""
-    from resnet_tpu_torch.kernels import quant
+    from resnet_tpu_torch.kernels import build, quant
 
-    _, (n, h, cin, cout, k, s, g), offset, out, relu, cap, bias = case
+    _, (n, h, cin, cout, k, s, g), offset, out, relu, cap, bias, plan = case
+    if plan is not None:
+        monkeypatch.setattr(build, "q3_plan", lambda *args: plan)
     gen = torch.Generator(device="cuda").manual_seed(4)
     flat = torch.randint(-127, 128, (n * h * h * cin + offset,), generator=gen,
                          device="cuda", dtype=torch.int8)

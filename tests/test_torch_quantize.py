@@ -52,7 +52,7 @@ from resnet_tpu_torch.export import (
     load_inference,
     save_inference,
 )
-from resnet_tpu_torch.kernels import bn, build, quant
+from resnet_tpu_torch.kernels import bn, build, checks, quant
 from resnet_tpu_torch.models import forward
 
 FOLD_TOL = 1e-6
@@ -400,11 +400,83 @@ def test_grouped_qconv_hands_q3_its_arguments(monkeypatch):
     assert (quant.LAUNCHES, quant.GROUPED_LAUNCHES) == (before[0], before[1] + 1)
     name, args = calls[-1]
     assert name == "rt_qconv_grouped_s8" and len(args) + 1 == len(build.SIGNATURES[name])
-    assert args[5:] == (2, 56, 56, 256, 256, 32, 3, 3, 2, 1, 1, 28, 28, 1, True, 6.0)
+    assert args[5:21] == (2, 56, 56, 256, 256, 32, 3, 3, 2, 1, 1, 28, 28, 1, True, 6.0)
+    # the plan: 4 column blocks (a group each) a span, tiles of 2 output rows
+    assert args[21:] == build.q3_plan(2, 256, 256, 32, 3, 3, 2, 28, 28, False,
+                                      True) == (4, 1, 2)
     with pytest.raises(ValueError, match="pack_weight"):  # a Q1 packing is refused
         quant.qconv(xq, w, dq, stride=2, groups=32, wk=quant.pack_weight(w))
     with pytest.raises(ValueError):  # 256 input channels are not 32 groups of 4
         quant.qconv(xq, w[:, :, :4], dq, stride=2, groups=32)
+
+
+Q3_SITES = sorted({case[1:] for preset in ("resnext50_32x4d", "resnext101_32x8d")
+                   for batch in (1, 8, 128) for case in checks.qconv_grouped_sites(preset, batch)})
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("site", Q3_SITES, ids=[f"b{c[0]} {c[1]}^2 {c[2]}->{c[3]} s{c[5]}"
+                                                for c in Q3_SITES])
+def test_q3_plan_fits_and_covers_every_output_once(site, f32):
+    """Every grouped site of both ResNeXt presets at batches 1, 8 and 128
+    gets a plan (build.q3_plan) whose layout (build.q3_geometry, qconv.cu's
+    q3_geometry) fits a block's shared memory, two blocks a SM, and on the
+    16-byte halo path with at most Q3_CHUNKS copies a thread. Walked as the
+    kernel walks it (block b: span b % spans, tiles b // spans + P i, for
+    any P), every output pixel and channel is stored exactly once."""
+    n, h, cin, cout, k, s, _, _, _, g = site
+    ho = h // s
+    plan = build.q3_plan(n, cin, cout, g, k, k, s, ho, ho, f32, True)
+    geo = build.q3_geometry(n, cin, cout, g, k, k, s, ho, ho, f32, True, *plan)
+    assert geo is not None and geo["smem"] <= build.Q3_SMEM
+    assert 2 * (build.Q3_SMEM + 1024) <= 233472  # two blocks and their reserve a SM
+    assert geo["dense"] and geo["halo_pixels"] * geo["span_bytes"] // 16 <= (
+        build.Q3_THREADS * build.Q3_CHUNKS)
+    sb, ti, tr = plan
+    stored = torch.zeros(n * ho * ho, cout, dtype=torch.int32)
+    ncb = -(-cout // 8)
+    for per in (1, 3, max(1, 2 * 132 // geo["spans"])):
+        stored.zero_()
+        for b in range(geo["spans"] * min(per, geo["tiles"])):
+            span, step = b % geo["spans"], min(per, geo["tiles"])
+            cb0 = span * geo["cbs"]
+            cols = slice(8 * cb0, min(8 * (cb0 + geo["cbs"]), 8 * ncb, cout))
+            for tile in range(b // geo["spans"], geo["tiles"], step):
+                if ti > 1:
+                    m0, tpv = tile * ti * ho * ho, min(ti, n - tile * ti) * ho * ho
+                else:
+                    img, oy0 = divmod(tile, geo["row_tiles"])
+                    oy0 *= tr
+                    m0, tpv = (img * ho + oy0) * ho, min(tr, ho - oy0) * ho
+                assert 0 < tpv <= geo["tile_pixels"] <= 16 * geo["m_tiles"]
+                stored[m0:m0 + tpv, cols] += 1
+        assert bool((stored == 1).all()), (per, plan)
+
+
+def test_q3_refuses_an_odd_height_at_stride_2(monkeypatch):
+    """The reference geometry needs the stride to divide H (reference_padding):
+    Q3's wrapper refuses an odd H at stride 2 with the plain version's
+    ValueError, before any launch."""
+    monkeypatch.setattr(quant, "_on_card", lambda *a: True)
+    monkeypatch.setattr(build, "launch", lambda *a, **k: pytest.fail("launched"))
+    xq = torch.zeros(2, 7, 7, 64, dtype=torch.int8)
+    w = torch.zeros(3, 3, 4, 64, dtype=torch.int8)
+    for run in (quant.qconv, quant.qconv_reference):
+        with pytest.raises(ValueError, match="stride"):
+            run(xq, w, torch.ones(64), stride=2, groups=16)
+
+
+def test_q3_refuses_rows_too_wide_for_its_tiles(monkeypatch):
+    """No Q3 tile of 2000 output columns (a halo row of one span alone
+    passes a block's shared memory): the wrapper raises before any launch
+    rather than run another path."""
+    monkeypatch.setattr(quant, "_on_card", lambda *a: True)
+    monkeypatch.setattr(build, "launch", lambda *a, **k: pytest.fail("launched"))
+    xq = torch.zeros(1, 2, 2000, 64, dtype=torch.int8)
+    w = torch.zeros(3, 3, 4, 64, dtype=torch.int8)
+    assert build.q3_plan(1, 64, 64, 16, 3, 3, 1, 2, 2000, False, True) is None
+    with pytest.raises(ValueError, match="fits shared memory"):
+        quant.qconv(xq, w, torch.ones(64), groups=16)
 
 
 def test_qconv_constants_mirror_the_source():
@@ -415,6 +487,8 @@ def test_qconv_constants_mirror_the_source():
     assert f"constexpr int KP_ALIGN = {quant.BK};" in src
     assert "constexpr int SK = 2 * wgb::BK;" in src and build.QC_SLICE == 2 * build.WGB_BK
     assert "constexpr int BM = wgb::BM;" in src and build.QC_BM == build.WGB_BM
+    for name in ("Q3_THREADS", "Q3_CHUNKS", "Q3_SMEM", "Q3_BUFS", "Q3_NB_MAX"):
+        assert f"constexpr int {name} = {getattr(build, name)};" in src
 
 
 def test_qconv_refuses_a_packed_weight_of_the_old_layout(monkeypatch):
