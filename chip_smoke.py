@@ -27,7 +27,8 @@ Phases, each printing one JSON line:
      the shapes of K10's twelve weights, bit for bit against its plain
      version;
   4. serving: a seeded ResNet-50 (random weights, non-trivial BN running
-     statistics) is exported, saved, loaded by resnet_tpu_torch.serve and
+     statistics) is exported, saved (a torch.export artifact), loaded by
+     resnet_tpu_torch.serve and
      asked for batches of 1, 3 and 8 over HTTP; the launch counters must
      show 53 conv, 16 add_relu and 1 matmul launches per forward, and the
      logits must match the plain path (cuDNN/cuBLAS, TF32 off) within 1e-3
@@ -223,6 +224,25 @@ Phases, each printing one JSON line:
      s2d step by phase 11's rule; an fp32 s2d stem against the 7x7 stem at
      that batch within JAX's tolerances for the two (outputs rtol 1e-4,
      gradients 1e-3). Each path's steps timed (median of 5).
+ 15. artifact: three self-contained serving artifacts. Phase 4's seeded
+     ResNet-50 at 224 under kernels='pallas', conv_kernels='pallas' (fp32),
+     phase 13's int8 ResNet-50 and phase 14's int8 ResNeXt-50 32x4d, each
+     exported by export.save_inference (a torch.export program over a
+     symbolic batch that calls the hand kernels as the resnet_tpu_torch::
+     custom ops), then loaded by resnet_tpu_torch.serve in a fresh process
+     in which resnet_tpu_torch.models, .quantize and .train cannot be
+     imported, and asked for batches of 1, 3 and 8 over HTTP: each request
+     moves that process's counters as the eager model's forward moves them
+     here (53 K1, 16 K2, 1 K3; 54 Q1, 54 Q2; 38 Q1, 16 Q3, 54 Q2); the
+     served logits equal the eager model's bit for bit in int8 and lie
+     within 1e-3 of max|logits| in fp32 (the bit equality printed); the
+     export's seconds, the file's bytes and the server's start printed.
+ 16. converge: python -m resnet_tpu_torch.tools.convergence in this process
+     on the hand kernels (kernels='pallas', conv_kernels='pallas', bf16)
+     with CONVERGE_ARGS (resnet18 on the procedural classes at 32^2, batch
+     32, lr 0.02, warmup 50, 1600 steps, a resume halfway): the resume exact, the
+     training loss finite and falling, fp top-1 at least CONVERGE_TOP1, and
+     Q1 and Q2 launched by its int8 evaluation; fp and int8 top-1 printed.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
@@ -256,7 +276,7 @@ torch._int_mm (the integer product alone) on every case it takes (M > 16,
 N a multiple of 8; an im2col of x made outside the timed call, K padded
 to a multiple of 8).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 14 together, every kernel launched on at least one of them; ms,
+phases 4 to 16 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases; where the yardstick takes only some cases,
 ``library_covered`` sums those; Q1's ``apart`` and ``rest`` sum its batch-1
@@ -273,7 +293,7 @@ weight split, and prints no final line: copied with kernels/checks.py into anoth
 the package, it times that tree's kernels on this tree's cases. With
 --phases NAMES (serve, train, fused_train, blockfused_train,
 batch_norm_act, remat_train, trainer, presets, bf16_engines, int8_serve,
-configs) it runs
+configs, artifact, converge) it runs
 phases 1-2 and those phases only, with no final line: copied into another
 tree, it times and profiles that tree's steps the way this one does.
 """
@@ -835,7 +855,8 @@ def _int8_http(torch, counters, mcfg, per_forward):
             thread.join(timeout=60)
         require(not thread.is_alive(), "server thread did not stop")
     served = httpd.served
-    require(served.scales == model.scales, "the loaded model's scales differ from the export's")
+    require(served.kind == "int8" and served.meta["scales"] == model.scales,
+            "the loaded artifact's scales differ from the export's")
     for x, out, delta in zip(batches, replies, deltas):
         require(out["logits_shape"] == [x.shape[0], mcfg.num_classes],
                 f"logits_shape {out['logits_shape']} for batch {x.shape[0]}")
@@ -849,7 +870,7 @@ def _int8_http(torch, counters, mcfg, per_forward):
     def plain_call(a):
         x = torch.from_numpy(np.asarray(a, dtype=np.float32)).cuda()
         with torch.inference_mode():
-            return forward_sites(served.sites(), x, served.mcfg, relu_cap=served.relu_cap,
+            return forward_sites(model.sites(), x, model.mcfg, relu_cap=model.relu_cap,
                                  plain=True)
 
     plain = types.SimpleNamespace(call=plain_call)
@@ -2796,13 +2817,248 @@ def _frozen_held(kcfg, pcfg, state0, batch):
             "grad_nearest_limit": nearest}
 
 
+# phase 15: a server of a saved artifact runs in a process where the model
+# code cannot be imported; it serves serve.py's HTTP contract and, for this
+# smoke alone, GET /counters (the kernels' launch counters) and POST
+# /logits (the bucketed logits as raw fp32 bytes)
+MODEL_CODE = ("resnet_tpu_torch.models", "resnet_tpu_torch.quantize", "resnet_tpu_torch.train")
+ARTIFACT_SERVER = """
+import importlib, json, sys
+for name in %r:
+    sys.modules[name] = None  # an import of the model code raises
+import numpy as np
+from resnet_tpu_torch import serve
+
+httpd = serve.serve(sys.argv[1], port=0, device="cuda")
+served = httpd.served
+# kernel name -> (its module, its counter), as kernels.checks.KERNELS maps them
+where = {k: (importlib.import_module(m), a) for k, (m, a) in json.loads(sys.argv[2]).items()}
+
+
+class Handler(httpd.RequestHandlerClass):
+    def do_GET(self):
+        if self.path != "/counters":
+            return super().do_GET()
+        self._reply(200, {k: getattr(m, a) for k, (m, a) in where.items()})
+
+    def do_POST(self):
+        if self.path != "/logits":
+            return super().do_POST()
+        shape = tuple(int(v) for v in self.headers["X-Shape"].split(","))
+        n = int(self.headers["Content-Length"])
+        x = np.frombuffer(self.rfile.read(n), dtype=np.float32).reshape(shape)
+        body = serve.bucketed_call(served, x, httpd.max_bucket).tobytes()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+httpd.RequestHandlerClass = Handler
+loaded = sorted(n for n, m in sys.modules.items() if m is not None and n.startswith(%r))
+print(json.dumps({"port": httpd.server_address[1], "kind": served.kind,
+                  "model_code_imported": loaded, "jax": "jax" in sys.modules}), flush=True)
+httpd.serve_forever()
+""" % (MODEL_CODE, MODEL_CODE)
+ARTIFACT_BATCHES = (1, 3, 8)
+
+
+def _http(addr, method, path, x=None):
+    """(status, body bytes) of one request to the artifact server."""
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    try:
+        if x is None:
+            conn.request(method, path)
+        else:
+            conn.request(method, path, body=x.tobytes(),
+                         headers={"X-Shape": ",".join(map(str, x.shape))})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
+
+
+def _artifact_saved(counters, name, model, per_forward, batches, path):
+    """One artifact's eager side: ``model`` (an eager served model on the
+    card) asked for each batch (at its bucket), each forward moving the
+    counters by ``per_forward``, then saved to ``path`` by
+    ``save_inference`` (a torch.export program over a symbolic batch).
+    Returns what ``_artifact_checked`` holds the served program to."""
+    from resnet_tpu_torch.export import save_inference
+    from resnet_tpu_torch.serve import bucketed_call
+
+    eager, eager_moved = [], []
+    for x in batches:
+        before = counters.read()
+        eager.append(bucketed_call(model, x))
+        eager_moved.append(_moved(before, counters.read()))
+    require(all(m == per_forward for m in eager_moved),
+            f"{name}: the eager forward moved the counters by {eager_moved}, "
+            f"expected {per_forward}")
+    t0 = time.perf_counter()
+    save_inference(path, model)
+    return {"name": name, "kind": model.meta()["kind"], "path": path, "batches": batches,
+            "eager": eager, "moved": eager_moved, "export_s": time.perf_counter() - t0,
+            "file_bytes": os.path.getsize(path)}
+
+
+def _artifact_server(counters, saved, errlog):
+    """The artifact server process of one saved artifact (ARTIFACT_SERVER)."""
+    where = json.dumps({k: (m.__name__, a) for k, (m, a) in counters.where.items()})
+    return subprocess.Popen([sys.executable, "-c", ARTIFACT_SERVER, saved["path"], where],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=errlog, text=True)
+
+
+def _artifact_checked(saved, proc, errlog, exact, t0):
+    """One artifact served by ``proc`` (loaded in a process where
+    ``MODEL_CODE`` cannot be imported, by resnet_tpu_torch.serve): each
+    batch asked for over HTTP must move that process's counters as the
+    eager model's forward moved them; the served logits (at the request's
+    bucket) against the eager model's: equal bit for bit where ``exact``,
+    else within LOGIT_TOL of max|logits|, the bit equality printed."""
+    name = saved["name"]
+    line = proc.stdout.readline()
+    ready_s = time.perf_counter() - t0
+    if not line:
+        errlog.seek(0)
+        raise RuntimeError(f"{name}: the artifact server died:\n{errlog.read()[-4000:]}")
+    hello = json.loads(line)
+    require(hello["kind"] == saved["kind"] and not hello["jax"],
+            f"{name}: the server reports {hello}")
+    require(not hello["model_code_imported"],
+            f"{name}: the server imported {hello['model_code_imported']}")
+    addr = ("127.0.0.1", hello["port"])
+    status, body = _http(addr, "GET", "/healthz")
+    require(status == 200 and json.loads(body) == {"ok": True}, "/healthz: not ok")
+    rows = []
+    for x, want, moved in zip(saved["batches"], saved["eager"], saved["moved"]):
+        before = json.loads(_http(addr, "GET", "/counters")[1])
+        status, body = _http(addr, "POST", "/predict", x)
+        after = json.loads(_http(addr, "GET", "/counters")[1])
+        require(status == 200, f"{name}: /predict answered {status}: {body[:200]}")
+        reply = json.loads(body)
+        served_moved = _moved(before, after)
+        require(served_moved == moved, f"{name} batch {x.shape[0]}: the served "
+                f"program moved the counters by {served_moved}, eager by {moved}")
+        status, body = _http(addr, "POST", "/logits", x)
+        require(status == 200, f"{name}: /logits answered {status}")
+        got = np.frombuffer(body, dtype=np.float32).reshape(want.shape)
+        require(np.isfinite(got).all(), f"{name}: non-finite served logits")
+        require(reply["top1"] == got.argmax(-1).tolist()
+                and reply["logits_shape"] == list(want.shape),
+                f"{name}: /predict's reply differs from the served logits")
+        bits = got.tobytes() == want.tobytes()
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        if exact:
+            require(bits, f"{name} batch {x.shape[0]}: served logits differ from the "
+                    f"eager model's by {err}")
+        else:
+            require(err <= LOGIT_TOL * scale, f"{name} batch {x.shape[0]}: max|served "
+                    f"- eager| = {err} > {LOGIT_TOL} * {scale}")
+        rows.append({"batch": int(x.shape[0]), "per_request": served_moved,
+                     "bit_equal_to_eager": bits, "max_abs_err": err,
+                     "max_abs_logit": scale, "latency_ms": reply["latency_ms"]})
+    return {"export_s": saved["export_s"], "file_bytes": saved["file_bytes"],
+            "server_ready_s": ready_s, "compare": rows}
+
+
+def phase_artifact(torch, counters):
+    """Phase 15: three self-contained artifacts, each saved here after its
+    eager forwards (``_artifact_saved``), then served by its own process
+    without the model code, the three started together
+    (``_artifact_checked``): phase 4's seeded ResNet-50 under
+    kernels='pallas', conv_kernels='pallas' (fp32: 53 K1, 16 K2, 1 K3 a
+    forward; within LOGIT_TOL of the eager model), phase 13's int8
+    ResNet-50 (54 Q1, 54 Q2) and phase 14's int8 ResNeXt-50 32x4d (38 Q1,
+    16 Q3, 54 Q2), both bit for bit."""
+    from resnet_tpu_torch.config import ExecutionConfig, model_config
+    from resnet_tpu_torch.export import export_inference, export_quantized_inference
+
+    torch.cuda.empty_cache()
+    out, launched, saved = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, arch, kind, per_forward in (
+                ("resnet50_fp32", "resnet50", "fp", PER_FORWARD),
+                ("resnet50_int8", "resnet50", "int8", INT8_PER_FORWARD),
+                (f"{RESNEXT}_int8", RESNEXT, "int8", RESNEXT_INT8_PER_FORWARD)):
+            mcfg = model_config(arch)
+            params, bn_state = _serving_state(torch, mcfg)
+            rng = np.random.default_rng(SEED)
+            d = mcfg.input_dim
+            if kind == "fp":
+                model = export_inference(params, mcfg, bn_state=bn_state, ecfg=ExecutionConfig(
+                    kernels="pallas", conv_kernels="pallas"))
+            else:
+                calib = rng.normal(0, 50, (8, d, d, 3)).astype(np.float32)
+                model = export_quantized_inference(params, mcfg, calib, bn_state=bn_state)
+            batches = [rng.normal(0, 50, (n, d, d, 3)).astype(np.float32)
+                       for n in ARTIFACT_BATCHES]
+            saved.append(_artifact_saved(counters, name, model, per_forward, batches,
+                                         os.path.join(tmp, f"{name}.pt2")))
+            del model, params, bn_state
+            torch.cuda.empty_cache()
+        counters.zero()
+        logs = [open(os.path.join(tmp, f"{s['name']}.err"), "w+") for s in saved]
+        t0 = time.perf_counter()
+        procs = [_artifact_server(counters, s, log) for s, log in zip(saved, logs)]
+        try:
+            for s, proc, log in zip(saved, procs, logs):
+                out[s["name"]] = _artifact_checked(s, proc, log, s["kind"] == "int8", t0)
+                for rows in out[s["name"]]["compare"]:
+                    for k, v in rows["per_request"].items():
+                        launched[k] = launched.get(k, 0) + v
+        finally:
+            for proc in procs:
+                proc.terminate()
+            for proc, log in zip(procs, logs):
+                proc.wait(timeout=60)
+                log.close()
+    emit({"phase": "artifact", **out})
+    return launched
+
+
+# phase 16: the convergence tool's learnability recipe (resnet18, 32^2, 10
+# classes, batch 32, lr 0.02, warmup 50) on the hand kernels, at 1600 steps
+# with the resume halfway: with this recipe JAX's tools/convergence_run.py
+# reaches fp top-1 0.48 on the CPU at 400 steps, 0.92 at 1600
+CONVERGE_ARGS = ["--model", "resnet18", "--steps", "1600", "--batch", "32", "--dim", "32",
+                 "--classes", "10", "--eval-every", "400", "--eval-batches", "4",
+                 "--warmup", "50", "--lr", "0.02", "--resume-at", "800",
+                 "--kernels", "pallas", "--conv-kernels", "pallas", "--device", "cuda"]
+CONVERGE_TOP1 = 0.80
+
+
+def phase_converge(torch, counters):
+    """Phase 16: ``python -m resnet_tpu_torch.tools.convergence`` with
+    CONVERGE_ARGS, in this process: the resume exact, the training loss
+    finite and falling, fp top-1 at least CONVERGE_TOP1, and Q1 and Q2
+    launched by its int8 evaluation."""
+    from resnet_tpu_torch.tools import convergence
+
+    with tempfile.TemporaryDirectory() as tmp:
+        counters.zero()
+        rec = convergence.main(CONVERGE_ARGS + ["--out", os.path.join(tmp, "converge.json")])
+        launched = {k: v for k, v in counters.read().items() if v}
+    losses = [r["train_loss"] for r in rec["curve"]]
+    emit({"phase": "converge", "resume": rec["resume"], "final": rec["final"],
+          "curve": rec["curve"], "wall_seconds": rec["wall_seconds"], "launches": launched})
+    require(rec["resume"]["exact"], f"converge: the resume was not exact: {rec['resume']}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"converge: training losses {losses}")
+    require(rec["final"]["fp_top1"] >= CONVERGE_TOP1,
+            f"converge: fp top-1 {rec['final']['fp_top1']} < {CONVERGE_TOP1}")
+    require(launched.get("qconv", 0) > 0 and launched.get("quant_act", 0) > 0,
+            f"converge: the int8 evaluation launched no Q1 or Q2: {launched}")
+    return launched
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
                         "for those only, no plans, no final line")
-    parser.add_argument("--phases", help="comma-separated names of phases 4-14 (serve, "
-                        "train, ..., presets, bf16_engines, int8_serve, configs): phases "
-                        "1-2 and those only, no final line")
+    parser.add_argument("--phases", help="comma-separated names of phases 4-16 (serve, "
+                        "train, ..., presets, bf16_engines, int8_serve, configs, artifact, "
+                        "converge): phases 1-2 and those only, no final line")
     args = parser.parse_args()
     import torch
 
@@ -2838,7 +3094,9 @@ def main() -> None:
               "presets": lambda: phase_presets(torch, counters, smi),
               "bf16_engines": lambda: phase_bf16_engines(torch, counters, smi),
               "int8_serve": lambda: phase_int8_serve(torch, checks, counters),
-              "configs": lambda: phase_configs(torch, checks, counters, smi)}
+              "configs": lambda: phase_configs(torch, checks, counters, smi),
+              "artifact": lambda: phase_artifact(torch, counters),
+              "converge": lambda: phase_converge(torch, counters)}
     if args.phases:
         names = args.phases.split(",")
         require(set(names) <= set(phases), f"unknown phases in {names}")

@@ -11,4 +11,9 @@ module holds the wrappers, their plain PyTorch versions and launch counters
 (``LAUNCHES`` and, for the other kernels of a module, ``DX_LAUNCHES``,
 ``DW_LAUNCHES``, ``MASK_LAUNCHES``, ``BWD_LAUNCHES``, ``APPLY_LAUNCHES``,
 ``JOIN_LAUNCHES``, ``ACT_LAUNCHES``; the map is ``checks.KERNELS``); ``build`` compiles
-``csrc/`` with nvcc and loads it with ctypes on first use."""
+``csrc/`` with nvcc and loads it with ctypes on first use. ``ops`` holds the
+forward entries a served forward reaches (K1, K2, K3, Q1 to Q3) as
+``torch.library`` custom ops; importing this package registers their
+implementations, so that a program exported with them runs."""
+
+from . import conv, fused, matmul, quant  # noqa: F401  (each registers its op)

@@ -3,7 +3,10 @@ resnet_tpu.kernels.conv.conv2d_pallas.
 
 Reference-centered windows (``ops.padding.reference_padding``): out = in /
 stride, taps outside the image skipped. ``conv2d`` is a
-``torch.autograd.Function``. On CUDA tensors its forward launches the conv
+``torch.autograd.Function`` whose forward is the custom op
+``ops.conv2d_nhwc`` (called directly where no gradient is recorded; its
+implementations ``_forward`` on CUDA tensors and ``_forward_plain`` on CPU
+ones, called directly in eager mode, ``ops.implement``). On CUDA tensors its forward launches the conv
 kernel of ``csrc/conv.cu``, and its backward the two gradient kernels of the
 same file (dx only when the input needs a gradient, dW only when the weight
 does); anything the kernels do not take raises. All three run on the
@@ -63,7 +66,7 @@ import torch.nn.functional as F
 
 from ..ops.conv import conv2d as _plain_conv2d
 from ..ops.padding import reference_padding
-from . import build
+from . import build, ops
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
@@ -175,10 +178,19 @@ def fwd_bf16_route(m: int, cin: int, cout: int, k: int, stride: int,
     return "matrix" if (k, stride) == (1, 1) and whole else "gather"
 
 
+def _forward_plain(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """``ops.conv2d_nhwc``'s CPU implementation: the plain forward after
+    the kernel's checks."""
+    _shapes(x, w, stride)
+    build.on_card("conv2d", x, w)
+    return conv2d_reference(x, w, stride)
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
+    """``ops.conv2d_nhwc``'s CUDA implementation: one launch of K1."""
     n, h, wd, cin, cout, k = _shapes(x, w, stride)
     if not build.on_card("conv2d", x, w):
-        return conv2d_reference(x, w, stride)
+        raise ValueError("conv2d: CPU tensors reached the CUDA implementation")
     if -(-cout // 64) > _MAX_N_TILES or k * k * cin >= 2**31:
         raise ValueError(f"conv2d: Cout={cout}, k*k*Cin beyond the kernel's grid")
     out = torch.empty((n, h // stride, wd // stride, cout), dtype=x.dtype,
@@ -194,6 +206,9 @@ def _forward(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
                      stride, ws_ptr, splits, *route, device=x.device)
         build.count(__name__, "LAUNCHES", x)
     return out
+
+
+_conv2d_nhwc = ops.implement("conv2d_nhwc", cpu=_forward_plain, cuda=_forward)
 
 
 def phase_taps(p: int, k: int, s: int) -> Tuple[int, int]:
@@ -343,7 +358,7 @@ class _Conv2d(torch.autograd.Function):
     def forward(ctx, x, w, stride):
         ctx.stride = stride
         ctx.save_for_backward(x, w)
-        return _forward(x, w, stride)
+        return _conv2d_nhwc(x, w, stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -362,4 +377,6 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     stride | H and stride | W -> (N, H/stride, W/stride, Cout).
     Differentiable in x and w."""
     _shapes(x, w, stride)
-    return _Conv2d.apply(x, w, stride)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv2d.apply(x, w, stride)
+    return _conv2d_nhwc(x, w, stride)  # no graph to record: skip the Function

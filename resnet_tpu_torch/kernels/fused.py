@@ -1,7 +1,10 @@
 """Residual join relu(a + b) and its backward: the port of
 resnet_tpu.kernels.fused.add_relu.
 
-``add_relu`` is a ``torch.autograd.Function``. On a CUDA tensor its forward
+``add_relu`` is a ``torch.autograd.Function`` whose forward is the custom op
+``ops.add_relu`` (called directly where no gradient is recorded; its
+implementations ``_forward`` on CUDA tensors and ``_forward_plain`` on CPU
+ones, called directly in eager mode, ``ops.implement``). On a CUDA tensor its forward
 launches ``rt_add_relu_f32`` and its backward ``rt_add_relu_mask_f32``
 (``csrc/add_relu.cu``), the port of ``_add_relu_mask_kernel``:
 g * [a + b > 0], strict >, the same gradient for both inputs (fused.py:80-83);
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from . import bn, build
+from . import bn, build, ops
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
@@ -49,15 +52,26 @@ def add_relu_mask_reference(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor
     return torch.where(a.float() + b.float() > 0, g, torch.zeros_like(g))
 
 
+def _forward_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.add_relu``'s CPU implementation: the plain version after the
+    kernel's checks."""
+    build.on_card("add_relu", a, b)
+    return add_relu_reference(a, b)
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.add_relu``'s CUDA implementation: one launch of K2."""
     if not build.on_card("add_relu", a, b):
-        return add_relu_reference(a, b)
+        raise ValueError("add_relu: CPU tensors reached the CUDA implementation")
     out = torch.empty_like(a)
     if a.numel():
         build.launch(build.entry_name("add_relu", a), a.data_ptr(), b.data_ptr(),
                      out.data_ptr(), a.numel(), device=a.device)
         build.count(__name__, "LAUNCHES", a)
     return out
+
+
+_add_relu = ops.implement("add_relu", cpu=_forward_plain, cuda=_forward)
 
 
 def add_relu_mask(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -79,7 +93,7 @@ class _AddRelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return _forward(a, b)
+        return _add_relu(a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -95,7 +109,9 @@ def add_relu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     or bf16); differentiable in both."""
     if a.shape != b.shape:
         raise ValueError(f"add_relu: shapes {tuple(a.shape)} and {tuple(b.shape)}")
-    return _AddRelu.apply(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _AddRelu.apply(a, b)
+    return _add_relu(a, b)  # no graph to record: skip the Function
 
 
 class _BiasAct(torch.autograd.Function):

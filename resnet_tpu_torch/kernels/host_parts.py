@@ -1,8 +1,9 @@
 """Where one call of K4 (``bn.moments``), of K7 (``adam.fused_adam``,
 with its caller ``optim.adam_update_fused``) and of K6 (``bn.bn_bwd``)
-spends its host time.
+spends its host time, and what one call of each served forward entry (K1,
+K2, K3, Q1, Q2) costs the host.
 
-    python -m resnet_tpu_torch.kernels.host_parts [moments] [adam] [bn_bwd]
+    python -m resnet_tpu_torch.kernels.host_parts [moments] [adam] [bn_bwd] [served]
 
 on a CUDA card prints one JSON line per part: ``checks.host_us`` of that
 part alone (200 calls enqueued back to back, divided by 200), at the
@@ -17,13 +18,21 @@ and the device-table K7 (``rt_moments_f32`` with 9 arguments,
 parameter-bank K7 that replaced them. K6's parts are those of the
 one-launch wrapper (``bn.bn_bwd_plan``), at the batch-32 stem's and the
 ragged case's shapes of ``checks.BN_BWD_CASES`` in fp32 and bf16; in an
-older tree only its whole call is timed. Run inside a ``git archive`` of an
-older tree, the script times that tree's parts.
+older tree only its whole call is timed. ``served`` times, at a batch-8
+serving shape each and under ``torch.inference_mode()``, in SERVED_TURNS
+turns (the median printed beside every turn), the wrapper's
+whole call (``conv.conv2d``, ``fused.add_relu``, ``matmul.matmul``,
+``quant.qconv`` with its packed weight, ``quant.quant_act``) and, where the
+tree has the custom ops (``kernels.ops``), the op called directly and its
+CUDA implementation called directly: the dispatcher's cost is the op's
+time less the implementation's. Run inside a ``git archive`` of an older
+tree, the script times that tree's parts.
 """
 
 from __future__ import annotations
 
 import json
+import statistics
 import sys
 
 import torch
@@ -31,6 +40,7 @@ import torch
 from . import adam, bn, build, checks
 
 DEVICE = "cuda"
+SERVED_TURNS = 5  # the served entries' parts: the median of this many timings
 
 
 def _emit(kernel, case, part, fn):
@@ -215,11 +225,54 @@ def bn_bwd_parts():
                   lambda: build.count(bn.__name__, "BWD_LAUNCHES", x))
 
 
+def served_parts():
+    from . import conv, fused, matmul, quant
+
+    ops = sys.modules.get(f"{__package__}.ops")
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    x, w = (torch.randn(s, generator=g, device=DEVICE) for s in ((8, 56, 56, 64), (3, 3, 64, 64)))
+    a, b = (torch.randn(8, 56, 56, 256, generator=g, device=DEVICE) for _ in range(2))
+    fa, fb = torch.randn(8, 2048, generator=g, device=DEVICE), torch.randn(
+        2048, 1000, generator=g, device=DEVICE)
+    xq = torch.randint(-127, 128, (8, 56, 56, 64), generator=g, device=DEVICE, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (3, 3, 64, 64), generator=g, device=DEVICE, dtype=torch.int8)
+    wk, dq, bias = quant.pack_weight(wq), torch.rand(64, device=DEVICE) * 1e-4, torch.zeros(
+        64, device=DEVICE)
+    q_args = (xq, wq, dq, bias, wk, 1, 1, True, None, torch.bfloat16)
+    cases = [
+        ("conv2d", "3x3 (8,56,56,64)", lambda: conv.conv2d(x, w, 1), "conv2d_nhwc",
+         "_forward", conv, (x, w, 1)),
+        ("add_relu", "(8,56,56,256)", lambda: fused.add_relu(a, b), "add_relu", "_forward",
+         fused, (a, b)),
+        ("matmul", "(8,2048)@(2048,1000)", lambda: matmul.matmul(fa, fb), "matmul",
+         "_forward", matmul, (fa, fb)),
+        ("qconv", "3x3 (8,56,56,64)", lambda: quant.qconv(xq, wq, dq, bias, relu=True, wk=wk),
+         "qconv", "_qconv", quant, q_args),
+        ("quant_act", "(8,56,56,64)", lambda: quant.quant_act(x, 0.37), "quant_act",
+         "_quant_act", quant, (x, 0.37)),
+    ]
+    with torch.inference_mode():
+        for kernel, case, whole, op, impl, mod, args in cases:
+            parts = {"wrapper, whole call": whole}
+            if ops is not None:
+                parts["custom op, called directly"] = lambda: getattr(ops, op)(*args)
+                parts["its CUDA implementation, called directly"] = (
+                    lambda: getattr(mod, impl)(*args))
+            times = {part: [] for part in parts}
+            for _ in range(SERVED_TURNS):  # the parts in turns, each timed anew
+                for part, fn in parts.items():
+                    times[part].append(checks.host_us(fn))
+            for part, t in times.items():
+                print(json.dumps({"kernel": kernel, "case": case, "part": part,
+                                  "host_us": statistics.median(t), "turns": t}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("host_parts: needs a CUDA device")
     build.load()
-    parts = {"moments": moments_parts, "adam": adam_parts, "bn_bwd": bn_bwd_parts}
+    parts = {"moments": moments_parts, "adam": adam_parts, "bn_bwd": bn_bwd_parts,
+             "served": served_parts}
     for name in sys.argv[1:] or parts:
         parts[name]()
     print(build.subprocess.run(

@@ -1,7 +1,10 @@
 """fp32 GEMM and its VJP: the port of resnet_tpu.kernels.matmul.matmul
 (the FC).
 
-``matmul`` is a ``torch.autograd.Function``. On CUDA tensors its forward
+``matmul`` is a ``torch.autograd.Function`` whose forward is the custom op
+``ops.matmul`` (called directly where no gradient is recorded; its
+implementations ``_forward`` on CUDA tensors and ``_forward_plain`` on CPU
+ones, called directly in eager mode, ``ops.implement``). On CUDA tensors its forward
 launches one kernel of ``csrc/matmul.cu``, chosen by shape in
 ``matmul_route``: the skinny streaming kernel ``rt_matmul_skinny_f32`` for
 M <= 32 (the FC at batch 1-32), the tiled ``rt_matmul_f32`` above. Its
@@ -37,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build
+from . import build, ops
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
@@ -119,9 +122,17 @@ def _gemm(entry: str, a: torch.Tensor, b: torch.Tensor, m: int, n: int, k: int,
     return out
 
 
+def _forward_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.matmul``'s CPU implementation: the plain version after the
+    kernel's checks."""
+    build.on_card("matmul", a, b)
+    return matmul_reference(a, b)
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``ops.matmul``'s CUDA implementation: one launch of K3's forward."""
     if not build.on_card("matmul", a, b):
-        return matmul_reference(a, b)
+        raise ValueError("matmul: CPU tensors reached the CUDA implementation")
     m, k = a.shape
     n = b.shape[1]
     if a.dtype is torch.bfloat16:  # one entry point, the route's split
@@ -134,6 +145,9 @@ def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m and n and k:
         build.count(__name__, "LAUNCHES", a)
     return out
+
+
+_matmul = ops.implement("matmul", cpu=_forward_plain, cuda=_forward)
 
 
 def matmul_bwd(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
@@ -171,7 +185,7 @@ class _Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
-        return _forward(a, b)
+        return _matmul(a, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -186,4 +200,4 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _Matmul.apply(a, b)
-    return _forward(a, b)  # no graph to record: skip the Function's host cost
+    return _matmul(a, b)  # no graph to record: skip the Function's host cost

@@ -50,8 +50,11 @@ its output as 16-byte row chunks. Its plan, ``build.q3_plan`` (column
 blocks a span, output rows or images a tile), is a function of the
 shapes and of x's 16-byte alignment.
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. The plain versions:
+Both wrappers call their custom op (``ops.quant_act``, ``ops.qconv``; in
+eager mode its implementation directly, ``ops.implement``): the plain
+version on CPU tensors (``_quant_act_plain``, ``_qconv_plain``) and the
+kernel on CUDA tensors (``_quant_act``, ``_qconv``), which launches it or
+raises. The plain versions:
 ``quant_act_reference`` in torch ops (``torch.round`` rounds half to even,
 as ``jnp.round``), ``qconv_reference`` = ``qconv_acc_reference`` (the conv
 in float64 on the int8 values with cuDNN off, exact: every partial sum is
@@ -71,7 +74,7 @@ import torch
 
 from ..ops.conv import conv2d
 from ..ops.padding import reference_padding
-from . import bn, build
+from . import bn, build, ops
 
 # wrapper calls that launched each CUDA kernel
 LAUNCHES = 0
@@ -92,8 +95,20 @@ def quant_act_reference(x: torch.Tensor, inv: float) -> torch.Tensor:
 
 def quant_act(x: torch.Tensor, inv: float) -> torch.Tensor:
     """Q2 on a contiguous fp32 or bf16 tensor; ``inv`` = 1 / scale in fp32."""
+    return _quant_act_op(x, inv)
+
+
+def _quant_act_plain(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """``ops.quant_act``'s CPU implementation: the plain version after the
+    kernel's checks."""
+    build.on_card("quant_act", x)
+    return quant_act_reference(x, inv)
+
+
+def _quant_act(x: torch.Tensor, inv: float) -> torch.Tensor:
+    """``ops.quant_act``'s CUDA implementation: one launch of Q2."""
     if not build.on_card("quant_act", x):
-        return quant_act_reference(x, inv)
+        raise ValueError("quant_act: CPU tensors reached the CUDA implementation")
     global ACT_LAUNCHES
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if x.numel():
@@ -101,6 +116,9 @@ def quant_act(x: torch.Tensor, inv: float) -> torch.Tensor:
                      inv, x.numel(), device=x.device)
         ACT_LAUNCHES += 1
     return q
+
+
+_quant_act_op = ops.implement("quant_act", cpu=_quant_act_plain, cuda=_quant_act)
 
 
 def relu_reference(h: torch.Tensor, cap=None) -> torch.Tensor:
@@ -221,10 +239,25 @@ def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
     windows, then the dequantizing epilogue (see the module's docstring).
     ``wk``, the packed weight (``pack_weight(w, groups)``), is packed here
     when not given."""
+    return _qconv_op(xq, w, dq, bias, wk, stride, groups, relu, cap, out_dtype)
+
+
+def _qconv_plain(xq, w, dq, bias, wk, stride, groups, relu, cap, out_dtype):
+    """``ops.qconv``'s CPU implementation: the plain version after the
+    kernels' checks."""
+    _check(xq, w, dq, bias, out_dtype, relu, cap)
+    _on_card(xq, w, dq, bias)
+    return qconv_reference(xq, w, dq, bias, stride=stride, groups=groups, relu=relu,
+                           cap=cap, out_dtype=out_dtype)
+
+
+def _qconv(xq, w, dq, bias=None, wk=None, stride=1, groups=1, relu=False, cap=None,
+           out_dtype=torch.bfloat16):
+    """``ops.qconv``'s CUDA implementation: one launch of Q1, or of Q3 for
+    groups > 1."""
     _check(xq, w, dq, bias, out_dtype, relu, cap)
     if not _on_card(xq, w, dq, bias):
-        return qconv_reference(xq, w, dq, bias, stride=stride, groups=groups, relu=relu,
-                               cap=cap, out_dtype=out_dtype)
+        raise ValueError("qconv: CPU tensors reached the CUDA implementation")
     if groups != 1:
         return _qconv_grouped(xq, w, dq, bias, stride, groups, relu, cap, out_dtype, wk)
     n, h, wd, cin = xq.shape
@@ -265,6 +298,9 @@ def qconv(xq: torch.Tensor, w: torch.Tensor, dq: torch.Tensor, bias=None, *,
                      0.0 if cap is None else float(cap), tile_n, splits, device=xq.device)
         LAUNCHES += 1
     return out
+
+
+_qconv_op = ops.implement("qconv", cpu=_qconv_plain, cuda=_qconv)
 
 
 def _mode(relu: bool, out_dtype) -> int:

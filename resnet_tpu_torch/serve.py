@@ -1,4 +1,4 @@
-"""HTTP inference server over a model saved by ``export.save_inference``.
+"""HTTP inference server over an artifact written by ``export.save_inference``.
 
 The counterpart of tools/serve.py, with the same contract:
 
@@ -20,6 +20,8 @@ of batch shapes; requests above the cap are split into cap-size chunks
 threaded (ThreadingHTTPServer); concurrent requests queue on the device.
 The device is named, never guessed: ``--device cuda`` is the default.
 A body whose shape is not (N, *served.image_dims) gets a 400.
+The artifact is loaded by ``artifact.load_inference``, so the server process
+imports no model code: the program calls the hand kernels as custom ops.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from .export import load_inference
+from .artifact import load_inference
 
 
 def bucketed_call(served, x: np.ndarray, max_bucket: int = 64) -> np.ndarray:

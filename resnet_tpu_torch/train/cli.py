@@ -146,8 +146,9 @@ def build_config(argv=None) -> tuple:
                     help="run evaluation over the shard dir instead of training"
                          " (requires --resume-from for the checkpoint)")
     ap.add_argument("--export", default="",
-                    help="write the eval forward's weights and configs"
-                         " (export.save_inference) to this path and exit;"
+                    help="write the eval forward as a serving artifact (a"
+                         " torch.export program over a symbolic batch,"
+                         " export.save_inference) to this path and exit;"
                          " combine with --resume-from to export a trained"
                          " checkpoint")
     ap.add_argument("--eval-batches", type=int, default=0,

@@ -275,7 +275,8 @@ def test_cli_export_dtype_bfloat16(tmp_path):
           str(tmp_path / "dumps"), "--log-every", "0", "--device", "cpu", "--export", art,
           "--export-dtype", "bfloat16"])
     served = load_inference(art, device="cpu")
-    assert all(b.dtype is torch.bfloat16 for b in served.buffers())
+    state = served.program.state_dict
+    assert state and all(b.dtype is torch.bfloat16 for b in state.values())
     logits = served.call(np.zeros((2, 16, 16, 3), np.float32))
     assert logits.dtype is torch.float32 and np.isfinite(logits.numpy()).all()
 

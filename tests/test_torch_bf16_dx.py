@@ -285,18 +285,20 @@ def test_wrappers_name_the_loader_their_pointers_allow(launches, entry, offset, 
     pointers it hands over, and passed as the entry's last argument: an
     input 2 bytes off a 16-byte boundary names the 2-byte loader, the
     same shape aligned the 16-byte one (the entry refuses any loader its
-    operands do not allow: tests/test_torch_gpu.py)."""
+    operands do not allow: tests/test_torch_gpu.py). The forwards are
+    called as their ops' CUDA implementations (``conv._forward``,
+    ``matmul._forward``), which the dispatcher runs for CUDA tensors."""
     if entry == "conv2d_dx":
         g, w = _view((2, 14, 14, 64), offset), torch.zeros((3, 3, 128, 64), dtype=torch.bfloat16)
         conv.conv2d_dx(g, w, (2, 14, 14, 128), 1)
         names, table = "rt_conv2d_dx_nhwc_bf16", conv.DX_ROUTES
     elif entry == "conv2d":
         x, w = _view((2, 14, 14, 64), offset), torch.zeros((3, 3, 64, 128), dtype=torch.bfloat16)
-        conv.conv2d(x, w, 1)
+        conv._forward(x, w, 1)
         names, table = "rt_conv2d_nhwc_bf16", conv.FWD_ROUTES
     else:
         a, b = torch.zeros((8, 2048), dtype=torch.bfloat16), _view((2048, 1000), offset)
-        matmul.matmul(a, b)
+        matmul._forward(a, b)
         names, table = "rt_matmul_bf16", matmul.FWD_BF16_ROUTES
     (name, args), = launches
     assert name == names and (args[0] % 16 != 0 or args[1] % 16 != 0) == bool(offset)
@@ -313,11 +315,12 @@ def test_fp32_dx_keeps_the_phase_weights(launches):
 @pytest.mark.parametrize("m,k,n", [(1, 2048, 1000), (8, 2048, 1000), (32, 2048, 1000),
                                    (33, 2048, 1000), (64, 2048, 1000), (5, 300, 33)])
 def test_matmul_bf16_wrapper_is_one_entry_with_the_routes_split(launches, m, k, n):
-    """matmul on bf16 launches rt_matmul_bf16 for every M, with the fp32
+    """K3's op on a card (its CUDA implementation, ``matmul._forward``) on
+    bf16 launches rt_matmul_bf16 for every M, with the fp32
     route's K split (skinny_split for M <= 32, the FC's 9; split_k above)
     and the loaders fwd_bf16_route names."""
     a, b = torch.zeros((m, k), dtype=torch.bfloat16), torch.zeros((k, n), dtype=torch.bfloat16)
-    c = matmul.matmul(a, b)
+    c = matmul._forward(a, b)
     assert c.shape == (m, n) and c.dtype is torch.bfloat16
     (name, args), = launches
     assert name == "rt_matmul_bf16" and args[3:6] == (m, n, k)
@@ -331,7 +334,7 @@ def test_matmul_bf16_wrapper_is_one_entry_with_the_routes_split(launches, m, k, 
 
 @pytest.mark.parametrize("m,route", [(1, "skinny"), (32, "skinny"), (64, "tiled")])
 def test_fp32_matmul_keeps_its_entry_points(launches, m, route):
-    matmul.matmul(torch.zeros((m, 2048)), torch.zeros((2048, 1000)))
+    matmul._forward(torch.zeros((m, 2048)), torch.zeros((2048, 1000)))
     (name, _), = launches
     assert name == ("rt_matmul_skinny_f32" if route == "skinny" else "rt_matmul_f32")
 

@@ -182,13 +182,14 @@ WRAPPER_CASES = [c for c in checks.BF16_CONV_CASES if c[1] == 8] + checks.BF16_C
 
 @pytest.mark.parametrize("case", WRAPPER_CASES, ids=[c[0] for c in WRAPPER_CASES])
 def test_forward_wrapper_hands_the_library_its_route(launches, case):
-    """conv2d on bf16 names the persistent kernel's entry point for every
-    shape, with bf16_gemm.cuh's K split (tc_split), as the fp32 forward,
+    """K1's op on a card (its CUDA implementation, ``conv._forward``, which
+    the dispatcher runs for CUDA tensors) on bf16 names the persistent
+    kernel's entry point for every shape, with bf16_gemm.cuh's K split (tc_split), as the fp32 forward,
     and the A loader fwd_bf16_route names for x's alignment."""
     _, n, h, cin, cout, k, s, *offset = case
     x = torch.zeros(n * h * h * cin + 8, dtype=torch.bfloat16)[
         (offset[0] if offset else 0):][:n * h * h * cin].view(n, h, h, cin)
-    y = conv.conv2d(x, torch.zeros((k, k, cin, cout), dtype=torch.bfloat16), s)
+    y = conv._forward(x, torch.zeros((k, k, cin, cout), dtype=torch.bfloat16), s)
     assert y.shape == (n, h // s, h // s, cout)
     (name, args), = launches
     assert name == "rt_conv2d_nhwc_bf16"
@@ -200,7 +201,7 @@ def test_forward_wrapper_hands_the_library_its_route(launches, case):
 
 
 def test_fp32_forward_keeps_its_entry_point(launches):
-    conv.conv2d(torch.zeros((2, 16, 16, 3)), torch.zeros((7, 7, 3, 64)), 2)
+    conv._forward(torch.zeros((2, 16, 16, 3)), torch.zeros((7, 7, 3, 64)), 2)
     (name, args), = launches
     assert name == "rt_conv2d_nhwc_f32" and args[-1] == build.tc_split(128, 64, 147)
 

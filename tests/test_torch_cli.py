@@ -146,6 +146,7 @@ def test_cli_trains_evaluates_resumes_and_exports(tmp_path, capsys):
     main(common + ["--resume-from", "latest", "--export", art])
     assert "exported serving artifact" in capsys.readouterr().out
     served = load_inference(art, device="cpu")
+    assert served.kind == "fp" and served.meta["execution_config"]["kernels"] == "xla"
     logits = served.call(np.zeros((2, 16, 16, 3), np.float32))
     assert tuple(logits.shape) == (2, 8)
     assert np.all(np.isfinite(logits.numpy()))

@@ -1588,3 +1588,117 @@ def test_qconv_extreme_accumulators(cuda, cin):
     for out_dtype in (torch.bfloat16, torch.float32):
         got = quant.qconv(xq, w, dq, out_dtype=out_dtype)
         assert torch.equal(got, quant.qconv_reference(xq, w, dq, out_dtype=out_dtype))
+
+
+def _op_calls():
+    """(name, op, its CUDA implementation, inputs on the card): each custom
+    op of kernels.ops at a served shape, fp32 and bf16."""
+    from resnet_tpu_torch.kernels import conv, fused, matmul, ops, quant
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device="cuda",  # noqa: E731
+                                  dtype=torch.int8)
+    return [
+        ("conv2d_nhwc 3x3", ops.conv2d_nhwc, conv._forward, (r(8, 56, 56, 64), r(3, 3, 64, 64), 1)),
+        ("conv2d_nhwc stem bf16", ops.conv2d_nhwc, conv._forward,
+         (r(2, 224, 224, 3).bfloat16(), r(7, 7, 3, 64).bfloat16(), 2)),
+        ("add_relu", ops.add_relu, fused._forward, (r(8, 56, 56, 256), r(8, 56, 56, 256))),
+        ("add_relu bf16", ops.add_relu, fused._forward,
+         (r(8, 7, 7, 2048).bfloat16(), r(8, 7, 7, 2048).bfloat16())),
+        ("matmul", ops.matmul, matmul._forward, (r(8, 2048), r(2048, 1000))),
+        ("matmul bf16", ops.matmul, matmul._forward,
+         (r(8, 2048).bfloat16(), r(2048, 1000).bfloat16())),
+        ("quant_act", ops.quant_act, quant._quant_act, (r(8, 56, 56, 64) * 20, 0.37)),
+        ("qconv", ops.qconv, quant._qconv,
+         (i8(8, 56, 56, 64), i8(3, 3, 64, 64), r(64).abs() * 1e-4, r(64), None, 1, 1, True,
+          None, torch.bfloat16)),
+        ("qconv fc", ops.qconv, quant._qconv,
+         (i8(8, 1, 1, 2048), i8(1, 1, 2048, 1000), r(1000).abs() * 1e-5, None, None, 1, 1,
+          False, None, torch.float32)),
+        ("qconv grouped", ops.qconv, quant._qconv,
+         (i8(8, 28, 28, 256), i8(3, 3, 8, 256), r(256).abs() * 1e-4, r(256), None, 1, 32, True,
+          6.0, torch.bfloat16)),
+    ]
+
+
+def test_each_op_launches_its_kernel_with_the_direct_launchs_bits(cuda):
+    """On CUDA tensors each resnet_tpu_torch:: op runs its CUDA
+    implementation: the kernel's counter moves by one a call, and the
+    result equals a direct call of that implementation bit for bit."""
+    from resnet_tpu_torch.kernels import checks as kchecks
+
+    counters = {name: (mod, attr) for name, (mod, attr, *_) in kchecks.KERNELS.items()}
+
+    def read():
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    for name, op, impl, args in _op_calls():
+        before = read()
+        got = op(*args)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in read().items() if v != before[k]}
+        assert sum(moved.values()) == 1, (name, moved)
+        assert torch.equal(got, impl(*args)), name
+
+
+@pytest.mark.parametrize("i", range(10))
+def test_ops_pass_opcheck_on_cuda(cuda, i):
+    name, op, _, args = _op_calls()[i]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int8 resnext"])
+def test_exported_program_counts_the_eager_launches_on_cuda(cuda, tmp_path, kind):
+    """ResNet-50 (ResNeXt-50 32x4d) at 64^2 exported on the card with a
+    symbolic batch, saved and loaded: at batches 1, 3 and 8 each forward of
+    the program moves the kernels' counters as the eager model's does (53
+    K1, 16 K2, 1 K3 on the fp32 or bf16 entries; 54 Q1, 54 Q2; 38 Q1, 16
+    Q3, 54 Q2); the int8 logits equal the eager model's bit for bit, the
+    fp ones within 1e-3 of max."""
+    import numpy as np
+
+    from resnet_tpu_torch.config import ExecutionConfig, model_config
+    from resnet_tpu_torch.export import (export_inference, export_quantized_inference,
+                                         load_inference, save_inference)
+    from resnet_tpu_torch.kernels import checks as kchecks
+    from resnet_tpu_torch.models import init_bn_state, init_params
+
+    arch = "resnext50_32x4d" if "resnext" in kind else "resnet50"
+    mcfg = model_config(arch, input_dim=64)
+    params = init_params(torch.Generator().manual_seed(1234), mcfg, device="cuda")
+    bn_state = init_bn_state(mcfg, device="cuda")
+    rng = np.random.default_rng(1234)
+    if kind.startswith("int8"):
+        model = export_quantized_inference(
+            params, mcfg, rng.normal(0, 50, (4, 64, 64, 3)).astype(np.float32),
+            bn_state=bn_state)
+    else:
+        bf16 = kind == "bf16"
+        model = export_inference(params, mcfg, bn_state=bn_state,
+                                 weights_dtype="bfloat16" if bf16 else None,
+                                 ecfg=ExecutionConfig(kernels="pallas", conv_kernels="pallas",
+                                                      compute_dtype="bfloat16" if bf16
+                                                      else "float32"))
+    served = load_inference(save_inference(str(tmp_path / "m.pt2"), model), device="cuda")
+    assert served.device == torch.device("cuda", torch.cuda.current_device())
+    counters = {name: (mod, attr) for name, (mod, attr, *_) in kchecks.KERNELS.items()}
+
+    def moved_by(fn):
+        before = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: getattr(m, a) - before[k] for k, (m, a) in counters.items()
+                     if getattr(m, a) != before[k]}
+
+    for n in (1, 3, 8):
+        x = rng.normal(0, 50, (n, 64, 64, 3)).astype(np.float32)
+        want, eager = moved_by(lambda: model.call(x))
+        got, program = moved_by(lambda: served.call(x))
+        assert program == eager and sum(eager.values()) >= 54, (n, program, eager)
+        if kind.startswith("int8"):
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+    with pytest.raises(ValueError, match="exported on cuda"):
+        load_inference(str(tmp_path / "m.pt2"), device="cpu")

@@ -387,7 +387,9 @@ def test_grouped_qconv_hands_q3_its_arguments(monkeypatch):
     """groups > 1 on a card launches Q3 (rt_qconv_grouped_s8) with
     build.SIGNATURES' arguments and moves GROUPED_LAUNCHES, not Q1's
     counter: ResNeXt-50's first stage-2 3x3 (256 -> 256 in 32 groups, s2)
-    at batch 2. Recorded here with the launch replaced."""
+    at batch 2. Recorded here with the launch replaced, through the op's
+    CUDA implementation (``quant._qconv``), which the dispatcher runs for
+    CUDA tensors."""
     calls = []
     monkeypatch.setattr(quant, "_on_card", lambda *a: True)
     monkeypatch.setattr(build, "launch", lambda name, *args, device: calls.append((name, args)))
@@ -395,7 +397,7 @@ def test_grouped_qconv_hands_q3_its_arguments(monkeypatch):
     w = torch.zeros(3, 3, 8, 256, dtype=torch.int8)
     dq, b = torch.ones(256), torch.zeros(256)
     before = quant.LAUNCHES, quant.GROUPED_LAUNCHES
-    out = quant.qconv(xq, w, dq, b, stride=2, groups=32, relu=True, cap=6.0)
+    out = quant._qconv(xq, w, dq, b, stride=2, groups=32, relu=True, cap=6.0)
     assert out.shape == (2, 28, 28, 256) and out.dtype == torch.bfloat16
     assert (quant.LAUNCHES, quant.GROUPED_LAUNCHES) == (before[0], before[1] + 1)
     name, args = calls[-1]
@@ -405,9 +407,9 @@ def test_grouped_qconv_hands_q3_its_arguments(monkeypatch):
     assert args[21:] == build.q3_plan(2, 256, 256, 32, 3, 3, 2, 28, 28, False,
                                       True) == (4, 1, 2)
     with pytest.raises(ValueError, match="pack_weight"):  # a Q1 packing is refused
-        quant.qconv(xq, w, dq, stride=2, groups=32, wk=quant.pack_weight(w))
+        quant._qconv(xq, w, dq, stride=2, groups=32, wk=quant.pack_weight(w))
     with pytest.raises(ValueError):  # 256 input channels are not 32 groups of 4
-        quant.qconv(xq, w[:, :, :4], dq, stride=2, groups=32)
+        quant._qconv(xq, w[:, :, :4], dq, stride=2, groups=32)
 
 
 Q3_SITES = sorted({case[1:] for preset in ("resnext50_32x4d", "resnext101_32x8d")
@@ -461,7 +463,7 @@ def test_q3_refuses_an_odd_height_at_stride_2(monkeypatch):
     monkeypatch.setattr(build, "launch", lambda *a, **k: pytest.fail("launched"))
     xq = torch.zeros(2, 7, 7, 64, dtype=torch.int8)
     w = torch.zeros(3, 3, 4, 64, dtype=torch.int8)
-    for run in (quant.qconv, quant.qconv_reference):
+    for run in (quant._qconv, quant.qconv_reference):
         with pytest.raises(ValueError, match="stride"):
             run(xq, w, torch.ones(64), stride=2, groups=16)
 
@@ -476,7 +478,7 @@ def test_q3_refuses_rows_too_wide_for_its_tiles(monkeypatch):
     w = torch.zeros(3, 3, 4, 64, dtype=torch.int8)
     assert build.q3_plan(1, 64, 64, 16, 3, 3, 1, 2, 2000, False, True) is None
     with pytest.raises(ValueError, match="fits shared memory"):
-        quant.qconv(xq, w, torch.ones(64), groups=16)
+        quant._qconv(xq, w, torch.ones(64), groups=16)
 
 
 def test_qconv_constants_mirror_the_source():
@@ -503,7 +505,7 @@ def test_qconv_refuses_a_packed_weight_of_the_old_layout(monkeypatch):
     old = torch.zeros(8, 192, dtype=torch.int8)
     old[:, :147] = w.reshape(147, 8).t()
     with pytest.raises(ValueError, match="export the model"):
-        quant.qconv(xq, w, torch.ones(8), stride=2, wk=old)
+        quant._qconv(xq, w, torch.ones(8), stride=2, wk=old)
 
 
 def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
@@ -512,7 +514,9 @@ def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     packed weight's row length, the mode and the cap, build.qconv_plan's
     tile width and K splits, and for a split launch the partials and
     zeroed tickets of the stream's scratch (``bn._workspace``); Q2 its
-    inverse scale. Recorded here with the launch replaced."""
+    inverse scale. Recorded here with the launch replaced, through the ops'
+    CUDA implementations (``quant._qconv``, ``quant._quant_act``), which
+    the dispatcher runs for CUDA tensors."""
     calls = []
     monkeypatch.setattr(quant, "_on_card", lambda *a: True)
     monkeypatch.setattr(build, "on_card", lambda *a, **k: True)
@@ -522,7 +526,7 @@ def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     w = torch.zeros(7, 7, 3, 64, dtype=torch.int8)
     dq, b = torch.ones(64), torch.zeros(64)
     before = quant.LAUNCHES
-    out = quant.qconv(xq, w, dq, b, stride=2, relu=True, cap=6.0)
+    out = quant._qconv(xq, w, dq, b, stride=2, relu=True, cap=6.0)
     assert out.shape == (2, 112, 112, 64) and out.dtype == torch.bfloat16
     name, args = calls[-1]
     assert name == "rt_qconv_s8" and len(args) + 1 == len(build.SIGNATURES[name])
@@ -531,7 +535,7 @@ def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     assert args[7:] == (2, 224, 224, 3, 64, 7, 7, 2, 3, 3, 112, 112, 256, 1, True, 6.0,
                         *build.qconv_plan(25088, 64, 224)) and args[-2:] == (64, 1)
     assert quant.LAUNCHES == before + 1
-    quant.qconv(xq[:, :1, :1, :].contiguous().view(2, 1, 1, 3), w[:1, :1].contiguous(), dq,
+    quant._qconv(xq[:, :1, :1, :].contiguous().view(2, 1, 1, 3), w[:1, :1].contiguous(), dq,
                 None, out_dtype=torch.float32)
     assert calls[-1][1][3] is None and calls[-1][1][-5:] == (2, False, 0.0, 64, 1)
     # the FC at batch 8: 16 tiles of 128 x 64, its 16 slices in 8 splits
@@ -539,12 +543,12 @@ def test_qconv_hands_the_kernel_its_arguments(monkeypatch):
     monkeypatch.setitem(bn._WORKSPACES, (None, 7), [part, tickets])
     xf = torch.zeros(8, 1, 1, 2048, dtype=torch.int8)
     wf = torch.zeros(1, 1, 2048, 1000, dtype=torch.int8)
-    quant.qconv(xf, wf, torch.ones(1000), torch.zeros(1000), out_dtype=torch.float32)
+    quant._qconv(xf, wf, torch.ones(1000), torch.zeros(1000), out_dtype=torch.float32)
     args = calls[-1][1]
     assert args[5:7] == (part.data_ptr(), tickets.data_ptr()) and args[-2:] == (64, 8)
     assert all(a is b for a, b in zip(bn._WORKSPACES[(None, 7)], (part, tickets)))
     before = quant.ACT_LAUNCHES
-    quant.quant_act(torch.zeros(4, 8, dtype=torch.bfloat16), 0.5)
+    quant._quant_act(torch.zeros(4, 8, dtype=torch.bfloat16), 0.5)
     name, args = calls[-1]
     assert name == "rt_quant_act_bf16" and args[2:] == (0.5, 32)
     assert len(args) + 1 == len(build.SIGNATURES[name]) and quant.ACT_LAUNCHES == before + 1
@@ -623,28 +627,29 @@ def int8_file(tmp_path_factory):
 
 
 def test_int8_file_round_trip(int8_file):
+    """The int8 artifact is a program whose record says 'int8' and holds
+    the scales and the cap; its logits are the eager model's, which are the
+    plain int8 forward's."""
     path, model, (params, bn_state, mcfg) = int8_file
-    assert torch.load(path, weights_only=True)["kind"] == "int8"
     served = load_inference(path, device="cpu")
-    assert isinstance(served, QuantizedInferenceModel)
-    assert served.scales == model.scales and served.relu_cap == 10.0
+    assert served.kind == "int8" and isinstance(model, QuantizedInferenceModel)
+    assert served.meta["scales"] == model.scales and served.meta["relu_cap"] == 10.0
     assert served.image_dims == (16, 16, 3) and served.device.type == "cpu"
     logits = served.call(np.zeros((3, 16, 16, 3), np.float32))
     assert tuple(logits.shape) == (3, 8) and np.isfinite(logits.numpy()).all()
     x = _images(9, 3)
     assert torch.equal(served.call(x), model.call(x))
-    plain = tq.forward_sites(served.sites(), torch.from_numpy(x), served.mcfg,
-                             relu_cap=served.relu_cap, plain=True)
+    plain = tq.forward_sites(model.sites(), torch.from_numpy(x), model.mcfg,
+                             relu_cap=model.relu_cap, plain=True)
     assert torch.equal(plain, model.call(x))
     # each site keeps its int8 weight once, in the layout Q1 reads
-    names = [n for n, _ in served.named_buffers()]
+    names = list(served.program.state_dict)
     assert any(n.endswith("__wk") for n in names) and not any(n.endswith("__wq") for n in names)
     with pytest.raises(ValueError, match="shape"):
         served.call(np.zeros((1, 3, 16, 16), np.float32))
-    # an fp file says so, and comes back as the fp model
+    # an fp artifact says so
     fp = save_inference(path + ".fp", export_inference(params, mcfg, bn_state=bn_state))
-    assert torch.load(fp, weights_only=True)["kind"] == "fp"
-    assert not isinstance(load_inference(fp, device="cpu"), QuantizedInferenceModel)
+    assert load_inference(fp, device="cpu").kind == "fp"
 
 
 def test_int8_file_serves_over_http(int8_file):
@@ -706,5 +711,6 @@ def test_cli_int8_export(tmp_path, capsys):
           "--device", "cpu"])
     assert "exported int8 serving artifact" in capsys.readouterr().out
     served = load_inference(art, device="cpu")
+    assert served.kind == "int8" and served.meta["model_config"]["name"] == "resnet-tiny"
     logits = served.call(np.zeros((3, 16, 16, 3), np.float32))
     assert tuple(logits.shape) == (3, 8) and np.isfinite(logits.numpy()).all()

@@ -2,6 +2,7 @@
 real socket, logits equal to a direct ``.call``, the bucketing cap, and
 concurrent requests (the counterpart of tests/test_serve.py)."""
 
+import dataclasses
 import http.client
 import json
 import threading
@@ -139,11 +140,19 @@ def test_concurrent_load(server, rng):
     assert not errors, errors
 
 
+def _as_json(cfg):
+    """A config as the artifact's record holds it: a plain dict."""
+    return json.loads(json.dumps(dataclasses.asdict(cfg)))
+
+
 def test_load_inference_restores_configs(server, tmp_path):
+    """The loaded artifact is a program, not the model: its record holds
+    the kind and the model and execution configs as plain dicts."""
     _, model, (_, _, mcfg, ecfg) = server
     path = save_inference(str(tmp_path / "again.pt"), model)
     again = load_inference(path, device="cpu")
-    assert again.mcfg == mcfg and again.ecfg == ecfg
+    assert again.kind == "fp" and again.meta["model_config"] == _as_json(mcfg)
+    assert again.meta["execution_config"] == _as_json(ecfg)
     x = np.ones((2, 16, 16, 3), np.float32)
     torch.testing.assert_close(again.call(x), model.call(x), rtol=0, atol=0)
 
@@ -215,11 +224,12 @@ def test_resnext_and_s2d_models_save_load_and_serve(tmp_path, rng, label, over, 
                                  weights_dtype="bfloat16" if kind == "bf16" else None)
     path = save_inference(str(tmp_path / f"{label.replace(' ', '_')}.pt"), model)
     again = load_inference(path, device="cpu")
-    assert again.mcfg == mcfg and type(again) is type(model)
+    assert again.meta["model_config"] == _as_json(mcfg)
+    assert again.kind == ("int8" if kind == "int8" else "fp")
     want = model.call(x)
     assert torch.equal(again.call(x), want) and torch.isfinite(want).all()
     if kind == "fp":
-        assert again.ecfg == ecfg
+        assert again.meta["execution_config"] == _as_json(ecfg)
         eval_logits, _ = forward(params, torch.from_numpy(x), mcfg, ecfg, train=False,
                                  bn_state=bn_state)
         assert torch.equal(want, eval_logits)
