@@ -243,6 +243,46 @@ Phases, each printing one JSON line:
      32, lr 0.02, warmup 50, 1600 steps, a resume halfway): the resume exact, the
      training loss finite and falling, fp top-1 at least CONVERGE_TOP1, and
      Q1 and Q2 launched by its int8 evaluation; fp and int8 top-1 printed.
+ 17. parallel: data parallelism (resnet_tpu_torch.parallel) on the "resnet"
+     variant at full width (ResNet-50, 224^2, conv_kernels='pallas', fused
+     Adam): two ranks of tools.distributed_worker share this card under
+     gloo, 16 images each, global batch 32 (phase 5's synthetic batch and
+     seeded state). 'auto' (BN statistics of the global batch, K4 in its
+     raw-sums mode): each rank's step moves its counters by exactly phase
+     5's counts; against this process's one-process step at 32 by phase 5's
+     rule (loss and batch statistics within 1e-4, each gradient leaf within
+     1e-3 of its max or 4x its change under the 1 +- 2^-20 image nudge): the
+     summed gradient of a forward and backward beside the step, and the
+     counted step's own Adam moments (after one step from zero, (1 - b1)
+     times the gradient the step reduced), loss, running statistics and
+     parameters (within 2 lr + 1e-6); the same with BN frozen at the initial
+     running statistics (the tight one: at most 1% of the Adam updates off
+     by lr / 100); 'shard_map' (local BN) against the sum of the
+     one-process gradients of each rank's 16 images, by the same rule, the
+     step's moments too, its running statistics the mean of the two halves'
+     merges within 1e-4; ZeRO (parameters and Adam moments sharded, fused
+     Adam on the shards) against the replicated step bit for bit, each
+     rank's persistent state bytes beside the replicated state's; NCCL in a
+     world of one in this process: the data-parallel step equal to the step
+     without a group bit for bit, and both timed in turns; where the machine
+     has two cards or more, ``parallel_nccl`` (also run alone by --phases
+     parallel_nccl): one NCCL rank a card (at most 4) at the global batch of
+     32, 'auto' and frozen BN against the one-process step as above, each
+     rank's counts phase 5's, ZeRO the replicated step's bits, the step
+     times of both, of 'shard_map' (no statistics' sums) and of one card at
+     32 and at a rank's rows, then the CLI under torchrun on those cards
+     (NCCL, synthetic batches, 2 steps), its first loss that of one process;
+     the Trainer from 2 shards of 64 procedural images, a dump every 2
+     steps: an uninterrupted run U of 4 steps, the CLI as a user starts it
+     (``python -m torch.distributed.run --nproc-per-node 2 -m
+     resnet_tpu_torch.train.cli ... --dist-backend gloo``), one metrics line
+     a step; a run K of the worker's Trainer on the config the CLI builds
+     from U's flags, killed by SIGKILL after 3, K resumed from its latest
+     dump to step 4 (R): R's final dump against U's by phase 10's rule (so R
+     read U's rows on each rank), the ranks' rows differing. Step times of
+     the one-process step at 32 and of each two-rank layout: two ranks on
+     one card, each all-reduce through host memory (gloo), so they are no
+     scaling figure.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
 forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
@@ -276,7 +316,7 @@ torch._int_mm (the integer product alone) on every case it takes (M > 16,
 N a multiple of 8; an im2col of x made outside the timed call, K padded
 to a multiple of 8).
 Then a JSON line of the kernels (launches: the counts of the main paths of
-phases 4 to 16 together, every kernel launched on at least one of them; ms,
+phases 4 to 17 together, every kernel launched on at least one of them; ms,
 host_us, plain_ms, bound_ms, library_ms and the device times summed over
 each kernel's phase-3 cases; where the yardstick takes only some cases,
 ``library_covered`` sums those; Q1's ``apart`` and ``rest`` sum its batch-1
@@ -293,7 +333,7 @@ weight split, and prints no final line: copied with kernels/checks.py into anoth
 the package, it times that tree's kernels on this tree's cases. With
 --phases NAMES (serve, train, fused_train, blockfused_train,
 batch_norm_act, remat_train, trainer, presets, bf16_engines, int8_serve,
-configs, artifact, converge) it runs
+configs, artifact, converge, parallel; parallel_nccl alone) it runs
 phases 1-2 and those phases only, with no final line: copied into another
 tree, it times and profiles that tree's steps the way this one does.
 """
@@ -1802,19 +1842,36 @@ def phase_remat(torch, counters, smi):
     return {k: v for k, v in launches.items() if v}
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 class _Cli:
     """One run of the port's CLI in a subprocess (CLI_MAIN), its output in
     files under ``log_dir``; a run that fails prints its stderr and fails
-    the phase."""
+    the phase. With ``ranks`` the run is that many ranks on this machine
+    under torchrun, as a user starts them (cli.py's docstring), in a
+    session of their own that ``stop`` ends whole."""
 
-    def __init__(self, name, args, log_dir):
+    def __init__(self, name, args, log_dir, ranks=0):
         self.name = name
         self.out_path = os.path.join(log_dir, f"{name}.out")
         self.err_path = os.path.join(log_dir, f"{name}.err")
+        cmd = [sys.executable, "-c", CLI_MAIN, *args]
+        if ranks:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+                   "--nproc-per-node", str(ranks), "--rdzv-backend", "c10d",
+                   "--rdzv-endpoint", f"localhost:{_free_port()}", "--no-python", *cmd]
         self.t0 = time.perf_counter()
         with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
-            self.proc = subprocess.Popen([sys.executable, "-c", CLI_MAIN, *args], cwd=ROOT,
-                                         stdout=out, stderr=err, stdin=subprocess.DEVNULL)
+            self.proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                                         stdin=subprocess.DEVNULL,
+                                         start_new_session=bool(ranks))
+        self.ranks = ranks
         self.seconds = None
 
     def _fail(self, what):
@@ -1831,6 +1888,8 @@ class _Cli:
             self._fail(f"still running after {timeout} s")
         if self.seconds is None:
             self.seconds = time.perf_counter() - self.t0
+        if self.ranks:
+            self.stop()  # no rank outlives torchrun
         if rc != 0:
             self._fail(f"exited with {rc}")
         with open(self.out_path) as f:
@@ -1855,7 +1914,12 @@ class _Cli:
         self.seconds = time.perf_counter() - self.t0
 
     def stop(self):
-        if self.proc.poll() is None:
+        if self.ranks:  # torchrun and its ranks
+            try:
+                os.killpg(self.proc.pid, 9)
+            except ProcessLookupError:
+                pass
+        elif self.proc.poll() is None:
             self.proc.kill()
         self.proc.wait()
 
@@ -3051,14 +3115,477 @@ def phase_converge(torch, counters):
             f"converge: the int8 evaluation launched no Q1 or Q2: {launched}")
     return launched
 
+# phase 17: two gloo ranks sharing the card, their rows of the batch; the
+# Trainer's uninterrupted run, the run killed after PARALLEL_KILL_AT steps and
+# its resume, dumping every 2, from PARALLEL_SHARDS shards of SHARD_IMAGES
+PARALLEL_RANKS, PARALLEL_STEPS, PARALLEL_KILL_AT, PARALLEL_SHARDS = 2, 4, 3, 2
+WORKER = "resnet_tpu_torch.tools.distributed_worker"
+
+
+def _ranks(spec, work, name, backend="gloo", ranks=PARALLEL_RANKS, kill=False):
+    """``ranks`` processes of the distributed worker on ``spec``, side by
+    side on this card; their results by rank (None where they were to kill
+    themselves, which each must have done)."""
+    import torch
+
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    logs = [os.path.join(d, f"rank{r}.log") for r in range(ranks)]
+    procs = []
+    for r in range(ranks):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", WORKER, str(r), str(ranks), os.path.join(d, "store"),
+                 os.path.join(d, "spec.json"), os.path.join(d, "out"), "--backend", backend,
+                 "--device", "cuda"], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                stdin=subprocess.DEVNULL))
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = -9 if kill else 0
+    for r, rc in enumerate(rcs):
+        if rc != want:
+            with open(logs[r]) as f:
+                print(f.read()[-8000:], file=sys.stderr, flush=True)
+        require(rc == want, f"{name} rank {r} exited {rc}, expected {want}")
+    if kill:
+        return None
+    return [torch.load(os.path.join(d, "out", f"rank{r}.pt"), weights_only=False)
+            for r in range(ranks)]
+
+
+def _spec_config(cfg):
+    """A TrainConfig as the worker's JSON spec carries it."""
+    import dataclasses
+
+    return json.loads(json.dumps(dataclasses.asdict(cfg)))
+
+
+def _bn_stats_tree(stats):
+    """aux["bn_stats"] as the worker writes it: [mean, var] per layer."""
+    return {"init_bn": list(stats["init_bn"]),
+            "blocks": [{k: list(v) for k, v in b.items()} for b in stats["blocks"]]}
+
+
+def _to_cuda(tree):
+    from resnet_tpu_torch.bridge import tree_map
+
+    return tree_map(lambda t: t.cuda(), tree)
+
+
+def _frozen(cfg):
+    """cfg with BN frozen at the running statistics."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, execution=dataclasses.replace(cfg.execution, bn_mode="frozen"))
+
+
+# the cases of a data-parallel worker's 'auto' checks: batch statistics, and
+# BN frozen at the initial running statistics (phase 5's tight check); each
+# keeps what its step left on rank 0
+AUTO_CASES = [{"name": "auto", "grads": True, "keep": ["params", "means", "bn_state"]},
+              {"name": "frozen", "grads": True, "keep": ["params", "means", "bn_state"],
+               "bn_mode": "frozen"}]
+
+
+def _auto_specs(kcfg, time_steps):
+    """AUTO_CASES as worker cases of kcfg, 'auto' timed over time_steps."""
+    cases = []
+    for case in AUTO_CASES:
+        case = dict(case)
+        if case.pop("bn_mode", None):
+            case["config"] = {"execution": _spec_config(_frozen(kcfg))["execution"]}
+        else:
+            case["time"] = time_steps
+        cases.append(case)
+    return cases
+
+
+def _parallel_cli_args(data, dump_dir, backend, steps):
+    """The CLI's flags for a multi-rank run of phase 17's model (phase 10's
+    command): ``data`` a shard directory, or None for synthetic batches."""
+    src = (["--synthetic"] if data is None else
+           ["--shard-dir", data, "--num-shards", str(PARALLEL_SHARDS),
+            "--shard-images", str(SHARD_IMAGES)])
+    return ["--model", "resnet50", "--kernels", "pallas", "--conv-kernels", "pallas",
+            "--batch-size", "32", "--lr", "1e-4", *src, "--steps", str(steps),
+            "--checkpoint-every", "2", "--checkpoint-dir", dump_dir, "--log-every", "1",
+            "--device", "cuda", "--dist-backend", backend]
+
+
+def _auto_checks(torch, ranks, state0, batch, kcfg, what):
+    """The ranks' AUTO_CASES against this process's one-process step on the
+    whole batch, by phase 5's rule. Their side path (a forward and backward
+    under the statistics' sums, then the gradient bucket's sum): summed
+    loss, gradients, batch statistics (every rank's the same). The counted
+    step itself: its loss, its Adam moments (after one step from zero, (1 -
+    b1) times the gradient the step reduced, held by the gradients' rule),
+    running statistics and parameters (within 2 lr); with BN frozen, the
+    tight check, at most UPDATE_SHARE of the Adam updates off by lr / 100."""
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.train import loss_and_grads, make_train_step
+
+    lr, b1 = kcfg.optimizer.learning_rate, kcfg.optimizer.beta1
+    out = {}
+    for name, cfg in (("auto", kcfg), ("frozen", _frozen(kcfg))):
+        case, label = ranks[0][name], f"{what} '{name}'"
+        loss, _, aux, g = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
+        sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g)
+        loss_err = abs(case["grad_loss_sum"] - loss.item()) / abs(loss.item())
+        require(loss_err <= LOSS_TOL, f"{label} summed loss {case['grad_loss_sum']} vs one "
+                f"process {loss.item()}")
+        grad_err, grad_sens, grad_nearest = _leaf_errors(
+            _to_cuda(case["grads"]), g, f"{label} gradient", GRAD_TOL, sens=sens)
+        del g
+        rec = {"loss_rel_err": loss_err, "grad_max_rel_err": grad_err,
+               "grad_max_err_over_sensitivity": grad_sens, "grad_nearest_limit": grad_nearest}
+        if name == "auto":
+            rec["batch_stats_max_err"] = _leaf_errors(
+                _to_cuda(case["bn_stats"]), _bn_stats_tree(aux["bn_stats"]),
+                f"{label} batch statistic", STAT_TOL, floor=1.0)[0]
+            require(all(all(torch.equal(a, b) for a, b in zip(
+                leaves(ranks[0][name]["bn_stats"]), leaves(r[name]["bn_stats"])))
+                for r in ranks[1:]), f"{label}: the ranks' batch statistics differ")
+        ks, km = make_train_step(cfg)(_clone(state0), batch)
+        step_loss_err = abs(case["metrics"]["loss"] - km["loss"].item()) / km["loss"].item()
+        require(step_loss_err <= LOSS_TOL, f"{label} step loss {case['metrics']['loss']} vs "
+                f"one process {km['loss'].item()}")
+        m_err, m_sens, m_nearest = _leaf_errors(
+            _to_cuda(case["means"]), ks.opt_state.means, f"{label} step's adam m", GRAD_TOL,
+            sens={k: (1 - b1) * v for k, v in sens.items()})
+        stat_err = _leaf_errors(_to_cuda(case["bn_state"]), ks.bn_state,
+                                f"{label} step's running statistic", STAT_TOL, floor=1.0)[0]
+        got = _to_cuda(case["params"])
+        p_abs = max((a - b).abs().max().item()
+                    for a, b in zip(leaves(got), leaves(ks.params), strict=True))
+        require(p_abs <= 2 * lr + 1e-6, f"{label} params differ by {p_abs} > 2 lr + 1e-6")
+        share = _update_share(got, ks.params, state0.params, lr)
+        if name == "frozen":
+            require(share <= UPDATE_SHARE,
+                    f"{label} step: {share} of the Adam updates differ from the one-process "
+                    "step's by more than lr / 100")
+        del ks, got
+        rec.update({"step_loss_rel_err": step_loss_err, "step_adam_m_max_rel_err": m_err,
+                    "step_adam_m_max_err_over_sensitivity": m_sens,
+                    "step_adam_m_nearest_limit": m_nearest,
+                    "step_running_stats_max_err": stat_err, "param_max_abs_err": p_abs,
+                    "update_share_beyond_lr_100": share})
+        out[name] = rec
+    return out
+
+
+def phase_parallel(torch, smi):
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from resnet_tpu_torch.bridge import flatten, leaves, tree_map
+    from resnet_tpu_torch.config import RESUME_LATEST, variant_config
+    from resnet_tpu_torch.data import SyntheticDataset, write_shard
+    from resnet_tpu_torch.data.procedural import ProceduralDataset, ProceduralIterator
+    from resnet_tpu_torch.parallel import make_mesh
+    from resnet_tpu_torch.train import init_train_state, loss_and_grads, make_train_step
+    from resnet_tpu_torch.train.cli import build_config
+    from resnet_tpu_torch.train.step import _merge_running_stats
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    base = variant_config("resnet")  # ResNet-50, kernels='pallas', lr 1e-4, batch 32
+    kcfg = dataclasses.replace(
+        base, execution=dataclasses.replace(base.execution, conv_kernels="pallas"),
+        optimizer=dataclasses.replace(base.optimizer, fused=True))
+    batch_n = base.data.batch_size
+    per = batch_n // PARALLEL_RANKS
+
+    state0 = init_train_state(kcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    data = next(SyntheticDataset(batch_n, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    out = {"phase": "parallel", "model": kcfg.model.name, "ranks": PARALLEL_RANKS,
+           "backend": "gloo", "rank_batch": per, "global_batch": batch_n, "device": smi}
+    with tempfile.TemporaryDirectory() as work:
+        # 1. the two ranks: every step case from state0 on batch, and the
+        # Trainer's uninterrupted run U, in one start of the ranks
+        torch.save({"params": tree_map(lambda t: t.cpu(), state0.params),
+                    "bn_state": tree_map(lambda t: t.cpu(), state0.bn_state)},
+                   os.path.join(work, "state.pt"))
+        torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(work, "batch.pt"))
+        shards = os.path.join(work, "shards")
+        stream = ProceduralIterator(ProceduralDataset(
+            num_classes=100, image_dim=kcfg.model.input_dim, seed=SEED), SHARD_IMAGES,
+            seed=SEED)
+        for s in range(PARALLEL_SHARDS):
+            b = next(stream)
+            write_shard(shards, s, b["images"].transpose(0, 3, 1, 2), b["labels"])
+
+        # U is the CLI under torchrun, as a user starts the ranks; K and R
+        # are the worker's Trainer on the config the CLI builds from U's flags
+        u_args = _parallel_cli_args(shards, os.path.join(work, "u"), "gloo", PARALLEL_STEPS)
+        ucfg, _ = build_config(u_args)
+
+        def trainer_spec(dumps, steps, **kw):
+            cfg = dataclasses.replace(ucfg, checkpoint_dir=os.path.join(work, dumps), **kw)
+            return {"config": _spec_config(cfg), "steps": steps}
+
+        spec = {"config": _spec_config(kcfg), "state": os.path.join(work, "state.pt"),
+                "batch": os.path.join(work, "batch.pt"),
+                "cases": _auto_specs(kcfg, 3) + [
+                    {"name": "shard_map", "grads": True, "time": 3,
+                     "keep": ["bn_state", "means"],
+                     "config": {"parallel": {"mode": "shard_map"}}},
+                    {"name": "zero", "time": 3, "zero": True, "keep": ["params", "means"],
+                     "config": {"parallel": {"zero_sharding": True}}}]}
+        t0 = time.perf_counter()
+        ranks = _ranks(spec, work, "steps")
+        out["steps_spawn_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+
+        # 2. the launches of each rank's 'auto' step: phase 5's counts
+        out["launches_per_rank"] = [r["auto"]["counts"] for r in ranks]
+        for r, rank in enumerate(ranks):
+            require(rank["auto"]["counts"] == PER_STEP,
+                    f"rank {r}'s 'auto' step moved the counters by "
+                    f"{rank['auto']['counts']}, expected {PER_STEP}")
+
+        # 3. 'auto' (batch statistics and frozen BN) against the one-process
+        # step at 32, by phase 5's rule
+        out["auto"] = _auto_checks(torch, ranks, state0, batch, kcfg, "gloo")
+        auto = r0["auto"]
+
+        # 4. 'shard_map' against each rank's local-BN step, gradients summed
+        def halves(factor=1.0):
+            loss, grads, merged = 0.0, None, []
+            for r in range(PARALLEL_RANKS):
+                rows = {"images": batch["images"][r * per:(r + 1) * per] * factor,
+                        "labels": batch["labels"][r * per:(r + 1) * per]}
+                lo, _, aux, g = loss_and_grads(state0.params, rows, state0.bn_state, kcfg)
+                loss += lo.item()
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                merged.append(_merge_running_stats(state0.bn_state, aux["bn_stats"],
+                                                   kcfg.model.bn_momentum))
+            return loss, grads, merged
+
+        hl, hg, merged = halves()
+        hsens = {}
+        for factor in (1 + IMAGE_NUDGE, 1 - IMAGE_NUDGE):
+            for (path, a), b in zip(flatten(halves(factor)[1]), leaves(hg), strict=True):
+                hsens[path] = max(hsens.get(path, 0.0), (a - b).abs().max().item())
+        sm = r0["shard_map"]
+        require(abs(sm["grad_loss_sum"] - hl) <= LOSS_TOL * abs(hl),
+                f"'shard_map' summed loss {sm['grad_loss_sum']} vs the halves' {hl}")
+        sm_err, sm_sens, sm_nearest = _leaf_errors(_to_cuda(sm["grads"]), hg,
+                                                   "'shard_map' gradient", GRAD_TOL, sens=hsens)
+        mean_bn = tree_map(lambda a, b: (a + b) / 2, *merged)
+        sm_stat, _, _ = _leaf_errors(_to_cuda(sm["bn_state"]), mean_bn,
+                                     "'shard_map' running statistic", STAT_TOL, floor=1.0)
+        # the counted step's own sum: after one step from zero, Adam's m is
+        # (1 - b1) times the gradient it reduced
+        b1 = kcfg.optimizer.beta1
+        sm_m_err, sm_m_sens, _ = _leaf_errors(
+            _to_cuda(sm["means"]), tree_map(lambda g: (1 - b1) * g, hg),
+            "'shard_map' step's adam m", GRAD_TOL,
+            sens={k: (1 - b1) * v for k, v in hsens.items()})
+        del hg, merged
+        out["shard_map"] = {"grad_max_rel_err": sm_err,
+                            "grad_max_err_over_sensitivity": sm_sens,
+                            "grad_nearest_limit": sm_nearest, "running_stats_max_err": sm_stat,
+                            "step_adam_m_max_rel_err": sm_m_err,
+                            "step_adam_m_max_err_over_sensitivity": sm_m_sens}
+
+        # 5. ZeRO against the replicated step: the same bits
+        zero = r0["zero"]
+        for what in ("params", "means"):
+            pairs = list(zip(leaves(zero[what]), leaves(auto[what]), strict=True))
+            n_equal = sum(torch.equal(a, b) for a, b in pairs)
+            require(n_equal == len(pairs), f"ZeRO {what}: {n_equal} of {len(pairs)} leaves "
+                    "equal to the replicated step's")
+        require(zero["metrics"] == auto["metrics"], "ZeRO metrics differ")
+        out["zero"] = {"bit_equal_leaves": len(leaves(zero["params"])) * 2,
+                       "state_bytes_per_rank": [r["zero"]["state_bytes"] for r in ranks],
+                       "replicated_state_bytes": zero["replicated_state_bytes"]}
+
+        # 6. NCCL in a world of one, here: the data-parallel step is the
+        # step without a group, to the bit
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(work, "nccl"), 1),
+                                rank=0, world_size=1)
+        try:
+            dp_step, no_group_step = make_train_step(kcfg, make_mesh()), make_train_step(kcfg)
+            ds, dm = dp_step(_clone(state0), batch)
+            # what the data-parallel step adds with no peer to wait for: the
+            # bucket, the all-reduce call, the views (turns dp, none, none, dp)
+            world1_ms = {"dp": [], "no_group": []}
+            states = {"dp": _clone(state0), "no_group": _clone(state0)}
+            for which in ("dp", "no_group", "no_group", "dp"):
+                step = dp_step if which == "dp" else no_group_step
+                states[which], ms, _ = _timed_steps(torch, step, states[which], batch, n=3)
+                world1_ms[which].append(ms)
+            del states
+        finally:
+            dist.destroy_process_group()
+        ss, sm1 = make_train_step(kcfg)(_clone(state0), batch)
+        nccl_equal = [sum(torch.equal(a, b) for a, b in zip(leaves(x), leaves(y)))
+                      for x, y in ((ds.params, ss.params), (ds.opt_state.means,
+                                                            ss.opt_state.means),
+                                   (ds.bn_state, ss.bn_state))]
+        require(nccl_equal == [len(leaves(ss.params)), len(leaves(ss.params)),
+                               len(leaves(ss.bn_state))] and
+                {k: v.item() for k, v in dm.items()} == {k: v.item() for k, v in sm1.items()},
+                f"NCCL world-1 step differs from the step without a group: {nccl_equal}")
+        del ds, ss
+        out["nccl_world_1"] = {"bit_equal_leaves": sum(nccl_equal), "step_ms": world1_ms}
+        out["nccl_ranks"] = (phase_parallel_nccl(torch, smi) if torch.cuda.device_count() >= 2
+                             else f"not run: {torch.cuda.device_count()} card on this machine "
+                             "(NCCL takes one GPU a rank)")
+
+        # 7. the Trainer: U, the CLI's uninterrupted run under torchrun; K
+        # killed after PARALLEL_KILL_AT steps, R resumed from K's latest dump
+        # to step PARALLEL_STEPS
+        u = _Cli("U", u_args, work, ranks=PARALLEL_RANKS)
+        u.wait(timeout=600)
+        u_losses, n_lines = _jsonl_losses(os.path.join(work, "u"))
+        require(n_lines == PARALLEL_STEPS and sorted(u_losses) == list(range(PARALLEL_STEPS))
+                and all(np.isfinite(v) for v in u_losses.values()),
+                f"U's metrics.jsonl: {n_lines} lines, losses {u_losses} (one line a step, "
+                "from rank 0 alone)")
+        killed = {"trainer": dict(trainer_spec("k", PARALLEL_KILL_AT), kill=True)}
+        t0 = time.perf_counter()
+        _ranks(killed, work, "killed", kill=True)
+        dumps = sorted(d for d in os.listdir(os.path.join(work, "k")) if d.isdigit())
+        require(dumps == ["00000000", "00000002"], f"K's dumps {dumps}")
+        resumed = _ranks({"trainer": trainer_spec("k", PARALLEL_STEPS - 2,
+                                                  resume_from=RESUME_LATEST)},
+                         work, "resumed")
+        trainer_s = time.perf_counter() - t0
+        # R's final dump is U's: R read, on each rank, the rows U read there
+        # (the Adam moments would differ otherwise); and the ranks' rows differ
+        worst, equal = _dump_diff(os.path.join(work, "k", "77777777"),
+                                  os.path.join(work, "u", "77777777"), "R against U")
+        require(not any(torch.equal(a, b) for a, b in zip(
+            *(r["trainer"]["rows"] for r in resumed))), "the ranks read the same rows")
+        out["trainer"] = {"entry": "torchrun -m resnet_tpu_torch.train.cli (U)",
+                          "loader": resumed[0]["trainer"]["loader"],
+                          "resume_max_rel_err": worst, "bit_equal_leaves": equal,
+                          "u_losses": u_losses, "u_seconds": u.seconds,
+                          "killed_and_resumed_s": trainer_s}
+
+    # 8. step times: the one-process step at 32, then each two-rank layout
+    state, one_ms, _ = _timed_steps(torch, make_train_step(kcfg), _clone(state0), batch, n=3)
+    del state
+    out["step_ms"] = {"one_process_32": one_ms,
+                      **{f"{k}_2x{per}": float(np.median(r0[k]["step_ms"]))
+                         for k in ("auto", "shard_map", "zero")}}
+    out["step_ms_note"] = ("two ranks share one card and every all-reduce goes through "
+                           "host memory (gloo): these times are no scaling figure")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    emit(out)
+    return dict(auto["counts"])
+
+
+
+def phase_parallel_nccl(torch, smi):
+    """The 'auto' (batch statistics and frozen BN) and ZeRO steps on one NCCL
+    rank per card (every card of the machine, at most 4) at phase 17's global
+    batch of 32, against this process's one-process step by phase 5's rule
+    (``_auto_checks``), ZeRO against the replicated step bit for bit; the
+    step times of both, of 'shard_map' and of one process on one card. Then
+    the CLI under torchrun, one NCCL rank a card, on synthetic batches: its
+    first step's loss that of one process on the card. Runs where the
+    machine has two cards or more."""
+    import dataclasses
+
+    from resnet_tpu_torch.bridge import leaves, tree_map
+    from resnet_tpu_torch.config import variant_config
+    from resnet_tpu_torch.data import SyntheticDataset
+    from resnet_tpu_torch.train import Trainer, init_train_state, make_train_step
+    from resnet_tpu_torch.train.cli import build_config
+
+    n = min(torch.cuda.device_count(), 4)
+    require(n >= 2, f"{n} card: NCCL ranks need one card each")
+    t0 = time.perf_counter()
+    base = variant_config("resnet")
+    kcfg = dataclasses.replace(
+        base, execution=dataclasses.replace(base.execution, conv_kernels="pallas"),
+        optimizer=dataclasses.replace(base.optimizer, fused=True))
+    batch_n = base.data.batch_size
+    state0 = init_train_state(kcfg, torch.Generator().manual_seed(SEED), device="cuda")
+    data = next(SyntheticDataset(batch_n, image_dim=base.model.input_dim,
+                                 num_classes=base.model.num_classes, seed=SEED))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    out = {"phase": "parallel_nccl", "ranks": n, "backend": "nccl", "rank_batch": batch_n // n,
+           "global_batch": batch_n, "device": smi}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"params": tree_map(lambda t: t.cpu(), state0.params),
+                    "bn_state": tree_map(lambda t: t.cpu(), state0.bn_state)},
+                   os.path.join(work, "state.pt"))
+        torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(work, "batch.pt"))
+        spec = {"config": _spec_config(kcfg), "state": os.path.join(work, "state.pt"),
+                "batch": os.path.join(work, "batch.pt"),
+                "cases": _auto_specs(kcfg, 5) + [
+                    {"name": "zero", "zero": True, "time": 5, "keep": ["params", "means"],
+                     "config": {"parallel": {"zero_sharding": True}}},
+                    # local BN: the step without the statistics' sums
+                    {"name": "shard_map", "time": 5, "keep": [],
+                     "config": {"parallel": {"mode": "shard_map"}}}]}
+        ranks = _ranks(spec, work, "nccl", backend="nccl", ranks=n)
+        auto, zero = ranks[0]["auto"], ranks[0]["zero"]
+        for r, rank in enumerate(ranks):
+            require(rank["auto"]["counts"] == PER_STEP,
+                    f"NCCL rank {r} moved the counters by {rank['auto']['counts']}")
+        out["auto"] = _auto_checks(torch, ranks, state0, batch, kcfg, "NCCL")
+        for what in ("params", "means"):
+            require(all(torch.equal(a, b) for a, b in zip(
+                leaves(zero[what]), leaves(auto[what]), strict=True)),
+                f"NCCL ZeRO {what} differ from the replicated step's")
+
+        # the CLI as a user starts it on this machine's cards
+        cli_args = _parallel_cli_args(None, os.path.join(work, "cli"), "nccl", 2)
+        cli = _Cli("cli", cli_args, work, ranks=n)
+        cli.wait(timeout=600)
+        cli_losses, n_lines = _jsonl_losses(os.path.join(work, "cli"))
+        require(n_lines == 2 and all(np.isfinite(v) for v in cli_losses.values()),
+                f"the CLI's metrics.jsonl: {n_lines} lines, losses {cli_losses}")
+        require(os.path.isdir(os.path.join(work, "cli", "77777777")), "no final dump")
+    ccfg, _ = build_config(cli_args)
+    one = Trainer(dataclasses.replace(ccfg, checkpoint_dir="", checkpoint_every=0, log_every=0),
+                  device="cuda", use_mesh=False)
+    one_loss = one.run(1)["loss"]
+    del one
+    cli_err = abs(cli_losses[0] - one_loss) / abs(one_loss)
+    require(cli_err <= LOSS_TOL, f"the CLI's first loss on {n} NCCL ranks {cli_losses[0]} vs "
+            f"one process {one_loss}")
+    # one card at the global batch, and at one rank's rows (the step's own
+    # work on each rank, no collective)
+    _, one_ms, _ = _timed_steps(torch, make_train_step(kcfg), _clone(state0), batch, n=5)
+    rows = {k: v[:batch_n // n] for k, v in batch.items()}
+    _, rank_ms, _ = _timed_steps(torch, make_train_step(kcfg), _clone(state0), rows, n=5)
+    out.update({"launches_per_rank": [r["auto"]["counts"] for r in ranks],
+                "zero_state_bytes_per_rank": zero["state_bytes"],
+                "replicated_state_bytes": zero["replicated_state_bytes"],
+                "cli": {"entry": f"torchrun --nproc-per-node {n} -m resnet_tpu_torch.train.cli",
+                        "losses": cli_losses, "first_loss_rel_err": cli_err,
+                        "seconds": cli.seconds},
+                "step_ms": {"one_card_32": one_ms, f"one_card_{batch_n // n}": rank_ms,
+                            **{f"{k}_{n}x{batch_n // n}": float(np.median(ranks[0][k]["step_ms"]))
+                               for k in ("auto", "zero", "shard_map")}},
+                "phase_s": time.perf_counter() - t0})
+    emit(out)
+    return out
+
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
                         "for those only, no plans, no final line")
-    parser.add_argument("--phases", help="comma-separated names of phases 4-16 (serve, "
+    parser.add_argument("--phases", help="comma-separated names of phases 4-17 (serve, "
                         "train, ..., presets, bf16_engines, int8_serve, configs, artifact, "
-                        "converge): phases 1-2 and those only, no final line")
+                        "converge, parallel): phases 1-2 and those only, no final line")
     args = parser.parse_args()
     import torch
 
@@ -3096,12 +3623,15 @@ def main() -> None:
               "int8_serve": lambda: phase_int8_serve(torch, checks, counters),
               "configs": lambda: phase_configs(torch, checks, counters, smi),
               "artifact": lambda: phase_artifact(torch, counters),
-              "converge": lambda: phase_converge(torch, counters)}
+              "converge": lambda: phase_converge(torch, counters),
+              "parallel": lambda: phase_parallel(torch, smi)}
+    # run alone only (``parallel`` runs it where the machine has the cards)
+    solo = {"parallel_nccl": lambda: phase_parallel_nccl(torch, smi)}
     if args.phases:
         names = args.phases.split(",")
-        require(set(names) <= set(phases), f"unknown phases in {names}")
+        require(set(names) <= set(phases) | set(solo), f"unknown phases in {names}")
         for name in names:
-            phases[name]()
+            {**phases, **solo}[name]()
         require("jax" not in sys.modules, "jax was imported")
         print(nvidia_smi(), flush=True)
         return

@@ -20,6 +20,11 @@ side stream, recording an event after it. Two hazards shape the code:
 
 On the CPU (an explicit ``device="cpu"``) the same code runs with plain
 copies: no pinning, no stream.
+
+Across ranks each rank runs its own prefetcher onto its own device. Where
+its source yields a whole host batch, ``rows`` (``parallel.mesh.rows_of``
+bound to the rank) cuts the rank's rows on the host before they are
+staged, so only those are copied.
 """
 
 from __future__ import annotations
@@ -50,8 +55,9 @@ class DevicePrefetcher:
     (bf16 halves the traffic; the model casts them to its compute dtype)."""
 
     def __init__(self, source: Iterator, *, depth: int = 2, device="cuda",
-                 transfer_dtype=None):
+                 transfer_dtype=None, rows=None):
         self.source = source
+        self.rows = rows
         self.depth = depth
         self.device = torch.device(device)
         self.transfer_dtype = resolve_dtype(transfer_dtype) if transfer_dtype else None
@@ -113,6 +119,8 @@ class DevicePrefetcher:
                 batch = dict(batch)
                 # the per-batch shard cursor is host bookkeeping, not device data
                 cursor = batch.pop("cursor", None)
+                if self.rows is not None:
+                    batch = self.rows(batch)
                 if self._cuda:
                     out, event = self._put_cuda(batch, n % (self.depth + 1), slots,
                                                 events, stream)
@@ -171,8 +179,9 @@ class DevicePrefetcher:
 
 
 def prefetch_to_device(source, *, depth: int = 2, device="cuda",
-                       transfer_dtype=None) -> DevicePrefetcher:
+                       transfer_dtype=None, rows=None) -> DevicePrefetcher:
     """Wrap a host batch iterator in a device prefetcher on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU); ``rows`` maps each host batch
+    to the rows this rank stages."""
     return DevicePrefetcher(source, depth=depth, device=device,
-                            transfer_dtype=transfer_dtype)
+                            transfer_dtype=transfer_dtype, rows=rows)

@@ -21,6 +21,20 @@ dx = dmean / M + dvar · 2(x − mean) / M; the JAX package has no kernel for it
 either. ``moments_plain`` is the same Function over the plain sums on any
 device: the plain path's batch statistics (``ops.batchnorm.batch_moments``).
 
+Statistics of a batch split over ranks (``sync_stats``). Inside
+``sync_stats(reduce)``, where ``reduce`` sums a tensor in place over the
+ranks of a data group (``parallel.mesh.Mesh.sum_``), ``moments`` and
+``moments_plain`` give the statistics of the global batch, as the JAX
+package's pjit step does: the forward takes this rank's raw Σx and Σx² (on a
+CUDA tensor K4 launched once through ``rt_moments_sums_*``, the same kernel
+writing its sums in place of its epilogue; on a CPU tensor
+``moments_sums_reference``), sums them and the row count over the ranks in
+one float64 all-reduce (the count exact, no rounding added to the fp32 sums
+of two ranks), and applies the epilogue to the fp32 sums with the global
+row count m; the backward sums (dmean, dvar) over the ranks before the
+closed form, with the global m. Outside it, nothing changes: K4 writes its
+epilogue as before.
+
 K5, the apply. ``bn_apply(x2d, scale, shift, relu=..., cap=None)`` is
 clip(relu(x · scale + shift)) per channel (bn.py:134-160). On a CUDA tensor it
 launches ``rt_bn_apply_f32`` (``csrc/bn.cu``); on a CPU tensor the plain
@@ -68,8 +82,9 @@ where the kernels round.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -111,14 +126,19 @@ def mean_var_from_sums(s: torch.Tensor, s2: torch.Tensor, m: int):
     return mean, var
 
 
-def moments_reference(x: torch.Tensor, channel_dim: int = -1
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: Σx and Σx² in fp32 over every dimension but
-    ``channel_dim`` (the rows of an (M, C) view by default), then the
-    epilogue."""
+def moments_sums_reference(x: torch.Tensor, channel_dim: int = -1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the raw sums: Σx and Σx² in fp32 over every
+    dimension but ``channel_dim`` (the rows of an (M, C) view by default)."""
     xf = x.to(torch.float32)
     dims = tuple(d for d in range(x.dim()) if d != channel_dim % x.dim())
-    return mean_var_from_sums(xf.sum(dims), (xf * xf).sum(dims),
+    return xf.sum(dims), (xf * xf).sum(dims)
+
+
+def moments_reference(x: torch.Tensor, channel_dim: int = -1
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: ``moments_sums_reference``, then the epilogue."""
+    return mean_var_from_sums(*moments_sums_reference(x, channel_dim),
                               x.numel() // max(x.shape[channel_dim], 1))
 
 
@@ -189,24 +209,27 @@ def _workspace(index: int, part: int, tickets: int,
     return part_ws, tickets_ws
 
 
-def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int) -> None:
-    """Enqueue K4 on x2d's device and current stream, mean and var into out."""
+def _launch(x2d: torch.Tensor, out: torch.Tensor, plan: MomentsPlan, vec: int,
+            sums: bool = False) -> None:
+    """Enqueue K4 on x2d's device and current stream, mean and var into out
+    (with ``sums``, Σx and Σx²)."""
     index = x2d.device.index
     stream = torch._C._cuda_getCurrentRawStream(index)
     part, tickets = _workspace(index, plan.part, plan.tiles, stream)
-    build.launch_on(index, stream, build.entry(build.entry_name("moments", x2d)), x2d.data_ptr(),
+    entry = build.entry_name("moments_sums" if sums else "moments", x2d)
+    build.launch_on(index, stream, build.entry(entry), x2d.data_ptr(),
                     part.data_ptr(), tickets.data_ptr(), out.data_ptr(), x2d.shape[0],
                     x2d.shape[1], plan.chunk, plan.n_chunks, vec, plan.ctv, plan.threads)
 
 
-def _forward(x2d: torch.Tensor):
-    """(mean, var) of x2d: the kernel on a CUDA tensor, the plain version on
-    a CPU tensor."""
+def _forward(x2d: torch.Tensor, sums: bool = False):
+    """(mean, var) of x2d, or with ``sums`` (Σx, Σx²): the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if not x2d.is_cuda:
         if x2d.dim() != 2:
             raise ValueError(f"moments: expected (M, C), got {tuple(x2d.shape)}")
         build.on_card("moments", x2d)  # raises on what the kernel would not take
-        return moments_reference(x2d)
+        return moments_sums_reference(x2d) if sums else moments_reference(x2d)
     if (x2d.dim() != 2 or x2d.dtype not in (torch.float32, torch.bfloat16)
             or not x2d.is_contiguous()):
         raise ValueError(f"moments: expected a contiguous float32 or bfloat16 (M, C) "
@@ -217,16 +240,68 @@ def _forward(x2d: torch.Tensor):
     vec = vector_width(x2d)
     plan = moments_plan(m, c, vec)
     out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
-    _launch(x2d, out, plan, vec)
+    _launch(x2d, out, plan, vec, sums)
     build.count(__name__, "LAUNCHES", x2d)
     return out.unbind(0)
 
 
+def moments_sums(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The raw (Σx, Σx²) over the rows of x2d (M, C), fp32: one K4 launch in
+    its sums mode on a CUDA tensor, ``moments_sums_reference`` on a CPU one.
+    Not differentiable by itself: ``moments`` carries it inside
+    ``sync_stats``."""
+    return _forward(x2d, sums=True)
+
+
+# the in-place sum over the data group's ranks that ``moments`` and
+# ``moments_plain`` apply to the statistics, or None (``sync_stats``); not
+# thread-local, since a checkpointed block's forward reruns inside the
+# backward on the autograd engine's device thread
+_SYNC: Optional[Callable[[torch.Tensor], None]] = None
+
+
+@contextlib.contextmanager
+def sync_stats(reduce: Optional[Callable[[torch.Tensor], None]]):
+    """Within the block, batch statistics are those of the batch of every
+    rank that ``reduce`` (an in-place sum over ranks) reaches; None leaves
+    them this process's own."""
+    global _SYNC
+    before, _SYNC = _SYNC, reduce
+    try:
+        yield
+    finally:
+        _SYNC = before
+
+
+def _global_stats(x, sums, reduce):
+    """(mean, var, m) from this rank's raw sums (s, s2) of x, summed with
+    the row count over the ranks in one float64 all-reduce; m is the global
+    row count as an fp32 device scalar, so nothing waits for the host."""
+    s, s2 = sums
+    c = s.numel()
+    buf = torch.empty(2 * c + 1, dtype=torch.float64, device=s.device)
+    buf[:c].copy_(s)
+    buf[c:2 * c].copy_(s2)
+    buf[2 * c:].fill_(x.numel() // c)
+    reduce(buf)
+    total = buf.to(torch.float32)
+    m = total[2 * c]
+    mean, var = mean_var_from_sums(total[:c], total[c:2 * c], m)
+    return mean, var, m
+
+
 class _Moments(torch.autograd.Function):
+    """(mean, var) by ``value``; with ``reduce``, ``value`` gives the raw
+    sums and the statistics are those of every rank's rows."""
+
     @staticmethod
-    def forward(ctx, x, value, channel_dim=-1):
-        mean, var = value(x)
-        ctx.channel_dim = channel_dim
+    def forward(ctx, x, value, channel_dim=-1, reduce=None):
+        if reduce is None:
+            mean, var = value(x)
+            m = x.numel() // mean.numel()
+        else:
+            mean, var, m = _global_stats(x, value(x), reduce)
+        ctx.channel_dim, ctx.reduce, ctx.m = channel_dim, reduce, m
         ctx.save_for_backward(x, mean)
         return mean, var
 
@@ -235,15 +310,23 @@ class _Moments(torch.autograd.Function):
         x, mean = ctx.saved_tensors
         shape = [1] * x.dim()
         shape[ctx.channel_dim] = -1
-        m = x.numel() // mean.numel()
+        m = ctx.m
+        if ctx.reduce is not None:
+            # the statistics depend on every rank's rows: sum their cotangents
+            both = torch.cat([dmean, dvar])
+            ctx.reduce(both)
+            dmean, dvar = both.chunk(2)
         dx = (dmean.view(shape) / m
               + dvar.view(shape) * 2.0 * (x.to(torch.float32) - mean.view(shape)) / m)
-        return dx.to(x.dtype), None, None
+        return dx.to(x.dtype), None, None, None
 
 
 def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-read (mean, var) over the rows of x2d (M, C); differentiable
-    where x2d requires a gradient."""
+    where x2d requires a gradient. Inside ``sync_stats`` the rows of every
+    rank: K4's raw sums, summed over the ranks."""
+    if _SYNC is not None:
+        return _Moments.apply(x2d, moments_sums, -1, _SYNC)
     if x2d.requires_grad and torch.is_grad_enabled():
         return _Moments.apply(x2d, _forward)
     return _forward(x2d)
@@ -253,7 +336,11 @@ def moments_plain(x: torch.Tensor, channel_dim: int = -1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``moments`` with the plain sums on every device, over every dimension
     of x but ``channel_dim`` (the rows of an (M, C) view by default); never
-    launches."""
+    launches. Inside ``sync_stats`` the rows of every rank, as ``moments``."""
+    if _SYNC is not None:
+        return _Moments.apply(
+            x, functools.partial(moments_sums_reference, channel_dim=channel_dim),
+            channel_dim, _SYNC)
     return _Moments.apply(x, functools.partial(moments_reference, channel_dim=channel_dim),
                           channel_dim)
 

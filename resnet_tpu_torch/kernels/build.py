@@ -10,8 +10,12 @@ with a plain C interface (no PyTorch headers, no ninja):
          -o build/resnet_tpu_torch/libkernels-<hash>.so *.o
 
 ``<hash>`` covers every source and header, so an edited kernel rebuilds and
-an unchanged one is reused. The library is written under a temporary name
-and moved into place, so concurrent builds are safe. It is loaded with
+an unchanged one is reused. Processes that ask for the library together
+(the ranks of a data-parallel run, started at once) take turns on a lock
+file beside it (``fcntl.flock``): the first compiles, the others find its
+library when the lock comes to them. The library is written under a
+temporary name and renamed into place, so no process loads a half-written
+file. It is loaded with
 ctypes; every pointer and the stream are passed as ``c_void_p``, and each
 entry point returns ``cudaGetLastError()`` after its launch. A float
 argument is a ``c_float``.
@@ -22,6 +26,7 @@ There is no fallback: without nvcc, ``load()`` raises ``RuntimeError``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -70,6 +75,9 @@ SIGNATURES = {
     "rt_add_relu_mask_f32": [_P, _P, _P, _P, _I64, _P],
     # x, part, tickets, stats, M, C, chunk, n_chunks, vec, ctv, threads
     "rt_moments_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
+    # the same launch writing the raw (sum, sum of squares) in place of the
+    # statistics (the data-parallel step adds them across ranks)
+    "rt_moments_sums_f32": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
     # the host table of (p, m, v, numel, first block, flags, tensor) rows, its
     # row count, the host array of gradient pointers, h
     "rt_adam_f32": [_P, _I, _P, _P, _P],
@@ -90,6 +98,7 @@ SIGNATURES = {
     "rt_add_relu_bf16": [_P, _P, _P, _I64, _P],
     "rt_add_relu_mask_bf16": [_P, _P, _P, _P, _I64, _P],
     "rt_moments_bf16": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
+    "rt_moments_sums_bf16": [_P, _P, _P, _P, _I64, _I, _I64, _I, _I, _I, _I, _P],
     # K5, K6, K8 and K9 on bf16 data take the fp32 entries' arguments (their
     # per-channel rows fp32)
     "rt_fused_conv_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -193,7 +202,7 @@ BWD16_TK = 128
 BWD16_TN = 128
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 Q3_SLOTS = 2 * _SMS  # Q3's resident blocks, two a SM
-# one build at a time in this process (the temporary name is per process)
+# one build at a time in this process (the file lock is per process)
 _BUILD_LOCK = threading.Lock()
 
 
@@ -230,15 +239,26 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this source hash is built already.
+    """Compile the library unless this source hash is built already, holding
+    the build directory's lock file while it looks and compiles.
 
     nvcc's report (registers, shared memory, spills per kernel from
     ``-Xptxas -v``) is kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.is_file():
         return out
-    nvcc = find_nvcc()
+    nvcc = find_nvcc()  # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build-lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.is_file():  # another process may have built it meanwhile
+            _compile(out, nvcc)
+    return out
+
+
+def _compile(out: Path, nvcc: str) -> None:
+    """nvcc each source, all at once, then link ``out`` under a temporary
+    name and rename it into place."""
     tag = f"{out.stem}.tmp-{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}-{src.stem}.o" for src in sources()]
     tmp = out.with_name(f"{tag}.so")
@@ -260,7 +280,6 @@ def build() -> Path:
     finally:
         for f in (*objs, tmp):
             f.unlink(missing_ok=True)
-    return out
 
 
 @functools.cache

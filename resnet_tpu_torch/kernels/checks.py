@@ -218,13 +218,17 @@ MATMUL_BWD_CASES: List[Tuple[str, int, int, int, int, bool, bool]] = [
 ]
 # (label, rows M, channels C): BN statistics at batch 32, then the stem and
 # stage 1 at batch 224 (180 M elements each, 7x batch 32's rows)
-MOMENTS_CASES: List[Tuple[str, int, int]] = [
+MOMENTS_CASES: List[Tuple] = [
     ("stem (32*112*112, 64)", 32 * 112 * 112, 64),
     ("stage 1 (32*56*56, 256)", 32 * 56 * 56, 256),
     ("stage 4 (32*7*7, 2048)", 32 * 7 * 7, 2048),
     ("ragged (1000, 33)", 1000, 33),
     ("stem (224*112*112, 64), batch 224", 224 * 112 * 112, 64),
     ("stage 1 (224*56*56, 256), batch 224", 224 * 56 * 56, 256),
+    # the raw-sums mode (rt_moments_sums_*) of the data-parallel step, at one
+    # rank's rows of batch 16
+    ("sums: stem (16*112*112, 64)", 16 * 112 * 112, 64, "sums"),
+    ("sums: stage 4 (16*7*7, 2048)", 16 * 7 * 7, 2048, "sums"),
 ]
 # (label, model name): Adam over that model's parameter list
 ADAM_CASES = [("resnet50 params, non-finite injected", "resnet50")]
@@ -336,7 +340,7 @@ BF16_MATMUL_CASES = [
     for label, m, k, n, offset in MATMUL_CASES
     if m in (8, 32, 64) or label.startswith(("ragged", "misaligned"))]
 BF16_MATMUL_BWD_CASES = MATMUL_BWD_CASES
-BF16_MOMENTS_CASES = MOMENTS_CASES[:4]
+BF16_MOMENTS_CASES = MOMENTS_CASES[:4] + MOMENTS_CASES[-1:]
 
 
 def fused_sites(batch: int) -> List[Tuple]:
@@ -718,8 +722,11 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
                      lambda: needed((torch.matmul(g, b.t()) if need_a else None,
                                      torch.matmul(a.t(), g) if need_b else None)))
     if kernel == "moments":
-        _, m, c = case
+        _, m, c, *mode = case
         x = randn(m, c) * 2.0 + randn(1, c)
+        if mode:  # the raw sums: no one library call computes both
+            return _Case(lambda: bn.moments_sums(x), lambda: bn.moments_sums_reference(x),
+                         4 * (m * c + 2 * c), 3 * m * c)
         return _Case(lambda: bn.moments(x), lambda: bn.moments_reference(x),
                      4 * (m * c + 2 * c), 3 * m * c,
                      lambda: torch.var_mean(x, dim=0, unbiased=False),
@@ -917,8 +924,11 @@ def _bf16_case(kernel: str, case, randn) -> _Case:
                                      torch.matmul(a.t(), g) if need_b else None)),
                      peak=BF16_FLOPS_PER_S, bf16=True)
     if kernel == "moments":
-        _, m, c = case
+        _, m, c, *mode = case
         x = (randn(m, c) * 2.0 + randn(1, c)).to(bf)
+        if mode:
+            return _Case(lambda: bn.moments_sums(x), lambda: bn.moments_sums_reference(x),
+                         2 * m * c + 8 * c, 3 * m * c, bf16=True)
         return _Case(lambda: bn.moments(x), lambda: bn.moments_reference(x),
                      2 * m * c + 8 * c, 3 * m * c,
                      lambda: torch.var_mean(x, dim=0, unbiased=False),

@@ -37,6 +37,12 @@
 //                        the SM and leave half the partials of 256-thread
 //                        blocks at four per SM).
 //
+// With SUMS (the entries rt_moments_sums_*) the last block writes the raw
+// fp32 (sum, sum of squares) in place of the epilogue, for a caller that adds
+// the sums of several processes before it divides by their rows together
+// (the data-parallel step's batch statistics). Everything before the last
+// write is the same code, so the statistics entries keep their bits.
+//
 // No atomics in any sum, so a run repeats exactly; the ticket is the only
 // atomic. The counters and `part` are a workspace that the wrapper keeps per
 // (device, stream): calls on one stream run one after another, so each call
@@ -96,7 +102,7 @@ __device__ __forceinline__ void load_row(float (&v)[VEC], const T* p) {
   }
 }
 
-template <class T, int VEC, int THREADS>
+template <class T, int VEC, int THREADS, bool SUMS>
 __global__ void __launch_bounds__(THREADS, 2048 / THREADS)
 moments_kernel(const T* __restrict__ x, float* __restrict__ part,
                unsigned* __restrict__ tickets, float* __restrict__ stats, int64_t M, int C,
@@ -206,12 +212,17 @@ moments_kernel(const T* __restrict__ x, float* __restrict__ part,
       sa += shd[(k * groups + g) * VEC + j];
       sb += shd[(k * groups + tc / VEC + g) * VEC + j];
     }
-    // bn.py:83-86 in fp32, each operation rounded on its own (no FMA)
-    const float m = (float)M;
-    const float mu = __fdiv_rn((float)sa, m);
-    const float v = __fsub_rn(__fdiv_rn((float)sb, m), __fmul_rn(mu, mu));
-    stats[blockIdx.x * tc + t] = mu;
-    stats[C + blockIdx.x * tc + t] = v < 0.f ? 0.f : v;  // a NaN propagates, as in jnp.maximum
+    if constexpr (SUMS) {
+      stats[blockIdx.x * tc + t] = (float)sa;
+      stats[C + blockIdx.x * tc + t] = (float)sb;
+    } else {
+      // bn.py:83-86 in fp32, each operation rounded on its own (no FMA)
+      const float m = (float)M;
+      const float mu = __fdiv_rn((float)sa, m);
+      const float v = __fsub_rn(__fdiv_rn((float)sb, m), __fmul_rn(mu, mu));
+      stats[blockIdx.x * tc + t] = mu;
+      stats[C + blockIdx.x * tc + t] = v < 0.f ? 0.f : v;  // a NaN propagates, as in jnp.maximum
+    }
   }
   if (t == 0) tickets[blockIdx.x] = 0u;
 }
@@ -220,24 +231,24 @@ moments_kernel(const T* __restrict__ x, float* __restrict__ part,
 
 namespace {
 
-template <class T>
+template <class T, bool SUMS>
 int launch_moments(const T* x, float* part, unsigned* tickets, float* stats, int64_t M, int C,
                    int64_t chunk, int n_chunks, int vec, int ctv, int threads,
                    cudaStream_t s) {
   const int tc = vec * ctv;
   const dim3 grid((unsigned)((C + tc - 1) / tc), (unsigned)n_chunks);
   if (threads == LARGE && vec == 4)
-    moments_kernel<T, 4, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                       n_chunks, ctv);
+    moments_kernel<T, 4, LARGE, SUMS><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C,
+                                                             chunk, n_chunks, ctv);
   else if (threads == LARGE)
-    moments_kernel<T, 1, LARGE><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                       n_chunks, ctv);
+    moments_kernel<T, 1, LARGE, SUMS><<<grid, LARGE, 0, s>>>(x, part, tickets, stats, M, C,
+                                                             chunk, n_chunks, ctv);
   else if (vec == 4)
-    moments_kernel<T, 4, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                       n_chunks, ctv);
+    moments_kernel<T, 4, SMALL, SUMS><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C,
+                                                             chunk, n_chunks, ctv);
   else
-    moments_kernel<T, 1, SMALL><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C, chunk,
-                                                       n_chunks, ctv);
+    moments_kernel<T, 1, SMALL, SUMS><<<grid, SMALL, 0, s>>>(x, part, tickets, stats, M, C,
+                                                             chunk, n_chunks, ctv);
   return (int)cudaGetLastError();
 }
 
@@ -252,8 +263,8 @@ int launch_moments(const T* x, float* part, unsigned* tickets, float* stats, int
 extern "C" int rt_moments_f32(const float* x, float* part, unsigned* tickets, float* stats,
                               int64_t M, int C, int64_t chunk, int n_chunks, int vec,
                               int ctv, int threads, void* stream) {
-  return launch_moments(x, part, tickets, stats, M, C, chunk, n_chunks, vec, ctv, threads,
-                        (cudaStream_t)stream);
+  return launch_moments<float, false>(x, part, tickets, stats, M, C, chunk, n_chunks, vec, ctv,
+                                     threads, (cudaStream_t)stream);
 }
 
 // The same for bf16 x (its 16-bit patterns), read as fp32 into the same
@@ -262,6 +273,25 @@ extern "C" int rt_moments_f32(const float* x, float* part, unsigned* tickets, fl
 extern "C" int rt_moments_bf16(const uint16_t* x, float* part, unsigned* tickets,
                                float* stats, int64_t M, int C, int64_t chunk, int n_chunks,
                                int vec, int ctv, int threads, void* stream) {
-  return launch_moments(reinterpret_cast<const __nv_bfloat16*>(x), part, tickets, stats, M, C,
-                        chunk, n_chunks, vec, ctv, threads, (cudaStream_t)stream);
+  return launch_moments<__nv_bfloat16, false>(reinterpret_cast<const __nv_bfloat16*>(x), part,
+                                             tickets, stats, M, C, chunk, n_chunks, vec, ctv,
+                                             threads, (cudaStream_t)stream);
+}
+
+// The raw sums: sums (2, C) holds sum(x), then sum(x^2), each the fp32
+// rounding of the tile's double sum; the arguments are rt_moments_f32's and
+// rt_moments_bf16's.
+extern "C" int rt_moments_sums_f32(const float* x, float* part, unsigned* tickets, float* sums,
+                                   int64_t M, int C, int64_t chunk, int n_chunks, int vec,
+                                   int ctv, int threads, void* stream) {
+  return launch_moments<float, true>(x, part, tickets, sums, M, C, chunk, n_chunks, vec, ctv,
+                                     threads, (cudaStream_t)stream);
+}
+
+extern "C" int rt_moments_sums_bf16(const uint16_t* x, float* part, unsigned* tickets,
+                                    float* sums, int64_t M, int C, int64_t chunk, int n_chunks,
+                                    int vec, int ctv, int threads, void* stream) {
+  return launch_moments<__nv_bfloat16, true>(reinterpret_cast<const __nv_bfloat16*>(x), part,
+                                             tickets, sums, M, C, chunk, n_chunks, vec, ctv,
+                                             threads, (cudaStream_t)stream);
 }

@@ -93,7 +93,7 @@ def _one_launch_k4(x, label):
 
 def moments_parts():
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    for label, m, c in checks.MOMENTS_CASES:
+    for label, m, c, *_ in checks.MOMENTS_CASES:
         x = torch.randn(m, c, generator=gen, device=DEVICE)
         xg = x.detach().requires_grad_(True)
         stub = (torch.zeros(c, device=DEVICE), torch.zeros(c, device=DEVICE))

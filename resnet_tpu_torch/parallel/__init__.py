@@ -1,0 +1,37 @@
+"""Data parallelism on torch.distributed: the port of resnet_tpu.parallel.
+
+One process drives one device; the ranks form the data group
+(``make_mesh``), each training on its rows of the global batch
+(``shard_batch``). The 'auto' step (``train.make_train_step`` with a mesh)
+is the global-batch step, BN statistics summed over the ranks;
+``make_shard_map_train_step`` the explicit-sum step with local BN;
+``zero_shardings`` the ZeRO plan. The data x model mesh and spatial
+partitioning raise NotImplementedError naming ROADMAP.md queue A item A13.
+"""
+
+from .data_parallel import make_shard_map_train_step
+from .distributed import host_batch_slice, initialize_distributed
+from .mesh import (
+    composite_shardings,
+    make_mesh,
+    make_mesh_2d,
+    replicate,
+    shard_batch,
+    spatial_batch_specs,
+    spatial_shard_batch,
+    zero_shardings,
+)
+
+__all__ = [
+    "composite_shardings",
+    "make_mesh",
+    "make_mesh_2d",
+    "replicate",
+    "shard_batch",
+    "spatial_batch_specs",
+    "spatial_shard_batch",
+    "zero_shardings",
+    "make_shard_map_train_step",
+    "initialize_distributed",
+    "host_batch_slice",
+]

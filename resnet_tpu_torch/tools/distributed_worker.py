@@ -1,0 +1,274 @@
+"""One rank of a data-parallel run: the counterpart of the JAX package's
+``tools/distributed_worker.py``, for the tests and ``chip_smoke.py``.
+
+The parent starts one process per rank, all with the same ``SPEC`` (a JSON
+file) and a ``torch.distributed.FileStore`` path; each rank joins the group
+with the backend given (a world of 1 too, so that NCCL can be held against
+the step without a group on one card), runs what the spec asks on its
+device, and writes what it found to ``OUT/rank<r>.pt`` (``torch.save`` of
+plain dicts, lists and CPU tensors) for the parent to compare.
+
+What it runs (``spec`` keys; a spec may hold both, run in this order):
+
+``cases``: from one initial state (``spec["state"]``, a saved
+``{"params", "bn_state"}``, else the config's seeded init) and one global
+batch (``spec["batch"]``), each case of ``spec["cases"]`` runs its steps on
+this rank's rows (``parallel.shard_batch``): mode 'auto' (the global-batch
+step) or 'shard_map' (local BN, explicit sums), with ``"zero"`` the
+ZeRO-sharded state. It records
+the launch counters' moves over the steps (the main path), the metrics, the
+whole parameters, running statistics and Adam moments after them (rank 0;
+those of the case's ``"keep"`` list where it has one), each rank's state
+bytes, with ``"grads"`` the summed gradient of the first
+forward and backward and its batch statistics (taken apart from the counted
+steps), with ``"time"`` that many more steps timed one by one. A case
+``{"kind": "moments"}`` holds the statistics Function alone: this rank's
+rows of ``spec["moments_x"]`` through ``kernels.bn.moments`` and
+``moments_plain`` inside ``sync_stats``, with the gradient of a fixed
+weighting of mean and var.
+
+A case's config is ``spec["config"]`` (the TrainConfig's fields as nested
+dicts) with the case's ``"config"`` fields in place of those.
+
+``trainer``: the Trainer on ``spec["trainer"]["config"]`` for its
+``"steps"`` steps, the rows of every batch it trained recorded (the first
+four values of each image); with ``"kill"`` the process then kills itself
+with SIGKILL (a crash after the last dump), else it finalizes (the final
+dump).
+
+    python -m resnet_tpu_torch.tools.distributed_worker RANK WORLD STORE SPEC OUT \\
+        [--backend gloo|nccl] [--device cuda|cpu]
+
+The ranks run on the card (``--device cuda``, the default) unless the
+caller names the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import signal
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .. import config as tcfg
+from ..bridge import flatten, tree_map
+from ..parallel import distributed, make_mesh, shard_batch
+from ..parallel.multihost import fetch_global, put_global
+
+
+def train_config(spec: dict) -> tcfg.TrainConfig:
+    """A TrainConfig from its fields as nested dicts; ``model`` may name a
+    preset ("tiny" the tiny model)."""
+    spec = dict(spec)
+    model = spec.pop("model", "resnet50")
+    if isinstance(model, str):
+        model = tcfg.tiny_model_config() if model == "tiny" else tcfg.model_config(model)
+    else:
+        model = tcfg.ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                    for k, v in model.items()})
+    parts = {"execution": tcfg.ExecutionConfig, "optimizer": tcfg.OptimizerConfig,
+             "data": tcfg.DataConfig, "parallel": tcfg.ParallelConfig}
+    kw = {k: cls(**spec.pop(k, {})) for k, cls in parts.items()}
+    return tcfg.TrainConfig(model=model, **kw, **spec)
+
+
+def _cpu(tree):
+    return None if tree is None else tree_map(lambda t: t.detach().to("cpu").clone(), tree)
+
+
+def _counts():
+    """Every kernel's launch counter (``checks.KERNELS``)."""
+    from ..kernels import checks
+
+    return {name: getattr(mod, attr) for name, (mod, attr, _, _) in checks.KERNELS.items()}
+
+
+def _state(cfg, init, device):
+    """A fresh state of cfg on device, its parameters and running statistics
+    ``init``'s where given."""
+    from ..train import init_train_state
+
+    state = init_train_state(cfg, device=device)
+    if init is None:
+        return state
+    with torch.no_grad():
+        for name in ("params", "bn_state"):
+            for (path, t), (_, v) in zip(flatten(getattr(state, name)),
+                                         flatten(init[name]), strict=True):
+                t.copy_(v.to(t.dtype))
+    return state
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _moments_case(case, spec, mesh, device):
+    from ..kernels.bn import moments, moments_plain, sync_stats
+
+    x = shard_batch({"x": spec["moments_x"]}, mesh)["x"].to(device)
+    c = x.shape[-1]
+    cm = torch.linspace(-1.0, 1.0, c, device=device)
+    cv = torch.linspace(0.5, 1.5, c, device=device)
+    out = {}
+    for name, fn in (("moments", lambda t: moments(t.reshape(-1, c))),
+                     ("moments_plain_nchw",
+                      lambda t: moments_plain(t.permute(0, 3, 1, 2), channel_dim=1))):
+        xg = x.detach().clone().requires_grad_(True)
+        with sync_stats(mesh.sum_):
+            mean, var = fn(xg)
+            ((mean * cm).sum() + (var * cv).sum()).backward()
+        out[name] = {"mean": _cpu(mean), "var": _cpu(var), "dx": _cpu(xg.grad)}
+    return out
+
+
+def _step_case(case, spec, mesh, device, init):
+    from ..kernels.bn import sync_stats
+    from ..train import loss_and_grads, make_train_step
+    from ..train.state import state_bytes, zero_plan
+    from ..train.step import reduce_grads, stats_sum
+
+    cfg = train_config(dict(spec["config"], **case.get("config", {})))
+    mode = cfg.parallel.mode
+    state = _state(cfg, init, device)
+    accum = cfg.execution.grad_accum if mode == "auto" else 1
+    batch = {k: v.to(device)
+             for k, v in shard_batch(spec["batch"], mesh, grad_accum=accum).items()}
+    plan = None
+    rec = {"replicated_state_bytes": state_bytes(state)}
+    if case.get("zero"):
+        plan = zero_plan(state, mesh, cfg.parallel.zero_min_bytes)
+        state = put_global(state, plan, mesh)
+    step = make_train_step(cfg, mesh, plan)
+    if case.get("grads"):
+        params = fetch_global(state.params, plan.params if plan else None, mesh)
+        with sync_stats(stats_sum(cfg, mesh)):
+            loss, _, aux, grads = loss_and_grads(params, batch, state.bn_state, cfg)
+        grads, loss = reduce_grads(mesh, grads, loss)
+        stats = aux["bn_stats"]
+        rec["grad_loss_sum"] = float(loss)
+        if mesh.rank == 0:
+            rec["grads"] = _cpu(grads)
+        rec["bn_stats"] = {"init_bn": _cpu(list(stats["init_bn"])),
+                           "blocks": [{k: _cpu(list(v)) for k, v in b.items()}
+                                      for b in stats["blocks"]]}
+        del grads, params
+    _sync(device)
+    before = _counts()
+    metrics = {}
+    for _ in range(case.get("steps", 1)):
+        state, metrics = step(state, batch)
+    _sync(device)
+    after = _counts()
+    rec["counts"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+    rec["state_bytes"] = state_bytes(state)
+    whole = fetch_global(state, plan, mesh)
+    if mesh.rank == 0:
+        kept = {"params": whole.params, "bn_state": whole.bn_state,
+                "means": getattr(whole.opt_state, "means", None)}
+        for key in case.get("keep", kept):
+            rec[key] = _cpu(kept[key])
+    del whole
+    times = []
+    for _ in range(case.get("time", 0)):
+        _sync(device)
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["step_ms"] = times
+    return rec
+
+
+class _Recorder:
+    """A host iterator that keeps the first four values of each image of
+    every batch it yields, in order."""
+
+    def __init__(self, source):
+        self.source, self.rows = iter(source), []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.source)
+        images = np.asarray(batch["images"])
+        self.rows.append(images.reshape(len(images), -1)[:, :4].copy())
+        return batch
+
+
+def _trainer(spec, device):
+    from ..train import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(train_config(spec["config"]), device=device)
+    recorder = _Recorder(trainer._host_iter)
+    trainer._host_iter = recorder
+    n = spec["steps"]
+    last = trainer.run(n)
+    rec = {"rows": [torch.from_numpy(r) for r in recorder.rows[:n]], "metrics": last,
+           "loader": trainer.loader, "step": int(trainer.state.step),
+           "cursor": dataclasses.astuple(trainer.cursor),
+           "seconds": time.perf_counter() - t0}
+    if spec.get("kill"):
+        # what rank 0 would have written is on disk (the dumps are
+        # synchronous); the final dump is not
+        dist.barrier()
+        os.kill(os.getpid(), signal.SIGKILL)
+    trainer.finalize()
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("rank", type=int)
+    ap.add_argument("world", type=int)
+    ap.add_argument("store", help="FileStore path shared by the ranks")
+    ap.add_argument("spec", help="JSON file: the scenario")
+    ap.add_argument("out", help="directory for rank<r>.pt")
+    ap.add_argument("--backend", default="gloo", choices=list(distributed.BACKENDS))
+    ap.add_argument("--device", default="cuda",
+                    help="the device a gloo rank drives (NCCL: cuda:<rank>)")
+    args = ap.parse_args(argv)
+    with open(args.spec) as f:
+        spec = json.load(f)
+    for key in ("batch", "state", "moments_x"):
+        if spec.get(key):
+            spec[key] = torch.load(spec[key], weights_only=True)
+    store = dist.FileStore(args.store, args.world)
+    if args.world > 1:
+        distributed.initialize_distributed(
+            num_processes=args.world, process_id=args.rank, backend=args.backend,
+            store=store, timeout_s=spec.get("timeout_s", 600))
+    else:  # a world of one: the group exists, its collectives are the identity
+        if args.backend == "nccl":
+            torch.cuda.set_device(distributed.rank_device("nccl"))
+        dist.init_process_group(args.backend, store=store, rank=0, world_size=1)
+    device = distributed.rank_device(args.backend, args.device)
+    out = {"rank": args.rank, "world": args.world, "backend": dist.get_backend()}
+    mesh = make_mesh()
+    for case in spec.get("cases", []):
+        if case.get("kind") == "moments":
+            out[case["name"]] = _moments_case(case, spec, mesh, device)
+        else:
+            out[case["name"]] = _step_case(case, spec, mesh, device, spec.get("state"))
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"rank{args.rank}.pt")
+    if "trainer" in spec:
+        torch.save(out, path)  # the cases' results survive a killed trainer
+        out["trainer"] = _trainer(spec["trainer"], device)
+    torch.save(out, path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

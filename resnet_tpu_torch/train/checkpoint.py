@@ -23,6 +23,14 @@ in place, and on the CPU ``tensor.numpy()`` is a view, so a dump that read
 the live tensors later would see a later step. Writes are atomic: a temp
 sibling directory renamed over the final path last.
 
+Across ranks (``mesh``, with a ZeRO ``plan`` where the state is sharded)
+every rank joins the gather of the whole state (``parallel.multihost.
+fetch_global``), rank 0 alone writes, so a ZeRO dump equals a replicated
+one file for file, and a barrier after the rename keeps every rank from
+running past a dump that is not yet published (checkpoint.py:205-238 in
+the JAX package). A restore reads whole tensors; the Trainer cuts them to
+its shards.
+
 A compact single-file .npz format ("save_npz") is also provided, with the
 JAX package's keys.
 """
@@ -224,6 +232,8 @@ def save_checkpoint(
     *,
     metadata: Optional[Dict[str, Any]] = None,
     include_grads=None,
+    mesh=None,
+    plan=None,
 ) -> str:
     """Buffer-tree checkpoint in the reference schema; returns its path.
 
@@ -231,10 +241,18 @@ def save_checkpoint(
     renamed over the final path last, so a crash mid-dump never leaves a
     partial dump where restore/discover_latest_dump would find it. (The
     reference writes buffers in place, resnet.cu:2279-2317 — a crash
-    inside dump_trainer corrupts that dump id silently.)
+    inside dump_trainer corrupts that dump id silently.) With a mesh every
+    rank must call it: the sharded leaves are gathered, rank 0 writes, and
+    all meet after the rename.
     """
-    state, include_grads = _host(state), _host(include_grads)
+    from ..parallel.multihost import barrier, fetch_global
+
     final_root = dump_id_dir(dump_dir, dump_id)
+    state = fetch_global(state, plan, mesh)
+    if mesh is not None and mesh.rank != 0:
+        barrier(f"ckpt-{dump_id}")
+        return final_root
+    state, include_grads = _host(state), _host(include_grads)
     root = f"{final_root}.tmp-{os.getpid()}"
     if os.path.exists(root):
         shutil.rmtree(root)
@@ -244,6 +262,8 @@ def save_checkpoint(
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
+    if mesh is not None:
+        barrier(f"ckpt-{dump_id}")
     return final_root
 
 
@@ -312,8 +332,17 @@ class AsyncCheckpointer:
         self._pending: Optional[concurrent.futures.Future] = None
 
     def save(self, dump_dir, dump_id, state, cursor, *, include_grads=None,
-             **kwargs) -> str:
+             mesh=None, plan=None, **kwargs) -> str:
         self.wait()
+        # the gather of sharded leaves is a collective: it runs here, on the
+        # training thread of every rank in step, never on the writer thread;
+        # rank 0 alone then writes, with no barrier (the next save's or
+        # close's wait orders the publish)
+        from ..parallel.multihost import fetch_global
+
+        state = fetch_global(state, plan, mesh)
+        if mesh is not None and mesh.rank != 0:
+            return dump_id_dir(dump_dir, dump_id)
         host_state, host_grads = _host(state), _host(include_grads)
         self._pending = self._pool.submit(
             save_checkpoint, dump_dir, dump_id, host_state, copy.copy(cursor),

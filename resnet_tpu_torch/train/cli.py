@@ -5,16 +5,27 @@ main() (resnet.cu:3245-3296) and the six binaries ARE the config system
 (SURVEY.md section 5). Here every axis is a flag.
 
 ``build_config`` takes the JAX package's arguments with the same defaults
-and choices, and one more: ``--device {cuda,cpu}`` (default cuda) in place
-of JAX_PLATFORMS. More than one device, which the port does not run yet,
-raises NotImplementedError naming its ROADMAP.md queue A item (A13).
+and choices, and two more: ``--device {cuda,cpu}`` (default cuda) in place
+of JAX_PLATFORMS, and ``--dist-backend {nccl,gloo}`` (default nccl on the
+card, gloo on the CPU), the backend of a multi-rank run.
+
+Several devices: start one rank per device with torchrun, which sets the
+ranks' environment (``python -m torch.distributed.run --nproc-per-node N
+-m resnet_tpu_torch.train.cli ...``); ``--num-devices`` (0: every rank)
+must equal the ranks. ``--parallel-mode`` auto (the global-batch step, BN
+statistics over every rank) or shard_map (local BN, explicit sums) and
+``--zero-sharding`` run as in JAX; ``--spatial-devices`` > 1 raises
+NotImplementedError naming ROADMAP.md queue A item A13, as do, under 'auto'
+across ranks, the fused engines. ``--batch-size`` is one host's batch,
+which its ranks split. NCCL wants a GPU per rank; ranks that share a card
+take gloo.
 ``--space-to-depth`` folds the 7x7 stem as JAX's does. ``--int8`` with
 ``--evaluate`` or ``--export`` runs the W8A8 post-training-quantized model
 (``quantize``, calibrated on the first data batch; on the card its int8
 kernels), printing the JAX CLI's lines. ``--dtype bfloat16`` trains in bf16 under every ``--kernels``
 engine, the fused and whole-block ones included. ``--export-dtype bfloat16`` casts the exported weights and
-running statistics, as JAX's does. ``--no-mesh`` is accepted and changes nothing: the port runs one
-device. Two quirks of the JAX CLI are kept: ``--kernels`` offers
+running statistics, as JAX's does. ``--no-mesh`` trains without the data
+group (one process; refused where more ranks run). Two quirks of the JAX CLI are kept: ``--kernels`` offers
 xla|pallas|fused only, and under ``--variant`` only --shard-dir, --jpeg-dir
 and --synthetic reach the data config (--num-shards and --shard-images do
 not).
@@ -23,6 +34,9 @@ Usage:
   python -m resnet_tpu_torch.train.cli --model tiny --synthetic --steps 3 --device cpu
   python -m resnet_tpu_torch.train.cli --shard-dir /data/shards --kernels pallas \
       --conv-kernels pallas --batch-size 32 --steps 1000
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m resnet_tpu_torch.train.cli --shard-dir /data/shards --kernels pallas \
+      --conv-kernels pallas --batch-size 128 --steps 1000
 """
 
 from __future__ import annotations
@@ -137,11 +151,15 @@ def build_config(argv=None) -> tuple:
                          " axis (ZeRO-style, ~1/N state memory per chip;"
                          " 'auto' mode only)")
     ap.add_argument("--no-mesh", action="store_true",
-                    help="accepted for the JAX CLI's sake; the port runs one"
-                         " device")
+                    help="train without the data group (one process only)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where to train (the CPU runs every kernel's plain"
                          " version)")
+    ap.add_argument("--dist-backend", default="", choices=["", "nccl", "gloo"],
+                    help="torch.distributed backend of a multi-rank run"
+                         " (torchrun): nccl (a GPU per rank; the default on"
+                         " the card) or gloo (the CPU, or ranks sharing a"
+                         " card; the default on the CPU)")
     ap.add_argument("--evaluate", action="store_true",
                     help="run evaluation over the shard dir instead of training"
                          " (requires --resume-from for the checkpoint)")
@@ -276,20 +294,40 @@ def build_config(argv=None) -> tuple:
 
 def main(argv=None):
     cfg, args = build_config(argv)
+    import torch.distributed as dist
+
+    from ..parallel import initialize_distributed
     from .trainer import Trainer
 
-    trainer = Trainer(cfg, device=args.device)
+    # a no-op outside torchrun (no WORLD_SIZE above 1 in the environment)
+    backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
+    started = initialize_distributed(backend=backend)
+    try:
+        _run(cfg, args, Trainer(cfg, device=args.device,
+                                use_mesh=False if args.no_mesh else None))
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(cfg, args, trainer):
+    lead = trainer.mesh is None or trainer.mesh.rank == 0
     if args.export:
         from ..export import export_inference, export_quantized_inference, save_inference
+        from ..parallel.multihost import fetch_global
 
+        # whole parameters (a collective under ZeRO); rank 0 writes
+        state = fetch_global(trainer.state, trainer._state_shardings, trainer.mesh)
+        if not lead:
+            return
         if args.int8:
             calib = next(iter(trainer._build_data()))["images"]
             model = export_quantized_inference(
-                trainer.state.params, cfg.model, calib, bn_state=trainer.state.bn_state,
+                state.params, cfg.model, calib, bn_state=state.bn_state,
                 relu_cap=cfg.execution.relu_cap)
         else:
-            model = export_inference(trainer.state.params, cfg.model,
-                                     bn_state=trainer.state.bn_state, ecfg=cfg.execution,
+            model = export_inference(state.params, cfg.model,
+                                     bn_state=state.bn_state, ecfg=cfg.execution,
                                      weights_dtype=args.export_dtype or None)
         path = save_inference(args.export, model)
         tag = "int8 " if args.int8 else ""
@@ -305,10 +343,11 @@ def main(argv=None):
         else:
             metrics = trainer.evaluate(data, n)
         tag = "int8 eval" if args.int8 else "eval"
-        print(
-            f"{tag} over {n} batches: loss={metrics['loss']:.5f} "
-            f"top1={metrics['accuracy']:.4f} top5={metrics.get('top5', 0):.4f}"
-        )
+        if lead:
+            print(
+                f"{tag} over {n} batches: loss={metrics['loss']:.5f} "
+                f"top1={metrics['accuracy']:.4f} top5={metrics.get('top5', 0):.4f}"
+            )
     elif args.steps:
         trainer.run(args.steps)
         trainer.finalize()

@@ -13,6 +13,31 @@ and the returned state shares its tensors. Every other optimizer path
 returns new tensors. ``grad_accum > 1`` sums the gradients of the
 microbatches in a Python loop and merges the BN running statistics after
 each one (train/step.py:175-252 in the JAX package).
+
+Data parallelism (``mesh``, the data group of ``parallel.make_mesh``): the
+step is JAX's pjit ('auto') step on the global batch, with each rank given
+its own rows (``parallel.shard_batch``). Where the group has more than one
+rank and BN takes batch statistics, the statistics are the global batch's
+(``kernels.bn.sync_stats``: K4's raw sums and the row count summed over the
+ranks, and the statistics' cotangents in the backward). After the backward
+one all-reduce SUM of a flat bucket adds the gradients, the summed loss and
+the correct count over the ranks: the gradient is the summed CE's over the
+global batch, as one process on that batch gives it (not a mean: the
+reference sums, resnet.cu:1806-1811). ``grad_accum > 1`` reduces once after
+its microbatches. The running statistics merge from the global statistics,
+so every rank keeps the same ones. With ``state_shardings`` (a ZeRO plan,
+``state.zero_plan``) the state holds this rank's shards of the planned
+parameters and of their optimizer buffers: the step all-gathers the whole
+parameters for the forward, takes each summed gradient's shard, and the
+optimizer (fused Adam, per-tensor Adam or SGD) updates the shards alone.
+
+With ``cfg.parallel.mode == 'shard_map'`` the same step is JAX's
+explicit-collective one (``parallel.make_shard_map_train_step``): each rank
+normalizes with its own statistics (local BN), the bucket is summed as
+above, each rank merges its own statistics into the running statistics
+(whatever the BN mode, as JAX's shard_map step does) and these are then
+averaged over the ranks so the replicas stay equal. Since no statistic
+crosses ranks inside the forward, that mode runs on every engine.
 """
 
 from __future__ import annotations
@@ -24,7 +49,8 @@ import numpy as np
 import torch
 
 from ..bridge import flatten, leaves, tree_map, unflatten
-from ..config import TrainConfig
+from ..config import TrainConfig, check_parallel
+from ..kernels.bn import sync_stats
 from ..models import forward
 from ..ops import cross_entropy, top1_accuracy, topk_accuracy, update_running_stats
 from ..ops.precision import precision_scope
@@ -113,9 +139,11 @@ def _apply_optimizer(grads, state: TrainState, cfg: TrainConfig):
     return new_params, new_opt, lr
 
 
-def _accum_grads(state: TrainState, batch, cfg: TrainConfig):
+def _accum_grads(state: TrainState, batch, cfg: TrainConfig, params=None):
     """Summed loss, correct count and gradients over grad_accum microbatches,
-    with the running statistics merged after each."""
+    with the running statistics merged after each; ``params`` (default
+    ``state.params``) are the whole parameters the forward takes."""
+    params = state.params if params is None else params
     a = cfg.execution.grad_accum
     n = batch["labels"].shape[0]
     if n % a != 0:
@@ -124,11 +152,11 @@ def _accum_grads(state: TrainState, batch, cfg: TrainConfig):
     device = state.step.device
     loss_acc = torch.zeros((), dtype=torch.float32, device=device)
     correct_acc = torch.zeros((), dtype=torch.float32, device=device)
-    grads_acc = tree_map(torch.zeros_like, state.params)
+    grads_acc = tree_map(torch.zeros_like, params)
     bn_state = state.bn_state
     for i in range(a):
         mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-        loss_sum, logits, aux, grads = loss_and_grads(state.params, mb, bn_state, cfg)
+        loss_sum, logits, aux, grads = loss_and_grads(params, mb, bn_state, cfg)
         grads_acc = tree_map(torch.add, grads_acc, grads)
         if cfg.execution.bn_mode == "batch":
             bn_state = _merge_running_stats(bn_state, aux["bn_stats"],
@@ -138,33 +166,84 @@ def _accum_grads(state: TrainState, batch, cfg: TrainConfig):
     return loss_acc, correct_acc, grads_acc, bn_state
 
 
-def train_step(state: TrainState, batch, cfg: TrainConfig):
+def train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None):
     """(state, batch) -> (new_state, metrics); batch holds NHWC "images" and
-    integer "labels" as tensors or numpy arrays."""
+    integer "labels" as tensors or numpy arrays (with a mesh, this rank's
+    rows); ``plan`` is a ZeRO plan of the state."""
     with precision_scope(cfg.execution):
-        return _train_step(state, batch, cfg)
+        return _train_step(state, batch, cfg, mesh, plan)
 
 
-def _train_step(state: TrainState, batch, cfg: TrainConfig):
+def _local_bn(cfg: TrainConfig, mesh) -> bool:
+    """True where each rank keeps its own BN statistics ('shard_map')."""
+    return mesh is not None and cfg.parallel.mode == "shard_map"
+
+
+def stats_sum(cfg: TrainConfig, mesh):
+    """The in-place sum over ranks that BN statistics take in the 'auto'
+    step: the data group's where it has more than one rank and BN normalizes
+    with batch statistics, else None (this rank's own statistics, as under
+    'shard_map')."""
+    if (mesh is None or mesh.size == 1 or cfg.execution.bn_mode != "batch"
+            or _local_bn(cfg, mesh)):
+        return None
+    return mesh.sum_
+
+
+def reduce_grads(mesh, grads, *scalars):
+    """(gradient tree, *scalars) summed over the ranks in one bucket."""
+    pairs = flatten(grads)
+    summed = mesh.sum_tree([g for _, g in pairs] + list(scalars))
+    return (unflatten((path, g) for (path, _), g in zip(pairs, summed)),
+            *summed[len(pairs):])
+
+
+def _whole(params, mesh, plan):
+    """The whole parameters: the state's own, or gathered from its shards."""
+    if plan is None:
+        return params
+    from ..parallel.multihost import fetch_global
+
+    return fetch_global(params, plan.params, mesh)
+
+
+def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None):
     batch = _on(batch, state.step.device)
-    if cfg.execution.grad_accum > 1:
-        loss_sum, n_correct, grads, new_bn = _accum_grads(state, batch, cfg)
-    else:
-        loss_sum, logits, aux, grads = loss_and_grads(state.params, batch,
-                                                      state.bn_state, cfg)
-        n_correct = top1_accuracy(logits, batch["labels"], mean=False)
-        # only batch statistics are worth merging: 'frozen' returns the
-        # running statistics themselves and 'off' placeholders
-        if cfg.execution.bn_mode == "batch":
-            new_bn = _merge_running_stats(state.bn_state, aux["bn_stats"],
-                                          cfg.model.bn_momentum)
+    params = _whole(state.params, mesh, plan)
+    with sync_stats(stats_sum(cfg, mesh)):
+        if cfg.execution.grad_accum > 1:
+            loss_sum, n_correct, grads, new_bn = _accum_grads(state, batch, cfg, params)
         else:
-            new_bn = state.bn_state
+            loss_sum, logits, aux, grads = loss_and_grads(params, batch, state.bn_state,
+                                                          cfg)
+            n_correct = top1_accuracy(logits, batch["labels"], mean=False)
+            # only batch statistics are worth merging: 'frozen' returns the
+            # running statistics themselves and 'off' placeholders ('shard_map'
+            # merges them all the same, as JAX's does)
+            if cfg.execution.bn_mode == "batch" or _local_bn(cfg, mesh):
+                new_bn = _merge_running_stats(state.bn_state, aux["bn_stats"],
+                                              cfg.model.bn_momentum)
+            else:
+                new_bn = state.bn_state
 
+    batch_n = batch["labels"].shape[0]
+    if mesh is not None:
+        grads, loss_sum, n_correct = reduce_grads(mesh, grads, loss_sum, n_correct)
+        batch_n *= mesh.size
+    if _local_bn(cfg, mesh) and new_bn is not None:
+        # each rank merged its own statistics: average them so the replicas
+        # stay equal
+        pairs = flatten(new_bn)
+        summed = mesh.sum_tree([t for _, t in pairs])
+        new_bn = unflatten((path, t / mesh.size) for (path, _), t in zip(pairs, summed))
     grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                for g in leaves(grads)))
+    if plan is not None:
+        from ..parallel.multihost import shard_of
+
+        grads = unflatten((path, shard_of(g, dim, mesh)) for (path, g), (_, dim)
+                          in zip(flatten(grads), flatten(plan.params)))
     new_params, new_opt, lr = _apply_optimizer(grads, state, cfg)
-    batch_n = batch["labels"].shape[0]
     metrics = {
         "loss": loss_sum / batch_n,
         "loss_sum": loss_sum,
@@ -176,11 +255,14 @@ def _train_step(state: TrainState, batch, cfg: TrainConfig):
                       step=state.step + 1), metrics
 
 
-def eval_step(state: TrainState, batch, cfg: TrainConfig) -> Dict[str, Any]:
-    """Eval-mode forward (running statistics): mean loss, top-1 and top-5."""
+def eval_step(state: TrainState, batch, cfg: TrainConfig, mesh=None,
+              plan=None) -> Dict[str, Any]:
+    """Eval-mode forward (running statistics) of this rank's rows: mean
+    loss, top-1 and top-5."""
     batch = _on(batch, state.step.device)
     with torch.no_grad(), precision_scope(cfg.execution):
-        logits, _ = forward(state.params, batch["images"], cfg.model, cfg.execution,
+        logits, _ = forward(_whole(state.params, mesh, plan), batch["images"], cfg.model,
+                            cfg.execution,
                             train=False, bn_state=state.bn_state)
         return {
             "loss": cross_entropy(logits, batch["labels"], reduction="mean"),
@@ -189,11 +271,15 @@ def eval_step(state: TrainState, batch, cfg: TrainConfig) -> Dict[str, Any]:
         }
 
 
-def make_train_step(cfg: TrainConfig):
-    """The train step bound to ``cfg``: step(state, batch)."""
-    return functools.partial(train_step, cfg=cfg)
+def make_train_step(cfg: TrainConfig, mesh=None, state_shardings=None):
+    """The train step bound to ``cfg``: step(state, batch); with a mesh the
+    data-parallel step of ``cfg.parallel.mode``, with ``state_shardings`` on
+    a ZeRO-sharded state."""
+    if mesh is not None:
+        check_parallel(cfg, mesh.size)
+    return functools.partial(train_step, cfg=cfg, mesh=mesh, plan=state_shardings)
 
 
-def make_eval_step(cfg: TrainConfig):
+def make_eval_step(cfg: TrainConfig, mesh=None, state_shardings=None):
     """The eval step bound to ``cfg``: step(state, batch)."""
-    return functools.partial(eval_step, cfg=cfg)
+    return functools.partial(eval_step, cfg=cfg, mesh=mesh, plan=state_shardings)

@@ -1,5 +1,5 @@
-"""Training loop: the port of resnet_tpu.train.trainer for one device —
-the analogue of main()'s epoch/iter loop (resnet.cu:3222-3429).
+"""Training loop: the port of resnet_tpu.train.trainer — the analogue of
+main()'s epoch/iter loop (resnet.cu:3222-3429).
 
 Per iteration the reference does: load_new_batch -> sync -> forward_pass ->
 host loss/accuracy -> backwards_pass -> update_parameters(+dump). Here the
@@ -17,20 +17,33 @@ update (resnet.cu:2947), final dump at sentinel 77777777
 (resnet.cu:3424-3425), resume from cfg.resume_from (LOAD_FROM_DUMP_ID,
 resnet.cu:3299-3304).
 
-Images/sec counts the global batch, which on one device is
-``cfg.data.batch_size``. Any other ``ParallelConfig`` raises in
-``TrainConfig`` (ROADMAP.md queue A, item A13).
+Data parallelism: with a process group of more than one rank (torchrun, or
+``parallel.initialize_distributed``), or ``num_devices > 1``, the Trainer
+runs on the data group (``parallel.make_mesh``), one rank per device (under
+NCCL ``cuda:<local rank>``, under gloo the device the caller names), with
+JAX's rejections and messages: ZeRO without a group, ZeRO under
+'shard_map', 'shard_map' with ``grad_accum > 1``. ``cfg.data.batch_size``
+is one host's batch, as in JAX; a host's ranks split it evenly, so the
+global batch is ``batch_size`` x hosts and images/sec counts it (the JAX
+trainer counts one host's batch). From shards each rank reads a stream of
+its own, ``num_shards / ranks`` shards after the previous rank's; other
+sources give each rank its rows of the host batch (``parallel.rows_of``).
+A dump holds rank 0's cursor, and each rank derives its own stream position
+from it on resume (the JAX trainer offsets only a fresh cursor, so its
+resumed hosts read one stream: ROADMAP.md, "Faults in the reference").
+Rank 0 alone logs and writes dumps; every rank joins their gathers.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 from dataclasses import replace
 from typing import Any, Dict, Iterator, Optional
 
 import torch
 
-from ..config import RESUME_LATEST, TrainConfig
+from ..config import RESUME_LATEST, TrainConfig, check_parallel
 from ..data import (
     ShardCursor,
     ShardDataset,
@@ -38,6 +51,9 @@ from ..data import (
     SyntheticDataset,
     prefetch_to_device,
 )
+from ..parallel import distributed, make_mesh, replicate
+from ..parallel.mesh import rows_of
+from ..parallel.multihost import fetch_global, put_global
 from ..utils import MetricsLogger, check_state_finite, nonfinite_report
 from .checkpoint import (
     FINAL_DUMP_ID,
@@ -47,7 +63,7 @@ from .checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from .state import init_train_state
+from .state import init_train_state, zero_plan
 from .step import make_eval_step, make_train_step
 
 
@@ -56,17 +72,52 @@ class NonFiniteError(RuntimeError):
 
 
 class Trainer:
-    """Train ``cfg`` on one device (the card unless ``device`` says
-    otherwise), from ``data_source`` or the data ``cfg.data`` names."""
+    """Train ``cfg`` on the card unless ``device`` says otherwise, from
+    ``data_source`` (host batches) or the data ``cfg.data`` names; across
+    the ranks of a process group when ``use_mesh`` (by default: more than
+    one rank, or ``num_devices > 1``)."""
 
     def __init__(
         self,
         cfg: TrainConfig,
         *,
         data_source: Optional[Iterator] = None,
+        use_mesh: Optional[bool] = None,
         device="cuda",
     ):
         self.cfg = cfg
+        pcfg = cfg.parallel
+        ranks = distributed.world_size()
+        if use_mesh is None:
+            use_mesh = ranks > 1 or pcfg.num_devices > 1
+        if not use_mesh and (pcfg.spatial_devices > 1 or pcfg.zero_sharding):
+            # fail loudly: a user validating spatial/ZeRO configs must not
+            # get a silently-unsharded run
+            raise ValueError(
+                "spatial_devices/zero_sharding need a device mesh, but "
+                "use_mesh is off (single device or --no-mesh)"
+            )
+        if not use_mesh and ranks > 1:
+            raise ValueError(f"use_mesh is off but {ranks} ranks are running: each would "
+                             "train alone on its own batches")
+        self.mesh = make_mesh(pcfg.num_devices, pcfg.data_axis) if use_mesh else None
+        if self.mesh is not None:
+            check_parallel(cfg, self.mesh.size)
+            device = distributed.rank_device(torch.distributed.get_backend(), device)
+            if pcfg.zero_sharding and pcfg.mode == "shard_map":
+                raise ValueError(
+                    "zero_sharding requires parallel.mode='auto' (the SPMD"
+                    " partitioner derives the state all-gathers)"
+                )
+            if pcfg.mode == "shard_map" and cfg.execution.grad_accum > 1:
+                # the explicit step is single-pass: it would silently IGNORE
+                # the accumulation request
+                raise ValueError(
+                    "parallel.mode='shard_map' does not implement "
+                    "grad_accum > 1 (its step computes single-pass "
+                    "gradients); use parallel.mode='auto' for the "
+                    "microbatch-accumulated step"
+                )
         self.device = torch.device(device)
         self.state = init_train_state(cfg, device=self.device)
         self.cursor = ShardCursor()
@@ -84,16 +135,40 @@ class Trainer:
                 cfg.checkpoint_dir, resume_from, self.state
             )
             print(f"resumed from dump {resume_from} at step {int(self.state.step)}")
-        self.train_step = make_train_step(cfg)
-        self.eval_step = make_eval_step(cfg)
+        self._state_shardings = None
+        if self.mesh is not None and pcfg.zero_sharding:
+            # every rank holds the same whole state (seeded init, or the
+            # restored dump): each keeps its shards of it
+            self._state_shardings = zero_plan(self.state, self.mesh, pcfg.zero_min_bytes)
+            self.state = put_global(self.state, self._state_shardings, self.mesh)
+        elif self.mesh is not None:
+            self.state = replicate(self.state, self.mesh)
+        self.train_step = make_train_step(cfg, self.mesh, self._state_shardings)
+        self.eval_step = make_eval_step(cfg, self.mesh, self._state_shardings)
         self.loader = "source" if data_source is not None else None
         self._host_iter = data_source or self._build_data()
         self._dev_iter = None  # built lazily, shared across run() calls
+        lead = self.mesh is None or self.mesh.rank == 0
         self.logger = MetricsLogger(
-            cfg.checkpoint_dir or None,
-            print_every=cfg.log_every,
-            batch_size=cfg.data.batch_size,
+            # the metrics are global (summed over the ranks in the step): one
+            # writer is the whole record
+            (cfg.checkpoint_dir or None) if lead else None,
+            print_every=cfg.log_every if lead else 0,
+            batch_size=cfg.data.batch_size * (
+                distributed.host_count() if self.mesh is not None else 1),
         )
+
+    def _ckpt(self):
+        """The checkpoint calls' group arguments."""
+        return {"mesh": self.mesh, "plan": self._state_shardings}
+
+    def _rows(self):
+        """This rank's rows of a host batch (None on one device)."""
+        if self.mesh is None:
+            return None
+        accum = self.cfg.execution.grad_accum if self.cfg.parallel.mode == "auto" else 1
+        return functools.partial(rows_of, index=distributed.local_rank(),
+                                 count=distributed.local_device_count(), grad_accum=accum)
 
     def _build_data(self):
         """The host iterator ``cfg.data`` names; sets ``self.loader`` to the
@@ -128,6 +203,17 @@ class Trainer:
             channels=self.cfg.model.in_channels,
             disk_layout=dcfg.layout,
         )
+        batch, cursor = dcfg.batch_size, self.cursor
+        if self.mesh is not None:
+            # a stream per rank, of its share of the host batch, from its
+            # own position derived from the (rank 0) cursor
+            local = distributed.local_device_count()
+            if batch % local:
+                raise ValueError(f"batch_size {batch} (one host's batch) does not split "
+                                 f"over the host's {local} ranks")
+            batch //= local
+            cursor = rank_cursor(self.cursor, self.mesh.rank, self.mesh.size,
+                                 dcfg.num_shards, dcfg.shard_images // batch)
         # prefer the native C++ read-ahead loader (csrc/shard_loader.cc);
         # the Python mmap iterator runs when it is not built or when
         # train-time flip augmentation is on (the flip runs host-side)
@@ -143,17 +229,17 @@ class Trainer:
             self._chose("native", native_status())
             return NativeShardIterator(
                 dataset,
-                dcfg.batch_size,
+                batch,
                 layout=self.cfg.execution.layout,
-                cursor=replace(self.cursor),
+                cursor=replace(cursor),
                 prefetch_depth=max(2, dcfg.prefetch),
             )
         self._chose("python", "random_flip" if dcfg.random_flip else native_status())
         return ShardIterator(
             dataset,
-            dcfg.batch_size,
+            batch,
             layout=self.cfg.execution.layout,
-            cursor=replace(self.cursor),
+            cursor=replace(cursor),
             random_flip=dcfg.random_flip,
             seed=self.cfg.seed,
         )
@@ -174,33 +260,42 @@ class Trainer:
             # once, zero per-step host-to-device copies (the soak mode)
             staged = []
             it = iter(self._host_iter)
+            rows = self._rows()
             for _ in range(dcfg.device_batches):
                 b = dict(next(it))
                 b.pop("cursor", None)  # meaningless for a cycled staging set
+                if rows is not None:
+                    b = rows(b)
                 staged.append({k: torch.tensor(v, device=self.device)
                                for k, v in b.items()})
             self._dev_iter = itertools.cycle(staged)
             return self._dev_iter
         transfer = dcfg.transfer_dtype if dcfg.transfer_dtype != "float32" else None
+        # a shard stream is already this rank's own
+        rows = None if self.loader in ("native", "python") else self._rows()
         self._dev_iter = prefetch_to_device(
             self._host_iter, depth=dcfg.prefetch, device=self.device,
-            transfer_dtype=transfer,
+            transfer_dtype=transfer, rows=rows,
         )
         return self._dev_iter
 
     def _maybe_check_errors(self):
         if not self.cfg.check_errors:
             return
-        if not bool(check_state_finite(self.state.params)):
+        plan = self._state_shardings
+        # whole parameters: every rank reaches the same verdict
+        params = fetch_global(self.state.params, plan.params if plan else None, self.mesh)
+        if not bool(check_state_finite(params)):
             # order after any in-flight periodic write, then dump
             # synchronously — the forensic dump must be on disk before the
             # process dies (check_errors, resnet.cu:2879-2907)
             if self.checkpointer is not None:
                 self.checkpointer.wait()
             save_checkpoint(
-                self.cfg.checkpoint_dir, NAN_DUMP_ID, self.state, self.cursor
+                self.cfg.checkpoint_dir, NAN_DUMP_ID, self.state, self.cursor,
+                **self._ckpt()
             )
-            report = nonfinite_report(self.state.params)
+            report = nonfinite_report(params)
             raise NonFiniteError(
                 "non-finite trainer state; dumped to sentinel "
                 f"{NAN_DUMP_ID}:\n" + "\n".join(report)
@@ -235,6 +330,7 @@ class Trainer:
                 save(
                     cfg.checkpoint_dir, step_before, self.state, self.cursor,
                     metadata={"loss_history": self.logger.loss_history[-100:]},
+                    **self._ckpt()
                 )
             self.state, metrics = self.train_step(self.state, batch)
             if batch_cursor is not None:
@@ -269,7 +365,9 @@ class Trainer:
         self.finalize()
 
     def evaluate(self, data: Iterator, num_batches: int) -> Dict[str, float]:
-        """Mean loss, top-1 and top-5 of the eval forward over num_batches."""
+        """Mean loss, top-1 and top-5 of the eval forward over num_batches
+        (``data`` yields this rank's rows; across ranks, the means over all
+        ranks' batches)."""
         sums: Dict[str, float] = {}
         it = prefetch_to_device(data, depth=self.cfg.data.prefetch, device=self.device)
         try:
@@ -282,7 +380,13 @@ class Trainer:
             # without this the prefetcher's thread keeps draining the eval
             # iterator and holding device batches after return
             it.stop()
-        return {k: v / num_batches for k, v in sums.items()}
+        n = num_batches
+        if self.mesh is not None:
+            total = torch.tensor(list(sums.values()), dtype=torch.float64, device=self.device)
+            self.mesh.sum_(total)
+            sums = dict(zip(sums, total.tolist()))
+            n *= self.mesh.size
+        return {k: v / n for k, v in sums.items()}
 
     def evaluate_quantized(self, data: Iterator, num_batches: int,
                            calib_images=None) -> Dict[str, float]:
@@ -333,7 +437,8 @@ class Trainer:
             self.checkpointer.close()  # drain pending writes (re-raises errors)
         if self.cfg.checkpoint_dir:
             save_checkpoint(
-                self.cfg.checkpoint_dir, FINAL_DUMP_ID, self.state, self.cursor
+                self.cfg.checkpoint_dir, FINAL_DUMP_ID, self.state, self.cursor,
+                **self._ckpt()
             )
         self.logger.close()
 
@@ -351,3 +456,16 @@ class Trainer:
                 self.checkpointer.close()
         except Exception:
             pass
+
+
+def rank_cursor(cursor: ShardCursor, rank: int, ranks: int, num_shards: int,
+                batches_per_shard: int) -> ShardCursor:
+    """The position of rank ``rank``'s stream when rank 0's is at
+    ``cursor``: every rank starts ``num_shards // ranks`` shards after the
+    one before and reads as many batches a step, so its stream runs that
+    many shards ahead, epochs counted from its own start."""
+    bps, n = batches_per_shard, num_shards
+    at = ((cursor.epoch * n + cursor.shard) * bps + cursor.batch_in_shard
+          + rank * (n // ranks) * bps)
+    shard, batch = divmod(at, bps)
+    return ShardCursor(shard=shard % n, batch_in_shard=batch, epoch=shard // n)

@@ -63,6 +63,10 @@ ARGVS = [
     ["--space-to-depth", "--dtype", "bfloat16", "--grad-accum", "2", "--batch-size", "256",
      "--projections", "standard", "--model", "resnext50_32x4d", "--conv-kernels", "pallas"],
     ["--export", "m.pt", "--export-dtype", "bfloat16", "--resume-from", "latest"],
+    # the data-parallel layouts that run
+    ["--num-devices", "2", "--kernels", "pallas", "--conv-kernels", "pallas"],
+    ["--parallel-mode", "shard_map", "--kernels", "fused"],
+    ["--zero-sharding", "--no-mesh"],
 ]
 
 
@@ -73,6 +77,7 @@ def test_build_config_matches_jax(argv, shard_dir):
     jcfg, jargs = j_build_config(argv)
     port_args = vars(args)
     assert port_args.pop("device") == "cpu"
+    assert port_args.pop("dist_backend") == ""
     assert port_args == vars(jargs)
     for field in ("model", "optimizer", "data", "parallel"):
         assert dataclasses.asdict(getattr(cfg, field)) == dataclasses.asdict(
@@ -86,12 +91,14 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--num-devices", "2"], "A13"),
+    (["--num-devices", "2", "--kernels", "fused"], "A13"),
     (["--spatial-devices", "2"], "A13"),
-    (["--zero-sharding"], "A13"),
-    (["--parallel-mode", "shard_map"], "A13"),
+    (["--zero-sharding", "--num-devices", "2", "--kernels", "fused"], "A13"),
+    (["--parallel-mode", "shard_map", "--spatial-devices", "2"], "A13"),
 ])
 def test_unported_flags_name_their_item(argv, item):
+    """What the data-parallel slice does not run: spatial partitioning, and
+    the fused engines under 'auto' across ranks."""
     with pytest.raises(NotImplementedError, match=item):
         build_config(argv)
 

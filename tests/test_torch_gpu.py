@@ -311,14 +311,15 @@ def test_block_fused_ragged_rows(cuda, shape, c):
 def test_moments_repeats_bit_for_bit(cuda, case):
     """K4 adds its chunk partials in one fixed order with no atomics in any
     sum: two calls give the same bits, one launch each, and the last block
-    of every tile leaves its ticket at 0."""
+    of every tile leaves its ticket at 0 (in the raw-sums mode too)."""
     from resnet_tpu_torch.kernels import bn
 
-    _, m, c = case
+    _, m, c, *mode = case
+    fn = bn.moments_sums if mode else bn.moments
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn(m, c, generator=gen, device="cuda") * 2.0 + 0.5
     before = bn.LAUNCHES
-    first, again = bn.moments(x), bn.moments(x)
+    first, again = fn(x), fn(x)
     assert bn.LAUNCHES == before + 2
     assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)

@@ -148,11 +148,12 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(num_devices=2), "A13"),
+    (dict(spatial_devices=2), "A13"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
     """NotImplementedError naming the item from the config where nothing of
-    the value runs yet (A13: a parallel layout)."""
+    the value runs yet (A13: spatial partitioning; the data-parallel layouts
+    run)."""
     with pytest.raises(NotImplementedError, match=item):
         tcfg.TrainConfig(model=tcfg.tiny_model_config(), parallel=tcfg.ParallelConfig(**kw))
 
