@@ -262,15 +262,26 @@ Phases, each printing one JSON line:
      step's moments too, its running statistics the mean of the two halves'
      merges within 1e-4; ZeRO (parameters and Adam moments sharded, fused
      Adam on the shards) against the replicated step bit for bit, each
-     rank's persistent state bytes beside the replicated state's; NCCL in a
-     world of one in this process: the data-parallel step equal to the step
+     rank's persistent state bytes beside the replicated state's; the
+     engines whose statistics come from their own kernels ('fused',
+     'hybrid', 'fusedxla', 'blockfused', fp32 and bf16) and ghost BN (k = 8,
+     inside rank 0's rows, and k = 24, across both) under 'auto', the
+     statistics summed over the ranks (``_engine_checks``): each rank's
+     counts the engine's (K10 on its stage entries, four a block), the
+     ranks' statistics equal bit for bit, the side path against the
+     one-process step of the same engine at 32 by phase 5's rule (bf16 by
+     phase 11's 2x gap to the engine's fp32 step); the composite step on
+     four ranks (a 2 x 2 grid, the FC split in two: K3 on (16, 2048) @
+     (2048, 500)) against the one-process step (``_composite_checks``); NCCL
+     in a world of one in this process: the data-parallel step equal to the step
      without a group bit for bit, and both timed in turns; where the machine
      has two cards or more, ``parallel_nccl`` (also run alone by --phases
      parallel_nccl): one NCCL rank a card (at most 4) at the global batch of
      32, 'auto' and frozen BN against the one-process step as above, each
-     rank's counts phase 5's, ZeRO the replicated step's bits, the step
-     times of both, of 'shard_map' (no statistics' sums) and of one card at
-     32 and at a rank's rows, then the CLI under torchrun on those cards
+     rank's counts phase 5's, ZeRO the replicated step's bits, 'fused' and
+     'blockfused' in fp32 and bf16 and the composite step on a 2 x (cards /
+     2) grid held as above, the step times of all of them, of 'shard_map'
+     (no statistics' sums) and of one card at 32 and at a rank's rows, then the CLI under torchrun on those cards
      (NCCL, synthetic batches, 2 steps), its first loss that of one process;
      the Trainer from 2 shards of 64 procedural images, a dump every 2
      steps: an uninterrupted run U of 4 steps, the CLI as a user starts it
@@ -3281,6 +3292,166 @@ def _auto_checks(torch, ranks, state0, batch, kcfg, what):
     return out
 
 
+# A13's engines across ranks: the engines whose statistics come from their own
+# kernels, in fp32 and bf16, and ghost BN (its sample inside rank 0's rows and
+# across ranks), under 'auto', each rank's statistics the global batch's
+ENGINE_RUNS = [(f"{k} {d}", k, d, 0) for k in ("fused", "hybrid", "fusedxla", "blockfused")
+               for d in ("fp32", "bf16")] + [(f"ghost k={k}", "pallas", "fp32", k)
+                                              for k in (8, 24)]
+# parallel_nccl's: 'fused' and 'blockfused' in both dtypes
+NCCL_ENGINE_RUNS = [r for r in ENGINE_RUNS if r[1] in ("fused", "blockfused")]
+
+
+def _engine_cfg(kcfg, kernels, dtype, ghost):
+    """kcfg (phase 17's "resnet" variant on every hand kernel) under another
+    engine, compute dtype and ghost BN sample."""
+    import dataclasses
+
+    return dataclasses.replace(kcfg, execution=dataclasses.replace(
+        kcfg.execution, kernels=kernels, bn_stats_batch=ghost,
+        compute_dtype="bfloat16" if dtype == "bf16" else "float32"))
+
+
+def _engine_expect(cfg):
+    """A rank's counter moves in one 'auto' step of cfg across ranks: the
+    engine's one-process counts, K10 on its stage entries (four a block,
+    the statistics summed between them) in place of its one call."""
+    kernels = cfg.execution.kernels
+    if cfg.execution.bn_stats_batch:
+        base = GHOST_PER_STEP
+    else:
+        base = {"fused": FUSED_PER_STEP, "hybrid": HYBRID_PER_STEP,
+                "fusedxla": FUSEDXLA_PER_STEP, "blockfused": BLOCKFUSED_PALLAS_PER_STEP}[kernels]
+    if kernels == "blockfused":
+        base = dict({k: v for k, v in base.items() if k != "block_fused"},
+                    block_fused_stage=4 * base["block_fused"])
+    return _on_bf16(base) if cfg.execution.compute_dtype == "bfloat16" else dict(base)
+
+
+def _engine_specs(kcfg, runs, time_steps=0):
+    """Worker cases of ``runs`` (ENGINE_RUNS entries) on kcfg: the side path
+    (forward and backward, then the bucket's sum) and one counted step."""
+    return [{"name": name, "grads": True, "keep": [], "time": time_steps,
+             "config": {"execution": _spec_config(_engine_cfg(kcfg, *run))["execution"]}}
+            for name, *run in runs]
+
+
+def _engine_checks(torch, ranks, state0, batch, kcfg, runs, what):
+    """Each of ``runs`` on the ranks against this process's one-process step
+    of the same engine on the whole batch: each rank's counts
+    (``_engine_expect``), the ranks' batch statistics equal bit for bit, and
+    the side path's summed loss, batch statistics and gradients by phase 5's
+    rule in fp32 (LOSS_TOL, STAT_TOL, GRAD_TOL or GRAD_SENS x the 1 +- 2^-20
+    nudge's change) and by phase 11's in bf16 (within 2x the one-process
+    bf16-vs-fp32 gap of the engine, the gradients' at least 2^-8 or GRAD_SENS
+    x the 1 +- 2^-8 nudge's change)."""
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.train import loss_and_grads
+
+    out = {}
+    for name, kernels, dtype, ghost in runs:
+        cfg = _engine_cfg(kcfg, kernels, dtype, ghost)
+        case, label = ranks[0][name], f"{what} '{name}'"
+        expect = _engine_expect(cfg)
+        for r, rank in enumerate(ranks):
+            require(rank[name]["counts"] == expect, f"{label}: rank {r} moved the counters "
+                    f"by {rank[name]['counts']}, expected {expect}")
+        require(all(all(torch.equal(a, b) for a, b in zip(
+            leaves(case["bn_stats"]), leaves(r[name]["bn_stats"]), strict=True))
+            for r in ranks[1:]), f"{label}: the ranks' batch statistics differ")
+        loss, _, aux, g = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
+        got_stats, want_stats = _to_cuda(case["bn_stats"]), _bn_stats_tree(aux["bn_stats"])
+        rec = {"launches_per_rank": [rank[name]["counts"] for rank in ranks],
+               "step_loss": case["metrics"]["loss"]}
+        if dtype == "fp32":
+            sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g)
+            loss_err = abs(case["grad_loss_sum"] - loss.item()) / abs(loss.item())
+            require(loss_err <= LOSS_TOL, f"{label} summed loss {case['grad_loss_sum']} vs "
+                    f"one process {loss.item()}")
+            grad_err, grad_sens, nearest = _leaf_errors(
+                _to_cuda(case["grads"]), g, f"{label} gradient", GRAD_TOL, sens=sens)
+            stat_err = _leaf_errors(got_stats, want_stats, f"{label} batch statistic",
+                                    STAT_TOL, floor=1.0)[0]
+            rec.update(loss_rel_err=loss_err, grad_max_rel_err=grad_err,
+                       grad_max_err_over_sensitivity=grad_sens, grad_nearest_limit=nearest,
+                       batch_stats_max_err=stat_err)
+        else:
+            fcfg = _engine_cfg(kcfg, kernels, "fp32", ghost)
+            floss, _, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, fcfg)
+            sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g,
+                                      BF16_UNIT)
+
+            def pooled(lo, stats):
+                return {"loss": lo.reshape(1), "bn_stats": stats}
+
+            rec["loss_and_batch_stats"] = _gap_held(
+                pooled(torch.tensor(case["grad_loss_sum"], device="cuda"), got_stats),
+                pooled(loss, want_stats), pooled(floss, _bn_stats_tree(faux["bn_stats"])),
+                f"{label} loss and batch statistics")
+            rec["grads"] = _gap_held(_to_cuda(case["grads"]), g, fg, f"{label} grads",
+                                     BF16_UNIT, sens)
+            del fg, faux
+        del g, aux
+        step_ms = case.get("step_ms") or []
+        if step_ms:
+            rec["step_ms"] = float(np.median(step_ms))
+        out[name] = rec
+    return out
+
+
+def _composite_checks(torch, ranks, state0, batch, kcfg, what):
+    """The composite step's ranks (``"composite"``: a data x model grid,
+    the FC split over the model group) against this process's one-process
+    step on the whole batch: every rank's counts phase 5's (K3 on its class
+    slice, K7 on its own leaves), each rank's FC weight (features, classes /
+    model), the same metrics on every rank, the loss within LOSS_TOL,
+    grad_norm within GRAD_TOL, the gathered parameters within 2 lr + 1e-6
+    and the gathered Adam m by the gradients' rule (after one step from
+    zero, (1 - b1) times the gradient)."""
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.train import loss_and_grads, make_train_step
+
+    case, label = ranks[0]["composite"], f"{what} composite"
+    model = len(ranks) // 2
+    for r, rank in enumerate(ranks):
+        require(rank["composite"]["counts"] == PER_STEP, f"{label}: rank {r} moved the "
+                f"counters by {rank['composite']['counts']}, expected {PER_STEP}")
+        require(rank["composite"]["metrics"] == case["metrics"],
+                f"{label}: rank {r}'s metrics differ from rank 0's")
+    width, classes = state0.params["fc"]["w"].shape
+    fc_shapes = [rank["composite"]["fc_shape"] for rank in ranks]
+    require(all(s == [width, classes // model] for s in fc_shapes),
+            f"{label}: FC slices {fc_shapes}, expected [{width}, {classes // model}]")
+    lr, b1 = kcfg.optimizer.learning_rate, kcfg.optimizer.beta1
+    _, _, _, g = loss_and_grads(state0.params, batch, state0.bn_state, kcfg)
+    sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, kcfg, g)
+    del g
+    ks, km = make_train_step(kcfg)(_clone(state0), batch)
+    loss_err = abs(case["metrics"]["loss"] - km["loss"].item()) / km["loss"].item()
+    require(loss_err <= LOSS_TOL, f"{label} loss {case['metrics']['loss']} vs one process "
+            f"{km['loss'].item()}")
+    norm_err = abs(case["metrics"]["grad_norm"] - km["grad_norm"].item()) / km[
+        "grad_norm"].item()
+    require(norm_err <= GRAD_TOL, f"{label} grad_norm {case['metrics']['grad_norm']} vs one "
+            f"process {km['grad_norm'].item()}")
+    got = _to_cuda(case["params"])
+    p_abs = max((a - b).abs().max().item()
+                for a, b in zip(leaves(got), leaves(ks.params), strict=True))
+    require(p_abs <= 2 * lr + 1e-6, f"{label} params differ by {p_abs} > 2 lr + 1e-6")
+    m_err, m_sens, m_nearest = _leaf_errors(
+        _to_cuda(case["means"]), ks.opt_state.means, f"{label} adam m", GRAD_TOL,
+        sens={k: (1 - b1) * v for k, v in sens.items()})
+    del ks, got
+    rec = {"grid": [2, model], "fc_slice": fc_shapes[0],
+           "launches_per_rank": [rank["composite"]["counts"] for rank in ranks],
+           "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err,
+           "param_max_abs_err": p_abs, "adam_m_max_rel_err": m_err,
+           "adam_m_max_err_over_sensitivity": m_sens, "adam_m_nearest_limit": m_nearest}
+    if case.get("step_ms"):
+        rec["step_ms"] = float(np.median(case["step_ms"]))
+    return rec
+
+
 def phase_parallel(torch, smi):
     import dataclasses
 
@@ -3341,11 +3512,20 @@ def phase_parallel(torch, smi):
                      "keep": ["bn_state", "means"],
                      "config": {"parallel": {"mode": "shard_map"}}},
                     {"name": "zero", "time": 3, "zero": True, "keep": ["params", "means"],
-                     "config": {"parallel": {"zero_sharding": True}}}]}
+                     "config": {"parallel": {"zero_sharding": True}}}]
+                + _engine_specs(kcfg, ENGINE_RUNS)}
         t0 = time.perf_counter()
         ranks = _ranks(spec, work, "steps")
         out["steps_spawn_s"] = time.perf_counter() - t0
         r0 = ranks[0]
+        # the composite step: four ranks on a 2 x 2 grid, the FC split in two
+        t0 = time.perf_counter()
+        grid = _ranks({"config": spec["config"], "state": spec["state"],
+                       "batch": spec["batch"],
+                       "cases": [{"name": "composite", "mesh": [2, 2], "time": 2,
+                                  "keep": ["params", "means"]}]},
+                      work, "composite", ranks=4)
+        out["composite_spawn_s"] = time.perf_counter() - t0
 
         # 2. the launches of each rank's 'auto' step: phase 5's counts
         out["launches_per_rank"] = [r["auto"]["counts"] for r in ranks]
@@ -3355,9 +3535,14 @@ def phase_parallel(torch, smi):
                     f"{rank['auto']['counts']}, expected {PER_STEP}")
 
         # 3. 'auto' (batch statistics and frozen BN) against the one-process
-        # step at 32, by phase 5's rule
+        # step at 32, by phase 5's rule; the engines and ghost BN, each
+        # against its one-process step; the composite step
         out["auto"] = _auto_checks(torch, ranks, state0, batch, kcfg, "gloo")
         auto = r0["auto"]
+        out["engines"] = _engine_checks(torch, ranks, state0, batch, kcfg, ENGINE_RUNS,
+                                        "gloo")
+        out["composite"] = _composite_checks(torch, grid, state0, batch, kcfg, "gloo")
+        del grid
 
         # 4. 'shard_map' against each rank's local-BN step, gradients summed
         def halves(factor=1.0):
@@ -3493,8 +3678,11 @@ def phase_parallel_nccl(torch, smi):
     """The 'auto' (batch statistics and frozen BN) and ZeRO steps on one NCCL
     rank per card (every card of the machine, at most 4) at phase 17's global
     batch of 32, against this process's one-process step by phase 5's rule
-    (``_auto_checks``), ZeRO against the replicated step bit for bit; the
-    step times of both, of 'shard_map' and of one process on one card. Then
+    (``_auto_checks``), ZeRO against the replicated step bit for bit;
+    'fused' and 'blockfused' in fp32 and bf16 (``_engine_checks``) and the
+    composite step on a 2 x (cards / 2) grid (``_composite_checks``); the
+    step times of all of them, of 'shard_map' and of one process on one
+    card. Then
     the CLI under torchrun, one NCCL rank a card, on synthetic batches: its
     first step's loss that of one process on the card. Runs where the
     machine has two cards or more."""
@@ -3532,13 +3720,21 @@ def phase_parallel_nccl(torch, smi):
                      "config": {"parallel": {"zero_sharding": True}}},
                     # local BN: the step without the statistics' sums
                     {"name": "shard_map", "time": 5, "keep": [],
-                     "config": {"parallel": {"mode": "shard_map"}}}]}
+                     "config": {"parallel": {"mode": "shard_map"}}}]
+                + _engine_specs(kcfg, NCCL_ENGINE_RUNS, 5)
+                # the composite step on a 2 x (n / 2) grid
+                + ([{"name": "composite", "mesh": [2, n // 2], "time": 5,
+                     "keep": ["params", "means"]}] if n % 2 == 0 else [])}
         ranks = _ranks(spec, work, "nccl", backend="nccl", ranks=n)
         auto, zero = ranks[0]["auto"], ranks[0]["zero"]
         for r, rank in enumerate(ranks):
             require(rank["auto"]["counts"] == PER_STEP,
                     f"NCCL rank {r} moved the counters by {rank['auto']['counts']}")
         out["auto"] = _auto_checks(torch, ranks, state0, batch, kcfg, "NCCL")
+        out["engines"] = _engine_checks(torch, ranks, state0, batch, kcfg, NCCL_ENGINE_RUNS,
+                                        "NCCL")
+        if n % 2 == 0:
+            out["composite"] = _composite_checks(torch, ranks, state0, batch, kcfg, "NCCL")
         for what in ("params", "means"):
             require(all(torch.equal(a, b) for a, b in zip(
                 leaves(zero[what]), leaves(auto[what]), strict=True)),

@@ -262,8 +262,10 @@ class DataConfig:
 @dataclass(frozen=True)
 class ParallelConfig:
     """Device mesh configuration; see resnet_tpu.config.ParallelConfig. The
-    port runs the 1-D data layout (``parallel``): 'auto' and 'shard_map',
-    ZeRO state sharding; spatial partitioning raises (``check_parallel``)."""
+    port runs the data layout (``parallel``): 'auto' and 'shard_map', ZeRO
+    state sharding (the data x model mesh is built by
+    ``parallel.make_mesh_2d``, as JAX's, outside the config); spatial
+    partitioning raises (``check_parallel``)."""
 
     data_axis: str = "data"
     num_devices: int = 0
@@ -280,8 +282,8 @@ RESUME_LATEST = -2
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """See resnet_tpu.config.TrainConfig. Raises for what the port's
-    training step does not run yet: any parallel layout."""
+    """See resnet_tpu.config.TrainConfig. Raises for the parallel layout the
+    port does not run yet, spatial partitioning (``check_parallel``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     execution: ExecutionConfig = dataclasses.field(default_factory=ExecutionConfig)
@@ -300,33 +302,20 @@ class TrainConfig:
     check_errors: bool = False
 
     def __post_init__(self):
-        check_parallel(self, self.parallel.num_devices)
+        check_parallel(self)
 
 
-# the engines whose batch statistics come from inside their own kernels (K8's
-# sums, K10's in-launch statistics): under 'auto' across ranks those would
-# need the all-reduce between or inside launches
-RANK_LOCAL_STATS_ENGINES = ("fused", "hybrid", "fusedxla", "blockfused")
-
-
-def check_parallel(cfg: "TrainConfig", ranks: int) -> None:
-    """Raise NotImplementedError naming A13 for what the port's data
-    parallelism does not run over ``ranks`` ranks: spatial partitioning, and
-    under 'auto' across ranks the engines of ``RANK_LOCAL_STATS_ENGINES``
-    and ghost BN (the global batch's statistics would have to be summed
-    where those compute them)."""
-    pcfg, ex = cfg.parallel, cfg.execution
+def check_parallel(cfg: "TrainConfig") -> None:
+    """Raise for what the port's parallelism does not run: an unknown
+    ``parallel.mode``, and spatial partitioning (NotImplementedError naming
+    A13). Every engine and ghost BN run under
+    'auto' across ranks with the global batch's statistics, and under
+    'shard_map' with each rank's own."""
+    pcfg = cfg.parallel
     if pcfg.mode not in ("auto", "shard_map"):
         raise ValueError(f"ParallelConfig.mode={pcfg.mode!r}; expected 'auto' or 'shard_map'")
     if pcfg.spatial_devices > 1:
         raise not_ported("spatial partitioning (spatial_devices > 1)", ROADMAP_PARALLEL)
-    if pcfg.mode == "auto" and ranks > 1 and ex.bn_mode == "batch":
-        if ex.kernels in RANK_LOCAL_STATS_ENGINES:
-            raise not_ported(f"kernels={ex.kernels!r} under parallel.mode='auto' across "
-                             f"{ranks} ranks", ROADMAP_PARALLEL)
-        if ex.bn_stats_batch > 0:
-            raise not_ported(f"ghost BN (bn_stats_batch={ex.bn_stats_batch}) under "
-                             f"parallel.mode='auto' across {ranks} ranks", ROADMAP_PARALLEL)
 
 
 # The reference's six binaries as config presets (resnet_tpu.config)

@@ -66,7 +66,24 @@ their parameters' dtype (:511-516). The autograd engine casts a
 Function's gradient to its input's dtype, so with bf16 parameters those
 four leaves are JAX's value rounded to bf16.
 
+Statistics summed over ranks (inside ``bn.sync_stats``, the data-parallel
+'auto' step): the one host call turns each stage's sums into the next
+stage's rows on the device, with no point where the ranks could sum them.
+So ``block_fused_forward(..., reduce)`` runs the block as four stage calls
+of the same kernels (``rt_block_fused_stage_{f32,bf16}``: stage 0 the
+weights' split, the reduce GEMM and its sums; 1 and 2 the rows from the
+summed sums over the global row count, a device float, then the next GEMM
+and its sums; 3 the last rows and the join), summing each stage's sums and
+the row count over the ranks (``bn.summed``) between two calls. The GEMMs,
+tiles, K splits and the rows' arithmetic are the one call's, so under a sum
+that changes nothing the four calls give the one call's bits. The
+backward's batch means of dy and dy·x̂ are then the group's (one all-reduce
+a BN layer, with the sums' cotangents), while dγ and dβ stay this rank's:
+they are parameter gradients, which the step's bucket sums. Without a sum
+the one call runs, with its bits and launches.
+
 ``LAUNCHES`` counts K10 launches, ``LAUNCHES_BF16`` bf16 ones,
+``STAGE_LAUNCHES`` (``_BF16``) the stage calls (four a block),
 ``SPLIT_LAUNCHES`` those of the split kernel through ``split_tf32`` (K10
 runs it inside its own host call).
 """
@@ -82,6 +99,9 @@ from .fused_conv import _conv_vjp, bn_affine_from_sums, channel_sums
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
 SPLIT_LAUNCHES = 0
+# stage calls of a block whose statistics are summed over ranks (four a block)
+STAGE_LAUNCHES = 0
+STAGE_LAUNCHES_BF16 = 0
 _MAX_N_TILES = 65535  # gridDim.y of the GEMM walks its column tiles
 _UNITS = 2**31  # the bf16 loop indexes its units in 32 bits
 _PAD1 = ((1, 1), (1, 1))
@@ -102,33 +122,47 @@ def _gate(v, cap):
     return v > 0 if cap is None else (v > 0) & (v < cap)
 
 
-def block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None):
+def _stage_sums(sums, m_local: int, reduce):
+    """A stage's (sums, row count): this rank's, or with ``reduce`` those of
+    every rank of the statistics group (``bn.summed``)."""
+    if reduce is None:
+        return sums, m_local
+    return bn.summed(reduce, sums, m_local)
+
+
+def block_fused_reference(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None,
+                          reduce=None):
     """Plain version of K10, step for step as ``_block_fused_fwd_jnp``, its
     rounding points included: (out, r, s, e, sums_r, sums_s, sums_e, (sc_r,
-    sh_r, sc_s, sh_s, sc_e, sh_e)). On the card the products and the 3x3 are
-    cuBLAS and cuDNN in fp32, so TF32 must be off to compare."""
+    sh_r, sc_s, sh_s, sc_e, sh_e)). With ``reduce`` (an in-place sum over the
+    ranks of a statistics group) each stage's sums and row count are summed
+    over the ranks before its rows are taken, the sums returned are those,
+    and the global row count (a device scalar) follows the rows. On the card
+    the products and the 3x3 are cuBLAS and cuDNN in fp32, so TF32 must be
+    off to compare."""
     from ..ops.conv import conv2d
 
     n, h, wd, c4 = x.shape
     c = w1.shape[1]
-    m = n * h * wd
+    m_local = n * h * wd
     dt = x.dtype
-    r_f = (x.reshape(m, c4).float() @ w1.to(dt).float()).reshape(n, h, wd, c)
-    sums_r = channel_sums(r_f)
+    r_f = (x.reshape(m_local, c4).float() @ w1.to(dt).float()).reshape(n, h, wd, c)
+    sums_r, m = _stage_sums(channel_sums(r_f), m_local, reduce)
     r = r_f.to(dt)
     sc_r, sh_r = bn_affine_from_sums(sums_r, g1, b1, m, eps)
     u = _clip_relu(r.float() * sc_r + sh_r, cap).to(dt)
     s_f = conv2d(u.float(), w2.to(dt).float(), padding=_PAD1)
-    sums_s = channel_sums(s_f)
+    sums_s, m = _stage_sums(channel_sums(s_f), m_local, reduce)
     s = s_f.to(dt)
     sc_s, sh_s = bn_affine_from_sums(sums_s, g2, b2, m, eps)
     v = _clip_relu(s.float() * sc_s + sh_s, cap).to(dt)
-    e_f = (v.reshape(m, c).float() @ w3.to(dt).float()).reshape(n, h, wd, c4)
-    sums_e = channel_sums(e_f)
+    e_f = (v.reshape(m_local, c).float() @ w3.to(dt).float()).reshape(n, h, wd, c4)
+    sums_e, m = _stage_sums(channel_sums(e_f), m_local, reduce)
     e = e_f.to(dt)
     sc_e, sh_e = bn_affine_from_sums(sums_e, g3, b3, m, eps)
     out = _clip_relu(e.float() * sc_e + sh_e + x.float(), cap).to(dt)
-    return out, r, s, e, sums_r, sums_s, sums_e, (sc_r, sh_r, sc_s, sh_s, sc_e, sh_e)
+    result = (out, r, s, e, sums_r, sums_s, sums_e, (sc_r, sh_r, sc_s, sh_s, sc_e, sh_e))
+    return result if reduce is None else (*result, m)
 
 
 def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
@@ -202,27 +236,34 @@ def plan(m: int, c4: int, c: int, bf16: bool):
     return splits, sizes, units
 
 
-def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None):
+def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=None,
+                        reduce=None):
     """K10 on CUDA tensors, the plain version on CPU ones: everything the
-    kernel writes, in the order of ``block_fused_reference``'s result. Not
-    differentiable; ``block_fused`` is."""
+    kernel writes, in the order of ``block_fused_reference``'s result. With
+    ``reduce`` (an in-place sum over a statistics group's ranks) the block
+    runs one stage at a time (``rt_block_fused_stage_*``, counted in
+    ``STAGE_LAUNCHES``), each stage's sums and the row count summed over the
+    ranks between two stages, and the global row count follows, as the
+    plain version's. Not differentiable; ``block_fused`` is."""
     _check(x, w1, w2, w3, g1, b1, g2, b2, g3, b3)
     w1, w2, w3 = (w.to(x.dtype) for w in (w1, w2, w3))  # block_fused.py:316
     rows = build.rows_f32(g1, b1, g2, b2, g3, b3)
     if not build.on_card("block_fused", x, w1, w2, w3, rows=rows):
-        return block_fused_reference(x, w1, w2, w3, *rows, eps, cap)
+        if reduce is None:
+            return block_fused_reference(x, w1, w2, w3, *rows, eps, cap)
+        return block_fused_reference(x, w1, w2, w3, *rows, eps, cap, reduce)
     n, h, wd, c4 = x.shape
     c = w1.shape[1]
-    m = n * h * wd
-    if m == 0 or c == 0:
+    m_local = n * h * wd
+    if m_local == 0 or c == 0:
         raise ValueError(f"block_fused: empty block x {tuple(x.shape)}, C={c}")
     if -(-c4 // build.wg_tile_n(c4)) > _MAX_N_TILES or 9 * c >= 2**31:
         raise ValueError(f"block_fused: 4C={c4}, C={c} beyond the kernel's grid")
     dev = x.device
     bf16 = x.dtype is torch.bfloat16
-    splits, sizes, units = plan(m, c4, c, bf16)
+    splits, sizes, units = plan(m_local, c4, c, bf16)
     if bf16 and max(units) >= _UNITS:
-        raise ValueError(f"block_fused: {max(units)} units of a stage GEMM at M={m}, "
+        raise ValueError(f"block_fused: {max(units)} units of a stage GEMM at M={m_local}, "
                          f"4C={c4}, C={c}; the persistent loop indexes fewer than 2^31")
     out, e = torch.empty_like(x), torch.empty_like(x)
     rs = torch.empty((2, n, h, wd, c), dtype=x.dtype, device=dev)
@@ -239,28 +280,57 @@ def block_fused_forward(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps: float, cap=N
     tail = (n, h, wd, c4, c, float(eps), int(cap is not None),
             0.0 if cap is None else float(cap), *splits)
     scratch = (part, ws if sizes[1] else None) + (() if bf16 else (wsplit,))
-    build.launch(build.entry_name("block_fused", x), *(t.data_ptr() for t in tensors),
-                 *scratch, *tail, device=dev)
-    build.count(__name__, "LAUNCHES", x)
+    ptrs = (*(t.data_ptr() for t in tensors), *scratch, *tail)
     aff = aff_rows.split((c, c, c, c, c4, c4))
-    return (out, r, s, e, sums_r.view(2, c), sums_s.view(2, c), sums_e.view(2, c4), aff)
+    sums = (sums_r.view(2, c), sums_s.view(2, c), sums_e.view(2, c4))
+    if reduce is None:
+        build.launch(build.entry_name("block_fused", x), *ptrs, device=dev)
+        build.count(__name__, "LAUNCHES", x)
+        return (out, r, s, e, *sums, aff)
+    entry = build.entry_name("block_fused_stage", x)
+    m = None  # the global row count, a device float, from stage 0's sum on
+    for stage in range(4):
+        build.launch(entry, stage, *ptrs, None if m is None else m.data_ptr(), device=dev)
+        build.count(__name__, "STAGE_LAUNCHES", x)
+        if stage < 3:
+            total, m = bn.summed(reduce, sums[stage], m_local)
+            sums[stage].copy_(total)
+    return (out, r, s, e, *sums, aff, m)
 
 
-def _bn_bwd(da, y, gamma, sums, m: int, eps: float, dsums):
-    """(dy, dgamma, dbeta) of a = bn(y) with the batch statistics of sums,
-    at da (block_fused.py:333-357): K6's plain closed form with no ReLU
-    (``bn.bn_bwd_reference``) on the (M, C) view in fp32, plus the sums'
-    cotangents dsums[0] + 2y·dsums[1] when given; dy rounded once to y's
-    dtype, dgamma and dbeta fp32."""
+def _bn_bwd(da, y, gamma, sums, m, eps: float, dsums, reduce=None):
+    """(dy, dgamma, dbeta) of a = bn(y) with the batch statistics of sums
+    over m rows, at da (block_fused.py:333-357): K6's plain closed form with
+    no ReLU (``bn.bn_bwd_reference``) on the (M, C) view in fp32, plus the
+    sums' cotangents dsums[0] + 2y·dsums[1] when given; dy rounded once to
+    y's dtype, dgamma and dbeta fp32. With ``reduce`` the statistics are a
+    group's (sums and m global): dy takes the group's means of da and
+    da·x̂, and the sums' cotangents summed over the ranks (one all-reduce),
+    while dgamma and dbeta stay this rank's, parameter gradients that the
+    step's gradient bucket sums."""
     mean, var = bn_stats_from_sums(sums, m)
     c = y.shape[-1]
     yf = y.float()
-    dy, dgamma, dbeta = bn.bn_bwd_reference(yf.reshape(m, c), da.float().reshape(m, c), mean,
-                                            torch.rsqrt(var + eps), gamma.float(), None,
-                                            relu=False)
-    dy = dy.reshape(y.shape)
-    if dsums is not None:
-        dy = dy + dsums[0] + 2.0 * yf * dsums[1]
+    rows = y.numel() // c
+    inv_std = torch.rsqrt(var + eps)
+    if reduce is None:
+        dy, dgamma, dbeta = bn.bn_bwd_reference(yf.reshape(rows, c), da.float().reshape(rows, c),
+                                                mean, inv_std, gamma.float(), None, relu=False)
+        dy = dy.reshape(y.shape)
+        if dsums is not None:
+            dy = dy + dsums[0] + 2.0 * yf * dsums[1]
+        return dy.to(y.dtype), dgamma, dbeta
+    g = gamma.float()
+    daf = da.float().reshape(rows, c)
+    x_hat = (yf.reshape(rows, c) - mean) * inv_std
+    dbeta = daf.sum(0)
+    dgamma = (daf * x_hat).sum(0)
+    ds = torch.zeros((2, c), dtype=torch.float32, device=y.device) if dsums is None else dsums
+    both = torch.cat([dbeta, dgamma, ds.float().reshape(-1)])
+    reduce(both)
+    s1, s2, ds0, ds1 = both.view(4, c).unbind(0)
+    dy = (g * inv_std * (daf - s1 / m - x_hat * (s2 / m))).reshape(y.shape)
+    dy = dy + ds0 + 2.0 * yf * ds1
     return dy.to(y.dtype), dgamma, dbeta
 
 
@@ -271,28 +341,34 @@ def _mm(a, b):
 
 class _BlockFused(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap):
-        out, r, s, e, sums_r, sums_s, sums_e, aff = block_fused_forward(
-            x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
-        ctx.eps, ctx.cap, ctx.b3_dtype = eps, cap, b3.dtype
+    def forward(ctx, x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap, reduce):
+        if reduce is None:
+            out, r, s, e, sums_r, sums_s, sums_e, aff = block_fused_forward(
+                x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
+            m = x.shape[0] * x.shape[1] * x.shape[2]
+        else:
+            out, r, s, e, sums_r, sums_s, sums_e, aff, m = block_fused_forward(
+                x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap, reduce)
+            ctx.mark_non_differentiable(m)
+        ctx.eps, ctx.cap, ctx.b3_dtype, ctx.reduce, ctx.m = eps, cap, b3.dtype, reduce, m
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, w1, w2, w3, g1, g2, g3, r, s, e, out, sums_r, sums_s,
                               sums_e, *aff[:4])
-        return out, sums_r, sums_s, sums_e
+        return (out, sums_r, sums_s, sums_e) + (() if reduce is None else (m,))
 
     @staticmethod
-    def backward(ctx, dout, dsums_r, dsums_s, dsums_e):
+    def backward(ctx, dout, dsums_r, dsums_s, dsums_e, *_dm):
         (x, w1, w2, w3, g1, g2, g3, r, s, e, out, sums_r, sums_s, sums_e,
          sc_r, sh_r, sc_s, sh_s) = ctx.saved_tensors
-        eps, cap = ctx.eps, ctx.cap
+        eps, cap, reduce = ctx.eps, ctx.cap, ctx.reduce
         n, h, wd, c4 = x.shape
         c = w1.shape[1]
-        m = n * h * wd
+        m = n * h * wd  # this rank's rows; ctx.m the statistics' (global) count
         dt = x.dtype
         # the join: out = clip(relu(bn_e(e) + x))
         g = torch.zeros_like(out) if dout is None else torch.where(
             _gate(out.float(), cap), dout.to(dt), torch.zeros_like(out))
-        de, dg3, db3 = _bn_bwd(g, e, g3, sums_e, m, eps, dsums_e)
+        de, dg3, db3 = _bn_bwd(g, e, g3, sums_e, ctx.m, eps, dsums_e, reduce)
         # the expand 1x1: e = v @ W3, v = clip(relu(bn_s(s)))
         v_pre = s.float() * sc_s + sh_s
         v = _clip_relu(v_pre, cap).to(dt)
@@ -300,27 +376,38 @@ class _BlockFused(torch.autograd.Function):
         dw3 = _mm(v.reshape(m, c).t(), de2).to(w3.dtype)
         dv = _mm(de2, w3.to(dt).t()).reshape(n, h, wd, c)
         da2 = torch.where(_gate(v_pre, cap), dv, torch.zeros_like(dv)).to(dt)
-        ds, dg2, db2 = _bn_bwd(da2, s, g2, sums_s, m, eps, dsums_s)
+        ds, dg2, db2 = _bn_bwd(da2, s, g2, sums_s, ctx.m, eps, dsums_s, reduce)
         # the spatial 3x3: s = conv(u, W2), u = clip(relu(bn_r(r)))
         u_pre = r.float() * sc_r + sh_r
         u = _clip_relu(u_pre, cap).to(dt)
         du, dw2 = _conv_vjp(u, w2.to(dt), ds, 1, _PAD1, True)
         dw2 = dw2.to(w2.dtype)
         da1 = torch.where(_gate(u_pre, cap), du.float(), torch.zeros_like(u_pre)).to(dt)
-        dr, dg1, db1 = _bn_bwd(da1, r, g1, sums_r, m, eps, dsums_r)
+        dr, dg1, db1 = _bn_bwd(da1, r, g1, sums_r, ctx.m, eps, dsums_r, reduce)
         # the reduce 1x1: r = x @ W1, and the identity shortcut's g
         dr2 = dr.reshape(m, c)
         dw1 = _mm(x.reshape(m, c4).t(), dr2).to(w1.dtype)
         dx = (g.float() + _mm(dr2, w1.to(dt).t()).reshape(n, h, wd, c4)).to(dt)
         # dγ₁, dβ₁, dγ₂, dβ₂ in fp32, dγ₃, dβ₃ in their dtypes (block_fused.py:511-516)
         return (dx, dw1, dw2, dw3, dg1, db1, dg2, db2, dg3.to(g3.dtype),
-                db3.to(ctx.b3_dtype), None, None)
+                db3.to(ctx.b3_dtype), None, None, None)
 
 
 def block_fused(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
                 g1: torch.Tensor, b1: torch.Tensor, g2: torch.Tensor, b2: torch.Tensor,
-                g3: torch.Tensor, b3: torch.Tensor, eps: float, cap=None):
+                g3: torch.Tensor, b3: torch.Tensor, eps: float, cap=None,
+                with_rows: bool = False):
     """(out, sums_r, sums_s, sums_e) of one stride-1 identity bottleneck in
     training mode, x fp32 or bf16 (out in its dtype, the sums fp32);
-    differentiable in all ten tensors, through the sums too."""
-    return _BlockFused.apply(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap)
+    differentiable in all ten tensors, through the sums too. Inside
+    ``bn.sync_stats`` the statistics are the group's: the block runs stage
+    by stage with each stage's sums summed over the ranks (the sums
+    returned are the group's), and the backward's batch means are the
+    group's. ``with_rows`` adds the row count the sums are over (this
+    block's rows, or the group's as a device scalar)."""
+    group = bn.stats_group()
+    reduce = None if group is None else group.reduce
+    outs = _BlockFused.apply(x, w1, w2, w3, g1, b1, g2, b2, g3, b3, eps, cap, reduce)
+    if not with_rows:
+        return outs[:4]
+    return (*outs[:4], outs[4] if reduce is not None else x.shape[0] * x.shape[1] * x.shape[2])

@@ -22,18 +22,27 @@ either. ``moments_plain`` is the same Function over the plain sums on any
 device: the plain path's batch statistics (``ops.batchnorm.batch_moments``).
 
 Statistics of a batch split over ranks (``sync_stats``). Inside
-``sync_stats(reduce)``, where ``reduce`` sums a tensor in place over the
-ranks of a data group (``parallel.mesh.Mesh.sum_``), ``moments`` and
-``moments_plain`` give the statistics of the global batch, as the JAX
-package's pjit step does: the forward takes this rank's raw Σx and Σx² (on a
-CUDA tensor K4 launched once through ``rt_moments_sums_*``, the same kernel
-writing its sums in place of its epilogue; on a CPU tensor
-``moments_sums_reference``), sums them and the row count over the ranks in
+``sync_stats(reduce, index, size)``, where ``reduce`` sums a tensor in
+place over the ranks of a statistics group (``parallel.mesh.Mesh.sum_`` of
+the data group; a ``StatsGroup``), every batch statistic is the global
+batch's, as the JAX package's pjit step computes it. The one place they are
+summed is ``summed``: a layer's raw per-channel sums and their row count in
 one float64 all-reduce (the count exact, no rounding added to the fp32 sums
-of two ranks), and applies the epilogue to the fp32 sums with the global
-row count m; the backward sums (dmean, dvar) over the ranks before the
-closed form, with the global m. Outside it, nothing changes: K4 writes its
-epilogue as before.
+of two ranks), returned as fp32 with the count a device scalar, so nothing
+waits for the host. ``moments`` and ``moments_plain`` take this rank's raw
+Σx and Σx² (on a CUDA tensor K4 launched once through
+``rt_moments_sums_*``, the same kernel writing its sums in place of its
+epilogue; on a CPU tensor ``moments_sums_reference``), sum them and apply
+the epilogue with the global row count m; their backward sums (dmean, dvar)
+over the ranks before the closed form. ``sum_stats`` is the same sum as an
+autograd Function for statistics that come as raw sums from elsewhere (the
+fused engines' K8 and ``conv_chain`` sites): its backward sums the sums'
+cotangent over the ranks. K10 (``block_fused``) and ghost BN
+(``ops.batchnorm``) call ``summed`` inside their own Functions.
+``sample_rows`` gives the global batch's rows and this rank's first one
+(the group holds equal, contiguous slices in rank order), for ghost BN's
+sample. Outside ``sync_stats`` nothing changes: K4 writes its epilogue as
+before.
 
 K5, the apply. ``bn_apply(x2d, scale, shift, relu=..., cap=None)`` is
 clip(relu(x · scale + shift)) per channel (bn.py:134-160). On a CUDA tensor it
@@ -253,41 +262,99 @@ def moments_sums(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _forward(x2d, sums=True)
 
 
-# the in-place sum over the data group's ranks that ``moments`` and
-# ``moments_plain`` apply to the statistics, or None (``sync_stats``); not
-# thread-local, since a checkpointed block's forward reruns inside the
-# backward on the autograd engine's device thread
-_SYNC: Optional[Callable[[torch.Tensor], None]] = None
+class StatsGroup(NamedTuple):
+    """The ranks whose rows make one batch for BN: ``reduce`` sums a tensor
+    in place over them (``parallel.mesh.Mesh.sum_`` of the data group), and
+    this rank is ``index`` of ``size``, holding rows [index * n, (index + 1)
+    * n) of each global (micro)batch of size * n rows (``parallel.rows_of``)."""
+    reduce: Callable[[torch.Tensor], None]
+    index: int = 0
+    size: int = 1
+
+
+# the statistics group that batch statistics are summed over (``sync_stats``),
+# or None; not thread-local, since a checkpointed block's forward reruns
+# inside the backward on the autograd engine's device thread
+_SYNC: Optional[StatsGroup] = None
 
 
 @contextlib.contextmanager
-def sync_stats(reduce: Optional[Callable[[torch.Tensor], None]]):
+def sync_stats(reduce, index: int = 0, size: int = 1):
     """Within the block, batch statistics are those of the batch of every
-    rank that ``reduce`` (an in-place sum over ranks) reaches; None leaves
-    them this process's own."""
+    rank of a statistics group: ``reduce`` a ``StatsGroup``, or its in-place
+    sum with this rank's ``index`` of ``size``; None leaves them this
+    process's own."""
     global _SYNC
-    before, _SYNC = _SYNC, reduce
+    group = (reduce if reduce is None or isinstance(reduce, StatsGroup)
+             else StatsGroup(reduce, index, size))
+    before, _SYNC = _SYNC, group
     try:
         yield
     finally:
         _SYNC = before
 
 
+def stats_group() -> Optional[StatsGroup]:
+    """The statistics group in force (``sync_stats``), or None."""
+    return _SYNC
+
+
+def sample_rows(n: int) -> Tuple[int, int]:
+    """(rows of the global batch, this rank's first row in it) for a batch
+    dimension of n rows here: (n, 0) outside ``sync_stats``."""
+    if _SYNC is None:
+        return n, 0
+    return n * _SYNC.size, n * _SYNC.index
+
+
+def summed(reduce, sums: torch.Tensor, m):
+    """(sums, m) over the ranks ``reduce`` reaches, in one float64 all-reduce:
+    fp32 per-channel sums of any shape and their row count m (an int),
+    returned as fp32 (the count exact, no rounding added to the sums of two
+    ranks), m a device scalar, so nothing waits for the host."""
+    n = sums.numel()
+    buf = torch.empty(n + 1, dtype=torch.float64, device=sums.device)
+    buf[:n].copy_(sums.reshape(-1))
+    buf[n:].fill_(m)
+    reduce(buf)
+    return buf[:n].to(torch.float32).view(sums.shape), buf[n].to(torch.float32)
+
+
 def _global_stats(x, sums, reduce):
     """(mean, var, m) from this rank's raw sums (s, s2) of x, summed with
-    the row count over the ranks in one float64 all-reduce; m is the global
-    row count as an fp32 device scalar, so nothing waits for the host."""
+    the row count over the ranks (``summed``)."""
     s, s2 = sums
-    c = s.numel()
-    buf = torch.empty(2 * c + 1, dtype=torch.float64, device=s.device)
-    buf[:c].copy_(s)
-    buf[c:2 * c].copy_(s2)
-    buf[2 * c:].fill_(x.numel() // c)
-    reduce(buf)
-    total = buf.to(torch.float32)
-    m = total[2 * c]
-    mean, var = mean_var_from_sums(total[:c], total[c:2 * c], m)
+    total, m = summed(reduce, torch.stack((s, s2)), x.numel() // s.numel())
+    mean, var = mean_var_from_sums(total[0], total[1], m)
     return mean, var, m
+
+
+class _SumStats(torch.autograd.Function):
+    """``summed`` as a Function: the cotangent of the summed sums is summed
+    over the same ranks (every rank's loss depends on them)."""
+
+    @staticmethod
+    def forward(ctx, sums, m, reduce):
+        total, m_all = summed(reduce, sums, m)
+        ctx.reduce = reduce
+        ctx.mark_non_differentiable(m_all)
+        return total, m_all
+
+    @staticmethod
+    def backward(ctx, dsums, _dm):
+        d = dsums.to(torch.float32, copy=True).contiguous()
+        ctx.reduce(d)
+        return d, None, None
+
+
+def sum_stats(sums: torch.Tensor, m: int):
+    """(sums, m) of the statistics group in force: a layer's raw per-channel
+    sums (fp32, e.g. K8's [Σy, Σy²]) and their row count, summed over the
+    group's ranks, differentiable in the sums (``_SumStats``); outside
+    ``sync_stats`` the arguments themselves."""
+    if _SYNC is None:
+        return sums, m
+    return _SumStats.apply(sums, m, _SYNC.reduce)
 
 
 class _Moments(torch.autograd.Function):
@@ -326,7 +393,7 @@ def moments(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     where x2d requires a gradient. Inside ``sync_stats`` the rows of every
     rank: K4's raw sums, summed over the ranks."""
     if _SYNC is not None:
-        return _Moments.apply(x2d, moments_sums, -1, _SYNC)
+        return _Moments.apply(x2d, moments_sums, -1, _SYNC.reduce)
     if x2d.requires_grad and torch.is_grad_enabled():
         return _Moments.apply(x2d, _forward)
     return _forward(x2d)
@@ -340,7 +407,7 @@ def moments_plain(x: torch.Tensor, channel_dim: int = -1
     if _SYNC is not None:
         return _Moments.apply(
             x, functools.partial(moments_sums_reference, channel_dim=channel_dim),
-            channel_dim, _SYNC)
+            channel_dim, _SYNC.reduce)
     return _Moments.apply(x, functools.partial(moments_reference, channel_dim=channel_dim),
                           channel_dim)
 

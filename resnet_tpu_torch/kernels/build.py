@@ -57,6 +57,11 @@ SIGNATURES = {
     # sums_e, rows, part, ws, wsplit, N, H, W, C4, C, eps, has_cap, cap,
     # splits x 3
     "rt_block_fused_f32": [*[_P] * 21, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    # the same block one stage at a time (stage, the one call's arguments,
+    # the device float of the global row count): BN statistics summed over
+    # ranks between the stages
+    "rt_block_fused_stage_f32": [_I, *[_P] * 21, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I,
+                                 _P, _P],
     # b, bs, K, N: K10's K-major tf32 split of one weight
     "rt_split_tf32_f32": [_P, _P, _I, _I, _P],
     "rt_bn_apply_f32": [_P, _P, _P, _P, _I64, _I, _I, _I, _F, _P],
@@ -109,6 +114,8 @@ SIGNATURES = {
     # K10 on bf16: rt_block_fused_f32's arguments without wsplit (the bf16
     # weights need no split)
     "rt_block_fused_bf16": [*[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    "rt_block_fused_stage_bf16": [_I, *[_P] * 20, _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I,
+                                  _P, _P],
     # K10-bf16's stage GEMM alone, with rt_fused_conv_bf16's arguments: K8's
     # bits witness on the card (tests/test_torch_gpu.py)
     "rt_block_gemm_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

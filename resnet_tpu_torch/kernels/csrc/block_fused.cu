@@ -138,6 +138,20 @@ inline int launch_block_gemm(const FusedConvTcA& a, const float* bs, int64_t kp,
       y, ws, a.M, N, K, splits, s);
 }
 
+// BN's (scale, shift) of channel c from its fp32 sums s0, s1 over m rows
+__device__ __forceinline__ void affine_row(float s0, float s1, const float* __restrict__ gamma,
+                                           const float* __restrict__ beta,
+                                           float* __restrict__ scale,
+                                           float* __restrict__ shift, int c, float m,
+                                           float eps) {
+  const float mean = __fdiv_rn(s0, m);
+  float var = __fsub_rn(__fdiv_rn(s1, m), __fmul_rn(mean, mean));
+  var = var < 0.f ? 0.f : var;  // a NaN propagates, as clamp_min does
+  const float sc = __fmul_rn(gamma[c], rsqrtf(__fadd_rn(var, eps)));
+  scale[c] = sc;
+  shift[c] = __fsub_rn(beta[c], __fmul_rn(sc, mean));
+}
+
 // sums (2, C) from the tile partials (tile_sums), then BN's (scale, shift)
 // rows from those fp32 sums over m rows, per channel
 __global__ void __launch_bounds__(CT * FL)
@@ -150,22 +164,36 @@ tile_sums_affine(const float* __restrict__ part, float* __restrict__ sums,
   const int c = blockIdx.x * CT + threadIdx.x;
   sums[c] = s0;
   sums[C + c] = s1;
-  const float mean = __fdiv_rn(s0, m);
-  float var = __fsub_rn(__fdiv_rn(s1, m), __fmul_rn(mean, mean));
-  var = var < 0.f ? 0.f : var;  // a NaN propagates, as clamp_min does
-  const float sc = __fmul_rn(gamma[c], rsqrtf(__fadd_rn(var, eps)));
-  scale[c] = sc;
-  shift[c] = __fsub_rn(beta[c], __fmul_rn(sc, mean));
+  affine_row(s0, s1, gamma, beta, scale, shift, c, m, eps);
+}
+
+// the rows of tile_sums_affine from sums (2, C) that are complete already
+// (summed over the ranks of a statistics group) over *m rows, a device
+// scalar (the group's row count)
+__global__ void sums_affine(const float* __restrict__ sums, const float* __restrict__ gamma,
+                            const float* __restrict__ beta, float* __restrict__ scale,
+                            float* __restrict__ shift, int C, const float* __restrict__ m,
+                            float eps) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < C) affine_row(sums[c], sums[C + c], gamma, beta, scale, shift, c, *m, eps);
+}
+
+inline int launch_sums_affine(const float* sums, const float* gamma, const float* beta,
+                              float* scale, float* shift, int C, const float* m, float eps,
+                              cudaStream_t s) {
+  sums_affine<<<(unsigned)((C + 127) / 128), 128, 0, s>>>(sums, gamma, beta, scale, shift, C,
+                                                         m, eps);
+  return (int)cudaGetLastError();
 }
 
 // One stage: y (M, N) of the conv gathered by `a` with the split weight bs,
 // its sums (2, N) and the (scale, shift) rows of the BN that follows. part
 // holds m_tiles * 2 * N floats, ws splits * M * N when splits > 1. Tiles
 // 128 x 64 where N <= 64, else 128 x 128 (build.py wg_tile_n).
-inline int stage(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, float* part,
-                 float* sums, const float* gamma, const float* beta, float* scale,
-                 float* shift, int N, float* ws, int splits, float m, float eps,
-                 cudaStream_t s) {
+// the GEMM of a stage and its tile partials in part (after a K split, from a
+// column pass over the summed y)
+inline int stage_gemm(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, float* part,
+                      int N, float* ws, int splits, cudaStream_t s) {
   const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
   const bool vec = a.Cin % 4 == 0 && (uintptr_t)a.x % 16 == 0 &&
                    (!a.prologue || ((uintptr_t)a.scale | (uintptr_t)a.shift) % 16 == 0);
@@ -173,11 +201,30 @@ inline int stage(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, f
                        : (vec ? launch_block_gemm<128, 4> : launch_block_gemm<128, 1>);
   const int status = gemm(a, bs, kp, y, part, N, ws, splits, s);
   if (status != 0) return status;
-  const unsigned ct = (unsigned)((N + CT - 1) / CT);
   if (splits > 1)
-    column_partials<<<dim3(ct, (unsigned)m_tiles), dim3(CT, RT), 0, s>>>(y, part, a.M, N);
-  tile_sums_affine<<<ct, dim3(CT, FL), 0, s>>>(part, sums, gamma, beta, scale, shift, N,
-                                               m_tiles, m, eps);
+    column_partials<<<dim3((unsigned)((N + CT - 1) / CT), (unsigned)m_tiles), dim3(CT, RT), 0,
+                      s>>>(y, part, a.M, N);
+  return (int)cudaGetLastError();
+}
+
+inline int stage(const FusedConvTcA& a, const float* bs, int64_t kp, float* y, float* part,
+                 float* sums, const float* gamma, const float* beta, float* scale,
+                 float* shift, int N, float* ws, int splits, float m, float eps,
+                 cudaStream_t s) {
+  const int status = stage_gemm(a, bs, kp, y, part, N, ws, splits, s);
+  if (status != 0) return status;
+  const int64_t m_tiles = (a.M + TILE_M - 1) / TILE_M;
+  tile_sums_affine<<<(unsigned)((N + CT - 1) / CT), dim3(CT, FL), 0, s>>>(
+      part, sums, gamma, beta, scale, shift, N, m_tiles, m, eps);
+  return (int)cudaGetLastError();
+}
+
+// the sums (2, N) of a stage from its tile partials, with no rows: the
+// stage entries' end of a stage
+inline int stage_sums(const float* part, float* sums, int N, int64_t M, cudaStream_t s) {
+  const int64_t m_tiles = (M + TILE_M - 1) / TILE_M;
+  tile_sums_final<<<(unsigned)((N + CT - 1) / CT), dim3(CT, FL), 0, s>>>(part, sums, N,
+                                                                         m_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -381,6 +428,76 @@ extern "C" int rt_block_fused_f32(const float* x, const float* w1, const float* 
   return launch_join(e, x, out, (int64_t)N * H * W * C4, C4, JoinIdentity{{sc_e, sh_e}, act}, st);
 }
 
+// rt_block_fused_f32's block one stage at a time, for a block whose BN
+// statistics are those of a batch split over ranks: the caller sums each
+// stage's sums over the ranks between two calls, in place, and m_rows
+// points at the global row count (a device float). Stage 0: the weights'
+// split, then the reduce GEMM and sums_r. Stage 1: (sc_r, sh_r) from sums_r
+// over *m_rows, then the 3x3 and sums_s. Stage 2: (sc_s, sh_s), the expand
+// and sums_e. Stage 3: (sc_e, sh_e) and the join. The GEMMs, their tiles, K
+// splits and sums are the one call's, and so are the rows' arithmetic: with
+// sums that no rank changed and *m_rows = N * H * W, the four calls write
+// the one call's bits. wsplit must hold the split from stage 0 on.
+extern "C" int rt_block_fused_stage_f32(int stage, const float* x, const float* w1,
+                                        const float* w2, const float* w3, const float* g1,
+                                        const float* b1, const float* g2, const float* b2,
+                                        const float* g3, const float* b3, float* out, float* r,
+                                        float* s, float* e, float* sums_r, float* sums_s,
+                                        float* sums_e, float* rows, float* part, float* ws,
+                                        float* wsplit, int N, int H, int W, int C4, int C,
+                                        float eps, int has_cap, float cap, int splits0,
+                                        int splits1, int splits2, const float* m_rows,
+                                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Act act{true, has_cap != 0, cap};
+  const int64_t M = (int64_t)N * H * W;
+  float* sc_r = rows;
+  float* sh_r = rows + C;
+  float* sc_s = rows + 2 * C;
+  float* sh_s = rows + 3 * C;
+  float* sc_e = rows + 4 * C;
+  float* sh_e = rows + 4 * C + C4;
+  const int kp1 = kmajor_ld(C4), kp2 = kmajor_ld(9 * C), kp3 = kmajor_ld(C);
+  float* w1s = wsplit;
+  float* w2s = w1s + 2 * (int64_t)C * kp1;
+  float* w3s = w2s + 2 * (int64_t)C * kp2;
+  int status = 0;
+  switch (stage) {
+    case 0: {
+      rt::wg::SplitJobs jobs{};
+      jobs.job[0] = rt::wg::SplitJob{w1, w1s, C4, C, kp1};
+      jobs.job[1] = rt::wg::SplitJob{w2, w2s, 9 * C, C, kp2};
+      jobs.job[2] = rt::wg::SplitJob{w3, w3s, C, C4, kp3};
+      status = rt::wg::launch_split(jobs, 3, st);
+      if (status == 0)
+        status = stage_gemm(
+            conv_loader(x, nullptr, nullptr, N, H, W, C4, 1, 1, 0, 0, H, W, false, act), w1s,
+            kp1, r, part, C, ws, splits0, st);
+      return status != 0 ? status : stage_sums(part, sums_r, C, M, st);
+    }
+    case 1:
+      status = launch_sums_affine(sums_r, g1, b1, sc_r, sh_r, C, m_rows, eps, st);
+      if (status == 0)
+        status = stage_gemm(
+            conv_loader(r, sc_r, sh_r, N, H, W, C, 3, 1, 1, 1, H, W, true, act), w2s, kp2, s,
+            part, C, ws, splits1, st);
+      return status != 0 ? status : stage_sums(part, sums_s, C, M, st);
+    case 2:
+      status = launch_sums_affine(sums_s, g2, b2, sc_s, sh_s, C, m_rows, eps, st);
+      if (status == 0)
+        status = stage_gemm(
+            conv_loader(s, sc_s, sh_s, N, H, W, C, 1, 1, 0, 0, H, W, true, act), w3s, kp3, e,
+            part, C4, ws, splits2, st);
+      return status != 0 ? status : stage_sums(part, sums_e, C4, M, st);
+    case 3:
+      status = launch_sums_affine(sums_e, g3, b3, sc_e, sh_e, C4, m_rows, eps, st);
+      return status != 0 ? status
+                         : launch_join(e, x, out, M * C4, C4, JoinIdentity{{sc_e, sh_e}, act}, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // One bottleneck block on bf16 tensors: x, w1, w2, w3, out, r, s and e as
 // rt_block_fused_f32's but bf16; g1, b1, g2, b2, g3, b3, the sums and rows
 // fp32; part holds ceil(M / 128) * 2 * max(C, C4) floats, ws the largest
@@ -425,6 +542,63 @@ extern "C" int rt_block_fused_bf16(const __nv_bfloat16* x, const uint16_t* w1,
   // stage 3: bn_e's affine, the identity residual, ReLU and the cap
   return launch_join(static_cast<const __nv_bfloat16*>(e), x, out, (int64_t)N * H * W * C4,
                      C4, JoinIdentity{{sc_e, sh_e}, act}, st);
+}
+
+// rt_block_fused_bf16's block one stage at a time, as
+// rt_block_fused_stage_f32 runs the fp32 one: stage 0 the reduce GEMM and
+// sums_r; 1 (sc_r, sh_r) from sums_r over *m_rows, the 3x3 and sums_s; 2
+// (sc_s, sh_s), the expand and sums_e; 3 (sc_e, sh_e) and the join. With
+// sums no rank changed and *m_rows = N * H * W, the one call's bits.
+extern "C" int rt_block_fused_stage_bf16(int stage, const __nv_bfloat16* x, const uint16_t* w1,
+                                         const uint16_t* w2, const uint16_t* w3,
+                                         const float* g1, const float* b1, const float* g2,
+                                         const float* b2, const float* g3, const float* b3,
+                                         __nv_bfloat16* out, uint16_t* r, uint16_t* s,
+                                         __nv_bfloat16* e, float* sums_r, float* sums_s,
+                                         float* sums_e, float* rows, float* part, float* ws,
+                                         int N, int H, int W, int C4, int C, float eps,
+                                         int has_cap, float cap, int splits0, int splits1,
+                                         int splits2, const float* m_rows, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Act act{true, has_cap != 0, cap};
+  const int64_t M = (int64_t)N * H * W;
+  float* sc_r = rows;
+  float* sh_r = rows + C;
+  float* sc_s = rows + 2 * C;
+  float* sh_s = rows + 3 * C;
+  float* sc_e = rows + 4 * C;
+  float* sh_e = rows + 4 * C + C4;
+  const uint16_t* xb = reinterpret_cast<const uint16_t*>(x);
+  uint16_t* eb = reinterpret_cast<uint16_t*>(e);
+  int status = 0;
+  switch (stage) {
+    case 0:
+      status = stage_gemm_bf16(
+          conv_loader_bf16(xb, nullptr, nullptr, N, H, W, C4, 1, 1, 0, 0, H, W, false, act), w1,
+          r, part, C, ws, splits0, st);
+      return status != 0 ? status : stage_sums(part, sums_r, C, M, st);
+    case 1:
+      status = launch_sums_affine(sums_r, g1, b1, sc_r, sh_r, C, m_rows, eps, st);
+      if (status == 0)
+        status = stage_gemm_bf16(
+            conv_loader_bf16(r, sc_r, sh_r, N, H, W, C, 3, 1, 1, 1, H, W, true, act), w2, s,
+            part, C, ws, splits1, st);
+      return status != 0 ? status : stage_sums(part, sums_s, C, M, st);
+    case 2:
+      status = launch_sums_affine(sums_s, g2, b2, sc_s, sh_s, C, m_rows, eps, st);
+      if (status == 0)
+        status = stage_gemm_bf16(
+            conv_loader_bf16(s, sc_s, sh_s, N, H, W, C, 1, 1, 0, 0, H, W, true, act), w3, eb,
+            part, C4, ws, splits2, st);
+      return status != 0 ? status : stage_sums(part, sums_e, C4, M, st);
+    case 3:
+      status = launch_sums_affine(sums_e, g3, b3, sc_e, sh_e, C4, m_rows, eps, st);
+      return status != 0 ? status
+                         : launch_join(static_cast<const __nv_bfloat16*>(e), x, out, M * C4,
+                                       C4, JoinIdentity{{sc_e, sh_e}, act}, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // K10-bf16's stage GEMM alone, with rt_fused_conv_bf16's arguments: y and

@@ -24,6 +24,16 @@ Engines, per conv site (``_conv_site``):
 ``models.resnet.forward`` routes here in training with NHWC, bn_mode
 'batch' and no ghost BN; every other case runs the standard path.
 
+Inside ``kernels.bn.sync_stats`` (the data-parallel 'auto' step across
+ranks) every BN layer's statistics are the global batch's, as the JAX
+package's pjit step computes them: each conv site's [Σy, Σy²] and its row
+count go through ``kernels.bn.sum_stats`` (one float64 all-reduce of the
+group, the sums' cotangents summed in the backward) before the statistics
+and the next prologue's (scale, shift) are taken from them; K8 itself does
+not change, its sums being complete when the launch ends. The stems take
+``kernels.bn.moments`` (K4's raw sums) or ``ops.batch_moments`` (the plain
+sums), which sum over the group themselves.
+
 Dtypes as in resnet_tpu/models/fused_resnet.py:100-239: the images are
 cast to the compute dtype at the stem (:110); the stem's statistics are
 K4's fp32 ones and its affine rows fp32 from the upcast γ and β
@@ -53,12 +63,13 @@ from ..kernels.fused_conv import (
     fused_join_reference,
 )
 from ..ops import batch_moments, conv2d, global_avg_pool, linear, max_pool
+from ..parallel.tensor_parallel import head_in, head_out
 
 # (input H, Cin, Cout, k, stride) of the sites where 'hybrid' takes K8
 FUSED_SITES: frozenset = frozenset()
 
 
-def _stats(sums, m: int):
+def _stats(sums, m):
     """Detached (mean, biased var) from [Σy, Σy²] over m rows."""
     sums = sums.detach()
     return _kbn.mean_var_from_sums(sums[0], sums[1], m)
@@ -96,7 +107,8 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
         on = affine is not None
         y, sums = _conv_site(inp, bp[conv]["w"], scale, shift, stride, on, on,
                              cap if on else None, ecfg)
-        m = y.shape[0] * y.shape[1] * y.shape[2]
+        # inside kernels.bn.sync_stats, the sums and rows of every rank
+        sums, m = _kbn.sum_stats(sums, y.shape[0] * y.shape[1] * y.shape[2])
         bstats[bn] = _stats(sums, m)
         return y, bn_affine_from_sums(sums, bp[bn]["gamma"], bp[bn]["beta"], m, eps)
 
@@ -135,5 +147,5 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
         block_stats.append(bstats)
     stats["blocks"] = block_stats
 
-    logits = linear(global_avg_pool(out), params["fc"]["w"], params["fc"].get("b"))
-    return logits.to(torch.float32), {"bn_stats": stats}
+    logits = linear(head_in(global_avg_pool(out)), params["fc"]["w"], params["fc"].get("b"))
+    return head_out(logits.to(torch.float32)), {"bn_stats": stats}

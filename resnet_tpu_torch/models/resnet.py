@@ -15,7 +15,13 @@ with the running statistics (``bn_state``); ``bn_mode='off'`` skips the
 normalization as in the JAX package. With ``bn_stats_batch = k`` below the
 batch (ghost BN) a training BN takes its statistics from the first k images
 (``ops.batchnorm.batch_norm_ghost``), ahead of the engine dispatch, as JAX's
-``_bn_apply`` does (models/resnet.py:95-108). ``forward`` trains by default
+``_bn_apply`` does (models/resnet.py:95-108). Inside
+``kernels.bn.sync_stats`` (the data-parallel 'auto' step) every batch
+statistic is the global batch's, whatever computes it (K4, the plain sums,
+K8, ``conv_chain``, K10, ghost BN), and k is compared with the global
+batch. The FC head goes through ``parallel.tensor_parallel``'s
+``head_in`` and ``head_out``, the identity outside its ``fc_head`` (the
+composite grid's split head). ``forward`` trains by default
 (``train=True``), as the JAX package's does. ``ExecutionConfig.conv_kernels``
 picks the conv engine and ``ExecutionConfig.kernels`` the BN statistics,
 join and FC engine (``ops.dispatch``). The fused engines (``kernels``
@@ -99,12 +105,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ExecutionConfig, ModelConfig
+from ..kernels.bn import sample_rows
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.batchnorm import batch_norm_ghost
 from ..ops.conv import channel_dim, conv2d
 from ..ops.dispatch import bn_act, bn_stats, conv as _dispatch_conv, fc, residual_join
 from ..ops.precision import precision_scope
 from ..ops.space_to_depth import s2d_stem_conv
+from ..parallel.tensor_parallel import head_in, head_out
 
 _FUSED_ENGINES = ("fused", "hybrid", "fusedxla")
 
@@ -142,6 +150,12 @@ def _taped(tape, name, t):
     return t
 
 
+def _bn_batch(x) -> int:
+    """The images BN's batch statistics are over: x's, or inside
+    ``kernels.bn.sync_stats`` those of the group's global batch."""
+    return sample_rows(x.shape[0])[0]
+
+
 def _bn_stats(x, state, *, ecfg, train):
     """The statistics a BN layer normalizes with, ahead of its apply: the
     running ones in eval and frozen mode, else the batch's (K4 under
@@ -153,7 +167,7 @@ def _bn_stats(x, state, *, ecfg, train):
         if state is None:
             raise ValueError("eval-mode/frozen BN requires running statistics")
         return state["mean"], state["var"]
-    if 0 < ecfg.bn_stats_batch < x.shape[0]:
+    if 0 < ecfg.bn_stats_batch < _bn_batch(x):
         return None  # ghost BN
     return bn_stats(x, engine=ecfg.kernels, layout=ecfg.layout)
 
@@ -199,18 +213,18 @@ def _block_fused_eligible(bp, stride, mcfg, ecfg, train) -> bool:
 
 def _whole_block(bp, x, *, mcfg, ecfg):
     """One stride-1 identity bottleneck through ``block_fused`` in the
-    compute dtype; its batch statistics from the kernel's sums, detached
+    compute dtype; its batch statistics from the kernel's sums over the rows
+    they count (inside ``kernels.bn.sync_stats``, the group's), detached
     (models/resnet.py:143-168)."""
     from ..kernels.block_fused import block_fused, bn_stats_from_sums
 
     w1, w3 = bp["reduce"]["w"], bp["expand"]["w"]
-    out, *sums = block_fused(
+    out, *sums, m = block_fused(
         x.to(ecfg.cdtype), w1.reshape(w1.shape[-2], w1.shape[-1]), bp["spatial"]["w"],
         w3.reshape(w3.shape[-2], w3.shape[-1]),
         bp["bn_reduce"]["gamma"], bp["bn_reduce"]["beta"],
         bp["bn_spatial"]["gamma"], bp["bn_spatial"]["beta"],
-        bp["bn_expand"]["gamma"], bp["bn_expand"]["beta"], mcfg.bn_eps, ecfg.relu_cap)
-    m = x.shape[0] * x.shape[1] * x.shape[2]
+        bp["bn_expand"]["gamma"], bp["bn_expand"]["beta"], mcfg.bn_eps, ecfg.relu_cap, True)
     return out, {name: bn_stats_from_sums(s.detach(), m)
                  for name, s in zip(("bn_reduce", "bn_spatial", "bn_expand"), sums)}
 
@@ -380,8 +394,8 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
         out, stats["blocks"] = run_blocks(out, 0, mcfg.num_blocks)
 
     pooled = global_avg_pool(out, layout=ecfg.layout)
-    logits = fc(pooled, params["fc"]["w"], params["fc"].get("b"),
-                engine=ecfg.kernels).to(torch.float32)
+    logits = head_out(fc(head_in(pooled), params["fc"]["w"], params["fc"].get("b"),
+                         engine=ecfg.kernels).to(torch.float32))
     aux: Dict[str, Any] = {"bn_stats": stats}
     if capture:
         for i, bt in enumerate(block_tapes):

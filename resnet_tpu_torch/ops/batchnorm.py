@@ -23,6 +23,11 @@ whose backward is the JAX package's closed form, with no slice transpose:
 
 with the full-batch sums dbeta = sum(dy), dgamma = sum(dy * x_hat) and
 m_k = k*H*W. It is plain torch ops on every device, as JAX's is XLA's.
+Inside ``kernels.bn.sync_stats`` the sample is the first k images of the
+statistics group's global batch: each rank sums the rows it holds of them
+(perhaps none) and the group sums the sums (``kernels.bn.summed``); the
+backward's sums dbeta and dgamma in the correction are the group's, the
+parameter gradients this rank's.
 ``batch_norm_ghost_reference`` is its plain counterpart: autograd of the
 sliced-moments formulation.
 """
@@ -33,7 +38,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..kernels.bn import moments_plain, moments_reference
+from ..kernels.bn import (
+    mean_var_from_sums,
+    moments_plain,
+    moments_reference,
+    moments_sums_reference,
+    sample_rows,
+    stats_group,
+    summed,
+)
 from .conv import channel_dim
 
 
@@ -78,24 +91,45 @@ def batch_norm(
 
 
 class _GhostBatchNorm(torch.autograd.Function):
-    """y = x * scale + shift with the statistics of x[:k]; returns
-    (y, mean, var). The backward is the closed form of
-    ops/batchnorm.py:146-190, the statistics' own cotangents included."""
+    """y = x * scale + shift with the statistics of the first k images;
+    returns (y, mean, var). The backward is the closed form of
+    ops/batchnorm.py:146-190, the statistics' own cotangents included.
+
+    With ``reduce`` (a statistics group's in-place sum, ``kernels.bn.
+    sync_stats``) the k images are the first of the group's global batch,
+    of which x holds the rows from ``first`` on: this rank sums those of
+    its rows that are in the sample (perhaps none), and the group sums the
+    sums and their row count. The backward's correction takes the group's
+    full-batch sums of dy and dy * x_hat and the group's statistics'
+    cotangents (one all-reduce); the gradients of gamma and beta stay this
+    rank's, which the step's gradient bucket sums."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, k, layout):
+    def forward(ctx, x, gamma, beta, eps, k, layout, reduce=None, first=0):
         f32 = torch.float32
         shape = _param_shape(x.dim(), layout)
+        cdim = channel_dim(layout)
+        # the rows of x in the stats sample
+        k_here = min(max(k - first, 0), x.shape[0])
         # the one-pass sums of ops/batchnorm.py:52-58 over the first k images
-        if layout == "NHWC":
-            mean, var = moments_reference(x[:k].reshape(-1, x.shape[-1]))
+        if reduce is None:
+            m_k = k * (x[:1].numel() // x.shape[cdim])
+            if layout == "NHWC":
+                mean, var = moments_reference(x[:k].reshape(-1, x.shape[-1]))
+            else:
+                mean, var = moments_reference(x[:k], cdim)
         else:
-            mean, var = moments_reference(x[:k], channel_dim(layout))
+            part = x[:k_here]
+            sums = torch.stack(moments_sums_reference(
+                part.reshape(-1, x.shape[-1]) if layout == "NHWC" else part,
+                -1 if layout == "NHWC" else cdim))
+            total, m_k = summed(reduce, sums, part.numel() // x.shape[cdim])
+            mean, var = mean_var_from_sums(total[0], total[1], m_k)
         inv_std = torch.rsqrt(var + eps)
         scale = gamma.to(f32) * inv_std
         shift = beta.to(f32) - gamma.to(f32) * mean * inv_std
         y = (x.to(f32) * scale.view(shape) + shift.view(shape)).to(x.dtype)
-        ctx.k, ctx.layout = k, layout
+        ctx.k, ctx.layout, ctx.m_k, ctx.reduce = k_here, layout, m_k, reduce
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, gamma, mean, inv_std)
         return y, mean, var
@@ -103,12 +137,11 @@ class _GhostBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, gamma, mean, inv_std = ctx.saved_tensors
-        k = ctx.k
+        k, m_k, reduce = ctx.k, ctx.m_k, ctx.reduce
         f32 = torch.float32
         shape = _param_shape(x.dim(), ctx.layout)
         cdim = channel_dim(ctx.layout)
         axes = tuple(d for d in range(x.dim()) if d != cdim)
-        m_k = k * (x[:1].numel() // x.shape[cdim])
         gamma, mean, inv_std = gamma.view(shape), mean.view(shape), inv_std.view(shape)
         xf = x.to(f32)
         dyf = torch.zeros_like(xf) if dy is None else dy.to(f32)
@@ -116,11 +149,20 @@ class _GhostBatchNorm(torch.autograd.Function):
         # full-batch sums: these are the parameter gradients
         dbeta = dyf.sum(axes)
         dgamma = (dyf * xhat).sum(axes)
+        sum_beta, sum_gamma = dbeta, dgamma
+        if reduce is not None:
+            # the group's full-batch sums and statistics' cotangents
+            c = dbeta.numel()
+            zero_c = torch.zeros(c, dtype=f32, device=x.device)
+            both = torch.cat([dbeta, dgamma, zero_c if dmean is None else dmean.to(f32),
+                              zero_c if dvar is None else dvar.to(f32)])
+            reduce(both)
+            sum_beta, sum_gamma, dmean, dvar = both.view(4, c).unbind(0)
         # the stats-sample mask: the first k images along dim 0
         in_sample = (torch.arange(x.shape[0], device=x.device) < k).view(
             (-1,) + (1,) * (x.dim() - 1))
         zero = torch.zeros((), dtype=f32, device=x.device)
-        corr = (dbeta.view(shape) + xhat * dgamma.view(shape)) / m_k
+        corr = (sum_beta.view(shape) + xhat * sum_gamma.view(shape)) / m_k
         dx = gamma.to(f32) * inv_std * (dyf - torch.where(in_sample, corr, zero))
         if dmean is not None:
             dx = dx + torch.where(in_sample, dmean.to(f32).view(shape) / m_k, zero)
@@ -128,7 +170,7 @@ class _GhostBatchNorm(torch.autograd.Function):
             dx = dx + torch.where(in_sample,
                                   dvar.to(f32).view(shape) * 2.0 * (xf - mean) / m_k, zero)
         return (dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
-                None, None, None)
+                None, None, None, None, None)
 
 
 def batch_norm_ghost(
@@ -143,11 +185,18 @@ def batch_norm_ghost(
     """Ghost BN (Hoffer et al. 2017): statistics from the first
     ``stats_batch`` images, normalization over the whole batch. Returns
     (y, (mean, var)); a stats sample of 0 or of the whole batch is plain
-    ``batch_norm``."""
+    ``batch_norm``. Inside ``kernels.bn.sync_stats`` the batch is the
+    group's global batch (``kernels.bn.sample_rows``)."""
     k = int(stats_batch)
-    if k <= 0 or k >= x.shape[0]:
+    n_all, first = sample_rows(x.shape[0])
+    if k <= 0 or k >= n_all:
         return batch_norm(x, gamma, beta, eps=eps, layout=layout)
-    y, mean, var = _GhostBatchNorm.apply(x, gamma, beta, eps, k, layout)
+    group = stats_group()
+    if group is None:
+        y, mean, var = _GhostBatchNorm.apply(x, gamma, beta, eps, k, layout)
+    else:
+        y, mean, var = _GhostBatchNorm.apply(x, gamma, beta, eps, k, layout, group.reduce,
+                                             first)
     return y, (mean, var)
 
 

@@ -1,12 +1,16 @@
-"""Data parallelism on torch.distributed: the port of resnet_tpu.parallel.
+"""Data and tensor parallelism on torch.distributed: the port of
+resnet_tpu.parallel.
 
 One process drives one device; the ranks form the data group
 (``make_mesh``), each training on its rows of the global batch
 (``shard_batch``). The 'auto' step (``train.make_train_step`` with a mesh)
-is the global-batch step, BN statistics summed over the ranks;
-``make_shard_map_train_step`` the explicit-sum step with local BN;
-``zero_shardings`` the ZeRO plan. The data x model mesh and spatial
-partitioning raise NotImplementedError naming ROADMAP.md queue A item A13.
+is the global-batch step, BN statistics summed over the ranks on every
+engine; ``make_shard_map_train_step`` the explicit-sum step with local BN;
+``zero_shardings`` the ZeRO plan. ``make_mesh_2d`` is the data x model grid
+and ``composite_shardings`` its plan, the FC head split over the model
+group (``tensor_parallel``), for ``train.make_train_step(cfg, mesh,
+state_shardings=plan)``. Spatial partitioning raises NotImplementedError
+naming ROADMAP.md queue A item A13.
 """
 
 from .data_parallel import make_shard_map_train_step

@@ -1,26 +1,37 @@
-"""The data group of ranks and placement helpers: the port of
-resnet_tpu.parallel.mesh, the 1-D data layout.
+"""The groups of ranks and placement helpers: the port of
+resnet_tpu.parallel.mesh.
 
-A ``Mesh`` here is the ranks of the default ``torch.distributed`` group on
-one axis, ``data``: each rank holds its rows of the global batch and a
-replica (or, under ZeRO, its shards) of the state. Its collectives are
-explicit calls on that group: ``sum_`` (an in-place all-reduce SUM, the role
-of ``jax.lax.psum``), ``sum_tree`` (one flat fp32 bucket for a list of
-tensors) and ``broadcast_``. The data x model mesh with a tensor-parallel FC
-head and the spatial (H-sharded) layout raise NotImplementedError naming
-ROADMAP.md queue A item A13.
+A ``Mesh`` is the ranks of one ``torch.distributed`` group on one axis: the
+default group's, ``data`` (``make_mesh``), each rank holding its rows of
+the global batch and a replica (or, under ZeRO, its shards) of the state;
+or a subgroup of a grid. Its collectives are explicit calls on its group:
+``sum_`` (an in-place all-reduce SUM, the role of ``jax.lax.psum``),
+``sum_tree`` (one flat fp32 bucket for a list of tensors), ``broadcast_``
+and ``all_gather``.
+
+``make_mesh_2d(data, model)`` is JAX's composite grid of data x model
+ranks, the model axis innermost (rank = d * model + m): a ``Mesh2D`` whose
+``data`` is this rank's data group (the ranks of its model index, where
+the gradients and BN statistics are summed) and ``model`` its model group
+(the ranks of its data index, which hold the same rows and split the FC
+head). ``composite_shardings`` is JAX's rule for that grid: every leaf on a
+path through ``fc`` whose last dimension the model size divides is split
+on that dimension over the model group, every other leaf replicated. The
+spatial (H-sharded) layout raises NotImplementedError naming ROADMAP.md
+queue A item A13.
 
 ``zero_shardings`` is JAX's ZeRO rule, leaf by leaf: each leaf of at least
 ``min_bytes`` is sharded on its largest dimension that the ranks divide
-(ties to the last), scalars and small leaves replicated. The plan it returns
-has the state's nesting, with the sharded dimension (an int) or None at each
-leaf.
+(ties to the last), scalars and small leaves replicated. Each plan returned
+has the state's nesting, with the sharded dimension (an int) or None at
+each leaf; a mesh's ``shards`` is the group a plan's shards are split over
+(the data group of a ``Mesh``, the model group of a ``Mesh2D``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,15 +41,22 @@ from ..config import ROADMAP_PARALLEL, not_ported
 
 @dataclass(frozen=True)
 class Mesh:
-    """The ranks of the default group on one axis."""
+    """The ranks of a group on one axis: the default group (``group``
+    None), or a subgroup of a grid. ``rank`` is this rank's index in it."""
 
     size: int
     rank: int
     axis: str = "data"
+    group: Optional[dist.ProcessGroup] = field(default=None, compare=False, repr=False)
+
+    @property
+    def shards(self) -> "Mesh":
+        """The group a state plan's shards are split over: this one."""
+        return self
 
     def sum_(self, t: torch.Tensor) -> None:
         """Sum ``t`` over the ranks, in place."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
 
     def sum_tree(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """The sums over the ranks of ``tensors`` (of any float dtype), by one
@@ -56,20 +74,57 @@ class Mesh:
             at += n
         return out
 
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``t`` (of one shape on all), in rank order."""
+        flat = t.contiguous()
+        gathered = torch.empty((self.size,) + tuple(flat.shape), dtype=flat.dtype,
+                               device=flat.device)
+        parts = list(gathered.unbind(0))
+        dist.all_gather(parts, flat, group=self.group)
+        return parts
+
     def broadcast_(self, tensors: List[torch.Tensor], src: int = 0) -> None:
         """Rank ``src``'s values into ``tensors`` on every rank, in place (the
         tensors keep their storage), one broadcast per dtype."""
+        if self.group is not None:
+            src = dist.get_global_rank(self.group, src)
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for t in tensors:
             by_dtype.setdefault(t.dtype, []).append(t)
         for group in by_dtype.values():
             flat = torch.cat([t.reshape(-1) for t in group])
-            dist.broadcast(flat, src=src)
+            dist.broadcast(flat, src=src, group=self.group)
             at = 0
             with torch.no_grad():
                 for t in group:
                     t.copy_(flat[at:at + t.numel()].view(t.shape))
                     at += t.numel()
+
+
+@dataclass(frozen=True)
+class Mesh2D:
+    """A grid of data x model ranks, the model axis innermost (rank = d *
+    model + m): ``data`` this rank's data group (index d), ``model`` its
+    model group (index m), ``rank`` its rank in the default group."""
+
+    data: Mesh
+    model: Mesh
+    rank: int
+    axis_names: Tuple[str, str] = ("data", "model")
+
+    @property
+    def size(self) -> int:
+        return self.data.size * self.model.size
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: self.data.size, self.axis_names[1]: self.model.size}
+
+    @property
+    def shards(self) -> Mesh:
+        """The group a state plan's shards are split over: the model group
+        (``composite_shardings``)."""
+        return self.model
 
 
 def make_mesh(num_devices: int = 0, axis: str = "data") -> Mesh:
@@ -173,12 +228,64 @@ def zero_shardings(state, mesh: Mesh, axis: str = "data", min_bytes: int = 2 ** 
     return _tree_map(assign, state)
 
 
-def make_mesh_2d(data: int, model: int, devices=None, axes=("data", "model")):
-    raise not_ported("the data x model mesh (make_mesh_2d)", ROADMAP_PARALLEL)
+def make_mesh_2d(data: int, model: int, axes=("data", "model")) -> Mesh2D:
+    """The data x model grid of JAX's ``make_mesh_2d`` over every rank of
+    the default group, the model axis innermost: one process group for
+    each data index (its model group) and one for each model index (its
+    data group), made by every rank in the same order. With ``axes`` =
+    ("data", "spatial") the same grid, for the spatial helpers, which raise
+    (A13)."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh_2d: no torch.distributed process group; start the ranks with "
+            "torchrun or parallel.initialize_distributed")
+    n, world = data * model, dist.get_world_size()
+    if n > world:
+        raise ValueError(f"mesh wants {data}x{model}={n} devices, only {world} available")
+    if n != world:
+        raise ValueError(f"mesh wants {data}x{model}={n} devices, but {world} ranks are "
+                         "running (one rank drives one device)")
+    rank = dist.get_rank()
+    d, m = divmod(rank, model)
+    model_groups = [dist.new_group(list(range(i * model, (i + 1) * model)))
+                    for i in range(data)]
+    data_groups = [dist.new_group(list(range(j, n, model))) for j in range(model)]
+    return Mesh2D(data=Mesh(data, d, axes[0], data_groups[m]),
+                  model=Mesh(model, m, axes[1], model_groups[d]), rank=rank,
+                  axis_names=tuple(axes))
 
 
-def composite_shardings(state, mesh, model_axis: str = "model"):
-    raise not_ported("the tensor-parallel FC head (composite_shardings)", ROADMAP_PARALLEL)
+def _tree_map_path(fn: Callable, tree, path: Tuple = ()):
+    """fn(path, leaf) over the leaves of trees of NamedTuples, dicts, lists
+    and tuples, the path holding the dict keys and list indices on the way
+    (a NamedTuple's fields are not keys, as in JAX's tree paths); None
+    stays None."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map_path(fn, getattr(tree, f), path) for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _tree_map_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def composite_shardings(state, mesh: Mesh2D, model_axis: str = "model"):
+    """The plan of a state on the data x model grid
+    (``resnet_tpu.parallel.composite_shardings``): the state's nesting with,
+    at each leaf on a path through ``fc`` (the FC weights, bias and their
+    optimizer buffers) whose last dimension the model size divides, that
+    dimension, split over the model group; None (replicated) elsewhere."""
+    size = mesh.shape[model_axis]
+
+    def assign(path, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if "fc" in path and shape and shape[-1] % size == 0:
+            return len(shape) - 1
+        return None
+
+    return _tree_map_path(assign, state)
 
 
 def spatial_batch_specs(data_axis: str = "data", spatial_axis: str = "spatial",

@@ -1,5 +1,7 @@
-"""Cutting state into ZeRO shards and gathering it back: the port of
-resnet_tpu.parallel.multihost.
+"""Cutting state into ZeRO shards (or the composite grid's FC slices) and
+gathering it back: the port of resnet_tpu.parallel.multihost. The parts are
+split over the mesh's ``shards`` group: the data group of a ``Mesh``, the
+model group of a ``Mesh2D``.
 
 ``put_global(tree, plan, mesh)`` cuts each leaf the plan shards into this
 rank's part along the planned dimension, as an owned contiguous tensor that
@@ -23,10 +25,11 @@ from .mesh import Mesh, _tree_map
 
 
 def shard_of(leaf: torch.Tensor, dim: Optional[int], mesh: Mesh) -> torch.Tensor:
-    """This rank's part of ``leaf`` along ``dim``, contiguous; the leaf
-    itself where ``dim`` is None."""
+    """This rank's part of ``leaf`` along ``dim`` over the mesh's plan group
+    (``Mesh.shards``), contiguous; the leaf itself where ``dim`` is None."""
     if dim is None:
         return leaf
+    mesh = mesh.shards
     k = leaf.shape[dim] // mesh.size
     return leaf.narrow(dim, mesh.rank * k, k).contiguous()
 
@@ -47,6 +50,7 @@ def fetch_global(tree, plan=None, mesh: Optional[Mesh] = None):
     ranks); the tree itself without a plan."""
     if plan is None or mesh is None:
         return tree
+    mesh = mesh.shards
     sharded: List[tuple] = []
     _tree_map(lambda leaf, dim: sharded.append((leaf, dim))
               if dim is not None and isinstance(leaf, torch.Tensor) else None, tree, plan)
@@ -55,10 +59,7 @@ def fetch_global(tree, plan=None, mesh: Optional[Mesh] = None):
     for leaf, dim in sharded:
         by_dtype.setdefault(leaf.dtype, []).append((leaf, dim))
     for group in by_dtype.values():
-        flat = torch.cat([leaf.reshape(-1) for leaf, _ in group])
-        gathered = torch.empty(mesh.size * flat.numel(), dtype=flat.dtype, device=flat.device)
-        parts = list(gathered.chunk(mesh.size))
-        dist.all_gather(parts, flat)
+        parts = mesh.all_gather(torch.cat([leaf.reshape(-1) for leaf, _ in group]))
         at = 0
         for leaf, dim in group:
             n = leaf.numel()

@@ -15,7 +15,11 @@ What it runs (``spec`` keys; a spec may hold both, run in this order):
 batch (``spec["batch"]``), each case of ``spec["cases"]`` runs its steps on
 this rank's rows (``parallel.shard_batch``): mode 'auto' (the global-batch
 step) or 'shard_map' (local BN, explicit sums), with ``"zero"`` the
-ZeRO-sharded state. It records
+ZeRO-sharded state, with ``"mesh": [data, model]`` the composite step on
+``parallel.make_mesh_2d(data, model)`` with the FC head split by
+``parallel.composite_shardings`` (the rows of the rank's data index; the
+local FC shape and the plan recorded, and with ``"dump"`` a directory, a
+dump of the state after the steps). It records
 the launch counters' moves over the steps (the main path), the metrics, the
 whole parameters, running statistics and Adam moments after them (rank 0;
 those of the case's ``"keep"`` list where it has one), each rank's state
@@ -58,7 +62,13 @@ import torch.distributed as dist
 
 from .. import config as tcfg
 from ..bridge import flatten, tree_map
-from ..parallel import distributed, make_mesh, shard_batch
+from ..parallel import (
+    composite_shardings,
+    distributed,
+    make_mesh,
+    make_mesh_2d,
+    shard_batch,
+)
 from ..parallel.multihost import fetch_global, put_global
 
 
@@ -83,10 +93,15 @@ def _cpu(tree):
 
 
 def _counts():
-    """Every kernel's launch counter (``checks.KERNELS``)."""
-    from ..kernels import checks
+    """Every kernel's launch counter (``checks.KERNELS``), and K10's stage
+    calls (``block_fused.STAGE_LAUNCHES``, a block whose statistics are
+    summed over the ranks)."""
+    from ..kernels import block_fused, checks
 
-    return {name: getattr(mod, attr) for name, (mod, attr, _, _) in checks.KERNELS.items()}
+    counts = {name: getattr(mod, attr) for name, (mod, attr, _, _) in checks.KERNELS.items()}
+    counts["block_fused_stage"] = block_fused.STAGE_LAUNCHES
+    counts["block_fused_stage_bf16"] = block_fused.STAGE_LAUNCHES_BF16
+    return counts
 
 
 def _state(cfg, init, device):
@@ -139,10 +154,17 @@ def _step_case(case, spec, mesh, device, init):
     mode = cfg.parallel.mode
     state = _state(cfg, init, device)
     accum = cfg.execution.grad_accum if mode == "auto" else 1
-    batch = {k: v.to(device)
-             for k, v in shard_batch(spec["batch"], mesh, grad_accum=accum).items()}
     plan = None
     rec = {"replicated_state_bytes": state_bytes(state)}
+    if case.get("mesh"):
+        # the data x model grid, the FC head split over the model group
+        mesh = make_mesh_2d(*case["mesh"])
+        plan = composite_shardings(state, mesh)
+        state = put_global(state, plan, mesh)
+        rec["fc_shape"] = list(state.params["fc"]["w"].shape)
+        rec["plan"] = plan.params
+    batch = {k: v.to(device) for k, v in shard_batch(
+        spec["batch"], getattr(mesh, "data", mesh), grad_accum=accum).items()}
     if case.get("zero"):
         plan = zero_plan(state, mesh, cfg.parallel.zero_min_bytes)
         state = put_global(state, plan, mesh)
@@ -177,6 +199,13 @@ def _step_case(case, spec, mesh, device, init):
         for key in case.get("keep", kept):
             rec[key] = _cpu(kept[key])
     del whole
+    if case.get("dump"):
+        # the dump of a sharded state: rank 0 writes whole tensors
+        from ..data import ShardCursor
+        from ..train.checkpoint import save_checkpoint
+
+        rec["dump"] = save_checkpoint(case["dump"], int(state.step), state, ShardCursor(),
+                                      mesh=mesh, plan=plan)
     times = []
     for _ in range(case.get("time", 0)):
         _sync(device)

@@ -14,9 +14,10 @@ ranks' environment (``python -m torch.distributed.run --nproc-per-node N
 -m resnet_tpu_torch.train.cli ...``); ``--num-devices`` (0: every rank)
 must equal the ranks. ``--parallel-mode`` auto (the global-batch step, BN
 statistics over every rank) or shard_map (local BN, explicit sums) and
-``--zero-sharding`` run as in JAX; ``--spatial-devices`` > 1 raises
-NotImplementedError naming ROADMAP.md queue A item A13, as do, under 'auto'
-across ranks, the fused engines. ``--batch-size`` is one host's batch,
+``--zero-sharding`` run as in JAX, on every ``--kernels`` engine (under
+'auto' the BN statistics of the global batch on the fused and whole-block
+engines too); ``--spatial-devices`` > 1 raises NotImplementedError naming
+ROADMAP.md queue A item A13. ``--batch-size`` is one host's batch,
 which its ranks split. NCCL wants a GPU per rank; ranks that share a card
 take gloo.
 ``--space-to-depth`` folds the 7x7 stem as JAX's does. ``--int8`` with

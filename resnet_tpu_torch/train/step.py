@@ -18,7 +18,8 @@ Data parallelism (``mesh``, the data group of ``parallel.make_mesh``): the
 step is JAX's pjit ('auto') step on the global batch, with each rank given
 its own rows (``parallel.shard_batch``). Where the group has more than one
 rank and BN takes batch statistics, the statistics are the global batch's
-(``kernels.bn.sync_stats``: K4's raw sums and the row count summed over the
+on every engine and under ghost BN (``kernels.bn.sync_stats`` with the data
+group, ``stats_sum``: each layer's raw sums and row count summed over the
 ranks, and the statistics' cotangents in the backward). After the backward
 one all-reduce SUM of a flat bucket adds the gradients, the summed loss and
 the correct count over the ranks: the gradient is the summed CE's over the
@@ -30,6 +31,20 @@ so every rank keeps the same ones. With ``state_shardings`` (a ZeRO plan,
 parameters and of their optimizer buffers: the step all-gathers the whole
 parameters for the forward, takes each summed gradient's shard, and the
 optimizer (fused Adam, per-tensor Adam or SGD) updates the shards alone.
+
+On the data x model grid (``parallel.make_mesh_2d``) with
+``parallel.composite_shardings``'s plan, the step is JAX's composite one:
+the state holds this rank's slices of the FC head (weights, bias, optimizer
+buffers) on the class dimension; each data index's model ranks run the
+trunk on the same rows, K3 (or the plain product) on the class slice, and
+gather the fp32 logit slices over the model group
+(``parallel.tensor_parallel``), so the loss is the whole row's and
+replicated there; the features' cotangent is summed over the model group.
+The BN statistics, the gradients, the summed loss and the correct count are
+summed over the data group only (summing over every rank would count each
+row ``model`` times); ``grad_norm`` counts each FC slice's squares summed
+over the model group and every other leaf once; the optimizer updates each
+rank's own leaves.
 
 With ``cfg.parallel.mode == 'shard_map'`` the same step is JAX's
 explicit-collective one (``parallel.make_shard_map_train_step``): each rank
@@ -49,12 +64,14 @@ import numpy as np
 import torch
 
 from ..bridge import flatten, leaves, tree_map, unflatten
-from ..config import TrainConfig, check_parallel
-from ..kernels.bn import sync_stats
+from ..config import TrainConfig
+from ..kernels.bn import StatsGroup, sync_stats
 from ..models import forward
 from ..ops import cross_entropy, top1_accuracy, topk_accuracy, update_running_stats
 from ..ops.precision import precision_scope
 from ..optim import adam_update, adam_update_fused, make_schedule, sgd_update
+from ..parallel.mesh import Mesh2D
+from ..parallel.tensor_parallel import fc_head
 from .state import TrainState
 
 
@@ -174,20 +191,30 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None)
         return _train_step(state, batch, cfg, mesh, plan)
 
 
+def _groups(mesh):
+    """(data group, model group or None) of a mesh: a ``Mesh`` is the data
+    group, a ``Mesh2D`` (``parallel.make_mesh_2d``) both."""
+    if mesh is None:
+        return None, None
+    return (mesh.data, mesh.model) if isinstance(mesh, Mesh2D) else (mesh, None)
+
+
 def _local_bn(cfg: TrainConfig, mesh) -> bool:
     """True where each rank keeps its own BN statistics ('shard_map')."""
     return mesh is not None and cfg.parallel.mode == "shard_map"
 
 
 def stats_sum(cfg: TrainConfig, mesh):
-    """The in-place sum over ranks that BN statistics take in the 'auto'
-    step: the data group's where it has more than one rank and BN normalizes
-    with batch statistics, else None (this rank's own statistics, as under
-    'shard_map')."""
-    if (mesh is None or mesh.size == 1 or cfg.execution.bn_mode != "batch"
-            or _local_bn(cfg, mesh)):
+    """The statistics group that BN's batch statistics are summed over in
+    the 'auto' step (``kernels.bn.StatsGroup``): the data group, where it
+    has more than one rank and BN normalizes with batch statistics, else
+    None (this rank's own statistics, as under 'shard_map'). On a grid the
+    data group only: a model group's ranks hold the same rows."""
+    data, _ = _groups(mesh)
+    if (data is None or data.size == 1 or cfg.execution.bn_mode != "batch"
+            or _local_bn(cfg, data)):
         return None
-    return mesh.sum_
+    return StatsGroup(data.sum_, data.rank, data.size)
 
 
 def reduce_grads(mesh, grads, *scalars):
@@ -207,10 +234,27 @@ def _whole(params, mesh, plan):
     return fetch_global(params, plan.params, mesh)
 
 
+def _grad_norm(grads, head=None, plan=None):
+    """The norm of the whole gradient: with a split FC ``head`` (the model
+    group) each sliced leaf's squares summed over it, every other leaf's
+    once."""
+    squares = [torch.sum(torch.square(g.to(torch.float32))) for g in leaves(grads)]
+    if head is not None:
+        split = [dim is not None for _, dim in flatten(plan.params)]
+        parts = torch.stack([q for q, s in zip(squares, split) if s])
+        head.sum_(parts)
+        it = iter(parts.unbind(0))
+        squares = [next(it) if s else q for q, s in zip(squares, split)]
+    return torch.sqrt(sum(squares))
+
+
 def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None):
     batch = _on(batch, state.step.device)
-    params = _whole(state.params, mesh, plan)
-    with sync_stats(stats_sum(cfg, mesh)):
+    data, model = _groups(mesh)
+    # on a grid with a plan, the FC head's slices stay on their model ranks
+    head = model if plan is not None else None
+    params = state.params if head is not None else _whole(state.params, mesh, plan)
+    with sync_stats(stats_sum(cfg, mesh)), fc_head(head):
         if cfg.execution.grad_accum > 1:
             loss_sum, n_correct, grads, new_bn = _accum_grads(state, batch, cfg, params)
         else:
@@ -227,18 +271,17 @@ def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None
                 new_bn = state.bn_state
 
     batch_n = batch["labels"].shape[0]
-    if mesh is not None:
-        grads, loss_sum, n_correct = reduce_grads(mesh, grads, loss_sum, n_correct)
-        batch_n *= mesh.size
+    if data is not None:
+        grads, loss_sum, n_correct = reduce_grads(data, grads, loss_sum, n_correct)
+        batch_n *= data.size
     if _local_bn(cfg, mesh) and new_bn is not None:
         # each rank merged its own statistics: average them so the replicas
         # stay equal
         pairs = flatten(new_bn)
-        summed = mesh.sum_tree([t for _, t in pairs])
-        new_bn = unflatten((path, t / mesh.size) for (path, _), t in zip(pairs, summed))
-    grad_norm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                               for g in leaves(grads)))
-    if plan is not None:
+        summed = data.sum_tree([t for _, t in pairs])
+        new_bn = unflatten((path, t / data.size) for (path, _), t in zip(pairs, summed))
+    grad_norm = _grad_norm(grads, head, plan)
+    if plan is not None and head is None:
         from ..parallel.multihost import shard_of
 
         grads = unflatten((path, shard_of(g, dim, mesh)) for (path, g), (_, dim)
@@ -274,9 +317,12 @@ def eval_step(state: TrainState, batch, cfg: TrainConfig, mesh=None,
 def make_train_step(cfg: TrainConfig, mesh=None, state_shardings=None):
     """The train step bound to ``cfg``: step(state, batch); with a mesh the
     data-parallel step of ``cfg.parallel.mode``, with ``state_shardings`` on
-    a ZeRO-sharded state."""
-    if mesh is not None:
-        check_parallel(cfg, mesh.size)
+    a ZeRO-sharded state; with a data x model grid (``parallel.make_mesh_2d``,
+    'auto' only) and ``parallel.composite_shardings``'s plan, the composite
+    step on a state whose FC head is split over the model group."""
+    if isinstance(mesh, Mesh2D) and cfg.parallel.mode != "auto":
+        raise ValueError("the data x model mesh takes parallel.mode='auto' (JAX's "
+                         "composite step is its pjit step)")
     return functools.partial(train_step, cfg=cfg, mesh=mesh, plan=state_shardings)
 
 

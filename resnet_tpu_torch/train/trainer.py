@@ -21,8 +21,9 @@ Data parallelism: with a process group of more than one rank (torchrun, or
 ``parallel.initialize_distributed``), or ``num_devices > 1``, the Trainer
 runs on the data group (``parallel.make_mesh``), one rank per device (under
 NCCL ``cuda:<local rank>``, under gloo the device the caller names), with
-JAX's rejections and messages: ZeRO without a group, ZeRO under
-'shard_map', 'shard_map' with ``grad_accum > 1``. ``cfg.data.batch_size``
+JAX's rejections and messages: ZeRO without a group, ZeRO with
+``kernels='blockfused'``, ZeRO under 'shard_map', 'shard_map' with
+``grad_accum > 1``. ``cfg.data.batch_size``
 is one host's batch, as in JAX; a host's ranks split it evenly, so the
 global batch is ``batch_size`` x hosts and images/sec counts it (the JAX
 trainer counts one host's batch). From shards each rank reads a stream of
@@ -43,7 +44,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import torch
 
-from ..config import RESUME_LATEST, TrainConfig, check_parallel
+from ..config import RESUME_LATEST, TrainConfig
 from ..data import (
     ShardCursor,
     ShardDataset,
@@ -97,12 +98,20 @@ class Trainer:
                 "spatial_devices/zero_sharding need a device mesh, but "
                 "use_mesh is off (single device or --no-mesh)"
             )
+        if ((pcfg.spatial_devices > 1 or pcfg.zero_sharding)
+                and cfg.execution.kernels == "blockfused"):
+            # JAX's refusal (its Pallas calls have no SPMD partitioning
+            # rule), with its message: the port takes no such path either
+            raise ValueError(
+                "spatial_devices/zero_sharding are incompatible with "
+                "kernels='blockfused' (Pallas calls carry no SPMD "
+                "partitioning rule); use kernels='xla'"
+            )
         if not use_mesh and ranks > 1:
             raise ValueError(f"use_mesh is off but {ranks} ranks are running: each would "
                              "train alone on its own batches")
         self.mesh = make_mesh(pcfg.num_devices, pcfg.data_axis) if use_mesh else None
         if self.mesh is not None:
-            check_parallel(cfg, self.mesh.size)
             device = distributed.rank_device(torch.distributed.get_backend(), device)
             if pcfg.zero_sharding and pcfg.mode == "shard_map":
                 raise ValueError(

@@ -3,8 +3,9 @@
 ``build_config`` gives the JAX CLI's configs field for field (the port's
 ``ExecutionConfig`` drops the TPU-only fields) and the same parsed
 arguments, plus ``--device``, for a list of command lines, ``--variant``
-included (all six presets, bf16 and NCHW among them); each flag the port
-does not run yet raises NotImplementedError naming its ROADMAP.md queue A
+included (all six presets, bf16 and NCHW among them, the fused engines
+across ranks too); each flag the port does not run yet (spatial
+partitioning) raises NotImplementedError naming its ROADMAP.md queue A
 item. Then ``main`` with ``--device cpu`` trains the fused engine in bf16
 for a step and dumps it, and trains, evaluates, resumes the latest dump
 with async checkpoints and exports, as tests/test_cli.py drives the JAX
@@ -67,6 +68,9 @@ ARGVS = [
     ["--num-devices", "2", "--kernels", "pallas", "--conv-kernels", "pallas"],
     ["--parallel-mode", "shard_map", "--kernels", "fused"],
     ["--zero-sharding", "--no-mesh"],
+    # the fused engines under 'auto' across ranks, their statistics summed
+    ["--num-devices", "2", "--kernels", "fused"],
+    ["--zero-sharding", "--num-devices", "2", "--kernels", "fused"],
 ]
 
 
@@ -91,14 +95,11 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--num-devices", "2", "--kernels", "fused"], "A13"),
     (["--spatial-devices", "2"], "A13"),
-    (["--zero-sharding", "--num-devices", "2", "--kernels", "fused"], "A13"),
     (["--parallel-mode", "shard_map", "--spatial-devices", "2"], "A13"),
 ])
 def test_unported_flags_name_their_item(argv, item):
-    """What the data-parallel slice does not run: spatial partitioning, and
-    the fused engines under 'auto' across ranks."""
+    """What the parallel slices do not run: spatial partitioning."""
     with pytest.raises(NotImplementedError, match=item):
         build_config(argv)
 

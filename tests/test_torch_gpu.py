@@ -22,7 +22,9 @@ Q1 also on the shapes its tiles and K splits must get right, Q3 on the
 edges of its halo tiles and column blocks and on ragged and misaligned
 shapes, and a quantized ResNet-50 and ResNeXt-50 forward
 against the plain int8 forward) with ``-k "qconv or quant_act or
-quantized"``.
+quantized"``, and what the parallel steps add (K10's stage entries against
+its one call, the statistics' sums Function on K8's sums, K3 on a class
+slice) with ``-k "stage_entries or sum_stats_on or class_slice"``.
 
 Without a CUDA device every test here skips.
 """
@@ -1703,3 +1705,87 @@ def test_exported_program_counts_the_eager_launches_on_cuda(cuda, tmp_path, kind
             assert (got - want).abs().max() <= 1e-3 * want.abs().max()
     with pytest.raises(ValueError, match="exported on cuda"):
         load_inference(str(tmp_path / "m.pt2"), device="cpu")
+
+
+def _identity_sum(t):
+    """A statistics group's sum over one rank: changes nothing."""
+
+
+# (label, x shape, C): ResNet-50's stage 1 and stage 4 identity blocks at
+# batch 16
+K10_STAGE_SHAPES = [("stage 1", (16, 56, 56, 256), 64), ("stage 4", (16, 7, 7, 2048), 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("label,shape,c", K10_STAGE_SHAPES,
+                         ids=[s[0] for s in K10_STAGE_SHAPES])
+def test_block_fused_stage_entries_are_the_one_call_bit_for_bit(cuda, dtype, label, shape, c):
+    """K10 one stage at a time (rt_block_fused_stage_*, the route of a block
+    whose statistics a group sums) under a sum that changes nothing gives
+    the one host call's out, r, s, e, sums and rows bit for bit, in four
+    stage calls and no one-call launch."""
+    from resnet_tpu_torch.kernels import block_fused
+
+    n, h, wd, c4 = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*size, scale=1.0):
+        return scale * torch.randn(*size, generator=gen, device="cuda")
+
+    x = torch.clamp_min(randn(n, h, wd, c4), 0.0).to(dtype)
+    ws = (randn(c4, c, scale=(2.0 / c4) ** 0.5), randn(3, 3, c, c, scale=(2.0 / (9 * c)) ** 0.5),
+          randn(c, c4, scale=(2.0 / c) ** 0.5))
+    rows = [t for width in (c, c, c4) for t in (1 + randn(width, scale=0.2),
+                                                randn(width, scale=0.5))]
+    one = block_fused.block_fused_forward(x, *ws, *rows, 1e-7, None)
+    suffix = "_BF16" if dtype is torch.bfloat16 else ""
+    calls, stages = (getattr(block_fused, f"{k}{suffix}") for k in ("LAUNCHES", "STAGE_LAUNCHES"))
+    staged = block_fused.block_fused_forward(x, *ws, *rows, 1e-7, None, _identity_sum)
+    torch.cuda.synchronize()
+    assert getattr(block_fused, f"LAUNCHES{suffix}") == calls
+    assert getattr(block_fused, f"STAGE_LAUNCHES{suffix}") == stages + 4
+    assert staged[-1].item() == n * h * wd
+    flat = [(t for t in (*out[:7], *out[7])) for out in (one, staged)]
+    assert all(torch.equal(a, b) for a, b in zip(*flat, strict=True))
+
+
+def test_sum_stats_on_k8_sums_is_one_process(cuda):
+    """The sums Function on K8's [Σy, Σy²] under a sum over one rank: the
+    forward gives K8's sums and row count, the backward the cotangent, bit
+    for bit, so a group of one computes one process's statistics."""
+    from resnet_tpu_torch.kernels import bn, fused_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(16, 28, 28, 128, generator=gen, device="cuda")
+    w = 0.05 * torch.randn(3, 3, 128, 128, generator=gen, device="cuda")
+    scale, shift = torch.ones(128, device="cuda"), torch.zeros(128, device="cuda")
+    _, sums = fused_conv.fused_conv(x, w, scale, shift, 1, None, False, False)
+    sums = sums.detach().requires_grad_(True)
+    with bn.sync_stats(_identity_sum):
+        total, m = bn.sum_stats(sums, 16 * 28 * 28)
+    assert torch.equal(total, sums.detach()) and m.item() == 16 * 28 * 28
+    cot = torch.randn(2, 128, generator=gen, device="cuda")
+    total.backward(cot)
+    assert torch.equal(sums.grad, cot)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_matmul_on_a_class_slice_is_the_whole_products_columns(cuda, dtype):
+    """K3 on the composite head's class slice, (16, 2048) @ (2048, 500): the
+    matching columns of K3 on the whole (2048, 1000) weight, within 1e-5 of
+    their max (the two calls may split K differently), and twice to the
+    same bits."""
+    from resnet_tpu_torch.kernels import matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(16, 2048, generator=gen, device="cuda").to(dtype)
+    w = (0.02 * torch.randn(2048, 1000, generator=gen, device="cuda")).to(dtype)
+    whole = matmul.matmul(x, w)
+    for part in range(2):
+        cols = w[:, part * 500:(part + 1) * 500].contiguous()
+        got = matmul.matmul(x, cols)
+        assert torch.equal(got, matmul.matmul(x, cols))
+        want = whole[:, part * 500:(part + 1) * 500].float()
+        err = (got.float() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item() + (
+            0 if dtype is torch.float32 else 2 ** -7 * want.abs().max().item()), err

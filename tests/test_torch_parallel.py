@@ -429,12 +429,6 @@ def test_cli_two_ranks_under_torchrun(tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(parallel=tcfg.ParallelConfig(spatial_devices=2)), "A13"),
-    (dict(execution=tcfg.ExecutionConfig(kernels="fused"),
-          parallel=tcfg.ParallelConfig(num_devices=2)), "A13"),
-    (dict(execution=tcfg.ExecutionConfig(kernels="blockfused"),
-          parallel=tcfg.ParallelConfig(num_devices=2)), "A13"),
-    (dict(execution=tcfg.ExecutionConfig(bn_stats_batch=2),
-          parallel=tcfg.ParallelConfig(num_devices=2)), "A13"),
 ])
 def test_unported_layouts_name_a13(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -447,10 +441,18 @@ def test_unported_layouts_name_a13(kw, match):
     dict(parallel=tcfg.ParallelConfig(num_devices=2, zero_sharding=True)),
     dict(execution=tcfg.ExecutionConfig(kernels="fused", bn_mode="frozen"),
          parallel=tcfg.ParallelConfig(num_devices=2)),
+    dict(execution=tcfg.ExecutionConfig(kernels="fused"),
+         parallel=tcfg.ParallelConfig(num_devices=2)),
+    dict(execution=tcfg.ExecutionConfig(kernels="blockfused"),
+         parallel=tcfg.ParallelConfig(num_devices=2)),
+    dict(execution=tcfg.ExecutionConfig(bn_stats_batch=2),
+         parallel=tcfg.ParallelConfig(num_devices=2)),
 ])
 def test_data_parallel_layouts_are_accepted(kw):
     """What runs: the fused engines under 'shard_map' (local BN), ZeRO, the
-    fused engines with BN frozen (no batch statistics to sum)."""
+    fused engines with BN frozen, and under 'auto' across ranks the fused
+    and whole-block engines and ghost BN (their statistics summed over the
+    ranks: tests/test_torch_parallel_engines.py)."""
     tcfg.TrainConfig(model=tcfg.tiny_model_config(), **kw)
 
 
@@ -524,10 +526,12 @@ def group_of_one(tmp_path):
 @pytest.mark.parametrize("kw", [
     dict(execution=dict(grad_accum=2), parallel=dict(mode="shard_map")),
     dict(parallel=dict(mode="shard_map", zero_sharding=True)),
-], ids=["shard_map-grad_accum", "shard_map-zero"])
+    dict(execution=dict(kernels="blockfused"), parallel=dict(zero_sharding=True)),
+], ids=["shard_map-grad_accum", "shard_map-zero", "zero-blockfused"])
 def test_trainer_rejections_carry_jax_messages(group_of_one, kw):
-    """'shard_map' with grad_accum=2 and ZeRO under 'shard_map' raise
-    ValueError with the JAX Trainer's own message."""
+    """'shard_map' with grad_accum=2, ZeRO under 'shard_map' and ZeRO with
+    kernels='blockfused' raise ValueError with the JAX Trainer's own
+    message, in a world of one too."""
     from resnet_tpu.train import Trainer as JTrainer
     from resnet_tpu_torch.train import Trainer
 
@@ -584,13 +588,17 @@ def test_a_backend_that_cannot_start_raises(tmp_path):
     assert distributed.initialize_distributed(num_processes=1, backend="gloo") is False
 
 
-def test_auto_step_across_ranks_refuses_rank_local_statistics():
-    """make_train_step with a mesh of two ranks refuses, naming A13, the
-    engines whose statistics it cannot sum over the ranks."""
-    cfg = _t_cfg(execution=dict(kernels="fused"))
-    make_train_step(cfg, Mesh(size=1, rank=0))
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(cfg, Mesh(size=2, rank=0))
+@pytest.mark.parametrize("execution", [
+    dict(kernels="fused"), dict(kernels="hybrid"), dict(kernels="fusedxla"),
+    dict(kernels="blockfused"), dict(KERNELS, bn_stats_batch=2)],
+    ids=["fused", "hybrid", "fusedxla", "blockfused", "ghost_bn"])
+def test_auto_step_across_ranks_takes_every_engine(execution):
+    """make_train_step with a mesh of two ranks takes the engines whose
+    statistics come from their own kernels and ghost BN: the step sums
+    their statistics over the ranks (tests/test_torch_parallel_engines.py)."""
+    cfg = _t_cfg(execution=execution)
+    for size in (1, 2):
+        make_train_step(cfg, Mesh(size=size, rank=0))
 
 
 def test_ranks_drive_the_card_unless_the_caller_names_the_cpu(tmp_path):
