@@ -272,15 +272,25 @@ Phases, each printing one JSON line:
      one-process step of the same engine at 32 by phase 5's rule (bf16 by
      phase 11's 2x gap to the engine's fp32 step); the composite step on
      four ranks (a 2 x 2 grid, the FC split in two: K3 on (16, 2048) @
-     (2048, 500)) against the one-process step (``_composite_checks``); NCCL
+     (2048, 500)) against the one-process step (``_composite_checks``); the
+     data x spatial steps (A13's item 3: each image's height split over the
+     spatial ranks, halo rows exchanged at the seams, K1 on each rank's
+     haloed tile with JAX's explicit padding) on a 1 x 2 grid in the two
+     ranks' start and a 2 x 2 grid in the four ranks' start, at the global
+     batch of 32: the 'pallas' path with conv_kernels='pallas' in fp32 and
+     bf16 and the plain path in fp32, each rank's counts phase 5's (on the
+     bf16 entries in bf16; Adam alone on the plain path), the ranks' metrics
+     and statistics equal, each held to the one-process step by phase 5's
+     rule, bf16 by phase 11's (``_spatial_checks``); NCCL
      in a world of one in this process: the data-parallel step equal to the step
      without a group bit for bit, and both timed in turns; where the machine
      has two cards or more, ``parallel_nccl`` (also run alone by --phases
      parallel_nccl): one NCCL rank a card (at most 4) at the global batch of
      32, 'auto' and frozen BN against the one-process step as above, each
      rank's counts phase 5's, ZeRO the replicated step's bits, 'fused' and
-     'blockfused' in fp32 and bf16 and the composite step on a 2 x (cards /
-     2) grid held as above, the step times of all of them, of 'shard_map'
+     'blockfused' in fp32 and bf16, the composite step on a 2 x (cards /
+     2) grid and the spatial 'pallas' step on 1 x cards and 2 x (cards / 2)
+     grids held as above, the step times of all of them, of 'shard_map'
      (no statistics' sums) and of one card at 32 and at a rank's rows, then the CLI under torchrun on those cards
      (NCCL, synthetic batches, 2 steps), its first loss that of one process;
      the Trainer from 2 shards of 64 procedural images, a dump every 2
@@ -295,7 +305,10 @@ Phases, each printing one JSON line:
      one card, each all-reduce through host memory (gloo), so they are no
      scaling figure.
 Phase 3 includes the clean variant's batch-224 shapes of K1 (the stem's
-forward, dx and dW), K2, K2b and K4 (the stem and stage 1), and the bf16
+forward, dx and dW), K2, K2b and K4 (the stem and stage 1), K1's tiles
+under spatial partitioning in fp32 and bf16, forward, dx and dW
+(``kernels.checks.TILE_CASES``: ResNet-50's at 224 on 2 and 4 ranks, JAX's
+explicit padding; the kernels line sums them apart as ``tiles``), and the bf16
 entry points' cases (``<name>_bf16`` in kernels.checks.KERNELS: ResNet-50's
 batch-8 serving and batch-32 training shapes, the stem, a 3x3/s2
 projection, a 1x1 expand, the four joins and the FC among them; for K5,
@@ -616,9 +629,13 @@ def _plan(build, name, case):
     others): tile, tiles and K splits (build.tc_split, build.wgb_split);
     the bf16 forward's A loader and dW's route; da and db blocks
     (build.matmul_bwd_plan, build.matmul_bwd_plan_bf16)."""
+    if name.startswith("conv2d"):  # a case's geometry: square, or a tile's rows
+        from resnet_tpu_torch.kernels import checks
+
+        n, (h, wd), cin, cout, k, s, pad, offset, (ho, wo) = checks.conv_case(case)
+        flat = pad is None or pad == ((0, 0), (0, 0))  # conv._flat at 1x1/s1
     if name == "conv2d":
-        _, n, h, cin, cout, k, s = case
-        m, bn = n * (h // s) ** 2, build.tc_tile_n(cout)
+        m, bn = n * ho * wo, build.tc_tile_n(cout)
         return {"tile": [build.TC_BM, bn], "tiles": -(-m // build.TC_BM) * -(-cout // bn),
                 "splits": build.tc_split(m, cout, k * k * cin)}
     if name == "matmul_bwd":
@@ -644,14 +661,12 @@ def _plan(build, name, case):
     if name == "conv2d_dw_bf16":  # the route, and on the wgmma core its slices
         from resnet_tpu_torch.kernels.conv import DW_NARROW, dw_bf16_route
 
-        _, n, h, cin, cout, k, s = case
-        route = dw_bf16_route(cin, cout, s)
+        route = dw_bf16_route(cin, cout, s, hw=(h, wd))
         if route == "mma":
-            return {"route": route, "splits": build.tc_split(k * k * cin, cout,
-                                                             n * (h // s) ** 2)}
+            return {"route": route, "splits": build.tc_split(k * k * cin, cout, n * ho * wo)}
         cin = max(cin, DW_NARROW)
-        slices = build.dw_slices(n, h // s, h // s, k, s)
-        return {"route": route, "box": build.dw_box(h // s, h // s), "slices": slices,
+        slices = build.dw_slices(n, ho, wo, k, s, flat)
+        return {"route": route, "box": build.dw_box(ho, wo), "slices": slices,
                 "tiles": -(-k * k * cin // build.WGB_BM) * -(-cout // build.wgb_tile_n(cout)),
                 "splits": build.wgb_split(k * k * cin, cout, build.WGB_BK * slices)}
     if name == "fused_conv_bf16":
@@ -662,22 +677,22 @@ def _plan(build, name, case):
     if name == "conv2d_bf16":  # the A loader, K splits and units of the persistent kernel
         from resnet_tpu_torch.kernels.conv import fwd_bf16_route
 
-        _, n, h, cin, cout, k, s, *offset = case
-        m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
+        m, bn = n * ho * wo, build.wgb_tile_n(cout)
         splits = build.tc_split(m, cout, k * k * cin)
         units = -(-m // build.WGB_BM) * -(-cout // bn) * splits
-        return {"a": fwd_bf16_route(m, cin, cout, k, s, not offset or offset[0] % 8 == 0),
+        left = None if pad is None else pad[1][0]
+        return {"a": fwd_bf16_route(m, cin, cout, k, s, offset % 8 == 0, splits, left, flat),
                 "tile": [build.WGB_BM, bn], "splits": splits,
                 "chunk": build.k_chunk(k * k * cin, splits, 16), "units": units,
                 "blocks": min(units, 132)}
     if name == "conv2d_dx_bf16":  # the loaders, phases, K splits and units of the persistent kernel
         from resnet_tpu_torch.kernels import conv
 
-        _, n, h, cin, cout, k, s = case
-        m, bn = n * h * h, build.wgb_tile_n(cin)
+        m, bn = n * h * wd, build.wgb_tile_n(cin)
         splits = conv.dx_splits(m, cin, cout, k, s)
-        units = -(-m // s // s // build.WGB_BM) * -(-cin // bn) * splits * s * s
-        return {"route": conv.dx_bf16_route(m, cin, cout, k, s), "tile": [build.WGB_BM, bn],
+        units = -(-n * -(-h // s) * -(-wd // s) // build.WGB_BM) * -(-cin // bn) * splits * s * s
+        return {"route": conv.dx_bf16_route(m, cin, cout, k, s, True, flat),
+                "tile": [build.WGB_BM, bn],
                 "splits": splits, "chunk": build.k_chunk(k * k * cout, splits, 16) if s == 1
                 else None, "phases": s * s, "units": units, "blocks": min(units, 132)}
     if name == "matmul_bf16":  # the loaders, tile, K splits and units of the persistent kernel
@@ -3345,58 +3360,69 @@ def _engine_checks(torch, ranks, state0, batch, kcfg, runs, what):
     nudge's change) and by phase 11's in bf16 (within 2x the one-process
     bf16-vs-fp32 gap of the engine, the gradients' at least 2^-8 or GRAD_SENS
     x the 1 +- 2^-8 nudge's change)."""
-    from resnet_tpu_torch.bridge import leaves
-    from resnet_tpu_torch.train import loss_and_grads
-
     out = {}
     for name, kernels, dtype, ghost in runs:
         cfg = _engine_cfg(kcfg, kernels, dtype, ghost)
-        case, label = ranks[0][name], f"{what} '{name}'"
-        expect = _engine_expect(cfg)
-        for r, rank in enumerate(ranks):
-            require(rank[name]["counts"] == expect, f"{label}: rank {r} moved the counters "
-                    f"by {rank[name]['counts']}, expected {expect}")
-        require(all(all(torch.equal(a, b) for a, b in zip(
-            leaves(case["bn_stats"]), leaves(r[name]["bn_stats"]), strict=True))
-            for r in ranks[1:]), f"{label}: the ranks' batch statistics differ")
-        loss, _, aux, g = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
-        got_stats, want_stats = _to_cuda(case["bn_stats"]), _bn_stats_tree(aux["bn_stats"])
-        rec = {"launches_per_rank": [rank[name]["counts"] for rank in ranks],
-               "step_loss": case["metrics"]["loss"]}
-        if dtype == "fp32":
-            sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g)
-            loss_err = abs(case["grad_loss_sum"] - loss.item()) / abs(loss.item())
-            require(loss_err <= LOSS_TOL, f"{label} summed loss {case['grad_loss_sum']} vs "
-                    f"one process {loss.item()}")
-            grad_err, grad_sens, nearest = _leaf_errors(
-                _to_cuda(case["grads"]), g, f"{label} gradient", GRAD_TOL, sens=sens)
-            stat_err = _leaf_errors(got_stats, want_stats, f"{label} batch statistic",
-                                    STAT_TOL, floor=1.0)[0]
-            rec.update(loss_rel_err=loss_err, grad_max_rel_err=grad_err,
-                       grad_max_err_over_sensitivity=grad_sens, grad_nearest_limit=nearest,
-                       batch_stats_max_err=stat_err)
-        else:
-            fcfg = _engine_cfg(kcfg, kernels, "fp32", ghost)
-            floss, _, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, fcfg)
-            sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g,
-                                      BF16_UNIT)
-
-            def pooled(lo, stats):
-                return {"loss": lo.reshape(1), "bn_stats": stats}
-
-            rec["loss_and_batch_stats"] = _gap_held(
-                pooled(torch.tensor(case["grad_loss_sum"], device="cuda"), got_stats),
-                pooled(loss, want_stats), pooled(floss, _bn_stats_tree(faux["bn_stats"])),
-                f"{label} loss and batch statistics")
-            rec["grads"] = _gap_held(_to_cuda(case["grads"]), g, fg, f"{label} grads",
-                                     BF16_UNIT, sens)
-            del fg, faux
-        del g, aux
-        step_ms = case.get("step_ms") or []
-        if step_ms:
-            rec["step_ms"] = float(np.median(step_ms))
-        out[name] = rec
+        fcfg = _engine_cfg(kcfg, kernels, "fp32", ghost) if dtype == "bf16" else None
+        out[name] = _side_path_checks(torch, ranks, name, state0, batch, cfg, fcfg,
+                                      _engine_expect(cfg), f"{what} '{name}'")[0]
     return out
+
+
+def _side_path_checks(torch, ranks, name, state0, batch, cfg, fcfg, expect, label):
+    """One run of ``ranks`` (a worker case with ``"grads"``) against this
+    process's one-process step of ``cfg`` on the whole batch: each rank's
+    counts ``expect``, the ranks' batch statistics equal bit for bit, and
+    the side path's summed loss, batch statistics and gradients by phase
+    5's rule in fp32 (``fcfg`` None) and by phase 11's in bf16 (within 2x
+    the one-process bf16-vs-fp32 gap, ``fcfg`` the fp32 config). Returns
+    (the record, the nudge sensitivity of the fp32 gradients or None)."""
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.train import loss_and_grads
+
+    case = ranks[0][name]
+    for r, rank in enumerate(ranks):
+        require(rank[name]["counts"] == expect, f"{label}: rank {r} moved the counters "
+                f"by {rank[name]['counts']}, expected {expect}")
+    require(all(all(torch.equal(a, b) for a, b in zip(
+        leaves(case["bn_stats"]), leaves(r[name]["bn_stats"]), strict=True))
+        for r in ranks[1:]), f"{label}: the ranks' batch statistics differ")
+    loss, _, aux, g = loss_and_grads(state0.params, batch, state0.bn_state, cfg)
+    got_stats, want_stats = _to_cuda(case["bn_stats"]), _bn_stats_tree(aux["bn_stats"])
+    rec = {"launches_per_rank": [rank[name]["counts"] for rank in ranks],
+           "step_loss": case["metrics"]["loss"]}
+    sens = None
+    if fcfg is None:
+        sens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g)
+        loss_err = abs(case["grad_loss_sum"] - loss.item()) / abs(loss.item())
+        require(loss_err <= LOSS_TOL, f"{label} summed loss {case['grad_loss_sum']} vs "
+                f"one process {loss.item()}")
+        grad_err, grad_sens, nearest = _leaf_errors(
+            _to_cuda(case["grads"]), g, f"{label} gradient", GRAD_TOL, sens=sens)
+        stat_err = _leaf_errors(got_stats, want_stats, f"{label} batch statistic",
+                                STAT_TOL, floor=1.0)[0]
+        rec.update(loss_rel_err=loss_err, grad_max_rel_err=grad_err,
+                   grad_max_err_over_sensitivity=grad_sens, grad_nearest_limit=nearest,
+                   batch_stats_max_err=stat_err)
+    else:
+        floss, _, faux, fg = loss_and_grads(state0.params, batch, state0.bn_state, fcfg)
+        bsens = _nudge_sensitivity(batch, state0.params, state0.bn_state, cfg, g, BF16_UNIT)
+
+        def pooled(lo, stats):
+            return {"loss": lo.reshape(1), "bn_stats": stats}
+
+        rec["loss_and_batch_stats"] = _gap_held(
+            pooled(torch.tensor(case["grad_loss_sum"], device="cuda"), got_stats),
+            pooled(loss, want_stats), pooled(floss, _bn_stats_tree(faux["bn_stats"])),
+            f"{label} loss and batch statistics")
+        rec["grads"] = _gap_held(_to_cuda(case["grads"]), g, fg, f"{label} grads",
+                                 BF16_UNIT, bsens)
+        del fg, faux
+    del g, aux
+    step_ms = case.get("step_ms") or []
+    if step_ms:
+        rec["step_ms"] = float(np.median(step_ms))
+    return rec, sens
 
 
 def _composite_checks(torch, ranks, state0, batch, kcfg, what):
@@ -3450,6 +3476,79 @@ def _composite_checks(torch, ranks, state0, batch, kcfg, what):
     if case.get("step_ms"):
         rec["step_ms"] = float(np.median(case["step_ms"]))
     return rec
+
+
+# A13's item 3: the data x spatial grid (the images' height split over the
+# spatial group) on the 'pallas' path with K1 on the haloed tiles, in fp32
+# and bf16, and on the plain path in fp32
+SPATIAL_RUNS = [("spatial pallas fp32", "pallas", "pallas", "fp32"),
+                ("spatial pallas bf16", "pallas", "pallas", "bf16"),
+                ("spatial xla fp32", "xla", "xla", "fp32")]
+
+
+def _spatial_cfg(kcfg, kernels, conv, dtype):
+    """kcfg under another engine, conv engine and compute dtype."""
+    import dataclasses
+
+    return dataclasses.replace(kcfg, execution=dataclasses.replace(
+        kcfg.execution, kernels=kernels, conv_kernels=conv,
+        compute_dtype="bfloat16" if dtype == "bf16" else "float32"))
+
+
+def _spatial_specs(kcfg, grid, runs=SPATIAL_RUNS, time_steps=0):
+    """Worker cases of ``runs`` on the data x spatial ``grid``: the side path
+    (forward and backward, then the bucket's sums) and one counted step."""
+    return [{"name": f"{name} {grid[0]}x{grid[1]}", "mesh": grid, "axes": ["data", "spatial"],
+             "grads": True, "time": time_steps,
+             "keep": ["params", "means", "bn_state"] if dtype == "fp32" else [],
+             "config": {"execution": _spec_config(
+                 _spatial_cfg(kcfg, kernels, conv, dtype))["execution"]}}
+            for name, kernels, conv, dtype in runs]
+
+
+def _spatial_checks(torch, ranks, state0, batch, kcfg, grid, runs, what):
+    """Each of ``runs`` on the data x spatial ``grid`` against this
+    process's one-process step on the whole batch: each rank's counts
+    phase 5's on the hand kernels (on the bf16 entries in bf16; Adam alone on
+    the plain path), the same metrics on every rank, the side path by
+    ``_side_path_checks``, and in fp32 the counted step's loss, Adam m,
+    running statistics and parameters by phase 5's rule (``_auto_checks``)."""
+    from resnet_tpu_torch.bridge import leaves
+    from resnet_tpu_torch.train import make_train_step
+
+    lr, b1 = kcfg.optimizer.learning_rate, kcfg.optimizer.beta1
+    out = {}
+    for name, kernels, conv, dtype in runs:
+        key = f"{name} {grid[0]}x{grid[1]}"
+        cfg = _spatial_cfg(kcfg, kernels, conv, dtype)
+        case, label = ranks[0][key], f"{what} {key}"
+        expect = ({k: v for k, v in PER_STEP.items() if k == "adam"} if kernels == "xla"
+                  else _on_bf16(PER_STEP) if dtype == "bf16" else dict(PER_STEP))
+        require(all(rank[key]["metrics"] == case["metrics"] for rank in ranks),
+                f"{label}: the ranks' metrics differ")
+        fcfg = _spatial_cfg(kcfg, kernels, conv, "fp32") if dtype == "bf16" else None
+        rec, sens = _side_path_checks(torch, ranks, key, state0, batch, cfg, fcfg, expect,
+                                      label)
+        rec["grid"] = grid
+        if fcfg is None:
+            ks, km = make_train_step(cfg)(_clone(state0), batch)
+            step_loss_err = abs(case["metrics"]["loss"] - km["loss"].item()) / km["loss"].item()
+            require(step_loss_err <= LOSS_TOL, f"{label} step loss {case['metrics']['loss']} "
+                    f"vs one process {km['loss'].item()}")
+            m_err, m_sens, _ = _leaf_errors(
+                _to_cuda(case["means"]), ks.opt_state.means, f"{label} step's adam m",
+                GRAD_TOL, sens={k: (1 - b1) * v for k, v in sens.items()})
+            run_err = _leaf_errors(_to_cuda(case["bn_state"]), ks.bn_state,
+                                   f"{label} step's running statistic", STAT_TOL, floor=1.0)[0]
+            p_abs = max((a - b).abs().max().item() for a, b in zip(
+                leaves(_to_cuda(case["params"])), leaves(ks.params), strict=True))
+            require(p_abs <= 2 * lr + 1e-6, f"{label} params differ by {p_abs} > 2 lr + 1e-6")
+            del ks
+            rec.update(step_loss_rel_err=step_loss_err, step_adam_m_max_rel_err=m_err,
+                       step_adam_m_max_err_over_sensitivity=m_sens,
+                       step_running_stats_max_err=run_err, param_max_abs_err=p_abs)
+        out[key] = rec
+    return out
 
 
 def phase_parallel(torch, smi):
@@ -3513,17 +3612,19 @@ def phase_parallel(torch, smi):
                      "config": {"parallel": {"mode": "shard_map"}}},
                     {"name": "zero", "time": 3, "zero": True, "keep": ["params", "means"],
                      "config": {"parallel": {"zero_sharding": True}}}]
-                + _engine_specs(kcfg, ENGINE_RUNS)}
+                + _engine_specs(kcfg, ENGINE_RUNS) + _spatial_specs(kcfg, [1, 2])}
         t0 = time.perf_counter()
         ranks = _ranks(spec, work, "steps")
         out["steps_spawn_s"] = time.perf_counter() - t0
         r0 = ranks[0]
-        # the composite step: four ranks on a 2 x 2 grid, the FC split in two
+        # the composite step: four ranks on a 2 x 2 grid, the FC split in two;
+        # the data x spatial steps on a 2 x 2 grid
         t0 = time.perf_counter()
         grid = _ranks({"config": spec["config"], "state": spec["state"],
                        "batch": spec["batch"],
                        "cases": [{"name": "composite", "mesh": [2, 2], "time": 2,
-                                  "keep": ["params", "means"]}]},
+                                  "keep": ["params", "means"]}]
+                       + _spatial_specs(kcfg, [2, 2])},
                       work, "composite", ranks=4)
         out["composite_spawn_s"] = time.perf_counter() - t0
 
@@ -3542,6 +3643,9 @@ def phase_parallel(torch, smi):
         out["engines"] = _engine_checks(torch, ranks, state0, batch, kcfg, ENGINE_RUNS,
                                         "gloo")
         out["composite"] = _composite_checks(torch, grid, state0, batch, kcfg, "gloo")
+        out["spatial"] = {
+            **_spatial_checks(torch, ranks, state0, batch, kcfg, [1, 2], SPATIAL_RUNS, "gloo"),
+            **_spatial_checks(torch, grid, state0, batch, kcfg, [2, 2], SPATIAL_RUNS, "gloo")}
         del grid
 
         # 4. 'shard_map' against each rank's local-BN step, gradients summed
@@ -3724,7 +3828,11 @@ def phase_parallel_nccl(torch, smi):
                 + _engine_specs(kcfg, NCCL_ENGINE_RUNS, 5)
                 # the composite step on a 2 x (n / 2) grid
                 + ([{"name": "composite", "mesh": [2, n // 2], "time": 5,
-                     "keep": ["params", "means"]}] if n % 2 == 0 else [])}
+                     "keep": ["params", "means"]}] if n % 2 == 0 else [])
+                # the spatial steps on 1 x n and 2 x (n / 2) grids
+                + _spatial_specs(kcfg, [1, n], SPATIAL_RUNS[:1], 5)
+                + (_spatial_specs(kcfg, [2, n // 2], SPATIAL_RUNS[:1], 5)
+                   if n % 2 == 0 and n > 2 else [])}
         ranks = _ranks(spec, work, "nccl", backend="nccl", ranks=n)
         auto, zero = ranks[0]["auto"], ranks[0]["zero"]
         for r, rank in enumerate(ranks):
@@ -3735,6 +3843,11 @@ def phase_parallel_nccl(torch, smi):
                                         "NCCL")
         if n % 2 == 0:
             out["composite"] = _composite_checks(torch, ranks, state0, batch, kcfg, "NCCL")
+        out["spatial"] = _spatial_checks(torch, ranks, state0, batch, kcfg, [1, n],
+                                         SPATIAL_RUNS[:1], "NCCL")
+        if n % 2 == 0 and n > 2:
+            out["spatial"].update(_spatial_checks(torch, ranks, state0, batch, kcfg,
+                                                  [2, n // 2], SPATIAL_RUNS[:1], "NCCL"))
         for what in ("params", "means"):
             require(all(torch.equal(a, b) for a, b in zip(
                 leaves(zero[what]), leaves(auto[what]), strict=True)),
@@ -3769,7 +3882,8 @@ def phase_parallel_nccl(torch, smi):
                         "seconds": cli.seconds},
                 "step_ms": {"one_card_32": one_ms, f"one_card_{batch_n // n}": rank_ms,
                             **{f"{k}_{n}x{batch_n // n}": float(np.median(ranks[0][k]["step_ms"]))
-                               for k in ("auto", "zero", "shard_map")}},
+                               for k in ("auto", "zero", "shard_map")},
+                            **{k: v["step_ms"] for k, v in out["spatial"].items()}},
                 "phase_s": time.perf_counter() - t0})
     emit(out)
     return out
@@ -3840,7 +3954,11 @@ def main() -> None:
 
     rows = []
     for name, (src, ref) in KERNEL_SOURCES.items():
-        rs = results[name]
+        every = results[name]
+        # K1's tiles under spatial partitioning (JAX's explicit padding)
+        # apart: the rest are the cases earlier trees sum
+        tiles = [r for r in every if r["case"].startswith(checks.TILE)]
+        rs = [r for r in every if not r["case"].startswith(checks.TILE)]
         by = {}
         for r in rs:  # the bound that sets most of the summed least time
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
@@ -3859,10 +3977,15 @@ def main() -> None:
                               "device_ms": checks.total(part, "device_ms"),
                               "bound_ms": checks.total(part, "bound_ms"),
                               "host_us": checks.total(part, "host_us")}
+        if tiles:
+            extra["tiles"] = {key: checks.total(tiles, key) for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "host_us")}
+            extra["tiles"].update(cases=len(tiles),
+                                  max_abs_err=max(r["max_abs_err"] for r in tiles))
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": ref,
             "launches": launched[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in every),
             "ms": sum(r["ms"] for r in rs),
             "host_us": sum(r["host_us"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),

@@ -263,9 +263,10 @@ class DataConfig:
 class ParallelConfig:
     """Device mesh configuration; see resnet_tpu.config.ParallelConfig. The
     port runs the data layout (``parallel``): 'auto' and 'shard_map', ZeRO
-    state sharding (the data x model mesh is built by
-    ``parallel.make_mesh_2d``, as JAX's, outside the config); spatial
-    partitioning raises (``check_parallel``)."""
+    state sharding, spatial partitioning over ``spatial_devices`` ranks
+    (the data x spatial grid; the data x model mesh is built by
+    ``parallel.make_mesh_2d``, as JAX's, outside the config); what spatial
+    partitioning does not take raises (``check_parallel``)."""
 
     data_axis: str = "data"
     num_devices: int = 0
@@ -282,8 +283,8 @@ RESUME_LATEST = -2
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """See resnet_tpu.config.TrainConfig. Raises for the parallel layout the
-    port does not run yet, spatial partitioning (``check_parallel``)."""
+    """See resnet_tpu.config.TrainConfig. Raises for the parallel layouts the
+    port does not run yet (``check_parallel``)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     execution: ExecutionConfig = dataclasses.field(default_factory=ExecutionConfig)
@@ -307,15 +308,41 @@ class TrainConfig:
 
 def check_parallel(cfg: "TrainConfig") -> None:
     """Raise for what the port's parallelism does not run: an unknown
-    ``parallel.mode``, and spatial partitioning (NotImplementedError naming
-    A13). Every engine and ghost BN run under
-    'auto' across ranks with the global batch's statistics, and under
-    'shard_map' with each rank's own."""
+    ``parallel.mode``, and under spatial partitioning (``check_spatial``)
+    the whole-block engine, as JAX's Trainer refuses it, and the fused
+    engines and the space-to-depth stem (NotImplementedError naming A13: K8's BN
+    prologue and K9 on a haloed tile would turn a padded zero row into
+    relu(shift); the s2d fold pairs rows across a seam). Every engine and
+    ghost BN run under 'auto' across ranks with the global batch's
+    statistics, and under 'shard_map' with each rank's own; 'xla' and
+    'pallas' (either ``conv_kernels``) also on the data x spatial grid."""
     pcfg = cfg.parallel
     if pcfg.mode not in ("auto", "shard_map"):
         raise ValueError(f"ParallelConfig.mode={pcfg.mode!r}; expected 'auto' or 'shard_map'")
     if pcfg.spatial_devices > 1:
-        raise not_ported("spatial partitioning (spatial_devices > 1)", ROADMAP_PARALLEL)
+        check_spatial(cfg.execution)
+
+
+SPATIAL_REFUSED = ("fused", "hybrid", "fusedxla")
+# JAX's Trainer's refusal (resnet_tpu/train/trainer.py:72-83), with its text
+BLOCKFUSED_SHARDED = ("spatial_devices/zero_sharding are incompatible with "
+                      "kernels='blockfused' (Pallas calls carry no SPMD "
+                      "partitioning rule); use kernels='xla'")
+
+
+def check_spatial(ecfg: "ExecutionConfig") -> None:
+    """Raise for what does not run on a rank's rows of the images: the
+    whole-block engine (JAX's ValueError and text: K10 takes whole images),
+    and, NotImplementedError naming A13, the fused engines and the
+    space-to-depth stem, which spatial partitioning does not run yet."""
+    if ecfg.kernels == "blockfused":
+        raise ValueError(BLOCKFUSED_SHARDED)
+    if ecfg.kernels in SPATIAL_REFUSED:
+        raise not_ported(f"spatial partitioning with kernels={ecfg.kernels!r} (K8's BN "
+                         "prologue and K9 on a haloed tile)", ROADMAP_PARALLEL)
+    if ecfg.space_to_depth:
+        raise not_ported("spatial partitioning with the space-to-depth stem",
+                         ROADMAP_PARALLEL)
 
 
 # The reference's six binaries as config presets (resnet_tpu.config)

@@ -24,7 +24,9 @@ copies: no pinning, no stream.
 Across ranks each rank runs its own prefetcher onto its own device. Where
 its source yields a whole host batch, ``rows`` (``parallel.mesh.rows_of``
 bound to the rank) cuts the rank's rows on the host before they are
-staged, so only those are copied.
+staged, so only those are copied; on a data x spatial grid it also cuts
+the rank's slice of each image's height (``parallel.mesh.height_slice``,
+the Trainer's ``_rows``), so a rank copies only its own part of the image.
 """
 
 from __future__ import annotations

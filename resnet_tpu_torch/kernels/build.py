@@ -68,10 +68,12 @@ SIGNATURES = {
     # x, dy, mean, inv, gamma, beta, part, tickets, sums, dx, M, C, chunk,
     # n_chunks, vec, ctv, fused, relu
     "rt_bn_bwd_f32": [*[_P] * 10, _I64, _I, _I64, _I, _I, _I, _I, _I, _P],
-    # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh)
-    "rt_conv2d_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
-    "rt_conv2d_dw_nhwc_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    # GEMMs: ..., workspace, splits (split-K, see tiled_gemm.cuh); the conv
+    # entries x, w|g, out, N, H, W, Cin, Cout, k, stride, then the window
+    # grid pad_top, pad_left, Ho, Wo (conv.geometry), workspace, splits
+    "rt_conv2d_nhwc_f32": [_P, _P, _P, *[_I] * 11, _P, _I, _P],
+    "rt_conv2d_dx_nhwc_f32": [_P, _P, _P, *[_I] * 11, _P, _I, _P],
+    "rt_conv2d_dw_nhwc_f32": [_P, _P, _P, *[_I] * 11, _P, _I, _P],
     "rt_matmul_f32": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
     "rt_matmul_skinny_f32": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
@@ -90,12 +92,12 @@ SIGNATURES = {
     # add_relu.cu and moments.cu) take the fp32 ones' arguments; the
     # persistent kernels' entries also the loaders the wrapper names
     # (conv.FWD_ROUTES, conv.DX_ROUTES, matmul.FWD_BF16_ROUTES)
-    "rt_conv2d_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
+    "rt_conv2d_nhwc_bf16": [_P, _P, _P, *[_I] * 11, _P, _I, _I, _P],
     # g, w (as it lies, not the fp32 entry's phase slices of w^T), dx, ...
-    "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P],
-    "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dx_nhwc_bf16": [_P, _P, _P, *[_I] * 11, _P, _I, _I, _P],
+    "rt_conv2d_dw_nhwc_bf16": [_P, _P, _P, *[_I] * 11, _P, _I, _P],
     # dW's route on bf16_gemm.cuh for the widths the wgmma core does not take
-    "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P],
+    "rt_conv2d_dw_nhwc_bf16_mma": [_P, _P, _P, *[_I] * 11, _P, _I, _P],
     # the FC forward for every M, on wgb_gemm.cuh's persistent loop
     "rt_matmul_bf16": [_P, _P, _P, _I64, _I, _I, _P, _I, _I, _P],
     # a, b, g, da (or null), db (or null), M, K, N, da_blocks, db_blocks
@@ -577,12 +579,13 @@ def dw_box(ho: int, wo: int) -> Tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def dw_slices(n: int, ho: int, wo: int, k: int, stride: int) -> int:
+def dw_slices(n: int, ho: int, wo: int, k: int, stride: int, flat: bool = True) -> int:
     """The 64-pixel slices of K1's bf16 dW on the wgmma core: a 1x1 conv at
-    stride 1 reads its n*ho*wo pixels in a row, any other conv a dw_box
+    stride 1 on a ``flat`` window grid (no padding, the input's own; conv.cu
+    dw_flat) reads its n*ho*wo pixels in a row, any other conv a dw_box
     rectangle of one image at a time (conv.cu dw_wg). Cached: a function of
     the shapes only."""
-    if k == 1 and stride == 1:
+    if k == 1 and stride == 1 and flat:
         return -(-n * ho * wo // 64)
     bw, bh = dw_box(ho, wo)
     return n * -(-wo // bw) * -(-ho // bh)

@@ -324,6 +324,45 @@ BF16_DX_CASES = TRAIN_CONV_CASES[1:] + [
 ]
 BF16_DW_CASES = TRAIN_CONV_CASES + [
     ("split K 3x3 27^2 20->24, batch 2, ragged last chunk", 2, 27, 20, 24, 3, 1)]
+
+
+def tile_case(label: str, n: int, ranks: int, rank: int, width: int, cin: int, cout: int,
+              k: int, stride: int, image: int = 224) -> Tuple:
+    """The conv case of rank ``rank``'s tile of rows under spatial
+    partitioning over ``ranks`` (``parallel.spatial``): ResNet-50 at
+    ``image``, the layer of ``width`` (= its global height): (label, n,
+    (tile height, width), Cin, Cout, k, stride, ((lo, hi), (lo_w, hi_w)))."""
+    from ..parallel import spatial
+
+    height, rows = image, spatial.even_rows(image, ranks)
+    while height > width:  # the stem, then one halving a stage
+        height, rows = spatial.next_rows(rows, height, 2)
+    t = spatial.tile_of(rows, rank, height, k, stride)
+    a, b = rows[rank]
+    return (f"tile {label} (rank {rank} of {ranks}: rows {a}-{b} of {height}, halo "
+            f"{t.top}+{t.bottom}, pad ({t.lo}, {t.hi})), batch {n}", n,
+            (b + t.bottom - a + t.top, width), cin, cout, k, stride,
+            ((t.lo, t.hi), reference_padding(width, k, stride)))
+
+
+# K1 with JAX's explicit padding on the tiles a rank holds under spatial
+# partitioning (``parallel.spatial``): the stem's top and bottom tiles on 2
+# ranks, an interior 3x3/s1 tile, stage 3's 3x3/s2 and 1x1/s2 on a tile
+# whose first row is odd (rows 7-14 of 28 on 4 ranks: pad 0 and -1) and its
+# 3x3/s2 on the next tile (a halo row above and below), and
+# stage 4's 4- and 3-row tiles on 2 ranks; summed apart from the others
+# in chip_smoke.py's kernels line (``TILE``)
+TILE = "tile "
+TILE_CASES = [
+    tile_case("stem 7x7/s2 3->64", 8, 2, 0, 224, 3, 64, 7, 2),
+    tile_case("stem 7x7/s2 3->64", 8, 2, 1, 224, 3, 64, 7, 2),
+    tile_case("3x3/s1 64->64", 8, 4, 1, 56, 64, 64, 3, 1),
+    tile_case("3x3/s2 256->256", 8, 4, 1, 28, 256, 256, 3, 2),
+    tile_case("3x3/s2 256->256", 8, 4, 2, 28, 256, 256, 3, 2),
+    tile_case("1x1/s2 512->1024", 8, 4, 1, 28, 512, 1024, 1, 2),
+    tile_case("3x3/s1 512->512", 8, 2, 0, 7, 512, 512, 3, 1),
+    tile_case("3x3/s1 512->512", 8, 2, 1, 7, 512, 512, 3, 1),
+]
 # the four stages' joins: served at batch 8 (forward), trained at 32 (mask)
 _JOINS = [(56, 256), (28, 512), (14, 1024), (7, 2048)]
 _BF16_ODD = [("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
@@ -493,9 +532,9 @@ HASHED = ("fused_join", "block_fused", "moments", "bias_act", "bn_bwd", "qconv",
 
 # name -> (module, launch counter, counter moves per call, cases)
 KERNELS = {
-    "conv2d": (conv, "LAUNCHES", 1, FWD_CONV_CASES),
-    "conv2d_dx": (conv, "DX_LAUNCHES", 1, TRAIN_DX_CASES),
-    "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_DW_CASES),
+    "conv2d": (conv, "LAUNCHES", 1, FWD_CONV_CASES + TILE_CASES),
+    "conv2d_dx": (conv, "DX_LAUNCHES", 1, TRAIN_DX_CASES + TILE_CASES),
+    "conv2d_dw": (conv, "DW_LAUNCHES", 1, TRAIN_DW_CASES + TILE_CASES),
     "add_relu": (fused, "LAUNCHES", 1, ADD_RELU_CASES),
     "add_relu_mask": (fused, "MASK_LAUNCHES", 1, ADD_RELU_MASK_CASES),
     "matmul": (matmul, "LAUNCHES", 1, MATMUL_CASES),
@@ -507,9 +546,9 @@ KERNELS = {
     "bias_act": (bn, "APPLY_LAUNCHES", 1, BIAS_ACT_CASES),
     "bn_bwd": (bn, "BWD_LAUNCHES", 1, BN_BWD_CASES),
     "block_fused": (block_fused, "LAUNCHES", 1, BLOCK_FUSED_CASES),
-    "conv2d_bf16": (conv, "LAUNCHES_BF16", 1, BF16_CONV_CASES),
-    "conv2d_dx_bf16": (conv, "DX_LAUNCHES_BF16", 1, BF16_DX_CASES),
-    "conv2d_dw_bf16": (conv, "DW_LAUNCHES_BF16", 1, BF16_DW_CASES),
+    "conv2d_bf16": (conv, "LAUNCHES_BF16", 1, BF16_CONV_CASES + TILE_CASES),
+    "conv2d_dx_bf16": (conv, "DX_LAUNCHES_BF16", 1, BF16_DX_CASES + TILE_CASES),
+    "conv2d_dw_bf16": (conv, "DW_LAUNCHES_BF16", 1, BF16_DW_CASES + TILE_CASES),
     "add_relu_bf16": (fused, "LAUNCHES_BF16", 1, BF16_ADD_RELU_CASES),
     "add_relu_mask_bf16": (fused, "MASK_LAUNCHES_BF16", 1, BF16_ADD_RELU_MASK_CASES),
     "matmul_bf16": (matmul, "LAUNCHES_BF16", 1, BF16_MATMUL_CASES),
@@ -658,13 +697,21 @@ def _make(kernel: str, case, gen: torch.Generator, device) -> _Case:
         return _bf16_case(kernel[:-len("_bf16")], case, randn)
 
     if kernel.startswith("conv2d"):
-        _, n, h, cin, cout, k, s = case
-        ho = h // s
-        x = randn(n, h, h, cin)
+        n, (h, wd), cin, cout, k, s, pad, _, (ho, wo) = conv_case(case)
+        x = randn(n, h, wd, cin)
         w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
-        g = randn(n, ho, ho, cout)
-        flops = 2 * n * ho * ho * k * k * cin * cout
+        g = randn(n, ho, wo, cout)
+        flops = 2 * n * ho * wo * k * k * cin * cout
         w_oihw = w.permute(3, 2, 0, 1)
+        if pad is not None:  # a tile: JAX's explicit padding, no one library call
+            runs = {"conv2d": (lambda: conv.conv2d(x, w, s, pad),
+                               lambda: conv.conv2d_reference(x, w, s, pad)),
+                    "conv2d_dx": (lambda: conv.conv2d_dx(g, w, x.shape, s, pad),
+                                  lambda: conv.conv2d_dx_reference(g, w, x.shape, s, pad)),
+                    "conv2d_dw": (lambda: conv.conv2d_dw(x, g, k, s, pad),
+                                  lambda: conv.conv2d_dw_reference(x, g, k, s, pad))}
+            return _Case(*runs[kernel], 4 * (x.numel() + w.numel() + g.numel()), 3 * flops,
+                         peak=TF32_FLOPS_PER_S)
         if kernel == "conv2d":
             return _Case(lambda: conv.conv2d(x, w, s),
                          lambda: conv.conv2d_reference(x, w, s),
@@ -856,6 +903,18 @@ def _quant_act_case(case, randn, device) -> _Case:
                  x.numel() * (x.element_size() + 1), x.numel(), exact=True)
 
 
+def conv_case(case) -> Tuple:
+    """(n, (H, W), Cin, Cout, k, stride, padding or None, x's storage
+    offset, (Ho, Wo)) of a conv case: (label, n, H=W, Cin, Cout, k, stride)
+    with an optional offset, or a tile's (label, n, (H, W), ..., padding)."""
+    _, n, h, cin, cout, k, s, *rest = case
+    pad = rest[0] if rest and isinstance(rest[0], tuple) else None
+    offset = rest[0] if rest and pad is None else 0
+    h, wd = h if isinstance(h, tuple) else (h, h)
+    geo = conv.geometry(h, wd, k, s, pad)
+    return n, (h, wd), cin, cout, k, s, pad, offset, geo[2:]
+
+
 def _bf16_case(kernel: str, case, randn) -> _Case:
     """The bf16 case of ``kernel``: the same wrapper on bf16 inputs, its
     plain version the wrapper's own (fp32 on the upcast inputs, one
@@ -869,14 +928,21 @@ def _bf16_case(kernel: str, case, randn) -> _Case:
         return r(*shape, offset=offset)
 
     if kernel.startswith("conv2d"):
-        _, n, h, cin, cout, k, s, *offset = case
-        ho = h // s
-        x = r(n, h, h, cin, offset=offset[0] if offset else 0)
+        n, (h, wd), cin, cout, k, s, pad, offset, (ho, wo) = conv_case(case)
+        x = r(n, h, wd, cin, offset=offset)
         w = r(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5)
-        g = r(n, ho, ho, cout)
+        g = r(n, ho, wo, cout)
         nbytes = 2 * (x.numel() + w.numel() + g.numel())
-        flops = 2 * n * ho * ho * k * k * cin * cout
+        flops = 2 * n * ho * wo * k * k * cin * cout
         w_oihw = w.permute(3, 2, 0, 1)
+        if pad is not None:  # a tile: JAX's explicit padding, no one library call
+            runs = {"conv2d": (lambda: conv.conv2d(x, w, s, pad),
+                               lambda: conv.conv2d_reference(x, w, s, pad)),
+                    "conv2d_dx": (lambda: conv.conv2d_dx(g, w, x.shape, s, pad),
+                                  lambda: conv.conv2d_dx_reference(g, w, x.shape, s, pad)),
+                    "conv2d_dw": (lambda: conv.conv2d_dw(x, g, k, s, pad),
+                                  lambda: conv.conv2d_dw_reference(x, g, k, s, pad))}
+            return _Case(*runs[kernel], nbytes, flops, peak=BF16_FLOPS_PER_S, bf16=True)
         if kernel == "conv2d":
             run, plain = (lambda: conv.conv2d(x, w, s)), (lambda: conv.conv2d_reference(x, w, s))
             library, as_plain = (lambda: F.conv2d(_nchw(x), w_oihw, stride=s, padding=k // 2)), _nhwc

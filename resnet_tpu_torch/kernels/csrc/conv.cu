@@ -10,16 +10,20 @@
 // Here each of the three is one implicit GEMM; the results equal the
 // VJP's, the blocking does not follow it.
 //
-// Geometry (resnet_tpu/ops/padding.py::reference_padding): Ho = H / s,
-// iy = s*oy - k/2 + i, ix = s*ox - k/2 + j, and taps that fall outside the
-// image are skipped (read as 0). No padded, dilated or flipped copy is made:
-// the loaders compute the indices. Offsets are 64-bit.
+// Geometry: JAX's explicit padding (conv.py:60-72), (lo, hi) above and
+// below, left and right: Ho = (H + lo + hi - k) / s + 1, iy = s*oy - lo + i,
+// ix = s*ox - lo_w + j, and taps that fall outside the image are skipped
+// (read as 0); lo may be negative (a window grid that starts inside the
+// input). The entries take (pad_top, pad_left, Ho, Wo), which is that
+// padding: the reference's centred windows (resnet_tpu/ops/padding.py::
+// reference_padding) are pad k/2 and Ho = H / s. No padded, dilated or
+// flipped copy is made: the loaders compute the indices. Offsets are 64-bit.
 //
 //   forward  rows (n, oy, ox), K = (i, j, ci), B = w as (k*k*Cin, Cout);
 //   dx       one GEMM per phase (py, px) = (iy mod s, ix mod s): rows
-//            (n, qy, qx) with iy = py + s*qy, ix = px + s*qx, K = the taps
-//            (i, j) that reach such a row, i = (py + k/2) mod s + s*ti (j
-//            alike), times co; A gathers g[n, (iy + k/2 - i)/s, ...] (the
+//            (n, qy, qx) with iy = py + s*qy < H, ix = px + s*qx < W, K = the
+//            taps (i, j) that reach such a row, i = (py + lo) mod s + s*ti (j
+//            alike), times co; A gathers g[n, (iy + lo - i)/s, ...] (the
 //            division is exact for these taps; 0 out of range), B is the
 //            phase's slice of w^T, (taps * Cout, Cin), which the caller cuts
 //            from w.permute(0, 1, 3, 2). At stride 1 it is one phase, all
@@ -70,15 +74,27 @@
 
 namespace {
 
-// taps i in [0, k) that reach input rows of phase p: i = first + s*t
+// the window grid of every entry: its origin above and left of the input
+// (JAX's lo, possibly negative) and the output's height and width
+struct ConvGeo {
+  int pad_top, pad_left, Ho, Wo;
+};
+
+// taps i in [0, k) that reach input rows of phase p under padding lo (the
+// window origin): i = first + s*t
 struct PhaseTaps {
-  int first, count, shift;  // shift: (p + k/2 - first) / s
-  __host__ __device__ PhaseTaps(int p, int k, int s) {
-    first = (p + k / 2) % s;
+  int first, count, shift;  // shift: (p + lo - first) / s, exact
+  __host__ __device__ PhaseTaps(int p, int k, int s, int lo) {
+    first = ((p + lo) % s + s) % s;
     count = first < k ? (k - 1 - first) / s + 1 : 0;
-    shift = (p + k / 2 - first) / s;
+    shift = (p + lo - first) / s;
   }
 };
+
+// input rows of phase p of a dimension of n at stride s: p + s*q < n
+__host__ __device__ inline int phase_rows(int n, int p, int s) {
+  return n > p ? (n - p + s - 1) / s : 0;
+}
 
 // dx A for tc_gemm.cuh, one phase (py, px): row (n, qy, qx) is the input
 // pixel (py + s*qy, px + s*qx), column (ti, tj, co) the gradient at
@@ -155,13 +171,13 @@ struct ConvDxTcA {
   }
 };
 
-// dW A for tc_gemm.cuh: A((i, j, ci), p) = x[n, s*oy + i - k/2,
-// s*ox + j - k/2, ci] for the pixel p = (n, oy, ox); neighbouring rows are
-// neighbouring channels of one tap
+// dW A for tc_gemm.cuh: A((i, j, ci), p) = x[n, s*oy + i - pad_top,
+// s*ox + j - pad_left, ci] for the pixel p = (n, oy, ox); neighbouring rows
+// are neighbouring channels of one tap
 struct ConvDwTcA {
   static constexpr bool kKMajor = false;
   const float* __restrict__ x;
-  int H, W, Cin, k, stride, Ho, Wo;
+  int H, W, Cin, k, stride, Ho, Wo, pad_top, pad_left;
   int64_t M;
   int step_y, step_x;  // BK pixels = step_y output rows + step_x columns
 
@@ -218,8 +234,8 @@ struct ConvDwTcA {
     const int mm = r.ok ? (int)m : 0;
     const int tap = mm / Cin;
     const int ci = mm - tap * Cin;
-    r.di = tap / k - k / 2;
-    r.dj = tap % k - k / 2;
+    r.di = tap / k - pad_top;
+    r.dj = tap % k - pad_left;
     r.off = ((long long)r.di * W + r.dj) * Cin + ci;
     return r;
   }
@@ -234,7 +250,7 @@ struct ConvDwTcA {
   __device__ int64_t out_row(int64_t m) const { return m; }
 };
 
-// the forward: im2col.cuh's gather, no prologue, windows centred (k/2, k/2)
+// the forward: im2col.cuh's gather, no prologue, window origin (pad_top, pad_left)
 using ConvFwdTcA = Im2colTcA<false>;
 
 // as the dW kernels below: the 128 x 64 tile capped at 128 registers, two
@@ -260,7 +276,7 @@ __device__ __forceinline__ void conv2d_dw_tc(const float* __restrict__ x,
                                              const float* __restrict__ g,
                                              float* __restrict__ dw, int N, int H, int W,
                                              int Cin, int Cout, int k, int stride,
-                                             int64_t k_chunk) {
+                                             const ConvGeo geo, int64_t k_chunk) {
   ConvDwTcA a;
   a.x = x;
   a.H = H;
@@ -268,8 +284,10 @@ __device__ __forceinline__ void conv2d_dw_tc(const float* __restrict__ x,
   a.Cin = Cin;
   a.k = k;
   a.stride = stride;
-  a.Ho = H / stride;
-  a.Wo = W / stride;
+  a.Ho = geo.Ho;
+  a.Wo = geo.Wo;
+  a.pad_top = geo.pad_top;
+  a.pad_left = geo.pad_left;
   a.M = (int64_t)k * k * Cin;
   a.step_y = rt::tc::BK / a.Wo;
   a.step_x = rt::tc::BK % a.Wo;
@@ -287,16 +305,16 @@ template <int AVEC, int BVEC>
 __global__ void __launch_bounds__(rt::tc::THREADS, 2)
 conv2d_dw_tc64_kernel(const float* __restrict__ x, const float* __restrict__ g,
                       float* __restrict__ dw, int N, int H, int W, int Cin, int Cout,
-                      int k, int stride, int64_t k_chunk) {
-  conv2d_dw_tc<64, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, k_chunk);
+                      int k, int stride, const ConvGeo geo, int64_t k_chunk) {
+  conv2d_dw_tc<64, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, k_chunk);
 }
 
 template <int AVEC, int BVEC>
 __global__ void __launch_bounds__(rt::tc::THREADS)
 conv2d_dw_tc128_kernel(const float* __restrict__ x, const float* __restrict__ g,
                        float* __restrict__ dw, int N, int H, int W, int Cin, int Cout,
-                       int k, int stride, int64_t k_chunk) {
-  conv2d_dw_tc<128, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, k_chunk);
+                       int k, int stride, const ConvGeo geo, int64_t k_chunk) {
+  conv2d_dw_tc<128, AVEC, BVEC>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, k_chunk);
 }
 
 template <int BN, int VEC>
@@ -304,14 +322,14 @@ __device__ __forceinline__ void conv2d_dx_tc(const float* __restrict__ g,
                                              const float* __restrict__ wp,
                                              float* __restrict__ dx, int N, int H, int W,
                                              int Cin, int Cout, int k, int stride, int py,
-                                             int px, int64_t k_chunk) {
-  const PhaseTaps ty(py, k, stride), tx(px, k, stride);
+                                             int px, const ConvGeo geo, int64_t k_chunk) {
+  const PhaseTaps ty(py, k, stride, geo.pad_top), tx(px, k, stride, geo.pad_left);
   ConvDxTcA a;
   a.g = g;
   a.H = H;
   a.W = W;
-  a.Ho = H / stride;
-  a.Wo = W / stride;
+  a.Ho = geo.Ho;
+  a.Wo = geo.Wo;
   a.Cout = Cout;
   a.stride = stride;
   a.py = py;
@@ -319,8 +337,8 @@ __device__ __forceinline__ void conv2d_dx_tc(const float* __restrict__ g,
   a.cy = ty.shift;
   a.cx = tx.shift;
   a.ntj = tx.count;
-  a.Qw = W / stride;
-  a.QhQw = (H / stride) * a.Qw;
+  a.Qw = phase_rows(W, px, stride);
+  a.QhQw = phase_rows(H, py, stride) * a.Qw;
   a.M = (int64_t)N * a.QhQw;
   rt::tc::gemm_k<BN, VEC, false>(a, wp, Cin, dx, a.M, Cin,
                                  (int64_t)ty.count * tx.count * Cout, k_chunk, nullptr);
@@ -332,16 +350,16 @@ template <int VEC>
 __global__ void __launch_bounds__(rt::tc::THREADS, 2)
 conv2d_dx_tc64_kernel(const float* __restrict__ g, const float* __restrict__ wp,
                       float* __restrict__ dx, int N, int H, int W, int Cin, int Cout, int k,
-                      int stride, int py, int px, int64_t k_chunk) {
-  conv2d_dx_tc<64, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, k_chunk);
+                      int stride, int py, int px, const ConvGeo geo, int64_t k_chunk) {
+  conv2d_dx_tc<64, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, geo, k_chunk);
 }
 
 template <int VEC>
 __global__ void __launch_bounds__(rt::tc::THREADS)
 conv2d_dx_tc128_kernel(const float* __restrict__ g, const float* __restrict__ wp,
                        float* __restrict__ dx, int N, int H, int W, int Cin, int Cout, int k,
-                       int stride, int py, int px, int64_t k_chunk) {
-  conv2d_dx_tc<128, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, k_chunk);
+                       int stride, int py, int px, const ConvGeo geo, int64_t k_chunk) {
+  conv2d_dx_tc<128, VEC>(g, wp, dx, N, H, W, Cin, Cout, k, stride, py, px, geo, k_chunk);
 }
 
 template <int BN, int VEC>
@@ -357,64 +375,69 @@ int launch_fwd(const ConvFwdTcA& a, const float* w, float* y, int Cout, float* w
       y, ws, a.M, Cout, (int64_t)a.ksize * a.ksize * a.Cin, splits, s);
 }
 
-// one phase's GEMM, rows (N, H/s, W/s) of that phase, K = its taps * Cout
+// one phase's GEMM, rows (N, its rows of H, its rows of W), K = its taps * Cout
 template <int BN, int VEC>
 int launch_dx(const float* g, const float* b, float* dx, int N, int H, int W, int Cin,
-              int Cout, int k, int stride, int py, int px, int64_t K, float* ws, int splits,
-              cudaStream_t s) {
+              int Cout, int k, int stride, int py, int px, const ConvGeo& geo, int64_t K,
+              float* ws, int splits, cudaStream_t s) {
   auto* kernel = conv2d_dx_tc128_kernel<VEC>;
   if constexpr (BN == 64) kernel = conv2d_dx_tc64_kernel<VEC>;
   return rt::tc::launch<BN, ConvDxTcA>(
       kernel,
       [&](dim3 grid, int smem, float* out, int64_t kc) {
         kernel<<<grid, rt::tc::THREADS, smem, s>>>(g, b, out, N, H, W, Cin, Cout, k, stride,
-                                                   py, px, kc);
+                                                   py, px, geo, kc);
       },
-      dx, ws, (int64_t)N * (H / stride) * (W / stride), Cin, K, splits, s);
+      dx, ws, (int64_t)N * phase_rows(H, py, stride) * phase_rows(W, px, stride), Cin, K,
+      splits, s);
 }
 
 template <int BN, int AVEC, int BVEC>
 int launch_dw(const float* x, const float* g, float* dw, int N, int H, int W, int Cin,
-              int Cout, int k, int stride, float* ws, int splits, cudaStream_t s) {
+              int Cout, int k, int stride, const ConvGeo& geo, float* ws, int splits,
+              cudaStream_t s) {
   auto* kernel = conv2d_dw_tc128_kernel<AVEC, BVEC>;
   if constexpr (BN == 64) kernel = conv2d_dw_tc64_kernel<AVEC, BVEC>;
   return rt::tc::launch<BN, ConvDwTcA>(
       kernel,
       [&](dim3 grid, int smem, float* out, int64_t kc) {
         kernel<<<grid, rt::tc::THREADS, smem, s>>>(x, g, out, N, H, W, Cin, Cout, k,
-                                                   stride, kc);
+                                                   stride, geo, kc);
       },
-      dw, ws, (int64_t)k * k * Cin, Cout, (int64_t)N * (H / stride) * (W / stride),
-      splits, s);
+      dw, ws, (int64_t)k * k * Cin, Cout, (int64_t)N * geo.Ho * geo.Wo, splits, s);
 }
 
 template <int BN>
 int launch_dw_vec(bool avec, bool bvec, const float* x, const float* g, float* dw,
-                  int N, int H, int W, int Cin, int Cout, int k, int stride, float* ws,
-                  int splits, cudaStream_t s) {
+                  int N, int H, int W, int Cin, int Cout, int k, int stride,
+                  const ConvGeo& geo, float* ws, int splits, cudaStream_t s) {
   if (avec && bvec)
-    return launch_dw<BN, 4, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+    return launch_dw<BN, 4, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws, splits, s);
   if (avec)
-    return launch_dw<BN, 4, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+    return launch_dw<BN, 4, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws, splits, s);
   if (bvec)
-    return launch_dw<BN, 1, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
-  return launch_dw<BN, 1, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, s);
+    return launch_dw<BN, 1, 4>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws, splits, s);
+  return launch_dw<BN, 1, 1>(x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws, splits, s);
 }
 
 }  // namespace
 
-// The callers check stride | H, stride | W, shapes, dtype and contiguity,
-// and allocate ws (splits * rows * cols floats) when splits > 1.
+// The callers check shapes, dtype and contiguity, and allocate ws
+// (splits * rows * cols floats) when splits > 1. Every entry takes the
+// window grid (pad_top, pad_left, Ho, Wo) after the stride: JAX's explicit
+// padding, lo = pad, Ho = (H + lo + hi - k) / s + 1 (the reference's: k/2,
+// k/2, H/s, W/s).
 
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)), K
+// y (N, Ho, Wo, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)), K
 // split `splits` ways through ws: tiles 128 x 64 where Cout <= 64, else
 // 128 x 128 (build.py tc_tile_n); 16-byte copies where Cin and Cout are
 // multiples of 4 and x and w 16-byte aligned.
 extern "C" int rt_conv2d_nhwc_f32(const float* x, const float* w, float* y, int N,
                                   int H, int W, int Cin, int Cout, int k, int stride,
-                                  float* ws, int splits, void* stream) {
-  const ConvFwdTcA a =
-      im2col<false>(x, N, H, W, Cin, k, stride, k / 2, k / 2, H / stride, W / stride);
+                                  int pad_top, int pad_left, int Ho, int Wo, float* ws,
+                                  int splits, void* stream) {
+  if (Ho < 0 || Wo < 0) return (int)cudaErrorInvalidValue;
+  const ConvFwdTcA a = im2col<false>(x, N, H, W, Cin, k, stride, pad_top, pad_left, Ho, Wo);
   const bool vec =
       Cin % 4 == 0 && Cout % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)w % 16 == 0;
   auto* launch = Cout <= 64 ? (vec ? launch_fwd<64, 4> : launch_fwd<64, 1>)
@@ -422,17 +445,20 @@ extern "C" int rt_conv2d_nhwc_f32(const float* x, const float* w, float* y, int 
   return launch(a, w, y, Cout, ws, splits, (cudaStream_t)stream);
 }
 
-// dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and wp, the phases' slices of
+// dx (N, H, W, Cin) from g (N, Ho, Wo, Cout) and wp, the phases' slices of
 // w^T = w.permute(0, 1, 3, 2) one after the other, phase (py, px) in
-// row-major order, each (taps_y * taps_x * Cout, Cin) (PhaseTaps). With
+// row-major order, each (taps_y * taps_x * Cout, Cin) (PhaseTaps under the
+// padding; a phase with no rows still has its slice). With
 // splits > 1 (stride 1 only: one phase) the K split goes through ws. Tiles
 // 128 x 64 where Cin <= 64, else 128 x 128 (build.py tc_tile_n); 16-byte
 // copies where Cout and Cin are multiples of 4 and g and wp 16-byte aligned.
 extern "C" int rt_conv2d_dx_nhwc_f32(const float* g, const float* wp, float* dx,
                                      int N, int H, int W, int Cin, int Cout, int k,
-                                     int stride, float* ws, int splits, void* stream) {
+                                     int stride, int pad_top, int pad_left, int Ho, int Wo,
+                                     float* ws, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (stride > 1 && splits != 1) return (int)cudaErrorInvalidValue;
+  if ((stride > 1 && splits != 1) || Ho < 0 || Wo < 0) return (int)cudaErrorInvalidValue;
+  const ConvGeo geo{pad_top, pad_left, Ho, Wo};
   const bool vec = Cout % 4 == 0 && Cin % 4 == 0 && (uintptr_t)g % 16 == 0 &&
                    (uintptr_t)wp % 16 == 0;
   auto* phase = Cin <= 64 ? (vec ? launch_dx<64, 4> : launch_dx<64, 1>)
@@ -440,31 +466,36 @@ extern "C" int rt_conv2d_dx_nhwc_f32(const float* g, const float* wp, float* dx,
   const float* b = wp;
   for (int py = 0; py < stride; ++py) {
     for (int px = 0; px < stride; ++px) {
-      const int64_t K = (int64_t)PhaseTaps(py, k, stride).count *
-                        PhaseTaps(px, k, stride).count * Cout;
-      const int status = phase(g, b, dx, N, H, W, Cin, Cout, k, stride, py, px, K, ws,
-                               splits, s);
-      if (status != 0) return status;
+      const int64_t K = (int64_t)PhaseTaps(py, k, stride, pad_top).count *
+                        PhaseTaps(px, k, stride, pad_left).count * Cout;
+      if (phase_rows(H, py, stride) > 0 && phase_rows(W, px, stride) > 0) {
+        const int status = phase(g, b, dx, N, H, W, Cin, Cout, k, stride, py, px, geo, K,
+                                 ws, splits, s);
+        if (status != 0) return status;
+      }
       b += K * Cin;
     }
   }
   return 0;
 }
 
-// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout):
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, Ho, Wo, Cout):
 // 128 x 64 tiles where Cout <= 64, else 128 x 128 (build.py tc_tile_n
 // plans the splits from the same rule); 16-byte copies of x where
 // Cin % 4 == 0 and x is 16-byte aligned, of g likewise.
 extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
                                      int N, int H, int W, int Cin, int Cout, int k,
-                                     int stride, float* ws, int splits, void* stream) {
+                                     int stride, int pad_top, int pad_left, int Ho, int Wo,
+                                     float* ws, int splits, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (Ho < 1 || Wo < 1) return (int)cudaErrorInvalidValue;
+  const ConvGeo geo{pad_top, pad_left, Ho, Wo};
   const bool avec = Cin % 4 == 0 && (uintptr_t)x % 16 == 0;
   const bool bvec = Cout % 4 == 0 && (uintptr_t)g % 16 == 0;
   if (Cout <= 64)
-    return launch_dw_vec<64>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, ws,
+    return launch_dw_vec<64>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws,
                              splits, s);
-  return launch_dw_vec<128>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, ws,
+  return launch_dw_vec<128>(avec, bvec, x, g, dw, N, H, W, Cin, Cout, k, stride, geo, ws,
                             splits, s);
 }
 
@@ -482,12 +513,12 @@ extern "C" int rt_conv2d_dw_nhwc_f32(const float* x, const float* g, float* dw,
 
 namespace {
 
-// dW A: A((i, j, ci), p) = x[n, s*oy + i - k/2, s*ox + j - k/2, ci] for
-// the pixel p = (n, oy, ox); M contiguous (neighbouring rows are
+// dW A: A((i, j, ci), p) = x[n, s*oy + i - pad_top, s*ox + j - pad_left,
+// ci] for the pixel p = (n, oy, ox); M contiguous (neighbouring rows are
 // neighbouring channels of one tap)
 struct ConvDwBfA {
   const uint16_t* __restrict__ x;
-  int H, W, Cin, ksize, stride, Ho, Wo;
+  int H, W, Cin, ksize, stride, Ho, Wo, pad_top, pad_left;
   int64_t M;  // k * k * Cin
   bool vec;   // Cin % 8 == 0 and x 16-byte aligned
 
@@ -497,7 +528,7 @@ struct ConvDwBfA {
     const int n = pi / (Ho * Wo);
     const int rem = pi - n * Ho * Wo;
     const int oy = rem / Wo;
-    const int cy = stride * oy - ksize / 2, cx = stride * (rem - oy * Wo) - ksize / 2;
+    const int cy = stride * oy - pad_top, cx = stride * (rem - oy * Wo) - pad_left;
     const uint16_t* base = x + (int64_t)n * H * W * Cin;
     if (vec) {
       if (m >= M) return bfg::zero4();
@@ -523,19 +554,23 @@ struct ConvDwBfA {
 
 }  // namespace
 
-// The callers check stride | H, stride | W, shapes, dtype and contiguity,
-// and allocate ws (splits * rows * cols floats) when splits > 1. Tensors
-// are bf16, passed as their 16-bit patterns.
+// The callers check shapes, dtype and contiguity, and allocate ws (splits *
+// rows * cols floats) when splits > 1; the window grid (pad_top, pad_left,
+// Ho, Wo) as the fp32 entries take it. Tensors are bf16, passed as their
+// 16-bit patterns.
 
-// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout) on
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, Ho, Wo, Cout) on
 // bf16_gemm.cuh's mma.sync core: the route of the widths the wgmma core
-// below does not take (ragged or misaligned operands)
+// below does not take (ragged or misaligned operands, a window grid whose
+// stride phases it cannot map)
 extern "C" int rt_conv2d_dw_nhwc_bf16_mma(const uint16_t* x, const uint16_t* g, uint16_t* dw,
                                           int N, int H, int W, int Cin, int Cout, int k,
-                                          int stride, float* ws, int splits, void* stream) {
-  const int Ho = H / stride, Wo = W / stride;
+                                          int stride, int pad_top, int pad_left, int Ho, int Wo,
+                                          float* ws, int splits, void* stream) {
+  if (Ho < 1 || Wo < 1) return (int)cudaErrorInvalidValue;
   const int64_t M = (int64_t)k * k * Cin;
-  const ConvDwBfA a{x, H, W, Cin, k, stride, Ho, Wo, M, Cin % 8 == 0 && bfg::aligned16(x)};
+  const ConvDwBfA a{x,  H,  W,        Cin,      k, stride, Ho, Wo, pad_top, pad_left,
+                    M, Cin % 8 == 0 && bfg::aligned16(x)};
   return bfg::launch<128>(a, bfg::row_mn(g, Cout), dw, ws, M, Cout, (int64_t)N * Ho * Wo,
                           splits, (cudaStream_t)stream);
 }
@@ -553,9 +588,11 @@ extern "C" int rt_conv2d_dw_nhwc_bf16_mma(const uint16_t* x, const uint16_t* g, 
 // box outside the grid, and the halo of x, arrive as zeros. At stride 2,
 // x is read through four tensor maps, one per phase (iy % 2, ix % 2): the
 // view x[n, 2a + ry, 2b + rx, c], whose (b, a) index the output grid, so
-// the tap's shift is a whole offset and a tap outside the image falls
-// outside the view. A 1x1 conv at stride 1 has no halo: x and g are then
-// read as (pixels, C) matrices, 64 pixels a slice, with no padding at all.
+// the tap's shift (i - pad_top, j - pad_left, halved) is a whole offset and
+// a tap outside the image falls outside the view (a 1x1 conv reads the one
+// phase its tap reaches). A 1x1 conv at stride 1 with no padding and the
+// input's grid has no halo: x and g are then read as (pixels, C) matrices,
+// 64 pixels a slice, with no padding at all.
 // The stem (Cin = 3) comes as a copy of x zero-padded to 8 channels (the
 // wrapper's; its padded rows of dW are dropped): a tile is then 16 taps of
 // 8 channels, gathered by the threads (kNarrow below).
@@ -577,7 +614,7 @@ struct DwGeom {
   int64_t slices, M;  // slices of the whole K; M = k * k * Cin
   int N;
   const uint16_t* x;  // the narrow tiles' x, gathered by the threads
-  int H, W, Ho, Wo;
+  int H, W, Ho, Wo, pad_top, pad_left;
 };
 
 template <int BN, bool kNarrow>
@@ -604,7 +641,7 @@ struct DwBlock {
   // tap's x map (its stride phase) and its shift in that map's pixels
   __device__ void shift(int tap, int& m, int& sx, int& sy) const {
     const int k = geo.ksize, s = geo.stride;
-    const int ty = tap / k - k / 2, tx = tap % k - k / 2;
+    const int ty = tap / k - geo.pad_top, tx = tap % k - geo.pad_left;
     // at stride 2, iy = 2 oy + ty = 2 (oy + sy) + ry with ry = ty mod 2
     const int ry = s == 2 ? ty & 1 : 0, rx = s == 2 ? tx & 1 : 0;
     m = 2 * ry + rx;
@@ -631,8 +668,8 @@ struct DwBlock {
         const int u = (threadIdx.x >> 6) + 4 * j;
         const int tap = (int)(row0 / 8) + u;
         tap_ok[j] = tap < kk;
-        dy[j] = tap / geo.ksize - geo.ksize / 2;
-        dx[j] = tap % geo.ksize - geo.ksize / 2;
+        dy[j] = tap / geo.ksize - geo.pad_top;
+        dx[j] = tap % geo.ksize - geo.pad_left;
         dst[j] = (u / 8) * wgb::HALF + (u % 8) * wgb::ATOM + p * 16;
       }
     }
@@ -729,16 +766,24 @@ inline int dw_map(CUtensorMap* map, const uint16_t* base, int C, int64_t w, int6
   return wgb::map_bf16(map, base, 4, dims, strides, box);
 }
 
+// whether dw_wg reads x and g as (pixels, C) matrices (build.dw_slices)
+inline bool dw_flat(int H, int W, int k, int stride, const ConvGeo& geo) {
+  return k == 1 && stride == 1 && geo.pad_top == 0 && geo.pad_left == 0 && geo.Ho == H &&
+         geo.Wo == W;
+}
+
 template <int BN, bool kNarrow>
 inline int dw_wg(const uint16_t* x, const uint16_t* g, uint16_t* dw, int N, int H, int W,
-                 int Cin, int Cout, int k, int stride, float* ws, int splits, cudaStream_t s) {
-  const int Ho = H / stride, Wo = W / stride;
+                 int Cin, int Cout, int k, int stride, const ConvGeo& cg, float* ws, int splits,
+                 cudaStream_t s) {
+  const int Ho = cg.Ho, Wo = cg.Wo;
   DwMaps maps;
   memset(&maps, 0, sizeof(maps));
-  DwGeom geo{Cin, k, stride, 0, 0, 0, 0, 0, (int64_t)k * k * Cin, Cout, x, H, W, Ho, Wo};
+  DwGeom geo{Cin, k,  stride, 0,  0,  0,          0,          0, (int64_t)k * k * Cin,
+             Cout, x, H,      W,  Ho, Wo, cg.pad_top, cg.pad_left};
   const int64_t bx = 2 * (int64_t)Cin, bg = 2 * (int64_t)Cout;  // bytes of a pixel
   int status = 0;
-  if (k == 1 && stride == 1) {  // no halo: (pixels, C) matrices
+  if (dw_flat(H, W, k, stride, cg)) {  // no halo: (pixels, C) matrices
     const int64_t P = (int64_t)N * H * W;
     geo.bw = 64;
     geo.bh = 1;
@@ -757,13 +802,16 @@ inline int dw_wg(const uint16_t* x, const uint16_t* g, uint16_t* dw, int N, int 
     geo.slices = (int64_t)N * geo.nby * geo.nbx;
     status = dw_map(&maps.g, g, Cout, Wo, Ho, N, bg, Wo * bg, (int64_t)Ho * Wo * bg, geo.bw,
                     geo.bh);
-    // the phases the taps reach: both parities of dy where k > 1
+    // the phases the taps reach: both parities of dy where k > 1, the one
+    // of the tap (-pad_top, -pad_left) at 1x1
     for (int ry = 0; ry < stride && status == 0 && !kNarrow; ++ry)
       for (int rx = 0; rx < stride && status == 0; ++rx) {
-        if (stride == 2 && k == 1 && (ry | rx)) continue;
-        status = dw_map(&maps.x[2 * ry + rx], x + ((int64_t)ry * W + rx) * Cin, Cin, W / stride,
-                        H / stride, N, stride * bx, stride * (int64_t)W * bx,
-                        (int64_t)H * W * bx, geo.bw, geo.bh);
+        if (stride == 2 && k == 1 && (ry != (-cg.pad_top & 1) || rx != (-cg.pad_left & 1)))
+          continue;
+        status = dw_map(&maps.x[2 * ry + rx], x + ((int64_t)ry * W + rx) * Cin, Cin,
+                        (W - rx + stride - 1) / stride, (H - ry + stride - 1) / stride, N,
+                        stride * bx, stride * (int64_t)W * bx, (int64_t)H * W * bx, geo.bw,
+                        geo.bh);
       }
   }
   if (status != 0) return status;
@@ -786,28 +834,32 @@ inline int dw_wg(const uint16_t* x, const uint16_t* g, uint16_t* dw, int N, int 
 
 }  // namespace
 
-// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, H/s, W/s, Cout) on
+// dw (k, k, Cin, Cout) from x (N, H, W, Cin) and g (N, Ho, Wo, Cout) on
 // the wgmma core: Cin % 64 == 0 or Cin == 8 (the wrapper pads the stem's 3
-// channels to 8), Cout % 8 == 0, x and g 16-byte aligned, stride 1 or 2
-// (the wrapper routes every other shape to rt_conv2d_dw_nhwc_bf16_mma);
+// channels to 8), Cout % 8 == 0, x and g 16-byte aligned, stride 1 or 2,
+// H and W at least the stride (the wrapper routes every other shape to
+// rt_conv2d_dw_nhwc_bf16_mma);
 // tiles 128 x 64 where Cout <= 64, else 128 x 128; splits K splits of whole
 // slices (ws: splits * k*k*Cin * Cout floats when splits > 1)
 extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint16_t* dw,
                                       int N, int H, int W, int Cin, int Cout, int k,
-                                      int stride, float* ws, int splits, void* stream) {
+                                      int stride, int pad_top, int pad_left, int Ho, int Wo,
+                                      float* ws, int splits, void* stream) {
   const bool narrow = Cin == 8;
   if ((Cin % 64 != 0 && !narrow) || Cout % 8 != 0 || !bfg::aligned16(x) ||
-      !bfg::aligned16(g) || (stride != 1 && stride != 2) || (splits > 1 && ws == nullptr))
+      !bfg::aligned16(g) || (stride != 1 && stride != 2) || (splits > 1 && ws == nullptr) ||
+      H < stride || W < stride || Ho < 1 || Wo < 1)
     return (int)cudaErrorInvalidValue;
   auto* run = Cout <= 64 ? (narrow ? dw_wg<64, true> : dw_wg<64, false>)
                          : (narrow ? dw_wg<128, true> : dw_wg<128, false>);
-  return run(x, g, dw, N, H, W, Cin, Cout, k, stride, ws, splits, (cudaStream_t)stream);
+  return run(x, g, dw, N, H, W, Cin, Cout, k, stride, ConvGeo{pad_top, pad_left, Ho, Wo}, ws,
+             splits, (cudaStream_t)stream);
 }
 
 // --------------------------------------------- bf16 forward on wgb_gemm.cuh
 //
-// y[(n, oy, ox), co] = sum over (di, dj, ci) of x[n, s*oy - k/2 + di,
-// s*ox - k/2 + dj, ci] w[di, dj, ci, co]: the implicit GEMM of K8-bf16
+// y[(n, oy, ox), co] = sum over (di, dj, ci) of x[n, s*oy - pad_top + di,
+// s*ox - pad_left + dj, ci] w[di, dj, ci, co]: the implicit GEMM of K8-bf16
 // (fused_conv.cuh's ConvWgBlock, K-major A) without its prologue and
 // statistics, on wgb::persistent: one block per SM walks the units (m tile,
 // n tile, K split), and the ring runs across their boundaries. Four A
@@ -817,14 +869,15 @@ extern "C" int rt_conv2d_dw_nhwc_bf16(const uint16_t* x, const uint16_t* g, uint
 // * FWD_GATHER: Cin % 8 == 0, Cout % 8 == 0, x and w 16-byte aligned:
 //   ConvWgBlock<BN, true>, A gathered 16 bytes (8 channels of one tap) at a
 //   time by cp.async, the weight (k*k*Cin, Cout) by TMA as it lies;
-// * FWD_MATRIX: the same widths at 1x1, stride 1, where each split is whole
+// * FWD_MATRIX: the same widths at 1x1, stride 1, no padding and the
+//   input's grid, where each split is whole
 //   slices: A is the (N*H*W, Cin) matrix it is, one TMA box of 128 rows x
 //   64 channels a slice (MatWgBlock), thread 0 issuing every copy;
 // * FWD_STEM: the stem (Cin = 3, 7x7, stride 2, Cout <= 64, aligned): a
 //   kernel row's 7 taps x 3 channels are 21 contiguous values of x, so the
 //   threads stage, for each output pixel and kernel row a slice touches
 //   (at most 4), the 24 values from the one before the row by 4-byte
-//   cp.async (an even element, as W is even), and once every thread's
+//   cp.async (an even element, as W is even and pad_left odd), and once every thread's
 //   copies of the slice have landed they set A's rows out of that staging
 //   in the plain K order, zeros where a tap falls outside the image
 //   (StemStageBlock); the weight (147, Cout) by TMA;
@@ -909,7 +962,7 @@ struct StemStageBlock {
   __device__ StemStageBlock(const FusedConvBfA& a_, const CUtensorMap* wmap_,
                             const wgb::Smem<BN>& sm_, uint64_t* full_, uint8_t* stage_)
       : a(a_), wmap(wmap_), sm(sm_), full(full_), stage(stage_),
-        total(a_.M * a_.stride * a_.stride * STEM_CIN), cr(threadIdx.x >> 1),
+        total(a_.M / ((int64_t)a_.Ho * a_.Wo) * a_.H * a_.W * STEM_CIN), cr(threadIdx.x >> 1),
         ch(threadIdx.x & 1), cc(threadIdx.x & 7), rlo(threadIdx.x >> 3) {}
 
   __device__ void start(int64_t row0, int c, int64_t, int64_t, int) {
@@ -1055,17 +1108,18 @@ int fwd_wg(const CUtensorMap& amap, const CUtensorMap& wmap, const CUtensorMap& 
 
 }  // namespace
 
-// y (N, H/s, W/s, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
+// y (N, Ho, Wo, Cout) = conv(x (N, H, W, Cin), w (k, k, Cin, Cout)) on
 // the wgmma core, every shape: tiles 128 x 64 where Cout <= 64, else 128 x
 // 128; splits K splits (build.tc_split; ws: splits * M * Cout floats when
 // splits > 1); y 4-byte aligned; the A loader `route` (FWD_*).
 extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
                                    int H, int W, int Cin, int Cout, int k, int stride,
-                                   float* ws, int splits, int route, void* stream) {
-  const int Ho = H / stride, Wo = W / stride;
+                                   int pad_top, int pad_left, int Ho, int Wo, float* ws,
+                                   int splits, int route, void* stream) {
   const int64_t M = (int64_t)N * Ho * Wo;
   const int64_t K = (int64_t)k * k * Cin;
-  if (M >= INT32_MAX || K >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr) ||
+  if (Ho < 0 || Wo < 0 || M >= INT32_MAX || K >= INT32_MAX || splits < 1 ||
+      (splits > 1 && ws == nullptr) ||
       (uintptr_t)y % 4 != 0 ||
       (M + wgb::BM - 1) / wgb::BM * ((Cout + 63) / 64) * splits >= INT32_MAX)  // wgb::Units
     return (int)cudaErrorInvalidValue;
@@ -1075,10 +1129,12 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
   const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned;
   const bool ok = route == FWD_SCALAR ||
                   (route == FWD_GATHER && vec) ||
-                  (route == FWD_MATRIX && vec && k == 1 && stride == 1 &&
+                  (route == FWD_MATRIX && vec && k == 1 && stride == 1 && pad_top == 0 &&
+                   pad_left == 0 && Ho == H && Wo == W &&
                    (splits == 1 || chunk % wgb::BK == 0)) ||
                   (route == FWD_STEM && Cin == STEM_CIN && k == STEM_K && stride == 2 &&
-                   W % 2 == 0 && Cout % 8 == 0 && Cout <= 64 && splits == 1 && aligned);
+                   W % 2 == 0 && pad_left % 2 != 0 && Cout % 8 == 0 && Cout <= 64 &&
+                   splits == 1 && aligned);
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, wmap, ymap;
   memset(&amap, 0, sizeof(amap));
@@ -1092,8 +1148,8 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
     if (status == 0 && splits == 1) status = wgb::cached_matrix_map(&ymap, y, M, Cout, wgb::BM);
   }
   if (status != 0) return status;
-  const FusedConvBfA a = conv_loader_bf16(x, nullptr, nullptr, N, H, W, Cin, k, stride, k / 2,
-                                          k / 2, Ho, Wo, false, rt::Act{false, false, 0.f});
+  const FusedConvBfA a = conv_loader_bf16(x, nullptr, nullptr, N, H, W, Cin, k, stride, pad_top,
+                                          pad_left, Ho, Wo, false, rt::Act{false, false, 0.f});
   const int wide = Cout <= 64 ? 0 : 1;
   const wgb::Units un{(M + wgb::BM - 1) / wgb::BM, (Cout + (wide ? 128 : 64) - 1) / (wide ? 128 : 64),
                       splits, K, chunk};
@@ -1111,8 +1167,11 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
 //
 // dx[(n, py + s*qy, px + s*qx), ci] = sum over the phase's taps (ti, tj) and
 // co of g[n, qy + cy - ti, qx + cx - tj, co] w[fy + s*ti, fx + s*tj, ci, co]
-// ((fy, cy) the first tap and shift of row phase py, PhaseTaps; (fx, cx) of
-// px): per phase (py, px) one GEMM of the phase's N*Ho*Wo rows over K = its
+// ((fy, cy) the first tap and shift of row phase py under pad_top,
+// PhaseTaps; (fx, cx) of px under pad_left): per phase (py, px) one GEMM of
+// N*Qh*Qw rows, Qh = ceil(H / s) and Qw = ceil(W / s) for every phase (the
+// rows of a phase that fall past H or W, where s does not divide them, are
+// computed and not stored), over K = its
 // taps x Cout in (ti, tj, co) order, on wgb::persistent. B is w as it lies:
 // B's column ci at a tap is w[tap, ci, :], Cout contiguous, so B is K-major
 // and wgmma reads it without the transpose bit; nothing is cut from w or
@@ -1120,7 +1179,8 @@ extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_
 // phase's first (wgb::Units). Four loaders; the caller names one
 // (conv.dx_bf16_route, a function of the shapes and the alignment), and the
 // entry refuses a loader the shapes or pointers do not allow:
-// * DX_MATRIX: a 1x1/s1 dx whose splits are whole slices: A the (M, Cout)
+// * DX_MATRIX: a 1x1/s1 dx with no padding and the input's grid whose
+//   splits are whole slices: A the (M, Cout)
 //   matrix g by TMA boxes of 128 rows x 64 channels, B a box of 64 co x BN
 //   ci of w, thread 0 issuing every copy;
 // * DX_GATHER: A gathered 16 bytes (8 channels of g at one tap) at a time by
@@ -1155,17 +1215,19 @@ constexpr int DX_GATHER = 0, DX_MATRIX = 1, DX_SCALAR = 2, DX_COPY = 3;
 struct DxGeom {
   const uint16_t* __restrict__ g;
   const uint16_t* __restrict__ w;
-  int H, W, Ho, Wo, Cin, Cout, ksize, stride;
-  int M;  // rows of a phase: N * Ho * Wo (< 2^31)
+  int H, W, Ho, Wo, Cin, Cout, ksize, stride, pad_top, pad_left;
+  int Qh, Qw;  // a phase's rows per image column and row: ceil(H / s), ceil(W / s)
+  int M;       // rows of a phase: N * Qh * Qw (< 2^31)
 };
 
-// dx's row of row m of phase (py, px)
+// dx's row of row m of phase (py, px), or -1 past H or W (not stored)
 struct PhaseRow {
-  int H, W, Ho, Wo, stride, py, px;
+  int H, W, Qh, Qw, stride, py, px;
   __device__ int64_t operator()(int64_t m) const {
-    const int mm = (int)m, howo = Ho * Wo;
-    const int n = mm / howo, rem = mm - n * howo, qy = rem / Wo;
-    return ((int64_t)n * H + py + stride * qy) * W + px + stride * (rem - qy * Wo);
+    const int mm = (int)m, qhqw = Qh * Qw;
+    const int n = mm / qhqw, rem = mm - n * qhqw, qy = rem / Qw;
+    const int iy = py + stride * qy, ix = px + stride * (rem - qy * Qw);
+    return iy < H && ix < W ? ((int64_t)n * H + iy) * W + ix : -1;
   }
 };
 
@@ -1201,11 +1263,12 @@ struct DxWgBlock {
     col0 = c0;
     k_end = (int)k1;
     const int p = d.stride > 1 ? z : 0;
-    const PhaseTaps ty(p / d.stride, d.ksize, d.stride), tx(p % d.stride, d.ksize, d.stride);
+    const PhaseTaps ty(p / d.stride, d.ksize, d.stride, d.pad_top),
+        tx(p % d.stride, d.ksize, d.stride, d.pad_left);
     fy = ty.first;
     fx = tx.first;
     ntj = tx.count;
-    const int howo = d.Ho * d.Wo;
+    const int qhqw = d.Qh * d.Qw;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = row0 + rlo + 32 * i;
@@ -1213,10 +1276,10 @@ struct DxWgBlock {
       oy[i] = -(1 << 29);  // a row past M: outside the gradient at every tap
       ox[i] = 0;
       if (m < d.M) {
-        const int n = m / howo, rem = m - n * howo, qy = rem / d.Wo;
-        off[i] = (int64_t)n * howo * d.Cout;
+        const int n = m / qhqw, rem = m - n * qhqw, qy = rem / d.Qw;
+        off[i] = (int64_t)n * d.Ho * d.Wo * d.Cout;
         oy[i] = qy + ty.shift;
-        ox[i] = rem - qy * d.Wo + tx.shift;
+        ox[i] = rem - qy * d.Qw + tx.shift;
       }
     }
     k = (int)k0 + 8 * cc;
@@ -1348,7 +1411,7 @@ conv2d_dx_wg_kernel(const __grid_constant__ CUtensorMap amap,
     } else if (KIND != DX_SCALAR && d.stride == 1) {
       wgb::store_tile_tma<BN>(acc, wgb::p_out<BN>(sm), &ymap, row0, col0);
     } else {
-      const PhaseRow rows{d.H, d.W, d.Ho, d.Wo, d.stride, z / d.stride, z % d.stride};
+      const PhaseRow rows{d.H, d.W, d.Qh, d.Qw, d.stride, z / d.stride, z % d.stride};
       if constexpr (KIND == DX_SCALAR)
         wgb::store_pairs<BN>(acc, row0, col0, d.M, d.Cin, dx, nullptr, rows);
       else
@@ -1375,7 +1438,7 @@ int dx_wg(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& y
 
 }  // namespace
 
-// dx (N, H, W, Cin) from g (N, H/s, W/s, Cout) and w (k, k, Cin, Cout) on
+// dx (N, H, W, Cin) from g (N, Ho, Wo, Cout) and w (k, k, Cin, Cout) on
 // the wgmma core's persistent loop, every shape: tiles 128 x 64 where Cin <=
 // 64, else 128 x 128; splits K splits at stride 1 (build.tc_split; ws:
 // splits * N*H*W * Cin floats when splits > 1), one at stride > 1 (the
@@ -1383,10 +1446,11 @@ int dx_wg(const CUtensorMap& amap, const CUtensorMap& bmap, const CUtensorMap& y
 // (DX_*).
 extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint16_t* dx,
                                       int N, int H, int W, int Cin, int Cout, int k,
-                                      int stride, float* ws, int splits, int route,
-                                      void* stream) {
-  const int Ho = H / stride, Wo = W / stride;
-  const int64_t M = (int64_t)N * Ho * Wo;
+                                      int stride, int pad_top, int pad_left, int Ho, int Wo,
+                                      float* ws, int splits, int route, void* stream) {
+  if (stride < 1 || Ho < 0 || Wo < 0) return (int)cudaErrorInvalidValue;
+  const int Qh = (H + stride - 1) / stride, Qw = (W + stride - 1) / stride;
+  const int64_t M = (int64_t)N * Qh * Qw;
   const int phases = stride * stride;
   if (M >= INT32_MAX || (int64_t)k * k * Cout >= INT32_MAX ||
       (int64_t)k * k * Cin >= INT32_MAX || stride < 1 || phases > wgb::MAX_PHASES ||
@@ -1403,8 +1467,8 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint
   } else {  // the phases by depth, the deepest first, then in row-major order
     un.phases = phases;
     for (int p = 0; p < phases; ++p) {
-      const int64_t depth = (int64_t)PhaseTaps(p / stride, k, stride).count *
-                            PhaseTaps(p % stride, k, stride).count * Cout;
+      const int64_t depth = (int64_t)PhaseTaps(p / stride, k, stride, pad_top).count *
+                            PhaseTaps(p % stride, k, stride, pad_left).count * Cout;
       int r = p;
       for (; r > 0 && un.pK[r - 1] < depth; --r) {
         un.pK[r] = un.pK[r - 1];
@@ -1419,7 +1483,8 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint
   const bool vec = Cout % 8 == 0 && Cin % 8 == 0 && aligned;
   const bool whole = splits == 1 || un.chunk % wgb::BK == 0;
   const bool ok = route == DX_SCALAR || (route == DX_COPY && vec) ||
-                  (route == DX_MATRIX && vec && k == 1 && stride == 1 && whole) ||
+                  (route == DX_MATRIX && vec && k == 1 && stride == 1 && pad_top == 0 &&
+                   pad_left == 0 && Ho == H && Wo == W && whole) ||
                   (route == DX_GATHER && vec && (k == 1 || Cout % wgb::BK == 0) && whole);
   if (!ok) return (int)cudaErrorInvalidValue;
   CUtensorMap amap, bmap, ymap;
@@ -1430,11 +1495,11 @@ extern "C" int rt_conv2d_dx_nhwc_bf16(const uint16_t* g, const uint16_t* w, uint
   if (route == DX_GATHER || route == DX_MATRIX)
     status = wgb::cached_matrix_map(&bmap, w, (int64_t)k * k * Cin, Cout, bn);
   if (status == 0 && route == DX_MATRIX)
-    status = wgb::cached_matrix_map(&amap, g, M, Cout, wgb::BM);
+    status = wgb::cached_matrix_map(&amap, g, (int64_t)N * Ho * Wo, Cout, wgb::BM);
   if (status == 0 && route != DX_SCALAR && stride == 1 && splits == 1)
     status = wgb::cached_matrix_map(&ymap, dx, M, Cin, wgb::BM);
   if (status != 0) return status;
-  const DxGeom d{g, w, H, W, Ho, Wo, Cin, Cout, k, stride, (int)M};
+  const DxGeom d{g, w, H, W, Ho, Wo, Cin, Cout, k, stride, pad_top, pad_left, Qh, Qw, (int)M};
   using Launch = int (*)(const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
                          const DxGeom&, uint16_t*, float*, const wgb::Units&, cudaStream_t);
   static const Launch runs[2][4] = {

@@ -512,7 +512,8 @@ extern "C" int rt_matmul_bwd_f32(const float* a, const float* b, const float* g,
 
 extern "C" int rt_conv2d_nhwc_bf16(const uint16_t* x, const uint16_t* w, uint16_t* y, int N,
                                    int H, int W, int Cin, int Cout, int k, int stride,
-                                   float* ws, int splits, int route, void* stream);
+                                   int pad_top, int pad_left, int Ho, int Wo, float* ws,
+                                   int splits, int route, void* stream);
 
 namespace {
 
@@ -675,7 +676,8 @@ extern "C" int rt_matmul_bf16(const uint16_t* a, const uint16_t* b, uint16_t* c,
   if (M < 0 || M >= INT32_MAX || splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   if (route < FC_SWAP)
-    return rt_conv2d_nhwc_bf16(a, b, c, (int)M, 1, 1, K, N, 1, 1, ws, splits, route, stream);
+    return rt_conv2d_nhwc_bf16(a, b, c, (int)M, 1, 1, K, N, 1, 1, 0, 0, 1, 1, ws, splits, route,
+                               stream);
   const bool ok = M <= 32 && (route == FC_SWAP_SCALAR ||
                    (route == FC_SWAP && K % 8 == 0 && N % 8 == 0 && bfg::aligned16(a) &&
                     bfg::aligned16(b)));

@@ -707,7 +707,8 @@ __device__ __forceinline__ void store_tma_wait() {
 // bf16 output whose tile row m lies at y's row row_of(m) (stride N, N % 8
 // == 0, y 16-byte aligned): rounded into the staged tile `out` as
 // store_tile_tma stages it, then each row leaves in 16-byte stores, a
-// thread's rows decoded once. Rows past M are not written. Called by every
+// thread's rows decoded once. Rows past M, and rows row_of maps to -1, are
+// not written. Called by every
 // thread; the previous unit's tile has been read out of the stage before it
 // is written again.
 template <int BN, class RowOf>
@@ -733,8 +734,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[Tile<BN>::NACC], u
   for (int i = 0; i < BM * CH / THREADS; ++i) {
     const int r = tid / CH + THREADS / CH * i;
     const int64_t gm = row0 + r;
-    if (gm < M && c < N)
-      *reinterpret_cast<uint4*>(y + row_of(gm) * N + c) =
+    const int64_t yr = gm < M ? row_of(gm) : -1;
+    if (yr >= 0 && c < N)
+      *reinterpret_cast<uint4*>(y + yr * N + c) =
           *reinterpret_cast<const uint4*>(out + (j / 8) * BM * 128 + swz(r, j % 8));
   }
 }
@@ -747,7 +749,8 @@ struct SameRow {
 // The tile of rows row0 + [0, 128), columns col0 + [0, BN) of an (M, N)
 // output, each thread its own pairs straight from its registers: rounded to
 // bf16 into y (row-major, stride N; tile row m at y's row row_of(m)), or,
-// with part, fp32 into part. Rows past M are not written.
+// with part, fp32 into part. Rows past M, and rows row_of maps to -1, are
+// not written.
 template <int BN, class RowOf = SameRow, class C = Crew<0>>
 __device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], int64_t row0,
                                             int col0, int64_t M, int N, uint16_t* y, float* part,
@@ -758,7 +761,7 @@ __device__ __forceinline__ void store_pairs(const float (&acc)[Tile<BN>::NACC], 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int64_t gm = row0 + warp * 16 + gid + 8 * h;
-    if (gm >= M) continue;
+    if (gm >= M || (!part && row_of(gm) < 0)) continue;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int gc = col0 + 8 * j + 2 * tig;

@@ -5,12 +5,17 @@ Five ops in the ``resnet_tpu_torch`` namespace, one for each forward entry
 that a served forward (``export.InferenceModel``,
 ``export.QuantizedInferenceModel``) reaches:
 
-    conv2d_nhwc(x, w, stride)                  K1   kernels.conv
+    conv2d_nhwc(x, w, stride, padding?)        K1   kernels.conv
     add_relu(a, b)                             K2   kernels.fused
     matmul(a, b)                               K3   kernels.matmul
     quant_act(x, inv)                          Q2   kernels.quant
     qconv(xq, w, dq, bias?, wk?, stride, groups, relu, cap?, out_dtype)
                                                Q1, or Q3 for groups > 1
+
+``conv2d_nhwc``'s ``padding`` is JAX's explicit padding as [lo, hi, lo_w,
+hi_w], which a rank's tile of rows takes under spatial partitioning; None
+(the default) is the reference's centred windows, so that a program saved
+before the argument existed loads and runs as it did.
 
 Each op has three implementations, picked by the dispatcher from the
 inputs' dispatch key:
@@ -45,7 +50,7 @@ import torch
 NAMESPACE = "resnet_tpu_torch"
 LIB = torch.library.Library(NAMESPACE, "DEF")
 SCHEMAS = {
-    "conv2d_nhwc": "conv2d_nhwc(Tensor x, Tensor w, int stride) -> Tensor",
+    "conv2d_nhwc": "conv2d_nhwc(Tensor x, Tensor w, int stride, int[]? padding=None) -> Tensor",
     "add_relu": "add_relu(Tensor a, Tensor b) -> Tensor",
     "matmul": "matmul(Tensor a, Tensor b) -> Tensor",
     "quant_act": "quant_act(Tensor x, float inv) -> Tensor",
@@ -97,10 +102,15 @@ def _devices(name: str, *tensors) -> None:
 
 
 @torch.library.register_fake(f"{NAMESPACE}::conv2d_nhwc")
-def _conv2d_nhwc_fake(x, w, stride):
+def _conv2d_nhwc_fake(x, w, stride, padding=None):
     _devices("conv2d", x, w)
     n, h, wd, _ = x.shape
-    return x.new_empty((n, h // stride, wd // stride, w.shape[3]))
+    if padding is None:
+        return x.new_empty((n, h // stride, wd // stride, w.shape[3]))
+    k = w.shape[0]
+    lo, hi, lo_w, hi_w = padding
+    return x.new_empty((n, (h + lo + hi - k) // stride + 1, (wd + lo_w + hi_w - k) // stride + 1,
+                        w.shape[3]))
 
 
 @torch.library.register_fake(f"{NAMESPACE}::add_relu")

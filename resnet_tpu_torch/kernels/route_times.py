@@ -80,8 +80,8 @@ def _dx_run(n, h, cin, cout, k, s, route, gen):
     m = n * h * h
     splits = conv.dx_splits(m, cin, cout, k, s)
     ws_ptr, ws = build.gemm_workspace(splits, m, cin, g)
-    args = (g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, h, h, cin, cout, k, s, ws_ptr, splits,
-            conv.DX_ROUTES.index(route))
+    args = (g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, h, h, cin, cout, k, s,
+            *conv.geometry(h, h, k, s, None), ws_ptr, splits, conv.DX_ROUTES.index(route))
 
     def run(keep=(g, w, ws)):
         build.launch("rt_conv2d_dx_nhwc_bf16", *args, device=dx.device)

@@ -90,6 +90,14 @@ dtype, its weights to it and its γ, β to fp32 inside ``block_fused``).
 Runs that JAX sends down the standard path (NCHW, eval, ghost BN, frozen
 BN) do so here too, in bf16 as well.
 
+Inside ``parallel.spatial.partition`` (the data x spatial step) the
+activations are this rank's rows of the images: the stem, every conv
+(grouped ones too), the max pool and the pool before the head run on the
+rank's haloed tile with the row plan's explicit padding (``_conv``,
+``_max_pool``, ``_avg_pool``), K1 with JAX's padding under
+``conv_kernels='pallas'``; the fused and whole-block engines and the
+space-to-depth stem raise there (``config.check_spatial``).
+
 ``capture=True`` returns the reference's activation tape in
 ``aux["activations"]``, keyed as JAX keys it (models/resnet.py:174-216,
 :318-391): it turns off the fused route, the whole-block kernel and remat,
@@ -104,7 +112,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import ExecutionConfig, ModelConfig
+from ..config import ExecutionConfig, ModelConfig, check_spatial
 from ..kernels.bn import sample_rows
 from ..ops import global_avg_pool, max_pool, relu, softmax
 from ..ops.batchnorm import batch_norm_ghost
@@ -112,17 +120,40 @@ from ..ops.conv import channel_dim, conv2d
 from ..ops.dispatch import bn_act, bn_stats, conv as _dispatch_conv, fc, residual_join
 from ..ops.precision import precision_scope
 from ..ops.space_to_depth import s2d_stem_conv
+from ..parallel import spatial
 from ..parallel.tensor_parallel import head_in, head_out
 
 _FUSED_ENGINES = ("fused", "hybrid", "fusedxla")
 
 
 def _conv(x, w, *, stride, ecfg, groups=1):
-    if groups > 1:
-        # a grouped conv (ResNeXt) is the plain conv under every
-        # conv_kernels, as JAX sends it to XLA (models/resnet.py:49-58)
-        return conv2d(x, w, stride=stride, groups=groups, layout=ecfg.layout)
-    return _dispatch_conv(x, w, stride=stride, engine=ecfg.conv_kernels, layout=ecfg.layout)
+    """The conv of the config's engine; inside a spatial partition on the
+    rank's haloed tile with the plan's padding."""
+    def run(t, padding=None):
+        if groups > 1:
+            # a grouped conv (ResNeXt) is the plain conv under every
+            # conv_kernels, as JAX sends it to XLA (models/resnet.py:49-58)
+            return conv2d(t, w, stride=stride, groups=groups, layout=ecfg.layout,
+                          padding=padding)
+        return _dispatch_conv(t, w, stride=stride, engine=ecfg.conv_kernels,
+                              layout=ecfg.layout, padding=padding)
+
+    if spatial.active() is None:
+        return run(x)
+    return spatial.conv(x, w.shape[0], stride, ecfg.layout, run)
+
+
+def _max_pool(x, *, mcfg, ecfg):
+    if spatial.active() is None:
+        return max_pool(x, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride,
+                        layout=ecfg.layout)
+    return spatial.max_pool(x, mcfg.maxpool_kernel, mcfg.maxpool_stride, ecfg.layout)
+
+
+def _avg_pool(x, *, ecfg):
+    if spatial.active() is None:
+        return global_avg_pool(x, layout=ecfg.layout)
+    return spatial.global_avg_pool(x, ecfg.layout)
 
 
 def _use_s2d(x, mcfg, ecfg) -> bool:
@@ -337,6 +368,8 @@ def forward(
 
 
 def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
+    if spatial.active() is not None:
+        check_spatial(ecfg)
     if (train and not capture and ecfg.kernels in _FUSED_ENGINES
             and ecfg.layout == "NHWC" and ecfg.bn_mode == "batch"
             and not ecfg.bn_stats_batch):
@@ -362,9 +395,7 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
         out, _bn_stats(out, state.get("init_bn"), ecfg=ecfg, train=train),
         params["init_bn"], eps=mcfg.bn_eps, ecfg=ecfg, relu_fused=True)
     _taped(tape, "init_conv_activated", out)
-    out = _taped(tape, "init_convblock_input",
-                 max_pool(out, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride,
-                          layout=ecfg.layout))
+    out = _taped(tape, "init_convblock_input", _max_pool(out, mcfg=mcfg, ecfg=ecfg))
 
     block_tapes = [{} if capture else None for _ in range(mcfg.num_blocks)]
 
@@ -393,7 +424,7 @@ def _forward(params, x, mcfg, ecfg, train, bn_state, capture):
     else:
         out, stats["blocks"] = run_blocks(out, 0, mcfg.num_blocks)
 
-    pooled = global_avg_pool(out, layout=ecfg.layout)
+    pooled = _avg_pool(out, ecfg=ecfg)
     logits = head_out(fc(head_in(pooled), params["fc"]["w"], params["fc"].get("b"),
                          engine=ecfg.kernels).to(torch.float32))
     aux: Dict[str, Any] = {"bn_stats": stats}

@@ -6,7 +6,7 @@ Same rules as resnet_tpu.ops.dispatch:
   kernel;
 * ``fc``: ``engine='pallas'`` -> the matmul kernel;
 * ``conv``: ``engine='pallas'`` (ExecutionConfig.conv_kernels) -> the conv
-  kernel;
+  kernel, with the reference's windows or an explicit padding;
 * ``bn_act`` with batch statistics, ``engine='pallas'`` and NHWC -> the
   moments kernel on the (N*H*W, C) view (``bn_stats``), then normalize and
   ReLU in plain ops (dispatch.py:58-74); NCHW takes the plain statistics,
@@ -80,15 +80,18 @@ def residual_join(a: torch.Tensor, b: torch.Tensor, *, engine: str = "xla",
 
 
 def conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
-         engine: str = "xla", layout: str = "NHWC") -> torch.Tensor:
-    """NHWC or NCHW convolution with reference-centered windows."""
+         engine: str = "xla", layout: str = "NHWC",
+         padding: Optional[Tuple[Tuple[int, int], Tuple[int, int]]] = None) -> torch.Tensor:
+    """NHWC or NCHW convolution with reference-centered windows, or with
+    JAX's explicit ``padding`` ((lo, hi) along H, then along W), which a
+    rank's tile of rows takes under spatial partitioning."""
     if engine == "pallas":
         if layout == "NCHW":
             xh = x.permute(0, 2, 3, 1).contiguous()
-            y = _kconv.conv2d(xh, w.to(x.dtype), stride)
+            y = _kconv.conv2d(xh, w.to(x.dtype), stride, padding)
             return y.permute(0, 3, 1, 2).contiguous()
-        return _kconv.conv2d(x, w.to(x.dtype), stride)
-    return conv2d(x, w, stride=stride, layout=layout)
+        return _kconv.conv2d(x, w.to(x.dtype), stride, padding)
+    return conv2d(x, w, stride=stride, layout=layout, padding=padding)
 
 
 def fc(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,

@@ -7,7 +7,9 @@ the first maximum of each window in scan order (strict >), as the
 reference's maxPoolDeriv and JAX's select_scatter VJP do, and the padded
 cells, which F.pad's backward drops, never win over a real value. The
 JAX package's ``maxpool_vjp='mask'`` is a TPU negative result and is not
-ported."""
+ported. On a rank's rows under spatial partitioning both pools run in
+``parallel.spatial`` (the max pool on the haloed tile, -inf at the image's
+edges only; the average pool's row sums summed over the spatial group)."""
 
 from __future__ import annotations
 

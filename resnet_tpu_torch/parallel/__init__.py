@@ -9,10 +9,14 @@ engine; ``make_shard_map_train_step`` the explicit-sum step with local BN;
 ``zero_shardings`` the ZeRO plan. ``make_mesh_2d`` is the data x model grid
 and ``composite_shardings`` its plan, the FC head split over the model
 group (``tensor_parallel``), for ``train.make_train_step(cfg, mesh,
-state_shardings=plan)``. Spatial partitioning raises NotImplementedError
-naming ROADMAP.md queue A item A13.
+state_shardings=plan)``. ``make_mesh_2d(data, spatial, axes=("data",
+"spatial"))`` is the data x spatial grid, ``spatial_shard_batch`` a rank's
+rows and slice of the images' height, and ``spatial`` the row plan, the
+halo exchange and the partitioned conv and pools that the spatial step runs
+(``train.make_train_step(cfg, grid)``).
 """
 
+from . import spatial
 from .data_parallel import make_shard_map_train_step
 from .distributed import host_batch_slice, initialize_distributed
 from .mesh import (
@@ -35,6 +39,7 @@ __all__ = [
     "spatial_batch_specs",
     "spatial_shard_batch",
     "zero_shardings",
+    "spatial",
     "make_shard_map_train_step",
     "initialize_distributed",
     "host_batch_slice",

@@ -16,16 +16,21 @@ the gradients and BN statistics are summed) and ``model`` its model group
 (the ranks of its data index, which hold the same rows and split the FC
 head). ``composite_shardings`` is JAX's rule for that grid: every leaf on a
 path through ``fc`` whose last dimension the model size divides is split
-on that dimension over the model group, every other leaf replicated. The
-spatial (H-sharded) layout raises NotImplementedError naming ROADMAP.md
-queue A item A13.
+on that dimension over the model group, every other leaf replicated. With
+``axes=("data", "spatial")`` (or ``kind="spatial"``, the grid's
+``Mesh2D.kind``) the same grid is JAX's data x spatial mesh:
+the second group is this rank's spatial group (the ranks of its data index,
+which split the images' height, ``parallel.spatial``), and
+``spatial_shard_batch`` gives a rank its rows of the batch and its slice
+of the height.
 
 ``zero_shardings`` is JAX's ZeRO rule, leaf by leaf: each leaf of at least
 ``min_bytes`` is sharded on its largest dimension that the ranks divide
 (ties to the last), scalars and small leaves replicated. Each plan returned
 has the state's nesting, with the sharded dimension (an int) or None at
 each leaf; a mesh's ``shards`` is the group a plan's shards are split over
-(the data group of a ``Mesh``, the model group of a ``Mesh2D``).
+(the data group of a ``Mesh`` and of a data x spatial grid, the model group
+of a data x model ``Mesh2D``).
 """
 
 from __future__ import annotations
@@ -35,8 +40,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-
-from ..config import ROADMAP_PARALLEL, not_ported
 
 
 @dataclass(frozen=True)
@@ -101,16 +104,27 @@ class Mesh:
                     at += t.numel()
 
 
+GRID_KINDS = ("model", "spatial")
+
+
 @dataclass(frozen=True)
 class Mesh2D:
     """A grid of data x model ranks, the model axis innermost (rank = d *
     model + m): ``data`` this rank's data group (index d), ``model`` its
-    model group (index m), ``rank`` its rank in the default group."""
+    model group (index m), ``rank`` its rank in the default group. ``kind``
+    says what the second group does: "model" (it splits the FC head) or
+    "spatial" (it splits the images' height; ``model`` is then the spatial
+    group, ``spatial``)."""
 
     data: Mesh
     model: Mesh
     rank: int
     axis_names: Tuple[str, str] = ("data", "model")
+    kind: str = "model"
+
+    def __post_init__(self):
+        if self.kind not in GRID_KINDS:
+            raise ValueError(f"Mesh2D kind {self.kind!r}; expected one of {GRID_KINDS}")
 
     @property
     def size(self) -> int:
@@ -121,10 +135,31 @@ class Mesh2D:
         return {self.axis_names[0]: self.data.size, self.axis_names[1]: self.model.size}
 
     @property
+    def is_spatial(self) -> bool:
+        """A data x spatial grid: its second axis splits the images' height."""
+        return self.kind == "spatial"
+
+    @property
+    def spatial(self) -> Optional[Mesh]:
+        """The spatial group of a data x spatial grid, else None."""
+        return self.model if self.is_spatial else None
+
+    @property
     def shards(self) -> Mesh:
         """The group a state plan's shards are split over: the model group
-        (``composite_shardings``)."""
-        return self.model
+        (``composite_shardings``); on a data x spatial grid the data group
+        (ZeRO sharded over data, replicated over spatial, as JAX's Trainer
+        composes them)."""
+        return self.data if self.is_spatial else self.model
+
+    @property
+    def world(self) -> Mesh:
+        """Every rank of the grid (the default group)."""
+        return Mesh(size=self.size, rank=self.rank, axis="world")
+
+    def sum_(self, t: torch.Tensor) -> None:
+        """Sum ``t`` over every rank of the grid, in place."""
+        self.world.sum_(t)
 
 
 def make_mesh(num_devices: int = 0, axis: str = "data") -> Mesh:
@@ -218,23 +253,29 @@ def zero_dim(shape, nbytes: int, size: int, min_bytes: int) -> Optional[int]:
 
 def zero_shardings(state, mesh: Mesh, axis: str = "data", min_bytes: int = 2 ** 16):
     """ZeRO plan of a state (``resnet_tpu.parallel.zero_shardings``): the
-    state's nesting with each leaf's sharded dimension or None."""
+    state's nesting with each leaf's sharded dimension or None, over the
+    mesh's ``shards`` group (a data x spatial grid's data group)."""
     def assign(leaf):
         if not isinstance(leaf, torch.Tensor):
             return None
-        return zero_dim(tuple(leaf.shape), leaf.numel() * leaf.element_size(), mesh.size,
-                        min_bytes)
+        return zero_dim(tuple(leaf.shape), leaf.numel() * leaf.element_size(),
+                        mesh.shards.size, min_bytes)
 
     return _tree_map(assign, state)
 
 
-def make_mesh_2d(data: int, model: int, axes=("data", "model")) -> Mesh2D:
+def make_mesh_2d(data: int, model: int, axes=("data", "model"), kind=None) -> Mesh2D:
     """The data x model grid of JAX's ``make_mesh_2d`` over every rank of
     the default group, the model axis innermost: one process group for
     each data index (its model group) and one for each model index (its
-    data group), made by every rank in the same order. With ``axes`` =
-    ("data", "spatial") the same grid, for the spatial helpers, which raise
-    (A13)."""
+    data group), made by every rank in the same order. ``kind`` (None: the
+    second axis's name, which must then be "model" or "spatial") is the
+    grid's ``Mesh2D.kind``: "spatial" gives the data x spatial grid
+    (``Mesh2D.spatial``)."""
+    kind = axes[1] if kind is None else kind
+    if kind not in GRID_KINDS:
+        raise ValueError(f"make_mesh_2d: the second axis {axes[1]!r} names no grid kind; "
+                         f"name it one of {GRID_KINDS} or pass kind=")
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh_2d: no torch.distributed process group; start the ranks with "
@@ -252,7 +293,7 @@ def make_mesh_2d(data: int, model: int, axes=("data", "model")) -> Mesh2D:
     data_groups = [dist.new_group(list(range(j, n, model))) for j in range(model)]
     return Mesh2D(data=Mesh(data, d, axes[0], data_groups[m]),
                   model=Mesh(model, m, axes[1], model_groups[d]), rank=rank,
-                  axis_names=tuple(axes))
+                  axis_names=tuple(axes), kind=kind)
 
 
 def _tree_map_path(fn: Callable, tree, path: Tuple = ()):
@@ -290,10 +331,40 @@ def composite_shardings(state, mesh: Mesh2D, model_axis: str = "model"):
 
 def spatial_batch_specs(data_axis: str = "data", spatial_axis: str = "spatial",
                         layout: str = "NHWC"):
-    raise not_ported("spatial partitioning (spatial_batch_specs)", ROADMAP_PARALLEL)
+    """(images, labels) specs as JAX writes them: the axis name of each
+    dimension or None; the image HEIGHT is dim 1 in NHWC, dim 2 in NCHW."""
+    if layout == "NHWC":
+        img = (data_axis, spatial_axis)
+    elif layout == "NCHW":
+        img = (data_axis, None, spatial_axis)
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    return img, (data_axis,)
 
 
-def spatial_shard_batch(batch, mesh, data_axis: str = "data",
+def height_slice(images, index: int, count: int, layout: str = "NHWC"):
+    """Part ``index`` of ``count`` of a batch of images (a tensor or an
+    array) along its height (the even split, ``parallel.spatial.even_rows``),
+    contiguous."""
+    hdim = 1 if layout == "NHWC" else 2
+    h = images.shape[hdim]
+    if h % count:
+        raise ValueError(f"image height {h} does not split over {count} spatial ranks")
+    per = h // count
+    sl = [slice(None)] * len(images.shape)
+    sl[hdim] = slice(index * per, (index + 1) * per)
+    part = images[tuple(sl)]
+    return part.contiguous() if hasattr(part, "contiguous") else part.copy()
+
+
+def spatial_shard_batch(batch, mesh: Mesh2D, data_axis: str = "data",
                         spatial_axis: str = "spatial", layout: str = "NHWC"):
-    raise not_ported("spatial partitioning (spatial_shard_batch)", ROADMAP_PARALLEL)
+    """This rank's part of a global batch on a data x spatial grid: its rows
+    of the batch (its data index, ``rows_of``) and, of each image (an array
+    of 3 dimensions or more), its slice of the height (its spatial index);
+    the labels whole for its rows."""
+    spatial_batch_specs(data_axis, spatial_axis, layout)  # the layout's check
+    rows = rows_of(batch, mesh.data.rank, mesh.data.size)
+    return {k: (height_slice(v, mesh.model.rank, mesh.model.size, layout)
+                if len(getattr(v, "shape", ())) >= 3 else v) for k, v in rows.items()}
 

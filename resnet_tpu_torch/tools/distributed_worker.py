@@ -19,7 +19,12 @@ ZeRO-sharded state, with ``"mesh": [data, model]`` the composite step on
 ``parallel.make_mesh_2d(data, model)`` with the FC head split by
 ``parallel.composite_shardings`` (the rows of the rank's data index; the
 local FC shape and the plan recorded, and with ``"dump"`` a directory, a
-dump of the state after the steps). It records
+dump of the state after the steps), with ``"mesh": [data, spatial]`` and
+``"axes": ["data", "spatial"]`` the spatial step on that grid (the rank's
+rows and slice of their height, ``parallel.spatial_shard_batch``; with
+``"zero"`` the state sharded over the data group); a case's ``"batch"`` (a
+saved batch) stands for the spec's, and ``"fresh"`` starts from the
+config's seeded init. It records
 the launch counters' moves over the steps (the main path), the metrics, the
 whole parameters, running statistics and Adam moments after them (rank 0;
 those of the case's ``"keep"`` list where it has one), each rank's state
@@ -29,7 +34,14 @@ steps), with ``"time"`` that many more steps timed one by one. A case
 ``{"kind": "moments"}`` holds the statistics Function alone: this rank's
 rows of ``spec["moments_x"]`` through ``kernels.bn.moments`` and
 ``moments_plain`` inside ``sync_stats``, with the gradient of a fixed
-weighting of mean and var.
+weighting of mean and var. A case ``{"kind": "spatial_ops", "mesh": [1,
+s]}`` runs each of its ``"ops"`` (a conv, a max pool or the global average
+pool of seeded inputs, on the rows of the plan it names or the even split)
+on this rank's rows inside ``parallel.spatial.partition``, forward and
+backward against a seeded cotangent, recording the rank's output and
+gradients and the shape of every collective the spatial group ran. A step
+case with ``"audit"`` records the shape of every collective of its steps
+(``Mesh.all_gather`` and ``Mesh.sum_``).
 
 A case's config is ``spec["config"]`` (the TrainConfig's fields as nested
 dicts) with the case's ``"config"`` fields in place of those.
@@ -68,6 +80,8 @@ from ..parallel import (
     make_mesh,
     make_mesh_2d,
     shard_batch,
+    spatial,
+    spatial_shard_batch,
 )
 from ..parallel.multihost import fetch_global, put_global
 
@@ -144,36 +158,128 @@ def _moments_case(case, spec, mesh, device):
     return out
 
 
+class _Collectives:
+    """Within the block every ``Mesh.all_gather`` and ``Mesh.sum_`` is
+    recorded: (kind, shape of the tensor a rank puts in)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from ..parallel.mesh import Mesh
+
+        self.saved = Mesh.all_gather, Mesh.sum_
+        gather, total = self.saved
+
+        def all_gather(mesh, t):
+            self.calls.append(("all_gather", list(t.shape)))
+            return gather(mesh, t)
+
+        def sum_(mesh, t):
+            self.calls.append(("sum", list(t.shape)))
+            return total(mesh, t)
+
+        Mesh.all_gather, Mesh.sum_ = all_gather, sum_
+        return self
+
+    def __exit__(self, *exc):
+        from ..parallel.mesh import Mesh
+
+        Mesh.all_gather, Mesh.sum_ = self.saved
+
+
+def _spatial_op(op, group, device):
+    """One op of a spatial_ops case on this rank's rows: (output, input
+    gradient, weight gradient or None, the rank's output rows)."""
+    from ..ops.dispatch import conv
+
+    gen = torch.Generator().manual_seed(op.get("seed", 0))
+    n, h, w, cin = op["n"], op["h"], op["w"], op["cin"]
+    layout, kind = op.get("layout", "NHWC"), op["op"]
+    x = torch.randn(n, h, w, cin, generator=gen)
+    k, s = op.get("k", 1), op.get("s", 1)
+    weight = torch.randn(k, k, cin, op.get("cout", cin), generator=gen) * 0.3
+    with spatial.partition(group) as part:
+        if op.get("rows"):
+            part.plans[w] = (h, tuple(tuple(r) for r in op["rows"]))
+        a, b = (op["rows"][group.rank] if op.get("rows")
+                else spatial.even_rows(h, group.size)[group.rank])
+        xt = x[:, a:b].contiguous().to(device).requires_grad_(True)
+        wt = weight.to(device).requires_grad_(True)
+        xl = xt.permute(0, 3, 1, 2) if layout == "NCHW" else xt
+        if kind == "conv":
+            y = spatial.conv(xl, k, s, layout, lambda t, pad: conv(
+                t, wt, stride=s, engine=op.get("engine", "xla"), layout=layout, padding=pad))
+        elif kind == "max_pool":
+            y = spatial.max_pool(xl, k, s, layout)
+        else:
+            y = spatial.global_avg_pool(xl, layout)
+        if layout == "NCHW" and y.dim() == 4:
+            y = y.permute(0, 2, 3, 1)
+        if kind == "avg":
+            oa, ob = 0, 1
+            gy = torch.randn(n, y.shape[-1], generator=gen)
+        else:
+            _, out_rows = spatial.next_rows(part.plans[w][1], h, s)
+            oa, ob = out_rows[group.rank]
+            gy = torch.randn(n, h // s, y.shape[2], y.shape[3], generator=gen)[:, oa:ob]
+        (y * gy.to(device)).sum().backward()
+    return {"y": _cpu(y), "dx": _cpu(xt.grad), "dw": _cpu(wt.grad) if kind == "conv" else None,
+            "rows": (a, b), "out_rows": (oa, ob)}
+
+
+def _spatial_ops_case(case, device):
+    mesh = make_mesh_2d(*case["mesh"], axes=("data", "spatial"))
+    group = mesh.spatial
+    out = []
+    for op in case["ops"]:
+        with _Collectives() as seen:
+            rec = _spatial_op(op, group, device)
+        rec["collectives"] = seen.calls
+        out.append(rec)
+    return out
+
+
 def _step_case(case, spec, mesh, device, init):
     from ..kernels.bn import sync_stats
     from ..train import loss_and_grads, make_train_step
     from ..train.state import state_bytes, zero_plan
-    from ..train.step import reduce_grads, stats_sum
+    from ..train.step import reduce_grads, reduce_spatial, stats_sum
 
     cfg = train_config(dict(spec["config"], **case.get("config", {})))
     mode = cfg.parallel.mode
-    state = _state(cfg, init, device)
+    state = _state(cfg, None if case.get("fresh") else init, device)
+    whole_batch = torch.load(case["batch"], weights_only=True) if case.get("batch") \
+        else spec["batch"]
     accum = cfg.execution.grad_accum if mode == "auto" else 1
     plan = None
     rec = {"replicated_state_bytes": state_bytes(state)}
+    sp = None
     if case.get("mesh"):
-        # the data x model grid, the FC head split over the model group
-        mesh = make_mesh_2d(*case["mesh"])
-        plan = composite_shardings(state, mesh)
-        state = put_global(state, plan, mesh)
-        rec["fc_shape"] = list(state.params["fc"]["w"].shape)
-        rec["plan"] = plan.params
-    batch = {k: v.to(device) for k, v in shard_batch(
-        spec["batch"], getattr(mesh, "data", mesh), grad_accum=accum).items()}
+        mesh = make_mesh_2d(*case["mesh"], axes=tuple(case.get("axes", ("data", "model"))))
+        sp = mesh.spatial
+        if sp is None:
+            # the data x model grid, the FC head split over the model group
+            plan = composite_shardings(state, mesh)
+            state = put_global(state, plan, mesh)
+            rec["fc_shape"] = list(state.params["fc"]["w"].shape)
+            rec["plan"] = plan.params
+    if sp is not None:
+        batch = spatial_shard_batch(whole_batch, mesh, layout=cfg.execution.layout)
+        batch = {k: v.to(device) for k, v in batch.items()}
+    else:
+        batch = {k: v.to(device) for k, v in shard_batch(
+            whole_batch, getattr(mesh, "data", mesh), grad_accum=accum).items()}
     if case.get("zero"):
         plan = zero_plan(state, mesh, cfg.parallel.zero_min_bytes)
         state = put_global(state, plan, mesh)
     step = make_train_step(cfg, mesh, plan)
     if case.get("grads"):
         params = fetch_global(state.params, plan.params if plan else None, mesh)
-        with sync_stats(stats_sum(cfg, mesh)):
+        with sync_stats(stats_sum(cfg, mesh)), spatial.partition(sp):
             loss, _, aux, grads = loss_and_grads(params, batch, state.bn_state, cfg)
-        grads, loss = reduce_grads(mesh, grads, loss)
+        grads, loss = (reduce_grads(mesh, grads, loss) if sp is None
+                       else reduce_spatial(mesh, grads, loss))
         stats = aux["bn_stats"]
         rec["grad_loss_sum"] = float(loss)
         if mesh.rank == 0:
@@ -185,8 +291,12 @@ def _step_case(case, spec, mesh, device, init):
     _sync(device)
     before = _counts()
     metrics = {}
-    for _ in range(case.get("steps", 1)):
-        state, metrics = step(state, batch)
+    with _Collectives() as seen:
+        for _ in range(case.get("steps", 1)):
+            state, metrics = step(state, batch)
+    if case.get("audit"):
+        rec["collectives"] = seen.calls
+        rec["param_elements"] = sum(t.numel() for _, t in flatten(state.params))
     _sync(device)
     after = _counts()
     rec["counts"] = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -234,7 +344,7 @@ class _Recorder:
         return batch
 
 
-def _trainer(spec, device):
+def _trainer(spec, device, batch=None):
     from ..train import Trainer
 
     t0 = time.perf_counter()
@@ -247,6 +357,11 @@ def _trainer(spec, device):
            "loader": trainer.loader, "step": int(trainer.state.step),
            "cursor": dataclasses.astuple(trainer.cursor),
            "seconds": time.perf_counter() - t0}
+    if spec.get("eval"):
+        # the global batch, each rank its part of it (rows, height slice)
+        whole = {k: v.numpy() for k, v in batch.items()}
+        rec["eval"] = trainer.evaluate(
+            iter([trainer.rank_batch(whole)] * spec["eval"]), spec["eval"])
     if spec.get("kill"):
         # what rank 0 would have written is on disk (the dumps are
         # synchronous); the final dump is not
@@ -287,13 +402,15 @@ def main(argv=None):
     for case in spec.get("cases", []):
         if case.get("kind") == "moments":
             out[case["name"]] = _moments_case(case, spec, mesh, device)
+        elif case.get("kind") == "spatial_ops":
+            out[case["name"]] = _spatial_ops_case(case, device)
         else:
             out[case["name"]] = _step_case(case, spec, mesh, device, spec.get("state"))
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"rank{args.rank}.pt")
     if "trainer" in spec:
         torch.save(out, path)  # the cases' results survive a killed trainer
-        out["trainer"] = _trainer(spec["trainer"], device)
+        out["trainer"] = _trainer(spec["trainer"], device, spec.get("batch"))
     torch.save(out, path)
     dist.barrier()
     dist.destroy_process_group()

@@ -16,16 +16,20 @@ must equal the ranks. ``--parallel-mode`` auto (the global-batch step, BN
 statistics over every rank) or shard_map (local BN, explicit sums) and
 ``--zero-sharding`` run as in JAX, on every ``--kernels`` engine (under
 'auto' the BN statistics of the global batch on the fused and whole-block
-engines too); ``--spatial-devices`` > 1 raises NotImplementedError naming
-ROADMAP.md queue A item A13. ``--batch-size`` is one host's batch,
+engines too); ``--spatial-devices`` s > 1 splits each image's height over s
+ranks of a data x spatial grid (JAX's refusals; the fused engines and
+``--space-to-depth`` raise NotImplementedError naming ROADMAP.md queue A
+item A13). ``--batch-size`` is one host's batch,
 which its ranks split. NCCL wants a GPU per rank; ranks that share a card
 take gloo.
 ``--space-to-depth`` folds the 7x7 stem as JAX's does. ``--int8`` with
 ``--evaluate`` or ``--export`` runs the W8A8 post-training-quantized model
 (``quantize``, calibrated on the first data batch; on the card its int8
-kernels), printing the JAX CLI's lines. ``--dtype bfloat16`` trains in bf16 under every ``--kernels``
-engine, the fused and whole-block ones included. ``--export-dtype bfloat16`` casts the exported weights and
-running statistics, as JAX's does. ``--no-mesh`` trains without the data
+kernels), printing the JAX CLI's lines; under ``--spatial-devices`` each
+rank evaluates the int8 model on whole host batches, as JAX's does.
+``--dtype bfloat16`` trains in bf16 under every ``--kernels`` engine, the
+fused and whole-block ones included. ``--export-dtype bfloat16`` casts the
+exported weights and running statistics, as JAX's does. ``--no-mesh`` trains without the data
 group (one process; refused where more ranks run). Two quirks of the JAX CLI are kept: ``--kernels`` offers
 xla|pallas|fused only, and under ``--variant`` only --shard-dir, --jpeg-dir
 and --synthetic reach the data config (--num-shards and --shard-images do
@@ -38,6 +42,9 @@ Usage:
   python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m resnet_tpu_torch.train.cli --shard-dir /data/shards --kernels pallas \
       --conv-kernels pallas --batch-size 128 --steps 1000
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m resnet_tpu_torch.train.cli --synthetic --kernels pallas --conv-kernels pallas \
+      --batch-size 32 --spatial-devices 2 --steps 10
 """
 
 from __future__ import annotations
@@ -340,8 +347,12 @@ def _run(cfg, args, trainer):
             data, "batches_per_epoch", 10
         )
         if args.int8:
+            # whole host batches on every rank, as JAX's evaluate_quantized
+            # takes them: the int8 forward has no spatial partition
             metrics = trainer.evaluate_quantized(data, n)
         else:
+            if trainer._spatial() > 1:  # each rank its part of each batch
+                data = map(trainer._rows(trainer.loader not in ("native", "python")), data)
             metrics = trainer.evaluate(data, n)
         tag = "int8 eval" if args.int8 else "eval"
         if lead:

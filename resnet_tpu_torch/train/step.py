@@ -46,6 +46,27 @@ row ``model`` times); ``grad_norm`` counts each FC slice's squares summed
 over the model group and every other leaf once; the optimizer updates each
 rank's own leaves.
 
+The head is split only where the plan splits an FC leaf: where
+``composite_shardings`` replicated the FC (the model size does not divide
+the class count) the grid is plain data parallelism with a replicated
+head, each model rank computing the whole logits of its data index's rows,
+everything summed over the data group.
+
+On the data x spatial grid (``make_mesh_2d(data, spatial, axes=("data",
+"spatial"))``, 'auto' only) the step is JAX's pjit step on images whose
+height is split over the spatial group (``parallel.spatial_shard_batch``):
+the forward and backward run inside ``parallel.spatial.partition``, each
+conv and pool on the rank's rows with halo rows from its neighbours; the
+parameters stay replicated. The BN statistics are the global batch's,
+summed over data x spatial (ghost BN's sample goes by the data index, the
+rows of one image being split); the gradients of every leaf the trunk
+reaches are partial on each spatial rank and are summed over data x
+spatial, while the FC head after the pool sees the same pooled features on
+every spatial rank, so its gradients, the summed loss and the correct count
+are summed over the data group only (one bucket over the grid, to which
+only spatial rank 0 brings them); ``batch_n`` counts the global batch
+once. A ZeRO plan shards over the data group and replicates over spatial.
+
 With ``cfg.parallel.mode == 'shard_map'`` the same step is JAX's
 explicit-collective one (``parallel.make_shard_map_train_step``): each rank
 normalizes with its own statistics (local BN), the bucket is summed as
@@ -70,6 +91,7 @@ from ..models import forward
 from ..ops import cross_entropy, top1_accuracy, topk_accuracy, update_running_stats
 from ..ops.precision import precision_scope
 from ..optim import adam_update, adam_update_fused, make_schedule, sgd_update
+from ..parallel import spatial
 from ..parallel.mesh import Mesh2D
 from ..parallel.tensor_parallel import fc_head
 from .state import TrainState
@@ -192,11 +214,15 @@ def train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None)
 
 
 def _groups(mesh):
-    """(data group, model group or None) of a mesh: a ``Mesh`` is the data
-    group, a ``Mesh2D`` (``parallel.make_mesh_2d``) both."""
+    """(data group, model group or None, spatial group or None) of a mesh: a
+    ``Mesh`` is the data group; a ``Mesh2D`` (``parallel.make_mesh_2d``)
+    the data group and its second, a model group or, on a data x spatial
+    grid (``Mesh2D.kind``), a spatial group."""
     if mesh is None:
-        return None, None
-    return (mesh.data, mesh.model) if isinstance(mesh, Mesh2D) else (mesh, None)
+        return None, None, None
+    if not isinstance(mesh, Mesh2D):
+        return mesh, None, None
+    return (mesh.data, None, mesh.model) if mesh.is_spatial else (mesh.data, mesh.model, None)
 
 
 def _local_bn(cfg: TrainConfig, mesh) -> bool:
@@ -208,11 +234,16 @@ def stats_sum(cfg: TrainConfig, mesh):
     """The statistics group that BN's batch statistics are summed over in
     the 'auto' step (``kernels.bn.StatsGroup``): the data group, where it
     has more than one rank and BN normalizes with batch statistics, else
-    None (this rank's own statistics, as under 'shard_map'). On a grid the
-    data group only: a model group's ranks hold the same rows."""
-    data, _ = _groups(mesh)
-    if (data is None or data.size == 1 or cfg.execution.bn_mode != "batch"
-            or _local_bn(cfg, data)):
+    None (this rank's own statistics, as under 'shard_map'). On a data x
+    model grid the data group only: a model group's ranks hold the same
+    rows. On a data x spatial grid every rank of the grid, whose rows make
+    the batch, with this rank's data index for ghost BN's sample."""
+    data, _, sp = _groups(mesh)
+    if data is None or cfg.execution.bn_mode != "batch" or _local_bn(cfg, data):
+        return None
+    if sp is not None:
+        return StatsGroup(mesh.sum_, data.rank, data.size)
+    if data.size == 1:
         return None
     return StatsGroup(data.sum_, data.rank, data.size)
 
@@ -223,6 +254,33 @@ def reduce_grads(mesh, grads, *scalars):
     summed = mesh.sum_tree([g for _, g in pairs] + list(scalars))
     return (unflatten((path, g) for (path, _), g in zip(pairs, summed)),
             *summed[len(pairs):])
+
+
+def _is_head(path: str) -> bool:
+    """A leaf of the FC head (after the pool)."""
+    return path.split("/", 1)[0] == "fc"
+
+
+def reduce_spatial(mesh: Mesh2D, grads, *scalars):
+    """(gradient tree, *scalars) of a data x spatial grid in one bucket over
+    the grid: the trunk's gradients, partial on each spatial rank, summed
+    over data x spatial; the head's gradients and the scalars, the same on
+    every rank of a spatial group, summed over the data group (spatial rank
+    0 alone brings them)."""
+    lead = mesh.spatial.rank == 0
+    pairs = flatten(grads)
+    own = [g if lead or not _is_head(path) else torch.zeros_like(g) for path, g in pairs]
+    rest = [t if lead else torch.zeros_like(t) for t in scalars]
+    summed = mesh.world.sum_tree(own + rest)
+    return (unflatten((path, g) for (path, _), g in zip(pairs, summed)),
+            *summed[len(pairs):])
+
+
+def _splits_head(plan) -> bool:
+    """Whether a plan splits an FC leaf (``composite_shardings`` replicates
+    the FC where the model size does not divide the class count)."""
+    return plan is not None and any(dim is not None and _is_head(path)
+                                    for path, dim in flatten(plan.params))
 
 
 def _whole(params, mesh, plan):
@@ -250,11 +308,14 @@ def _grad_norm(grads, head=None, plan=None):
 
 def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None):
     batch = _on(batch, state.step.device)
-    data, model = _groups(mesh)
-    # on a grid with a plan, the FC head's slices stay on their model ranks
-    head = model if plan is not None else None
+    data, model, sp = _groups(mesh)
+    # on a grid with a plan that splits the FC, its slices stay on their
+    # model ranks; a grid whose plan replicates the FC is data parallelism
+    head = model if _splits_head(plan) else None
+    if model is not None and head is None:
+        plan = None
     params = state.params if head is not None else _whole(state.params, mesh, plan)
-    with sync_stats(stats_sum(cfg, mesh)), fc_head(head):
+    with sync_stats(stats_sum(cfg, mesh)), fc_head(head), spatial.partition(sp):
         if cfg.execution.grad_accum > 1:
             loss_sum, n_correct, grads, new_bn = _accum_grads(state, batch, cfg, params)
         else:
@@ -271,7 +332,10 @@ def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None
                 new_bn = state.bn_state
 
     batch_n = batch["labels"].shape[0]
-    if data is not None:
+    if sp is not None:
+        grads, loss_sum, n_correct = reduce_spatial(mesh, grads, loss_sum, n_correct)
+        batch_n *= data.size
+    elif data is not None:
         grads, loss_sum, n_correct = reduce_grads(data, grads, loss_sum, n_correct)
         batch_n *= data.size
     if _local_bn(cfg, mesh) and new_bn is not None:
@@ -300,10 +364,12 @@ def _train_step(state: TrainState, batch, cfg: TrainConfig, mesh=None, plan=None
 
 def eval_step(state: TrainState, batch, cfg: TrainConfig, mesh=None,
               plan=None) -> Dict[str, Any]:
-    """Eval-mode forward (running statistics) of this rank's rows: mean
-    loss, top-1 and top-5."""
+    """Eval-mode forward (running statistics) of this rank's rows (on a data
+    x spatial grid, its slice of their height): mean loss, top-1 and
+    top-5."""
     batch = _on(batch, state.step.device)
-    with torch.no_grad(), precision_scope(cfg.execution):
+    with torch.no_grad(), precision_scope(cfg.execution), spatial.partition(
+            _groups(mesh)[2]):
         logits, _ = forward(_whole(state.params, mesh, plan), batch["images"], cfg.model,
                             cfg.execution,
                             train=False, bn_state=state.bn_state)
@@ -314,12 +380,37 @@ def eval_step(state: TrainState, batch, cfg: TrainConfig, mesh=None,
         }
 
 
+def check_spatial_step(cfg: TrainConfig) -> None:
+    """JAX's refusals of the data x spatial step, with its messages
+    (resnet_tpu/train/trainer.py:98-102, resnet_tpu/train/step.py:304-331):
+    'shard_map', and ``grad_accum > 1``. The Trainer calls it before it
+    makes a group."""
+    if cfg.parallel.mode != "auto":
+        raise ValueError(
+            "spatial_devices > 1 requires parallel.mode='auto' "
+            "(the SPMD partitioner derives the halo exchanges)")
+    if cfg.execution.grad_accum > 1:
+        raise ValueError(
+            "grad_accum > 1 cannot be combined with "
+            "non-batch-dim sharding (batch['images'] spec "
+            "PartitionSpec('data', 'spatial')): XLA SPMD miscompiles the "
+            "microbatched gradient collectives for "
+            "spatially-sharded inputs (see "
+            "train/step.py:make_train_step). Use "
+            "grad_accum=1 with spatial partitioning, or "
+            "drop --spatial-devices.")
+
+
 def make_train_step(cfg: TrainConfig, mesh=None, state_shardings=None):
     """The train step bound to ``cfg``: step(state, batch); with a mesh the
     data-parallel step of ``cfg.parallel.mode``, with ``state_shardings`` on
     a ZeRO-sharded state; with a data x model grid (``parallel.make_mesh_2d``,
     'auto' only) and ``parallel.composite_shardings``'s plan, the composite
-    step on a state whose FC head is split over the model group."""
+    step on a state whose FC head is split over the model group; with a data
+    x spatial grid (``Mesh2D.kind`` "spatial"), the spatial step, with JAX's
+    refusals (``check_spatial_step``)."""
+    if isinstance(mesh, Mesh2D) and mesh.is_spatial:
+        check_spatial_step(cfg)
     if isinstance(mesh, Mesh2D) and cfg.parallel.mode != "auto":
         raise ValueError("the data x model mesh takes parallel.mode='auto' (JAX's "
                          "composite step is its pjit step)")

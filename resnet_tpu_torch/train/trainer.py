@@ -33,6 +33,18 @@ A dump holds rank 0's cursor, and each rank derives its own stream position
 from it on resume (the JAX trainer offsets only a fresh cursor, so its
 resumed hosts read one stream: ROADMAP.md, "Faults in the reference").
 Rank 0 alone logs and writes dumps; every rank joins their gathers.
+
+Spatial partitioning (``spatial_devices`` s > 1): the ranks form JAX's data
+x spatial grid (``parallel.make_mesh_2d(ranks / s, s, axes=(data_axis,
+spatial_axis))``), with JAX's refusals and messages (no mesh, 'shard_map',
+``grad_accum > 1``, a device count, ``input_dim`` or global batch the axes
+do not divide, several hosts where s does not divide a host's ranks). A
+host's ranks are its data ranks times s; each data rank takes its share of
+the host batch (from shards, a stream per data rank), and each of its s
+spatial ranks the same rows and its slice of their height
+(``rank_batch``). ZeRO shards over the data group and replicates over
+spatial. The step and eval run on the grid; images/sec count the global
+batch once.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import torch
 
-from ..config import RESUME_LATEST, TrainConfig
+from ..config import BLOCKFUSED_SHARDED, RESUME_LATEST, TrainConfig
 from ..data import (
     ShardCursor,
     ShardDataset,
@@ -52,8 +64,8 @@ from ..data import (
     SyntheticDataset,
     prefetch_to_device,
 )
-from ..parallel import distributed, make_mesh, replicate
-from ..parallel.mesh import rows_of
+from ..parallel import distributed, make_mesh, make_mesh_2d, replicate
+from ..parallel.mesh import Mesh2D, height_slice, rows_of
 from ..parallel.multihost import fetch_global, put_global
 from ..utils import MetricsLogger, check_state_finite, nonfinite_report
 from .checkpoint import (
@@ -65,7 +77,7 @@ from .checkpoint import (
     save_checkpoint,
 )
 from .state import init_train_state, zero_plan
-from .step import make_eval_step, make_train_step
+from .step import check_spatial_step, make_eval_step, make_train_step
 
 
 class NonFiniteError(RuntimeError):
@@ -98,19 +110,19 @@ class Trainer:
                 "spatial_devices/zero_sharding need a device mesh, but "
                 "use_mesh is off (single device or --no-mesh)"
             )
-        if ((pcfg.spatial_devices > 1 or pcfg.zero_sharding)
-                and cfg.execution.kernels == "blockfused"):
-            # JAX's refusal (its Pallas calls have no SPMD partitioning
-            # rule), with its message: the port takes no such path either
-            raise ValueError(
-                "spatial_devices/zero_sharding are incompatible with "
-                "kernels='blockfused' (Pallas calls carry no SPMD "
-                "partitioning rule); use kernels='xla'"
-            )
+        if pcfg.zero_sharding and cfg.execution.kernels == "blockfused":
+            # JAX's refusal, with its message (spatial_devices > 1 with
+            # blockfused the config refuses, config.check_spatial)
+            raise ValueError(BLOCKFUSED_SHARDED)
+        if pcfg.spatial_devices > 1:
+            check_spatial_step(cfg)  # 'shard_map', grad_accum > 1
         if not use_mesh and ranks > 1:
             raise ValueError(f"use_mesh is off but {ranks} ranks are running: each would "
                              "train alone on its own batches")
-        self.mesh = make_mesh(pcfg.num_devices, pcfg.data_axis) if use_mesh else None
+        if use_mesh and pcfg.spatial_devices > 1:
+            self.mesh = self._spatial_mesh(cfg, ranks)
+        else:
+            self.mesh = make_mesh(pcfg.num_devices, pcfg.data_axis) if use_mesh else None
         if self.mesh is not None:
             device = distributed.rank_device(torch.distributed.get_backend(), device)
             if pcfg.zero_sharding and pcfg.mode == "shard_map":
@@ -151,7 +163,7 @@ class Trainer:
             self._state_shardings = zero_plan(self.state, self.mesh, pcfg.zero_min_bytes)
             self.state = put_global(self.state, self._state_shardings, self.mesh)
         elif self.mesh is not None:
-            self.state = replicate(self.state, self.mesh)
+            self.state = replicate(self.state, self._world())
         self.train_step = make_train_step(cfg, self.mesh, self._state_shardings)
         self.eval_step = make_eval_step(cfg, self.mesh, self._state_shardings)
         self.loader = "source" if data_source is not None else None
@@ -167,17 +179,83 @@ class Trainer:
                 distributed.host_count() if self.mesh is not None else 1),
         )
 
+    @staticmethod
+    def _spatial_mesh(cfg: TrainConfig, ranks: int) -> Mesh2D:
+        """The data x spatial grid, after JAX's checks and with its messages
+        (resnet_tpu/train/trainer.py:94-138)."""
+        pcfg = cfg.parallel
+        nd = pcfg.num_devices or ranks
+        n_data = nd // pcfg.spatial_devices
+        if nd % pcfg.spatial_devices:
+            raise ValueError(
+                f"{nd} devices not divisible by "
+                f"spatial_devices={pcfg.spatial_devices}"
+            )
+        if cfg.model.input_dim % pcfg.spatial_devices:
+            raise ValueError(
+                f"input_dim {cfg.model.input_dim} not divisible by "
+                f"spatial_devices={pcfg.spatial_devices}"
+            )
+        hosts = distributed.host_count()
+        global_batch = cfg.data.batch_size * hosts
+        if global_batch % n_data:
+            raise ValueError(
+                f"global batch {global_batch} (batch_size "
+                f"{cfg.data.batch_size} x {hosts} hosts) "
+                f"not divisible by the data-axis size {n_data} "
+                f"({nd} devices / spatial_devices={pcfg.spatial_devices})"
+            )
+        if hosts > 1 and distributed.local_device_count() % pcfg.spatial_devices:
+            raise ValueError(
+                f"spatial_devices={pcfg.spatial_devices} must divide "
+                f"the per-host device count "
+                f"({distributed.local_device_count()}): an H-shard group "
+                "straddling hosts would put conv halos on DCN"
+            )
+        return make_mesh_2d(n_data, pcfg.spatial_devices,
+                            axes=(pcfg.data_axis, pcfg.spatial_axis), kind="spatial")
+
+    def _world(self):
+        """The group every rank of the mesh is in (the grid's, on a grid)."""
+        return self.mesh.world if isinstance(self.mesh, Mesh2D) else self.mesh
+
     def _ckpt(self):
         """The checkpoint calls' group arguments."""
         return {"mesh": self.mesh, "plan": self._state_shardings}
 
-    def _rows(self):
-        """This rank's rows of a host batch (None on one device)."""
+    def _spatial(self) -> int:
+        """The ranks that split an image's height (1: none)."""
+        return self.mesh.spatial.size if isinstance(self.mesh, Mesh2D) else 1
+
+    def _rows(self, rows: bool = True):
+        """This rank's part of a host batch (None on one device): its rows
+        (its share among the host's data ranks) and, on a spatial grid, its
+        slice of their height; ``rows`` False: the height slice alone (a
+        shard stream is already the data rank's own)."""
         if self.mesh is None:
             return None
         accum = self.cfg.execution.grad_accum if self.cfg.parallel.mode == "auto" else 1
-        return functools.partial(rows_of, index=distributed.local_rank(),
-                                 count=distributed.local_device_count(), grad_accum=accum)
+        s = self._spatial()
+        local = distributed.local_rank()
+        split = functools.partial(rows_of, index=local // s,
+                                  count=distributed.local_device_count() // s,
+                                  grad_accum=accum)
+        if s == 1:
+            return split if rows else None
+        layout = self.cfg.execution.layout
+
+        def part(batch):
+            batch = split(batch) if rows else batch
+            return {k: (height_slice(v, local % s, s, layout)
+                        if len(getattr(v, "shape", ())) >= 3 else v) for k, v in batch.items()}
+
+        return part
+
+    def rank_batch(self, batch):
+        """This rank's part of a host batch (the batch itself on one
+        device): what ``evaluate`` takes from its source."""
+        rows = self._rows()
+        return batch if rows is None else rows(batch)
 
     def _build_data(self):
         """The host iterator ``cfg.data`` names; sets ``self.loader`` to the
@@ -214,14 +292,16 @@ class Trainer:
         )
         batch, cursor = dcfg.batch_size, self.cursor
         if self.mesh is not None:
-            # a stream per rank, of its share of the host batch, from its
-            # own position derived from the (rank 0) cursor
-            local = distributed.local_device_count()
+            # a stream per data rank, of its share of the host batch, from
+            # its own position derived from the (rank 0) cursor; a spatial
+            # group's ranks read one stream
+            s = self._spatial()
+            local = distributed.local_device_count() // s
             if batch % local:
                 raise ValueError(f"batch_size {batch} (one host's batch) does not split "
-                                 f"over the host's {local} ranks")
+                                 f"over the host's {local} data ranks")
             batch //= local
-            cursor = rank_cursor(self.cursor, self.mesh.rank, self.mesh.size,
+            cursor = rank_cursor(self.cursor, self.mesh.rank // s, self.mesh.size // s,
                                  dcfg.num_shards, dcfg.shard_images // batch)
         # prefer the native C++ read-ahead loader (csrc/shard_loader.cc);
         # the Python mmap iterator runs when it is not built or when
@@ -280,8 +360,8 @@ class Trainer:
             self._dev_iter = itertools.cycle(staged)
             return self._dev_iter
         transfer = dcfg.transfer_dtype if dcfg.transfer_dtype != "float32" else None
-        # a shard stream is already this rank's own
-        rows = None if self.loader in ("native", "python") else self._rows()
+        # a shard stream is already this data rank's own
+        rows = self._rows(self.loader not in ("native", "python"))
         self._dev_iter = prefetch_to_device(
             self._host_iter, depth=dcfg.prefetch, device=self.device,
             transfer_dtype=transfer, rows=rows,
@@ -375,8 +455,9 @@ class Trainer:
 
     def evaluate(self, data: Iterator, num_batches: int) -> Dict[str, float]:
         """Mean loss, top-1 and top-5 of the eval forward over num_batches
-        (``data`` yields this rank's rows; across ranks, the means over all
-        ranks' batches)."""
+        (``data`` yields this rank's part of each batch, ``rank_batch``;
+        across ranks, the means over all ranks' batches, a spatial group's
+        ranks holding one batch's replicated metrics)."""
         sums: Dict[str, float] = {}
         it = prefetch_to_device(data, depth=self.cfg.data.prefetch, device=self.device)
         try:

@@ -198,10 +198,13 @@ def test_train_configs_mirror_jax():
         for e in ("pallas_interpret", "scoped_vmem_limit_kib", "grad_accum_unroll"):
             b["execution"].pop(e)
         assert a == b, variant
-    # ZeRO runs (on a process group); spatial partitioning is still A13's
+    # ZeRO and spatial partitioning run (on a process group); spatial with a
+    # fused engine is still A13's
     tcfg.TrainConfig(parallel=tcfg.ParallelConfig(zero_sharding=True))
+    tcfg.TrainConfig(parallel=tcfg.ParallelConfig(spatial_devices=2))
     with pytest.raises(NotImplementedError, match="A13"):
-        tcfg.TrainConfig(parallel=tcfg.ParallelConfig(spatial_devices=2))
+        tcfg.TrainConfig(execution=tcfg.ExecutionConfig(kernels="fused"),
+                         parallel=tcfg.ParallelConfig(spatial_devices=2))
 
 
 def test_no_jax_import_in_the_port_or_chip_smoke():

@@ -95,11 +95,12 @@ def test_build_config_matches_jax(argv, shard_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--spatial-devices", "2"], "A13"),
-    (["--parallel-mode", "shard_map", "--spatial-devices", "2"], "A13"),
+    (["--spatial-devices", "2", "--kernels", "fused"], "A13"),
+    (["--parallel-mode", "shard_map", "--spatial-devices", "2", "--space-to-depth"], "A13"),
 ])
 def test_unported_flags_name_their_item(argv, item):
-    """What the parallel slices do not run: spatial partitioning."""
+    """What the parallel slices do not run: spatial partitioning with the
+    fused engines or the space-to-depth stem."""
     with pytest.raises(NotImplementedError, match=item):
         build_config(argv)
 

@@ -637,8 +637,8 @@ def test_bf16_frozen_bn_check_catches_a_wrong_dw(cuda, monkeypatch):
         32, image_dim=224, num_classes=base.model.num_classes, seed=1234)).items()}
     chip_smoke._bf16_frozen_held(kcfg, p16, p32, state0, batch)
     dw = conv.conv2d_dw
-    monkeypatch.setattr(conv, "conv2d_dw", lambda x, g, k, stride=1: dw(x, g, k, stride) * (
-        1.1 if x.dtype is torch.bfloat16 else 1.0))
+    monkeypatch.setattr(conv, "conv2d_dw", lambda x, g, k, stride=1, padding=None: dw(
+        x, g, k, stride, padding) * (1.1 if x.dtype is torch.bfloat16 else 1.0))
     with pytest.raises(RuntimeError, match="BN frozen"):
         chip_smoke._bf16_frozen_held(kcfg, p16, p32, state0, batch)
 
@@ -998,7 +998,7 @@ def _dw_mma(x, g, splits):
     out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
     ws_ptr, _ws = build.gemm_workspace(splits, m, n, x)
     build.launch("rt_conv2d_dw_nhwc_bf16_mma", x.data_ptr(), g.data_ptr(), out.data_ptr(), 1,
-                 1, p, m, n, 1, 1, ws_ptr, splits, device=x.device)
+                 1, p, m, n, 1, 1, 0, 0, 1, p, ws_ptr, splits, device=x.device)
     return out
 
 
@@ -1089,8 +1089,8 @@ def test_bf16_entries_refuse_a_loader_their_operands_do_not_allow(cuda, entry, r
         w = torch.zeros(k, k, cin, cout, **bf)
         out = torch.empty(n * h * h * max(cin, cout), **bf)
         routes = conv.DX_ROUTES if entry == "conv2d_dx" else conv.FWD_ROUTES
-        args = (t.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, h, cin, cout, k, 1, None, 1,
-                routes.index(route))
+        args = (t.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, h, cin, cout, k, 1,
+                k // 2, k // 2, h, h, None, 1, routes.index(route))
         name = f"rt_{entry}_nhwc_bf16"
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.launch(name, *args, device=torch.device("cuda"))
@@ -1595,7 +1595,8 @@ def test_qconv_extreme_accumulators(cuda, cin):
 
 def _op_calls():
     """(name, op, its CUDA implementation, inputs on the card): each custom
-    op of kernels.ops at a served shape, fp32 and bf16."""
+    op of kernels.ops at a served shape, fp32 and bf16, and K1 on a
+    spatial tile with an explicit padding."""
     from resnet_tpu_torch.kernels import conv, fused, matmul, ops, quant
 
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1622,6 +1623,9 @@ def _op_calls():
         ("qconv grouped", ops.qconv, quant._qconv,
          (i8(8, 28, 28, 256), i8(3, 3, 8, 256), r(256).abs() * 1e-4, r(256), None, 1, 32, True,
           6.0, torch.bfloat16)),
+        # a spatial rank's tile: 29 rows with JAX's padding [lo, hi, lo_w, hi_w]
+        ("conv2d_nhwc padded tile", ops.conv2d_nhwc, conv._forward,
+         (r(8, 29, 56, 64), r(3, 3, 64, 64), 2, [1, 0, 1, 0])),
     ]
 
 
@@ -1645,7 +1649,7 @@ def test_each_op_launches_its_kernel_with_the_direct_launchs_bits(cuda):
         assert torch.equal(got, impl(*args)), name
 
 
-@pytest.mark.parametrize("i", range(10))
+@pytest.mark.parametrize("i", range(11))
 def test_ops_pass_opcheck_on_cuda(cuda, i):
     name, op, _, args = _op_calls()[i]
     torch.library.opcheck(op, args)

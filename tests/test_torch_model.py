@@ -148,14 +148,17 @@ def test_config_fields_mirror_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(spatial_devices=2), "A13"),
+    (dict(spatial_devices=2, kernels="fused"), "A13"),
 ])
 def test_unported_configs_name_their_roadmap_item(kw, item):
     """NotImplementedError naming the item from the config where nothing of
-    the value runs yet (A13: spatial partitioning; the data-parallel layouts
-    run)."""
+    the value runs yet (A13: spatial partitioning with a fused engine; the
+    data-parallel layouts and the spatial one on 'xla' and 'pallas' run)."""
+    kw = dict(kw)
+    ecfg = tcfg.ExecutionConfig(kernels=kw.pop("kernels"))
     with pytest.raises(NotImplementedError, match=item):
-        tcfg.TrainConfig(model=tcfg.tiny_model_config(), parallel=tcfg.ParallelConfig(**kw))
+        tcfg.TrainConfig(model=tcfg.tiny_model_config(), execution=ecfg,
+                         parallel=tcfg.ParallelConfig(**kw))
 
 
 @pytest.mark.parametrize("kernels", ["fused", "fusedxla", "hybrid"])

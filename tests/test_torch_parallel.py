@@ -428,7 +428,8 @@ def test_cli_two_ranks_under_torchrun(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(parallel=tcfg.ParallelConfig(spatial_devices=2)), "A13"),
+    (dict(execution=tcfg.ExecutionConfig(kernels="hybrid"),
+          parallel=tcfg.ParallelConfig(spatial_devices=2)), "A13"),
 ])
 def test_unported_layouts_name_a13(kw, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -189,6 +189,46 @@ def test_composite_step_matches_jax(composite):
     _close(ranks[0]["composite"]["params"], js.params, "params", rtol=1e-4, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def composite13(tmp_path_factory):
+    """One spawn of three ranks: the 1 x 3 grid, whose model size does not
+    divide the tiny model's 8 classes."""
+    tmp = tmp_path_factory.mktemp("composite13")
+    spec, numpy_state, batch = _inputs(tmp)
+    spec["cases"] = [{"name": "composite", "mesh": [1, 3]}]
+    ranks = _spawn(tmp, spec, "run", world=3, timeout=SPAWN_TIMEOUT)
+    return {"ranks": ranks, "numpy_state": numpy_state, "batch": batch}
+
+
+def test_composite_1x3_replicates_the_head_and_matches_jax(composite13):
+    """C2: on the 1 x 3 grid composite_shardings replicates the FC (3 does
+    not divide 8 classes), so the step is plain data parallelism with a
+    replicated head: no split head, nothing summed over the model group,
+    no empty norm. Against JAX's composite step on its own make_mesh_2d(1,
+    3) (three of the forced CPU devices) and the port's one-process step,
+    at DP_TOL; every rank reports the same metrics."""
+    ranks = composite13["ranks"]
+    mesh = j_make_mesh_2d(1, 3)
+    cfg = _j_cfg()
+    state = j_init_train_state(cfg)
+    shardings = j_composite_shardings(state, mesh)
+    step = j_make_train_step(cfg, mesh, donate=False, state_shardings=shardings)
+    js, jm = step(jax.device_put(state, shardings), j_shard_batch(composite13["batch"], mesh))
+    tstate = bridge.train_state_from_numpy(composite13["numpy_state"], device="cpu")
+    ts, tm = make_train_step(_t_cfg(KERNELS))(tstate, composite13["batch"])
+    m = ranks[0]["composite"]["metrics"]
+    assert all(r["composite"]["metrics"] == m for r in ranks)
+    c = 4 * tcfg.tiny_model_config(**MODEL).init_filters * 2
+    assert all(r["composite"]["fc_shape"] == [c, 8] for r in ranks)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(m[k], float(jm[k]), rtol=2e-4, err_msg=k)
+        np.testing.assert_allclose(m[k], tm[k].item(), rtol=2e-4, err_msg=k)
+    _close(ranks[0]["composite"]["params"], js.params, "params vs JAX", **DP_TOL)
+    _close(ranks[0]["composite"]["params"], bridge.to_numpy(ts.params),
+           "params vs one process", **DP_TOL)
+    assert ranks[0]["composite"]["plan"]["fc"] == {"w": None}
+
+
 def test_composite_splits_the_fc_as_jax_does(composite):
     """Each rank holds its (C, classes / 2) slice of the FC weight, the
     plan splits the leaves JAX's composite_shardings splits (the FC weight
@@ -231,7 +271,8 @@ def test_composite_plan_is_jax_rule_leaf_by_leaf():
 def test_make_mesh_2d_lays_out_the_grid(tmp_path):
     """In a world of one, make_mesh_2d(1, 1) is a grid of one (both groups
     the identity) with JAX's axis names; a grid larger than the world
-    raises JAX's message."""
+    raises JAX's message; a second axis named neither "model" nor
+    "spatial" needs its kind named."""
     import torch.distributed as dist
 
     from resnet_tpu_torch.parallel import make_mesh_2d
@@ -249,7 +290,13 @@ def test_make_mesh_2d_lays_out_the_grid(tmp_path):
         assert torch.equal(t, torch.ones(3))
         with pytest.raises(ValueError, match=r"mesh wants 2x2=4 devices, only 1 available"):
             make_mesh_2d(2, 2)
-        assert make_mesh_2d(1, 1, axes=("data", "spatial")).shape == {"data": 1, "spatial": 1}
+        spatial_grid = make_mesh_2d(1, 1, axes=("data", "spatial"))
+        assert spatial_grid.shape == {"data": 1, "spatial": 1}
+        assert spatial_grid.is_spatial and not grid.is_spatial
+        # the grid's kind is named, never guessed from a free axis name
+        assert make_mesh_2d(1, 1, axes=("d", "h"), kind="spatial").spatial is not None
+        with pytest.raises(ValueError, match="'tp' names no grid kind"):
+            make_mesh_2d(1, 1, axes=("data", "tp"))
     finally:
         dist.destroy_process_group()
     with pytest.raises(ValueError, match=r"mesh wants 4x4=16 devices, only 8 available"):
@@ -323,9 +370,24 @@ class _Audit:
         self.buffers.append(t.detach().clone())
 
 
+class _SpatialPeer:
+    """A spatial group of two seen from rank 0, in one process: the
+    neighbour's edge rows are this rank's own, its sums the identity."""
+
+    rank, size = 0, 2
+
+    def all_gather(self, t):
+        return [t, t.clone()]
+
+    def sum_(self, t):
+        pass
+
+
 def _audit_configs():
     out = []
-    for engine in ("xla", "pallas", "fused", "hybrid", "fusedxla", "blockfused"):
+    # "/spatial": on a data x spatial grid, the rows of rank 0's tile
+    for engine in ("xla", "pallas", "fused", "hybrid", "fusedxla", "blockfused",
+                   "xla/spatial", "pallas/spatial"):
         for remat in ("none", "block", "stage", "elementwise"):
             for ghost in (0, 2):
                 for dtype in ("float32", "bfloat16"):
@@ -342,17 +404,23 @@ def test_every_bn_layer_takes_the_group_statistics(engine, remat, ghost, dtype):
     Each BN layer's statistics that the forward returns are those of a
     buffer that went through the sum (its (Σ, Σ², rows)), one buffer a
     layer, so no path takes rank-local statistics in silence. (A remat
-    rerun in the backward is the same forward.)"""
+    rerun in the backward is the same forward.) On a data x spatial grid
+    ('xla' and 'pallas' with K1, the rows of rank 0's tile of each image)
+    the sum runs over data x spatial and ghost BN's sample goes by the data
+    index: the same, one buffer a layer."""
     from resnet_tpu_torch.models import forward
+    from resnet_tpu_torch.parallel import spatial
     from resnet_tpu_torch.train import init_train_state
 
+    engine, _, grid = engine.partition("/")
     cfg = _t_cfg(dict(kernels=engine, conv_kernels="pallas" if engine == "pallas" else "xla",
                       remat=remat, bn_stats_batch=ghost, compute_dtype=dtype))
     gen = torch.Generator().manual_seed(3)
     state = init_train_state(cfg, gen, device="cpu")
-    x = torch.randn((4, 16, 16, 3), generator=gen) * 50
+    x = torch.randn((4, 8 if grid else 16, 16, 3), generator=gen) * 50
     audit = _Audit()
-    with bn.sync_stats(audit, 0, 2), torch.no_grad():
+    with bn.sync_stats(audit, 0, 2), torch.no_grad(), spatial.partition(
+            _SpatialPeer() if grid else None):
         _, aux = forward(state.params, x, cfg.model, cfg.execution, bn_state=state.bn_state)
     stats = bridge.flatten(aux["bn_stats"])
     assert len(audit.buffers) == len(stats) // 2
