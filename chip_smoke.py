@@ -277,11 +277,19 @@ Phases, each printing one JSON line:
      spatial ranks, halo rows exchanged at the seams, K1 on each rank's
      haloed tile with JAX's explicit padding) on a 1 x 2 grid in the two
      ranks' start and a 2 x 2 grid in the four ranks' start, at the global
-     batch of 32: the 'pallas' path with conv_kernels='pallas' in fp32 and
+     batch of 32, on ResNet-50 at 224 and full width cut to one block a
+     stage (``SPATIAL_DEPTH``; since PR 27, for the script's time): the
+     'pallas' path with conv_kernels='pallas' in fp32 and
      bf16 and the plain path in fp32, each rank's counts phase 5's (on the
-     bf16 entries in bf16; Adam alone on the plain path), the ranks' metrics
-     and statistics equal, each held to the one-process step by phase 5's
-     rule, bf16 by phase 11's (``_spatial_checks``); NCCL
+     bf16 entries in bf16; Adam alone on the plain path), and (A13b) the
+     fused engines ('fused' in fp32 and bf16, 'hybrid' and 'fusedxla' in
+     fp32: K8 on the haloed tile of each site's raw input, K4, K5 at the
+     stem and K9 on the rank's rows; each rank's counts the engine's) and
+     the s2d stem on the 'pallas' path in bf16 (the fold and its 4x4/s1 conv
+     on the rank's rows: 52 conv, 52 dx, 52 dW, 53 moments, 16 + 16 join,
+     1 + 1 matmul, 1 adam), the ranks' metrics and statistics equal, each
+     held to the one-process step of its config by phase 5's rule, bf16 by
+     phase 11's (``_spatial_checks``); NCCL
      in a world of one in this process: the data-parallel step equal to the step
      without a group bit for bit, and both timed in turns; where the machine
      has two cards or more, ``parallel_nccl`` (also run alone by --phases
@@ -289,8 +297,8 @@ Phases, each printing one JSON line:
      32, 'auto' and frozen BN against the one-process step as above, each
      rank's counts phase 5's, ZeRO the replicated step's bits, 'fused' and
      'blockfused' in fp32 and bf16, the composite step on a 2 x (cards /
-     2) grid and the spatial 'pallas' step on 1 x cards and 2 x (cards / 2)
-     grids held as above, the step times of all of them, of 'shard_map'
+     2) grid and the spatial 'pallas' and 'fused' fp32 steps on 1 x cards
+     and 2 x (cards / 2) grids held as above, the step times of all of them, of 'shard_map'
      (no statistics' sums) and of one card at 32 and at a rank's rows, then the CLI under torchrun on those cards
      (NCCL, synthetic batches, 2 steps), its first loss that of one process;
      the Trainer from 2 shards of 64 procedural images, a dump every 2
@@ -669,9 +677,11 @@ def _plan(build, name, case):
         return {"route": route, "box": build.dw_box(ho, wo), "slices": slices,
                 "tiles": -(-k * k * cin // build.WGB_BM) * -(-cout // build.wgb_tile_n(cout)),
                 "splits": build.wgb_split(k * k * cin, cout, build.WGB_BK * slices)}
-    if name == "fused_conv_bf16":
-        _, n, h, cin, cout, k, s, *_ = case
-        m, bn = n * (h // s) ** 2, build.wgb_tile_n(cout)
+    if name == "fused_conv_bf16":  # a square case or a tile's rows
+        from resnet_tpu_torch.kernels import checks
+
+        n, _, cin, cout, k, s, *_, (ho, wo) = checks.fused_conv_case(case)
+        m, bn = n * ho * wo, build.wgb_tile_n(cout)
         return {"tile": [build.WGB_BM, bn], "tiles": -(-m // build.WGB_BM) * -(-cout // bn),
                 "splits": build.wgb_split(m, cout, k * k * cin)}
     if name == "conv2d_bf16":  # the A loader, K splits and units of the persistent kernel
@@ -3480,30 +3490,73 @@ def _composite_checks(torch, ranks, state0, batch, kcfg, what):
 
 # A13's item 3: the data x spatial grid (the images' height split over the
 # spatial group) on the 'pallas' path with K1 on the haloed tiles, in fp32
-# and bf16, and on the plain path in fp32
-SPATIAL_RUNS = [("spatial pallas fp32", "pallas", "pallas", "fp32"),
-                ("spatial pallas bf16", "pallas", "pallas", "bf16"),
-                ("spatial xla fp32", "xla", "xla", "fp32")]
+# and bf16, and on the plain path in fp32; A13b: the fused engines (K8 on
+# the haloed tiles of each site's raw input; 'fused' in fp32 and bf16,
+# 'hybrid' and 'fusedxla' in fp32) and the s2d stem on the 'pallas' path in
+# bf16. (name, kernels, conv_kernels, dtype, space_to_depth)
+SPATIAL_RUNS = [("spatial pallas fp32", "pallas", "pallas", "fp32", False),
+                ("spatial pallas bf16", "pallas", "pallas", "bf16", False),
+                ("spatial xla fp32", "xla", "xla", "fp32", False),
+                ("spatial fused fp32", "fused", "pallas", "fp32", False),
+                ("spatial fused bf16", "fused", "pallas", "bf16", False),
+                ("spatial hybrid fp32", "hybrid", "pallas", "fp32", False),
+                ("spatial fusedxla fp32", "fusedxla", "pallas", "fp32", False),
+                ("spatial s2d pallas bf16", "pallas", "pallas", "bf16", True)]
+# parallel_nccl's: 'pallas' and 'fused' in fp32
+NCCL_SPATIAL_RUNS = [r for r in SPATIAL_RUNS if r[0] in ("spatial pallas fp32",
+                                                         "spatial fused fp32")]
 
 
-def _spatial_cfg(kcfg, kernels, conv, dtype):
-    """kcfg under another engine, conv engine and compute dtype."""
+def _spatial_cfg(kcfg, kernels, conv, dtype, s2d=False):
+    """kcfg under another engine, conv engine, compute dtype and stem."""
     import dataclasses
 
     return dataclasses.replace(kcfg, execution=dataclasses.replace(
-        kcfg.execution, kernels=kernels, conv_kernels=conv,
+        kcfg.execution, kernels=kernels, conv_kernels=conv, space_to_depth=s2d,
         compute_dtype="bfloat16" if dtype == "bf16" else "float32"))
 
 
-def _spatial_specs(kcfg, grid, runs=SPATIAL_RUNS, time_steps=0):
+# phase 17's spatial runs (gloo ranks sharing one card) take ResNet-50 at
+# 224 and full width cut to one block a stage: the stem, the four stages'
+# strided and projection sites, every seam geometry of the row plan, in a
+# quarter of the blocks' time (parallel_nccl's run the whole depth)
+SPATIAL_DEPTH = (1, 1, 1, 1)
+
+
+def _spatial_expect(cfg):
+    """A spatial rank's counter moves in one step of cfg, on its model's
+    blocks (ResNet-50: 16 blocks, a projection a stage, 52 block convs):
+    the engine's one-process counts (phase 5's on the hand kernels, the
+    fused engines' own, Adam alone on the plain path; the s2d stem leaves
+    K1's forward and dW), on the bf16 entries in bf16."""
+    ex, blocks = cfg.execution, cfg.model.num_blocks
+    sites = 3 * blocks + len(cfg.model.block_sizes)
+    fused = {"fused_conv": sites, "fused_join": blocks, "bias_act": 1, "moments": 1}
+    counts = {
+        "xla": {}, "fusedxla": {},
+        "hybrid": {k: v for k, v in fused.items() if k != "fused_conv"}, "fused": fused,
+        "pallas": {"conv2d": sites + 1 - ex.space_to_depth, "conv2d_dx": sites,
+                   "conv2d_dw": sites + 1 - ex.space_to_depth, "moments": sites + 1,
+                   "add_relu": blocks, "add_relu_mask": blocks, "matmul": 1, "matmul_bwd": 1},
+    }[ex.kernels]
+    counts = dict(counts, adam=1)
+    return _on_bf16(counts) if ex.compute_dtype == "bfloat16" else counts
+
+
+def _spatial_specs(kcfg, grid, runs=SPATIAL_RUNS, time_steps=0, state=None):
     """Worker cases of ``runs`` on the data x spatial ``grid``: the side path
-    (forward and backward, then the bucket's sums) and one counted step."""
-    return [{"name": f"{name} {grid[0]}x{grid[1]}", "mesh": grid, "axes": ["data", "spatial"],
-             "grads": True, "time": time_steps,
-             "keep": ["params", "means", "bn_state"] if dtype == "fp32" else [],
-             "config": {"execution": _spec_config(
-                 _spatial_cfg(kcfg, kernels, conv, dtype))["execution"]}}
-            for name, kernels, conv, dtype in runs]
+    (forward and backward, then the bucket's sums) and one counted step, of
+    kcfg's model from ``state`` (a saved params and bn_state; default the
+    spec's)."""
+    def case(name, kernels, conv, dtype, s2d):
+        config = _spec_config(_spatial_cfg(kcfg, kernels, conv, dtype, s2d))
+        out = {"name": f"{name} {grid[0]}x{grid[1]}", "mesh": grid,
+               "axes": ["data", "spatial"], "grads": True, "time": time_steps,
+               "keep": ["params", "means", "bn_state"] if dtype == "fp32" else [],
+               "config": {"execution": config["execution"], "model": config["model"]}}
+        return dict(out, state=state) if state else out
+
+    return [case(*run) for run in runs]
 
 
 def _spatial_checks(torch, ranks, state0, batch, kcfg, grid, runs, what):
@@ -3518,15 +3571,14 @@ def _spatial_checks(torch, ranks, state0, batch, kcfg, grid, runs, what):
 
     lr, b1 = kcfg.optimizer.learning_rate, kcfg.optimizer.beta1
     out = {}
-    for name, kernels, conv, dtype in runs:
+    for name, kernels, conv, dtype, s2d in runs:
         key = f"{name} {grid[0]}x{grid[1]}"
-        cfg = _spatial_cfg(kcfg, kernels, conv, dtype)
+        cfg = _spatial_cfg(kcfg, kernels, conv, dtype, s2d)
         case, label = ranks[0][key], f"{what} {key}"
-        expect = ({k: v for k, v in PER_STEP.items() if k == "adam"} if kernels == "xla"
-                  else _on_bf16(PER_STEP) if dtype == "bf16" else dict(PER_STEP))
+        expect = _spatial_expect(cfg)
         require(all(rank[key]["metrics"] == case["metrics"] for rank in ranks),
                 f"{label}: the ranks' metrics differ")
-        fcfg = _spatial_cfg(kcfg, kernels, conv, "fp32") if dtype == "bf16" else None
+        fcfg = _spatial_cfg(kcfg, kernels, conv, "fp32", s2d) if dtype == "bf16" else None
         rec, sens = _side_path_checks(torch, ranks, key, state0, batch, cfg, fcfg, expect,
                                       label)
         rec["grid"] = grid
@@ -3587,6 +3639,13 @@ def phase_parallel(torch, smi):
                     "bn_state": tree_map(lambda t: t.cpu(), state0.bn_state)},
                    os.path.join(work, "state.pt"))
         torch.save({k: v.cpu() for k, v in batch.items()}, os.path.join(work, "batch.pt"))
+        # the spatial runs' model (SPATIAL_DEPTH) and its seeded state
+        scfg = dataclasses.replace(kcfg, model=dataclasses.replace(
+            kcfg.model, block_sizes=SPATIAL_DEPTH))
+        sstate0 = init_train_state(scfg, torch.Generator().manual_seed(SEED), device="cuda")
+        sstate = os.path.join(work, "spatial_state.pt")
+        torch.save({"params": tree_map(lambda t: t.cpu(), sstate0.params),
+                    "bn_state": tree_map(lambda t: t.cpu(), sstate0.bn_state)}, sstate)
         shards = os.path.join(work, "shards")
         stream = ProceduralIterator(ProceduralDataset(
             num_classes=100, image_dim=kcfg.model.input_dim, seed=SEED), SHARD_IMAGES,
@@ -3612,7 +3671,8 @@ def phase_parallel(torch, smi):
                      "config": {"parallel": {"mode": "shard_map"}}},
                     {"name": "zero", "time": 3, "zero": True, "keep": ["params", "means"],
                      "config": {"parallel": {"zero_sharding": True}}}]
-                + _engine_specs(kcfg, ENGINE_RUNS) + _spatial_specs(kcfg, [1, 2])}
+                + _engine_specs(kcfg, ENGINE_RUNS)
+                + _spatial_specs(scfg, [1, 2], state=sstate)}
         t0 = time.perf_counter()
         ranks = _ranks(spec, work, "steps")
         out["steps_spawn_s"] = time.perf_counter() - t0
@@ -3624,7 +3684,7 @@ def phase_parallel(torch, smi):
                        "batch": spec["batch"],
                        "cases": [{"name": "composite", "mesh": [2, 2], "time": 2,
                                   "keep": ["params", "means"]}]
-                       + _spatial_specs(kcfg, [2, 2])},
+                       + _spatial_specs(scfg, [2, 2], state=sstate)},
                       work, "composite", ranks=4)
         out["composite_spawn_s"] = time.perf_counter() - t0
 
@@ -3644,9 +3704,11 @@ def phase_parallel(torch, smi):
                                         "gloo")
         out["composite"] = _composite_checks(torch, grid, state0, batch, kcfg, "gloo")
         out["spatial"] = {
-            **_spatial_checks(torch, ranks, state0, batch, kcfg, [1, 2], SPATIAL_RUNS, "gloo"),
-            **_spatial_checks(torch, grid, state0, batch, kcfg, [2, 2], SPATIAL_RUNS, "gloo")}
-        del grid
+            **_spatial_checks(torch, ranks, sstate0, batch, scfg, [1, 2], SPATIAL_RUNS, "gloo"),
+            **_spatial_checks(torch, grid, sstate0, batch, scfg, [2, 2], SPATIAL_RUNS, "gloo")}
+        out["spatial_model"] = {"block_sizes": list(SPATIAL_DEPTH), "input_dim":
+                                scfg.model.input_dim, "init_filters": scfg.model.init_filters}
+        del grid, sstate0
 
         # 4. 'shard_map' against each rank's local-BN step, gradients summed
         def halves(factor=1.0):
@@ -3785,8 +3847,9 @@ def phase_parallel_nccl(torch, smi):
     (``_auto_checks``), ZeRO against the replicated step bit for bit;
     'fused' and 'blockfused' in fp32 and bf16 (``_engine_checks``) and the
     composite step on a 2 x (cards / 2) grid (``_composite_checks``); the
-    step times of all of them, of 'shard_map' and of one process on one
-    card. Then
+    spatial 'pallas' and 'fused' fp32 steps on 1 x cards and 2 x (cards /
+    2) grids (``_spatial_checks``); the step times of all of them, of
+    'shard_map' and of one process on one card. Then
     the CLI under torchrun, one NCCL rank a card, on synthetic batches: its
     first step's loss that of one process on the card. Runs where the
     machine has two cards or more."""
@@ -3830,8 +3893,8 @@ def phase_parallel_nccl(torch, smi):
                 + ([{"name": "composite", "mesh": [2, n // 2], "time": 5,
                      "keep": ["params", "means"]}] if n % 2 == 0 else [])
                 # the spatial steps on 1 x n and 2 x (n / 2) grids
-                + _spatial_specs(kcfg, [1, n], SPATIAL_RUNS[:1], 5)
-                + (_spatial_specs(kcfg, [2, n // 2], SPATIAL_RUNS[:1], 5)
+                + _spatial_specs(kcfg, [1, n], NCCL_SPATIAL_RUNS, 5)
+                + (_spatial_specs(kcfg, [2, n // 2], NCCL_SPATIAL_RUNS, 5)
                    if n % 2 == 0 and n > 2 else [])}
         ranks = _ranks(spec, work, "nccl", backend="nccl", ranks=n)
         auto, zero = ranks[0]["auto"], ranks[0]["zero"]
@@ -3844,10 +3907,10 @@ def phase_parallel_nccl(torch, smi):
         if n % 2 == 0:
             out["composite"] = _composite_checks(torch, ranks, state0, batch, kcfg, "NCCL")
         out["spatial"] = _spatial_checks(torch, ranks, state0, batch, kcfg, [1, n],
-                                         SPATIAL_RUNS[:1], "NCCL")
+                                         NCCL_SPATIAL_RUNS, "NCCL")
         if n % 2 == 0 and n > 2:
             out["spatial"].update(_spatial_checks(torch, ranks, state0, batch, kcfg,
-                                                  [2, n // 2], SPATIAL_RUNS[:1], "NCCL"))
+                                                  [2, n // 2], NCCL_SPATIAL_RUNS, "NCCL"))
         for what in ("params", "means"):
             require(all(torch.equal(a, b) for a, b in zip(
                 leaves(zero[what]), leaves(auto[what]), strict=True)),
@@ -3889,6 +3952,18 @@ def phase_parallel_nccl(torch, smi):
     return out
 
 
+PHASE_SECONDS = {}
+
+
+def _timed_phase(name, run):
+    """run(), its wall seconds printed and kept in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = run()
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    emit({"phase_s": {name: PHASE_SECONDS[name]}})
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels", help="comma-separated kernel names: phases 1-3 "
@@ -3912,7 +3987,7 @@ def main() -> None:
 
     checks.fp32_strict()
     smi = phase_env(torch, build)
-    phase_build(build)
+    _timed_phase("build", lambda: phase_build(build))
     if args.kernels:
         names = args.kernels.split(",")
         require(set(names) <= set(checks.KERNELS), f"unknown kernels in {names}")
@@ -3941,12 +4016,14 @@ def main() -> None:
         names = args.phases.split(",")
         require(set(names) <= set(phases) | set(solo), f"unknown phases in {names}")
         for name in names:
-            {**phases, **solo}[name]()
+            _timed_phase(name, {**phases, **solo}[name])
         require("jax" not in sys.modules, "jax was imported")
         print(nvidia_smi(), flush=True)
         return
-    results = phase_kernels(checks, list(checks.KERNELS), build)
-    paths = {name: run() for name, run in phases.items()}
+    results = _timed_phase("kernels", lambda: phase_kernels(checks, list(checks.KERNELS),
+                                                            build))
+    paths = {name: _timed_phase(name, run) for name, run in phases.items()}
+    emit({"phase_seconds": PHASE_SECONDS})
     require("jax" not in sys.modules, "jax was imported")
     launched = {name: sum(p.get(name, 0) for p in paths.values()) for name in KERNEL_SOURCES}
     require(all(launched.values()), f"kernels no main path launched: "

@@ -5,8 +5,8 @@
 ``RESUME_LATEST``, ``VARIANT_PRESETS`` and ``variant_config`` are copies of
 the JAX package's. ``ExecutionConfig`` drops the TPU-only fields
 (``pallas_interpret``, ``scoped_vmem_limit_kib``, ``grad_accum_unroll`` and
-``jit_compiler_options``). Values the port cannot run yet raise
-``NotImplementedError`` naming the ROADMAP.md queue A item that brings them.
+``jit_compiler_options``). The port runs every value the JAX package
+runs, and refuses what JAX refuses with JAX's message.
 
 The ``'pallas'`` engine names keep their meaning: the hand-written kernels
 (on the card, the CUDA kernels of ``resnet_tpu_torch/kernels``).
@@ -32,17 +32,6 @@ def resolve_dtype(name):
     if isinstance(name, str):
         return _DTYPES[name]
     return name
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a configuration the port does not run yet."""
-    return NotImplementedError(
-        f"{what} is not ported to resnet_tpu_torch yet "
-        f"(ROADMAP.md queue A, {item})"
-    )
-
-
-ROADMAP_PARALLEL = "item A13: parallelism"
 
 
 @dataclass(frozen=True)
@@ -307,15 +296,13 @@ class TrainConfig:
 
 
 def check_parallel(cfg: "TrainConfig") -> None:
-    """Raise for what the port's parallelism does not run: an unknown
-    ``parallel.mode``, and under spatial partitioning (``check_spatial``)
-    the whole-block engine, as JAX's Trainer refuses it, and the fused
-    engines and the space-to-depth stem (NotImplementedError naming A13: K8's BN
-    prologue and K9 on a haloed tile would turn a padded zero row into
-    relu(shift); the s2d fold pairs rows across a seam). Every engine and
-    ghost BN run under 'auto' across ranks with the global batch's
-    statistics, and under 'shard_map' with each rank's own; 'xla' and
-    'pallas' (either ``conv_kernels``) also on the data x spatial grid."""
+    """Raise for what the port's parallelism does not run, as JAX does: an
+    unknown ``parallel.mode``, and under spatial partitioning
+    (``check_spatial``) the whole-block engine, as JAX's Trainer refuses
+    it. Every engine and ghost BN run under 'auto' across ranks with the
+    global batch's statistics, and under 'shard_map' with each rank's own;
+    every engine but the whole-block one, and the space-to-depth stem, also
+    on the data x spatial grid."""
     pcfg = cfg.parallel
     if pcfg.mode not in ("auto", "shard_map"):
         raise ValueError(f"ParallelConfig.mode={pcfg.mode!r}; expected 'auto' or 'shard_map'")
@@ -323,7 +310,6 @@ def check_parallel(cfg: "TrainConfig") -> None:
         check_spatial(cfg.execution)
 
 
-SPATIAL_REFUSED = ("fused", "hybrid", "fusedxla")
 # JAX's Trainer's refusal (resnet_tpu/train/trainer.py:72-83), with its text
 BLOCKFUSED_SHARDED = ("spatial_devices/zero_sharding are incompatible with "
                       "kernels='blockfused' (Pallas calls carry no SPMD "
@@ -332,17 +318,10 @@ BLOCKFUSED_SHARDED = ("spatial_devices/zero_sharding are incompatible with "
 
 def check_spatial(ecfg: "ExecutionConfig") -> None:
     """Raise for what does not run on a rank's rows of the images: the
-    whole-block engine (JAX's ValueError and text: K10 takes whole images),
-    and, NotImplementedError naming A13, the fused engines and the
-    space-to-depth stem, which spatial partitioning does not run yet."""
+    whole-block engine (JAX's ValueError and text: K10 takes whole
+    images)."""
     if ecfg.kernels == "blockfused":
         raise ValueError(BLOCKFUSED_SHARDED)
-    if ecfg.kernels in SPATIAL_REFUSED:
-        raise not_ported(f"spatial partitioning with kernels={ecfg.kernels!r} (K8's BN "
-                         "prologue and K9 on a haloed tile)", ROADMAP_PARALLEL)
-    if ecfg.space_to_depth:
-        raise not_ported("spatial partitioning with the space-to-depth stem",
-                         ROADMAP_PARALLEL)
 
 
 # The reference's six binaries as config presets (resnet_tpu.config)

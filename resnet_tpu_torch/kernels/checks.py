@@ -363,6 +363,33 @@ TILE_CASES = [
     tile_case("3x3/s1 512->512", 8, 2, 0, 7, 512, 512, 3, 1),
     tile_case("3x3/s1 512->512", 8, 2, 1, 7, 512, 512, 3, 1),
 ]
+
+
+def fused_tile_case(label: str, n: int, ranks: int, rank: int, width: int, cin: int,
+                    cout: int, k: int, stride: int, prologue: bool) -> Tuple:
+    """K8's case of rank ``rank``'s tile (``tile_case``): (label, n, (tile
+    height, width), Cin, Cout, k, stride, prologue, cap None, padding)."""
+    label, n, hw, cin, cout, k, stride, pad = tile_case(label, n, ranks, rank, width, cin,
+                                                        cout, k, stride)
+    return label, n, hw, cin, cout, k, stride, prologue, None, pad
+
+
+# K8 and K8-bf16 on the tiles a rank of the fused engines holds under
+# spatial partitioning, with JAX's explicit padding: stage 1's 3x3/s1
+# interior tile with the prologue on 4 ranks; stage 3's 3x3/s2 (prologue)
+# and 1x1/s2 projection (none) on rows 7-14 of 28 (pad 0 and -1); stage 4's
+# 4- and 3-row 3x3/s1 tiles on 2 ranks; and a seam (a halo row above, the
+# image's edge below) with act(shift) > 0 on integer values, exact
+# (``_fused_conv_case``); summed apart as K1's tiles are (``TILE``)
+FUSED_TILE_CASES = [
+    fused_tile_case("3x3/s1 64->64, prologue", 8, 4, 1, 56, 64, 64, 3, 1, True),
+    fused_tile_case("3x3/s2 256->256, prologue", 8, 4, 1, 28, 256, 256, 3, 2, True),
+    fused_tile_case("1x1/s2 512->1024", 8, 4, 1, 28, 512, 1024, 1, 2, False),
+    fused_tile_case("3x3/s1 512->512, prologue", 8, 2, 0, 7, 512, 512, 3, 1, True),
+    fused_tile_case("3x3/s1 512->512, prologue", 8, 2, 1, 7, 512, 512, 3, 1, True),
+    fused_tile_case("seam 3x3/s1 16->64, act(shift) > 0, exact", 2, 2, 1, 7, 16, 64, 3, 1,
+                    True),
+]
 # the four stages' joins: served at batch 8 (forward), trained at 32 (mask)
 _JOINS = [(56, 256), (28, 512), (14, 1024), (7, 2048)]
 _BF16_ODD = [("odd size (3,7,7,9)", (3, 7, 7, 9), 0),
@@ -541,7 +568,7 @@ KERNELS = {
     "matmul_bwd": (matmul, "BWD_LAUNCHES", 1, MATMUL_BWD_CASES),
     "moments": (bn, "LAUNCHES", 1, MOMENTS_CASES),
     "adam": (adam, "LAUNCHES", 1, ADAM_CASES),
-    "fused_conv": (fused_conv, "LAUNCHES", 1, FUSED_CONV_CASES),
+    "fused_conv": (fused_conv, "LAUNCHES", 1, FUSED_CONV_CASES + FUSED_TILE_CASES),
     "fused_join": (fused_conv, "JOIN_LAUNCHES", 1, FUSED_JOIN_CASES),
     "bias_act": (bn, "APPLY_LAUNCHES", 1, BIAS_ACT_CASES),
     "bn_bwd": (bn, "BWD_LAUNCHES", 1, BN_BWD_CASES),
@@ -554,7 +581,8 @@ KERNELS = {
     "matmul_bf16": (matmul, "LAUNCHES_BF16", 1, BF16_MATMUL_CASES),
     "matmul_bwd_bf16": (matmul, "BWD_LAUNCHES_BF16", 1, BF16_MATMUL_BWD_CASES),
     "moments_bf16": (bn, "LAUNCHES_BF16", 1, BF16_MOMENTS_CASES),
-    "fused_conv_bf16": (fused_conv, "LAUNCHES_BF16", 1, BF16_FUSED_CONV_CASES),
+    "fused_conv_bf16": (fused_conv, "LAUNCHES_BF16", 1,
+                        BF16_FUSED_CONV_CASES + FUSED_TILE_CASES),
     "fused_join_bf16": (fused_conv, "JOIN_LAUNCHES_BF16", 1, BF16_FUSED_JOIN_CASES),
     "bias_act_bf16": (bn, "APPLY_LAUNCHES_BF16", 1, BF16_BIAS_ACT_CASES),
     "bn_bwd_bf16": (bn, "BWD_LAUNCHES_BF16", 1, BF16_BN_BWD_CASES),
@@ -1035,12 +1063,23 @@ def bf16_slack(want: torch.Tensor) -> torch.Tensor:
     return torch.where(w > 0, torch.ldexp(torch.ones_like(w), e - 8), torch.zeros_like(w))
 
 
+def fused_conv_case(case) -> Tuple:
+    """(n, (H, W), Cin, Cout, k, stride, prologue, cap, padding or None,
+    (Ho, Wo)) of a K8 case: (label, n, H=W, Cin, Cout, k, stride, prologue,
+    cap), or a tile's (label, n, (H, W), ..., cap, padding)."""
+    _, n, h, cin, cout, k, s, prologue, cap, *pad = case
+    pad = pad[0] if pad else None
+    h, wd = h if isinstance(h, tuple) else (h, h)
+    return (n, (h, wd), cin, cout, k, s, prologue, cap, pad,
+            conv.geometry(h, wd, k, s, pad)[2:])
+
+
 def _fused_conv_case(case, randn, dtype=torch.float32) -> _Case:
     """K8 in fp32 (3 TF32 products per FLOP) or bf16 (x and w bf16, the
-    rows fp32)."""
-    label, n, h, cin, cout, k, s, prologue, cap = case
-    ho = h // s
-    exact = label.startswith("halo")
+    rows fp32); a tile with its explicit padding (no one library call pads
+    asymmetrically)."""
+    n, (h, wd), cin, cout, k, s, prologue, cap, pad, (ho, wo) = fused_conv_case(case)
+    exact = ", exact" in case[0]
     bf16 = dtype is torch.bfloat16
     if exact:
         # u = relu(x * 0 + shift) = shift, an integer 1..3 on every channel,
@@ -1048,29 +1087,29 @@ def _fused_conv_case(case, randn, dtype=torch.float32) -> _Case:
         # below 2^24, exact in fp32 in any order and in TF32's split (lo =
         # 0); in bf16 both sides round the same exact fp32 y. A halo tap
         # that became act(shift) moves an edge output by >= 1.
-        x = randn(n, h, h, cin).to(dtype)
+        x = randn(n, h, wd, cin).to(dtype)
         w = torch.round(randn(k, k, cin, cout)).clamp(-1.0, 1.0).to(dtype)
         scale = torch.zeros_like(randn(cin))
         shift = 1.0 + torch.round(randn(cin).abs()).clamp(0.0, 2.0)
     else:
-        x = randn(n, h, h, cin).to(dtype)
+        x = randn(n, h, wd, cin).to(dtype)
         w = randn(k, k, cin, cout, scale=(2.0 / (k * k * (cin + cout))) ** 0.5).to(dtype)
         # shift > 0 on about half the channels: relu(shift) must not reach the halo
         scale, shift = 1 + randn(cin, scale=0.2), randn(cin, scale=0.5)
-    args = (x, w, scale, shift, s, None, prologue, True, cap)
+    args = (x, w, scale, shift, s, pad, prologue, True, cap)
 
     def split(out):
         y, sums = out
         return y, sums[0], sums[1]
 
-    flops = 2 * n * ho * ho * k * k * cin * cout
+    flops = 2 * n * ho * wo * k * k * cin * cout
+    library = None if pad is not None else (
+        lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s, padding=k // 2))
     return _Case(lambda: split(fused_conv.fused_conv(*args)),
                  lambda: split(fused_conv.fused_conv_reference(*args)),
-                 x.element_size() * (x.numel() + w.numel() + n * ho * ho * cout)
+                 x.element_size() * (x.numel() + w.numel() + n * ho * wo * cout)
                  + 4 * (2 * cin + 2 * cout),
-                 flops if bf16 else 3 * flops,
-                 lambda: F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=s,
-                                  padding=k // 2),
+                 flops if bf16 else 3 * flops, library,
                  library_same=False, peak=BF16_FLOPS_PER_S if bf16 else TF32_FLOPS_PER_S,
                  exact=exact, bf16=bf16)
 

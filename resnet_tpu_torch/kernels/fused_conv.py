@@ -24,7 +24,9 @@ precision there (fused_conv.py:419-422), which the port does not copy.
 
 ``conv_chain`` is the same contract in torch ops with the closed-form
 backward over the saved u (``conv_chain_xla``, fused_conv.py:431-499): the
-``fusedxla`` and ``hybrid`` engines' conv sites.
+``fusedxla`` and ``hybrid`` engines' conv sites. It takes ``fused_conv``'s
+explicit ``padding`` too (JAX's chain has none: its spatial step runs the
+chain whole; the port runs it on a rank's haloed tile).
 
 ``fused_join(e, se, te, r, sr, tr, cap)`` is clip(relu(e·se + te + r·sr + tr))
 with (C,) rows, K9 (``rt_fused_join_f32``) on CUDA tensors and
@@ -154,11 +156,12 @@ def _conv_contract_bwd(u, x, w, scale, shift, y, dy, dsums, *, stride: int,
     return dx, dw, dscale, dshift
 
 
-def _chain_value(x, w, scale, shift, stride, prologue, relu, cap):
+def _chain_value(x, w, scale, shift, stride, padding, prologue, relu, cap):
     """(y, sums, u) of the contract in torch ops (fused_conv.py:431-458): u
-    rounded to x's dtype, the conv in that dtype, the sums of the rounded y."""
+    rounded to x's dtype, the conv in that dtype with the explicit padding
+    (or the reference's windows), the sums of the rounded y."""
     u = _prologue(x, scale, shift, relu, cap) if prologue else x
-    y = _plain_conv2d(u, w, stride=stride)
+    y = _plain_conv2d(u, w, stride=stride, padding=padding)
     return y, channel_sums(y), u
 
 
@@ -252,9 +255,9 @@ def fused_conv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, shift: tor
 
 class _ConvChain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, scale, shift, stride, prologue, relu, cap):
-        y, sums, u = _chain_value(x, w, scale, shift, stride, prologue, relu, cap)
-        ctx.args = (stride, _resolve_padding(x, w, stride, None), prologue, relu, cap)
+    def forward(ctx, x, w, scale, shift, stride, padding, prologue, relu, cap):
+        y, sums, u = _chain_value(x, w, scale, shift, stride, padding, prologue, relu, cap)
+        ctx.args = (stride, _resolve_padding(x, w, stride, padding), prologue, relu, cap)
         ctx.save_for_backward(x, w, scale, shift, y, u)
         return y, sums
 
@@ -265,15 +268,17 @@ class _ConvChain(torch.autograd.Function):
         grads = _conv_contract_bwd(u, x, w, scale, shift, y, dy, dsums, stride=stride,
                                    padding=padding, prologue=prologue, relu=relu, cap=cap,
                                    needs_dx=ctx.needs_input_grad[0])
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def conv_chain(x, w, scale, shift, stride: int = 1, prologue: bool = True,
-               relu: bool = True, cap=None):
-    """``fused_conv``'s contract on torch ops with the reference's windows,
-    u saved for the closed-form backward (fused_conv.py:461-499)."""
+               relu: bool = True, cap=None, padding: Optional[Padding] = None):
+    """``fused_conv``'s contract on torch ops, u saved for the closed-form
+    backward (fused_conv.py:461-499); ``padding`` as ``fused_conv``'s (a
+    rank's tile under spatial partitioning), default the reference's
+    windows."""
     _check(x, w, scale, shift, stride, prologue)
-    return _ConvChain.apply(x, w, scale, shift, stride, prologue, relu, cap)
+    return _ConvChain.apply(x, w, scale, shift, stride, padding, prologue, relu, cap)
 
 
 # ------------------------------------------------------------------- join

@@ -34,6 +34,21 @@ not change, its sums being complete when the launch ends. The stems take
 ``kernels.bn.moments`` (K4's raw sums) or ``ops.batch_moments`` (the plain
 sums), which sum over the group themselves.
 
+Inside ``parallel.spatial.partition`` (the data x spatial step, whose
+statistics group is the whole grid) the activations are this rank's rows
+of the images, as on the standard path: the stem conv, every site and the
+max pool run on the rank's haloed tile with the row plan's explicit
+padding (``parallel.spatial.conv``), K8 and the chain with that padding.
+The halo carries a site's raw input, the previous conv's y, so K8's
+prologue runs on the neighbours' real rows, and only the image's edges are
+padding, 0 after the prologue as on the whole image; the backward returns
+the halo rows' cotangent to their owner, and the prologue's dscale, dshift
+of those rows stay with the rank that applied it. Each site's statistics
+are its sums over the rank's own output rows, summed over the grid. K4
+and K5 at the stem and K9 at every join run on the rank's rows unchanged
+(the row plan puts both operands of a join on the same rows); the pool
+before the head is the group's sum (``spatial.global_avg_pool``).
+
 Dtypes as in resnet_tpu/models/fused_resnet.py:100-239: the images are
 cast to the compute dtype at the stem (:110); the stem's statistics are
 K4's fp32 ones and its affine rows fp32 from the upcast γ and β
@@ -62,8 +77,10 @@ from ..kernels.fused_conv import (
     fused_join,
     fused_join_reference,
 )
-from ..ops import batch_moments, conv2d, global_avg_pool, linear, max_pool
+from ..ops import batch_moments, conv2d, linear
+from ..parallel import spatial
 from ..parallel.tensor_parallel import head_in, head_out
+from .resnet import _avg_pool, _max_pool
 
 # (input H, Cin, Cout, k, stride) of the sites where 'hybrid' takes K8
 FUSED_SITES: frozenset = frozenset()
@@ -76,11 +93,33 @@ def _stats(sums, m):
 
 
 def _conv_site(x, w, scale, shift, stride, prologue, relu, cap, ecfg: ExecutionConfig):
-    if ecfg.kernels == "fusedxla" or (
-            ecfg.kernels == "hybrid"
-            and (x.shape[1], x.shape[3], w.shape[3], w.shape[0], stride) not in FUSED_SITES):
-        return conv_chain(x, w, scale, shift, stride, prologue, relu, cap)
-    return fused_conv(x, w, scale, shift, stride, None, prologue, relu, cap)
+    """(y, sums) of one site; inside a spatial partition on the rank's
+    haloed tile of the raw x (the prologue runs on the neighbours' real
+    rows), with the tile's padding, and the site keyed by the global input
+    height, the same on every rank."""
+    part = spatial.active()
+    height = x.shape[1] if part is None else part.plan(x, "NHWC")[0]
+    chain = ecfg.kernels == "fusedxla" or (
+        ecfg.kernels == "hybrid"
+        and (height, x.shape[3], w.shape[3], w.shape[0], stride) not in FUSED_SITES)
+
+    def run(t, padding=None):
+        if chain:
+            return conv_chain(t, w, scale, shift, stride, prologue, relu, cap, padding)
+        return fused_conv(t, w, scale, shift, stride, padding, prologue, relu, cap)
+
+    if part is None:
+        return run(x)
+    return spatial.conv(x, w.shape[0], stride, "NHWC", run)
+
+
+def _stem_conv(x, w, stride):
+    """The stem's plain conv; inside a spatial partition on the rank's
+    haloed tile with the tile's padding."""
+    if spatial.active() is None:
+        return conv2d(x, w, stride=stride)
+    return spatial.conv(x, w.shape[0], stride, "NHWC",
+                        lambda t, padding: conv2d(t, w, stride=stride, padding=padding))
 
 
 def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
@@ -107,12 +146,13 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
         on = affine is not None
         y, sums = _conv_site(inp, bp[conv]["w"], scale, shift, stride, on, on,
                              cap if on else None, ecfg)
-        # inside kernels.bn.sync_stats, the sums and rows of every rank
+        # inside kernels.bn.sync_stats, the sums and rows of every rank (a
+        # rank's own output rows under spatial partitioning: y is no tile)
         sums, m = _kbn.sum_stats(sums, y.shape[0] * y.shape[1] * y.shape[2])
         bstats[bn] = _stats(sums, m)
         return y, bn_affine_from_sums(sums, bp[bn]["gamma"], bp[bn]["beta"], m, eps)
 
-    y0 = conv2d(x, params["init_conv"]["w"], stride=mcfg.init_stride)
+    y0 = _stem_conv(x, params["init_conv"]["w"], mcfg.init_stride)
     if all_plain:
         mean0, var0 = batch_moments(y0)
     else:
@@ -124,7 +164,7 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
         act0 = _kbn.bn_apply_reference(y0, sc0, sh0, relu=True, cap=cap)
     else:
         act0 = bias_act(y0, sc0, sh0, True, cap)
-    out = max_pool(act0, kernel=mcfg.maxpool_kernel, stride=mcfg.maxpool_stride)
+    out = _max_pool(act0, mcfg=mcfg, ecfg=ecfg)
 
     block_stats = []
     for i, bp in enumerate(params["blocks"]):
@@ -147,5 +187,6 @@ def fused_forward(params, x: torch.Tensor, mcfg: ModelConfig,
         block_stats.append(bstats)
     stats["blocks"] = block_stats
 
-    logits = linear(head_in(global_avg_pool(out)), params["fc"]["w"], params["fc"].get("b"))
+    logits = linear(head_in(_avg_pool(out, ecfg=ecfg)), params["fc"]["w"],
+                    params["fc"].get("b"))
     return head_out(logits.to(torch.float32)), {"bn_stats": stats}

@@ -95,8 +95,11 @@ activations are this rank's rows of the images: the stem, every conv
 (grouped ones too), the max pool and the pool before the head run on the
 rank's haloed tile with the row plan's explicit padding (``_conv``,
 ``_max_pool``, ``_avg_pool``), K1 with JAX's padding under
-``conv_kernels='pallas'``; the fused and whole-block engines and the
-space-to-depth stem raise there (``config.check_spatial``).
+``conv_kernels='pallas'``; the space-to-depth stem folds and convolves the
+rank's rows through the plan (``ops.space_to_depth.s2d_stem_conv``), its
+test on the images' global height; the fused engines run their sites on the
+rank's tiles (``models.fused_resnet``). The whole-block engine raises
+there with JAX's message (``config.check_spatial``).
 
 ``capture=True`` returns the reference's activation tape in
 ``aux["activations"]``, keyed as JAX keys it (models/resnet.py:174-216,
@@ -158,9 +161,14 @@ def _avg_pool(x, *, ecfg):
 
 def _use_s2d(x, mcfg, ecfg) -> bool:
     """JAX's test for the space-to-depth stem (models/resnet.py:300-307):
-    asked for, NHWC, a 7x7/s2 stem and even H and W."""
-    return (ecfg.space_to_depth and ecfg.layout == "NHWC" and mcfg.init_kernel == 7
-            and mcfg.init_stride == 2 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
+    asked for, NHWC, a 7x7/s2 stem and even H and W; inside a spatial
+    partition the images' global H, as JAX tests the global shape."""
+    if not (ecfg.space_to_depth and ecfg.layout == "NHWC" and mcfg.init_kernel == 7
+            and mcfg.init_stride == 2):
+        return False
+    part = spatial.active()
+    height = x.shape[1] if part is None else part.plan(x, ecfg.layout)[0]
+    return height % 2 == 0 and x.shape[2] % 2 == 0
 
 
 def _checkpoint(fn, *args, ecfg):

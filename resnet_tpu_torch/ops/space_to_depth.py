@@ -13,6 +13,16 @@ space_to_depth=True)``, NHWC, a 7x7/s2 stem, even H and W). As JAX runs
 it as an XLA conv whatever ``conv_kernels`` says, the port runs the plain
 conv (``ops.conv.conv2d``: cuDNN on the card, at the config's precision),
 and autograd of the fold carries the stem's gradient to the 7x7 weight.
+
+Inside ``parallel.spatial.partition`` (a rank's rows of the images) the
+fold is a 2x2/s2 window padded (0, 0) through the row plan, and the folded
+conv a 4x4/s1 window padded ``S2D_PADDING`` on the rank's haloed tile
+(halo 2 above, 1 below). Where a rank's rows start on an even row and are
+even in number (ResNet-50 at 224 on 2 or 4 ranks) the fold takes no halo;
+where they end on an odd row it takes the first row of the rank below, and
+where they start on an odd row its first row is the rank above's (the
+tile's padding -1 drops it), so no pair of rows straddles a seam. The
+folded image has the 7x7/s2 stem's row plan.
 """
 
 from __future__ import annotations
@@ -49,10 +59,27 @@ def s2d_stem_weights(w: torch.Tensor) -> torch.Tensor:
     return wr.reshape(4, 4, 4 * cin, f)
 
 
+def _fold_tile(t: torch.Tensor, padding) -> torch.Tensor:
+    """``space_to_depth`` of a rank's tile of rows with the tile's explicit
+    (lo, hi) padding along H (-1 drops a first row that the rank above
+    folds; W takes none)."""
+    (lo, hi), _ = padding
+    return space_to_depth(F.pad(t, (0, 0, 0, 0, lo, hi)))
+
+
 def s2d_stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The reference stem conv (7x7, s2, pad (3, 2)) through s2d: a 4x4/s1
     conv padded (2, 1) over ``space_to_depth(x)``. x (B, H, W, C) NHWC, w
     the (7, 7, C, F) weight, cast with its fold to x's dtype -> (B, H/2,
-    W/2, F)."""
-    return conv2d(space_to_depth(x), s2d_stem_weights(w).to(x.dtype), stride=1,
-                  padding=S2D_PADDING)
+    W/2, F). Inside a spatial partition x and the result are a rank's
+    rows."""
+    from ..parallel import spatial
+
+    ws = s2d_stem_weights(w).to(x.dtype)
+    if spatial.active() is None:
+        return conv2d(space_to_depth(x), ws, stride=1, padding=S2D_PADDING)
+    fold = ((0, 0), (0, 0))
+    xs = spatial.conv(x, 2, 2, "NHWC", _fold_tile, padding=fold)
+    return spatial.conv(xs, 4, 1, "NHWC",
+                        lambda t, padding: conv2d(t, ws, stride=1, padding=padding),
+                        padding=S2D_PADDING)

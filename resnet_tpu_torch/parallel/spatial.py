@@ -13,15 +13,19 @@ rows and stage 4 2, 2, 2, 1. A plan in which a rank would hold no row
 raises, with the sizes named.
 
 A rank's tile (``tile_of``): for a k x k window at stride s over a layer
-of global height H, the rank's output rows, the halo rows above and below
-its own that their windows reach (3 for the stem's 7x7/s2 with the
-reference's (3, 2) padding, 1 for a 3x3 or the 3x3/s2 max pool, none for
-a 1x1), and the explicit padding of the haloed tile: the reference's
-``reference_padding(H, k, s)`` at the image's top and bottom, none at a
-seam, where the neighbour's rows stand; a window grid that starts inside
-the tile has a negative padding (a 1x1/s2 on a tile whose first row is
-odd). The padding is JAX's ``conv2d_pallas`` padding, which K1 takes
-(``kernels.conv.conv2d``).
+of global height H with a global (lo, hi) padding, the rank's output rows,
+the halo rows above and below its own that their windows reach (3 for the
+stem's 7x7/s2 with the reference's (3, 2) padding, 1 for a 3x3 or the
+3x3/s2 max pool, none for a 1x1, 2 above and 1 below for the s2d stem's
+4x4/s1 padded (2, 1), one below for the s2d fold's 2x2/s2 padded (0, 0) on
+rows that end on an odd row), and the explicit padding of the haloed tile:
+the global padding at the image's top and bottom, none at a seam, where the
+neighbour's rows stand; a window grid that starts inside the tile has a
+negative padding (a 1x1/s2, or the fold, on a tile whose first row is
+odd). The global padding is the reference's ``reference_padding(H, k, s)``
+unless the layer names its own; every layer gives H / s output rows. The
+tile's padding is JAX's ``conv2d_pallas`` padding, which K1 and K8 take
+(``kernels.conv.conv2d``, ``kernels.fused_conv.fused_conv``).
 
 The halo exchange (``halo``) is an autograd Function: the forward brings
 each rank its neighbours' edge rows through one ``Mesh.all_gather`` of
@@ -33,8 +37,9 @@ order, the reruns of a checkpointed block under remat included, since each
 rank runs the same graph.
 
 Inside ``partition(group)`` (the step's forward and backward), ``conv``,
-``max_pool`` and ``global_avg_pool`` run on the rank's rows: the conv and
-the pool take the haloed tile with the plan's padding (the max pool pads
+``max_pool`` and ``global_avg_pool`` run on the rank's rows: the conv (a
+plain one, K1, K8 or the chain, whose ``run`` may return K8's (y, sums)
+pair) and the pool take the haloed tile with the plan's padding (the max pool pads
 -inf at the image's edges only, so a window across a seam sees the real
 rows in the same scan order and the first maximum still wins); the global
 average pool is the rank's row sum, summed over the group (its backward
@@ -49,7 +54,7 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +63,7 @@ from ..ops.conv import spatial_dims
 from ..ops.padding import reference_padding
 
 Rows = Tuple[Tuple[int, int], ...]
+Padding = Tuple[Tuple[int, int], Tuple[int, int]]
 
 
 def even_rows(height: int, parts: int) -> Rows:
@@ -102,10 +108,24 @@ class Tile:
         return self.ob - self.oa
 
 
-def tile_of(rows: Rows, rank: int, height: int, k: int, stride: int) -> Tile:
+def _global_pad(height: int, k: int, stride: int,
+                pad: Optional[Tuple[int, int]]) -> Tuple[int, int]:
+    """The layer's global (lo, hi) along H: ``pad`` or the reference's; it
+    must give height / stride output rows, as the row plan does."""
+    if pad is None:
+        return reference_padding(height, k, stride)
+    if height % stride or (height + pad[0] + pad[1] - k) // stride + 1 != height // stride:
+        raise ValueError(f"spatial: a {k}x{k}/s{stride} window padded {pad} over {height} "
+                         f"rows does not give {height} / {stride} rows")
+    return pad
+
+
+def tile_of(rows: Rows, rank: int, height: int, k: int, stride: int,
+            pad: Optional[Tuple[int, int]] = None) -> Tile:
     """Rank ``rank``'s tile of a k x k window at ``stride`` over a layer of
-    ``height`` rows split as ``rows``."""
-    lo_ref, _ = reference_padding(height, k, stride)
+    ``height`` rows split as ``rows``, the image padded ``pad`` (lo, hi)
+    (default the reference's)."""
+    lo_ref, _ = _global_pad(height, k, stride, pad)
     a, b = rows[rank]
     oa, ob = -(-a // stride), -(-b // stride)
     first = max(0, stride * oa - lo_ref)                  # rows the windows reach
@@ -117,10 +137,11 @@ def tile_of(rows: Rows, rank: int, height: int, k: int, stride: int) -> Tile:
     return Tile(oa, ob, top, bottom, lo, hi)
 
 
-def tiles_of(rows: Rows, height: int, k: int, stride: int) -> List[Tile]:
-    """Every rank's tile; raises where a halo would reach past a direct
-    neighbour's rows."""
-    tiles = [tile_of(rows, r, height, k, stride) for r in range(len(rows))]
+def tiles_of(rows: Rows, height: int, k: int, stride: int,
+             pad: Optional[Tuple[int, int]] = None) -> List[Tile]:
+    """Every rank's tile (``tile_of``); raises where a halo would reach past
+    a direct neighbour's rows."""
+    tiles = [tile_of(rows, r, height, k, stride, pad) for r in range(len(rows))]
     for r, t in enumerate(tiles):
         if (t.top and (r == 0 or t.top > rows[r - 1][1] - rows[r - 1][0])) or (
                 t.bottom and (r == len(rows) - 1 or t.bottom > rows[r + 1][1] - rows[r + 1][0])):
@@ -242,10 +263,12 @@ class Partition:
                              f"{width}; its plan gives rows {(a, b)} of {height}")
         return height, rows
 
-    def tiles(self, x: torch.Tensor, k: int, stride: int, layout: str
-              ) -> Tuple[List[Tile], Tuple[Tuple[int, int], Tuple[int, int]]]:
-        """Every rank's tile of a k x k window at ``stride`` over x, and this
-        rank's padding ((lo, hi), (lo_w, hi_w)); records the output's plan."""
+    def tiles(self, x: torch.Tensor, k: int, stride: int, layout: str,
+              padding: Optional[Padding] = None
+              ) -> Tuple[List[Tile], Padding]:
+        """Every rank's tile of a k x k window at ``stride`` over x, the
+        image padded ``padding`` ((lo, hi), (lo_w, hi_w); default the
+        reference's), and this rank's padding; records the output's plan."""
         height, rows = self.plan(x, layout)
         width = x.shape[spatial_dims(layout)[1]]
         out_height, out_rows = next_rows(rows, height, stride)
@@ -253,9 +276,10 @@ class Partition:
         if known != (out_height, out_rows):
             raise ValueError(f"spatial: width {width // stride} planned as {known}, "
                              f"a layer gives {(out_height, out_rows)}")
-        tiles = tiles_of(rows, height, k, stride)
+        pad_h, pad_w = padding or (None, reference_padding(width, k, stride))
+        tiles = tiles_of(rows, height, k, stride, pad_h)
         t = tiles[self.group.rank]
-        return tiles, ((t.lo, t.hi), reference_padding(width, k, stride))
+        return tiles, ((t.lo, t.hi), pad_w)
 
 
 # the partition in force (``partition``), or None; not thread-local, since a
@@ -284,17 +308,21 @@ def active() -> Optional[Partition]:
 
 
 def conv(x: torch.Tensor, k: int, stride: int, layout: str,
-         run: Callable[[torch.Tensor, Tuple], torch.Tensor]) -> torch.Tensor:
+         run: Callable[[torch.Tensor, Padding], Any],
+         padding: Optional[Padding] = None) -> Any:
     """A k x k conv at ``stride`` on this rank's rows: ``run(tile, padding)``
-    on the haloed tile with the plan's explicit padding."""
+    on the haloed tile with the plan's explicit padding (of the image padded
+    ``padding``, default the reference's). ``run`` returns the rank's output
+    rows, or a tuple whose first entry they are (K8's (y, sums))."""
     part = _ACTIVE
-    tiles, padding = part.tiles(x, k, stride, layout)
+    tiles, pad = part.tiles(x, k, stride, layout, padding)
     hdim = spatial_dims(layout)[0]
-    y = run(halo(x, part.group, hdim, tiles), padding)
+    out = run(halo(x, part.group, hdim, tiles), pad)
+    y = out[0] if isinstance(out, tuple) else out
     want = tiles[part.group.rank].ho
     if y.shape[hdim] != want:
         raise RuntimeError(f"spatial: the conv gave {y.shape[hdim]} rows, the plan {want}")
-    return y
+    return out
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: int, layout: str) -> torch.Tensor:

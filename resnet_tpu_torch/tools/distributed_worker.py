@@ -15,7 +15,8 @@ What it runs (``spec`` keys; a spec may hold both, run in this order):
 batch (``spec["batch"]``), each case of ``spec["cases"]`` runs its steps on
 this rank's rows (``parallel.shard_batch``): mode 'auto' (the global-batch
 step) or 'shard_map' (local BN, explicit sums), with ``"zero"`` the
-ZeRO-sharded state, with ``"mesh": [data, model]`` the composite step on
+ZeRO-sharded state, with ``"state"`` (a saved ``{"params", "bn_state"}``)
+its own initial state, with ``"mesh": [data, model]`` the composite step on
 ``parallel.make_mesh_2d(data, model)`` with the FC head split by
 ``parallel.composite_shardings`` (the rows of the rank's data index; the
 local FC shape and the plan recorded, and with ``"dump"`` a directory, a
@@ -35,10 +36,14 @@ steps), with ``"time"`` that many more steps timed one by one. A case
 rows of ``spec["moments_x"]`` through ``kernels.bn.moments`` and
 ``moments_plain`` inside ``sync_stats``, with the gradient of a fixed
 weighting of mean and var. A case ``{"kind": "spatial_ops", "mesh": [1,
-s]}`` runs each of its ``"ops"`` (a conv, a max pool or the global average
-pool of seeded inputs, on the rows of the plan it names or the even split)
-on this rank's rows inside ``parallel.spatial.partition``, forward and
-backward against a seeded cotangent, recording the rank's output and
+s]}`` runs each of its ``"ops"`` (a conv, a max pool, the global average
+pool, a fused-engine site through ``kernels.fused_conv.fused_conv`` or, with
+``"fn": "chain"``, ``conv_chain`` (a prologue with shift > 0 on every
+channel, unless ``"prologue"`` is false), or the space-to-depth stem
+``ops.space_to_depth.s2d_stem_conv`` with its 7x7 weight, of seeded
+inputs, on the rows of the plan it names or the even split) on this rank's
+rows inside ``parallel.spatial.partition``, forward and backward against a
+seeded cotangent (of the site's sums too), recording the rank's output and
 gradients and the shape of every collective the spatial group ran. A step
 case with ``"audit"`` records the shape of every collective of its steps
 (``Mesh.all_gather`` and ``Mesh.sum_``).
@@ -188,17 +193,33 @@ class _Collectives:
         Mesh.all_gather, Mesh.sum_ = self.saved
 
 
-def _spatial_op(op, group, device):
-    """One op of a spatial_ops case on this rank's rows: (output, input
-    gradient, weight gradient or None, the rank's output rows)."""
-    from ..ops.dispatch import conv
-
+def spatial_op_inputs(op):
+    """The seeded inputs of a spatial op: (x, weight, scale, shift), the
+    last two a fused site's prologue rows (shift > 0 on every channel, so
+    that a halo row that became act(shift) shows)."""
     gen = torch.Generator().manual_seed(op.get("seed", 0))
     n, h, w, cin = op["n"], op["h"], op["w"], op["cin"]
-    layout, kind = op.get("layout", "NHWC"), op["op"]
     x = torch.randn(n, h, w, cin, generator=gen)
-    k, s = op.get("k", 1), op.get("s", 1)
+    k = op.get("k", 1)
     weight = torch.randn(k, k, cin, op.get("cout", cin), generator=gen) * 0.3
+    scale = 1 + 0.2 * torch.randn(cin, generator=gen)
+    shift = 0.1 + 0.5 * torch.randn(cin, generator=gen).abs()
+    return x, weight, scale, shift, gen
+
+
+def _spatial_op(op, group, device):
+    """One op of a spatial_ops case on this rank's rows: (output, input
+    gradient, weight gradient or None, the rank's output rows; a fused
+    site's sums over the rank's rows and the prologue rows' gradients)."""
+    from ..kernels.fused_conv import conv_chain, fused_conv
+    from ..ops.dispatch import conv
+    from ..ops.space_to_depth import s2d_stem_conv
+
+    n, h, w = op["n"], op["h"], op["w"]
+    layout, kind = op.get("layout", "NHWC"), op["op"]
+    x, weight, scale, shift, gen = spatial_op_inputs(op)
+    k, s = op.get("k", 1), op.get("s", 2 if kind == "s2d" else 1)
+    rec = {}
     with spatial.partition(group) as part:
         if op.get("rows"):
             part.plans[w] = (h, tuple(tuple(r) for r in op["rows"]))
@@ -206,10 +227,20 @@ def _spatial_op(op, group, device):
                 else spatial.even_rows(h, group.size)[group.rank])
         xt = x[:, a:b].contiguous().to(device).requires_grad_(True)
         wt = weight.to(device).requires_grad_(True)
+        sc, sh = (t.to(device).requires_grad_(True) for t in (scale, shift))
         xl = xt.permute(0, 3, 1, 2) if layout == "NCHW" else xt
+        sums = None
         if kind == "conv":
             y = spatial.conv(xl, k, s, layout, lambda t, pad: conv(
                 t, wt, stride=s, engine=op.get("engine", "xla"), layout=layout, padding=pad))
+        elif kind == "fused":
+            pro = op.get("prologue", True)
+            fn = conv_chain if op.get("fn") == "chain" else None
+            y, sums = spatial.conv(xl, k, s, layout, lambda t, pad: (
+                fn(t, wt, sc, sh, s, pro, True, None, pad) if fn
+                else fused_conv(t, wt, sc, sh, s, pad, pro, True, None)))
+        elif kind == "s2d":
+            y = s2d_stem_conv(xl, wt)
         elif kind == "max_pool":
             y = spatial.max_pool(xl, k, s, layout)
         else:
@@ -223,9 +254,15 @@ def _spatial_op(op, group, device):
             _, out_rows = spatial.next_rows(part.plans[w][1], h, s)
             oa, ob = out_rows[group.rank]
             gy = torch.randn(n, h // s, y.shape[2], y.shape[3], generator=gen)[:, oa:ob]
-        (y * gy.to(device)).sum().backward()
-    return {"y": _cpu(y), "dx": _cpu(xt.grad), "dw": _cpu(wt.grad) if kind == "conv" else None,
-            "rows": (a, b), "out_rows": (oa, ob)}
+        loss = (y * gy.to(device)).sum()
+        if sums is not None:  # the sums' cotangent, the same on every rank
+            loss = loss + (sums * torch.randn(sums.shape, generator=gen).to(device)).sum()
+        loss.backward()
+    if sums is not None:
+        rec = {"sums": _cpu(sums), "dscale": _cpu(sc.grad), "dshift": _cpu(sh.grad)}
+    weighted = kind in ("conv", "fused", "s2d")
+    return dict(rec, y=_cpu(y), dx=_cpu(xt.grad), dw=_cpu(wt.grad) if weighted else None,
+                rows=(a, b), out_rows=(oa, ob))
 
 
 def _spatial_ops_case(case, device):
@@ -248,6 +285,8 @@ def _step_case(case, spec, mesh, device, init):
 
     cfg = train_config(dict(spec["config"], **case.get("config", {})))
     mode = cfg.parallel.mode
+    if case.get("state"):
+        init = torch.load(case["state"], weights_only=True)
     state = _state(cfg, None if case.get("fresh") else init, device)
     whole_batch = torch.load(case["batch"], weights_only=True) if case.get("batch") \
         else spec["batch"]

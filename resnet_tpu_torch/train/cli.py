@@ -17,9 +17,9 @@ statistics over every rank) or shard_map (local BN, explicit sums) and
 ``--zero-sharding`` run as in JAX, on every ``--kernels`` engine (under
 'auto' the BN statistics of the global batch on the fused and whole-block
 engines too); ``--spatial-devices`` s > 1 splits each image's height over s
-ranks of a data x spatial grid (JAX's refusals; the fused engines and
-``--space-to-depth`` raise NotImplementedError naming ROADMAP.md queue A
-item A13). ``--batch-size`` is one host's batch,
+ranks of a data x spatial grid, on every engine JAX runs there and with
+``--space-to-depth`` (JAX's refusals, with its messages). ``--batch-size``
+is one host's batch,
 which its ranks split. NCCL wants a GPU per rank; ranks that share a card
 take gloo.
 ``--space-to-depth`` folds the 7x7 stem as JAX's does. ``--int8`` with

@@ -198,12 +198,14 @@ def test_train_configs_mirror_jax():
         for e in ("pallas_interpret", "scoped_vmem_limit_kib", "grad_accum_unroll"):
             b["execution"].pop(e)
         assert a == b, variant
-    # ZeRO and spatial partitioning run (on a process group); spatial with a
-    # fused engine is still A13's
+    # ZeRO and spatial partitioning run (on a process group), spatial with a
+    # fused engine too; only the whole-block engine is refused there, as JAX's
     tcfg.TrainConfig(parallel=tcfg.ParallelConfig(zero_sharding=True))
     tcfg.TrainConfig(parallel=tcfg.ParallelConfig(spatial_devices=2))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tcfg.TrainConfig(execution=tcfg.ExecutionConfig(kernels="fused"),
+    tcfg.TrainConfig(execution=tcfg.ExecutionConfig(kernels="fused"),
+                     parallel=tcfg.ParallelConfig(spatial_devices=2))
+    with pytest.raises(ValueError, match="blockfused"):
+        tcfg.TrainConfig(execution=tcfg.ExecutionConfig(kernels="blockfused"),
                          parallel=tcfg.ParallelConfig(spatial_devices=2))
 
 

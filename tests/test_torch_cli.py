@@ -4,9 +4,9 @@
 ``ExecutionConfig`` drops the TPU-only fields) and the same parsed
 arguments, plus ``--device``, for a list of command lines, ``--variant``
 included (all six presets, bf16 and NCHW among them, the fused engines
-across ranks too); each flag the port does not run yet (spatial
-partitioning) raises NotImplementedError naming its ROADMAP.md queue A
-item. Then ``main`` with ``--device cpu`` trains the fused engine in bf16
+across ranks and under spatial partitioning, the s2d stem there too); the
+spatial 'shard_map' command line is refused at the Trainer with JAX's
+message, as JAX's Trainer refuses it. Then ``main`` with ``--device cpu`` trains the fused engine in bf16
 for a step and dumps it, and trains, evaluates, resumes the latest dump
 with async checkpoints and exports, as tests/test_cli.py drives the JAX
 CLI.
@@ -71,6 +71,10 @@ ARGVS = [
     # the fused engines under 'auto' across ranks, their statistics summed
     ["--num-devices", "2", "--kernels", "fused"],
     ["--zero-sharding", "--num-devices", "2", "--kernels", "fused"],
+    # spatial partitioning with a fused engine and with the s2d stem (the
+    # second refused at the Trainer for 'shard_map', as JAX's)
+    ["--spatial-devices", "2", "--kernels", "fused"],
+    ["--parallel-mode", "shard_map", "--spatial-devices", "2", "--space-to-depth"],
 ]
 
 
@@ -94,15 +98,22 @@ def test_build_config_matches_jax(argv, shard_dir):
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--spatial-devices", "2", "--kernels", "fused"], "A13"),
-    (["--parallel-mode", "shard_map", "--spatial-devices", "2", "--space-to-depth"], "A13"),
-])
-def test_unported_flags_name_their_item(argv, item):
-    """What the parallel slices do not run: spatial partitioning with the
-    fused engines or the space-to-depth stem."""
-    with pytest.raises(NotImplementedError, match=item):
-        build_config(argv)
+def test_shard_map_spatial_s2d_flags_raise_jax_message_at_the_trainer():
+    """``--parallel-mode shard_map --spatial-devices 2 --space-to-depth``
+    builds JAX's config; both packages' Trainers then refuse it with JAX's
+    'shard_map' message, before any group or device mesh."""
+    from resnet_tpu.train.trainer import Trainer as JTrainer
+    from resnet_tpu_torch.train import Trainer
+
+    argv = ["--parallel-mode", "shard_map", "--spatial-devices", "2", "--space-to-depth",
+            "--model", "tiny", "--synthetic", "--batch-size", "8", "--checkpoint-dir", ""]
+    cfg, _ = build_config(argv + ["--device", "cpu"])
+    jcfg, _ = j_build_config(argv)
+    match = r"spatial_devices > 1 requires parallel.mode='auto'"
+    with pytest.raises(ValueError, match=match):
+        Trainer(cfg, device="cpu", use_mesh=True)
+    with pytest.raises(ValueError, match=match):
+        JTrainer(jcfg, use_mesh=True)
 
 
 def test_bf16_fused_engine_trains_a_step_and_dumps_it(tmp_path):

@@ -168,6 +168,38 @@ def test_fused_conv_halo_is_exact_against_plain(cuda):
     assert r["max_abs_err"] == 0.0
 
 
+FUSED_TILES = [(name, c) for name in ("fused_conv", "fused_conv_bf16")
+               for c in checks.FUSED_TILE_CASES]
+
+
+@pytest.mark.parametrize("name,case", FUSED_TILES, ids=[f"{n}: {c[0]}" for n, c in FUSED_TILES])
+def test_fused_conv_tiles_repeat_bit_for_bit(cuda, name, case):
+    """K8 and K8-bf16 on a rank's tile under spatial partitioning (JAX's
+    explicit padding: an interior tile, an odd first row at stride 2 with
+    padding 0 and -1, stage 4's 4- and 3-row tiles, the seam): two launches
+    give the same y and sums, each launch counted."""
+    from resnet_tpu_torch.kernels import fused_conv
+
+    counter = "LAUNCHES_BF16" if name.endswith("_bf16") else "LAUNCHES"
+    c = checks._make(name, case, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    before = getattr(fused_conv, counter)
+    first, again = c.run(), c.run()
+    torch.cuda.synchronize()
+    assert getattr(fused_conv, counter) == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, again, strict=True))
+
+
+@pytest.mark.parametrize("name", ["fused_conv", "fused_conv_bf16"])
+def test_fused_conv_seam_is_exact_against_plain(cuda, name):
+    """The seam tile (a halo row of the rank above, the image's edge below,
+    padding (0, 1)) with act(shift) > 0 on integer values: y and both sums
+    equal the plain version's with the same padding bit for bit, so the
+    halo row took the prologue once and the padded row stayed 0."""
+    case = next(c for c in checks.FUSED_TILE_CASES if "seam" in c[0])
+    r = checks.check_case(name, case, timing=False)
+    assert r["max_abs_err"] == 0.0
+
+
 def test_default_config_runs_plain_convs_in_fp32(monkeypatch):
     """matmul_precision on the card: under the default config ('highest'),
     with the flags as torch ships them (cuDNN's TF32 on) and no

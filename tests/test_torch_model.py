@@ -147,18 +147,21 @@ def test_config_fields_mirror_jax():
         jcfg.tiny_model_config())
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(spatial_devices=2, kernels="fused"), "A13"),
-])
-def test_unported_configs_name_their_roadmap_item(kw, item):
-    """NotImplementedError naming the item from the config where nothing of
-    the value runs yet (A13: spatial partitioning with a fused engine; the
-    data-parallel layouts and the spatial one on 'xla' and 'pallas' run)."""
-    kw = dict(kw)
-    ecfg = tcfg.ExecutionConfig(kernels=kw.pop("kernels"))
-    with pytest.raises(NotImplementedError, match=item):
-        tcfg.TrainConfig(model=tcfg.tiny_model_config(), execution=ecfg,
-                         parallel=tcfg.ParallelConfig(**kw))
+@pytest.mark.parametrize("execution", [dict(kernels="fused"), dict(kernels="hybrid"),
+                                       dict(kernels="fusedxla", space_to_depth=True)])
+def test_spatial_configs_of_every_engine_equal_jax(execution):
+    """spatial_devices=2 with the fused engines (and the s2d stem) builds,
+    as in the JAX package, a config equal to JAX's field for field (the
+    execution fields the port keeps)."""
+    kw = dict(model=tcfg.tiny_model_config(), parallel=tcfg.ParallelConfig(spatial_devices=2))
+    ours = dataclasses.asdict(tcfg.TrainConfig(
+        execution=tcfg.ExecutionConfig(**execution), **kw))
+    theirs = dataclasses.asdict(jcfg.TrainConfig(
+        model=jcfg.tiny_model_config(), execution=jcfg.ExecutionConfig(**execution),
+        parallel=jcfg.ParallelConfig(spatial_devices=2)))
+    ex, jex = ours.pop("execution"), theirs.pop("execution")
+    assert ex == {k: jex[k] for k in ex}
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("kernels", ["fused", "fusedxla", "hybrid"])

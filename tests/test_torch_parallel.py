@@ -427,13 +427,17 @@ def test_cli_two_ranks_under_torchrun(tmp_path):
     assert len(lines) == 2
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(execution=tcfg.ExecutionConfig(kernels="hybrid"),
-          parallel=tcfg.ParallelConfig(spatial_devices=2)), "A13"),
-])
-def test_unported_layouts_name_a13(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcfg.TrainConfig(model=tcfg.tiny_model_config(), **kw)
+@pytest.mark.parametrize("execution", [dict(kernels="hybrid"), dict(kernels="fusedxla"),
+                                       dict(kernels="pallas", space_to_depth=True)])
+def test_spatial_layouts_of_every_engine_are_accepted(execution):
+    """On the data x spatial grid the config takes every engine JAX's
+    Trainer takes there, and the s2d stem; only 'blockfused' is refused
+    (tests/test_torch_spatial.py), with JAX's message."""
+    cfg = tcfg.TrainConfig(model=tcfg.tiny_model_config(),
+                           execution=tcfg.ExecutionConfig(**execution),
+                           parallel=tcfg.ParallelConfig(spatial_devices=2))
+    assert cfg.parallel.spatial_devices == 2 and cfg.execution == tcfg.ExecutionConfig(
+        **execution)
 
 
 @pytest.mark.parametrize("kw", [

@@ -387,7 +387,8 @@ def _audit_configs():
     out = []
     # "/spatial": on a data x spatial grid, the rows of rank 0's tile
     for engine in ("xla", "pallas", "fused", "hybrid", "fusedxla", "blockfused",
-                   "xla/spatial", "pallas/spatial"):
+                   "xla/spatial", "pallas/spatial", "fused/spatial", "hybrid/spatial",
+                   "fusedxla/spatial"):
         for remat in ("none", "block", "stage", "elementwise"):
             for ghost in (0, 2):
                 for dtype in ("float32", "bfloat16"):
@@ -407,7 +408,8 @@ def test_every_bn_layer_takes_the_group_statistics(engine, remat, ghost, dtype):
     rerun in the backward is the same forward.) On a data x spatial grid
     ('xla' and 'pallas' with K1, the rows of rank 0's tile of each image)
     the sum runs over data x spatial and ghost BN's sample goes by the data
-    index: the same, one buffer a layer."""
+    index: the same, one buffer a layer; the fused engines there (each
+    site on rank 0's haloed tile) the same."""
     from resnet_tpu_torch.models import forward
     from resnet_tpu_torch.parallel import spatial
     from resnet_tpu_torch.train import init_train_state

@@ -1,25 +1,30 @@
 """Spatial partitioning (resnet_tpu_torch.parallel.spatial) on the CPU: K1
-with JAX's explicit padding, the row plan, the halo exchange, and the data
-x spatial step against JAX's.
+and the fused sites with JAX's explicit padding, the row plan and the
+tiles of a layer's own padding, the halo exchange, and the data x spatial
+step of every engine JAX runs there against JAX's.
 
 K1's plain versions (forward, dx, dW) at a tile's paddings are held to
 JAX's ``conv2d_pallas(..., padding=..., interpret=True)`` and its VJP (fp32
 within 1e-5 of max, bf16 within one bf16 ulp + 1e-5 of max); a negative
 padding, which JAX's Pallas VJP cannot run, to the plain torch conv's
-autograd. The row plan is checked on ResNet-50 at 224 on 2 and 4 ranks.
+autograd. ``conv_chain`` and K8's plain version at a tile's padding are
+held to JAX's ``fused_conv(..., padding=..., interpret=True)`` and its VJP.
+The row plan is checked on ResNet-50 at 224 on 2 and 4 ranks, the tiles
+of the s2d stem's fold and folded conv on their own paddings.
 
 Two spawns of ``resnet_tpu_torch.tools.distributed_worker`` (gloo ranks on
 the CPU, started once for the module each): four ranks run the step on
-the 2 x 2 and 1 x 4 data x spatial grids and the partitioned conv and
-pools at uneven splits; two ranks the 1 x 2 grid, the engines and modes the
-spatial step takes, the partitioned ops at 2 ranks, and the Trainer with
+the 2 x 2 and 1 x 4 data x spatial grids and the partitioned conv, pools
+and fused sites at uneven splits; two ranks the 1 x 2 grid, the engines
+and modes the spatial step takes (the fused engines and the s2d stem
+among them), the partitioned ops at 2 ranks, and the Trainer with
 ``spatial_devices=2``; the CLI's ``--evaluate`` (float and ``--int8``)
 under torchrun with ``--spatial-devices 2`` against one process. Each
 step is held to JAX's one-device step and to
 JAX's own spatial step (``make_mesh_2d(2, 2, axes=("data", "spatial"))``
 with ``spatial_shard_batch``) at tests/test_parallel.py:232-247's
 tolerances, or to the port's one-process step at DP_TOL; bf16 within
-twice the port's own bf16-vs-fp32 gap.
+twice the bf16-vs-fp32 gap (the port's own, and for 'fused' JAX's too).
 """
 
 from __future__ import annotations
@@ -178,6 +183,54 @@ def test_k1_padded_op_passes_opcheck():
     assert padding.name == "padding" and padding.default_value is None
 
 
+# (H, W, Cin, Cout, k, stride, padding, prologue): a site on a tile's rows
+# under JAX's explicit padding, the reference's along W
+CHAIN_PAD_CASES = [
+    (6, 8, 4, 8, 3, 1, ((1, 0), (1, 1)), True),
+    (6, 8, 4, 8, 3, 1, ((0, 1), (1, 1)), True),
+    (7, 8, 4, 8, 3, 2, ((0, 0), (1, 0)), True),
+    (7, 7, 4, 8, 1, 2, ((0, 0), (0, 0)), False),
+]
+
+
+@pytest.mark.parametrize("fn", ["chain", "fused"])
+@pytest.mark.parametrize("case", CHAIN_PAD_CASES, ids=[f"{c[4]}x{c[4]}s{c[5]} {c[6][0]}"
+                                                       for c in CHAIN_PAD_CASES])
+def test_site_padding_matches_jax_fused_conv(case, fn):
+    """``conv_chain`` and K8's plain version (``fused_conv`` on CPU tensors)
+    with an explicit padding against JAX's ``fused_conv(..., padding=...,
+    interpret=True)`` and its VJP: y and the sums, then dx, dW, dscale and
+    dshift at seeded cotangents of both, fp32 within 1e-5 of max."""
+    from resnet_tpu.kernels.fused_conv import fused_conv as j_fused_conv
+    from resnet_tpu_torch.kernels import fused_conv
+
+    h, wd, cin, cout, k, s, pad, pro = case
+    rng = np.random.default_rng(h * 10 + k + s)
+    x = rng.normal(0, 1, (2, h, wd, cin)).astype(np.float32)
+    w = rng.normal(0, 0.3, (k, k, cin, cout)).astype(np.float32)
+    scale = rng.normal(1, 0.2, cin).astype(np.float32)
+    shift = (0.1 + np.abs(rng.normal(0, 0.5, cin))).astype(np.float32)
+    (lo, hi), (lo_w, hi_w) = pad
+    gy = rng.normal(0, 1, (2, (h + lo + hi - k) // s + 1, (wd + lo_w + hi_w - k) // s + 1,
+                           cout)).astype(np.float32)
+    gs = rng.normal(0, 1, (2, cout)).astype(np.float32)
+    (jy, jsums), vjp = jax.vjp(
+        lambda *a: j_fused_conv(*a, s, pad, pro, True, True), *map(jnp.asarray,
+                                                                     (x, w, scale, shift)))
+    want = [jy, jsums, *vjp((jnp.asarray(gy), jnp.asarray(gs)))]
+    leaves_ = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, scale, shift)]
+    y, sums = (fused_conv.conv_chain(*leaves_, s, pro, True, None, pad) if fn == "chain"
+               else fused_conv.fused_conv(*leaves_, s, pad, pro, True, None))
+    ((y * torch.from_numpy(gy)).sum() + (sums * torch.from_numpy(gs)).sum()).backward()
+    got = [y, sums] + [t.grad for t in leaves_]
+    names = ("y", "sums", "dx", "dw", "dscale", "dshift")
+    for name, a, b in zip(names, got, want, strict=True):
+        b = np.asarray(b)
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=0,
+                                   atol=1e-5 * max(np.abs(b).max(), 1e-30), err_msg=name)
+
+
 # ----------------------------------------------------------------- the plan
 
 
@@ -225,6 +278,35 @@ def test_tiles_take_the_reference_padding_at_the_edges_only():
         spatial.tiles_of(((0, 1), (1, 2), (2, 8)), 8, 7, 1)
 
 
+def test_tiles_of_an_explicit_padding():
+    """The tile helpers with a global padding other than the reference's:
+    the s2d stem's folded 4x4/s1 conv padded (2, 1) takes 2 halo rows
+    above a seam and 1 below, its (2, 1) at the image's edges only; the
+    fold's 2x2/s2 padded (0, 0) takes no halo on even rows and, on rows
+    [0, 3), [3, 8), rank 0 takes row 3 from below and rank 1 drops it
+    (padding -1). The fold's output keeps the 7x7/s2 stem's plan, and a
+    padding that does not give H / s rows raises."""
+    rows = spatial.even_rows(112, 2)
+    top, bottom = spatial.tiles_of(rows, 112, 4, 1, (2, 1))
+    assert (top.top, top.bottom, top.lo, top.hi, top.ho) == (0, 1, 2, 0, 56)
+    assert (bottom.top, bottom.bottom, bottom.lo, bottom.hi, bottom.ho) == (2, 0, 0, 1, 56)
+    a, b = spatial.tiles_of(((0, 3), (3, 8)), 8, 2, 2, (0, 0))
+    assert (a.top, a.bottom, a.lo, a.hi, a.ho) == (0, 1, 0, 0, 2)
+    assert (b.top, b.bottom, b.lo, b.hi, b.ho) == (0, 0, -1, 0, 2)
+    assert all(t.top == t.bottom == t.lo == t.hi == 0
+               for t in spatial.tiles_of(spatial.even_rows(224, 4), 224, 2, 2, (0, 0)))
+    part = spatial.Partition(_FakeGroup(), {})
+    x = torch.zeros(1, 112, 224, 3)
+    _, pad = part.tiles(x, 2, 2, "NHWC", ((0, 0), (0, 0)))
+    assert pad == ((0, 0), (0, 0))
+    _, pad = part.tiles(torch.zeros(1, 56, 112, 12), 4, 1, "NHWC", ((2, 1), (2, 1)))
+    assert pad == ((2, 0), (2, 1))
+    part.tiles(x, 7, 2, "NHWC")  # the 7x7/s2 stem's plan is the fold's
+    assert part.plans[112] == (112, ((0, 56), (56, 112)))
+    with pytest.raises(ValueError, match="does not give"):
+        spatial.tiles_of(rows, 112, 4, 1, (2, 2))
+
+
 def test_tile_cases_of_phase_3_are_the_plans_tiles():
     """chip_smoke.py's K1 tile cases (kernels.checks.TILE_CASES) are tiles
     of the plan: each case's padding gives the rank's output rows."""
@@ -234,6 +316,24 @@ def test_tile_cases_of_phase_3_are_the_plans_tiles():
         assert label.startswith(checks.TILE)
         assert (h + lo + hi - k) // s + 1 >= 1
         assert conv.geometry(h, wd, k, s, pad)[3] == wd // s
+
+
+def test_fused_tile_cases_of_phase_3_are_the_plans_tiles():
+    """chip_smoke.py's K8 tile cases (kernels.checks.FUSED_TILE_CASES, run
+    on K8 and K8-bf16) are tiles of the plan: the interior 3x3/s1 tile,
+    rows 7-14 of 28 at 3x3/s2 (padding 0) and 1x1/s2 (padding -1, no
+    prologue), stage 4's 4- and 3-row tiles, and the seam, which is exact;
+    each case's padding gives the rank's output rows, W / s wide."""
+    cases = checks.FUSED_TILE_CASES
+    assert len(cases) == 6
+    for case in cases:
+        n, (h, wd), cin, cout, k, s, prologue, cap, pad, (ho, wo) = checks.fused_conv_case(case)
+        assert case[0].startswith(checks.TILE) and cap is None
+        assert prologue == (k == 3) and ho >= 1 and wo == wd // s
+    pads = [c[-1][0] for c in cases]
+    assert pads[1] == (0, 0) and pads[2] == (-1, -1)
+    assert [checks.fused_conv_case(c)[-1][0] for c in cases[3:5]] == [4, 3]
+    assert [", exact" in c[0] for c in cases] == [False] * 5 + [True]
 
 
 def test_spatial_batch_specs_are_layout_aware():
@@ -287,6 +387,12 @@ OPS_2 = [
     dict(op="max_pool", n=2, h=14, w=14, cin=4, k=3, s=2),
     dict(op="conv", n=2, h=7, w=7, cin=4, cout=4, k=3, s=1, rows=[[0, 4], [4, 7]]),
     dict(op="avg", n=2, h=7, w=7, cin=4, rows=[[0, 4], [4, 7]]),
+    # the fused sites: K8's plain version on a 3x3 seam under the prologue
+    # (shift > 0 on every channel), the chain at 3x3/s2 on 7 + 7 rows, and
+    # the s2d stem on an uneven split (the fold takes row 3 from below)
+    dict(op="fused", n=2, h=7, w=7, cin=4, cout=6, k=3, s=1, rows=[[0, 4], [4, 7]]),
+    dict(op="fused", fn="chain", n=2, h=14, w=14, cin=4, cout=6, k=3, s=2),
+    dict(op="s2d", n=2, h=8, w=8, cin=3, cout=8, k=7, rows=[[0, 3], [3, 8]]),
 ]
 OPS_4 = [
     dict(op="conv", n=2, h=7, w=7, cin=4, cout=6, k=3, s=1,
@@ -299,8 +405,17 @@ OPS_4 = [
          rows=[[0, 4], [4, 7], [7, 11], [11, 14]]),
     dict(op="conv", n=2, h=56, w=56, cin=3, cout=8, k=7, s=2, engine="pallas"),
     dict(op="avg", n=2, h=7, w=7, cin=4, rows=[[0, 2], [2, 4], [4, 6], [6, 7]]),
+    # K8's plain version at 1x1/s2 under the prologue on tiles whose first
+    # row is odd (padding -1), and the chain at 3x3/s1 on 2, 2, 2, 1 rows
+    dict(op="fused", n=2, h=14, w=14, cin=4, cout=6, k=1, s=2,
+         rows=[[0, 4], [4, 7], [7, 11], [11, 14]]),
+    dict(op="fused", fn="chain", n=2, h=7, w=7, cin=4, cout=6, k=3, s=1,
+         rows=[[0, 2], [2, 4], [4, 6], [6, 7]]),
 ]
 
+FUSED = dict(kernels="fused")
+S2D = dict(PALLAS, space_to_depth=True)
+S2D_MODEL = dict(init_kernel=7)  # the 7x7/s2 stem that s2d folds
 # name -> (mesh, execution, extra case fields, model overrides, batch layout)
 STEPS_4 = {
     "s22_xla": ([2, 2], XLA, {}, None, "NHWC"),
@@ -309,6 +424,9 @@ STEPS_4 = {
     "s22_nchw": ([2, 2], dict(PALLAS, layout="NCHW"), {}, None, "NCHW"),
     "s14_xla": ([1, 4], XLA, {"audit": True}, WIDE, "NHWC"),
     "s14_pallas": ([1, 4], PALLAS, {}, WIDE, "NHWC"),
+    "s22_fused": ([2, 2], FUSED, {}, None, "NHWC"),
+    "s14_fused": ([1, 4], FUSED, {}, WIDE, "NHWC"),
+    "s22_s2d": ([2, 2], S2D, {}, S2D_MODEL, "NHWC"),
 }
 STEPS_2 = {
     "s12_xla": ([1, 2], XLA, {}, None, "NHWC"),
@@ -323,6 +441,11 @@ STEPS_2 = {
     "s12_frozen": ([1, 2], dict(PALLAS, bn_mode="frozen"), {}, None, "NHWC"),
     "s12_grouped": ([1, 2], XLA, {"fresh": True}, dict(groups=2, width_multiplier=2.0),
                     "NHWC"),
+    "s12_fused": ([1, 2], FUSED, {}, None, "NHWC"),
+    "s12_hybrid": ([1, 2], dict(kernels="hybrid"), {}, None, "NHWC"),
+    "s12_fusedxla": ([1, 2], dict(kernels="fusedxla"), {}, None, "NHWC"),
+    "s12_fused_bf16": ([1, 2], dict(FUSED, compute_dtype="bfloat16"), {}, None, "NHWC"),
+    "s12_s2d": ([1, 2], S2D, {}, S2D_MODEL, "NHWC"),
 }
 TABLES = {"4": STEPS_4, "2": STEPS_2}
 
@@ -338,6 +461,9 @@ def _spec(tmp, world, steps, ops, numpy_state):
         config = {"execution": execution}
         if model:
             config["model"] = dataclasses.asdict(tcfg.tiny_model_config(**model))
+            if "init_kernel" in model and not extra.get("fresh"):
+                # JAX's init of that model: the stem's weight has its shape
+                extra = dict(extra, state=_save_state(tmp, name, _np_state(model)))
         dim = (model or {}).get("input_dim", 16)
         cases.append(dict({"name": name, "mesh": mesh, "axes": ["data", "spatial"],
                            "config": config,
@@ -346,14 +472,23 @@ def _spec(tmp, world, steps, ops, numpy_state):
             "batch": _save_batch(tmp, "batch", _batch(16, 7)), "cases": cases}
 
 
+def _save_state(tmp, name, numpy_state):
+    path = tmp / f"{name}_state.pt"
+    torch.save({"params": bridge.params_from_numpy(numpy_state.params, device="cpu"),
+                "bn_state": bridge.params_from_numpy(numpy_state.bn_state, device="cpu")}, path)
+    return str(path)
+
+
 _NP = {}
 
 
-def _np_state():
-    """JAX's init of the tiny model, as numpy (made once)."""
-    if "s" not in _NP:
-        _NP["s"] = jax.tree.map(np.asarray, j_init_train_state(_j_cfg()))
-    return _NP["s"]
+def _np_state(model=None):
+    """JAX's init of the tiny model (with ``model``'s overrides), as numpy
+    (made once a model)."""
+    key = tuple(sorted((model or {}).items()))
+    if key not in _NP:
+        _NP[key] = jax.tree.map(np.asarray, j_init_train_state(_j_cfg(model=model)))
+    return _NP[key]
 
 
 @pytest.fixture(scope="module")
@@ -385,7 +520,7 @@ def _one_process(name, table_name):
     """The port's one-process step of a case (from JAX's init, or the
     seeded init for a fresh case) on the case's batch."""
     mesh, execution, extra, model, layout = TABLES[table_name][name]
-    numpy_state = _np_state()
+    numpy_state = _np_state(model if model and "init_kernel" in model else None)
     cfg = _t_cfg(execution, model)
     if extra.get("fresh"):
         state = init_train_state(cfg, device="cpu")
@@ -516,24 +651,105 @@ def test_spatial_bf16_step_within_the_bf16_gap(two, name):
     np.testing.assert_allclose(two[0][name]["metrics"]["loss"], tm["loss"].item(), rtol=1e-2)
 
 
+FUSED_STEPS = ["s12_fused", "s22_fused", "s14_fused", "s12_hybrid", "s12_fusedxla",
+               "s12_s2d", "s22_s2d"]
+
+
+@pytest.mark.parametrize("name", FUSED_STEPS)
+def test_spatial_fused_and_s2d_steps_match_jax_and_one_process(four, two, name):
+    """The fused engines ('fused' on the 1 x 2, 2 x 2 and, at input 56, 1 x 4
+    grids; 'hybrid' and 'fusedxla' on 1 x 2: every site on the rank's haloed
+    tile of its raw input, K8's prologue on the neighbours' rows) and the
+    s2d stem (kernels='pallas' with K1, the tiny model's 7x7/s2 stem folded
+    on the rank's rows) against JAX's one-device step of the same config
+    (Pallas interpreted): loss rtol 1e-5, grad_norm 1e-4, parameters at
+    JAX's tolerances; and against the port's one-process step at DP_TOL.
+    Every rank reports the same metrics."""
+    ranks, table = (four, "4") if name in STEPS_4 else (two, "2")
+    _, execution, _, model, _ = TABLES[table][name]
+    dim = (model or {}).get("input_dim", 16)
+    js, jm = _jax_one_device(tuple(dict(execution, pallas_interpret=True).items()),
+                             tuple((model or {}).items()), dim)
+    _same_on_every_rank(ranks, name)
+    _check_jax(ranks[0][name], js, jm)
+    _check_port(ranks[0][name], *_one_process(name, table))
+
+
+def _within_gap(got, want, ref, what):
+    """Each leaf of ``got`` within twice the bf16-vs-fp32 gap of ``want``
+    (the bf16 step) to ``ref`` (the fp32 step), + 1e-6."""
+    for (path, a), (_, b), (_, c) in zip(got, want, ref, strict=True):
+        a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+        gap, err = np.abs(b - c).max(), np.abs(a - b).max()
+        assert err <= 2 * gap + 1e-6, (what, path, err, gap)
+
+
+def test_spatial_fused_bf16_step_within_the_bf16_gaps(two):
+    """'fused' in bf16 on the 1 x 2 grid (K8-bf16's plain version on the
+    tiles): each parameter within twice JAX's own bf16-vs-fp32 gap of JAX's
+    one-device bf16 step, and within twice the port's of the port's
+    one-process bf16 step; the loss within 1e-2 of both."""
+    rank = two[0]["s12_fused_bf16"]
+    got = bridge.flatten(bridge.to_numpy(rank["params"]))
+    jb, jbm = _jax_one_device(tuple(dict(FUSED, compute_dtype="bfloat16",
+                                         pallas_interpret=True).items()))
+    jf, _ = _jax_one_device(tuple(dict(FUSED, pallas_interpret=True).items()))
+    _within_gap(got, *(bridge.flatten(jax.tree.map(np.asarray, t.params)) for t in (jb, jf)),
+                "params vs JAX")
+    ts, tm = _one_process("s12_fused_bf16", "2")
+    fs, _ = _one_process("s12_fused", "2")
+    _within_gap(got, *(bridge.flatten(bridge.to_numpy(t.params)) for t in (ts, fs)),
+                "params vs one process")
+    for want in (float(jbm["loss"]), tm["loss"].item()):
+        np.testing.assert_allclose(rank["metrics"]["loss"], want, rtol=1e-2)
+
+
+def _whole_site(op):
+    """A fused site (K8's plain version ``fused_conv_reference``, fp32) or
+    the s2d stem (the 7x7/s2 conv it folds, float64) on the whole image:
+    (y, dx, dW, and for a site its sums, dscale and dshift) against the
+    ranks' seeded cotangents."""
+    from resnet_tpu_torch.kernels.fused_conv import fused_conv_reference
+    from resnet_tpu_torch.tools.distributed_worker import spatial_op_inputs
+
+    x, weight, scale, shift, gen = spatial_op_inputs(op)
+    site = op["op"] == "fused"
+    s = op.get("s", 1 if site else 2)
+    leaves_ = [t if site else t.double() for t in (x, weight, scale, shift)]
+    for t in leaves_:
+        t.requires_grad_(True)
+    x, weight, scale, shift = leaves_
+    if site:
+        y, sums = fused_conv_reference(x, weight, scale, shift, s, None,
+                                       op.get("prologue", True), True, None)
+    else:
+        y, sums = plain_conv2d(x, weight, stride=s), None
+    loss = (y * torch.randn(*y.shape, generator=gen).to(y.dtype)).sum()
+    if site:
+        loss = loss + (sums * torch.randn(sums.shape, generator=gen)).sum()
+    loss.backward()
+    rest = dict(sums=sums.detach(), dscale=scale.grad, dshift=shift.grad) if site else {}
+    return y.detach(), x.grad, weight.grad, rest
+
+
 def _whole_op(op):
     """The plain op on the whole image (float64), its input and weight
     gradients against the seeded cotangent the ranks use."""
     from resnet_tpu_torch.ops import global_avg_pool, max_pool
+    from resnet_tpu_torch.tools.distributed_worker import spatial_op_inputs
 
-    gen = torch.Generator().manual_seed(op.get("seed", 0))
-    n, h, w, cin = op["n"], op["h"], op["w"], op["cin"]
-    x = torch.randn(n, h, w, cin, generator=gen).double().requires_grad_(True)
+    if op["op"] in ("fused", "s2d"):
+        return _whole_site(op)
+    x, weight, _, _, gen = spatial_op_inputs(op)
+    x, weight = x.double().requires_grad_(True), weight.double().requires_grad_(True)
     k, s = op.get("k", 1), op.get("s", 1)
-    weight = (torch.randn(k, k, cin, op.get("cout", cin), generator=gen) * 0.3).double()
-    weight.requires_grad_(True)
     if op["op"] == "conv":
         y = plain_conv2d(x, weight, stride=s)
     elif op["op"] == "max_pool":
         y = max_pool(x, kernel=k, stride=s)
     else:
         y = global_avg_pool(x)
-    g = (torch.randn(n, y.shape[-1], generator=gen) if op["op"] == "avg"
+    g = (torch.randn(op["n"], y.shape[-1], generator=gen) if op["op"] == "avg"
          else torch.randn(*y.shape, generator=gen)).double()
     (y * g).sum().backward()
     return y.detach(), x.grad, weight.grad if op["op"] == "conv" else None
@@ -541,8 +757,14 @@ def _whole_op(op):
 
 def _check_ops(ranks, ops):
     for i, op in enumerate(ops):
-        y, dx, dw = _whole_op(op)
+        y, dx, dw, *rest = _whole_op(op)
         recs = [r["ops"][i] for r in ranks]
+        # a fused site: its sums over each rank's own rows add up to the
+        # image's, and so do the prologue rows' gradients
+        for key, want in (rest[0] if rest else {}).items():
+            got = sum(r[key].double() for r in recs)
+            np.testing.assert_allclose(got, want.double(), rtol=0,
+                                       atol=1e-5 * float(want.abs().max()), err_msg=f"{key} {op}")
         if op["op"] == "avg":
             for r in recs:
                 np.testing.assert_allclose(r["y"], y, rtol=0, atol=1e-6, err_msg=str(op))
@@ -566,16 +788,22 @@ def _check_ops(ranks, ops):
 
 def test_partitioned_ops_on_two_ranks_match_the_whole_image(two):
     """Conv (3x3/s1, 3x3/s2 and 1x1/s2 on 7 + 7 rows, the stem's 7x7/s2,
-    K1's plain version with the tiles' padding, NCHW), the max pool, and the
-    global average pool on 4 + 3 rows: the ranks' outputs, input gradients
-    (halo cotangents returned to their owner) and summed weight gradients
-    equal the plain op on the whole image."""
+    K1's plain version with the tiles' padding, NCHW), the max pool, the
+    global average pool on 4 + 3 rows, K8's plain version under the
+    prologue on a 3x3 seam of 4 + 3 rows (act(shift) > 0: a halo row that
+    is not the neighbour's raw row shows), the chain at 3x3/s2 on 7 + 7
+    rows, and the s2d stem on rows [0, 3), [3, 8) (the fold takes one row
+    from below): the ranks' outputs, input gradients (halo cotangents
+    returned to their owner) and summed weight gradients (and a site's
+    sums, dscale and dshift) equal the plain op on the whole image."""
     _check_ops(two, OPS_2)
 
 
 def test_partitioned_ops_on_four_ranks_match_the_whole_image(four):
     """The same on 4 ranks at uneven splits: 7 rows as 2, 2, 2, 1, 14 rows as
-    4, 3, 4, 3 (odd first rows at stride 2), the stem on 56 rows."""
+    4, 3, 4, 3 (odd first rows at stride 2), the stem on 56 rows, K8's
+    plain version at 1x1/s2 under the prologue on tiles whose first row is
+    odd (padding -1), and the chain at 3x3/s1 on 2, 2, 2, 1 rows."""
     _check_ops(four, OPS_4)
 
 
@@ -717,21 +945,40 @@ def test_spatial_step_refuses_shard_map_and_grad_accum():
         make_train_step(_cfg(execution=dict(grad_accum=2)), grid)
 
 
+def same_as_jax(cfg, jc):
+    """The port's TrainConfig equals JAX's field for field (the execution
+    fields the port keeps)."""
+    ours, theirs = dataclasses.asdict(cfg), dataclasses.asdict(jc)
+    ex = ours.pop("execution")
+    assert ex == {k: theirs["execution"][k] for k in ex}
+    theirs.pop("execution")
+    assert ours == theirs
+
+
 @pytest.mark.parametrize("execution", [dict(kernels="fused"), dict(kernels="hybrid"),
                                        dict(kernels="fusedxla"),
                                        dict(space_to_depth=True)])
-def test_fused_engines_and_s2d_raise_naming_a13(execution):
-    """What spatial partitioning does not run yet raises NotImplementedError
-    naming A13: from the config, and from the forward inside a partition."""
+def test_fused_engines_and_s2d_run_on_a_rank_s_rows(execution):
+    """The fused engines and the s2d stem under spatial_devices=2: the
+    config builds, equal to JAX's field for field, and one training forward
+    inside a partition (rank 0 of two, the tiny model; its 7x7/s2 stem for
+    s2d) gives finite logits and every BN layer's batch statistics."""
     from resnet_tpu_torch.models import forward
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        _cfg(parallel=dict(spatial_devices=2), execution=execution)
-    cfg = _t_cfg(execution)
-    state = init_train_state(cfg, device="cpu")
-    with spatial.partition(_FakeGroup()), pytest.raises(NotImplementedError, match="A13"):
-        forward(state.params, torch.zeros(2, 8, 16, 3), cfg.model, cfg.execution,
-                bn_state=state.bn_state)
+    cfg = _cfg(parallel=dict(spatial_devices=2), execution=execution)
+    same_as_jax(cfg, jcfg.TrainConfig(
+        model=jcfg.tiny_model_config(), execution=jcfg.ExecutionConfig(**execution),
+        data=jcfg.DataConfig(batch_size=8, synthetic=True),
+        parallel=jcfg.ParallelConfig(spatial_devices=2), checkpoint_dir=""))
+    tc = _t_cfg(execution, S2D_MODEL if execution.get("space_to_depth") else None)
+    state = init_train_state(tc, device="cpu")
+    with spatial.partition(_FakeGroup()):
+        logits, aux = forward(state.params, torch.randn(2, 8, 16, 3), tc.model, tc.execution,
+                              bn_state=state.bn_state)
+    assert logits.shape == (2, 8) and torch.isfinite(logits).all()
+    stats = bridge.leaves(aux["bn_stats"])
+    assert len(stats) == len(bridge.leaves(state.bn_state))
+    assert all(torch.isfinite(t).all() for t in stats)
 
 
 def test_blockfused_refused_on_a_rank_s_rows_with_jax_message():
